@@ -1,0 +1,56 @@
+"""Model configuration: one frozen dataclass per architecture.
+
+The port's own copy of the reference ``ModelConfig``, cut to the fields the
+decoder-only LM path reads. Field names and defaults are the reference's, so
+``dataclasses.replace`` sizes a config the same way on both sides.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # 'lm' is the only family the port serves
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None          # default d_model // num_heads
+    # block pattern, cycled over layers; the port runs 'attn' blocks only
+    block_pattern: Sequence[str] = ("attn",)
+    mlp_act: str = "swiglu"     # 'swiglu' | 'geglu' | 'gelu'
+    norm: str = "rmsnorm"       # 'rmsnorm' | 'layernorm'
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    rope_style: str = "half"    # 'half' | 'partial' | 'none'
+    attn_window: Optional[int] = None
+    attn_logit_softcap: Optional[float] = None
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    vocab_pad_multiple: int = 0  # pad V up to a multiple; padding is masked
+    emb_scale: float = 1.0
+    residual_scale: float = 1.0
+    logit_scale_div: float = 1.0
+    max_seq_len: int = 8192
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.num_heads % max(1, self.num_kv_heads):
+            raise ValueError(f"num_heads {self.num_heads} is not a multiple "
+                             f"of num_kv_heads {self.num_kv_heads}")
+
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        if not m:
+            return self.vocab_size
+        return -(-self.vocab_size // m) * m
+
+    def layer_kind(self, i: int) -> str:
+        return self.block_pattern[i % len(self.block_pattern)]

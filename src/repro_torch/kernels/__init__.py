@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+``KERNELS`` lists every CUDA kernel with its launch count; ``build_all``
+compiles them in parallel (``_build.build_all``).
+"""
+from ._build import build_all as _build_all
+from .attention import DECODE_KERNEL, FWD_KERNEL
+from .gemm import KERNEL as GEMM_KERNEL
+
+KERNELS = (GEMM_KERNEL, FWD_KERNEL, DECODE_KERNEL)
+
+
+def build_all() -> dict:
+    return _build_all(KERNELS)
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,7 @@
+from .epilogue import cap_logits, softmax_finalize  # noqa: F401
+from .ref import attention_ref, decode_ref, ring_positions  # noqa: F401
+from .ops import (KERNEL as FWD_KERNEL, attention,  # noqa: F401
+                  flash_attention_fwd, flash_attention_fwd_ref)
+from .decode import (BLOCK_KV, KERNEL as DECODE_KERNEL,  # noqa: F401
+                     attention_decode,
+                     combine_splits, decode_partials_ref, flash_decode)

@@ -1,0 +1,151 @@
+"""``attention_decode``: split-KV decode attention over a contiguous (ring)
+KV cache, one query token per sequence.
+
+The per-split partials (o, m, l) come from the hand-written kernel
+(``csrc/flash_decode.cu``) for CUDA tensors and from its plain version
+(:func:`decode_partials_ref`) for CPU tensors; :func:`combine_splits` merges
+them in plain torch on either device, as the reference merges them in jnp.
+Splits are ``BLOCK_KV`` slots wide; the cache length need not be a multiple
+of it (the last split masks its tail).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import CudaKernel
+from .epilogue import cap_logits
+from .ref import MASK_VALUE, ring_positions
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = CudaKernel(
+    "flash_decode", "flash_decode.cu", "flash_decode_launch",
+    [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P])
+BLOCK_KV = 64
+HEAD_DIMS = (64, 128)
+
+
+def combine_splits(o, m, l, sinks=None):
+    """Log-sum-exp merge of per-split partials. o: (..., NS, G, D) fp32
+    unnormalised; m, l: (..., NS, G). Exact for any split count; rows whose
+    every split was masked come out as zeros. ``sinks`` broadcasts against
+    the (..., 1, G) cross-split max and joins the denominator once."""
+    m_max = torch.amax(m, dim=-2, keepdim=True)
+    if sinks is not None:
+        m_tot = torch.maximum(m_max, sinks)
+        alpha = torch.exp(m - m_tot)
+        den = torch.sum(l * alpha, dim=-2) + torch.exp(sinks - m_tot)[..., 0, :]
+        num = torch.sum(o * alpha[..., None], dim=-3)
+        return num / den[..., None]
+    alpha = torch.exp(m - m_max)
+    den = torch.sum(l * alpha, dim=-2)
+    num = torch.sum(o * alpha[..., None], dim=-3)
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return torch.where((den > 0.0)[..., None], out, 0.0)
+
+
+def decode_partials_ref(q, k, v, lengths, *, block_kv: int = BLOCK_KV,
+                        window: int | None = None, scale: float,
+                        softcap=None):
+    """Plain version of the decode kernel: per-split (o, m, l) in fp32.
+
+    q: (B, Hkv, G, D); k, v: (B, Hkv, S, D); lengths: (B,). Returns
+    o (B, Hkv, NS, G, D), m and l (B, Hkv, NS, G), NS = ceil(S / block_kv).
+    """
+    b, hkv, g, d = q.shape
+    slots = k.shape[2]
+    ns = -(-slots // block_kv)
+    pad = ns * block_kv - slots
+    actual, valid = ring_positions(lengths, slots)
+    if window is not None:
+        valid &= (lengths.long()[:, None] - 1 - actual) < window
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) * scale
+    s = cap_logits(s, softcap)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, MASK_VALUE)
+    s = torch.nn.functional.pad(s, (0, pad), value=MASK_VALUE)
+    vmask = torch.nn.functional.pad(vmask, (0, pad), value=False)
+    s = s.reshape(b, hkv, g, ns, block_kv).transpose(2, 3)
+    vmask = vmask.reshape(b, 1, 1, ns, block_kv).transpose(2, 3)
+    m = torch.amax(s, dim=-1)
+    p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
+    l = torch.sum(p, dim=-1)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    o = torch.einsum("bhngk,bhnkd->bhngd", p,
+                     vf.reshape(b, hkv, ns, block_kv, d))
+    return o, m, l
+
+
+def flash_decode(q, k, v, lengths, *, window: int | None = None,
+                 logit_scale: float | None = None, softcap=None, sinks=None):
+    """Split-KV decode: q (B, Hkv, G, D) group-packed queries; k/v
+    (B, Hkv, S, D); lengths (B,) int32 tokens written so far (ring semantics
+    when lengths > S). Returns (B, Hkv, G, D) in q's type."""
+    b, hkv, g, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, hkv) or k.shape[3] != d:
+        raise ValueError(f"attention_decode: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} do not match")
+    if lengths.shape != (b,):
+        raise ValueError(f"attention_decode: lengths must be ({b},), "
+                         f"got {tuple(lengths.shape)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"attention_decode: window must be positive, "
+                         f"got {window}")
+    scale = logit_scale if logit_scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        o, m, l = decode_partials_ref(q, k, v, lengths, window=window,
+                                      scale=scale, softcap=softcap)
+    elif q.device.type == "cuda":
+        o, m, l = _launch(q, k, v, lengths, window=window, scale=scale,
+                          softcap=softcap)
+    else:
+        raise ValueError(f"attention_decode: unsupported device {q.device}")
+    if sinks is not None:
+        sinks = sinks.float().reshape(hkv, 1, g)
+    return combine_splits(o, m, l, sinks=sinks).to(q.dtype)
+
+
+def attention_decode(q, k, v, lengths, *, window: int | None = None,
+                     logit_scale: float | None = None, softcap=None,
+                     sinks=None):
+    """Single-token decode attention. q: (B, H, 1, D) with H % Hkv == 0;
+    k/v: (B, Hkv, S, D); lengths: (B,) int32. Returns (B, H, 1, D)."""
+    b, h, _, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, d).contiguous()   # (B, H) rows: tiny
+    out = flash_decode(qg, k, v, lengths, window=window,
+                       logit_scale=logit_scale, softcap=softcap, sinks=sinks)
+    return out.reshape(b, h, 1, d)
+
+
+def _launch(q, k, v, lengths, *, window, scale, softcap):
+    b, hkv, g, d = q.shape
+    slots = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention_decode kernel: head_dim {d} not in "
+                         f"{HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"attention_decode kernel: {name} must be "
+                            f"bfloat16, got {t.dtype}")
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"attention_decode kernel: {name} must be a "
+                             f"contiguous, 16-byte aligned tensor on {q.device}")
+    if lengths.dtype != torch.int32 or lengths.device != q.device \
+            or not lengths.is_contiguous():
+        raise TypeError("attention_decode kernel: lengths must be a "
+                        f"contiguous int32 tensor on {q.device}")
+    ns = -(-slots // BLOCK_KV)
+    o = torch.empty((b, hkv, ns, g, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hkv, ns, g), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = KERNEL.fn()
+    stream = KERNEL.stream(q.device)
+    KERNEL.launches += 1
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+              o.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, g, slots, d,
+              BLOCK_KV, float(scale), float(softcap or 0.0), int(window or 0),
+              stream)
+    KERNEL.check(code)
+    return o, m, l

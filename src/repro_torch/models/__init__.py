@@ -1,0 +1,2 @@
+from .api import Model, build_model  # noqa: F401
+from .convert import params_from_numpy  # noqa: F401

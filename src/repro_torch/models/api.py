@@ -1,0 +1,53 @@
+"""Model API: ``build_model(cfg, mode=..., device=...)`` returns a
+:class:`Model` whose methods close over the config, the mode and the
+device."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, dtype_of, resolve_device
+from . import lm as _lm
+from .common import init_params, tree_map
+
+MODES = ("kernel", "reference")
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: object
+    mode: str
+    device: torch.device
+    defs: dict
+
+    def init(self, seed: int = 0) -> dict:
+        """Seeded random parameters, drawn in the param type and cast once
+        to the compute type: the model keeps that one copy."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = init_params(self.defs, gen, self.device)
+        dtype = dtype_of(self.cfg.compute_dtype)
+        return tree_map(lambda x: x.to(dtype), params)
+
+    def forward(self, params, tokens):
+        return _lm.lm_forward(self.cfg, params, tokens, mode=self.mode)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return _lm.lm_init_cache(self.cfg, batch, max_len, self.device)
+
+    def prefill(self, params, tokens, cache):
+        return _lm.lm_prefill(self.cfg, params, tokens, cache, mode=self.mode)
+
+    def decode_step(self, params, token, cache, pos: int):
+        return _lm.lm_decode_step(self.cfg, params, token, cache, pos,
+                                  mode=self.mode)
+
+
+def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE) -> Model:
+    """'kernel' runs the hand-written kernels on CUDA tensors (their plain
+    versions on CPU tensors); 'reference' runs the plain unfused path.
+    Raises when ``device`` is CUDA and no card is present."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; have {MODES}")
+    dev = resolve_device(device)
+    return Model(cfg=cfg, mode=mode, device=dev, defs=_lm.lm_param_defs(cfg))

@@ -1,0 +1,192 @@
+"""GQA/MHA attention layer: projections, RoPE, flash attention, KV cache.
+
+'kernel' mode runs the fused rung of the reference's QKV ladder: the
+block's pre-norm folds into the packed q|k GEMM's prologue and RoPE rides
+its store, v projects through a second fused GEMM with the same prologue,
+and prefill attention is the flash kernel. Decode projects q/k/v with plain
+products (as the reference does), appends to the contiguous (ring) cache in
+place and runs the split-KV decode kernel. 'reference' mode is the plain
+unfused path of the reference package.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.attention import (attention, attention_decode,
+                                           attention_ref, decode_ref)
+from repro_torch.kernels.gemm import Epilogue, gemm_fused
+from repro_torch.kernels.rope import rope_ref, rope_tables
+from .common import ParamDef, apply_prenorm, norm_prologue_kw
+
+
+def attn_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
+    """q and k projections are one pre-packed ``wqk`` (d, (H+Hkv)*hd)."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lead = (stack,) if stack else ()
+    dt = cfg.param_dtype
+    defs = {
+        f"{prefix}/wqk": ParamDef(lead + (d, (h + hkv) * hd), dtype=dt),
+        f"{prefix}/wv": ParamDef(lead + (d, hkv * hd), dtype=dt),
+        f"{prefix}/wo": ParamDef(lead + (h * hd, d), dtype=dt),
+    }
+    if cfg.qkv_bias:
+        defs[f"{prefix}/bqk"] = ParamDef(lead + ((h + hkv) * hd,),
+                                         init="zeros", dtype=dt)
+        defs[f"{prefix}/bv"] = ParamDef(lead + (hkv * hd,), init="zeros",
+                                        dtype=dt)
+    return defs
+
+
+def _split_heads(x, n_heads, head_dim):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def _apply_rope(cfg, q, k, positions):
+    """Plain RoPE on (B, H, S, hd) q/k at absolute ``positions`` (S,)."""
+    if cfg.rope_style == "none":
+        return q, k
+    hd = q.shape[-1]
+    rot = hd // 2 if cfg.rope_style == "partial" else hd
+    sin, cos = rope_tables(positions, rot, cfg.rope_theta)
+
+    def rot_fn(x):
+        out = rope_ref(x[..., :rot], sin, cos)
+        if rot == hd:
+            return out
+        return torch.cat([out, x[..., rot:]], dim=-1)
+
+    return rot_fn(q), rot_fn(k)
+
+
+def project_qkv(cfg, p, x):
+    """Plain projections over the packed ``wqk``: q/k are column slices."""
+    nq = cfg.num_heads * cfg.head_dim
+    qk = x @ p["wqk"]
+    q, k = qk[..., :nq], qk[..., nq:]
+    v = x @ p["wv"]
+    if "bqk" in p:
+        q = q + p["bqk"][..., :nq]
+        k = k + p["bqk"][..., nq:]
+        v = v + p["bv"]
+    return (_split_heads(q, cfg.num_heads, cfg.head_dim),
+            _split_heads(k, cfg.num_kv_heads, cfg.head_dim),
+            _split_heads(v, cfg.num_kv_heads, cfg.head_dim))
+
+
+def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None):
+    """q|k through one GEMM whose prologue is the block's pre-norm and whose
+    store rotates q and k (RoPE 'half'); v through a second GEMM with the
+    same prologue. Returns (B, H|Hkv, S, hd) views of the GEMM outputs."""
+    if cfg.rope_style != "half":
+        raise NotImplementedError(
+            f"kernel mode fuses RoPE 'half' only, not {cfg.rope_style!r}")
+    b, s, d = x.shape
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    has_bias = "bqk" in p
+    kw = norm_prologue_kw(cfg, prenorm) if prenorm is not None else {}
+    x2 = x.reshape(b * s, d)
+    sin, cos = rope_tables(positions, hd, cfg.rope_theta)
+    # one table row per flattened (batch, seq) token row of the GEMM
+    qk = gemm_fused(x2, p["wqk"], epilogue=Epilogue(bias=has_bias, rope=True,
+                                                    head_dim=hd),
+                    bias=p.get("bqk"), sin=sin.repeat(b, 1),
+                    cos=cos.repeat(b, 1), out_dtype=x.dtype, **kw)
+    v = gemm_fused(x2, p["wv"], epilogue=Epilogue(bias=has_bias),
+                   bias=p.get("bv"), out_dtype=x.dtype, **kw)
+    q = qk[:, : h * hd].reshape(b, s, h * hd)
+    k = qk[:, h * hd:].reshape(b, s, hkv * hd)
+    return (_split_heads(q, h, hd), _split_heads(k, hkv, hd),
+            _split_heads(v.reshape(b, s, hkv * hd), hkv, hd))
+
+
+def project_qkv_heads(cfg, p, x, positions, *, mode: str, prenorm=None):
+    """Rotated (q, k, v) heads from the pre-norm stream ``x`` (B, S, D)."""
+    if mode == "kernel":
+        return fused_project_qkv_rope(cfg, p, x, positions, prenorm=prenorm)
+    if prenorm is not None:
+        x = apply_prenorm(cfg, x, prenorm)
+    q, k, v = project_qkv(cfg, p, x)
+    q, k = _apply_rope(cfg, q, k, positions)
+    return q, k, v
+
+
+def attend(cfg, q, k, v, *, window, mode: str):
+    """Causal full-sequence attention: the flash kernel or the oracle."""
+    softcap = cfg.attn_logit_softcap
+    if mode == "kernel":
+        return attention(q, k, v, causal=True, window=window, softcap=softcap)
+    return attention_ref(q, k, v, causal=True, window=window, softcap=softcap)
+
+
+def attention_layer(cfg, p, x, *, window: int | None = None, positions=None,
+                    mode: str = "reference", prenorm=None):
+    """Full-sequence causal self-attention (train/prefill). x: (B, S, D)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = project_qkv_heads(cfg, p, x, positions, mode=mode,
+                                prenorm=prenorm)
+    out = attend(cfg, q, k, v, window=window, mode=mode)
+    return _merge_heads(out) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode path)
+# ---------------------------------------------------------------------------
+
+def cache_len(max_len: int, window: int | None) -> int:
+    return min(max_len, window) if window else max_len
+
+
+def init_attn_cache(cfg, batch: int, max_len: int, window: int | None,
+                    dtype, device, *, layers: int) -> dict:
+    """A stacked (layers, B, Hkv, slots, hd) cache, zeroed."""
+    shape = (layers, batch, cfg.num_kv_heads, cache_len(max_len, window),
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_attn_cache(k_cache, v_cache, k, v) -> None:
+    """Write full-prefill k/v (B, Hkv, S, hd) into one layer's (possibly
+    ring) cache, in place: slot = pos % slots keeps the last ``slots``
+    positions."""
+    slots, s = k_cache.shape[2], k.shape[2]
+    if s <= slots:
+        k_cache[:, :, :s] = k
+        v_cache[:, :, :s] = v
+        return
+    idx = torch.arange(s - slots, s, device=k.device) % slots
+    k_cache[:, :, idx] = k[:, :, -slots:]
+    v_cache[:, :, idx] = v[:, :, -slots:]
+
+
+def decode_attention_layer(cfg, p, x, k_cache, v_cache, pos: int, *,
+                           window: int | None = None,
+                           mode: str = "reference"):
+    """One-token decode. x: (B, 1, D) (already normed); pos: the current
+    position. Appends this token's k/v to the layer's cache in place (slot
+    pos % slots) and attends over it. Returns (B, 1, D)."""
+    b = x.shape[0]
+    q, k_new, v_new = project_qkv(cfg, p, x)
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q, k_new = _apply_rope(cfg, q, k_new, positions)
+    slot = pos % k_cache.shape[2]
+    k_cache[:, :, slot] = k_new[:, :, 0]
+    v_cache[:, :, slot] = v_new[:, :, 0]
+    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    softcap = cfg.attn_logit_softcap
+    if mode == "kernel":
+        out = attention_decode(q, k_cache, v_cache, lengths, window=window,
+                               softcap=softcap)
+    else:
+        hkv = cfg.num_kv_heads
+        qg = q.reshape(b, hkv, cfg.num_heads // hkv, cfg.head_dim)
+        out = decode_ref(qg, k_cache, v_cache, lengths, window=window,
+                         softcap=softcap).reshape(q.shape)
+    return _merge_heads(out.to(x.dtype)) @ p["wo"]

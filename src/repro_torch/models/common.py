@@ -1,0 +1,200 @@
+"""Parameter declaration machinery and the shared numerics.
+
+A model is described by a flat dict ``{path: ParamDef}``; the nested param
+tree is derived from the flat paths, with the same keys and shapes as the
+reference package, so its parameters convert one to one
+(``models.convert.params_from_numpy``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Mapping
+
+import torch
+
+from repro_torch.device import dtype_of
+from repro_torch.kernels.gemm import Epilogue, gemm_fused, norm_prologue
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple
+    init: str = "normal"     # 'normal' | 'zeros' | 'ones'
+    scale: float = 1.0       # stddev multiplier (normal init)
+    dtype: str = "float32"
+
+
+def nest(flat: Mapping[str, object]) -> dict:
+    """{'a/b/c': v} -> {'a': {'b': {'c': v}}}"""
+    tree: dict = {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_params(defs: Mapping[str, ParamDef], generator: torch.Generator,
+                device) -> dict:
+    """The reference's distributions, drawn from a torch generator: zeros,
+    ones, or a normal with std = scale / sqrt(fan_in), where fan_in is the
+    leading dim of a matrix (for a stacked (layers, d, f) weight that is the
+    layer count, as in the reference) and the length of a vector. The
+    numbers differ from the reference's (another generator); the tests feed
+    both sides the same numpy weights instead."""
+    flat = {}
+    for path, d in sorted(defs.items()):
+        dtype = dtype_of(d.dtype)
+        if d.init == "zeros":
+            flat[path] = torch.zeros(d.shape, dtype=dtype, device=device)
+        elif d.init == "ones":
+            flat[path] = torch.ones(d.shape, dtype=dtype, device=device)
+        elif d.init == "normal":
+            fan_in = d.shape[0] if len(d.shape) > 1 else d.shape[-1]
+            std = d.scale / math.sqrt(max(1, fan_in))
+            flat[path] = (torch.randn(d.shape, generator=generator,
+                                      dtype=torch.float32, device=device)
+                          * std).to(dtype)
+        else:
+            raise ValueError(f"unknown init {d.init!r} for {path}")
+    return nest(flat)
+
+
+# ---------------------------------------------------------------------------
+# Shared numerics (fp32 internally)
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    xf = x.float()
+    c = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    out = c * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def apply_norm(cfg, x, p, prefix: str):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p[f"{prefix}_scale"])
+    return layernorm(x, p[f"{prefix}_scale"], p.get(f"{prefix}_bias"))
+
+
+def norm_params(p, prefix: str) -> tuple:
+    """The (scale, bias) pair of a norm, for the ``prenorm`` argument: the
+    kernel mode folds the norm into the next GEMM's prologue."""
+    return (p[f"{prefix}_scale"], p.get(f"{prefix}_bias"))
+
+
+def apply_prenorm(cfg, x, prenorm: tuple):
+    """The standalone norm of a ``prenorm`` pair (reference mode)."""
+    scale, bias = prenorm
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, scale)
+    return layernorm(x, scale, bias)
+
+
+def act_fn(name: str):
+    if name in ("swiglu", "silu"):
+        return torch.nn.functional.silu
+    if name in ("geglu", "gelu"):
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(name)
+
+
+def norm_prologue_kw(cfg, prenorm) -> dict:
+    """gemm_fused keyword arguments folding a block's pre-norm into the
+    GEMM prologue (the kernel takes rmsnorm)."""
+    scale, bias = prenorm
+    kw = {"prologue": norm_prologue(cfg.norm, beta=bias is not None),
+          "gamma": scale}
+    if bias is not None:
+        kw["beta"] = bias
+    return kw
+
+
+def _mlp_fused(cfg, p, x, *, residual, residual_scale, prenorm):
+    """The kernel-mode MLP: the block's pre-norm folds into the up GEMM's
+    prologue, the two gated up-projections run as one dual-output GEMM whose
+    store is silu(x @ w_gate) * (x @ w_in), and the down GEMM's store adds
+    the scaled residual."""
+    if cfg.mlp_act != "swiglu":
+        raise NotImplementedError(
+            f"kernel mode runs the swiglu MLP only, not {cfg.mlp_act!r}")
+    *lead, d = x.shape
+    tokens = math.prod(lead)
+    kw = norm_prologue_kw(cfg, prenorm) if prenorm is not None else {}
+    x2 = x.reshape(tokens, d)
+    h = gemm_fused(x2, p["w_gate"], b2=p["w_in"],
+                   epilogue=Epilogue(activation="silu", gate=True),
+                   out_dtype=x.dtype, **kw)
+    if residual is None:
+        y = gemm_fused(h, p["w_out"], out_dtype=x.dtype)
+    else:
+        y = gemm_fused(h, p["w_out"],
+                       epilogue=Epilogue(residual=True, scale=True),
+                       residual=residual.reshape(tokens, d),
+                       scale=residual_scale, out_dtype=x.dtype)
+    return y.reshape(x.shape)
+
+
+def mlp_forward(cfg, p, x, *, mode: str = "reference", residual=None,
+                residual_scale: float = 1.0, prenorm=None):
+    """Gated (swiglu/geglu) or plain MLP over p = {w_in, w_gate, w_out}.
+
+    With ``residual`` the result is ``residual + residual_scale * mlp(x)``;
+    with ``prenorm`` (the block's norm params) ``x`` is the pre-norm stream
+    and the MLP reads ``norm(x)``. 'kernel' mode runs the fused chain;
+    'reference' the unfused plain one.
+    """
+    if mode == "kernel":
+        return _mlp_fused(cfg, p, x, residual=residual,
+                          residual_scale=residual_scale, prenorm=prenorm)
+    if prenorm is not None:
+        x = apply_prenorm(cfg, x, prenorm)
+    act = act_fn(cfg.mlp_act)
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        h = act(x @ p["w_gate"]) * (x @ p["w_in"])
+    else:
+        h = act(x @ p["w_in"])
+    m = h @ p["w_out"]
+    if residual is None:
+        return m
+    return residual + residual_scale * m
+
+
+def mlp_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    lead = (stack,) if stack else ()
+    dt = cfg.param_dtype
+    defs = {f"{prefix}/w_in": ParamDef(lead + (d, f), dtype=dt),
+            f"{prefix}/w_out": ParamDef(lead + (f, d), dtype=dt)}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        defs[f"{prefix}/w_gate"] = ParamDef(lead + (d, f), dtype=dt)
+    return defs
+
+
+def norm_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
+    lead = (stack,) if stack else ()
+    dt = cfg.param_dtype
+    defs = {f"{prefix}_scale": ParamDef(lead + (cfg.d_model,), init="ones",
+                                        dtype=dt)}
+    if cfg.norm == "layernorm":
+        defs[f"{prefix}_bias"] = ParamDef(lead + (cfg.d_model,), init="zeros",
+                                          dtype=dt)
+    return defs

@@ -1,0 +1,96 @@
+"""The CUDA kernels' build and binding, checked without a card: every
+wrapper's ctypes argument list matches its C entry point in ``csrc/`` (a
+mismatch would cut pointers or shift arguments at the first launch), the
+library name follows the source and flags, and a wrapper given a tensor
+that is neither on the CPU nor on a CUDA card raises instead of running."""
+import ctypes
+import re
+
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels.attention import attention, attention_decode
+from repro_torch.kernels.gemm import gemm_fused
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
+
+
+def _c_signature(source: str, entry: str) -> list:
+    match = re.search(rf"\bint\s+{entry}\s*\(([^)]*)\)\s*\{{", source)
+    assert match, f"{entry} not found"
+    types = []
+    for param in match.group(1).split(","):
+        param = " ".join(param.split())
+        ctype = param.rsplit(" ", 1)[0].replace(" *", "*")
+        assert ctype in _C_TYPES, param
+        types.append(_C_TYPES[ctype])
+    return types
+
+
+@pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
+def test_argtypes_match_the_c_entry_point(kernel):
+    source = kernel.source.read_text()
+    assert 'extern "C"' in source
+    assert "repro_error_string" in source
+    assert _c_signature(source, kernel.entry) == kernel.argtypes
+
+
+@pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
+def test_every_source_notes_what_it_replaces_and_its_bound(kernel):
+    head = kernel.source.read_text()[:4000]
+    assert "Replaces the TPU kernel" in head
+    assert "What bounds it on an H100" in head
+
+
+def test_library_name_follows_source_and_flags():
+    names = {k.lib_path.name for k in kernels.KERNELS}
+    assert len(names) == len(kernels.KERNELS)
+    assert all(p.startswith("lib") and p.endswith(".so") for p in names)
+    assert _build.BUILD_DIR.name == "build"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_launch_counts_reset():
+    for k in kernels.KERNELS:
+        k.launches = 3
+    assert set(kernels.launch_counts().values()) == {3}
+    kernels.reset_launch_counts()
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("op", ["gemm", "attention", "decode"])
+def test_wrappers_refuse_other_devices(op):
+    """A tensor on neither the CPU nor the card (here the meta device) is
+    refused, and no launch is counted."""
+    kernels.reset_launch_counts()
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        if op == "gemm":
+            gemm_fused(torch.empty(8, 16, **meta), torch.empty(16, 8, **meta))
+        elif op == "attention":
+            q = torch.empty(1, 2, 8, 64, **meta)
+            attention(q, q, q, causal=True)
+        else:
+            q = torch.empty(1, 2, 1, 64, **meta)
+            attention_decode(q, q.expand(1, 2, 8, 64), q.expand(1, 2, 8, 64),
+                             torch.empty(1, dtype=torch.int32, device="meta"))
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_profile_helpers_sort_kernels_and_merge_intervals():
+    """The serving profile files each device kernel under its family and
+    counts overlapping device intervals once."""
+    from repro_torch.launch import profile_serve as ps
+    assert ps.family("void gemm_fused_kernel<128, 128, 64, 32, false>") \
+        == "gemm_fused"
+    assert ps.family("rms_stats_kernel") == "gemm_fused"
+    assert ps.family("flash_fwd_kernel<64>") == "flash_attention_fwd"
+    assert ps.family("flash_decode_kernel<64>") == "flash_decode"
+    assert ps.family("sm90_xmma_gemm_bf16bf16_bf16f32") == "library_matmul"
+    assert ps.family("nvjet_tst_128x64_64x8_2x1_v_bz_TNT") == "library_matmul"
+    assert ps.family("vectorized_elementwise_kernel") == "other_torch"
+    assert ps._union_us([(0, 5), (3, 8), (10, 12), (11, 11.5)]) == 10.0
