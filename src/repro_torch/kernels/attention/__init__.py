@@ -3,5 +3,7 @@ from .ref import attention_ref, decode_ref, ring_positions  # noqa: F401
 from .ops import (KERNEL as FWD_KERNEL, attention,  # noqa: F401
                   flash_attention_fwd, flash_attention_fwd_ref)
 from .decode import (BLOCK_KV, KERNEL as DECODE_KERNEL,  # noqa: F401
-                     attention_decode,
-                     combine_splits, decode_partials_ref, flash_decode)
+                     PAGED_KERNEL as DECODE_PAGED_KERNEL, attention_decode,
+                     attention_decode_paged, combine_splits,
+                     decode_partials_paged_ref, decode_partials_ref,
+                     flash_decode, flash_decode_paged)

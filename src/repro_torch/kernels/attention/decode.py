@@ -1,12 +1,15 @@
-"""``attention_decode``: split-KV decode attention over a contiguous (ring)
-KV cache, one query token per sequence.
+"""Split-KV decode attention: ``attention_decode`` over a contiguous (ring)
+KV cache, one query token per sequence, and ``attention_decode_paged`` over
+a paged KV pool, 1 or T query tokens per sequence.
 
-The per-split partials (o, m, l) come from the hand-written kernel
-(``csrc/flash_decode.cu``) for CUDA tensors and from its plain version
-(:func:`decode_partials_ref`) for CPU tensors; :func:`combine_splits` merges
-them in plain torch on either device, as the reference merges them in jnp.
-Splits are ``BLOCK_KV`` slots wide; the cache length need not be a multiple
-of it (the last split masks its tail).
+The per-split partials (o, m, l) come from the hand-written kernels
+(``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``) for CUDA tensors
+and from their plain versions (:func:`decode_partials_ref`,
+:func:`decode_partials_paged_ref`) for CPU tensors; :func:`combine_splits`
+merges them in plain torch on either device, as the reference merges them
+in jnp. Contiguous splits are ``BLOCK_KV`` slots wide (the cache length
+need not be a multiple of it: the last split masks its tail); a paged split
+is one page.
 """
 from __future__ import annotations
 
@@ -16,14 +19,18 @@ import torch
 
 from .._build import CudaKernel
 from .epilogue import cap_logits
-from .ref import MASK_VALUE, ring_positions
+from .ref import MASK_VALUE, decode_ref, ring_positions
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "flash_decode", "flash_decode.cu", "flash_decode_launch",
     [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P])
+PAGED_KERNEL = CudaKernel(
+    "flash_decode_paged", "flash_decode_paged.cu", "flash_decode_paged_launch",
+    [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P])
 BLOCK_KV = 64
 HEAD_DIMS = (64, 128)
+MAX_PAGE_SIZE = 128
 
 
 def combine_splits(o, m, l, sinks=None):
@@ -148,4 +155,167 @@ def _launch(q, k, v, lengths, *, window, scale, softcap):
               BLOCK_KV, float(scale), float(softcap or 0.0), int(window or 0),
               stream)
     KERNEL.check(code)
+    return o, m, l
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
+
+def decode_partials_paged_ref(q, k_pages, v_pages, page_table, lengths, *,
+                              window: int | None = None, scale: float,
+                              softcap=None, q_tokens: int = 1):
+    """Plain version of the paged kernel: per-page (o, m, l) in fp32.
+
+    q: (B, Hkv, R, D) with R = G * T rows (row = g*T + t); k_pages/v_pages:
+    (P, Hkv, page, D); page_table: (B, MP); lengths: (B,). Returns
+    o (B, Hkv, MP, R, D), m and l (B, Hkv, MP, R). A fully masked page gives
+    (0, -1e30, 0).
+    """
+    b, hkv, rows, d = q.shape
+    page_size = k_pages.shape[2]
+    mp = page_table.shape[1]
+    pt = page_table.long()
+    kg = k_pages[pt].transpose(1, 2).float()           # (B, Hkv, MP, page, D)
+    vg = v_pages[pt].transpose(1, 2).float()
+    # (B, MP, R, page) validity: position idx is seen by row r (token
+    # t = r mod T) when idx <= length - T + t, and within the window of it
+    idx = torch.arange(mp * page_size, device=q.device).reshape(mp, 1,
+                                                                page_size)
+    row_t = (torch.arange(rows, device=q.device) % q_tokens).reshape(rows, 1)
+    horizon = lengths.long().reshape(b, 1, 1, 1) - q_tokens + row_t
+    valid = idx <= horizon
+    if window is not None:
+        valid &= (horizon - idx) < window
+    valid = valid[:, None]                              # (B, 1, MP, R, page)
+    s = torch.einsum("bhrd,bhnpd->bhnrp", q.float(), kg) * scale
+    s = cap_logits(s, softcap)
+    s = torch.where(valid, s, MASK_VALUE)
+    m = torch.amax(s, dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhnrp,bhnpd->bhnrd", p, vg)
+    return o, m, l
+
+
+def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
+                       window: int | None = None,
+                       logit_scale: float | None = None, softcap=None,
+                       sinks=None, q_tokens: int = 1):
+    """Split-KV decode over a paged KV pool (one split == one page).
+
+    q: (B, Hkv, R, D) group-packed queries, R = G * q_tokens (row = g*T +
+    t); k_pages/v_pages: (P, Hkv, page_size, D); page_table: (B, MP) int32
+    physical page ids (0 = the null page); lengths: (B,) int32 tokens
+    written so far, the T query tokens included: row t attends through
+    position ``lengths - T + t``. ``sinks`` (Hkv * R,) per row. Returns
+    (B, Hkv, R, D) in q's type.
+    """
+    b, hkv, rows, d = q.shape
+    if k_pages.shape != v_pages.shape or k_pages.shape[1] != hkv \
+            or k_pages.shape[3] != d:
+        raise ValueError(f"attention_decode_paged: q {tuple(q.shape)} and "
+                         f"pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} do not match")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError(f"attention_decode_paged: page_table "
+                         f"{tuple(page_table.shape)} and lengths "
+                         f"{tuple(lengths.shape)} must be ({b}, MP) and ({b},)")
+    if q_tokens < 1 or rows % q_tokens:
+        raise ValueError(f"attention_decode_paged: {rows} q rows are not a "
+                         f"whole number of groups of {q_tokens} tokens")
+    if window is not None and window <= 0:
+        raise ValueError(f"attention_decode_paged: window must be positive, "
+                         f"got {window}")
+    scale = logit_scale if logit_scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        o, m, l = decode_partials_paged_ref(
+            q, k_pages, v_pages, page_table, lengths, window=window,
+            scale=scale, softcap=softcap, q_tokens=q_tokens)
+    elif q.device.type == "cuda":
+        o, m, l = _launch_paged(q, k_pages, v_pages, page_table, lengths,
+                                window=window, scale=scale, softcap=softcap,
+                                q_tokens=q_tokens)
+    else:
+        raise ValueError(f"attention_decode_paged: unsupported device "
+                         f"{q.device}")
+    if sinks is not None:
+        sinks = sinks.float().reshape(hkv, 1, rows)
+    return combine_splits(o, m, l, sinks=sinks).to(q.dtype)
+
+
+def attention_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
+                           window: int | None = None,
+                           logit_scale: float | None = None, softcap=None,
+                           sinks=None, mode: str = "kernel"):
+    """Decode attention (1 or T query tokens) over a paged KV pool.
+
+    q: (B, H, T, D); token t of sequence b sits at position
+    ``lengths[b] - T + t`` (``lengths`` counts the KV including the T
+    tokens already appended). k_pages/v_pages: (P, Hkv, page_size, D);
+    page_table: (B, MP) physical page ids; lengths: (B,). ``sinks``: (H,).
+    Returns (B, H, T, D) in q's type. mode="reference" gathers the pages
+    into a contiguous copy and runs the oracle; "kernel" runs
+    :func:`flash_decode_paged`.
+    """
+    b, h, t, d = q.shape
+    hkv = k_pages.shape[1]
+    group = h // hkv
+    # pack tokens group-major: row = g*T + t
+    qg = q.reshape(b, hkv, group * t, d)
+    if sinks is not None and t > 1:
+        sinks = sinks.reshape(hkv, group).repeat_interleave(t, dim=1)
+    if mode == "reference":
+        from repro_torch.serve.kv_cache import gather_pages
+        out = decode_ref(qg, gather_pages(k_pages, page_table),
+                         gather_pages(v_pages, page_table), lengths,
+                         window=window, logit_scale=logit_scale,
+                         softcap=softcap, sinks=sinks, q_tokens=t)
+    else:
+        out = flash_decode_paged(qg.contiguous(), k_pages, v_pages,
+                                 page_table, lengths, window=window,
+                                 logit_scale=logit_scale, softcap=softcap,
+                                 sinks=sinks, q_tokens=t)
+    return out.reshape(b, h, t, d)
+
+
+def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
+                  softcap, q_tokens):
+    b, hkv, rows, d = q.shape
+    page_size = k_pages.shape[2]
+    mp = page_table.shape[1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention_decode_paged kernel: head_dim {d} not "
+                         f"in {HEAD_DIMS}")
+    if page_size % 8 or not 8 <= page_size <= MAX_PAGE_SIZE:
+        raise ValueError(f"attention_decode_paged kernel: page size "
+                         f"{page_size} is not a multiple of 8 in "
+                         f"[8, {MAX_PAGE_SIZE}]")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"attention_decode_paged kernel: {name} must be "
+                            f"bfloat16, got {t.dtype}")
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"attention_decode_paged kernel: {name} must be "
+                             f"a contiguous, 16-byte aligned tensor on "
+                             f"{q.device}")
+    for name, t in (("page_table", page_table), ("lengths", lengths)):
+        if t.dtype != torch.int32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise TypeError(f"attention_decode_paged kernel: {name} must be "
+                            f"a contiguous int32 tensor on {q.device}")
+    o = torch.empty((b, hkv, mp, rows, d), dtype=torch.float32,
+                    device=q.device)
+    m = torch.empty((b, hkv, mp, rows), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = PAGED_KERNEL.fn()
+    stream = PAGED_KERNEL.stream(q.device)
+    PAGED_KERNEL.launches += 1
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+              m.data_ptr(), l.data_ptr(), b, hkv, rows, page_size, mp, d,
+              q_tokens, float(scale), float(softcap or 0.0), int(window or 0),
+              stream)
+    PAGED_KERNEL.check(code)
     return o, m, l

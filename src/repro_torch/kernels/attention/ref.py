@@ -63,20 +63,33 @@ def ring_positions(lengths, slots: int):
 
 
 def decode_ref(q, k, v, lengths, *, window: int | None = None,
-               logit_scale: float | None = None, softcap=None, sinks=None):
-    """Single-token decode oracle over a (possibly ring) KV cache.
+               logit_scale: float | None = None, softcap=None, sinks=None,
+               q_tokens: int = 1):
+    """Decode oracle (1 or T query tokens) over a (possibly ring) KV cache.
 
     q: (B, Hkv, G, D), the GQA group packed into the q rows; k, v:
     (B, Hkv, S, D); ``lengths``: (B,) tokens written so far. Returns
     (B, Hkv, G, D) in q's type; empty rows (lengths == 0) give zeros.
+
+    ``q_tokens`` > 1: G packs group * T rows group-major (row = g*T + t),
+    and row t's causal horizon is position ``lengths - T + t``.
     """
     b, hkv, g, d = q.shape
     slots = k.shape[2]
     actual, valid = ring_positions(lengths, slots)
-    if window is not None:
-        pos = lengths.long()[:, None] - 1
-        valid &= (pos - actual) < window
-    vmask = valid[:, None, None, :]
+    if q_tokens == 1:
+        if window is not None:
+            pos = lengths.long()[:, None] - 1
+            valid &= (pos - actual) < window
+        vmask = valid[:, None, None, :]
+    else:
+        row_t = torch.arange(g, device=q.device) % q_tokens          # (X,)
+        pos_row = lengths.long()[:, None] - q_tokens + row_t[None, :]  # (B, X)
+        vmask = valid[:, None, None, :] & (
+            actual[:, None, None, :] <= pos_row[:, None, :, None])
+        if window is not None:
+            vmask &= (pos_row[:, None, :, None]
+                      - actual[:, None, None, :]) < window
     scale = logit_scale if logit_scale is not None else d ** -0.5
     s = torch.einsum("bgxd,bgkd->bgxk", q.float(), k.float()) * scale
     s = cap_logits(s, softcap)

@@ -19,17 +19,13 @@
 // once per step); the products are a few MFLOP. The design spends nothing on
 // tensor cores: 4 warps stage the split's K/V rows into shared memory as
 // fp32 with coalesced 16-byte loads, compute the G x block_kv scores, and
-// each warp owns whole q rows for the softmax and p @ v.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// each warp owns whole q rows for the softmax and p @ v. That split body
+// lives in decode_split.cuh, shared with the paged kernel.
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr float MASK_VALUE = -1e30f;
+using decode_split::THREADS;
 
 struct DecodeArgs {
   const __nv_bfloat16* q;   // (B, Hkv, G, D)
@@ -42,6 +38,12 @@ struct DecodeArgs {
   int hkv, g, slots, block_kv, n_splits;
   float scale, softcap;
   int window;               // <= 0: none
+};
+
+// Slot j of the split is valid for every q row alike.
+struct SlotValid {
+  const int* valid;
+  __device__ bool operator()(int, int j) const { return valid[j] != 0; }
 };
 
 template <int D>
@@ -57,33 +59,11 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(DecodeArgs p) {
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int s0 = split * bkv;
   const size_t bh = (size_t)b * p.hkv + h;
-  const __nv_bfloat16* qg = p.q + bh * p.g * D;
-  const __nv_bfloat16* kg = p.k + bh * p.slots * D;
-  const __nv_bfloat16* vg = p.v + bh * p.slots * D;
+  const __nv_bfloat16* kg = p.k + (bh * p.slots + s0) * D;
+  const __nv_bfloat16* vg = p.v + (bh * p.slots + s0) * D;
 
-  constexpr int VPR = D / 8;
-  for (int t = threadIdx.x; t < p.g * VPR; t += THREADS) {
-    const int r = t / VPR, c = (t % VPR) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(qg + r * D + c);
-    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) qs[r * D + c + e] = __bfloat162float(x[e]);
-  }
-  for (int t = threadIdx.x; t < bkv * VPR; t += THREADS) {
-    const int r = t / VPR, c = (t % VPR) * 8;
-    uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-    if (s0 + r < p.slots) {
-      kr = *reinterpret_cast<const uint4*>(kg + (size_t)(s0 + r) * D + c);
-      vr = *reinterpret_cast<const uint4*>(vg + (size_t)(s0 + r) * D + c);
-    }
-    const __nv_bfloat16* kx = reinterpret_cast<const __nv_bfloat16*>(&kr);
-    const __nv_bfloat16* vx = reinterpret_cast<const __nv_bfloat16*>(&vr);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      ks[r * (D + 1) + c + e] = __bfloat162float(kx[e]);
-      vs[r * D + c + e] = __bfloat162float(vx[e]);
-    }
-  }
+  decode_split::stage_q<D>(qs, p.q + bh * p.g * D, p.g);
+  decode_split::stage_kv<D>(ks, vs, kg, vg, bkv, min(bkv, p.slots - s0));
   const int length = p.lengths[b];
   const int pos = length - 1;
   const int cur = ((pos % p.slots) + p.slots) % p.slots;
@@ -96,51 +76,15 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(DecodeArgs p) {
   }
   __syncthreads();
 
-  for (int t = threadIdx.x; t < p.g * bkv; t += THREADS) {
-    const int r = t / bkv, j = t % bkv;
-    float s = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[j * (D + 1) + d];
-    s *= p.scale;
-    if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-    ss[r * bkv + j] = valid[j] ? s : MASK_VALUE;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t part = (bh * p.n_splits + split) * p.g;
-  for (int r = warp; r < p.g; r += WARPS) {
-    float mx = MASK_VALUE;
-    for (int j = lane; j < bkv; j += 32) mx = fmaxf(mx, ss[r * bkv + j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int j = lane; j < bkv; j += 32) {
-      const float pv = valid[j] ? expf(ss[r * bkv + j] - mx) : 0.f;
-      ss[r * bkv + j] = pv;
-      sum += pv;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < bkv; ++j) acc += ss[r * bkv + j] * vs[j * D + d];
-      p.o[(part + r) * D + d] = acc;
-    }
-    if (lane == 0) {
-      p.m[part + r] = mx;
-      p.l[part + r] = sum;
-    }
-  }
+  decode_split::partials<D>(qs, ks, vs, ss, p.g, bkv, p.scale, p.softcap,
+                            SlotValid{valid}, p.o + part * D, p.m + part,
+                            p.l + part);
 }
 
 template <int D>
 size_t smem_bytes(int g, int bkv) {
-  return sizeof(float) * ((size_t)g * D + (size_t)bkv * (D + 1) +
-                          (size_t)bkv * D + (size_t)g * bkv) +
+  return sizeof(float) * decode_split::smem_floats<D>(g, bkv) +
          sizeof(int) * (size_t)bkv;
 }
 

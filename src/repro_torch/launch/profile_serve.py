@@ -1,17 +1,21 @@
 """Where the served main path spends its time on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch llama-1b \\
-      --batch 4 --prompt-len 256 --new-tokens 32 --out DIR
+      --batch 4 --prompt-len 256 --new-tokens 32 [--engine paged] --out DIR
 
 Builds the model in kernel mode with seeded random weights, warms it up,
 then runs one prefill and the decode steps of one batch twice: once untimed
 by the profiler (host clock around work ended by a device synchronise), and
-once under ``torch.profiler``. From the trace it reports, for prefill and
-decode apart, the device time by kernel family (the port's three kernels,
-the library matrix products that the reference also leaves to the compiler,
-and the other torch operations), the device's busy share of the traced
-window, and the peak device memory. Needs a CUDA card; writes
-``DIR/profile_serve.json`` and prints one summary line per phase.
+once under ``torch.profiler``. ``--engine fixed`` (the default) drives the
+model's prefill and decode step directly, as ``Engine`` does; ``--engine
+paged`` drives a ``PagedEngine`` (``--batch`` slots, 64-token pages):
+prefill is the admission of every request (one exact-length prefill
+each), decode is the engine's steps until all have retired. From the trace
+it reports, for prefill and decode apart, the device time by kernel family
+(the port's kernels, the library matrix products that the reference also
+leaves to the compiler, and the other torch operations), the device's busy
+share of the traced window, and the peak device memory. Needs a CUDA card; writes
+``DIR/profile_serve_<engine>.json`` and prints one summary line per phase.
 """
 from __future__ import annotations
 
@@ -26,12 +30,14 @@ from torch.autograd import DeviceType
 
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.serve import PagedEngine, Request
 
 # kernel name fragment -> family, checked in order
 FAMILIES = (
     ("gemm_fused_kernel", "gemm_fused"),
     ("rms_stats_kernel", "gemm_fused"),
     ("flash_fwd_kernel", "flash_attention_fwd"),
+    ("flash_decode_paged_kernel", "flash_decode_paged"),
     ("flash_decode_kernel", "flash_decode"),
     ("gemm", "library_matmul"),     # cuBLAS / cuBLASLt kernel names
     ("gemv", "library_matmul"),
@@ -81,13 +87,27 @@ def summarize(prof, wall_s: float) -> dict:
             "device_first_to_last_ms": span_ms}
 
 
+def _timed(fn, profile: bool):
+    """(seconds, profiler or None) of ``fn`` ended by a device synchronise."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    if not profile:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, None
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, prof
+
+
 def run_phases(model, params, prompts, new_tokens: int, profile: bool):
     """One prefill and ``new_tokens - 1`` greedy decode steps; returns
     {phase: (seconds, profiler or None)}."""
-    out = {}
     cache = model.init_cache(prompts.shape[0], prompts.shape[1] + new_tokens)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     state = {}
 
     def prefill():
@@ -102,20 +122,31 @@ def run_phases(model, params, prompts, new_tokens: int, profile: bool):
             state["tok"] = torch.argmax(logits, dim=-1)[:, None]
 
     with torch.inference_mode():
-        for name, fn in (("prefill", prefill), ("decode", decode)):
-            torch.cuda.synchronize()
-            if profile:
-                with torch.profiler.profile(activities=acts) as prof:
-                    t0 = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    out[name] = (time.perf_counter() - t0, prof)
-            else:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                out[name] = (time.perf_counter() - t0, None)
-    return out
+        return {name: _timed(fn, profile)
+                for name, fn in (("prefill", prefill), ("decode", decode))}
+
+
+PAGE = 64
+
+
+def run_phases_paged(model, params, prompts, new_tokens: int, profile: bool):
+    """The same work through a PagedEngine with one slot per prompt: the
+    admissions (exact-length prefills), then the engine's steps."""
+    b, s = prompts.shape
+    pages = -(-(s + new_tokens) // PAGE)
+    engine = PagedEngine(model, params, batch_slots=b, page_size=PAGE,
+                         max_pages_per_seq=1 << (pages - 1).bit_length())
+    for uid, row in enumerate(prompts.cpu().numpy()):
+        engine.submit(Request(uid, row.astype(np.int32), new_tokens))
+
+    def decode():
+        while engine.step():
+            pass
+
+    with torch.inference_mode():
+        # _admit is the engine's admission step: every prompt finds a slot
+        return {"prefill": _timed(engine._admit, profile),
+                "decode": _timed(decode, profile)}
 
 
 def main(argv=None) -> dict:
@@ -125,6 +156,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", choices=("fixed", "paged"), default="fixed")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -135,13 +167,14 @@ def main(argv=None) -> dict:
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         device="cuda")
-    run_phases(model, params, prompts, 3, profile=False)        # warm-up
+    run = run_phases_paged if args.engine == "paged" else run_phases
+    run(model, params, prompts, 3, profile=False)               # warm-up
     torch.cuda.reset_peak_memory_stats()
-    plain = run_phases(model, params, prompts, args.new_tokens, profile=False)
-    traced = run_phases(model, params, prompts, args.new_tokens, profile=True)
+    plain = run(model, params, prompts, args.new_tokens, profile=False)
+    traced = run(model, params, prompts, args.new_tokens, profile=True)
     tokens = {"prefill": args.batch * args.prompt_len,
               "decode": args.batch * (args.new_tokens - 1)}
-    report = {"arch": args.arch, "batch": args.batch,
+    report = {"arch": args.arch, "engine": args.engine, "batch": args.batch,
               "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
               "device": torch.cuda.get_device_name(0),
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -164,7 +197,8 @@ def main(argv=None) -> dict:
     print(f"[profile] peak device memory {report['peak_memory_gb']:.2f} GB")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_serve.json"), "w") as fh:
+        with open(os.path.join(args.out, f"profile_serve_{args.engine}.json"),
+                  "w") as fh:
             json.dump(report, fh, indent=1)
     return report
 

@@ -42,6 +42,28 @@ class Model:
         return _lm.lm_decode_step(self.cfg, params, token, cache, pos,
                                   mode=self.mode)
 
+    # paged decode surface: a shared page pool, per-sequence page tables
+    def init_paged_cache(self, batch_slots: int, n_pages: int,
+                         page_size: int) -> dict:
+        return _lm.lm_init_paged_cache(self.cfg, batch_slots, n_pages,
+                                       page_size, self.device)
+
+    def prefill_paged(self, params, tokens, cache, page_rows, slot: int,
+                      true_len: int):
+        return _lm.lm_prefill_paged(self.cfg, params, tokens, cache,
+                                    page_rows, slot, true_len, mode=self.mode)
+
+    def prefill_paged_chunk(self, params, tokens, cache, page_rows,
+                            start: int, last_index: int):
+        return _lm.lm_prefill_paged_chunk(self.cfg, params, tokens, cache,
+                                          page_rows, start, last_index,
+                                          mode=self.mode)
+
+    def decode_step_paged(self, params, token, cache, page_table, lengths):
+        """token (B, T): T > 1 is the speculative verify step."""
+        return _lm.lm_decode_step_paged(self.cfg, params, token, cache,
+                                        page_table, lengths, mode=self.mode)
+
 
 def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE) -> Model:
     """'kernel' runs the hand-written kernels on CUDA tensors (their plain

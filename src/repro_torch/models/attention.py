@@ -1,21 +1,25 @@
-"""GQA/MHA attention layer: projections, RoPE, flash attention, KV cache.
+"""GQA/MHA attention layer: projections, RoPE, flash attention, KV caches.
 
 'kernel' mode runs the fused rung of the reference's QKV ladder: the
 block's pre-norm folds into the packed q|k GEMM's prologue and RoPE rides
 its store, v projects through a second fused GEMM with the same prologue,
 and prefill attention is the flash kernel. Decode projects q/k/v with plain
-products (as the reference does), appends to the contiguous (ring) cache in
-place and runs the split-KV decode kernel. 'reference' mode is the plain
-unfused path of the reference package.
+products (as the reference does), appends to the contiguous (ring) cache or
+to the paged pool in place and runs the split-KV decode kernel (contiguous
+or paged). 'reference' mode is the plain unfused path of the reference
+package.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.attention import (attention, attention_decode,
+                                           attention_decode_paged,
                                            attention_ref, decode_ref)
 from repro_torch.kernels.gemm import Epilogue, gemm_fused
 from repro_torch.kernels.rope import rope_ref, rope_tables
+from repro_torch.serve.kv_cache import (append_paged_kv, init_page_pool,
+                                       write_prefill_pages)
 from .common import ParamDef, apply_prenorm, norm_prologue_kw
 
 
@@ -189,4 +193,72 @@ def decode_attention_layer(cfg, p, x, k_cache, v_cache, pos: int, *,
         qg = q.reshape(b, hkv, cfg.num_heads // hkv, cfg.head_dim)
         out = decode_ref(qg, k_cache, v_cache, lengths, window=window,
                          softcap=softcap).reshape(q.shape)
+    return _merge_heads(out.to(x.dtype)) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (decode over a shared page pool)
+# ---------------------------------------------------------------------------
+
+def init_paged_attn_cache(cfg, n_pages: int, page_size: int, dtype,
+                          device) -> dict:
+    return init_page_pool(n_pages, cfg.num_kv_heads, page_size, cfg.head_dim,
+                          dtype, device)
+
+
+def paged_prefill_attn_cache(cfg, cache: dict, k, v, page_rows,
+                             start_page: int = 0) -> dict:
+    """Write one sequence's prefill k/v (1, Hkv, S, hd) into its pages, in
+    place. ``start_page`` offsets the write within the page-table row:
+    chunk c of a chunked prefill passes its first page index."""
+    write_prefill_pages(cache["k_pages"], cache["v_pages"], k, v, page_rows,
+                        start_page=start_page)
+    return cache
+
+
+def _apply_rope_positions(cfg, q, k, positions):
+    """RoPE with per-sequence positions. q/k: (B, H, T, hd); positions: (B,)
+    for T == 1, or (B, T) when each token carries its own position (chunked
+    prefill, speculative verify)."""
+    if cfg.rope_style == "none":
+        return q, k
+    hd = q.shape[-1]
+    rot = hd // 2 if cfg.rope_style == "partial" else hd
+    if positions.dim() == 1:
+        sin, cos = rope_tables(positions, rot, cfg.rope_theta)
+        sin, cos = sin[:, None, None, :], cos[:, None, None, :]
+    else:
+        b, t = positions.shape
+        sin, cos = rope_tables(positions.reshape(-1), rot, cfg.rope_theta)
+        sin, cos = sin.reshape(b, 1, t, rot), cos.reshape(b, 1, t, rot)
+
+    def rot_fn(x):
+        out = rope_ref(x[..., :rot], sin, cos)
+        if rot == hd:
+            return out
+        return torch.cat([out, x[..., rot:]], dim=-1)
+
+    return rot_fn(q), rot_fn(k)
+
+
+def paged_decode_attention_layer(cfg, p, x, cache: dict, page_table, lengths,
+                                 *, window: int | None = None,
+                                 use_rope: bool = True,
+                                 mode: str = "reference"):
+    """Decode (1 or T tokens) over the paged cache. x: (B, T, D) (already
+    normed); page_table (B, MP) and lengths (B,) are int32 tensors on x's
+    device; token t lands at position lengths[b] + t (T > 1 is the verify
+    step). Appends to the pools in place; inactive slots (empty table rows)
+    write into the null page and read back zeros. Returns (B, T, D)."""
+    t = x.shape[1]
+    q, k_new, v_new = project_qkv(cfg, p, x)
+    if use_rope:
+        positions = lengths.long() if t == 1 else (
+            lengths.long()[:, None] + torch.arange(t, device=x.device))
+        q, k_new = _apply_rope_positions(cfg, q, k_new, positions)
+    append_paged_kv(cache["k_pages"], cache["v_pages"], k_new, v_new,
+                    page_table, lengths)
+    out = attention_decode_paged(q, cache["k_pages"], cache["v_pages"],
+                                 page_table, lengths + t, window=window,
+                                 softcap=cfg.attn_logit_softcap, mode=mode)
     return _merge_heads(out.to(x.dtype)) @ p["wo"]

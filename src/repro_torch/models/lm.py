@@ -1,5 +1,7 @@
 """Decoder-only LM: embedding, a stack of dense attention blocks, tied or
-untied logits; full-sequence forward, prefill and one-token decode.
+untied logits; full-sequence forward, prefill and one-token decode over a
+contiguous cache, and prefill, chunked prefill and 1- or T-token decode
+over a paged pool.
 
 Layer parameters are stacked with a leading layer axis (the reference's
 scan layout, same keys and shapes); a Python loop over layers takes the
@@ -14,9 +16,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import dtype_of
+from repro_torch.kernels.attention import attention_decode_paged
 from .attention import (attend, attn_defs, decode_attention_layer,
-                        init_attn_cache, prefill_attn_cache,
-                        project_qkv_heads, _merge_heads, attention_layer)
+                        init_attn_cache, init_paged_attn_cache,
+                        paged_decode_attention_layer, paged_prefill_attn_cache,
+                        prefill_attn_cache, project_qkv_heads, _merge_heads,
+                        attention_layer)
 from .common import (ParamDef, apply_norm, mlp_defs, mlp_forward,
                      norm_defs, norm_params, tree_map)
 
@@ -140,3 +145,159 @@ def lm_decode_step(cfg, params, token, cache, pos: int, *,
         x = block_decode(cfg, layer_params(params, i), x, cache["k"][i],
                          cache["v"][i], pos, mode=mode)
     return cache, _logits(cfg, params, x)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Paged decode path (shared page pool)
+# ---------------------------------------------------------------------------
+
+def lm_init_paged_cache(cfg, batch_slots: int, n_pages: int, page_size: int,
+                        device) -> dict:
+    """Stacked {"k_pages", "v_pages"}, each (L, P, Hkv, page, hd): the
+    reference's scan-stacked layout, so the pools compare directly.
+    ``batch_slots`` is taken for the reference's signature: attention
+    blocks keep no per-slot state."""
+    del batch_slots
+    pool = init_paged_attn_cache(cfg, n_pages, page_size,
+                                 dtype_of(cfg.compute_dtype), device)
+    return {k: v[None].repeat(cfg.num_layers, 1, 1, 1, 1)
+            for k, v in pool.items()}
+
+
+def _layer_cache(cache, i: int) -> dict:
+    """Layer ``i``'s pools: views, so in-place writes land in the stack."""
+    return {"k_pages": cache["k_pages"][i], "v_pages": cache["v_pages"][i]}
+
+
+def _attention_only(cfg) -> bool:
+    """True when every layer is attention-family. The serving fast paths
+    (chunked prefill, prefix reuse, multi-token verify) rely on a KV cache of
+    position-addressable pages; recurrent state cannot be re-entered."""
+    return all(cfg.layer_kind(i) in ("attn", "local", "moe")
+               for i in range(cfg.num_layers))
+
+
+def _int32(x, device):
+    """A contiguous int32 tensor on ``device`` (one upload for a host array)."""
+    return torch.as_tensor(x, dtype=torch.int32, device=device).contiguous()
+
+
+def block_prefill_paged(cfg, p, x, cache, *, page_rows, positions,
+                        mode: str = "reference"):
+    """Single-sequence (B = 1) prefill block whose rotated k/v land in the
+    sequence's pages (in place)."""
+    q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
+                                prenorm=norm_params(p, "ln1"))
+    o = attend(cfg, q, k, v, window=cfg.attn_window, mode=mode)
+    paged_prefill_attn_cache(cfg, cache, k, v, page_rows)
+    x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
+    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
+                       residual_scale=cfg.residual_scale,
+                       prenorm=norm_params(p, "ln2"))
+
+
+def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
+                     true_len: int, *, mode: str = "reference"):
+    """Prefill ONE sequence into the shared paged cache (in place).
+
+    tokens: (1, S); ``page_rows``: (max_pages,) page-table row; ``slot`` is
+    taken for the reference's signature (only recurrent layers keep slot
+    state). S may exceed ``true_len`` (a padded bucket): k/v past it stay
+    masked by the length until overwritten. Returns (cache, logits (1, V)
+    at position ``true_len - 1``)."""
+    del slot
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for i in range(cfg.num_layers):
+        x = block_prefill_paged(cfg, layer_params(params, i), x,
+                                _layer_cache(cache, i), page_rows=page_rows,
+                                positions=positions, mode=mode)
+    return cache, _logits(cfg, params, x[:, true_len - 1:true_len])[:, 0]
+
+
+def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
+                              length, positions, mode: str = "reference"):
+    """One layer of chunked prefill: the chunk's k/v land in the sequence's
+    pages at page offset ``start // page_size``, and its queries attend to
+    everything already in the pages (earlier chunks and this one) through
+    the multi-token paged-decode mask. ``table`` (1, MP) and ``length`` (1,)
+    are the row and ``start + C`` as int32 tensors on x's device."""
+    q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
+                                prenorm=norm_params(p, "ln1"))
+    page_size = cache["k_pages"].shape[2]
+    paged_prefill_attn_cache(cfg, cache, k, v, page_rows,
+                             start_page=start // page_size)
+    o = attention_decode_paged(q, cache["k_pages"], cache["v_pages"], table,
+                               length, window=cfg.attn_window,
+                               softcap=cfg.attn_logit_softcap, mode=mode)
+    x = x + cfg.residual_scale * (_merge_heads(o.to(x.dtype))
+                                  @ p["attn"]["wo"])
+    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
+                       residual_scale=cfg.residual_scale,
+                       prenorm=norm_params(p, "ln2"))
+
+
+def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
+                           last_index: int, *, mode: str = "reference"):
+    """Prefill ONE chunk of one sequence into the shared paged cache.
+
+    tokens: (1, C), C a whole number of pages; ``start``: the chunk's first
+    absolute position (a page multiple); ``last_index``: the final true
+    token within the chunk (its logits seed sampling; meaningful on the
+    last chunk only). Prefix-cache admission reuses it with ``start`` = the
+    matched prefix length. Returns (cache, logits (1, V))."""
+    if not _attention_only(cfg):
+        raise ValueError(
+            "chunked paged prefill requires an attention-only stack; "
+            f"{cfg.name} has recurrent layers; use lm_prefill_paged")
+    x = _embed(cfg, params, tokens)
+    c = tokens.shape[1]
+    positions = start + torch.arange(c, device=x.device)
+    table = _int32(page_rows, x.device)[None, :]
+    length = _int32([start + c], x.device)
+    for i in range(cfg.num_layers):
+        x = block_prefill_paged_chunk(
+            cfg, layer_params(params, i), x, _layer_cache(cache, i),
+            page_rows=page_rows, table=table, start=start, length=length,
+            positions=positions, mode=mode)
+    return cache, _logits(cfg, params,
+                          x[:, last_index:last_index + 1])[:, 0]
+
+
+def block_decode_paged(cfg, p, x, cache, page_table, lengths, *,
+                       mode: str = "reference"):
+    rs = cfg.residual_scale
+    h = apply_norm(cfg, x, p, "ln1")
+    a = paged_decode_attention_layer(cfg, p["attn"], h, cache, page_table,
+                                     lengths, window=cfg.attn_window,
+                                     mode=mode)
+    x = x + rs * a
+    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
+                       residual_scale=rs, prenorm=norm_params(p, "ln2"))
+
+
+def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
+                         mode: str = "reference"):
+    """One decode step for every batch slot over the paged cache (in place).
+
+    token: (B, T). T == 1 is plain decode (each slot's token lands at
+    position lengths[b]; logits (B, V)); T > 1 is the speculative verify
+    step (token t lands at lengths[b] + t; logits (B, T, V)).
+    ``page_table`` (B, MP) and ``lengths`` (B,): host arrays or tensors,
+    moved to the model's device once per call. Inactive slots decode
+    against the null page and produce ignorable logits."""
+    if token.shape[1] > 1 and not _attention_only(cfg):
+        raise ValueError(
+            "multi-token paged decode (speculative verify) requires an "
+            f"attention-only stack; {cfg.name} has recurrent layers")
+    x = _embed(cfg, params, token)
+    page_table = _int32(page_table, x.device)
+    lengths = _int32(lengths, x.device)
+    for i in range(cfg.num_layers):
+        x = block_decode_paged(cfg, layer_params(params, i), x,
+                               _layer_cache(cache, i), page_table, lengths,
+                               mode=mode)
+    logits = _logits(cfg, params, x)
+    if token.shape[1] > 1:
+        return cache, logits          # (B, T, V): speculative verify
+    return cache, logits[:, 0]

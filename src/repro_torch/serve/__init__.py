@@ -1,1 +1,2 @@
-from .engine import Engine, GenerationResult, Request, RequestQueue  # noqa: F401
+from .engine import (Engine, GenerationResult, PagedEngine,  # noqa: F401
+                     Request, RequestQueue)

@@ -1,14 +1,17 @@
-"""Fixed-batch serving: :class:`Engine` and the :class:`RequestQueue` over it.
+"""Serving: the fixed-batch :class:`Engine` with the :class:`RequestQueue`
+over it, and the continuous-batching :class:`PagedEngine`.
 
 :class:`Engine` runs one prefill and then one decode step per new token for
 a fixed (batch, prompt_len) batch. :class:`RequestQueue` buckets requests by
 padded prompt length and flushes full batches (a forced flush pads the last
 batch with copies of its last request, which are not counted or returned).
-Greedy decoding takes the first maximal logit; temperature sampling draws
-through a ``torch.Generator``.
+:class:`PagedEngine` admits, decodes and retires requests one step at a time
+over a paged KV cache. Greedy decoding takes the first maximal logit;
+temperature sampling draws through a ``torch.Generator``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 import warnings
@@ -16,6 +19,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import kv_cache as kvc
 
 
 @dataclasses.dataclass
@@ -166,3 +171,468 @@ class RequestQueue:
                               "overwriting previous result", stacklevel=2)
             self.results[r.uid] = row[bucket - len(r.prompt):]
         return n_real
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching over the paged KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side record of one active batch slot."""
+    req: Request
+    n_pages: int                 # pages currently backing the sequence
+    generated: list              # sampled token ids (ints)
+    next_token: int              # token to feed at the next decode step
+    pages: list = dataclasses.field(default_factory=list)
+    # next prompt position to prefill; -1 once prefill is complete. A slot
+    # mid-prefill is masked out of the shared decode step (its page-table
+    # row and length are zeroed for that launch) so decode appends cannot
+    # scribble over pages the chunk loop is still filling.
+    prefill_cursor: int = -1
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_cursor >= 0
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _seeded_generator(seed: int, position: int, device) -> torch.Generator:
+    """The generator of a seeded request's draw at ``position``: a function
+    of (seed, absolute position) only, so the draw does not depend on the
+    batchmates, the admission order or a recompute preemption."""
+    hi, lo = np.random.SeedSequence([seed, position]).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        (int(hi) << 32) | int(lo))
+
+
+class PagedEngine:
+    """Continuous batching over a paged KV cache: one decode launch serves
+    every active slot.
+
+    Admission: each :meth:`step` first moves pending requests into free
+    batch slots while the allocator can cover their prompt pages; the
+    prefill runs at the exact prompt length. Decode: one
+    ``decode_step_paged`` serves every slot, with the page table sliced to
+    the power-of-two page count of the longest active sequence. Growth: a
+    slot crossing a page boundary gets its next page just in time; if the
+    pool is exhausted the youngest stalled slot is preempted (recompute
+    policy: its pages are freed and a continuation request rejoins the
+    queue front). Retirement: a slot that reaches ``max_new_tokens`` frees
+    its pages and its result appears in :attr:`results`.
+
+    Serving fast paths (opt-in; the defaults are the plain engine):
+
+    * ``prefix_cache=True``: full KV pages of completed prompts are kept in
+      a refcounted trie; later prompts sharing a page-aligned prefix skip
+      its prefill and share the physical pages.
+    * ``chunk_tokens=C``: prompts prefill in C-token chunks, one per step,
+      interleaved with decode (the mid-prefill slot is masked out of the
+      shared decode launch).
+
+    Speculative decoding (``draft_model``, ``spec_tokens``) is not ported
+    yet and raises. The page table and lengths are host numpy arrays owned
+    by the engine (:attr:`state`), uploaded once per launch. Eager PyTorch
+    compiles nothing, so there is no compiled-bucket cache to bound.
+
+    ``timings`` accumulates the host seconds of prefill (exact-length and
+    chunked) and of decode, each ended by a device synchronise on CUDA, with
+    the prompt tokens prefilled and the tokens decoded.
+    """
+
+    def __init__(self, model, params, *, batch_slots: int = 4,
+                 page_size: int = 64, max_pages_per_seq: int = 8,
+                 n_pages: Optional[int] = None, temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 prefix_cache: bool = False,
+                 chunk_tokens: Optional[int] = None,
+                 draft_model=None, draft_params=None, spec_tokens: int = 0):
+        if draft_model is not None or draft_params is not None \
+                or spec_tokens:
+            raise NotImplementedError(
+                "speculative decoding (draft_model, spec_tokens) is not "
+                "ported yet: ROADMAP Queue A item 8")
+        if chunk_tokens is not None and (chunk_tokens <= 0
+                                         or chunk_tokens % page_size):
+            raise ValueError(f"chunk_tokens={chunk_tokens} must be a positive "
+                             f"multiple of page_size={page_size}")
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.batch_slots = batch_slots
+        self.page_size = page_size
+        self.max_pages_per_seq = max_pages_per_seq
+        # +1: physical page 0 is the reserved null page
+        self.n_pages = (n_pages if n_pages is not None
+                        else batch_slots * max_pages_per_seq + 1)
+        self.temperature = temperature
+        self.generator = (generator if generator is not None else
+                          torch.Generator(device=self.device).manual_seed(0))
+        self.prefix = kvc.PrefixCache(page_size) if prefix_cache else None
+        self.chunk_tokens = chunk_tokens
+
+        self.cache = model.init_paged_cache(batch_slots, self.n_pages,
+                                            page_size)
+        self.alloc = kvc.PageAllocator(self.n_pages)
+        self.state = kvc.init_page_state(batch_slots, max_pages_per_seq)
+        self.slots: dict[int, _Slot] = {}       # slot id -> active record
+        self.pending: collections.deque = collections.deque()
+        self.results: dict[int, np.ndarray] = {}
+        self.steps = 0
+        self.preemptions = 0
+        self.preempted_uids: set = set()    # requests preempted at least once
+        self.prefix_hit_uids: set = set()   # requests admitted on a trie hit
+        self.admissions = 0
+        self.prefills = 0               # exact-length prefills
+        self.chunks_prefilled = 0       # chunked or suffix prefills
+        self.decode_steps = 0           # decode launches
+        self.tokens_generated = 0
+        self.peak_pages_in_use = 0
+        self.timings = {"prefill_s": 0.0, "prefill_tokens": 0,
+                        "decode_s": 0.0, "decode_tokens": 0}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _note_occupancy(self) -> None:
+        used = self.n_pages - 1 - self.alloc.free_pages
+        self.peak_pages_in_use = max(self.peak_pages_in_use, used)
+
+    def _tokens(self, array) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array, np.int64), device=self.device)
+
+    # -- request lifecycle -------------------------------------------------
+    def submit(self, req: Request) -> None:
+        total = len(req.prompt) + req.max_new_tokens
+        cap = min(self.max_pages_per_seq, self.n_pages - 1) * self.page_size
+        if total > cap:
+            raise ValueError(
+                f"request {req.uid}: {total} tokens exceed per-sequence "
+                f"capacity {cap} (max_pages_per_seq * page_size)")
+        self.pending.append(req)
+
+    def _effective_temperature(self, req: Request) -> float:
+        return self.temperature if req.temperature is None else req.temperature
+
+    def _sample_slot(self, logits_row, req: Request, position: int) -> int:
+        """Sample one token for one sequence. ``position`` is the token's
+        absolute sequence position: with the request's seed it seeds the
+        draw, so the draw is invariant to batch composition, admission
+        order and recompute preemption."""
+        t = self._effective_temperature(req)
+        if t == 0.0:
+            return int(torch.argmax(logits_row))
+        gen = (_seeded_generator(req.seed, position, self.device)
+               if req.seed is not None else self.generator)
+        probs = torch.softmax(logits_row.float() / t, dim=-1)
+        return int(torch.multinomial(probs, 1, generator=gen))
+
+    def _admit(self) -> int:
+        """Move pending requests into free slots; returns how many joined."""
+        admitted = 0
+        while self.pending:
+            free = [s for s in range(self.batch_slots) if s not in self.slots]
+            if not free:
+                break
+            req = self.pending[0]
+            plen = len(req.prompt)
+            n = kvc.num_pages_needed(plen, self.page_size)
+            matched = (self.prefix.match(req.prompt, self.alloc)
+                       if self.prefix is not None else [])
+            n_new = n - len(matched)
+            if not self.alloc.can_alloc(n_new):
+                if self.prefix is not None:
+                    self.prefix.evict(self.alloc,
+                                      n_new - self.alloc.free_pages)
+                if not self.alloc.can_alloc(n_new):
+                    if matched:
+                        self.alloc.free(matched)    # drop this admission's
+                    break                           # refs; wait for retire
+            self.pending.popleft()
+            if matched:
+                self.prefix_hit_uids.add(req.uid)
+            slot = free[0]
+            pages = matched + self.alloc.alloc(n_new)
+            matched_len = len(matched) * self.page_size
+            if matched or self.chunk_tokens is not None:
+                # suffix/chunked prefill: only positions >= matched_len are
+                # computed. Without chunking the whole suffix goes in one
+                # padded chunk now; with chunking the slot joins mid-prefill
+                # and advances one chunk per step.
+                kvc.assign_slot(self.state, slot, pages, matched_len)
+                rec = _Slot(req=req, n_pages=n, generated=[], next_token=-1,
+                            pages=pages, prefill_cursor=matched_len)
+                self.slots[slot] = rec
+                if self.chunk_tokens is None:
+                    self._advance_prefill(slot, rec)   # completes in one go
+            else:
+                kvc.assign_slot(self.state, slot, pages, plen)
+                t0 = time.perf_counter()
+                self.cache, logits = self.model.prefill_paged(
+                    self.params, self._tokens(req.prompt)[None, :],
+                    self.cache, self.state["page_table"][slot], slot, plen)
+                first = self._sample_slot(logits[0], req, plen)
+                self._sync()
+                self.timings["prefill_s"] += time.perf_counter() - t0
+                self.timings["prefill_tokens"] += plen
+                self.prefills += 1
+                self.slots[slot] = _Slot(req=req, n_pages=n,
+                                         generated=[first], next_token=first,
+                                         pages=pages)
+                # the first token comes off the prefill logits, not a decode
+                # step: count it here so tokens_generated covers every one
+                self.tokens_generated += 1
+                if self.prefix is not None:
+                    self.prefix.insert(req.prompt, pages, self.alloc)
+            admitted += 1
+            self.admissions += 1
+            self._note_occupancy()
+        return admitted
+
+    def _advance_prefill(self, slot: int, rec: _Slot) -> None:
+        """Run ONE prefill chunk for a mid-prefill slot (the whole padded
+        suffix at once when interleaved chunking is off). On the final
+        chunk: sample the first token, mark the slot decode-ready, and
+        register the prompt's full pages in the prefix trie."""
+        req = rec.req
+        plen = len(req.prompt)
+        start = rec.prefill_cursor
+        if self.chunk_tokens is not None:
+            c = self.chunk_tokens
+        else:
+            c = _pow2(kvc.num_pages_needed(plen - start,
+                                           self.page_size)) * self.page_size
+        end = min(plen, start + c)
+        toks = np.zeros((1, c), np.int64)
+        toks[0, : end - start] = np.asarray(req.prompt[start:end])
+        last = (plen - 1 - start) if end == plen else 0
+        t0 = time.perf_counter()
+        self.cache, logits = self.model.prefill_paged_chunk(
+            self.params, self._tokens(toks), self.cache,
+            self.state["page_table"][slot], start, last)
+        self.chunks_prefilled += 1
+        self.state["lengths"][slot] = end
+        if end >= plen:
+            rec.prefill_cursor = -1
+            first = self._sample_slot(logits[0], req, plen)
+            rec.generated = [first]
+            rec.next_token = first
+            self.tokens_generated += 1
+            if self.prefix is not None:
+                self.prefix.insert(req.prompt, rec.pages, self.alloc)
+        else:
+            rec.prefill_cursor = end
+        self._sync()
+        self.timings["prefill_s"] += time.perf_counter() - t0
+        self.timings["prefill_tokens"] += end - start
+
+    def _try_grow(self) -> list:
+        """Allocate next pages for slots crossing a page boundary; returns
+        the slots whose growth the exhausted pool could not cover.
+        Mid-prefill slots already hold every page their prompt needs, so
+        they never grow (and never stall)."""
+        stalled = []
+        lengths = self.state["lengths"]
+        for slot in sorted(self.slots):
+            rec = self.slots[slot]
+            if rec.prefilling:
+                continue
+            need = int(lengths[slot]) + 1
+            while need > rec.n_pages * self.page_size:
+                if not self.alloc.can_alloc(1) and self.prefix is not None:
+                    # cached-but-unreferenced prefix pages are reclaimable
+                    self.prefix.evict(self.alloc, 1)
+                if self.alloc.can_alloc(1):
+                    page = self.alloc.alloc(1)[0]
+                    self.state["page_table"][slot, rec.n_pages] = page
+                    rec.pages.append(page)
+                    rec.n_pages += 1
+                else:
+                    stalled.append(slot)
+                    break
+        return stalled
+
+    def _preempt(self, slot: int) -> None:
+        """Recompute preemption (the vLLM policy): free the slot's pages and
+        requeue a continuation (prompt := prompt + generated so far, budget
+        := the remaining tokens) at the front of the queue. Re-admission
+        re-prefills the lost KV; retirement rebuilds the full result from
+        the continuation's longer prompt, so the output is unchanged.
+        Frees drop one reference per page: pages shared with the prefix
+        trie (or another sequence) survive with their remaining refs."""
+        rec = self.slots[slot]
+        self.alloc.free(rec.pages)
+        kvc.release_slot(self.state, slot)
+        gen = rec.generated[: rec.req.max_new_tokens]
+        cont = Request(
+            rec.req.uid,
+            np.concatenate([np.asarray(rec.req.prompt, np.int32),
+                            np.asarray(gen, np.int32)]),
+            max(0, rec.req.max_new_tokens - len(gen)),
+            temperature=rec.req.temperature,
+            seed=rec.req.seed)
+        self.pending.appendleft(cont)
+        self.preemptions += 1
+        self.preempted_uids.add(rec.req.uid)
+        del self.slots[slot]
+
+    def _retire(self, slot: int, rec: _Slot) -> None:
+        self.alloc.free(rec.pages)      # per-page ref drop, not a hard free
+        kvc.release_slot(self.state, slot)
+        gen = rec.generated[: rec.req.max_new_tokens]
+        self.results[rec.req.uid] = np.concatenate(
+            [np.asarray(rec.req.prompt, np.int32),
+             np.asarray(gen, np.int32)])
+        del self.slots[slot]
+
+    def _launch_views(self, active: list, mp_bucket: int):
+        """(page_table, lengths, act) host arrays for a decode launch.
+        Mid-prefill slots are masked out by zeroing their rows: masked rows
+        write to the null page and attend to nothing, so a chunk-interleaved
+        slot never perturbs the batch it shares a launch with."""
+        pt = self.state["page_table"][:, :mp_bucket]
+        lens = self.state["lengths"]
+        act = np.zeros((self.batch_slots,), np.int32)
+        act[active] = 1
+        if any(r.prefilling for r in self.slots.values()):
+            pt = pt * act[:, None]
+            lens = lens * act
+        return pt, lens, act
+
+    def _decode_one(self, active: list, mp_bucket: int) -> None:
+        """One single-token decode step for every decode-ready slot."""
+        pt, lens, act = self._launch_views(active, mp_bucket)
+        tokens = np.zeros((self.batch_slots, 1), np.int64)
+        for slot in active:
+            tokens[slot, 0] = self.slots[slot].next_token
+        t0 = time.perf_counter()
+        self.cache, logits = self.model.decode_step_paged(
+            self.params, self._tokens(tokens), self.cache, pt, lens)
+        self.state["lengths"] = self.state["lengths"] + act
+        sampled = {}
+        greedy = None
+        for slot in active:
+            rec = self.slots[slot]
+            if self._effective_temperature(rec.req) == 0.0:
+                if greedy is None:      # one batched argmax for all
+                    greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+                sampled[slot] = int(greedy[slot])
+            else:
+                pos = len(rec.req.prompt) + len(rec.generated)
+                sampled[slot] = self._sample_slot(logits[slot], rec.req, pos)
+        self._sync()
+        self.timings["decode_s"] += time.perf_counter() - t0
+        self.timings["decode_tokens"] += len(active)
+        self.decode_steps += 1
+        self.tokens_generated += len(active)
+        for slot in active:
+            rec = self.slots[slot]
+            rec.generated.append(sampled[slot])
+            rec.next_token = sampled[slot]
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """Admit, advance mid-prefill slots by one chunk, decode one step
+        for every decode-ready slot, retire finished. Returns False when
+        there is nothing left to do."""
+        self._admit()
+        # chunk-interleaved prefill: one chunk per slot per step bounds the
+        # decode stall at one chunk instead of one full prompt
+        for slot in sorted(self.slots):
+            rec = self.slots[slot]
+            if rec.prefilling:
+                self._advance_prefill(slot, rec)
+        # retire slots that completed at admission (max_new_tokens == 1)
+        for slot in [s for s, r in self.slots.items()
+                     if not r.prefilling
+                     and len(r.generated) >= r.req.max_new_tokens]:
+            self._retire(slot, self.slots[slot])
+        if not self.slots:
+            if self.pending:
+                self._admit()
+                if not self.slots:
+                    raise RuntimeError(
+                        "paged engine stalled: pending requests but no "
+                        "admissible slot (page pool too small?)")
+                return True
+            return False
+
+        # page growth; on pool exhaustion preempt the youngest stalled slot
+        # (freeing its pages) until the survivors fit. A lone slot never
+        # stalls: submit() bounds any single sequence to the pool size.
+        stalled = self._try_grow()
+        while stalled:
+            self._preempt(stalled[-1])
+            stalled = self._try_grow()
+        if not self.slots:
+            return bool(self.pending)   # everything preempted; re-admit next
+        active = [s for s, r in sorted(self.slots.items())
+                  if not r.prefilling]
+        if not active:
+            self.steps += 1
+            return True                 # all slots mid-prefill; decode next
+        mp_bucket = self.page_bucket(max(self.slots[s].n_pages
+                                         for s in active))
+        self._note_occupancy()
+        self._decode_one(active, mp_bucket)
+        self.steps += 1
+
+        for slot in list(self.slots):
+            rec = self.slots[slot]
+            if rec.prefilling:
+                continue
+            if len(rec.generated) >= rec.req.max_new_tokens:
+                self._retire(slot, rec)
+        return bool(self.slots or self.pending)
+
+    def page_bucket(self, max_pages: int) -> int:
+        """The page-table width of a decode launch whose longest active
+        sequence holds ``max_pages`` pages: the next power of two, capped at
+        ``max_pages_per_seq``."""
+        return min(self.max_pages_per_seq, _pow2(max_pages))
+
+    def report(self) -> dict:
+        """Engine-level metrics, cumulative since construction. The
+        reference's ``bucket_lru`` block is left out: eager PyTorch compiles
+        nothing, so there is no bucket cache. ``prefills`` and
+        ``decode_steps`` count the exact-length prefills and the decode
+        launches; ``preempted_uids`` the requests preempted at least once."""
+        out = {
+            "steps": self.steps,
+            "admissions": self.admissions,
+            "preemptions": self.preemptions,
+            "preempted_uids": sorted(self.preempted_uids),
+            "prefills": self.prefills,
+            "decode_steps": self.decode_steps,
+            "tokens_generated": self.tokens_generated,
+            "peak_pages_in_use": self.peak_pages_in_use,
+            "page_pool_size": self.n_pages - 1,
+            "completed": len(self.results),
+            "timings": dict(self.timings),
+        }
+        if self.prefix is not None:
+            p = self.prefix
+            out["prefix_cache"] = {
+                "lookups": p.lookups,
+                "hits": p.hits,
+                "hit_rate": p.hits / p.lookups if p.lookups else 0.0,
+                "matched_tokens": p.matched_tokens,
+                "pages_held": p.pages_held,
+                "hit_uids": sorted(self.prefix_hit_uids),
+            }
+        if self.chunk_tokens is not None:
+            out["chunked_prefill"] = {"chunk_tokens": self.chunk_tokens,
+                                      "chunks": self.chunks_prefilled}
+        return out
+
+    def run(self) -> dict:
+        """Drive :meth:`step` until idle; returns {uid: tokens} results.
+        :meth:`report` carries the run's engine metrics."""
+        while self.step():
+            pass
+        return self.results

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import _build
-from repro_torch.kernels.attention import attention, attention_decode
+from repro_torch.kernels.attention import (attention, attention_decode,
+                                           attention_decode_paged)
 from repro_torch.kernels.gemm import gemm_fused
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -62,7 +63,7 @@ def test_launch_counts_reset():
     assert set(kernels.launch_counts().values()) == {0}
 
 
-@pytest.mark.parametrize("op", ["gemm", "attention", "decode"])
+@pytest.mark.parametrize("op", ["gemm", "attention", "decode", "paged"])
 def test_wrappers_refuse_other_devices(op):
     """A tensor on neither the CPU nor the card (here the meta device) is
     refused, and no launch is counted."""
@@ -74,10 +75,16 @@ def test_wrappers_refuse_other_devices(op):
         elif op == "attention":
             q = torch.empty(1, 2, 8, 64, **meta)
             attention(q, q, q, causal=True)
-        else:
+        elif op == "decode":
             q = torch.empty(1, 2, 1, 64, **meta)
             attention_decode(q, q.expand(1, 2, 8, 64), q.expand(1, 2, 8, 64),
                              torch.empty(1, dtype=torch.int32, device="meta"))
+        else:
+            q = torch.empty(1, 4, 2, 64, **meta)
+            pool = torch.empty(3, 2, 16, 64, **meta)
+            idx = dict(dtype=torch.int32, device="meta")
+            attention_decode_paged(q, pool, pool, torch.empty(1, 2, **idx),
+                                   torch.empty(1, **idx))
     assert set(kernels.launch_counts().values()) == {0}
 
 
@@ -90,6 +97,8 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
     assert ps.family("rms_stats_kernel") == "gemm_fused"
     assert ps.family("flash_fwd_kernel<64>") == "flash_attention_fwd"
     assert ps.family("flash_decode_kernel<64>") == "flash_decode"
+    assert ps.family("void (anonymous namespace)::flash_decode_paged_kernel"
+                     "<64>(PagedArgs)") == "flash_decode_paged"
     assert ps.family("sm90_xmma_gemm_bf16bf16_bf16f32") == "library_matmul"
     assert ps.family("nvjet_tst_128x64_64x8_2x1_v_bz_TNT") == "library_matmul"
     assert ps.family("vectorized_elementwise_kernel") == "other_torch"

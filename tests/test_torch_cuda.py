@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels against their plain versions, on the card,
 at small shapes that reach the edges the model's main path does not: ragged
 M, N and K tiles, a K that is no multiple of the K tile, head_dim 128,
-windows, soft caps, ring wrap-around, empty rows and a ragged last split.
+windows, soft caps, ring wrap-around, empty rows and a ragged last split;
+for the paged kernel, page sizes 16-128, null-page entries, a ragged row
+tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
+over the gathered pages.
 
 Marked ``cuda``: skipped on a machine without a CUDA card. On the card:
 
@@ -13,10 +16,12 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.attention import (combine_splits,
+                                           decode_partials_paged_ref,
                                            decode_partials_ref,
                                            flash_attention_fwd,
                                            flash_attention_fwd_ref,
-                                           flash_decode)
+                                           flash_decode, flash_decode_paged)
+from repro_torch.serve.kv_cache import gather_pages
 from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_fused,
                                       gemm_fused_ref)
 
@@ -144,3 +149,86 @@ def test_flash_decode_kernel_matches_plain(dev, case):
     if case == "empty_rows":
         assert float(got[0].abs().max()) == 0.0
         assert float(got[2].abs().max()) == 0.0
+
+
+PAGED_CASES = {
+    # name: (page_size, head_dim, q_tokens, window, softcap, lengths)
+    "page16": (16, 64, 1, None, None, [40, 128, 7]),
+    "page32": (32, 64, 1, None, None, [33, 100, 128]),
+    "page64": (64, 64, 1, None, None, [65, 256, 1]),
+    "page128": (128, 64, 1, None, None, [129, 300, 512]),
+    "d128": (64, 128, 1, None, None, [70, 256, 5]),
+    "window": (32, 64, 1, 50, None, [140, 96, 33]),
+    "softcap": (64, 64, 1, None, 5.0, [100, 200, 64]),
+    "empty_rows_null_pages": (32, 64, 1, None, None, [0, 40, 0]),
+    "verify_t4": (64, 64, 4, None, None, [68, 200, 4]),
+    "ragged_row_tile_t20": (32, 64, 20, 45, 5.0, [60, 130, 20]),
+    "chunk_t128": (64, 64, 128, None, None, [320, 128, 256]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_flash_decode_paged_kernel_matches_plain(dev, case):
+    page, d, t, window, softcap, lengths = PAGED_CASES[case]
+    b, hkv, g, mp = 3, 2, 4, 8
+    n_pages = b * mp + 1
+    rng = np.random.default_rng(7)
+    kp = _rand(rng, (n_pages, hkv, page, d), dev)
+    vp = _rand(rng, (n_pages, hkv, page, d), dev)
+    q = _rand(rng, (b, hkv, g * t, d), dev)
+    # each row holds the pages its length needs, in a seeded order; the
+    # rest of the row points at the null page 0
+    perm = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, mp), np.int32)
+    for i, n in enumerate(lengths):
+        need = -(-n // page)
+        table[i, :need] = perm[i * mp:i * mp + need]
+    pt = torch.from_numpy(table).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()["flash_decode_paged"]
+    got = flash_decode_paged(q, kp, vp, pt, lens, window=window,
+                             softcap=softcap, q_tokens=t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_decode_paged"] == before + 1
+    o, m, l = decode_partials_paged_ref(q, kp, vp, pt, lens, window=window,
+                                        scale=d ** -0.5, softcap=softcap,
+                                        q_tokens=t)
+    want = combine_splits(o, m, l).to(q.dtype)
+    _close(got, want, 2e-2, 2e-2)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert float(got[i].abs().max()) == 0.0
+
+
+def test_flash_decode_paged_equals_contiguous_bitwise(dev):
+    """Page 64 == BLOCK_KV and one query token: the paged kernel and the
+    contiguous kernel over the gathered pages share the split body, so they
+    agree bit for bit (the guard against a paging bug)."""
+    b, hkv, g, d, page, mp = 4, 8, 4, 64, 64, 8
+    n_pages = b * mp + 1
+    rng = np.random.default_rng(8)
+    kp = _rand(rng, (n_pages, hkv, page, d), dev)
+    vp = _rand(rng, (n_pages, hkv, page, d), dev)
+    q = _rand(rng, (b, hkv, g, d), dev)
+    table = rng.permutation(np.arange(1, n_pages)).reshape(b, mp)
+    pt = torch.from_numpy(table.astype(np.int32)).to(dev)
+    lens = torch.tensor([0, 64, 65, 500], dtype=torch.int32, device=dev)
+    for window in (None, 100):
+        paged = flash_decode_paged(q, kp, vp, pt, lens, window=window)
+        dense = flash_decode(q, gather_pages(kp, pt).contiguous(),
+                             gather_pages(vp, pt).contiguous(), lens,
+                             window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, dense)
+
+
+@pytest.mark.parametrize("page", [12, 256])
+def test_flash_decode_paged_rejects_unsupported_page_size(dev, page):
+    kernels.reset_launch_counts()
+    kp = torch.zeros((3, 2, page, 64), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=dev)
+    pt = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    lens = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="page size"):
+        flash_decode_paged(q, kp, kp, pt, lens)
+    assert kernels.launch_counts()["flash_decode_paged"] == 0
