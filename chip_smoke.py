@@ -6,13 +6,15 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. Device: refuse to run without CUDA; print the card's name and power
    limit as nvidia-smi gives them.
-2. Build: compile the four CUDA kernels from ``src/repro_torch/kernels/
+2. Build: compile the seven CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one nvcc per source, in parallel); print the build time and what
    ptxas reports for each kernel.
 3. Kernels: each kernel against its plain torch version on the card, at the
    llama-1b main-path shapes (prefill B 4, S 256, so M = 1024; decode B 4
    over a 296-slot cache; paged decode over 8 slots of an 8-page bucket of
-   a 65-page pool, a 128-token chunk at position 192 and a 4-token verify),
+   a 65-page pool, a 128-token chunk at position 192 and a 4-token verify;
+   the training backward at B 4, S 1024, so M = 4096: dA and dB of the four
+   fused GEMMs of a layer and both flash-backward passes),
    with the stated tolerance; kernel, plain and library times with CUDA
    events (L2 scrubbed before every launch), and the least time the card
    could take (bytes over 3.35 TB/s or operations over their peak,
@@ -22,7 +24,10 @@ Phases, each of which raises on failure (exit code non-zero):
    one query token must equal ``flash_decode`` over the gathered pages bit
    for bit. No PyTorch call computes paged attention: its yardstick is
    ``F.scaled_dot_product_attention`` over the pre-gathered cache, the
-   gather not timed.
+   gather not timed. The GEMM backward's yardstick is ``torch.matmul`` of
+   the bare product; the flash backward's, ``torch.autograd.grad`` through
+   ``F.scaled_dot_product_attention`` (timed with CUDA events around the
+   call, not from a graph).
 4. The slice: llama-1b at full width with seeded random weights, 8 requests
    (prompts of 128-256 tokens, 32 new tokens, greedy) through
    ``RequestQueue(Engine(...), batch_size=4, buckets=(256,))`` in kernel
@@ -45,7 +50,24 @@ Phases, each of which raises on failure (exit code non-zero):
    tokens must equal the served ones exactly, and its logits must be no
    further from the fp32 plain path than 2x the plain bf16 path's distance
    + 1e-2.
-6. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+6. Training. (a) Gradients at full width: llama-1b at 2 layers, one batch
+   of 4 x 1024 tokens from the ported pipeline; the per-leaf grads of
+   ``lm_loss`` in kernel mode (bf16), in reference mode (bf16) and in
+   reference mode at fp32 (the truth): every leaf's kernel-mode error
+   against the truth no larger than 2x the bf16 reference mode's + 1e-3.
+   (b) All 16 layers of llama-1b trained through ``train_loop`` for 8
+   steps of 4 x 1024 tokens (``cosine_schedule``, 2 warm-up steps,
+   ``remat_policy="full"``) in kernel mode: every launch counter, zeroed
+   just before and read just after, equals 8 steps of what the model
+   implies (per layer and step 8 ``gemm_fused``, 4 dA, 4 dB, 2 flash
+   forward and 2 flash backward passes); every loss finite and the last
+   below the first; then the same 8 steps on the plain bf16 path and the
+   plain fp32 path (the truth, same seed and data): the kernel curve no
+   further from the truth than 2.5x the plain bf16 curve's distance +
+   0.05. Prints tokens/s and step time (median of the steps after the
+   first), the peak device memory and the device-busy share of one traced
+   step.
+7. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -70,18 +92,27 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import DataConfig, DataIterator  # noqa: E402
 from repro_torch.kernels.attention import (  # noqa: E402
     BLOCK_KV, combine_splits, decode_partials_paged_ref, decode_partials_ref,
-    flash_attention_fwd, flash_attention_fwd_ref, flash_decode,
-    flash_decode_paged)
-from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_fused,  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref,
+    flash_decode, flash_decode_paged)
+from repro_torch.kernels.attention import backward as attn_bwd  # noqa: E402
+from repro_torch.kernels.gemm import (EPILOGUE_NONE, PROLOGUE_NONE,  # noqa: E402
+                                      Epilogue, Prologue, gemm_fused,
                                       gemm_fused_ref)
+from repro_torch.kernels.gemm import backward as gemm_bwd  # noqa: E402
+from repro_torch.kernels.gemm.ops import _forward as gemm_forward  # noqa: E402
 from repro_torch.kernels.rope import rope_tables  # noqa: E402
+from repro_torch.launch.profile_train import profile_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import nest, tree_map  # noqa: E402
+from repro_torch.optim import AdamWConfig, cosine_schedule  # noqa: E402
+from repro_torch.optim.optimizer import named_leaves  # noqa: E402
 from repro_torch.serve import (Engine, PagedEngine, Request,  # noqa: E402
                                RequestQueue)
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
+from repro_torch.train import loss_and_grads, train_loop  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16 = 989e12
@@ -92,6 +123,8 @@ BATCH, PROMPT, NEW_TOKENS, REQUESTS = 4, 256, 32, 8
 MAX_LEN = PROMPT + NEW_TOKENS + 8          # as the serving launcher sizes it
 # the paged slice: PagedEngine geometry and the chunk of phase 5b
 SLOTS, PAGE, MAX_PAGES, CHUNK = 8, 64, 8, 128
+# the training slice: batch x sequence a step, steps, peak learning rate
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
 
 SOURCES = {
     "gemm_fused": ("src/repro_torch/kernels/csrc/gemm_fused.cu",
@@ -102,7 +135,16 @@ SOURCES = {
                      "src/repro/kernels/attention/kernel_decode.py:109"),
     "flash_decode_paged": ("src/repro_torch/kernels/csrc/flash_decode_paged.cu",
                            "src/repro/kernels/attention/kernel_decode.py:132"),
+    "gemm_bwd_da": ("src/repro_torch/kernels/csrc/gemm_bwd_da.cu",
+                    "src/repro/kernels/gemm/backward.py:63"),
+    "gemm_bwd_db": ("src/repro_torch/kernels/csrc/gemm_bwd_db.cu",
+                    "src/repro/kernels/gemm/backward.py:226"),
+    # both passes: _dq_kernel (:71) and _dkv_kernel (:114)
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                            "src/repro/kernels/attention/kernel_bwd.py:71"),
 }
+# the phases whose launches are the main path's (6a only checks grads)
+MAIN_PATH_PHASES = ("4", "5a", "5b", "6b")
 
 
 def log(msg: str) -> None:
@@ -149,6 +191,22 @@ class Timer:
             end.record()
         torch.cuda.synchronize()
         del graph
+        return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+    def ms_eager(self, fn) -> float:
+        """The same, with the call enqueued between the events instead of
+        replayed from a graph (for library calls that run autograd)."""
+        for _ in range(self.warmup):
+            fn()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(self.iters)]
+        for start, end in ev:
+            self.scrub.zero_()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
@@ -414,14 +472,192 @@ def measure_paged(cfg, dev, gen, timer):
     return rows
 
 
+def train_gemm_cases(cfg, dev, gen):
+    """One layer's four fused GEMMs at the training shape (M = 4 x 1024
+    tokens): q|k (+rope) and v behind the rmsnorm prologue, the SwiGLU up
+    projection, the down projection with its scaled residual."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    nqk = (cfg.num_heads + cfg.num_kv_heads) * hd
+    m = TRAIN_BATCH * TRAIN_SEQ
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    gamma = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
+    rms = dict(prologue=Prologue(norm="rmsnorm"), gamma=gamma)
+    sin, cos = rope_tables(torch.arange(TRAIN_SEQ, device=dev), hd,
+                           cfg.rope_theta)
+    x = rnd(m, d)
+    wd, wf = d ** -0.5, f ** -0.5
+    return [
+        ("qk_rope", x, rnd(d, nqk, std=wd),
+         dict(epilogue=Epilogue(rope=True, head_dim=hd),
+              sin=sin.repeat(TRAIN_BATCH, 1), cos=cos.repeat(TRAIN_BATCH, 1),
+              **rms)),
+        ("v", x, rnd(d, cfg.num_kv_heads * hd, std=wd), dict(**rms)),
+        ("swiglu_up", x, rnd(d, f, std=wd),
+         dict(epilogue=Epilogue(activation="silu", gate=True),
+              b2=rnd(d, f, std=wd), **rms)),
+        ("down", rnd(m, f), rnd(f, d, std=wf),
+         dict(epilogue=Epilogue(residual=True, scale=True),
+              residual=rnd(m, d), scale=1.0)),
+    ]
+
+
+def measure_gemm_bwd(cfg, dev, gen, timer):
+    """dA and dB of each training GEMM, from the forward's saved rstd and
+    preacts and a random cotangent, against their plain versions. Bound:
+    the operands once (g, preacts, B or A, gamma, rstd, tables) and the
+    outputs once, or 2 M N K operations per product at the bf16 peak. The
+    library yardstick is torch.matmul of the bare product (g @ Bᵀ, Aᵀ @ g;
+    the gated chain's two products as one concatenated one)."""
+    rows = {"gemm_bwd_da": [], "gemm_bwd_db": []}
+    for name, a, b, kw in train_gemm_cases(cfg, dev, gen):
+        ep = kw.get("epilogue", EPILOGUE_NONE)
+        pro = kw.get("prologue", PROLOGUE_NONE)
+        _, rstd, preacts = gemm_forward(
+            a, b, ep, pro, b2=kw.get("b2"), bias=None,
+            residual=kw.get("residual"), scale=kw.get("scale"),
+            sin=kw.get("sin"), cos=kw.get("cos"), gamma=kw.get("gamma"),
+            out_dtype=torch.bfloat16, save_preact=ep.gate)
+        m, k = a.shape
+        n = b.shape[1]
+        g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+        ops = dict(epilogue=ep, prologue=pro, b2=kw.get("b2"), bias=None,
+                   scale=kw.get("scale"), sin=kw.get("sin"), cos=kw.get("cos"),
+                   gamma=kw.get("gamma"), preacts=preacts)
+
+        def da_kernel():
+            return gemm_bwd._launch_da(a, b, g, rstd=rstd, **ops)
+
+        def da_plain():
+            return gemm_bwd.gemm_bwd_da_ref(a, b, g, **ops)
+
+        def db_kernel():
+            return gemm_bwd._launch_db(a, b, g, rstd=rstd, **ops)
+
+        def db_plain():
+            return gemm_bwd.gemm_bwd_db_ref(a, b, g, rstd=rstd, **ops)
+
+        da, dgamma = da_kernel()
+        want_da, want_dgamma = da_plain()
+        db, db2, _ = db_kernel()
+        want_db, want_db2, _ = db_plain()
+        torch.cuda.synchronize()
+        tol = 2 ** -6, 2e-2
+        err_a, tol_s = check_close(f"gemm_bwd_da[{name}]", da, want_da, *tol)
+        if dgamma is not None:
+            err_g, _ = check_close(f"gemm_bwd_da[{name}].dgamma", dgamma,
+                                   want_dgamma, 1e-3, 1e-3)
+            err_a = max(err_a, err_g)
+        err_b, _ = check_close(f"gemm_bwd_db[{name}]", db, want_db, *tol)
+        if db2 is not None:
+            err_b = max(err_b, check_close(f"gemm_bwd_db[{name}].db2", db2,
+                                           want_db2, *tol)[0])
+        gated = ep.gate
+        flops = 2 * m * n * k * (2 if gated else 1)
+        g_side = nbytes(g, *preacts, kw.get("sin"), kw.get("cos"))
+        norm_ops = nbytes(kw.get("gamma"), rstd)
+        da_bytes = (g_side + nbytes(b, kw.get("b2"), da, dgamma) + norm_ops
+                    + (nbytes(a) if dgamma is not None else 0))
+        db_bytes = g_side + nbytes(a, db, db2) + norm_ops
+        g_lib = torch.cat([g, g], dim=1) if gated else g
+        b_lib = torch.cat([b, kw["b2"]], dim=1) if gated else b
+        shape = [m, k, n]
+        for kernel, plain, lib, err, traffic in (
+                (da_kernel, da_plain, lambda: torch.matmul(g_lib, b_lib.T),
+                 err_a, da_bytes),
+                (db_kernel, db_plain, lambda: torch.matmul(a.T, g_lib),
+                 err_b, db_bytes)):
+            b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
+            rows["gemm_bwd_da" if kernel is da_kernel else "gemm_bwd_db"
+                 ].append(dict(case=name, shape=shape, max_abs_err=err,
+                               tolerance=tol_s, ms=timer.ms(kernel),
+                               plain_ms=timer.ms(plain),
+                               library_ms=timer.ms(lib), bound_ms=b_ms,
+                               bound_by=b_by))
+        del preacts, g, g_lib, b_lib
+    return rows
+
+
+def measure_flash_bwd(cfg, dev, gen, timer):
+    """Both flash-backward passes at the training shape (B 4, H 32, Hkv 8,
+    S 1024, d 64, causal), q and k as views of the packed q|k output and dO
+    as the strided cotangent autograd hands over, against the plain
+    version. The whole backward needs five products per causal (q, k) pair
+    (s, dp, dq, dk, dv); the dq pass computes three of them and the dk/dv
+    pass four, so each pass is bound by its own share and the two-pass
+    design recomputes s and dp. Each pass's time includes the delta
+    preprocess. Yardstick: torch.autograd.grad through
+    F.scaled_dot_product_attention, the forward not timed."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bsz, seq = TRAIN_BATCH, TRAIN_SEQ
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    qk = rnd(bsz, seq, (h + hkv) * hd)
+    q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
+    k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
+    v = rnd(bsz, seq, hkv * hd).reshape(bsz, seq, hkv, hd).transpose(1, 2)
+    do = rnd(bsz, seq, h, hd).transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    args = (q, k, v, out, lse, do)
+
+    def kernel(passes=(0, 1)):
+        return attn_bwd._launch(*args, causal=True, window=None,
+                                logit_scale=None, softcap=None, passes=passes)
+
+    got = kernel()
+    want = flash_attention_bwd_ref(*args, causal=True)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        e, tol = check_close(f"flash_attention_bwd[{name}]", g_, w_, 2e-2,
+                             2e-2)
+        err = max(err, e)
+    del got, want
+    pairs = bsz * h * seq * (seq + 1) // 2
+    vecs = nbytes(lse) * 2                      # lse and delta
+    dq_b = nbytes(q, k, v, do, q) + vecs        # dq is q's size
+    dkv_b = nbytes(q, k, v, do, k, v) + vecs    # dk, dv are k's, v's
+    dq_ms, _ = bound(dq_b, (3 * 2 * pairs * hd, PEAK_BF16))
+    dkv_ms, _ = bound(dkv_b, (4 * 2 * pairs * hd, PEAK_BF16))
+    b_ms, b_by = bound(nbytes(q, k, v, do, q, k, v) + vecs,
+                       (5 * 2 * pairs * hd, PEAK_BF16))
+    qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                             enable_gqa=True)
+    doc = do.contiguous()
+    return [dict(
+        case="train_causal_gqa", shape=[bsz, h, hkv, seq, hd],
+        max_abs_err=err, tolerance=tol, ms=timer.ms(kernel),
+        plain_ms=timer.ms(lambda: flash_attention_bwd_ref(*args,
+                                                          causal=True)),
+        library_ms=timer.ms_eager(lambda: torch.autograd.grad(
+            ref_out, (qc, kc, vc), doc, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        dq_pass=dict(replaces="src/repro/kernels/attention/kernel_bwd.py:71",
+                     ms=timer.ms(lambda: kernel((0,))), bound_ms=dq_ms),
+        dkv_pass=dict(
+            replaces="src/repro/kernels/attention/kernel_bwd.py:114",
+            ms=timer.ms(lambda: kernel((1,))), bound_ms=dkv_ms))]
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice
 # ---------------------------------------------------------------------------
 
+def no_launches() -> dict:
+    return {k.name: 0 for k in kernels.KERNELS}
+
+
 def expected_launches(cfg, batches: int) -> dict:
     steps = NEW_TOKENS - 1                     # decode calls per batch
     per_batch_gemm = cfg.num_layers * (4 + 2 * steps)
-    return {"gemm_fused": batches * per_batch_gemm,
+    return {**no_launches(), "gemm_fused": batches * per_batch_gemm,
             "flash_attention_fwd": batches * cfg.num_layers,
             "flash_decode": batches * cfg.num_layers * steps}
 
@@ -508,7 +744,6 @@ def run_slice(dev, m: Models):
     counts = kernels.launch_counts()
     log(f"[slice] served {served} requests; launches {counts}")
     want = expected_launches(cfg, REQUESTS // BATCH)
-    want["flash_decode_paged"] = 0
     if served != REQUESTS or counts != want:
         raise AssertionError(f"served {served}, launches {counts}; the main "
                              f"path makes {want}")
@@ -591,9 +826,9 @@ def expected_paged_launches(cfg, engine) -> dict:
     n = cfg.num_layers
     pre, chunks, steps = (engine.prefills, engine.chunks_prefilled,
                           engine.decode_steps)
-    return {"gemm_fused": n * (4 * (pre + chunks) + 2 * steps),
+    return {**no_launches(),
+            "gemm_fused": n * (4 * (pre + chunks) + 2 * steps),
             "flash_attention_fwd": n * pre,
-            "flash_decode": 0,
             "flash_decode_paged": n * (steps + chunks)}
 
 
@@ -729,6 +964,151 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
             "logit_bound_use": worst, "greedy_agreement": agreement}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Per layer and step under remat_policy='full': the forward's 4 fused
+    GEMMs and flash forward, again in the backward's recompute, then 4 dA,
+    4 dB and the two flash-backward passes."""
+    n = cfg.num_layers * steps
+    return {**no_launches(), "gemm_fused": 8 * n, "flash_attention_fwd": 2 * n,
+            "gemm_bwd_da": 4 * n, "gemm_bwd_db": 4 * n,
+            "flash_attention_bwd": 2 * n}
+
+
+def train_data(cfg, dev):
+    return DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH), device=dev)
+
+
+def trained_scale(model, params) -> dict:
+    """The seeded weights rescaled to std fan_in^-1/2 over each matrix's
+    input dim (the tied embedding's over d_model). The reference's init
+    draws a stacked matrix at std (layers)^-1/2: 0.71 at 2 layers, where
+    the bf16 grads of every path are rounding noise as large as the grads
+    themselves."""
+    out = {}
+    for path, x in named_leaves(params):
+        d = model.defs[path]
+        if d.init == "normal" and len(d.shape) > 1:
+            fan = d.shape[-1] if path == "embed" else d.shape[-2]
+            x = x * (d.shape[0] / fan) ** 0.5
+        out[path] = x
+    return nest(out)
+
+
+def run_grad_check(dev) -> dict:
+    """Phase 6a: per-leaf grads of lm_loss at llama-1b widths, 2 layers."""
+    cfg = dataclasses.replace(get_config("llama-1b"), num_layers=2)
+    batch = next(train_data(cfg, dev))
+
+    def grads(mode, dtype):
+        model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
+                            mode=mode, device=dev)
+        params = tree_map(lambda t: t.requires_grad_(), trained_scale(
+            model, model.init(seed=0, dtype=cfg.param_dtype)))
+        kernels.reset_launch_counts()
+        loss, _, g = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        named = {path: x.float() for (path, _), x
+                 in zip(named_leaves(params), g)}
+        return float(loss), named, kernels.launch_counts()
+
+    k_loss, kern, counts = grads("kernel", "bfloat16")
+    want = expected_train_launches(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"[6a] launches {counts}; one step of "
+                             f"{cfg.num_layers} layers makes {want}")
+    p_loss, plain, _ = grads("reference", "bfloat16")
+    t_loss, truth, _ = grads("reference", "float32")
+    worst, per_leaf = 0.0, {}
+    for path, t_ in truth.items():
+        k_, p_ = kern[path], plain[path]
+        k_err = (k_ - t_).abs().max().item()
+        p_err = (p_ - t_).abs().max().item()
+        per_leaf[path] = {"kernel_err": k_err, "plain_err": p_err,
+                          "truth_max": t_.abs().max().item()}
+        if not k_err <= 2.0 * p_err + 1e-3:
+            raise AssertionError(f"[6a] {path}: kernel-mode grad {k_err:.4g} "
+                                 f"from fp32, plain bf16 {p_err:.4g}")
+        worst = max(worst, k_err / (2.0 * p_err + 1e-3))
+    log(f"[6a] llama-1b widths, {cfg.num_layers} layers, weights at std "
+        f"fan_in^-1/2, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens: loss kernel {k_loss:.5f}, plain bf16 "
+        f"{p_loss:.5f}, fp32 {t_loss:.5f}; every one of {len(truth)} leaves' "
+        f"kernel-mode grad error within its bound (2 x plain bf16 error + "
+        f"1e-3), at most {worst:.3f} of it")
+    return {"losses": {"kernel": k_loss, "plain": p_loss, "truth": t_loss},
+            "launches": counts, "bound_use": worst, "leaves": per_leaf}
+
+
+def train_curve(cfg, mode, dtype, dev) -> dict:
+    """TRAIN_STEPS steps of train_loop from seed 0 on the ported data."""
+    model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
+                        mode=mode, device=dev)
+    opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
+    data = train_data(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = train_loop(model, data, TRAIN_STEPS, opt, seed=0, log_every=0)
+    counts = kernels.launch_counts()
+    out = {"losses": res.losses, "step_seconds": res.step_seconds,
+           "launches": counts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_training(dev) -> dict:
+    """Phase 6b: all 16 layers of llama-1b, kernel mode, through
+    train_loop; then the plain bf16 and fp32 curves of the same steps."""
+    cfg = get_config("llama-1b")
+    kern = train_curve(cfg, "kernel", "bfloat16", dev)
+    want = expected_train_launches(cfg, TRAIN_STEPS)
+    losses = kern["losses"]
+    step_s = statistics.median(kern["step_seconds"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[6b] llama-1b, {cfg.num_layers} layers, remat "
+        f"{cfg.remat_policy!r}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in kernel mode: losses "
+        f"{[round(x, 4) for x in losses]}; launches {kern['launches']}")
+    if kern["launches"] != want:
+        raise AssertionError(f"[6b] launches {kern['launches']}; "
+                             f"{TRAIN_STEPS} steps of the model make {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[6b] losses {losses}: not finite and falling")
+    log(f"[6b] step time {step_s:.4f} s (median of the steps after the "
+        f"first), {tokens / step_s:.1f} tokens/s; peak device memory "
+        f"{kern['peak_memory_gb']:.2f} GB")
+    plain = train_curve(cfg, "reference", "bfloat16", dev)
+    truth = train_curve(cfg, "reference", "float32", dev)
+    k_err = float(np.abs(np.subtract(losses, truth["losses"])).max())
+    p_err = float(np.abs(np.subtract(plain["losses"], truth["losses"])).max())
+    log(f"[6b] plain bf16 losses {[round(x, 4) for x in plain['losses']]}; "
+        f"fp32 {[round(x, 4) for x in truth['losses']]}; the kernel curve is "
+        f"{k_err:.4g} from fp32, the plain bf16 curve {p_err:.4g} (bound "
+        f"2.5 x {p_err:.4g} + 0.05)")
+    if not k_err <= 2.5 * p_err + 0.05:
+        raise AssertionError(f"[6b] kernel curve {k_err:.4g} from the fp32 "
+                             f"truth, plain bf16 {p_err:.4g}")
+    prof = profile_step(build_model(cfg, mode="kernel", device=dev),
+                        TRAIN_BATCH, TRAIN_SEQ, warmup=1)
+    tr = prof["traced"]
+    log(f"[6b] one traced step: device busy {tr['device_busy_ms']:.1f} of "
+        f"{tr['traced_wall_ms']:.1f} ms ({tr['device_busy_share']:.3f}); "
+        f"device ms by family "
+        f"{ {k: round(v, 2) for k, v in tr['device_ms_by_family'].items()} }")
+    return {"launches": kern["launches"], "kernel": kern, "plain": plain,
+            "truth": truth, "curve_err": {"kernel": k_err, "plain": p_err},
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "profile": prof}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -760,7 +1140,10 @@ def main(argv=None) -> int:
     measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer),
                 "flash_attention_fwd": measure_flash(cfg, dev, gen, timer),
                 "flash_decode": measure_decode(cfg, dev, gen, timer),
-                "flash_decode_paged": measure_paged(cfg, dev, gen, timer)}
+                "flash_decode_paged": measure_paged(cfg, dev, gen, timer),
+                **measure_gemm_bwd(cfg, dev, gen, timer),
+                "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen,
+                                                         timer)}
     for name, rows in measured.items():
         for r in rows:
             log(f"[kernel] {name}[{r['case']}] shape {r['shape']}: max abs "
@@ -770,10 +1153,16 @@ def main(argv=None) -> int:
                 f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
 
     del timer
+    torch.cuda.empty_cache()
     m = build_models(dev)
     phases = {"4": run_slice(dev, m)}
     for phase in PHASES:
         phases[phase] = run_paged_phase(dev, m, phase)
+    del m
+    torch.cuda.empty_cache()
+    phases["6a"] = run_grad_check(dev)
+    torch.cuda.empty_cache()
+    phases["6b"] = run_training(dev)
 
     line = []
     for name, rows in measured.items():
@@ -783,7 +1172,8 @@ def main(argv=None) -> int:
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": sum(p["launches"][name] for p in phases.values()),
+            "launches": sum(phases[p]["launches"][name]
+                            for p in MAIN_PATH_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

@@ -4,10 +4,12 @@
 compiles them in parallel (``_build.build_all``).
 """
 from ._build import build_all as _build_all
-from .attention import DECODE_KERNEL, DECODE_PAGED_KERNEL, FWD_KERNEL
-from .gemm import KERNEL as GEMM_KERNEL
+from .attention import (BWD_KERNEL, DECODE_KERNEL, DECODE_PAGED_KERNEL,
+                        FWD_KERNEL)
+from .gemm import DA_KERNEL, DB_KERNEL, KERNEL as GEMM_KERNEL
 
-KERNELS = (GEMM_KERNEL, FWD_KERNEL, DECODE_KERNEL, DECODE_PAGED_KERNEL)
+KERNELS = (GEMM_KERNEL, FWD_KERNEL, DECODE_KERNEL, DECODE_PAGED_KERNEL,
+           DA_KERNEL, DB_KERNEL, BWD_KERNEL)
 
 
 def build_all() -> dict:

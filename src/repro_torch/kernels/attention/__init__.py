@@ -7,3 +7,5 @@ from .decode import (BLOCK_KV, KERNEL as DECODE_KERNEL,  # noqa: F401
                      attention_decode_paged, combine_splits,
                      decode_partials_paged_ref, decode_partials_ref,
                      flash_decode, flash_decode_paged)
+from .backward import (KERNEL as BWD_KERNEL, attention_delta,  # noqa: F401
+                       flash_attention_bwd, flash_attention_bwd_ref)

@@ -1,10 +1,12 @@
-"""``attention``: causal / windowed MHA-GQA flash attention, forward only.
+"""``attention``: causal / windowed MHA-GQA flash attention.
 
 A CPU tensor runs the plain version (:func:`flash_attention_fwd_ref`); a
 CUDA tensor launches the hand-written kernel (``csrc/flash_fwd.cu``) or
 raises. The kernel takes the logit soft cap but not sinks, on either device.
 On the card q, k and v are bf16 with a contiguous last dim of 64 or 128;
-their other strides are passed to the kernel, so views need no copy.
+their other strides are passed to the kernel, so views need no copy. Under
+autograd the op is a ``torch.autograd.Function`` whose forward keeps (q, k,
+v, out, lse) and whose backward is the flash backward (``backward.py``).
 """
 from __future__ import annotations
 
@@ -78,10 +80,38 @@ def attention(q, k, v, *, causal: bool = False, window: int | None = None,
     """Multi-/grouped-query flash attention. q: (B, H, S, D); k/v:
     (B, Hkv, S, D). Returns the output in q's type."""
     if sinks is not None:
+        # and so no dsinks (the reference's ops.py:81-82) either
         raise NotImplementedError("attention kernel: sinks are not supported")
-    out, _ = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                 logit_scale=logit_scale, softcap=softcap)
-    return out
+    args = (causal, window, logit_scale, softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashFn.apply(q, k, v, args)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               logit_scale=logit_scale, softcap=softcap)[0]
+
+
+class _FlashFn(torch.autograd.Function):
+    """attention under autograd: the forward keeps (q, k, v, out, lse), the
+    backward runs the dq and dk/dv passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, args):
+        causal, window, logit_scale, softcap = args
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       logit_scale=logit_scale,
+                                       softcap=softcap)
+        ctx.args = args
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from .backward import flash_attention_bwd
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, logit_scale, softcap = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do, causal=causal, window=window,
+            logit_scale=logit_scale, softcap=softcap)
+        return dq, dk, dv, None
 
 
 def _launch(q, k, v, *, causal, window, logit_scale, softcap):

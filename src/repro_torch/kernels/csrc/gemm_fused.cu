@@ -12,7 +12,13 @@
 //   epilogue  x scale -> + bias -> rope -> silu(acc) * acc2 -> + residual,
 //             on the fp32 tile staged through shared memory, so the RoPE
 //             partner column (c +- head_dim/2, held by another warp) is
-//             readable; BLOCK_N is a multiple of head_dim.
+//             readable; BLOCK_N is a multiple of head_dim;
+//   save      for the differentiated forward of the gated chain, the two raw
+//             fp32 accumulators rounded to bf16 into `preact`/`preact2`
+//             (kernel.py:84-90 stores them through the MXU input type), the
+//             operands of the backward's silu' (gemm_bwd_da.cu,
+//             gemm_bwd_db.cu). The row statistics stay in `rstd` for the
+//             backward too.
 //
 // What bounds it on an H100: at the prefill shapes (M = B*S = 1024, K = 2048,
 // N up to 2 x 8192) the tensor cores (989 TFLOP/s bf16); at the decode shapes
@@ -56,6 +62,8 @@ struct GemmArgs {
   const __nv_bfloat16* residual;  // (M, N)
   const float* sin;               // (M, head_dim)
   const float* cos;               // (M, head_dim)
+  __nv_bfloat16* preact;          // (M, N) raw acc in bf16, gated only, or null
+  __nv_bfloat16* preact2;         // (M, N) raw acc2 in bf16, or null
   float scale;
   int m, n, k;
   int flags;
@@ -296,6 +304,17 @@ gemm_fused_kernel(GemmArgs p) {
     const int gm = m0 + r, gn0 = n0 + c0;
     if (gm >= p.m || gn0 >= p.n) continue;
     __align__(16) __nv_bfloat16 out[8];
+    if (GATE && p.preact != nullptr) {
+      __align__(16) __nv_bfloat16 pre[8], pre2[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        pre[e] = __float2bfloat16_rn(cs[r * Cfg::LDC + c0 + e]);
+        pre2[e] = __float2bfloat16_rn(cs2[r * Cfg::LDC + c0 + e]);
+      }
+      const size_t off = (size_t)gm * p.n + gn0;
+      *reinterpret_cast<uint4*>(p.preact + off) = *reinterpret_cast<const uint4*>(pre);
+      *reinterpret_cast<uint4*>(p.preact2 + off) = *reinterpret_cast<const uint4*>(pre2);
+    }
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int c = c0 + e, gn = gn0 + e;
@@ -350,12 +369,14 @@ const char* repro_error_string(int code) {
 // block_n % head_dim == 0, which the wrapper checks against this value.
 int gemm_fused_block_n() { return 128; }
 
-// rstd: (M,) fp32 scratch the caller allocates; used when gamma != null.
+// rstd: (M,) fp32 the caller allocates; written when gamma != null.
+// preact, preact2: (M, N) bf16 outputs of the gated variant, or null.
 int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
                       const void* gamma, void* rstd, const void* bias,
                       const void* residual, const void* sin, const void* cos,
-                      float scale, float eps, int m, int n, int k, int flags,
-                      int head_dim, void* stream) {
+                      void* preact, void* preact2, float scale, float eps,
+                      int m, int n, int k, int flags, int head_dim,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   GemmArgs p;
   p.a = static_cast<const __nv_bfloat16*>(a);
@@ -368,6 +389,10 @@ int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
   p.residual = static_cast<const __nv_bfloat16*>(residual);
   p.sin = static_cast<const float*>(sin);
   p.cos = static_cast<const float*>(cos);
+  p.preact = static_cast<__nv_bfloat16*>(preact);
+  p.preact2 = static_cast<__nv_bfloat16*>(preact2);
+  if ((preact != nullptr) != ((flags & EP_GATE_SILU) && preact2 != nullptr))
+    return cudaErrorInvalidValue;
   p.scale = scale;
   p.m = m;
   p.n = n;

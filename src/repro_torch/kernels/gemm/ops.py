@@ -11,10 +11,21 @@ accepts is one the card accepts too:
 
 On the card every operand is bf16 (sin/cos fp32), contiguous and 16-byte
 aligned, with N and K multiples of 8.
+
+Under autograd the op is a ``torch.autograd.Function``. ``bwd_mode`` picks
+its backward: ``"kernel"`` (the default, see :func:`default_bwd_mode`) runs
+the chain transpose as the two backward kernels (``backward.py``); the
+forward then also stores the raw accumulators the transpose needs and keeps
+the row statistics. ``"reference"`` is autograd through
+:func:`gemm_fused_ref`, the oracle; it runs only when the caller asks for
+it. The scale is a Python number (``residual_scale``) and takes no
+gradient: unlike the reference, no fp32 preactivation is kept for a dscale.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 
 import torch
 
@@ -26,7 +37,33 @@ from .ref import gemm_fused_ref
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "gemm_fused", "gemm_fused.cu", "gemm_fused_launch",
-    [_P] * 10 + [_F, _F] + [_I] * 5 + [_P])
+    [_P] * 12 + [_F, _F] + [_I] * 5 + [_P])
+
+BWD_MODES = ("kernel", "reference", "auto")
+_DEFAULT_BWD_MODE = ["kernel"]
+
+
+@contextlib.contextmanager
+def default_bwd_mode(mode: str):
+    """Temporarily set the backward of ``gemm_fused`` calls that pass no
+    ``bwd_mode`` (every model layer): how the parity checks pit the kernel
+    backward against the oracle on the same graph."""
+    if mode not in BWD_MODES:
+        raise ValueError(f"unknown bwd_mode {mode!r}; have {BWD_MODES}")
+    prev = _DEFAULT_BWD_MODE[0]
+    _DEFAULT_BWD_MODE[0] = mode
+    try:
+        yield
+    finally:
+        _DEFAULT_BWD_MODE[0] = prev
+
+
+def kernel_saves(epilogue: Epilogue) -> int:
+    """Raw accumulators the forward stores for the kernel backward: the
+    activation's input (and the gate's second product). The reference also
+    stores them for a scale chain, for dscale; the port's scale takes no
+    gradient."""
+    return epilogue.n_accumulators if epilogue.activation != "none" else 0
 
 # bit flags of the C entry point (csrc/gemm_fused.cu)
 _EP_SCALE, _EP_BIAS, _EP_ROPE, _EP_GATE_SILU, _EP_RESIDUAL = 1, 2, 4, 8, 16
@@ -66,15 +103,31 @@ def check_chain(epilogue: Epilogue, prologue: Prologue) -> None:
             f"divide the kernel's block width {BLOCK_N}")
 
 
+@dataclasses.dataclass(frozen=True)
+class _Spec:
+    """The non-tensor arguments of one differentiated call."""
+    epilogue: Epilogue
+    prologue: Prologue
+    scale: object
+    out_dtype: torch.dtype
+    bwd_mode: str
+
+
+# the tensor operands of the autograd Function, in its argument order
+_GRAD_OPERANDS = ("b2", "bias", "residual", "gamma", "sin", "cos")
+
+
 def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
                prologue: Prologue = PROLOGUE_NONE, b2=None, bias=None,
                residual=None, scale=None, sin=None, cos=None,
                gamma=None, beta=None, mean=None, rstd=None,
-               out_dtype=torch.bfloat16):
+               out_dtype=torch.bfloat16, bwd_mode: str | None = None):
     """C = epilogue(prologue(A) @ B [, A @ B2]) in one launch on the card.
 
     a (M, K), b and b2 (K, N); gamma (K,); bias (N,); residual (M, N);
     scale a scalar; sin/cos (M, head_dim) fp32 duplicated-halves tables.
+    ``bwd_mode`` ("kernel" | "reference"; None: :func:`default_bwd_mode`)
+    picks the backward when autograd records the call.
     """
     provided = dict(b2=b2, bias=bias, residual=residual, scale=scale,
                     sin=sin, cos=cos)
@@ -84,20 +137,126 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm_fused: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} do not multiply")
-    if a.device.type == "cpu":
-        return gemm_fused_ref(a, b, epilogue=epilogue, prologue=prologue,
-                              b2=b2, bias=bias, residual=residual,
-                              scale=scale, sin=sin, cos=cos, gamma=gamma,
-                              beta=beta, mean=mean, rstd=rstd,
-                              out_dtype=out_dtype)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gemm_fused: unsupported device {a.device}")
-    return _launch(a, b, epilogue, b2=b2, bias=bias, residual=residual,
-                   scale=scale, sin=sin, cos=cos, gamma=gamma,
-                   eps=prologue.eps, out_dtype=out_dtype)
+    if bwd_mode is None:
+        bwd_mode = _DEFAULT_BWD_MODE[0]
+    if bwd_mode not in BWD_MODES:
+        raise ValueError(f"unknown bwd_mode {bwd_mode!r}; have {BWD_MODES}")
+    if bwd_mode == "auto":
+        raise NotImplementedError(
+            "gemm_fused: bwd_mode='auto' routes by the reference's TPU cost "
+            "model, which the port does not have; pass 'kernel' or "
+            "'reference'")
+    operands = (a, b, b2, bias, residual, gamma, sin, cos)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        if any(torch.is_tensor(t) and t.requires_grad
+               for t in (scale, sin, cos)):
+            raise NotImplementedError(
+                "gemm_fused: the scale and the rope tables take no gradient")
+        return _GemmFusedFn.apply(*operands, _Spec(
+            epilogue, prologue, scale, out_dtype, bwd_mode))
+    return _forward(a, b, epilogue, prologue, b2=b2, bias=bias,
+                    residual=residual, scale=scale, sin=sin, cos=cos,
+                    gamma=gamma, out_dtype=out_dtype)[0]
 
 
-def _require(t, name, shape, dtype, device):
+def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
+             cos, gamma, out_dtype, save_preact=False):
+    """(out, rstd, preacts): the kernel on the card, the plain version on
+    the CPU. ``rstd`` (M,) fp32 is the kernel's row statistics (None
+    without a prologue, and on the CPU, where the plain backward recomputes
+    them); ``preacts`` the raw accumulators rounded to A's type when
+    ``save_preact``, else ()."""
+    if a.device.type == "cuda":
+        return _launch(a, b, epilogue, b2=b2, bias=bias, residual=residual,
+                       scale=scale, sin=sin, cos=cos, gamma=gamma,
+                       eps=prologue.eps, out_dtype=out_dtype,
+                       save_preact=save_preact)
+    out = gemm_fused_ref(a, b, epilogue=epilogue, prologue=prologue, b2=b2,
+                         bias=bias, residual=residual, scale=scale, sin=sin,
+                         cos=cos, gamma=gamma, out_dtype=out_dtype)
+    preacts = ()
+    if save_preact:
+        an = a
+        if not prologue.is_identity:
+            an = prologue.apply(a.float(), gamma=gamma.float().reshape(1, -1)
+                                ).to(a.dtype)
+        preacts = tuple((an.float() @ w.float()).to(a.dtype)
+                        for w in ((b, b2) if epilogue.gate else (b,)))
+    return out, None, preacts
+
+
+class _GemmFusedFn(torch.autograd.Function):
+    """gemm_fused under autograd. The forward keeps (a, b, the extras, the
+    row statistics, the saved preacts); the backward is the kernel chain
+    transpose or the oracle's autograd, with no grad for sin and cos."""
+
+    @staticmethod
+    def forward(ctx, a, b, b2, bias, residual, gamma, sin, cos, spec):
+        ep = spec.epilogue
+        save = spec.bwd_mode == "kernel" and kernel_saves(ep) > 0
+        out, rstd, preacts = _forward(
+            a, b, ep, spec.prologue, b2=b2, bias=bias, residual=residual,
+            scale=spec.scale, sin=sin, cos=cos, gamma=gamma,
+            out_dtype=spec.out_dtype, save_preact=save)
+        ctx.spec = spec
+        ctx.save_for_backward(a, b, b2, bias, residual, gamma, sin, cos,
+                              rstd, *preacts)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, b2, bias, residual, gamma, sin, cos, rstd, *preacts = \
+            ctx.saved_tensors
+        spec = ctx.spec
+        operands = (a, b, b2, bias, residual, gamma, sin, cos)
+        need = ctx.needs_input_grad[:len(operands)]
+        if spec.bwd_mode == "reference":
+            return (*_reference_vjp(spec, operands, need, g), None)
+        from .backward import gemm_fused_bwd
+        da, db, grads = gemm_fused_bwd(
+            a, b, g, epilogue=spec.epilogue, prologue=spec.prologue,
+            b2=b2, bias=bias, scale=spec.scale, sin=sin, cos=cos,
+            gamma=gamma, rstd=rstd, preacts=tuple(preacts))
+        extras = []
+        for name, op, wanted in zip(_GRAD_OPERANDS, operands[2:], need[2:]):
+            grad = grads.get(name) if wanted else None
+            extras.append(None if grad is None
+                          else grad.reshape(op.shape).to(op.dtype))
+        return (da, db, *extras, None)
+
+
+def _reference_vjp(spec, operands, need, g):
+    """Autograd through the oracle, recomputing the forward."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(w)
+                  for t, w in zip(operands, need)]
+        a, b, b2, bias, residual, gamma, sin, cos = leaves
+        out = gemm_fused_ref(a, b, epilogue=spec.epilogue,
+                             prologue=spec.prologue, b2=b2, bias=bias,
+                             residual=residual, scale=spec.scale, sin=sin,
+                             cos=cos, gamma=gamma, out_dtype=spec.out_dtype)
+        wanted = [t for t, w in zip(leaves, need) if t is not None and w]
+        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+    return tuple(next(grads) if t is not None and w else None
+                 for t, w in zip(leaves, need))
+
+
+def chain_flags(epilogue: Epilogue) -> int:
+    """The chain as the C entry points' bit flags (also those of the
+    backward kernels, csrc/gemm_bwd_g.cuh)."""
+    return ((_EP_SCALE if epilogue.scale else 0)
+            | (_EP_BIAS if epilogue.bias else 0)
+            | (_EP_ROPE if epilogue.rope else 0)
+            | (_EP_GATE_SILU if epilogue.gate else 0)
+            | (_EP_RESIDUAL if epilogue.residual else 0))
+
+
+def require(t, name, shape, dtype, device):
+    """The pointer of a kernel operand, after checking its device, type,
+    shape, contiguity and 16-byte alignment."""
     if t.device != device:
         raise ValueError(f"gemm_fused: {name} on {t.device}, A on {device}")
     if t.dtype != dtype:
@@ -113,7 +272,7 @@ def _require(t, name, shape, dtype, device):
 
 
 def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
-            eps, out_dtype):
+            eps, out_dtype, save_preact=False):
     m, k = a.shape
     n = b.shape[1]
     dev, bf16 = a.device, torch.bfloat16
@@ -126,29 +285,32 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
     if epilogue.rope and n % epilogue.head_dim:
         raise ValueError(f"gemm_fused: N ({n}) is not whole heads of "
                          f"{epilogue.head_dim}")
-    ptr = {"a": _require(a, "a", (m, k), bf16, dev),
-           "b": _require(b, "b", (k, n), bf16, dev)}
+    ptr = {"a": require(a, "a", (m, k), bf16, dev),
+           "b": require(b, "b", (k, n), bf16, dev)}
     null = None
     if b2 is not None:
-        ptr["b2"] = _require(b2, "b2", (k, n), bf16, dev)
+        ptr["b2"] = require(b2, "b2", (k, n), bf16, dev)
     if gamma is not None:
-        ptr["gamma"] = _require(gamma, "gamma", (k,), bf16, dev)
+        ptr["gamma"] = require(gamma, "gamma", (k,), bf16, dev)
     if bias is not None:
-        ptr["bias"] = _require(bias, "bias", (n,), bf16, dev)
+        ptr["bias"] = require(bias, "bias", (n,), bf16, dev)
     if residual is not None:
-        ptr["residual"] = _require(residual, "residual", (m, n), bf16, dev)
+        ptr["residual"] = require(residual, "residual", (m, n), bf16, dev)
     if sin is not None:
         hd = epilogue.head_dim
-        ptr["sin"] = _require(sin, "sin", (m, hd), torch.float32, dev)
-        ptr["cos"] = _require(cos, "cos", (m, hd), torch.float32, dev)
-    flags = ((_EP_SCALE if epilogue.scale else 0)
-             | (_EP_BIAS if epilogue.bias else 0)
-             | (_EP_ROPE if epilogue.rope else 0)
-             | (_EP_GATE_SILU if epilogue.gate else 0)
-             | (_EP_RESIDUAL if epilogue.residual else 0))
+        ptr["sin"] = require(sin, "sin", (m, hd), torch.float32, dev)
+        ptr["cos"] = require(cos, "cos", (m, hd), torch.float32, dev)
+    flags = chain_flags(epilogue)
     out = torch.empty((m, n), dtype=bf16, device=dev)
     rstd = (torch.empty((m,), dtype=torch.float32, device=dev)
             if gamma is not None else None)
+    preacts = ()
+    if save_preact:
+        if not epilogue.gate:
+            raise NotImplementedError(
+                "gemm_fused kernel: preacts are saved for the gated chain only")
+        preacts = tuple(torch.empty((m, n), dtype=bf16, device=dev)
+                        for _ in range(2))
     fn = KERNEL.fn()
     stream = KERNEL.stream(dev)
     KERNEL.launches += 1
@@ -157,8 +319,9 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
               None if rstd is None else rstd.data_ptr(),
               ptr.get("bias", null), ptr.get("residual", null),
               ptr.get("sin", null), ptr.get("cos", null),
+              *([p.data_ptr() for p in preacts] or [null, null]),
               float(scale) if scale is not None else 1.0,
               float(eps) if eps is not None else 0.0,
               m, n, k, flags, epilogue.head_dim, stream)
     KERNEL.check(code)
-    return out
+    return out, rstd, preacts

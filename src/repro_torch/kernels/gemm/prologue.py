@@ -4,7 +4,9 @@ The port of the reference's :class:`Prologue` spec: a per-row normalisation
 (rmsnorm / layernorm) applied to A in fp32 and rounded back to the input
 type before the product, so the normed activation never has to be written
 by a standalone norm pass. :meth:`Prologue.apply` is the plain torch
-version, with the same math as ``models.common.rmsnorm`` / ``layernorm``.
+version, with the same math as ``models.common.rmsnorm`` / ``layernorm``;
+:meth:`Prologue.transpose` is its backward, row-local, for both statistics
+paths.
 """
 from __future__ import annotations
 
@@ -90,6 +92,65 @@ class Prologue:
         if self.beta:
             out = out + beta
         return out
+
+    def transpose(self, d_an, a, *, gamma=None, beta=None, mean=None,
+                  rstd=None) -> dict:
+        """The cotangent of the normed A with respect to the raw A and the
+        norm parameters, row by row, on fp32 arrays.
+
+        ``d_an`` (rows, K) is the cotangent of the normed activation (what
+        the dA GEMM accumulates); ``a`` the raw A rows. Recompute path: the
+        statistics are re-derived from ``a`` and their own dependence on A
+        is transposed too, so rows must be whole. Precomputed path: the
+        given ``mean``/``rstd`` are operands with cotangents of their own.
+        Returns {'da'} plus, per spec, 'dgamma'/'dbeta' (1, K) sums over the
+        rows and 'dmean'/'drstd' (rows, 1)."""
+        if self.norm == "none":
+            return {"da": d_an}
+        out = {}
+        if self.precomputed_stats:
+            if self.norm == "rmsnorm":
+                dahat = d_an * gamma
+                out["da"] = dahat * rstd
+                out["dgamma"] = torch.sum(d_an * a * rstd, dim=0, keepdim=True)
+                out["drstd"] = torch.sum(dahat * a, dim=-1, keepdim=True)
+                return out
+            c = a - mean
+            dahat = d_an * gamma
+            out["da"] = dahat * rstd
+            out["dgamma"] = torch.sum(d_an * c * rstd, dim=0, keepdim=True)
+            if self.beta:
+                out["dbeta"] = torch.sum(d_an, dim=0, keepdim=True)
+            out["dmean"] = -torch.sum(dahat * rstd, dim=-1, keepdim=True)
+            out["drstd"] = torch.sum(dahat * c, dim=-1, keepdim=True)
+            return out
+        if self.norm == "rmsnorm":
+            var = torch.mean(a * a, dim=-1, keepdim=True)
+            rstd = torch.rsqrt(var + self.eps)
+            ahat = a * rstd
+            dahat = d_an * gamma
+            cterm = torch.mean(dahat * ahat, dim=-1, keepdim=True)
+            out["da"] = rstd * (dahat - ahat * cterm)
+            out["dgamma"] = torch.sum(d_an * ahat, dim=0, keepdim=True)
+            return out
+        mean = torch.mean(a, dim=-1, keepdim=True)
+        c = a - mean
+        var = torch.mean(c * c, dim=-1, keepdim=True)
+        rstd = torch.rsqrt(var + self.eps)
+        chat = c * rstd
+        dchat = d_an * gamma
+        out["da"] = rstd * (dchat - torch.mean(dchat, dim=-1, keepdim=True)
+                            - chat * torch.mean(dchat * chat, dim=-1,
+                                                keepdim=True))
+        out["dgamma"] = torch.sum(d_an * chat, dim=0, keepdim=True)
+        if self.beta:
+            out["dbeta"] = torch.sum(d_an, dim=0, keepdim=True)
+        return out
+
+    def grad_names(self) -> tuple:
+        """The transpose's extra outputs, matching operand_names():
+        'dgamma'[, 'dbeta'][, 'dmean', 'drstd']."""
+        return tuple("d" + n for n in self.operand_names())
 
     def describe(self) -> str:
         if self.is_identity:

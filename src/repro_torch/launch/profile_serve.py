@@ -36,6 +36,11 @@ from repro_torch.serve import PagedEngine, Request
 FAMILIES = (
     ("gemm_fused_kernel", "gemm_fused"),
     ("rms_stats_kernel", "gemm_fused"),
+    ("gemm_bwd_da_kernel", "gemm_bwd_da"),
+    ("rms_transpose_kernel", "gemm_bwd_da"),
+    ("gemm_bwd_db_kernel", "gemm_bwd_db"),
+    ("flash_bwd_dq_kernel", "flash_attention_bwd"),
+    ("flash_bwd_dkv_kernel", "flash_attention_bwd"),
     ("flash_fwd_kernel", "flash_attention_fwd"),
     ("flash_decode_paged_kernel", "flash_decode_paged"),
     ("flash_decode_kernel", "flash_decode"),

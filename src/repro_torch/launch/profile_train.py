@@ -1,0 +1,91 @@
+"""Where one training step spends its time on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama-1b \\
+      --batch 4 --seq 1024 --out DIR
+
+Builds the model in kernel mode with seeded random fp32 masters, runs two
+warm-up steps on the reference's synthetic data, one step timed by the host
+clock (ended by a device synchronise) and one step under
+``torch.profiler``. From the trace it reports the device time by kernel
+family (the port's kernels, forward and backward, the library matrix
+products, the other torch operations), the device's busy share of the
+traced step, and the peak device memory. Needs a CUDA card; writes
+``DIR/profile_train.json`` and prints one summary line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, DataIterator
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig, cosine_schedule
+from repro_torch.train import init_state, make_train_step
+from .profile_serve import _timed, summarize
+
+
+def profile_step(model, batch: int, seq: int, *, seed: int = 0,
+                 warmup: int = 2) -> dict:
+    """Warm-up steps, then one untraced and one traced step of ``model``:
+    {"step_s", "tokens_per_s", "traced": summarize(...)}."""
+    cfg = model.cfg
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch, seed=seed),
+                        device=model.device)
+    opt = AdamWConfig(schedule=cosine_schedule(3e-4, 2, warmup + 2))
+    state = init_state(model, seed)
+    step = make_train_step(model, opt)
+
+    def one():
+        step(state, next(data))
+
+    for _ in range(warmup):
+        one()
+    plain_s, _ = _timed(one, profile=False)
+    traced_s, prof = _timed(one, profile=True)
+    return {"step_s": plain_s, "tokens_per_s": batch * seq / plain_s,
+            "traced": summarize(prof, traced_s)}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama-1b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    model = build_model(cfg, mode="kernel", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    row = profile_step(model, args.batch, args.seq, seed=args.seed)
+    report = {"arch": args.arch, "layers": cfg.num_layers,
+              "batch": args.batch, "seq": args.seq,
+              "remat_policy": cfg.remat_policy,
+              "device": torch.cuda.get_device_name(0),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **row}
+    tr = row["traced"]
+    fams = ", ".join(f"{k} {v:.3f} ms ({tr['device_launches_by_family'][k]})"
+                     for k, v in sorted(tr["device_ms_by_family"].items(),
+                                        key=lambda kv: -kv[1]))
+    print(f"[profile] train step: {args.batch} x {args.seq} tokens in "
+          f"{row['step_s']:.4f} s ({row['tokens_per_s']:.1f} tok/s); traced: "
+          f"device busy {tr['device_busy_ms']:.3f} ms of "
+          f"{tr['traced_wall_ms']:.3f} ms ({tr['device_busy_share']:.3f}); "
+          f"{fams}", flush=True)
+    print(f"[profile] peak device memory {report['peak_memory_gb']:.2f} GB")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "profile_train.json"), "w") as fh:
+            json.dump(report, fh, indent=1)
+    return report
+
+
+if __name__ == "__main__":
+    main()

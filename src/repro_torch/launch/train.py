@@ -1,0 +1,86 @@
+"""Training launcher: the dense llama decoder on the reference's synthetic
+data, with the model in kernel mode.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
+      --steps 8 --batch 4 --seq 1024
+
+Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
+versions on the CPU (with ``--tiny``: 2 layers, d_model 128, 4/2 heads,
+d_ff 256, vocab 256, the width of the CPU tests). Prints the reference
+launcher's ``[train] finished:`` line, then tokens/s (median host time of
+the steps after the first) and the peak device memory.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, DataIterator
+from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig, cosine_schedule, wsd_schedule
+from repro_torch.train import FailureInjector, StragglerWatchdog, train_loop
+
+TINY = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+            vocab_size=256)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama-1b")
+    ap.add_argument("--tiny", action="store_true",
+                    help="the CPU tests' width (2 layers, d_model 128)")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--schedule", choices=["cosine", "wsd"], default="cosine")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--mode", choices=["kernel", "reference"],
+                    default="kernel")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[],
+                    help="inject simulated node failures at these steps")
+    ap.add_argument("--device", default=DEFAULT_DEVICE)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.tiny:
+        cfg = dataclasses.replace(cfg, **TINY)
+    sched = (wsd_schedule if args.schedule == "wsd" else cosine_schedule)(
+        args.lr, args.warmup, args.steps)
+    model = build_model(cfg, mode=args.mode, device=args.device)
+    cuda = model.device.type == "cuda"
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=args.seq, global_batch=args.batch,
+                                   seed=args.seed), device=model.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res = train_loop(model, data, args.steps, AdamWConfig(schedule=sched),
+                     seed=args.seed, microbatches=args.microbatches,
+                     failure_injector=FailureInjector(tuple(args.fail_at)),
+                     watchdog=StragglerWatchdog())
+    print(f"[train] finished: {len(res.losses)} steps, "
+          f"first loss {res.losses[0]:.4f}, last loss {res.losses[-1]:.4f}, "
+          f"restarts {res.restarts}, stragglers {len(res.straggler_events)}")
+    steady = res.step_seconds[1:] or res.step_seconds
+    step_s = statistics.median(steady)
+    where = torch.cuda.get_device_name(0) if cuda else "cpu"
+    print(f"[train] {cfg.name}, {cfg.num_layers} layers, {args.batch} x "
+          f"{args.seq} tokens a step on {where}: median step {step_s:.4f} s "
+          f"after the first, {args.batch * args.seq / step_s:.1f} tokens/s")
+    if cuda:
+        print(f"[train] peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    else:
+        print("[train] peak device memory: not measured (cpu)")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, dtype_of, resolve_device
 from . import lm as _lm
-from .common import init_params, tree_map
+from .common import cast_params, init_params
 
 MODES = ("kernel", "reference")
 
@@ -21,16 +21,21 @@ class Model:
     device: torch.device
     defs: dict
 
-    def init(self, seed: int = 0) -> dict:
+    def init(self, seed: int = 0, dtype=None) -> dict:
         """Seeded random parameters, drawn in the param type and cast once
-        to the compute type: the model keeps that one copy."""
+        to ``dtype``: by default the compute type, the one copy serving
+        keeps; training passes ``cfg.param_dtype`` for its fp32 masters."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = init_params(self.defs, gen, self.device)
-        dtype = dtype_of(self.cfg.compute_dtype)
-        return tree_map(lambda x: x.to(dtype), params)
+        return cast_params(params, dtype_of(dtype or self.cfg.compute_dtype))
 
     def forward(self, params, tokens):
         return _lm.lm_forward(self.cfg, params, tokens, mode=self.mode)
+
+    def loss(self, params, batch):
+        """(loss, metrics) of a batch {"inputs", "targets", "loss_mask"},
+        the blocks recomputed in the backward per ``cfg.remat_policy``."""
+        return _lm.lm_loss(self.cfg, params, batch, mode=self.mode)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return _lm.lm_init_cache(self.cfg, batch, max_len, self.device)

@@ -69,6 +69,27 @@ def init_params(defs: Mapping[str, ParamDef], generator: torch.Generator,
     return nest(flat)
 
 
+def cast_params(params, dtype):
+    """Floating leaves cast to the compute type (training keeps fp32 masters
+    and casts inside the differentiated forward, so autograd carries the
+    cast's backward and hands fp32 grads to the optimizer). A leaf already
+    in ``dtype`` is returned as it is, without a copy."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean cross entropy over the valid positions, in fp32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Shared numerics (fp32 internally)
 # ---------------------------------------------------------------------------

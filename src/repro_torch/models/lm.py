@@ -5,15 +5,21 @@ over a paged pool.
 
 Layer parameters are stacked with a leading layer axis (the reference's
 scan layout, same keys and shapes); a Python loop over layers takes the
-place of ``lax.scan``. The parameters come in the compute type already:
-the reference casts them on every call (``cast_params``), the port casts
-them once when they are made (``Model.init``, ``params_from_numpy``) and
-keeps that one copy; the numbers are the same. The port runs 'attn'
-blocks only; any other block kind raises.
+place of ``lax.scan``. Serving keeps one copy of the parameters, cast once
+to the compute type when they are made (``Model.init``,
+``params_from_numpy``); training keeps fp32 masters, and the full-sequence
+forward casts them (``cast_params``, as the reference does on every call),
+so the cast's backward hands fp32 grads to the optimizer. With ``remat``
+each block runs under ``torch.utils.checkpoint`` (the reference's
+``remat_policy="full"``). The port runs 'attn' blocks only; any other block
+kind raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import dtype_of
 from repro_torch.kernels.attention import attention_decode_paged
@@ -22,8 +28,8 @@ from .attention import (attend, attn_defs, decode_attention_layer,
                         paged_decode_attention_layer, paged_prefill_attn_cache,
                         prefill_attn_cache, project_qkv_heads, _merge_heads,
                         attention_layer)
-from .common import (ParamDef, apply_norm, mlp_defs, mlp_forward,
-                     norm_defs, norm_params, tree_map)
+from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
+                     mlp_defs, mlp_forward, norm_defs, norm_params, tree_map)
 
 
 def check_supported(cfg) -> None:
@@ -84,15 +90,60 @@ def block_forward(cfg, p, x, *, positions, mode: str = "reference"):
                        residual_scale=rs, prenorm=norm_params(p, "ln2"))
 
 
-def lm_forward(cfg, params, tokens, *, mode: str = "reference"):
+def unstack_layers(blocks, n: int) -> list:
+    """Every layer's parameters as views of the stacked block params, made
+    by one ``unbind`` per leaf: its backward stacks the layers' grads once,
+    where indexing each layer would add a zero-filled full-size buffer per
+    layer."""
+    per_leaf = tree_map(lambda x: x.unbind(0), blocks)
+    return [tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
+
+
+def _remat(cfg, fn):
+    """``fn`` recomputed in the backward, per ``cfg.remat_policy``."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (keep the matrix products) is not ported; "
+            "use 'full' or 'none'")
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return run
+
+
+def lm_forward(cfg, params, tokens, *, mode: str = "reference",
+               remat: bool = False):
     """tokens: (B, S) -> logits (B, S, V) fp32. (The reference also returns
     the MoE auxiliary loss; dense blocks have none.)"""
+    params = cast_params(params, dtype_of(cfg.compute_dtype))
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    for i in range(cfg.num_layers):
-        x = block_forward(cfg, layer_params(params, i), x,
-                          positions=positions, mode=mode)
+    block = functools.partial(block_forward, cfg, positions=positions,
+                              mode=mode)
+    if remat:
+        block = _remat(cfg, block)
+    for p in unstack_layers(params["blocks"], cfg.num_layers):
+        x = block(p, x)
     return _logits(cfg, params, x)
+
+
+def lm_loss(cfg, params, batch, *, mode: str = "reference", remat: bool = True,
+            aux_weight: float = 0.01):
+    """(loss, {"ce", "aux"}): the masked mean cross entropy of the batch
+    {"inputs", "targets"[, "loss_mask"]}; dense blocks have no auxiliary
+    loss, so aux is 0."""
+    if cfg.ce_chunk:
+        raise NotImplementedError(
+            "ce_chunk (the chunked cross entropy) is not ported; use 0")
+    logits = lm_forward(cfg, params, batch["inputs"], mode=mode, remat=remat)
+    ce = cross_entropy_loss(logits, batch["targets"], batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:

@@ -1,0 +1,3 @@
+from .optimizer import (AdamWConfig, adamw_init, adamw_update,  # noqa: F401
+                        clip_by_global_norm, constant_schedule,
+                        cosine_schedule, global_norm, wsd_schedule)

@@ -1,0 +1,22 @@
+"""Train state: {"params", "opt", "step"}, the reference's layout.
+
+The parameters are fp32 masters (``cfg.param_dtype``) that require grad;
+the forward casts them to the compute type. One device, no sharding and no
+gradient-compression buffers.
+"""
+from __future__ import annotations
+
+from repro_torch.models.common import tree_map
+from repro_torch.optim import adamw_init
+
+
+def init_state(model, seed: int = 0, params=None) -> dict:
+    """Fresh state from ``model.init(seed)`` in the param type, or from a
+    copy of ``params`` (a tree of tensors) when given."""
+    if params is None:
+        params = model.init(seed, dtype=model.cfg.param_dtype)
+    else:
+        params = tree_map(lambda t: t.detach().to(model.device).clone(),
+                          params)
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    return {"params": params, "opt": adamw_init(params), "step": 0}

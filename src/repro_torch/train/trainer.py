@@ -1,0 +1,163 @@
+"""The train step and the fault-tolerant training loop.
+
+``make_train_step`` builds the step: the loss and its grads by autograd
+(microbatches' grads summed in fp32, as the reference's scan does), then
+AdamW in place. ``train_loop`` adds failure injection with restart and the
+straggler watchdog. The port has no checkpointing yet: without a
+checkpoint directory a simulated failure restarts from scratch, as the
+reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim.optimizer import leaves
+from .state import init_state
+
+
+class SimulatedFailure(RuntimeError):
+    """Raised by the failure injector to emulate a node loss."""
+
+
+@dataclasses.dataclass
+class FailureInjector:
+    fail_at_steps: tuple = ()
+    _fired: set = dataclasses.field(default_factory=set)
+
+    def maybe_fail(self, step: int) -> None:
+        if step in self.fail_at_steps and step not in self._fired:
+            self._fired.add(step)
+            raise SimulatedFailure(f"injected node failure at step {step}")
+
+
+@dataclasses.dataclass
+class StragglerWatchdog:
+    """Flags steps slower than ``factor`` x the running median and calls a
+    mitigation hook (on a fleet: move work off the slow host; here: record
+    and notify)."""
+    factor: float = 3.0
+    warmup: int = 5
+    durations: list = dataclasses.field(default_factory=list)
+    events: list = dataclasses.field(default_factory=list)
+    on_straggler: Optional[Callable[[int, float, float], None]] = None
+
+    def observe(self, step: int, seconds: float) -> bool:
+        self.durations.append(seconds)
+        if len(self.durations) <= self.warmup:
+            return False
+        med = sorted(self.durations)[len(self.durations) // 2]
+        if seconds > self.factor * med:
+            self.events.append((step, seconds, med))
+            if self.on_straggler:
+                self.on_straggler(step, seconds, med)
+            return True
+        return False
+
+
+def _split_microbatches(batch: dict, n: int) -> list:
+    return [dict(zip(batch, parts))
+            for parts in zip(*(v.chunk(n, dim=0) for v in batch.values()))]
+
+
+def loss_and_grads(model, params, batch, *, microbatches: int = 1) -> tuple:
+    """(loss, metrics, grads): the grads in the order of
+    ``optim.optimizer.leaves(params)``. With microbatches the batch rows
+    are split, each part's grads summed in fp32 and divided, and the loss
+    is the mean of the parts' losses, as the reference's scan computes."""
+    wrt = leaves(params)
+    if microbatches == 1:
+        loss, metrics = model.loss(params, batch)
+        return loss.detach(), metrics, torch.autograd.grad(loss, wrt)
+    if batch["inputs"].shape[0] % microbatches:
+        raise ValueError(f"batch of {batch['inputs'].shape[0]} rows does "
+                         f"not split into {microbatches}")
+    gsum, lsum = None, 0.0
+    for mb in _split_microbatches(batch, microbatches):
+        loss, _ = model.loss(params, mb)
+        grads = [g.float() for g in torch.autograd.grad(loss, wrt)]
+        if gsum is None:
+            gsum = grads
+        else:
+            torch._foreach_add_(gsum, grads)
+        lsum = lsum + loss.detach()
+    loss = lsum / microbatches
+    return (loss, {"ce": loss, "aux": torch.zeros((), device=loss.device)},
+            torch._foreach_div(gsum, float(microbatches)))
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1):
+    """Returns step(state, batch) -> (state, metrics); the state is updated
+    in place."""
+
+    def step_fn(state, batch):
+        loss, metrics, grads = loss_and_grads(model, state["params"], batch,
+                                              microbatches=microbatches)
+        _, _, om = adamw_update(opt_cfg, grads, state["opt"], state["params"])
+        state["step"] += 1
+        return state, {"loss": loss, **metrics, **om}
+
+    return step_fn
+
+
+@dataclasses.dataclass
+class TrainLoopResult:
+    state: dict
+    losses: list
+    restarts: int
+    straggler_events: list
+    step_seconds: list = dataclasses.field(default_factory=list)
+
+
+def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
+               seed: int = 0, params=None, microbatches: int = 1,
+               ckpt_dir: Optional[str] = None,
+               failure_injector: Optional[FailureInjector] = None,
+               watchdog: Optional[StragglerWatchdog] = None,
+               max_restarts: int = 3, log_every: int = 10,
+               log: Callable = print) -> TrainLoopResult:
+    """Train ``num_steps`` steps from ``init_state(model, seed, params)``.
+    Each step's host time ends when its loss reaches the host (a device
+    synchronise); ``step_seconds`` keeps them."""
+    if ckpt_dir is not None:
+        raise NotImplementedError(
+            "checkpointing (train/checkpoint.py) is not ported; pass "
+            "ckpt_dir=None")
+    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
+    state = init_state(model, seed, params)
+    losses: list = []
+    seconds: list = []
+    restarts = 0
+    step = 0
+    while step < num_steps:
+        try:
+            batch = next(data_iter)
+            t0 = time.perf_counter()
+            if failure_injector is not None:
+                failure_injector.maybe_fail(step)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            if watchdog is not None:
+                watchdog.observe(step, dt)
+            losses.append(loss)
+            seconds.append(dt)
+            step += 1
+            if log_every and step % log_every == 0:
+                log(f"[trainer] step {step:5d} loss {loss:.4f} "
+                    f"({dt * 1e3:.0f} ms)")
+        except SimulatedFailure as e:
+            restarts += 1
+            log(f"[trainer] {e} — recovering (restart {restarts})")
+            if restarts > max_restarts:
+                raise
+            state = init_state(model, seed, params)
+            data_iter.load_state_dict({"step": 0})
+            step = 0
+            log("[trainer] no checkpoint — restarted from scratch")
+    return TrainLoopResult(state, losses, restarts,
+                           watchdog.events if watchdog else [], seconds)

@@ -12,8 +12,11 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import (attention, attention_decode,
-                                           attention_decode_paged)
-from repro_torch.kernels.gemm import gemm_fused
+                                           attention_decode_paged,
+                                           flash_attention_bwd)
+from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_fused,
+                                      gemm_fused_bwd)
+from repro_torch.kernels.gemm import backward as gemm_backward
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "float": ctypes.c_float,
@@ -63,7 +66,8 @@ def test_launch_counts_reset():
     assert set(kernels.launch_counts().values()) == {0}
 
 
-@pytest.mark.parametrize("op", ["gemm", "attention", "decode", "paged"])
+@pytest.mark.parametrize("op", ["gemm", "attention", "decode", "paged",
+                                "gemm_bwd", "attention_bwd"])
 def test_wrappers_refuse_other_devices(op):
     """A tensor on neither the CPU nor the card (here the meta device) is
     refused, and no launch is counted."""
@@ -75,6 +79,15 @@ def test_wrappers_refuse_other_devices(op):
         elif op == "attention":
             q = torch.empty(1, 2, 8, 64, **meta)
             attention(q, q, q, causal=True)
+        elif op == "gemm_bwd":
+            gemm_fused_bwd(torch.empty(8, 16, **meta),
+                           torch.empty(16, 8, **meta),
+                           torch.empty(8, 8, **meta), epilogue=Epilogue(),
+                           prologue=Prologue())
+        elif op == "attention_bwd":
+            q = torch.empty(1, 2, 8, 64, **meta)
+            flash_attention_bwd(q, q, q, q, torch.empty(1, 2, 8, device="meta"),
+                                q, causal=True)
         elif op == "decode":
             q = torch.empty(1, 2, 1, 64, **meta)
             attention_decode(q, q.expand(1, 2, 8, 64), q.expand(1, 2, 8, 64),
@@ -88,6 +101,14 @@ def test_wrappers_refuse_other_devices(op):
     assert set(kernels.launch_counts().values()) == {0}
 
 
+def test_dgamma_partial_rows_match_the_kernel():
+    """The wrapper sizes the dA launch's dgamma partials by the row block of
+    the kernel's norm-transpose pass."""
+    source = (_build.CSRC / "gemm_bwd_da.cu").read_text()
+    rows = int(re.search(r"constexpr int NR_ROWS = (\d+);", source).group(1))
+    assert rows == gemm_backward.ROWS_PER_PARTIAL
+
+
 def test_profile_helpers_sort_kernels_and_merge_intervals():
     """The serving profile files each device kernel under its family and
     counts overlapping device intervals once."""
@@ -99,6 +120,12 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
     assert ps.family("flash_decode_kernel<64>") == "flash_decode"
     assert ps.family("void (anonymous namespace)::flash_decode_paged_kernel"
                      "<64>(PagedArgs)") == "flash_decode_paged"
+    assert ps.family("void (anonymous namespace)::gemm_bwd_da_kernel<2>"
+                     "(DaArgs)") == "gemm_bwd_da"
+    assert ps.family("rms_transpose_kernel") == "gemm_bwd_da"
+    assert ps.family("gemm_bwd_db_kernel<0>") == "gemm_bwd_db"
+    assert ps.family("flash_bwd_dq_kernel<64>") == "flash_attention_bwd"
+    assert ps.family("flash_bwd_dkv_kernel<128>") == "flash_attention_bwd"
     assert ps.family("sm90_xmma_gemm_bf16bf16_bf16f32") == "library_matmul"
     assert ps.family("nvjet_tst_128x64_64x8_2x1_v_bz_TNT") == "library_matmul"
     assert ps.family("vectorized_elementwise_kernel") == "other_torch"

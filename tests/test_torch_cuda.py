@@ -4,7 +4,10 @@ M, N and K tiles, a K that is no multiple of the K tile, head_dim 128,
 windows, soft caps, ring wrap-around, empty rows and a ragged last split;
 for the paged kernel, page sizes 16-128, null-page entries, a ragged row
 tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
-over the gathered pages.
+over the gathered pages; for the backward kernels, every chain the GEMM
+takes at ragged M, the forward's saved preacts against the rounded
+accumulator, the flash backward at head_dim 128 with windows, soft caps and
+strided views, and autograd through both ops.
 
 Marked ``cuda``: skipped on a machine without a CUDA card. On the card:
 
@@ -15,15 +18,19 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.attention import (combine_splits,
+from repro_torch.kernels.attention import (attention, combine_splits,
                                            decode_partials_paged_ref,
                                            decode_partials_ref,
+                                           flash_attention_bwd,
+                                           flash_attention_bwd_ref,
                                            flash_attention_fwd,
                                            flash_attention_fwd_ref,
                                            flash_decode, flash_decode_paged)
 from repro_torch.serve.kv_cache import gather_pages
-from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_fused,
-                                      gemm_fused_ref)
+from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_bwd_da_ref,
+                                      gemm_bwd_db_ref, gemm_fused,
+                                      gemm_fused_bwd, gemm_fused_ref)
+from repro_torch.kernels.gemm.ops import _forward as gemm_forward
 
 pytestmark = pytest.mark.cuda
 
@@ -58,13 +65,12 @@ GEMM_CHAINS = {
     "silu_gate_norm": (dict(activation="silu", gate=True), True),
     "residual_scale": (dict(residual=True, scale=True), False),
 }
+# the backward also takes a bias without rope (dbias from the plain g)
+BWD_CHAINS = dict(GEMM_CHAINS, bias=(dict(bias=True), False))
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 136, 256), (200, 264, 384),
-                                   (1, 64, 128)])
-@pytest.mark.parametrize("chain", sorted(GEMM_CHAINS))
-def test_gemm_fused_kernel_matches_plain(dev, chain, m, k, n):
-    ep_kw, norm = GEMM_CHAINS[chain]
+def _gemm_operands(dev, chain, m, k, n):
+    ep_kw, norm = BWD_CHAINS[chain]
     rng = np.random.default_rng(m * 7 + k)
     kw = {"epilogue": Epilogue(**ep_kw)}
     if ep_kw.get("gate"):
@@ -85,6 +91,14 @@ def test_gemm_fused_kernel_matches_plain(dev, chain, m, k, n):
         kw["prologue"] = Prologue(norm="rmsnorm")
         kw["gamma"] = (1 + 0.1 * _rand(rng, (k,), dev)).to(torch.bfloat16)
     a, b = _rand(rng, (m, k), dev), _rand(rng, (k, n), dev, k ** -0.5)
+    return rng, a, b, kw
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 136, 256), (200, 264, 384),
+                                   (1, 64, 128)])
+@pytest.mark.parametrize("chain", sorted(GEMM_CHAINS))
+def test_gemm_fused_kernel_matches_plain(dev, chain, m, k, n):
+    _, a, b, kw = _gemm_operands(dev, chain, m, k, n)
     before = kernels.launch_counts()["gemm_fused"]
     got = gemm_fused(a, b, **kw)
     torch.cuda.synchronize()
@@ -232,3 +246,158 @@ def test_flash_decode_paged_rejects_unsupported_page_size(dev, page):
     with pytest.raises(ValueError, match="page size"):
         flash_decode_paged(q, kp, kp, pt, lens)
     assert kernels.launch_counts()["flash_decode_paged"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels
+# ---------------------------------------------------------------------------
+
+def _saved(a, b, kw):
+    """The differentiated forward's launch: (out, rstd, preacts)."""
+    ep = kw["epilogue"]
+    pro = kw.get("prologue", Prologue())
+    extra = {k: kw.get(k) for k in ("b2", "bias", "residual", "sin", "cos",
+                                    "gamma")}
+    return gemm_forward(a, b, ep, pro, scale=kw.get("scale"),
+                        out_dtype=torch.bfloat16, save_preact=ep.gate, **extra)
+
+
+@pytest.mark.parametrize("m,k,n", [(200, 264, 384), (4, 136, 256),
+                                   (130, 64, 128)])
+@pytest.mark.parametrize("chain", sorted(BWD_CHAINS))
+def test_gemm_bwd_kernels_match_plain(dev, chain, m, k, n):
+    """dA (with the norm transpose and dgamma) and dB (with dB2 and dbias)
+    against their plain versions on the same g, preacts and rstd: bf16
+    outputs within 2^-6 relative + 2% of their RMS; the fp32 dgamma within
+    1e-3 relative + 1e-3 of its RMS (sums of the same products in another
+    order); dbias, the same fp32 values summed, within 1e-4."""
+    rng, a, b, kw = _gemm_operands(dev, chain, m, k, n)
+    ep = kw["epilogue"]
+    pro = kw.get("prologue", Prologue())
+    _, rstd, preacts = _saved(a, b, kw)
+    g = _rand(rng, (m, n), dev)
+    ops = dict(epilogue=ep, prologue=pro, b2=kw.get("b2"),
+               bias=kw.get("bias"), scale=kw.get("scale"), sin=kw.get("sin"),
+               cos=kw.get("cos"), gamma=kw.get("gamma"), preacts=preacts)
+    before = kernels.launch_counts()
+    da, db, grads = gemm_fused_bwd(a, b, g, rstd=rstd, **ops)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gemm_bwd_da"] == before["gemm_bwd_da"] + 1
+    assert after["gemm_bwd_db"] == before["gemm_bwd_db"] + 1
+    want_da, want_dgamma = gemm_bwd_da_ref(a, b, g, **ops)
+    want_db, want_db2, want_dbias = gemm_bwd_db_ref(a, b, g, rstd=rstd, **ops)
+    _close(da, want_da, 2 ** -6, 2e-2)
+    _close(db, want_db, 2 ** -6, 2e-2)
+    if ep.gate:
+        _close(grads["b2"], want_db2, 2 ** -6, 2e-2)
+    if ep.bias:
+        _close(grads["bias"], want_dbias, 1e-4, 1e-4)
+    if pro.norm != "none":
+        _close(grads["gamma"], want_dgamma, 1e-3, 1e-3)
+    assert torch.equal(grads["residual"], g)
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_saved_preacts_are_the_rounded_accumulators(dev, norm):
+    """The gated forward's saved preacts equal the raw fp32 products of the
+    normed A, rounded to bf16: at most one bf16 rounding apart (one unit in
+    the last place, up to 2^-7 relative), the products summed in another
+    order."""
+    m, k, n = 200, 264, 384
+    rng, a, b, kw = _gemm_operands(dev, "silu_gate_norm", m, k, n)
+    if not norm:
+        kw.pop("prologue"), kw.pop("gamma")
+    _, rstd, (p1, p2) = _saved(a, b, kw)
+    an = a
+    if norm:
+        an = (a.float() * rstd[:, None] * kw["gamma"].float()).to(a.dtype)
+    for got, w in ((p1, b), (p2, kw["b2"])):
+        want = an.float() @ w.float()
+        torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                                   rtol=2 ** -7, atol=1e-6)
+
+
+def test_gemm_autograd_launches_the_backward_kernels(dev):
+    """On a CUDA tensor the backward of gemm_fused launches dA and dB once
+    each; bwd_mode='reference' launches neither, and both give the same
+    grads within the bf16 tolerance."""
+    rng, a, b, kw = _gemm_operands(dev, "silu_gate_norm", 200, 264, 384)
+    g = _rand(rng, (200, 384), dev)
+    grads = {}
+    for mode in ("kernel", "reference"):
+        leaves = [t.detach().requires_grad_() for t in (a, b, kw["b2"],
+                                                        kw["gamma"])]
+        kw2 = dict(kw, b2=leaves[2], gamma=leaves[3])
+        before = kernels.launch_counts()
+        gemm_fused(leaves[0], leaves[1], bwd_mode=mode, **kw2).backward(g)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        n_bwd = (after["gemm_bwd_da"] - before["gemm_bwd_da"],
+                 after["gemm_bwd_db"] - before["gemm_bwd_db"])
+        assert n_bwd == ((1, 1) if mode == "kernel" else (0, 0))
+        grads[mode] = [t.grad for t in leaves]
+    for k_, r_ in zip(grads["kernel"], grads["reference"]):
+        _close(k_, r_, 5e-2, 5e-2)
+
+
+def _attn_case(case):
+    b, h, hkv, sq, skv, d = 2, 8, 2, 192, 192, 64
+    kw = {"causal": True}
+    if case == "ragged":
+        sq = skv = 150
+    elif case == "d128":
+        d, sq, skv = 128, 130, 130
+    elif case == "d128_window":
+        d, kw["window"] = 128, 40
+    elif case == "window":
+        kw["window"] = 40
+    elif case == "softcap":
+        kw["softcap"] = 5.0
+    elif case == "noncausal_cross":
+        kw, sq, skv = {"causal": False}, 70, 130
+    return b, h, hkv, sq, skv, d, kw
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128",
+                                  "d128_window", "window", "softcap",
+                                  "noncausal_cross"])
+def test_flash_attention_bwd_kernel_matches_plain(dev, case):
+    """Both passes against the plain version on the same q, k, v, out, lse
+    and dO, q and k as strided views of one packed buffer and dO as the
+    strided cotangent autograd hands over: within 2e-2 relative + 2% of
+    each gradient's RMS (bf16 outputs, sums in another order)."""
+    b, h, hkv, sq, skv, d, kw = _attn_case(case)
+    rng = np.random.default_rng(6)
+    if sq == skv:
+        qk = _rand(rng, (b, sq, (h + hkv) * d), dev)
+        q = qk[..., :h * d].reshape(b, sq, h, d).transpose(1, 2)
+        k = qk[..., h * d:].reshape(b, sq, hkv, d).transpose(1, 2)
+    else:
+        q = _rand(rng, (b, h, sq, d), dev)
+        k = _rand(rng, (b, hkv, skv, d), dev)
+    v = _rand(rng, (b, skv, hkv * d), dev).reshape(b, skv, hkv, d
+                                                    ).transpose(1, 2)
+    do = _rand(rng, (b, sq, h, d), dev).transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    before = kernels.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == before + 2
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, 2e-2, 2e-2)
+
+
+def test_attention_autograd_launches_both_passes(dev):
+    b, h, hkv, sq, skv, d, kw = _attn_case("causal_gqa")
+    rng = np.random.default_rng(7)
+    q, k, v = (_rand(rng, s, dev).requires_grad_() for s in
+               ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    before = kernels.launch_counts()
+    attention(q, k, v, **kw).backward(_rand(rng, (b, h, sq, d), dev))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape

@@ -16,7 +16,9 @@ from repro.configs import get_config as j_get_config
 from repro.models.lm import lm_param_defs as j_lm_param_defs
 
 from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, DataIterator
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -86,6 +88,17 @@ def test_launcher_default_device_raises_without_a_card():
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--requests", "1"])
+
+
+def test_training_entry_points_default_to_the_card():
+    """launch/train.py and the data iterator run on the card unless the
+    caller asks for the CPU: without a card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataIterator(DataConfig(vocab_size=8, seq_len=4, global_batch=1))
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
