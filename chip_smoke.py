@@ -6,7 +6,7 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. Device: refuse to run without CUDA; print the card's name and power
    limit as nvidia-smi gives them.
-2. Build: compile the seven CUDA kernels from ``src/repro_torch/kernels/
+2. Build: compile the nine CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one nvcc per source, in parallel); print the build time and what
    ptxas reports for each kernel.
 3. Kernels: each kernel against its plain torch version on the card, at the
@@ -14,7 +14,10 @@ Phases, each of which raises on failure (exit code non-zero):
    over a 296-slot cache; paged decode over 8 slots of an 8-page bucket of
    a 65-page pool, a 128-token chunk at position 192 and a 4-token verify;
    the training backward at B 4, S 1024, so M = 4096: dA and dB of the four
-   fused GEMMs of a layer and both flash-backward passes),
+   fused GEMMs of a layer and both flash-backward passes; the standalone
+   RoPE on prefill and training q/k, strided views of the q|k GEMM output,
+   and its backward; the fused dropout + residual + layernorm at the
+   memory-bound bench's shapes, rows 2048-8192 by d 2048, p 0.1, seed 7),
    with the stated tolerance; kernel, plain and library times with CUDA
    events (L2 scrubbed before every launch), and the least time the card
    could take (bytes over 3.35 TB/s or operations over their peak,
@@ -27,7 +30,9 @@ Phases, each of which raises on failure (exit code non-zero):
    gather not timed. The GEMM backward's yardstick is ``torch.matmul`` of
    the bare product; the flash backward's, ``torch.autograd.grad`` through
    ``F.scaled_dot_product_attention`` (timed with CUDA events around the
-   call, not from a graph).
+   call, not from a graph). No PyTorch call computes RoPE (no library
+   time); the fused norm's yardstick is ``F.layer_norm`` of the summed
+   residual, without the dropout, the add and the residual output.
 4. The slice: llama-1b at full width with seeded random weights, 8 requests
    (prompts of 128-256 tokens, 32 new tokens, greedy) through
    ``RequestQueue(Engine(...), batch_size=4, buckets=(256,))`` in kernel
@@ -67,7 +72,21 @@ Phases, each of which raises on failure (exit code non-zero):
    0.05. Prints tokens/s and step time (median of the steps after the
    first), the peak device memory and the device-busy share of one traced
    step.
-7. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+7. The ladder's standalone-RoPE rungs and the fused norm op. (a) Phase 4's
+   traffic served by a model built with ``qkv_plan="norm_fused"`` (the
+   norm-prologue q|k and v GEMMs without the rope store, then the RoPE
+   kernel): launches exact (32 ``rope`` per served batch), teacher-forced
+   logits under phase 4's bound. (b) 3 steps of phase 6b's training on
+   ``qkv_plan="norm_fused"`` (96 ``rope`` a step: forward, recompute,
+   backward), the curve no further from 6b's fp32 curve over those steps
+   than 2.5x the plain bf16 curve's distance + 0.05. (c) One teacher-forced
+   pass of 7a's tokens with ``qkv_plan="unfused"`` (standalone norm, plain
+   projections, the RoPE kernel) under the same bound. (d)
+   ``dropout_residual_layernorm`` through the public op at the bench's
+   shapes (fp32, and bf16 at 8192 rows): outputs against the plain
+   version, and the kernel's keep-mask, read from a probe call with x = 1
+   and residual = 0, bit for bit the plain version's.
+8. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -103,7 +122,11 @@ from repro_torch.kernels.gemm import (EPILOGUE_NONE, PROLOGUE_NONE,  # noqa: E40
                                       gemm_fused_ref)
 from repro_torch.kernels.gemm import backward as gemm_bwd  # noqa: E402
 from repro_torch.kernels.gemm.ops import _forward as gemm_forward  # noqa: E402
-from repro_torch.kernels.rope import rope_tables  # noqa: E402
+from repro_torch.kernels.fused_norm import (  # noqa: E402
+    dropout_keep_mask_ref, dropout_residual_layernorm,
+    fused_dropout_residual_layernorm_ref)
+from repro_torch.kernels.rope import (rope_launch, rope_ref,  # noqa: E402
+                                      rope_tables)
 from repro_torch.launch.profile_train import profile_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import nest, tree_map  # noqa: E402
@@ -125,6 +148,10 @@ MAX_LEN = PROMPT + NEW_TOKENS + 8          # as the serving launcher sizes it
 SLOTS, PAGE, MAX_PAGES, CHUNK = 8, 64, 8, 128
 # the training slice: batch x sequence a step, steps, peak learning rate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
+# phase 7b: steps of 6b's run on the ladder's rung 2
+LADDER_STEPS = 3
+# the memory-bound bench's fused-norm cells (benchmarks/bench_memory_bound.py)
+NORM_ROWS, NORM_D, NORM_P, NORM_SEED = (2048, 4096, 8192), 2048, 0.1, 7
 
 SOURCES = {
     "gemm_fused": ("src/repro_torch/kernels/csrc/gemm_fused.cu",
@@ -142,9 +169,13 @@ SOURCES = {
     # both passes: _dq_kernel (:71) and _dkv_kernel (:114)
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                             "src/repro/kernels/attention/kernel_bwd.py:71"),
+    "rope": ("src/repro_torch/kernels/csrc/rope.cu",
+             "src/repro/kernels/rope/kernel.py:28"),
+    "fused_norm": ("src/repro_torch/kernels/csrc/fused_norm.cu",
+                   "src/repro/kernels/fused_norm/kernel.py:43"),
 }
 # the phases whose launches are the main path's (6a only checks grads)
-MAIN_PATH_PHASES = ("4", "5a", "5b", "6b")
+MAIN_PATH_PHASES = ("4", "5a", "5b", "6b", "7a", "7b", "7c", "7d")
 
 
 def log(msg: str) -> None:
@@ -244,7 +275,8 @@ def check_close(name, got, want, rtol, atol_frac):
 
 def gemm_cases(cfg, dev, gen):
     """One layer's gemm_fused launches: prefill q|k (+rope), v, SwiGLU up and
-    down (residual, scale); decode up and down."""
+    down (residual, scale); decode up and down; q|k without rope (rung 2 of
+    the QKV ladder)."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     nqk = (cfg.num_heads + cfg.num_kv_heads) * hd
     nv = cfg.num_kv_heads * hd
@@ -265,7 +297,7 @@ def gemm_cases(cfg, dev, gen):
     w_gate, w_in, w_out = rnd(d, f, std=wd), rnd(d, f, std=wd), rnd(f, d, std=wf)
     gate_ep = Epilogue(activation="silu", gate=True)
     res_ep = Epilogue(residual=True, scale=True)
-    return [
+    cases = [
         ("prefill_qk_rope", x_pre, rnd(d, nqk, std=wd),
          dict(epilogue=Epilogue(rope=True, head_dim=hd), sin=sin, cos=cos,
               **rms)),
@@ -277,6 +309,8 @@ def gemm_cases(cfg, dev, gen):
         ("decode_down", rnd(BATCH, f), w_out,
          dict(epilogue=res_ep, residual=rnd(BATCH, d), scale=1.0)),
     ]
+    # the ladder's rung 2 (phase 7): the same q|k GEMM without the rope store
+    return cases + [("prefill_qk", x_pre, cases[0][2], dict(**rms))]
 
 
 def measure_gemm(cfg, dev, gen, timer):
@@ -475,7 +509,8 @@ def measure_paged(cfg, dev, gen, timer):
 def train_gemm_cases(cfg, dev, gen):
     """One layer's four fused GEMMs at the training shape (M = 4 x 1024
     tokens): q|k (+rope) and v behind the rmsnorm prologue, the SwiGLU up
-    projection, the down projection with its scaled residual."""
+    projection, the down projection with its scaled residual; and rung 2's
+    q|k GEMM without the rope store."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     nqk = (cfg.num_heads + cfg.num_kv_heads) * hd
     m = TRAIN_BATCH * TRAIN_SEQ
@@ -490,7 +525,7 @@ def train_gemm_cases(cfg, dev, gen):
                            cfg.rope_theta)
     x = rnd(m, d)
     wd, wf = d ** -0.5, f ** -0.5
-    return [
+    cases = [
         ("qk_rope", x, rnd(d, nqk, std=wd),
          dict(epilogue=Epilogue(rope=True, head_dim=hd),
               sin=sin.repeat(TRAIN_BATCH, 1), cos=cos.repeat(TRAIN_BATCH, 1),
@@ -503,6 +538,8 @@ def train_gemm_cases(cfg, dev, gen):
          dict(epilogue=Epilogue(residual=True, scale=True),
               residual=rnd(m, d), scale=1.0)),
     ]
+    # the ladder's rung 2 (phase 7b): the q|k GEMM without the rope store
+    return cases + [("qk", x, cases[0][2], dict(**rms))]
 
 
 def measure_gemm_bwd(cfg, dev, gen, timer):
@@ -646,6 +683,116 @@ def measure_flash_bwd(cfg, dev, gen, timer):
             ms=timer.ms(lambda: kernel((1,))), bound_ms=dkv_ms))]
 
 
+def measure_rope(cfg, dev, gen, timer):
+    """The standalone RoPE at the ladder's rung-2 shapes: prefill (B 4, S
+    256) and training (B 4, S 1024) q and k as the model hands them over,
+    strided views of the bf16 q|k GEMM output; and the backward (the kernel
+    with -sin) at the training q shape on a contiguous cotangent, as the
+    flash backward hands it over. Plain version: rope_ref (the backward's
+    with -sin). Bound: x read once, the output written once and both (S, D)
+    tables read once; 6 operations a pair are far below the bytes."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    rows = []
+    for stage, bsz, seq in (("prefill", BATCH, PROMPT),
+                            ("train", TRAIN_BATCH, TRAIN_SEQ)):
+        qk = torch.randn(bsz, seq, (h + hkv) * hd, generator=gen,
+                         device=dev).to(bf16)
+        q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
+        k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
+        sin, cos = rope_tables(torch.arange(seq, device=dev), hd,
+                               cfg.rope_theta)
+        cases = [(f"{stage}_q", q, 1.0), (f"{stage}_k", k, 1.0)]
+        if stage == "train":
+            cases.append(("train_q_bwd", torch.randn(
+                q.shape, generator=gen, device=dev).to(bf16), -1.0))
+        for name, x, sign in cases:
+            def kernel(x=x, sign=sign):
+                return rope_launch(x, sin, cos, sin_sign=sign)
+
+            def plain(x=x, table=sin if sign > 0 else -sin):
+                return rope_ref(x, table, cos)
+
+            got = kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            # one bf16 rounding of the same fp32 value: at most one ulp
+            err, tol = check_close(f"rope[{name}]", got, want, 2 ** -7, 0.0)
+            b_ms, b_by = bound(nbytes(x, sin, cos, got))
+            rows.append(dict(
+                case=name, shape=list(x.shape), strides=list(x.stride()),
+                max_abs_err=err, tolerance=tol,
+                bitwise=bool(torch.equal(got, want)),
+                ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def norm_inputs(dev, gen, rows, dtype):
+    """The bench's operands: x and the residual standard normal, weight and
+    bias normal (d,) fp32."""
+    x = torch.randn(rows, NORM_D, generator=gen, device=dev).to(dtype)
+    r = torch.randn(rows, NORM_D, generator=gen, device=dev).to(dtype)
+    w = torch.randn(NORM_D, generator=gen, device=dev)
+    b = torch.randn(NORM_D, generator=gen, device=dev)
+    return x, r, w, b
+
+
+NORM_CASES = [(rows, torch.float32) for rows in NORM_ROWS] + [
+    (NORM_ROWS[-1], torch.bfloat16)]
+
+
+def check_norm(name, got, want, dtype):
+    """new_residual bit for bit (the same fp32 product and sum); normed
+    within 1e-5 of its scale in fp32, one bf16 ulp more in bf16 (the row
+    sums run in another order)."""
+    out, new_res = got
+    want_out, want_res = want
+    if not torch.equal(new_res, want_res):
+        raise AssertionError(f"{name}: new_residual differs from the plain "
+                             "version's")
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+    return check_close(name, out, want_out, rtol, 1e-5)
+
+
+def measure_fused_norm(dev, gen, timer):
+    """The fused dropout + residual + layernorm kernel at the memory-bound
+    bench's cells. Bound: x, residual, weight and bias read once, both
+    outputs written once. Yardstick: F.layer_norm of the summed residual
+    (precomputed, not timed), which leaves out the dropout, the add and
+    the residual output."""
+    rows_out = []
+    for rows, dtype in NORM_CASES:
+        x, r, w, b = norm_inputs(dev, gen, rows, dtype)
+        kw = dict(dropout_p=NORM_P)
+
+        def kernel():
+            return dropout_residual_layernorm(x, r, w, b, NORM_SEED, **kw)
+
+        def plain():
+            return fused_dropout_residual_layernorm_ref(x, r, w, b, NORM_SEED,
+                                                        **kw)
+
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        name = f"rows{rows}_{str(dtype).split('.')[-1]}"
+        err, tol = check_norm(f"fused_norm[{name}]", got, want, dtype)
+        b_ms, b_by = bound(nbytes(x, r, w, b, *got))
+        summed = r + x
+        wl, bl = w.to(dtype), b.to(dtype)
+        rows_out.append(dict(
+            case=name, shape=[rows, NORM_D], p=NORM_P, seed=NORM_SEED,
+            max_abs_err=err, tolerance=tol, new_residual_bitwise=True,
+            ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+            library_ms=timer.ms(lambda: F.layer_norm(summed, (NORM_D,), wl,
+                                                     bl, 1e-5)),
+            library_note="F.layer_norm of the summed residual only",
+            bound_ms=b_ms, bound_by=b_by))
+        del x, r, summed, got, want
+    return rows_out
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -654,12 +801,20 @@ def no_launches() -> dict:
     return {k.name: 0 for k in kernels.KERNELS}
 
 
-def expected_launches(cfg, batches: int) -> dict:
+def expected_launches(cfg, batches: int, qkv_plan: str = "rope_fused") -> dict:
+    """Per layer and served batch: the prefill's fused GEMMs (4 on rungs 1
+    and 2; 2 on rung 3, whose projections are plain products) and one flash
+    prefill, 2 fused GEMMs and one decode kernel per decode step; on rungs
+    2 and 3 the RoPE kernel for the prefill's q and k (decode rotates its
+    token with the plain version)."""
     steps = NEW_TOKENS - 1                     # decode calls per batch
-    per_batch_gemm = cfg.num_layers * (4 + 2 * steps)
-    return {**no_launches(), "gemm_fused": batches * per_batch_gemm,
-            "flash_attention_fwd": batches * cfg.num_layers,
-            "flash_decode": batches * cfg.num_layers * steps}
+    n = batches * cfg.num_layers
+    prefill_gemms = 2 if qkv_plan == "unfused" else 4
+    want = {**no_launches(), "gemm_fused": n * (prefill_gemms + 2 * steps),
+            "flash_attention_fwd": n, "flash_decode": n * steps}
+    if qkv_plan != "rope_fused":
+        want["rope"] = 2 * n
+    return want
 
 
 def teacher_forced_logits(model, params, tokens):
@@ -724,8 +879,12 @@ def check_logit_bound(name, kern, plain, truth):
     return worst, agree / sum(k.numel() // k.shape[-1] for k in kern)
 
 
-def run_slice(dev, m: Models):
-    cfg, model, params = m.cfg, m.kernel, m.params
+def run_slice(dev, m: Models, model=None, tag: str = "slice"):
+    """Phase 4 (``m.kernel``) or 7a (``model``, another rung of the QKV
+    ladder): serve, check the launches and the served streams, then hold the
+    teacher-forced logits of the first batch to the fp32 truth."""
+    cfg, params = m.cfg, m.params
+    model = model or m.kernel
     engine = Engine(model, params, max_len=MAX_LEN)
     rng = np.random.default_rng(0)
     # one warm-up batch of the served shape (cuBLAS handles, allocator)
@@ -742,8 +901,8 @@ def run_slice(dev, m: Models):
     kernels.reset_launch_counts()
     served = queue.flush(force=True)
     counts = kernels.launch_counts()
-    log(f"[slice] served {served} requests; launches {counts}")
-    want = expected_launches(cfg, REQUESTS // BATCH)
+    log(f"[{tag}] served {served} requests; launches {counts}")
+    want = expected_launches(cfg, REQUESTS // BATCH, model.qkv_plan)
     if served != REQUESTS or counts != want:
         raise AssertionError(f"served {served}, launches {counts}; the main "
                              f"path makes {want}")
@@ -756,7 +915,7 @@ def run_slice(dev, m: Models):
     throughput = {"prefill_tokens_per_s": pre_tok / pre_s,
                   "decode_tokens_per_s": dec_tok / dec_s,
                   "prefill_s": pre_s, "decode_s": dec_s}
-    log(f"[slice] prefill {pre_tok} tokens in {pre_s:.4f} s "
+    log(f"[{tag}] prefill {pre_tok} tokens in {pre_s:.4f} s "
         f"({throughput['prefill_tokens_per_s']:.1f} tok/s); decode "
         f"{dec_tok} tokens in {dec_s:.4f} s "
         f"({throughput['decode_tokens_per_s']:.1f} tok/s)")
@@ -774,13 +933,14 @@ def run_slice(dev, m: Models):
                              "logits")
     plain = teacher_forced_logits(m.plain, params, tokens)
     truth = teacher_forced_logits(m.truth, m.params32, tokens)
-    worst, agreement = check_logit_bound("slice", kern, plain, truth)
-    log(f"[slice] teacher-forced logits over {len(kern)} steps: kernel-path "
+    worst, agreement = check_logit_bound(tag, kern, plain, truth)
+    log(f"[{tag}] teacher-forced logits over {len(kern)} steps: kernel-path "
         f"error vs fp32 at most {worst:.3f} of its bound (2 x plain bf16 "
         f"error + 1e-2); greedy agreement with the plain bf16 path "
         f"{agreement:.3f} (information only)")
     return {"served": served, "launches": counts, "throughput": throughput,
-            "logit_bound_use": worst, "greedy_agreement": agreement}
+            "logit_bound_use": worst, "greedy_agreement": agreement,
+            "teacher_forced": (tokens, plain, truth)}
 
 
 def check_result(cfg, req, row):
@@ -1045,16 +1205,18 @@ def run_grad_check(dev) -> dict:
             "launches": counts, "bound_use": worst, "leaves": per_leaf}
 
 
-def train_curve(cfg, mode, dtype, dev) -> dict:
-    """TRAIN_STEPS steps of train_loop from seed 0 on the ported data."""
+def train_curve(cfg, mode, dtype, dev, steps: int = TRAIN_STEPS,
+                qkv_plan: str = "rope_fused") -> dict:
+    """``steps`` steps of train_loop from seed 0 on the ported data, on the
+    schedule of a TRAIN_STEPS-step run."""
     model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
-                        mode=mode, device=dev)
+                        mode=mode, device=dev, qkv_plan=qkv_plan)
     opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
     data = train_data(cfg, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res = train_loop(model, data, TRAIN_STEPS, opt, seed=0, log_every=0)
+    res = train_loop(model, data, steps, opt, seed=0, log_every=0)
     counts = kernels.launch_counts()
     out = {"losses": res.losses, "step_seconds": res.step_seconds,
            "launches": counts,
@@ -1109,6 +1271,102 @@ def run_training(dev) -> dict:
             "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the ladder's standalone-RoPE rungs and the fused norm op
+# ---------------------------------------------------------------------------
+
+def run_ladder_serve(dev, m: Models) -> dict:
+    """7a: phase 4's traffic on rung 2 (``qkv_plan="norm_fused"``); 7c: one
+    teacher-forced pass of 7a's first batch on rung 3 (``"unfused"``), held
+    to the fp32 truth under 7a's bound."""
+    rung2 = build_model(m.cfg, mode="kernel", device=dev,
+                        qkv_plan="norm_fused")
+    out = {"7a": run_slice(dev, m, rung2, tag="7a")}
+    tokens, plain, truth = out["7a"].pop("teacher_forced")
+    rung3 = build_model(m.cfg, mode="kernel", device=dev, qkv_plan="unfused")
+    kernels.reset_launch_counts()
+    kern = teacher_forced_logits(rung3, m.params, tokens)
+    counts = kernels.launch_counts()
+    want = expected_launches(m.cfg, 1, "unfused")
+    if counts != want:
+        raise AssertionError(f"[7c] launches {counts}; one teacher-forced "
+                             f"batch on rung 3 makes {want}")
+    worst, agreement = check_logit_bound("7c", kern, plain, truth)
+    log(f"[7c] qkv_plan 'unfused', teacher-forced logits over {len(kern)} "
+        f"steps: error vs fp32 at most {worst:.3f} of its bound (2 x plain "
+        f"bf16 error + 1e-2); launches {counts}")
+    out["7c"] = {"launches": counts, "logit_bound_use": worst,
+                 "greedy_agreement": agreement}
+    return out
+
+
+def run_ladder_train(dev, curves: dict) -> dict:
+    """7b: the first LADDER_STEPS steps of 6b's run (same data, seed and
+    schedule) on rung 2, held to 6b's fp32 curve over those steps under
+    6b's bound, against the plain bf16 curve's distance."""
+    cfg = get_config("llama-1b")
+    run = train_curve(cfg, "kernel", "bfloat16", dev, steps=LADDER_STEPS,
+                      qkv_plan="norm_fused")
+    n = cfg.num_layers * LADDER_STEPS
+    want = {**expected_train_launches(cfg, LADDER_STEPS), "rope": 6 * n}
+    losses = run["losses"]
+    log(f"[7b] qkv_plan 'norm_fused', {LADDER_STEPS} steps: losses "
+        f"{[round(x, 4) for x in losses]}; launches {run['launches']}")
+    if run["launches"] != want:
+        raise AssertionError(f"[7b] launches {run['launches']}; "
+                             f"{LADDER_STEPS} steps on rung 2 make {want}")
+    truth = curves["truth"]["losses"][:LADDER_STEPS]
+    plain = curves["plain"]["losses"][:LADDER_STEPS]
+    k_err = float(np.abs(np.subtract(losses, truth)).max())
+    p_err = float(np.abs(np.subtract(plain, truth)).max())
+    log(f"[7b] the rung-2 curve is {k_err:.4g} from 6b's fp32 curve over "
+        f"these steps, the plain bf16 curve {p_err:.4g} (bound 2.5 x "
+        f"{p_err:.4g} + 0.05); step time "
+        f"{statistics.median(run['step_seconds'][1:]):.4f} s")
+    if not all(np.isfinite(losses)) or not k_err <= 2.5 * p_err + 0.05:
+        raise AssertionError(f"[7b] losses {losses}: {k_err:.4g} from the "
+                             f"fp32 truth, plain bf16 {p_err:.4g}")
+    return {**run, "curve_err": {"kernel": k_err, "plain": p_err}}
+
+
+def run_norm_op(dev) -> dict:
+    """7d: dropout_residual_layernorm through the public op at the bench's
+    cells: the outputs against the plain version, and the kernel's
+    keep-mask bit for bit the plain one's, read from a probe call with
+    x = 1 and residual = 0 (new_residual is the scale where a lane is kept,
+    0 where it is dropped)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kernels.reset_launch_counts()
+    calls, cases = 0, []
+    for rows, dtype in NORM_CASES:
+        x, r, w, b = norm_inputs(dev, gen, rows, dtype)
+        got = dropout_residual_layernorm(x, r, w, b, NORM_SEED,
+                                         dropout_p=NORM_P)
+        ones = torch.ones_like(x)
+        _, probe = dropout_residual_layernorm(ones, torch.zeros_like(x), w, b,
+                                              NORM_SEED, dropout_p=NORM_P)
+        calls += 2
+        torch.cuda.synchronize()
+        name = f"rows{rows}_{str(dtype).split('.')[-1]}"
+        err, _ = check_norm(f"[7d] {name}", got, fused_dropout_residual_layernorm_ref(
+            x, r, w, b, NORM_SEED, dropout_p=NORM_P), dtype)
+        keep = dropout_keep_mask_ref(NORM_SEED, x.shape, NORM_P, dev)
+        if not torch.equal(probe != 0, keep):
+            raise AssertionError(f"[7d] {name}: the kernel's keep-mask "
+                                 "differs from the plain version's")
+        cases.append({"case": name, "max_abs_err": err,
+                      "kept_share": keep.float().mean().item()})
+        del x, r, got, ones, probe, keep
+    counts = kernels.launch_counts()
+    if counts != {**no_launches(), "fused_norm": calls}:
+        raise AssertionError(f"[7d] launches {counts}; {calls} calls made")
+    log(f"[7d] dropout_residual_layernorm at {len(cases)} bench cells: "
+        f"outputs within tolerance, keep-masks bit for bit the plain ones "
+        f"{[(c['case'], round(c['kept_share'], 4)) for c in cases]}; "
+        f"launches {counts}")
+    return {"launches": counts, "cases": cases}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1143,26 +1401,37 @@ def main(argv=None) -> int:
                 "flash_decode_paged": measure_paged(cfg, dev, gen, timer),
                 **measure_gemm_bwd(cfg, dev, gen, timer),
                 "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen,
-                                                         timer)}
+                                                         timer),
+                "rope": measure_rope(cfg, dev, gen, timer),
+                "fused_norm": measure_fused_norm(dev, gen, timer)}
     for name, rows in measured.items():
         for r in rows:
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms'] * 1e3:.1f} us")
             log(f"[kernel] {name}[{r['case']}] shape {r['shape']}: max abs "
                 f"err {r['max_abs_err']:.4g} ({r['tolerance']}); kernel "
                 f"{r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
-                f"library {r['library_ms'] * 1e3:.1f} us, bound "
+                f"library {lib}, bound "
                 f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
 
     del timer
     torch.cuda.empty_cache()
     m = build_models(dev)
     phases = {"4": run_slice(dev, m)}
+    del phases["4"]["teacher_forced"]
     for phase in PHASES:
         phases[phase] = run_paged_phase(dev, m, phase)
+    phases.update(run_ladder_serve(dev, m))
     del m
     torch.cuda.empty_cache()
     phases["6a"] = run_grad_check(dev)
     torch.cuda.empty_cache()
     phases["6b"] = run_training(dev)
+    torch.cuda.empty_cache()
+    phases["7b"] = run_ladder_train(dev, phases["6b"])
+    torch.cuda.empty_cache()
+    phases["7d"] = run_norm_op(dev)
+    log(f"[done] build and phases 3-7 in {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -1179,7 +1448,9 @@ def main(argv=None) -> int:
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": b_ops + b_bytes,
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in rows),
+            # no one PyTorch call computes RoPE
+            "library_ms": (None if any(r["library_ms"] is None for r in rows)
+                           else sum(r["library_ms"] for r in rows)),
             "cases": rows})
     report = {"device": card, "kernels": line, "phases": phases}
     if args.out:

@@ -44,6 +44,8 @@ FAMILIES = (
     ("flash_fwd_kernel", "flash_attention_fwd"),
     ("flash_decode_paged_kernel", "flash_decode_paged"),
     ("flash_decode_kernel", "flash_decode"),
+    ("rope_kernel", "rope"),
+    ("fused_norm_kernel", "fused_norm"),
     ("gemm", "library_matmul"),     # cuBLAS / cuBLASLt kernel names
     ("gemv", "library_matmul"),
     ("nvjet", "library_matmul"),

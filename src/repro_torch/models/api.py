@@ -1,6 +1,6 @@
-"""Model API: ``build_model(cfg, mode=..., device=...)`` returns a
-:class:`Model` whose methods close over the config, the mode and the
-device."""
+"""Model API: ``build_model(cfg, mode=..., device=..., qkv_plan=...)``
+returns a :class:`Model` whose methods close over the config, the mode, the
+device and the rung of the QKV ladder."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, dtype_of, resolve_device
 from . import lm as _lm
+from .attention import QKV_PLANS
 from .common import cast_params, init_params
 
 MODES = ("kernel", "reference")
@@ -20,6 +21,7 @@ class Model:
     mode: str
     device: torch.device
     defs: dict
+    qkv_plan: str = "rope_fused"
 
     def init(self, seed: int = 0, dtype=None) -> dict:
         """Seeded random parameters, drawn in the param type and cast once
@@ -30,18 +32,21 @@ class Model:
         return cast_params(params, dtype_of(dtype or self.cfg.compute_dtype))
 
     def forward(self, params, tokens):
-        return _lm.lm_forward(self.cfg, params, tokens, mode=self.mode)
+        return _lm.lm_forward(self.cfg, params, tokens, mode=self.mode,
+                              qkv_plan=self.qkv_plan)
 
     def loss(self, params, batch):
         """(loss, metrics) of a batch {"inputs", "targets", "loss_mask"},
         the blocks recomputed in the backward per ``cfg.remat_policy``."""
-        return _lm.lm_loss(self.cfg, params, batch, mode=self.mode)
+        return _lm.lm_loss(self.cfg, params, batch, mode=self.mode,
+                           qkv_plan=self.qkv_plan)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return _lm.lm_init_cache(self.cfg, batch, max_len, self.device)
 
     def prefill(self, params, tokens, cache):
-        return _lm.lm_prefill(self.cfg, params, tokens, cache, mode=self.mode)
+        return _lm.lm_prefill(self.cfg, params, tokens, cache, mode=self.mode,
+                              qkv_plan=self.qkv_plan)
 
     def decode_step(self, params, token, cache, pos: int):
         return _lm.lm_decode_step(self.cfg, params, token, cache, pos,
@@ -56,13 +61,15 @@ class Model:
     def prefill_paged(self, params, tokens, cache, page_rows, slot: int,
                       true_len: int):
         return _lm.lm_prefill_paged(self.cfg, params, tokens, cache,
-                                    page_rows, slot, true_len, mode=self.mode)
+                                    page_rows, slot, true_len, mode=self.mode,
+                                    qkv_plan=self.qkv_plan)
 
     def prefill_paged_chunk(self, params, tokens, cache, page_rows,
                             start: int, last_index: int):
         return _lm.lm_prefill_paged_chunk(self.cfg, params, tokens, cache,
                                           page_rows, start, last_index,
-                                          mode=self.mode)
+                                          mode=self.mode,
+                                          qkv_plan=self.qkv_plan)
 
     def decode_step_paged(self, params, token, cache, page_table, lengths):
         """token (B, T): T > 1 is the speculative verify step."""
@@ -70,11 +77,21 @@ class Model:
                                         page_table, lengths, mode=self.mode)
 
 
-def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE) -> Model:
+def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE,
+                qkv_plan: str = "rope_fused") -> Model:
     """'kernel' runs the hand-written kernels on CUDA tensors (their plain
     versions on CPU tensors); 'reference' runs the plain unfused path.
-    Raises when ``device`` is CUDA and no card is present."""
+    ``qkv_plan`` is the rung of the QKV ladder the kernel mode takes
+    (``models/attention.py``): 'rope_fused' (RoPE in the q|k GEMM's store;
+    what the reference's byte model picks at every llama shape),
+    'norm_fused' (the norm-prologue GEMMs, then the RoPE kernel) or
+    'unfused' (standalone norm, plain projections, the RoPE kernel); the
+    port's counterpart of the decision a measured table pins in the
+    reference. Raises when ``device`` is CUDA and no card is present."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
+    if qkv_plan not in QKV_PLANS:
+        raise ValueError(f"unknown qkv_plan {qkv_plan!r}; have {QKV_PLANS}")
     dev = resolve_device(device)
-    return Model(cfg=cfg, mode=mode, device=dev, defs=_lm.lm_param_defs(cfg))
+    return Model(cfg=cfg, mode=mode, device=dev, defs=_lm.lm_param_defs(cfg),
+                 qkv_plan=qkv_plan)

@@ -1,12 +1,24 @@
 """GQA/MHA attention layer: projections, RoPE, flash attention, KV caches.
 
-'kernel' mode runs the fused rung of the reference's QKV ladder: the
-block's pre-norm folds into the packed q|k GEMM's prologue and RoPE rides
-its store, v projects through a second fused GEMM with the same prologue,
-and prefill attention is the flash kernel. Decode projects q/k/v with plain
-products (as the reference does), appends to the contiguous (ring) cache or
-to the paged pool in place and runs the split-KV decode kernel (contiguous
-or paged). 'reference' mode is the plain unfused path of the reference
+'kernel' mode runs the reference's QKV plan ladder, with the rung given
+explicitly (``qkv_plan``, the decision a measured table pins in the
+reference):
+
+1. ``rope_fused``: the block's pre-norm folds into the packed q|k GEMM's
+   prologue and RoPE rides its store; v projects through a second fused GEMM
+   with the same prologue (the reference's byte model picks this rung at
+   every llama shape, so it is the default);
+2. ``norm_fused``: the same two GEMMs without the rope store, then the
+   standalone RoPE op (the kernel at S >= 128, as in the reference);
+3. ``unfused``: the standalone norm, plain projections and the standalone
+   RoPE op.
+
+A RoPE style other than 'half' cannot ride the store, so rung 1 sends it
+down rung 2, as the reference does. Prefill attention is the flash kernel.
+Decode projects q/k/v with plain products and rotates them with the plain
+RoPE (as the reference does), appends to the contiguous (ring) cache or to
+the paged pool in place and runs the split-KV decode kernel (contiguous or
+paged). 'reference' mode is the plain unfused path of the reference
 package.
 """
 from __future__ import annotations
@@ -17,10 +29,15 @@ from repro_torch.kernels.attention import (attention, attention_decode,
                                            attention_decode_paged,
                                            attention_ref, decode_ref)
 from repro_torch.kernels.gemm import Epilogue, gemm_fused
-from repro_torch.kernels.rope import rope_ref, rope_tables
+from repro_torch.kernels.rope import rope, rope_ref, rope_tables
 from repro_torch.serve.kv_cache import (append_paged_kv, init_page_pool,
                                        write_prefill_pages)
 from .common import ParamDef, apply_prenorm, norm_prologue_kw
+
+QKV_PLANS = ("rope_fused", "norm_fused", "unfused")
+# the reference's rope kernel takes whole sequence blocks; shorter
+# sequences (and decode) rotate with the plain version
+ROPE_KERNEL_MIN_SEQ = 128
 
 
 def attn_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
@@ -51,16 +68,22 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
-def _apply_rope(cfg, q, k, positions):
-    """Plain RoPE on (B, H, S, hd) q/k at absolute ``positions`` (S,)."""
+def _apply_rope(cfg, q, k, positions, mode: str):
+    """Standalone RoPE on (B, H, S, hd) q/k at absolute ``positions`` (S,):
+    the RoPE op (kernel) in 'kernel' mode for the 'half' style at S >= 128,
+    else the plain rotation; 'partial' rotates the first half of each head,
+    'none' leaves q/k as they are."""
     if cfg.rope_style == "none":
         return q, k
     hd = q.shape[-1]
     rot = hd // 2 if cfg.rope_style == "partial" else hd
     sin, cos = rope_tables(positions, rot, cfg.rope_theta)
+    use_op = (mode == "kernel" and cfg.rope_style == "half"
+              and q.shape[2] >= ROPE_KERNEL_MIN_SEQ)
 
     def rot_fn(x):
-        out = rope_ref(x[..., :rot], sin, cos)
+        xr = x[..., :rot]
+        out = rope(xr, sin, cos) if use_op else rope_ref(xr, sin, cos)
         if rot == hd:
             return out
         return torch.cat([out, x[..., rot:]], dim=-1)
@@ -83,15 +106,25 @@ def project_qkv(cfg, p, x):
             _split_heads(v, cfg.num_kv_heads, cfg.head_dim))
 
 
-def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None):
-    """q|k through one GEMM whose prologue is the block's pre-norm and whose
-    store rotates q and k (RoPE 'half'); v through a second GEMM with the
-    same prologue. Returns (B, H|Hkv, S, hd) views of the GEMM outputs."""
-    if cfg.rope_style != "half":
-        raise NotImplementedError(
-            f"kernel mode fuses RoPE 'half' only, not {cfg.rope_style!r}")
-    b, s, d = x.shape
+def _heads_of_gemms(cfg, qk, v, b, s):
+    """(B, H|Hkv, S, hd) views of the packed q|k and the v GEMM outputs."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = qk[:, : h * hd].reshape(b, s, h * hd)
+    k = qk[:, h * hd:].reshape(b, s, hkv * hd)
+    return (_split_heads(q, h, hd), _split_heads(k, hkv, hd),
+            _split_heads(v.reshape(b, s, hkv * hd), hkv, hd))
+
+
+def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None):
+    """Rung 1: q|k through one GEMM whose prologue is the block's pre-norm
+    and whose store rotates q and k (RoPE 'half'); v through a second GEMM
+    with the same prologue. Returns (B, H|Hkv, S, hd) views of the GEMM
+    outputs. Another RoPE style cannot ride the store and goes down rung 2."""
+    if cfg.rope_style != "half":
+        return project_qkv_heads(cfg, p, x, positions, mode="kernel",
+                                 prenorm=prenorm, qkv_plan="norm_fused")
+    b, s, d = x.shape
+    hd = cfg.head_dim
     has_bias = "bqk" in p
     kw = norm_prologue_kw(cfg, prenorm) if prenorm is not None else {}
     x2 = x.reshape(b * s, d)
@@ -103,20 +136,40 @@ def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None):
                     cos=cos.repeat(b, 1), out_dtype=x.dtype, **kw)
     v = gemm_fused(x2, p["wv"], epilogue=Epilogue(bias=has_bias),
                    bias=p.get("bv"), out_dtype=x.dtype, **kw)
-    q = qk[:, : h * hd].reshape(b, s, h * hd)
-    k = qk[:, h * hd:].reshape(b, s, hkv * hd)
-    return (_split_heads(q, h, hd), _split_heads(k, hkv, hd),
-            _split_heads(v.reshape(b, s, hkv * hd), hkv, hd))
+    return _heads_of_gemms(cfg, qk, v, b, s)
 
 
-def project_qkv_heads(cfg, p, x, positions, *, mode: str, prenorm=None):
-    """Rotated (q, k, v) heads from the pre-norm stream ``x`` (B, S, D)."""
-    if mode == "kernel":
+def fused_project_qkv(cfg, p, x, prenorm):
+    """Rung 2's projections: the packed q|k GEMM and the v GEMM, each with
+    the block's pre-norm in its prologue and the bias in its store, no
+    rope. Returns unrotated (B, H|Hkv, S, hd) views of the GEMM outputs."""
+    b, s, d = x.shape
+    has_bias = "bqk" in p
+    kw = norm_prologue_kw(cfg, prenorm)
+    x2 = x.reshape(b * s, d)
+    ep = Epilogue(bias=has_bias)
+    qk = gemm_fused(x2, p["wqk"], epilogue=ep, bias=p.get("bqk"),
+                    out_dtype=x.dtype, **kw)
+    v = gemm_fused(x2, p["wv"], epilogue=ep, bias=p.get("bv"),
+                   out_dtype=x.dtype, **kw)
+    return _heads_of_gemms(cfg, qk, v, b, s)
+
+
+def project_qkv_heads(cfg, p, x, positions, *, mode: str, prenorm=None,
+                      qkv_plan: str = "rope_fused"):
+    """Rotated (q, k, v) heads from the pre-norm stream ``x`` (B, S, D),
+    through rung ``qkv_plan`` of the ladder in 'kernel' mode. Rung 2 folds
+    the norm into its GEMMs only when there is one (``prenorm``), as in the
+    reference; without it the rung is rung 3."""
+    if mode == "kernel" and qkv_plan == "rope_fused":
         return fused_project_qkv_rope(cfg, p, x, positions, prenorm=prenorm)
-    if prenorm is not None:
-        x = apply_prenorm(cfg, x, prenorm)
-    q, k, v = project_qkv(cfg, p, x)
-    q, k = _apply_rope(cfg, q, k, positions)
+    if mode == "kernel" and qkv_plan == "norm_fused" and prenorm is not None:
+        q, k, v = fused_project_qkv(cfg, p, x, prenorm)
+    else:
+        if prenorm is not None:
+            x = apply_prenorm(cfg, x, prenorm)
+        q, k, v = project_qkv(cfg, p, x)
+    q, k = _apply_rope(cfg, q, k, positions, mode)
     return q, k, v
 
 
@@ -129,12 +182,13 @@ def attend(cfg, q, k, v, *, window, mode: str):
 
 
 def attention_layer(cfg, p, x, *, window: int | None = None, positions=None,
-                    mode: str = "reference", prenorm=None):
+                    mode: str = "reference", prenorm=None,
+                    qkv_plan: str = "rope_fused"):
     """Full-sequence causal self-attention (train/prefill). x: (B, S, D)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = project_qkv_heads(cfg, p, x, positions, mode=mode,
-                                prenorm=prenorm)
+                                prenorm=prenorm, qkv_plan=qkv_plan)
     out = attend(cfg, q, k, v, window=window, mode=mode)
     return _merge_heads(out) @ p["wo"]
 
@@ -179,7 +233,8 @@ def decode_attention_layer(cfg, p, x, k_cache, v_cache, pos: int, *,
     b = x.shape[0]
     q, k_new, v_new = project_qkv(cfg, p, x)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    q, k_new = _apply_rope(cfg, q, k_new, positions)
+    # decode rotates its one token with the plain RoPE, as the reference
+    q, k_new = _apply_rope(cfg, q, k_new, positions, "reference")
     slot = pos % k_cache.shape[2]
     k_cache[:, :, slot] = k_new[:, :, 0]
     v_cache[:, :, slot] = v_new[:, :, 0]

@@ -78,13 +78,15 @@ def _logits(cfg, params, x):
     return logits / cfg.logit_scale_div
 
 
-def block_forward(cfg, p, x, *, positions, mode: str = "reference"):
+def block_forward(cfg, p, x, *, positions, mode: str = "reference",
+                  qkv_plan: str = "rope_fused"):
     """One dense block on the pre-norm residual stream ``x``: ln1 and ln2
-    ride into the attention/MLP layers as ``prenorm``."""
+    ride into the attention/MLP layers as ``prenorm``; ``qkv_plan`` is the
+    rung of the QKV ladder ('kernel' mode)."""
     rs = cfg.residual_scale
     a = attention_layer(cfg, p["attn"], x, window=cfg.attn_window,
                         positions=positions, mode=mode,
-                        prenorm=norm_params(p, "ln1"))
+                        prenorm=norm_params(p, "ln1"), qkv_plan=qkv_plan)
     x = x + rs * a
     return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
                        residual_scale=rs, prenorm=norm_params(p, "ln2"))
@@ -117,14 +119,14 @@ def _remat(cfg, fn):
 
 
 def lm_forward(cfg, params, tokens, *, mode: str = "reference",
-               remat: bool = False):
+               remat: bool = False, qkv_plan: str = "rope_fused"):
     """tokens: (B, S) -> logits (B, S, V) fp32. (The reference also returns
     the MoE auxiliary loss; dense blocks have none.)"""
     params = cast_params(params, dtype_of(cfg.compute_dtype))
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     block = functools.partial(block_forward, cfg, positions=positions,
-                              mode=mode)
+                              mode=mode, qkv_plan=qkv_plan)
     if remat:
         block = _remat(cfg, block)
     for p in unstack_layers(params["blocks"], cfg.num_layers):
@@ -133,14 +135,15 @@ def lm_forward(cfg, params, tokens, *, mode: str = "reference",
 
 
 def lm_loss(cfg, params, batch, *, mode: str = "reference", remat: bool = True,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, qkv_plan: str = "rope_fused"):
     """(loss, {"ce", "aux"}): the masked mean cross entropy of the batch
     {"inputs", "targets"[, "loss_mask"]}; dense blocks have no auxiliary
     loss, so aux is 0."""
     if cfg.ce_chunk:
         raise NotImplementedError(
             "ce_chunk (the chunked cross entropy) is not ported; use 0")
-    logits = lm_forward(cfg, params, batch["inputs"], mode=mode, remat=remat)
+    logits = lm_forward(cfg, params, batch["inputs"], mode=mode, remat=remat,
+                        qkv_plan=qkv_plan)
     ce = cross_entropy_loss(logits, batch["targets"], batch.get("loss_mask"))
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
@@ -153,10 +156,11 @@ def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:
 
 
 def block_prefill(cfg, p, x, k_cache, v_cache, *, positions,
-                  mode: str = "reference"):
+                  mode: str = "reference", qkv_plan: str = "rope_fused"):
     """Full-sequence block that also fills its layer's cache (in place)."""
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
-                                prenorm=norm_params(p, "ln1"))
+                                prenorm=norm_params(p, "ln1"),
+                                qkv_plan=qkv_plan)
     o = attend(cfg, q, k, v, window=cfg.attn_window, mode=mode)
     prefill_attn_cache(k_cache, v_cache, k, v)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
@@ -176,14 +180,16 @@ def block_decode(cfg, p, x, k_cache, v_cache, pos: int, *,
                        residual_scale=rs, prenorm=norm_params(p, "ln2"))
 
 
-def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference"):
+def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
+               qkv_plan: str = "rope_fused"):
     """Fills ``cache`` in place. Returns (cache, last-position logits
     (B, V))."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     for i in range(cfg.num_layers):
         x = block_prefill(cfg, layer_params(params, i), x, cache["k"][i],
-                          cache["v"][i], positions=positions, mode=mode)
+                          cache["v"][i], positions=positions, mode=mode,
+                          qkv_plan=qkv_plan)
     return cache, _logits(cfg, params, x[:, -1:, :])[:, 0]
 
 
@@ -234,11 +240,12 @@ def _int32(x, device):
 
 
 def block_prefill_paged(cfg, p, x, cache, *, page_rows, positions,
-                        mode: str = "reference"):
+                        mode: str = "reference", qkv_plan: str = "rope_fused"):
     """Single-sequence (B = 1) prefill block whose rotated k/v land in the
     sequence's pages (in place)."""
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
-                                prenorm=norm_params(p, "ln1"))
+                                prenorm=norm_params(p, "ln1"),
+                                qkv_plan=qkv_plan)
     o = attend(cfg, q, k, v, window=cfg.attn_window, mode=mode)
     paged_prefill_attn_cache(cfg, cache, k, v, page_rows)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
@@ -248,7 +255,8 @@ def block_prefill_paged(cfg, p, x, cache, *, page_rows, positions,
 
 
 def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
-                     true_len: int, *, mode: str = "reference"):
+                     true_len: int, *, mode: str = "reference",
+                     qkv_plan: str = "rope_fused"):
     """Prefill ONE sequence into the shared paged cache (in place).
 
     tokens: (1, S); ``page_rows``: (max_pages,) page-table row; ``slot`` is
@@ -262,19 +270,22 @@ def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
     for i in range(cfg.num_layers):
         x = block_prefill_paged(cfg, layer_params(params, i), x,
                                 _layer_cache(cache, i), page_rows=page_rows,
-                                positions=positions, mode=mode)
+                                positions=positions, mode=mode,
+                                qkv_plan=qkv_plan)
     return cache, _logits(cfg, params, x[:, true_len - 1:true_len])[:, 0]
 
 
 def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
-                              length, positions, mode: str = "reference"):
+                              length, positions, mode: str = "reference",
+                              qkv_plan: str = "rope_fused"):
     """One layer of chunked prefill: the chunk's k/v land in the sequence's
     pages at page offset ``start // page_size``, and its queries attend to
     everything already in the pages (earlier chunks and this one) through
     the multi-token paged-decode mask. ``table`` (1, MP) and ``length`` (1,)
     are the row and ``start + C`` as int32 tensors on x's device."""
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
-                                prenorm=norm_params(p, "ln1"))
+                                prenorm=norm_params(p, "ln1"),
+                                qkv_plan=qkv_plan)
     page_size = cache["k_pages"].shape[2]
     paged_prefill_attn_cache(cfg, cache, k, v, page_rows,
                              start_page=start // page_size)
@@ -289,7 +300,8 @@ def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
 
 
 def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
-                           last_index: int, *, mode: str = "reference"):
+                           last_index: int, *, mode: str = "reference",
+                           qkv_plan: str = "rope_fused"):
     """Prefill ONE chunk of one sequence into the shared paged cache.
 
     tokens: (1, C), C a whole number of pages; ``start``: the chunk's first
@@ -310,7 +322,7 @@ def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
         x = block_prefill_paged_chunk(
             cfg, layer_params(params, i), x, _layer_cache(cache, i),
             page_rows=page_rows, table=table, start=start, length=length,
-            positions=positions, mode=mode)
+            positions=positions, mode=mode, qkv_plan=qkv_plan)
     return cache, _logits(cfg, params,
                           x[:, last_index:last_index + 1])[:, 0]
 

@@ -17,6 +17,7 @@ from repro_torch.kernels.attention import (attention, attention_decode,
 from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_fused,
                                       gemm_fused_bwd)
 from repro_torch.kernels.gemm import backward as gemm_backward
+from repro_torch.kernels import dropout_residual_layernorm, rope
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "float": ctypes.c_float,
@@ -43,6 +44,14 @@ def test_argtypes_match_the_c_entry_point(kernel):
     assert _c_signature(source, kernel.entry) == kernel.argtypes
 
 
+def test_every_source_is_a_kernel():
+    """Each csrc/*.cu is the source of one kernel of KERNELS, so build_all
+    and the launch counters cover all nine."""
+    assert sorted(k.source.name for k in kernels.KERNELS) \
+        == sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert len(kernels.KERNELS) == 9
+
+
 @pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
 def test_every_source_notes_what_it_replaces_and_its_bound(kernel):
     head = kernel.source.read_text()[:4000]
@@ -67,7 +76,8 @@ def test_launch_counts_reset():
 
 
 @pytest.mark.parametrize("op", ["gemm", "attention", "decode", "paged",
-                                "gemm_bwd", "attention_bwd"])
+                                "gemm_bwd", "attention_bwd", "rope",
+                                "fused_norm"])
 def test_wrappers_refuse_other_devices(op):
     """A tensor on neither the CPU nor the card (here the meta device) is
     refused, and no launch is counted."""
@@ -88,6 +98,15 @@ def test_wrappers_refuse_other_devices(op):
             q = torch.empty(1, 2, 8, 64, **meta)
             flash_attention_bwd(q, q, q, q, torch.empty(1, 2, 8, device="meta"),
                                 q, causal=True)
+        elif op == "rope":
+            rope(torch.empty(1, 2, 8, 64, **meta),
+                 torch.empty(8, 64, device="meta"),
+                 torch.empty(8, 64, device="meta"))
+        elif op == "fused_norm":
+            x = torch.empty(4, 64, **meta)
+            dropout_residual_layernorm(x, x, torch.empty(64, **meta),
+                                       torch.empty(64, **meta), 7,
+                                       dropout_p=0.1)
         elif op == "decode":
             q = torch.empty(1, 2, 1, 64, **meta)
             attention_decode(q, q.expand(1, 2, 8, 64), q.expand(1, 2, 8, 64),
@@ -126,6 +145,9 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
     assert ps.family("gemm_bwd_db_kernel<0>") == "gemm_bwd_db"
     assert ps.family("flash_bwd_dq_kernel<64>") == "flash_attention_bwd"
     assert ps.family("flash_bwd_dkv_kernel<128>") == "flash_attention_bwd"
+    assert ps.family("void (anonymous namespace)::rope_kernel<__nv_bfloat16>"
+                     "(RopeArgs)") == "rope"
+    assert ps.family("fused_norm_kernel<float, float>") == "fused_norm"
     assert ps.family("sm90_xmma_gemm_bf16bf16_bf16f32") == "library_matmul"
     assert ps.family("nvjet_tst_128x64_64x8_2x1_v_bz_TNT") == "library_matmul"
     assert ps.family("vectorized_elementwise_kernel") == "other_torch"

@@ -401,3 +401,121 @@ def test_attention_autograd_launches_both_passes(dev):
     assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
+
+
+# ---------------------------------------------------------------------------
+# RoPE and the fused dropout + residual + layernorm
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each entry of x (8 significant bits), as a tensor."""
+    _, e = torch.frexp(x.abs().double())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+
+
+def _rope_close(got, want):
+    """fp32: within 1e-6 of the output's scale; bf16: one ulp."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.double(), want.double()
+    if got.dtype == torch.float32:
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+    else:
+        ulp = torch.maximum(_bf16_ulp(w), _bf16_ulp(g))
+        assert ((g - w).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d,s", [(64, 256), (128, 200), (64, 131)])
+def test_rope_kernel_matches_plain_on_strided_views(dev, d, s, dtype):
+    """q and k as transposed views of a packed (B, S, (H + Hkv) x D)
+    projection output, at S that are not multiples of the kernel's
+    256-pair tile; the output is contiguous and counts one launch."""
+    from repro_torch.kernels.rope import rope, rope_ref, rope_tables
+    b, h, hkv = 2, 4, 2
+    rng = np.random.default_rng(d + s)
+    qk = _rand(rng, (b, s, (h + hkv) * d), dev, dtype=dtype)
+    sin, cos = rope_tables(torch.arange(s, device=dev), d)
+    for view, heads in ((qk[..., : h * d], h), (qk[..., h * d:], hkv)):
+        x = view.reshape(b, s, heads, d).transpose(1, 2)
+        before = kernels.launch_counts()["rope"]
+        got = rope(x, sin, cos)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["rope"] == before + 1
+        assert got.is_contiguous()
+        _rope_close(got, rope_ref(x, sin, cos))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_rope_backward_is_the_kernel_with_minus_sin(dev, dtype):
+    """Autograd through the op launches the kernel once more, rotating the
+    cotangent by -theta: the plain version with -sin."""
+    from repro_torch.kernels.rope import rope, rope_ref, rope_tables
+    rng = np.random.default_rng(11)
+    b, h, s, d = 2, 4, 160, 64
+    x = _rand(rng, (b, s, h * d), dev, dtype=dtype).reshape(
+        b, s, h, d).transpose(1, 2).detach().requires_grad_()
+    g = _rand(rng, (b, h, s, d), dev, dtype=dtype)
+    sin, cos = rope_tables(torch.arange(s, device=dev), d)
+    before = kernels.launch_counts()["rope"]
+    rope(x, sin, cos).backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rope"] == before + 2
+    _rope_close(x.grad, rope_ref(g, -sin, cos))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [1024, 2048, 4096])
+def test_fused_norm_keep_mask_is_bitwise_the_plain_one(dev, d, dtype):
+    """With x = 1 and residual = 0 the new residual is the scale where a
+    lane is kept and 0 where it is dropped: the kernel's hashed mask is bit
+    for bit the plain version's, at several row offsets of the index."""
+    from repro_torch.kernels.fused_norm import (dropout_keep_mask_ref,
+                                                dropout_residual_layernorm)
+    rows = 96
+    ones = torch.ones(rows, d, device=dev, dtype=dtype)
+    zeros = torch.zeros_like(ones)
+    w = torch.ones(d, device=dev)
+    for seed, p in ((7, 0.1), (-1, 0.5), (2 ** 31 - 1, 0.3)):
+        _, new_res = dropout_residual_layernorm(ones, zeros, w, w, seed,
+                                                dropout_p=p)
+        torch.cuda.synchronize()
+        keep = dropout_keep_mask_ref(seed, (rows, d), p, dev)
+        assert torch.equal(new_res != 0, keep)
+        assert torch.equal(new_res[keep].float(), torch.full(
+            (int(keep.sum()),), 1.0 / (1.0 - p), device=dev).to(dtype).float())
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["w_fp32", "w_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,d,p", [(256, 2048, 0.1), (37, 1000, 0.0),
+                                      (64, 4096, 0.5)])
+def test_fused_norm_kernel_matches_plain(dev, rows, d, p, dtype, wdtype):
+    """Both outputs against the plain version: new_residual bit for bit
+    (the same fp32 product and sum), normed within 1e-5 of its scale in
+    fp32 (the row sums run in another order) and within that plus one ulp
+    in bf16; a d that is no multiple of the block's 256 threads."""
+    from repro_torch.kernels.fused_norm import (
+        dropout_residual_layernorm, fused_dropout_residual_layernorm_ref)
+    rng = np.random.default_rng(rows + d)
+    x = _rand(rng, (rows, d), dev, dtype=dtype)
+    r = _rand(rng, (rows, d), dev, dtype=dtype)
+    w = (1 + 0.1 * _rand(rng, (d,), dev, dtype=torch.float32)).to(wdtype)
+    b = _rand(rng, (d,), dev, 0.1, dtype=wdtype)
+    before = kernels.launch_counts()["fused_norm"]
+    out, new_res = dropout_residual_layernorm(x, r, w, b, 7, dropout_p=p)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == before + 1
+    want_out, want_res = fused_dropout_residual_layernorm_ref(
+        x, r, w, b, 7, dropout_p=p)
+    assert torch.equal(new_res, want_res)
+    err = (out.double() - want_out.double()).abs()
+    tol = 1e-5 * want_out.abs().max().item()
+    if dtype == torch.bfloat16:
+        tol = torch.maximum(_bf16_ulp(want_out.double()),
+                            _bf16_ulp(out.double())) + tol
+    assert (err <= tol).all(), err.max()
