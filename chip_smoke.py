@@ -1,20 +1,23 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--out DIR]
+  python3 chip_smoke.py [--out DIR] [--baseline-csrc DIR]
 
 Phases, each of which raises on failure (exit code non-zero):
 
 1. Device: refuse to run without CUDA; print the card's name and power
    limit as nvidia-smi gives them.
-2. Build: compile the nine CUDA kernels from ``src/repro_torch/kernels/
+2. Build: compile the ten CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one nvcc per source, in parallel); print the build time and what
    ptxas reports for each kernel.
 3. Kernels: each kernel against its plain torch version on the card, at the
    llama-1b main-path shapes (prefill B 4, S 256, so M = 1024; decode B 4
    over a 296-slot cache; paged decode over 8 slots of an 8-page bucket of
    a 65-page pool, a 128-token chunk at position 192 and a 4-token verify;
-   the training backward at B 4, S 1024, so M = 4096: dA and dB of the four
-   fused GEMMs of a layer and both flash-backward passes; the standalone
+   the training backward at B 4, S 1024, so M = 4096: the GEMM backward
+   of the four fused GEMMs of a layer as its operand pass, dA (the GEMM
+   and the norm row pass also timed apart) and dB, each tile width of the
+   mainloop timed too, and the whole backward against the library's two
+   products; both flash-backward passes; the standalone
    RoPE on prefill and training q/k, strided views of the q|k GEMM output,
    and its backward; the fused dropout + residual + layernorm at the
    memory-bound bench's shapes, rows 2048-8192 by d 2048, p 0.1, seed 7),
@@ -28,7 +31,10 @@ Phases, each of which raises on failure (exit code non-zero):
    for bit. No PyTorch call computes paged attention: its yardstick is
    ``F.scaled_dot_product_attention`` over the pre-gathered cache, the
    gather not timed. The GEMM backward's yardstick is ``torch.matmul`` of
-   the bare product; the flash backward's, ``torch.autograd.grad`` through
+   the bare product (the operand pass has none); with ``--baseline-csrc
+   DIR``, an earlier tree's dA and dB sources in DIR are built and timed
+   in turns with the whole backward (baseline, new, new, baseline). The
+   flash backward's yardstick is ``torch.autograd.grad`` through
    ``F.scaled_dot_product_attention`` (timed with CUDA events around the
    call, not from a graph). No PyTorch call computes RoPE (no library
    time); the fused norm's yardstick is ``F.layer_norm`` of the summed
@@ -64,8 +70,8 @@ Phases, each of which raises on failure (exit code non-zero):
    steps of 4 x 1024 tokens (``cosine_schedule``, 2 warm-up steps,
    ``remat_policy="full"``) in kernel mode: every launch counter, zeroed
    just before and read just after, equals 8 steps of what the model
-   implies (per layer and step 8 ``gemm_fused``, 4 dA, 4 dB, 2 flash
-   forward and 2 flash backward passes); every loss finite and the last
+   implies (per layer and step 8 ``gemm_fused``, 4 GEMM-backward operand
+   passes, 4 dA, 4 dB, 2 flash forward and 2 flash backward passes); every loss finite and the last
    below the first; then the same 8 steps on the plain bf16 path and the
    plain fp32 path (the truth, same seed and data): the kernel curve no
    further from the truth than 2.5x the plain bf16 curve's distance +
@@ -94,6 +100,7 @@ Phases, each of which raises on failure (exit code non-zero):
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -162,6 +169,9 @@ SOURCES = {
                      "src/repro/kernels/attention/kernel_decode.py:109"),
     "flash_decode_paged": ("src/repro_torch/kernels/csrc/flash_decode_paged.cu",
                            "src/repro/kernels/attention/kernel_decode.py:132"),
+    # the transposed epilogue of _da_kernel (:73) and _db_kernel, A's norm
+    "gemm_bwd_g": ("src/repro_torch/kernels/csrc/gemm_bwd_g.cu",
+                   "src/repro/kernels/gemm/backward.py:73"),
     "gemm_bwd_da": ("src/repro_torch/kernels/csrc/gemm_bwd_da.cu",
                     "src/repro/kernels/gemm/backward.py:63"),
     "gemm_bwd_db": ("src/repro_torch/kernels/csrc/gemm_bwd_db.cu",
@@ -542,14 +552,82 @@ def train_gemm_cases(cfg, dev, gen):
     return cases + [("qk", x, cases[0][2], dict(**rms))]
 
 
-def measure_gemm_bwd(cfg, dev, gen, timer):
-    """dA and dB of each training GEMM, from the forward's saved rstd and
-    preacts and a random cotangent, against their plain versions. Bound:
-    the operands once (g, preacts, B or A, gamma, rstd, tables) and the
-    outputs once, or 2 M N K operations per product at the bf16 peak. The
-    library yardstick is torch.matmul of the bare product (g @ Bᵀ, Aᵀ @ g;
-    the gated chain's two products as one concatenated one)."""
-    rows = {"gemm_bwd_da": [], "gemm_bwd_db": []}
+def baseline_bwd(csrc: str):
+    """The GEMM backward's dA and dB from an earlier tree's sources (the
+    single-launch kernels whose g-tile transform lives in
+    ``gemm_bwd_g.cuh``): a function of one call's operands giving (dA
+    launch, dB launch). Built like the port's kernels; their launches are
+    not counted."""
+    from repro_torch.kernels._build import CudaKernel, build_all
+    from repro_torch.kernels.gemm.ops import chain_flags
+
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    root = os.path.abspath(csrc)
+    da_k = CudaKernel("baseline_gemm_bwd_da",
+                      os.path.join(root, "gemm_bwd_da.cu"),
+                      "gemm_bwd_da_launch", [P] * 13 + [Fl] + [I] * 5 + [P])
+    db_k = CudaKernel("baseline_gemm_bwd_db",
+                      os.path.join(root, "gemm_bwd_db.cu"),
+                      "gemm_bwd_db_launch", [P] * 11 + [Fl] + [I] * 5 + [P])
+    build_all([da_k, db_k])
+
+    def make(a, b, g, rstd, ops):
+        ep, norm = ops["epilogue"], not ops["prologue"].is_identity
+        m, k = a.shape
+        n = b.shape[1]
+        f32 = torch.float32
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        pre = list(ops["preacts"]) + [None, None]
+        g_side = (ptr(g), ptr(pre[0]), ptr(pre[1]), ptr(ops.get("sin")),
+                  ptr(ops.get("cos")))
+        scale = float(ops["scale"]) if ep.scale else 1.0
+        flags, hd = chain_flags(ep), ep.head_dim
+        da = torch.empty((m, k), dtype=a.dtype, device=a.device)
+        dan = (torch.empty((m, k), dtype=f32, device=a.device)
+               if norm else None)
+        part = (torch.empty((-(-m // 32), k), dtype=f32, device=a.device)
+                if norm else None)
+        db = torch.empty((k, n), dtype=a.dtype, device=a.device)
+        db2 = torch.empty_like(db) if ep.gate else None
+        gamma = ptr(ops["gamma"]) if norm else None
+        rs = ptr(rstd) if norm else None
+
+        def da_launch():
+            da_k.check(da_k.fn()(*g_side, ptr(b), ptr(ops.get("b2")), ptr(a),
+                                 gamma, rs, ptr(dan), ptr(da), ptr(part),
+                                 scale, m, n, k, flags, hd,
+                                 torch.cuda.current_stream().cuda_stream))
+
+        def db_launch():
+            db_k.check(db_k.fn()(*g_side, ptr(a), gamma, rs, ptr(db),
+                                 ptr(db2), None, scale, m, n, k, flags, hd,
+                                 torch.cuda.current_stream().cuda_stream))
+
+        return da_launch, db_launch, (da, db)
+    return make
+
+
+def measure_gemm_bwd(cfg, dev, gen, timer, baseline=None):
+    """The GEMM backward of each training GEMM, from the forward's saved
+    rstd and preacts and a random cotangent, as its three launches: the
+    operand pass (``gemm_bwd_g``), dA (the GEMM, and the norm row pass
+    timed apart) and dB, each against its plain version. Bounds: the
+    operand pass by its bytes (g, preacts, tables, A, gamma, rstd read;
+    gbar, gbar_t, a_t written once); dA and dB by their own operands and
+    outputs, or 2 M N K operations per product at the bf16 peak. Library
+    yardstick: torch.matmul of the bare product (g @ Bᵀ, Aᵀ @ g; the gated
+    chain's two products as one concatenated one). Also the whole backward
+    (operand pass + dA + dB through ``gemm_fused_bwd``) against the
+    library's two products, bound by the chain's inputs and outputs or both
+    products. With ``baseline`` (an earlier tree's csrc directory), that
+    tree's dA + dB at the same shapes, timed in turns with the whole
+    backward (baseline, new, new, baseline)."""
+    rows = {"gemm_bwd_g": [], "gemm_bwd_da": [], "gemm_bwd_db": []}
+    whole = []
+    old = baseline_bwd(baseline) if baseline else None
     for name, a, b, kw in train_gemm_cases(cfg, dev, gen):
         ep = kw.get("epilogue", EPILOGUE_NONE)
         pro = kw.get("prologue", PROLOGUE_NONE)
@@ -564,58 +642,140 @@ def measure_gemm_bwd(cfg, dev, gen, timer):
         ops = dict(epilogue=ep, prologue=pro, b2=kw.get("b2"), bias=None,
                    scale=kw.get("scale"), sin=kw.get("sin"), cos=kw.get("cos"),
                    gamma=kw.get("gamma"), preacts=preacts)
+        g_ops = {x: v for x, v in ops.items() if x != "b2"}
+        run = gemm_bwd.BwdLaunch(a, b, g, rstd=rstd, **ops)
+        norm = run.norm
 
-        def da_kernel():
-            return gemm_bwd._launch_da(a, b, g, rstd=rstd, **ops)
-
-        def da_plain():
-            return gemm_bwd.gemm_bwd_da_ref(a, b, g, **ops)
-
-        def db_kernel():
-            return gemm_bwd._launch_db(a, b, g, rstd=rstd, **ops)
-
-        def db_plain():
-            return gemm_bwd.gemm_bwd_db_ref(a, b, g, rstd=rstd, **ops)
-
-        da, dgamma = da_kernel()
-        want_da, want_dgamma = da_plain()
-        db, db2, _ = db_kernel()
-        want_db, want_db2, _ = db_plain()
+        run.operand_pass()
+        da, dgamma = run.da()
+        db, db2 = run.db()
+        want_g = gemm_bwd.gemm_bwd_g_ref(a, g, rstd=rstd, **g_ops)
+        want_da, want_dgamma = gemm_bwd.gemm_bwd_da_ref(a, b, g, **ops)
+        want_db, want_db2, _ = gemm_bwd.gemm_bwd_db_ref(a, b, g, rstd=rstd,
+                                                        **ops)
         torch.cuda.synchronize()
+        # the operand pass: one bf16 rounding of the same fp32 value
+        err_g, tol_g = check_close(f"gemm_bwd_g[{name}]", run.gbar,
+                                   want_g["gbar"], 2 ** -7, 1e-6)
+        if not (torch.equal(run.gbar_t[:, :m], run.gbar.T)
+                and torch.equal(run.a_t[:, :m].float(), want_g["a_t"])):
+            raise AssertionError(f"gemm_bwd_g[{name}]: gbar_t is not gbar's "
+                                 "transpose, or a_t not the plain An^T")
         tol = 2 ** -6, 2e-2
         err_a, tol_s = check_close(f"gemm_bwd_da[{name}]", da, want_da, *tol)
         if dgamma is not None:
-            err_g, _ = check_close(f"gemm_bwd_da[{name}].dgamma", dgamma,
-                                   want_dgamma, 1e-3, 1e-3)
-            err_a = max(err_a, err_g)
+            err_gm, _ = check_close(f"gemm_bwd_da[{name}].dgamma", dgamma,
+                                    want_dgamma, 1e-3, 1e-3)
+            err_a = max(err_a, err_gm)
         err_b, _ = check_close(f"gemm_bwd_db[{name}]", db, want_db, *tol)
         if db2 is not None:
             err_b = max(err_b, check_close(f"gemm_bwd_db[{name}].db2", db2,
                                            want_db2, *tol)[0])
+        del want_g, want_da, want_db, want_db2
         gated = ep.gate
         flops = 2 * m * n * k * (2 if gated else 1)
-        g_side = nbytes(g, *preacts, kw.get("sin"), kw.get("cos"))
-        norm_ops = nbytes(kw.get("gamma"), rstd)
-        da_bytes = (g_side + nbytes(b, kw.get("b2"), da, dgamma) + norm_ops
-                    + (nbytes(a) if dgamma is not None else 0))
-        db_bytes = g_side + nbytes(a, db, db2) + norm_ops
+        g_in = nbytes(g, *preacts, kw.get("sin"), kw.get("cos"))
+        a_in = nbytes(a, kw.get("gamma"), rstd)
+        n2 = run.gbar.shape[1]
+        g_out = 2 * m * n2 * 2 + k * m * 2          # gbar, gbar_t, a_t
+        da_in = nbytes(run.gbar, b, kw.get("b2")) + (a_in if norm else 0)
+        db_in = 2 * (k * m + n2 * m)                 # a_t, gbar_t
+        out_da, out_db = nbytes(da, dgamma), nbytes(db, db2)
         g_lib = torch.cat([g, g], dim=1) if gated else g
         b_lib = torch.cat([b, kw["b2"]], dim=1) if gated else b
+
+        def lib_da():
+            return torch.matmul(g_lib, b_lib.T)
+
+        def lib_db():
+            return torch.matmul(a.T, g_lib)
+
+        def lib_both():
+            return lib_da(), lib_db()
+
+        def new_whole():
+            return gemm_bwd.gemm_fused_bwd(a, b, g, rstd=rstd, **ops)
+
         shape = [m, k, n]
-        for kernel, plain, lib, err, traffic in (
-                (da_kernel, da_plain, lambda: torch.matmul(g_lib, b_lib.T),
-                 err_a, da_bytes),
-                (db_kernel, db_plain, lambda: torch.matmul(a.T, g_lib),
-                 err_b, db_bytes)):
-            b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
-            rows["gemm_bwd_da" if kernel is da_kernel else "gemm_bwd_db"
-                 ].append(dict(case=name, shape=shape, max_abs_err=err,
-                               tolerance=tol_s, ms=timer.ms(kernel),
-                               plain_ms=timer.ms(plain),
-                               library_ms=timer.ms(lib), bound_ms=b_ms,
-                               bound_by=b_by))
-        del preacts, g, g_lib, b_lib
-    return rows
+        b_ms, b_by = bound(g_in + a_in + g_out)
+        rows["gemm_bwd_g"].append(dict(
+            case=name, shape=shape, max_abs_err=err_g, tolerance=tol_g,
+            ms=timer.ms(run.operand_pass),
+            plain_ms=timer.ms(lambda: gemm_bwd.gemm_bwd_g_ref(
+                a, g, rstd=rstd, **g_ops)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        b_ms, b_by = bound(da_in + out_da, (flops, PEAK_BF16))
+        da_row = dict(
+            case=name, shape=shape, max_abs_err=err_a, tolerance=tol_s,
+            ms=timer.ms(run.da),
+            plain_ms=timer.ms(lambda: gemm_bwd.gemm_bwd_da_ref(a, b, g,
+                                                               **ops)),
+            library_ms=timer.ms(lib_da), bound_ms=b_ms, bound_by=b_by,
+            gemm_ms=timer.ms(lambda: run.da(passes=1)))
+        if norm:
+            da_row["row_pass_ms"] = timer.ms(lambda: run.da(passes=2))
+            da_row["row_pass_bound_ms"] = bound(
+                nbytes(run.dan, a, da, kw.get("gamma"), rstd, dgamma))[0]
+        rows["gemm_bwd_da"].append(da_row)
+        b_ms, b_by = bound(db_in + out_db, (flops, PEAK_BF16))
+        rows["gemm_bwd_db"].append(dict(
+            case=name, shape=shape, max_abs_err=err_b, tolerance=tol_s,
+            ms=timer.ms(run.db),
+            plain_ms=timer.ms(lambda: gemm_bwd.gemm_bwd_db_ref(
+                a, b, g, rstd=rstd, **ops)),
+            library_ms=timer.ms(lib_db), bound_ms=b_ms, bound_by=b_by))
+        # each tile width of the mainloop, against the one picked
+        by_width = {}
+        for width in gemm_bwd.TILE_WIDTHS:
+            sweep = gemm_bwd.BwdLaunch(a, b, g, rstd=rstd, tile_n=width,
+                                       **ops)
+            sweep.operand_pass()
+            by_width[width] = (timer.ms(lambda: sweep.da(passes=1)),
+                               timer.ms(sweep.db))
+            del sweep
+        da_row.update(tile_n=run.tile_da, gemm_ms_by_tile_n={
+            w: t[0] for w, t in by_width.items()})
+        rows["gemm_bwd_db"][-1].update(tile_n=run.tile_db, ms_by_tile_n={
+            w: t[1] for w, t in by_width.items()})
+        us = {w: [round(x * 1e3, 1) for x in t] for w, t in by_width.items()}
+        log(f"[kernel] gemm_bwd[{name}] by tile width, (dA GEMM, dB) us: "
+            f"{us}; picked {run.tile_da} for dA, {run.tile_db} for dB")
+        b_ms, b_by = bound(g_in + a_in + nbytes(b, kw.get("b2")) + out_da
+                           + out_db, (2 * flops, PEAK_BF16))
+        w = dict(case=name, shape=shape, ms=timer.ms(new_whole),
+                 library_ms=timer.ms(lib_both), bound_ms=b_ms, bound_by=b_by)
+        if old is not None:
+            old_da, old_db, old_out = old(a, b, g, rstd, ops)
+
+            def old_both():
+                old_da()
+                old_db()
+
+            old_both()
+            torch.cuda.synchronize()
+            # the baseline computes the same function
+            for what, got, want in zip(("da", "db"), old_out, (da, db)):
+                check_close(f"baseline gemm_bwd[{name}].{what}", got, want,
+                            *tol)
+            turns = [timer.ms(old_both), timer.ms(new_whole),
+                     timer.ms(new_whole), timer.ms(old_both)]
+            w["baseline_turns_ms"] = turns     # baseline, new, new, baseline
+            w["baseline_ms"] = (turns[0] + turns[3]) / 2
+            w["new_in_turns_ms"] = (turns[1] + turns[2]) / 2
+        whole.append(w)
+        log(f"[kernel] gemm_fused_bwd[{name}] whole backward "
+            f"{w['ms'] * 1e3:.1f} us (operand pass "
+            f"{rows['gemm_bwd_g'][-1]['ms'] * 1e3:.1f}, dA GEMM "
+            f"{da_row['gemm_ms'] * 1e3:.1f}, row pass "
+            f"{da_row.get('row_pass_ms', 0.0) * 1e3:.1f}, dB "
+            f"{rows['gemm_bwd_db'][-1]['ms'] * 1e3:.1f}); library products "
+            f"{w['library_ms'] * 1e3:.1f} us; bound "
+            f"{w['bound_ms'] * 1e3:.2f} us ({w['bound_by']})"
+            + (f"; baseline dA + dB {w['baseline_ms'] * 1e3:.1f} us against "
+               f"{w['new_in_turns_ms'] * 1e3:.1f} in turns"
+               if old is not None else ""))
+        del run, preacts, g, g_lib, b_lib, da, db, db2
+    return rows, whole
 
 
 def measure_flash_bwd(cfg, dev, gen, timer):
@@ -1130,11 +1290,12 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
 
 def expected_train_launches(cfg, steps: int) -> dict:
     """Per layer and step under remat_policy='full': the forward's 4 fused
-    GEMMs and flash forward, again in the backward's recompute, then 4 dA,
-    4 dB and the two flash-backward passes."""
+    GEMMs and flash forward, again in the backward's recompute, then for
+    each GEMM its backward's operand pass, dA and dB (4 each), and the two
+    flash-backward passes."""
     n = cfg.num_layers * steps
     return {**no_launches(), "gemm_fused": 8 * n, "flash_attention_fwd": 2 * n,
-            "gemm_bwd_da": 4 * n, "gemm_bwd_db": 4 * n,
+            "gemm_bwd_g": 4 * n, "gemm_bwd_da": 4 * n, "gemm_bwd_db": 4 * n,
             "flash_attention_bwd": 2 * n}
 
 
@@ -1371,6 +1532,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report to OUT/chip_smoke.json")
+    ap.add_argument("--baseline-csrc", default=None,
+                    help="an earlier tree's csrc directory: time its GEMM "
+                    "backward (dA + dB) in turns with this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1398,12 +1562,14 @@ def main(argv=None) -> int:
     measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer),
                 "flash_attention_fwd": measure_flash(cfg, dev, gen, timer),
                 "flash_decode": measure_decode(cfg, dev, gen, timer),
-                "flash_decode_paged": measure_paged(cfg, dev, gen, timer),
-                **measure_gemm_bwd(cfg, dev, gen, timer),
-                "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen,
-                                                         timer),
-                "rope": measure_rope(cfg, dev, gen, timer),
-                "fused_norm": measure_fused_norm(dev, gen, timer)}
+                "flash_decode_paged": measure_paged(cfg, dev, gen, timer)}
+    bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer,
+                                           args.baseline_csrc)
+    measured.update(bwd_rows)
+    measured.update({
+        "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen, timer),
+        "rope": measure_rope(cfg, dev, gen, timer),
+        "fused_norm": measure_fused_norm(dev, gen, timer)})
     for name, rows in measured.items():
         for r in rows:
             lib = ("none" if r["library_ms"] is None
@@ -1452,7 +1618,8 @@ def main(argv=None) -> int:
             "library_ms": (None if any(r["library_ms"] is None for r in rows)
                            else sum(r["library_ms"] for r in rows)),
             "cases": rows})
-    report = {"device": card, "kernels": line, "phases": phases}
+    report = {"device": card, "kernels": line, "phases": phases,
+              "gemm_bwd_whole": bwd_whole}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -8,11 +8,12 @@ from .attention import (BWD_KERNEL, DECODE_KERNEL, DECODE_PAGED_KERNEL,
                         FWD_KERNEL)
 from .fused_norm import (KERNEL as FUSED_NORM_KERNEL,  # noqa: F401
                          dropout_residual_layernorm)
-from .gemm import DA_KERNEL, DB_KERNEL, KERNEL as GEMM_KERNEL
+from .gemm import DA_KERNEL, DB_KERNEL, G_KERNEL, KERNEL as GEMM_KERNEL
 from .rope import KERNEL as ROPE_KERNEL, rope  # noqa: F401
 
 KERNELS = (GEMM_KERNEL, FWD_KERNEL, DECODE_KERNEL, DECODE_PAGED_KERNEL,
-           DA_KERNEL, DB_KERNEL, BWD_KERNEL, ROPE_KERNEL, FUSED_NORM_KERNEL)
+           G_KERNEL, DA_KERNEL, DB_KERNEL, BWD_KERNEL, ROPE_KERNEL,
+           FUSED_NORM_KERNEL)
 
 
 def build_all() -> dict:

@@ -4,5 +4,6 @@ from .ref import gemm_fused_ref  # noqa: F401
 from .ops import (BWD_MODES, KERNEL, default_bwd_mode,  # noqa: F401
                   gemm_fused, kernel_saves)
 from .ref import gemm_fused_bwd_ref  # noqa: F401
-from .backward import (DA_KERNEL, DB_KERNEL, gemm_bwd_da_ref,  # noqa: F401
-                       gemm_bwd_db_ref, gemm_fused_bwd)
+from .backward import (DA_KERNEL, DB_KERNEL, G_KERNEL,  # noqa: F401
+                       gemm_bwd_da_ref, gemm_bwd_db_ref, gemm_bwd_g_ref,
+                       gemm_fused_bwd)

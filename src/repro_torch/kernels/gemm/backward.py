@@ -1,22 +1,29 @@
-"""``gemm_fused_bwd``: the backward of the fused GEMM as two kernels.
+"""``gemm_fused_bwd``: the backward of the fused GEMM as three launches.
 
-* **dA** (``csrc/gemm_bwd_da.cu``): ``dAn = gbar @ Bᵀ [+ gbar2 @ B2ᵀ]``,
-  where ``gbar`` is the forward epilogue transposed and run as a prologue on
-  each g tile (:meth:`Epilogue.transpose_tile`, from the forward's saved
-  preacts); with the rmsnorm prologue, a row pass in the same launch applies
-  :meth:`Prologue.transpose` and writes one dgamma partial row per 32-row
-  block, summed here.
-* **dB** (``csrc/gemm_bwd_db.cu``): ``dB [, dB2] = Anᵀ @ gbar [, gbar2]``,
-  the norm recomputed on the A tiles with the forward's rounding point, both
-  outputs of the SwiGLU up-projection from one launch, the dbias column sum
-  folded into the store.
+* **The operand pass** (``csrc/gemm_bwd_g.cu``), bound by bytes: the
+  forward epilogue transposed (:meth:`Epilogue.transpose_tile`, from the
+  forward's saved preacts) once per element of g, written as ``gbar`` (M,
+  N') in bf16 (N' = 2N for the gated chain: g_acc | g_acc2 side by side)
+  and as its transpose ``gbar_t`` (N', M); A transposed, ``a_t`` (K, M),
+  normalised first with the forward's rounding point under the rmsnorm
+  prologue; for the bias chains fp32 dbias partials per 64-row block,
+  summed here.
+* **dA** (``csrc/gemm_bwd_da.cu``): ``dAn = gbar @ [B | B2]ᵀ`` on the
+  Hopper mainloop (``csrc/gemm_sm90.cuh``); with the rmsnorm prologue, a
+  row pass in the same launch applies :meth:`Prologue.transpose` and writes
+  one dgamma partial row per 32-row block, summed here.
+* **dB** (``csrc/gemm_bwd_db.cu``): ``[dB | dB2] = Anᵀ @ [gbar | gbar2]``
+  on the same mainloop, read from ``a_t`` and ``gbar_t``, both outputs
+  from one launch.
 
 dresidual is g itself; the scale and the rope tables take no gradient. A
-CPU tensor runs
-the kernels' plain versions (:func:`gemm_bwd_da_ref`,
-:func:`gemm_bwd_db_ref`: the same rounding points, contractions in fp32); a
-CUDA tensor launches the kernels or raises. The chains are those
-``ops.check_chain`` accepts.
+CPU tensor runs the plain versions (:func:`gemm_bwd_da_ref`,
+:func:`gemm_bwd_db_ref`: the same rounding points, contractions in fp32;
+:func:`gemm_bwd_g_ref` is the operand pass's); a CUDA tensor launches the
+kernels or raises. The chains are those ``ops.check_chain`` accepts. The
+mainloop reads its operands through TMA maps, so each one is checked by
+:func:`check_tma_operand` before any launch; the transposed operands' rows
+are padded to a multiple of 8 elements of M (:func:`transposed_stride`).
 """
 from __future__ import annotations
 
@@ -30,15 +37,90 @@ from .ops import chain_flags, kernel_saves, require
 from .prologue import Prologue
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+G_KERNEL = CudaKernel(
+    "gemm_bwd_g", "gemm_bwd_g.cu", "gemm_bwd_g_launch",
+    [_P] * 12 + [_F] + [_I] * 6 + [_P])
 DA_KERNEL = CudaKernel(
     "gemm_bwd_da", "gemm_bwd_da.cu", "gemm_bwd_da_launch",
-    [_P] * 13 + [_F] + [_I] * 5 + [_P])
+    [_P] * 9 + [_I] * 5 + [_P])
 DB_KERNEL = CudaKernel(
     "gemm_bwd_db", "gemm_bwd_db.cu", "gemm_bwd_db_launch",
-    [_P] * 11 + [_F] + [_I] * 5 + [_P])
+    [_P] * 4 + [_I] * 5 + [_P])
 
 # rows per dgamma partial of the dA launch (NR_ROWS in csrc/gemm_bwd_da.cu)
 ROWS_PER_PARTIAL = 32
+# rows per dbias partial of the operand pass (TR in csrc/gemm_bwd_g.cu)
+ROWS_PER_BIAS_PARTIAL = 64
+# the mainloop's tile widths (csrc/gemm_sm90.cuh)
+TILE_WIDTHS = (64, 128, 256)
+# its rows per tile (BM), and the relative cost of a column of a narrower
+# tile (more shared-memory reads per product; chip_smoke.py phase 3 times
+# every width at the training shapes against the pick)
+TILE_ROWS = 128
+_COLUMN_COST = {256: 1.0, 128: 1.15, 64: 1.5}
+
+
+def transposed_stride(m: int) -> int:
+    """Row stride, in elements, of the operand pass's transposed outputs
+    (·, M): M rounded up to 8, so every row starts 16-byte aligned."""
+    return -(-m // 8) * 8
+
+
+def check_tma_operand(t, name: str, col0: int = 0) -> int:
+    """The address of column ``col0`` of a 2-D tensor that a TMA map will
+    read row by row, after checking that the tensor is contiguous, that
+    address 16-byte aligned and the row stride a multiple of 16 bytes
+    (the TMA's rules); raises ValueError otherwise."""
+    if t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"gemm_fused_bwd kernel: TMA operand {name} must be "
+                         f"a contiguous 2-D tensor, got shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}")
+    addr = t.data_ptr() + col0 * t.element_size()
+    if addr % 16:
+        raise ValueError(f"gemm_fused_bwd kernel: TMA operand {name} starts "
+                         f"at an address that is not 16-byte aligned")
+    if (t.stride(0) * t.element_size()) % 16:
+        raise ValueError(f"gemm_fused_bwd kernel: TMA operand {name} has a "
+                         f"row stride of {t.stride(0) * t.element_size()} "
+                         "bytes, not a multiple of 16")
+    return addr
+
+
+def pick_tile_n(m: int, n: int, sms: int) -> int:
+    """The mainloop's tile width for an (m, n) output on ``sms`` SMs: the
+    fewest rounds of tiles over the SMs, weighed by the width (a round of
+    BN-wide tiles takes about BN) and the dearer columns of narrow tiles.
+    v's dB (2048 x 512: 64 tiles of 128 x 128 for 132 SMs) takes 64."""
+    tiles_m = -(-m // TILE_ROWS)
+
+    def cost(w):
+        rounds = -(-tiles_m * -(-n // w) // sms)
+        return rounds * w * _COLUMN_COST[w]
+
+    return min(sorted(TILE_WIDTHS, reverse=True), key=cost)
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device) -> int:
+    if device.index not in _SM_COUNT:
+        _SM_COUNT[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device.index]
+
+
+def check_shapes(epilogue: Epilogue, n: int, k: int) -> None:
+    """Raise ValueError on shapes the kernels do not take: N and K
+    multiples of 8; a rope head_dim a multiple of 16 dividing N."""
+    if n % 8 or k % 8:
+        raise ValueError(f"gemm_fused_bwd kernel: N ({n}) and K ({k}) must "
+                         "be multiples of 8")
+    if epilogue.rope:
+        hd = epilogue.head_dim
+        if hd % 16 or n % hd:
+            raise ValueError(f"gemm_fused_bwd kernel: rope head_dim {hd} "
+                             f"must be a multiple of 16 dividing N ({n})")
 
 
 def _scale_value(epilogue: Epilogue, scale) -> float:
@@ -62,6 +144,40 @@ def g_streams_ref(epilogue: Epilogue, g, preacts=(), *, bias=None,
     streams = epilogue.transpose_tile(g.to(f32), p[0], p[1], **kw)
     return {k: v if k == "g_bias" else v.to(g.dtype).to(f32)
             for k, v in streams.items()}
+
+
+def _normed_a(a, prologue: Prologue, gamma, rstd):
+    """A in fp32 as the forward's GEMM reads it: with a norm prologue,
+    normalised in fp32 (from ``rstd`` when given, else recomputed) and
+    rounded to A's type."""
+    f32 = torch.float32
+    an = a.to(f32)
+    if not prologue.is_identity:
+        kw = {"gamma": gamma.to(f32).reshape(1, -1)}
+        if rstd is not None:
+            kw["rstd"] = rstd.to(f32).reshape(-1, 1)
+        an = prologue.apply(an, **kw).to(a.dtype).to(f32)
+    return an
+
+
+def gemm_bwd_g_ref(a, g, *, epilogue: Epilogue, prologue: Prologue,
+                   bias=None, scale=None, sin=None, cos=None, gamma=None,
+                   rstd=None, preacts=()) -> dict:
+    """Plain version of the operand pass, in fp32 holding the kernel's
+    bf16 values: 'gbar' (M, N'), 'gbar_t' (N', M), 'a_t' (K, M) and
+    'dbias_part' (ceil(M / 64), N), the g_bias sum of each 64-row block,
+    or None without a bias."""
+    st = g_streams_ref(epilogue, g, preacts, bias=bias, scale=scale,
+                       sin=sin, cos=cos)
+    gbar = (torch.cat([st["g_acc"], st["g_acc2"]], dim=1) if epilogue.gate
+            else st["g_acc"])
+    part = None
+    if epilogue.bias:
+        part = torch.stack([blk.sum(dim=0) for blk in
+                            st["g_bias"].split(ROWS_PER_BIAS_PARTIAL)])
+    return {"gbar": gbar, "gbar_t": gbar.T.contiguous(),
+            "a_t": _normed_a(a, prologue, gamma, rstd).T.contiguous(),
+            "dbias_part": part}
 
 
 def gemm_bwd_da_ref(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
@@ -88,15 +204,9 @@ def gemm_bwd_db_ref(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
     """Plain version of the dB launch: (db, db2 or None, dbias (N,) fp32 or
     None); A is normalised with the forward's rounding point, from ``rstd``
     when given (else recomputed)."""
-    f32 = torch.float32
     st = g_streams_ref(epilogue, g, preacts, bias=bias, scale=scale,
                        sin=sin, cos=cos)
-    an = a.to(f32)
-    if not prologue.is_identity:
-        kw = {"gamma": gamma.to(f32).reshape(1, -1)}
-        if rstd is not None:
-            kw["rstd"] = rstd.to(f32).reshape(-1, 1)
-        an = prologue.apply(an, **kw).to(a.dtype).to(f32)
+    an = _normed_a(a, prologue, gamma, rstd)
     db = (an.T @ st["g_acc"]).to(b.dtype)
     db2 = (an.T @ st["g_acc2"]).to(b2.dtype) if epilogue.gate else None
     dbias = st["g_bias"].sum(dim=0) if epilogue.bias else None
@@ -117,8 +227,11 @@ def gemm_fused_bwd(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
         da, dgamma = gemm_bwd_da_ref(a, b, g, **kw)
         db, db2, dbias = gemm_bwd_db_ref(a, b, g, rstd=rstd, **kw)
     elif a.device.type == "cuda":
-        da, dgamma = _launch_da(a, b, g, rstd=rstd, **kw)
-        db, db2, dbias = _launch_db(a, b, g, rstd=rstd, **kw)
+        run = BwdLaunch(a, b, g, rstd=rstd, **kw)
+        run.operand_pass()
+        da, dgamma = run.da()
+        db, db2 = run.db()
+        dbias = run.dbias()
     else:
         raise ValueError(f"gemm_fused_bwd: unsupported device {a.device}")
     grads = {"residual": g}
@@ -135,90 +248,125 @@ def gemm_fused_bwd(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
 # Launches
 # ---------------------------------------------------------------------------
 
-def _g_pointers(a, g, epilogue, preacts, sin, cos) -> tuple:
-    """Checked pointers of the g-side operands: (g, preact, preact2, sin,
-    cos), None where the chain has none."""
-    m, n = g.shape
-    dev, bf16 = a.device, torch.bfloat16
-    if n % 8 or a.shape[1] % 8:
-        raise ValueError(f"gemm_fused_bwd kernel: N ({n}) and K "
-                         f"({a.shape[1]}) must be multiples of 8")
-    if len(preacts) != kernel_saves(epilogue):
-        raise ValueError(f"gemm_fused_bwd kernel: chain "
-                         f"{epilogue.describe()!r} needs "
-                         f"{kernel_saves(epilogue)} saved preacts, got "
-                         f"{len(preacts)}")
-    ptrs = [require(g, "g", (m, n), bf16, dev)]
-    for i in range(2):
-        ptrs.append(require(preacts[i], f"preact{i + 1}", (m, n), bf16, dev)
-                    if i < len(preacts) else None)
-    if epilogue.rope:
-        hd = epilogue.head_dim
-        if hd % 16 or n % hd:
-            raise ValueError(f"gemm_fused_bwd kernel: rope head_dim {hd} "
-                             f"must be a multiple of 16 dividing N ({n})")
-        ptrs.append(require(sin, "sin", (m, hd), torch.float32, dev))
-        ptrs.append(require(cos, "cos", (m, hd), torch.float32, dev))
-    else:
-        ptrs += [None, None]
-    return tuple(ptrs)
+class BwdLaunch:
+    """The three launches of one ``gemm_fused_bwd`` on the card. The
+    constructor checks every operand (the TMA operands of both GEMMs
+    included) and allocates the operand pass's buffers and the outputs, so
+    nothing is launched for a call the kernels would refuse; the methods
+    launch the operand pass, dA (``passes``: 1 the GEMM, 2 the norm row
+    pass, 3 both) and dB, in that order. ``tile_n`` fixes the mainloop's
+    tile width for both products (0: :func:`pick_tile_n` for each)."""
 
+    def __init__(self, a, b, g, *, epilogue, prologue, b2=None, bias=None,
+                 scale=None, sin=None, cos=None, gamma=None, rstd=None,
+                 preacts=(), tile_n=0):
+        del bias   # no chain the kernels take reads it in the transpose
+        m, k = a.shape
+        n = b.shape[1]
+        dev, bf16, f32 = a.device, torch.bfloat16, torch.float32
+        check_shapes(epilogue, n, k)
+        if len(preacts) != kernel_saves(epilogue):
+            raise ValueError(f"gemm_fused_bwd kernel: chain "
+                             f"{epilogue.describe()!r} needs "
+                             f"{kernel_saves(epilogue)} saved preacts, got "
+                             f"{len(preacts)}")
+        if tile_n not in (0, *TILE_WIDTHS):
+            raise ValueError(f"gemm_fused_bwd kernel: tile_n {tile_n} not in "
+                             f"{(0, *TILE_WIDTHS)}")
+        self.m, self.n, self.k = m, n, k
+        self.epilogue, self.device = epilogue, dev
+        self.norm = not prologue.is_identity
+        self.scale = _scale_value(epilogue, scale)
+        self.g_side = [require(g, "g", (m, n), bf16, dev)]
+        for i in range(2):
+            self.g_side.append(
+                require(preacts[i], f"preact{i + 1}", (m, n), bf16, dev)
+                if i < len(preacts) else None)
+        if epilogue.rope:
+            hd = epilogue.head_dim
+            self.g_side += [require(sin, "sin", (m, hd), f32, dev),
+                            require(cos, "cos", (m, hd), f32, dev)]
+        else:
+            self.g_side += [None, None]
+        self.a = require(a, "a", (m, k), bf16, dev)
+        self.gamma = self.rstd = None
+        if self.norm:
+            self.gamma = require(gamma, "gamma", (k,), bf16, dev)
+            self.rstd = require(rstd, "rstd", (m,), f32, dev)
+        self.b = require(b, "b", (k, n), bf16, dev)
+        self.b2 = (require(b2, "b2", (k, n), bf16, dev) if epilogue.gate
+                   else None)
 
-def _launch_da(a, b, g, *, epilogue, prologue, b2, bias, scale, sin, cos,
-               gamma, rstd, preacts):
-    del bias   # no chain the kernel takes reads it in the transpose
-    m, k = a.shape
-    n = b.shape[1]
-    dev, bf16 = a.device, torch.bfloat16
-    gp = _g_pointers(a, g, epilogue, preacts, sin, cos)
-    bp = require(b, "b", (k, n), bf16, dev)
-    b2p = require(b2, "b2", (k, n), bf16, dev) if epilogue.gate else None
-    da = torch.empty((m, k), dtype=bf16, device=dev)
-    dan = dgamma_part = None
-    ap = gammap = rstdp = None
-    if not prologue.is_identity:
-        ap = require(a, "a", (m, k), bf16, dev)
-        gammap = require(gamma, "gamma", (k,), bf16, dev)
-        rstdp = require(rstd, "rstd", (m,), torch.float32, dev)
-        dan = torch.empty((m, k), dtype=torch.float32, device=dev)
-        dgamma_part = torch.empty(
-            (-(-m // ROWS_PER_PARTIAL), k), dtype=torch.float32, device=dev)
-    fn = DA_KERNEL.fn()
-    stream = DA_KERNEL.stream(dev)
-    DA_KERNEL.launches += 1
-    code = fn(*gp, bp, b2p, ap, gammap, rstdp,
-              None if dan is None else dan.data_ptr(), da.data_ptr(),
-              None if dgamma_part is None else dgamma_part.data_ptr(),
-              _scale_value(epilogue, scale), m, n, k, chain_flags(epilogue),
-              epilogue.head_dim, stream)
-    DA_KERNEL.check(code)
-    return da, None if dgamma_part is None else dgamma_part.sum(dim=0)
+        n2 = 2 * n if epilogue.gate else n
+        # dA's output is (M, K), dB's (K, N')
+        self.tile_da = tile_n or pick_tile_n(m, k, _sm_count(dev))
+        self.tile_db = tile_n or pick_tile_n(k, n2, _sm_count(dev))
+        self.ld_t = transposed_stride(m)
+        self.gbar = torch.empty((m, n2), dtype=bf16, device=dev)
+        self.gbar_t = torch.empty((n2, self.ld_t), dtype=bf16, device=dev)
+        self.a_t = torch.empty((k, self.ld_t), dtype=bf16, device=dev)
+        self.dbias_part = (torch.empty((-(-m // ROWS_PER_BIAS_PARTIAL), n),
+                                       dtype=f32, device=dev)
+                           if epilogue.bias else None)
+        self.da_out = torch.empty((m, k), dtype=bf16, device=dev)
+        self.dan = self.dgamma_part = None
+        if self.norm:
+            self.dan = torch.empty((m, k), dtype=f32, device=dev)
+            self.dgamma_part = torch.empty(
+                (-(-m // ROWS_PER_PARTIAL), k), dtype=f32, device=dev)
+        self.db_out = torch.empty((k, n), dtype=bf16, device=dev)
+        self.db2_out = (torch.empty((k, n), dtype=bf16, device=dev)
+                        if epilogue.gate else None)
+        # the mainloop's operands, checked before any launch
+        tma = [(self.gbar, "gbar", 0), (b, "b", 0), (self.gbar_t, "gbar_t", 0),
+               (self.a_t, "a_t", 0)]
+        if epilogue.gate:
+            tma += [(self.gbar, "gbar2", n), (b2, "b2", 0)]
+        for t, name, col0 in tma:
+            check_tma_operand(t, name, col0)
 
+    @staticmethod
+    def _ptr(t):
+        return None if t is None else t.data_ptr()
 
-def _launch_db(a, b, g, *, epilogue, prologue, b2, bias, scale, sin, cos,
-               gamma, rstd, preacts):
-    del bias
-    m, k = a.shape
-    n = b.shape[1]
-    dev, bf16 = a.device, torch.bfloat16
-    gp = _g_pointers(a, g, epilogue, preacts, sin, cos)
-    ap = require(a, "a", (m, k), bf16, dev)
-    gammap = rstdp = None
-    if not prologue.is_identity:
-        gammap = require(gamma, "gamma", (k,), bf16, dev)
-        rstdp = require(rstd, "rstd", (m,), torch.float32, dev)
-    db = torch.empty((k, n), dtype=bf16, device=dev)
-    db2 = (torch.empty((k, n), dtype=bf16, device=dev)
-           if epilogue.gate else None)
-    dbias = (torch.empty((n,), dtype=torch.float32, device=dev)
-             if epilogue.bias else None)
-    fn = DB_KERNEL.fn()
-    stream = DB_KERNEL.stream(dev)
-    DB_KERNEL.launches += 1
-    code = fn(*gp, ap, gammap, rstdp, db.data_ptr(),
-              None if db2 is None else db2.data_ptr(),
-              None if dbias is None else dbias.data_ptr(),
-              _scale_value(epilogue, scale), m, n, k, chain_flags(epilogue),
-              epilogue.head_dim, stream)
-    DB_KERNEL.check(code)
-    return db, db2, dbias
+    def operand_pass(self) -> None:
+        fn = G_KERNEL.fn()
+        stream = G_KERNEL.stream(self.device)
+        G_KERNEL.launches += 1
+        code = fn(*self.g_side, self.a, self.gamma, self.rstd,
+                  self.gbar.data_ptr(), self.gbar_t.data_ptr(),
+                  self.a_t.data_ptr(), self._ptr(self.dbias_part),
+                  self.scale, self.m, self.n, self.k, self.ld_t,
+                  chain_flags(self.epilogue), self.epilogue.head_dim, stream)
+        G_KERNEL.check(code)
+
+    def da(self, passes: int = 3) -> tuple:
+        """(da (M, K) bf16, dgamma (K,) fp32 or None)."""
+        fn = DA_KERNEL.fn()
+        stream = DA_KERNEL.stream(self.device)
+        DA_KERNEL.launches += 1
+        code = fn(self.gbar.data_ptr(), self.b, self.b2,
+                  self.a if self.norm else None, self.gamma, self.rstd,
+                  self._ptr(self.dan), self.da_out.data_ptr(),
+                  self._ptr(self.dgamma_part), self.m, self.n, self.k,
+                  self.tile_da, passes, stream)
+        DA_KERNEL.check(code)
+        dgamma = (None if self.dgamma_part is None
+                  else self.dgamma_part.sum(dim=0))
+        return self.da_out, dgamma
+
+    def db(self) -> tuple:
+        """(db (K, N) bf16, db2 (K, N) bf16 or None)."""
+        fn = DB_KERNEL.fn()
+        stream = DB_KERNEL.stream(self.device)
+        DB_KERNEL.launches += 1
+        code = fn(self.a_t.data_ptr(), self.gbar_t.data_ptr(),
+                  self.db_out.data_ptr(), self._ptr(self.db2_out), self.m,
+                  self.ld_t, self.n, self.k, self.tile_db, stream)
+        DB_KERNEL.check(code)
+        return self.db_out, self.db2_out
+
+    def dbias(self):
+        """dbias (N,) fp32 from the operand pass's partials, or None."""
+        return (None if self.dbias_part is None
+                else self.dbias_part.sum(dim=0))

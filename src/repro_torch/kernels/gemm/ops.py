@@ -246,7 +246,7 @@ def _reference_vjp(spec, operands, need, g):
 
 def chain_flags(epilogue: Epilogue) -> int:
     """The chain as the C entry points' bit flags (also those of the
-    backward kernels, csrc/gemm_bwd_g.cuh)."""
+    backward operand pass, csrc/gemm_bwd_g.cu)."""
     return ((_EP_SCALE if epilogue.scale else 0)
             | (_EP_BIAS if epilogue.bias else 0)
             | (_EP_ROPE if epilogue.rope else 0)

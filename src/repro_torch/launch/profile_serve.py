@@ -36,6 +36,9 @@ from repro_torch.serve import PagedEngine, Request
 FAMILIES = (
     ("gemm_fused_kernel", "gemm_fused"),
     ("rms_stats_kernel", "gemm_fused"),
+    # the GEMM backward: operand pass, dA (GEMM and norm row pass), dB;
+    # listed above the catch-all "gemm" below
+    ("gemm_bwd_g_", "gemm_bwd_g"),
     ("gemm_bwd_da_kernel", "gemm_bwd_da"),
     ("rms_transpose_kernel", "gemm_bwd_da"),
     ("gemm_bwd_db_kernel", "gemm_bwd_db"),

@@ -46,10 +46,10 @@ def test_argtypes_match_the_c_entry_point(kernel):
 
 def test_every_source_is_a_kernel():
     """Each csrc/*.cu is the source of one kernel of KERNELS, so build_all
-    and the launch counters cover all nine."""
+    and the launch counters cover all ten."""
     assert sorted(k.source.name for k in kernels.KERNELS) \
         == sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert len(kernels.KERNELS) == 9
+    assert len(kernels.KERNELS) == 10
 
 
 @pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
@@ -128,6 +128,26 @@ def test_dgamma_partial_rows_match_the_kernel():
     assert rows == gemm_backward.ROWS_PER_PARTIAL
 
 
+def test_dbias_partial_rows_match_the_kernel():
+    """The wrapper sizes the operand pass's dbias partials by its row
+    block."""
+    source = (_build.CSRC / "gemm_bwd_g.cu").read_text()
+    rows = int(re.search(r"constexpr int TR = (\d+);", source).group(1))
+    assert rows == gemm_backward.ROWS_PER_BIAS_PARTIAL
+
+
+def test_mainloop_tile_widths_match_the_kernels():
+    """The tile widths the wrapper picks from are the ones the dA and dB
+    launches dispatch on, and its tile rows the mainloop's."""
+    for name in ("gemm_bwd_da.cu", "gemm_bwd_db.cu"):
+        source = (_build.CSRC / name).read_text()
+        widths = sorted(int(w) for w in re.findall(r"case (\d+):", source))
+        assert tuple(widths) == gemm_backward.TILE_WIDTHS, name
+    header = (_build.CSRC / "gemm_sm90.cuh").read_text()
+    rows = int(re.search(r"constexpr int BM = (\d+);", header).group(1))
+    assert rows == gemm_backward.TILE_ROWS
+
+
 def test_profile_helpers_sort_kernels_and_merge_intervals():
     """The serving profile files each device kernel under its family and
     counts overlapping device intervals once."""
@@ -139,10 +159,18 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
     assert ps.family("flash_decode_kernel<64>") == "flash_decode"
     assert ps.family("void (anonymous namespace)::flash_decode_paged_kernel"
                      "<64>(PagedArgs)") == "flash_decode_paged"
-    assert ps.family("void (anonymous namespace)::gemm_bwd_da_kernel<2>"
-                     "(DaArgs)") == "gemm_bwd_da"
+    assert ps.family("void (anonymous namespace)::gemm_bwd_g_kernel<2, false>"
+                     "((anonymous namespace)::GSrc, __nv_bfloat16*, "
+                     "__nv_bfloat16*, float*, int)") == "gemm_bwd_g"
+    assert ps.family("(anonymous namespace)::gemm_bwd_g_a_kernel("
+                     "__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                     "float const*, __nv_bfloat16*, int, int, int)") \
+        == "gemm_bwd_g"
+    assert ps.family("void (anonymous namespace)::gemm_bwd_da_kernel<256, "
+                     "true>(sm90::Params)") == "gemm_bwd_da"
     assert ps.family("rms_transpose_kernel") == "gemm_bwd_da"
-    assert ps.family("gemm_bwd_db_kernel<0>") == "gemm_bwd_db"
+    assert ps.family("void (anonymous namespace)::gemm_bwd_db_kernel<64>"
+                     "(sm90::Params)") == "gemm_bwd_db"
     assert ps.family("flash_bwd_dq_kernel<64>") == "flash_attention_bwd"
     assert ps.family("flash_bwd_dkv_kernel<128>") == "flash_attention_bwd"
     assert ps.family("void (anonymous namespace)::rope_kernel<__nv_bfloat16>"

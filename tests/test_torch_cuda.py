@@ -5,7 +5,9 @@ windows, soft caps, ring wrap-around, empty rows and a ragged last split;
 for the paged kernel, page sizes 16-128, null-page entries, a ragged row
 tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
 over the gathered pages; for the backward kernels, every chain the GEMM
-takes at ragged M, the forward's saved preacts against the rounded
+takes at ragged M, N and K, each tile width of the GEMM backward's
+mainloop, its operand pass against the plain version, the llama-1b
+training shapes, the forward's saved preacts against the rounded
 accumulator, the flash backward at head_dim 128 with windows, soft caps and
 strided views, and autograd through both ops.
 
@@ -28,8 +30,10 @@ from repro_torch.kernels.attention import (attention, combine_splits,
                                            flash_decode, flash_decode_paged)
 from repro_torch.serve.kv_cache import gather_pages
 from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_bwd_da_ref,
-                                      gemm_bwd_db_ref, gemm_fused,
+                                      gemm_bwd_db_ref, gemm_bwd_g_ref,
+                                      gemm_fused,
                                       gemm_fused_bwd, gemm_fused_ref)
+from repro_torch.kernels.gemm import backward as gemm_backward
 from repro_torch.kernels.gemm.ops import _forward as gemm_forward
 
 pytestmark = pytest.mark.cuda
@@ -283,6 +287,7 @@ def test_gemm_bwd_kernels_match_plain(dev, chain, m, k, n):
     da, db, grads = gemm_fused_bwd(a, b, g, rstd=rstd, **ops)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
+    assert after["gemm_bwd_g"] == before["gemm_bwd_g"] + 1
     assert after["gemm_bwd_da"] == before["gemm_bwd_da"] + 1
     assert after["gemm_bwd_db"] == before["gemm_bwd_db"] + 1
     want_da, want_dgamma = gemm_bwd_da_ref(a, b, g, **ops)
@@ -296,6 +301,85 @@ def test_gemm_bwd_kernels_match_plain(dev, chain, m, k, n):
     if pro.norm != "none":
         _close(grads["gamma"], want_dgamma, 1e-3, 1e-3)
     assert torch.equal(grads["residual"], g)
+
+
+def _bwd_ops(dev, chain, m, k, n):
+    rng, a, b, kw = _gemm_operands(dev, chain, m, k, n)
+    _, rstd, preacts = _saved(a, b, kw)
+    ops = dict(epilogue=kw["epilogue"],
+               prologue=kw.get("prologue", Prologue()), b2=kw.get("b2"),
+               bias=kw.get("bias"), scale=kw.get("scale"), sin=kw.get("sin"),
+               cos=kw.get("cos"), gamma=kw.get("gamma"), preacts=preacts)
+    return a, b, _rand(rng, (m, n), dev), rstd, ops
+
+
+def _check_bwd(run, a, b, g, rstd, ops):
+    """One BwdLaunch's outputs against the plain versions, at the
+    tolerances of test_gemm_bwd_kernels_match_plain."""
+    run.operand_pass()
+    da, dgamma = run.da()
+    db, db2 = run.db()
+    dbias = run.dbias()
+    torch.cuda.synchronize()
+    want_da, want_dgamma = gemm_bwd_da_ref(a, b, g, **ops)
+    want_db, want_db2, want_dbias = gemm_bwd_db_ref(a, b, g, rstd=rstd, **ops)
+    _close(da, want_da, 2 ** -6, 2e-2)
+    _close(db, want_db, 2 ** -6, 2e-2)
+    if db2 is not None:
+        _close(db2, want_db2, 2 ** -6, 2e-2)
+    if dbias is not None:
+        _close(dbias, want_dbias, 1e-4, 1e-4)
+    if dgamma is not None:
+        _close(dgamma, want_dgamma, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("tile_n", [64, 128, 256])
+@pytest.mark.parametrize("m,k", [(200, 264), (4, 136)])
+@pytest.mark.parametrize("chain", sorted(BWD_CHAINS))
+def test_gemm_bwd_every_tile_width(dev, chain, m, k, tile_n):
+    """The mainloop at each tile width, with M, N and K across its tile
+    and stage edges (N = 136 where the chain allows, else 384; K = 264
+    crosses the 256-wide tile and the 64-deep stage; M = 4 and 200 leave
+    most of a 128-row tile empty), against the plain versions."""
+    n = 384 if BWD_CHAINS[chain][0].get("rope") else 136
+    a, b, g, rstd, ops = _bwd_ops(dev, chain, m, k, n)
+    run = gemm_backward.BwdLaunch(a, b, g, rstd=rstd, tile_n=tile_n, **ops)
+    _check_bwd(run, a, b, g, rstd, ops)
+
+
+@pytest.mark.parametrize("chain", sorted(BWD_CHAINS))
+def test_gemm_bwd_operand_pass_matches_plain(dev, chain):
+    """The operand pass against gemm_bwd_g_ref: gbar within one bf16 ulp
+    (the same fp32 value, rounded once; exp and the rope products may
+    differ in the last fp32 bit), gbar_t bit for bit gbar's transpose, a_t
+    bit for bit the plain normalised A (the same fp32 products), the dbias
+    partials within 1e-4."""
+    m, k, n = 200, 264, 384
+    a, b, g, rstd, ops = _bwd_ops(dev, chain, m, k, n)
+    run = gemm_backward.BwdLaunch(a, b, g, rstd=rstd, **ops)
+    run.operand_pass()
+    torch.cuda.synchronize()
+    want = gemm_bwd_g_ref(a, g, rstd=rstd,
+                          **{x: v for x, v in ops.items() if x != "b2"})
+    _close(run.gbar, want["gbar"], 2 ** -7, 1e-6)
+    assert torch.equal(run.gbar_t[:, :m], run.gbar.T)
+    assert torch.equal(run.a_t[:, :m].float(), want["a_t"])
+    if want["dbias_part"] is not None:
+        _close(run.dbias_part, want["dbias_part"], 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("case", ["qk_rope", "v", "swiglu_up", "down"])
+def test_gemm_bwd_at_the_training_shapes(dev, case):
+    """The whole backward at llama-1b's training shapes (M = 4 x 1024
+    tokens, d_model 2048, d_ff 8192, q|k 2560 wide, v 512), where the tile
+    width is picked per launch, against the plain versions."""
+    chain, k, n = {"qk_rope": ("rope_bias", 2048, 2560),
+                   "v": ("identity_norm", 2048, 512),
+                   "swiglu_up": ("silu_gate_norm", 2048, 8192),
+                   "down": ("residual_scale", 8192, 2048)}[case]
+    a, b, g, rstd, ops = _bwd_ops(dev, chain, 4096, k, n)
+    run = gemm_backward.BwdLaunch(a, b, g, rstd=rstd, **ops)
+    _check_bwd(run, a, b, g, rstd, ops)
 
 
 @pytest.mark.parametrize("norm", [True, False])
@@ -333,9 +417,10 @@ def test_gemm_autograd_launches_the_backward_kernels(dev):
         gemm_fused(leaves[0], leaves[1], bwd_mode=mode, **kw2).backward(g)
         torch.cuda.synchronize()
         after = kernels.launch_counts()
-        n_bwd = (after["gemm_bwd_da"] - before["gemm_bwd_da"],
-                 after["gemm_bwd_db"] - before["gemm_bwd_db"])
-        assert n_bwd == ((1, 1) if mode == "kernel" else (0, 0))
+        n_bwd = tuple(after[x] - before[x] for x in ("gemm_bwd_g",
+                                                       "gemm_bwd_da",
+                                                       "gemm_bwd_db"))
+        assert n_bwd == ((1, 1, 1) if mode == "kernel" else (0, 0, 0))
         grads[mode] = [t.grad for t in leaves]
     for k_, r_ in zip(grads["kernel"], grads["reference"]):
         _close(k_, r_, 5e-2, 5e-2)
