@@ -13,6 +13,9 @@ Phases, each of which raises on failure (exit code non-zero):
    llama-1b main-path shapes (prefill B 4, S 256, so M = 1024; decode B 4
    over a 296-slot cache; paged decode over 8 slots of an 8-page bucket of
    a 65-page pool, a 128-token chunk at position 192 and a 4-token verify;
+   the forward GEMM's prefill, decode and training (M = 4096) launches,
+   the gated one saving its preacts as autograd does, each also at every
+   tile width and split count against the planner's pick;
    the training backward at B 4, S 1024, so M = 4096: the GEMM backward
    of the four fused GEMMs of a layer as its operand pass, dA (the GEMM
    and the norm row pass also timed apart) and dB, each tile width of the
@@ -31,12 +34,17 @@ Phases, each of which raises on failure (exit code non-zero):
    for bit. No PyTorch call computes paged attention: its yardstick is
    ``F.scaled_dot_product_attention`` over the pre-gathered cache, the
    gather not timed. The GEMM backward's yardstick is ``torch.matmul`` of
-   the bare product (the operand pass has none); with ``--baseline-csrc
-   DIR``, an earlier tree's dA and dB sources in DIR are built and timed
-   in turns with the whole backward (baseline, new, new, baseline). The
-   flash backward's yardstick is ``torch.autograd.grad`` through
-   ``F.scaled_dot_product_attention`` (timed with CUDA events around the
-   call, not from a graph). No PyTorch call computes RoPE (no library
+   the bare product (the operand pass has none). The flash backward's
+   yardstick is ``torch.autograd.grad`` through
+   ``F.scaled_dot_product_attention``, replayed from a CUDA graph like
+   every other yardstick, its grads first held to the plain version (1% in
+   norm; the entries outside the kernel's tolerance counted). With
+   ``--baseline-csrc DIR`` (an earlier tree's csrc: a WMMA forward
+   ``gemm_fused.cu`` whose entry point takes no plan, and dA and dB
+   sources with this tree's entry points), the
+   earlier forward is timed in turns with this one at every forward shape
+   and the earlier dA + dB with this one's (baseline, new, new, baseline).
+   No PyTorch call computes RoPE (no library
    time); the fused norm's yardstick is ``F.layer_norm`` of the summed
    residual, without the dropout, the add and the residual output.
 4. The slice: llama-1b at full width with seeded random weights, 8 requests
@@ -125,9 +133,9 @@ from repro_torch.kernels.attention import (  # noqa: E402
     flash_decode, flash_decode_paged)
 from repro_torch.kernels.attention import backward as attn_bwd  # noqa: E402
 from repro_torch.kernels.gemm import (EPILOGUE_NONE, PROLOGUE_NONE,  # noqa: E402
-                                      Epilogue, Prologue, gemm_fused,
-                                      gemm_fused_ref)
+                                      Epilogue, Prologue, rms_rows_ref)
 from repro_torch.kernels.gemm import backward as gemm_bwd  # noqa: E402
+from repro_torch.kernels.gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.gemm.ops import _forward as gemm_forward  # noqa: E402
 from repro_torch.kernels.fused_norm import (  # noqa: E402
     dropout_keep_mask_ref, dropout_residual_layernorm,
@@ -212,15 +220,17 @@ class Timer:
         self.scrub = torch.empty(128 << 20, dtype=torch.uint8, device=device)
         self.iters, self.warmup = iters, warmup
 
-    def ms(self, fn) -> float:
-        side = torch.cuda.Stream()
+    def ms(self, fn, stream=None) -> float:
+        """``stream``: warm up and capture on it (the stream that autograd
+        runs a recorded graph's backward on), else on a side stream."""
+        side = stream or torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(self.warmup):
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             fn()
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
@@ -232,22 +242,6 @@ class Timer:
             end.record()
         torch.cuda.synchronize()
         del graph
-        return statistics.median(s.elapsed_time(e) for s, e in ev)
-
-    def ms_eager(self, fn) -> float:
-        """The same, with the call enqueued between the events instead of
-        replayed from a graph (for library calls that run autograd)."""
-        for _ in range(self.warmup):
-            fn()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True))
-              for _ in range(self.iters)]
-        for start, end in ev:
-            self.scrub.zero_()
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
@@ -286,7 +280,9 @@ def check_close(name, got, want, rtol, atol_frac):
 def gemm_cases(cfg, dev, gen):
     """One layer's gemm_fused launches: prefill q|k (+rope), v, SwiGLU up and
     down (residual, scale); decode up and down; q|k without rope (rung 2 of
-    the QKV ladder)."""
+    the QKV ladder); and the training forward's four at M = 4 x 1024, the
+    SwiGLU up projection saving its preacts as the autograd forward does.
+    (name, a, b, kwargs, save_preact)."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     nqk = (cfg.num_heads + cfg.num_kv_heads) * hd
     nv = cfg.num_kv_heads * hd
@@ -320,33 +316,160 @@ def gemm_cases(cfg, dev, gen):
          dict(epilogue=res_ep, residual=rnd(BATCH, d), scale=1.0)),
     ]
     # the ladder's rung 2 (phase 7): the same q|k GEMM without the rope store
-    return cases + [("prefill_qk", x_pre, cases[0][2], dict(**rms))]
+    cases.append(("prefill_qk", x_pre, cases[0][2], dict(**rms)))
+    cases = [(*c, False) for c in cases]
+    for name, a, b, kw in train_gemm_cases(cfg, dev, gen)[:4]:
+        cases.append((f"train_{name}", a, b, kw, "b2" in kw))
+    return cases
 
 
-def measure_gemm(cfg, dev, gen, timer):
+def fwd_args(kw):
+    """(epilogue, prologue, the other keyword arguments of ops._launch and
+    ops.forward_ref) of a case's gemm_fused keyword arguments."""
+    return (kw.get("epilogue", EPILOGUE_NONE),
+            kw.get("prologue", PROLOGUE_NONE),
+            dict(b2=kw.get("b2"), bias=None, residual=kw.get("residual"),
+                 scale=kw.get("scale"), sin=kw.get("sin"), cos=kw.get("cos"),
+                 gamma=kw.get("gamma"), out_dtype=torch.bfloat16))
+
+
+def baseline_kernels(csrc: str) -> dict:
+    """An earlier tree's forward (the WMMA ``gemm_fused.cu``, with its own
+    entry point: no row-pass scratch, workspace or plan) and GEMM backward
+    dA and dB (whose entry points are this tree's), built like the port's
+    kernels from the sources in ``csrc`` (their own headers included)."""
+    from repro_torch.kernels._build import CudaKernel, build_all
+
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    root = os.path.abspath(csrc)
+    kerns = {
+        "fwd": CudaKernel("baseline_gemm_fused",
+                          os.path.join(root, "gemm_fused.cu"),
+                          "gemm_fused_launch", [P] * 12 + [Fl, Fl] + [I] * 5
+                          + [P]),
+        "da": CudaKernel("baseline_gemm_bwd_da",
+                         os.path.join(root, "gemm_bwd_da.cu"),
+                         "gemm_bwd_da_launch", gemm_bwd.DA_KERNEL.argtypes),
+        "db": CudaKernel("baseline_gemm_bwd_db",
+                         os.path.join(root, "gemm_bwd_db.cu"),
+                         "gemm_bwd_db_launch", gemm_bwd.DB_KERNEL.argtypes)}
+    build_all(list(kerns.values()))
+    return kerns
+
+
+def baseline_fwd(kern, a, b, kw, save):
+    """A launch of the earlier forward on one case's operands; its launches
+    are not counted."""
+    ep, pro, extra = fwd_args(kw)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    rstd = (torch.empty((m,), dtype=torch.float32, device=a.device)
+            if extra["gamma"] is not None else None)
+    pre = ([torch.empty_like(out) for _ in range(2)] if save
+           else [None, None])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    scale = float(extra["scale"]) if extra["scale"] is not None else 1.0
+
+    def launch():
+        kern.check(kern.fn()(
+            ptr(a), ptr(b), ptr(extra["b2"]), ptr(out), ptr(extra["gamma"]),
+            ptr(rstd), None, ptr(extra["residual"]), ptr(extra["sin"]),
+            ptr(extra["cos"]), ptr(pre[0]), ptr(pre[1]), scale,
+            float(pro.eps or 0.0), m, n, k, gemm_ops.chain_flags(ep),
+            ep.head_dim, torch.cuda.current_stream().cuda_stream))
+        return out
+    return launch
+
+
+def measure_gemm(cfg, dev, gen, timer, old=None):
+    """Each gemm_fused launch of the main paths against its plain version
+    (the output, the gated chain's saved preacts and the row statistics),
+    timed as planned and at every (tile width, split count) the sweep
+    reaches: each width the chain takes, unsplit and split as the planner
+    would split it at that width; with the rmsnorm prologue also without
+    it (the row pass's share). Library yardstick: the bare product(s)
+    in one torch.matmul call (no single PyTorch call computes the fused
+    chain). Bound: the operands read and the outputs (with rstd and the
+    preacts) written once, or 2 M N K operations per product at the bf16
+    peak. With ``old`` (baseline_kernels), the earlier forward in turns."""
     rows = []
-    for name, a, b, kw in gemm_cases(cfg, dev, gen):
-        got = gemm_fused(a, b, **kw)
-        want = gemm_fused_ref(a, b, **kw)
-        torch.cuda.synchronize()
-        err, tol = check_close(f"gemm_fused[{name}]", got, want, 2 ** -6, 2e-2)
+    sms = gemm_ops.sm_count(dev)
+    for name, a, b, kw, save in gemm_cases(cfg, dev, gen):
+        ep, pro, extra = fwd_args(kw)
         m, k = a.shape
         n = b.shape[1]
-        gated = "b2" in kw
-        # library yardstick: the bare product(s) in one torch.matmul call
-        # (no single PyTorch call computes the fused chain)
+        gated = ep.gate
+        hd = ep.head_dim if ep.rope else 0
+
+        def kernel(plan=None):
+            return gemm_ops._launch(a, b, ep, eps=pro.eps, save_preact=save,
+                                    plan=plan, **extra)
+
+        def plain():
+            return gemm_ops.forward_ref(a, b, ep, pro, save_preact=save,
+                                        **extra)
+
+        got, rstd, preacts = kernel()
+        want, _, want_pre = plain()
+        torch.cuda.synchronize()
+        err, tol = check_close(f"gemm_fused[{name}]", got, want, 2 ** -6,
+                               2e-2)
+        for i, (p_, w_) in enumerate(zip(preacts, want_pre)):
+            err = max(err, check_close(f"gemm_fused[{name}].preact{i + 1}",
+                                       p_, w_, 2 ** -6, 2e-2)[0])
+        if rstd is not None:
+            check_close(f"gemm_fused[{name}].rstd", rstd,
+                        rms_rows_ref(a, kw["gamma"], pro.eps)[1], 1e-5, 0.0)
+        del want, want_pre
         b_lib = torch.cat([b, kw["b2"]], dim=1) if gated else b
         flops = 2 * m * n * k * (2 if gated else 1)
         traffic = nbytes(a, b, kw.get("b2"), kw.get("gamma"),
                          kw.get("residual"), kw.get("sin"), kw.get("cos"),
-                         got)
+                         got, rstd, *preacts)
         b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
-        rows.append(dict(
+        plan = gemm_ops.plan_gemm(m, n, k, sms, gate=gated, head_dim=hd)
+        sweep = {}
+        for w in gemm_ops.tile_widths(gated, hd):
+            split = gemm_ops.split_count(
+                gemm_ops.tile_count(m, n, w, gated), k, sms)
+            for sp in sorted({1, split}):
+                sweep[f"{w}x{sp}"] = timer.ms(lambda: kernel((w, sp)))
+        row = dict(
             case=name, shape=[m, k, n], max_abs_err=err, tolerance=tol,
-            ms=timer.ms(lambda: gemm_fused(a, b, **kw)),
-            plain_ms=timer.ms(lambda: gemm_fused_ref(a, b, **kw)),
+            saves_preacts=save, ms=timer.ms(kernel), plain_ms=timer.ms(plain),
             library_ms=timer.ms(lambda: torch.matmul(a, b_lib)),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by, plan=f"{plan[0]}x{plan[1]}",
+            ms_by_plan=sweep)
+        if extra["gamma"] is not None:
+            # the row pass's share: the same product without the prologue
+            no_norm = dict(extra, gamma=None)
+            row["no_prologue_ms"] = timer.ms(lambda: gemm_ops._launch(
+                a, b, ep, eps=None, save_preact=save, **no_norm))
+        us = {p_: round(t * 1e3, 1) for p_, t in sweep.items()}
+        log(f"[kernel] gemm_fused[{name}] by tile width x splits, us: {us}; "
+            f"picked {row['plan']}, fastest {min(sweep, key=sweep.get)}"
+            + (f"; without the prologue {row['no_prologue_ms'] * 1e3:.1f} "
+               f"us against {row['ms'] * 1e3:.1f}"
+               if "no_prologue_ms" in row else ""))
+        if old is not None:
+            old_fn = baseline_fwd(old["fwd"], a, b, kw, save)
+            # the baseline computes the same function
+            check_close(f"baseline gemm_fused[{name}]", old_fn(), got,
+                        2 ** -6, 2e-2)
+            turns = [timer.ms(old_fn), timer.ms(kernel), timer.ms(kernel),
+                     timer.ms(old_fn)]
+            row.update(baseline_turns_ms=turns,   # baseline, new, new, baseline
+                       baseline_ms=(turns[0] + turns[3]) / 2,
+                       new_in_turns_ms=(turns[1] + turns[2]) / 2)
+            log(f"[kernel] gemm_fused[{name}] baseline "
+                f"{row['baseline_ms'] * 1e3:.1f} us against "
+                f"{row['new_in_turns_ms'] * 1e3:.1f} in turns")
+        rows.append(row)
+        del got, rstd, preacts, b_lib
     return rows
 
 
@@ -552,65 +675,7 @@ def train_gemm_cases(cfg, dev, gen):
     return cases + [("qk", x, cases[0][2], dict(**rms))]
 
 
-def baseline_bwd(csrc: str):
-    """The GEMM backward's dA and dB from an earlier tree's sources (the
-    single-launch kernels whose g-tile transform lives in
-    ``gemm_bwd_g.cuh``): a function of one call's operands giving (dA
-    launch, dB launch). Built like the port's kernels; their launches are
-    not counted."""
-    from repro_torch.kernels._build import CudaKernel, build_all
-    from repro_torch.kernels.gemm.ops import chain_flags
-
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    root = os.path.abspath(csrc)
-    da_k = CudaKernel("baseline_gemm_bwd_da",
-                      os.path.join(root, "gemm_bwd_da.cu"),
-                      "gemm_bwd_da_launch", [P] * 13 + [Fl] + [I] * 5 + [P])
-    db_k = CudaKernel("baseline_gemm_bwd_db",
-                      os.path.join(root, "gemm_bwd_db.cu"),
-                      "gemm_bwd_db_launch", [P] * 11 + [Fl] + [I] * 5 + [P])
-    build_all([da_k, db_k])
-
-    def make(a, b, g, rstd, ops):
-        ep, norm = ops["epilogue"], not ops["prologue"].is_identity
-        m, k = a.shape
-        n = b.shape[1]
-        f32 = torch.float32
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        pre = list(ops["preacts"]) + [None, None]
-        g_side = (ptr(g), ptr(pre[0]), ptr(pre[1]), ptr(ops.get("sin")),
-                  ptr(ops.get("cos")))
-        scale = float(ops["scale"]) if ep.scale else 1.0
-        flags, hd = chain_flags(ep), ep.head_dim
-        da = torch.empty((m, k), dtype=a.dtype, device=a.device)
-        dan = (torch.empty((m, k), dtype=f32, device=a.device)
-               if norm else None)
-        part = (torch.empty((-(-m // 32), k), dtype=f32, device=a.device)
-                if norm else None)
-        db = torch.empty((k, n), dtype=a.dtype, device=a.device)
-        db2 = torch.empty_like(db) if ep.gate else None
-        gamma = ptr(ops["gamma"]) if norm else None
-        rs = ptr(rstd) if norm else None
-
-        def da_launch():
-            da_k.check(da_k.fn()(*g_side, ptr(b), ptr(ops.get("b2")), ptr(a),
-                                 gamma, rs, ptr(dan), ptr(da), ptr(part),
-                                 scale, m, n, k, flags, hd,
-                                 torch.cuda.current_stream().cuda_stream))
-
-        def db_launch():
-            db_k.check(db_k.fn()(*g_side, ptr(a), gamma, rs, ptr(db),
-                                 ptr(db2), None, scale, m, n, k, flags, hd,
-                                 torch.cuda.current_stream().cuda_stream))
-
-        return da_launch, db_launch, (da, db)
-    return make
-
-
-def measure_gemm_bwd(cfg, dev, gen, timer, baseline=None):
+def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     """The GEMM backward of each training GEMM, from the forward's saved
     rstd and preacts and a random cotangent, as its three launches: the
     operand pass (``gemm_bwd_g``), dA (the GEMM, and the norm row pass
@@ -622,12 +687,11 @@ def measure_gemm_bwd(cfg, dev, gen, timer, baseline=None):
     chain's two products as one concatenated one). Also the whole backward
     (operand pass + dA + dB through ``gemm_fused_bwd``) against the
     library's two products, bound by the chain's inputs and outputs or both
-    products. With ``baseline`` (an earlier tree's csrc directory), that
-    tree's dA + dB at the same shapes, timed in turns with the whole
-    backward (baseline, new, new, baseline)."""
+    products. With ``old`` (baseline_kernels), the earlier tree's dA + dB
+    on the same operand-pass buffers, which must give this tree's bits, in
+    turns with this tree's dA + dB (baseline, new, new, baseline)."""
     rows = {"gemm_bwd_g": [], "gemm_bwd_da": [], "gemm_bwd_db": []}
     whole = []
-    old = baseline_bwd(baseline) if baseline else None
     for name, a, b, kw in train_gemm_cases(cfg, dev, gen):
         ep = kw.get("epilogue", EPILOGUE_NONE)
         pro = kw.get("prologue", PROLOGUE_NONE)
@@ -745,20 +809,25 @@ def measure_gemm_bwd(cfg, dev, gen, timer, baseline=None):
         w = dict(case=name, shape=shape, ms=timer.ms(new_whole),
                  library_ms=timer.ms(lib_both), bound_ms=b_ms, bound_by=b_by)
         if old is not None:
-            old_da, old_db, old_out = old(a, b, g, rstd, ops)
+            def new_both():
+                run.da()
+                run.db()
 
             def old_both():
-                old_da()
-                old_db()
+                run.da(kernel=old["da"])
+                run.db(kernel=old["db"])
 
+            new_both()
+            mine = [t.clone() for t in (run.da_out, run.db_out)]
             old_both()
             torch.cuda.synchronize()
-            # the baseline computes the same function
-            for what, got, want in zip(("da", "db"), old_out, (da, db)):
-                check_close(f"baseline gemm_bwd[{name}].{what}", got, want,
-                            *tol)
-            turns = [timer.ms(old_both), timer.ms(new_whole),
-                     timer.ms(new_whole), timer.ms(old_both)]
+            if not all(torch.equal(x, y) for x, y in
+                       zip(mine, (run.da_out, run.db_out))):
+                raise AssertionError(f"gemm_bwd[{name}]: dA or dB differs "
+                                     "from the baseline's bits")
+            del mine
+            turns = [timer.ms(old_both), timer.ms(new_both),
+                     timer.ms(new_both), timer.ms(old_both)]
             w["baseline_turns_ms"] = turns     # baseline, new, new, baseline
             w["baseline_ms"] = (turns[0] + turns[3]) / 2
             w["new_in_turns_ms"] = (turns[1] + turns[2]) / 2
@@ -787,7 +856,10 @@ def measure_flash_bwd(cfg, dev, gen, timer):
     pass four, so each pass is bound by its own share and the two-pass
     design recomputes s and dp. Each pass's time includes the delta
     preprocess. Yardstick: torch.autograd.grad through
-    F.scaled_dot_product_attention, the forward not timed."""
+    F.scaled_dot_product_attention, the forward not timed, captured in a
+    CUDA graph on the stream that ran the forward (autograd runs each
+    backward op on its forward's stream) and replayed like every other
+    call; its dq, dk, dv are held to the plain version first."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bsz, seq = TRAIN_BATCH, TRAIN_SEQ
     bf16 = torch.bfloat16
@@ -807,15 +879,51 @@ def measure_flash_bwd(cfg, dev, gen, timer):
         return attn_bwd._launch(*args, causal=True, window=None,
                                 logit_scale=None, softcap=None, passes=passes)
 
+    qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    doc = do.contiguous()
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                 enable_gqa=True)
+
+    def library():
+        return torch.autograd.grad(ref_out, (qc, kc, vc), doc,
+                                   retain_graph=True)
+
+    with torch.cuda.stream(lib_stream):
+        lib = library()
+    torch.cuda.current_stream().wait_stream(lib_stream)
     got = kernel()
     want = flash_attention_bwd_ref(*args, causal=True)
     torch.cuda.synchronize()
     err = 0.0
-    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+    lib_err = {}
+    for name, g_, l_, w_ in zip(("dq", "dk", "dv"), got, lib, want):
         e, tol = check_close(f"flash_attention_bwd[{name}]", g_, w_, 2e-2,
                              2e-2)
         err = max(err, e)
-    del got, want
+        # the yardstick computes the same function. It rounds at other
+        # points than the plain version (which are the kernel's), and on an
+        # H100 a few entries of millions miss the kernel's elementwise
+        # tolerance (dq 1 of 8.4M, dk 1-15 of 2.1M, by up to 0.031), so it
+        # is held to the plain version in norm, 1% of it, and the entries
+        # outside the kernel's tolerance are counted
+        lf, wf = l_.float(), w_.float()
+        if not torch.isfinite(lf).all():
+            raise AssertionError(f"sdpa backward[{name}]: non-finite")
+        diff = lf - wf
+        rel = (diff.norm() / wf.norm()).item()
+        if rel > 1e-2:
+            raise AssertionError(f"sdpa backward[{name}]: {rel:.3g} of the "
+                                 "plain version's norm away")
+        atol = 2e-2 * wf.pow(2).mean().sqrt().item()
+        lib_err[name] = dict(
+            relative_norm_err=rel, max_abs_err=diff.abs().max().item(),
+            outside_kernel_tolerance=int(
+                (diff.abs() > 2e-2 * wf.abs() + atol).sum()))
+        del lf, wf, diff
+    del got, want, lib
     pairs = bsz * h * seq * (seq + 1) // 2
     vecs = nbytes(lse) * 2                      # lse and delta
     dq_b = nbytes(q, k, v, do, q) + vecs        # dq is q's size
@@ -824,17 +932,13 @@ def measure_flash_bwd(cfg, dev, gen, timer):
     dkv_ms, _ = bound(dkv_b, (4 * 2 * pairs * hd, PEAK_BF16))
     b_ms, b_by = bound(nbytes(q, k, v, do, q, k, v) + vecs,
                        (5 * 2 * pairs * hd, PEAK_BF16))
-    qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
-    ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
-                                             enable_gqa=True)
-    doc = do.contiguous()
     return [dict(
         case="train_causal_gqa", shape=[bsz, h, hkv, seq, hd],
         max_abs_err=err, tolerance=tol, ms=timer.ms(kernel),
         plain_ms=timer.ms(lambda: flash_attention_bwd_ref(*args,
                                                           causal=True)),
-        library_ms=timer.ms_eager(lambda: torch.autograd.grad(
-            ref_out, (qc, kc, vc), doc, retain_graph=True)),
+        library_ms=timer.ms(library, stream=lib_stream),
+        library_vs_plain=lib_err,
         bound_ms=b_ms, bound_by=b_by,
         dq_pass=dict(replaces="src/repro/kernels/attention/kernel_bwd.py:71",
                      ms=timer.ms(lambda: kernel((0,))), bound_ms=dq_ms),
@@ -1533,8 +1637,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write the full report to OUT/chip_smoke.json")
     ap.add_argument("--baseline-csrc", default=None,
-                    help="an earlier tree's csrc directory: time its GEMM "
-                    "backward (dA + dB) in turns with this one's")
+                    help="an earlier tree's csrc directory: time its "
+                    "forward GEMM and GEMM backward (dA + dB) in turns with "
+                    "this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1559,12 +1664,12 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     timer = Timer(dev)
     cfg = get_config("llama-1b")
-    measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer),
+    old = baseline_kernels(args.baseline_csrc) if args.baseline_csrc else None
+    measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer, old),
                 "flash_attention_fwd": measure_flash(cfg, dev, gen, timer),
                 "flash_decode": measure_decode(cfg, dev, gen, timer),
                 "flash_decode_paged": measure_paged(cfg, dev, gen, timer)}
-    bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer,
-                                           args.baseline_csrc)
+    bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
     measured.update(bwd_rows)
     measured.update({
         "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen, timer),

@@ -3,39 +3,55 @@
 // Replaces the TPU kernel `_gemm_kernel` (src/repro/kernels/gemm/kernel.py),
 // launched there by `_gemm_pallas`. It computes the same chain:
 //   prologue  rmsnorm of each A row in fp32, rounded back to bf16 before the
-//             product (kernel.py:111-119); the row statistics come from a
-//             small stats pass in this file, the reference's own
-//             precomputed-stats path (prologue.py:150-162), because a
-//             full-K A tile (the TPU pins block_k = K) does not fit in the
-//             227 KB of shared memory a block can use at K = 2048;
+//             product (kernel.py:111-119: bf16(x * rstd * gamma), the two
+//             products rounded apart);
 //   product   bf16 x bf16 -> fp32 accumulators (two for the gated variant);
-//   epilogue  x scale -> + bias -> rope -> silu(acc) * acc2 -> + residual,
-//             on the fp32 tile staged through shared memory, so the RoPE
-//             partner column (c +- head_dim/2, held by another warp) is
-//             readable; BLOCK_N is a multiple of head_dim;
+//   epilogue  x scale -> + bias -> rope -> silu(acc) * acc2 -> + residual;
 //   save      for the differentiated forward of the gated chain, the two raw
 //             fp32 accumulators rounded to bf16 into `preact`/`preact2`
 //             (kernel.py:84-90 stores them through the MXU input type), the
-//             operands of the backward's silu' (gemm_bwd_da.cu,
-//             gemm_bwd_db.cu). The row statistics stay in `rstd` for the
-//             backward too.
+//             operands of the backward's silu' (gemm_bwd_g.cu). The row
+//             statistics stay in `rstd` for the backward too.
 //
-// What bounds it on an H100: at the prefill shapes (M = B*S = 1024, K = 2048,
-// N up to 2 x 8192) the tensor cores (989 TFLOP/s bf16); at the decode shapes
-// (M = 4) the weight bytes over HBM (3.35 TB/s). This first version is
-// simple and right: WMMA 16x16x16 bf16 fragments, a 128x128 (gated: 128x64)
-// block tile over 8 warps, a two-stage shared-memory ring filled through
-// registers (the next K-tile's global loads are in flight while the current
-// one is multiplied; the prologue normalises on the register -> shared-memory
-// store). It does not use wgmma, TMA or warp specialisation, and decode
-// launches only N / BLOCK_N blocks; both are left to later work. Ragged M, N
-// and K edges are masked in the kernel (N and K must be multiples of 8).
+// What bounds it on an H100: at the prefill and training shapes (M = 1024
+// or 4096 tokens, K = 2048, N up to 2 x 8192; the down projection K = 8192)
+// the tensor cores, 2 M N K operations at 989 TFLOP/s bf16; at the decode
+// shapes (M = 4) the weight bytes over HBM (3.35 TB/s), e.g. 32 MB of the
+// down projection's weight in ~10 us. What the design does about it:
+//   - the product runs on the Hopper mainloop (gemm_sm90.cuh): TMA loads
+//     into a 4-8 stage ring, one producer and two consumer warpgroups
+//     issuing wgmma, persistent blocks. B is read as it is stored, (K, N)
+//     with N contiguous, through 64-column TMA boxes and wgmma's transposed
+//     (MN-major) B: no transposed copy of a weight is ever written;
+//   - the gated chain loads B's and B2's columns side by side into one
+//     BN-wide tile, so silu(acc) * acc2 pairs entry j with entry j + BN/16
+//     of the same thread; RoPE's partner column c +- head_dim/2 is entry
+//     j +- head_dim/16 of the same thread too (tiles start on whole heads),
+//     so the whole chain runs on the accumulators in registers, with no
+//     shared-memory staging;
+//   - the rmsnorm prologue is one bytes-bound row pass before the product
+//     (gemm_fused_rows_kernel): it writes rstd (M,) and the normalised An
+//     (M, K) in bf16 once, which the mainloop then reads by TMA. Each
+//     element is normalised once instead of once per column tile. Unlike
+//     the TPU kernel, which keeps An in VMEM, An goes through HBM: 8 MB
+//     each way at M 4096, K 2048, ~5 us against the 278 us of the up
+//     projection's products;
+//   - the tile width (64, 128 or 256) is picked per launch from the tiles
+//     against the SMs (kernels/gemm/ops.py plan_gemm). Where one tile row
+//     holds all of M (decode's M = 4, a prefill chunk: 16-128 tiles on 132
+//     SMs), the contraction is split: each (tile, split) writes its fp32
+//     partial sum to a workspace, and gemm_fused_reduce_kernel adds the
+//     splits in a fixed order (no atomics, so every call gives the same
+//     bits) and runs the chain. The split count depends on the shape and
+//     the SM count only. A rope head_dim under 16 (whose partner columns
+//     another thread holds) takes the same route with one split.
+// Ragged M, N and K edges are zero-filled by the TMA and masked in the store
+// (N and K must be multiples of 8).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -47,36 +63,311 @@ enum : int {
   EP_RESIDUAL = 16,
 };
 
-constexpr int BK = 32;       // K-tile depth (two 16-deep WMMA steps)
-constexpr int PAD_AB = 8;    // bf16 padding of the A/B shared tiles
-constexpr int PAD_C = 4;     // fp32 padding of the staged output tile
-
-struct GemmArgs {
-  const __nv_bfloat16* a;         // (M, K)
-  const __nv_bfloat16* b;         // (K, N)
-  const __nv_bfloat16* b2;        // (K, N) gated variant only
-  __nv_bfloat16* c;               // (M, N)
-  const __nv_bfloat16* gamma;     // (K,) rmsnorm scale, or null
-  const float* rstd;              // (M,) row statistics, or null
+// The epilogue chain's operands and output.
+struct Chain {
+  __nv_bfloat16* out;             // (M, N)
+  __nv_bfloat16* preact;          // (M, N) raw acc in bf16, gated only, or null
+  __nv_bfloat16* preact2;         // (M, N) raw acc2 in bf16, or null
   const __nv_bfloat16* bias;      // (N,)
   const __nv_bfloat16* residual;  // (M, N)
   const float* sin;               // (M, head_dim)
   const float* cos;               // (M, head_dim)
-  __nv_bfloat16* preact;          // (M, N) raw acc in bf16, gated only, or null
-  __nv_bfloat16* preact2;         // (M, N) raw acc2 in bf16, or null
   float scale;
-  int m, n, k;
-  int flags;
-  int head_dim;
+  int m, n, flags, head_dim;
 };
 
-// One row's rstd = 1 / sqrt(mean(x^2) + eps), fp32, as models/common.rmsnorm.
-__global__ void rms_stats_kernel(const __nv_bfloat16* __restrict__ a,
-                                 float* __restrict__ rstd, int k, float eps) {
+__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ float2 bf2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float2 f2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// The chain up to the residual on output columns (col, col + 1) of one
+// row: u the accumulator there, w the accumulator at the RoPE partner
+// columns (col +- head_dim/2), g the gate's second accumulator; jh =
+// col % head_dim for the rope.
+__device__ __forceinline__ float2 chain_value(const Chain& ch, int row,
+                                              int col, int jh, float2 u,
+                                              float2 w, float2 g) {
+  const int f = ch.flags;
+  if (f & EP_SCALE) {
+    u.x *= ch.scale;
+    u.y *= ch.scale;
+  }
+  if (f & EP_BIAS) {
+    const float2 b = bf2(ch.bias + col);
+    u.x += b.x;
+    u.y += b.y;
+  }
+  if (f & EP_ROPE) {
+    const int half = ch.head_dim / 2;
+    const int pc = jh < half ? col + half : col - half;
+    if (f & EP_SCALE) {
+      w.x *= ch.scale;
+      w.y *= ch.scale;
+    }
+    if (f & EP_BIAS) {
+      const float2 b = bf2(ch.bias + pc);
+      w.x += b.x;
+      w.y += b.y;
+    }
+    if (jh < half) {
+      w.x = -w.x;
+      w.y = -w.y;
+    }
+    const size_t t = (size_t)row * ch.head_dim + jh;
+    const float2 c = f2(ch.cos + t);
+    const float2 s = f2(ch.sin + t);
+    u.x = u.x * c.x + w.x * s.x;
+    u.y = u.y * c.y + w.y * s.y;
+  }
+  if (f & EP_GATE_SILU) {
+    if (f & EP_SCALE) {
+      g.x *= ch.scale;
+      g.y *= ch.scale;
+    }
+    u.x = silu(u.x) * g.x;
+    u.y = silu(u.y) * g.y;
+  }
+  return u;
+}
+
+__device__ __forceinline__ uint32_t pack2(float2 v) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+__device__ __forceinline__ float2 shfl_xor(float2 v, int m) {
+  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, m),
+                     __shfl_xor_sync(0xffffffffu, v.y, m));
+}
+
+__device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+
+// The 4 x 4 transpose within a quad of lanes (q = lane % 4): before, x[i]
+// holds columns 2q, 2q + 1 of 8-column group i; after, columns 2i, 2i + 1
+// of group q, so each lane holds one group's 8 columns, a 16-byte store.
+template <class T>
+__device__ __forceinline__ void quad_transpose(T (&x)[4], int q) {
+  bool hi = q & 1;
+  T r0 = shfl_xor(hi ? x[0] : x[1], 1), r1 = shfl_xor(hi ? x[2] : x[3], 1);
+  x[0] = hi ? r0 : x[0];
+  x[1] = hi ? x[1] : r0;
+  x[2] = hi ? r1 : x[2];
+  x[3] = hi ? x[3] : r1;
+  hi = q & 2;
+  r0 = shfl_xor(hi ? x[0] : x[2], 2);
+  r1 = shfl_xor(hi ? x[1] : x[3], 2);
+  x[0] = hi ? r0 : x[0];
+  x[1] = hi ? r1 : x[1];
+  x[2] = hi ? x[2] : r0;
+  x[3] = hi ? x[3] : r1;
+}
+
+// One row's 8 output columns from col (a multiple of 8): + the residual,
+// rounded to bf16, stored in 16 bytes; with the raw accumulators' words
+// into the preacts.
+__device__ __forceinline__ void store8(const Chain& ch, int row, int col,
+                                       const float2 (&v)[4],
+                                       const uint32_t (&p1)[4],
+                                       const uint32_t (&p2)[4]) {
+  if (row >= ch.m || col >= ch.n) return;
+  const size_t off = (size_t)row * ch.n + col;
+  float2 u[4] = {v[0], v[1], v[2], v[3]};
+  if (ch.flags & EP_RESIDUAL) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(ch.residual + off);
+    const __nv_bfloat162* r = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(r[i]);
+      u[i].x += x.x;
+      u[i].y += x.y;
+    }
+  }
+  *reinterpret_cast<uint4*>(ch.out + off) =
+      make_uint4(pack2(u[0]), pack2(u[1]), pack2(u[2]), pack2(u[3]));
+  if (ch.preact != nullptr) {
+    *reinterpret_cast<uint4*>(ch.preact + off) =
+        make_uint4(p1[0], p1[1], p1[2], p1[3]);
+    *reinterpret_cast<uint4*>(ch.preact2 + off) =
+        make_uint4(p2[0], p2[1], p2[2], p2[3]);
+  }
+}
+
+// The chain on a whole tile of accumulators in registers (see the layout in
+// gemm_sm90.cuh StorePairs), four 8-column groups at a time: their values
+// up to the residual in registers, a quad transpose, then one 16-byte store
+// per lane and row (two-column stores from the accumulator layout took
+// most of the epilogue's time). Every acc index is a compile-time constant
+// once the loops unroll, so the RoPE and gate partners stay in registers.
+// The functor holds a copy of the chain: read through a reference to the
+// kernel parameter instead, the fields are loaded again around the stores
+// (the compiler cannot rule out that a store wrote them).
+struct FusedStore {
+  const Chain ch;
+
+  // HD: the rope's head_dim (0: none); GATE: B2's columns in the tile's
+  // second half
+  template <int BN, int HD, bool GATE>
+  __device__ __forceinline__ void tile(float (&acc)[BN / 2], int row,
+                                       int tile_col, int q) const {
+    static_assert(!HD || (BN % HD == 0 && HD % 16 == 0),
+                  "tiles hold whole heads");
+    constexpr int GROUPS = GATE ? BN / 16 : BN / 8;   // output groups
+    const int out0 = GATE ? tile_col / 2 : tile_col;
+    const int lq = q / 2;
+    const bool save = ch.preact != nullptr;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // a warp whose 8 rows all lie past M (decode's M = 4 fills one of
+      // 16) skips them, together, so its shuffles stay whole
+      if (row - (threadIdx.x % 32) / 4 + 8 * h >= ch.m) continue;
+#pragma unroll
+      for (int c = 0; c < GROUPS / 4; ++c) {
+        float2 v[4];
+        uint32_t p1[4], p2[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * c + i;
+          // group j's RoPE partner, within the same head; the gate's
+          // second accumulator BN/2 columns on
+          const int jp = !HD ? j
+                             : (j * 8) % HD < HD / 2 ? j + HD / 16
+                                                     : j - HD / 16;
+          const int jg = GATE ? j + BN / 16 : j;
+          const float2 u =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          const float2 g =
+              make_float2(acc[4 * jg + 2 * h], acc[4 * jg + 2 * h + 1]);
+          p1[i] = pack2(u);
+          p2[i] = pack2(g);
+          v[i] = chain_value(
+              ch, row + 8 * h, out0 + 8 * j + q, HD ? (j * 8) % HD + q : 0,
+              u, make_float2(acc[4 * jp + 2 * h], acc[4 * jp + 2 * h + 1]),
+              g);
+        }
+        quad_transpose(v, lq);
+        if (save) {
+          quad_transpose(p1, lq);
+          quad_transpose(p2, lq);
+        }
+        store8(ch, row + 8 * h, out0 + 8 * (4 * c + lq), v, p1, p2);
+      }
+    }
+  }
+
+  template <int BN>
+  __device__ __forceinline__ void operator()(const sm90::Params&,
+                                             float (&acc)[BN / 2], int row,
+                                             int tile_col, int q,
+                                             int) const {
+    if (ch.flags & EP_GATE_SILU) {
+      // tile columns [0, BN/2) are B's, [BN/2, BN) the same columns of B2
+      if constexpr (BN >= 128) tile<BN, 0, true>(acc, row, tile_col, q);
+      return;
+    }
+    if constexpr (BN <= 128) {   // rope tiles are 64 or 128 wide
+      if (ch.flags & EP_ROPE) {
+        switch (ch.head_dim) {   // under 16: staged, see the entry point
+          case 16: tile<BN, 16, false>(acc, row, tile_col, q); return;
+          case 32: tile<BN, 32, false>(acc, row, tile_col, q); return;
+          case 64: tile<BN, 64, false>(acc, row, tile_col, q); return;
+          case 128:
+            if constexpr (BN == 128)
+              tile<BN, 128, false>(acc, row, tile_col, q);
+            return;
+        }
+        return;
+      }
+    }
+    tile<BN, 0, false>(acc, row, tile_col, q);
+  }
+};
+
+template <int BN>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+gemm_fused_kernel(const __grid_constant__ sm90::Params p,
+                  const __grid_constant__ Chain ch) {
+  sm90::gemm_body<BN, true>(p, FusedStore{ch});
+}
+
+// A split launch: each work item's fp32 partial sum, split s at rows
+// s * M of the workspace.
+template <int BN>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+gemm_fused_splitk_kernel(const __grid_constant__ sm90::Params p) {
+  sm90::gemm_body<BN, true>(p, sm90::StorePairs<true>{});
+}
+
+// The splits summed in order 0, 1, ..., then the chain, one thread per pair
+// of output columns. ws: (splits, M, ld) fp32 in the mainloop's raw
+// columns: for the gated chain, tile t's B columns at [t bn, t bn + bn/2),
+// B2's after them.
+__global__ void __launch_bounds__(256)
+gemm_fused_reduce_kernel(const float* __restrict__ ws, int splits, int ld,
+                         int bn, const Chain ch) {
+  const int pairs = ch.n / 2;
+  const size_t total = (size_t)ch.m * pairs;
+  const size_t plane = (size_t)ch.m * ld;
+  const bool gate = ch.flags & EP_GATE_SILU, rope = ch.flags & EP_ROPE;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int row = i / pairs, col = (i % pairs) * 2;
+    const int rc = gate ? (col / (bn / 2)) * bn + col % (bn / 2) : col;
+    const float* base = ws + (size_t)row * ld;
+    auto sum = [&](int c) {
+      float2 v = make_float2(0.f, 0.f);
+      for (int s = 0; s < splits; ++s) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(base + s * plane + c);
+        v.x += x.x;
+        v.y += x.y;
+      }
+      return v;
+    };
+    const float2 zero = make_float2(0.f, 0.f);
+    float2 w = zero, g = zero;
+    const int jh = rope ? col % ch.head_dim : 0;
+    if (rope) {
+      const int half = ch.head_dim / 2;
+      w = sum(jh < half ? rc + half : rc - half);
+    }
+    if (gate) g = sum(rc + bn / 2);
+    const float2 u = sum(rc);
+    float2 v = chain_value(ch, row, col, jh, u, w, g);
+    const size_t off = (size_t)row * ch.n + col;
+    if (ch.flags & EP_RESIDUAL) {
+      const float2 r = bf2(ch.residual + off);
+      v.x += r.x;
+      v.y += r.y;
+    }
+    *reinterpret_cast<uint32_t*>(ch.out + off) = pack2(v);
+    if (ch.preact != nullptr) {
+      *reinterpret_cast<uint32_t*>(ch.preact + off) = pack2(u);
+      *reinterpret_cast<uint32_t*>(ch.preact2 + off) = pack2(g);
+    }
+  }
+}
+
+// The rmsnorm prologue, one block per row: rstd = 1 / sqrt(mean(x^2) + eps)
+// in fp32 (as models/common.rmsnorm), then An = bf16((x rstd) gamma).
+constexpr int ROW_THREADS = 256;
+
+__global__ void __launch_bounds__(ROW_THREADS)
+gemm_fused_rows_kernel(const __nv_bfloat16* __restrict__ a,
+                       const __nv_bfloat16* __restrict__ gamma,
+                       __nv_bfloat16* __restrict__ an,
+                       float* __restrict__ rstd, int k, float eps) {
   const int row = blockIdx.x;
   const __nv_bfloat16* x = a + (size_t)row * k;
   float sum = 0.f;
-  for (int c = threadIdx.x * 8; c < k; c += blockDim.x * 8) {
+  for (int c = threadIdx.x * 8; c < k; c += ROW_THREADS * 8) {
     uint4 raw = *reinterpret_cast<const uint4*>(x + c);
     const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
@@ -89,272 +380,48 @@ __global__ void rms_stats_kernel(const __nv_bfloat16* __restrict__ a,
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
   __shared__ float warp_sums[32];
+  __shared__ float row_rstd;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (lane == 0) warp_sums[warp] = sum;
   __syncthreads();
   if (warp == 0) {
-    const int nwarps = blockDim.x / 32;
-    float s = lane < nwarps ? warp_sums[lane] : 0.f;
+    float s = lane < ROW_THREADS / 32 ? warp_sums[lane] : 0.f;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) rstd[row] = 1.0f / sqrtf(s / (float)k + eps);
-  }
-}
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-
-template <int BM, int BN, int WM, int WN, bool GATE>
-struct GemmConfig {
-  static constexpr int WARPS_M = BM / WM;
-  static constexpr int WARPS_N = BN / WN;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int FM = WM / 16;
-  static constexpr int FN = WN / 16;
-  static constexpr int LDA = BK + PAD_AB;
-  static constexpr int LDB = BN + PAD_AB;
-  static constexpr int LDC = BN + PAD_C;
-  static constexpr int A_ELEMS = BM * LDA;
-  static constexpr int B_ELEMS = BK * LDB;
-  static constexpr int STAGE_ELEMS = A_ELEMS + (GATE ? 2 : 1) * B_ELEMS;
-  static constexpr int PIPE_BYTES = 2 * STAGE_ELEMS * 2;
-  static constexpr int C_BYTES = (GATE ? 2 : 1) * BM * LDC * 4;
-  static constexpr int SMEM_BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
-  static constexpr int A_VECS = BM * BK / 8 / THREADS;  // 16-byte vectors
-  static constexpr int B_VECS = BK * BN / 8 / THREADS;
-  static_assert(A_VECS * THREADS * 8 == BM * BK, "A tile / threads");
-  static_assert(B_VECS * THREADS * 8 == BK * BN, "B tile / threads");
-};
-
-template <class Cfg>
-__device__ __forceinline__ void load_a(const GemmArgs& p, int m0, int k0,
-                                       uint4 (&regs)[Cfg::A_VECS]) {
-#pragma unroll
-  for (int i = 0; i < Cfg::A_VECS; ++i) {
-    const int v = threadIdx.x + i * Cfg::THREADS;
-    const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-    const int gm = m0 + r, gk = k0 + c;
-    if (gm < p.m && gk < p.k)
-      regs[i] = *reinterpret_cast<const uint4*>(p.a + (size_t)gm * p.k + gk);
-    else
-      regs[i] = make_uint4(0, 0, 0, 0);
-  }
-}
-
-template <class Cfg>
-__device__ __forceinline__ void load_b(const __nv_bfloat16* b, const GemmArgs& p,
-                                       int n0, int k0,
-                                       uint4 (&regs)[Cfg::B_VECS]) {
-  constexpr int BN = Cfg::LDB - PAD_AB;
-#pragma unroll
-  for (int i = 0; i < Cfg::B_VECS; ++i) {
-    const int v = threadIdx.x + i * Cfg::THREADS;
-    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-    const int gk = k0 + r, gn = n0 + c;
-    if (gk < p.k && gn < p.n)
-      regs[i] = *reinterpret_cast<const uint4*>(b + (size_t)gk * p.n + gn);
-    else
-      regs[i] = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// Register -> shared store of an A tile, normalising on the way when the
-// rmsnorm prologue is on: x * rstd * gamma in fp32, then rounded to bf16.
-template <class Cfg>
-__device__ __forceinline__ void store_a(const GemmArgs& p, int m0, int k0,
-                                        const uint4 (&regs)[Cfg::A_VECS],
-                                        __nv_bfloat16* as) {
-#pragma unroll
-  for (int i = 0; i < Cfg::A_VECS; ++i) {
-    const int v = threadIdx.x + i * Cfg::THREADS;
-    const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-    uint4 val = regs[i];
-    const int gm = m0 + r, gk = k0 + c;
-    if (p.gamma != nullptr && gm < p.m && gk < p.k) {
-      const float rs = p.rstd[gm];
-      uint4 graw = *reinterpret_cast<const uint4*>(p.gamma + gk);
-      __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
-      const __nv_bfloat16* g = reinterpret_cast<const __nv_bfloat16*>(&graw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        float f = __fmul_rn(__bfloat162float(x[e]), rs);
-        x[e] = __float2bfloat16_rn(__fmul_rn(f, __bfloat162float(g[e])));
-      }
+    if (lane == 0) {
+      row_rstd = 1.0f / sqrtf(s / (float)k + eps);
+      rstd[row] = row_rstd;
     }
-    *reinterpret_cast<uint4*>(as + r * Cfg::LDA + c) = val;
   }
-}
-
-template <class Cfg>
-__device__ __forceinline__ void store_b(const uint4 (&regs)[Cfg::B_VECS],
-                                        __nv_bfloat16* bs) {
-  constexpr int BN = Cfg::LDB - PAD_AB;
-#pragma unroll
-  for (int i = 0; i < Cfg::B_VECS; ++i) {
-    const int v = threadIdx.x + i * Cfg::THREADS;
-    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-    *reinterpret_cast<uint4*>(bs + r * Cfg::LDB + c) = regs[i];
-  }
-}
-
-template <int BM, int BN, int WM, int WN, bool GATE>
-__global__ void __launch_bounds__(GemmConfig<BM, BN, WM, WN, GATE>::THREADS)
-gemm_fused_kernel(GemmArgs p) {
-  using Cfg = GemmConfig<BM, BN, WM, WN, GATE>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / Cfg::WARPS_N, wn = warp % Cfg::WARPS_N;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[Cfg::FM][Cfg::FN];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc2[GATE ? Cfg::FM : 1]
-                                                             [GATE ? Cfg::FN : 1];
-#pragma unroll
-  for (int i = 0; i < Cfg::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < Cfg::FN; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      if (GATE) wmma::fill_fragment(acc2[GATE ? i : 0][GATE ? j : 0], 0.f);
-    }
-
-  uint4 ra[Cfg::A_VECS], rb[Cfg::B_VECS], rb2[GATE ? Cfg::B_VECS : 1];
-  auto stage_a = [&](int s) { return pipe + s * Cfg::STAGE_ELEMS; };
-  auto stage_b = [&](int s) { return pipe + s * Cfg::STAGE_ELEMS + Cfg::A_ELEMS; };
-  auto stage_b2 = [&](int s) {
-    return pipe + s * Cfg::STAGE_ELEMS + Cfg::A_ELEMS + Cfg::B_ELEMS;
-  };
-
-  const int nk = (p.k + BK - 1) / BK;
-  load_a<Cfg>(p, m0, 0, ra);
-  load_b<Cfg>(p.b, p, n0, 0, rb);
-  if constexpr (GATE) load_b<Cfg>(p.b2, p, n0, 0, rb2);
-  store_a<Cfg>(p, m0, 0, ra, stage_a(0));
-  store_b<Cfg>(rb, stage_b(0));
-  if constexpr (GATE) store_b<Cfg>(rb2, stage_b2(0));
   __syncthreads();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) {  // the next tile's global loads overlap this tile's products
-      load_a<Cfg>(p, m0, (kt + 1) * BK, ra);
-      load_b<Cfg>(p.b, p, n0, (kt + 1) * BK, rb);
-      if constexpr (GATE) load_b<Cfg>(p.b2, p, n0, (kt + 1) * BK, rb2);
-    }
-    const __nv_bfloat16* as = stage_a(s);
-    const __nv_bfloat16* bs = stage_b(s);
+  const float rs = row_rstd;
+  __nv_bfloat16* y = an + (size_t)row * k;
+  for (int c = threadIdx.x * 8; c < k; c += ROW_THREADS * 8) {
+    uint4 raw = *reinterpret_cast<const uint4*>(x + c);
+    const uint4 graw = *reinterpret_cast<const uint4*>(gamma + c);
+    __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw);
+    const __nv_bfloat16* g = reinterpret_cast<const __nv_bfloat16*>(&graw);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-          fa[Cfg::FM];
-#pragma unroll
-      for (int i = 0; i < Cfg::FM; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * WM + i * 16) * Cfg::LDA + kk,
-                               Cfg::LDA);
-#pragma unroll
-      for (int j = 0; j < Cfg::FN; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-            fb;
-        wmma::load_matrix_sync(fb, bs + kk * Cfg::LDB + wn * WN + j * 16,
-                               Cfg::LDB);
-#pragma unroll
-        for (int i = 0; i < Cfg::FM; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        if constexpr (GATE) {
-          wmma::load_matrix_sync(fb, stage_b2(s) + kk * Cfg::LDB + wn * WN + j * 16,
-                                 Cfg::LDB);
-#pragma unroll
-          for (int i = 0; i < Cfg::FM; ++i)
-            wmma::mma_sync(acc2[i][j], fa[i], fb, acc2[i][j]);
-        }
-      }
-    }
-    if (more) {
-      store_a<Cfg>(p, m0, (kt + 1) * BK, ra, stage_a(s ^ 1));
-      store_b<Cfg>(rb, stage_b(s ^ 1));
-      if constexpr (GATE) store_b<Cfg>(rb2, stage_b2(s ^ 1));
-    }
-    __syncthreads();
-  }
-
-  // Stage the fp32 accumulators through shared memory (the pipeline buffers
-  // are free: the loop ended on a barrier) and run the epilogue chain.
-  float* cs = reinterpret_cast<float*>(smem);
-  float* cs2 = cs + BM * Cfg::LDC;
-#pragma unroll
-  for (int i = 0; i < Cfg::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < Cfg::FN; ++j) {
-      const int off = (wm * WM + i * 16) * Cfg::LDC + wn * WN + j * 16;
-      wmma::store_matrix_sync(cs + off, acc[i][j], Cfg::LDC, wmma::mem_row_major);
-      if constexpr (GATE)
-        wmma::store_matrix_sync(cs2 + off, acc2[i][j], Cfg::LDC, wmma::mem_row_major);
-    }
-  __syncthreads();
-
-  const bool has_scale = p.flags & EP_SCALE;
-  const bool has_bias = p.flags & EP_BIAS;
-  const bool has_rope = p.flags & EP_ROPE;
-  const bool has_res = p.flags & EP_RESIDUAL;
-  const int half = p.head_dim / 2;
-  for (int v = threadIdx.x; v < BM * BN / 8; v += Cfg::THREADS) {
-    const int r = v / (BN / 8), c0 = (v % (BN / 8)) * 8;
-    const int gm = m0 + r, gn0 = n0 + c0;
-    if (gm >= p.m || gn0 >= p.n) continue;
-    __align__(16) __nv_bfloat16 out[8];
-    if (GATE && p.preact != nullptr) {
-      __align__(16) __nv_bfloat16 pre[8], pre2[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        pre[e] = __float2bfloat16_rn(cs[r * Cfg::LDC + c0 + e]);
-        pre2[e] = __float2bfloat16_rn(cs2[r * Cfg::LDC + c0 + e]);
-      }
-      const size_t off = (size_t)gm * p.n + gn0;
-      *reinterpret_cast<uint4*>(p.preact + off) = *reinterpret_cast<const uint4*>(pre);
-      *reinterpret_cast<uint4*>(p.preact2 + off) = *reinterpret_cast<const uint4*>(pre2);
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int c = c0 + e, gn = gn0 + e;
-      float u = cs[r * Cfg::LDC + c];
-      if (has_scale) u *= p.scale;
-      if (has_bias) u += __bfloat162float(p.bias[gn]);
-      if (has_rope) {
-        // columns are whole heads: n0 and BN are multiples of head_dim
-        const int j = c % p.head_dim;
-        const int pc = j < half ? c + half : c - half;
-        float w = cs[r * Cfg::LDC + pc];
-        if (has_scale) w *= p.scale;
-        if (has_bias) w += __bfloat162float(p.bias[n0 + pc]);
-        const float rot = j < half ? -w : w;
-        const size_t t = (size_t)gm * p.head_dim + j;
-        u = u * p.cos[t] + rot * p.sin[t];
-      }
-      if (GATE) {
-        float g2 = cs2[r * Cfg::LDC + c];
-        if (has_scale) g2 *= p.scale;
-        u = silu(u) * g2;
-      }
-      if (has_res) u += __bfloat162float(p.residual[(size_t)gm * p.n + gn]);
-      out[e] = __float2bfloat16_rn(u);
-    }
-    *reinterpret_cast<uint4*>(p.c + (size_t)gm * p.n + gn0) =
-        *reinterpret_cast<const uint4*>(out);
+    for (int i = 0; i < 8; ++i)
+      v[i] = __float2bfloat16_rn(
+          __fmul_rn(__fmul_rn(__bfloat162float(v[i]), rs),
+                    __bfloat162float(g[i])));
+    *reinterpret_cast<uint4*>(y + c) = raw;
   }
 }
 
-template <int BM, int BN, int WM, int WN, bool GATE>
-cudaError_t launch(const GemmArgs& p, cudaStream_t stream) {
-  using Cfg = GemmConfig<BM, BN, WM, WN, GATE>;
-  auto kernel = gemm_fused_kernel<BM, BN, WM, WN, GATE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
-  kernel<<<grid, Cfg::THREADS, Cfg::SMEM_BYTES, stream>>>(p);
-  return cudaGetLastError();
+template <int BN>
+cudaError_t product(const sm90::Operand& x, const sm90::Operand* y,
+                    int halves, int splits, bool staged,
+                    const sm90::Params& p, const Chain& ch,
+                    cudaStream_t stream) {
+  const int sms = sm90::sm_count();
+  if (!staged)
+    return sm90::launch_mn<BN>(gemm_fused_kernel<BN>, x, y, halves, 1, p,
+                               sms, stream, ch);
+  return sm90::launch_mn<BN>(gemm_fused_splitk_kernel<BN>, x, y, halves,
+                             splits, p, sms, stream);
 }
 
 }  // namespace
@@ -365,47 +432,83 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The block width of the non-gated variant: a rope launch needs
-// block_n % head_dim == 0, which the wrapper checks against this value.
-int gemm_fused_block_n() { return 128; }
-
-// rstd: (M,) fp32 the caller allocates; written when gamma != null.
-// preact, preact2: (M, N) bf16 outputs of the gated variant, or null.
+// a (M, K), b and b2 (K, N) bf16 as stored; c (M, N) bf16. With gamma (the
+// rmsnorm prologue), rstd (M,) fp32 and an (M, K) bf16 are written by the
+// row pass, and the product reads an. preact, preact2: (M, N) bf16 outputs
+// of the gated variant, or null. tile_n: the mainloop's tile width (64,
+// 128 or 256; at least 128 for the gated chain, a multiple of head_dim for
+// rope, itself a multiple of 4, and at most 128 then); splits: the
+// contraction's split count
+// (every split non-empty). ws: a (splits, M, n_raw) fp32 workspace when
+// splits > 1 or a rope head_dim is no multiple of 16, else null; n_raw = N,
+// or for the gated chain ceil(N / (tile_n / 2)) * tile_n.
 int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
-                      const void* gamma, void* rstd, const void* bias,
-                      const void* residual, const void* sin, const void* cos,
-                      void* preact, void* preact2, float scale, float eps,
-                      int m, int n, int k, int flags, int head_dim,
-                      void* stream) {
+                      const void* gamma, void* rstd, void* an,
+                      const void* bias, const void* residual, const void* sin,
+                      const void* cos, void* preact, void* preact2, void* ws,
+                      float scale, float eps, int m, int n, int k, int flags,
+                      int head_dim, int tile_n, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GemmArgs p;
-  p.a = static_cast<const __nv_bfloat16*>(a);
-  p.b = static_cast<const __nv_bfloat16*>(b);
-  p.b2 = static_cast<const __nv_bfloat16*>(b2);
-  p.c = static_cast<__nv_bfloat16*>(c);
-  p.gamma = static_cast<const __nv_bfloat16*>(gamma);
-  p.rstd = static_cast<const float*>(rstd);
-  p.bias = static_cast<const __nv_bfloat16*>(bias);
-  p.residual = static_cast<const __nv_bfloat16*>(residual);
-  p.sin = static_cast<const float*>(sin);
-  p.cos = static_cast<const float*>(cos);
-  p.preact = static_cast<__nv_bfloat16*>(preact);
-  p.preact2 = static_cast<__nv_bfloat16*>(preact2);
-  if ((preact != nullptr) != ((flags & EP_GATE_SILU) && preact2 != nullptr))
+  const bool gate = flags & EP_GATE_SILU;
+  if (gate != (b2 != nullptr) || (preact != nullptr) != (preact2 != nullptr) ||
+      (preact != nullptr && !gate) || m < 1 || n < 1 || k < 1 || n % 8 ||
+      k % 8 || splits < 1 ||
+      (gamma != nullptr && (rstd == nullptr || an == nullptr)) ||
+      (gate && tile_n < 128))
     return cudaErrorInvalidValue;
-  p.scale = scale;
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.flags = flags;
-  p.head_dim = head_dim;
+  if ((flags & EP_ROPE) && (head_dim % 4 || head_dim < 4 ||
+                            tile_n % head_dim || tile_n > 128 ||
+                            n % head_dim))
+    return cudaErrorInvalidValue;
+  const bool staged = splits > 1 || ((flags & EP_ROPE) && head_dim % 16);
+  if (staged && ws == nullptr) return cudaErrorInvalidValue;
+  Chain ch;
+  ch.out = static_cast<__nv_bfloat16*>(c);
+  ch.preact = static_cast<__nv_bfloat16*>(preact);
+  ch.preact2 = static_cast<__nv_bfloat16*>(preact2);
+  ch.bias = static_cast<const __nv_bfloat16*>(bias);
+  ch.residual = static_cast<const __nv_bfloat16*>(residual);
+  ch.sin = static_cast<const float*>(sin);
+  ch.cos = static_cast<const float*>(cos);
+  ch.scale = scale;
+  ch.m = m;
+  ch.n = n;
+  ch.flags = flags;
+  ch.head_dim = head_dim;
   if (gamma != nullptr) {
-    rms_stats_kernel<<<m, 256, 0, st>>>(p.a, static_cast<float*>(rstd), k, eps);
+    gemm_fused_rows_kernel<<<m, ROW_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(gamma),
+        static_cast<__nv_bfloat16*>(an), static_cast<float*>(rstd), k, eps);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (flags & EP_GATE_SILU) return launch<128, 64, 32, 32, true>(p, st);
-  return launch<128, 128, 64, 32, false>(p, st);
+  const sm90::Operand x = {gamma != nullptr ? an : a, m, k, k};
+  const sm90::Operand y[2] = {{b, k, n, n}, {b2, k, n, n}};
+  const int halves = gate ? 2 : 1;
+  const int tile_out = tile_n / halves;   // output columns a tile gives
+  sm90::Params p{};
+  p.m = m;
+  p.n = gate ? (n + tile_out - 1) / tile_out * tile_n : n;
+  p.c = ws;
+  p.ldc = p.n;
+  p.n_split = p.n;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (tile_n) {
+    case 256: err = product<256>(x, y, halves, splits, staged, p, ch, st);
+      break;
+    case 128: err = product<128>(x, y, halves, splits, staged, p, ch, st);
+      break;
+    case 64: err = product<64>(x, y, halves, splits, staged, p, ch, st);
+      break;
+  }
+  if (err != cudaSuccess || !staged) return err;
+  const long long pairs = (long long)m * (n / 2);
+  const int blocks = (int)((pairs + 255) / 256 < 4096 ? (pairs + 255) / 256
+                                                       : 4096);
+  gemm_fused_reduce_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const float*>(ws), splits, p.n, tile_n, ch);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

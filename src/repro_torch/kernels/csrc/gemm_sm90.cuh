@@ -1,12 +1,22 @@
-// One Hopper GEMM mainloop for C = X @ Y^T, shared by the GEMM backward
-// kernels (gemm_bwd_da.cu, gemm_bwd_db.cu) and written so that other GEMMs
-// of the port can take it.
+// One Hopper GEMM mainloop for C = X @ Y^T, shared by the forward fused
+// GEMM (gemm_fused.cu) and the GEMM backward kernels (gemm_bwd_da.cu,
+// gemm_bwd_db.cu).
 //
-//   X (M, Kc) and Y (N, Kc) are bf16 and contraction-contiguous ("K-major"),
-//   C (M, N) is stored row-major in fp32 or bf16 from an fp32 accumulator.
+//   X (M, Kc) is bf16 and contraction-contiguous ("K-major"). Y is bf16,
+//   either K-major, (N, Kc) (the backward), or MN-major, (Kc, N) with N
+//   contiguous (the forward's weights as they are stored; Y_MN below).
 //   The contraction may run over two segments, (X1, Y1) then (X2, Y2), into
 //   the same accumulator: the gated dA contracts [gbar | gbar2] against B and
-//   then B2 without a concatenated copy of the weights.
+//   then B2 without a concatenated copy of the weights. An MN-major Y may
+//   instead come in two column halves (y_halves == 2): a BN-wide tile holds
+//   BN/2 columns of Y1 and the same BN/2 columns of Y2 side by side, so the
+//   gated forward's two products are one wgmma of width BN.
+//   The fp32 accumulator of each tile goes to an epilogue functor: the
+//   backward's stores C row-major in fp32 or bf16 (StorePairs); the forward
+//   runs its chain on the registers (gemm_fused.cu).
+//   The contraction may also be split (splits > 1): work item (tile, s)
+//   contracts stages [s k_per_split, (s + 1) k_per_split) and hands its
+//   partial sum to the epilogue with its split index.
 //
 // The design is the card's usual one (NVIDIA Hopper tuning guide; the CUDA
 // programming guide's TMA, wgmma and mbarrier sections):
@@ -24,9 +34,15 @@
 //     into the next tile while the consumers store this one;
 //   - ragged M, N and contraction edges: the TMA fills out-of-range elements
 //     with zeros, and the store is masked.
-// BN (64, 128 or 256) is the caller's choice per launch (the GEMM backward
-// picks it from the number of tiles against the SMs: kernels/gemm/
-// backward.py pick_tile_n).
+// An MN-major Y stage is BN/64 TMA boxes of 64 columns (128 bytes) by 64
+// contraction rows under the same 128-byte swizzle, read by wgmma with its
+// B-transpose bit set through a descriptor whose leading offset steps from
+// one 64-column box to the next and whose stride steps over 8 contraction
+// rows (CUTLASS cute/atom/mma_traits_sm90_gmma.hpp, make_gmma_desc, the
+// Major::MN case of the 128-byte swizzle).
+// BN (64, 128 or 256) is the caller's choice per launch, from the number of
+// tiles against the SMs (kernels/gemm/backward.py pick_tile_n for the
+// backward, kernels/gemm/ops.py plan_gemm, with the split, for the forward).
 #pragma once
 
 #include <cuda.h>
@@ -62,12 +78,15 @@ struct Operand {
 
 struct Params {
   CUtensorMap x[2], y[2];   // the two segments' maps (the second unused
-  int k_tiles[2];           // when k_tiles[1] == 0)
-  int m, n;                 // C's extent
+  int k_tiles[2];           // when k_tiles[1] == 0); with y_halves == 2 the
+                            // one segment's Y halves
+  int y_halves;             // 1, or 2 (MN-major Y only)
+  int splits, k_per_split;  // contraction split: stages per work item
+  int m, n;                 // C's extent (columns of the raw accumulator)
   void* c;                  // columns < n_split: C[r][col] at c + r * ldc
   void* c2;                 // columns >= n_split: at c2 + r * ldc
                             // + col - n_split
-  int ldc, n_split;
+  int ldc, n_split;         // (split s of a split launch: rows offset s * m)
 };
 
 // ---------------------------------------------------------------------------
@@ -138,6 +157,17 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
          (1ull << 62);
 }
 
+// The same for an MN-major tile: 64-column (128-byte) boxes of BK rows,
+// Y_BOX bytes apart (the leading offset), 8-row groups 1024 bytes apart
+// (the stride offset).
+constexpr int Y_BOX = 64 * BK * 2;
+
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* p) {
+  auto enc = [](uint64_t x) { return (x & 0x3FFFF) >> 4; };
+  return enc(smem_addr(p)) | (enc(Y_BOX) << 16) | (enc(1024) << 32) |
+         (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -159,13 +189,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// wgmma.mma_async m64nBNk16, both operands from shared memory, K-major
-// (no transpose), fp32 accumulator; scale_d == 0 starts the sum afresh.
+// wgmma.mma_async m64nBNk16, both operands from shared memory, fp32
+// accumulator; scale_d == 0 starts the sum afresh. X is K-major; Y is
+// K-major for TB == 0 and MN-major (transposed) for TB == 1.
 template <int BN>
 struct Wgmma;
 
 template <>
 struct Wgmma<64> {
+  template <int TB>
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t xd,
                                              uint64_t yd, int scale_d) {
     asm volatile(
@@ -174,7 +206,7 @@ struct Wgmma<64> {
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -182,12 +214,13 @@ struct Wgmma<64> {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(xd), "l"(yd), "r"(scale_d));
+      : "l"(xd), "l"(yd), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Wgmma<128> {
+  template <int TB>
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t xd,
                                              uint64_t yd, int scale_d) {
     asm volatile(
@@ -199,7 +232,7 @@ struct Wgmma<128> {
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
       "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -213,12 +246,13 @@ struct Wgmma<128> {
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(xd), "l"(yd), "r"(scale_d));
+      : "l"(xd), "l"(yd), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Wgmma<256> {
+  template <int TB>
   __device__ __forceinline__ static void mma(float (&d)[128], uint64_t xd,
                                              uint64_t yd, int scale_d) {
     asm volatile(
@@ -235,7 +269,7 @@ struct Wgmma<256> {
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -262,7 +296,7 @@ struct Wgmma<256> {
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(xd), "l"(yd), "r"(scale_d));
+      : "l"(xd), "l"(yd), "r"(scale_d), "n"(TB));
   }
 };
 
@@ -278,17 +312,18 @@ __device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n,
   tn = r / rows;
 }
 
-// Two neighbouring columns of one row of C, masked to (m, n).
+// Two neighbouring columns of one row of C, masked to (m, n); the partial
+// sum of split s goes s * m rows further down.
 template <bool F32>
 __device__ __forceinline__ void store_pair(const Params& p, int row, int col,
-                                           float v0, float v1) {
+                                           float v0, float v1, int split) {
   if (row >= p.m || col >= p.n) return;
   void* base = p.c;
   if (col >= p.n_split) {
     base = p.c2;
     col -= p.n_split;
   }
-  const size_t off = (size_t)row * p.ldc + col;
+  const size_t off = ((size_t)split * p.m + row) * p.ldc + col;
   if (F32) {
     *reinterpret_cast<float2*>(static_cast<float*>(base) + off) =
         make_float2(v0, v1);
@@ -298,14 +333,36 @@ __device__ __forceinline__ void store_pair(const Params& p, int row, int col,
   }
 }
 
+// The m64nBN accumulator of one consumer warpgroup: thread (warp, lane)
+// holds rows 16 warp + lane / 4 (+ 8) and columns 8 j + 2 (lane % 4) (+ 1),
+// acc[4 j + 2 h + e] at row + 8 h, column 8 j + 2 (lane % 4) + e. An
+// epilogue is called with the first row, the tile's first column, the
+// thread's column offset 2 (lane % 4) and the work item's split.
+template <bool F32>
+struct StorePairs {
+  template <int BN>
+  __device__ __forceinline__ void operator()(const Params& p,
+                                             float (&acc)[BN / 2], int row,
+                                             int tile_col, int q,
+                                             int split) const {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = tile_col + j * 8 + q;
+      store_pair<F32>(p, row, col, acc[4 * j], acc[4 * j + 1], split);
+      store_pair<F32>(p, row + 8, col, acc[4 * j + 2], acc[4 * j + 3], split);
+    }
+  }
+};
+
 // The kernel body; a source wraps it in its own __global__ function (so the
 // profiler tells the callers apart):
 //   __global__ void __launch_bounds__(sm90::THREADS, 1)
 //   my_kernel(const __grid_constant__ sm90::Params p) {
-//     sm90::gemm_body<BN, F32>(p);
+//     sm90::gemm_body<BN, Y_MN>(p, epilogue);
 //   }
-template <int BN, bool F32>
-__device__ __forceinline__ void gemm_body(const Params& p) {
+template <int BN, bool Y_MN, class Epilogue>
+__device__ __forceinline__ void gemm_body(const Params& p,
+                                          const Epilogue& epilogue) {
   using T = Tile<BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -317,6 +374,7 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
   const int tiles_n = (p.n + BN - 1) / BN;
   const int tiles = tiles_m * tiles_n;
   const int k_tiles = p.k_tiles[0] + p.k_tiles[1];
+  const int items = tiles * p.splits;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -329,21 +387,39 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
   __syncthreads();
 
   if (wg == 0) {
-    // producer: one thread keeps the ring full, tile after tile
+    // producer: one thread keeps the ring full, work item after work item
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       int stage = 0, phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
         int tm, tn;
-        tile_coords(t, tiles_m, tiles_n, tm, tn);
-        for (int kt = 0; kt < k_tiles; ++kt) {
+        tile_coords(w % tiles, tiles_m, tiles_n, tm, tn);
+        const int kt0 = (w / tiles) * p.k_per_split;
+        const int kt1 = min(k_tiles, kt0 + p.k_per_split);
+        for (int kt = kt0; kt < kt1; ++kt) {
           const int seg = kt < p.k_tiles[0] ? 0 : 1;
           const int kc = (seg ? kt - p.k_tiles[0] : kt) * BK;
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* xs = smem + stage * T::STAGE_BYTES;
+          unsigned char* ys = xs + T::X_BYTES;
           mbar_expect_tx(&full[stage], T::STAGE_BYTES);
           tma_load(xs, &p.x[seg], &full[stage], kc, tm * BM);
-          tma_load(xs + T::X_BYTES, &p.y[seg], &full[stage], kc, tn * BN);
+          if (!Y_MN) {
+            tma_load(ys, &p.y[seg], &full[stage], kc, tn * BN);
+          } else if (p.y_halves == 1) {
+#pragma unroll
+            for (int b = 0; b < BN / 64; ++b)
+              tma_load(ys + b * Y_BOX, &p.y[seg], &full[stage],
+                       tn * BN + b * 64, kc);
+          } else if constexpr (BN >= 128) {
+            // boxes [0, BN/128) from the first half, the rest the second
+#pragma unroll
+            for (int b = 0; b < BN / 64; ++b) {
+              const int half = b / (BN / 128);
+              tma_load(ys + b * Y_BOX, &p.y[half], &full[stage],
+                       tn * (BN / 2) + (b % (BN / 128)) * 64, kc);
+            }
+          }
           if (++stage == T::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -361,11 +437,13 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int stage = 0, phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
       int tm, tn;
-      tile_coords(t, tiles_m, tiles_n, tm, tn);
+      tile_coords(w % tiles, tiles_m, tiles_n, tm, tn);
+      const int kt0 = (w / tiles) * p.k_per_split;
+      const int kt1 = min(k_tiles, kt0 + p.k_per_split);
       int prev = -1;
-      for (int kt = 0; kt < k_tiles; ++kt) {
+      for (int kt = kt0; kt < kt1; ++kt) {
         mbar_wait(&full[stage], phase);
         const unsigned char* xs =
             smem + stage * T::STAGE_BYTES + cw * (T::X_BYTES / CONSUMERS);
@@ -373,9 +451,13 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)   // 16 bf16 = 32 bytes a step
-          Wgmma<BN>::mma(acc, smem_desc(xs + kk * 32), smem_desc(ys + kk * 32),
-                         kt > 0 || kk > 0);
+        for (int kk = 0; kk < BK / 16; ++kk) {   // 16 bf16 = 32 bytes a step
+          // MN-major: 16 contraction rows of 128 bytes a step
+          const uint64_t yd = Y_MN ? smem_desc_mn(ys + kk * 16 * 128)
+                                   : smem_desc(ys + kk * 32);
+          Wgmma<BN>::template mma<Y_MN ? 1 : 0>(
+              acc, smem_desc(xs + kk * 32), yd, kt > kt0 || kk > 0);
+        }
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(acc);
@@ -390,17 +472,17 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
       wgmma_wait<0>();
       fence_regs(acc);
       if (prev >= 0 && leader) mbar_arrive(&empty[prev]);
-      // the m64nBN accumulator: thread (warp, lane) holds rows
-      // 16 warp + lane / 4 (+ 8) and columns 8 j + 2 (lane % 4) (+ 1)
       const int row = tm * BM + cw * 64 + warp * 16 + lane / 4;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = tn * BN + j * 8 + (lane % 4) * 2;
-        store_pair<F32>(p, row, col, acc[4 * j], acc[4 * j + 1]);
-        store_pair<F32>(p, row + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
-      }
+      epilogue.template operator()<BN>(p, acc, row, tn * BN, (lane % 4) * 2,
+                                       w / tiles);
     }
   }
+}
+
+// The backward's body: C stored row-major in fp32 (F32) or bf16.
+template <int BN, bool F32>
+__device__ __forceinline__ void gemm_body(const Params& p) {
+  gemm_body<BN, false>(p, StorePairs<F32>{});
 }
 
 // ---------------------------------------------------------------------------
@@ -465,6 +547,21 @@ inline int sm_count() {
   return sms;
 }
 
+// Launches `kernel` on one block per SM, at most one per work item, with
+// the Tile's dynamic shared memory; `args` follow the Params.
+template <int BN, typename Kernel, typename... Args>
+cudaError_t run(Kernel kernel, const Params& p, int sms, cudaStream_t stream,
+                const Args&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::SMEM);
+  if (err != cudaSuccess) return err;
+  const int items =
+      ((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN) * p.splits;
+  kernel<<<items < sms ? items : sms, THREADS, Tile<BN>::SMEM, stream>>>(
+      p, args...);
+  return cudaGetLastError();
+}
+
 // Builds the maps of `segments` (X, Y) pairs for BN-wide tiles and launches
 // `kernel` (a __global__ wrapper of gemm_body<BN, F32>) on one block per SM,
 // at most one per tile. x[s] and y[s] share their contraction length.
@@ -482,12 +579,36 @@ cudaError_t launch(Kernel kernel, const Operand* x, const Operand* y,
     if (err != cudaSuccess) return err;
     p.k_tiles[s] = (x[s].cols + BK - 1) / BK;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::SMEM);
+  p.y_halves = 1;
+  p.splits = 1;
+  p.k_per_split = p.k_tiles[0] + p.k_tiles[1];
+  return run<BN>(kernel, p, sms, stream);
+}
+
+// The same for one segment with an MN-major Y: y[h] (rows = the
+// contraction, cols = N) for each of `halves` column halves, the
+// contraction split `splits` ways (every split non-empty).
+template <int BN, typename Kernel, typename... Args>
+cudaError_t launch_mn(Kernel kernel, const Operand& x, const Operand* y,
+                      int halves, int splits, Params p, int sms,
+                      cudaStream_t stream, const Args&... args) {
+  if (halves < 1 || halves > 2 || (halves == 2 && BN < 128) || p.m < 1 ||
+      p.n < 1 || splits < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t err = make_map(&p.x[0], x, BM);
+  for (int h = 0; h < halves && err == cudaSuccess; ++h) {
+    if (y[h].rows != x.cols) return cudaErrorInvalidValue;
+    err = make_map(&p.y[h], y[h], BK);   // 64-column boxes of BK rows
+  }
   if (err != cudaSuccess) return err;
-  const int tiles = ((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN);
-  kernel<<<tiles < sms ? tiles : sms, THREADS, Tile<BN>::SMEM, stream>>>(p);
-  return cudaGetLastError();
+  p.k_tiles[0] = (x.cols + BK - 1) / BK;
+  p.k_tiles[1] = 0;
+  p.y_halves = halves;
+  p.splits = splits;
+  p.k_per_split = (p.k_tiles[0] + splits - 1) / splits;
+  if ((splits - 1) * p.k_per_split >= p.k_tiles[0])
+    return cudaErrorInvalidValue;   // an empty split
+  return run<BN>(kernel, p, sms, stream, args...);
 }
 
 }  // namespace sm90

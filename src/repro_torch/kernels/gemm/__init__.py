@@ -1,6 +1,6 @@
 from .epilogue import EPILOGUE_NONE, Epilogue, rope_rotate  # noqa: F401
 from .prologue import PROLOGUE_NONE, Prologue, norm_prologue  # noqa: F401
-from .ref import gemm_fused_ref  # noqa: F401
+from .ref import gemm_fused_ref, rms_rows_ref  # noqa: F401
 from .ops import (BWD_MODES, KERNEL, default_bwd_mode,  # noqa: F401
                   gemm_fused, kernel_saves)
 from .ref import gemm_fused_bwd_ref  # noqa: F401

@@ -33,7 +33,8 @@ import torch
 
 from .._build import CudaKernel
 from .epilogue import Epilogue
-from .ops import chain_flags, kernel_saves, require
+from .ops import (COLUMN_COST, TILE_ROWS, TILE_WIDTHS, chain_flags,
+                  kernel_saves, require, sm_count)
 from .prologue import Prologue
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -51,13 +52,6 @@ DB_KERNEL = CudaKernel(
 ROWS_PER_PARTIAL = 32
 # rows per dbias partial of the operand pass (TR in csrc/gemm_bwd_g.cu)
 ROWS_PER_BIAS_PARTIAL = 64
-# the mainloop's tile widths (csrc/gemm_sm90.cuh)
-TILE_WIDTHS = (64, 128, 256)
-# its rows per tile (BM), and the relative cost of a column of a narrower
-# tile (more shared-memory reads per product; chip_smoke.py phase 3 times
-# every width at the training shapes against the pick)
-TILE_ROWS = 128
-_COLUMN_COST = {256: 1.0, 128: 1.15, 64: 1.5}
 
 
 def transposed_stride(m: int) -> int:
@@ -95,19 +89,9 @@ def pick_tile_n(m: int, n: int, sms: int) -> int:
 
     def cost(w):
         rounds = -(-tiles_m * -(-n // w) // sms)
-        return rounds * w * _COLUMN_COST[w]
+        return rounds * w * COLUMN_COST[w]
 
     return min(sorted(TILE_WIDTHS, reverse=True), key=cost)
-
-
-_SM_COUNT = {}
-
-
-def _sm_count(device) -> int:
-    if device.index not in _SM_COUNT:
-        _SM_COUNT[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SM_COUNT[device.index]
 
 
 def check_shapes(epilogue: Epilogue, n: int, k: int) -> None:
@@ -299,8 +283,8 @@ class BwdLaunch:
 
         n2 = 2 * n if epilogue.gate else n
         # dA's output is (M, K), dB's (K, N')
-        self.tile_da = tile_n or pick_tile_n(m, k, _sm_count(dev))
-        self.tile_db = tile_n or pick_tile_n(k, n2, _sm_count(dev))
+        self.tile_da = tile_n or pick_tile_n(m, k, sm_count(dev))
+        self.tile_db = tile_n or pick_tile_n(k, n2, sm_count(dev))
         self.ld_t = transposed_stride(m)
         self.gbar = torch.empty((m, n2), dtype=bf16, device=dev)
         self.gbar_t = torch.empty((n2, self.ld_t), dtype=bf16, device=dev)
@@ -340,30 +324,33 @@ class BwdLaunch:
                   chain_flags(self.epilogue), self.epilogue.head_dim, stream)
         G_KERNEL.check(code)
 
-    def da(self, passes: int = 3) -> tuple:
-        """(da (M, K) bf16, dgamma (K,) fp32 or None)."""
-        fn = DA_KERNEL.fn()
-        stream = DA_KERNEL.stream(self.device)
-        DA_KERNEL.launches += 1
+    def da(self, passes: int = 3, kernel: CudaKernel = DA_KERNEL) -> tuple:
+        """(da (M, K) bf16, dgamma (K,) fp32 or None). ``kernel``: another
+        build of the same entry point (the smoke's A/B against an earlier
+        tree)."""
+        fn = kernel.fn()
+        stream = kernel.stream(self.device)
+        kernel.launches += 1
         code = fn(self.gbar.data_ptr(), self.b, self.b2,
                   self.a if self.norm else None, self.gamma, self.rstd,
                   self._ptr(self.dan), self.da_out.data_ptr(),
                   self._ptr(self.dgamma_part), self.m, self.n, self.k,
                   self.tile_da, passes, stream)
-        DA_KERNEL.check(code)
+        kernel.check(code)
         dgamma = (None if self.dgamma_part is None
                   else self.dgamma_part.sum(dim=0))
         return self.da_out, dgamma
 
-    def db(self) -> tuple:
-        """(db (K, N) bf16, db2 (K, N) bf16 or None)."""
-        fn = DB_KERNEL.fn()
-        stream = DB_KERNEL.stream(self.device)
-        DB_KERNEL.launches += 1
+    def db(self, kernel: CudaKernel = DB_KERNEL) -> tuple:
+        """(db (K, N) bf16, db2 (K, N) bf16 or None); ``kernel`` as in
+        :meth:`da`."""
+        fn = kernel.fn()
+        stream = kernel.stream(self.device)
+        kernel.launches += 1
         code = fn(self.a_t.data_ptr(), self.gbar_t.data_ptr(),
                   self.db_out.data_ptr(), self._ptr(self.db2_out), self.m,
                   self.ld_t, self.n, self.k, self.tile_db, stream)
-        DB_KERNEL.check(code)
+        kernel.check(code)
         return self.db_out, self.db2_out
 
     def dbias(self):

@@ -5,12 +5,16 @@ launches the hand-written kernel (``csrc/gemm_fused.cu``) or raises. The
 chains the kernel takes are checked on both devices, so a call the CPU
 accepts is one the card accepts too:
 
-* prologue ``none`` or ``rmsnorm`` (row statistics computed in the launch);
+* prologue ``none`` or ``rmsnorm`` (a row pass in the launch writes the
+  row statistics and the normalised A);
 * epilogue stages scalar ``scale``, ``bias``, ``rope``, ``silu`` with
   ``gate`` (the dual-output SwiGLU up-projection) and ``residual``.
 
 On the card every operand is bf16 (sin/cos fp32), contiguous and 16-byte
-aligned, with N and K multiples of 8.
+aligned, with N and K multiples of 8. The kernel's tile width and the split
+of its contraction come from :func:`plan_gemm`, a function of the shape,
+the chain and the SM count alone, so a call gives the same bits every time
+and a row's result does not depend on the other rows.
 
 Under autograd the op is a ``torch.autograd.Function``. ``bwd_mode`` picks
 its backward: ``"kernel"`` (the default, see :func:`default_bwd_mode`) runs
@@ -32,12 +36,12 @@ import torch
 from .._build import CudaKernel
 from .epilogue import EPILOGUE_NONE, Epilogue
 from .prologue import PROLOGUE_NONE, Prologue
-from .ref import gemm_fused_ref
+from .ref import gemm_fused_ref, rms_rows_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "gemm_fused", "gemm_fused.cu", "gemm_fused_launch",
-    [_P] * 12 + [_F, _F] + [_I] * 5 + [_P])
+    [_P] * 14 + [_F, _F] + [_I] * 7 + [_P])
 
 BWD_MODES = ("kernel", "reference", "auto")
 _DEFAULT_BWD_MODE = ["kernel"]
@@ -67,8 +71,95 @@ def kernel_saves(epilogue: Epilogue) -> int:
 
 # bit flags of the C entry point (csrc/gemm_fused.cu)
 _EP_SCALE, _EP_BIAS, _EP_ROPE, _EP_GATE_SILU, _EP_RESIDUAL = 1, 2, 4, 8, 16
-# the kernel's non-gated block width: rope needs whole heads per block
+# a rope head_dim must divide this width: every tile the kernel takes for
+# a rope chain is a multiple of it, so tiles hold whole heads
 BLOCK_N = 128
+
+# The Hopper mainloop (csrc/gemm_sm90.cuh), shared with the backward: its
+# tile widths, rows per tile (BM) and contraction per stage (BK), and the
+# relative cost of a column of a narrower tile (more shared-memory reads
+# per product; chip_smoke.py phase 3 times every width against the pick).
+TILE_WIDTHS = (64, 128, 256)
+TILE_ROWS = 128
+TILE_DEPTH = 64
+COLUMN_COST = {256: 1.0, 128: 1.15, 64: 1.5}
+# The forward's plan (plan_gemm), fitted to chip_smoke.py phase 3's sweep
+# of every (width, split) on an H100: a width is taken where its tiles give
+# every SM about this many (the per-tile fill and epilogue cost more than a
+# narrower tile's extra rounds otherwise); up to one tile row of M (decode,
+# a prefill chunk) the tiles cannot fill the card and the contraction is
+# split, each split at least MIN_SPLIT_STAGES stages deep.
+TILES_PER_SM = {256: 1.9, 128: 0.9}
+MIN_SPLIT_STAGES = 4
+
+
+def tile_widths(gate: bool = False, head_dim: int = 0) -> tuple:
+    """The forward kernel's tile widths for a chain: the gated chain's
+    tiles hold two 64-column boxes or more (B's and B2's); a rope chain's
+    hold whole heads and are at most 128 wide (at 256 its epilogue was
+    slower at every shape of the sweep and spilled registers)."""
+    return tuple(w for w in TILE_WIDTHS
+                 if (not gate or w >= 128)
+                 and (not head_dim or (w % head_dim == 0 and w <= 128)))
+
+
+def plan_gemm(m: int, n: int, k: int, sms: int, *, gate: bool = False,
+              head_dim: int = 0) -> tuple:
+    """(tile width, split count) of the forward kernel for an (m, k) @
+    (k, n) product on ``sms`` SMs. Up to one tile row (M <= TILE_ROWS):
+    128-wide tiles (the gated chain's narrowest; the weight bytes bound
+    these shapes) and the contraction split over the SMs. Above: the widest
+    width whose tiles give each SM TILES_PER_SM of them, else the
+    narrowest; no split. A function of the shape and the SM count only, the
+    same for every M of one tile row."""
+    widths = tile_widths(gate, head_dim)
+    if m <= TILE_ROWS:
+        width = 128 if 128 in widths else max(widths)
+        return width, split_count(tile_count(m, n, width, gate), k, sms)
+    for w in sorted(widths, reverse=True):
+        if w in TILES_PER_SM and (tile_count(m, n, w, gate)
+                                  >= TILES_PER_SM[w] * sms):
+            return w, 1
+    return min(widths), 1
+
+
+def split_count(tiles: int, k: int, sms: int) -> int:
+    """The contraction's split for ``tiles`` output tiles over a K-deep
+    contraction: 1 when the tiles fill the SMs, else as many as fill them,
+    each at least MIN_SPLIT_STAGES stages deep, none empty."""
+    if tiles >= sms:
+        return 1
+    stages = -(-k // TILE_DEPTH)
+    splits = max(1, min(sms // tiles, stages // MIN_SPLIT_STAGES))
+    return -(-stages // -(-stages // splits))
+
+
+def tile_count(m: int, n: int, tile_n: int, gate: bool = False) -> int:
+    """Output tiles of an (m, n) result at tile width ``tile_n``."""
+    return -(-m // TILE_ROWS) * -(-n // (tile_n // 2 if gate else tile_n))
+
+
+def staged(epilogue: Epilogue, splits: int) -> bool:
+    """Whether the kernel hands its accumulators to the reduce pass through
+    an fp32 workspace: a split contraction, or a rope head_dim under 16,
+    whose partner columns another thread holds."""
+    return splits > 1 or (epilogue.rope and epilogue.head_dim % 16 != 0)
+
+
+def raw_width(n: int, tile_n: int, gate: bool) -> int:
+    """Columns of the kernel's raw accumulator for an N-wide output: N, or
+    for the gated chain whole tiles of B's and B2's columns side by side."""
+    return -(-n // (tile_n // 2)) * tile_n if gate else n
+
+
+_SM_COUNT = {}
+
+
+def sm_count(device) -> int:
+    if device.index not in _SM_COUNT:
+        _SM_COUNT[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device.index]
 
 
 def _check_operands(epilogue, prologue, provided, pro_provided):
@@ -97,10 +188,11 @@ def check_chain(epilogue: Epilogue, prologue: Prologue) -> None:
         raise NotImplementedError(
             f"gemm_fused kernel: activation {epilogue.activation!r} "
             f"(gate={epilogue.gate}) is not supported; silu with gate only")
-    if epilogue.rope and BLOCK_N % epilogue.head_dim:
+    if epilogue.rope and (BLOCK_N % epilogue.head_dim
+                          or epilogue.head_dim % 4):
         raise NotImplementedError(
-            f"gemm_fused kernel: rope head_dim {epilogue.head_dim} does not "
-            f"divide the kernel's block width {BLOCK_N}")
+            f"gemm_fused kernel: rope head_dim {epilogue.head_dim} must be a "
+            f"multiple of 4 dividing the kernel's block width {BLOCK_N}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,11 +261,18 @@ def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
     without a prologue, and on the CPU, where the plain backward recomputes
     them); ``preacts`` the raw accumulators rounded to A's type when
     ``save_preact``, else ()."""
+    kw = dict(b2=b2, bias=bias, residual=residual, scale=scale, sin=sin,
+              cos=cos, gamma=gamma, out_dtype=out_dtype,
+              save_preact=save_preact)
     if a.device.type == "cuda":
-        return _launch(a, b, epilogue, b2=b2, bias=bias, residual=residual,
-                       scale=scale, sin=sin, cos=cos, gamma=gamma,
-                       eps=prologue.eps, out_dtype=out_dtype,
-                       save_preact=save_preact)
+        return _launch(a, b, epilogue, eps=prologue.eps, **kw)
+    return forward_ref(a, b, epilogue, prologue, **kw)
+
+
+def forward_ref(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
+                cos, gamma, out_dtype, save_preact=False):
+    """The plain version of :func:`_forward` on any device: (out, None,
+    preacts)."""
     out = gemm_fused_ref(a, b, epilogue=epilogue, prologue=prologue, b2=b2,
                          bias=bias, residual=residual, scale=scale, sin=sin,
                          cos=cos, gamma=gamma, out_dtype=out_dtype)
@@ -181,8 +280,7 @@ def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
     if save_preact:
         an = a
         if not prologue.is_identity:
-            an = prologue.apply(a.float(), gamma=gamma.float().reshape(1, -1)
-                                ).to(a.dtype)
+            an = rms_rows_ref(a, gamma, prologue.eps)[0]
         preacts = tuple((an.float() @ w.float()).to(a.dtype)
                         for w in ((b, b2) if epilogue.gate else (b,)))
     return out, None, preacts
@@ -272,7 +370,9 @@ def require(t, name, shape, dtype, device):
 
 
 def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
-            eps, out_dtype, save_preact=False):
+            eps, out_dtype, save_preact=False, plan=None):
+    """One launch on the card: (out, rstd, preacts). ``plan`` (tile width,
+    split count) overrides :func:`plan_gemm` (the smoke's sweep)."""
     m, k = a.shape
     n = b.shape[1]
     dev, bf16 = a.device, torch.bfloat16
@@ -285,6 +385,12 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
     if epilogue.rope and n % epilogue.head_dim:
         raise ValueError(f"gemm_fused: N ({n}) is not whole heads of "
                          f"{epilogue.head_dim}")
+    hd = epilogue.head_dim if epilogue.rope else 0
+    tile_n, splits = plan or plan_gemm(m, n, k, sm_count(dev),
+                                       gate=epilogue.gate, head_dim=hd)
+    if tile_n not in tile_widths(epilogue.gate, hd) or splits < 1:
+        raise ValueError(f"gemm_fused kernel: plan {(tile_n, splits)} does "
+                         f"not fit chain {epilogue.describe()!r}")
     ptr = {"a": require(a, "a", (m, k), bf16, dev),
            "b": require(b, "b", (k, n), bf16, dev)}
     null = None
@@ -297,13 +403,17 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
     if residual is not None:
         ptr["residual"] = require(residual, "residual", (m, n), bf16, dev)
     if sin is not None:
-        hd = epilogue.head_dim
         ptr["sin"] = require(sin, "sin", (m, hd), torch.float32, dev)
         ptr["cos"] = require(cos, "cos", (m, hd), torch.float32, dev)
     flags = chain_flags(epilogue)
     out = torch.empty((m, n), dtype=bf16, device=dev)
-    rstd = (torch.empty((m,), dtype=torch.float32, device=dev)
-            if gamma is not None else None)
+    rstd = an = ws = None
+    if gamma is not None:
+        rstd = torch.empty((m,), dtype=torch.float32, device=dev)
+        an = torch.empty((m, k), dtype=bf16, device=dev)
+    if staged(epilogue, splits):
+        ws = torch.empty((splits, m, raw_width(n, tile_n, epilogue.gate)),
+                         dtype=torch.float32, device=dev)
     preacts = ()
     if save_preact:
         if not epilogue.gate:
@@ -311,17 +421,20 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
                 "gemm_fused kernel: preacts are saved for the gated chain only")
         preacts = tuple(torch.empty((m, n), dtype=bf16, device=dev)
                         for _ in range(2))
+
+    def addr(t):
+        return None if t is None else t.data_ptr()
+
     fn = KERNEL.fn()
     stream = KERNEL.stream(dev)
     KERNEL.launches += 1
     code = fn(ptr["a"], ptr["b"], ptr.get("b2", null), out.data_ptr(),
-              ptr.get("gamma", null),
-              None if rstd is None else rstd.data_ptr(),
+              ptr.get("gamma", null), addr(rstd), addr(an),
               ptr.get("bias", null), ptr.get("residual", null),
               ptr.get("sin", null), ptr.get("cos", null),
-              *([p.data_ptr() for p in preacts] or [null, null]),
+              *([p.data_ptr() for p in preacts] or [null, null]), addr(ws),
               float(scale) if scale is not None else 1.0,
               float(eps) if eps is not None else 0.0,
-              m, n, k, flags, epilogue.head_dim, stream)
+              m, n, k, flags, epilogue.head_dim, tile_n, splits, stream)
     KERNEL.check(code)
     return out, rstd, preacts

@@ -41,6 +41,17 @@ def gemm_fused_ref(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
     return epilogue.apply(acc, acc2, **kw).to(out_dtype)
 
 
+def rms_rows_ref(a, gamma, eps: float) -> tuple:
+    """Plain version of the forward kernel's rmsnorm row pass
+    (``gemm_fused_rows_kernel``): (An in A's type, rstd (M,) fp32), with
+    rstd = 1 / sqrt(mean(x^2) + eps) and An = (x rstd) gamma in fp32,
+    rounded to A's type: the reference's prologue and rounding point."""
+    x = a.to(torch.float32)
+    rstd = torch.rsqrt(torch.mean(x * x, dim=-1) + eps)
+    an = (x * rstd[:, None] * gamma.to(torch.float32)).to(a.dtype)
+    return an, rstd
+
+
 def _prologue_kwargs(prologue, gamma, beta, mean, rstd) -> dict:
     """The prologue's operands in fp32, shaped to broadcast over rows."""
     f32 = torch.float32

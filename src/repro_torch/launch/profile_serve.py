@@ -34,8 +34,12 @@ from repro_torch.serve import PagedEngine, Request
 
 # kernel name fragment -> family, checked in order
 FAMILIES = (
+    # the forward GEMM: the rmsnorm row pass, the mainloop (fused epilogue,
+    # or split partials) and the split-K reduce
+    ("gemm_fused_rows_kernel", "gemm_fused"),
     ("gemm_fused_kernel", "gemm_fused"),
-    ("rms_stats_kernel", "gemm_fused"),
+    ("gemm_fused_splitk_kernel", "gemm_fused"),
+    ("gemm_fused_reduce_kernel", "gemm_fused"),
     # the GEMM backward: operand pass, dA (GEMM and norm row pass), dB;
     # listed above the catch-all "gemm" below
     ("gemm_bwd_g_", "gemm_bwd_g"),

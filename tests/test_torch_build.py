@@ -152,9 +152,17 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
     """The serving profile files each device kernel under its family and
     counts overlapping device intervals once."""
     from repro_torch.launch import profile_serve as ps
-    assert ps.family("void gemm_fused_kernel<128, 128, 64, 32, false>") \
+    assert ps.family("void (anonymous namespace)::gemm_fused_kernel<128>"
+                     "(sm90::Params, (anonymous namespace)::Chain)") \
         == "gemm_fused"
-    assert ps.family("rms_stats_kernel") == "gemm_fused"
+    assert ps.family("(anonymous namespace)::gemm_fused_rows_kernel("
+                     "__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                     "__nv_bfloat16*, float*, int, float)") == "gemm_fused"
+    assert ps.family("void (anonymous namespace)::gemm_fused_splitk_kernel"
+                     "<256>(sm90::Params)") == "gemm_fused"
+    assert ps.family("(anonymous namespace)::gemm_fused_reduce_kernel("
+                     "float const*, int, int, int, (anonymous namespace)::"
+                     "Chain)") == "gemm_fused"
     assert ps.family("flash_fwd_kernel<64>") == "flash_attention_fwd"
     assert ps.family("flash_decode_kernel<64>") == "flash_decode"
     assert ps.family("void (anonymous namespace)::flash_decode_paged_kernel"

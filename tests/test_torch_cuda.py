@@ -1,6 +1,9 @@
 """The hand-written CUDA kernels against their plain versions, on the card,
 at small shapes that reach the edges the model's main path does not: ragged
 M, N and K tiles, a K that is no multiple of the K tile, head_dim 128,
+for the forward GEMM every tile width and split of its mainloop, its
+MN-major weight tiles bit for bit through a permutation matrix, the decode
+shapes (M 1-64 at K 8192) bitwise reproducible and row-independent,
 windows, soft caps, ring wrap-around, empty rows and a ragged last split;
 for the paged kernel, page sizes 16-128, null-page entries, a ragged row
 tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
@@ -34,6 +37,7 @@ from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_bwd_da_ref,
                                       gemm_fused,
                                       gemm_fused_bwd, gemm_fused_ref)
 from repro_torch.kernels.gemm import backward as gemm_backward
+from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.gemm.ops import _forward as gemm_forward
 
 pytestmark = pytest.mark.cuda
@@ -68,13 +72,17 @@ GEMM_CHAINS = {
     "identity": (dict(), False),
     "silu_gate_norm": (dict(activation="silu", gate=True), True),
     "residual_scale": (dict(residual=True, scale=True), False),
+    "silu_gate": (dict(activation="silu", gate=True), False),
 }
 # the backward also takes a bias without rope (dbias from the plain g)
 BWD_CHAINS = dict(GEMM_CHAINS, bias=(dict(bias=True), False))
+# the forward also takes a rope head_dim under 16 (through its workspace)
+FWD_CHAINS = dict(GEMM_CHAINS, rope_8=(dict(rope=True, head_dim=8), True))
+_ALL_CHAINS = dict(BWD_CHAINS, **FWD_CHAINS)
 
 
 def _gemm_operands(dev, chain, m, k, n):
-    ep_kw, norm = BWD_CHAINS[chain]
+    ep_kw, norm = _ALL_CHAINS[chain]
     rng = np.random.default_rng(m * 7 + k)
     kw = {"epilogue": Epilogue(**ep_kw)}
     if ep_kw.get("gate"):
@@ -99,8 +107,8 @@ def _gemm_operands(dev, chain, m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 136, 256), (200, 264, 384),
-                                   (1, 64, 128)])
-@pytest.mark.parametrize("chain", sorted(GEMM_CHAINS))
+                                   (1, 64, 128), (130, 8192, 640)])
+@pytest.mark.parametrize("chain", sorted(FWD_CHAINS))
 def test_gemm_fused_kernel_matches_plain(dev, chain, m, k, n):
     _, a, b, kw = _gemm_operands(dev, chain, m, k, n)
     before = kernels.launch_counts()["gemm_fused"]
@@ -108,6 +116,149 @@ def test_gemm_fused_kernel_matches_plain(dev, chain, m, k, n):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["gemm_fused"] == before + 1
     _close(got, gemm_fused_ref(a, b, **kw), 2 ** -6, 2e-2)
+
+
+def _close_to_rounded_product(got, an, w):
+    """A saved preact (bf16) against the fp32 product an @ w rounded to
+    bf16: two bf16 roundings apart (2^-7 relative) of two fp32 sums that
+    differ by their order, which the reassociation bound of a K-term sum
+    limits to 2 K 2^-24 (|an| @ |w|) per entry (near zero, where that is
+    more than the rounding, the two bf16 values may be several ulps
+    apart)."""
+    an, w = an.float(), w.float()
+    want = an @ w
+    slack = 2 * an.shape[1] * 2 ** -24 * (an.abs() @ w.abs())
+    err = (got.float() - want.to(torch.bfloat16).float()).abs()
+    assert torch.isfinite(got.float()).all()
+    assert bool((err <= 2 ** -7 * want.abs() + slack).all()), \
+        f"max err {err.max().item():.3g}"
+
+
+def _normed(a, kw, rstd):
+    """A as the kernel's product reads it: normalised with the kernel's row
+    statistics, x rstd gamma in fp32 rounded to bf16."""
+    if "gamma" not in kw:
+        return a
+    return (a.float() * rstd[:, None] * kw["gamma"].float()).to(a.dtype)
+
+
+def _fwd_launch(a, b, kw, plan=None, save_preact=False):
+    """One launch of the forward kernel: (out, rstd, preacts)."""
+    ep = kw["epilogue"]
+    pro = kw.get("prologue", Prologue())
+    extra = {k: kw.get(k) for k in ("b2", "bias", "residual", "sin", "cos",
+                                    "gamma")}
+    return gemm_ops._launch(a, b, ep, scale=kw.get("scale"), eps=pro.eps,
+                            out_dtype=torch.bfloat16, save_preact=save_preact,
+                            plan=plan, **extra)
+
+
+# every (tile width, split count) of the mainloop each chain can take
+_PLANS = [(chain, w, s) for chain in sorted(FWD_CHAINS)
+          for w in gemm_ops.tile_widths(
+              FWD_CHAINS[chain][0].get("gate", False),
+              FWD_CHAINS[chain][0].get("head_dim", 0))
+          for s in (1, 3)]
+
+
+@pytest.mark.parametrize("chain,tile_n,splits", _PLANS)
+def test_gemm_fused_every_plan(dev, chain, tile_n, splits):
+    """The forward kernel at each tile width and split count its chain
+    takes, with M, N and K across the tile and stage edges (N = 136 where
+    whole heads allow, else 384; K = 264: five 64-deep stages, the last
+    ragged, split 2 + 2 + 1; M = 200), against the plain version; the
+    gated chain's saved preacts too."""
+    n = 384 if FWD_CHAINS[chain][0].get("rope") else 136
+    _, a, b, kw = _gemm_operands(dev, chain, 200, 264, n)
+    gate = kw["epilogue"].gate
+    got, rstd, preacts = _fwd_launch(a, b, kw, (tile_n, splits), gate)
+    torch.cuda.synchronize()
+    _close(got, gemm_fused_ref(a, b, **kw), 2 ** -6, 2e-2)
+    for p, w in zip(preacts, (b, kw.get("b2"))):
+        _close_to_rounded_product(p, _normed(a, kw, rstd), w)
+    if "gamma" in kw:
+        _, want_rstd = gemm_ops.rms_rows_ref(a, kw["gamma"],
+                                             kw["prologue"].eps)
+        torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+
+
+def _permutation(rng, k, n, dev):
+    """(K, N) bf16 with one 1 per column, in a random row: A @ B picks A's
+    columns, exactly in bf16 (each sum has one non-zero term)."""
+    rows = rng.permutation(k)[:n]
+    b = torch.zeros(k, n, dtype=torch.bfloat16)
+    b[torch.from_numpy(rows), torch.arange(n)] = 1
+    return b.to(dev), torch.from_numpy(rows).to(dev)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("gate,tile_n", [(False, 64), (False, 128),
+                                         (False, 256), (True, 128),
+                                         (True, 256)])
+def test_gemm_fused_mn_major_tiles_are_exact(dev, gate, tile_n, splits):
+    """The weight tiles are read MN-major (as stored, N contiguous) through
+    64-column TMA boxes: with B a column selection of K at ragged N (not a
+    multiple of 64), the output is A's selected columns bit for bit at every
+    tile width and split, so a wrong descriptor, swizzle or box offset
+    cannot hide in a tolerance. The gated chain's two halves through its
+    saved preacts, which are A @ B and A @ B2 rounded once."""
+    m, k, n = 200, 264, 136
+    rng = np.random.default_rng(tile_n + splits)
+    a = _rand(rng, (m, k), dev)
+    b, cols = _permutation(rng, k, n, dev)
+    kw = {"epilogue": Epilogue()}
+    if gate:
+        kw = {"epilogue": Epilogue(activation="silu", gate=True)}
+        kw["b2"], cols2 = _permutation(rng, k, n, dev)
+    out, _, preacts = _fwd_launch(a, b, kw, (tile_n, splits), gate)
+    torch.cuda.synchronize()
+    if gate:
+        assert torch.equal(preacts[0], a[:, cols])
+        assert torch.equal(preacts[1], a[:, cols2])
+    else:
+        assert torch.equal(out, a[:, cols])
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 64])
+@pytest.mark.parametrize("chain", sorted(GEMM_CHAINS))
+def test_gemm_fused_small_m_is_reproducible(dev, chain, m):
+    """Decode's shapes (K 8192, N 2048, M up to 64: split over K by the
+    planner) against the plain version, with the gated chain's saved
+    preacts; two calls give the same bits (the splits are summed in a fixed
+    order)."""
+    _, a, b, kw = _gemm_operands(dev, chain, m, 8192, 2048)
+    gate = kw["epilogue"].gate
+    first = _fwd_launch(a, b, kw, save_preact=gate)
+    second = _fwd_launch(a, b, kw, save_preact=gate)
+    torch.cuda.synchronize()
+    assert gemm_ops.plan_gemm(m, 2048, 8192, gemm_ops.sm_count(dev),
+                              gate=gate,
+                              head_dim=kw["epilogue"].head_dim)[1] > 1
+    _close(first[0], gemm_fused_ref(a, b, **kw), 2 ** -6, 2e-2)
+    assert torch.equal(first[0], second[0])
+    for p, q in zip(first[2], second[2]):
+        assert torch.equal(p, q)
+    for p, w in zip(first[2], (b, kw.get("b2"))):
+        _close_to_rounded_product(p, _normed(a, kw, first[1]), w)
+
+
+@pytest.mark.parametrize("m", [4, 64, 200])
+@pytest.mark.parametrize("chain", sorted(GEMM_CHAINS))
+def test_gemm_fused_rows_are_independent(dev, chain, m):
+    """A row's output does not change when the batch's other rows (of A and
+    the residual) do: what lets a lone-slot replay give the served tokens."""
+    rng, a, b, kw = _gemm_operands(dev, chain, m, 2048, 512)
+    keep = [0, m - 1]
+    other = _rand(rng, (m, 2048), dev)
+    other[keep] = a[keep]
+    kw2 = dict(kw)
+    if "residual" in kw:
+        kw2["residual"] = _rand(rng, (m, 512), dev)
+        kw2["residual"][keep] = kw["residual"][keep]
+    first = gemm_fused(a, b, **kw)
+    second = gemm_fused(other, b, **kw2)
+    torch.cuda.synchronize()
+    assert torch.equal(first[keep], second[keep])
 
 
 @pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128", "window",
@@ -382,13 +533,16 @@ def test_gemm_bwd_at_the_training_shapes(dev, case):
     _check_bwd(run, a, b, g, rstd, ops)
 
 
+@pytest.mark.parametrize("m,k,n", [(200, 264, 384), (4, 8192, 2048),
+                                   (4096, 2048, 8192)])
 @pytest.mark.parametrize("norm", [True, False])
-def test_saved_preacts_are_the_rounded_accumulators(dev, norm):
+def test_saved_preacts_are_the_rounded_accumulators(dev, norm, m, k, n):
     """The gated forward's saved preacts equal the raw fp32 products of the
     normed A, rounded to bf16: at most one bf16 rounding apart (one unit in
     the last place, up to 2^-7 relative), the products summed in another
-    order."""
-    m, k, n = 200, 264, 384
+    order; at ragged edges, at decode's split shape and at the training
+    shape (M 4096), where K 2048-8192 terms summed in two orders may differ
+    by more than a rounding near zero (_close_to_rounded_product)."""
     rng, a, b, kw = _gemm_operands(dev, "silu_gate_norm", m, k, n)
     if not norm:
         kw.pop("prologue"), kw.pop("gamma")
@@ -397,6 +551,9 @@ def test_saved_preacts_are_the_rounded_accumulators(dev, norm):
     if norm:
         an = (a.float() * rstd[:, None] * kw["gamma"].float()).to(a.dtype)
     for got, w in ((p1, b), (p2, kw["b2"])):
+        if k > 264:
+            _close_to_rounded_product(got, an, w)
+            continue
         want = an.float() @ w.float()
         torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
                                    rtol=2 ** -7, atol=1e-6)
