@@ -20,7 +20,8 @@ Phases, each of which raises on failure (exit code non-zero):
    of the four fused GEMMs of a layer as its operand pass, dA (the GEMM
    and the norm row pass also timed apart) and dB, each tile width of the
    mainloop timed too, and the whole backward against the library's two
-   products; both flash-backward passes; the standalone
+   products; the flash backward whole, its main kernel and its dq
+   conversion timed apart; the standalone
    RoPE on prefill and training q/k, strided views of the q|k GEMM output,
    and its backward; the fused dropout + residual + layernorm at the
    memory-bound bench's shapes, rows 2048-8192 by d 2048, p 0.1, seed 7),
@@ -39,11 +40,12 @@ Phases, each of which raises on failure (exit code non-zero):
    ``F.scaled_dot_product_attention``, replayed from a CUDA graph like
    every other yardstick, its grads first held to the plain version (1% in
    norm; the entries outside the kernel's tolerance counted). With
-   ``--baseline-csrc DIR`` (an earlier tree's csrc: a WMMA forward
-   ``gemm_fused.cu`` whose entry point takes no plan, and dA and dB
-   sources with this tree's entry points), the
-   earlier forward is timed in turns with this one at every forward shape
-   and the earlier dA + dB with this one's (baseline, new, new, baseline).
+   ``--baseline-csrc DIR`` (an earlier tree's csrc: dA and dB sources
+   with this tree's entry points; a WMMA forward ``gemm_fused.cu`` whose
+   entry point takes no plan and a two-pass ``flash_bwd.cu``, each where
+   the tree has it), the earlier forward is timed in turns with this one
+   at every forward shape, the earlier dA + dB with this one's and the
+   earlier flash backward with this one (baseline, new, new, baseline).
    No PyTorch call computes RoPE (no library
    time); the fused norm's yardstick is ``F.layer_norm`` of the summed
    residual, without the dropout, the add and the residual output.
@@ -79,7 +81,8 @@ Phases, each of which raises on failure (exit code non-zero):
    ``remat_policy="full"``) in kernel mode: every launch counter, zeroed
    just before and read just after, equals 8 steps of what the model
    implies (per layer and step 8 ``gemm_fused``, 4 GEMM-backward operand
-   passes, 4 dA, 4 dB, 2 flash forward and 2 flash backward passes); every loss finite and the last
+   passes, 4 dA, 4 dB, 2 flash forward and 2 flash backward launches,
+   the main kernel and the dq conversion); every loss finite and the last
    below the first; then the same 8 steps on the plain bf16 path and the
    plain fp32 path (the truth, same seed and data): the kernel curve no
    further from the truth than 2.5x the plain bf16 curve's distance +
@@ -184,7 +187,7 @@ SOURCES = {
                     "src/repro/kernels/gemm/backward.py:63"),
     "gemm_bwd_db": ("src/repro_torch/kernels/csrc/gemm_bwd_db.cu",
                     "src/repro/kernels/gemm/backward.py:226"),
-    # both passes: _dq_kernel (:71) and _dkv_kernel (:114)
+    # one kernel for _dq_kernel (:71) and _dkv_kernel (:114)
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                             "src/repro/kernels/attention/kernel_bwd.py:71"),
     "rope": ("src/repro_torch/kernels/csrc/rope.cu",
@@ -333,28 +336,45 @@ def fwd_args(kw):
                  gamma=kw.get("gamma"), out_dtype=torch.bfloat16))
 
 
+def entry_arity(path: str, entry: str) -> int:
+    """The number of parameters of a C entry point in a source."""
+    import re
+    with open(path) as fh:
+        match = re.search(rf"\bint\s+{entry}\s*\(([^)]*)\)", fh.read())
+    return len(match.group(1).split(",")) if match else 0
+
+
 def baseline_kernels(csrc: str) -> dict:
-    """An earlier tree's forward (the WMMA ``gemm_fused.cu``, with its own
-    entry point: no row-pass scratch, workspace or plan) and GEMM backward
-    dA and dB (whose entry points are this tree's), built like the port's
-    kernels from the sources in ``csrc`` (their own headers included)."""
+    """An earlier tree's kernels, built like the port's from the sources in
+    ``csrc`` (their own headers included): GEMM backward dA and dB (whose
+    entry points are this tree's), and, where the tree has them, the WMMA
+    forward ``gemm_fused.cu`` (its own entry point: no row-pass scratch,
+    workspace or plan; None when the entry is this tree's, PR 16's on) and
+    the two-pass WMMA ``flash_bwd.cu`` (its own entry point: pass 0 dq,
+    pass 1 dk and dv; None when the entry is this tree's)."""
     from repro_torch.kernels._build import CudaKernel, build_all
 
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, Fl, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
     root = os.path.abspath(csrc)
+    wmma_fwd = [P] * 12 + [Fl, Fl] + [I] * 5 + [P]
+    two_pass = [P] * 9 + [I] * 7 + [L] * 12 + [Fl, Fl, I, I, P]
     kerns = {
-        "fwd": CudaKernel("baseline_gemm_fused",
-                          os.path.join(root, "gemm_fused.cu"),
-                          "gemm_fused_launch", [P] * 12 + [Fl, Fl] + [I] * 5
-                          + [P]),
         "da": CudaKernel("baseline_gemm_bwd_da",
                          os.path.join(root, "gemm_bwd_da.cu"),
                          "gemm_bwd_da_launch", gemm_bwd.DA_KERNEL.argtypes),
         "db": CudaKernel("baseline_gemm_bwd_db",
                          os.path.join(root, "gemm_bwd_db.cu"),
                          "gemm_bwd_db_launch", gemm_bwd.DB_KERNEL.argtypes)}
+    for key, src, entry, args in (
+            ("fwd", "gemm_fused.cu", "gemm_fused_launch", wmma_fwd),
+            ("flash_bwd", "flash_bwd.cu", "flash_bwd_launch", two_pass)):
+        path = os.path.join(root, src)
+        if entry_arity(path, entry) == len(args):
+            kerns[key] = CudaKernel(f"baseline_{src[:-3]}", path, entry, args)
+    log(f"[build] baseline from {root}: {sorted(kerns)}")
     build_all(list(kerns.values()))
-    return kerns
+    return {"fwd": None, "flash_bwd": None, **kerns}
 
 
 def baseline_fwd(kern, a, b, kw, save):
@@ -455,7 +475,7 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
             + (f"; without the prologue {row['no_prologue_ms'] * 1e3:.1f} "
                f"us against {row['ms'] * 1e3:.1f}"
                if "no_prologue_ms" in row else ""))
-        if old is not None:
+        if old is not None and old["fwd"] is not None:
             old_fn = baseline_fwd(old["fwd"], a, b, kw, save)
             # the baseline computes the same function
             check_close(f"baseline gemm_fused[{name}]", old_fn(), got,
@@ -847,19 +867,51 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     return rows, whole
 
 
-def measure_flash_bwd(cfg, dev, gen, timer):
-    """Both flash-backward passes at the training shape (B 4, H 32, Hkv 8,
-    S 1024, d 64, causal), q and k as views of the packed q|k output and dO
-    as the strided cotangent autograd hands over, against the plain
-    version. The whole backward needs five products per causal (q, k) pair
-    (s, dp, dq, dk, dv); the dq pass computes three of them and the dk/dv
-    pass four, so each pass is bound by its own share and the two-pass
-    design recomputes s and dp. Each pass's time includes the delta
-    preprocess. Yardstick: torch.autograd.grad through
+def baseline_flash_bwd(kern, args):
+    """The earlier two-pass flash backward (its own entry point: dq, dk, dv
+    written by a dq pass and a dk/dv pass, no workspace) as one callable
+    on the training case's causal inputs, delta computed as the wrapper
+    computes it; its launches are not counted."""
+    q, k, v, out, lse, do = args
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    lse32 = lse.float().contiguous()
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, skv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+
+    def launch():
+        delta = attn_bwd.attention_delta(out, do).contiguous()
+        for which in (0, 1):
+            kern.check(kern.fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse32.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), which, b, h, hkv, sq, skv, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], float(d ** -0.5), 0.0, 1, 0,
+                torch.cuda.current_stream().cuda_stream))
+        return dq, dk, dv
+    return launch
+
+
+def measure_flash_bwd(cfg, dev, gen, timer, old=None):
+    """The flash backward at the training shape (B 4, H 32, Hkv 8, S 1024,
+    d 64, causal), q and k as views of the packed q|k output and dO as the
+    strided cotangent autograd hands over, against the plain version. The
+    whole backward (``flash_attention_bwd`` as the model calls it: delta,
+    the zeroed dq workspace, the main kernel and the dq conversion) is
+    bound by the five products per causal (q, k) pair (s, dp, dv, dk, dq)
+    or by q, k, v, dO, lse and delta read and dq, dk, dv written once; the
+    main kernel (timed apart on prepared buffers) by the same products or
+    its bytes with the fp32 workspace written once; the conversion by the
+    workspace read and dq written; the plain-torch delta and the
+    workspace's zeroing are timed apart too. Yardstick: torch.autograd.grad through
     F.scaled_dot_product_attention, the forward not timed, captured in a
     CUDA graph on the stream that ran the forward (autograd runs each
     backward op on its forward's stream) and replayed like every other
-    call; its dq, dk, dv are held to the plain version first."""
+    call; its dq, dk, dv are held to the plain version first. With ``old``
+    (baseline_kernels), the earlier two-pass kernel, held to the plain
+    version, in turns with this one (baseline, new, new, baseline)."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bsz, seq = TRAIN_BATCH, TRAIN_SEQ
     bf16 = torch.bfloat16
@@ -874,10 +926,10 @@ def measure_flash_bwd(cfg, dev, gen, timer):
     do = rnd(bsz, seq, h, hd).transpose(1, 2)
     out, lse = flash_attention_fwd(q, k, v, causal=True)
     args = (q, k, v, out, lse, do)
+    opts = dict(causal=True, window=None, logit_scale=None, softcap=None)
 
-    def kernel(passes=(0, 1)):
-        return attn_bwd._launch(*args, causal=True, window=None,
-                                logit_scale=None, softcap=None, passes=passes)
+    def kernel():
+        return attn_bwd._launch(*args, **opts)
 
     qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
     doc = do.contiguous()
@@ -896,20 +948,27 @@ def measure_flash_bwd(cfg, dev, gen, timer):
     torch.cuda.current_stream().wait_stream(lib_stream)
     got = kernel()
     want = flash_attention_bwd_ref(*args, causal=True)
+    old_fn = (None if old is None or old["flash_bwd"] is None
+              else baseline_flash_bwd(old["flash_bwd"], args))
+    old_got = None if old_fn is None else old_fn()
     torch.cuda.synchronize()
     err = 0.0
     lib_err = {}
-    for name, g_, l_, w_ in zip(("dq", "dk", "dv"), got, lib, want):
-        e, tol = check_close(f"flash_attention_bwd[{name}]", g_, w_, 2e-2,
-                             2e-2)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        w_ = want[i]
+        e, tol = check_close(f"flash_attention_bwd[{name}]", got[i], w_,
+                             2e-2, 2e-2)
         err = max(err, e)
+        if old_got is not None:   # the baseline computes the same function
+            check_close(f"baseline flash_attention_bwd[{name}]", old_got[i],
+                        w_, 2e-2, 2e-2)
         # the yardstick computes the same function. It rounds at other
         # points than the plain version (which are the kernel's), and on an
         # H100 a few entries of millions miss the kernel's elementwise
         # tolerance (dq 1 of 8.4M, dk 1-15 of 2.1M, by up to 0.031), so it
         # is held to the plain version in norm, 1% of it, and the entries
         # outside the kernel's tolerance are counted
-        lf, wf = l_.float(), w_.float()
+        lf, wf = lib[i].float(), w_.float()
         if not torch.isfinite(lf).all():
             raise AssertionError(f"sdpa backward[{name}]: non-finite")
         diff = lf - wf
@@ -923,28 +982,48 @@ def measure_flash_bwd(cfg, dev, gen, timer):
             outside_kernel_tolerance=int(
                 (diff.abs() > 2e-2 * wf.abs() + atol).sum()))
         del lf, wf, diff
-    del got, want, lib
-    pairs = bsz * h * seq * (seq + 1) // 2
-    vecs = nbytes(lse) * 2                      # lse and delta
-    dq_b = nbytes(q, k, v, do, q) + vecs        # dq is q's size
-    dkv_b = nbytes(q, k, v, do, k, v) + vecs    # dk, dv are k's, v's
-    dq_ms, _ = bound(dq_b, (3 * 2 * pairs * hd, PEAK_BF16))
-    dkv_ms, _ = bound(dkv_b, (4 * 2 * pairs * hd, PEAK_BF16))
-    b_ms, b_by = bound(nbytes(q, k, v, do, q, k, v) + vecs,
-                       (5 * 2 * pairs * hd, PEAK_BF16))
-    return [dict(
+    del got, want, lib, old_got
+    work = attn_bwd.backward_work(bsz, h, hkv, seq, seq, hd, causal=True)
+    products = (work["flops"], PEAK_BF16)
+    b_ms, b_by = bound(work["bytes"], products)
+    main_ms, main_by = bound(work["main_bytes"], products)
+    conv_ms, _ = bound(work["convert_bytes"])
+    run = attn_bwd.FlashBwdLaunch(*args, **opts)
+    row = dict(
         case="train_causal_gqa", shape=[bsz, h, hkv, seq, hd],
         max_abs_err=err, tolerance=tol, ms=timer.ms(kernel),
         plain_ms=timer.ms(lambda: flash_attention_bwd_ref(*args,
                                                           causal=True)),
         library_ms=timer.ms(library, stream=lib_stream),
-        library_vs_plain=lib_err,
-        bound_ms=b_ms, bound_by=b_by,
-        dq_pass=dict(replaces="src/repro/kernels/attention/kernel_bwd.py:71",
-                     ms=timer.ms(lambda: kernel((0,))), bound_ms=dq_ms),
-        dkv_pass=dict(
-            replaces="src/repro/kernels/attention/kernel_bwd.py:114",
-            ms=timer.ms(lambda: kernel((1,))), bound_ms=dkv_ms))]
+        library_vs_plain=lib_err, bound_ms=b_ms, bound_by=b_by,
+        main=dict(replaces=["src/repro/kernels/attention/kernel_bwd.py:71",
+                            "src/repro/kernels/attention/kernel_bwd.py:114"],
+                  ms=timer.ms(run.main), bound_ms=main_ms,
+                  bound_by=main_by),
+        convert=dict(ms=timer.ms(run.convert), bound_ms=conv_ms,
+                     bound_by="bytes"),
+        # the whole's plain-torch parts: delta and the workspace's zeroing
+        delta_ms=timer.ms(lambda: attn_bwd.attention_delta(out, do)),
+        zero_ms=timer.ms(lambda: torch.zeros_like(run.dq_acc)))
+    if old_fn is not None:
+        turns = [timer.ms(old_fn), timer.ms(kernel), timer.ms(kernel),
+                 timer.ms(old_fn)]
+        row.update(baseline_turns_ms=turns,     # baseline, new, new, baseline
+                   baseline_ms=(turns[0] + turns[3]) / 2,
+                   new_in_turns_ms=(turns[1] + turns[2]) / 2)
+    log(f"[kernel] flash_attention_bwd[train] whole {row['ms'] * 1e3:.1f} us "
+        f"(bound {b_ms * 1e3:.2f}, {b_by}); main kernel "
+        f"{row['main']['ms'] * 1e3:.1f} us (bound {main_ms * 1e3:.2f}, "
+        f"{main_by}; {work['flops'] / row['main']['ms'] * 1e3 / PEAK_BF16:.1%}"
+        f" of the bf16 peak); dq conversion {row['convert']['ms'] * 1e3:.1f} "
+        f"us (bound {conv_ms * 1e3:.2f}, bytes); delta "
+        f"{row['delta_ms'] * 1e3:.1f} us, zeroing {row['zero_ms'] * 1e3:.1f}"
+        f" us; SDPA backward {row['library_ms'] * 1e3:.1f} us"
+        + (f"; baseline {row['baseline_ms'] * 1e3:.1f} us against "
+           f"{row['new_in_turns_ms'] * 1e3:.1f} in turns"
+           if old_fn is not None else ""))
+    del run
+    return [row]
 
 
 def measure_rope(cfg, dev, gen, timer):
@@ -1395,8 +1474,9 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
 def expected_train_launches(cfg, steps: int) -> dict:
     """Per layer and step under remat_policy='full': the forward's 4 fused
     GEMMs and flash forward, again in the backward's recompute, then for
-    each GEMM its backward's operand pass, dA and dB (4 each), and the two
-    flash-backward passes."""
+    each GEMM its backward's operand pass, dA and dB (4 each), and the
+    flash backward's two launches (the main kernel and the dq
+    conversion)."""
     n = cfg.num_layers * steps
     return {**no_launches(), "gemm_fused": 8 * n, "flash_attention_fwd": 2 * n,
             "gemm_bwd_g": 4 * n, "gemm_bwd_da": 4 * n, "gemm_bwd_db": 4 * n,
@@ -1638,8 +1718,8 @@ def main(argv=None) -> int:
                     help="also write the full report to OUT/chip_smoke.json")
     ap.add_argument("--baseline-csrc", default=None,
                     help="an earlier tree's csrc directory: time its "
-                    "forward GEMM and GEMM backward (dA + dB) in turns with "
-                    "this one's")
+                    "forward GEMM, GEMM backward (dA + dB) and flash "
+                    "backward in turns with this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1672,7 +1752,7 @@ def main(argv=None) -> int:
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
     measured.update(bwd_rows)
     measured.update({
-        "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen, timer),
+        "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen, timer, old),
         "rope": measure_rope(cfg, dev, gen, timer),
         "fused_norm": measure_fused_norm(dev, gen, timer)})
     for name, rows in measured.items():

@@ -1,6 +1,8 @@
 // One Hopper GEMM mainloop for C = X @ Y^T, shared by the forward fused
 // GEMM (gemm_fused.cu) and the GEMM backward kernels (gemm_bwd_da.cu,
-// gemm_bwd_db.cu).
+// gemm_bwd_db.cu). The attention backward (flash_bwd.cu) uses its
+// primitives: the barriers, TMA loads (and the 4-D ones of its strided
+// views), the descriptors and wgmma (with A from registers too).
 //
 //   X (M, Kc) is bf16 and contraction-contiguous ("K-major"). Y is bf16,
 //   either K-major, (N, Kc) (the backward), or MN-major, (Kc, N) with N
@@ -146,6 +148,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
           smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// 4-D TMA load of the box at (c0, c1, c2, c3), c0 along the contiguous dim
+// (the attention backward's (d, S, H, B) views).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -299,6 +315,96 @@ struct Wgmma<256> {
       : "l"(xd), "l"(yd), "r"(scale_d), "n"(TB));
   }
 };
+
+// wgmma.mma_async m64nNk16 with A from registers: four 32-bit registers of
+// bf16 pairs a thread, in the layout of an m64nN fp32 accumulator's 16
+// columns packed pairwise (columns 2 (lane % 4) (+ 1) of rows
+// 16 warp + lane / 4, then row + 8, then both again 8 columns on), so a
+// product's accumulator rounded to bf16 feeds the next product with no
+// shuffle (the attention backward's P and dS). B from shared memory,
+// K-major for TB == 0, MN-major for TB == 1.
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<32> {
+  template <int TB>
+  __device__ __forceinline__ static void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t yd, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(yd), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  template <int TB>
+  __device__ __forceinline__ static void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t yd, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(yd), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  template <int TB>
+  __device__ __forceinline__ static void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t yd, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(yd), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
 
 // Tile t of the persistent walk -> (tile row, tile column): GROUP_M tile
 // rows at a time, column by column within the group.
@@ -531,6 +637,42 @@ inline cudaError_t make_map(CUtensorMap* map, const Operand& op,
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(op.base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 4-D view (d, S, H, B) read through its strides (elements; d is
+// contiguous), as the attention backward reads q, k, v and dO.
+struct View4 {
+  const void* base;
+  int d, s, h, b;
+  long long st_s, st_h, st_b;
+};
+
+// Its TMA map: boxes of 64 d-columns (128 bytes) by box_rows rows of one
+// head, the 128-byte swizzle, zeros past S within the head (a ragged
+// length never reads the next head's rows). TMA's rules: the base 16-byte
+// aligned, every stride a multiple of 16 bytes, d a multiple of 64.
+inline cudaError_t make_map_4d(CUtensorMap* map, const View4& v,
+                               int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (v.base == nullptr || (reinterpret_cast<uintptr_t>(v.base) & 15) ||
+      v.d % 64 || v.s < 1 || v.h < 1 || v.b < 1 || (v.st_s * 2) % 16 ||
+      (v.st_h * 2) % 16 || (v.st_b * 2) % 16)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)v.d, (cuuint64_t)v.s,
+                              (cuuint64_t)v.h, (cuuint64_t)v.b};
+  const cuuint64_t strides[3] = {(cuuint64_t)v.st_s * 2,
+                                 (cuuint64_t)v.st_h * 2,
+                                 (cuuint64_t)v.st_b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(v.base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -46,8 +46,9 @@ FAMILIES = (
     ("gemm_bwd_da_kernel", "gemm_bwd_da"),
     ("rms_transpose_kernel", "gemm_bwd_da"),
     ("gemm_bwd_db_kernel", "gemm_bwd_db"),
-    ("flash_bwd_dq_kernel", "flash_attention_bwd"),
-    ("flash_bwd_dkv_kernel", "flash_attention_bwd"),
+    # the flash backward: the main kernel and the dq convert pass
+    ("flash_bwd_kernel", "flash_attention_bwd"),
+    ("flash_bwd_dq_convert_kernel", "flash_attention_bwd"),
     ("flash_fwd_kernel", "flash_attention_fwd"),
     ("flash_decode_paged_kernel", "flash_decode_paged"),
     ("flash_decode_kernel", "flash_decode"),

@@ -179,8 +179,12 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
     assert ps.family("rms_transpose_kernel") == "gemm_bwd_da"
     assert ps.family("void (anonymous namespace)::gemm_bwd_db_kernel<64>"
                      "(sm90::Params)") == "gemm_bwd_db"
-    assert ps.family("flash_bwd_dq_kernel<64>") == "flash_attention_bwd"
-    assert ps.family("flash_bwd_dkv_kernel<128>") == "flash_attention_bwd"
+    assert ps.family("void (anonymous namespace)::flash_bwd_kernel<64>"
+                     "((anonymous namespace)::BwdParams)") \
+        == "flash_attention_bwd"
+    assert ps.family("void (anonymous namespace)::flash_bwd_dq_convert_kernel"
+                     "<128>(float const*, __nv_bfloat16*, int, int)") \
+        == "flash_attention_bwd"
     assert ps.family("void (anonymous namespace)::rope_kernel<__nv_bfloat16>"
                      "(RopeArgs)") == "rope"
     assert ps.family("fused_norm_kernel<float, float>") == "fused_norm"

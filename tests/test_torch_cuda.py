@@ -11,8 +11,10 @@ over the gathered pages; for the backward kernels, every chain the GEMM
 takes at ragged M, N and K, each tile width of the GEMM backward's
 mainloop, its operand pass against the plain version, the llama-1b
 training shapes, the forward's saved preacts against the rounded
-accumulator, the flash backward at head_dim 128 with windows, soft caps and
-strided views, and autograd through both ops.
+accumulator, the flash backward at head_dim 128 with windows, soft caps,
+strided views, groups 1-8 and the training shape (dk and dv bitwise across
+two calls, a view the TMA cannot read refused), and autograd through both
+ops.
 
 Marked ``cuda``: skipped on a machine without a CUDA card. On the card:
 
@@ -598,19 +600,21 @@ def _attn_case(case):
         kw["softcap"] = 5.0
     elif case == "noncausal_cross":
         kw, sq, skv = {"causal": False}, 70, 130
+    elif case == "mha":            # group 1
+        h = hkv = 4
+    elif case == "group8":
+        h, hkv = 8, 1
+    elif case == "train":          # llama-1b's training shape
+        b, h, hkv, sq, skv = 4, 32, 8, 1024, 1024
     return b, h, hkv, sq, skv, d, kw
 
 
-@pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128",
-                                  "d128_window", "window", "softcap",
-                                  "noncausal_cross"])
-def test_flash_attention_bwd_kernel_matches_plain(dev, case):
-    """Both passes against the plain version on the same q, k, v, out, lse
-    and dO, q and k as strided views of one packed buffer and dO as the
-    strided cotangent autograd hands over: within 2e-2 relative + 2% of
-    each gradient's RMS (bf16 outputs, sums in another order)."""
+def _attn_bwd_inputs(case, dev, seed=6):
+    """q, k, v, out, lse, dO of a case: q and k strided views of one packed
+    q|k buffer where sq == skv, v a view of its own projection, dO the
+    strided cotangent autograd hands over."""
     b, h, hkv, sq, skv, d, kw = _attn_case(case)
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(seed)
     if sq == skv:
         qk = _rand(rng, (b, sq, (h + hkv) * d), dev)
         q = qk[..., :h * d].reshape(b, sq, h, d).transpose(1, 2)
@@ -622,13 +626,58 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, case):
                                                     ).transpose(1, 2)
     do = _rand(rng, (b, sq, h, d), dev).transpose(1, 2)
     out, lse = flash_attention_fwd(q, k, v, **kw)
+    return (q, k, v, out, lse, do), kw
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128",
+                                  "d128_window", "window", "softcap",
+                                  "noncausal_cross", "mha", "group8",
+                                  "train"])
+def test_flash_attention_bwd_kernel_matches_plain(dev, case):
+    """The main kernel and the dq conversion against the plain version on
+    the same q, k, v, out, lse and dO, q and k as strided views of one
+    packed buffer and dO as the strided cotangent autograd hands over:
+    within 2e-2 relative + 2% of each gradient's RMS (bf16 outputs, sums in
+    another order). Groups 1, 4 and 8; "train" is llama-1b's training
+    shape (B 4, H 32, Hkv 8, S 1024, d 64, causal)."""
+    args, kw = _attn_bwd_inputs(case, dev)
     before = kernels.launch_counts()["flash_attention_bwd"]
-    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    got = flash_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention_bwd"] == before + 2
-    want = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    want = flash_attention_bwd_ref(*args, **kw)
     for g_, w_ in zip(got, want):
         _close(g_, w_, 2e-2, 2e-2)
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "d128_window"])
+def test_flash_attention_bwd_dk_dv_are_reproducible(dev, case):
+    """Two calls on the same inputs: dk and dv bit for bit (each block sums
+    its key tile's pairs in a fixed order); dq, summed over key tiles by
+    fp32 reduce-adds in an order that changes from run to run, within one
+    bf16 rounding (2^-7 relative) + 0.1% of its RMS."""
+    args, kw = _attn_bwd_inputs(case, dev)
+    first = flash_attention_bwd(*args, **kw)
+    second = flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    _close(first[0], second[0], 2 ** -7, 1e-3)
+
+
+def test_flash_attention_bwd_refuses_a_view_tma_cannot_read(dev):
+    """A q view that starts 2 bytes into its buffer is refused before any
+    launch (the TMA needs a 16-byte aligned start)."""
+    args, kw = _attn_bwd_inputs("causal_gqa", dev)
+    q = args[0]
+    b, h, sq, d = q.shape
+    buf = torch.zeros((b, h, sq, d + 8), dtype=q.dtype, device=dev)
+    shifted = buf[..., 1:d + 1]
+    shifted.copy_(q)
+    before = kernels.launch_counts()["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(shifted, *args[1:], **kw)
+    assert kernels.launch_counts()["flash_attention_bwd"] == before
 
 
 def test_attention_autograd_launches_both_passes(dev):
