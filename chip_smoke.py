@@ -7,12 +7,17 @@ Phases, each of which raises on failure (exit code non-zero):
 1. Device: refuse to run without CUDA; print the card's name and power
    limit as nvidia-smi gives them.
 2. Build: compile the ten CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` (one nvcc per source, in parallel); print the build time and what
-   ptxas reports for each kernel.
+   csrc`` (one nvcc per source, in parallel); print the build time, what
+   ptxas reports for each kernel and, from ``cuobjdump -sass``, how many
+   wgmma (HGMMA), TMA loads (UTMALDG), WMMA mma.sync (HMMA.16816) and
+   wgmma waits each library holds.
 3. Kernels: each kernel against its plain torch version on the card, at the
    llama-1b main-path shapes (prefill B 4, S 256, so M = 1024; decode B 4
    over a 296-slot cache; paged decode over 8 slots of an 8-page bucket of
    a 65-page pool, a 128-token chunk at position 192 and a 4-token verify;
+   the flash forward at served prefill (B 4, S 256), the paged engine's
+   lone-sequence prefill (B 1, S 256) and training (B 4, S 1024), q, k and
+   v strided views of the projections as the model passes them;
    the forward GEMM's prefill, decode and training (M = 4096) launches,
    the gated one saving its preacts as autograd does, each also at every
    tile width and split count against the planner's pick;
@@ -43,9 +48,11 @@ Phases, each of which raises on failure (exit code non-zero):
    ``--baseline-csrc DIR`` (an earlier tree's csrc: dA and dB sources
    with this tree's entry points; a WMMA forward ``gemm_fused.cu`` whose
    entry point takes no plan and a two-pass ``flash_bwd.cu``, each where
-   the tree has it), the earlier forward is timed in turns with this one
-   at every forward shape, the earlier dA + dB with this one's and the
-   earlier flash backward with this one (baseline, new, new, baseline).
+   the tree has it; its ``flash_fwd.cu``, whose entry point is this
+   tree's), the earlier forward is timed in turns with this one at every
+   forward shape, the earlier dA + dB with this one's, the earlier flash
+   forward with this one at its three shapes and the earlier flash
+   backward with this one (baseline, new, new, baseline).
    No PyTorch call computes RoPE (no library
    time); the fused norm's yardstick is ``F.layer_norm`` of the summed
    residual, without the dropout, the add and the residual output.
@@ -135,6 +142,7 @@ from repro_torch.kernels.attention import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref,
     flash_decode, flash_decode_paged)
 from repro_torch.kernels.attention import backward as attn_bwd  # noqa: E402
+from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.gemm import (EPILOGUE_NONE, PROLOGUE_NONE,  # noqa: E402
                                       Epilogue, Prologue, rms_rows_ref)
 from repro_torch.kernels.gemm import backward as gemm_bwd  # noqa: E402
@@ -248,6 +256,20 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.16816", "WARPGROUP.DEPBAR")
+
+
+def sass_counts(lib) -> dict:
+    """How many times each of SASS_OPS appears in a library's machine code
+    (``cuobjdump -sass``, beside nvcc): wgmma, TMA loads, the mma.sync of
+    WMMA fragments, and the waits for wgmma groups."""
+    from repro_torch.kernels._build import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {op: text.count(op) for op in SASS_OPS}
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -351,7 +373,9 @@ def baseline_kernels(csrc: str) -> dict:
     forward ``gemm_fused.cu`` (its own entry point: no row-pass scratch,
     workspace or plan; None when the entry is this tree's, PR 16's on) and
     the two-pass WMMA ``flash_bwd.cu`` (its own entry point: pass 0 dq,
-    pass 1 dk and dv; None when the entry is this tree's)."""
+    pass 1 dk and dv; None when the entry is this tree's), and the flash
+    forward ``flash_fwd.cu`` (PR 17 and before: the WMMA kernel), whose
+    entry point has this tree's arity and arguments."""
     from repro_torch.kernels._build import CudaKernel, build_all
 
     P, I, Fl, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -368,13 +392,15 @@ def baseline_kernels(csrc: str) -> dict:
                          "gemm_bwd_db_launch", gemm_bwd.DB_KERNEL.argtypes)}
     for key, src, entry, args in (
             ("fwd", "gemm_fused.cu", "gemm_fused_launch", wmma_fwd),
-            ("flash_bwd", "flash_bwd.cu", "flash_bwd_launch", two_pass)):
+            ("flash_bwd", "flash_bwd.cu", "flash_bwd_launch", two_pass),
+            ("flash_fwd", "flash_fwd.cu", "flash_fwd_launch",
+             attn_ops.KERNEL.argtypes)):
         path = os.path.join(root, src)
         if entry_arity(path, entry) == len(args):
             kerns[key] = CudaKernel(f"baseline_{src[:-3]}", path, entry, args)
     log(f"[build] baseline from {root}: {sorted(kerns)}")
     build_all(list(kerns.values()))
-    return {"fwd": None, "flash_bwd": None, **kerns}
+    return {"fwd": None, "flash_bwd": None, "flash_fwd": None, **kerns}
 
 
 def baseline_fwd(kern, a, b, kw, save):
@@ -493,36 +519,94 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
     return rows
 
 
-def measure_flash(cfg, dev, gen, timer):
-    """Prefill attention with q/k/v as the model passes them: strided views
-    of the q|k projection output and the v projection output."""
+def baseline_flash_fwd(kern, q, k, v):
+    """The earlier flash forward (the entry point's arguments are this
+    tree's) as one callable on a causal case's q, k, v; its launches are
+    not counted."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+
+    def launch():
+        kern.check(kern.fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, hkv, sq, skv, d, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], float(d ** -0.5), 0.0, 1, 0,
+            torch.cuda.current_stream().cuda_stream))
+        return out, lse
+    return launch
+
+
+def measure_flash(cfg, dev, gen, timer, old=None):
+    """The flash forward at its three main-path shapes, causal, q/k/v as the
+    model passes them (strided views of the q|k projection output and the
+    v projection output): served prefill (B 4, S 256), the paged engine's
+    lone-sequence prefill (B 1, S 256) and training (B 4, S 1024). Bound:
+    ``ops.forward_work``, the two products per visible pair at the bf16
+    peak or q, k, v, out and lse moved once. Yardstick:
+    F.scaled_dot_product_attention on contiguous copies. With ``old``
+    (baseline_kernels), the earlier kernel, held to the plain version, in
+    turns with this one (baseline, new, new, baseline)."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bf16 = torch.bfloat16
-    qk = torch.randn(BATCH, PROMPT, (h + hkv) * hd, generator=gen,
-                     device=dev).to(bf16)
-    v = torch.randn(BATCH, PROMPT, hkv * hd, generator=gen, device=dev).to(bf16)
-    q = qk[..., : h * hd].reshape(BATCH, PROMPT, h, hd).transpose(1, 2)
-    k = qk[..., h * hd:].reshape(BATCH, PROMPT, hkv, hd).transpose(1, 2)
-    v = v.reshape(BATCH, PROMPT, hkv, hd).transpose(1, 2)
-    out, lse = flash_attention_fwd(q, k, v, causal=True)
-    want, want_lse = flash_attention_fwd_ref(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err, tol = check_close("flash_attention_fwd", out, want, 2e-2, 2e-2)
-    lse_err, _ = check_close("flash_attention_fwd[lse]", lse, want_lse, 1e-4,
-                             1e-4)
-    pairs = BATCH * h * PROMPT * (PROMPT + 1) // 2     # causal (q, k) pairs
-    traffic = nbytes(q, k, v, out, lse)
-    b_ms, b_by = bound(traffic, (4 * pairs * hd, PEAK_BF16))
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    return [dict(
-        case="prefill_causal_gqa", shape=[BATCH, h, hkv, PROMPT, hd],
-        max_abs_err=max(err, lse_err), tolerance=tol,
-        ms=timer.ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
-        plain_ms=timer.ms(lambda: flash_attention_fwd_ref(q, k, v,
-                                                          causal=True)),
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-            qc, kc, vc, is_causal=True, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by)]
+    rows = []
+    for case, bsz, seq in (("prefill_causal_gqa", BATCH, PROMPT),
+                           ("paged_prefill_causal_gqa", 1, PROMPT),
+                           ("train_causal_gqa", TRAIN_BATCH, TRAIN_SEQ)):
+        qk = torch.randn(bsz, seq, (h + hkv) * hd, generator=gen,
+                         device=dev).to(bf16)
+        v = torch.randn(bsz, seq, hkv * hd, generator=gen,
+                        device=dev).to(bf16)
+        q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
+        k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
+        v = v.reshape(bsz, seq, hkv, hd).transpose(1, 2)
+
+        def kernel():
+            return flash_attention_fwd(q, k, v, causal=True)
+
+        def plain():
+            return flash_attention_fwd_ref(q, k, v, causal=True)
+
+        out, lse = kernel()
+        want, want_lse = plain()
+        torch.cuda.synchronize()
+        err, tol = check_close(f"flash_attention_fwd[{case}]", out, want,
+                               2e-2, 2e-2)
+        lse_err, _ = check_close(f"flash_attention_fwd[{case}][lse]", lse,
+                                 want_lse, 1e-4, 1e-4)
+        work = attn_ops.forward_work(bsz, h, hkv, seq, seq, hd, causal=True)
+        b_ms, b_by = bound(work["bytes"], (work["flops"], PEAK_BF16))
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        row = dict(
+            case=case, shape=[bsz, h, hkv, seq, hd],
+            max_abs_err=max(err, lse_err), tolerance=tol, ms=timer.ms(kernel),
+            plain_ms=timer.ms(plain),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by)
+        if old is not None and old["flash_fwd"] is not None:
+            old_fn = baseline_flash_fwd(old["flash_fwd"], q, k, v)
+            got_old = old_fn()
+            torch.cuda.synchronize()
+            # the baseline computes the same function
+            check_close(f"baseline flash_attention_fwd[{case}]", got_old[0],
+                        want, 2e-2, 2e-2)
+            turns = [timer.ms(old_fn), timer.ms(kernel), timer.ms(kernel),
+                     timer.ms(old_fn)]
+            row.update(baseline_turns_ms=turns,   # baseline, new, new, baseline
+                       baseline_ms=(turns[0] + turns[3]) / 2,
+                       new_in_turns_ms=(turns[1] + turns[2]) / 2)
+        log(f"[kernel] flash_attention_fwd[{case}] {row['ms'] * 1e3:.1f} us "
+            f"(bound {b_ms * 1e3:.2f}, {b_by}; "
+            f"{work['flops'] / row['ms'] * 1e3 / PEAK_BF16:.1%} of the bf16 "
+            f"peak); SDPA {row['library_ms'] * 1e3:.1f} us"
+            + (f"; baseline {row['baseline_ms'] * 1e3:.1f} us against "
+               f"{row['new_in_turns_ms'] * 1e3:.1f} in turns"
+               if "baseline_ms" in row else ""))
+        rows.append(row)
+        del out, lse, want, want_lse, qc, kc, vc
+    return rows
 
 
 def measure_decode(cfg, dev, gen, timer):
@@ -1719,7 +1803,7 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-csrc", default=None,
                     help="an earlier tree's csrc directory: time its "
                     "forward GEMM, GEMM backward (dA + dB) and flash "
-                    "backward in turns with this one's")
+                    "forward and backward in turns with this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1739,6 +1823,9 @@ def main(argv=None) -> int:
         for line in str(text).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    sass = {k.name: sass_counts(k.lib_path) for k in kernels.KERNELS}
+    for name, counts in sass.items():
+        log(f"[build] {name}: sass {counts}")
 
     build_model(get_config("llama-1b"), device=dev)   # pins fp32 numerics
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1746,7 +1833,8 @@ def main(argv=None) -> int:
     cfg = get_config("llama-1b")
     old = baseline_kernels(args.baseline_csrc) if args.baseline_csrc else None
     measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer, old),
-                "flash_attention_fwd": measure_flash(cfg, dev, gen, timer),
+                "flash_attention_fwd": measure_flash(cfg, dev, gen, timer,
+                                                     old),
                 "flash_decode": measure_decode(cfg, dev, gen, timer),
                 "flash_decode_paged": measure_paged(cfg, dev, gen, timer)}
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
@@ -1804,7 +1892,7 @@ def main(argv=None) -> int:
                            else sum(r["library_ms"] for r in rows)),
             "cases": rows})
     report = {"device": card, "kernels": line, "phases": phases,
-              "gemm_bwd_whole": bwd_whole}
+              "gemm_bwd_whole": bwd_whole, "sass": sass}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

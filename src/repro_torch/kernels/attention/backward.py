@@ -14,7 +14,7 @@ its blocks (longest first) with each block's q tiles; the CPU tests hold
 it. A CPU tensor runs the plain version (:func:`flash_attention_bwd_ref`,
 the same rounding points); a CUDA tensor launches the kernels or raises.
 q, k, v and dO are read through TMA maps of their strided views
-(:func:`check_tma_view`), so the packed q|k projection and the cotangent
+(``ops.check_tma_view``), so the packed q|k projection and the cotangent
 autograd hands over need no copy.
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from .._build import CudaKernel
 from .epilogue import cap_logits
-from .ops import HEAD_DIMS
+from .ops import HEAD_DIMS, check_tma_view, visible_pairs
 from .ref import MASK_VALUE
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -85,17 +85,6 @@ def plan_blocks(sq: int, skv: int, head_dim: int, *, causal: bool,
                                window=window)) for kt in order]
 
 
-def visible_pairs(sq: int, skv: int, *, causal: bool,
-                  window: int | None) -> int:
-    """Visible (q, k) pairs of one head under the mask."""
-    total = 0
-    for qpos in range(sq):
-        lo = max(0, qpos - window + 1) if window else 0
-        hi = min(qpos, skv - 1) if causal else skv - 1
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def backward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int, *,
                   causal: bool, window: int | None = None) -> dict:
     """What the backward must do, for its bounds: ``flops`` of the five
@@ -115,24 +104,6 @@ def backward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int, *,
             "bytes": 3 * q_b + 4 * kv_b + vec_b,
             "main_bytes": 2 * q_b + 4 * kv_b + vec_b + acc_b,
             "convert_bytes": acc_b + q_b}
-
-
-def check_tma_view(t, name: str) -> None:
-    """Raise ValueError unless a 4-D bf16 view can be read by a TMA map:
-    a contiguous last dim, a 16-byte aligned start and every other stride
-    a multiple of 16 bytes (the TMA's rules)."""
-    if t.dim() != 4 or t.stride(3) != 1:
-        raise ValueError(f"attention backward kernel: {name} must be a 4-D "
-                         f"view with a contiguous last dim, got shape "
-                         f"{tuple(t.shape)}, strides {t.stride()}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"attention backward kernel: {name} starts at an "
-                         "address that is not 16-byte aligned")
-    bad = [s for s in t.stride()[:3] if (s * t.element_size()) % 16]
-    if bad:
-        raise ValueError(f"attention backward kernel: {name} has strides "
-                         f"{t.stride()[:3]} (elements), not all multiples "
-                         "of 16 bytes")
 
 
 def attention_delta(out, do):

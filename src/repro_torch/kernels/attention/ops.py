@@ -3,10 +3,16 @@
 A CPU tensor runs the plain version (:func:`flash_attention_fwd_ref`); a
 CUDA tensor launches the hand-written kernel (``csrc/flash_fwd.cu``) or
 raises. The kernel takes the logit soft cap but not sinks, on either device.
-On the card q, k and v are bf16 with a contiguous last dim of 64 or 128;
-their other strides are passed to the kernel, so views need no copy. Under
-autograd the op is a ``torch.autograd.Function`` whose forward keeps (q, k,
-v, out, lse) and whose backward is the flash backward (``backward.py``).
+On the card q, k and v are bf16 with a last dim of 64 or 128, read through
+TMA maps of their strided views (:func:`check_tma_view`), so the packed q|k
+projection and the v view need no copy. A work item of the kernel is one
+q tile of ``FWD_Q_TILE`` rows of one query head and batch, which walks the
+key tiles of :func:`fwd_key_range`, masking only the tiles
+:func:`fwd_tile_needs_mask` names; persistent blocks take the items in the
+order of :func:`plan_fwd_blocks` (longest first under the causal mask),
+and the CPU tests hold it. Under autograd the op is a
+``torch.autograd.Function`` whose forward keeps (q, k, v, out, lse) and
+whose backward is the flash backward (``backward.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,107 @@ KERNEL = CudaKernel(
     "flash_attention_fwd", "flash_fwd.cu", "flash_fwd_launch",
     [_P] * 5 + [_I] * 6 + [_L] * 9 + [_F, _F, _I, _I, _P])
 HEAD_DIMS = (64, 128)
+
+# q rows of one work item of the forward kernel: two consumer warpgroups of
+# 64 (BQ in csrc/flash_fwd.cu), and K/V tiles in its shared-memory ring
+FWD_Q_TILE = 128
+FWD_STAGES = 4
+
+
+def fwd_key_tile(head_dim: int) -> int:
+    """Key rows of one K/V tile of the forward kernel (its BKV): 128 at
+    head_dim 64, 64 at 128, so that its ring of four K/V tiles and two q
+    tiles fit in shared memory."""
+    return 128 if head_dim == 64 else 64
+
+
+def fwd_key_range(q0: int, sq: int, skv: int, bkv: int, *, causal: bool,
+                  window: int | None) -> tuple:
+    """The key tiles [lo, hi) of ``bkv`` rows that hold a visible pair with
+    the q tile starting at ``q0``: from the window's edge (or the first key)
+    to the diagonal (causal) or the last key; (0, 0) when none."""
+    q_last = min(q0 + FWD_Q_TILE, sq) - 1
+    k_hi = min(skv, q_last + 1) if causal else skv
+    k_lo = max(0, q0 - window + 1) if window else 0
+    if k_lo >= k_hi:
+        return 0, 0
+    return k_lo // bkv, -(-k_hi // bkv)
+
+
+def fwd_tile_needs_mask(q0: int, k0: int, sq: int, skv: int, bkv: int, *,
+                        causal: bool, window: int | None) -> bool:
+    """Whether the (q tile at q0, key tile at k0) has a masked pair among
+    the q tile's rows below ``sq``: it crosses the key length, the diagonal
+    or the window's edge. The kernel masks only those tiles."""
+    q_last = min(q0 + FWD_Q_TILE, sq) - 1
+    return (k0 + bkv > skv or (causal and k0 + bkv - 1 > q0)
+            or bool(window and q_last - k0 >= window))
+
+
+def plan_fwd_blocks(sq: int, skv: int, head_dim: int, *, causal: bool,
+                    window: int | None) -> list:
+    """The forward kernel's q tiles in dispatch order, each with its key-tile
+    range: [(q tile, lo, hi)]. Every (batch, head) runs the same list;
+    work item ``rank * B * H + b * H + h`` takes entry ``rank`` (the query
+    heads of one key head are adjacent, so their K/V tiles come from L2).
+    Under the causal mask the last q tile first: longest first, except in
+    causal cross attention with a window that leaves late rows without a
+    key (sq > skv + window), whose empty tiles come first and cost
+    nothing."""
+    bkv = fwd_key_tile(head_dim)
+    n_qt = -(-sq // FWD_Q_TILE)
+    order = range(n_qt - 1, -1, -1) if causal else range(n_qt)
+    return [(t, *fwd_key_range(t * FWD_Q_TILE, sq, skv, bkv, causal=causal,
+                               window=window)) for t in order]
+
+
+def fwd_item(item: int, batch: int, heads: int) -> tuple:
+    """(rank in :func:`plan_fwd_blocks`, batch, head) of one work item, as
+    the kernel's blocks decode it."""
+    rank, rest = divmod(item, batch * heads)
+    return rank, rest // heads, rest % heads
+
+
+def visible_pairs(sq: int, skv: int, *, causal: bool,
+                  window: int | None) -> int:
+    """Visible (q, k) pairs of one head under the mask."""
+    total = 0
+    for qpos in range(sq):
+        lo = max(0, qpos - window + 1) if window else 0
+        hi = min(qpos, skv - 1) if causal else skv - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def forward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int, *,
+                 causal: bool, window: int | None = None) -> dict:
+    """What the forward must do, for its bounds: ``flops`` of its two
+    products per visible pair (s and p @ v: 2 d each), ``bytes`` of q, k, v
+    (bf16) read once and out (bf16) and lse (fp32) written once."""
+    pairs = b * h * visible_pairs(sq, skv, causal=causal, window=window)
+    q_b = b * h * sq * d * 2
+    kv_b = b * hkv * skv * d * 2
+    return {"pairs": pairs, "flops": 4 * d * pairs,
+            "bytes": 2 * q_b + 2 * kv_b + b * h * sq * 4}
+
+
+def check_tma_view(t, name: str) -> None:
+    """Raise ValueError unless a 4-D bf16 view can be read by a TMA map:
+    a contiguous last dim, a 16-byte aligned start and every other stride
+    a multiple of 16 bytes (the TMA's rules). Both attention kernels read
+    their operands so."""
+    if t.dim() != 4 or t.stride(3) != 1:
+        raise ValueError(f"attention kernel: {name} must be a 4-D view with "
+                         f"a contiguous last dim, got shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"attention kernel: {name} starts at an address "
+                         "that is not 16-byte aligned")
+    bad = [s for s in t.stride()[:3] if (s * t.element_size()) % 16]
+    if bad:
+        raise ValueError(f"attention kernel: {name} has strides "
+                         f"{t.stride()[:3]} (elements), not all multiples "
+                         "of 16 bytes")
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = False,
@@ -125,11 +232,7 @@ def _launch(q, k, v, *, causal, window, logit_scale, softcap):
                             f"got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"attention: {name} on {t.device}, q on {q.device}")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"attention kernel: {name} needs a contiguous "
-                             "last dim, strides that are multiples of 8 and a "
-                             "16-byte aligned start")
+        check_tma_view(t, name)
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     scale = logit_scale if logit_scale is not None else d ** -0.5

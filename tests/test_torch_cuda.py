@@ -5,7 +5,10 @@ for the forward GEMM every tile width and split of its mainloop, its
 MN-major weight tiles bit for bit through a permutation matrix, the decode
 shapes (M 1-64 at K 8192) bitwise reproducible and row-independent,
 windows, soft caps, ring wrap-around, empty rows and a ragged last split;
-for the paged kernel, page sizes 16-128, null-page entries, a ragged row
+for the flash forward, groups 1-8, head_dim 128, windows, soft caps, cross
+and ragged lengths and the training shape on the model's strided views (out
+and lse bitwise across two calls, a view the TMA cannot read refused); for
+the paged kernel, page sizes 16-128, null-page entries, a ragged row
 tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
 over the gathered pages; for the backward kernels, every chain the GEMM
 takes at ragged M, N and K, each tile width of the GEMM backward's
@@ -263,30 +266,51 @@ def test_gemm_fused_rows_are_independent(dev, chain, m):
     assert torch.equal(first[keep], second[keep])
 
 
-@pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128", "window",
-                                  "softcap", "noncausal_cross"])
+@pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128",
+                                  "d128_window", "window", "softcap",
+                                  "noncausal_cross", "mha", "group8",
+                                  "train"])
 def test_flash_attention_fwd_kernel_matches_plain(dev, case):
-    b, h, hkv, sq, skv, d = 2, 8, 2, 192, 192, 64
-    kw = {"causal": True}
-    if case == "ragged":
-        sq = skv = 150
-    elif case == "d128":
-        d, sq, skv = 128, 130, 130
-    elif case == "window":
-        kw["window"] = 40
-    elif case == "softcap":
-        kw["softcap"] = 5.0
-    elif case == "noncausal_cross":
-        kw, sq, skv = {"causal": False}, 70, 130
-    rng = np.random.default_rng(5)
-    q = _rand(rng, (b, h, sq, d), dev)
-    k = _rand(rng, (b, hkv, skv, d), dev)
-    v = _rand(rng, (b, hkv, skv, d), dev)
+    """The forward kernel against the plain version on q and k as strided
+    views of one packed q|k buffer (where sq == skv) and v as a view of its
+    own projection, as the model passes them: out within 2e-2 relative + 2%
+    of its RMS (bf16, p rounded before p @ v, sums in another order), lse
+    within 1e-4. Groups 1, 4 and 8; "train" is llama-1b's training shape
+    (B 4, H 32, Hkv 8, S 1024, d 64, causal). One launch a call."""
+    q, k, v, kw = _attn_fwd_inputs(case, dev)
+    before = kernels.launch_counts()["flash_attention_fwd"]
     out, lse = flash_attention_fwd(q, k, v, **kw)
-    want, want_lse = flash_attention_fwd_ref(q, k, v, **kw)
     torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_fwd"] == before + 1
+    want, want_lse = flash_attention_fwd_ref(q, k, v, **kw)
     _close(out, want, 2e-2, 2e-2)
     _close(lse, want_lse, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "d128_window", "train"])
+def test_flash_attention_fwd_is_reproducible(dev, case):
+    """Two calls on the same inputs give out and lse bit for bit: the
+    forward sums each row in a fixed order and has no atomics."""
+    q, k, v, kw = _attn_fwd_inputs(case, dev)
+    first = flash_attention_fwd(q, k, v, **kw)
+    second = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_flash_attention_fwd_refuses_a_view_tma_cannot_read(dev):
+    """A q view that starts 2 bytes into its buffer is refused before any
+    launch (the TMA needs a 16-byte aligned start)."""
+    q, k, v, kw = _attn_fwd_inputs("causal_gqa", dev)
+    b, h, sq, d = q.shape
+    buf = torch.zeros((b, h, sq, d + 8), dtype=q.dtype, device=dev)
+    shifted = buf[..., 1:d + 1]
+    shifted.copy_(q)
+    before = kernels.launch_counts()["flash_attention_fwd"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(shifted, k, v, **kw)
+    assert kernels.launch_counts()["flash_attention_fwd"] == before
 
 
 @pytest.mark.parametrize("case", ["dense", "ring", "window", "ring_window",
@@ -609,12 +633,11 @@ def _attn_case(case):
     return b, h, hkv, sq, skv, d, kw
 
 
-def _attn_bwd_inputs(case, dev, seed=6):
-    """q, k, v, out, lse, dO of a case: q and k strided views of one packed
-    q|k buffer where sq == skv, v a view of its own projection, dO the
-    strided cotangent autograd hands over."""
+def _attn_fwd_inputs(case, dev, rng=None):
+    """q, k, v of a case as the model passes them: q and k strided views of
+    one packed q|k buffer where sq == skv, v a view of its own projection."""
     b, h, hkv, sq, skv, d, kw = _attn_case(case)
-    rng = np.random.default_rng(seed)
+    rng = rng or np.random.default_rng(5)
     if sq == skv:
         qk = _rand(rng, (b, sq, (h + hkv) * d), dev)
         q = qk[..., :h * d].reshape(b, sq, h, d).transpose(1, 2)
@@ -624,6 +647,15 @@ def _attn_bwd_inputs(case, dev, seed=6):
         k = _rand(rng, (b, hkv, skv, d), dev)
     v = _rand(rng, (b, skv, hkv * d), dev).reshape(b, skv, hkv, d
                                                     ).transpose(1, 2)
+    return q, k, v, kw
+
+
+def _attn_bwd_inputs(case, dev, seed=6):
+    """q, k, v, out, lse, dO of a case: q, k and v as _attn_fwd_inputs
+    makes them, dO the strided cotangent autograd hands over."""
+    rng = np.random.default_rng(seed)
+    q, k, v, kw = _attn_fwd_inputs(case, dev, rng)
+    b, h, sq, d = q.shape
     do = _rand(rng, (b, sq, h, d), dev).transpose(1, 2)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     return (q, k, v, out, lse, do), kw
