@@ -9,7 +9,7 @@ Phases, each of which raises on failure (exit code non-zero):
 2. Build: compile the ten CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one nvcc per source, in parallel); print the build time, what
    ptxas reports for each kernel and, from ``cuobjdump -sass``, how many
-   wgmma (HGMMA), TMA loads (UTMALDG), WMMA mma.sync (HMMA.16816) and
+   wgmma (HGMMA), TMA loads (UTMALDG), mma.sync (HMMA.16816) and
    wgmma waits each library holds.
 3. Kernels: each kernel against its plain torch version on the card, at the
    llama-1b main-path shapes (prefill B 4, S 256, so M = 1024; decode B 4
@@ -33,11 +33,10 @@ Phases, each of which raises on failure (exit code non-zero):
    with the stated tolerance; kernel, plain and library times with CUDA
    events (L2 scrubbed before every launch), and the least time the card
    could take (bytes over 3.35 TB/s or operations over their peak,
-   whichever is larger: products of two bf16 operands at 989 TFLOP/s, those
-   with an fp32 operand, such as the softmax weights of p @ v, at 67
-   TFLOP/s). The paged kernel at page 64 and
-   one query token must equal ``flash_decode`` over the gathered pages bit
-   for bit. No PyTorch call computes paged attention: its yardstick is
+   whichever is larger: products of two bf16 operands at 989 TFLOP/s). The
+   decode kernels are timed whole, their in-launch merge included; the
+   paged kernel at page 64 and one query token must equal ``flash_decode``
+   over the gathered pages bit for bit. No PyTorch call computes paged attention: its yardstick is
    ``F.scaled_dot_product_attention`` over the pre-gathered cache, the
    gather not timed. The GEMM backward's yardstick is ``torch.matmul`` of
    the bare product (the operand pass has none). The flash backward's
@@ -49,10 +48,14 @@ Phases, each of which raises on failure (exit code non-zero):
    with this tree's entry points; a WMMA forward ``gemm_fused.cu`` whose
    entry point takes no plan and a two-pass ``flash_bwd.cu``, each where
    the tree has it; its ``flash_fwd.cu``, whose entry point is this
-   tree's), the earlier forward is timed in turns with this one at every
-   forward shape, the earlier dA + dB with this one's, the earlier flash
-   forward with this one at its three shapes and the earlier flash
-   backward with this one (baseline, new, new, baseline).
+   tree's; its partials-only ``flash_decode.cu`` and
+   ``flash_decode_paged.cu``, PR 18 and before, with their
+   ``decode_split.cuh``), the earlier forward is timed in turns with this
+   one at every forward shape, the earlier dA + dB with this one's, the
+   earlier flash forward with this one at its three shapes, the earlier
+   flash backward with this one and the earlier decode kernels, each with
+   the plain ``combine_splits`` after it, with these at their four shapes
+   (baseline, new, new, baseline).
    No PyTorch call computes RoPE (no library
    time); the fused norm's yardstick is ``F.layer_norm`` of the summed
    residual, without the dropout, the add and the residual output.
@@ -165,7 +168,6 @@ from repro_torch.train import loss_and_grads, train_loop  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12      # outside the tensor cores
 HBM_BYTES_S = 3.35e12
 
 BATCH, PROMPT, NEW_TOKENS, REQUESTS = 4, 256, 32, 8
@@ -261,8 +263,8 @@ SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.16816", "WARPGROUP.DEPBAR")
 
 def sass_counts(lib) -> dict:
     """How many times each of SASS_OPS appears in a library's machine code
-    (``cuobjdump -sass``, beside nvcc): wgmma, TMA loads, the mma.sync of
-    WMMA fragments, and the waits for wgmma groups."""
+    (``cuobjdump -sass``, beside nvcc): wgmma, TMA loads, mma.sync (the
+    decode kernels' products), and the waits for wgmma groups."""
     from repro_torch.kernels._build import nvcc_path
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -373,9 +375,11 @@ def baseline_kernels(csrc: str) -> dict:
     forward ``gemm_fused.cu`` (its own entry point: no row-pass scratch,
     workspace or plan; None when the entry is this tree's, PR 16's on) and
     the two-pass WMMA ``flash_bwd.cu`` (its own entry point: pass 0 dq,
-    pass 1 dk and dv; None when the entry is this tree's), and the flash
+    pass 1 dk and dv; None when the entry is this tree's), the flash
     forward ``flash_fwd.cu`` (PR 17 and before: the WMMA kernel), whose
-    entry point has this tree's arity and arguments."""
+    entry point has this tree's arity and arguments, and the decode
+    kernels ``flash_decode.cu`` and ``flash_decode_paged.cu`` whose entry
+    points write fp32 partials (PR 18 and before; None otherwise)."""
     from repro_torch.kernels._build import CudaKernel, build_all
 
     P, I, Fl, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -383,6 +387,8 @@ def baseline_kernels(csrc: str) -> dict:
     root = os.path.abspath(csrc)
     wmma_fwd = [P] * 12 + [Fl, Fl] + [I] * 5 + [P]
     two_pass = [P] * 9 + [I] * 7 + [L] * 12 + [Fl, Fl, I, I, P]
+    partials = [P] * 7 + [I] * 6 + [Fl, Fl, I, P]
+    paged_partials = [P] * 8 + [I] * 7 + [Fl, Fl, I, P]
     kerns = {
         "da": CudaKernel("baseline_gemm_bwd_da",
                          os.path.join(root, "gemm_bwd_da.cu"),
@@ -394,13 +400,18 @@ def baseline_kernels(csrc: str) -> dict:
             ("fwd", "gemm_fused.cu", "gemm_fused_launch", wmma_fwd),
             ("flash_bwd", "flash_bwd.cu", "flash_bwd_launch", two_pass),
             ("flash_fwd", "flash_fwd.cu", "flash_fwd_launch",
-             attn_ops.KERNEL.argtypes)):
+             attn_ops.KERNEL.argtypes),
+            ("flash_decode", "flash_decode.cu", "flash_decode_launch",
+             partials),
+            ("flash_decode_paged", "flash_decode_paged.cu",
+             "flash_decode_paged_launch", paged_partials)):
         path = os.path.join(root, src)
         if entry_arity(path, entry) == len(args):
             kerns[key] = CudaKernel(f"baseline_{src[:-3]}", path, entry, args)
     log(f"[build] baseline from {root}: {sorted(kerns)}")
     build_all(list(kerns.values()))
-    return {"fwd": None, "flash_bwd": None, "flash_fwd": None, **kerns}
+    return {"fwd": None, "flash_bwd": None, "flash_fwd": None,
+            "flash_decode": None, "flash_decode_paged": None, **kerns}
 
 
 def baseline_fwd(kern, a, b, kw, save):
@@ -609,9 +620,70 @@ def measure_flash(cfg, dev, gen, timer, old=None):
     return rows
 
 
-def measure_decode(cfg, dev, gen, timer):
+def baseline_decode(kern, q, k, v, lengths):
+    """PR 18's contiguous decode kernel (fp32 partials of 64-slot splits)
+    and the plain combine after it, as one callable; its launches are not
+    counted."""
+    b, hkv, g, d = q.shape
+    slots = k.shape[2]
+    ns = -(-slots // BLOCK_KV)
+    o = torch.empty((b, hkv, ns, g, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hkv, ns, g), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+
+    def launch():
+        kern.check(kern.fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, g, slots, d,
+            BLOCK_KV, float(d ** -0.5), 0.0, 0,
+            torch.cuda.current_stream().cuda_stream))
+        return combine_splits(o, m, l).to(q.dtype)
+    return launch
+
+
+def baseline_decode_paged(kern, q, k_pages, v_pages, table, lengths, t):
+    """PR 18's paged decode kernel (fp32 partials a page) and the plain
+    combine after it, as one callable; its launches are not counted."""
+    b, hkv, rows, d = q.shape
+    page, mp = k_pages.shape[2], table.shape[1]
+    o = torch.empty((b, hkv, mp, rows, d), dtype=torch.float32,
+                    device=q.device)
+    m = torch.empty((b, hkv, mp, rows), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+
+    def launch():
+        kern.check(kern.fn()(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), lengths.data_ptr(), o.data_ptr(), m.data_ptr(),
+            l.data_ptr(), b, hkv, rows, page, mp, d, t, float(d ** -0.5),
+            0.0, 0, torch.cuda.current_stream().cuda_stream))
+        return combine_splits(o, m, l).to(q.dtype)
+    return launch
+
+
+def decode_turns(row, name, old_fn, kernel, want, timer):
+    """The earlier kernel (with the plain combine), held to the plain
+    version, in turns with this one: baseline, new, new, baseline."""
+    got_old = old_fn()
+    torch.cuda.synchronize()
+    check_close(f"baseline {name}", got_old, want, 2e-2, 2e-2)
+    turns = [timer.ms(old_fn), timer.ms(kernel), timer.ms(kernel),
+             timer.ms(old_fn)]
+    row.update(baseline_turns_ms=turns,
+               baseline_ms=(turns[0] + turns[3]) / 2,
+               new_in_turns_ms=(turns[1] + turns[2]) / 2)
+    log(f"[kernel] {name} {row['ms'] * 1e3:.1f} us (bound "
+        f"{row['bound_ms'] * 1e3:.2f}, {row['bound_by']}); SDPA "
+        f"{row['library_ms'] * 1e3:.1f} us; baseline "
+        f"{row['baseline_ms'] * 1e3:.1f} us against "
+        f"{row['new_in_turns_ms'] * 1e3:.1f} in turns")
+
+
+def measure_decode(cfg, dev, gen, timer, old=None):
     """The last decode step of the main path: every sequence at position
-    PROMPT + NEW_TOKENS - 2 of a MAX_LEN-slot cache."""
+    PROMPT + NEW_TOKENS - 2 of a MAX_LEN-slot cache. With ``old``
+    (baseline_kernels), the earlier kernel and its plain combine in turns
+    with this one."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
     bf16 = torch.bfloat16
@@ -633,20 +705,27 @@ def measure_decode(cfg, dev, gen, timer):
     # what this step needs: q, the valid cache rows, lengths; the output
     traffic = (nbytes(q, lengths, got)
                + 2 * BATCH * hkv * length * hd * kc.element_size())
-    # q @ k^T has two bf16 operands; p @ v has the fp32 softmax weights
-    flops = 2 * BATCH * h * length * hd
-    b_ms, b_by = bound(traffic, (flops, PEAK_BF16), (flops, PEAK_FP32))
+    # q @ k^T and p @ v, both on bf16 operands (p rounded to bf16)
+    flops = 2 * 2 * BATCH * h * length * hd
+    b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
     mask = (torch.arange(MAX_LEN, device=dev) < length).expand(BATCH, 1, 1,
                                                                MAX_LEN)
     q4 = q.reshape(BATCH, h, 1, hd)
-    return [dict(
+
+    def kernel():
+        return flash_decode(q, kc, vc, lengths)
+    row = dict(
         case="decode_step", shape=[BATCH, h, hkv, MAX_LEN, hd],
-        split=BLOCK_KV, max_abs_err=err, tolerance=tol,
-        ms=timer.ms(lambda: flash_decode(q, kc, vc, lengths)),
+        max_abs_err=err, tolerance=tol, ms=timer.ms(kernel),
         plain_ms=timer.ms(plain),
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
             q4, kc, vc, attn_mask=mask, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by)]
+        bound_ms=b_ms, bound_by=b_by)
+    if old is not None and old["flash_decode"] is not None:
+        decode_turns(row, "flash_decode[decode_step]",
+                     baseline_decode(old["flash_decode"], q, kc, vc,
+                                     lengths), kernel, want, timer)
+    return [row]
 
 
 def paged_cases(cfg, dev, gen):
@@ -676,7 +755,10 @@ def paged_cases(cfg, dev, gen):
     ]
 
 
-def measure_paged(cfg, dev, gen, timer):
+def measure_paged(cfg, dev, gen, timer, old=None):
+    """The paged kernel at its three main-path shapes (paged_cases); with
+    ``old`` (baseline_kernels), the earlier kernel and its plain combine in
+    turns with this one."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
     bf16 = torch.bfloat16
@@ -714,7 +796,7 @@ def measure_paged(cfg, dev, gen, timer):
                                      "flash_decode over the gathered pages")
         # what this call needs: the valid K/V rows once, q, the table, the
         # lengths and the output; every (row, visible key) pair's products,
-        # q @ k^T on two bf16 operands and p @ v on the fp32 weights
+        # q @ k^T and p @ v, both on bf16 operands
         b = q.shape[0]
         hz = (lengths.long()[:, None] - t + 1
               + torch.arange(t, device=dev)[None, :])           # keys seen
@@ -722,8 +804,8 @@ def measure_paged(cfg, dev, gen, timer):
         valid_rows = int(lengths.long().sum())
         traffic = (nbytes(q, table, lengths, got)
                    + 2 * valid_rows * hkv * hd * k_pages.element_size())
-        flops = 2 * pairs * hd
-        b_ms, b_by = bound(traffic, (flops, PEAK_BF16), (flops, PEAK_FP32))
+        flops = 2 * 2 * pairs * hd
+        b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
         # yardstick: SDPA over the pre-gathered contiguous cache
         kg = kvc.gather_pages(k_pages, table)
         vg = kvc.gather_pages(v_pages, table)
@@ -740,6 +822,12 @@ def measure_paged(cfg, dev, gen, timer):
             bound_ms=b_ms, bound_by=b_by))
         if name == "decode":
             rows[-1]["bitwise_vs_flash_decode"] = True
+        if old is not None and old["flash_decode_paged"] is not None:
+            decode_turns(rows[-1], f"flash_decode_paged[{name}]",
+                         baseline_decode_paged(old["flash_decode_paged"], q,
+                                               k_pages, v_pages, table,
+                                               lengths, t), kernel, want,
+                         timer)
     return rows
 
 
@@ -1802,8 +1890,9 @@ def main(argv=None) -> int:
                     help="also write the full report to OUT/chip_smoke.json")
     ap.add_argument("--baseline-csrc", default=None,
                     help="an earlier tree's csrc directory: time its "
-                    "forward GEMM, GEMM backward (dA + dB) and flash "
-                    "forward and backward in turns with this one's")
+                    "forward GEMM, GEMM backward (dA + dB), flash "
+                    "forward and backward and decode kernels in turns "
+                    "with this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1835,8 +1924,9 @@ def main(argv=None) -> int:
     measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer, old),
                 "flash_attention_fwd": measure_flash(cfg, dev, gen, timer,
                                                      old),
-                "flash_decode": measure_decode(cfg, dev, gen, timer),
-                "flash_decode_paged": measure_paged(cfg, dev, gen, timer)}
+                "flash_decode": measure_decode(cfg, dev, gen, timer, old),
+                "flash_decode_paged": measure_paged(cfg, dev, gen, timer,
+                                                    old)}
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
     measured.update(bwd_rows)
     measured.update({

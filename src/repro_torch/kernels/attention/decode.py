@@ -2,14 +2,18 @@
 KV cache, one query token per sequence, and ``attention_decode_paged`` over
 a paged KV pool, 1 or T query tokens per sequence.
 
-The per-split partials (o, m, l) come from the hand-written kernels
-(``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``) for CUDA tensors
-and from their plain versions (:func:`decode_partials_ref`,
-:func:`decode_partials_paged_ref`) for CPU tensors; :func:`combine_splits`
-merges them in plain torch on either device, as the reference merges them
-in jnp. Contiguous splits are ``BLOCK_KV`` slots wide (the cache length
-need not be a multiple of it: the last split masks its tail); a paged split
-is one page.
+A CUDA tensor launches a hand-written kernel (``csrc/flash_decode.cu``,
+``csrc/flash_decode_paged.cu``, one body in ``csrc/decode_split.cuh``) that
+computes the output in one launch over ``KEY_TILE``-key tiles: a unit's
+tiles in one split, whose block writes the output, or in several, whose
+partials the last block of the unit merges in the same launch, so no
+plain-torch combine runs on the card. A CPU tensor runs the plain versions
+(:func:`decode_partials_ref`, :func:`decode_partials_paged_ref`: a split of
+``BLOCK_KV`` slots, or one page) and :func:`combine_splits`, as the
+reference merges its partials in jnp. The kernel's split plan
+(:func:`plan_decode`) and its live key tiles (:func:`live_key_tiles`) are
+mirrored here so the CPU tests can hold them; the plan depends on the
+sizes and the SM count, never on the lengths.
 """
 from __future__ import annotations
 
@@ -18,19 +22,127 @@ import ctypes
 import torch
 
 from .._build import CudaKernel
+from ..gemm.ops import sm_count
 from .epilogue import cap_logits
 from .ref import MASK_VALUE, decode_ref, ring_positions
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "flash_decode", "flash_decode.cu", "flash_decode_launch",
-    [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P])
+    [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P])
 PAGED_KERNEL = CudaKernel(
     "flash_decode_paged", "flash_decode_paged.cu", "flash_decode_paged_launch",
-    [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P])
+    [_P] * 11 + [_I] * 10 + [_F, _F, _I, _P])
 BLOCK_KV = 64
 HEAD_DIMS = (64, 128)
 MAX_PAGE_SIZE = 128
+
+# the kernels' constants (csrc/decode_split.cuh): keys a tile, stages of
+# the TMA ring by head_dim, q rows a unit (few-row body up to FEW_ROWS,
+# else ROW_TILE a unit), the plan's target of blocks per SM and a split's
+# least tiles
+KEY_TILE = 64
+STAGES = {64: 6, 128: 3}
+FEW_ROWS = 16
+ROW_TILE = 32
+BLOCKS_PER_SM = 2
+MIN_SPLIT_TILES = 8
+
+
+def rows_per_unit(rows: int) -> int:
+    """q rows of one unit of the kernel: FEW_ROWS (padded) up to FEW_ROWS
+    rows a kv head, else ROW_TILE."""
+    return FEW_ROWS if rows <= FEW_ROWS else ROW_TILE
+
+
+def decode_units(batch: int, hkv: int, rows: int) -> int:
+    """Units of the kernel: (batch row, kv head, row tile)."""
+    return batch * hkv * -(-rows // rows_per_unit(rows))
+
+
+def plan_decode(units: int, n_tiles: int, sms: int) -> tuple:
+    """(n_splits, tiles_per_split): each unit's ``n_tiles`` key tiles in
+    splits of tiles_per_split consecutive tiles (the last may hold fewer),
+    enough blocks for BLOCKS_PER_SM a SM where the tiles allow, no split
+    under MIN_SPLIT_TILES tiles. One split writes the output with no merge.
+    The kernel's plan_splits; it sees no length."""
+    ns = max(1, min(n_tiles // MIN_SPLIT_TILES,
+                    -(-BLOCKS_PER_SM * sms // units)))
+    tps = -(-n_tiles // ns)
+    return -(-n_tiles // tps), tps
+
+
+def live_key_tiles(length: int, keys: int, *, r0: int = 0, nr: int = 1,
+                   q_tokens: int = 1, window: int | None = None,
+                   paged: bool = True) -> tuple:
+    """The kernel's live tiles [lo, hi) of a unit with rows r0 .. r0 + nr - 1
+    (row r is token r mod T): the key tiles holding a key some row sees.
+    Paged: row t sees positions <= length - T + t (and within the window);
+    contiguous ring (T = 1): slot k < length until the cache wraps, every
+    slot after. A split's tiles outside this range are not loaded."""
+    if paged:
+        t0 = r0 % q_tokens
+        wraps = nr >= q_tokens or t0 + nr - 1 >= q_tokens
+        t_min, t_max = (0, q_tokens - 1) if wraps else (t0, t0 + nr - 1)
+        hz0 = length - q_tokens
+        k_hi = min(keys, hz0 + t_max + 1)
+        k_lo = max(0, hz0 + t_min - window + 1) if window else 0
+    else:
+        k_hi = 0 if length <= 0 else min(length, keys)
+        k_lo = max(0, length - window) if window and length <= keys else 0
+    if k_lo >= k_hi:
+        return 0, 0
+    return k_lo // KEY_TILE, -(-k_hi // KEY_TILE)
+
+
+# The units' tickets (int32, zero between calls: the last block of a unit
+# resets its own). One buffer per device, grown, never freed: a CUDA graph
+# that captured a launch keeps its address.
+_TICKETS: dict = {}
+_ALL_TICKETS: list = []
+
+
+def _tickets(device, units: int):
+    buf = _TICKETS.get(device.index)
+    if buf is None or buf.numel() < units:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode kernel: its ticket workspace is allocated at the "
+                "first call of a size; make one call before a CUDA graph "
+                "capture")
+        buf = torch.zeros(max(units, 4096), dtype=torch.int32, device=device)
+        _ALL_TICKETS.append(buf)
+        _TICKETS[device.index] = buf
+    return buf
+
+
+def _check_sinks(sinks, n: int, device, op: str):
+    """(pointer, is bf16) of per-row sinks for the kernel: n values, fp32
+    or bf16, contiguous, on the device."""
+    if sinks is None:
+        return None, 0
+    if sinks.numel() != n or sinks.device != device \
+            or not sinks.is_contiguous() \
+            or sinks.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{op} kernel: sinks must be {n} contiguous fp32 or "
+                        f"bf16 values on {device}, got {tuple(sinks.shape)} "
+                        f"{sinks.dtype} on {sinks.device}")
+    return sinks.data_ptr(), int(sinks.dtype == torch.bfloat16)
+
+
+def _workspaces(device, units: int, ns: int, rw: int, d: int):
+    """Pointers of the partials (o, m, l) of every (unit, split), fp32, and
+    of the units' tickets; allocated, not cleared (a split that loads
+    nothing writes only m and l). None for a one-split plan, which writes
+    the output from registers. The tensors are returned to keep them alive
+    until the launch is enqueued."""
+    if ns == 1:
+        return [None] * 4, ()
+    o = torch.empty((units, ns, rw, d), dtype=torch.float32, device=device)
+    m = torch.empty((units, ns, rw), dtype=torch.float32, device=device)
+    l = torch.empty_like(m)
+    t = _tickets(device, units)
+    return [x.data_ptr() for x in (o, m, l, t)], (o, m, l)
 
 
 def combine_splits(o, m, l, sinks=None):
@@ -100,14 +212,13 @@ def flash_decode(q, k, v, lengths, *, window: int | None = None,
         raise ValueError(f"attention_decode: window must be positive, "
                          f"got {window}")
     scale = logit_scale if logit_scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        o, m, l = decode_partials_ref(q, k, v, lengths, window=window,
-                                      scale=scale, softcap=softcap)
-    elif q.device.type == "cuda":
-        o, m, l = _launch(q, k, v, lengths, window=window, scale=scale,
-                          softcap=softcap)
-    else:
+    if q.device.type == "cuda":
+        return _launch(q, k, v, lengths, window=window, scale=scale,
+                       softcap=softcap, sinks=sinks)
+    if q.device.type != "cpu":
         raise ValueError(f"attention_decode: unsupported device {q.device}")
+    o, m, l = decode_partials_ref(q, k, v, lengths, window=window,
+                                  scale=scale, softcap=softcap)
     if sinks is not None:
         sinks = sinks.float().reshape(hkv, 1, g)
     return combine_splits(o, m, l, sinks=sinks).to(q.dtype)
@@ -126,12 +237,14 @@ def attention_decode(q, k, v, lengths, *, window: int | None = None,
     return out.reshape(b, h, 1, d)
 
 
-def _launch(q, k, v, lengths, *, window, scale, softcap):
+def _launch(q, k, v, lengths, *, window, scale, softcap, sinks):
     b, hkv, g, d = q.shape
     slots = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"attention_decode kernel: head_dim {d} not in "
                          f"{HEAD_DIMS}")
+    # contiguous, 16-byte aligned and head_dim 64 or 128: every stride a
+    # multiple of 16 bytes, a view the kernel's TMA maps read
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"attention_decode kernel: {name} must be "
@@ -143,19 +256,22 @@ def _launch(q, k, v, lengths, *, window, scale, softcap):
             or not lengths.is_contiguous():
         raise TypeError("attention_decode kernel: lengths must be a "
                         f"contiguous int32 tensor on {q.device}")
-    ns = -(-slots // BLOCK_KV)
-    o = torch.empty((b, hkv, ns, g, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, hkv, ns, g), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    sink_ptr, sinks_bf16 = _check_sinks(sinks, hkv * g, q.device,
+                                        "attention_decode")
+    units = decode_units(b, hkv, g)
+    ns, _ = plan_decode(units, -(-slots // KEY_TILE), sm_count(q.device))
+    ws, _keep = _workspaces(q.device, units, ns,
+                            min(g, rows_per_unit(g)), d)
+    out = torch.empty_like(q)
     fn = KERNEL.fn()
     stream = KERNEL.stream(q.device)
     KERNEL.launches += 1
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-              o.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, g, slots, d,
-              BLOCK_KV, float(scale), float(softcap or 0.0), int(window or 0),
-              stream)
+              sink_ptr, out.data_ptr(), *ws, b, hkv, g, slots, d, ns,
+              sinks_bf16, float(scale), float(softcap or 0.0),
+              int(window or 0), stream)
     KERNEL.check(code)
-    return o, m, l
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -229,17 +345,16 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
         raise ValueError(f"attention_decode_paged: window must be positive, "
                          f"got {window}")
     scale = logit_scale if logit_scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        o, m, l = decode_partials_paged_ref(
-            q, k_pages, v_pages, page_table, lengths, window=window,
-            scale=scale, softcap=softcap, q_tokens=q_tokens)
-    elif q.device.type == "cuda":
-        o, m, l = _launch_paged(q, k_pages, v_pages, page_table, lengths,
-                                window=window, scale=scale, softcap=softcap,
-                                q_tokens=q_tokens)
-    else:
+    if q.device.type == "cuda":
+        return _launch_paged(q, k_pages, v_pages, page_table, lengths,
+                             window=window, scale=scale, softcap=softcap,
+                             q_tokens=q_tokens, sinks=sinks)
+    if q.device.type != "cpu":
         raise ValueError(f"attention_decode_paged: unsupported device "
                          f"{q.device}")
+    o, m, l = decode_partials_paged_ref(
+        q, k_pages, v_pages, page_table, lengths, window=window,
+        scale=scale, softcap=softcap, q_tokens=q_tokens)
     if sinks is not None:
         sinks = sinks.float().reshape(hkv, 1, rows)
     return combine_splits(o, m, l, sinks=sinks).to(q.dtype)
@@ -281,9 +396,9 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
 
 
 def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
-                  softcap, q_tokens):
+                  softcap, q_tokens, sinks):
     b, hkv, rows, d = q.shape
-    page_size = k_pages.shape[2]
+    n_pages, _, page_size, _ = k_pages.shape
     mp = page_table.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"attention_decode_paged kernel: head_dim {d} not "
@@ -305,17 +420,21 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
                 or not t.is_contiguous():
             raise TypeError(f"attention_decode_paged kernel: {name} must be "
                             f"a contiguous int32 tensor on {q.device}")
-    o = torch.empty((b, hkv, mp, rows, d), dtype=torch.float32,
-                    device=q.device)
-    m = torch.empty((b, hkv, mp, rows), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    sink_ptr, sinks_bf16 = _check_sinks(sinks, hkv * rows, q.device,
+                                        "attention_decode_paged")
+    units = decode_units(b, hkv, rows)
+    ns, _ = plan_decode(units, -(-mp * page_size // KEY_TILE),
+                        sm_count(q.device))
+    ws, _keep = _workspaces(q.device, units, ns,
+                            min(rows, rows_per_unit(rows)), d)
+    out = torch.empty_like(q)
     fn = PAGED_KERNEL.fn()
     stream = PAGED_KERNEL.stream(q.device)
     PAGED_KERNEL.launches += 1
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-              m.data_ptr(), l.data_ptr(), b, hkv, rows, page_size, mp, d,
-              q_tokens, float(scale), float(softcap or 0.0), int(window or 0),
-              stream)
+              page_table.data_ptr(), lengths.data_ptr(), sink_ptr,
+              out.data_ptr(), *ws, b, hkv, rows, page_size, mp, n_pages, d,
+              q_tokens, ns, sinks_bf16, float(scale), float(softcap or 0.0),
+              int(window or 0), stream)
     PAGED_KERNEL.check(code)
-    return o, m, l
+    return out

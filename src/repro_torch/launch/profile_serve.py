@@ -50,6 +50,8 @@ FAMILIES = (
     ("flash_bwd_kernel", "flash_attention_bwd"),
     ("flash_bwd_dq_convert_kernel", "flash_attention_bwd"),
     ("flash_fwd_kernel", "flash_attention_fwd"),
+    # the split-KV decode kernels (decode_split.cuh's body<D, WK, PAGED,
+    # CAP>), their splits' merge inside the same launch: no merge kernel
     ("flash_decode_paged_kernel", "flash_decode_paged"),
     ("flash_decode_kernel", "flash_decode"),
     ("rope_kernel", "rope"),

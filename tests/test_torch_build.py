@@ -164,9 +164,11 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
                      "float const*, int, int, int, (anonymous namespace)::"
                      "Chain)") == "gemm_fused"
     assert ps.family("flash_fwd_kernel<64>") == "flash_attention_fwd"
-    assert ps.family("flash_decode_kernel<64>") == "flash_decode"
+    assert ps.family("void (anonymous namespace)::flash_decode_kernel<64, "
+                     "16, false>(decode_split::Params)") == "flash_decode"
     assert ps.family("void (anonymous namespace)::flash_decode_paged_kernel"
-                     "<64>(PagedArgs)") == "flash_decode_paged"
+                     "<64, 64, true>(decode_split::Params)") \
+        == "flash_decode_paged"
     assert ps.family("void (anonymous namespace)::gemm_bwd_g_kernel<2, false>"
                      "((anonymous namespace)::GSrc, __nv_bfloat16*, "
                      "__nv_bfloat16*, float*, int)") == "gemm_bwd_g"

@@ -10,7 +10,10 @@ and ragged lengths and the training shape on the model's strided views (out
 and lse bitwise across two calls, a view the TMA cannot read refused); for
 the paged kernel, page sizes 16-128, null-page entries, a ragged row
 tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
-over the gathered pages; for the backward kernels, every chain the GEMM
+over the gathered pages; for both decode kernels, sinks (fp32 and bf16),
+two calls bitwise equal, CUDA-graph replays equal to eager calls (the
+in-launch merge's tickets reset), one launch a call, a view the TMA cannot
+read refused, and the llama-1b main-path shapes; for the backward kernels, every chain the GEMM
 takes at ragged M, N and K, each tile width of the GEMM backward's
 mainloop, its operand pass against the plain version, the llama-1b
 training shapes, the forward's saved preacts against the rounded
@@ -427,6 +430,196 @@ def test_flash_decode_paged_rejects_unsupported_page_size(dev, page):
     with pytest.raises(ValueError, match="page size"):
         flash_decode_paged(q, kp, kp, pt, lens)
     assert kernels.launch_counts()["flash_decode_paged"] == 0
+
+
+def _paged_inputs(rng, dev, b, hkv, rows, d, page, mp, lengths):
+    """A pool of b * mp + 1 pages, each row's needed pages in a seeded
+    order and the rest of its table on the null page 0."""
+    n_pages = b * mp + 1
+    kp = _rand(rng, (n_pages, hkv, page, d), dev)
+    vp = _rand(rng, (n_pages, hkv, page, d), dev)
+    q = _rand(rng, (b, hkv, rows, d), dev)
+    perm = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, mp), np.int32)
+    for i, n in enumerate(lengths):
+        need = -(-n // page)
+        table[i, :need] = perm[i * mp:i * mp + need]
+    pt = torch.from_numpy(table).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, pt, lens
+
+
+# (kernel, q rows a kv head, T, key positions (slots, or 64-key pages
+# times 64), lengths): a contiguous decode with a ring wrap and an empty
+# row, a paged decode, a verify step of 4 tokens and a 32-token chunk, each
+# short (one split: the output from registers) and long (several splits
+# merged by the last block of each unit through the tickets)
+DECODE_CALLS = {
+    "contiguous": ("flash_decode", 4, 1, 296, [0, 400, 37]),
+    "paged": ("flash_decode_paged", 4, 1, 384, [0, 65, 300]),
+    "paged_verify_t4": ("flash_decode_paged", 16, 4, 384, [4, 68, 300]),
+    "paged_chunk_t32": ("flash_decode_paged", 128, 32, 384, [32, 100, 300]),
+    "contiguous_long": ("flash_decode", 4, 1, 2048, [0, 2100, 1500]),
+    "paged_long": ("flash_decode_paged", 4, 1, 1536, [0, 700, 1536]),
+    "paged_verify_long": ("flash_decode_paged", 16, 4, 1536, [4, 900, 1500]),
+    "paged_chunk_long": ("flash_decode_paged", 128, 32, 1536,
+                         [32, 1000, 1400]),
+}
+
+
+def _decode_call(case, dev, *, sinks=None):
+    """(kernel(**kw), plain(**kw)) of one DECODE_CALLS case, and its rows."""
+    name, rows, t, keys, lengths = DECODE_CALLS[case]
+    b, hkv, d = 3, 2, 64
+    rng = np.random.default_rng(11)
+    if name == "flash_decode":
+        slots = keys
+        q = _rand(rng, (b, hkv, rows, d), dev)
+        k = _rand(rng, (b, hkv, slots, d), dev)
+        v = _rand(rng, (b, hkv, slots, d), dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+        def kernel(**kw):
+            return flash_decode(q, k, v, lens, **kw)
+
+        def plain(sinks=None, **kw):
+            o, m, l = decode_partials_ref(q, k, v, lens, scale=d ** -0.5,
+                                          **kw)
+            sk = None if sinks is None else sinks.float().reshape(hkv, 1,
+                                                                  rows)
+            return combine_splits(o, m, l, sinks=sk).to(q.dtype)
+        return kernel, plain, hkv * rows
+    q, kp, vp, pt, lens = _paged_inputs(rng, dev, b, hkv, rows, d, 64,
+                                        keys // 64, lengths)
+
+    def kernel(**kw):
+        return flash_decode_paged(q, kp, vp, pt, lens, q_tokens=t, **kw)
+
+    def plain(sinks=None, **kw):
+        o, m, l = decode_partials_paged_ref(q, kp, vp, pt, lens,
+                                            scale=d ** -0.5, q_tokens=t, **kw)
+        sk = None if sinks is None else sinks.float().reshape(hkv, 1, rows)
+        return combine_splits(o, m, l, sinks=sk).to(q.dtype)
+    return kernel, plain, hkv * rows
+
+
+@pytest.mark.parametrize("sink_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_CALLS))
+def test_decode_kernels_with_sinks(dev, case, sink_dtype):
+    """Sinks join the merge once, re-anchoring the max: against the plain
+    partials and combine_splits; an empty row's mass lands on the sink and
+    comes out as zeros."""
+    kernel, plain, n = _decode_call(case, dev)
+    rng = np.random.default_rng(12)
+    sinks = _rand(rng, (n,), dev, std=2.0, dtype=getattr(torch, sink_dtype))
+    for kw in ({}, {"window": 40}, {"softcap": 5.0}):
+        got = kernel(sinks=sinks, **kw)
+        want = plain(sinks=sinks, **kw)
+        torch.cuda.synchronize()
+        _close(got, want, 2e-2, 2e-2)
+        if DECODE_CALLS[case][4][0] == 0:
+            assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CALLS))
+def test_decode_kernels_are_reproducible_and_count_one_launch(dev, case):
+    """Two calls give the same bits (the merge reads the splits in index
+    order), and each call counts one launch."""
+    kernel, plain, _ = _decode_call(case, dev)
+    name = DECODE_CALLS[case][0]
+    before = kernels.launch_counts()[name]
+    a = kernel(window=100)
+    b = kernel(window=100)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    assert torch.equal(a, b)
+    _close(a, plain(window=100), 2e-2, 2e-2)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CALLS))
+def test_decode_kernels_replay_from_a_cuda_graph(dev, case):
+    """Replays of a captured call equal the eager call's bits: the last
+    block of each unit leaves its ticket at 0 for the next replay."""
+    kernel, _, _ = _decode_call(case, dev)
+    want = kernel()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert torch.equal(kernel(), want)
+
+
+def test_flash_decode_paged_equals_contiguous_bitwise_over_splits(dev):
+    """As above over 24 pages (three splits a unit, merged by the last
+    block): the same plan, tiles and merge give the same bits."""
+    b, hkv, g, d, page, mp = 3, 8, 4, 64, 64, 24
+    rng = np.random.default_rng(9)
+    q, kp, vp, pt, lens = _paged_inputs(rng, dev, b, hkv, g, d, page, mp,
+                                        [0, 700, 1536])
+    for window in (None, 300):
+        paged = flash_decode_paged(q, kp, vp, pt, lens, window=window)
+        dense = flash_decode(q, gather_pages(kp, pt).contiguous(),
+                             gather_pages(vp, pt).contiguous(), lens,
+                             window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, dense)
+
+
+def test_decode_kernels_refuse_a_view_tma_cannot_read(dev):
+    """A cache or pool that starts 2 bytes into its buffer is refused before
+    any launch (the TMA needs a 16-byte aligned start)."""
+    kernels.reset_launch_counts()
+    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=dev)
+    lens = torch.ones((1,), dtype=torch.int32, device=dev)
+    buf = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    shifted = buf[1:].view(1, 2, 128, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_decode(q, shifted, shifted, lens)
+    pool = buf[1:].view(2, 2, 64, 64)
+    pt = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_decode_paged(q, pool, pool, pt, lens)
+    assert kernels.launch_counts()["flash_decode"] == 0
+    assert kernels.launch_counts()["flash_decode_paged"] == 0
+
+
+@pytest.mark.parametrize("shape", ["decode_step_b4_s296", "paged_decode_b8",
+                                   "chunk_b1_t128", "verify_b8_t4"])
+def test_decode_kernels_at_the_main_path_shapes(dev, shape):
+    """llama-1b's shapes (Hkv 8, G 4, head_dim 64): the served decode step
+    over a 296-slot cache, and the paged engine's decode, 128-token chunk
+    and 4-token verify over 8 pages of 64, against the plain versions."""
+    rng = np.random.default_rng(13)
+    hkv, g, d = 8, 4, 64
+    if shape == "decode_step_b4_s296":
+        q = _rand(rng, (4, hkv, g, d), dev)
+        k = _rand(rng, (4, hkv, 296, d), dev)
+        v = _rand(rng, (4, hkv, 296, d), dev)
+        lens = torch.tensor([287] * 4, dtype=torch.int32, device=dev)
+        got = flash_decode(q, k, v, lens)
+        o, m, l = decode_partials_ref(q, k, v, lens, scale=d ** -0.5)
+    else:
+        b, t, lengths = {"paged_decode_b8": (8, 1, [0, 1, 64, 65, 130, 257,
+                                                    400, 512]),
+                         "chunk_b1_t128": (1, 128, [320]),
+                         "verify_b8_t4": (8, 4, [4, 64, 68, 130, 257, 300,
+                                                 400, 512])}[shape]
+        q, kp, vp, pt, lens = _paged_inputs(rng, dev, b, hkv, g * t, d, 64,
+                                            8, lengths)
+        got = flash_decode_paged(q, kp, vp, pt, lens, q_tokens=t)
+        o, m, l = decode_partials_paged_ref(q, kp, vp, pt, lens,
+                                            scale=d ** -0.5, q_tokens=t)
+    want = combine_splits(o, m, l).to(q.dtype)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-2, 2e-2)
 
 
 # ---------------------------------------------------------------------------
