@@ -33,7 +33,11 @@ Phases, each of which raises on failure (exit code non-zero):
    with the stated tolerance; kernel, plain and library times with CUDA
    events (L2 scrubbed before every launch), and the least time the card
    could take (bytes over 3.35 TB/s or operations over their peak,
-   whichever is larger: products of two bf16 operands at 989 TFLOP/s). The
+   whichever is larger: products of two bf16 operands at 989 TFLOP/s).
+   First the timer's floor: a one-element fill replayed the same way, the
+   fixed cost in every time below (not subtracted from any). RoPE and the
+   fused norm are also timed after a scrub that reads instead of writes,
+   so the L2 holds no dirty lines to write back during the kernel. The
    decode kernels are timed whole, their in-launch merge included; the
    paged kernel at page 64 and one query token must equal ``flash_decode``
    over the gathered pages bit for bit. No PyTorch call computes paged attention: its yardstick is
@@ -50,15 +54,18 @@ Phases, each of which raises on failure (exit code non-zero):
    the tree has it; its ``flash_fwd.cu``, whose entry point is this
    tree's; its partials-only ``flash_decode.cu`` and
    ``flash_decode_paged.cu``, PR 18 and before, with their
-   ``decode_split.cuh``), the earlier forward is timed in turns with this
-   one at every forward shape, the earlier dA + dB with this one's, the
-   earlier flash forward with this one at its three shapes, the earlier
-   flash backward with this one and the earlier decode kernels, each with
-   the plain ``combine_splits`` after it, with these at their four shapes
-   (baseline, new, new, baseline).
-   No PyTorch call computes RoPE (no library
-   time); the fused norm's yardstick is ``F.layer_norm`` of the summed
-   residual, without the dropout, the add and the residual output.
+   ``decode_split.cuh``; its ``rope.cu`` and ``fused_norm.cu``, whose
+   entry points are this tree's), the earlier forward is timed in turns
+   with this one at every forward shape, the earlier dA + dB with this
+   one's, the earlier flash forward with this one at its three shapes, the
+   earlier flash backward with this one, the earlier decode kernels, each
+   with the plain ``combine_splits`` after it, with these at their four
+   shapes, and the earlier RoPE and fused norm kernels with these at every
+   shape of theirs (baseline, new, new, baseline).
+   No PyTorch call computes RoPE or the fused norm (no library time). The
+   fused norm has a partial yardstick: ``F.layer_norm`` of the summed
+   residual, which leaves out the dropout, the add and the residual output
+   and so moves half the bytes.
 4. The slice: llama-1b at full width with seeded random weights, 8 requests
    (prompts of 128-256 tokens, 32 new tokens, greedy) through
    ``RequestQueue(Engine(...), batch_size=4, buckets=(256,))`` in kernel
@@ -227,11 +234,27 @@ class Timer:
     device's and not the Python wrapper's enqueue time. A 128 MiB buffer is
     rewritten before every replay: the 50 MB L2 starts cold, as it does for
     weights streamed once per layer, and the device is still busy with it
-    while the host enqueues the replay."""
+    while the host enqueues the replay. The time includes the replay's fixed
+    cost (``floor``: a one-element fill) and the write-back of the dirty
+    lines the scrub leaves in L2. With ``clean`` the scrub reads the buffer
+    instead, so the L2 starts cold and clean."""
 
-    def __init__(self, device, iters: int = 10, warmup: int = 2):
+    def __init__(self, device, iters: int = 10, warmup: int = 2,
+                 clean: bool = False):
         self.scrub = torch.empty(128 << 20, dtype=torch.uint8, device=device)
-        self.iters, self.warmup = iters, warmup
+        self.iters, self.warmup, self.clean = iters, warmup, clean
+        self._sum = torch.empty((), dtype=torch.int64, device=device)
+
+    def _scrub(self):
+        if self.clean:
+            torch.sum(self.scrub.view(torch.int64), dim=0, out=self._sum)
+        else:
+            self.scrub.zero_()
+
+    def floor(self) -> float:
+        """The time of a one-element fill: what any replayed call costs."""
+        one = torch.zeros(1, device=self.scrub.device)
+        return self.ms(one.zero_)
 
     def ms(self, fn, stream=None) -> float:
         """``stream``: warm up and capture on it (the stream that autograd
@@ -249,7 +272,7 @@ class Timer:
                torch.cuda.Event(enable_timing=True))
               for _ in range(self.iters)]
         for start, end in ev:
-            self.scrub.zero_()
+            self._scrub()
             start.record()
             graph.replay()
             end.record()
@@ -377,9 +400,10 @@ def baseline_kernels(csrc: str) -> dict:
     the two-pass WMMA ``flash_bwd.cu`` (its own entry point: pass 0 dq,
     pass 1 dk and dv; None when the entry is this tree's), the flash
     forward ``flash_fwd.cu`` (PR 17 and before: the WMMA kernel), whose
-    entry point has this tree's arity and arguments, and the decode
+    entry point has this tree's arity and arguments, the decode
     kernels ``flash_decode.cu`` and ``flash_decode_paged.cu`` whose entry
-    points write fp32 partials (PR 18 and before; None otherwise)."""
+    points write fp32 partials (None otherwise), and ``rope.cu`` and
+    ``fused_norm.cu``, whose entry points are this tree's."""
     from repro_torch.kernels._build import CudaKernel, build_all
 
     P, I, Fl, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -404,14 +428,18 @@ def baseline_kernels(csrc: str) -> dict:
             ("flash_decode", "flash_decode.cu", "flash_decode_launch",
              partials),
             ("flash_decode_paged", "flash_decode_paged.cu",
-             "flash_decode_paged_launch", paged_partials)):
+             "flash_decode_paged_launch", paged_partials),
+            ("rope", "rope.cu", "rope_launch", kernels.ROPE_KERNEL.argtypes),
+            ("fused_norm", "fused_norm.cu", "fused_norm_launch",
+             kernels.FUSED_NORM_KERNEL.argtypes)):
         path = os.path.join(root, src)
         if entry_arity(path, entry) == len(args):
             kerns[key] = CudaKernel(f"baseline_{src[:-3]}", path, entry, args)
     log(f"[build] baseline from {root}: {sorted(kerns)}")
     build_all(list(kerns.values()))
     return {"fwd": None, "flash_bwd": None, "flash_fwd": None,
-            "flash_decode": None, "flash_decode_paged": None, **kerns}
+            "flash_decode": None, "flash_decode_paged": None, "rope": None,
+            "fused_norm": None, **kerns}
 
 
 def baseline_fwd(kern, a, b, kw, save):
@@ -1198,14 +1226,41 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
     return [row]
 
 
-def measure_rope(cfg, dev, gen, timer):
+def turns_in(row, timer, old_fn, kernel):
+    """The earlier kernel in turns with this one (baseline, new, new,
+    baseline) into ``row``."""
+    turns = [timer.ms(old_fn), timer.ms(kernel), timer.ms(kernel),
+             timer.ms(old_fn)]
+    row.update(baseline_turns_ms=turns, baseline_ms=(turns[0] + turns[3]) / 2,
+               new_in_turns_ms=(turns[1] + turns[2]) / 2)
+
+
+def baseline_rope(kern, x, sin, cos, sign):
+    """A launch of the earlier RoPE kernel (this tree's entry point); its
+    launches are not counted."""
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+    def launch():
+        kern.check(kern.fn()(
+            x.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(),
+            *x.shape, *x.stride()[:3], float(sign),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream))
+        return out
+    return launch
+
+
+def measure_rope(cfg, dev, gen, timer, clean, old=None):
     """The standalone RoPE at the ladder's rung-2 shapes: prefill (B 4, S
     256) and training (B 4, S 1024) q and k as the model hands them over,
     strided views of the bf16 q|k GEMM output; and the backward (the kernel
     with -sin) at the training q shape on a contiguous cotangent, as the
     flash backward hands it over. Plain version: rope_ref (the backward's
     with -sin). Bound: x read once, the output written once and both (S, D)
-    tables read once; 6 operations a pair are far below the bytes."""
+    tables read once; 6 operations a pair are far below the bytes. Also
+    timed from a clean L2 (``clean``); with ``old`` (baseline_kernels), the
+    earlier kernel, bit for bit the plain version too, in turns with this
+    one."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bf16 = torch.bfloat16
     rows = []
@@ -1234,12 +1289,26 @@ def measure_rope(cfg, dev, gen, timer):
             # one bf16 rounding of the same fp32 value: at most one ulp
             err, tol = check_close(f"rope[{name}]", got, want, 2 ** -7, 0.0)
             b_ms, b_by = bound(nbytes(x, sin, cos, got))
-            rows.append(dict(
+            row = dict(
                 case=name, shape=list(x.shape), strides=list(x.stride()),
                 max_abs_err=err, tolerance=tol,
                 bitwise=bool(torch.equal(got, want)),
                 ms=timer.ms(kernel), plain_ms=timer.ms(plain),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                clean_l2_ms=clean.ms(kernel), library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+            if old is not None and old["rope"] is not None:
+                old_fn = baseline_rope(old["rope"], x, sin, cos, sign)
+                if not torch.equal(old_fn(), got):
+                    raise AssertionError(f"baseline rope[{name}] differs "
+                                         "from this kernel's bits")
+                turns_in(row, timer, old_fn, kernel)
+            log(f"[kernel] rope[{name}] {row['ms'] * 1e3:.2f} us, from a "
+                f"clean L2 {row['clean_l2_ms'] * 1e3:.2f} (bound "
+                f"{b_ms * 1e3:.2f})"
+                + (f"; baseline {row['baseline_ms'] * 1e3:.2f} us against "
+                   f"{row['new_in_turns_ms'] * 1e3:.2f} in turns"
+                   if "baseline_ms" in row else ""))
+            rows.append(row)
     return rows
 
 
@@ -1270,12 +1339,31 @@ def check_norm(name, got, want, dtype):
     return check_close(name, out, want_out, rtol, 1e-5)
 
 
-def measure_fused_norm(dev, gen, timer):
+def baseline_norm(kern, x, r, w, b):
+    """A launch of the earlier fused norm kernel (this tree's entry point)
+    at the bench's p and seed; its launches are not counted."""
+    out, new_res = torch.empty_like(x), torch.empty_like(x)
+
+    def launch():
+        kern.check(kern.fn()(
+            x.data_ptr(), r.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), new_res.data_ptr(), *x.shape, NORM_SEED, NORM_P,
+            1.0 / (1.0 - NORM_P), 1e-5, int(x.dtype == torch.bfloat16),
+            int(w.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream))
+        return out, new_res
+    return launch
+
+
+def measure_fused_norm(dev, gen, timer, clean, old=None):
     """The fused dropout + residual + layernorm kernel at the memory-bound
     bench's cells. Bound: x, residual, weight and bias read once, both
-    outputs written once. Yardstick: F.layer_norm of the summed residual
-    (precomputed, not timed), which leaves out the dropout, the add and
-    the residual output."""
+    outputs written once. No PyTorch call computes the function (no
+    library time); a partial yardstick: F.layer_norm of the summed residual
+    (precomputed, not timed), which leaves out the dropout, the add and the
+    residual output and so moves half the bytes. Also timed from a clean L2
+    (``clean``); with ``old`` (baseline_kernels), the earlier kernel, held
+    to the plain version, in turns with this one."""
     rows_out = []
     for rows, dtype in NORM_CASES:
         x, r, w, b = norm_inputs(dev, gen, rows, dtype)
@@ -1296,14 +1384,30 @@ def measure_fused_norm(dev, gen, timer):
         b_ms, b_by = bound(nbytes(x, r, w, b, *got))
         summed = r + x
         wl, bl = w.to(dtype), b.to(dtype)
-        rows_out.append(dict(
+        row = dict(
             case=name, shape=[rows, NORM_D], p=NORM_P, seed=NORM_SEED,
             max_abs_err=err, tolerance=tol, new_residual_bitwise=True,
             ms=timer.ms(kernel), plain_ms=timer.ms(plain),
-            library_ms=timer.ms(lambda: F.layer_norm(summed, (NORM_D,), wl,
-                                                     bl, 1e-5)),
-            library_note="F.layer_norm of the summed residual only",
-            bound_ms=b_ms, bound_by=b_by))
+            clean_l2_ms=clean.ms(kernel), library_ms=None,
+            layer_norm_ms=timer.ms(lambda: F.layer_norm(
+                summed, (NORM_D,), wl, bl, 1e-5)),
+            layer_norm_note="partial yardstick: F.layer_norm of the summed "
+            "residual, half the bytes",
+            bound_ms=b_ms, bound_by=b_by)
+        if old is not None and old["fused_norm"] is not None:
+            old_fn = baseline_norm(old["fused_norm"], x, r, w, b)
+            got_old = old_fn()
+            torch.cuda.synchronize()
+            check_norm(f"baseline fused_norm[{name}]", got_old, want, dtype)
+            turns_in(row, timer, old_fn, kernel)
+        log(f"[kernel] fused_norm[{name}] {row['ms'] * 1e3:.2f} us, from a "
+            f"clean L2 {row['clean_l2_ms'] * 1e3:.2f} (bound "
+            f"{b_ms * 1e3:.2f}); F.layer_norm alone "
+            f"{row['layer_norm_ms'] * 1e3:.2f}"
+            + (f"; baseline {row['baseline_ms'] * 1e3:.2f} us against "
+               f"{row['new_in_turns_ms'] * 1e3:.2f} in turns"
+               if "baseline_ms" in row else ""))
+        rows_out.append(row)
         del x, r, summed, got, want
     return rows_out
 
@@ -1891,8 +1995,8 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-csrc", default=None,
                     help="an earlier tree's csrc directory: time its "
                     "forward GEMM, GEMM backward (dA + dB), flash "
-                    "forward and backward and decode kernels in turns "
-                    "with this one's")
+                    "forward and backward, decode, RoPE and fused norm "
+                    "kernels in turns with this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1919,6 +2023,11 @@ def main(argv=None) -> int:
     build_model(get_config("llama-1b"), device=dev)   # pins fp32 numerics
     gen = torch.Generator(device=dev).manual_seed(0)
     timer = Timer(dev)
+    clean = Timer(dev, clean=True)
+    floors = {"ms": timer.floor(), "clean_l2_ms": clean.floor()}
+    log(f"[timer] floor (a one-element fill replayed from a graph): "
+        f"{floors['ms'] * 1e3:.2f} us after the write scrub, "
+        f"{floors['clean_l2_ms'] * 1e3:.2f} us after the read scrub")
     cfg = get_config("llama-1b")
     old = baseline_kernels(args.baseline_csrc) if args.baseline_csrc else None
     measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer, old),
@@ -1931,8 +2040,8 @@ def main(argv=None) -> int:
     measured.update(bwd_rows)
     measured.update({
         "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen, timer, old),
-        "rope": measure_rope(cfg, dev, gen, timer),
-        "fused_norm": measure_fused_norm(dev, gen, timer)})
+        "rope": measure_rope(cfg, dev, gen, timer, clean, old),
+        "fused_norm": measure_fused_norm(dev, gen, timer, clean, old)})
     for name, rows in measured.items():
         for r in rows:
             lib = ("none" if r["library_ms"] is None
@@ -1943,7 +2052,7 @@ def main(argv=None) -> int:
                 f"library {lib}, bound "
                 f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
 
-    del timer
+    del timer, clean
     torch.cuda.empty_cache()
     m = build_models(dev)
     phases = {"4": run_slice(dev, m)}
@@ -1977,12 +2086,13 @@ def main(argv=None) -> int:
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": b_ops + b_bytes,
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            # no one PyTorch call computes RoPE
+            # no one PyTorch call computes RoPE or the fused norm
             "library_ms": (None if any(r["library_ms"] is None for r in rows)
                            else sum(r["library_ms"] for r in rows)),
             "cases": rows})
     report = {"device": card, "kernels": line, "phases": phases,
-              "gemm_bwd_whole": bwd_whole, "sass": sass}
+              "gemm_bwd_whole": bwd_whole, "sass": sass,
+              "timer_floor": floors}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

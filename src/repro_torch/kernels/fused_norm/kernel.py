@@ -1,5 +1,7 @@
 """The fused dropout + residual + layernorm kernel (``csrc/fused_norm.cu``)
-and its launch: one block per row, the keep-mask hashed in the kernel."""
+and its launch: the keep-mask hashed in the kernel, each row held in the
+registers of a group of threads of a persistent grid (past 8192 columns, a
+block a row, in shared memory)."""
 from __future__ import annotations
 
 import ctypes
@@ -13,8 +15,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel("fused_norm", "fused_norm.cu", "fused_norm_launch",
                     [_P] * 6 + [_I] * 3 + [_F] * 3 + [_I, _I, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the row's fp32 sum is held in shared memory (227 KB a block, less the
-# reduction scratch)
+# rows wider than the kernel's register rows (8192) hold their fp32 sum in
+# shared memory (227 KB a block, less the reduction scratch)
 MAX_D = 56 * 1024
 
 

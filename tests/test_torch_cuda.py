@@ -13,7 +13,11 @@ tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
 over the gathered pages; for both decode kernels, sinks (fp32 and bf16),
 two calls bitwise equal, CUDA-graph replays equal to eager calls (the
 in-launch merge's tickets reset), one launch a call, a view the TMA cannot
-read refused, and the llama-1b main-path shapes; for the backward kernels, every chain the GEMM
+read refused, and the llama-1b main-path shapes; for RoPE, S 131 and 200 at
+head_dim 64 and 128 on strided views, and a misaligned view (the scalar
+branch) bit for bit the vector branch; for the fused norm, d 1000-4096,
+the shared-memory branch at d 16384 and misaligned views; CUDA-graph
+replays of both; for the backward kernels, every chain the GEMM
 takes at ragged M, N and K, each tile width of the GEMM backward's
 mainloop, its operand pass against the plain version, the llama-1b
 training shapes, the forward's saved preacts against the rounded
@@ -945,8 +949,8 @@ def _rope_close(got, want):
 @pytest.mark.parametrize("d,s", [(64, 256), (128, 200), (64, 131)])
 def test_rope_kernel_matches_plain_on_strided_views(dev, d, s, dtype):
     """q and k as transposed views of a packed (B, S, (H + Hkv) x D)
-    projection output, at S that are not multiples of the kernel's
-    256-pair tile; the output is contiguous and counts one launch."""
+    projection output (the kernel's 16-byte vector branch), at S 131 and
+    200 besides 256; the output is contiguous and counts one launch."""
     from repro_torch.kernels.rope import rope, rope_ref, rope_tables
     b, h, hkv = 2, 4, 2
     rng = np.random.default_rng(d + s)
@@ -1014,7 +1018,7 @@ def test_fused_norm_kernel_matches_plain(dev, rows, d, p, dtype, wdtype):
     """Both outputs against the plain version: new_residual bit for bit
     (the same fp32 product and sum), normed within 1e-5 of its scale in
     fp32 (the row sums run in another order) and within that plus one ulp
-    in bf16; a d that is no multiple of the block's 256 threads."""
+    in bf16; d 1000, which fills no row group's registers exactly."""
     from repro_torch.kernels.fused_norm import (
         dropout_residual_layernorm, fused_dropout_residual_layernorm_ref)
     rng = np.random.default_rng(rows + d)
@@ -1035,3 +1039,140 @@ def test_fused_norm_kernel_matches_plain(dev, rows, d, p, dtype, wdtype):
         tol = torch.maximum(_bf16_ulp(want_out.double()),
                             _bf16_ulp(out.double())) + tol
     assert (err <= tol).all(), err.max()
+
+
+def _misaligned(t, offset=1):
+    """A copy of t in a fresh flat buffer starting `offset` elements in: a
+    contiguous view whose pointer is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d,s", [(128, 200), (64, 131)])
+def test_rope_kernel_scalar_branch_on_a_misaligned_view(dev, d, s, dtype):
+    """q as a transposed view of a projection output that starts one
+    element into its buffer: no 16-byte vector is aligned, so the kernel
+    moves single elements. It matches the plain version and gives the bits
+    of the vector branch on the same values laid out aligned."""
+    from repro_torch.kernels.rope import rope, rope_ref, rope_tables
+    b, h = 2, 4
+    rng = np.random.default_rng(d * s)
+    q = _rand(rng, (b, s, h * d), dev, dtype=dtype)
+    sin, cos = rope_tables(torch.arange(s, device=dev), d)
+    aligned = q.reshape(b, s, h, d).transpose(1, 2)
+    shifted = _misaligned(q).reshape(b, s, h, d).transpose(1, 2)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16
+    before = kernels.launch_counts()["rope"]
+    got = rope(shifted, sin, cos)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rope"] == before + 1
+    _rope_close(got, rope_ref(shifted, sin, cos))
+    assert torch.equal(got, rope(aligned, sin, cos))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fused_norm_shared_memory_branch_at_d_16384(dev, dtype):
+    """A row wider than the register instances (d 16384 > MAX_REG_D) goes
+    through the same source's shared-memory kernel: one launch, outputs at
+    the tolerances of the other cases."""
+    from repro_torch.kernels.fused_norm import (
+        dropout_residual_layernorm, fused_dropout_residual_layernorm_ref)
+    rows, d = 12, 16384   # past the register rows' 8192
+    rng = np.random.default_rng(16384)
+    x = _rand(rng, (rows, d), dev, dtype=dtype)
+    r = _rand(rng, (rows, d), dev, dtype=dtype)
+    w = 1 + 0.1 * _rand(rng, (d,), dev, dtype=torch.float32)
+    b = _rand(rng, (d,), dev, 0.1, dtype=torch.float32)
+    before = kernels.launch_counts()["fused_norm"]
+    got = dropout_residual_layernorm(x, r, w, b, 5, dropout_p=0.1)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == before + 1
+    _fused_norm_close(got, fused_dropout_residual_layernorm_ref(
+        x, r, w, b, 5, dropout_p=0.1), dtype)
+
+
+def _fused_norm_close(got, want, dtype):
+    """new_residual bit for bit; normed within 1e-5 of its scale, plus one
+    ulp in bf16 (the tolerance of test_fused_norm_kernel_matches_plain)."""
+    out, new_res = got
+    want_out, want_res = want
+    assert torch.equal(new_res, want_res)
+    err = (out.double() - want_out.double()).abs()
+    tol = 1e-5 * want_out.abs().max().item()
+    if dtype == torch.bfloat16:
+        tol = torch.maximum(_bf16_ulp(want_out.double()),
+                            _bf16_ulp(out.double())) + tol
+    assert (err <= tol).all(), err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,d", [(40, 2048), (37, 1000)])
+def test_fused_norm_on_misaligned_views(dev, rows, d, dtype):
+    """x and the residual as contiguous views one element into their
+    buffers: the register kernel takes single elements instead of 16-byte
+    vectors, with the same keep-mask and the same tolerances."""
+    from repro_torch.kernels.fused_norm import (
+        dropout_residual_layernorm, fused_dropout_residual_layernorm_ref)
+    rng = np.random.default_rng(rows * d)
+    x = _misaligned(_rand(rng, (rows, d), dev, dtype=dtype))
+    r = _misaligned(_rand(rng, (rows, d), dev, dtype=dtype), 3)
+    w = 1 + 0.1 * _rand(rng, (d,), dev, dtype=torch.float32)
+    b = _rand(rng, (d,), dev, 0.1, dtype=torch.float32)
+    assert x.data_ptr() % 16 and r.data_ptr() % 16
+    before = kernels.launch_counts()["fused_norm"]
+    got = dropout_residual_layernorm(x, r, w, b, -3, dropout_p=0.25)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == before + 1
+    _fused_norm_close(got, fused_dropout_residual_layernorm_ref(
+        x, r, w, b, -3, dropout_p=0.25), dtype)
+
+
+def _replays_equal_eager(call):
+    """A captured call replayed from a CUDA graph twice gives the eager
+    call's bits each time."""
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(out, want):
+            assert torch.equal(o, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_rope_kernel_replays_from_a_cuda_graph(dev, dtype):
+    from repro_torch.kernels.rope import rope, rope_tables
+    b, h, s, d = 2, 8, 256, 64
+    rng = np.random.default_rng(5)
+    x = _rand(rng, (b, s, h * d), dev, dtype=dtype).reshape(
+        b, s, h, d).transpose(1, 2)
+    sin, cos = rope_tables(torch.arange(s, device=dev), d)
+    _replays_equal_eager(lambda: (rope(x, sin, cos),))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fused_norm_kernel_replays_from_a_cuda_graph(dev, dtype):
+    from repro_torch.kernels.fused_norm import dropout_residual_layernorm
+    rows, d = 300, 2048
+    rng = np.random.default_rng(6)
+    x = _rand(rng, (rows, d), dev, dtype=dtype)
+    r = _rand(rng, (rows, d), dev, dtype=dtype)
+    w = 1 + 0.1 * _rand(rng, (d,), dev, dtype=torch.float32)
+    b = _rand(rng, (d,), dev, 0.1, dtype=torch.float32)
+    _replays_equal_eager(lambda: dropout_residual_layernorm(
+        x, r, w, b, 7, dropout_p=0.1))
