@@ -70,7 +70,12 @@ Phases, each of which raises on failure (exit code non-zero):
    (prompts of 128-256 tokens, 32 new tokens, greedy) through
    ``RequestQueue(Engine(...), batch_size=4, buckets=(256,))`` in kernel
    mode; every kernel launch counter is zeroed just before and read just
-   after, and must equal the launches the path makes. Then teacher forcing:
+   after, and must equal the launches the path makes. Decode steps replay
+   from the ``("decode", 4)`` bucket's CUDA graph (captured in a warm-up
+   batch); a replay adds the launches its capture recorded. The engine's
+   ``bucket_lru`` is printed, and one replayed step from the cache it finds
+   must equal an eager ``decode_step`` from a copy of that cache bit for
+   bit (logits and cache), with the same launch counts. Then teacher forcing:
    the served token streams go through the kernel path, the plain bf16 path
    and the plain fp32 path; the kernel path's per-step logits must be no
    further from fp32 than 2x the plain bf16 path's distance + 1e-2.
@@ -82,7 +87,10 @@ Phases, each of which raises on failure (exit code non-zero):
    tokens of their own; at least one prefix hit and one chunk. Each checks
    completion, prompts and lengths, the pool accounting, and that every
    kernel launch counter (zeroed just before, read just after) equals what
-   the engine's own counters imply. Then teacher forcing: two served
+   the engine's own counters imply, decode steps replayed from the page
+   buckets' CUDA graphs; ``bucket_lru`` printed, and one replay of the first
+   cached decode bucket on a lone slot bit for bit the eager
+   ``decode_step_paged``, as in phase 4. Then teacher forcing: two served
    streams per phase that were neither preempted nor prefix-matched are
    replayed through the same route in a lone slot; the replay's greedy
    tokens must equal the served ones exactly, and its logits must be no
@@ -120,7 +128,16 @@ Phases, each of which raises on failure (exit code non-zero):
    shapes (fp32, and bf16 at 8192 rows): outputs against the plain
    version, and the kernel's keep-mask, read from a probe call with x = 1
    and residual = 0, bit for bit the plain version's.
-8. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+8. The dense decoders of the registry at published width, seeded random
+   weights rescaled to a trained model's scale (as 6a's), kernel mode, one
+   at a time (freed before the next):
+   granite-8b (all 36 layers), chatglm3-6b, minicpm-2b and qwen2-72b (4
+   layers each). (a) Phase 4's traffic and checks through
+   ``RequestQueue(Engine)``, batch 4, the fp32 truth at the same depth;
+   (b) 8 requests of 128-256 tokens, 32 new ones, through
+   ``PagedEngine(batch_slots=8, page_size=64, chunk_tokens=128)`` with
+   phase 5's checks. Prints each config's decode tokens/s.
+9. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -130,6 +147,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -214,6 +232,11 @@ SOURCES = {
 }
 # the phases whose launches are the main path's (6a only checks grads)
 MAIN_PATH_PHASES = ("4", "5a", "5b", "6b", "7a", "7b", "7c", "7d")
+# phase 8: (arch, layers), granite-8b whole, the others cut in depth
+# (qwen2-72b's 80 layers are ~145 GB in bf16, more than one card holds)
+DENSE = (("granite-8b", 36), ("chatglm3-6b", 4), ("minicpm-2b", 4),
+         ("qwen2-72b", 4))
+DENSE_PHASES = tuple(f"8{p} {arch}" for arch, _ in DENSE for p in "ab")
 
 
 def log(msg: str) -> None:
@@ -1463,21 +1486,60 @@ class Models:
     params32: dict
 
 
-def build_models(dev) -> Models:
-    cfg = get_config("llama-1b")
+def build_models(dev, arch: str = "llama-1b", layers=None,
+                 trained: bool = False) -> Models:
+    """``arch`` at its published width with seeded random weights, cut to
+    ``layers`` layers where given; with ``trained`` rescaled to a trained
+    model's scale (``trained_scale``)."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     model = build_model(cfg, mode="kernel", device=dev)
     params = model.init(seed=0)
+    if trained:
+        params = trained_scale(model, params)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     m = Models(cfg, model, build_model(cfg, mode="reference", device=dev),
                build_model(cfg32, mode="reference", device=dev), params,
                tree_map(lambda x: x.float(), params))
     torch.cuda.synchronize()
-    log(f"[slice] llama-1b built: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; init "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[slice] {arch} built: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads (head_dim "
+        f"{cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv_bias "
+        f"{cfg.qkv_bias}, rope {cfg.rope_style} (theta {cfg.rope_theta:g}), "
+        f"tied {cfg.tie_embeddings}; init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     return m
+
+
+def check_graph_replay(tag, entry, cache, inputs, eager) -> None:
+    """A decode bucket's captured graph, replayed on ``inputs`` from the
+    cache state it finds, against the eager step ``eager(cache)`` from a
+    copy of that state: the logits, the cache afterwards and the launch
+    counts equal, bit for bit and exactly."""
+    if entry.graph is None:
+        raise AssertionError(f"[{tag}] the decode bucket holds no graph")
+    # the engines' buffers are inference tensors, written in that mode
+    with torch.inference_mode():
+        saved = {k: v.clone() for k, v in cache.items()}
+        kernels.reset_launch_counts()
+        replayed = entry(**inputs).clone()
+        torch.cuda.synchronize()
+        replay_counts = kernels.launch_counts()
+        after = {k: v.clone() for k, v in cache.items()}
+        kernels.reset_launch_counts()
+        want = eager(saved)
+        torch.cuda.synchronize()
+        eager_counts = kernels.launch_counts()
+    if replay_counts != eager_counts or not torch.equal(replayed, want) \
+            or not all(torch.equal(after[k], saved[k]) for k in saved):
+        raise AssertionError(
+            f"[{tag}] a replayed decode step differs from the eager step: "
+            f"logits max diff {(replayed - want).abs().max().item():.4g}, "
+            f"launches {replay_counts} vs {eager_counts}")
+    log(f"[{tag}] a replayed decode step equals the eager step bit for bit "
+        f"(logits and cache), launches {replay_counts}")
 
 
 def check_logit_bound(name, kern, plain, truth):
@@ -1520,11 +1582,19 @@ def run_slice(dev, m: Models, model=None, tag: str = "slice"):
     kernels.reset_launch_counts()
     served = queue.flush(force=True)
     counts = kernels.launch_counts()
-    log(f"[{tag}] served {served} requests; launches {counts}")
+    log(f"[{tag}] served {served} requests; launches {counts}; "
+        f"bucket_lru {engine.lru_stats}")
     want = expected_launches(cfg, REQUESTS // BATCH, model.qkv_plan)
     if served != REQUESTS or counts != want:
         raise AssertionError(f"served {served}, launches {counts}; the main "
                              f"path makes {want}")
+    entry = engine._buckets[("decode", BATCH)]
+    token = torch.arange(BATCH, device=dev)[:, None] * 7 + 1
+
+    def eager(cache):
+        return model.decode_step(params, token, cache, PROMPT + 3)[1]
+    check_graph_replay(tag, entry, entry.cache,
+                       dict(token=token, pos=PROMPT + 3), eager)
     for r in reqs:
         check_result(cfg, r, queue.results[r.uid])
     pre_tok = sum(t["batch"] * t["prompt_len"] for t in engine.timings)
@@ -1558,6 +1628,7 @@ def run_slice(dev, m: Models, model=None, tag: str = "slice"):
         f"error + 1e-2); greedy agreement with the plain bf16 path "
         f"{agreement:.3f} (information only)")
     return {"served": served, "launches": counts, "throughput": throughput,
+            "bucket_lru": dict(engine.lru_stats),
             "logit_bound_use": worst, "greedy_agreement": agreement,
             "teacher_forced": (tokens, plain, truth)}
 
@@ -1578,13 +1649,20 @@ PHASES = {
     "5a": dict(n_pages=33),
     "5b": dict(prefix_cache=True, chunk_tokens=CHUNK),
 }
+# phase 8b: the dense decoders' paged traffic, chunked prefill
+DENSE_PAGED = dict(chunk_tokens=CHUNK)
 
 
 def paged_requests(cfg, phase: str) -> list:
     """5a: 16 requests, prompts of 96-320 tokens, 16-64 new tokens. 5b: 12
     requests sharing a 192-token (3-page) prefix plus 32-160 tokens of
-    their own, 16-64 new tokens. Seeded, greedy."""
+    their own, 16-64 new tokens. 8b: phase 4's traffic, 8 requests of
+    128-256 tokens and 32 new ones. Seeded, greedy."""
     v = cfg.vocab_size
+    if phase == "8b":
+        rng = np.random.default_rng(0)
+        return [Request(u, rng.integers(0, v, int(rng.integers(128, PROMPT + 1)))
+                        .astype(np.int32), NEW_TOKENS) for u in range(REQUESTS)]
     if phase == "5a":
         rng = np.random.default_rng(0)
         return [Request(u, rng.integers(0, v, int(rng.integers(96, 321)))
@@ -1653,10 +1731,11 @@ def paged_replay(engine, model, params, row, plen: int, chunk, dev):
     return out
 
 
-def run_paged_phase(dev, m: Models, phase: str) -> dict:
+def run_paged_phase(dev, m: Models, phase: str, tag=None) -> dict:
     cfg = m.cfg
+    tag = tag or phase
     kw = dict(batch_slots=SLOTS, page_size=PAGE, max_pages_per_seq=MAX_PAGES,
-              **PHASES[phase])
+              **(DENSE_PAGED if phase == "8b" else PHASES[phase]))
     chunk = kw.get("chunk_tokens")
     # warm-up of the same route (cuBLAS plans at the decode shapes)
     warm = PagedEngine(m.kernel, m.params, **kw)
@@ -1673,27 +1752,44 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
     counts = kernels.launch_counts()
     rep = engine.report()
     want = expected_paged_launches(cfg, engine)
-    log(f"[{phase}] served {len(results)} requests in {rep['steps']} steps: "
+    log(f"[{tag}] served {len(results)} requests in {rep['steps']} steps: "
         f"{rep['prefills']} exact prefills, {engine.chunks_prefilled} chunks, "
         f"{rep['decode_steps']} decode steps, {rep['preemptions']} "
         f"preemptions, peak {rep['peak_pages_in_use']} of "
-        f"{rep['page_pool_size']} pages; launches {counts}")
+        f"{rep['page_pool_size']} pages; launches {counts}; bucket_lru "
+        f"{rep['bucket_lru']}")
     if counts != want:
-        raise AssertionError(f"[{phase}] launches {counts}; the engine's "
+        raise AssertionError(f"[{tag}] launches {counts}; the engine's "
                              f"counters imply {want}")
     path = ("gemm_fused", "flash_decode_paged") + (
         ("flash_attention_fwd",) if phase == "5a" else ())
     if not all(counts[k] > 0 for k in path):
-        raise AssertionError(f"[{phase}] a kernel of the path never ran")
+        raise AssertionError(f"[{tag}] a kernel of the path never ran")
     if sorted(results) != [r.uid for r in reqs]:
-        raise AssertionError(f"[{phase}] completed {sorted(results)}")
+        raise AssertionError(f"[{tag}] completed {sorted(results)}")
     for r in reqs:
         check_result(cfg, r, results[r.uid])
     held = rep.get("prefix_cache", {}).get("pages_held", 0)
     if engine.alloc.free_pages != engine.n_pages - 1 - held:
-        raise AssertionError(f"[{phase}] {engine.alloc.free_pages} pages "
+        raise AssertionError(f"[{tag}] {engine.alloc.free_pages} pages "
                              f"free, {held} held by the trie, of "
                              f"{engine.n_pages - 1}")
+    # the first decode bucket still cached, on a lone slot over its pages
+    key = next(k for k in engine._buckets if isinstance(k[0], int))
+    mp = key[1]
+    token = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
+    token[0, 0] = 11
+    table = torch.zeros((SLOTS, mp), dtype=torch.int32, device=dev)
+    table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
+    lengths = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
+    lengths[0] = mp * PAGE - 5
+
+    def eager(pools):
+        return m.kernel.decode_step_paged(m.params, token, pools, table,
+                                          lengths)[1]
+    check_graph_replay(f"{tag} bucket {key}", engine._buckets[key],
+                       engine.cache, dict(token=token, page_table=table,
+                                          lengths=lengths), eager)
     if phase == "5a" and rep["preemptions"] < 1:
         raise AssertionError("[5a] the pool never forced a preemption")
     if phase == "5b":
@@ -1706,7 +1802,7 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
     throughput = {"prefill_tokens_per_s": t["prefill_tokens"] / t["prefill_s"],
                   "decode_tokens_per_s": t["decode_tokens"] / t["decode_s"],
                   **t}
-    log(f"[{phase}] prefill {t['prefill_tokens']} tokens in "
+    log(f"[{tag}] prefill {t['prefill_tokens']} tokens in "
         f"{t['prefill_s']:.4f} s ({throughput['prefill_tokens_per_s']:.1f} "
         f"tok/s); decode {t['decode_tokens']} tokens in {t['decode_s']:.4f} s "
         f"({throughput['decode_tokens_per_s']:.1f} tok/s)")
@@ -1716,7 +1812,7 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
         rep.get("prefix_cache", {}).get("hit_uids", ()))
     replayed = [r for r in reqs if r.uid not in other_route][:2]
     if len(replayed) < 2:
-        raise AssertionError(f"[{phase}] fewer than two requests kept the "
+        raise AssertionError(f"[{tag}] fewer than two requests kept the "
                              "plain route")
     kern, plain, truth = [], [], []
     for r in replayed:
@@ -1724,7 +1820,7 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
         k = paged_replay(engine, m.kernel, m.params, row, plen, chunk, dev)
         greedy = np.array([int(x.argmax()) for x in k])
         if not np.array_equal(greedy, row[plen:]):
-            raise AssertionError(f"[{phase}] request {r.uid}: the lone-slot "
+            raise AssertionError(f"[{tag}] request {r.uid}: the lone-slot "
                                  "replay's greedy tokens differ from the "
                                  "served ones")
         kern += k
@@ -1732,8 +1828,8 @@ def run_paged_phase(dev, m: Models, phase: str) -> dict:
                               dev)
         truth += paged_replay(engine, m.truth, m.params32, row, plen, chunk,
                               dev)
-    worst, agreement = check_logit_bound(phase, kern, plain, truth)
-    log(f"[{phase}] replayed requests {[r.uid for r in replayed]} in a lone "
+    worst, agreement = check_logit_bound(tag, kern, plain, truth)
+    log(f"[{tag}] replayed requests {[r.uid for r in replayed]} in a lone "
         f"slot: greedy tokens equal the served ones over {len(kern)} steps; "
         f"kernel-path error vs fp32 at most {worst:.3f} of its bound; "
         f"greedy agreement with the plain bf16 path {agreement:.3f} "
@@ -1988,6 +2084,38 @@ def run_norm_op(dev) -> dict:
     return {"launches": counts, "cases": cases}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the dense decoders of the registry at published width
+# ---------------------------------------------------------------------------
+
+def run_dense(dev) -> dict:
+    """8a: phase 4's traffic through RequestQueue(Engine) and 8b: the same
+    number of requests through PagedEngine with 128-token chunks, for each
+    config of DENSE in turn (freed before the next), with phases 4's and
+    5's checks. The weights are at a trained model's scale, as in 6a: at
+    the reference's init (std (layers)^-1/2, 0.5 at 4 layers) attention is
+    near one-hot and a bf16 rounding of a key flips which key wins, so
+    every bf16 path's logits lie a large share of their scale from fp32
+    and the kernel path and the plain path are two draws of that noise."""
+    out = {}
+    for arch, layers in DENSE:
+        m = build_models(dev, arch, layers, trained=True)
+        a = run_slice(dev, m, tag=f"8a {arch}")
+        del a["teacher_forced"]
+        b = run_paged_phase(dev, m, "8b", tag=f"8b {arch}")
+        out[f"8a {arch}"], out[f"8b {arch}"] = a, b
+        log(f"[8 {arch}] decode tokens/s: Engine "
+            f"{a['throughput']['decode_tokens_per_s']:.1f}, PagedEngine "
+            f"{b['throughput']['decode_tokens_per_s']:.1f}; prefill tokens/s: "
+            f"Engine {a['throughput']['prefill_tokens_per_s']:.1f}, "
+            f"PagedEngine (chunks) "
+            f"{b['throughput']['prefill_tokens_per_s']:.1f}")
+        del m, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2070,6 +2198,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phases["7d"] = run_norm_op(dev)
     log(f"[done] build and phases 3-7 in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    phases.update(run_dense(dev))
+    log(f"[done] phase 8 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -2080,7 +2211,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": sum(phases[p]["launches"][name]
-                            for p in MAIN_PATH_PHASES),
+                            for p in MAIN_PATH_PHASES + DENSE_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

@@ -1,18 +1,31 @@
-"""Config registry: ``get_config('<arch-id>')`` for the archs the port runs."""
+"""Config registry: ``get_config('<arch-id>'[, smoke=True])`` for the dense
+decoder-only archs the port runs, under the reference's ids."""
 from __future__ import annotations
 
-from .base import ModelConfig  # noqa: F401
-from .llama_paper import LLAMA_100M, LLAMA_1B
+import importlib
 
-_CONFIGS = {"llama-100m": LLAMA_100M, "llama-1b": LLAMA_1B}
-ARCH_IDS = tuple(_CONFIGS)
+from .base import ModelConfig  # noqa: F401
+
+_MODULES = {
+    "minicpm-2b": "minicpm_2b",
+    "chatglm3-6b": "chatglm3_6b",
+    "granite-8b": "granite_8b",
+    "qwen2-72b": "qwen2_72b",
+    "llama-100m": "llama_paper",
+    "llama-1b": "llama_paper",
+}
+ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
-    """The published config. ``smoke`` is accepted for the reference's call
-    signature and ignored: the llama validation models have no smoke
-    variant there either."""
-    del smoke
-    if name not in _CONFIGS:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(_CONFIGS)}")
-    return _CONFIGS[name]
+    """The published config, or with ``smoke`` its small variant. The llama
+    validation models have no smoke variant (as in the reference) and
+    return their one config either way."""
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    if name == "llama-100m":
+        return mod.LLAMA_100M
+    if name == "llama-1b":
+        return mod.LLAMA_1B
+    return mod.SMOKE_CONFIG if smoke else mod.CONFIG

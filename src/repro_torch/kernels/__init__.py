@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 ``KERNELS`` lists every CUDA kernel with its launch count; ``build_all``
-compiles them in parallel (``_build.build_all``).
+compiles them in parallel (``_build.build_all``). A CUDA graph's replay
+adds the launches its capture recorded (``add_launch_counts``).
 """
 from ._build import build_all as _build_all
 from .attention import (BWD_KERNEL, DECODE_KERNEL, DECODE_PAGED_KERNEL,
@@ -27,3 +28,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` {name: n} to the kernels' launch counts: a CUDA
+    graph's replay launches what its capture recorded, and the wrappers,
+    which count on the host, do not run."""
+    for k in KERNELS:
+        k.launches += counts.get(k.name, 0)

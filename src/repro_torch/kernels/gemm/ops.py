@@ -174,6 +174,14 @@ def _check_operands(epilogue, prologue, provided, pro_provided):
                     f" {type(chain).__name__.lower()} {chain.describe()!r}")
 
 
+def rope_store_fits(head_dim: int) -> bool:
+    """Whether the kernel's store can rotate heads of ``head_dim``: a
+    multiple of 4 dividing BLOCK_N, so every tile holds whole heads. The
+    QKV ladder's rung 1 takes rung 2 where this is False, as the
+    reference's does where its rope-store plan does not fit."""
+    return head_dim > 0 and BLOCK_N % head_dim == 0 and head_dim % 4 == 0
+
+
 def check_chain(epilogue: Epilogue, prologue: Prologue) -> None:
     """Raise on a chain the CUDA kernel does not take."""
     if prologue.norm not in ("none", "rmsnorm") or prologue.precomputed_stats:
@@ -188,8 +196,7 @@ def check_chain(epilogue: Epilogue, prologue: Prologue) -> None:
         raise NotImplementedError(
             f"gemm_fused kernel: activation {epilogue.activation!r} "
             f"(gate={epilogue.gate}) is not supported; silu with gate only")
-    if epilogue.rope and (BLOCK_N % epilogue.head_dim
-                          or epilogue.head_dim % 4):
+    if epilogue.rope and not rope_store_fits(epilogue.head_dim):
         raise NotImplementedError(
             f"gemm_fused kernel: rope head_dim {epilogue.head_dim} must be a "
             f"multiple of 4 dividing the kernel's block width {BLOCK_N}")

@@ -6,16 +6,21 @@
 Builds the model in kernel mode with seeded random weights, warms it up,
 then runs one prefill and the decode steps of one batch twice: once untimed
 by the profiler (host clock around work ended by a device synchronise), and
-once under ``torch.profiler``. ``--engine fixed`` (the default) drives the
-model's prefill and decode step directly, as ``Engine`` does; ``--engine
-paged`` drives a ``PagedEngine`` (``--batch`` slots, 64-token pages):
-prefill is the admission of every request (one exact-length prefill
-each), decode is the engine's steps until all have retired. From the trace
+once under ``torch.profiler``. ``--engine fixed`` (the default) drives an
+``Engine``'s buckets as ``Engine.generate`` does: the prefill, then the
+decode steps replayed from the ``("decode", batch)`` bucket's CUDA graph;
+``--engine paged`` drives a ``PagedEngine`` (``--batch`` slots, 64-token
+pages): prefill is the admission of every request (one exact-length
+prefill each), decode is the engine's steps, replayed from its page
+buckets' graphs, until all have retired. One engine serves the warm-up
+and both runs, so the graphs are captured in the warm-up. From the trace
 it reports, for prefill and decode apart, the device time by kernel family
 (the port's kernels, the library matrix products that the reference also
 leaves to the compiler, and the other torch operations), the device's busy
-share of the traced window, and the peak device memory. Needs a CUDA card; writes
-``DIR/profile_serve_<engine>.json`` and prints one summary line per phase.
+share of the traced window, the host's launch calls (kernel launches and
+graph launches, by API name) and the peak device memory. Needs a CUDA
+card; writes ``DIR/profile_serve_<engine>.json`` and prints one summary
+line per phase.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from torch.autograd import DeviceType
 
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
-from repro_torch.serve import PagedEngine, Request
+from repro_torch.serve import Engine, PagedEngine, Request
 
 # kernel name fragment -> family, checked in order
 FAMILIES = (
@@ -82,12 +87,20 @@ def _union_us(intervals) -> float:
     return total
 
 
+# host API calls that put work on the device's queue
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
 def summarize(prof, wall_s: float) -> dict:
     by_family: dict = {}
     launches: dict = {}
+    host_calls: dict = {}
     intervals = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            if ev.name in LAUNCH_CALLS:
+                host_calls[ev.name] = host_calls.get(ev.name, 0) + 1
             continue
         fam = family(ev.name)
         dur = ev.time_range.elapsed_us()
@@ -99,6 +112,7 @@ def summarize(prof, wall_s: float) -> dict:
                / 1e3 if intervals else 0.0)
     return {"device_ms_by_family": by_family,
             "device_launches_by_family": launches,
+            "host_launch_calls": host_calls,
             "device_busy_ms": busy_ms, "traced_wall_ms": wall_s * 1e3,
             "device_busy_share": busy_ms / (wall_s * 1e3),
             "device_first_to_last_ms": span_ms}
@@ -121,21 +135,22 @@ def _timed(fn, profile: bool):
         return time.perf_counter() - t0, prof
 
 
-def run_phases(model, params, prompts, new_tokens: int, profile: bool):
-    """One prefill and ``new_tokens - 1`` greedy decode steps; returns
-    {phase: (seconds, profiler or None)}."""
-    cache = model.init_cache(prompts.shape[0], prompts.shape[1] + new_tokens)
+def run_phases(engine, prompts, new_tokens: int, profile: bool):
+    """One prefill and ``new_tokens - 1`` greedy decode steps through the
+    engine's buckets, as ``Engine.generate`` runs them; returns {phase:
+    (seconds, profiler or None)}."""
+    b, s = prompts.shape
+    prefill_fn = engine._bucket(b, s)
+    step = engine._decode_fn(b)
     state = {}
 
     def prefill():
-        state["cache"], logits = model.prefill(params, prompts, cache)
+        _, logits = prefill_fn(engine.params, prompts, step.cache)
         state["tok"] = torch.argmax(logits, dim=-1)[:, None]
 
     def decode():
-        s = prompts.shape[1]
         for i in range(new_tokens - 1):
-            state["cache"], logits = model.decode_step(
-                params, state["tok"], state["cache"], s + i)
+            logits = step(token=state["tok"], pos=s + i)
             state["tok"] = torch.argmax(logits, dim=-1)[:, None]
 
     with torch.inference_mode():
@@ -146,15 +161,12 @@ def run_phases(model, params, prompts, new_tokens: int, profile: bool):
 PAGE = 64
 
 
-def run_phases_paged(model, params, prompts, new_tokens: int, profile: bool):
+def run_phases_paged(engine, prompts, new_tokens: int, profile: bool):
     """The same work through a PagedEngine with one slot per prompt: the
     admissions (exact-length prefills), then the engine's steps."""
-    b, s = prompts.shape
-    pages = -(-(s + new_tokens) // PAGE)
-    engine = PagedEngine(model, params, batch_slots=b, page_size=PAGE,
-                         max_pages_per_seq=1 << (pages - 1).bit_length())
+    first = engine.admissions
     for uid, row in enumerate(prompts.cpu().numpy()):
-        engine.submit(Request(uid, row.astype(np.int32), new_tokens))
+        engine.submit(Request(first + uid, row.astype(np.int32), new_tokens))
 
     def decode():
         while engine.step():
@@ -184,11 +196,21 @@ def main(argv=None) -> dict:
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         device="cuda")
-    run = run_phases_paged if args.engine == "paged" else run_phases
-    run(model, params, prompts, 3, profile=False)               # warm-up
+    max_len = args.prompt_len + args.new_tokens
+    if args.engine == "paged":
+        pages = -(-max_len // PAGE)
+        engine = PagedEngine(model, params, batch_slots=args.batch,
+                             page_size=PAGE,
+                             max_pages_per_seq=1 << (pages - 1).bit_length())
+        run = run_phases_paged
+    else:
+        engine = Engine(model, params, max_len=max_len)
+        run = run_phases
+    # warm-up: the decode graphs of the buckets the runs use are captured
+    run(engine, prompts, args.new_tokens, profile=False)
     torch.cuda.reset_peak_memory_stats()
-    plain = run(model, params, prompts, args.new_tokens, profile=False)
-    traced = run(model, params, prompts, args.new_tokens, profile=True)
+    plain = run(engine, prompts, args.new_tokens, profile=False)
+    traced = run(engine, prompts, args.new_tokens, profile=True)
     tokens = {"prefill": args.batch * args.prompt_len,
               "decode": args.batch * (args.new_tokens - 1)}
     report = {"arch": args.arch, "engine": args.engine, "batch": args.batch,
@@ -209,7 +231,8 @@ def main(argv=None) -> dict:
               f"({row['tokens_per_s']:.1f} tok/s); traced: device busy "
               f"{row['traced']['device_busy_ms']:.3f} ms of "
               f"{row['traced']['traced_wall_ms']:.3f} ms "
-              f"({row['traced']['device_busy_share']:.3f}); {fams}",
+              f"({row['traced']['device_busy_share']:.3f}); host launch "
+              f"calls {row['traced']['host_launch_calls']}; {fams}",
               flush=True)
     print(f"[profile] peak device memory {report['peak_memory_gb']:.2f} GB")
     if args.out:

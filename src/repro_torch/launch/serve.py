@@ -1,28 +1,36 @@
 """Serving launcher: batched greedy generation through the request queue,
-with the model in kernel mode.
+with the model in kernel mode (``--mode reference``: the plain path).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-1b \\
       --requests 8 --prompt-len 256 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
+      --no-smoke --layers 4
 
-Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
-versions on the CPU.
+``--arch`` takes every id of ``repro_torch.configs``; the smoke variant of
+a config is the default (``--no-smoke``: the published one; the llama ids
+have one config), and ``--layers`` cuts its depth. Runs on the CUDA card by
+default; ``--device cpu`` runs the kernels' plain versions on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.device import DEFAULT_DEVICE
-from repro_torch.models import build_model
+from repro_torch.models import MODES, build_model
 from repro_torch.serve import Engine, Request, RequestQueue
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-1b")
-    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--mode", choices=MODES, default="kernel")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -32,7 +40,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    model = build_model(cfg, mode="kernel", device=args.device)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    model = build_model(cfg, mode=args.mode, device=args.device)
     params = model.init(seed=0)
     engine = Engine(model, params,
                     max_len=args.prompt_len + args.new_tokens + 8)

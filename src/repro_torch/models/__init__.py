@@ -1,2 +1,2 @@
-from .api import Model, build_model  # noqa: F401
+from .api import MODES, Model, build_model  # noqa: F401
 from .convert import params_from_numpy  # noqa: F401

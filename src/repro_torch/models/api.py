@@ -48,7 +48,8 @@ class Model:
         return _lm.lm_prefill(self.cfg, params, tokens, cache, mode=self.mode,
                               qkv_plan=self.qkv_plan)
 
-    def decode_step(self, params, token, cache, pos: int):
+    def decode_step(self, params, token, cache, pos):
+        """pos: a Python int or a one-element int64 tensor on the device."""
         return _lm.lm_decode_step(self.cfg, params, token, cache, pos,
                                   mode=self.mode)
 

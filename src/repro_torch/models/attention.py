@@ -13,8 +13,10 @@ reference):
 3. ``unfused``: the standalone norm, plain projections and the standalone
    RoPE op.
 
-A RoPE style other than 'half' cannot ride the store, so rung 1 sends it
-down rung 2, as the reference does. Prefill attention is the flash kernel.
+A RoPE style other than 'half', or a head_dim whose heads the store's
+tiles cannot hold whole (``rope_store_fits``), cannot ride the store, so
+rung 1 sends it down rung 2, as the reference does. Prefill attention is
+the flash kernel.
 Decode projects q/k/v with plain products and rotates them with the plain
 RoPE (as the reference does), appends to the contiguous (ring) cache or to
 the paged pool in place and runs the split-KV decode kernel (contiguous or
@@ -28,7 +30,7 @@ import torch
 from repro_torch.kernels.attention import (attention, attention_decode,
                                            attention_decode_paged,
                                            attention_ref, decode_ref)
-from repro_torch.kernels.gemm import Epilogue, gemm_fused
+from repro_torch.kernels.gemm import Epilogue, gemm_fused, rope_store_fits
 from repro_torch.kernels.rope import rope, rope_ref, rope_tables
 from repro_torch.serve.kv_cache import (append_paged_kv, init_page_pool,
                                        write_prefill_pages)
@@ -119,8 +121,9 @@ def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None):
     """Rung 1: q|k through one GEMM whose prologue is the block's pre-norm
     and whose store rotates q and k (RoPE 'half'); v through a second GEMM
     with the same prologue. Returns (B, H|Hkv, S, hd) views of the GEMM
-    outputs. Another RoPE style cannot ride the store and goes down rung 2."""
-    if cfg.rope_style != "half":
+    outputs. Another RoPE style, or a head_dim the store cannot rotate,
+    goes down rung 2."""
+    if cfg.rope_style != "half" or not rope_store_fits(cfg.head_dim):
         return project_qkv_heads(cfg, p, x, positions, mode="kernel",
                                  prenorm=prenorm, qkv_plan="norm_fused")
     b, s, d = x.shape
@@ -224,21 +227,33 @@ def prefill_attn_cache(k_cache, v_cache, k, v) -> None:
     v_cache[:, :, idx] = v[:, :, -slots:]
 
 
-def decode_attention_layer(cfg, p, x, k_cache, v_cache, pos: int, *,
+def decode_attention_layer(cfg, p, x, k_cache, v_cache, pos, *,
                            window: int | None = None,
                            mode: str = "reference"):
     """One-token decode. x: (B, 1, D) (already normed); pos: the current
-    position. Appends this token's k/v to the layer's cache in place (slot
-    pos % slots) and attends over it. Returns (B, 1, D)."""
+    position, a Python int or a one-element int64 tensor on x's device (a
+    CUDA graph's static input: then the slot and the lengths are derived on
+    the device). Appends this token's k/v to the layer's cache in place
+    (slot pos % slots) and attends over it. Returns (B, 1, D)."""
     b = x.shape[0]
     q, k_new, v_new = project_qkv(cfg, p, x)
-    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    if torch.is_tensor(pos):
+        positions = pos.reshape(1)
+    else:
+        positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     # decode rotates its one token with the plain RoPE, as the reference
     q, k_new = _apply_rope(cfg, q, k_new, positions, "reference")
-    slot = pos % k_cache.shape[2]
-    k_cache[:, :, slot] = k_new[:, :, 0]
-    v_cache[:, :, slot] = v_new[:, :, 0]
-    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    if torch.is_tensor(pos):
+        slot = torch.remainder(positions, k_cache.shape[2])
+        k_cache.index_copy_(2, slot, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(2, slot, v_new.to(v_cache.dtype))
+        lengths = (positions + 1).to(torch.int32).expand(b).contiguous()
+    else:
+        slot = pos % k_cache.shape[2]
+        k_cache[:, :, slot] = k_new[:, :, 0]
+        v_cache[:, :, slot] = v_new[:, :, 0]
+        lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+                             device=x.device)
     softcap = cfg.attn_logit_softcap
     if mode == "kernel":
         out = attention_decode(q, k_cache, v_cache, lengths, window=window,

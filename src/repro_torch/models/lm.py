@@ -169,7 +169,7 @@ def block_prefill(cfg, p, x, k_cache, v_cache, *, positions,
                        prenorm=norm_params(p, "ln2"))
 
 
-def block_decode(cfg, p, x, k_cache, v_cache, pos: int, *,
+def block_decode(cfg, p, x, k_cache, v_cache, pos, *,
                  mode: str = "reference"):
     rs = cfg.residual_scale
     h = apply_norm(cfg, x, p, "ln1")
@@ -193,10 +193,12 @@ def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
     return cache, _logits(cfg, params, x[:, -1:, :])[:, 0]
 
 
-def lm_decode_step(cfg, params, token, cache, pos: int, *,
+def lm_decode_step(cfg, params, token, cache, pos, *,
                    mode: str = "reference"):
-    """token: (B, 1); pos: the position being written. Updates ``cache`` in
-    place. Returns (cache, logits (B, V))."""
+    """token: (B, 1); pos: the position being written, a Python int or a
+    one-element int64 tensor on the cache's device (what a captured step
+    reads; the same bits). Updates ``cache`` in place. Returns (cache,
+    logits (B, V))."""
     x = _embed(cfg, params, token)
     for i in range(cfg.num_layers):
         x = block_decode(cfg, layer_params(params, i), x, cache["k"][i],

@@ -8,6 +8,13 @@ batch with copies of its last request, which are not counted or returned).
 :class:`PagedEngine` admits, decodes and retires requests one step at a time
 over a paged KV cache. Greedy decoding takes the first maximal logit;
 temperature sampling draws through a ``torch.Generator``.
+
+Both engines keep their buckets in the reference's LRU (``_lru_get``,
+capped by ``max_cached_buckets``, its hits, misses and evictions in
+``lru_stats``). A decode bucket is a :class:`DecodeGraph`: on the card one
+decode step captured in a CUDA graph over static input buffers, replayed
+every step; on the CPU the eager step over the same buffers. Prefill and
+chunk buckets hold the eager callable.
 """
 from __future__ import annotations
 
@@ -15,11 +22,12 @@ import collections
 import dataclasses
 import time
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from . import kv_cache as kvc
 
 
@@ -30,23 +38,142 @@ class GenerationResult:
     steps: int
 
 
+def _lru_get(lru: collections.OrderedDict, key, build, cap: int,
+             stats: dict):
+    """Get-or-build with LRU eviction: an evicted entry drops what it
+    holds (a captured graph, its buffers, a cache) with it. ``stats`` is
+    the engine's {hits, misses, evictions}."""
+    entry = lru.get(key)
+    if entry is None:
+        stats["misses"] += 1
+        entry = build()
+        lru[key] = entry
+        while len(lru) > cap:
+            lru.popitem(last=False)
+            stats["evictions"] += 1
+    else:
+        lru.move_to_end(key)
+        stats["hits"] += 1
+    return entry
+
+
+class DecodeGraph:
+    """One decode bucket: ``step(**buffers) -> logits`` over static input
+    buffers that the bucket owns (and the cache or pools the step updates
+    in place, at fixed addresses).
+
+    Each call copies its inputs into the buffers. On the card the first
+    call runs the step eagerly on a side stream (its result is that call's;
+    the warm-up allocates what the kernels allocate at their first call)
+    and then captures it in a ``torch.cuda.CUDAGraph``; every later call
+    replays the graph and returns its static logits, which the caller
+    reads before the next call. A capture that fails raises: there is no
+    eager fallback on the card. The kernels count their launches on the
+    host, so the capture's counts are taken back and every replay adds
+    them. On the CPU every call runs the step eagerly. The engines make
+    and call their buckets in inference mode, so the buffers are inference
+    tensors: call a bucket in that mode.
+    """
+
+    def __init__(self, step: Callable, buffers: dict, cache=None):
+        self.step = step
+        self.buffers = buffers
+        self.cache = cache
+        self.graph = None
+        self.logits = None
+        self.launches: dict = {}
+        self.device = next(iter(buffers.values())).device
+
+    def _load(self, inputs: dict) -> None:
+        for name, value in inputs.items():
+            buf = self.buffers[name]
+            if torch.is_tensor(value):
+                buf.copy_(value)
+            elif np.ndim(value):
+                buf.copy_(torch.from_numpy(np.asarray(value)))
+            else:
+                buf.fill_(value)
+
+    def __call__(self, **inputs):
+        self._load(inputs)
+        if self.device.type != "cuda":
+            return self.step(**self.buffers)
+        if self.graph is not None:
+            self.graph.replay()
+            kernels.add_launch_counts(self.launches)
+            return self.logits
+        return self._capture()
+
+    def _capture(self):
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            logits = self.step(**self.buffers)
+        current.wait_stream(side)
+        logits.record_stream(current)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits = self.step(**self.buffers)
+        after = kernels.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
+        self.graph = graph
+        return logits
+
+
 class Engine:
     """Fixed-batch prefill + decode over a model built by ``build_model``.
+
+    One LRU of buckets under one cap (``max_cached_buckets``), as the
+    reference's: (batch, prompt_len) -> the prefill callable and
+    ("decode", batch) -> a :class:`DecodeGraph` that owns the batch's
+    cache (reused across ``generate`` calls: the reference donates it) and
+    its token and position buffers, the position an int64 tensor on the
+    device. ``lru_stats`` counts the LRU's hits, misses and evictions.
 
     ``timings`` keeps, per ``generate`` call, the wall-clock seconds of the
     prefill and of the decode loop (each ended by a device synchronise on
     CUDA) with the batch shape, for throughput reports.
     """
 
-    def __init__(self, model, params, *, max_len: int = 4096):
+    def __init__(self, model, params, *, max_len: int = 4096,
+                 max_cached_buckets: int = 8):
         self.model = model
         self.params = params
         self.max_len = max_len
+        self.max_cached_buckets = max_cached_buckets
+        self._buckets: collections.OrderedDict = collections.OrderedDict()
+        self.lru_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self.timings: list = []
 
     def _sync(self):
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)
+
+    def _bucket(self, batch: int, prompt_len: int):
+        """The prefill callable of a (batch, prompt_len) bucket."""
+        return _lru_get(self._buckets, (batch, prompt_len),
+                        lambda: self.model.prefill,
+                        self.max_cached_buckets, self.lru_stats)
+
+    def _decode_fn(self, batch: int) -> DecodeGraph:
+        model, params = self.model, self.params
+
+        def build():
+            cache = model.init_cache(batch, self.max_len)
+            dev = model.device
+            buffers = {"token": torch.zeros((batch, 1), dtype=torch.int64,
+                                            device=dev),
+                       "pos": torch.zeros((1,), dtype=torch.int64,
+                                          device=dev)}
+
+            def step(token, pos):
+                return model.decode_step(params, token, cache, pos)[1]
+            return DecodeGraph(step, buffers, cache)
+        return _lru_get(self._buckets, ("decode", batch), build,
+                        self.max_cached_buckets, self.lru_stats)
 
     @staticmethod
     def _sample(logits, temperature: float, generator):
@@ -70,9 +197,10 @@ class Engine:
                              f"exceeds the cache length {self.max_len}")
         if temperature != 0.0 and generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        cache = self.model.init_cache(b, self.max_len)
+        prefill = self._bucket(b, s)
+        decode = self._decode_fn(b)
         t0 = time.perf_counter()
-        cache, logits = self.model.prefill(self.params, prompts, cache)
+        _, logits = prefill(self.params, prompts, decode.cache)
         next_tok = self._sample(logits, temperature, generator)[:, None]
         self._sync()
         t1 = time.perf_counter()
@@ -81,8 +209,7 @@ class Engine:
             toks.append(next_tok)
             if i == max_new_tokens - 1:
                 break
-            cache, logits = self.model.decode_step(self.params, next_tok,
-                                                   cache, s + i)
+            logits = decode(token=next_tok, pos=s + i)
             next_tok = self._sample(logits, temperature, generator)[:, None]
         out = torch.cat(toks, dim=1).to(torch.int32).cpu().numpy()
         t2 = time.perf_counter()
@@ -236,8 +363,13 @@ class PagedEngine:
 
     Speculative decoding (``draft_model``, ``spec_tokens``) is not ported
     yet and raises. The page table and lengths are host numpy arrays owned
-    by the engine (:attr:`state`), uploaded once per launch. Eager PyTorch
-    compiles nothing, so there is no compiled-bucket cache to bound.
+    by the engine (:attr:`state`), copied once per launch into the decode
+    bucket's static buffers. One LRU under one cap (``max_cached_buckets``)
+    holds, as the reference's: (batch_slots, page_count) -> a
+    :class:`DecodeGraph` over (B, 1) tokens, the (B, page_count) page
+    table and the (B,) lengths; ("prefill", S) -> the exact-length
+    prefill; ("chunk", C) -> the chunked or suffix prefill. ``report()``
+    carries its hits, misses and evictions as ``bucket_lru``.
 
     ``timings`` accumulates the host seconds of prefill (exact-length and
     chunked) and of decode, each ended by a device synchronise on CUDA, with
@@ -248,7 +380,7 @@ class PagedEngine:
                  page_size: int = 64, max_pages_per_seq: int = 8,
                  n_pages: Optional[int] = None, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 prefix_cache: bool = False,
+                 max_cached_buckets: int = 8, prefix_cache: bool = False,
                  chunk_tokens: Optional[int] = None,
                  draft_model=None, draft_params=None, spec_tokens: int = 0):
         if draft_model is not None or draft_params is not None \
@@ -272,6 +404,9 @@ class PagedEngine:
         self.temperature = temperature
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(0))
+        self.max_cached_buckets = max_cached_buckets
+        self._buckets: collections.OrderedDict = collections.OrderedDict()
+        self.lru_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self.prefix = kvc.PrefixCache(page_size) if prefix_cache else None
         self.chunk_tokens = chunk_tokens
 
@@ -305,6 +440,38 @@ class PagedEngine:
 
     def _tokens(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, np.int64), device=self.device)
+
+    # -- buckets -----------------------------------------------------------
+    def _touch(self, key, build):
+        return _lru_get(self._buckets, key, build, self.max_cached_buckets,
+                        self.lru_stats)
+
+    def _decode_bucket(self, mp_bucket: int) -> DecodeGraph:
+        """The decode step of a page-count bucket, over the engine's pools
+        (updated in place)."""
+        model, params, dev = self.model, self.params, self.device
+        b = self.batch_slots
+
+        def build():
+            buffers = {
+                "token": torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                "page_table": torch.zeros((b, mp_bucket), dtype=torch.int32,
+                                          device=dev),
+                "lengths": torch.zeros((b,), dtype=torch.int32, device=dev)}
+
+            def step(token, page_table, lengths):
+                return model.decode_step_paged(params, token, self.cache,
+                                               page_table, lengths)[1]
+            return DecodeGraph(step, buffers)
+        return self._touch((b, mp_bucket), build)
+
+    def _prefill_bucket(self, plen: int):
+        return self._touch(("prefill", plen),
+                           lambda: self.model.prefill_paged)
+
+    def _chunk_bucket(self, chunk_len: int):
+        return self._touch(("chunk", chunk_len),
+                           lambda: self.model.prefill_paged_chunk)
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -372,8 +539,9 @@ class PagedEngine:
                     self._advance_prefill(slot, rec)   # completes in one go
             else:
                 kvc.assign_slot(self.state, slot, pages, plen)
+                prefill = self._prefill_bucket(plen)
                 t0 = time.perf_counter()
-                self.cache, logits = self.model.prefill_paged(
+                self.cache, logits = prefill(
                     self.params, self._tokens(req.prompt)[None, :],
                     self.cache, self.state["page_table"][slot], slot, plen)
                 first = self._sample_slot(logits[0], req, plen)
@@ -411,8 +579,9 @@ class PagedEngine:
         toks = np.zeros((1, c), np.int64)
         toks[0, : end - start] = np.asarray(req.prompt[start:end])
         last = (plen - 1 - start) if end == plen else 0
+        chunk = self._chunk_bucket(c)
         t0 = time.perf_counter()
-        self.cache, logits = self.model.prefill_paged_chunk(
+        self.cache, logits = chunk(
             self.params, self._tokens(toks), self.cache,
             self.state["page_table"][slot], start, last)
         self.chunks_prefilled += 1
@@ -506,13 +675,13 @@ class PagedEngine:
 
     def _decode_one(self, active: list, mp_bucket: int) -> None:
         """One single-token decode step for every decode-ready slot."""
+        decode = self._decode_bucket(mp_bucket)
         pt, lens, act = self._launch_views(active, mp_bucket)
         tokens = np.zeros((self.batch_slots, 1), np.int64)
         for slot in active:
             tokens[slot, 0] = self.slots[slot].next_token
         t0 = time.perf_counter()
-        self.cache, logits = self.model.decode_step_paged(
-            self.params, self._tokens(tokens), self.cache, pt, lens)
+        logits = decode(token=tokens, page_table=pt, lengths=lens)
         self.state["lengths"] = self.state["lengths"] + act
         sampled = {}
         greedy = None
@@ -597,11 +766,11 @@ class PagedEngine:
         return min(self.max_pages_per_seq, _pow2(max_pages))
 
     def report(self) -> dict:
-        """Engine-level metrics, cumulative since construction. The
-        reference's ``bucket_lru`` block is left out: eager PyTorch compiles
-        nothing, so there is no bucket cache. ``prefills`` and
-        ``decode_steps`` count the exact-length prefills and the decode
-        launches; ``preempted_uids`` the requests preempted at least once."""
+        """Engine-level metrics, cumulative since construction, with the
+        bucket LRU's hits, misses and evictions (``bucket_lru``).
+        ``prefills`` and ``decode_steps`` count the exact-length prefills
+        and the decode launches; ``preempted_uids`` the requests preempted
+        at least once."""
         out = {
             "steps": self.steps,
             "admissions": self.admissions,
@@ -612,6 +781,7 @@ class PagedEngine:
             "tokens_generated": self.tokens_generated,
             "peak_pages_in_use": self.peak_pages_in_use,
             "page_pool_size": self.n_pages - 1,
+            "bucket_lru": dict(self.lru_stats),
             "completed": len(self.results),
             "timings": dict(self.timings),
         }

@@ -5,7 +5,7 @@ for the forward GEMM every tile width and split of its mainloop, its
 MN-major weight tiles bit for bit through a permutation matrix, the decode
 shapes (M 1-64 at K 8192) bitwise reproducible and row-independent,
 windows, soft caps, ring wrap-around, empty rows and a ragged last split;
-for the flash forward, groups 1-8, head_dim 128, windows, soft caps, cross
+for the flash forward, groups 1-16, head_dim 128, windows, soft caps, cross
 and ragged lengths and the training shape on the model's strided views (out
 and lse bitwise across two calls, a view the TMA cannot read refused); for
 the paged kernel, page sizes 16-128, null-page entries, a ragged row
@@ -13,7 +13,10 @@ tile of T > 1 query tokens, and bitwise equality with the contiguous kernel
 over the gathered pages; for both decode kernels, sinks (fp32 and bf16),
 two calls bitwise equal, CUDA-graph replays equal to eager calls (the
 in-launch merge's tickets reset), one launch a call, a view the TMA cannot
-read refused, and the llama-1b main-path shapes; for RoPE, S 131 and 200 at
+read refused, the llama-1b main-path shapes and chatglm3-6b's (G 16 at
+head_dim 128, T 1 and a 4-token verify); the engines' decode steps
+replayed from their CUDA graphs bit for bit the eager steps, with exact
+launch counts; for RoPE, S 131 and 200 at
 head_dim 64 and 128 on strided views, and a misaligned view (the scalar
 branch) bit for bit the vector branch; for the fused norm, d 1000-4096,
 the shared-memory branch at d 16384 and misaligned views; CUDA-graph
@@ -22,7 +25,7 @@ takes at ragged M, N and K, each tile width of the GEMM backward's
 mainloop, its operand pass against the plain version, the llama-1b
 training shapes, the forward's saved preacts against the rounded
 accumulator, the flash backward at head_dim 128 with windows, soft caps,
-strided views, groups 1-8 and the training shape (dk and dv bitwise across
+strided views, groups 1-16 and the training shape (dk and dv bitwise across
 two calls, a view the TMA cannot read refused), and autograd through both
 ops.
 
@@ -30,6 +33,8 @@ Marked ``cuda``: skipped on a machine without a CUDA card. On the card:
 
   python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -276,14 +281,15 @@ def test_gemm_fused_rows_are_independent(dev, chain, m):
 @pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128",
                                   "d128_window", "window", "softcap",
                                   "noncausal_cross", "mha", "group8",
-                                  "train"])
+                                  "group16_d128", "train"])
 def test_flash_attention_fwd_kernel_matches_plain(dev, case):
     """The forward kernel against the plain version on q and k as strided
     views of one packed q|k buffer (where sq == skv) and v as a view of its
     own projection, as the model passes them: out within 2e-2 relative + 2%
     of its RMS (bf16, p rounded before p @ v, sums in another order), lse
-    within 1e-4. Groups 1, 4 and 8; "train" is llama-1b's training shape
-    (B 4, H 32, Hkv 8, S 1024, d 64, causal). One launch a call."""
+    within 1e-4. Groups 1, 4, 8 and 16 (chatglm3-6b's, at d 128); "train"
+    is llama-1b's training shape (B 4, H 32, Hkv 8, S 1024, d 64, causal).
+    One launch a call."""
     q, k, v, kw = _attn_fwd_inputs(case, dev)
     before = kernels.launch_counts()["flash_attention_fwd"]
     out, lse = flash_attention_fwd(q, k, v, **kw)
@@ -626,6 +632,112 @@ def test_decode_kernels_at_the_main_path_shapes(dev, shape):
     _close(got, want, 2e-2, 2e-2)
 
 
+@pytest.mark.parametrize("shape", ["decode_step_b4", "paged_decode_b8",
+                                   "verify_b8_t4"])
+def test_decode_kernels_at_chatglm3_shapes(dev, shape):
+    """chatglm3-6b's decode shapes (Hkv 2, G 16, head_dim 128): 16 q rows a
+    kv head at T 1 (the few-row body's limit, FEW_ROWS) and 64 at the
+    4-token verify (two ROW_TILE units), against the plain versions."""
+    rng = np.random.default_rng(14)
+    hkv, g, d = 2, 16, 128
+    if shape == "decode_step_b4":
+        q = _rand(rng, (4, hkv, g, d), dev)
+        k = _rand(rng, (4, hkv, 296, d), dev)
+        v = _rand(rng, (4, hkv, 296, d), dev)
+        lens = torch.tensor([287, 1, 130, 296], dtype=torch.int32,
+                            device=dev)
+        got = flash_decode(q, k, v, lens)
+        o, m, l = decode_partials_ref(q, k, v, lens, scale=d ** -0.5)
+    else:
+        t = 4 if shape == "verify_b8_t4" else 1
+        lengths = [4, 64, 68, 130, 257, 300, 400, 512] if t == 4 else \
+            [0, 1, 64, 65, 130, 257, 400, 512]
+        q, kp, vp, pt, lens = _paged_inputs(rng, dev, 8, hkv, g * t, d, 64,
+                                            8, lengths)
+        got = flash_decode_paged(q, kp, vp, pt, lens, q_tokens=t)
+        o, m, l = decode_partials_paged_ref(q, kp, vp, pt, lens,
+                                            scale=d ** -0.5, q_tokens=t)
+    want = combine_splits(o, m, l).to(q.dtype)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-2, 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# The engines' decode steps replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _small_model(dev):
+    """A 2-layer llama at head_dim 64 (the kernels' width), seeded."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("llama-1b"), num_layers=2,
+                              d_model=256, num_heads=4, num_kv_heads=2,
+                              d_ff=512, vocab_size=512)
+    model = build_model(cfg, mode="kernel", device=dev)
+    return model, model.init(seed=3)
+
+
+def _clone(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("engine", ["fixed", "paged"])
+def test_engine_decode_step_replays_bitwise_the_eager_step(dev, engine):
+    """After serving, a decode bucket holds a captured graph. Replayed on
+    new inputs from a saved cache state it gives the eager step's logits
+    and cache bit for bit, and adds to the launch counters exactly what the
+    eager step launches."""
+    from repro_torch.serve import Engine, PagedEngine, Request
+    model, params = _small_model(dev)
+    rng = np.random.default_rng(15)
+    with torch.inference_mode():
+        if engine == "fixed":
+            eng = Engine(model, params, max_len=64)
+            eng.generate(rng.integers(0, 512, (2, 20)), 6)
+            entry = eng._buckets[("decode", 2)]
+            inputs = dict(token=torch.tensor([[5], [7]], device=dev), pos=25)
+            cache = entry.cache
+
+            def eager(c):
+                return model.decode_step(params, inputs["token"], c,
+                                         inputs["pos"])[1]
+        else:
+            eng = PagedEngine(model, params, batch_slots=2, page_size=64,
+                              max_pages_per_seq=2)
+            for u in range(2):
+                eng.submit(Request(u, rng.integers(0, 512, 30 + 9 * u)
+                                   .astype(np.int32), 6))
+            eng.run()
+            (key, entry), = [(k, e) for k, e in eng._buckets.items()
+                             if k == (2, 1)]
+            table = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+            inputs = dict(token=torch.tensor([[5], [7]], device=dev),
+                          page_table=table,
+                          lengths=torch.tensor([33, 41], dtype=torch.int32,
+                                               device=dev))
+            cache = eng.cache
+
+            def eager(c):
+                return model.decode_step_paged(
+                    params, inputs["token"], c, inputs["page_table"],
+                    inputs["lengths"])[1]
+        assert entry.graph is not None
+        saved = _clone(cache)
+        kernels.reset_launch_counts()
+        replayed = entry(**inputs).clone()
+        torch.cuda.synchronize()
+        replay_counts = kernels.launch_counts()
+        after_replay = _clone(cache)
+        kernels.reset_launch_counts()
+        want = eager(saved)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == replay_counts
+        assert replay_counts["gemm_fused"] == 2 * model.cfg.num_layers
+        assert torch.equal(replayed, want)
+        for k in saved:
+            assert torch.equal(after_replay[k], saved[k])
+
+
 # ---------------------------------------------------------------------------
 # The backward kernels
 # ---------------------------------------------------------------------------
@@ -825,6 +937,8 @@ def _attn_case(case):
         h = hkv = 4
     elif case == "group8":
         h, hkv = 8, 1
+    elif case == "group16_d128":   # chatglm3-6b: 32 heads over 2 kv heads
+        h, hkv, d = 32, 2, 128
     elif case == "train":          # llama-1b's training shape
         b, h, hkv, sq, skv = 4, 32, 8, 1024, 1024
     return b, h, hkv, sq, skv, d, kw
@@ -861,14 +975,15 @@ def _attn_bwd_inputs(case, dev, seed=6):
 @pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128",
                                   "d128_window", "window", "softcap",
                                   "noncausal_cross", "mha", "group8",
-                                  "train"])
+                                  "group16_d128", "train"])
 def test_flash_attention_bwd_kernel_matches_plain(dev, case):
     """The main kernel and the dq conversion against the plain version on
     the same q, k, v, out, lse and dO, q and k as strided views of one
     packed buffer and dO as the strided cotangent autograd hands over:
     within 2e-2 relative + 2% of each gradient's RMS (bf16 outputs, sums in
-    another order). Groups 1, 4 and 8; "train" is llama-1b's training
-    shape (B 4, H 32, Hkv 8, S 1024, d 64, causal)."""
+    another order). Groups 1, 4, 8 and 16 (chatglm3-6b's, at d 128);
+    "train" is llama-1b's training shape (B 4, H 32, Hkv 8, S 1024, d 64,
+    causal)."""
     args, kw = _attn_bwd_inputs(case, dev)
     before = kernels.launch_counts()["flash_attention_bwd"]
     got = flash_attention_bwd(*args, **kw)

@@ -123,7 +123,8 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("arch", ["llama-1b", "llama-100m"])
+@pytest.mark.parametrize("arch", ["llama-1b", "llama-100m", "granite-8b",
+                                  "qwen2-72b", "minicpm-2b", "chatglm3-6b"])
 @pytest.mark.parametrize("overrides", [{}, dict(tie_embeddings=False,
                                                 qkv_bias=True,
                                                 vocab_pad_multiple=128)],
