@@ -20,7 +20,17 @@ Phases, each of which raises on failure (exit code non-zero):
    v strided views of the projections as the model passes them;
    the forward GEMM's prefill, decode and training (M = 4096) launches,
    the gated one saving its preacts as autograd does, each also at every
-   tile width and split count against the planner's pick;
+   tile width and split count against the planner's pick; and its
+   launches in phase 9 (whisper-base's encoder over 4 x 1500 frames:
+   q|k, v and the gelu up projection on the layernorm + beta prologue, the
+   down projection's residual store; the decoder's prefill (M 256) and
+   decode step (M 4, split over K); bert-110m's at M 4096; a gated gelu
+   at the encoder's shape), each layernorm row also timed on the rmsnorm
+   prologue, the cost of layernorm's second pass over the row; the flash
+   forward also at whisper's non-causal encoder (S 1500), its causal
+   prefill and its cross attention (64 queries over 1500 frames), and
+   bert's 8 x 512; the contiguous decode kernel also at whisper's self and
+   cross (1500 slots) steps;
    the training backward at B 4, S 1024, so M = 4096: the GEMM backward
    of the four fused GEMMs of a layer as its operand pass, dA (the GEMM
    and the norm row pass also timed apart) and dB, each tile width of the
@@ -50,13 +60,14 @@ Phases, each of which raises on failure (exit code non-zero):
    norm; the entries outside the kernel's tolerance counted). With
    ``--baseline-csrc DIR`` (an earlier tree's csrc: dA and dB sources
    with this tree's entry points; a WMMA forward ``gemm_fused.cu`` whose
-   entry point takes no plan and a two-pass ``flash_bwd.cu``, each where
-   the tree has it; its ``flash_fwd.cu``, whose entry point is this
+   entry point takes no plan, or the TMA + wgmma one of PRs 16-21 (no
+   layernorm, the gate meaning silu), and a two-pass ``flash_bwd.cu``,
+   each where the tree has it; its ``flash_fwd.cu``, whose entry point is this
    tree's; its partials-only ``flash_decode.cu`` and
    ``flash_decode_paged.cu``, PR 18 and before, with their
    ``decode_split.cuh``; its ``rope.cu`` and ``fused_norm.cu``, whose
    entry points are this tree's), the earlier forward is timed in turns
-   with this one at every forward shape, the earlier dA + dB with this
+   with this one at every forward shape whose chain it takes, the earlier dA + dB with this
    one's, the earlier flash forward with this one at its three shapes, the
    earlier flash backward with this one, the earlier decode kernels, each
    with the plain ``combine_splits`` after it, with these at their four
@@ -137,7 +148,19 @@ Phases, each of which raises on failure (exit code non-zero):
    (b) 8 requests of 128-256 tokens, 32 new ones, through
    ``PagedEngine(batch_slots=8, page_size=64, chunk_tokens=128)`` with
    phase 5's checks. Prints each config's decode tokens/s.
-9. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+9. The encoder families at published width, weights at a trained
+   model's scale (as 8's), kernel mode. (a) whisper-base whole (6 + 6
+   layers) through ``Engine.generate``: batch 4, 64-token prompts, 32 new
+   tokens, greedy, seeded ``encoder_embeds`` (4, 1500, 512) in
+   ``extra_batch``; launches exact (per encoder layer 4 ``gemm_fused`` and
+   a flash forward, per decoder layer 4 and 2 in the prefill and 2
+   ``gemm_fused`` and 2 ``flash_decode`` a step); one replayed decode step
+   bit for bit the eager one (logits, the self cache; the cross cache
+   unchanged); teacher-forced logits under phase 4's bound. Prints the
+   encode + prefill seconds and the decode tokens/s. (b) bert-110m whole
+   (12 layers), its forward on 8 x 512 tokens: launches exact, logits
+   under the same bound, tokens/s.
+10. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -172,7 +195,8 @@ from repro_torch.kernels.attention import (  # noqa: E402
 from repro_torch.kernels.attention import backward as attn_bwd  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.gemm import (EPILOGUE_NONE, PROLOGUE_NONE,  # noqa: E402
-                                      Epilogue, Prologue, rms_rows_ref)
+                                      Epilogue, Prologue, ln_rows_ref,
+                                      rms_rows_ref)
 from repro_torch.kernels.gemm import backward as gemm_bwd  # noqa: E402
 from repro_torch.kernels.gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.gemm.ops import _forward as gemm_forward  # noqa: E402
@@ -197,6 +221,10 @@ HBM_BYTES_S = 3.35e12
 
 BATCH, PROMPT, NEW_TOKENS, REQUESTS = 4, 256, 32, 8
 MAX_LEN = PROMPT + NEW_TOKENS + 8          # as the serving launcher sizes it
+# phase 9a: whisper-base through Engine.generate; 9b: bert-110m's forward
+W_BATCH, W_PROMPT, W_NEW = 4, 64, 32
+W_MAX_LEN = W_PROMPT + W_NEW + 8
+B_BATCH, B_SEQ = 8, 512
 # the paged slice: PagedEngine geometry and the chunk of phase 5b
 SLOTS, PAGE, MAX_PAGES, CHUNK = 8, 64, 8, 128
 # the training slice: batch x sequence a step, steps, peak learning rate
@@ -237,6 +265,8 @@ MAIN_PATH_PHASES = ("4", "5a", "5b", "6b", "7a", "7b", "7c", "7d")
 DENSE = (("granite-8b", 36), ("chatglm3-6b", 4), ("minicpm-2b", 4),
          ("qwen2-72b", 4))
 DENSE_PHASES = tuple(f"8{p} {arch}" for arch, _ in DENSE for p in "ab")
+# phase 9: whisper-base served (a), bert-110m's forward (b)
+ENCODER_PHASES = ("9a", "9b")
 
 
 def log(msg: str) -> None:
@@ -396,6 +426,59 @@ def gemm_cases(cfg, dev, gen):
     return cases
 
 
+# whisper-base's and bert-110m's gemm_fused launches (phase 9): name ->
+# (M, K, N, prologue, epilogue kwargs). Whisper: the encoder over 4 x 1500
+# frames, the decoder's prefill of 4 x 64 tokens, a decode step of 4; the
+# gated gelu (geglu) at the encoder's shape is no whisper chain (its MLP is
+# gelu), timed for the chain. Bert: 8 x 512 tokens.
+ENCODER_GEMMS = {
+    "whisper_enc_qk": (6000, 512, 1024, "ln_beta", {}),
+    "whisper_enc_v": (6000, 512, 512, "ln_beta", {}),
+    "whisper_enc_up_gelu": (6000, 512, 2048, "ln_beta",
+                            dict(activation="gelu")),
+    "whisper_enc_down": (6000, 2048, 512, None,
+                         dict(residual=True, scale=True)),
+    "whisper_dec_qk": (256, 512, 1024, "ln_beta", {}),
+    "whisper_dec_up_gelu": (256, 512, 2048, "ln_beta",
+                            dict(activation="gelu")),
+    "whisper_decode_up_gelu": (4, 512, 2048, "ln_beta",
+                               dict(activation="gelu")),
+    "whisper_decode_down": (4, 2048, 512, None,
+                            dict(residual=True, scale=True)),
+    "geglu_up": (6000, 512, 2048, "ln", dict(activation="gelu", gate=True)),
+    "bert_qk": (4096, 768, 1536, "ln_beta", {}),
+    "bert_v": (4096, 768, 768, "ln_beta", {}),
+    "bert_up_gelu": (4096, 768, 3072, "ln_beta", dict(activation="gelu")),
+    "bert_down": (4096, 3072, 768, None, dict(residual=True, scale=True)),
+}
+
+
+def encoder_gemm_cases(dev, gen):
+    """ENCODER_GEMMS as (name, a, b, kwargs, save_preact): the weights at
+    std K^-1/2, gamma about 1, beta at std 0.5."""
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    cases = []
+    for name, (m, k, n, norm, ep_kw) in ENCODER_GEMMS.items():
+        kw = {"epilogue": Epilogue(**ep_kw)}
+        if norm:
+            kw.update(prologue=Prologue(norm="layernorm",
+                                        beta=norm == "ln_beta"),
+                      gamma=(1 + 0.1 * torch.randn(
+                          k, generator=gen, device=dev)).to(bf16))
+            if norm == "ln_beta":
+                kw["beta"] = rnd(k, std=0.5)
+        if ep_kw.get("gate"):
+            kw["b2"] = rnd(k, n, std=k ** -0.5)
+        if ep_kw.get("residual"):
+            kw.update(residual=rnd(m, n), scale=1.0)
+        cases.append((name, rnd(m, k), rnd(k, n, std=k ** -0.5), kw, False))
+    return cases
+
+
 def fwd_args(kw):
     """(epilogue, prologue, the other keyword arguments of ops._launch and
     ops.forward_ref) of a case's gemm_fused keyword arguments."""
@@ -403,7 +486,8 @@ def fwd_args(kw):
             kw.get("prologue", PROLOGUE_NONE),
             dict(b2=kw.get("b2"), bias=None, residual=kw.get("residual"),
                  scale=kw.get("scale"), sin=kw.get("sin"), cos=kw.get("cos"),
-                 gamma=kw.get("gamma"), out_dtype=torch.bfloat16))
+                 gamma=kw.get("gamma"), beta=kw.get("beta"),
+                 out_dtype=torch.bfloat16))
 
 
 def entry_arity(path: str, entry: str) -> int:
@@ -426,13 +510,16 @@ def baseline_kernels(csrc: str) -> dict:
     entry point has this tree's arity and arguments, the decode
     kernels ``flash_decode.cu`` and ``flash_decode_paged.cu`` whose entry
     points write fp32 partials (None otherwise), and ``rope.cu`` and
-    ``fused_norm.cu``, whose entry points are this tree's."""
+    ``fused_norm.cu``, whose entry points are this tree's; and the TMA +
+    wgmma forward of PRs 16-21 (``fwd_sm90``: rmsnorm and the gated silu
+    only, no beta or mean, the gate bit without an activation code)."""
     from repro_torch.kernels._build import CudaKernel, build_all
 
     P, I, Fl, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     root = os.path.abspath(csrc)
     wmma_fwd = [P] * 12 + [Fl, Fl] + [I] * 5 + [P]
+    sm90_fwd = [P] * 14 + [Fl, Fl] + [I] * 7 + [P]
     two_pass = [P] * 9 + [I] * 7 + [L] * 12 + [Fl, Fl, I, I, P]
     partials = [P] * 7 + [I] * 6 + [Fl, Fl, I, P]
     paged_partials = [P] * 8 + [I] * 7 + [Fl, Fl, I, P]
@@ -445,6 +532,7 @@ def baseline_kernels(csrc: str) -> dict:
                          "gemm_bwd_db_launch", gemm_bwd.DB_KERNEL.argtypes)}
     for key, src, entry, args in (
             ("fwd", "gemm_fused.cu", "gemm_fused_launch", wmma_fwd),
+            ("fwd_sm90", "gemm_fused.cu", "gemm_fused_launch", sm90_fwd),
             ("flash_bwd", "flash_bwd.cu", "flash_bwd_launch", two_pass),
             ("flash_fwd", "flash_fwd.cu", "flash_fwd_launch",
              attn_ops.KERNEL.argtypes),
@@ -460,7 +548,8 @@ def baseline_kernels(csrc: str) -> dict:
             kerns[key] = CudaKernel(f"baseline_{src[:-3]}", path, entry, args)
     log(f"[build] baseline from {root}: {sorted(kerns)}")
     build_all(list(kerns.values()))
-    return {"fwd": None, "flash_bwd": None, "flash_fwd": None,
+    return {"fwd": None, "fwd_sm90": None, "flash_bwd": None,
+            "flash_fwd": None,
             "flash_decode": None, "flash_decode_paged": None, "rope": None,
             "fused_norm": None, **kerns}
 
@@ -493,29 +582,74 @@ def baseline_fwd(kern, a, b, kw, save):
     return launch
 
 
+def baseline_fwd_sm90(kern, a, b, kw, save):
+    """A launch of the TMA + wgmma forward of PRs 16-21 (its entry point:
+    no beta, no mean, the gate bit meaning the gated silu) on one case's
+    operands, at this tree's plan; its launches are not counted."""
+    ep, pro, extra = fwd_args(kw)
+    m, k = a.shape
+    n = b.shape[1]
+    dev = a.device
+    hd = ep.head_dim if ep.rope else 0
+    tile_n, splits = gemm_ops.plan_gemm(m, n, k, gemm_ops.sm_count(dev),
+                                        gate=ep.gate, head_dim=hd,
+                                        act=ep.activation != "none")
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+    norm = extra["gamma"] is not None
+    rstd = torch.empty((m,), dtype=torch.float32, device=dev) if norm else None
+    an = torch.empty((m, k), dtype=a.dtype, device=dev) if norm else None
+    ws = (torch.empty((splits, m, gemm_ops.raw_width(n, tile_n, ep.gate)),
+                      dtype=torch.float32, device=dev)
+          if gemm_ops.staged(ep, splits) else None)
+    pre = ([torch.empty_like(out) for _ in range(2)] if save
+           else [None, None])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    scale = float(extra["scale"]) if extra["scale"] is not None else 1.0
+    flags = gemm_ops.chain_flags(ep) & 31      # without the activation code
+
+    def launch():
+        kern.check(kern.fn()(
+            ptr(a), ptr(b), ptr(extra["b2"]), ptr(out), ptr(extra["gamma"]),
+            ptr(rstd), ptr(an), None, ptr(extra["residual"]),
+            ptr(extra["sin"]), ptr(extra["cos"]), ptr(pre[0]), ptr(pre[1]),
+            ptr(ws), scale, float(pro.eps or 0.0), m, n, k, flags, hd,
+            tile_n, splits, torch.cuda.current_stream().cuda_stream))
+        return out
+    return launch
+
+
 def measure_gemm(cfg, dev, gen, timer, old=None):
-    """Each gemm_fused launch of the main paths against its plain version
-    (the output, the gated chain's saved preacts and the row statistics),
-    timed as planned and at every (tile width, split count) the sweep
-    reaches: each width the chain takes, unsplit and split as the planner
-    would split it at that width; with the rmsnorm prologue also without
-    it (the row pass's share). Library yardstick: the bare product(s)
-    in one torch.matmul call (no single PyTorch call computes the fused
-    chain). Bound: the operands read and the outputs (with rstd and the
-    preacts) written once, or 2 M N K operations per product at the bf16
-    peak. With ``old`` (baseline_kernels), the earlier forward in turns."""
+    """Each gemm_fused launch of the main paths (llama-1b's, then
+    whisper-base's and bert-110m's, ENCODER_GEMMS) against its plain
+    version (the output, the gated chain's saved preacts and the row
+    statistics), timed as planned and at every (tile width, split count)
+    the sweep reaches: each width the chain takes, unsplit and split as
+    the planner would split it at that width; with a norm prologue also
+    without it (the row pass's share), and with the layernorm prologue the
+    same product with the rmsnorm prologue (what layernorm's second pass
+    over the row costs). Library yardstick: the bare product(s) in one
+    torch.matmul call (no single PyTorch call computes the fused chain).
+    Bound: the operands read and the outputs (with the row statistics and
+    the preacts) written once, or 2 M N K operations per product at the
+    bf16 peak. With ``old`` (baseline_kernels), the earlier forward in
+    turns, on the chains it takes."""
     rows = []
     sms = gemm_ops.sm_count(dev)
-    for name, a, b, kw, save in gemm_cases(cfg, dev, gen):
+    for name, a, b, kw, save in (gemm_cases(cfg, dev, gen)
+                                 + encoder_gemm_cases(dev, gen)):
         ep, pro, extra = fwd_args(kw)
         m, k = a.shape
         n = b.shape[1]
         gated = ep.gate
         hd = ep.head_dim if ep.rope else 0
+        ln = pro.norm == "layernorm"
 
         def kernel(plan=None):
-            return gemm_ops._launch(a, b, ep, eps=pro.eps, save_preact=save,
-                                    plan=plan, **extra)
+            return gemm_ops._launch(a, b, ep, eps=pro.eps, layernorm=ln,
+                                    save_preact=save, plan=plan, **extra)
 
         def plain():
             return gemm_ops.forward_ref(a, b, ep, pro, save_preact=save,
@@ -529,17 +663,25 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
         for i, (p_, w_) in enumerate(zip(preacts, want_pre)):
             err = max(err, check_close(f"gemm_fused[{name}].preact{i + 1}",
                                        p_, w_, 2 ** -6, 2e-2)[0])
-        if rstd is not None:
+        if ln:
+            _, mean_w, rstd_w = ln_rows_ref(a, kw["gamma"], kw.get("beta"),
+                                            pro.eps)
+            check_close(f"gemm_fused[{name}].mean", rstd[0], mean_w, 1e-5,
+                        1e-5)
+            check_close(f"gemm_fused[{name}].rstd", rstd[1], rstd_w, 1e-5,
+                        0.0)
+        elif rstd is not None:
             check_close(f"gemm_fused[{name}].rstd", rstd,
                         rms_rows_ref(a, kw["gamma"], pro.eps)[1], 1e-5, 0.0)
         del want, want_pre
         b_lib = torch.cat([b, kw["b2"]], dim=1) if gated else b
         flops = 2 * m * n * k * (2 if gated else 1)
-        traffic = nbytes(a, b, kw.get("b2"), kw.get("gamma"),
+        traffic = nbytes(a, b, kw.get("b2"), kw.get("gamma"), kw.get("beta"),
                          kw.get("residual"), kw.get("sin"), kw.get("cos"),
                          got, rstd, *preacts)
         b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
-        plan = gemm_ops.plan_gemm(m, n, k, sms, gate=gated, head_dim=hd)
+        plan = gemm_ops.plan_gemm(m, n, k, sms, gate=gated, head_dim=hd,
+                                  act=ep.activation != "none")
         sweep = {}
         for w in gemm_ops.tile_widths(gated, hd):
             split = gemm_ops.split_count(
@@ -554,17 +696,30 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
             ms_by_plan=sweep)
         if extra["gamma"] is not None:
             # the row pass's share: the same product without the prologue
-            no_norm = dict(extra, gamma=None)
+            no_norm = dict(extra, gamma=None, beta=None)
             row["no_prologue_ms"] = timer.ms(lambda: gemm_ops._launch(
                 a, b, ep, eps=None, save_preact=save, **no_norm))
+        if ln:
+            # layernorm's second pass: the same chain on the rmsnorm prologue
+            rms = dict(extra, beta=None)
+            row["rmsnorm_ms"] = timer.ms(lambda: gemm_ops._launch(
+                a, b, ep, eps=1e-6, save_preact=save, **rms))
         us = {p_: round(t * 1e3, 1) for p_, t in sweep.items()}
         log(f"[kernel] gemm_fused[{name}] by tile width x splits, us: {us}; "
             f"picked {row['plan']}, fastest {min(sweep, key=sweep.get)}"
             + (f"; without the prologue {row['no_prologue_ms'] * 1e3:.1f} "
                f"us against {row['ms'] * 1e3:.1f}"
-               if "no_prologue_ms" in row else ""))
-        if old is not None and old["fwd"] is not None:
-            old_fn = baseline_fwd(old["fwd"], a, b, kw, save)
+               if "no_prologue_ms" in row else "")
+            + (f"; on the rmsnorm prologue {row['rmsnorm_ms'] * 1e3:.1f} us"
+               if ln else ""))
+        # the earlier kernels take rmsnorm and the gated silu only
+        earlier = old and (old["fwd"] or old["fwd_sm90"])
+        if earlier is not None and not ln and (
+                ep.activation == "none" or ep.gate
+                and ep.activation == "silu"):
+            old_fn = (baseline_fwd(earlier, a, b, kw, save)
+                      if old["fwd"] is not None
+                      else baseline_fwd_sm90(earlier, a, b, kw, save))
             # the baseline computes the same function
             check_close(f"baseline gemm_fused[{name}]", old_fn(), got,
                         2 ** -6, 2e-2)
@@ -604,12 +759,10 @@ def measure_flash(cfg, dev, gen, timer, old=None):
     """The flash forward at its three main-path shapes, causal, q/k/v as the
     model passes them (strided views of the q|k projection output and the
     v projection output): served prefill (B 4, S 256), the paged engine's
-    lone-sequence prefill (B 1, S 256) and training (B 4, S 1024). Bound:
-    ``ops.forward_work``, the two products per visible pair at the bf16
-    peak or q, k, v, out and lse moved once. Yardstick:
-    F.scaled_dot_product_attention on contiguous copies. With ``old``
-    (baseline_kernels), the earlier kernel, held to the plain version, in
-    turns with this one (baseline, new, new, baseline)."""
+    lone-sequence prefill (B 1, S 256) and training (B 4, S 1024)
+    (``flash_row``). With ``old`` (baseline_kernels), the earlier kernel,
+    held to the plain version, in turns with this one (baseline, new, new,
+    baseline)."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bf16 = torch.bfloat16
     rows = []
@@ -623,51 +776,152 @@ def measure_flash(cfg, dev, gen, timer, old=None):
         q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
         k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
         v = v.reshape(bsz, seq, hkv, hd).transpose(1, 2)
-
-        def kernel():
-            return flash_attention_fwd(q, k, v, causal=True)
-
-        def plain():
-            return flash_attention_fwd_ref(q, k, v, causal=True)
-
-        out, lse = kernel()
-        want, want_lse = plain()
-        torch.cuda.synchronize()
-        err, tol = check_close(f"flash_attention_fwd[{case}]", out, want,
-                               2e-2, 2e-2)
-        lse_err, _ = check_close(f"flash_attention_fwd[{case}][lse]", lse,
-                                 want_lse, 1e-4, 1e-4)
-        work = attn_ops.forward_work(bsz, h, hkv, seq, seq, hd, causal=True)
-        b_ms, b_by = bound(work["bytes"], (work["flops"], PEAK_BF16))
-        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-        row = dict(
-            case=case, shape=[bsz, h, hkv, seq, hd],
-            max_abs_err=max(err, lse_err), tolerance=tol, ms=timer.ms(kernel),
-            plain_ms=timer.ms(plain),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                qc, kc, vc, is_causal=True, enable_gqa=True)),
-            bound_ms=b_ms, bound_by=b_by)
+        row = flash_row(case, q, k, v, True, timer)
         if old is not None and old["flash_fwd"] is not None:
             old_fn = baseline_flash_fwd(old["flash_fwd"], q, k, v)
             got_old = old_fn()
             torch.cuda.synchronize()
             # the baseline computes the same function
             check_close(f"baseline flash_attention_fwd[{case}]", got_old[0],
-                        want, 2e-2, 2e-2)
-            turns = [timer.ms(old_fn), timer.ms(kernel), timer.ms(kernel),
-                     timer.ms(old_fn)]
+                        flash_attention_fwd_ref(q, k, v, causal=True)[0],
+                        2e-2, 2e-2)
+            turns = [timer.ms(old_fn), timer.ms(row["kernel"]),
+                     timer.ms(row["kernel"]), timer.ms(old_fn)]
             row.update(baseline_turns_ms=turns,   # baseline, new, new, baseline
                        baseline_ms=(turns[0] + turns[3]) / 2,
                        new_in_turns_ms=(turns[1] + turns[2]) / 2)
-        log(f"[kernel] flash_attention_fwd[{case}] {row['ms'] * 1e3:.1f} us "
-            f"(bound {b_ms * 1e3:.2f}, {b_by}; "
-            f"{work['flops'] / row['ms'] * 1e3 / PEAK_BF16:.1%} of the bf16 "
-            f"peak); SDPA {row['library_ms'] * 1e3:.1f} us"
-            + (f"; baseline {row['baseline_ms'] * 1e3:.1f} us against "
-               f"{row['new_in_turns_ms'] * 1e3:.1f} in turns"
-               if "baseline_ms" in row else ""))
+            log(f"[kernel] flash_attention_fwd[{case}] baseline "
+                f"{row['baseline_ms'] * 1e3:.1f} us against "
+                f"{row['new_in_turns_ms'] * 1e3:.1f} in turns")
+        del row["kernel"]
         rows.append(row)
-        del out, lse, want, want_lse, qc, kc, vc
+    return rows
+
+
+def flash_row(case, q, k, v, causal, timer):
+    """One flash forward case against its plain version (out and lse),
+    with its bound (``ops.forward_work``: the two products per visible
+    pair at the bf16 peak, or q, k, v, out and lse moved once) and
+    F.scaled_dot_product_attention on contiguous copies; the row keeps the
+    kernel's callable under "kernel" for turns with a baseline."""
+    b, h, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+
+    def kernel():
+        return flash_attention_fwd(q, k, v, causal=causal)
+
+    def plain():
+        return flash_attention_fwd_ref(q, k, v, causal=causal)
+
+    out, lse = kernel()
+    want, want_lse = plain()
+    torch.cuda.synchronize()
+    err, tol = check_close(f"flash_attention_fwd[{case}]", out, want, 2e-2,
+                           2e-2)
+    lse_err, _ = check_close(f"flash_attention_fwd[{case}][lse]", lse,
+                             want_lse, 1e-4, 1e-4)
+    work = attn_ops.forward_work(b, h, hkv, sq, skv, hd, causal=causal)
+    b_ms, b_by = bound(work["bytes"], (work["flops"], PEAK_BF16))
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    row = dict(
+        case=case, shape=[b, h, hkv, sq, skv, hd],
+        max_abs_err=max(err, lse_err), tolerance=tol, ms=timer.ms(kernel),
+        plain_ms=timer.ms(plain),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=causal, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, kernel=kernel)
+    log(f"[kernel] flash_attention_fwd[{case}] {row['ms'] * 1e3:.1f} us "
+        f"(bound {b_ms * 1e3:.2f}, {b_by}; "
+        f"{work['flops'] / row['ms'] * 1e3 / PEAK_BF16:.1%} of the bf16 "
+        f"peak); SDPA {row['library_ms'] * 1e3:.1f} us")
+    return row
+
+
+def measure_flash_encoder(dev, gen, timer):
+    """The flash forward at whisper-base's and bert-110m's shapes (phase
+    9), q, k and v as the models pass them: the encoder's non-causal self
+    attention over 1500 frames (a ragged last tile; strided views of the
+    q|k and v projections), the decoder's causal prefill of 64 tokens, its
+    cross attention of 64 queries over the 1500 frames written to the
+    cache (contiguous), and bert's non-causal 8 x 512."""
+    bf16 = torch.bfloat16
+    rows = []
+    for case, bsz, heads, sq, skv, causal, cache in (
+            ("whisper_enc_self", W_BATCH, 8, 1500, 1500, False, False),
+            ("whisper_dec_self", W_BATCH, 8, W_PROMPT, W_PROMPT, True, False),
+            ("whisper_cross", W_BATCH, 8, W_PROMPT, 1500, False, True),
+            ("bert_self", B_BATCH, 12, B_SEQ, B_SEQ, False, False)):
+        hd = 64
+        qk = torch.randn(bsz, sq, 2 * heads * hd, generator=gen,
+                         device=dev).to(bf16)
+        q = qk[..., :heads * hd].reshape(bsz, sq, heads, hd).transpose(1, 2)
+        if cache:
+            k, v = (torch.randn(bsz, heads, skv, hd, generator=gen,
+                                device=dev).to(bf16) for _ in range(2))
+        else:
+            k = qk[..., heads * hd:].reshape(bsz, sq, heads, hd).transpose(
+                1, 2)
+            v = torch.randn(bsz, sq, heads * hd, generator=gen,
+                            device=dev).to(bf16).reshape(
+                bsz, sq, heads, hd).transpose(1, 2)
+        row = flash_row(case, q, k, v, causal, timer)
+        del row["kernel"]
+        rows.append(row)
+    return rows
+
+
+def decode_row(case, q, kc, vc, length, timer):
+    """One flash_decode case (every row at ``length``) against its plain
+    version, with its bound (what the step needs: q, the valid cache rows
+    and lengths read, the output written; q @ k^T and p @ v on bf16
+    operands) and SDPA over the masked cache; the row keeps the kernel's
+    callable under "kernel" for turns with a baseline."""
+    b, hkv, g, hd = q.shape
+    slots = kc.shape[2]
+    lengths = torch.full((b,), length, dtype=torch.int32, device=q.device)
+
+    def kernel():
+        return flash_decode(q, kc, vc, lengths)
+
+    def plain():
+        o, m, l = decode_partials_ref(q, kc, vc, lengths, scale=hd ** -0.5)
+        return combine_splits(o, m, l).to(q.dtype)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, tol = check_close(f"flash_decode[{case}]", got, want, 2e-2, 2e-2)
+    valid = min(length, slots)
+    traffic = (nbytes(q, lengths, got)
+               + 2 * b * hkv * valid * hd * kc.element_size())
+    flops = 2 * 2 * b * hkv * g * valid * hd
+    b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
+    mask = (torch.arange(slots, device=q.device) < length).expand(
+        b, 1, 1, slots)
+    q4 = q.reshape(b, hkv * g, 1, hd)
+    return dict(
+        case=case, shape=[b, hkv * g, hkv, slots, hd], max_abs_err=err,
+        tolerance=tol, ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, kernel=kernel)
+
+
+def measure_decode_encoder(dev, gen, timer):
+    """flash_decode at whisper-base's decode step (phase 9): the decoder's
+    self attention at its last step (W_MAX_LEN slots) and its cross
+    attention over the 1500 static slots, every one valid (a ragged last
+    key tile)."""
+    bf16 = torch.bfloat16
+    rows = []
+    for case, slots, length in (
+            ("whisper_self", W_MAX_LEN, W_PROMPT + W_NEW - 1),
+            ("whisper_cross", 1500, 1500)):
+        q = torch.randn(W_BATCH, 8, 1, 64, generator=gen, device=dev).to(bf16)
+        kc, vc = (torch.randn(W_BATCH, 8, slots, 64, generator=gen,
+                              device=dev).to(bf16) for _ in range(2))
+        row = decode_row(case, q, kc, vc, length, timer)
+        del row["kernel"]
+        rows.append(row)
     return rows
 
 
@@ -732,50 +986,25 @@ def decode_turns(row, name, old_fn, kernel, want, timer):
 
 def measure_decode(cfg, dev, gen, timer, old=None):
     """The last decode step of the main path: every sequence at position
-    PROMPT + NEW_TOKENS - 2 of a MAX_LEN-slot cache. With ``old``
-    (baseline_kernels), the earlier kernel and its plain combine in turns
-    with this one."""
+    PROMPT + NEW_TOKENS - 2 of a MAX_LEN-slot cache (``decode_row``). With
+    ``old`` (baseline_kernels), the earlier kernel and its plain combine in
+    turns with this one."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = h // hkv
     bf16 = torch.bfloat16
     length = PROMPT + NEW_TOKENS - 1
-    q = torch.randn(BATCH, hkv, g, hd, generator=gen, device=dev).to(bf16)
+    q = torch.randn(BATCH, hkv, h // hkv, hd, generator=gen,
+                    device=dev).to(bf16)
     kc = torch.randn(BATCH, hkv, MAX_LEN, hd, generator=gen, device=dev).to(bf16)
     vc = torch.randn(BATCH, hkv, MAX_LEN, hd, generator=gen, device=dev).to(bf16)
-    lengths = torch.full((BATCH,), length, dtype=torch.int32, device=dev)
-    scale = hd ** -0.5
-
-    def plain():
-        o, m, l = decode_partials_ref(q, kc, vc, lengths, scale=scale)
-        return combine_splits(o, m, l).to(q.dtype)
-
-    got = flash_decode(q, kc, vc, lengths)
-    want = plain()
-    torch.cuda.synchronize()
-    err, tol = check_close("flash_decode", got, want, 2e-2, 2e-2)
-    # what this step needs: q, the valid cache rows, lengths; the output
-    traffic = (nbytes(q, lengths, got)
-               + 2 * BATCH * hkv * length * hd * kc.element_size())
-    # q @ k^T and p @ v, both on bf16 operands (p rounded to bf16)
-    flops = 2 * 2 * BATCH * h * length * hd
-    b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
-    mask = (torch.arange(MAX_LEN, device=dev) < length).expand(BATCH, 1, 1,
-                                                               MAX_LEN)
-    q4 = q.reshape(BATCH, h, 1, hd)
-
-    def kernel():
-        return flash_decode(q, kc, vc, lengths)
-    row = dict(
-        case="decode_step", shape=[BATCH, h, hkv, MAX_LEN, hd],
-        max_abs_err=err, tolerance=tol, ms=timer.ms(kernel),
-        plain_ms=timer.ms(plain),
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, attn_mask=mask, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by)
+    row = decode_row("decode_step", q, kc, vc, length, timer)
+    kernel = row.pop("kernel")
     if old is not None and old["flash_decode"] is not None:
+        lengths = torch.full((BATCH,), length, dtype=torch.int32, device=dev)
+        o, m, l = decode_partials_ref(q, kc, vc, lengths, scale=hd ** -0.5)
         decode_turns(row, "flash_decode[decode_step]",
                      baseline_decode(old["flash_decode"], q, kc, vc,
-                                     lengths), kernel, want, timer)
+                                     lengths), kernel,
+                     combine_splits(o, m, l).to(q.dtype), timer)
     return [row]
 
 
@@ -1516,24 +1745,26 @@ def build_models(dev, arch: str = "llama-1b", layers=None,
 def check_graph_replay(tag, entry, cache, inputs, eager) -> None:
     """A decode bucket's captured graph, replayed on ``inputs`` from the
     cache state it finds, against the eager step ``eager(cache)`` from a
-    copy of that state: the logits, the cache afterwards and the launch
-    counts equal, bit for bit and exactly."""
+    copy of that state: the logits, the cache afterwards (every tensor of
+    a nested cache: an encoder-decoder's self and cross parts) and the
+    launch counts equal, bit for bit and exactly."""
     if entry.graph is None:
         raise AssertionError(f"[{tag}] the decode bucket holds no graph")
     # the engines' buffers are inference tensors, written in that mode
     with torch.inference_mode():
-        saved = {k: v.clone() for k, v in cache.items()}
+        saved = tree_map(torch.clone, cache)
         kernels.reset_launch_counts()
         replayed = entry(**inputs).clone()
         torch.cuda.synchronize()
         replay_counts = kernels.launch_counts()
-        after = {k: v.clone() for k, v in cache.items()}
+        after = tree_map(torch.clone, cache)
         kernels.reset_launch_counts()
         want = eager(saved)
         torch.cuda.synchronize()
         eager_counts = kernels.launch_counts()
+    pairs = zip(named_leaves(after), named_leaves(saved))
     if replay_counts != eager_counts or not torch.equal(replayed, want) \
-            or not all(torch.equal(after[k], saved[k]) for k in saved):
+            or not all(torch.equal(x, y) for (_, x), (_, y) in pairs):
         raise AssertionError(
             f"[{tag}] a replayed decode step differs from the eager step: "
             f"logits max diff {(replayed - want).abs().max().item():.4g}, "
@@ -2116,6 +2347,157 @@ def run_dense(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: whisper-base served, bert-110m's forward
+# ---------------------------------------------------------------------------
+
+def expected_whisper_launches(cfg, steps: int) -> dict:
+    """One generate: per encoder layer 4 gemm_fused (q|k, v, up, down) and
+    one flash forward; per decoder layer in the prefill 4 gemm_fused and 2
+    flash forwards (causal self, cross; the cross projections are plain
+    products, as in the reference); per decoder layer and decode step 2
+    gemm_fused and 2 flash_decode (self, cross)."""
+    enc, dec = cfg.encoder_layers, cfg.num_layers
+    return {**no_launches(),
+            "gemm_fused": 4 * enc + 4 * dec + 2 * dec * steps,
+            "flash_attention_fwd": enc + 2 * dec,
+            "flash_decode": 2 * dec * steps}
+
+
+def whisper_teacher_forced(model, params, tokens, emb):
+    """Per-step logits (W_BATCH, V) fp32 of ``tokens`` (B, W_PROMPT +
+    W_NEW): encode and prefill the prompt, then decode the given tokens."""
+    out = []
+    with torch.inference_mode():
+        cache = model.init_cache(tokens.shape[0], W_MAX_LEN)
+        cache, logits = model.prefill(
+            params, {"encoder_embeds": emb, "inputs": tokens[:, :W_PROMPT]},
+            cache)
+        out.append(logits.float())
+        for i in range(W_NEW - 1):
+            pos = W_PROMPT + i
+            cache, logits = model.decode_step(
+                params, tokens[:, pos:pos + 1], cache, pos)
+            out.append(logits.float())
+    return out
+
+
+def run_whisper(dev) -> dict:
+    """9a: whisper-base whole (6 + 6 layers) at a trained model's scale, as
+    phase 8's weights, through Engine.generate: batch 4, 64-token prompts,
+    32 new tokens, greedy, seeded encoder_embeds (4, 1500, 512) in
+    extra_batch. Launches exact; one replayed decode step bit for bit the
+    eager step (logits and the self cache, the cross cache unchanged);
+    teacher-forced logits within phase 4's bound."""
+    m = build_models(dev, "whisper-base", trained=True)
+    cfg, params = m.cfg, m.params
+    rng = np.random.default_rng(9)
+    emb = torch.from_numpy(rng.standard_normal(
+        (W_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    extra = {"encoder_embeds": emb}
+    engine = Engine(m.kernel, params, max_len=W_MAX_LEN)
+    # one warm-up batch of the served shape: the decode graph's capture
+    engine.generate(rng.integers(0, cfg.vocab_size, (W_BATCH, W_PROMPT)), 2,
+                    extra_batch=extra)
+    engine.timings.clear()
+    prompts = rng.integers(0, cfg.vocab_size, (W_BATCH, W_PROMPT))
+    kernels.reset_launch_counts()
+    result = engine.generate(prompts, W_NEW, extra_batch=extra)
+    counts = kernels.launch_counts()
+    want = expected_whisper_launches(cfg, W_NEW - 1)
+    log(f"[9a] whisper-base served {W_BATCH} x {W_PROMPT} + {W_NEW}; "
+        f"launches {counts}; bucket_lru {engine.lru_stats}")
+    if counts != want:
+        raise AssertionError(f"[9a] launches {counts}; the path makes {want}")
+    toks = result.tokens
+    if toks.shape != (W_BATCH, W_PROMPT + W_NEW) or not np.array_equal(
+            toks[:, :W_PROMPT], prompts) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"[9a] bad result {toks}")
+    entry = engine._buckets[("decode", W_BATCH)]
+    token = torch.arange(W_BATCH, device=dev)[:, None] * 7 + 1
+    cross = tree_map(torch.clone, entry.cache["cross"])
+
+    def eager(cache):
+        return m.kernel.decode_step(params, token, cache, W_PROMPT + 3)[1]
+    check_graph_replay("9a", entry, entry.cache,
+                       dict(token=token, pos=W_PROMPT + 3), eager)
+    if not all(torch.equal(entry.cache["cross"][k], cross[k])
+               for k in cross):
+        raise AssertionError("[9a] a decode step wrote the cross cache")
+    t = engine.timings[0]
+    throughput = {"encode_prefill_s": t["prefill_s"],
+                  "decode_s": t["decode_s"],
+                  "decode_tokens_per_s": W_BATCH * (W_NEW - 1) / t[
+                      "decode_s"]}
+    log(f"[9a] encode + prefill {t['prefill_s']:.4f} s; decode "
+        f"{W_BATCH * (W_NEW - 1)} tokens in {t['decode_s']:.4f} s "
+        f"({throughput['decode_tokens_per_s']:.1f} tok/s); the cross cache "
+        f"unchanged by the steps")
+    tokens = torch.as_tensor(toks, dtype=torch.int64, device=dev)
+    kern = whisper_teacher_forced(m.kernel, params, tokens, emb)
+    greedy = torch.stack([lg.argmax(-1) for lg in kern], dim=1)
+    if not torch.equal(greedy, tokens[:, W_PROMPT:]):
+        raise AssertionError("[9a] the served greedy tokens differ from the "
+                             "argmax of the kernel path's teacher-forced "
+                             "logits")
+    plain = whisper_teacher_forced(m.plain, params, tokens, emb)
+    truth = whisper_teacher_forced(m.truth, m.params32, tokens, emb)
+    worst, agreement = check_logit_bound("9a", kern, plain, truth)
+    log(f"[9a] teacher-forced logits over {len(kern)} steps: kernel-path "
+        f"error vs fp32 at most {worst:.3f} of its bound; greedy agreement "
+        f"with the plain bf16 path {agreement:.3f} (information only)")
+    del m
+    return {"launches": counts, "throughput": throughput,
+            "bucket_lru": dict(engine.lru_stats), "logit_bound_use": worst,
+            "greedy_agreement": agreement}
+
+
+def run_bert(dev) -> dict:
+    """9b: bert-110m whole (12 layers) at a trained model's scale, its MLM
+    forward on 8 x 512 seeded tokens: launches exact (per layer 4
+    gemm_fused and one non-causal flash forward), the logits within phase
+    4's bound of fp32, tokens/s of the kernel path (median of 5 forwards
+    after a warm-up, each ended by a synchronise)."""
+    m = build_models(dev, "bert-110m", trained=True)
+    cfg = m.cfg
+    rng = np.random.default_rng(10)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (B_BATCH, B_SEQ)), device=dev)
+    with torch.inference_mode():
+        m.kernel.forward(m.params, tokens)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        kern = m.kernel.forward(m.params, {"inputs": tokens})
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {**no_launches(), "gemm_fused": 4 * cfg.num_layers,
+                "flash_attention_fwd": cfg.num_layers}
+        if counts != want:
+            raise AssertionError(f"[9b] launches {counts}; the path makes "
+                                 f"{want}")
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            m.kernel.forward(m.params, tokens)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        plain = m.plain.forward(m.params, tokens)
+        truth = m.truth.forward(m.params32, tokens)
+        worst, agreement = check_logit_bound(
+            "9b", [kern.float()], [plain.float()], [truth.float()])
+    step = statistics.median(secs)
+    log(f"[9b] bert-110m forward {B_BATCH} x {B_SEQ}: launches {counts}; "
+        f"{step:.4f} s ({B_BATCH * B_SEQ / step:.1f} tok/s, median of 5); "
+        f"logits vs fp32 at most {worst:.3f} of the bound; argmax agreement "
+        f"with the plain bf16 path {agreement:.3f} (information only)")
+    del m, kern, plain, truth
+    return {"launches": counts, "forward_s": step,
+            "tokens_per_s": B_BATCH * B_SEQ / step,
+            "logit_bound_use": worst, "argmax_agreement": agreement}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2159,9 +2541,11 @@ def main(argv=None) -> int:
     cfg = get_config("llama-1b")
     old = baseline_kernels(args.baseline_csrc) if args.baseline_csrc else None
     measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer, old),
-                "flash_attention_fwd": measure_flash(cfg, dev, gen, timer,
-                                                     old),
-                "flash_decode": measure_decode(cfg, dev, gen, timer, old),
+                "flash_attention_fwd": (
+                    measure_flash(cfg, dev, gen, timer, old)
+                    + measure_flash_encoder(dev, gen, timer)),
+                "flash_decode": (measure_decode(cfg, dev, gen, timer, old)
+                                 + measure_decode_encoder(dev, gen, timer)),
                 "flash_decode_paged": measure_paged(cfg, dev, gen, timer,
                                                     old)}
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
@@ -2201,6 +2585,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phases.update(run_dense(dev))
     log(f"[done] phase 8 at {time.perf_counter() - t0:.1f} s")
+    phases["9a"] = run_whisper(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["9b"] = run_bert(dev)
+    log(f"[done] phase 9 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -2211,7 +2600,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": sum(phases[p]["launches"][name]
-                            for p in MAIN_PATH_PHASES + DENSE_PHASES),
+                            for p in MAIN_PATH_PHASES + DENSE_PHASES
+                            + ENCODER_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

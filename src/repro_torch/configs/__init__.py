@@ -1,5 +1,6 @@
-"""Config registry: ``get_config('<arch-id>'[, smoke=True])`` for the dense
-decoder-only archs the port runs, under the reference's ids."""
+"""Config registry: ``get_config('<arch-id>'[, smoke=True])`` for the archs
+the port runs (the dense decoders, whisper-base and bert-110m), under the
+reference's ids."""
 from __future__ import annotations
 
 import importlib
@@ -7,20 +8,23 @@ import importlib
 from .base import ModelConfig  # noqa: F401
 
 _MODULES = {
+    "whisper-base": "whisper_base",
     "minicpm-2b": "minicpm_2b",
     "chatglm3-6b": "chatglm3_6b",
     "granite-8b": "granite_8b",
     "qwen2-72b": "qwen2_72b",
     "llama-100m": "llama_paper",
     "llama-1b": "llama_paper",
+    "bert-110m": "llama_paper",
 }
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
-    """The published config, or with ``smoke`` its small variant. The llama
-    validation models have no smoke variant (as in the reference) and
-    return their one config either way."""
+    """The published config, or with ``smoke`` its small variant. The
+    paper's validation models (llama-100m, llama-1b, bert-110m) have no
+    smoke variant (as in the reference) and return their one config either
+    way."""
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
@@ -28,4 +32,6 @@ def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
         return mod.LLAMA_100M
     if name == "llama-1b":
         return mod.LLAMA_1B
+    if name == "bert-110m":
+        return mod.BERT_110M
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG

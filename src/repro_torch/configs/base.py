@@ -1,7 +1,8 @@
 """Model configuration: one frozen dataclass per architecture.
 
 The port's own copy of the reference ``ModelConfig``, cut to the fields the
-decoder-only LM path reads. Field names and defaults are the reference's, so
+port's families read: the decoder-only LM, the encoder and the
+encoder-decoder. Field names and defaults are the reference's, so
 ``dataclasses.replace`` sizes a config the same way on both sides.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Sequence
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # 'lm' is the only family the port serves
+    family: str                 # 'lm' | 'encdec' | 'encoder'
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,6 +32,10 @@ class ModelConfig:
     rope_style: str = "half"    # 'half' | 'partial' | 'none'
     attn_window: Optional[int] = None
     attn_logit_softcap: Optional[float] = None
+    # enc-dec (whisper): encoder stack dims (decoder uses the main fields)
+    encoder_layers: int = 0
+    encoder_seq: int = 1500      # precomputed frame embeddings (frontend stub)
+    max_target_positions: int = 448
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     ce_chunk: int = 0            # >0: chunked CE loss (the port takes 0 only)

@@ -46,11 +46,13 @@
 
 namespace {
 
+// gemm_fused.cu's flags; the activation's code (bits 5-6) is not read: the
+// gate the backward takes is silu's (kernels/gemm/ops.py check_backward)
 enum : int {
   EP_SCALE = 1,
   EP_BIAS = 2,
   EP_ROPE = 4,
-  EP_GATE_SILU = 8,
+  EP_GATE = 8,
   EP_RESIDUAL = 16,
 };
 
@@ -302,7 +304,7 @@ int gemm_bwd_g_launch(const void* g, const void* preact, const void* preact2,
   auto* part = static_cast<float*>(dbias_part);
   const bool bias = part != nullptr;
   cudaError_t err;
-  if (flags & EP_GATE_SILU) {
+  if (flags & EP_GATE) {
     if (preact == nullptr || preact2 == nullptr || bias)
       return cudaErrorInvalidValue;
     err = launch_g<G_GATE, false>(s, gb, gbt, part, ld_t, st);

@@ -1,6 +1,7 @@
 from .epilogue import EPILOGUE_NONE, Epilogue, rope_rotate  # noqa: F401
 from .prologue import PROLOGUE_NONE, Prologue, norm_prologue  # noqa: F401
-from .ref import gemm_fused_ref, rms_rows_ref  # noqa: F401
+from .ref import (gemm_fused_ref, ln_rows_ref, norm_rows_ref,  # noqa: F401
+                  rms_rows_ref)
 from .ops import (BWD_MODES, KERNEL, default_bwd_mode,  # noqa: F401
                   gemm_fused, kernel_saves, rope_store_fits)
 from .ref import gemm_fused_bwd_ref  # noqa: F401

@@ -5,10 +5,13 @@ launches the hand-written kernel (``csrc/gemm_fused.cu``) or raises. The
 chains the kernel takes are checked on both devices, so a call the CPU
 accepts is one the card accepts too:
 
-* prologue ``none`` or ``rmsnorm`` (a row pass in the launch writes the
-  row statistics and the normalised A);
-* epilogue stages scalar ``scale``, ``bias``, ``rope``, ``silu`` with
-  ``gate`` (the dual-output SwiGLU up-projection) and ``residual``.
+* prologue ``none``, ``rmsnorm`` or ``layernorm`` with or without the
+  ``beta`` row (a row pass in the launch writes the row statistics and the
+  normalised A); not precomputed statistics;
+* epilogue stages scalar ``scale``, ``bias``, ``rope``, an activation
+  (``silu``, ``gelu`` or ``relu``) alone or with ``gate`` (the
+  dual-output SwiGLU/GeGLU up-projection) and ``residual``; not row or
+  column scales, nor fp8 operands.
 
 On the card every operand is bf16 (sin/cos fp32), contiguous and 16-byte
 aligned, with N and K multiples of 8. The kernel's tile width and the split
@@ -20,10 +23,13 @@ Under autograd the op is a ``torch.autograd.Function``. ``bwd_mode`` picks
 its backward: ``"kernel"`` (the default, see :func:`default_bwd_mode`) runs
 the chain transpose as the two backward kernels (``backward.py``); the
 forward then also stores the raw accumulators the transpose needs and keeps
-the row statistics. ``"reference"`` is autograd through
-:func:`gemm_fused_ref`, the oracle; it runs only when the caller asks for
-it. The scale is a Python number (``residual_scale``) and takes no
-gradient: unlike the reference, no fp32 preactivation is kept for a dscale.
+the row statistics. The backward kernels take the rmsnorm prologue and
+the gated silu only: in that mode any other norm or activation raises
+(:func:`check_backward`). ``"reference"`` is autograd through
+:func:`gemm_fused_ref`, the oracle, for every chain; it runs only when the
+caller asks for it. The scale is a Python number (``residual_scale``) and
+takes no gradient: unlike the reference, no fp32 preactivation is kept for
+a dscale.
 """
 from __future__ import annotations
 
@@ -36,12 +42,12 @@ import torch
 from .._build import CudaKernel
 from .epilogue import EPILOGUE_NONE, Epilogue
 from .prologue import PROLOGUE_NONE, Prologue
-from .ref import gemm_fused_ref, rms_rows_ref
+from .ref import gemm_fused_ref, norm_rows_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "gemm_fused", "gemm_fused.cu", "gemm_fused_launch",
-    [_P] * 14 + [_F, _F] + [_I] * 7 + [_P])
+    [_P] * 16 + [_F, _F] + [_I] * 7 + [_P])
 
 BWD_MODES = ("kernel", "reference", "auto")
 _DEFAULT_BWD_MODE = ["kernel"]
@@ -69,8 +75,14 @@ def kernel_saves(epilogue: Epilogue) -> int:
     gradient."""
     return epilogue.n_accumulators if epilogue.activation != "none" else 0
 
-# bit flags of the C entry point (csrc/gemm_fused.cu)
-_EP_SCALE, _EP_BIAS, _EP_ROPE, _EP_GATE_SILU, _EP_RESIDUAL = 1, 2, 4, 8, 16
+# bit flags of the C entry point (csrc/gemm_fused.cu), and the activation's
+# code in the bits from _EP_ACT_SHIFT on
+_EP_SCALE, _EP_BIAS, _EP_ROPE, _EP_GATE, _EP_RESIDUAL = 1, 2, 4, 8, 16
+_EP_ACT_SHIFT = 5
+ACT_CODES = {"none": 0, "silu": 1, "gelu": 2, "relu": 3}
+# fp8 operands: the reference upcasts them in its kernel; this one refuses
+_FP8 = tuple(getattr(torch, n) for n in ("float8_e4m3fn", "float8_e5m2")
+             if hasattr(torch, n))
 # a rope head_dim must divide this width: every tile the kernel takes for
 # a rope chain is a multiple of it, so tiles hold whole heads
 BLOCK_N = 128
@@ -104,15 +116,20 @@ def tile_widths(gate: bool = False, head_dim: int = 0) -> tuple:
 
 
 def plan_gemm(m: int, n: int, k: int, sms: int, *, gate: bool = False,
-              head_dim: int = 0) -> tuple:
+              head_dim: int = 0, act: bool = False) -> tuple:
     """(tile width, split count) of the forward kernel for an (m, k) @
     (k, n) product on ``sms`` SMs. Up to one tile row (M <= TILE_ROWS):
     128-wide tiles (the gated chain's narrowest; the weight bytes bound
     these shapes) and the contraction split over the SMs. Above: the widest
     width whose tiles give each SM TILES_PER_SM of them, else the
-    narrowest; no split. A function of the shape and the SM count only, the
-    same for every M of one tile row."""
+    narrowest; no split. A non-gated activation's store (``act``) takes
+    128-wide tiles at most: at 256 its per-thread epilogue (128
+    activations a row) was slower at every shape of the sweep. A function
+    of the shape, the chain and the SM count only, the same for every M of
+    one tile row."""
     widths = tile_widths(gate, head_dim)
+    if act and not gate:
+        widths = tuple(w for w in widths if w <= 128)
     if m <= TILE_ROWS:
         width = 128 if 128 in widths else max(widths)
         return width, split_count(tile_count(m, n, width, gate), k, sms)
@@ -184,22 +201,34 @@ def rope_store_fits(head_dim: int) -> bool:
 
 def check_chain(epilogue: Epilogue, prologue: Prologue) -> None:
     """Raise on a chain the CUDA kernel does not take."""
-    if prologue.norm not in ("none", "rmsnorm") or prologue.precomputed_stats:
+    if prologue.precomputed_stats:
         raise NotImplementedError(
             f"gemm_fused kernel: prologue {prologue.describe()!r} is not "
-            "supported (rmsnorm with in-launch statistics only)")
+            "supported (statistics computed in the launch only)")
     if epilogue.scale_kind != "scalar":
         raise NotImplementedError(
             "gemm_fused kernel: per-row/per-column scales are not supported")
-    if epilogue.activation not in ("none", "silu") or (
-            epilogue.activation == "silu" and not epilogue.gate):
-        raise NotImplementedError(
-            f"gemm_fused kernel: activation {epilogue.activation!r} "
-            f"(gate={epilogue.gate}) is not supported; silu with gate only")
     if epilogue.rope and not rope_store_fits(epilogue.head_dim):
         raise NotImplementedError(
             f"gemm_fused kernel: rope head_dim {epilogue.head_dim} must be a "
             f"multiple of 4 dividing the kernel's block width {BLOCK_N}")
+
+
+def check_backward(epilogue: Epilogue, prologue: Prologue) -> None:
+    """Raise on a chain whose backward the kernels do not take: a norm
+    other than rmsnorm (layernorm's transpose with dbeta), and an activation
+    other than the gated silu (gelu', relu' and the non-gated chains' saved
+    preacts), until the backward kernels follow the forward."""
+    if prologue.norm not in ("none", "rmsnorm"):
+        raise NotImplementedError(
+            f"gemm_fused backward kernel: prologue {prologue.describe()!r} "
+            "is not supported yet (rmsnorm only); pass bwd_mode='reference'")
+    if epilogue.activation != "none" and not (
+            epilogue.gate and epilogue.activation == "silu"):
+        raise NotImplementedError(
+            f"gemm_fused backward kernel: chain {epilogue.describe()!r} is "
+            "not supported yet (the gated silu only); pass "
+            "bwd_mode='reference'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +242,7 @@ class _Spec:
 
 
 # the tensor operands of the autograd Function, in its argument order
-_GRAD_OPERANDS = ("b2", "bias", "residual", "gamma", "sin", "cos")
+_GRAD_OPERANDS = ("b2", "bias", "residual", "gamma", "beta", "sin", "cos")
 
 
 def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
@@ -223,7 +252,8 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
                out_dtype=torch.bfloat16, bwd_mode: str | None = None):
     """C = epilogue(prologue(A) @ B [, A @ B2]) in one launch on the card.
 
-    a (M, K), b and b2 (K, N); gamma (K,); bias (N,); residual (M, N);
+    a (M, K), b and b2 (K, N); gamma and beta (K,); bias (N,); residual
+    (M, N);
     scale a scalar; sin/cos (M, head_dim) fp32 duplicated-halves tables.
     ``bwd_mode`` ("kernel" | "reference"; None: :func:`default_bwd_mode`)
     picks the backward when autograd records the call.
@@ -238,6 +268,9 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
                          f"{tuple(b.shape)} do not multiply")
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gemm_fused: unsupported device {a.device}")
+    if any(t is not None and t.dtype in _FP8 for t in (a, b, b2)):
+        raise NotImplementedError("gemm_fused kernel: fp8 operands are not "
+                                  "supported (bf16 on the card)")
     if bwd_mode is None:
         bwd_mode = _DEFAULT_BWD_MODE[0]
     if bwd_mode not in BWD_MODES:
@@ -247,47 +280,51 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
             "gemm_fused: bwd_mode='auto' routes by the reference's TPU cost "
             "model, which the port does not have; pass 'kernel' or "
             "'reference'")
-    operands = (a, b, b2, bias, residual, gamma, sin, cos)
+    operands = (a, b, b2, bias, residual, gamma, beta, sin, cos)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
         if any(torch.is_tensor(t) and t.requires_grad
                for t in (scale, sin, cos)):
             raise NotImplementedError(
                 "gemm_fused: the scale and the rope tables take no gradient")
+        if bwd_mode == "kernel":
+            check_backward(epilogue, prologue)
         return _GemmFusedFn.apply(*operands, _Spec(
             epilogue, prologue, scale, out_dtype, bwd_mode))
     return _forward(a, b, epilogue, prologue, b2=b2, bias=bias,
                     residual=residual, scale=scale, sin=sin, cos=cos,
-                    gamma=gamma, out_dtype=out_dtype)[0]
+                    gamma=gamma, beta=beta, out_dtype=out_dtype)[0]
 
 
 def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
-             cos, gamma, out_dtype, save_preact=False):
-    """(out, rstd, preacts): the kernel on the card, the plain version on
-    the CPU. ``rstd`` (M,) fp32 is the kernel's row statistics (None
-    without a prologue, and on the CPU, where the plain backward recomputes
-    them); ``preacts`` the raw accumulators rounded to A's type when
+             cos, gamma, out_dtype, beta=None, save_preact=False):
+    """(out, stats, preacts): the kernel on the card, the plain version on
+    the CPU. ``stats`` is the kernel's row statistics in fp32: rstd (M,)
+    for rmsnorm, (2, M) mean and rstd for layernorm (None without a
+    prologue, and on the CPU, where the plain backward recomputes them);
+    ``preacts`` the raw accumulators rounded to A's type when
     ``save_preact``, else ()."""
     kw = dict(b2=b2, bias=bias, residual=residual, scale=scale, sin=sin,
-              cos=cos, gamma=gamma, out_dtype=out_dtype,
+              cos=cos, gamma=gamma, beta=beta, out_dtype=out_dtype,
               save_preact=save_preact)
     if a.device.type == "cuda":
-        return _launch(a, b, epilogue, eps=prologue.eps, **kw)
+        return _launch(a, b, epilogue, eps=prologue.eps,
+                       layernorm=prologue.norm == "layernorm", **kw)
     return forward_ref(a, b, epilogue, prologue, **kw)
 
 
 def forward_ref(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
-                cos, gamma, out_dtype, save_preact=False):
+                cos, gamma, out_dtype, beta=None, save_preact=False):
     """The plain version of :func:`_forward` on any device: (out, None,
     preacts)."""
     out = gemm_fused_ref(a, b, epilogue=epilogue, prologue=prologue, b2=b2,
                          bias=bias, residual=residual, scale=scale, sin=sin,
-                         cos=cos, gamma=gamma, out_dtype=out_dtype)
+                         cos=cos, gamma=gamma, beta=beta, out_dtype=out_dtype)
     preacts = ()
     if save_preact:
         an = a
         if not prologue.is_identity:
-            an = rms_rows_ref(a, gamma, prologue.eps)[0]
+            an = norm_rows_ref(a, prologue, gamma, beta)
         preacts = tuple((an.float() @ w.float()).to(a.dtype)
                         for w in ((b, b2) if epilogue.gate else (b,)))
     return out, None, preacts
@@ -299,24 +336,24 @@ class _GemmFusedFn(torch.autograd.Function):
     transpose or the oracle's autograd, with no grad for sin and cos."""
 
     @staticmethod
-    def forward(ctx, a, b, b2, bias, residual, gamma, sin, cos, spec):
+    def forward(ctx, a, b, b2, bias, residual, gamma, beta, sin, cos, spec):
         ep = spec.epilogue
         save = spec.bwd_mode == "kernel" and kernel_saves(ep) > 0
         out, rstd, preacts = _forward(
             a, b, ep, spec.prologue, b2=b2, bias=bias, residual=residual,
-            scale=spec.scale, sin=sin, cos=cos, gamma=gamma,
+            scale=spec.scale, sin=sin, cos=cos, gamma=gamma, beta=beta,
             out_dtype=spec.out_dtype, save_preact=save)
         ctx.spec = spec
-        ctx.save_for_backward(a, b, b2, bias, residual, gamma, sin, cos,
-                              rstd, *preacts)
+        ctx.save_for_backward(a, b, b2, bias, residual, gamma, beta, sin,
+                              cos, rstd, *preacts)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        a, b, b2, bias, residual, gamma, sin, cos, rstd, *preacts = \
+        a, b, b2, bias, residual, gamma, beta, sin, cos, rstd, *preacts = \
             ctx.saved_tensors
         spec = ctx.spec
-        operands = (a, b, b2, bias, residual, gamma, sin, cos)
+        operands = (a, b, b2, bias, residual, gamma, beta, sin, cos)
         need = ctx.needs_input_grad[:len(operands)]
         if spec.bwd_mode == "reference":
             return (*_reference_vjp(spec, operands, need, g), None)
@@ -338,11 +375,12 @@ def _reference_vjp(spec, operands, need, g):
     with torch.enable_grad():
         leaves = [None if t is None else t.detach().requires_grad_(w)
                   for t, w in zip(operands, need)]
-        a, b, b2, bias, residual, gamma, sin, cos = leaves
+        a, b, b2, bias, residual, gamma, beta, sin, cos = leaves
         out = gemm_fused_ref(a, b, epilogue=spec.epilogue,
                              prologue=spec.prologue, b2=b2, bias=bias,
                              residual=residual, scale=spec.scale, sin=sin,
-                             cos=cos, gamma=gamma, out_dtype=spec.out_dtype)
+                             cos=cos, gamma=gamma, beta=beta,
+                             out_dtype=spec.out_dtype)
         wanted = [t for t, w in zip(leaves, need) if t is not None and w]
         grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
     return tuple(next(grads) if t is not None and w else None
@@ -350,13 +388,15 @@ def _reference_vjp(spec, operands, need, g):
 
 
 def chain_flags(epilogue: Epilogue) -> int:
-    """The chain as the C entry points' bit flags (also those of the
-    backward operand pass, csrc/gemm_bwd_g.cu)."""
+    """The chain as the C entry points' bit flags and activation code (also
+    those of the backward operand pass, csrc/gemm_bwd_g.cu, which reads the
+    bits only)."""
     return ((_EP_SCALE if epilogue.scale else 0)
             | (_EP_BIAS if epilogue.bias else 0)
             | (_EP_ROPE if epilogue.rope else 0)
-            | (_EP_GATE_SILU if epilogue.gate else 0)
-            | (_EP_RESIDUAL if epilogue.residual else 0))
+            | (_EP_GATE if epilogue.gate else 0)
+            | (_EP_RESIDUAL if epilogue.residual else 0)
+            | ACT_CODES[epilogue.activation] << _EP_ACT_SHIFT)
 
 
 def require(t, name, shape, dtype, device):
@@ -377,9 +417,13 @@ def require(t, name, shape, dtype, device):
 
 
 def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
-            eps, out_dtype, save_preact=False, plan=None):
-    """One launch on the card: (out, rstd, preacts). ``plan`` (tile width,
-    split count) overrides :func:`plan_gemm` (the smoke's sweep)."""
+            eps, out_dtype, beta=None, layernorm=False, save_preact=False,
+            plan=None):
+    """One launch on the card: (out, stats, preacts), ``stats`` as
+    :func:`_forward` returns them. With ``gamma`` the row pass normalises A
+    first: layernorm (``beta`` optional) where ``layernorm``, else rmsnorm.
+    ``plan`` (tile width, split count) overrides :func:`plan_gemm` (the
+    smoke's sweep)."""
     m, k = a.shape
     n = b.shape[1]
     dev, bf16 = a.device, torch.bfloat16
@@ -393,8 +437,9 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
         raise ValueError(f"gemm_fused: N ({n}) is not whole heads of "
                          f"{epilogue.head_dim}")
     hd = epilogue.head_dim if epilogue.rope else 0
-    tile_n, splits = plan or plan_gemm(m, n, k, sm_count(dev),
-                                       gate=epilogue.gate, head_dim=hd)
+    tile_n, splits = plan or plan_gemm(
+        m, n, k, sm_count(dev), gate=epilogue.gate, head_dim=hd,
+        act=epilogue.activation != "none")
     if tile_n not in tile_widths(epilogue.gate, hd) or splits < 1:
         raise ValueError(f"gemm_fused kernel: plan {(tile_n, splits)} does "
                          f"not fit chain {epilogue.describe()!r}")
@@ -405,6 +450,11 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
         ptr["b2"] = require(b2, "b2", (k, n), bf16, dev)
     if gamma is not None:
         ptr["gamma"] = require(gamma, "gamma", (k,), bf16, dev)
+    if beta is not None:
+        if not layernorm:
+            raise ValueError("gemm_fused kernel: beta needs the layernorm "
+                             "prologue")
+        ptr["beta"] = require(beta, "beta", (k,), bf16, dev)
     if bias is not None:
         ptr["bias"] = require(bias, "bias", (n,), bf16, dev)
     if residual is not None:
@@ -414,9 +464,12 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
         ptr["cos"] = require(cos, "cos", (m, hd), torch.float32, dev)
     flags = chain_flags(epilogue)
     out = torch.empty((m, n), dtype=bf16, device=dev)
-    rstd = an = ws = None
+    stats = mean = rstd = an = ws = None
     if gamma is not None:
-        rstd = torch.empty((m,), dtype=torch.float32, device=dev)
+        # one buffer: rstd (M,), or for layernorm mean and rstd (2, M)
+        stats = torch.empty((2, m) if layernorm else (m,),
+                            dtype=torch.float32, device=dev)
+        mean, rstd = (stats[0], stats[1]) if layernorm else (None, stats)
         an = torch.empty((m, k), dtype=bf16, device=dev)
     if staged(epilogue, splits):
         ws = torch.empty((splits, m, raw_width(n, tile_n, epilogue.gate)),
@@ -436,7 +489,8 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
     stream = KERNEL.stream(dev)
     KERNEL.launches += 1
     code = fn(ptr["a"], ptr["b"], ptr.get("b2", null), out.data_ptr(),
-              ptr.get("gamma", null), addr(rstd), addr(an),
+              ptr.get("gamma", null), ptr.get("beta", null), addr(mean),
+              addr(rstd), addr(an),
               ptr.get("bias", null), ptr.get("residual", null),
               ptr.get("sin", null), ptr.get("cos", null),
               *([p.data_ptr() for p in preacts] or [null, null]), addr(ws),
@@ -444,4 +498,4 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
               float(eps) if eps is not None else 0.0,
               m, n, k, flags, epilogue.head_dim, tile_n, splits, stream)
     KERNEL.check(code)
-    return out, rstd, preacts
+    return out, stats, preacts

@@ -52,6 +52,30 @@ def rms_rows_ref(a, gamma, eps: float) -> tuple:
     return an, rstd
 
 
+def ln_rows_ref(a, gamma, beta, eps: float) -> tuple:
+    """Plain version of the forward kernel's layernorm row pass: (An in A's
+    type, mean (M,) fp32, rstd (M,) fp32), with the mean, the variance of
+    the centred values (not E[x^2] - mean^2), rstd = 1 / sqrt(var + eps)
+    and An = ((x - mean) rstd) gamma [+ beta] in fp32, rounded to A's
+    type: the reference's layernorm prologue and rounding point."""
+    x = a.to(torch.float32)
+    mean = torch.mean(x, dim=-1)
+    c = x - mean[:, None]
+    rstd = torch.rsqrt(torch.mean(c * c, dim=-1) + eps)
+    an = c * rstd[:, None] * gamma.to(torch.float32)
+    if beta is not None:
+        an = an + beta.to(torch.float32)
+    return an.to(a.dtype), mean, rstd
+
+
+def norm_rows_ref(a, prologue: Prologue, gamma, beta=None):
+    """An of the kernel's row pass for ``prologue`` (rmsnorm or layernorm
+    with in-launch statistics), in A's type."""
+    if prologue.norm == "layernorm":
+        return ln_rows_ref(a, gamma, beta, prologue.eps)[0]
+    return rms_rows_ref(a, gamma, prologue.eps)[0]
+
+
 def _prologue_kwargs(prologue, gamma, beta, mean, rstd) -> dict:
     """The prologue's operands in fp32, shaped to broadcast over rows."""
     f32 = torch.float32

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch llama-1b \\
       --batch 4 --prompt-len 256 --new-tokens 32 [--engine paged] --out DIR
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch whisper-base --prompt-len 64 --out DIR
 
 Builds the model in kernel mode with seeded random weights, warms it up,
 then runs one prefill and the decode steps of one batch twice: once untimed
@@ -12,7 +14,10 @@ decode steps replayed from the ``("decode", batch)`` bucket's CUDA graph;
 ``--engine paged`` drives a ``PagedEngine`` (``--batch`` slots, 64-token
 pages): prefill is the admission of every request (one exact-length
 prefill each), decode is the engine's steps, replayed from its page
-buckets' graphs, until all have retired. One engine serves the warm-up
+buckets' graphs, until all have retired. An encoder-decoder (whisper-base)
+takes the fixed engine only; its prefill is the encoder over seeded
+``encoder_embeds`` (batch, encoder_seq, d_model) and the decoder's prefill,
+as ``Engine.generate(..., extra_batch=...)`` runs them. One engine serves the warm-up
 and both runs, so the graphs are captured in the warm-up. From the trace
 it reports, for prefill and decode apart, the device time by kernel family
 (the port's kernels, the library matrix products that the reference also
@@ -39,7 +44,7 @@ from repro_torch.serve import Engine, PagedEngine, Request
 
 # kernel name fragment -> family, checked in order
 FAMILIES = (
-    # the forward GEMM: the rmsnorm row pass, the mainloop (fused epilogue,
+    # the forward GEMM: the norm row pass, the mainloop (fused epilogue,
     # or split partials) and the split-K reduce
     ("gemm_fused_rows_kernel", "gemm_fused"),
     ("gemm_fused_kernel", "gemm_fused"),
@@ -135,17 +140,21 @@ def _timed(fn, profile: bool):
         return time.perf_counter() - t0, prof
 
 
-def run_phases(engine, prompts, new_tokens: int, profile: bool):
+def run_phases(engine, prompts, new_tokens: int, profile: bool,
+               extra_batch=None):
     """One prefill and ``new_tokens - 1`` greedy decode steps through the
-    engine's buckets, as ``Engine.generate`` runs them; returns {phase:
+    engine's buckets, as ``Engine.generate`` runs them (an encoder-decoder's
+    prefill takes ``dict(extra_batch, inputs=prompts)``); returns {phase:
     (seconds, profiler or None)}."""
     b, s = prompts.shape
     prefill_fn = engine._bucket(b, s)
     step = engine._decode_fn(b)
+    batch = prompts if extra_batch is None else dict(extra_batch,
+                                                     inputs=prompts)
     state = {}
 
     def prefill():
-        _, logits = prefill_fn(engine.params, prompts, step.cache)
+        _, logits = prefill_fn(engine.params, batch, step.cache)
         state["tok"] = torch.argmax(logits, dim=-1)[:, None]
 
     def decode():
@@ -190,12 +199,22 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.family == "encoder" or (cfg.family == "encdec"
+                                   and args.engine == "paged"):
+        raise NotImplementedError(
+            f"{args.arch}: the {cfg.family!r} family is not served by the "
+            f"{args.engine} engine")
     model = build_model(cfg, mode="kernel", device="cuda")
     params = model.init(seed=args.seed)
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         device="cuda")
+    extra = {}
+    if cfg.family == "encdec":
+        extra["extra_batch"] = {"encoder_embeds": torch.as_tensor(
+            rng.standard_normal((args.batch, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.bfloat16, device="cuda")}
     max_len = args.prompt_len + args.new_tokens
     if args.engine == "paged":
         pages = -(-max_len // PAGE)
@@ -207,10 +226,10 @@ def main(argv=None) -> dict:
         engine = Engine(model, params, max_len=max_len)
         run = run_phases
     # warm-up: the decode graphs of the buckets the runs use are captured
-    run(engine, prompts, args.new_tokens, profile=False)
+    run(engine, prompts, args.new_tokens, profile=False, **extra)
     torch.cuda.reset_peak_memory_stats()
-    plain = run(engine, prompts, args.new_tokens, profile=False)
-    traced = run(engine, prompts, args.new_tokens, profile=True)
+    plain = run(engine, prompts, args.new_tokens, profile=False, **extra)
+    traced = run(engine, prompts, args.new_tokens, profile=True, **extra)
     tokens = {"prefill": args.batch * args.prompt_len,
               "decode": args.batch * (args.new_tokens - 1)}
     report = {"arch": args.arch, "engine": args.engine, "batch": args.batch,

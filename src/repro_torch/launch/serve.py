@@ -6,9 +6,13 @@ with the model in kernel mode (``--mode reference``: the plain path).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
       --no-smoke --layers 4
 
-``--arch`` takes every id of ``repro_torch.configs``; the smoke variant of
-a config is the default (``--no-smoke``: the published one; the llama ids
-have one config), and ``--layers`` cuts its depth. Runs on the CUDA card by
+``--arch`` takes every decoder-only id of ``repro_torch.configs``; the
+smoke variant of a config is the default (``--no-smoke``: the published
+one; the llama ids have one config), and ``--layers`` cuts its depth. As
+in the reference, the request queue serves decoder-only LMs only:
+whisper-base is served through ``Engine.generate(..., extra_batch=...)``
+(``launch/profile_serve.py --arch whisper-base``) and bert-110m has no
+decode step; both are refused here. Runs on the CUDA card by
 default; ``--device cpu`` runs the kernels' plain versions on the CPU.
 """
 from __future__ import annotations
@@ -40,6 +44,13 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family != "lm":
+        raise NotImplementedError(
+            f"{args.arch}: the serving launcher's request queue serves "
+            f"decoder-only LMs, not the {cfg.family!r} family (as the "
+            "reference's); serve an encoder-decoder through "
+            "Engine.generate(..., extra_batch={'encoder_embeds': ...}); an "
+            "encoder has no decode step")
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg, mode=args.mode, device=args.device)

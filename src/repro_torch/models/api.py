@@ -1,6 +1,10 @@
 """Model API: ``build_model(cfg, mode=..., device=..., qkv_plan=...)``
 returns a :class:`Model` whose methods close over the config, the mode, the
-device and the rung of the QKV ladder."""
+device and the rung of the QKV ladder, and dispatch on ``cfg.family`` as
+the reference's ``_build_model`` does: the decoder-only LM ('lm'), the
+encoder-decoder ('encdec': ``forward``, ``prefill`` and ``init_cache`` take
+a batch dict with ``encoder_embeds``) and the encoder ('encoder':
+``forward`` only)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,11 +12,31 @@ import dataclasses
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, dtype_of, resolve_device
+from . import encdec as _ed
+from . import encoder as _enc
 from . import lm as _lm
 from .attention import QKV_PLANS
 from .common import cast_params, init_params
 
 MODES = ("kernel", "reference")
+FAMILIES = ("lm", "encdec", "encoder")
+_PARAM_DEFS = {"lm": _lm.lm_param_defs, "encdec": _ed.encdec_param_defs,
+               "encoder": _enc.encoder_param_defs}
+
+
+def _refuse(what: str, family: str):
+    if family == "encoder" and what in ("init_cache", "prefill",
+                                        "decode_step"):
+        # the reference's message (its encoder-only archs skip decode)
+        raise NotImplementedError("encoder-only archs have no decode step")
+    if what == "loss":
+        raise NotImplementedError(
+            f"the {family!r} family's loss is not ported: its training needs "
+            "the GEMM backward's layernorm transpose with dbeta, gelu' and "
+            "the non-gated chains' saved preacts (ROADMAP Queue A item 5)")
+    raise NotImplementedError(
+        f"{what}: the {family!r} family has no paged path (the reference's "
+        "PagedEngine serves decoder-only LMs; ROADMAP Queue A item 8)")
 
 
 @dataclasses.dataclass
@@ -31,42 +55,78 @@ class Model:
         params = init_params(self.defs, gen, self.device)
         return cast_params(params, dtype_of(dtype or self.cfg.compute_dtype))
 
-    def forward(self, params, tokens):
-        return _lm.lm_forward(self.cfg, params, tokens, mode=self.mode,
+    @property
+    def family(self) -> str:
+        return self.cfg.family
+
+    def _lm_only(self, what: str) -> None:
+        if self.family != "lm":
+            _refuse(what, self.family)
+
+    def forward(self, params, batch):
+        """logits (B, S, V) fp32. lm: ``batch`` is the (B, S) tokens;
+        encdec: {"encoder_embeds", "inputs"}; encoder: {"inputs"} or the
+        tokens."""
+        if self.family == "encdec":
+            return _ed.encdec_forward(self.cfg, params, batch, mode=self.mode,
+                                      qkv_plan=self.qkv_plan)
+        if self.family == "encoder":
+            return _enc.encoder_forward(self.cfg, params, batch,
+                                        mode=self.mode,
+                                        qkv_plan=self.qkv_plan)
+        return _lm.lm_forward(self.cfg, params, batch, mode=self.mode,
                               qkv_plan=self.qkv_plan)
 
     def loss(self, params, batch):
         """(loss, metrics) of a batch {"inputs", "targets", "loss_mask"},
         the blocks recomputed in the backward per ``cfg.remat_policy``."""
+        self._lm_only("loss")
         return _lm.lm_loss(self.cfg, params, batch, mode=self.mode,
                            qkv_plan=self.qkv_plan)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        if self.family == "encdec":
+            return _ed.encdec_init_cache(self.cfg, batch, max_len,
+                                         self.device)
+        self._lm_only("init_cache")
         return _lm.lm_init_cache(self.cfg, batch, max_len, self.device)
 
-    def prefill(self, params, tokens, cache):
-        return _lm.lm_prefill(self.cfg, params, tokens, cache, mode=self.mode,
+    def prefill(self, params, batch, cache):
+        """lm: ``batch`` is the (B, S) prompt tokens; encdec:
+        {"encoder_embeds", "inputs"}. Fills ``cache`` in place."""
+        if self.family == "encdec":
+            return _ed.encdec_prefill(self.cfg, params, batch, cache,
+                                      mode=self.mode, qkv_plan=self.qkv_plan)
+        self._lm_only("prefill")
+        return _lm.lm_prefill(self.cfg, params, batch, cache, mode=self.mode,
                               qkv_plan=self.qkv_plan)
 
     def decode_step(self, params, token, cache, pos):
         """pos: a Python int or a one-element int64 tensor on the device."""
+        if self.family == "encdec":
+            return _ed.encdec_decode_step(self.cfg, params, token, cache, pos,
+                                          mode=self.mode)
+        self._lm_only("decode_step")
         return _lm.lm_decode_step(self.cfg, params, token, cache, pos,
                                   mode=self.mode)
 
     # paged decode surface: a shared page pool, per-sequence page tables
     def init_paged_cache(self, batch_slots: int, n_pages: int,
                          page_size: int) -> dict:
+        self._lm_only("init_paged_cache")
         return _lm.lm_init_paged_cache(self.cfg, batch_slots, n_pages,
                                        page_size, self.device)
 
     def prefill_paged(self, params, tokens, cache, page_rows, slot: int,
                       true_len: int):
+        self._lm_only("prefill_paged")
         return _lm.lm_prefill_paged(self.cfg, params, tokens, cache,
                                     page_rows, slot, true_len, mode=self.mode,
                                     qkv_plan=self.qkv_plan)
 
     def prefill_paged_chunk(self, params, tokens, cache, page_rows,
                             start: int, last_index: int):
+        self._lm_only("prefill_paged_chunk")
         return _lm.lm_prefill_paged_chunk(self.cfg, params, tokens, cache,
                                           page_rows, start, last_index,
                                           mode=self.mode,
@@ -74,6 +134,7 @@ class Model:
 
     def decode_step_paged(self, params, token, cache, page_table, lengths):
         """token (B, T): T > 1 is the speculative verify step."""
+        self._lm_only("decode_step_paged")
         return _lm.lm_decode_step_paged(self.cfg, params, token, cache,
                                         page_table, lengths, mode=self.mode)
 
@@ -93,6 +154,9 @@ def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE,
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
     if qkv_plan not in QKV_PLANS:
         raise ValueError(f"unknown qkv_plan {qkv_plan!r}; have {QKV_PLANS}")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}; the "
+                                  f"port runs {FAMILIES}")
     dev = resolve_device(device)
-    return Model(cfg=cfg, mode=mode, device=dev, defs=_lm.lm_param_defs(cfg),
-                 qkv_plan=qkv_plan)
+    return Model(cfg=cfg, mode=mode, device=dev,
+                 defs=_PARAM_DEFS[cfg.family](cfg), qkv_plan=qkv_plan)

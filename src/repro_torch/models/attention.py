@@ -13,14 +13,18 @@ reference):
 3. ``unfused``: the standalone norm, plain projections and the standalone
    RoPE op.
 
-A RoPE style other than 'half', or a head_dim whose heads the store's
-tiles cannot hold whole (``rope_store_fits``), cannot ride the store, so
-rung 1 sends it down rung 2, as the reference does. Prefill attention is
-the flash kernel.
+A RoPE style other than 'half', a head_dim whose heads the store's tiles
+cannot hold whole (``rope_store_fits``), or a rope-free block
+(``use_rope=False``: the encoder's and the enc-dec's) cannot ride the
+store, so rung 1 sends it down rung 2, as the reference does. Prefill
+attention is the flash kernel, causal or not; cross-attention
+(``kv_input``) keeps the standalone norm and plain projections, as in the
+reference.
 Decode projects q/k/v with plain products and rotates them with the plain
 RoPE (as the reference does), appends to the contiguous (ring) cache or to
 the paged pool in place and runs the split-KV decode kernel (contiguous or
-paged). 'reference' mode is the plain unfused path of the reference
+paged); a cross-attention step reads a static cache whose every slot is
+valid. 'reference' mode is the plain unfused path of the reference
 package.
 """
 from __future__ import annotations
@@ -42,8 +46,10 @@ QKV_PLANS = ("rope_fused", "norm_fused", "unfused")
 ROPE_KERNEL_MIN_SEQ = 128
 
 
-def attn_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
-    """q and k projections are one pre-packed ``wqk`` (d, (H+Hkv)*hd)."""
+def attn_defs(cfg, prefix: str, *, stack: int | None = None,
+              cross: bool = False) -> dict:
+    """q and k projections are one pre-packed ``wqk`` (d, (H+Hkv)*hd); a
+    cross-attention block (``cross``) has no q|k/v bias."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = (stack,) if stack else ()
     dt = cfg.param_dtype
@@ -52,7 +58,7 @@ def attn_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
         f"{prefix}/wv": ParamDef(lead + (d, hkv * hd), dtype=dt),
         f"{prefix}/wo": ParamDef(lead + (h * hd, d), dtype=dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs[f"{prefix}/bqk"] = ParamDef(lead + ((h + hkv) * hd,),
                                          init="zeros", dtype=dt)
         defs[f"{prefix}/bv"] = ParamDef(lead + (hkv * hd,), init="zeros",
@@ -93,12 +99,19 @@ def _apply_rope(cfg, q, k, positions, mode: str):
     return rot_fn(q), rot_fn(k)
 
 
-def project_qkv(cfg, p, x):
-    """Plain projections over the packed ``wqk``: q/k are column slices."""
+def project_qkv(cfg, p, x, kv_input=None):
+    """Plain projections over the packed ``wqk``: q/k are column slices.
+    With ``kv_input`` (cross-attention) q projects ``x`` and k/v project
+    ``kv_input``."""
     nq = cfg.num_heads * cfg.head_dim
-    qk = x @ p["wqk"]
-    q, k = qk[..., :nq], qk[..., nq:]
-    v = x @ p["wv"]
+    if kv_input is None:
+        qk = x @ p["wqk"]
+        q, k = qk[..., :nq], qk[..., nq:]
+        v = x @ p["wv"]
+    else:
+        q = x @ p["wqk"][..., :nq]
+        k = kv_input @ p["wqk"][..., nq:]
+        v = kv_input @ p["wv"]
     if "bqk" in p:
         q = q + p["bqk"][..., :nq]
         k = k + p["bqk"][..., nq:]
@@ -117,15 +130,18 @@ def _heads_of_gemms(cfg, qk, v, b, s):
             _split_heads(v.reshape(b, s, hkv * hd), hkv, hd))
 
 
-def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None):
+def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None,
+                           use_rope: bool = True):
     """Rung 1: q|k through one GEMM whose prologue is the block's pre-norm
     and whose store rotates q and k (RoPE 'half'); v through a second GEMM
     with the same prologue. Returns (B, H|Hkv, S, hd) views of the GEMM
-    outputs. Another RoPE style, or a head_dim the store cannot rotate,
-    goes down rung 2."""
-    if cfg.rope_style != "half" or not rope_store_fits(cfg.head_dim):
+    outputs. Another RoPE style, a head_dim the store cannot rotate, or a
+    rope-free block goes down rung 2."""
+    if (not use_rope or cfg.rope_style != "half"
+            or not rope_store_fits(cfg.head_dim)):
         return project_qkv_heads(cfg, p, x, positions, mode="kernel",
-                                 prenorm=prenorm, qkv_plan="norm_fused")
+                                 prenorm=prenorm, qkv_plan="norm_fused",
+                                 use_rope=use_rope)
     b, s, d = x.shape
     hd = cfg.head_dim
     has_bias = "bqk" in p
@@ -158,41 +174,57 @@ def fused_project_qkv(cfg, p, x, prenorm):
     return _heads_of_gemms(cfg, qk, v, b, s)
 
 
-def project_qkv_heads(cfg, p, x, positions, *, mode: str, prenorm=None,
-                      qkv_plan: str = "rope_fused"):
-    """Rotated (q, k, v) heads from the pre-norm stream ``x`` (B, S, D),
-    through rung ``qkv_plan`` of the ladder in 'kernel' mode. Rung 2 folds
-    the norm into its GEMMs only when there is one (``prenorm``), as in the
-    reference; without it the rung is rung 3."""
+def project_qkv_heads(cfg, p, x, positions=None, *, mode: str, prenorm=None,
+                      qkv_plan: str = "rope_fused", use_rope: bool = True):
+    """(q, k, v) heads from the pre-norm stream ``x`` (B, S, D), rotated
+    unless ``use_rope`` is False, through rung ``qkv_plan`` of the ladder in
+    'kernel' mode. Rung 2 folds the norm into its GEMMs only when there is
+    one (``prenorm``), as in the reference; without it the rung is rung
+    3."""
+    if use_rope and positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
     if mode == "kernel" and qkv_plan == "rope_fused":
-        return fused_project_qkv_rope(cfg, p, x, positions, prenorm=prenorm)
+        return fused_project_qkv_rope(cfg, p, x, positions, prenorm=prenorm,
+                                      use_rope=use_rope)
     if mode == "kernel" and qkv_plan == "norm_fused" and prenorm is not None:
         q, k, v = fused_project_qkv(cfg, p, x, prenorm)
     else:
         if prenorm is not None:
             x = apply_prenorm(cfg, x, prenorm)
         q, k, v = project_qkv(cfg, p, x)
-    q, k = _apply_rope(cfg, q, k, positions, mode)
+    if use_rope:
+        q, k = _apply_rope(cfg, q, k, positions, mode)
     return q, k, v
 
 
-def attend(cfg, q, k, v, *, window, mode: str):
-    """Causal full-sequence attention: the flash kernel or the oracle."""
+def attend(cfg, q, k, v, *, window, mode: str, causal: bool = True):
+    """Full-sequence attention, causal or not (the encoder, cross
+    attention): the flash kernel or the oracle."""
     softcap = cfg.attn_logit_softcap
     if mode == "kernel":
-        return attention(q, k, v, causal=True, window=window, softcap=softcap)
-    return attention_ref(q, k, v, causal=True, window=window, softcap=softcap)
+        return attention(q, k, v, causal=causal, window=window,
+                         softcap=softcap)
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         softcap=softcap)
 
 
-def attention_layer(cfg, p, x, *, window: int | None = None, positions=None,
-                    mode: str = "reference", prenorm=None,
-                    qkv_plan: str = "rope_fused"):
-    """Full-sequence causal self-attention (train/prefill). x: (B, S, D)."""
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = project_qkv_heads(cfg, p, x, positions, mode=mode,
-                                prenorm=prenorm, qkv_plan=qkv_plan)
-    out = attend(cfg, q, k, v, window=window, mode=mode)
+def attention_layer(cfg, p, x, *, causal: bool = True,
+                    window: int | None = None, kv_input=None,
+                    positions=None, mode: str = "reference", prenorm=None,
+                    qkv_plan: str = "rope_fused", use_rope: bool = True):
+    """Full-sequence attention (train/prefill). x: (B, S, D). Self-attention
+    goes through the QKV ladder; cross-attention (``kv_input`` (B, S_kv,
+    D)) takes the standalone norm and the plain projections, as in the
+    reference."""
+    if kv_input is None:
+        q, k, v = project_qkv_heads(cfg, p, x, positions, mode=mode,
+                                    prenorm=prenorm, qkv_plan=qkv_plan,
+                                    use_rope=use_rope)
+    else:
+        if prenorm is not None:
+            x = apply_prenorm(cfg, x, prenorm)
+        q, k, v = project_qkv(cfg, p, x, kv_input)
+    out = attend(cfg, q, k, v, window=window, mode=mode, causal=causal)
     return _merge_heads(out) @ p["wo"]
 
 
@@ -228,32 +260,50 @@ def prefill_attn_cache(k_cache, v_cache, k, v) -> None:
 
 
 def decode_attention_layer(cfg, p, x, k_cache, v_cache, pos, *,
-                           window: int | None = None,
+                           window: int | None = None, cross: bool = False,
+                           update_cache: bool = True, use_rope: bool = True,
                            mode: str = "reference"):
     """One-token decode. x: (B, 1, D) (already normed); pos: the current
     position, a Python int or a one-element int64 tensor on x's device (a
     CUDA graph's static input: then the slot and the lengths are derived on
     the device). Appends this token's k/v to the layer's cache in place
-    (slot pos % slots) and attends over it. Returns (B, 1, D)."""
+    (slot pos % slots; not with ``update_cache=False``) and attends over
+    it. With ``cross`` q projects x through ``wqk``'s q columns and
+    attends over the static cross-attention cache, every one of its slots
+    valid; the cache is read only. Returns (B, 1, D)."""
     b = x.shape[0]
-    q, k_new, v_new = project_qkv(cfg, p, x)
-    if torch.is_tensor(pos):
-        positions = pos.reshape(1)
-    else:
-        positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    # decode rotates its one token with the plain RoPE, as the reference
-    q, k_new = _apply_rope(cfg, q, k_new, positions, "reference")
-    if torch.is_tensor(pos):
-        slot = torch.remainder(positions, k_cache.shape[2])
-        k_cache.index_copy_(2, slot, k_new.to(k_cache.dtype))
-        v_cache.index_copy_(2, slot, v_new.to(v_cache.dtype))
-        lengths = (positions + 1).to(torch.int32).expand(b).contiguous()
-    else:
-        slot = pos % k_cache.shape[2]
-        k_cache[:, :, slot] = k_new[:, :, 0]
-        v_cache[:, :, slot] = v_new[:, :, 0]
-        lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+    if cross:
+        nq = cfg.num_heads * cfg.head_dim
+        q = x @ p["wqk"][..., :nq]
+        if "bqk" in p:
+            q = q + p["bqk"][..., :nq]
+        q = _split_heads(q, cfg.num_heads, cfg.head_dim)
+        lengths = torch.full((b,), k_cache.shape[2], dtype=torch.int32,
                              device=x.device)
+        window = None
+    else:
+        q, k_new, v_new = project_qkv(cfg, p, x)
+        positions = pos.reshape(1) if torch.is_tensor(pos) else None
+        if use_rope:
+            if positions is None:
+                positions = torch.full((1,), pos, dtype=torch.int64,
+                                       device=x.device)
+            # decode rotates its one token with the plain RoPE, as the
+            # reference
+            q, k_new = _apply_rope(cfg, q, k_new, positions, "reference")
+        if torch.is_tensor(pos):
+            if update_cache:
+                slot = torch.remainder(positions, k_cache.shape[2])
+                k_cache.index_copy_(2, slot, k_new.to(k_cache.dtype))
+                v_cache.index_copy_(2, slot, v_new.to(v_cache.dtype))
+            lengths = (positions + 1).to(torch.int32).expand(b).contiguous()
+        else:
+            if update_cache:
+                slot = pos % k_cache.shape[2]
+                k_cache[:, :, slot] = k_new[:, :, 0]
+                v_cache[:, :, slot] = v_new[:, :, 0]
+            lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+                                 device=x.device)
     softcap = cfg.attn_logit_softcap
     if mode == "kernel":
         out = attention_decode(q, k_cache, v_cache, lengths, window=window,

@@ -139,8 +139,8 @@ def act_fn(name: str):
 
 
 def norm_prologue_kw(cfg, prenorm) -> dict:
-    """gemm_fused keyword arguments folding a block's pre-norm into the
-    GEMM prologue (the kernel takes rmsnorm)."""
+    """gemm_fused keyword arguments folding a block's pre-norm (rmsnorm, or
+    layernorm with its bias as the beta row) into the GEMM prologue."""
     scale, bias = prenorm
     kw = {"prologue": norm_prologue(cfg.norm, beta=bias is not None),
           "gamma": scale}
@@ -149,21 +149,33 @@ def norm_prologue_kw(cfg, prenorm) -> dict:
     return kw
 
 
+# Config activation name -> epilogue activation name, as the reference's:
+# an activation act_fn does not know must not fuse as something else.
+_EPILOGUE_ACT = {"swiglu": "silu", "silu": "silu",
+                 "geglu": "gelu", "gelu": "gelu"}
+
+
 def _mlp_fused(cfg, p, x, *, residual, residual_scale, prenorm):
     """The kernel-mode MLP: the block's pre-norm folds into the up GEMM's
-    prologue, the two gated up-projections run as one dual-output GEMM whose
-    store is silu(x @ w_gate) * (x @ w_in), and the down GEMM's store adds
-    the scaled residual."""
-    if cfg.mlp_act != "swiglu":
-        raise NotImplementedError(
-            f"kernel mode runs the swiglu MLP only, not {cfg.mlp_act!r}")
+    prologue; a gated MLP (swiglu, geglu) runs its two up-projections as one
+    dual-output GEMM whose store is act(x @ w_gate) * (x @ w_in), a plain
+    one (gelu) one GEMM whose store is act(x @ w_in); the down GEMM's store
+    adds the scaled residual."""
+    if cfg.mlp_act not in _EPILOGUE_ACT:
+        raise ValueError(cfg.mlp_act)
+    act = _EPILOGUE_ACT[cfg.mlp_act]
+    gated = cfg.mlp_act in ("swiglu", "geglu")
     *lead, d = x.shape
     tokens = math.prod(lead)
     kw = norm_prologue_kw(cfg, prenorm) if prenorm is not None else {}
     x2 = x.reshape(tokens, d)
-    h = gemm_fused(x2, p["w_gate"], b2=p["w_in"],
-                   epilogue=Epilogue(activation="silu", gate=True),
-                   out_dtype=x.dtype, **kw)
+    if gated:
+        h = gemm_fused(x2, p["w_gate"], b2=p["w_in"],
+                       epilogue=Epilogue(activation=act, gate=True),
+                       out_dtype=x.dtype, **kw)
+    else:
+        h = gemm_fused(x2, p["w_in"], epilogue=Epilogue(activation=act),
+                       out_dtype=x.dtype, **kw)
     if residual is None:
         y = gemm_fused(h, p["w_out"], out_dtype=x.dtype)
     else:
@@ -176,7 +188,8 @@ def _mlp_fused(cfg, p, x, *, residual, residual_scale, prenorm):
 
 def mlp_forward(cfg, p, x, *, mode: str = "reference", residual=None,
                 residual_scale: float = 1.0, prenorm=None):
-    """Gated (swiglu/geglu) or plain MLP over p = {w_in, w_gate, w_out}.
+    """Gated (swiglu/geglu) or plain (gelu) MLP over p = {w_in, w_gate,
+    w_out} (no w_gate for the plain one).
 
     With ``residual`` the result is ``residual + residual_scale * mlp(x)``;
     with ``prenorm`` (the block's norm params) ``x`` is the pre-norm stream

@@ -1,0 +1,212 @@
+"""Encoder-decoder transformer (the Whisper backbone; the conv frontend is a
+stub, as in the reference: the batch carries precomputed frame embeddings).
+
+Encoder: bidirectional self-attention blocks over (B, S_enc, D) embeddings
+with sinusoidal positions. Decoder: causal self-attention, cross-attention
+and MLP, learned positions. LayerNorm and GELU, the embedding tied to the
+head. Layer parameters are stacked (``enc/...``, ``dec/...``, the
+reference's scan layout); a Python loop over layers takes the place of
+``lax.scan``.
+
+Serving: the encoder runs once, in the prefill, which writes each layer's
+cross-attention k/v in place into the cache it is given (the ``cross``
+part, a (L, B, Hkv, S_enc, hd) stack) beside the decoder's self-attention
+ring (``self``); a decode step reads the cross part and never writes it.
+As in ``lm``, the full-sequence forward casts the parameters to the
+compute type, and the prefill and the decode step take them cast already
+(``Model.init``, ``params_from_numpy``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import dtype_of
+from .attention import (attend, attention_layer, attn_defs,
+                        decode_attention_layer, init_attn_cache,
+                        prefill_attn_cache, project_qkv, project_qkv_heads,
+                        _merge_heads)
+from .common import (ParamDef, apply_norm, cast_params, mlp_defs,
+                     mlp_forward, norm_defs, norm_params)
+from .lm import unstack_layers
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """(length, dim) fp32 table: sin of pos / 10000^(2 i / dim) in the first
+    half, cos in the second."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / torch.pow(torch.tensor(10000.0, device=device),
+                             2 * idx / dim)
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def encdec_param_defs(cfg) -> dict:
+    d, v, dt = cfg.d_model, cfg.vocab_size, cfg.param_dtype
+    defs = {"embed": ParamDef((v, d), dtype=dt),
+            "dec_pos": ParamDef((cfg.max_seq_len, d), scale=0.02, dtype=dt)}
+    enc = cfg.encoder_layers
+    defs.update(attn_defs(cfg, "enc/attn", stack=enc))
+    defs.update(mlp_defs(cfg, "enc/mlp", stack=enc))
+    defs.update(norm_defs(cfg, "enc/ln1", stack=enc))
+    defs.update(norm_defs(cfg, "enc/ln2", stack=enc))
+    defs.update(norm_defs(cfg, "enc_final_norm"))
+    dec = cfg.num_layers
+    defs.update(attn_defs(cfg, "dec/attn", stack=dec))
+    defs.update(attn_defs(cfg, "dec/xattn", stack=dec, cross=True))
+    defs.update(mlp_defs(cfg, "dec/mlp", stack=dec))
+    defs.update(norm_defs(cfg, "dec/ln1", stack=dec))
+    defs.update(norm_defs(cfg, "dec/lnx", stack=dec))
+    defs.update(norm_defs(cfg, "dec/ln2", stack=dec))
+    defs.update(norm_defs(cfg, "final_norm"))
+    return defs
+
+
+def encoder_block(cfg, p, h, *, mode: str, qkv_plan: str = "rope_fused"):
+    """One bidirectional block on the pre-norm stream: ln1 and ln2 ride into
+    the attention and MLP layers as ``prenorm`` (the kernel mode folds them
+    into the q|k, v and up GEMMs' prologues)."""
+    a = attention_layer(cfg, p["attn"], h, causal=False, mode=mode,
+                        use_rope=False, prenorm=norm_params(p, "ln1"),
+                        qkv_plan=qkv_plan)
+    h = h + a
+    return mlp_forward(cfg, p["mlp"], h, mode=mode, residual=h,
+                       prenorm=norm_params(p, "ln2"))
+
+
+def encode(cfg, params, enc_embeds, *, mode: str = "reference",
+           qkv_plan: str = "rope_fused"):
+    """enc_embeds: (B, S_enc, D) stub-frontend output -> (B, S_enc, D). The
+    sinusoidal table is added in the compute type, both addends cast first,
+    as the reference does."""
+    cd = dtype_of(cfg.compute_dtype)
+    s = enc_embeds.shape[1]
+    x = enc_embeds.to(cd) + sinusoidal_positions(
+        s, cfg.d_model, enc_embeds.device).to(cd)
+    for p in unstack_layers(params["enc"], cfg.encoder_layers):
+        x = encoder_block(cfg, p, x, mode=mode, qkv_plan=qkv_plan)
+    return apply_norm(cfg, x, params, "enc_final_norm")
+
+
+def _dec_block(cfg, p, x, enc_out, *, mode: str = "reference",
+               qkv_plan: str = "rope_fused"):
+    a = attention_layer(cfg, p["attn"], x, causal=True, mode=mode,
+                        use_rope=False, prenorm=norm_params(p, "ln1"),
+                        qkv_plan=qkv_plan)
+    x = x + a
+    c = attention_layer(cfg, p["xattn"], x, causal=False, kv_input=enc_out,
+                        mode=mode, use_rope=False,
+                        prenorm=norm_params(p, "lnx"))
+    x = x + c
+    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
+                       prenorm=norm_params(p, "ln2"))
+
+
+def _embed_tokens(cfg, params, tokens):
+    """Token embeddings plus the learned positions [0, S)."""
+    cd = dtype_of(cfg.compute_dtype)
+    return params["embed"][tokens].to(cd) + \
+        params["dec_pos"][:tokens.shape[1]].to(cd)
+
+
+def _logits(cfg, params, x):
+    x = apply_norm(cfg, x, params, "final_norm")
+    return x.float() @ params["embed"].T.float()
+
+
+def encdec_forward(cfg, params, batch, *, mode: str = "reference",
+                   qkv_plan: str = "rope_fused"):
+    """batch: {'encoder_embeds': (B, S_enc, D), 'inputs': (B, S)} -> logits
+    (B, S, V) fp32. (The reference also returns an auxiliary loss of 0.)"""
+    params = cast_params(params, dtype_of(cfg.compute_dtype))
+    enc_out = encode(cfg, params, batch["encoder_embeds"], mode=mode,
+                     qkv_plan=qkv_plan)
+    x = _embed_tokens(cfg, params, batch["inputs"])
+    for p in unstack_layers(params["dec"], cfg.num_layers):
+        x = _dec_block(cfg, p, x, enc_out, mode=mode, qkv_plan=qkv_plan)
+    return _logits(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the encoder runs once; the decoder's self k/v grow, the cross
+# k/v are static.
+# ---------------------------------------------------------------------------
+
+def encdec_init_cache(cfg, batch: int, max_len: int, device) -> dict:
+    """{"self": {"k", "v"} (L, B, Hkv, max_len, hd), "cross": {"k", "v"}
+    (L, B, Hkv, encoder_seq, hd)}, zeroed, in the compute type."""
+    dtype = dtype_of(cfg.compute_dtype)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.encoder_seq,
+             cfg.head_dim)
+    return {"self": init_attn_cache(cfg, batch, max_len, None, dtype, device,
+                                    layers=cfg.num_layers),
+            "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+def _layer_caches(cache, i: int) -> tuple:
+    """Layer ``i``'s (self k, self v, cross k, cross v): views, so in-place
+    writes land in the stacks."""
+    return (cache["self"]["k"][i], cache["self"]["v"][i],
+            cache["cross"]["k"][i], cache["cross"]["v"][i])
+
+
+def encdec_prefill(cfg, params, batch, cache, *, mode: str = "reference",
+                   qkv_plan: str = "rope_fused"):
+    """Encode ``batch['encoder_embeds']`` and prefill the decoder on
+    ``batch['inputs']`` (B, S). Fills ``cache`` in place: the self ring
+    and each layer's cross k/v, into which the projections of the encoder
+    output are written and from which the cross-attention reads them (one
+    contiguous copy of those strided views). Returns (cache, last-position
+    logits (B, V))."""
+    enc_out = encode(cfg, params, batch["encoder_embeds"], mode=mode,
+                     qkv_plan=qkv_plan)
+    if enc_out.shape[1] != cfg.encoder_seq:
+        raise ValueError(f"encoder_embeds hold {enc_out.shape[1]} frames; "
+                         f"the cache holds encoder_seq {cfg.encoder_seq}")
+    x = _embed_tokens(cfg, params, batch["inputs"])
+    for i, p in enumerate(unstack_layers(params["dec"], cfg.num_layers)):
+        k_self, v_self, k_cross, v_cross = _layer_caches(cache, i)
+        q, k, v = project_qkv_heads(cfg, p["attn"], x, mode=mode,
+                                    prenorm=norm_params(p, "ln1"),
+                                    qkv_plan=qkv_plan, use_rope=False)
+        o = attend(cfg, q, k, v, window=None, mode=mode, causal=True)
+        prefill_attn_cache(k_self, v_self, k, v)
+        x = x + _merge_heads(o) @ p["attn"]["wo"]
+        hn = apply_norm(cfg, x, p, "lnx")
+        qx, kx, vx = project_qkv(cfg, p["xattn"], hn, kv_input=enc_out)
+        k_cross.copy_(kx)
+        v_cross.copy_(vx)
+        ox = attend(cfg, qx, k_cross, v_cross, window=None, mode=mode,
+                    causal=False)
+        x = x + _merge_heads(ox) @ p["xattn"]["wo"]
+        x = mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
+                        prenorm=norm_params(p, "ln2"))
+    return cache, _logits(cfg, params, x[:, -1:, :])[:, 0]
+
+
+def encdec_decode_step(cfg, params, token, cache, pos, *,
+                       mode: str = "reference"):
+    """token: (B, 1); pos: the position being written, a Python int or a
+    one-element int64 tensor on the cache's device (what a captured step
+    reads: the learned position is then gathered with ``index_select``;
+    the same bits). Appends to the self ring in place and reads the cross
+    cache. Returns (cache, logits (B, V))."""
+    cd = dtype_of(cfg.compute_dtype)
+    if torch.is_tensor(pos):
+        row = params["dec_pos"].index_select(0, pos.reshape(1))
+    else:
+        row = params["dec_pos"][pos:pos + 1]
+    x = params["embed"][token].to(cd) + row.to(cd)
+    for i, p in enumerate(unstack_layers(params["dec"], cfg.num_layers)):
+        k_self, v_self, k_cross, v_cross = _layer_caches(cache, i)
+        hn = apply_norm(cfg, x, p, "ln1")
+        x = x + decode_attention_layer(cfg, p["attn"], hn, k_self, v_self,
+                                       pos, use_rope=False, mode=mode)
+        hn = apply_norm(cfg, x, p, "lnx")
+        x = x + decode_attention_layer(cfg, p["xattn"], hn, k_cross, v_cross,
+                                       pos, cross=True, update_cache=False,
+                                       use_rope=False, mode=mode)
+        x = mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
+                        prenorm=norm_params(p, "ln2"))
+    return cache, _logits(cfg, params, x)[:, 0]
+

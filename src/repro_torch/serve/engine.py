@@ -2,7 +2,8 @@
 over it, and the continuous-batching :class:`PagedEngine`.
 
 :class:`Engine` runs one prefill and then one decode step per new token for
-a fixed (batch, prompt_len) batch. :class:`RequestQueue` buckets requests by
+a fixed (batch, prompt_len) batch, of a decoder-only LM or, given the
+encoder's input in ``extra_batch``, of an encoder-decoder model. :class:`RequestQueue` buckets requests by
 padded prompt length and flushes full batches (a forced flush pads the last
 batch with copies of its last request, which are not counted or returned).
 :class:`PagedEngine` admits, decodes and retires requests one step at a time
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 import warnings
 from typing import Callable, Optional
@@ -114,8 +116,17 @@ class DecodeGraph:
         logits.record_stream(current)
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.logits = self.step(**self.buffers)
+        # torch.cuda.graph collects garbage before it begins; a collection
+        # during the capture would free earlier tensors that other streams
+        # used, whose event queries invalidate the capture
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.logits = self.step(**self.buffers)
+        finally:
+            if enabled:
+                gc.enable()
         after = kernels.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
@@ -131,7 +142,9 @@ class Engine:
     ("decode", batch) -> a :class:`DecodeGraph` that owns the batch's
     cache (reused across ``generate`` calls: the reference donates it) and
     its token and position buffers, the position an int64 tensor on the
-    device. ``lru_stats`` counts the LRU's hits, misses and evictions.
+    device. An encoder-decoder's cache is its whole {"self", "cross"}
+    pair: the prefill writes both parts in place, and the captured step
+    reads the cross part without writing it. ``lru_stats`` counts the LRU's hits, misses and evictions.
 
     ``timings`` keeps, per ``generate`` call, the wall-clock seconds of the
     prefill and of the decode loop (each ended by a device synchronise on
@@ -185,13 +198,32 @@ class Engine:
     @torch.inference_mode()
     def generate(self, prompts, max_new_tokens: int, *,
                  temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None
-                 ) -> GenerationResult:
-        """prompts: (B, S) token ids. Greedy (T = 0) or temperature sampling."""
+                 generator: Optional[torch.Generator] = None,
+                 extra_batch: Optional[dict] = None) -> GenerationResult:
+        """prompts: (B, S) token ids. Greedy (T = 0) or temperature sampling.
+        An encoder-decoder model's prefill receives ``dict(extra_batch,
+        inputs=prompts)``: ``extra_batch`` carries ``encoder_embeds`` (B,
+        encoder_seq, D); a decoder-only LM ignores it, as the reference's
+        engine does."""
         dev = self.model.device
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                   device=dev)
         b, s = prompts.shape
+        family = self.model.cfg.family
+        if family == "encdec":
+            if not extra_batch or "encoder_embeds" not in extra_batch:
+                raise ValueError(
+                    f"{self.model.cfg.name}: an encoder-decoder model needs "
+                    "extra_batch={'encoder_embeds': (B, encoder_seq, D)}")
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in extra_batch.items()}
+            batch["inputs"] = prompts
+        elif family == "lm":
+            batch = prompts
+        else:
+            raise NotImplementedError(
+                f"{self.model.cfg.name}: the {family!r} family has no decode "
+                "step to generate with")
         if s + max_new_tokens > self.max_len:
             raise ValueError(f"prompt {s} + {max_new_tokens} new tokens "
                              f"exceeds the cache length {self.max_len}")
@@ -200,7 +232,7 @@ class Engine:
         prefill = self._bucket(b, s)
         decode = self._decode_fn(b)
         t0 = time.perf_counter()
-        _, logits = prefill(self.params, prompts, decode.cache)
+        _, logits = prefill(self.params, batch, decode.cache)
         next_tok = self._sample(logits, temperature, generator)[:, None]
         self._sync()
         t1 = time.perf_counter()

@@ -137,8 +137,8 @@ def test_llama_ids_return_their_one_config(arch):
 
 
 def test_unregistered_arch_raises():
-    with pytest.raises(KeyError, match="bert-110m"):
-        get_config("bert-110m")     # the port has no encoder
+    with pytest.raises(KeyError, match="mixtral-8x7b"):
+        get_config("mixtral-8x7b")  # the port has no MoE
 
 
 # ---------------------------------------------------------------------------

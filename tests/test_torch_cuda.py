@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels against their plain versions, on the card,
 at small shapes that reach the edges the model's main path does not: ragged
 M, N and K tiles, a K that is no multiple of the K tile, head_dim 128,
-for the forward GEMM every tile width and split of its mainloop, its
+for the forward GEMM every tile width and split of its mainloop (the
+layernorm prologue with and without beta, silu, gelu and relu gated and
+not among its chains), whisper-base's and bert-110m's main-path shapes,
+layernorm rows with a large mean (which a one-pass variance would fail), its
 MN-major weight tiles bit for bit through a permutation matrix, the decode
 shapes (M 1-64 at K 8192) bitwise reproducible and row-independent,
 windows, soft caps, ring wrap-around, empty rows and a ragged last split;
@@ -52,7 +55,8 @@ from repro_torch.serve.kv_cache import gather_pages
 from repro_torch.kernels.gemm import (Epilogue, Prologue, gemm_bwd_da_ref,
                                       gemm_bwd_db_ref, gemm_bwd_g_ref,
                                       gemm_fused,
-                                      gemm_fused_bwd, gemm_fused_ref)
+                                      gemm_fused_bwd, gemm_fused_ref,
+                                      ln_rows_ref, rms_rows_ref)
 from repro_torch.kernels.gemm import backward as gemm_backward
 from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.gemm.ops import _forward as gemm_forward
@@ -93,8 +97,20 @@ GEMM_CHAINS = {
 }
 # the backward also takes a bias without rope (dbias from the plain g)
 BWD_CHAINS = dict(GEMM_CHAINS, bias=(dict(bias=True), False))
-# the forward also takes a rope head_dim under 16 (through its workspace)
-FWD_CHAINS = dict(GEMM_CHAINS, rope_8=(dict(rope=True, head_dim=8), True))
+# the forward also takes a rope head_dim under 16 (through its workspace),
+# the layernorm prologue ("ln", "ln_beta") and every activation, gated or
+# not, which its backward does not take yet
+FWD_CHAINS = dict(
+    GEMM_CHAINS, rope_8=(dict(rope=True, head_dim=8), True),
+    ln_beta=(dict(), "ln_beta"),
+    ln_beta_gelu=(dict(activation="gelu"), "ln_beta"),
+    ln_geglu=(dict(activation="gelu", gate=True), "ln"),
+    gelu=(dict(activation="gelu"), False),
+    relu=(dict(activation="relu"), False),
+    silu=(dict(activation="silu"), False),
+    relu_gate=(dict(activation="relu", gate=True), False),
+    bias_gelu_residual=(dict(bias=True, activation="gelu", residual=True),
+                        False))
 _ALL_CHAINS = dict(BWD_CHAINS, **FWD_CHAINS)
 
 
@@ -117,8 +133,12 @@ def _gemm_operands(dev, chain, m, k, n):
         kw["sin"] = torch.cat([ang.sin()] * 2, dim=1)
         kw["cos"] = torch.cat([ang.cos()] * 2, dim=1)
     if norm:
-        kw["prologue"] = Prologue(norm="rmsnorm")
+        ln = norm in ("ln", "ln_beta")
+        kw["prologue"] = Prologue(norm="layernorm" if ln else "rmsnorm",
+                                  beta=norm == "ln_beta")
         kw["gamma"] = (1 + 0.1 * _rand(rng, (k,), dev)).to(torch.bfloat16)
+        if norm == "ln_beta":
+            kw["beta"] = _rand(rng, (k,), dev, 0.5)
     a, b = _rand(rng, (m, k), dev), _rand(rng, (k, n), dev, k ** -0.5)
     return rng, a, b, kw
 
@@ -151,21 +171,44 @@ def _close_to_rounded_product(got, an, w):
         f"max err {err.max().item():.3g}"
 
 
-def _normed(a, kw, rstd):
+def _normed(a, kw, stats):
     """A as the kernel's product reads it: normalised with the kernel's row
-    statistics, x rstd gamma in fp32 rounded to bf16."""
+    statistics (rstd, or for layernorm mean and rstd), x rstd gamma or
+    ((x - mean) rstd) gamma [+ beta] in fp32 rounded to bf16."""
     if "gamma" not in kw:
         return a
-    return (a.float() * rstd[:, None] * kw["gamma"].float()).to(a.dtype)
+    x = a.float()
+    if kw["prologue"].norm == "layernorm":
+        x = x - stats[0][:, None]
+        stats = stats[1]
+    out = x * stats[:, None] * kw["gamma"].float()
+    if kw.get("beta") is not None:
+        out = out + kw["beta"].float()
+    return out.to(a.dtype)
+
+
+def _check_stats(a, kw, stats):
+    """The kernel's row statistics against the plain row pass's: rstd (and
+    the layernorm mean) within 1e-5 relative."""
+    pro = kw["prologue"]
+    if pro.norm == "layernorm":
+        _, mean, rstd = ln_rows_ref(a, kw["gamma"], kw.get("beta"), pro.eps)
+        assert stats.shape == (2, a.shape[0])
+        torch.testing.assert_close(stats[0], mean, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(stats[1], rstd, rtol=1e-5, atol=0)
+    else:
+        _, rstd = rms_rows_ref(a, kw["gamma"], pro.eps)
+        torch.testing.assert_close(stats, rstd, rtol=1e-5, atol=0)
 
 
 def _fwd_launch(a, b, kw, plan=None, save_preact=False):
-    """One launch of the forward kernel: (out, rstd, preacts)."""
+    """One launch of the forward kernel: (out, stats, preacts)."""
     ep = kw["epilogue"]
     pro = kw.get("prologue", Prologue())
     extra = {k: kw.get(k) for k in ("b2", "bias", "residual", "sin", "cos",
-                                    "gamma")}
+                                    "gamma", "beta")}
     return gemm_ops._launch(a, b, ep, scale=kw.get("scale"), eps=pro.eps,
+                            layernorm=pro.norm == "layernorm",
                             out_dtype=torch.bfloat16, save_preact=save_preact,
                             plan=plan, **extra)
 
@@ -194,9 +237,70 @@ def test_gemm_fused_every_plan(dev, chain, tile_n, splits):
     for p, w in zip(preacts, (b, kw.get("b2"))):
         _close_to_rounded_product(p, _normed(a, kw, rstd), w)
     if "gamma" in kw:
-        _, want_rstd = gemm_ops.rms_rows_ref(a, kw["gamma"],
-                                             kw["prologue"].eps)
-        torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+        _check_stats(a, kw, rstd)
+
+
+# whisper-base's and bert-110m's gemm_fused launches: (M, K, N, chain)
+ENCDEC_SHAPES = {
+    "whisper_enc_qk": (6000, 512, 1024, "ln_beta"),
+    "whisper_enc_v": (6000, 512, 512, "ln_beta"),
+    "whisper_enc_up_gelu": (6000, 512, 2048, "ln_beta_gelu"),
+    "whisper_enc_down": (6000, 2048, 512, "residual_scale"),
+    "whisper_decode_up_gelu": (4, 512, 2048, "ln_beta_gelu"),
+    "whisper_decode_down": (4, 2048, 512, "residual_scale"),
+    "whisper_geglu_up": (6000, 512, 2048, "ln_geglu"),
+    "bert_qk": (4096, 768, 1536, "ln_beta"),
+    "bert_up_gelu": (4096, 768, 3072, "ln_beta_gelu"),
+    "bert_down": (4096, 3072, 768, "residual_scale"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENCDEC_SHAPES))
+def test_gemm_fused_at_the_encoder_shapes(dev, case):
+    """The layernorm and gelu chains at the shapes whisper-base and bert run
+    (decode's M 4 split over K), against the plain version, the row
+    statistics too; two calls give the same bits."""
+    m, k, n, chain = ENCDEC_SHAPES[case]
+    _, a, b, kw = _gemm_operands(dev, chain, m, k, n)
+    gate = kw["epilogue"].gate
+    hd = kw["epilogue"].head_dim
+    if m <= gemm_ops.TILE_ROWS:
+        assert gemm_ops.plan_gemm(
+            m, n, k, gemm_ops.sm_count(dev), gate=gate, head_dim=hd,
+            act=kw["epilogue"].activation != "none")[1] > 1
+    out, stats, _ = _fwd_launch(a, b, kw)
+    again, _, _ = _fwd_launch(a, b, kw)
+    torch.cuda.synchronize()
+    _close(out, gemm_fused_ref(a, b, **kw), 2 ** -6, 2e-2)
+    assert torch.equal(out, again)
+    if "gamma" in kw:
+        _check_stats(a, kw, stats)
+
+
+@pytest.mark.parametrize("offset", [100.0, 1000.0])
+@pytest.mark.parametrize("beta", [False, True])
+def test_layernorm_rows_with_a_large_mean(dev, offset, beta):
+    """Rows of x + offset (spread 1): the kernel's mean and rstd within
+    1e-5 of the plain row pass and its output within the GEMM's tolerance;
+    a one-pass E[x^2] - mean^2 in fp32 on the same rows is further than
+    that from the plain rstd, so this would catch it."""
+    rng = np.random.default_rng(int(offset) + beta)
+    m, k, n = 256, 768, 512
+    a = (_rand(rng, (m, k), dev).float() + offset).to(torch.bfloat16)
+    b = _rand(rng, (k, n), dev, k ** -0.5)
+    kw = {"epilogue": Epilogue(activation="gelu"),
+          "prologue": Prologue(norm="layernorm", beta=beta),
+          "gamma": (1 + 0.1 * _rand(rng, (k,), dev)).to(torch.bfloat16)}
+    if beta:
+        kw["beta"] = _rand(rng, (k,), dev, 0.5)
+    out, stats, _ = _fwd_launch(a, b, kw)
+    torch.cuda.synchronize()
+    _check_stats(a, kw, stats)
+    _close(out, gemm_fused_ref(a, b, **kw), 2 ** -6, 2e-2)
+    x = a.float()
+    one_pass = torch.rsqrt((x * x).mean(-1) - x.mean(-1) ** 2 + 1e-5)
+    want = ln_rows_ref(a, kw["gamma"], kw.get("beta"), 1e-5)[2]
+    assert ((one_pass - want).abs() > 1e-5 * want).any()
 
 
 def _permutation(rng, k, n, dev):
@@ -736,6 +840,59 @@ def test_engine_decode_step_replays_bitwise_the_eager_step(dev, engine):
         assert torch.equal(replayed, want)
         for k in saved:
             assert torch.equal(after_replay[k], saved[k])
+
+
+def _nested_clone(cache):
+    return {part: _clone(t) for part, t in cache.items()}
+
+
+def test_whisper_engine_replays_bitwise_and_launches_exactly(dev):
+    """A small whisper (2 + 2 layers, head_dim 64, 100 encoder frames: a
+    ragged last key tile and split) served through Engine.generate with
+    the encoder's input in extra_batch: the prefill launches 4 gemm_fused
+    and 1 flash forward per encoder layer and 4 gemm_fused and 2 flash
+    forwards per decoder layer, a step 2 gemm_fused and 2 flash_decode per
+    decoder layer; a replayed step gives the eager step's logits and self
+    cache bit for bit and leaves the cross cache as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(get_config("whisper-base", smoke=True),
+                              d_model=256, num_heads=4, num_kv_heads=4,
+                              head_dim=64, d_ff=512, encoder_seq=100)
+    model = build_model(cfg, mode="kernel", device=dev)
+    params = model.init(seed=3)
+    rng = np.random.default_rng(16)
+    emb = torch.from_numpy(rng.standard_normal((2, 100, 256)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    eng = Engine(model, params, max_len=64)
+    prompts = rng.integers(0, 512, (2, 20))
+    with torch.inference_mode():
+        eng.generate(prompts, 6, extra_batch={"encoder_embeds": emb})
+        kernels.reset_launch_counts()
+        eng.generate(prompts, 6, extra_batch={"encoder_embeds": emb})
+        counts = kernels.launch_counts()
+        enc, dec, steps = cfg.encoder_layers, cfg.num_layers, 5
+        assert counts["gemm_fused"] == 4 * enc + 4 * dec + 2 * dec * steps
+        assert counts["flash_attention_fwd"] == enc + 2 * dec
+        assert counts["flash_decode"] == 2 * dec * steps
+        entry = eng._buckets[("decode", 2)]
+        assert entry.graph is not None
+        token = torch.tensor([[5], [7]], device=dev)
+        saved = _nested_clone(entry.cache)
+        kernels.reset_launch_counts()
+        replayed = entry(token=token, pos=25).clone()
+        torch.cuda.synchronize()
+        replay_counts = kernels.launch_counts()
+        after = _nested_clone(entry.cache)
+        kernels.reset_launch_counts()
+        want = model.decode_step(params, token, saved, 25)[1]
+        torch.cuda.synchronize()
+    assert kernels.launch_counts() == replay_counts
+    assert torch.equal(replayed, want)
+    for part in ("self", "cross"):
+        for k in ("k", "v"):
+            assert torch.equal(after[part][k], saved[part][k])
 
 
 # ---------------------------------------------------------------------------

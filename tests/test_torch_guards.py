@@ -83,6 +83,19 @@ def test_cuda_without_a_card_raises():
         build_model(cfg)          # the default device is the card
 
 
+@pytest.mark.parametrize("arch", ["whisper-base", "bert-110m"])
+def test_encoder_families_default_to_the_card(arch):
+    """The encoder-decoder and the encoder are built on the card unless the
+    caller asks for the CPU: without a card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    cfg = get_config(arch, smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg, mode="reference", device="cuda")
+
+
 def test_launcher_default_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
