@@ -35,8 +35,17 @@ Phases, each of which raises on failure (exit code non-zero):
    of the four fused GEMMs of a layer as its operand pass, dA (the GEMM
    and the norm row pass also timed apart) and dB, each tile width of the
    mainloop timed too, and the whole backward against the library's two
-   products; the flash backward whole, its main kernel and its dq
-   conversion timed apart; the standalone
+   products; the same for the training GEMMs of phases 9c and 9d (bert at
+   M 4096 K 768, whisper's encoder at M 6000 K 512 and decoder at M 1792:
+   q|k and v on the layernorm + beta prologue, the gelu up projection from
+   its saved preact, the down projection's residual; a relu and a geglu
+   chain at bert's shape), the layernorm row pass against its own bytes
+   bound; the gelu up projections' forward also saving their preact as
+   the training forward does; the flash backward whole, its main kernel
+   and its dq conversion timed apart, at llama's training shape, bert's
+   non-causal 8 x 512, whisper's encoder over 1500 frames, its decoder's
+   causal 4 x 448 and its cross attention of 448 queries over 1500 frames;
+   the standalone
    RoPE on prefill and training q/k, strided views of the q|k GEMM output,
    and its backward; the fused dropout + residual + layernorm at the
    memory-bound bench's shapes, rows 2048-8192 by d 2048, p 0.1, seed 7),
@@ -67,8 +76,10 @@ Phases, each of which raises on failure (exit code non-zero):
    ``flash_decode_paged.cu``, PR 18 and before, with their
    ``decode_split.cuh``; its ``rope.cu`` and ``fused_norm.cu``, whose
    entry points are this tree's), the earlier forward is timed in turns
-   with this one at every forward shape whose chain it takes, the earlier dA + dB with this
-   one's, the earlier flash forward with this one at its three shapes, the
+   with this one at every forward shape whose chain it takes (a forward
+   whose entry point is this tree's at every shape, saving no non-gated
+   preact), the earlier dA + dB with this one's (a dA without
+   the layernorm pass on the llama chains), the earlier flash forward with this one at its three shapes, the
    earlier flash backward with this one, the earlier decode kernels, each
    with the plain ``combine_splits`` after it, with these at their four
    shapes, and the earlier RoPE and fused norm kernels with these at every
@@ -159,7 +170,18 @@ Phases, each of which raises on failure (exit code non-zero):
    unchanged); teacher-forced logits under phase 4's bound. Prints the
    encode + prefill seconds and the decode tokens/s. (b) bert-110m whole
    (12 layers), its forward on 8 x 512 tokens: launches exact, logits
-   under the same bound, tokens/s.
+   under the same bound, tokens/s. (c) bert-110m whole trained through
+   ``train_loop`` on 8 x 512 tokens a step, 15% of the positions masked to
+   id 0 and the loss on those, and (d) whisper-base whole on 4 x 448
+   target tokens over seeded ``encoder_embeds`` (4, 1500, 512); weights
+   at a trained model's scale; each: one batch's per-leaf grads in kernel
+   mode within 2x the plain bf16 path's distance from fp32 + 1e-3, 6 steps
+   in each mode with every loss finite and the kernel curve within 2.5x
+   the plain bf16 curve's distance from fp32 + 0.05, launches exact (per
+   layer and step 8 ``gemm_fused``, 4 operand passes, 4 dA, 4 dB, and per
+   attention 2 flash forwards and the flash backward's 2 launches; a
+   whisper decoder layer has two attentions, its cross projections plain
+   products), tokens/s, peak memory and one traced step's busy share.
 10. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -171,6 +193,7 @@ import argparse
 import ctypes
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import statistics
@@ -225,6 +248,10 @@ MAX_LEN = PROMPT + NEW_TOKENS + 8          # as the serving launcher sizes it
 W_BATCH, W_PROMPT, W_NEW = 4, 64, 32
 W_MAX_LEN = W_PROMPT + W_NEW + 8
 B_BATCH, B_SEQ = 8, 512
+# phases 9c, 9d: bert-110m trained on B_BATCH x B_SEQ tokens, 15% of them
+# masked; whisper-base on W_TRAIN_BATCH x W_TRAIN_SEQ target tokens over
+# 1500 frames; steps of each
+W_TRAIN_BATCH, W_TRAIN_SEQ, ENC_TRAIN_STEPS, MLM_MASK = 4, 448, 6, 0.15
 # the paged slice: PagedEngine geometry and the chunk of phase 5b
 SLOTS, PAGE, MAX_PAGES, CHUNK = 8, 64, 8, 128
 # the training slice: batch x sequence a step, steps, peak learning rate
@@ -265,8 +292,9 @@ MAIN_PATH_PHASES = ("4", "5a", "5b", "6b", "7a", "7b", "7c", "7d")
 DENSE = (("granite-8b", 36), ("chatglm3-6b", 4), ("minicpm-2b", 4),
          ("qwen2-72b", 4))
 DENSE_PHASES = tuple(f"8{p} {arch}" for arch, _ in DENSE for p in "ab")
-# phase 9: whisper-base served (a), bert-110m's forward (b)
-ENCODER_PHASES = ("9a", "9b")
+# phase 9: whisper-base served (a), bert-110m's forward (b), bert-110m (c)
+# and whisper-base (d) trained
+ENCODER_PHASES = ("9a", "9b", "9c", "9d")
 
 
 def log(msg: str) -> None:
@@ -453,9 +481,15 @@ ENCODER_GEMMS = {
 }
 
 
+# the training forward's launches that save their non-gated preact (phases
+# 9c, 9d), timed again with the save
+ENCODER_SAVES = ("whisper_enc_up_gelu", "bert_up_gelu")
+
+
 def encoder_gemm_cases(dev, gen):
     """ENCODER_GEMMS as (name, a, b, kwargs, save_preact): the weights at
-    std K^-1/2, gamma about 1, beta at std 0.5."""
+    std K^-1/2, gamma about 1, beta at std 0.5; then the ENCODER_SAVES
+    launches again, saving their preact as the autograd forward does."""
     bf16 = torch.bfloat16
 
     def rnd(*shape, std=1.0):
@@ -476,6 +510,8 @@ def encoder_gemm_cases(dev, gen):
         if ep_kw.get("residual"):
             kw.update(residual=rnd(m, n), scale=1.0)
         cases.append((name, rnd(m, k), rnd(k, n, std=k ** -0.5), kw, False))
+    cases += [(f"{name}_saved", a, b, kw, True)
+              for name, a, b, kw, _ in cases if name in ENCODER_SAVES]
     return cases
 
 
@@ -510,9 +546,13 @@ def baseline_kernels(csrc: str) -> dict:
     entry point has this tree's arity and arguments, the decode
     kernels ``flash_decode.cu`` and ``flash_decode_paged.cu`` whose entry
     points write fp32 partials (None otherwise), and ``rope.cu`` and
-    ``fused_norm.cu``, whose entry points are this tree's; and the TMA +
+    ``fused_norm.cu``, whose entry points are this tree's; the TMA +
     wgmma forward of PRs 16-21 (``fwd_sm90``: rmsnorm and the gated silu
-    only, no beta or mean, the gate bit without an activation code)."""
+    only, no beta or mean, the gate bit without an activation code); and
+    a forward whose entry point is this tree's (``fwd_same``; one that
+    saves no non-gated preact). A dA whose entry point takes no mean and
+    no dbeta partials is built with that entry point and runs the rmsnorm
+    and plain chains only (:func:`baseline_da`)."""
     from repro_torch.kernels._build import CudaKernel, build_all
 
     P, I, Fl, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -520,19 +560,25 @@ def baseline_kernels(csrc: str) -> dict:
     root = os.path.abspath(csrc)
     wmma_fwd = [P] * 12 + [Fl, Fl] + [I] * 5 + [P]
     sm90_fwd = [P] * 14 + [Fl, Fl] + [I] * 7 + [P]
+    # a dA without the layernorm pass: no mean, no dbeta partials
+    rms_da = [P] * 9 + [I] * 5 + [P]
+    da_path = os.path.join(root, "gemm_bwd_da.cu")
+    da_args = (rms_da if entry_arity(da_path, "gemm_bwd_da_launch")
+               == len(rms_da) else gemm_bwd.DA_KERNEL.argtypes)
     two_pass = [P] * 9 + [I] * 7 + [L] * 12 + [Fl, Fl, I, I, P]
     partials = [P] * 7 + [I] * 6 + [Fl, Fl, I, P]
     paged_partials = [P] * 8 + [I] * 7 + [Fl, Fl, I, P]
     kerns = {
-        "da": CudaKernel("baseline_gemm_bwd_da",
-                         os.path.join(root, "gemm_bwd_da.cu"),
-                         "gemm_bwd_da_launch", gemm_bwd.DA_KERNEL.argtypes),
+        "da": CudaKernel("baseline_gemm_bwd_da", da_path,
+                         "gemm_bwd_da_launch", da_args),
         "db": CudaKernel("baseline_gemm_bwd_db",
                          os.path.join(root, "gemm_bwd_db.cu"),
                          "gemm_bwd_db_launch", gemm_bwd.DB_KERNEL.argtypes)}
     for key, src, entry, args in (
             ("fwd", "gemm_fused.cu", "gemm_fused_launch", wmma_fwd),
             ("fwd_sm90", "gemm_fused.cu", "gemm_fused_launch", sm90_fwd),
+            ("fwd_same", "gemm_fused.cu", "gemm_fused_launch",
+             gemm_ops.KERNEL.argtypes),
             ("flash_bwd", "flash_bwd.cu", "flash_bwd_launch", two_pass),
             ("flash_fwd", "flash_fwd.cu", "flash_fwd_launch",
              attn_ops.KERNEL.argtypes),
@@ -548,7 +594,8 @@ def baseline_kernels(csrc: str) -> dict:
             kerns[key] = CudaKernel(f"baseline_{src[:-3]}", path, entry, args)
     log(f"[build] baseline from {root}: {sorted(kerns)}")
     build_all(list(kerns.values()))
-    return {"fwd": None, "fwd_sm90": None, "flash_bwd": None,
+    return {"fwd": None, "fwd_sm90": None, "fwd_same": None,
+            "flash_bwd": None,
             "flash_fwd": None,
             "flash_decode": None, "flash_decode_paged": None, "rope": None,
             "fused_norm": None, **kerns}
@@ -712,14 +759,27 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
                if "no_prologue_ms" in row else "")
             + (f"; on the rmsnorm prologue {row['rmsnorm_ms'] * 1e3:.1f} us"
                if ln else ""))
-        # the earlier kernels take rmsnorm and the gated silu only
-        earlier = old and (old["fwd"] or old["fwd_sm90"])
-        if earlier is not None and not ln and (
-                ep.activation == "none" or ep.gate
-                and ep.activation == "silu"):
-            old_fn = (baseline_fwd(earlier, a, b, kw, save)
-                      if old["fwd"] is not None
-                      else baseline_fwd_sm90(earlier, a, b, kw, save))
+        if save and not gated:
+            # the preact store's own cost: the same launch without it
+            row["no_save_ms"] = timer.ms(lambda: gemm_ops._launch(
+                a, b, ep, eps=pro.eps, layernorm=ln, **extra))
+        # the earlier kernels with their own entry points take rmsnorm and
+        # the gated silu only; one with this tree's entry point takes every
+        # chain (it may save no non-gated preact)
+        earlier = old and (old["fwd"] or old["fwd_sm90"] or old["fwd_same"])
+        if earlier is not None and (old["fwd_same"] is not None or (
+                not ln and (ep.activation == "none" or ep.gate
+                            and ep.activation == "silu"))):
+            if old["fwd_same"] is not None:
+                def old_fn():
+                    return gemm_ops._launch(
+                        a, b, ep, eps=pro.eps, layernorm=ln,
+                        save_preact=save and gated,
+                        kernel=old["fwd_same"], **extra)[0]
+            else:
+                old_fn = (baseline_fwd(earlier, a, b, kw, save)
+                          if old["fwd"] is not None
+                          else baseline_fwd_sm90(earlier, a, b, kw, save))
             # the baseline computes the same function
             check_close(f"baseline gemm_fused[{name}]", old_fn(), got,
                         2 ** -6, 2e-2)
@@ -730,7 +790,10 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
                        new_in_turns_ms=(turns[1] + turns[2]) / 2)
             log(f"[kernel] gemm_fused[{name}] baseline "
                 f"{row['baseline_ms'] * 1e3:.1f} us against "
-                f"{row['new_in_turns_ms'] * 1e3:.1f} in turns")
+                f"{row['new_in_turns_ms'] * 1e3:.1f} in turns"
+                + (f" (the baseline saves no preact; this kernel without "
+                   f"the save {row['no_save_ms'] * 1e3:.1f} us)"
+                   if "no_save_ms" in row else ""))
         rows.append(row)
         del got, rstd, preacts, b_lib
     return rows
@@ -1147,13 +1210,79 @@ def train_gemm_cases(cfg, dev, gen):
     return cases + [("qk", x, cases[0][2], dict(**rms))]
 
 
+# the training GEMMs of bert-110m (8 x 512 tokens) and whisper-base (the
+# encoder over 4 x 1500 frames, the decoder over 4 x 448 tokens), phases 9c
+# and 9d: name -> (M, K, N, layernorm + beta?, epilogue kwargs); a relu and
+# a geglu chain at bert's shape, which no path runs
+ENCODER_TRAIN_GEMMS = {
+    **{f"{model}_{name}": (m, *dims)
+       for model, m, d, f in (("bert", 4096, 768, 3072),
+                              ("whisper_enc", 6000, 512, 2048),
+                              ("whisper_dec", 1792, 512, 2048))
+       for name, dims in (("qk", (d, 2 * d, True, {})),
+                          ("v", (d, d, True, {})),
+                          ("up_gelu", (d, f, True, dict(activation="gelu"))),
+                          ("down", (f, d, False,
+                                    dict(residual=True, scale=True))))},
+    "bert_up_relu": (4096, 768, 3072, True, dict(activation="relu")),
+    "bert_up_geglu": (4096, 768, 3072, True,
+                      dict(activation="gelu", gate=True)),
+}
+
+
+def encoder_train_gemm_cases(dev, gen):
+    """ENCODER_TRAIN_GEMMS as (name, a, b, kwargs): the weights at std
+    K^-1/2, gamma about 1, beta at std 0.5."""
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    cases = []
+    for name, (m, k, n, ln, ep_kw) in ENCODER_TRAIN_GEMMS.items():
+        kw = {"epilogue": Epilogue(**ep_kw)}
+        if ln:
+            kw.update(prologue=Prologue(norm="layernorm", beta=True),
+                      gamma=(1 + 0.1 * torch.randn(
+                          k, generator=gen, device=dev)).to(bf16),
+                      beta=rnd(k, std=0.5))
+        if ep_kw.get("gate"):
+            kw["b2"] = rnd(k, n, std=k ** -0.5)
+        if ep_kw.get("residual"):
+            kw.update(residual=rnd(m, n), scale=1.0)
+        cases.append((name, rnd(m, k), rnd(k, n, std=k ** -0.5), kw))
+    return cases
+
+
+def baseline_da(kern, run):
+    """A launch of the earlier dA (its entry point takes no mean and no
+    dbeta partials; the rmsnorm and plain chains) on ``run``'s
+    operand-pass buffers, into its outputs, then the sum of its dgamma
+    partials, as ``run.da`` does; its launches are not counted."""
+    if kern.argtypes == gemm_bwd.DA_KERNEL.argtypes:
+        return lambda: run.da(kernel=kern)
+
+    def launch():
+        kern.check(kern.fn()(
+            run.gbar.data_ptr(), run.b, run.b2,
+            run.a if run.norm else None, run.gamma, run.rstd,
+            run._ptr(run.dan), run.da_out.data_ptr(),
+            run._ptr(run.dgamma_part), run.m, run.n, run.k, run.tile_da, 3,
+            torch.cuda.current_stream().cuda_stream))
+        return run._sum(run.dgamma_part)
+    return launch
+
+
 def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     """The GEMM backward of each training GEMM, from the forward's saved
-    rstd and preacts and a random cotangent, as its three launches: the
-    operand pass (``gemm_bwd_g``), dA (the GEMM, and the norm row pass
-    timed apart) and dB, each against its plain version. Bounds: the
-    operand pass by its bytes (g, preacts, tables, A, gamma, rstd read;
-    gbar, gbar_t, a_t written once); dA and dB by their own operands and
+    statistics and preacts and a random cotangent, as its three launches:
+    the operand pass (``gemm_bwd_g``), dA (the GEMM, and the norm row pass
+    timed apart, with its own bytes bound: dAn, A, the statistics and gamma
+    read, dA and the dgamma and dbeta partials written) and dB, each
+    against its plain version at the forward's statistics; at llama-1b's
+    training shapes and at ENCODER_TRAIN_GEMMS. Bounds: the
+    operand pass by its bytes (g, preacts, tables, A, gamma, beta and the
+    statistics read; gbar, gbar_t, a_t written once); dA and dB by their own operands and
     outputs, or 2 M N K operations per product at the bf16 peak. Library
     yardstick: torch.matmul of the bare product (g @ Bᵀ, Aᵀ @ g; the gated
     chain's two products as one concatenated one). Also the whole backward
@@ -1161,34 +1290,38 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     library's two products, bound by the chain's inputs and outputs or both
     products. With ``old`` (baseline_kernels), the earlier tree's dA + dB
     on the same operand-pass buffers, which must give this tree's bits, in
-    turns with this tree's dA + dB (baseline, new, new, baseline)."""
+    turns with this tree's dA + dB (baseline, new, new, baseline), on the
+    chains the baseline takes."""
     rows = {"gemm_bwd_g": [], "gemm_bwd_da": [], "gemm_bwd_db": []}
     whole = []
-    for name, a, b, kw in train_gemm_cases(cfg, dev, gen):
+    for name, a, b, kw in (train_gemm_cases(cfg, dev, gen)
+                           + encoder_train_gemm_cases(dev, gen)):
         ep = kw.get("epilogue", EPILOGUE_NONE)
         pro = kw.get("prologue", PROLOGUE_NONE)
         _, rstd, preacts = gemm_forward(
             a, b, ep, pro, b2=kw.get("b2"), bias=None,
             residual=kw.get("residual"), scale=kw.get("scale"),
             sin=kw.get("sin"), cos=kw.get("cos"), gamma=kw.get("gamma"),
-            out_dtype=torch.bfloat16, save_preact=ep.gate)
+            beta=kw.get("beta"), out_dtype=torch.bfloat16,
+            save_preact=gemm_ops.kernel_saves(ep) > 0)
         m, k = a.shape
         n = b.shape[1]
         g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
         ops = dict(epilogue=ep, prologue=pro, b2=kw.get("b2"), bias=None,
                    scale=kw.get("scale"), sin=kw.get("sin"), cos=kw.get("cos"),
-                   gamma=kw.get("gamma"), preacts=preacts)
+                   gamma=kw.get("gamma"), beta=kw.get("beta"), rstd=rstd,
+                   preacts=preacts)
         g_ops = {x: v for x, v in ops.items() if x != "b2"}
-        run = gemm_bwd.BwdLaunch(a, b, g, rstd=rstd, **ops)
+        run = gemm_bwd.BwdLaunch(a, b, g, **ops)
         norm = run.norm
 
         run.operand_pass()
-        da, dgamma = run.da()
+        da, dgamma, dbeta = run.da()
         db, db2 = run.db()
-        want_g = gemm_bwd.gemm_bwd_g_ref(a, g, rstd=rstd, **g_ops)
-        want_da, want_dgamma = gemm_bwd.gemm_bwd_da_ref(a, b, g, **ops)
-        want_db, want_db2, _ = gemm_bwd.gemm_bwd_db_ref(a, b, g, rstd=rstd,
-                                                        **ops)
+        want_g = gemm_bwd.gemm_bwd_g_ref(a, g, **g_ops)
+        want_da, want_dgamma, want_dbeta = gemm_bwd.gemm_bwd_da_ref(
+            a, b, g, **ops)
+        want_db, want_db2, _ = gemm_bwd.gemm_bwd_db_ref(a, b, g, **ops)
         torch.cuda.synchronize()
         # the operand pass: one bf16 rounding of the same fp32 value
         err_g, tol_g = check_close(f"gemm_bwd_g[{name}]", run.gbar,
@@ -1199,10 +1332,14 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
                                  "transpose, or a_t not the plain An^T")
         tol = 2 ** -6, 2e-2
         err_a, tol_s = check_close(f"gemm_bwd_da[{name}]", da, want_da, *tol)
-        if dgamma is not None:
-            err_gm, _ = check_close(f"gemm_bwd_da[{name}].dgamma", dgamma,
-                                    want_dgamma, 1e-3, 1e-3)
-            err_a = max(err_a, err_gm)
+        for part, got_p, want_p in (("dgamma", dgamma, want_dgamma),
+                                    ("dbeta", dbeta, want_dbeta)):
+            if (got_p is None) != (want_p is None):
+                raise AssertionError(f"gemm_bwd_da[{name}]: {part} missing")
+            if got_p is not None:
+                err_a = max(err_a, check_close(
+                    f"gemm_bwd_da[{name}].{part}", got_p, want_p, 1e-3,
+                    1e-3)[0])
         err_b, _ = check_close(f"gemm_bwd_db[{name}]", db, want_db, *tol)
         if db2 is not None:
             err_b = max(err_b, check_close(f"gemm_bwd_db[{name}].db2", db2,
@@ -1211,12 +1348,12 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
         gated = ep.gate
         flops = 2 * m * n * k * (2 if gated else 1)
         g_in = nbytes(g, *preacts, kw.get("sin"), kw.get("cos"))
-        a_in = nbytes(a, kw.get("gamma"), rstd)
+        a_in = nbytes(a, kw.get("gamma"), kw.get("beta"), rstd)
         n2 = run.gbar.shape[1]
         g_out = 2 * m * n2 * 2 + k * m * 2          # gbar, gbar_t, a_t
         da_in = nbytes(run.gbar, b, kw.get("b2")) + (a_in if norm else 0)
         db_in = 2 * (k * m + n2 * m)                 # a_t, gbar_t
-        out_da, out_db = nbytes(da, dgamma), nbytes(db, db2)
+        out_da, out_db = nbytes(da, dgamma, dbeta), nbytes(db, db2)
         g_lib = torch.cat([g, g], dim=1) if gated else g
         b_lib = torch.cat([b, kw["b2"]], dim=1) if gated else b
 
@@ -1230,15 +1367,15 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
             return lib_da(), lib_db()
 
         def new_whole():
-            return gemm_bwd.gemm_fused_bwd(a, b, g, rstd=rstd, **ops)
+            return gemm_bwd.gemm_fused_bwd(a, b, g, **ops)
 
         shape = [m, k, n]
         b_ms, b_by = bound(g_in + a_in + g_out)
         rows["gemm_bwd_g"].append(dict(
             case=name, shape=shape, max_abs_err=err_g, tolerance=tol_g,
             ms=timer.ms(run.operand_pass),
-            plain_ms=timer.ms(lambda: gemm_bwd.gemm_bwd_g_ref(
-                a, g, rstd=rstd, **g_ops)),
+            plain_ms=timer.ms(lambda: gemm_bwd.gemm_bwd_g_ref(a, g,
+                                                              **g_ops)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
         b_ms, b_by = bound(da_in + out_da, (flops, PEAK_BF16))
         da_row = dict(
@@ -1249,22 +1386,31 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
             library_ms=timer.ms(lib_da), bound_ms=b_ms, bound_by=b_by,
             gemm_ms=timer.ms(lambda: run.da(passes=1)))
         if norm:
+            # the row pass with the sums of its partials
             da_row["row_pass_ms"] = timer.ms(lambda: run.da(passes=2))
             da_row["row_pass_bound_ms"] = bound(
-                nbytes(run.dan, a, da, kw.get("gamma"), rstd, dgamma))[0]
+                nbytes(run.dan, a, da, kw.get("gamma"), rstd,
+                       run.dgamma_part, run.dbeta_part))[0]
+        if pro.norm == "layernorm":
+            # what layernorm's second row mean and dbeta cost: the rmsnorm
+            # pass on the same buffers (its rstd the layernorm's)
+            ln_mean, ln_dbeta = run.mean, run.dbeta_part
+            run.mean, run.dbeta_part = None, None
+            da_row["row_pass_rmsnorm_ms"] = timer.ms(
+                lambda: run.da(passes=2))
+            run.mean, run.dbeta_part = ln_mean, ln_dbeta
         rows["gemm_bwd_da"].append(da_row)
         b_ms, b_by = bound(db_in + out_db, (flops, PEAK_BF16))
         rows["gemm_bwd_db"].append(dict(
             case=name, shape=shape, max_abs_err=err_b, tolerance=tol_s,
             ms=timer.ms(run.db),
-            plain_ms=timer.ms(lambda: gemm_bwd.gemm_bwd_db_ref(
-                a, b, g, rstd=rstd, **ops)),
+            plain_ms=timer.ms(lambda: gemm_bwd.gemm_bwd_db_ref(a, b, g,
+                                                               **ops)),
             library_ms=timer.ms(lib_db), bound_ms=b_ms, bound_by=b_by))
         # each tile width of the mainloop, against the one picked
         by_width = {}
         for width in gemm_bwd.TILE_WIDTHS:
-            sweep = gemm_bwd.BwdLaunch(a, b, g, rstd=rstd, tile_n=width,
-                                       **ops)
+            sweep = gemm_bwd.BwdLaunch(a, b, g, tile_n=width, **ops)
             sweep.operand_pass()
             by_width[width] = (timer.ms(lambda: sweep.da(passes=1)),
                                timer.ms(sweep.db))
@@ -1280,13 +1426,15 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
                            + out_db, (2 * flops, PEAK_BF16))
         w = dict(case=name, shape=shape, ms=timer.ms(new_whole),
                  library_ms=timer.ms(lib_both), bound_ms=b_ms, bound_by=b_by)
-        if old is not None:
+        if old is not None and pro.norm != "layernorm":
+            old_da = baseline_da(old["da"], run)
+
             def new_both():
                 run.da()
                 run.db()
 
             def old_both():
-                run.da(kernel=old["da"])
+                old_da()
                 run.db(kernel=old["db"])
 
             new_both()
@@ -1308,14 +1456,18 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
             f"{w['ms'] * 1e3:.1f} us (operand pass "
             f"{rows['gemm_bwd_g'][-1]['ms'] * 1e3:.1f}, dA GEMM "
             f"{da_row['gemm_ms'] * 1e3:.1f}, row pass "
-            f"{da_row.get('row_pass_ms', 0.0) * 1e3:.1f}, dB "
+            f"{da_row.get('row_pass_ms', 0.0) * 1e3:.1f}"
+            + (f" (on rmsnorm {da_row['row_pass_rmsnorm_ms'] * 1e3:.1f}, "
+               f"bound {da_row['row_pass_bound_ms'] * 1e3:.2f})"
+               if "row_pass_rmsnorm_ms" in da_row else "")
+            + f", dB "
             f"{rows['gemm_bwd_db'][-1]['ms'] * 1e3:.1f}); library products "
             f"{w['library_ms'] * 1e3:.1f} us; bound "
             f"{w['bound_ms'] * 1e3:.2f} us ({w['bound_by']})"
             + (f"; baseline dA + dB {w['baseline_ms'] * 1e3:.1f} us against "
                f"{w['new_in_turns_ms'] * 1e3:.1f} in turns"
-               if old is not None else ""))
-        del run, preacts, g, g_lib, b_lib, da, db, db2
+               if "baseline_ms" in w else ""))
+        del run, preacts, g, g_lib, b_lib, da, db, db2, dgamma, dbeta
     return rows, whole
 
 
@@ -1346,13 +1498,30 @@ def baseline_flash_bwd(kern, args):
     return launch
 
 
+def flash_bwd_cases(cfg) -> dict:
+    """The flash backward's shapes: name -> (B, H, Hkv, Sq, Skv, causal):
+    llama-1b's training (phase 6b), bert-110m's (9c), whisper-base's
+    encoder over 1500 frames (a ragged last key tile), its decoder's causal
+    self attention and its cross attention of 448 queries over 1500 frames
+    (9d); head_dim 64."""
+    return {"train_causal_gqa": (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                                 TRAIN_SEQ, TRAIN_SEQ, True),
+            "bert": (B_BATCH, 12, 12, B_SEQ, B_SEQ, False),
+            "whisper_enc": (W_TRAIN_BATCH, 8, 8, 1500, 1500, False),
+            "whisper_dec": (W_TRAIN_BATCH, 8, 8, W_TRAIN_SEQ, W_TRAIN_SEQ,
+                            True),
+            "whisper_cross": (W_TRAIN_BATCH, 8, 8, W_TRAIN_SEQ, 1500, False)}
+
+
 def measure_flash_bwd(cfg, dev, gen, timer, old=None):
-    """The flash backward at the training shape (B 4, H 32, Hkv 8, S 1024,
-    d 64, causal), q and k as views of the packed q|k output and dO as the
-    strided cotangent autograd hands over, against the plain version. The
-    whole backward (``flash_attention_bwd`` as the model calls it: delta,
+    """The flash backward at each of :func:`flash_bwd_cases` (d 64), q and
+    k as views of the packed q|k output where the attention is a
+    self-attention (else projections of their own, as the cross
+    attention's plain products give them), dO as the strided cotangent
+    autograd hands over, against the plain version. The whole backward
+    (``flash_attention_bwd`` as the model calls it: delta,
     the zeroed dq workspace, the main kernel and the dq conversion) is
-    bound by the five products per causal (q, k) pair (s, dp, dv, dk, dq)
+    bound by the five products per visible (q, k) pair (s, dp, dv, dk, dq)
     or by q, k, v, dO, lse and delta read and dq, dk, dv written once; the
     main kernel (timed apart on prepared buffers) by the same products or
     its bytes with the fp32 workspace written once; the conversion by the
@@ -1362,23 +1531,41 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
     CUDA graph on the stream that ran the forward (autograd runs each
     backward op on its forward's stream) and replayed like every other
     call; its dq, dk, dv are held to the plain version first. With ``old``
-    (baseline_kernels), the earlier two-pass kernel, held to the plain
-    version, in turns with this one (baseline, new, new, baseline)."""
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    bsz, seq = TRAIN_BATCH, TRAIN_SEQ
+    (baseline_kernels), the earlier two-pass kernel at llama's training
+    shape, held to the plain version, in turns with this one (baseline,
+    new, new, baseline)."""
+    hd = cfg.head_dim
     bf16 = torch.bfloat16
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
-    qk = rnd(bsz, seq, (h + hkv) * hd)
-    q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
-    k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
-    v = rnd(bsz, seq, hkv * hd).reshape(bsz, seq, hkv, hd).transpose(1, 2)
-    do = rnd(bsz, seq, h, hd).transpose(1, 2)
-    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    rows = []
+    for case, (bsz, h, hkv, sq, skv, causal) in flash_bwd_cases(cfg).items():
+        if sq == skv:
+            qk = rnd(bsz, sq, (h + hkv) * hd)
+            q = qk[..., : h * hd].reshape(bsz, sq, h, hd).transpose(1, 2)
+            k = qk[..., h * hd:].reshape(bsz, sq, hkv, hd).transpose(1, 2)
+        else:
+            q = rnd(bsz, sq, h * hd).reshape(bsz, sq, h, hd).transpose(1, 2)
+            k = rnd(bsz, skv, hkv * hd).reshape(bsz, skv, hkv,
+                                                hd).transpose(1, 2)
+        v = rnd(bsz, skv, hkv * hd).reshape(bsz, skv, hkv, hd).transpose(1, 2)
+        do = rnd(bsz, sq, h, hd).transpose(1, 2)
+        rows.append(flash_bwd_row(case, q, k, v, do, causal, timer,
+                                  old if case == "train_causal_gqa"
+                                  else None))
+        del q, k, v, do
+    return rows
+
+
+def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
+    """One row of :func:`measure_flash_bwd`."""
+    bsz, h, seq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
     args = (q, k, v, out, lse, do)
-    opts = dict(causal=True, window=None, logit_scale=None, softcap=None)
+    opts = dict(causal=causal, window=None, logit_scale=None, softcap=None)
 
     def kernel():
         return attn_bwd._launch(*args, **opts)
@@ -1388,7 +1575,7 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
     lib_stream = torch.cuda.Stream()
     lib_stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(lib_stream):
-        ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+        ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal,
                                                  enable_gqa=True)
 
     def library():
@@ -1399,7 +1586,7 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
         lib = library()
     torch.cuda.current_stream().wait_stream(lib_stream)
     got = kernel()
-    want = flash_attention_bwd_ref(*args, causal=True)
+    want = flash_attention_bwd_ref(*args, causal=causal)
     old_fn = (None if old is None or old["flash_bwd"] is None
               else baseline_flash_bwd(old["flash_bwd"], args))
     old_got = None if old_fn is None else old_fn()
@@ -1408,8 +1595,8 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
     lib_err = {}
     for i, name in enumerate(("dq", "dk", "dv")):
         w_ = want[i]
-        e, tol = check_close(f"flash_attention_bwd[{name}]", got[i], w_,
-                             2e-2, 2e-2)
+        e, tol = check_close(f"flash_attention_bwd[{case}][{name}]", got[i],
+                             w_, 2e-2, 2e-2)
         err = max(err, e)
         if old_got is not None:   # the baseline computes the same function
             check_close(f"baseline flash_attention_bwd[{name}]", old_got[i],
@@ -1422,12 +1609,12 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
         # outside the kernel's tolerance are counted
         lf, wf = lib[i].float(), w_.float()
         if not torch.isfinite(lf).all():
-            raise AssertionError(f"sdpa backward[{name}]: non-finite")
+            raise AssertionError(f"sdpa backward[{case}][{name}]: non-finite")
         diff = lf - wf
         rel = (diff.norm() / wf.norm()).item()
         if rel > 1e-2:
-            raise AssertionError(f"sdpa backward[{name}]: {rel:.3g} of the "
-                                 "plain version's norm away")
+            raise AssertionError(f"sdpa backward[{case}][{name}]: {rel:.3g} "
+                                 "of the plain version's norm away")
         atol = 2e-2 * wf.pow(2).mean().sqrt().item()
         lib_err[name] = dict(
             relative_norm_err=rel, max_abs_err=diff.abs().max().item(),
@@ -1435,17 +1622,17 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
                 (diff.abs() > 2e-2 * wf.abs() + atol).sum()))
         del lf, wf, diff
     del got, want, lib, old_got
-    work = attn_bwd.backward_work(bsz, h, hkv, seq, seq, hd, causal=True)
+    work = attn_bwd.backward_work(bsz, h, hkv, seq, skv, hd, causal=causal)
     products = (work["flops"], PEAK_BF16)
     b_ms, b_by = bound(work["bytes"], products)
     main_ms, main_by = bound(work["main_bytes"], products)
     conv_ms, _ = bound(work["convert_bytes"])
     run = attn_bwd.FlashBwdLaunch(*args, **opts)
     row = dict(
-        case="train_causal_gqa", shape=[bsz, h, hkv, seq, hd],
+        case=case, shape=[bsz, h, hkv, seq, skv, hd], causal=causal,
         max_abs_err=err, tolerance=tol, ms=timer.ms(kernel),
         plain_ms=timer.ms(lambda: flash_attention_bwd_ref(*args,
-                                                          causal=True)),
+                                                          causal=causal)),
         library_ms=timer.ms(library, stream=lib_stream),
         library_vs_plain=lib_err, bound_ms=b_ms, bound_by=b_by,
         main=dict(replaces=["src/repro/kernels/attention/kernel_bwd.py:71",
@@ -1463,7 +1650,7 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
         row.update(baseline_turns_ms=turns,     # baseline, new, new, baseline
                    baseline_ms=(turns[0] + turns[3]) / 2,
                    new_in_turns_ms=(turns[1] + turns[2]) / 2)
-    log(f"[kernel] flash_attention_bwd[train] whole {row['ms'] * 1e3:.1f} us "
+    log(f"[kernel] flash_attention_bwd[{case}] whole {row['ms'] * 1e3:.1f} us "
         f"(bound {b_ms * 1e3:.2f}, {b_by}); main kernel "
         f"{row['main']['ms'] * 1e3:.1f} us (bound {main_ms * 1e3:.2f}, "
         f"{main_by}; {work['flops'] / row['main']['ms'] * 1e3 / PEAK_BF16:.1%}"
@@ -1474,8 +1661,8 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
         + (f"; baseline {row['baseline_ms'] * 1e3:.1f} us against "
            f"{row['new_in_turns_ms'] * 1e3:.1f} in turns"
            if old_fn is not None else ""))
-    del run
-    return [row]
+    del run, ref_out, qc, kc, vc, out, lse
+    return row
 
 
 def turns_in(row, timer, old_fn, kernel):
@@ -2498,6 +2685,176 @@ def run_bert(dev) -> dict:
             "logit_bound_use": worst, "argmax_agreement": agreement}
 
 
+# ---------------------------------------------------------------------------
+# Phases 9c, 9d: bert-110m and whisper-base trained
+# ---------------------------------------------------------------------------
+
+def mlm_batches(cfg, dev):
+    """bert's masked-LM batches: the LM pipeline's B_BATCH x B_SEQ tokens as
+    the targets, MLM_MASK of the positions masked to id 0 (the [MASK] id of
+    tests/test_models.py::test_bert_mlm_smoke) in the inputs, the loss on
+    those; batch i's mask drawn from a generator seeded with i."""
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=B_SEQ,
+                                   global_batch=B_BATCH), device=dev)
+    for step in itertools.count():
+        targets = next(data)["targets"]
+        gen = torch.Generator(device=dev).manual_seed(step)
+        mask = torch.rand(targets.shape, generator=gen,
+                          device=dev) < MLM_MASK
+        yield {"inputs": torch.where(mask, 0, targets), "targets": targets,
+               "loss_mask": mask.float()}
+
+
+def whisper_batches(cfg, dev):
+    """whisper's batches: the LM pipeline's W_TRAIN_BATCH x W_TRAIN_SEQ
+    decoder tokens over one seeded encoder_embeds (W_TRAIN_BATCH, 1500,
+    512), fp32 (the model casts them to its compute type)."""
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=W_TRAIN_SEQ,
+                                   global_batch=W_TRAIN_BATCH), device=dev)
+    emb = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (W_TRAIN_BATCH, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    while True:
+        yield dict(next(data), encoder_embeds=emb)
+
+
+def expected_encoder_train_launches(cfg, steps: int) -> dict:
+    """Per layer and step under remat_policy='full', as phase 6b's: 4
+    GEMMs (q|k, v, up, down) in the forward and again in the recompute,
+    each GEMM's backward as operand pass, dA and dB; per attention a flash
+    forward in each of the two passes and the flash backward's two
+    launches. An encoder layer has one attention, a decoder layer two (its
+    causal self attention and the cross attention, whose projections are
+    plain products)."""
+    layers = cfg.num_layers + cfg.encoder_layers
+    attn = (2 * cfg.num_layers + cfg.encoder_layers
+            if cfg.family == "encdec" else cfg.num_layers)
+    return {**no_launches(), "gemm_fused": 8 * layers * steps,
+            "flash_attention_fwd": 2 * attn * steps,
+            "gemm_bwd_g": 4 * layers * steps,
+            "gemm_bwd_da": 4 * layers * steps,
+            "gemm_bwd_db": 4 * layers * steps,
+            "flash_attention_bwd": 2 * attn * steps}
+
+
+def run_encoder_training(dev, phase: str, arch: str, batches, seq: int):
+    """Phase 9c (bert-110m) or 9d (whisper-base), whole, weights at a
+    trained model's scale (as 6a's). (1) One batch's per-leaf grads of
+    ``Model.loss`` in kernel mode, plain bf16 and fp32: every leaf's kernel
+    error against fp32 within 2x the plain bf16 error + 1e-3, launches
+    exact. (2) ENC_TRAIN_STEPS steps of ``train_loop`` in each mode
+    (cosine_schedule, 2 warm-up steps): every loss finite, launches exact,
+    the kernel curve within 2.5x the plain bf16 curve's distance from fp32
+    + 0.05. (3) tokens/s (the median step after the first), the peak
+    device memory and one traced step's device-busy share."""
+    cfg = get_config(arch)
+    tokens = next(batches(cfg, dev))["targets"].numel()
+
+    def weights(model):
+        return trained_scale(model, model.init(seed=0,
+                                                dtype=cfg.param_dtype))
+
+    def built(mode, dtype):
+        return build_model(dataclasses.replace(cfg, compute_dtype=dtype),
+                           mode=mode, device=dev)
+
+    batch = next(batches(cfg, dev))
+
+    def grads(mode, dtype):
+        model = built(mode, dtype)
+        params = tree_map(lambda t: t.requires_grad_(), weights(model))
+        kernels.reset_launch_counts()
+        loss, _, g = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        named = {path: x.float() for (path, _), x
+                 in zip(named_leaves(params), g)}
+        return float(loss), named, kernels.launch_counts()
+
+    k_loss, kern, counts = grads("kernel", "bfloat16")
+    want = expected_encoder_train_launches(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"[{phase}] launches {counts}; one step of "
+                             f"{arch} makes {want}")
+    p_loss, plain, _ = grads("reference", "bfloat16")
+    t_loss, truth, _ = grads("reference", "float32")
+    worst, per_leaf = 0.0, {}
+    for path, t_ in truth.items():
+        k_err = (kern[path] - t_).abs().max().item()
+        p_err = (plain[path] - t_).abs().max().item()
+        per_leaf[path] = {"kernel_err": k_err, "plain_err": p_err,
+                          "truth_max": t_.abs().max().item()}
+        if not k_err <= 2.0 * p_err + 1e-3:
+            raise AssertionError(f"[{phase}] {path}: kernel-mode grad "
+                                 f"{k_err:.4g} from fp32, plain bf16 "
+                                 f"{p_err:.4g}")
+        worst = max(worst, k_err / (2.0 * p_err + 1e-3))
+    del kern, plain, truth
+    log(f"[{phase}] {arch} whole, weights at std fan_in^-1/2, {tokens} "
+        f"tokens: loss kernel {k_loss:.5f}, plain bf16 {p_loss:.5f}, fp32 "
+        f"{t_loss:.5f}; every one of {len(per_leaf)} leaves' kernel-mode "
+        f"grad error within its bound (2 x plain bf16 error + 1e-3), at most "
+        f"{worst:.3f} of it; launches {counts}")
+
+    def curve(mode, dtype):
+        model = built(mode, dtype)
+        opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2,
+                                                   ENC_TRAIN_STEPS))
+        params = weights(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = train_loop(model, batches(cfg, dev), ENC_TRAIN_STEPS, opt,
+                         seed=0, params=params, log_every=0)
+        out = {"losses": res.losses, "step_seconds": res.step_seconds,
+               "launches": kernels.launch_counts(),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del res, params, model
+        torch.cuda.empty_cache()
+        return out
+
+    kcurve = curve("kernel", "bfloat16")
+    losses = kcurve["losses"]
+    want = expected_encoder_train_launches(cfg, ENC_TRAIN_STEPS)
+    if kcurve["launches"] != want:
+        raise AssertionError(f"[{phase}] launches {kcurve['launches']}; "
+                             f"{ENC_TRAIN_STEPS} steps make {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{phase}] losses {losses}: not finite")
+    step_s = statistics.median(kcurve["step_seconds"][1:])
+    pcurve = curve("reference", "bfloat16")
+    tcurve = curve("reference", "float32")
+    k_err = float(np.abs(np.subtract(losses, tcurve["losses"])).max())
+    p_err = float(np.abs(np.subtract(pcurve["losses"],
+                                     tcurve["losses"])).max())
+    log(f"[{phase}] {ENC_TRAIN_STEPS} steps of {tokens} tokens: kernel "
+        f"losses {[round(x, 4) for x in losses]}, plain bf16 "
+        f"{[round(x, 4) for x in pcurve['losses']]}, fp32 "
+        f"{[round(x, 4) for x in tcurve['losses']]}; the kernel curve is "
+        f"{k_err:.4g} from fp32, the plain bf16 curve {p_err:.4g} (bound "
+        f"2.5 x {p_err:.4g} + 0.05)")
+    if not k_err <= 2.5 * p_err + 0.05:
+        raise AssertionError(f"[{phase}] kernel curve {k_err:.4g} from the "
+                             f"fp32 truth, plain bf16 {p_err:.4g}")
+    prof = profile_step(build_model(cfg, mode="kernel", device=dev),
+                        batch["targets"].shape[0], seq, warmup=1)
+    tr = prof["traced"]
+    log(f"[{phase}] step time {step_s:.4f} s (median of the steps after the "
+        f"first), {tokens / step_s:.1f} tokens/s; peak device memory "
+        f"{kcurve['peak_memory_gb']:.2f} GB; one traced step: device busy "
+        f"{tr['device_busy_ms']:.1f} of {tr['traced_wall_ms']:.1f} ms "
+        f"({tr['device_busy_share']:.3f}); device ms by family "
+        f"{ {k: round(v, 2) for k, v in tr['device_ms_by_family'].items()} }")
+    return {"launches": kcurve["launches"], "grad_launches": counts,
+            "grad_bound_use": worst, "leaves": per_leaf,
+            "grad_losses": {"kernel": k_loss, "plain": p_loss,
+                            "truth": t_loss},
+            "kernel": kcurve, "plain": pcurve, "truth": tcurve,
+            "curve_err": {"kernel": k_err, "plain": p_err},
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "profile": prof}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2589,6 +2946,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phases["9b"] = run_bert(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["9c"] = run_encoder_training(dev, "9c", "bert-110m", mlm_batches,
+                                        B_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["9d"] = run_encoder_training(dev, "9d", "whisper-base",
+                                        whisper_batches, W_TRAIN_SEQ)
     log(f"[done] phase 9 at {time.perf_counter() - t0:.1f} s")
 
     line = []

@@ -2,11 +2,12 @@
 //
 // Replaces the TPU kernel `_db_kernel` (src/repro/kernels/gemm/backward.py),
 // launched there by `_gemm_bwd_db`. Same chain, split differently:
-//   A side    the rmsnorm prologue with the forward's rounding point (x rstd
-//             gamma in fp32, rounded to bf16, so An is the forward's An bit
-//             for bit) is applied once per element by the operand pass
-//             (gemm_bwd_g.cu), which writes An transposed, a_t (K, M); the
-//             TPU kernel recomputes it on every A tile;
+//   A side    the norm prologue with the forward's rounding point (rmsnorm
+//             x rstd gamma, layernorm (x - mean) rstd gamma [+ beta], in fp32
+//             from the forward's statistics, rounded to bf16, so An is the
+//             forward's An bit for bit) is applied once per element by the
+//             operand pass (gemm_bwd_g.cu), which writes An transposed, a_t
+//             (K, M); the TPU kernel recomputes it on every A tile;
 //   g side    the transposed epilogue, also from the operand pass, as
 //             gbar_t (N', M) = [g_acc | g_acc2]^T in bf16 (N' = 2N for the
 //             SwiGLU up-projection), where the TPU kernel contracts in fp32;

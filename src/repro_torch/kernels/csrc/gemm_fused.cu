@@ -11,11 +11,13 @@
 //   epilogue  x scale -> + bias -> rope -> act(acc) [* acc2] -> + residual,
 //             act one of silu, gelu (the tanh form) and relu, gated or not
 //             (epilogue.py:213-234);
-//   save      for the differentiated forward of the gated chain, the two raw
-//             fp32 accumulators rounded to bf16 into `preact`/`preact2`
-//             (kernel.py:84-90 stores them through the MXU input type), the
-//             operands of the backward's silu' (gemm_bwd_g.cu). The row
-//             statistics stay in `rstd` (and `mean`) for the backward too.
+//   save      for the differentiated forward of an activation chain, the
+//             raw fp32 accumulator rounded to bf16 into `preact` (and the
+//             gate's second into `preact2`; kernel.py:132-136 stores them
+//             through the MXU input type), the operands of the backward's
+//             act' (gemm_bwd_g.cu). The preact2 store is compiled into the
+//             gated store only. The row statistics stay in `rstd` (and
+//             `mean`) for the backward too.
 //
 // What bounds it on an H100: at the prefill and training shapes (M = 1024
 // or 4096 tokens, K = 2048, N up to 2 x 8192; the down projection K = 8192)
@@ -82,8 +84,9 @@ enum : int { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_RELU = 3 };
 // The epilogue chain's operands and output.
 struct Chain {
   __nv_bfloat16* out;             // (M, N)
-  __nv_bfloat16* preact;          // (M, N) raw acc in bf16, gated only, or null
-  __nv_bfloat16* preact2;         // (M, N) raw acc2 in bf16, or null
+  __nv_bfloat16* preact;          // (M, N) raw acc in bf16 (an activation
+                                  // chain's autograd forward), or null
+  __nv_bfloat16* preact2;         // (M, N) raw acc2 in bf16 (gated), or null
   const __nv_bfloat16* bias;      // (N,)
   const __nv_bfloat16* residual;  // (M, N)
   const float* sin;               // (M, head_dim)
@@ -221,7 +224,8 @@ __device__ __forceinline__ void quad_transpose(T (&x)[4], int q) {
 
 // One row's 8 output columns from col (a multiple of 8): + the residual,
 // rounded to bf16, stored in 16 bytes; with the raw accumulators' words
-// into the preacts.
+// into the preacts (the second one for the gated chain only).
+template <bool GATE>
 __device__ __forceinline__ void store8(const Chain& ch, int row, int col,
                                        const float2 (&v)[4],
                                        const uint32_t (&p1)[4],
@@ -244,8 +248,9 @@ __device__ __forceinline__ void store8(const Chain& ch, int row, int col,
   if (ch.preact != nullptr) {
     *reinterpret_cast<uint4*>(ch.preact + off) =
         make_uint4(p1[0], p1[1], p1[2], p1[3]);
-    *reinterpret_cast<uint4*>(ch.preact2 + off) =
-        make_uint4(p2[0], p2[1], p2[2], p2[3]);
+    if constexpr (GATE)
+      *reinterpret_cast<uint4*>(ch.preact2 + off) =
+          make_uint4(p2[0], p2[1], p2[2], p2[3]);
   }
 }
 
@@ -306,9 +311,9 @@ struct FusedStore {
         quad_transpose(v, lq);
         if (save) {
           quad_transpose(p1, lq);
-          quad_transpose(p2, lq);
+          if constexpr (GATE) quad_transpose(p2, lq);
         }
-        store8(ch, row + 8 * h, out0 + 8 * (4 * c + lq), v, p1, p2);
+        store8<GATE>(ch, row + 8 * h, out0 + 8 * (4 * c + lq), v, p1, p2);
       }
     }
   }
@@ -403,7 +408,7 @@ gemm_fused_reduce_kernel(const float* __restrict__ ws, int splits, int ld,
     *reinterpret_cast<uint32_t*>(ch.out + off) = pack2(v);
     if (ch.preact != nullptr) {
       *reinterpret_cast<uint32_t*>(ch.preact + off) = pack2(u);
-      *reinterpret_cast<uint32_t*>(ch.preact2 + off) = pack2(g);
+      if (gate) *reinterpret_cast<uint32_t*>(ch.preact2 + off) = pack2(g);
     }
   }
 }
@@ -552,8 +557,9 @@ const char* repro_error_string(int code) {
 // norm prologue), rstd (M,) fp32 and an (M, K) bf16 are written by the
 // row pass, and the product reads an; with mean (M,) fp32 too the norm is
 // layernorm (beta (K,) bf16 or null), else rmsnorm. flags: the chain's
-// bits and its activation's code (EP_ACT_SHIFT). preact, preact2: (M, N) bf16 outputs
-// of the gated variant, or null. tile_n: the mainloop's tile width (64,
+// bits and its activation's code (EP_ACT_SHIFT). preact: (M, N) bf16 output
+// of an activation chain (the raw accumulator), or null; preact2: the gated
+// chain's second, given with preact and only then. tile_n: the mainloop's tile width (64,
 // 128 or 256; at least 128 for the gated chain, a multiple of head_dim for
 // rope, itself a multiple of 4, and at most 128 then); splits: the
 // contraction's split count
@@ -569,8 +575,9 @@ int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
                       int head_dim, int tile_n, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gate = flags & EP_GATE;
-  if (gate != (b2 != nullptr) || (preact != nullptr) != (preact2 != nullptr) ||
-      (preact != nullptr && !gate) || m < 1 || n < 1 || k < 1 || n % 8 ||
+  if (gate != (b2 != nullptr) ||
+      (preact2 != nullptr) != (gate && preact != nullptr) ||
+      (preact != nullptr && act_code(flags) == ACT_NONE) || m < 1 || n < 1 || k < 1 || n % 8 ||
       k % 8 || splits < 1 ||
       (gamma != nullptr && (rstd == nullptr || an == nullptr)) ||
       ((beta != nullptr || mean != nullptr) && gamma == nullptr) ||

@@ -2,16 +2,18 @@
 
 * **The operand pass** (``csrc/gemm_bwd_g.cu``), bound by bytes: the
   forward epilogue transposed (:meth:`Epilogue.transpose_tile`, from the
-  forward's saved preacts) once per element of g, written as ``gbar`` (M,
-  N') in bf16 (N' = 2N for the gated chain: g_acc | g_acc2 side by side)
-  and as its transpose ``gbar_t`` (N', M); A transposed, ``a_t`` (K, M),
-  normalised first with the forward's rounding point under the rmsnorm
-  prologue; for the bias chains fp32 dbias partials per 64-row block,
-  summed here.
+  forward's saved preacts: silu', gelu' or relu', alone or gated) once per
+  element of g, written as ``gbar`` (M, N') in bf16 (N' = 2N for the gated
+  chain: g_acc | g_acc2 side by side) and as its transpose ``gbar_t`` (N',
+  M); A transposed, ``a_t`` (K, M), normalised first with the forward's
+  rounding point under a norm prologue (rmsnorm, or layernorm with or
+  without beta, from the forward's saved statistics); for the bias chains
+  fp32 dbias partials per 64-row block, summed here.
 * **dA** (``csrc/gemm_bwd_da.cu``): ``dAn = gbar @ [B | B2]ᵀ`` on the
-  Hopper mainloop (``csrc/gemm_sm90.cuh``); with the rmsnorm prologue, a
-  row pass in the same launch applies :meth:`Prologue.transpose` and writes
-  one dgamma partial row per 32-row block, summed here.
+  Hopper mainloop (``csrc/gemm_sm90.cuh``); with a norm prologue, a row
+  pass in the same launch applies :meth:`Prologue.transpose` at the
+  forward's statistics and writes one dgamma (and for layernorm + beta one
+  dbeta) partial row per 32-row block, summed here.
 * **dB** (``csrc/gemm_bwd_db.cu``): ``[dB | dB2] = Anᵀ @ [gbar | gbar2]``
   on the same mainloop, read from ``a_t`` and ``gbar_t``, both outputs
   from one launch.
@@ -20,10 +22,15 @@ dresidual is g itself; the scale and the rope tables take no gradient. A
 CPU tensor runs the plain versions (:func:`gemm_bwd_da_ref`,
 :func:`gemm_bwd_db_ref`: the same rounding points, contractions in fp32;
 :func:`gemm_bwd_g_ref` is the operand pass's); a CUDA tensor launches the
-kernels or raises. The chains are those ``ops.check_chain`` accepts. The
+kernels or raises. The chains are those ``ops.check_chain`` and
+``ops.check_backward`` accept. The
 mainloop reads its operands through TMA maps, so each one is checked by
 :func:`check_tma_operand` before any launch; the transposed operands' rows
 are padded to a multiple of 8 elements of M (:func:`transposed_stride`).
+
+``rstd`` everywhere is the forward's row statistics as ``ops._forward``
+returns them: rstd (M,) for rmsnorm, mean and rstd as one (2, M) buffer for
+layernorm; None (the CPU's forward keeps none) recomputes them from A.
 """
 from __future__ import annotations
 
@@ -40,15 +47,16 @@ from .prologue import Prologue
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 G_KERNEL = CudaKernel(
     "gemm_bwd_g", "gemm_bwd_g.cu", "gemm_bwd_g_launch",
-    [_P] * 12 + [_F] + [_I] * 6 + [_P])
+    [_P] * 15 + [_F] + [_I] * 6 + [_P])
 DA_KERNEL = CudaKernel(
     "gemm_bwd_da", "gemm_bwd_da.cu", "gemm_bwd_da_launch",
-    [_P] * 9 + [_I] * 5 + [_P])
+    [_P] * 11 + [_I] * 5 + [_P])
 DB_KERNEL = CudaKernel(
     "gemm_bwd_db", "gemm_bwd_db.cu", "gemm_bwd_db_launch",
     [_P] * 4 + [_I] * 5 + [_P])
 
-# rows per dgamma partial of the dA launch (NR_ROWS in csrc/gemm_bwd_da.cu)
+# rows per dgamma/dbeta partial of the dA launch (NR_ROWS in
+# csrc/gemm_bwd_da.cu)
 ROWS_PER_PARTIAL = 32
 # rows per dbias partial of the operand pass (TR in csrc/gemm_bwd_g.cu)
 ROWS_PER_BIAS_PARTIAL = 64
@@ -130,23 +138,63 @@ def g_streams_ref(epilogue: Epilogue, g, preacts=(), *, bias=None,
             for k, v in streams.items()}
 
 
-def _normed_a(a, prologue: Prologue, gamma, rstd):
+def _stats_kw(prologue: Prologue, rstd) -> dict:
+    """The forward's row statistics as Prologue keyword arguments, (M, 1)
+    fp32 columns: {'rstd'} for rmsnorm, {'mean', 'rstd'} for layernorm;
+    {} when ``rstd`` is None (recomputed)."""
+    if rstd is None:
+        return {}
+    f32 = torch.float32
+    if prologue.norm == "layernorm":
+        return {"mean": rstd[0].to(f32).reshape(-1, 1),
+                "rstd": rstd[1].to(f32).reshape(-1, 1)}
+    return {"rstd": rstd.to(f32).reshape(-1, 1)}
+
+
+def _normed_a(a, prologue: Prologue, gamma, rstd, beta=None):
     """A in fp32 as the forward's GEMM reads it: with a norm prologue,
-    normalised in fp32 (from ``rstd`` when given, else recomputed) and
-    rounded to A's type."""
+    normalised in fp32 (from the forward's statistics when given, else
+    recomputed) and rounded to A's type."""
     f32 = torch.float32
     an = a.to(f32)
     if not prologue.is_identity:
-        kw = {"gamma": gamma.to(f32).reshape(1, -1)}
-        if rstd is not None:
-            kw["rstd"] = rstd.to(f32).reshape(-1, 1)
+        kw = {"gamma": gamma.to(f32).reshape(1, -1),
+              **_stats_kw(prologue, rstd)}
+        if prologue.beta:
+            kw["beta"] = beta.to(f32).reshape(1, -1)
         an = prologue.apply(an, **kw).to(a.dtype).to(f32)
     return an
 
 
+def _norm_transpose(prologue: Prologue, dan, a, gamma, rstd) -> dict:
+    """:meth:`Prologue.transpose` of the recompute path (the statistics'
+    own dependence on A included) on fp32 arrays, at the forward's
+    statistics when given (what the dA launch's row pass reads), else
+    recomputed: {'da', 'dgamma' (1, K)[, 'dbeta' (1, K)]}. With ahat the
+    normalised row and dahat = dAn gamma, da = rstd (dahat - ahat
+    mean_k(dahat ahat)) for rmsnorm and rstd (dahat - mean_k(dahat) - ahat
+    mean_k(dahat ahat)) for layernorm."""
+    gamma = gamma.to(torch.float32).reshape(1, -1)
+    if rstd is None:
+        return prologue.transpose(dan, a, gamma=gamma)
+    st = _stats_kw(prologue, rstd)
+    ln = prologue.norm == "layernorm"
+    ahat = ((a - st["mean"]) if ln else a) * st["rstd"]
+    dahat = dan * gamma
+    out = dahat
+    if ln:
+        out = out - torch.mean(dahat, dim=-1, keepdim=True)
+    out = out - ahat * torch.mean(dahat * ahat, dim=-1, keepdim=True)
+    tr = {"da": st["rstd"] * out,
+          "dgamma": torch.sum(dan * ahat, dim=0, keepdim=True)}
+    if prologue.beta:
+        tr["dbeta"] = torch.sum(dan, dim=0, keepdim=True)
+    return tr
+
+
 def gemm_bwd_g_ref(a, g, *, epilogue: Epilogue, prologue: Prologue,
                    bias=None, scale=None, sin=None, cos=None, gamma=None,
-                   rstd=None, preacts=()) -> dict:
+                   beta=None, rstd=None, preacts=()) -> dict:
     """Plain version of the operand pass, in fp32 holding the kernel's
     bf16 values: 'gbar' (M, N'), 'gbar_t' (N', M), 'a_t' (K, M) and
     'dbias_part' (ceil(M / 64), N), the g_bias sum of each 64-row block,
@@ -160,15 +208,17 @@ def gemm_bwd_g_ref(a, g, *, epilogue: Epilogue, prologue: Prologue,
         part = torch.stack([blk.sum(dim=0) for blk in
                             st["g_bias"].split(ROWS_PER_BIAS_PARTIAL)])
     return {"gbar": gbar, "gbar_t": gbar.T.contiguous(),
-            "a_t": _normed_a(a, prologue, gamma, rstd).T.contiguous(),
+            "a_t": _normed_a(a, prologue, gamma, rstd, beta).T.contiguous(),
             "dbias_part": part}
 
 
 def gemm_bwd_da_ref(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
                     b2=None, bias=None, scale=None, sin=None, cos=None,
-                    gamma=None, preacts=()) -> tuple:
+                    gamma=None, beta=None, rstd=None, preacts=()) -> tuple:
     """Plain version of the dA launch: (da in A's type, dgamma (K,) fp32 or
-    None)."""
+    None, dbeta (K,) fp32 or None). ``beta`` is not read: dbeta is the
+    column sum of dAn."""
+    del beta
     f32 = torch.float32
     st = g_streams_ref(epilogue, g, preacts, bias=bias, scale=scale,
                        sin=sin, cos=cos)
@@ -176,21 +226,21 @@ def gemm_bwd_da_ref(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
     if epilogue.gate:
         dan = dan + st["g_acc2"] @ b2.to(f32).T
     if prologue.is_identity:
-        return dan.to(a.dtype), None
-    tr = prologue.transpose(dan, a.to(f32),
-                            gamma=gamma.to(f32).reshape(1, -1))
-    return tr["da"].to(a.dtype), tr["dgamma"].reshape(-1)
+        return dan.to(a.dtype), None, None
+    tr = _norm_transpose(prologue, dan, a.to(f32), gamma, rstd)
+    dbeta = tr["dbeta"].reshape(-1) if "dbeta" in tr else None
+    return tr["da"].to(a.dtype), tr["dgamma"].reshape(-1), dbeta
 
 
 def gemm_bwd_db_ref(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
                     b2=None, bias=None, scale=None, sin=None, cos=None,
-                    gamma=None, rstd=None, preacts=()) -> tuple:
+                    gamma=None, beta=None, rstd=None, preacts=()) -> tuple:
     """Plain version of the dB launch: (db, db2 or None, dbias (N,) fp32 or
     None); A is normalised with the forward's rounding point, from ``rstd``
     when given (else recomputed)."""
     st = g_streams_ref(epilogue, g, preacts, bias=bias, scale=scale,
                        sin=sin, cos=cos)
-    an = _normed_a(a, prologue, gamma, rstd)
+    an = _normed_a(a, prologue, gamma, rstd, beta)
     db = (an.T @ st["g_acc"]).to(b.dtype)
     db2 = (an.T @ st["g_acc2"]).to(b2.dtype) if epilogue.gate else None
     dbias = st["g_bias"].sum(dim=0) if epilogue.bias else None
@@ -199,32 +249,31 @@ def gemm_bwd_db_ref(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
 
 def gemm_fused_bwd(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
                    b2=None, bias=None, scale=None, sin=None, cos=None,
-                   gamma=None, rstd=None, preacts=()) -> tuple:
+                   gamma=None, beta=None, rstd=None, preacts=()) -> tuple:
     """The backward of ``gemm_fused``: ``(da, db, grads)`` with ``grads``
-    keyed by operand name (b2, bias, residual, gamma). ``rstd`` is the
-    forward's row statistics and ``preacts`` its saved raw accumulators
+    keyed by operand name (b2, bias, residual, gamma, beta). ``rstd`` is
+    the forward's row statistics and ``preacts`` its saved raw accumulators
     (``ops.kernel_saves``)."""
     g = g.contiguous()
     kw = dict(epilogue=epilogue, prologue=prologue, b2=b2, bias=bias,
-              scale=scale, sin=sin, cos=cos, gamma=gamma, preacts=preacts)
+              scale=scale, sin=sin, cos=cos, gamma=gamma, beta=beta,
+              rstd=rstd, preacts=preacts)
     if a.device.type == "cpu":
-        da, dgamma = gemm_bwd_da_ref(a, b, g, **kw)
-        db, db2, dbias = gemm_bwd_db_ref(a, b, g, rstd=rstd, **kw)
+        da, dgamma, dbeta = gemm_bwd_da_ref(a, b, g, **kw)
+        db, db2, dbias = gemm_bwd_db_ref(a, b, g, **kw)
     elif a.device.type == "cuda":
-        run = BwdLaunch(a, b, g, rstd=rstd, **kw)
+        run = BwdLaunch(a, b, g, **kw)
         run.operand_pass()
-        da, dgamma = run.da()
+        da, dgamma, dbeta = run.da()
         db, db2 = run.db()
         dbias = run.dbias()
     else:
         raise ValueError(f"gemm_fused_bwd: unsupported device {a.device}")
     grads = {"residual": g}
-    if db2 is not None:
-        grads["b2"] = db2
-    if dbias is not None:
-        grads["bias"] = dbias
-    if dgamma is not None:
-        grads["gamma"] = dgamma
+    for name, grad in (("b2", db2), ("bias", dbias), ("gamma", dgamma),
+                       ("beta", dbeta)):
+        if grad is not None:
+            grads[name] = grad
     return da, db, grads
 
 
@@ -242,9 +291,8 @@ class BwdLaunch:
     tile width for both products (0: :func:`pick_tile_n` for each)."""
 
     def __init__(self, a, b, g, *, epilogue, prologue, b2=None, bias=None,
-                 scale=None, sin=None, cos=None, gamma=None, rstd=None,
-                 preacts=(), tile_n=0):
-        del bias   # no chain the kernels take reads it in the transpose
+                 scale=None, sin=None, cos=None, gamma=None, beta=None,
+                 rstd=None, preacts=(), tile_n=0):
         m, k = a.shape
         n = b.shape[1]
         dev, bf16, f32 = a.device, torch.bfloat16, torch.float32
@@ -272,11 +320,22 @@ class BwdLaunch:
                             require(cos, "cos", (m, hd), f32, dev)]
         else:
             self.g_side += [None, None]
+        # an activation's input holds the bias: its transpose reads it
+        self.g_side.append(
+            require(bias, "bias", (n,), bf16, dev)
+            if epilogue.bias and epilogue.activation != "none" else None)
         self.a = require(a, "a", (m, k), bf16, dev)
-        self.gamma = self.rstd = None
+        self.gamma = self.beta = self.mean = self.rstd = None
         if self.norm:
             self.gamma = require(gamma, "gamma", (k,), bf16, dev)
-            self.rstd = require(rstd, "rstd", (m,), f32, dev)
+            if prologue.beta:
+                self.beta = require(beta, "beta", (k,), bf16, dev)
+            if prologue.norm == "layernorm":
+                # one (2, M) buffer: the mean's row, then rstd's
+                self.mean = require(rstd, "stats", (2, m), f32, dev)
+                self.rstd = self.mean + 4 * m
+            else:
+                self.rstd = require(rstd, "rstd", (m,), f32, dev)
         self.b = require(b, "b", (k, n), bf16, dev)
         self.b2 = (require(b2, "b2", (k, n), bf16, dev) if epilogue.gate
                    else None)
@@ -293,11 +352,14 @@ class BwdLaunch:
                                        dtype=f32, device=dev)
                            if epilogue.bias else None)
         self.da_out = torch.empty((m, k), dtype=bf16, device=dev)
-        self.dan = self.dgamma_part = None
+        self.dan = self.dgamma_part = self.dbeta_part = None
         if self.norm:
+            parts = -(-m // ROWS_PER_PARTIAL)
             self.dan = torch.empty((m, k), dtype=f32, device=dev)
-            self.dgamma_part = torch.empty(
-                (-(-m // ROWS_PER_PARTIAL), k), dtype=f32, device=dev)
+            self.dgamma_part = torch.empty((parts, k), dtype=f32, device=dev)
+            if prologue.beta:
+                self.dbeta_part = torch.empty((parts, k), dtype=f32,
+                                              device=dev)
         self.db_out = torch.empty((k, n), dtype=bf16, device=dev)
         self.db2_out = (torch.empty((k, n), dtype=bf16, device=dev)
                         if epilogue.gate else None)
@@ -317,29 +379,27 @@ class BwdLaunch:
         fn = G_KERNEL.fn()
         stream = G_KERNEL.stream(self.device)
         G_KERNEL.launches += 1
-        code = fn(*self.g_side, self.a, self.gamma, self.rstd,
-                  self.gbar.data_ptr(), self.gbar_t.data_ptr(),
+        code = fn(*self.g_side, self.a, self.gamma, self.beta, self.mean,
+                  self.rstd, self.gbar.data_ptr(), self.gbar_t.data_ptr(),
                   self.a_t.data_ptr(), self._ptr(self.dbias_part),
                   self.scale, self.m, self.n, self.k, self.ld_t,
                   chain_flags(self.epilogue), self.epilogue.head_dim, stream)
         G_KERNEL.check(code)
 
     def da(self, passes: int = 3, kernel: CudaKernel = DA_KERNEL) -> tuple:
-        """(da (M, K) bf16, dgamma (K,) fp32 or None). ``kernel``: another
-        build of the same entry point (the smoke's A/B against an earlier
-        tree)."""
+        """(da (M, K) bf16, dgamma (K,) fp32 or None, dbeta (K,) fp32 or
+        None). ``kernel``: another build of the same entry point."""
         fn = kernel.fn()
         stream = kernel.stream(self.device)
         kernel.launches += 1
         code = fn(self.gbar.data_ptr(), self.b, self.b2,
-                  self.a if self.norm else None, self.gamma, self.rstd,
-                  self._ptr(self.dan), self.da_out.data_ptr(),
-                  self._ptr(self.dgamma_part), self.m, self.n, self.k,
-                  self.tile_da, passes, stream)
+                  self.a if self.norm else None, self.gamma, self.mean,
+                  self.rstd, self._ptr(self.dan), self.da_out.data_ptr(),
+                  self._ptr(self.dgamma_part), self._ptr(self.dbeta_part),
+                  self.m, self.n, self.k, self.tile_da, passes, stream)
         kernel.check(code)
-        dgamma = (None if self.dgamma_part is None
-                  else self.dgamma_part.sum(dim=0))
-        return self.da_out, dgamma
+        return (self.da_out, self._sum(self.dgamma_part),
+                self._sum(self.dbeta_part))
 
     def db(self, kernel: CudaKernel = DB_KERNEL) -> tuple:
         """(db (K, N) bf16, db2 (K, N) bf16 or None); ``kernel`` as in
@@ -355,5 +415,8 @@ class BwdLaunch:
 
     def dbias(self):
         """dbias (N,) fp32 from the operand pass's partials, or None."""
-        return (None if self.dbias_part is None
-                else self.dbias_part.sum(dim=0))
+        return self._sum(self.dbias_part)
+
+    @staticmethod
+    def _sum(part):
+        return None if part is None else part.sum(dim=0)

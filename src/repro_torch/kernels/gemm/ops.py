@@ -23,9 +23,10 @@ Under autograd the op is a ``torch.autograd.Function``. ``bwd_mode`` picks
 its backward: ``"kernel"`` (the default, see :func:`default_bwd_mode`) runs
 the chain transpose as the two backward kernels (``backward.py``); the
 forward then also stores the raw accumulators the transpose needs and keeps
-the row statistics. The backward kernels take the rmsnorm prologue and
-the gated silu only: in that mode any other norm or activation raises
-(:func:`check_backward`). ``"reference"`` is autograd through
+the row statistics. The backward kernels take every chain the forward
+kernel takes (the rmsnorm and layernorm prologues, silu, gelu and relu
+alone or gated); :func:`check_backward` names what they still refuse.
+``"reference"`` is autograd through
 :func:`gemm_fused_ref`, the oracle, for every chain; it runs only when the
 caller asks for it. The scale is a Python number (``residual_scale``) and
 takes no gradient: unlike the reference, no fp32 preactivation is kept for
@@ -215,20 +216,20 @@ def check_chain(epilogue: Epilogue, prologue: Prologue) -> None:
 
 
 def check_backward(epilogue: Epilogue, prologue: Prologue) -> None:
-    """Raise on a chain whose backward the kernels do not take: a norm
-    other than rmsnorm (layernorm's transpose with dbeta), and an activation
-    other than the gated silu (gelu', relu' and the non-gated chains' saved
-    preacts), until the backward kernels follow the forward."""
-    if prologue.norm not in ("none", "rmsnorm"):
+    """Raise on a chain whose backward the kernels do not take, each with
+    its own message: the precomputed-statistics prologue (its dmean and
+    drstd), and row or column scales (their dscale). Every other chain the
+    forward kernel takes, they take: both norms (layernorm with or without
+    beta), silu', gelu' and relu' alone or gated."""
+    if prologue.precomputed_stats:
         raise NotImplementedError(
             f"gemm_fused backward kernel: prologue {prologue.describe()!r} "
-            "is not supported yet (rmsnorm only); pass bwd_mode='reference'")
-    if epilogue.activation != "none" and not (
-            epilogue.gate and epilogue.activation == "silu"):
+            "is not supported (the dmean/drstd of precomputed statistics); "
+            "pass bwd_mode='reference'")
+    if epilogue.scale and epilogue.scale_kind != "scalar":
         raise NotImplementedError(
-            f"gemm_fused backward kernel: chain {epilogue.describe()!r} is "
-            "not supported yet (the gated silu only); pass "
-            "bwd_mode='reference'")
+            f"gemm_fused backward kernel: {epilogue.scale_kind} scales are "
+            "not supported (their dscale); pass bwd_mode='reference'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,7 +304,7 @@ def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
     for rmsnorm, (2, M) mean and rstd for layernorm (None without a
     prologue, and on the CPU, where the plain backward recomputes them);
     ``preacts`` the raw accumulators rounded to A's type when
-    ``save_preact``, else ()."""
+    ``save_preact`` (:func:`kernel_saves` of them), else ()."""
     kw = dict(b2=b2, bias=bias, residual=residual, scale=scale, sin=sin,
               cos=cos, gamma=gamma, beta=beta, out_dtype=out_dtype,
               save_preact=save_preact)
@@ -339,18 +340,18 @@ class _GemmFusedFn(torch.autograd.Function):
     def forward(ctx, a, b, b2, bias, residual, gamma, beta, sin, cos, spec):
         ep = spec.epilogue
         save = spec.bwd_mode == "kernel" and kernel_saves(ep) > 0
-        out, rstd, preacts = _forward(
+        out, stats, preacts = _forward(
             a, b, ep, spec.prologue, b2=b2, bias=bias, residual=residual,
             scale=spec.scale, sin=sin, cos=cos, gamma=gamma, beta=beta,
             out_dtype=spec.out_dtype, save_preact=save)
         ctx.spec = spec
         ctx.save_for_backward(a, b, b2, bias, residual, gamma, beta, sin,
-                              cos, rstd, *preacts)
+                              cos, stats, *preacts)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        a, b, b2, bias, residual, gamma, beta, sin, cos, rstd, *preacts = \
+        a, b, b2, bias, residual, gamma, beta, sin, cos, stats, *preacts = \
             ctx.saved_tensors
         spec = ctx.spec
         operands = (a, b, b2, bias, residual, gamma, beta, sin, cos)
@@ -361,7 +362,7 @@ class _GemmFusedFn(torch.autograd.Function):
         da, db, grads = gemm_fused_bwd(
             a, b, g, epilogue=spec.epilogue, prologue=spec.prologue,
             b2=b2, bias=bias, scale=spec.scale, sin=sin, cos=cos,
-            gamma=gamma, rstd=rstd, preacts=tuple(preacts))
+            gamma=gamma, beta=beta, rstd=stats, preacts=tuple(preacts))
         extras = []
         for name, op, wanted in zip(_GRAD_OPERANDS, operands[2:], need[2:]):
             grad = grads.get(name) if wanted else None
@@ -418,12 +419,13 @@ def require(t, name, shape, dtype, device):
 
 def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
             eps, out_dtype, beta=None, layernorm=False, save_preact=False,
-            plan=None):
+            plan=None, kernel: CudaKernel = KERNEL):
     """One launch on the card: (out, stats, preacts), ``stats`` as
     :func:`_forward` returns them. With ``gamma`` the row pass normalises A
     first: layernorm (``beta`` optional) where ``layernorm``, else rmsnorm.
     ``plan`` (tile width, split count) overrides :func:`plan_gemm` (the
-    smoke's sweep)."""
+    smoke's sweep); ``kernel``: another build of the same entry point (the
+    smoke's A/B against an earlier tree)."""
     m, k = a.shape
     n = b.shape[1]
     dev, bf16 = a.device, torch.bfloat16
@@ -474,28 +476,25 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
     if staged(epilogue, splits):
         ws = torch.empty((splits, m, raw_width(n, tile_n, epilogue.gate)),
                          dtype=torch.float32, device=dev)
-    preacts = ()
-    if save_preact:
-        if not epilogue.gate:
-            raise NotImplementedError(
-                "gemm_fused kernel: preacts are saved for the gated chain only")
-        preacts = tuple(torch.empty((m, n), dtype=bf16, device=dev)
-                        for _ in range(2))
+    # the raw accumulators of an activation chain: one, or the gate's two
+    preacts = tuple(torch.empty((m, n), dtype=bf16, device=dev)
+                    for _ in range(kernel_saves(epilogue) if save_preact
+                                   else 0))
 
     def addr(t):
         return None if t is None else t.data_ptr()
 
-    fn = KERNEL.fn()
-    stream = KERNEL.stream(dev)
-    KERNEL.launches += 1
+    fn = kernel.fn()
+    stream = kernel.stream(dev)
+    kernel.launches += 1
     code = fn(ptr["a"], ptr["b"], ptr.get("b2", null), out.data_ptr(),
               ptr.get("gamma", null), ptr.get("beta", null), addr(mean),
               addr(rstd), addr(an),
               ptr.get("bias", null), ptr.get("residual", null),
               ptr.get("sin", null), ptr.get("cos", null),
-              *([p.data_ptr() for p in preacts] or [null, null]), addr(ws),
+              *[addr(p) for p in (*preacts, None, None)[:2]], addr(ws),
               float(scale) if scale is not None else 1.0,
               float(eps) if eps is not None else 0.0,
               m, n, k, flags, epilogue.head_dim, tile_n, splits, stream)
-    KERNEL.check(code)
+    kernel.check(code)
     return out, stats, preacts

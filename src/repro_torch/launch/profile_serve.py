@@ -54,7 +54,7 @@ FAMILIES = (
     # listed above the catch-all "gemm" below
     ("gemm_bwd_g_", "gemm_bwd_g"),
     ("gemm_bwd_da_kernel", "gemm_bwd_da"),
-    ("rms_transpose_kernel", "gemm_bwd_da"),
+    ("norm_transpose_kernel", "gemm_bwd_da"),
     ("gemm_bwd_db_kernel", "gemm_bwd_db"),
     # the flash backward: the main kernel and the dq convert pass
     ("flash_bwd_kernel", "flash_attention_bwd"),

@@ -2,9 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama-1b \\
       --batch 4 --seq 1024 --out DIR
+  (also --arch bert-110m --batch 8 --seq 512; --arch whisper-base --batch 4
+  --seq 448)
 
 Builds the model in kernel mode with seeded random fp32 masters, runs two
-warm-up steps on the reference's synthetic data, one step timed by the host
+warm-up steps on the training launcher's data (the reference's synthetic
+LM batches; whisper-base's from ``make_batch``), one step timed by the host
 clock (ended by a device synchronise) and one step under
 ``torch.profiler``. From the trace it reports the device time by kernel
 family (the port's kernels, forward and backward, the library matrix
@@ -21,21 +24,19 @@ import os
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.data import DataConfig, DataIterator
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, cosine_schedule
 from repro_torch.train import init_state, make_train_step
 from .profile_serve import _timed, summarize
+from .train import train_batches
 
 
 def profile_step(model, batch: int, seq: int, *, seed: int = 0,
                  warmup: int = 2) -> dict:
     """Warm-up steps, then one untraced and one traced step of ``model``:
     {"step_s", "tokens_per_s", "traced": summarize(...)}."""
-    cfg = model.cfg
-    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                   global_batch=batch, seed=seed),
-                        device=model.device)
+    data = train_batches(model.cfg, batch, seq, seed=seed,
+                         device=model.device)
     opt = AdamWConfig(schedule=cosine_schedule(3e-4, 2, warmup + 2))
     state = init_state(model, seed)
     step = make_train_step(model, opt)
@@ -53,7 +54,10 @@ def profile_step(model, batch: int, seq: int, *, seed: int = 0,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="llama-1b")
+    ap.add_argument("--arch", default="llama-1b",
+                    help="a registered arch id (bert-110m: --seq 512 at "
+                    "most; whisper-base: make_batch batches over 1500 "
+                    "random frames, --seq target tokens)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)

@@ -1,14 +1,24 @@
-"""Training launcher: the dense llama decoder on the reference's synthetic
+"""Training launcher: any registered arch on the reference's synthetic
 data, with the model in kernel mode.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
       --steps 8 --batch 4 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bert-110m \\
+      --steps 6 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
+      --steps 6 --batch 4 --seq 448
 
-Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
-versions on the CPU (with ``--tiny``: 2 layers, d_model 128, 4/2 heads,
-d_ff 256, vocab 256, the width of the CPU tests). Prints the reference
-launcher's ``[train] finished:`` line, then tokens/s (median host time of
-the steps after the first) and the peak device memory.
+The decoders and bert-110m take the LM pipeline's batches
+(``data.DataIterator``), as the reference's launcher feeds every arch;
+whisper-base takes ``models.make_batch`` batches (random target tokens over
+random ``encoder_embeds`` (B, 1500, 512)), since that pipeline has no
+encoder embeddings. Runs on the CUDA card by default; ``--device cpu`` runs
+the kernels' plain versions on the CPU (with ``--tiny``: 2 layers, d_model
+128, 4/2 heads, d_ff 256, vocab 256, the width of the CPU tests; whisper's
+encoder 2 layers over 64 frames). Prints the reference launcher's
+``[train] finished:`` line, then tokens/s (median host time of the steps
+after the first; tokens of the decoder's or encoder's sequence) and the
+peak device memory.
 """
 from __future__ import annotations
 
@@ -21,19 +31,33 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, DataIterator
 from repro_torch.device import DEFAULT_DEVICE
-from repro_torch.models import build_model
+from repro_torch.models import MadeBatches, build_model
 from repro_torch.optim import AdamWConfig, cosine_schedule, wsd_schedule
 from repro_torch.train import FailureInjector, StragglerWatchdog, train_loop
 
 TINY = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
-            vocab_size=256)
+            vocab_size=256, encoder_layers=2, encoder_seq=64)
+
+
+def train_batches(cfg, batch: int, seq: int, *, seed: int = 0, device):
+    """The launcher's data: ``MadeBatches`` for the enc-dec family (its
+    batches carry encoder_embeds), else the LM pipeline's iterator."""
+    if cfg.family == "encdec":
+        return MadeBatches(cfg, batch, seq, seed=seed, device=device)
+    return DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch, seed=seed),
+                        device=device)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama-1b")
+    ap.add_argument("--arch", default="llama-1b",
+                    help="a registered arch id; whisper-base trains on "
+                    "make_batch batches (random encoder_embeds), the others "
+                    "on the LM pipeline's")
     ap.add_argument("--tiny", action="store_true",
-                    help="the CPU tests' width (2 layers, d_model 128)")
+                    help="the CPU tests' width (2 layers, d_model 128; "
+                    "whisper-base: 2 + 2 layers over 64 frames)")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
@@ -52,13 +76,15 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = dataclasses.replace(cfg, **TINY)
+    if cfg.family == "encoder" and args.seq > cfg.max_seq_len:
+        ap.error(f"--seq {args.seq}: {cfg.name} has {cfg.max_seq_len} "
+                 "learned positions")
     sched = (wsd_schedule if args.schedule == "wsd" else cosine_schedule)(
         args.lr, args.warmup, args.steps)
     model = build_model(cfg, mode=args.mode, device=args.device)
     cuda = model.device.type == "cuda"
-    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=args.seq, global_batch=args.batch,
-                                   seed=args.seed), device=model.device)
+    data = train_batches(cfg, args.batch, args.seq, seed=args.seed,
+                         device=model.device)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     res = train_loop(model, data, args.steps, AdamWConfig(schedule=sched),

@@ -2,9 +2,11 @@
 returns a :class:`Model` whose methods close over the config, the mode, the
 device and the rung of the QKV ladder, and dispatch on ``cfg.family`` as
 the reference's ``_build_model`` does: the decoder-only LM ('lm'), the
-encoder-decoder ('encdec': ``forward``, ``prefill`` and ``init_cache`` take
-a batch dict with ``encoder_embeds``) and the encoder ('encoder':
-``forward`` only)."""
+encoder-decoder ('encdec': ``forward``, ``loss``, ``prefill`` and
+``init_cache`` take a batch dict with ``encoder_embeds``) and the encoder
+('encoder': ``forward`` and ``loss``). :func:`make_batch` draws a training
+batch of any family from a torch generator, as the reference's does from a
+JAX key; :class:`MadeBatches` streams them for ``train_loop``."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,11 +31,6 @@ def _refuse(what: str, family: str):
                                         "decode_step"):
         # the reference's message (its encoder-only archs skip decode)
         raise NotImplementedError("encoder-only archs have no decode step")
-    if what == "loss":
-        raise NotImplementedError(
-            f"the {family!r} family's loss is not ported: its training needs "
-            "the GEMM backward's layernorm transpose with dbeta, gelu' and "
-            "the non-gated chains' saved preacts (ROADMAP Queue A item 5)")
     raise NotImplementedError(
         f"{what}: the {family!r} family has no paged path (the reference's "
         "PagedEngine serves decoder-only LMs; ROADMAP Queue A item 8)")
@@ -78,9 +75,16 @@ class Model:
                               qkv_plan=self.qkv_plan)
 
     def loss(self, params, batch):
-        """(loss, metrics) of a batch {"inputs", "targets", "loss_mask"},
-        the blocks recomputed in the backward per ``cfg.remat_policy``."""
-        self._lm_only("loss")
+        """(loss, metrics) of a batch {"inputs", "targets", "loss_mask"}
+        (encdec: and "encoder_embeds"), the blocks recomputed in the
+        backward per ``cfg.remat_policy``: the LM's next-token loss, the
+        encoder's masked-LM loss, the enc-dec's decoder loss."""
+        if self.family == "encdec":
+            return _ed.encdec_loss(self.cfg, params, batch, mode=self.mode,
+                                   qkv_plan=self.qkv_plan)
+        if self.family == "encoder":
+            return _enc.encoder_loss(self.cfg, params, batch, mode=self.mode,
+                                     qkv_plan=self.qkv_plan)
         return _lm.lm_loss(self.cfg, params, batch, mode=self.mode,
                            qkv_plan=self.qkv_plan)
 
@@ -137,6 +141,56 @@ class Model:
         self._lm_only("decode_step_paged")
         return _lm.lm_decode_step_paged(self.cfg, params, token, cache,
                                         page_table, lengths, mode=self.mode)
+
+
+def make_batch(cfg, batch: int, seq_len: int, *,
+               generator: torch.Generator) -> dict:
+    """Training inputs drawn from ``generator`` on its device, as the
+    reference's ``make_batch`` (``api.py``) draws them from a key:
+    'inputs' and 'targets' (B, S) uniform token ids, 'loss_mask' (B, S)
+    ones in fp32, and for the 'encdec' family 'encoder_embeds' (B,
+    encoder_seq, d_model) standard normal in the compute type (the stub
+    frontend's output)."""
+    dev = generator.device
+    out = {}
+    if cfg.family == "encdec":
+        out["encoder_embeds"] = torch.randn(
+            (batch, cfg.encoder_seq, cfg.d_model), generator=generator,
+            device=dev).to(dtype_of(cfg.compute_dtype))
+    for key in ("inputs", "targets"):
+        out[key] = torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                                 generator=generator, device=dev)
+    out["loss_mask"] = torch.ones((batch, seq_len), dtype=torch.float32,
+                                  device=dev)
+    return out
+
+
+class MadeBatches:
+    """An endless stream of :func:`make_batch` batches for ``train_loop``,
+    batch ``i`` drawn from a generator seeded with (seed, i), so a restart
+    (``load_state_dict({"step": 0})``) replays the same batches, as
+    ``data.DataIterator`` does."""
+
+    def __init__(self, cfg, batch: int, seq_len: int, *, seed: int = 0,
+                 device=DEFAULT_DEVICE):
+        self.cfg, self.batch, self.seq_len, self.seed = cfg, batch, seq_len, seed
+        self.device = resolve_device(device)
+        self.step = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.seed * 1_000_003 + self.step)
+        self.step += 1
+        return make_batch(self.cfg, self.batch, self.seq_len, generator=gen)
+
+    def state_dict(self) -> dict:
+        return {"step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
 
 
 def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE,

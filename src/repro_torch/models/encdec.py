@@ -6,7 +6,9 @@ with sinusoidal positions. Decoder: causal self-attention, cross-attention
 and MLP, learned positions. LayerNorm and GELU, the embedding tied to the
 head. Layer parameters are stacked (``enc/...``, ``dec/...``, the
 reference's scan layout); a Python loop over layers takes the place of
-``lax.scan``.
+``lax.scan``. Training (``encdec_loss``) recomputes each encoder and each
+decoder block in the backward, as the reference checkpoints the bodies of
+its two scans.
 
 Serving: the encoder runs once, in the prefill, which writes each layer's
 cross-attention k/v in place into the cache it is given (the ``cross``
@@ -18,6 +20,8 @@ compute type, and the prefill and the decode step take them cast already
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.device import dtype_of
@@ -25,9 +29,9 @@ from .attention import (attend, attention_layer, attn_defs,
                         decode_attention_layer, init_attn_cache,
                         prefill_attn_cache, project_qkv, project_qkv_heads,
                         _merge_heads)
-from .common import (ParamDef, apply_norm, cast_params, mlp_defs,
-                     mlp_forward, norm_defs, norm_params)
-from .lm import unstack_layers
+from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
+                     mlp_defs, mlp_forward, norm_defs, norm_params)
+from .lm import _remat, unstack_layers
 
 
 def sinusoidal_positions(length: int, dim: int, device=None):
@@ -74,16 +78,21 @@ def encoder_block(cfg, p, h, *, mode: str, qkv_plan: str = "rope_fused"):
 
 
 def encode(cfg, params, enc_embeds, *, mode: str = "reference",
-           qkv_plan: str = "rope_fused"):
+           qkv_plan: str = "rope_fused", remat: bool = False):
     """enc_embeds: (B, S_enc, D) stub-frontend output -> (B, S_enc, D). The
     sinusoidal table is added in the compute type, both addends cast first,
-    as the reference does."""
+    as the reference does. ``remat``: each block recomputed in the
+    backward."""
     cd = dtype_of(cfg.compute_dtype)
     s = enc_embeds.shape[1]
     x = enc_embeds.to(cd) + sinusoidal_positions(
         s, cfg.d_model, enc_embeds.device).to(cd)
+    block = functools.partial(encoder_block, cfg, mode=mode,
+                              qkv_plan=qkv_plan)
+    if remat:
+        block = _remat(cfg, block)
     for p in unstack_layers(params["enc"], cfg.encoder_layers):
-        x = encoder_block(cfg, p, x, mode=mode, qkv_plan=qkv_plan)
+        x = block(p, x)
     return apply_norm(cfg, x, params, "enc_final_norm")
 
 
@@ -114,16 +123,32 @@ def _logits(cfg, params, x):
 
 
 def encdec_forward(cfg, params, batch, *, mode: str = "reference",
-                   qkv_plan: str = "rope_fused"):
+                   qkv_plan: str = "rope_fused", remat: bool = False):
     """batch: {'encoder_embeds': (B, S_enc, D), 'inputs': (B, S)} -> logits
-    (B, S, V) fp32. (The reference also returns an auxiliary loss of 0.)"""
+    (B, S, V) fp32; with ``remat`` every encoder and decoder block is
+    recomputed in the backward. (The reference also returns an auxiliary
+    loss of 0.)"""
     params = cast_params(params, dtype_of(cfg.compute_dtype))
     enc_out = encode(cfg, params, batch["encoder_embeds"], mode=mode,
-                     qkv_plan=qkv_plan)
+                     qkv_plan=qkv_plan, remat=remat)
     x = _embed_tokens(cfg, params, batch["inputs"])
+    block = functools.partial(_dec_block, cfg, mode=mode, qkv_plan=qkv_plan)
+    if remat:
+        block = _remat(cfg, block)
     for p in unstack_layers(params["dec"], cfg.num_layers):
-        x = _dec_block(cfg, p, x, enc_out, mode=mode, qkv_plan=qkv_plan)
+        x = block(p, x, enc_out)
     return _logits(cfg, params, x)
+
+
+def encdec_loss(cfg, params, batch, *, mode: str = "reference",
+                remat: bool = True, qkv_plan: str = "rope_fused"):
+    """(loss, {"ce", "aux"}): the masked mean cross entropy of the batch
+    {"encoder_embeds", "inputs", "targets"[, "loss_mask"]}; aux is 0."""
+    logits = encdec_forward(cfg, params, batch, mode=mode, qkv_plan=qkv_plan,
+                            remat=remat)
+    ce = cross_entropy_loss(logits, batch["targets"], batch.get("loss_mask"))
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=logits.device)}
 
 
 # ---------------------------------------------------------------------------

@@ -31,15 +31,35 @@ from repro_torch.kernels.gemm.epilogue import _act_grad  # noqa: E402
 
 M, K, N, HD = 24, 128, 128, 32   # M ragged against every tile size
 
-# the four chains of the model's kernel mode, plus the bias variant of rope:
-# name -> (epilogue kwargs, rmsnorm prologue?)
+# the four chains of llama's kernel mode, plus the bias variant of rope,
+# then the layernorm chains of whisper's and bert's (and the activations
+# alone and gated): name -> (epilogue kwargs, prologue: False, True
+# (rmsnorm), "ln" or "ln_beta" (layernorm without or with beta))
 CHAINS = {
     "qk_rope": (dict(rope=True, head_dim=HD), True),
     "qk_rope_bias": (dict(rope=True, head_dim=HD, bias=True), True),
     "v_identity": (dict(), True),
     "up_silu_gate": (dict(activation="silu", gate=True), True),
     "down_residual_scale": (dict(residual=True, scale=True), False),
+    "ln_beta_identity": (dict(), "ln_beta"),
+    "ln_identity": (dict(), "ln"),
+    "ln_beta_gelu": (dict(activation="gelu"), "ln_beta"),
+    "ln_gelu": (dict(activation="gelu"), "ln"),
+    "ln_beta_relu": (dict(activation="relu"), "ln_beta"),
+    "ln_silu": (dict(activation="silu"), "ln"),
+    "ln_beta_geglu": (dict(activation="gelu", gate=True), "ln_beta"),
+    "ln_beta_residual": (dict(residual=True, scale=True), "ln_beta"),
+    "bias_gelu": (dict(activation="gelu", bias=True), False),
 }
+
+
+def _prologue(pkg, pro):
+    """The chain's prologue in the JAX package (jg) or the port (tg)."""
+    if not pro:
+        return pkg.Prologue()
+    if pro is True:
+        return pkg.Prologue(norm="rmsnorm")
+    return pkg.Prologue(norm="layernorm", beta=pro == "ln_beta")
 
 
 def _operands(chain, seed=0):
@@ -59,6 +79,10 @@ def _operands(chain, seed=0):
         ops["cos"] = np.concatenate([np.cos(ang)] * 2, axis=1)
     if pro:
         ops["gamma"] = rng.uniform(0.5, 1.5, K).astype(np.float32)
+    if pro == "ln_beta":
+        ops["beta"] = (rng.standard_normal(K) * 0.5).astype(np.float32)
+    if pro in ("ln", "ln_beta"):
+        ops["a"] += 0.5          # a mean the layernorm takes out
     w = rng.standard_normal((M, N)).astype(np.float32)   # the loss weights
     return ep_kw, pro, ops, w
 
@@ -183,10 +207,8 @@ def test_gemm_fused_bwd_ref_matches_reference(chain):
     ep_kw, pro, ops, w = _operands(chain)
     if ep_kw.get("scale"):
         ops["scale"] = np.float32(0.75)
-    kw = dict(epilogue=jg.Epilogue(**ep_kw),
-              prologue=jg.Prologue(norm="rmsnorm") if pro else jg.Prologue())
-    tkw = dict(epilogue=tg.Epilogue(**ep_kw),
-               prologue=tg.Prologue(norm="rmsnorm") if pro else tg.Prologue())
+    kw = dict(epilogue=jg.Epilogue(**ep_kw), prologue=_prologue(jg, pro))
+    tkw = dict(epilogue=tg.Epilogue(**ep_kw), prologue=_prologue(tg, pro))
     jops = {k: jnp.asarray(v) for k, v in ops.items()}
     tops = {k: torch.tensor(v) for k, v in ops.items()}
     want = jg.gemm_fused_bwd_ref(jops.pop("a"), jops.pop("b"), jnp.asarray(w),
@@ -216,8 +238,7 @@ def _jax_grads(chain, ops, w, dtype, mode, bwd_mode):
             kw["scale"] = jnp.float32(0.75)
         a, b = kw.pop("a"), kw.pop("b")
         out = jg.gemm_fused(
-            a, b, epilogue=jg.Epilogue(**ep_kw),
-            prologue=jg.Prologue(norm="rmsnorm") if pro else jg.Prologue(),
+            a, b, epilogue=jg.Epilogue(**ep_kw), prologue=_prologue(jg, pro),
             mode=mode, bwd_mode=bwd_mode, out_dtype=dtype, **kw)
         return jnp.sum(out.astype(jnp.float32) * w)
 
@@ -235,8 +256,7 @@ def _port_grads(chain, ops, w, dtype, bwd_mode):
         kw["scale"] = 0.75
     a, b = t["a"], t["b"]
     out = tg.gemm_fused(
-        a, b, epilogue=tg.Epilogue(**ep_kw),
-        prologue=tg.Prologue(norm="rmsnorm") if pro else tg.Prologue(),
+        a, b, epilogue=tg.Epilogue(**ep_kw), prologue=_prologue(tg, pro),
         out_dtype=dtype, bwd_mode=bwd_mode,
         **{k: v for k, v in t.items() if k not in ("a", "b")}, **kw)
     (out.float() * torch.from_numpy(w)).sum().backward()
@@ -303,13 +323,77 @@ def test_bwd_modes():
 
 
 def test_kernel_backward_saves_preacts_for_the_activation_only():
-    """The forward keeps the raw accumulators for the gated chain (silu'
-    needs them), and none for the scale chain: the port's scale is a
-    number without a gradient (the reference keeps fp32 ones for dscale)."""
+    """The forward keeps the raw accumulators of an activation chain (two
+    for the gated one: act' needs them), and none for the scale chain: the
+    port's scale is a number without a gradient (the reference keeps fp32
+    ones for dscale)."""
     assert tg.kernel_saves(tg.Epilogue(activation="silu", gate=True)) == 2
+    assert tg.kernel_saves(tg.Epilogue(activation="gelu")) == 1
+    assert tg.kernel_saves(tg.Epilogue(activation="relu", bias=True)) == 1
     assert tg.kernel_saves(tg.Epilogue(residual=True, scale=True)) == 0
     assert tg.kernel_saves(tg.Epilogue(rope=True, head_dim=64)) == 0
     assert tg.Epilogue(residual=True, scale=True).saved_accumulators == 1
+
+
+# every chain the forward kernel takes: (norm, beta) x activation x gate
+_TAKEN = [(norm, beta, act, gate)
+          for norm, beta in (("none", False), ("rmsnorm", False),
+                             ("layernorm", False), ("layernorm", True))
+          for act in ("none", "silu", "gelu", "relu")
+          for gate in ((False, True) if act != "none" else (False,))]
+
+
+@pytest.mark.parametrize("norm,beta,act,gate", _TAKEN)
+def test_check_backward_takes_every_forward_chain(norm, beta, act, gate):
+    """check_backward raises on none of the chains the forward kernel
+    takes, and both backward modes give the same fp32 grads there (the
+    reference mode is autograd through the oracle): 1e-4 of each grad's
+    largest entry."""
+    ep = tg.Epilogue(activation=act, gate=gate)
+    pro = tg.Prologue(norm=norm, beta=beta)
+    tg.check_backward(ep, pro)
+    tg.check_chain(ep, pro)
+    rng = np.random.default_rng(11)
+    ops = {"a": rng.standard_normal((M, K)) + 0.3,
+           "b": rng.standard_normal((K, N)) / np.sqrt(K)}
+    if gate:
+        ops["b2"] = rng.standard_normal((K, N)) / np.sqrt(K)
+    if norm != "none":
+        ops["gamma"] = rng.uniform(0.5, 1.5, K)
+    if beta:
+        ops["beta"] = rng.standard_normal(K) * 0.5
+    w = torch.from_numpy(rng.standard_normal((M, N)).astype(np.float32))
+    grads = {}
+    for mode in ("kernel", "reference"):
+        t = {k: torch.from_numpy(v.astype(np.float32)).requires_grad_()
+             for k, v in ops.items()}
+        out = tg.gemm_fused(t["a"], t["b"], epilogue=ep, prologue=pro,
+                            out_dtype=torch.float32, bwd_mode=mode,
+                            **{k: v for k, v in t.items()
+                               if k not in ("a", "b")})
+        (out * w).sum().backward()
+        grads[mode] = {k: v.grad.numpy() for k, v in t.items()}
+    for k, want in grads["reference"].items():
+        err = _tree_max_err(grads["kernel"][k], want)
+        assert err <= 1e-4 * np.abs(want).max(), (k, err)
+
+
+@pytest.mark.parametrize("chain,match", [
+    ((tg.Epilogue(), tg.Prologue(norm="rmsnorm", precomputed_stats=True)),
+     "dmean/drstd"),
+    ((tg.Epilogue(activation="gelu"),
+      tg.Prologue(norm="layernorm", beta=True, precomputed_stats=True)),
+     "dmean/drstd"),
+    ((tg.Epilogue(scale=True, scale_kind="row"), tg.Prologue()),
+     "row scales"),
+    ((tg.Epilogue(scale=True, scale_kind="col", activation="relu"),
+      tg.Prologue(norm="layernorm")), "col scales"),
+])
+def test_check_backward_refuses_what_the_kernels_do_not_take(chain, match):
+    """Each refusal has its own message: the precomputed-statistics
+    prologue's dmean/drstd and the row or column scale's dscale."""
+    with pytest.raises(NotImplementedError, match=match):
+        tg.check_backward(*chain)
 
 
 # ---------------------------------------------------------------------------

@@ -178,7 +178,11 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
         == "gemm_bwd_g"
     assert ps.family("void (anonymous namespace)::gemm_bwd_da_kernel<256, "
                      "true>(sm90::Params)") == "gemm_bwd_da"
-    assert ps.family("rms_transpose_kernel") == "gemm_bwd_da"
+    assert ps.family("void (anonymous namespace)::norm_transpose_kernel"
+                     "<true>(float const*, __nv_bfloat16 const*, float "
+                     "const*, float const*, __nv_bfloat16 const*, "
+                     "__nv_bfloat16*, float*, float*, int, int)") \
+        == "gemm_bwd_da"
     assert ps.family("void (anonymous namespace)::gemm_bwd_db_kernel<64>"
                      "(sm90::Params)") == "gemm_bwd_db"
     assert ps.family("void (anonymous namespace)::flash_bwd_kernel<64>"

@@ -95,11 +95,21 @@ GEMM_CHAINS = {
     "residual_scale": (dict(residual=True, scale=True), False),
     "silu_gate": (dict(activation="silu", gate=True), False),
 }
-# the backward also takes a bias without rope (dbias from the plain g)
-BWD_CHAINS = dict(GEMM_CHAINS, bias=(dict(bias=True), False))
+# the backward also takes a bias without rope (dbias from the plain g), the
+# layernorm prologue ("ln", "ln_beta": dgamma and dbeta) and every
+# activation, gated or not (from the saved preacts)
+BWD_CHAINS = dict(
+    GEMM_CHAINS, bias=(dict(bias=True), False),
+    ln_beta=(dict(), "ln_beta"),
+    ln_beta_gelu=(dict(activation="gelu"), "ln_beta"),
+    ln_relu=(dict(activation="relu"), "ln"),
+    ln_geglu=(dict(activation="gelu", gate=True), "ln_beta"),
+    ln_beta_residual=(dict(residual=True, scale=True), "ln_beta"),
+    silu=(dict(activation="silu"), False),
+    relu_gate=(dict(activation="relu", gate=True), False),
+    bias_gelu_scale=(dict(bias=True, activation="gelu", scale=True), False))
 # the forward also takes a rope head_dim under 16 (through its workspace),
-# the layernorm prologue ("ln", "ln_beta") and every activation, gated or
-# not, which its backward does not take yet
+# which its backward does not
 FWD_CHAINS = dict(
     GEMM_CHAINS, rope_8=(dict(rope=True, head_dim=8), True),
     ln_beta=(dict(), "ln_beta"),
@@ -226,12 +236,12 @@ def test_gemm_fused_every_plan(dev, chain, tile_n, splits):
     """The forward kernel at each tile width and split count its chain
     takes, with M, N and K across the tile and stage edges (N = 136 where
     whole heads allow, else 384; K = 264: five 64-deep stages, the last
-    ragged, split 2 + 2 + 1; M = 200), against the plain version; the
-    gated chain's saved preacts too."""
+    ragged, split 2 + 2 + 1; M = 200), against the plain version; an
+    activation chain's saved preacts (one, or the gate's two) too."""
     n = 384 if FWD_CHAINS[chain][0].get("rope") else 136
     _, a, b, kw = _gemm_operands(dev, chain, 200, 264, n)
-    gate = kw["epilogue"].gate
-    got, rstd, preacts = _fwd_launch(a, b, kw, (tile_n, splits), gate)
+    save = gemm_ops.kernel_saves(kw["epilogue"]) > 0
+    got, rstd, preacts = _fwd_launch(a, b, kw, (tile_n, splits), save)
     torch.cuda.synchronize()
     _close(got, gemm_fused_ref(a, b, **kw), 2 ** -6, 2e-2)
     for p, w in zip(preacts, (b, kw.get("b2"))):
@@ -900,24 +910,26 @@ def test_whisper_engine_replays_bitwise_and_launches_exactly(dev):
 # ---------------------------------------------------------------------------
 
 def _saved(a, b, kw):
-    """The differentiated forward's launch: (out, rstd, preacts)."""
+    """The differentiated forward's launch: (out, stats, preacts)."""
     ep = kw["epilogue"]
     pro = kw.get("prologue", Prologue())
     extra = {k: kw.get(k) for k in ("b2", "bias", "residual", "sin", "cos",
-                                    "gamma")}
+                                    "gamma", "beta")}
     return gemm_forward(a, b, ep, pro, scale=kw.get("scale"),
-                        out_dtype=torch.bfloat16, save_preact=ep.gate, **extra)
+                        out_dtype=torch.bfloat16,
+                        save_preact=gemm_ops.kernel_saves(ep) > 0, **extra)
 
 
 @pytest.mark.parametrize("m,k,n", [(200, 264, 384), (4, 136, 256),
                                    (130, 64, 128)])
 @pytest.mark.parametrize("chain", sorted(BWD_CHAINS))
 def test_gemm_bwd_kernels_match_plain(dev, chain, m, k, n):
-    """dA (with the norm transpose and dgamma) and dB (with dB2 and dbias)
-    against their plain versions on the same g, preacts and rstd: bf16
-    outputs within 2^-6 relative + 2% of their RMS; the fp32 dgamma within
-    1e-3 relative + 1e-3 of its RMS (sums of the same products in another
-    order); dbias, the same fp32 values summed, within 1e-4."""
+    """dA (with the norm transpose, dgamma and dbeta) and dB (with dB2 and
+    dbias) against their plain versions on the same g, preacts and row
+    statistics: bf16 outputs within 2^-6 relative + 2% of their RMS; the
+    fp32 dgamma and dbeta within 1e-3 relative + 1e-3 of their RMS (sums of
+    the same products in another order); dbias, the same fp32 values
+    summed, within 1e-4."""
     rng, a, b, kw = _gemm_operands(dev, chain, m, k, n)
     ep = kw["epilogue"]
     pro = kw.get("prologue", Prologue())
@@ -925,7 +937,8 @@ def test_gemm_bwd_kernels_match_plain(dev, chain, m, k, n):
     g = _rand(rng, (m, n), dev)
     ops = dict(epilogue=ep, prologue=pro, b2=kw.get("b2"),
                bias=kw.get("bias"), scale=kw.get("scale"), sin=kw.get("sin"),
-               cos=kw.get("cos"), gamma=kw.get("gamma"), preacts=preacts)
+               cos=kw.get("cos"), gamma=kw.get("gamma"), beta=kw.get("beta"),
+               preacts=preacts)
     before = kernels.launch_counts()
     da, db, grads = gemm_fused_bwd(a, b, g, rstd=rstd, **ops)
     torch.cuda.synchronize()
@@ -933,7 +946,8 @@ def test_gemm_bwd_kernels_match_plain(dev, chain, m, k, n):
     assert after["gemm_bwd_g"] == before["gemm_bwd_g"] + 1
     assert after["gemm_bwd_da"] == before["gemm_bwd_da"] + 1
     assert after["gemm_bwd_db"] == before["gemm_bwd_db"] + 1
-    want_da, want_dgamma = gemm_bwd_da_ref(a, b, g, **ops)
+    want_da, want_dgamma, want_dbeta = gemm_bwd_da_ref(a, b, g, rstd=rstd,
+                                                       **ops)
     want_db, want_db2, want_dbias = gemm_bwd_db_ref(a, b, g, rstd=rstd, **ops)
     _close(da, want_da, 2 ** -6, 2e-2)
     _close(db, want_db, 2 ** -6, 2e-2)
@@ -943,6 +957,9 @@ def test_gemm_bwd_kernels_match_plain(dev, chain, m, k, n):
         _close(grads["bias"], want_dbias, 1e-4, 1e-4)
     if pro.norm != "none":
         _close(grads["gamma"], want_dgamma, 1e-3, 1e-3)
+    if pro.beta:
+        _close(grads["beta"], want_dbeta, 1e-3, 1e-3)
+    assert ("beta" in grads) == pro.beta
     assert torch.equal(grads["residual"], g)
 
 
@@ -952,7 +969,8 @@ def _bwd_ops(dev, chain, m, k, n):
     ops = dict(epilogue=kw["epilogue"],
                prologue=kw.get("prologue", Prologue()), b2=kw.get("b2"),
                bias=kw.get("bias"), scale=kw.get("scale"), sin=kw.get("sin"),
-               cos=kw.get("cos"), gamma=kw.get("gamma"), preacts=preacts)
+               cos=kw.get("cos"), gamma=kw.get("gamma"), beta=kw.get("beta"),
+               preacts=preacts)
     return a, b, _rand(rng, (m, n), dev), rstd, ops
 
 
@@ -960,11 +978,12 @@ def _check_bwd(run, a, b, g, rstd, ops):
     """One BwdLaunch's outputs against the plain versions, at the
     tolerances of test_gemm_bwd_kernels_match_plain."""
     run.operand_pass()
-    da, dgamma = run.da()
+    da, dgamma, dbeta = run.da()
     db, db2 = run.db()
     dbias = run.dbias()
     torch.cuda.synchronize()
-    want_da, want_dgamma = gemm_bwd_da_ref(a, b, g, **ops)
+    want_da, want_dgamma, want_dbeta = gemm_bwd_da_ref(a, b, g, rstd=rstd,
+                                                       **ops)
     want_db, want_db2, want_dbias = gemm_bwd_db_ref(a, b, g, rstd=rstd, **ops)
     _close(da, want_da, 2 ** -6, 2e-2)
     _close(db, want_db, 2 ** -6, 2e-2)
@@ -974,6 +993,9 @@ def _check_bwd(run, a, b, g, rstd, ops):
         _close(dbias, want_dbias, 1e-4, 1e-4)
     if dgamma is not None:
         _close(dgamma, want_dgamma, 1e-3, 1e-3)
+    assert (dbeta is None) == (want_dbeta is None)
+    if dbeta is not None:
+        _close(dbeta, want_dbeta, 1e-3, 1e-3)
 
 
 @pytest.mark.parametrize("tile_n", [64, 128, 256])
@@ -1021,6 +1043,30 @@ def test_gemm_bwd_at_the_training_shapes(dev, case):
                    "swiglu_up": ("silu_gate_norm", 2048, 8192),
                    "down": ("residual_scale", 8192, 2048)}[case]
     a, b, g, rstd, ops = _bwd_ops(dev, chain, 4096, k, n)
+    run = gemm_backward.BwdLaunch(a, b, g, rstd=rstd, **ops)
+    _check_bwd(run, a, b, g, rstd, ops)
+
+
+# the GEMM backward of whisper-base's and bert-110m's training layers: (M,
+# K, N, chain); bert over 8 x 512 tokens, whisper's encoder over 4 x 1500
+# frames, its decoder over 4 x 448 tokens
+ENCODER_BWD_SHAPES = {
+    "bert_qk": (4096, 768, 1536, "ln_beta"),
+    "bert_up_gelu": (4096, 768, 3072, "ln_beta_gelu"),
+    "bert_down": (4096, 3072, 768, "residual_scale"),
+    "whisper_enc_v": (6000, 512, 512, "ln_beta"),
+    "whisper_enc_up_gelu": (6000, 512, 2048, "ln_beta_gelu"),
+    "whisper_dec_down": (1792, 2048, 512, "residual_scale"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENCODER_BWD_SHAPES))
+def test_gemm_bwd_at_the_encoder_shapes(dev, case):
+    """The whole backward (operand pass, dA with the layernorm row pass,
+    dB) of bert's and whisper's training GEMMs, the tile width picked per
+    launch, against the plain versions at the forward's statistics."""
+    m, k, n, chain = ENCODER_BWD_SHAPES[case]
+    a, b, g, rstd, ops = _bwd_ops(dev, chain, m, k, n)
     run = gemm_backward.BwdLaunch(a, b, g, rstd=rstd, **ops)
     _check_bwd(run, a, b, g, rstd, ops)
 
@@ -1075,6 +1121,51 @@ def test_gemm_autograd_launches_the_backward_kernels(dev):
         _close(k_, r_, 5e-2, 5e-2)
 
 
+@pytest.mark.parametrize("arch", ["bert-110m", "whisper-base"])
+def test_encoder_families_train_on_the_backward_kernels(dev, arch):
+    """One loss and its grads of bert-110m (2 layers, 2 x 128 tokens) and
+    whisper-base (1 + 1 layers, 2 x 64 tokens over 2 x 1500 frames) at
+    published width, kernel mode, blocks recomputed: every GEMM runs its
+    backward as the operand pass, dA and dB, every attention the flash
+    backward (the cross projections are plain products), launches exact;
+    the grads finite and the loss within 2e-2 of the plain bf16 path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.optimizer import leaves
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=1 if arch == "whisper-base"
+                              else 2, encoder_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = make_batch(cfg, 2, 64 if arch == "whisper-base" else 128,
+                       generator=gen)
+    enc = cfg.encoder_layers if arch == "whisper-base" else 0
+    dec = cfg.num_layers
+    # per layer: 4 GEMMs (q|k, v, up, down) and its attentions, twice
+    # (forward and recompute); the decoder's two attentions (self, cross)
+    attn = enc + dec * (2 if arch == "whisper-base" else 1)
+    want = {"gemm_fused": 8 * (enc + dec), "flash_attention_fwd": 2 * attn,
+            "gemm_bwd_g": 4 * (enc + dec), "gemm_bwd_da": 4 * (enc + dec),
+            "gemm_bwd_db": 4 * (enc + dec), "flash_attention_bwd": 2 * attn}
+    losses = {}
+    for mode in ("kernel", "reference"):
+        model = build_model(cfg, mode=mode, device=dev)
+        params = tree_map(lambda t: t.requires_grad_(),
+                          model.init(seed=0, dtype="float32"))
+        kernels.reset_launch_counts()
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves(params))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        if mode == "kernel":
+            assert counts == want
+            assert all(bool(torch.isfinite(g).all()) for g in grads)
+        else:
+            assert not counts
+        losses[mode] = float(loss)
+    assert abs(losses["kernel"] - losses["reference"]) < 2e-2
+
+
 def _attn_case(case):
     b, h, hkv, sq, skv, d = 2, 8, 2, 192, 192, 64
     kw = {"causal": True}
@@ -1098,6 +1189,14 @@ def _attn_case(case):
         h, hkv, d = 32, 2, 128
     elif case == "train":          # llama-1b's training shape
         b, h, hkv, sq, skv = 4, 32, 8, 1024, 1024
+    elif case == "bert":           # bert-110m's 8 x 512, non-causal
+        kw, b, h, hkv, sq, skv = {"causal": False}, 8, 12, 12, 512, 512
+    elif case == "whisper_enc":    # 1500 frames: a ragged last key tile
+        kw, b, h, hkv, sq, skv = {"causal": False}, 4, 8, 8, 1500, 1500
+    elif case == "whisper_dec":    # the decoder's causal self attention
+        b, h, hkv, sq, skv = 4, 8, 8, 448, 448
+    elif case == "whisper_cross":  # 448 queries over 1500 frames
+        kw, b, h, hkv, sq, skv = {"causal": False}, 4, 8, 8, 448, 1500
     return b, h, hkv, sq, skv, d, kw
 
 
@@ -1132,7 +1231,9 @@ def _attn_bwd_inputs(case, dev, seed=6):
 @pytest.mark.parametrize("case", ["causal_gqa", "ragged", "d128",
                                   "d128_window", "window", "softcap",
                                   "noncausal_cross", "mha", "group8",
-                                  "group16_d128", "train"])
+                                  "group16_d128", "train", "bert",
+                                  "whisper_enc", "whisper_dec",
+                                  "whisper_cross"])
 def test_flash_attention_bwd_kernel_matches_plain(dev, case):
     """The main kernel and the dq conversion against the plain version on
     the same q, k, v, out, lse and dO, q and k as strided views of one
@@ -1140,7 +1241,9 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, case):
     within 2e-2 relative + 2% of each gradient's RMS (bf16 outputs, sums in
     another order). Groups 1, 4, 8 and 16 (chatglm3-6b's, at d 128);
     "train" is llama-1b's training shape (B 4, H 32, Hkv 8, S 1024, d 64,
-    causal)."""
+    causal); "bert" and "whisper_*" the encoder families' training shapes
+    (non-causal over 512 and 1500 keys, the decoder's causal 448, its cross
+    attention of 448 queries over 1500 frames)."""
     args, kw = _attn_bwd_inputs(case, dev)
     before = kernels.launch_counts()["flash_attention_bwd"]
     got = flash_attention_bwd(*args, **kw)

@@ -8,8 +8,8 @@ prologue in the q|k, v and up GEMMs, gelu in the up GEMM's store); the
 greedy streams of ``Engine.generate(..., extra_batch=...)``; bert at the
 reference test's 2-layer width; the decode step at a device position (what
 a captured step reads) bit for bit the int one, and an engine's reused
-{"self", "cross"} cache; and what stays refused (the serving CLI, the
-paged surface, the loss, an encoder's cache).
+{"self", "cross"} cache; the loss of both; and what stays refused (the
+serving CLI, the paged surface, an encoder's cache).
 
 Both sides run the same weights: the reference's seeded init converted
 with ``params_from_numpy``, and the same numpy encoder embeddings. fp32
@@ -460,10 +460,26 @@ def test_encoder_has_no_cache():
 
 @pytest.mark.parametrize("arch", ["whisper-base", "bert-110m"])
 def test_loss_and_paged_surface_raise(arch):
-    _, tcfg = _cfgs(arch)
+    """The loss is ported (tests/test_torch_encoder_train.py holds its
+    grads): the kernel mode's loss equals the JAX model's in fp32 within
+    1e-5 relative; the paged surface stays refused."""
+    jcfg, tcfg = _cfgs(arch)
     model = build_model(tcfg, mode="kernel", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        model.loss({}, {})
+    emb, toks = _inputs(arch)
+    batch = {"inputs": toks[:, :S], "targets": toks[:, 1:S + 1]}
+    if arch == "whisper-base":
+        batch["encoder_embeds"] = emb
+    want, _ = j_build_model(jcfg, mode="reference").loss(
+        jax.tree.map(jnp.asarray, _np_params(arch)),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    params = params_from_numpy(_np_params(arch), "cpu", torch.float32)
+    with torch.no_grad():
+        got, metrics = model.loss(params, {
+            k: torch.from_numpy(v).to(torch.int64 if v.dtype == np.int32
+                                      else torch.float32)
+            for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert float(metrics["aux"]) == 0.0
     with pytest.raises(NotImplementedError, match="no paged path"):
         model.init_paged_cache(2, 8, 4)
     with pytest.raises(NotImplementedError, match="no paged path"):

@@ -170,8 +170,11 @@ def test_gemm_fused_refuses_what_the_kernel_does_not_take(case):
                           scale=torch.ones(8, 1)),
         "col_scale": dict(epilogue=tg.Epilogue(scale=True, scale_kind="col"),
                           scale=torch.ones(1, 8)),
-        # the backward kernels take no gelu' and no non-gated preacts yet
-        "grad_plain_gelu": dict(epilogue=tg.Epilogue(activation="gelu")),
+        # the backward kernels take gelu' (from the saved preact) but no
+        # dscale: a scale that requires grad is refused when recorded
+        "grad_plain_gelu": dict(
+            epilogue=tg.Epilogue(activation="gelu", scale=True),
+            scale=torch.tensor(0.5, requires_grad=True)),
         "missing_b2": dict(epilogue=tg.Epilogue(activation="silu", gate=True)),
         "extra_bias": dict(bias=torch.zeros(8)),
         "rope_head_dim": dict(epilogue=tg.Epilogue(rope=True, head_dim=6),
@@ -210,27 +213,38 @@ def test_gemm_fused_refuses_fp8_operands(dtype):
         tg.gemm_fused(a, torch.zeros(16, 8), out_dtype=torch.float32)
 
 
-# chains whose backward kernels come later: layernorm's transpose with
-# dbeta, gelu' and relu', and the non-gated chains' saved preacts
+# the chains whose backward kernels came after their forward (layernorm's
+# transpose with dbeta, gelu' and relu', the non-gated saved preacts)
 NO_KERNEL_BACKWARD = ["ln", "ln_beta", "ln_beta_up_gelu", "ln_up_geglu",
                       "silu", "gelu", "relu", "gelu_gate", "relu_gate"]
 
 
 @pytest.mark.parametrize("chain", NO_KERNEL_BACKWARD)
 def test_kernel_backward_refuses_what_it_does_not_take(chain):
-    """Autograd through a layernorm or a chain other than the gated silu
-    raises in kernel mode (the default) when the call is recorded."""
+    """Autograd through each of these chains records in kernel mode (the
+    default) and gives the grads of bwd_mode='reference' (fp32, 1e-5 of
+    each grad's largest entry); what the backward kernels still refuse,
+    the same chain on precomputed statistics, raises in check_backward."""
     ep_kw, pro, ops = _operands(chain, "float32")
     ta = _torch_args(ops, torch.float32)
-    a = ta.pop("a").requires_grad_()
-    kw = dict(epilogue=tg.Epilogue(**ep_kw), out_dtype=torch.float32, **{
-        k: v for k, v in ta.items() if k != "b"})
-    if pro:
-        kw["prologue"] = tg.Prologue(**pro)
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (M, N)).astype(np.float32))
+    grads = {}
+    for mode in ("kernel", "reference"):
+        a = ta["a"].clone().requires_grad_()
+        kw = dict(epilogue=tg.Epilogue(**ep_kw), out_dtype=torch.float32, **{
+            k: v for k, v in ta.items() if k not in ("a", "b")})
+        if pro:
+            kw["prologue"] = tg.Prologue(**pro)
+        out = tg.gemm_fused(a, ta["b"], bwd_mode=mode, **kw)
+        assert out.requires_grad
+        grads[mode] = torch.autograd.grad((out * w).sum(), a)[0]
+    err = (grads["kernel"] - grads["reference"]).abs().max()
+    assert err <= 1e-5 * grads["reference"].abs().max()
+    stats = tg.Prologue(**dict(pro or {"norm": "rmsnorm"},
+                               precomputed_stats=True))
     with pytest.raises(NotImplementedError, match="backward kernel"):
-        tg.gemm_fused(a, ta["b"], **kw)
-    out = tg.gemm_fused(a, ta["b"], bwd_mode="reference", **kw)
-    assert out.requires_grad
+        tg.check_backward(tg.Epilogue(**ep_kw), stats)
 
 
 @pytest.mark.parametrize("chain", ["ln_beta_up_gelu", "ln_up_geglu",

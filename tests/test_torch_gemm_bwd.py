@@ -24,7 +24,8 @@ from repro_torch.kernels.gemm import backward as bwd
 jg = importlib.import_module("repro.kernels.gemm")
 
 # the chains of the card tests' BWD_CHAINS (tests/test_torch_cuda.py):
-# name -> (epilogue kwargs, rmsnorm prologue?)
+# name -> (epilogue kwargs, prologue: False, True (rmsnorm), "ln" or
+# "ln_beta" (layernorm without or with beta))
 BWD_CHAINS = {
     "rope_bias": (dict(rope=True, head_dim=64, bias=True), True),
     "rope_128": (dict(rope=True, head_dim=128), True),
@@ -33,6 +34,16 @@ BWD_CHAINS = {
     "silu_gate_norm": (dict(activation="silu", gate=True), True),
     "residual_scale": (dict(residual=True, scale=True), False),
     "bias": (dict(bias=True), False),
+    "ln_beta": (dict(), "ln_beta"),
+    "ln": (dict(), "ln"),
+    "ln_beta_gelu": (dict(activation="gelu"), "ln_beta"),
+    "ln_relu": (dict(activation="relu"), "ln"),
+    "ln_beta_silu": (dict(activation="silu"), "ln_beta"),
+    "ln_geglu": (dict(activation="gelu", gate=True), "ln_beta"),
+    "ln_beta_residual": (dict(residual=True, scale=True), "ln_beta"),
+    "relu_gate": (dict(activation="relu", gate=True), False),
+    "bias_gelu_scale": (dict(activation="gelu", bias=True, scale=True),
+                        False),
 }
 # (M, K, N): M ragged against the 64-row blocks of the pass, and across them
 SHAPES = [(24, 128, 256), (136, 64, 128)]
@@ -40,8 +51,9 @@ SHAPES = [(24, 128, 256), (136, 64, 128)]
 
 def _operands(chain, m, k, n, dtype):
     """Seeded operands of one chain, as the backward receives them: a, b,
-    g, the saved preacts (the rounded raw products, gated chain), rstd (the
-    forward's) and the chain's extras."""
+    g, the saved preacts (the rounded raw products of an activation
+    chain), the forward's row statistics (rstd, or layernorm's (2, M) mean
+    and rstd) and the chain's extras."""
     ep_kw, norm = BWD_CHAINS[chain]
     rng = np.random.default_rng(m * 7 + k + n)
 
@@ -49,7 +61,7 @@ def _operands(chain, m, k, n, dtype):
         return torch.from_numpy(
             (rng.standard_normal(shape) * std).astype(np.float32)).to(dtype)
 
-    a, b, g = rnd(m, k), rnd(k, n, std=k ** -0.5), rnd(m, n)
+    a, b, g = rnd(m, k) + 0.5, rnd(k, n, std=k ** -0.5), rnd(m, n)
     kw = dict(epilogue=Epilogue(**ep_kw), prologue=Prologue())
     if ep_kw.get("gate"):
         kw["b2"] = rnd(k, n, std=k ** -0.5)
@@ -66,14 +78,23 @@ def _operands(chain, m, k, n, dtype):
     rstd = None
     an = a.float()
     if norm:
-        kw["prologue"] = Prologue(norm="rmsnorm")
+        ln = norm in ("ln", "ln_beta")
+        pro = Prologue(norm="layernorm" if ln else "rmsnorm",
+                       beta=norm == "ln_beta")
+        kw["prologue"] = pro
         kw["gamma"] = (1 + 0.1 * rnd(k).float()).to(dtype)
-        rstd = kw["prologue"].compute_stats(a)["rstd"].reshape(-1)
-        an = kw["prologue"].apply(a.float(), gamma=kw["gamma"].float(),
-                                  rstd=rstd[:, None]).to(dtype).float()
-    preacts = ()
-    if ep_kw.get("gate"):
-        preacts = tuple((an @ w.float()).to(dtype) for w in (b, kw["b2"]))
+        if pro.beta:
+            kw["beta"] = rnd(k, std=0.5)
+        st = pro.compute_stats(a)
+        stats = {x: v for x, v in st.items()}
+        rstd = (torch.stack([st["mean"].reshape(-1), st["rstd"].reshape(-1)])
+                if ln else st["rstd"].reshape(-1))
+        an = pro.apply(a.float(), gamma=kw["gamma"].float(),
+                       beta=kw["beta"].float() if pro.beta else None,
+                       **stats).to(dtype).float()
+    preacts = tuple((an @ w.float()).to(dtype)
+                    for w in (b, kw.get("b2"))[:kw["epilogue"].n_accumulators]
+                    if kw["epilogue"].activation != "none")
     return a, b, g, rstd, preacts, kw
 
 
@@ -81,10 +102,12 @@ def _operands(chain, m, k, n, dtype):
 @pytest.mark.parametrize("chain", sorted(BWD_CHAINS))
 def test_operand_pass_then_products_is_the_plain_backward(chain, m, k, n):
     """gemm_bwd_g_ref, then dAn = gbar @ [B | B2]ᵀ (and the norm
-    transpose) and [dB | dB2] = An_ᵀ @ gbar from its transposed outputs,
-    equal gemm_bwd_da_ref and gemm_bwd_db_ref bit for bit: the same fp32
-    values contracted in the same layouts. dbias, summed from the 64-row
-    partials instead of in one column sum, within 1e-5."""
+    transpose, dgamma and dbeta) and [dB | dB2] = An_ᵀ @ gbar from its
+    transposed outputs, equal gemm_bwd_da_ref and gemm_bwd_db_ref bit for
+    bit: the same fp32 values contracted in the same layouts. dbias, summed
+    from the 64-row partials instead of in one column sum, within 1e-5.
+    The dA plain version at the forward's statistics (what the dA launch
+    reads) within 1e-5 of it at recomputed ones."""
     a, b, g, rstd, preacts, kw = _operands(chain, m, k, n, torch.bfloat16)
     ep, pro = kw["epilogue"], kw["prologue"]
     ops = gemm_bwd_g_ref(a, g, rstd=rstd, preacts=preacts,
@@ -102,21 +125,35 @@ def test_operand_pass_then_products_is_the_plain_backward(chain, m, k, n):
     dan = gbar[:, :n].contiguous() @ b.to(f32).T
     if ep.gate:
         dan = dan + gbar[:, n:].contiguous() @ kw["b2"].to(f32).T
+    dbeta = None
     if pro.is_identity:
         da, dgamma = dan.to(a.dtype), None
     else:
         tr = pro.transpose(dan, a.to(f32),
                            gamma=kw["gamma"].to(f32).reshape(1, -1))
         da, dgamma = tr["da"].to(a.dtype), tr["dgamma"].reshape(-1)
+        if pro.beta:
+            dbeta = tr["dbeta"].reshape(-1)
     an = ops["a_t"].T.contiguous()
     gt = ops["gbar_t"]
     db = (an.T @ gt[:n].T.contiguous()).to(b.dtype)
     db2 = (an.T @ gt[n:].T.contiguous()).to(b.dtype) if ep.gate else None
 
-    want_da, want_dgamma = gemm_bwd_da_ref(a, b, g, preacts=preacts, **kw)
+    want_da, want_dgamma, want_dbeta = gemm_bwd_da_ref(
+        a, b, g, preacts=preacts, **kw)
     want_db, want_db2, want_dbias = gemm_bwd_db_ref(a, b, g, rstd=rstd,
                                                     preacts=preacts, **kw)
     assert torch.equal(da, want_da)
+    if pro.beta:
+        assert torch.equal(dbeta, want_dbeta)
+    else:
+        assert want_dbeta is None
+    if rstd is not None:
+        saved = gemm_bwd_da_ref(a, b, g, preacts=preacts, rstd=rstd, **kw)
+        for x, y in zip(saved, (want_da, want_dgamma, want_dbeta)):
+            if y is not None:
+                torch.testing.assert_close(x.float(), y.float(), rtol=1e-2,
+                                           atol=1e-5 * y.float().abs().max())
     assert torch.equal(db, want_db)
     if ep.gate:
         assert torch.equal(db2, want_db2)
@@ -156,10 +193,16 @@ def test_operand_pass_matches_the_reference_transpose(chain):
                                atol=1e-5)
     want_a = a.numpy()
     if norm:
-        want_a = np.asarray(jg.Prologue(norm="rmsnorm").apply(
+        pro = kw["prologue"]
+        stats = ({"mean": rstd[0], "rstd": rstd[1]}
+                 if pro.norm == "layernorm" else {"rstd": rstd})
+        jkw = {x: jnp.asarray(v.numpy().reshape(-1, 1))
+               for x, v in stats.items()}
+        if pro.beta:
+            jkw["beta"] = jnp.asarray(kw["beta"].numpy().reshape(1, -1))
+        want_a = np.asarray(jg.Prologue(norm=pro.norm, beta=pro.beta).apply(
             jnp.asarray(a.numpy()),
-            gamma=jnp.asarray(kw["gamma"].numpy().reshape(1, -1)),
-            rstd=jnp.asarray(rstd.numpy().reshape(-1, 1))))
+            gamma=jnp.asarray(kw["gamma"].numpy().reshape(1, -1)), **jkw))
     np.testing.assert_allclose(ops["a_t"].numpy(), want_a.T, rtol=1e-5,
                                atol=1e-6)
     if ep_kw.get("bias"):
