@@ -14,7 +14,12 @@ Phases, each of which raises on failure (exit code non-zero):
 3. Kernels: each kernel against its plain torch version on the card, at the
    llama-1b main-path shapes (prefill B 4, S 256, so M = 1024; decode B 4
    over a 296-slot cache; paged decode over 8 slots of an 8-page bucket of
-   a 65-page pool, a 128-token chunk at position 192 and a 4-token verify;
+   a 65-page pool, a 128-token chunk at position 192 and a 4-token verify,
+   which also runs over a 16-page bucket (two splits), each verify row
+   held bit for bit to the serial T = 1 call at its position (required at
+   one split, recorded at two); the forward GEMM at the verify step's
+   M = 32 (q|k + rope, v, the SwiGLU up, the down + residual), rows 0-7
+   bit for bit the M = 8 call's;
    the flash forward at served prefill (B 4, S 256), the paged engine's
    lone-sequence prefill (B 1, S 256) and training (B 4, S 1024), q, k and
    v strided views of the projections as the model passes them;
@@ -182,7 +187,30 @@ Phases, each of which raises on failure (exit code non-zero):
    attention 2 flash forwards and the flash backward's 2 launches; a
    whisper decoder layer has two attentions, its cross projections plain
    products), tokens/s, peak memory and one traced step's busy share.
-10. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+10. Greedy speculative decoding: llama-1b whole, weights at a trained
+   model's scale, kernel mode, ``PagedEngine(..., spec_tokens=4)``: (a)
+   phase 5a's traffic and pool with the target drafting for itself (at
+   least one preemption under a round's 4-token headroom), (b) the same
+   with a layer-skip draft (the target's embedding, final norm and first 2
+   blocks, views of its stacked leaves), (c) phase 5b's traffic with the
+   prefix cache, 128-token chunks and the self-draft; the plain
+   ``PagedEngine`` on the same weights and traffic beside each. First one
+   served stream by 4-token verify steps against serial decode steps in a
+   lone slot: whether their logits are equal bit for bit. Each phase
+   checks completion and pool accounting; every stream equal to the plain
+   engine's or, where one differs, the plain step's top-2 logit margin at
+   its first differing position under the logit distance of the routes the
+   two engines can take there (verify steps against serial steps, and a
+   re-prefill for a preempted request); the self-draft accepting every
+   proposal unless the routes' logits differ; every launch counter (zeroed
+   just before, read just after) equal to what the engine's counters imply
+   (per round k draft steps and one verify, each 2 ``gemm_fused`` and one
+   ``flash_decode_paged`` a layer, plus both models' prefills and chunks);
+   ``bucket_lru`` printed and the ``verify``, ``draft_decode`` and a draft
+   prefill or chunk key cached; one replayed verify step bit for bit the
+   eager T = 4 ``decode_step_paged``; decode tokens/s beside the plain
+   engine's.
+11. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -216,6 +244,7 @@ from repro_torch.kernels.attention import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref,
     flash_decode, flash_decode_paged)
 from repro_torch.kernels.attention import backward as attn_bwd  # noqa: E402
+from repro_torch.kernels.attention import decode as attn_decode  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.gemm import (EPILOGUE_NONE, PROLOGUE_NONE,  # noqa: E402
                                       Epilogue, Prologue, ln_rows_ref,
@@ -254,6 +283,9 @@ B_BATCH, B_SEQ = 8, 512
 W_TRAIN_BATCH, W_TRAIN_SEQ, ENC_TRAIN_STEPS, MLM_MASK = 4, 448, 6, 0.15
 # the paged slice: PagedEngine geometry and the chunk of phase 5b
 SLOTS, PAGE, MAX_PAGES, CHUNK = 8, 64, 8, 128
+# phase 10: tokens a speculative round verifies (k), the layer-skip draft's
+# depth
+SPEC_TOKENS, SKIP_LAYERS = 4, 2
 # the training slice: batch x sequence a step, steps, peak learning rate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
 # phase 7b: steps of 6b's run on the ladder's rung 2
@@ -515,6 +547,93 @@ def encoder_gemm_cases(dev, gen):
     return cases
 
 
+def verify_gemm_cases(cfg, dev, gen):
+    """llama-1b's four fused GEMMs of a layer at the verify step's M =
+    SLOTS x SPEC_TOKENS rows (q|k + rope and v behind the rmsnorm prologue,
+    the SwiGLU up, the down projection + residual). The engine's verify
+    runs the up and down ones (its q|k and v are plain products, as in
+    every decode step). (name, a, b, kwargs, on the verify path)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    nqk = (cfg.num_heads + cfg.num_kv_heads) * hd
+    nv = cfg.num_kv_heads * hd
+    m = SLOTS * SPEC_TOKENS
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    gamma = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
+    rms = dict(prologue=Prologue(norm="rmsnorm"), gamma=gamma)
+    # positions of 8 slots' 4-token blocks at ragged lengths
+    pos = (torch.tensor([4, 64, 68, 130, 257, 300, 400, 508],
+                        device=dev)[:, None]
+           + torch.arange(SPEC_TOKENS, device=dev)).reshape(-1)
+    sin, cos = rope_tables(pos, hd, cfg.rope_theta)
+    x = rnd(m, d)
+    return [
+        ("verify_qk_rope", x, rnd(d, nqk, std=d ** -0.5),
+         dict(epilogue=Epilogue(rope=True, head_dim=hd), sin=sin, cos=cos,
+              **rms), False),
+        ("verify_v", x, rnd(d, nv, std=d ** -0.5), dict(**rms), False),
+        ("verify_up", x, rnd(d, f, std=d ** -0.5),
+         dict(epilogue=Epilogue(activation="silu", gate=True),
+              b2=rnd(d, f, std=d ** -0.5), **rms), True),
+        ("verify_down", rnd(m, f), rnd(f, d, std=f ** -0.5),
+         dict(epilogue=Epilogue(residual=True, scale=True),
+              residual=rnd(m, d), scale=1.0), True),
+    ]
+
+
+def measure_verify_gemms(cfg, dev, gen, timer):
+    """gemm_fused at the verify step's M = 32 (verify_gemm_cases) against
+    its plain version, timed with the bare product's torch.matmul and the
+    bound; rows 0-7 of the M = 32 call must equal the M = 8 call on those
+    rows bit for bit (the planner gives every M of one tile row one plan,
+    so each row's sum keeps its order), as a verify row must equal the
+    serial decode step's."""
+    rows = []
+    for name, a, b, kw, on_path in verify_gemm_cases(cfg, dev, gen):
+        ep, pro, extra = fwd_args(kw)
+        m, k = a.shape
+        n = b.shape[1]
+
+        def kernel(a=a, extra=extra):
+            return gemm_ops._launch(a, b, ep, eps=pro.eps, **extra)[0]
+
+        def plain():
+            return gemm_ops.forward_ref(a, b, ep, pro, **extra)[0]
+
+        got, want = kernel(), plain()
+        few = {key: (v[:SLOTS] if key in ("sin", "cos", "residual")
+                     and v is not None else v) for key, v in extra.items()}
+        serial = kernel(a[:SLOTS].contiguous(), few)
+        torch.cuda.synchronize()
+        err, tol = check_close(f"gemm_fused[{name}]", got, want, 2 ** -6,
+                               2e-2)
+        diff = (got[:SLOTS].float() - serial.float()).abs().max().item()
+        log(f"[kernel] gemm_fused[{name}]: rows 0-{SLOTS - 1} of M {m} "
+            f"{'equal' if diff == 0 else 'DIFFER FROM'} the M {SLOTS} call "
+            f"bit for bit (max |diff| {diff:.4g})")
+        if diff != 0:
+            raise AssertionError(f"gemm_fused[{name}]: the M {m} call's first "
+                                 f"rows differ from the M {SLOTS} call")
+        gated = ep.gate
+        b_lib = torch.cat([b, kw["b2"]], dim=1) if gated else b
+        flops = 2 * m * n * k * (2 if gated else 1)
+        traffic = nbytes(a, b, kw.get("b2"), kw.get("gamma"),
+                         kw.get("residual"), kw.get("sin"), kw.get("cos"),
+                         got)
+        b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
+        rows.append(dict(
+            case=name, shape=[m, k, n], max_abs_err=err, tolerance=tol,
+            on_verify_path=on_path, rows_bitwise_vs_m8=True,
+            ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+            library_ms=timer.ms(lambda: torch.matmul(a, b_lib)),
+            bound_ms=b_ms, bound_by=b_by))
+        del got, want, serial, b_lib
+    return rows
+
+
 def fwd_args(kw):
     """(epilogue, prologue, the other keyword arguments of ops._launch and
     ops.forward_ref) of a case's gemm_fused keyword arguments."""
@@ -545,7 +664,9 @@ def baseline_kernels(csrc: str) -> dict:
     forward ``flash_fwd.cu`` (PR 17 and before: the WMMA kernel), whose
     entry point has this tree's arity and arguments, the decode
     kernels ``flash_decode.cu`` and ``flash_decode_paged.cu`` whose entry
-    points write fp32 partials (None otherwise), and ``rope.cu`` and
+    points write fp32 partials (None otherwise), or whose entry points
+    are this tree's (``flash_decode_same``, ``flash_decode_paged_same``:
+    the kernels that merge their splits in the launch), and ``rope.cu`` and
     ``fused_norm.cu``, whose entry points are this tree's; the TMA +
     wgmma forward of PRs 16-21 (``fwd_sm90``: rmsnorm and the gated silu
     only, no beta or mean, the gate bit without an activation code); and
@@ -586,6 +707,10 @@ def baseline_kernels(csrc: str) -> dict:
              partials),
             ("flash_decode_paged", "flash_decode_paged.cu",
              "flash_decode_paged_launch", paged_partials),
+            ("flash_decode_same", "flash_decode.cu", "flash_decode_launch",
+             attn_decode.KERNEL.argtypes),
+            ("flash_decode_paged_same", "flash_decode_paged.cu",
+             "flash_decode_paged_launch", attn_decode.PAGED_KERNEL.argtypes),
             ("rope", "rope.cu", "rope_launch", kernels.ROPE_KERNEL.argtypes),
             ("fused_norm", "fused_norm.cu", "fused_norm_launch",
              kernels.FUSED_NORM_KERNEL.argtypes)):
@@ -597,8 +722,9 @@ def baseline_kernels(csrc: str) -> dict:
     return {"fwd": None, "fwd_sm90": None, "fwd_same": None,
             "flash_bwd": None,
             "flash_fwd": None,
-            "flash_decode": None, "flash_decode_paged": None, "rope": None,
-            "fused_norm": None, **kerns}
+            "flash_decode": None, "flash_decode_paged": None,
+            "flash_decode_same": None, "flash_decode_paged_same": None,
+            "rope": None, "fused_norm": None, **kerns}
 
 
 def baseline_fwd(kern, a, b, kw, save):
@@ -1061,12 +1187,18 @@ def measure_decode(cfg, dev, gen, timer, old=None):
     vc = torch.randn(BATCH, hkv, MAX_LEN, hd, generator=gen, device=dev).to(bf16)
     row = decode_row("decode_step", q, kc, vc, length, timer)
     kernel = row.pop("kernel")
-    if old is not None and old["flash_decode"] is not None:
+    if old is not None and (old["flash_decode"] is not None
+                            or old["flash_decode_same"] is not None):
         lengths = torch.full((BATCH,), length, dtype=torch.int32, device=dev)
         o, m, l = decode_partials_ref(q, kc, vc, lengths, scale=hd ** -0.5)
-        decode_turns(row, "flash_decode[decode_step]",
-                     baseline_decode(old["flash_decode"], q, kc, vc,
-                                     lengths), kernel,
+        if old["flash_decode_same"] is not None:
+            def old_fn():
+                return attn_decode._launch(
+                    q, kc, vc, lengths, window=None, scale=hd ** -0.5,
+                    softcap=None, sinks=None, kernel=old["flash_decode_same"])
+        else:
+            old_fn = baseline_decode(old["flash_decode"], q, kc, vc, lengths)
+        decode_turns(row, "flash_decode[decode_step]", old_fn, kernel,
                      combine_splits(o, m, l).to(q.dtype), timer)
     return [row]
 
@@ -1074,7 +1206,7 @@ def measure_decode(cfg, dev, gen, timer, old=None):
 def paged_cases(cfg, dev, gen):
     """The paged kernel's three shapes on the main path, over one 65-page
     pool whose tables are a seeded permutation: (name, q, table, lengths,
-    q_tokens)."""
+    q_tokens). The verify step's k is SPEC_TOKENS."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
     bf16 = torch.bfloat16
@@ -1093,15 +1225,38 @@ def paged_cases(cfg, dev, gen):
         ("decode", q(SLOTS, g), table,
          lens(0, 1, 64, 65, 130, 257, 400, 512), 1),
         ("chunk", q(1, g * CHUNK), table[:1], lens(192 + CHUNK), CHUNK),
-        ("verify", q(SLOTS, g * 4), table,
-         lens(4, 64, 68, 130, 257, 300, 400, 512), 4),
+        ("verify", q(SLOTS, g * SPEC_TOKENS), table,
+         lens(4, 64, 68, 130, 257, 300, 400, 512), SPEC_TOKENS),
     ]
 
 
+def verify_serial_bits(name, kernel_fn, q, lengths, t, g):
+    """Row t' of a T-token call against a 1-token call of that row's
+    queries at length ``lengths - T + 1 + t'`` (the same visible keys): a
+    verify row must be the serial decode step's bits. Returns (holds, max
+    |diff|)."""
+    b, hkv, _, d = q.shape
+    got = kernel_fn(q, lengths, t).view(b, hkv, g, t, d)
+    diff = 0.0
+    for i in range(t):
+        one = kernel_fn(q.view(b, hkv, g, t, d)[:, :, :, i].contiguous(),
+                        lengths - (t - 1) + i, 1)
+        diff = max(diff, (got[:, :, :, i].float() - one.float())
+                   .abs().max().item())
+    torch.cuda.synchronize()
+    verdict = "equal" if diff == 0 else "DIFFER FROM"
+    log(f"[kernel] {name}: verify rows {verdict} the serial T = 1 calls bit "
+        f"for bit (max |diff| {diff:.4g})")
+    return diff == 0, diff
+
+
 def measure_paged(cfg, dev, gen, timer, old=None):
-    """The paged kernel at its three main-path shapes (paged_cases); with
-    ``old`` (baseline_kernels), the earlier kernel and its plain combine in
-    turns with this one."""
+    """The paged kernel at its three main-path shapes (paged_cases), and the
+    verify step also over a 16-page bucket (900-1024 keys, two splits a
+    unit, merged in the launch); each verify row held bit for bit to the
+    serial T = 1 call at its position (it must hold at the main path's one
+    split; over splits it is recorded); with ``old`` (baseline_kernels),
+    the earlier kernel and its plain combine in turns with this one."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
     bf16 = torch.bfloat16
@@ -1112,7 +1267,21 @@ def measure_paged(cfg, dev, gen, timer, old=None):
                           device=dev).to(bf16)
     scale = hd ** -0.5
     rows = []
-    for name, q, table, lengths, t in paged_cases(cfg, dev, gen):
+    # the multi-split verify: 8 slots of a 16-page bucket of a 129-page pool
+    big_k = torch.randn(2 * n_pages - 1, hkv, PAGE, hd, generator=gen,
+                        device=dev).to(bf16)
+    big_v = torch.randn(2 * n_pages - 1, hkv, PAGE, hd, generator=gen,
+                        device=dev).to(bf16)
+    big_table = torch.from_numpy(np.random.default_rng(2).permutation(
+        np.arange(1, 2 * SLOTS * MAX_PAGES + 1)).reshape(
+        SLOTS, 2 * MAX_PAGES).astype(np.int32)).to(dev)
+    cases = [(*c, k_pages, v_pages) for c in paged_cases(cfg, dev, gen)]
+    cases.append(("verify_splits", torch.randn(
+        SLOTS, hkv, g * SPEC_TOKENS, hd, generator=gen, device=dev).to(bf16),
+        big_table, torch.tensor([900, 930, 960, 980, 1000, 1010, 1020,
+                                 1024], dtype=torch.int32, device=dev),
+        SPEC_TOKENS, big_k, big_v))
+    for name, q, table, lengths, t, k_pages, v_pages in cases:
         def plain():
             o, m, l = decode_partials_paged_ref(q, k_pages, v_pages, table,
                                                 lengths, scale=scale,
@@ -1165,7 +1334,37 @@ def measure_paged(cfg, dev, gen, timer, old=None):
             bound_ms=b_ms, bound_by=b_by))
         if name == "decode":
             rows[-1]["bitwise_vs_flash_decode"] = True
-        if old is not None and old["flash_decode_paged"] is not None:
+        if name.startswith("verify"):
+            units = attn_decode.decode_units(b, hkv, g * t)
+            splits = attn_decode.plan_decode(
+                units, table.shape[1] * PAGE // attn_decode.KEY_TILE,
+                gemm_ops.sm_count(dev))[0]
+            # also at 8 q (exact in bf16): scores of a few units, whose
+            # running maxima in log2 units do not round back exactly
+            holds, diff = True, 0.0
+            for f in (1, 8):
+                h_, d_ = verify_serial_bits(
+                    f"flash_decode_paged[{name}] ({splits} split(s), q x{f})",
+                    lambda q_, l_, t_: flash_decode_paged(
+                        q_, k_pages, v_pages, table, l_, q_tokens=t_),
+                    q * f, lengths, t, g)
+                holds, diff = holds and h_, max(diff, d_)
+            rows[-1].update(verify_rows_bitwise=holds,
+                            verify_rows_max_diff=diff, splits=splits)
+            if splits == 1 and not holds:
+                raise AssertionError(
+                    f"flash_decode_paged[{name}]: at one split a verify row "
+                    f"differs from the serial call by {diff:.4g}")
+        if old is not None and old["flash_decode_paged_same"] is not None:
+            def old_fn(q=q, k_pages=k_pages, v_pages=v_pages, table=table,
+                       lengths=lengths, t=t):
+                return attn_decode._launch_paged(
+                    q, k_pages, v_pages, table, lengths, window=None,
+                    scale=scale, softcap=None, q_tokens=t, sinks=None,
+                    kernel=old["flash_decode_paged_same"])
+            decode_turns(rows[-1], f"flash_decode_paged[{name}]", old_fn,
+                         kernel, want, timer)
+        elif old is not None and old["flash_decode_paged"] is not None:
             decode_turns(rows[-1], f"flash_decode_paged[{name}]",
                          baseline_decode_paged(old["flash_decode_paged"], q,
                                                k_pages, v_pages, table,
@@ -2107,17 +2306,21 @@ def expected_paged_launches(cfg, engine) -> dict:
             "flash_decode_paged": n * (steps + chunks)}
 
 
-def paged_replay(engine, model, params, row, plen: int, chunk, dev):
+def paged_replay(engine, model, params, row, plen: int, chunk, dev,
+                 block: int = 1):
     """Teacher-forced logits (fp32, one (V,) row per served token) of one
     served stream in a lone slot of a SLOTS-row table: the engine's route
-    (exact-length prefill, or ``chunk``-token chunks), then one decode step
-    per served token over the table sliced to the page bucket ``engine``
-    gives that slot alone."""
-    n_pages = kvc.num_pages_needed(len(row), PAGE)
+    (exact-length prefill, or ``chunk``-token chunks), then the served
+    tokens in steps of ``block`` over the table sliced to the page bucket
+    ``engine`` gives that slot alone: decode steps (1), or verify steps
+    (SPEC_TOKENS: row t of the step at ``base`` predicts position base +
+    t + 1, as a speculative round that accepts everything)."""
+    row64 = np.concatenate([np.asarray(row, np.int64),
+                            np.zeros(block - 1, np.int64)])
+    n_pages = kvc.num_pages_needed(len(row64), PAGE)
     cache = model.init_paged_cache(SLOTS, n_pages + 1, PAGE)
     state = kvc.init_page_state(SLOTS, MAX_PAGES)
     kvc.assign_slot(state, 0, list(range(1, n_pages + 1)), plen)
-    row64 = np.asarray(row, np.int64)
     out = []
     with torch.inference_mode():
         if chunk is None:
@@ -2134,19 +2337,21 @@ def paged_replay(engine, model, params, row, plen: int, chunk, dev):
                     state["page_table"][0], start,
                     plen - 1 - start if end == plen else 0)
         out.append(logits[0].float())
-        for length in range(plen, len(row) - 1):
-            # the slot holds the pages of length + 1 tokens (grown just in
-            # time before the step)
-            bucket = engine.page_bucket(kvc.num_pages_needed(length + 1, PAGE))
-            tokens = np.zeros((SLOTS, 1), np.int64)
-            tokens[0, 0] = row64[length]
+        for base in range(plen, len(row) - 1, block):
+            # the slot holds the pages of the step's last token (grown just
+            # in time before the step)
+            bucket = engine.page_bucket(kvc.num_pages_needed(base + block,
+                                                             PAGE))
+            tokens = np.zeros((SLOTS, block), np.int64)
+            tokens[0] = row64[base:base + block]
             lengths = np.zeros((SLOTS,), np.int32)
-            lengths[0] = length
+            lengths[0] = base
             cache, logits = model.decode_step_paged(
                 params, torch.as_tensor(tokens, device=dev), cache,
                 state["page_table"][:, :bucket], lengths)
-            out.append(logits[0].float())
-    return out
+            out += ([logits[0].float()] if block == 1 else
+                    [logits[0, t].float() for t in range(block)])
+    return out[: len(row) - plen]
 
 
 def run_paged_phase(dev, m: Models, phase: str, tag=None) -> dict:
@@ -2855,6 +3060,249 @@ def run_encoder_training(dev, phase: str, arch: str, batches, seq: int):
             "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: greedy speculative decoding in PagedEngine
+# ---------------------------------------------------------------------------
+
+# phase -> (the phase 5 traffic and engine options it takes, the draft)
+SPEC_RUNS = {"10a": ("5a", "self"), "10b": ("5a", "skip"),
+             "10c": ("5b", "self")}
+# room for every bucket of a phase (prefill keys of 16 prompt lengths and
+# their draft twins beside the round's), for the plain engine alike
+SPEC_CAP = 64
+
+
+def expected_spec_launches(engine) -> dict:
+    """What a speculative engine's counters imply: per target and draft
+    layer 4 fused GEMMs and one flash prefill per exact-length prefill, 4
+    fused GEMMs and one paged launch per chunk; per round k draft steps
+    and one verify, each 2 fused GEMMs and one paged launch a layer."""
+    lt, ld = engine.model.cfg.num_layers, engine.draft_model.cfg.num_layers
+    pre, chunks = engine.prefills, engine.chunks_prefilled
+    steps = engine.spec_rounds * (lt + engine.spec_tokens * ld)
+    return {**no_launches(),
+            "gemm_fused": 4 * (lt + ld) * (pre + chunks) + 2 * steps,
+            "flash_attention_fwd": (lt + ld) * pre,
+            "flash_decode_paged": (lt + ld) * chunks + steps}
+
+
+def spec_serve(model, params, reqs, kw) -> tuple:
+    """A warm-up engine of the same options (two short requests: cuBLAS
+    plans, the allocator), then ``reqs`` through a fresh one with every
+    launch counter zeroed just before and read just after. (engine,
+    results, counts)."""
+    warm = PagedEngine(model, params, **kw)
+    for u in range(2):
+        warm.submit(Request(u, np.arange(1, 100 + u, dtype=np.int32), 3))
+    warm.run()
+    engine = PagedEngine(model, params, **kw)
+    for r in reqs:
+        engine.submit(r)
+    kernels.reset_launch_counts()
+    results = engine.run()
+    torch.cuda.synchronize()
+    return engine, results, kernels.launch_counts()
+
+
+def route_distance(plain_engine, model, params, row, plen: int, pos: int,
+                   chunk, preempted: bool, dev) -> tuple:
+    """At stream position ``pos`` (> plen) of a plain stream ``row``: the
+    serial route's top-2 logit margin there, and the logit distance between
+    the routes the two engines can take to it: serial decode steps against
+    verify steps (paged_replay by blocks), and for a request preempted in
+    either engine also against a re-prefill of everything before ``pos``
+    (a recompute preemption's route)."""
+    serial = paged_replay(plain_engine, model, params, row[:pos + 1], plen,
+                          chunk, dev)[pos - plen]
+    blocked = paged_replay(plain_engine, model, params, row[:pos + 1], plen,
+                           chunk, dev, SPEC_TOKENS)[pos - plen]
+    dist = (blocked - serial).abs().max().item()
+    if preempted:
+        cache = model.init_paged_cache(1, MAX_PAGES + 1, PAGE)
+        with torch.inference_mode():
+            _, logits = model.prefill_paged(
+                params, torch.as_tensor(np.asarray(row[None, :pos], np.int64),
+                                        device=dev), cache,
+                np.arange(1, MAX_PAGES + 1, dtype=np.int32), 0, pos)
+        dist = max(dist, (logits[0].float() - serial).abs().max().item())
+    top = torch.topk(serial, 2).values
+    return (top[0] - top[1]).item(), dist
+
+
+def run_spec(dev) -> dict:
+    """Phase 10: llama-1b whole, weights at a trained model's scale (as
+    phase 8's), kernel mode, spec_tokens SPEC_TOKENS; phase 5a's traffic
+    with the self-draft (a) and the layer-skip draft (b: the target's
+    embedding, final norm and first SKIP_LAYERS blocks, views of its
+    stacked leaves), phase 5b's (shared prefix, prefix cache, chunks) with
+    the self-draft (c); each beside the plain PagedEngine on the same
+    weights and traffic (phase 5 serves the reference's init, so it runs
+    again here). First one served stream by verify steps against serial
+    steps in a lone slot (paged_replay by blocks of 1 and of k): their
+    logits' distance, the record of whether a verify row is the serial
+    step's bits.
+    Checks: completion and pool accounting; every stream equal to the plain
+    engine's, or a difference explained (the plain step's top-2 margin at
+    the first differing position under the logit distance of the routes
+    there, route_distance); the self-draft accepting every proposal unless
+    the routes' logits differ; exact launches;
+    ``bucket_lru`` and the draft and verify keys; one replayed verify step
+    bit for bit the eager T = k step; decode tokens/s beside the plain
+    engine's."""
+    cfg = get_config("llama-1b")
+    model = build_model(cfg, mode="kernel", device=dev)
+    params = trained_scale(model, model.init(seed=0))
+    skip = build_model(dataclasses.replace(cfg, num_layers=SKIP_LAYERS),
+                       mode="kernel", device=dev)
+    skip_params = {**params, "blocks": tree_map(lambda x: x[:SKIP_LAYERS],
+                                                params["blocks"])}
+    drafts = {"self": (model, params), "skip": (skip, skip_params)}
+    base_kw = dict(batch_slots=SLOTS, page_size=PAGE,
+                   max_pages_per_seq=MAX_PAGES, max_cached_buckets=SPEC_CAP)
+    plain = {}
+    for traffic in ("5a", "5b"):
+        kw = dict(base_kw, **PHASES[traffic])
+        plain[traffic] = spec_serve(model, params,
+                                    paged_requests(cfg, traffic), kw)
+        eng = plain[traffic][0]
+        log(f"[10 plain {traffic}] trained-scale weights: "
+            f"{eng.report()['decode_steps']} decode steps, "
+            f"{eng.preemptions} preemptions, decode "
+            f"{eng.timings['decode_tokens'] / eng.timings['decode_s']:.1f} "
+            f"tok/s")
+
+    # the speculative route against the serial one over a served stream,
+    # in a lone slot of the SLOTS-row launches the engine makes
+    p_eng, p_res, _ = plain["5a"]
+    r0 = paged_requests(cfg, "5a")[0]
+    row0, plen0 = p_res[r0.uid], len(r0.prompt)
+    serial = paged_replay(p_eng, model, params, row0, plen0, None, dev)
+    blocked = paged_replay(p_eng, model, params, row0, plen0, None, dev,
+                           SPEC_TOKENS)
+    step_diff = max((x - y).abs().max().item()
+                    for x, y in zip(blocked, serial))
+    log(f"[10] request {r0.uid}'s {len(serial)} tokens by verify steps (T "
+        f"{SPEC_TOKENS}) against serial decode steps, lone slot: logits "
+        + ("equal bit for bit" if step_diff == 0 else
+           f"DIFFER, max |diff| {step_diff:.4g}") + "; greedy tokens "
+        + ("equal" if all(int(x.argmax()) == int(y.argmax())
+                          for x, y in zip(blocked, serial)) else "DIFFER"))
+    out = {"verify_vs_serial_logit_diff": step_diff}
+
+    for phase, (traffic, draft) in SPEC_RUNS.items():
+        d_model, d_params = drafts[draft]
+        kw = dict(base_kw, **PHASES[traffic], draft_model=d_model,
+                  draft_params=d_params, spec_tokens=SPEC_TOKENS)
+        reqs = paged_requests(cfg, traffic)
+        engine, results, counts = spec_serve(model, params, reqs, kw)
+        p_eng, p_res, _ = plain[traffic]
+        rep = engine.report()
+        spec = rep["speculative"]
+        want = expected_spec_launches(engine)
+        log(f"[{phase}] {draft}-draft on phase {traffic}'s traffic: served "
+            f"{len(results)} requests in {spec['rounds']} rounds, "
+            f"{rep['prefills']} exact prefills, {engine.chunks_prefilled} "
+            f"chunks, {rep['preemptions']} preemptions, peak "
+            f"{rep['peak_pages_in_use']} of {rep['page_pool_size']} pages; "
+            f"speculative {spec}; launches {counts}; bucket_lru "
+            f"{rep['bucket_lru']}")
+        if counts != want:
+            raise AssertionError(f"[{phase}] launches {counts}; the engine's "
+                                 f"counters imply {want}")
+        if sorted(results) != [r.uid for r in reqs]:
+            raise AssertionError(f"[{phase}] completed {sorted(results)}")
+        for r in reqs:
+            check_result(cfg, r, results[r.uid])
+        held = rep.get("prefix_cache", {}).get("pages_held", 0)
+        if engine.alloc.free_pages != engine.n_pages - 1 - held:
+            raise AssertionError(f"[{phase}] {engine.alloc.free_pages} pages "
+                                 f"free, {held} held by the trie, of "
+                                 f"{engine.n_pages - 1}")
+        kinds = {k[0] for k in engine._buckets if isinstance(k[0], str)}
+        if not {"verify", "draft_decode"} <= kinds or not kinds & {
+                "draft_prefill", "draft_chunk"}:
+            raise AssertionError(f"[{phase}] cached bucket kinds {kinds}")
+        if phase == "10a" and rep["preemptions"] < 1:
+            raise AssertionError(f"[{phase}] the pool never forced a "
+                                 "preemption")
+        if traffic == "5b" and (rep["prefix_cache"]["hits"] < 1
+                                or engine.chunks_prefilled < 1):
+            raise AssertionError(f"[{phase}] prefix hits "
+                                 f"{rep['prefix_cache']['hits']}, chunks "
+                                 f"{engine.chunks_prefilled}")
+        if not 1.0 <= spec["mean_tokens_per_round"] <= SPEC_TOKENS:
+            raise AssertionError(f"[{phase}] {spec}")
+        if draft == "self" and (spec["accept_rate"] != 1.0 or
+                                spec["mean_tokens_per_round"] != SPEC_TOKENS):
+            if step_diff == 0:
+                raise AssertionError(
+                    f"[{phase}] the self-draft's proposals were rejected "
+                    f"({spec}) where a verify step is the serial steps' bits")
+            log(f"[{phase}] the self-draft accepts {spec['accept_rate']:.4f}"
+                f" of its proposals: the speculative route's logits differ "
+                f"from the serial route's (by {step_diff:.4g} over request "
+                f"{r0.uid})")
+
+        differ = []
+        chunk = kw.get("chunk_tokens")
+        for r in reqs:
+            got, ref = results[r.uid], p_res[r.uid]
+            if np.array_equal(got, ref):
+                continue
+            pos = int(np.nonzero(got != ref)[0][0])
+            preempted = r.uid in set(rep["preempted_uids"]) | set(
+                p_eng.report()["preempted_uids"])
+            margin, dist = route_distance(p_eng, model, params, ref,
+                                          len(r.prompt), pos, chunk,
+                                          preempted, dev)
+            log(f"[{phase}] request {r.uid}"
+                + (" (preempted)" if preempted else "")
+                + f": first differs from the plain engine at position {pos}; "
+                f"the plain step's top-2 margin {margin:.4g}, the routes' "
+                f"logit distance there {dist:.4g}")
+            if not margin < dist:
+                raise AssertionError(f"[{phase}] request {r.uid}'s stream "
+                                     "differs where the margin exceeds the "
+                                     "verify-vs-serial distance")
+            differ.append({"uid": r.uid, "position": pos, "margin": margin,
+                           "distance": dist, "preempted": preempted})
+        log(f"[{phase}] {len(reqs) - len(differ)} of {len(reqs)} streams "
+            "equal the plain PagedEngine's token for token")
+
+        key = next(k for k in engine._buckets if k[0] == "verify")
+        mp = key[1]
+        # the idle rows' equal tokens write equal values to the null page
+        token = torch.zeros((SLOTS, SPEC_TOKENS), dtype=torch.int64,
+                            device=dev)
+        token[0] = torch.arange(SPEC_TOKENS, device=dev) * 13 + 5
+        table = torch.zeros((SLOTS, mp), dtype=torch.int32, device=dev)
+        table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
+        lengths = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
+        lengths[0] = mp * PAGE - SPEC_TOKENS - 3
+
+        def eager(pools):
+            return model.decode_step_paged(params, token, pools, table,
+                                           lengths)[1]
+        check_graph_replay(f"{phase} bucket {key}", engine._buckets[key],
+                           engine.cache, dict(token=token, page_table=table,
+                                              lengths=lengths), eager)
+        t, pt = engine.timings, p_eng.timings
+        tps = t["decode_tokens"] / t["decode_s"]
+        p_tps = pt["decode_tokens"] / pt["decode_s"]
+        log(f"[{phase}] decode {t['decode_tokens']} tokens in "
+            f"{t['decode_s']:.4f} s ({tps:.1f} tok/s) against the plain "
+            f"engine's {pt['decode_tokens']} in {pt['decode_s']:.4f} s "
+            f"({p_tps:.1f} tok/s, {p_eng.decode_steps} steps); prefill "
+            f"{t['prefill_s']:.4f} s against {pt['prefill_s']:.4f} s")
+        out[phase] = {"report": rep, "launches": counts, "differ": differ,
+                      "decode_tokens_per_s": tps,
+                      "plain_decode_tokens_per_s": p_tps,
+                      "plain_decode_steps": p_eng.decode_steps,
+                      "timings": dict(t), "plain_timings": dict(pt)}
+        del engine, results
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2897,7 +3345,8 @@ def main(argv=None) -> int:
         f"{floors['clean_l2_ms'] * 1e3:.2f} us after the read scrub")
     cfg = get_config("llama-1b")
     old = baseline_kernels(args.baseline_csrc) if args.baseline_csrc else None
-    measured = {"gemm_fused": measure_gemm(cfg, dev, gen, timer, old),
+    measured = {"gemm_fused": (measure_gemm(cfg, dev, gen, timer, old)
+                               + measure_verify_gemms(cfg, dev, gen, timer)),
                 "flash_attention_fwd": (
                     measure_flash(cfg, dev, gen, timer, old)
                     + measure_flash_encoder(dev, gen, timer)),
@@ -2955,6 +3404,11 @@ def main(argv=None) -> int:
     phases["9d"] = run_encoder_training(dev, "9d", "whisper-base",
                                         whisper_batches, W_TRAIN_SEQ)
     log(f"[done] phase 9 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = run_spec(dev)
+    phases.update((p, spec[p]) for p in SPEC_RUNS)
+    log(f"[done] phase 10 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -2966,7 +3420,7 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": sum(phases[p]["launches"][name]
                             for p in MAIN_PATH_PHASES + DENSE_PHASES
-                            + ENCODER_PHASES),
+                            + ENCODER_PHASES + tuple(SPEC_RUNS)),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -2977,6 +3431,8 @@ def main(argv=None) -> int:
                            else sum(r["library_ms"] for r in rows)),
             "cases": rows})
     report = {"device": card, "kernels": line, "phases": phases,
+              "verify_vs_serial_logit_diff":
+                  spec["verify_vs_serial_logit_diff"],
               "gemm_bwd_whole": bwd_whole, "sass": sass,
               "timer_floor": floors}
     if args.out:

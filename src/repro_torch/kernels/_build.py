@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into a shared library under ``kernels/build/``
 (git-ignored), then loaded with ``ctypes``. The library's file name carries
-a hash of its source, the ``csrc/*.cuh`` headers and the flags, so an edited
-source or header builds anew and an unchanged one is reused. ``build_all``
-starts one ``nvcc`` per source, all at once, and waits for them.
+a hash of its source, the ``*.cuh`` headers beside it (those it includes)
+and the flags, so an edited source or header builds anew and an unchanged
+one is reused; a source of another tree with its own headers (the smoke's
+A/B) gets a library of its own even where the ``.cu`` is this tree's.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them.
 
 Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :meth:`CudaKernel.check` turns a
@@ -58,7 +61,8 @@ class CudaKernel:
     @property
     def lib_path(self) -> pathlib.Path:
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):   # shared split bodies
+        # the headers the source includes: those of its own directory
+        for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"

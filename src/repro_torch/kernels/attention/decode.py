@@ -237,7 +237,10 @@ def attention_decode(q, k, v, lengths, *, window: int | None = None,
     return out.reshape(b, h, 1, d)
 
 
-def _launch(q, k, v, lengths, *, window, scale, softcap, sinks):
+def _launch(q, k, v, lengths, *, window, scale, softcap, sinks,
+            kernel: CudaKernel = KERNEL):
+    """One launch on the card; ``kernel``: another build of the same entry
+    point (the smoke's A/B against an earlier tree)."""
     b, hkv, g, d = q.shape
     slots = k.shape[2]
     if d not in HEAD_DIMS:
@@ -263,14 +266,14 @@ def _launch(q, k, v, lengths, *, window, scale, softcap, sinks):
     ws, _keep = _workspaces(q.device, units, ns,
                             min(g, rows_per_unit(g)), d)
     out = torch.empty_like(q)
-    fn = KERNEL.fn()
-    stream = KERNEL.stream(q.device)
-    KERNEL.launches += 1
+    fn = kernel.fn()
+    stream = kernel.stream(q.device)
+    kernel.launches += 1
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
               sink_ptr, out.data_ptr(), *ws, b, hkv, g, slots, d, ns,
               sinks_bf16, float(scale), float(softcap or 0.0),
               int(window or 0), stream)
-    KERNEL.check(code)
+    kernel.check(code)
     return out
 
 
@@ -396,7 +399,8 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
 
 
 def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
-                  softcap, q_tokens, sinks):
+                  softcap, q_tokens, sinks, kernel: CudaKernel = PAGED_KERNEL):
+    """One launch on the card; ``kernel`` as :func:`_launch`'s."""
     b, hkv, rows, d = q.shape
     n_pages, _, page_size, _ = k_pages.shape
     mp = page_table.shape[1]
@@ -428,13 +432,13 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
     ws, _keep = _workspaces(q.device, units, ns,
                             min(rows, rows_per_unit(rows)), d)
     out = torch.empty_like(q)
-    fn = PAGED_KERNEL.fn()
-    stream = PAGED_KERNEL.stream(q.device)
-    PAGED_KERNEL.launches += 1
+    fn = kernel.fn()
+    stream = kernel.stream(q.device)
+    kernel.launches += 1
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               page_table.data_ptr(), lengths.data_ptr(), sink_ptr,
               out.data_ptr(), *ws, b, hkv, rows, page_size, mp, n_pages, d,
               q_tokens, ns, sinks_bf16, float(scale), float(softcap or 0.0),
               int(window or 0), stream)
-    PAGED_KERNEL.check(code)
+    kernel.check(code)
     return out

@@ -38,8 +38,13 @@
 //   - scores are scaled, soft-capped (cap tanh(s / cap), a template
 //     parameter) before masking, masked to -1e30, and an online softmax
 //     (exponentials as ex2 of (s - m) log2 e) keeps each warp's rows'
-//     (m, l, O) in fp32 registers; at the end of the split a row's slices
-//     are merged in warp order in shared memory.
+//     (m, l, O) in fp32 registers; a tile that leaves a row's max where it
+//     was rescales the row by exactly 1 (ex2 of m log2 e less its rounded
+//     product is not 1), so a tile the row cannot see adds nothing and a
+//     verify row of T tokens, whose unit reads the tiles of its last
+//     token, has the bits of the 1-token step at its position; at the end
+//     of the split a row's slices are merged in warp order in shared
+//     memory.
 //   - with one split (the plan's choice whenever the unit has fewer than
 //     2 MIN_SPLIT_TILES tiles) the block writes the output in bf16. With
 //     more, the split's partial (O, m, l) goes to an fp32 workspace, and the
@@ -603,7 +608,7 @@ __device__ __forceinline__ void body(const Params& p) {
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         const float mnew = fmaxf(m[hh], mx);
         const float mu = mnew == MASK_VALUE ? 0.f : mnew * LOG2E;
-        alpha[hh] = ex2(fmaf(m[hh], LOG2E, -mu));
+        alpha[hh] = mnew == m[hh] ? 1.f : ex2(fmaf(m[hh], LOG2E, -mu));
         m[hh] = mnew;
 #pragma unroll
         for (int j = 0; j < J; ++j) {

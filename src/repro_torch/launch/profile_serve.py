@@ -4,6 +4,8 @@
       --batch 4 --prompt-len 256 --new-tokens 32 [--engine paged] --out DIR
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch whisper-base --prompt-len 64 --out DIR
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --engine paged \\
+      --batch 8 --spec-tokens 4 [--draft self|layers:N] --out DIR
 
 Builds the model in kernel mode with seeded random weights, warms it up,
 then runs one prefill and the decode steps of one batch twice: once untimed
@@ -14,7 +16,13 @@ decode steps replayed from the ``("decode", batch)`` bucket's CUDA graph;
 ``--engine paged`` drives a ``PagedEngine`` (``--batch`` slots, 64-token
 pages): prefill is the admission of every request (one exact-length
 prefill each), decode is the engine's steps, replayed from its page
-buckets' graphs, until all have retired. An encoder-decoder (whisper-base)
+buckets' graphs, until all have retired; with ``--spec-tokens K`` the
+engine decodes by greedy speculative rounds (``--draft self``: the target
+drafts for itself; ``layers:N``: a layer-skip draft of the target's
+embedding, final norm and first N blocks), each round k draft steps and
+one verify replayed from the ``draft_decode`` and ``verify`` buckets'
+graphs, and the decode phase also reports its rounds and, per round, the
+device busy time and the host's launch calls. An encoder-decoder (whisper-base)
 takes the fixed engine only; its prefill is the encoder over seeded
 ``encoder_embeds`` (batch, encoder_seq, d_model) and the decoder's prefill,
 as ``Engine.generate(..., extra_batch=...)`` runs them. One engine serves the warm-up
@@ -30,6 +38,7 @@ line per phase.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -40,6 +49,7 @@ from torch.autograd import DeviceType
 
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.models.common import tree_map
 from repro_torch.serve import Engine, PagedEngine, Request
 
 # kernel name fragment -> family, checked in order
@@ -187,6 +197,22 @@ def run_phases_paged(engine, prompts, new_tokens: int, profile: bool):
                 "decode": _timed(decode, profile)}
 
 
+def draft_model(spec: str, cfg, model, params) -> tuple:
+    """(draft model, its params) of ``--draft``: ``self`` or ``layers:N``
+    (the target's embedding, final norm and first N blocks, views of its
+    stacked leaves)."""
+    if spec == "self":
+        return model, params
+    kind, _, n = spec.partition(":")
+    if kind != "layers" or not n.isdigit() or not 0 < int(n) <= cfg.num_layers:
+        raise ValueError(f"--draft {spec!r}: self or layers:N, 0 < N <= "
+                         f"{cfg.num_layers}")
+    n = int(n)
+    return (build_model(dataclasses.replace(cfg, num_layers=n),
+                        mode=model.mode, device=model.device),
+            {**params, "blocks": tree_map(lambda x: x[:n], params["blocks"])})
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="llama-1b")
@@ -195,8 +221,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine", choices=("fixed", "paged"), default="fixed")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="paged engine: decode by speculative rounds of k")
+    ap.add_argument("--draft", default="self",
+                    help="with --spec-tokens: self or layers:N")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.spec_tokens and args.engine != "paged":
+        raise ValueError("--spec-tokens needs --engine paged")
 
     cfg = get_config(args.arch)
     if cfg.family == "encoder" or (cfg.family == "encdec"
@@ -217,10 +249,16 @@ def main(argv=None) -> dict:
             dtype=torch.bfloat16, device="cuda")}
     max_len = args.prompt_len + args.new_tokens
     if args.engine == "paged":
-        pages = -(-max_len // PAGE)
+        spec = {}
+        if args.spec_tokens:
+            d_model, d_params = draft_model(args.draft, cfg, model, params)
+            spec = dict(draft_model=d_model, draft_params=d_params,
+                        spec_tokens=args.spec_tokens)
+        pages = -(-(max_len + args.spec_tokens) // PAGE)
         engine = PagedEngine(model, params, batch_slots=args.batch,
                              page_size=PAGE,
-                             max_pages_per_seq=1 << (pages - 1).bit_length())
+                             max_pages_per_seq=1 << (pages - 1).bit_length(),
+                             **spec)
         run = run_phases_paged
     else:
         engine = Engine(model, params, max_len=max_len)
@@ -229,11 +267,15 @@ def main(argv=None) -> dict:
     run(engine, prompts, args.new_tokens, profile=False, **extra)
     torch.cuda.reset_peak_memory_stats()
     plain = run(engine, prompts, args.new_tokens, profile=False, **extra)
+    rounds = getattr(engine, "spec_rounds", 0)
     traced = run(engine, prompts, args.new_tokens, profile=True, **extra)
+    rounds = getattr(engine, "spec_rounds", 0) - rounds
     tokens = {"prefill": args.batch * args.prompt_len,
               "decode": args.batch * (args.new_tokens - 1)}
     report = {"arch": args.arch, "engine": args.engine, "batch": args.batch,
               "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
+              "spec_tokens": args.spec_tokens,
+              "draft": args.draft if args.spec_tokens else None,
               "device": torch.cuda.get_device_name(0),
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
               "phases": {}}
@@ -242,6 +284,19 @@ def main(argv=None) -> dict:
         row = {"tokens": tokens[phase], "wall_s": secs,
                "tokens_per_s": tokens[phase] / secs,
                "traced": summarize(traced[phase][1], traced[phase][0])}
+        if phase == "decode" and rounds:
+            tr = row["traced"]
+            row["spec"] = engine.report()["speculative"]
+            row["traced_rounds"] = rounds
+            row["per_round"] = {
+                "device_busy_ms": tr["device_busy_ms"] / rounds,
+                "wall_ms": tr["traced_wall_ms"] / rounds,
+                "host_launch_calls": {k: n / rounds for k, n in
+                                      tr["host_launch_calls"].items()}}
+            print(f"[profile] decode by {rounds} speculative rounds "
+                  f"(k {args.spec_tokens}, {args.draft} draft; "
+                  f"{row['spec']}): per round {row['per_round']}",
+                  flush=True)
         report["phases"][phase] = row
         fams = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
             row["traced"]["device_ms_by_family"].items(),
@@ -256,7 +311,9 @@ def main(argv=None) -> dict:
     print(f"[profile] peak device memory {report['peak_memory_gb']:.2f} GB")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, f"profile_serve_{args.engine}.json"),
+        name = args.engine + (f"_spec{args.spec_tokens}"
+                              if args.spec_tokens else "")
+        with open(os.path.join(args.out, f"profile_serve_{name}.json"),
                   "w") as fh:
             json.dump(report, fh, indent=1)
     return report

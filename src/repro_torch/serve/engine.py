@@ -393,19 +393,34 @@ class PagedEngine:
       interleaved with decode (the mid-prefill slot is masked out of the
       shared decode launch).
 
-    Speculative decoding (``draft_model``, ``spec_tokens``) is not ported
-    yet and raises. The page table and lengths are host numpy arrays owned
-    by the engine (:attr:`state`), copied once per launch into the decode
-    bucket's static buffers. One LRU under one cap (``max_cached_buckets``)
-    holds, as the reference's: (batch_slots, page_count) -> a
-    :class:`DecodeGraph` over (B, 1) tokens, the (B, page_count) page
-    table and the (B,) lengths; ("prefill", S) -> the exact-length
-    prefill; ("chunk", C) -> the chunked or suffix prefill. ``report()``
-    carries its hits, misses and evictions as ``bucket_lru``.
+    * ``draft_model``, ``draft_params``, ``spec_tokens=k``: greedy
+      speculative decoding. Each step is one round for every decode-ready
+      slot: the draft runs k single-token steps over its own pools (which
+      share the target's page table and lengths), proposing d1 .. d_{k-1}
+      (the k-th step only appends d_{k-1}); the target verifies [t0, d1 ..
+      d_{k-1}] in one k-token decode step; each slot keeps the longest
+      agreeing prefix plus the target's token after it (1 to k tokens a
+      round), so the streams are the target's greedy streams. Both models'
+      prefills and chunks run at admission. Needs greedy requests, an
+      attention-only stack and a draft of the target's vocabulary.
+
+    The page table and lengths are host numpy arrays owned by the engine
+    (:attr:`state`), copied once per launch into the decode bucket's static
+    buffers. One LRU under one cap (``max_cached_buckets``) holds, as the
+    reference's: (batch_slots, page_count) -> a :class:`DecodeGraph` over
+    (B, 1) tokens, the (B, page_count) page table and the (B,) lengths;
+    ("prefill", S) -> the exact-length prefill; ("chunk", C) -> the chunked
+    or suffix prefill; with a draft, ("draft_decode", page_count) -> the
+    draft's decode graph over its pools, ("verify", page_count) -> the
+    target's graph over (B, k) tokens, and ("draft_prefill", S),
+    ("draft_chunk", C) -> the draft's prefills. ``report()`` carries its
+    hits, misses and evictions as ``bucket_lru``, and with a draft the
+    rounds, proposals, acceptances and tokens a round as ``speculative``.
 
     ``timings`` accumulates the host seconds of prefill (exact-length and
-    chunked) and of decode, each ended by a device synchronise on CUDA, with
-    the prompt tokens prefilled and the tokens decoded.
+    chunked, the draft's included) and of decode (steps or speculative
+    rounds), each ended by a device synchronise on CUDA, with the prompt
+    tokens prefilled and the tokens decoded.
     """
 
     def __init__(self, model, params, *, batch_slots: int = 4,
@@ -415,15 +430,24 @@ class PagedEngine:
                  max_cached_buckets: int = 8, prefix_cache: bool = False,
                  chunk_tokens: Optional[int] = None,
                  draft_model=None, draft_params=None, spec_tokens: int = 0):
-        if draft_model is not None or draft_params is not None \
-                or spec_tokens:
-            raise NotImplementedError(
-                "speculative decoding (draft_model, spec_tokens) is not "
-                "ported yet: ROADMAP Queue A item 8")
         if chunk_tokens is not None and (chunk_tokens <= 0
                                          or chunk_tokens % page_size):
             raise ValueError(f"chunk_tokens={chunk_tokens} must be a positive "
                              f"multiple of page_size={page_size}")
+        if draft_model is not None:
+            if spec_tokens < 2:
+                raise ValueError("speculative decoding needs spec_tokens"
+                                 " >= 2 (1 draft + 1 correction minimum)")
+            if not all(model.cfg.layer_kind(i) in ("attn", "local", "moe")
+                       for i in range(model.cfg.num_layers)):
+                raise ValueError("speculative verify needs an attention-"
+                                 f"only stack; {model.cfg.name} is hybrid")
+            if temperature != 0.0:
+                raise ValueError(
+                    "speculative decoding acceptance is defined for greedy "
+                    "sampling (temperature=0.0) in this engine")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
         self.model = model
         self.params = params
         self.device = model.device
@@ -442,8 +466,16 @@ class PagedEngine:
         self.prefix = kvc.PrefixCache(page_size) if prefix_cache else None
         self.chunk_tokens = chunk_tokens
 
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self.spec_tokens = spec_tokens
+        self._spec = draft_model is not None
+
         self.cache = model.init_paged_cache(batch_slots, self.n_pages,
                                             page_size)
+        # the draft's own pools, addressed by the target's page table
+        self.draft_cache = (draft_model.init_paged_cache(
+            batch_slots, self.n_pages, page_size) if self._spec else None)
         self.alloc = kvc.PageAllocator(self.n_pages)
         self.state = kvc.init_page_state(batch_slots, max_pages_per_seq)
         self.slots: dict[int, _Slot] = {}       # slot id -> active record
@@ -458,6 +490,11 @@ class PagedEngine:
         self.chunks_prefilled = 0       # chunked or suffix prefills
         self.decode_steps = 0           # decode launches
         self.tokens_generated = 0
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_participations = 0    # (slot, round) pairs
         self.peak_pages_in_use = 0
         self.timings = {"prefill_s": 0.0, "prefill_tokens": 0,
                         "decode_s": 0.0, "decode_tokens": 0}
@@ -478,41 +515,70 @@ class PagedEngine:
         return _lru_get(self._buckets, key, build, self.max_cached_buckets,
                         self.lru_stats)
 
-    def _decode_bucket(self, mp_bucket: int) -> DecodeGraph:
-        """The decode step of a page-count bucket, over the engine's pools
-        (updated in place)."""
-        model, params, dev = self.model, self.params, self.device
-        b = self.batch_slots
+    def _graph(self, key, mp_bucket: int, *, draft: bool = False,
+               q_tokens: int = 1) -> DecodeGraph:
+        """A :class:`DecodeGraph` of the target's or the draft's paged step
+        over its pools (updated in place), behind static (B, q_tokens)
+        token, (B, mp_bucket) page-table and (B,) length buffers."""
+        model, params, pools = ((self.draft_model, self.draft_params,
+                                 self.draft_cache) if draft else
+                                (self.model, self.params, self.cache))
+        dev, b = self.device, self.batch_slots
 
         def build():
             buffers = {
-                "token": torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                "token": torch.zeros((b, q_tokens), dtype=torch.int64,
+                                     device=dev),
                 "page_table": torch.zeros((b, mp_bucket), dtype=torch.int32,
                                           device=dev),
                 "lengths": torch.zeros((b,), dtype=torch.int32, device=dev)}
 
             def step(token, page_table, lengths):
-                return model.decode_step_paged(params, token, self.cache,
+                return model.decode_step_paged(params, token, pools,
                                                page_table, lengths)[1]
             return DecodeGraph(step, buffers)
-        return self._touch((b, mp_bucket), build)
+        return self._touch(key, build)
 
-    def _prefill_bucket(self, plen: int):
-        return self._touch(("prefill", plen),
-                           lambda: self.model.prefill_paged)
+    def _decode_bucket(self, mp_bucket: int, *, draft: bool = False
+                       ) -> DecodeGraph:
+        """The single-token decode step of a page-count bucket, the
+        target's or the draft's, over its pools (updated in place)."""
+        key = (("draft_decode", mp_bucket) if draft
+               else (self.batch_slots, mp_bucket))
+        return self._graph(key, mp_bucket, draft=draft)
 
-    def _chunk_bucket(self, chunk_len: int):
-        return self._touch(("chunk", chunk_len),
-                           lambda: self.model.prefill_paged_chunk)
+    def _verify_bucket(self, mp_bucket: int) -> DecodeGraph:
+        """The target's k-token verify step of a page-count bucket: (B, k)
+        tokens in, (B, k, V) logits out."""
+        return self._graph(("verify", mp_bucket), mp_bucket,
+                           q_tokens=self.spec_tokens)
+
+    def _prefill_bucket(self, plen: int, *, draft: bool = False):
+        model = self.draft_model if draft else self.model
+        return self._touch(("draft_prefill" if draft else "prefill", plen),
+                           lambda: model.prefill_paged)
+
+    def _chunk_bucket(self, chunk_len: int, *, draft: bool = False):
+        model = self.draft_model if draft else self.model
+        return self._touch(("draft_chunk" if draft else "chunk", chunk_len),
+                           lambda: model.prefill_paged_chunk)
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> None:
         total = len(req.prompt) + req.max_new_tokens
+        if self._spec:
+            # a verify round may overshoot the budget by up to
+            # spec_tokens - 1 stale positions before retirement truncates
+            total += self.spec_tokens
         cap = min(self.max_pages_per_seq, self.n_pages - 1) * self.page_size
         if total > cap:
             raise ValueError(
                 f"request {req.uid}: {total} tokens exceed per-sequence "
                 f"capacity {cap} (max_pages_per_seq * page_size)")
+        if self._spec and req.temperature not in (None, 0.0):
+            raise ValueError(
+                f"request {req.uid}: speculative decoding requires greedy "
+                "requests (temperature 0.0)")
         self.pending.append(req)
 
     def _effective_temperature(self, req: Request) -> float:
@@ -572,10 +638,17 @@ class PagedEngine:
             else:
                 kvc.assign_slot(self.state, slot, pages, plen)
                 prefill = self._prefill_bucket(plen)
+                toks = self._tokens(req.prompt)[None, :]
                 t0 = time.perf_counter()
                 self.cache, logits = prefill(
-                    self.params, self._tokens(req.prompt)[None, :],
-                    self.cache, self.state["page_table"][slot], slot, plen)
+                    self.params, toks, self.cache,
+                    self.state["page_table"][slot], slot, plen)
+                if self._spec:
+                    # the draft's twin on the same page row
+                    self.draft_cache, _ = self._prefill_bucket(
+                        plen, draft=True)(
+                        self.draft_params, toks, self.draft_cache,
+                        self.state["page_table"][slot], slot, plen)
                 first = self._sample_slot(logits[0], req, plen)
                 self._sync()
                 self.timings["prefill_s"] += time.perf_counter() - t0
@@ -612,10 +685,15 @@ class PagedEngine:
         toks[0, : end - start] = np.asarray(req.prompt[start:end])
         last = (plen - 1 - start) if end == plen else 0
         chunk = self._chunk_bucket(c)
+        toks = self._tokens(toks)
         t0 = time.perf_counter()
         self.cache, logits = chunk(
-            self.params, self._tokens(toks), self.cache,
+            self.params, toks, self.cache,
             self.state["page_table"][slot], start, last)
+        if self._spec:
+            self.draft_cache, _ = self._chunk_bucket(c, draft=True)(
+                self.draft_params, toks, self.draft_cache,
+                self.state["page_table"][slot], start, last)
         self.chunks_prefilled += 1
         self.state["lengths"][slot] = end
         if end >= plen:
@@ -632,18 +710,19 @@ class PagedEngine:
         self.timings["prefill_s"] += time.perf_counter() - t0
         self.timings["prefill_tokens"] += end - start
 
-    def _try_grow(self) -> list:
+    def _try_grow(self, tokens_ahead: int = 1) -> list:
         """Allocate next pages for slots crossing a page boundary; returns
         the slots whose growth the exhausted pool could not cover.
-        Mid-prefill slots already hold every page their prompt needs, so
-        they never grow (and never stall)."""
+        ``tokens_ahead`` > 1 (speculative rounds) reserves headroom for the
+        whole verify block. Mid-prefill slots already hold every page their
+        prompt needs, so they never grow (and never stall)."""
         stalled = []
         lengths = self.state["lengths"]
         for slot in sorted(self.slots):
             rec = self.slots[slot]
             if rec.prefilling:
                 continue
-            need = int(lengths[slot]) + 1
+            need = int(lengths[slot]) + tokens_ahead
             while need > rec.n_pages * self.page_size:
                 if not self.alloc.can_alloc(1) and self.prefix is not None:
                     # cached-but-unreferenced prefix pages are reclaimable
@@ -736,11 +815,73 @@ class PagedEngine:
             rec.generated.append(sampled[slot])
             rec.next_token = sampled[slot]
 
+    def _spec_round(self, active: list, mp_bucket: int) -> None:
+        """One speculative round: k draft steps propose d1 .. d_{k-1}, the
+        target verifies [t0, d1 .. d_{k-1}] in one k-token step, and each
+        slot keeps the longest agreeing prefix plus the target's token after
+        it (1 to k tokens).
+
+        The draft makes k appends (the last feeds d_{k-1}, its logits
+        unused), so its pools have no hole at the round's last position.
+        Rejected positions leave stale KV above the accepted length in both
+        pools; the next round's appends start at the new length and cover
+        every stale position before anything reads it. The round's views,
+        its first tokens and the proposals stay on the device, so its k + 1
+        launches follow each other with no host wait; it reads back its
+        tokens once, after the verify."""
+        k = self.spec_tokens
+        draft = self._decode_bucket(mp_bucket, draft=True)
+        verify = self._verify_bucket(mp_bucket)
+        base = self.state["lengths"].copy()
+        t0 = time.perf_counter()
+        pt, lens, act = (torch.as_tensor(np.ascontiguousarray(x),
+                                         device=self.device)
+                         for x in self._launch_views(active, mp_bucket))
+        first = np.zeros((self.batch_slots, 1), np.int64)
+        for slot in active:
+            first[slot, 0] = self.slots[slot].next_token
+        first = self._tokens(first)
+        live = act.long()[:, None]              # zeroes the idle slots' tokens
+        cur, proposals = first, []
+        for i in range(k):
+            logits = draft(token=cur, page_table=pt, lengths=lens + i * act)
+            if i == k - 1:
+                break                           # a KV-only append of d_{k-1}
+            cur = torch.argmax(logits, dim=-1, keepdim=True) * live
+            proposals.append(cur)
+        logits = verify(token=torch.cat([first] + proposals, dim=1),
+                        page_table=pt, lengths=lens)
+        # one read-back: the proposals (B, k-1), then the target's (B, k)
+        host = torch.cat(proposals + [torch.argmax(logits, dim=-1)],
+                         dim=1).cpu().numpy()
+        drafted, preds = host[:, :k - 1], host[:, k - 1:]
+        self._sync()
+        emitted_all = 0
+        for slot in active:
+            rec = self.slots[slot]
+            j = 0
+            while j < k - 1 and drafted[slot, j] == preds[slot, j]:
+                j += 1
+            emitted = [int(x) for x in drafted[slot, :j]]
+            emitted.append(int(preds[slot, j]))
+            rec.generated.extend(emitted)
+            rec.next_token = emitted[-1]
+            self.state["lengths"][slot] = int(base[slot]) + j + 1
+            self.spec_proposed += k - 1
+            self.spec_accepted += j
+            self.spec_emitted += len(emitted)
+            self.spec_participations += 1
+            emitted_all += len(emitted)
+        self.tokens_generated += emitted_all
+        self.spec_rounds += 1
+        self.timings["decode_s"] += time.perf_counter() - t0
+        self.timings["decode_tokens"] += emitted_all
+
     @torch.inference_mode()
     def step(self) -> bool:
         """Admit, advance mid-prefill slots by one chunk, decode one step
-        for every decode-ready slot, retire finished. Returns False when
-        there is nothing left to do."""
+        (or one speculative round) for every decode-ready slot, retire
+        finished. Returns False when there is nothing left to do."""
         self._admit()
         # chunk-interleaved prefill: one chunk per slot per step bounds the
         # decode stall at one chunk instead of one full prompt
@@ -766,10 +907,11 @@ class PagedEngine:
         # page growth; on pool exhaustion preempt the youngest stalled slot
         # (freeing its pages) until the survivors fit. A lone slot never
         # stalls: submit() bounds any single sequence to the pool size.
-        stalled = self._try_grow()
+        ahead = self.spec_tokens if self._spec else 1
+        stalled = self._try_grow(ahead)
         while stalled:
             self._preempt(stalled[-1])
-            stalled = self._try_grow()
+            stalled = self._try_grow(ahead)
         if not self.slots:
             return bool(self.pending)   # everything preempted; re-admit next
         active = [s for s, r in sorted(self.slots.items())
@@ -780,7 +922,10 @@ class PagedEngine:
         mp_bucket = self.page_bucket(max(self.slots[s].n_pages
                                          for s in active))
         self._note_occupancy()
-        self._decode_one(active, mp_bucket)
+        if self._spec:
+            self._spec_round(active, mp_bucket)
+        else:
+            self._decode_one(active, mp_bucket)
         self.steps += 1
 
         for slot in list(self.slots):
@@ -801,8 +946,9 @@ class PagedEngine:
         """Engine-level metrics, cumulative since construction, with the
         bucket LRU's hits, misses and evictions (``bucket_lru``).
         ``prefills`` and ``decode_steps`` count the exact-length prefills
-        and the decode launches; ``preempted_uids`` the requests preempted
-        at least once."""
+        and the decode launches (a speculative round is counted under
+        ``speculative``, not there); ``preempted_uids`` the requests
+        preempted at least once."""
         out = {
             "steps": self.steps,
             "admissions": self.admissions,
@@ -830,6 +976,19 @@ class PagedEngine:
         if self.chunk_tokens is not None:
             out["chunked_prefill"] = {"chunk_tokens": self.chunk_tokens,
                                       "chunks": self.chunks_prefilled}
+        if self._spec:
+            out["speculative"] = {
+                "k": self.spec_tokens,
+                "rounds": self.spec_rounds,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "accept_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+                # emitted tokens per sequence per verify round, in [1, k]
+                "mean_tokens_per_round":
+                    (self.spec_emitted / self.spec_participations
+                     if self.spec_participations else 0.0),
+            }
         return out
 
     def run(self) -> dict:

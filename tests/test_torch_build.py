@@ -198,3 +198,50 @@ def test_profile_helpers_sort_kernels_and_merge_intervals():
     assert ps.family("nvjet_tst_128x64_64x8_2x1_v_bz_TNT") == "library_matmul"
     assert ps.family("vectorized_elementwise_kernel") == "other_torch"
     assert ps._union_us([(0, 5), (3, 8), (10, 12), (11, 11.5)]) == 10.0
+
+
+def test_profile_serve_builds_the_drafts_it_is_asked_for():
+    """``--draft self`` is the target; ``layers:N`` a model of N layers
+    whose blocks are views of the target's first N; anything else is
+    refused."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_serve as ps
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("llama-1b"), num_layers=3,
+                              d_model=64, num_heads=4, num_kv_heads=2,
+                              d_ff=128, vocab_size=256)
+    model = build_model(cfg, device="cpu")
+    params = model.init(seed=0)
+    assert ps.draft_model("self", cfg, model, params) == (model, params)
+    draft, dparams = ps.draft_model("layers:2", cfg, model, params)
+    assert draft.cfg.num_layers == 2 and draft.mode == model.mode
+    wqk = dparams["blocks"]["attn"]["wqk"]
+    assert wqk.shape[0] == 2
+    assert wqk.data_ptr() == params["blocks"]["attn"]["wqk"].data_ptr()
+    assert dparams["embed"] is params["embed"]
+    for bad in ("layers:0", "layers:4", "skip:2", "layers:x"):
+        with pytest.raises(ValueError, match="--draft"):
+            ps.draft_model(bad, cfg, model, params)
+
+
+def test_a_source_beside_other_headers_builds_its_own_library(tmp_path):
+    """A kernel's library name hashes the headers of its own directory: an
+    earlier tree's copy of an unchanged ``.cu`` whose header changed (the
+    smoke's A/B) is not this tree's library, and a copy with this tree's
+    headers is."""
+    from repro_torch.kernels.attention import decode
+    ours = decode.PAGED_KERNEL
+    for name, edit in (("same", False), ("edited", True)):
+        d = tmp_path / name
+        d.mkdir()
+        (d / ours.source.name).write_bytes(ours.source.read_bytes())
+        for header in _build.CSRC.glob("*.cuh"):
+            text = header.read_bytes()
+            if edit and header.name == "decode_split.cuh":
+                text += b"// an earlier body\n"
+            (d / header.name).write_bytes(text)
+        other = _build.CudaKernel("baseline", str(d / ours.source.name),
+                                  ours.entry, ours.argtypes)
+        assert (other.lib_path == ours.lib_path) is not edit

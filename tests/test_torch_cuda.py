@@ -852,6 +852,133 @@ def test_engine_decode_step_replays_bitwise_the_eager_step(dev, engine):
             assert torch.equal(after_replay[k], saved[k])
 
 
+# ---------------------------------------------------------------------------
+# Speculative decoding: verify rows, the verify graph, the self-draft engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pages,lengths", [
+    (8, [4, 64, 68, 130, 257, 300, 400, 512]),
+    (16, [900, 930, 960, 980, 1000, 1010, 1020, 1024])],
+    ids=["one_split", "two_splits"])
+def test_verify_rows_equal_serial_steps_bitwise(dev, pages, lengths):
+    """llama-1b's verify shape (8 slots, Hkv 8, G 4, head_dim 64, 64-token
+    pages, T 4): row t of the T = 4 call is the T = 1 call of that row's
+    queries at length L - 3 + t bit for bit, over one split and over two
+    merged in the launch (the split plan sees G x T = 16 rows a unit at
+    both T, so it is the same plan; the T = 4 unit reads the tiles of its
+    last token, which the earlier rows cannot see)."""
+    rng = np.random.default_rng(31)
+    b, hkv, g, d, t = 8, 8, 4, 64, 4
+    q, kp, vp, pt, lens = _paged_inputs(rng, dev, b, hkv, g * t, d, 64,
+                                        pages, lengths)
+    # scores of a few units: a running max in log2 units does not round
+    # back exactly, so a tile the row cannot see must rescale it by 1
+    q = q * 8
+    got = flash_decode_paged(q, kp, vp, pt, lens, q_tokens=t)
+    got = got.view(b, hkv, g, t, d)
+    for i in range(t):
+        one = flash_decode_paged(
+            q.view(b, hkv, g, t, d)[:, :, :, i].contiguous(), kp, vp, pt,
+            lens - (t - 1) + i)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :, :, i], one)
+
+
+def test_verify_graph_replays_bitwise_its_eager_step(dev):
+    """After a self-draft engine serves, its ("verify", 1) bucket holds a
+    captured T = 4 step and its ("draft_decode", 1) bucket a T = 1 step
+    over the draft's pools. Each, replayed on new inputs from saved pools,
+    gives the eager step's logits and pools bit for bit and adds to the
+    launch counters what the eager step launches."""
+    from repro_torch.serve import PagedEngine, Request
+    model, params = _small_model(dev)
+    rng = np.random.default_rng(16)
+    eng = PagedEngine(model, params, batch_slots=2, page_size=64,
+                      max_pages_per_seq=2, draft_model=model,
+                      draft_params=params, spec_tokens=4)
+    with torch.inference_mode():
+        for u in range(2):
+            eng.submit(Request(u, rng.integers(0, 512, 30 + 9 * u)
+                               .astype(np.int32), 9))
+        eng.run()
+        assert eng.report()["speculative"]["rounds"] > 0
+        table = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+        lengths = torch.tensor([33, 41], dtype=torch.int32, device=dev)
+        for key, pools, t in ((("verify", 1), eng.cache, 4),
+                              (("draft_decode", 1), eng.draft_cache, 1)):
+            entry = eng._buckets[key]
+            assert entry.graph is not None
+            token = torch.arange(2 * t, device=dev).reshape(2, t) * 7 + 5
+            saved = _clone(pools)
+            kernels.reset_launch_counts()
+            replayed = entry(token=token, page_table=table,
+                             lengths=lengths).clone()
+            torch.cuda.synchronize()
+            replay_counts = kernels.launch_counts()
+            after = _clone(pools)
+            kernels.reset_launch_counts()
+            want = model.decode_step_paged(params, token, saved, table,
+                                           lengths)[1]
+            torch.cuda.synchronize()
+            assert kernels.launch_counts() == replay_counts
+            assert replay_counts["gemm_fused"] == 2 * model.cfg.num_layers
+            assert replay_counts["flash_decode_paged"] == model.cfg.num_layers
+            assert tuple(replayed.shape) == ((2, 4, 512) if t == 4
+                                             else (2, 512))
+            assert torch.equal(replayed, want)
+            for k in saved:
+                assert torch.equal(after[k], saved[k])
+
+
+def test_spec_self_draft_engine_equals_the_plain_engine(dev):
+    """A 2-layer llama at llama-1b's width (d_model 2048, 32/8 heads,
+    d_ff 8192, the 128,256-word vocabulary), weights at std fan_in^-1/2:
+    the self-draft engine (k 4) serves the plain PagedEngine's greedy
+    streams, accepts every proposal and emits 4 tokens a round, its
+    launches 2 fused GEMMs and one paged launch a layer for each of a
+    round's 4 draft steps and its verify."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import PagedEngine, Request
+    cfg = dataclasses.replace(get_config("llama-1b"), num_layers=2)
+    model = build_model(cfg, mode="kernel", device=dev)
+    params = model.init(seed=5)
+    params["embed"] = params["embed"] * cfg.d_model ** -0.5 / params[
+        "embed"].float().std()
+    for leaf in ("attn", "mlp"):
+        for name, w in params["blocks"][leaf].items():
+            if w.dim() == 3:
+                params["blocks"][leaf][name] = w * (
+                    w.shape[-2] ** -0.5 / w.float().std())
+    rng = np.random.default_rng(17)
+    reqs = [Request(u, rng.integers(0, cfg.vocab_size, 40 + 17 * u)
+                    .astype(np.int32), 24) for u in range(4)]
+
+    def serve(eng):
+        for r in reqs:
+            eng.submit(r)
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            out = eng.run()
+            torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    kw = dict(batch_slots=4, page_size=64, max_pages_per_seq=2)
+    want, _ = serve(PagedEngine(model, params, **kw))
+    eng = PagedEngine(model, params, draft_model=model, draft_params=params,
+                      spec_tokens=4, **kw)
+    got, counts = serve(eng)
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.uid], want[r.uid])
+    spec = eng.report()["speculative"]
+    assert spec["accept_rate"] == 1.0 and spec["mean_tokens_per_round"] == 4
+    layers, rounds = cfg.num_layers, spec["rounds"]
+    assert counts["gemm_fused"] == 2 * layers * (4 * eng.prefills
+                                                 + 5 * rounds)
+    assert counts["flash_decode_paged"] == 5 * layers * rounds
+    assert counts["flash_attention_fwd"] == 2 * layers * eng.prefills
+
+
 def _nested_clone(cache):
     return {part: _clone(t) for part, t in cache.items()}
 

@@ -234,7 +234,9 @@ def _emulate(q, k, v, valid, live, *, sms, scale, softcap, sinks, round_p):
                         mnew = torch.maximum(m, x.amax(1))
                         mu = torch.where(mnew == MASK_VALUE, 0.0,
                                          mnew * LOG2E)
-                        alpha = torch.exp2(m * LOG2E - mu)
+                        # exactly 1 where the row's max is unchanged
+                        alpha = torch.where(mnew == m, 1.0,
+                                            torch.exp2(m * LOG2E - mu))
                         p = torch.exp2(x * LOG2E - mu[:, None])
                         l = l * alpha + p.sum(1)
                         pv = p.to(torch.bfloat16).float() if round_p else p

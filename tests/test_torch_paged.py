@@ -504,8 +504,11 @@ def test_seeded_sampling_survives_preemption(weights):
 def test_paged_engine_refuses_what_it_cannot_serve(weights):
     _, np_params = weights
     model, params = _port("kernel", np_params)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        PagedEngine(model, params, draft_model=model, spec_tokens=3)
+    spec = dict(draft_model=model, draft_params=params)
+    with pytest.raises(ValueError, match="spec_tokens"):
+        PagedEngine(model, params, spec_tokens=1, **spec)
+    with pytest.raises(ValueError, match="temperature=0.0"):
+        PagedEngine(model, params, temperature=0.5, spec_tokens=3, **spec)
     with pytest.raises(ValueError, match="multiple of page_size"):
         PagedEngine(model, params, page_size=8, chunk_tokens=12)
     eng = PagedEngine(model, params, batch_slots=2, page_size=4,
