@@ -210,7 +210,31 @@ Phases, each of which raises on failure (exit code non-zero):
    prefill or chunk key cached; one replayed verify step bit for bit the
    eager T = 4 ``decode_step_paged``; decode tokens/s beside the plain
    engine's.
-11. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+11. The trainer's leftovers, kernel mode at llama-1b's published width.
+   (a) 6b's 16 layers, 8 steps, data and seed with ``ce_chunk=256`` (the
+   cross entropy over 256-position chunks, each chunk's logits made under
+   a checkpoint): launches exactly 6b's, the curve within 2.5x 6b's plain
+   bf16 curve's distance from 6b's fp32 curve + 0.05 (the function is
+   6b's); (b) the same with ``remat_policy="dots"`` (per layer and step 4
+   ``gemm_fused``, their outputs kept, and 2 flash forwards) and then
+   ``"none"`` (4 and 1), launches exact, curves under 6b's bound; each of
+   (a) and (b) prints its step time and peak memory beside 6b's and one
+   traced step's device ms by family. (c) 2 layers, 6 steps of
+   ``train_loop`` with a checkpoint every 2 steps (keep 2) in a temporary
+   directory (removed at the end; its free space printed first) and a
+   failure injected at step 5: one restart, resumed at step 4, the
+   checkpoint of step 4 bit for bit a copy of the state taken at its save
+   (params, moments, count, step), the available steps as keep says, the
+   losses after the restore within 1e-3 relative of an uninterrupted
+   run's (the flash backward's dq order varies between runs), launches
+   exact; prints the bytes written, each save's synchronous snapshot and
+   background write seconds, and the step times that overlapped a write
+   beside those that did not. (d) ``grad_compress=True`` at 2 layers, 6
+   steps in kernel, plain bf16 and plain fp32 modes, each compressed: the
+   kernel curve within 2.5x the plain bf16 curve's distance + 0.05 of the
+   compressed fp32 curve, losses finite and falling, launches exact; the
+   residuals' bytes and the step time beside (c)'s uncompressed run.
+12. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -224,9 +248,11 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -261,11 +287,13 @@ from repro_torch.launch.profile_train import profile_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import nest, tree_map  # noqa: E402
 from repro_torch.optim import AdamWConfig, cosine_schedule  # noqa: E402
-from repro_torch.optim.optimizer import named_leaves  # noqa: E402
+from repro_torch.optim.optimizer import leaves, named_leaves  # noqa: E402
 from repro_torch.serve import (Engine, PagedEngine, Request,  # noqa: E402
                                RequestQueue)
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
-from repro_torch.train import loss_and_grads, train_loop  # noqa: E402
+from repro_torch.train import (FailureInjector, StragglerWatchdog,  # noqa: E402
+                               loss_and_grads, train_loop)
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16 = 989e12
@@ -290,6 +318,12 @@ SPEC_TOKENS, SKIP_LAYERS = 4, 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
 # phase 7b: steps of 6b's run on the ladder's rung 2
 LADDER_STEPS = 3
+# phase 11: the chunk of 11a's cross entropy; 11c's and 11d's depth, steps,
+# checkpoint interval and kept checkpoints, the step the injected failure
+# stops and the step it resumes from
+CE_CHUNK = 256
+SHORT_LAYERS, SHORT_STEPS, CKPT_EVERY, CKPT_KEEP = 2, 6, 2, 2
+CKPT_FAIL, CKPT_RESUME = 5, 4
 # the memory-bound bench's fused-norm cells (benchmarks/bench_memory_bound.py)
 NORM_ROWS, NORM_D, NORM_P, NORM_SEED = (2048, 4096, 8192), 2048, 0.1, 7
 
@@ -319,6 +353,8 @@ SOURCES = {
 }
 # the phases whose launches are the main path's (6a only checks grads)
 MAIN_PATH_PHASES = ("4", "5a", "5b", "6b", "7a", "7b", "7c", "7d")
+# phase 11: the training leftovers
+LEFTOVER_PHASES = ("11a", "11b dots", "11b none", "11c", "11d")
 # phase 8: (arch, layers), granite-8b whole, the others cut in depth
 # (qwen2-72b's 80 layers are ~145 GB in bf16, more than one card holds)
 DENSE = (("granite-8b", 36), ("chatglm3-6b", 4), ("minicpm-2b", 4),
@@ -2546,9 +2582,9 @@ def run_grad_check(dev) -> dict:
 
 
 def train_curve(cfg, mode, dtype, dev, steps: int = TRAIN_STEPS,
-                qkv_plan: str = "rope_fused") -> dict:
+                qkv_plan: str = "rope_fused", **loop_kw) -> dict:
     """``steps`` steps of train_loop from seed 0 on the ported data, on the
-    schedule of a TRAIN_STEPS-step run."""
+    schedule of a TRAIN_STEPS-step run; ``loop_kw`` to train_loop."""
     model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
                         mode=mode, device=dev, qkv_plan=qkv_plan)
     opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
@@ -2556,11 +2592,13 @@ def train_curve(cfg, mode, dtype, dev, steps: int = TRAIN_STEPS,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res = train_loop(model, data, steps, opt, seed=0, log_every=0)
+    res = train_loop(model, data, steps, opt, seed=0, log_every=0, **loop_kw)
     counts = kernels.launch_counts()
     out = {"losses": res.losses, "step_seconds": res.step_seconds,
            "launches": counts,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ef_bytes": sum(e.numel() * e.element_size()
+                           for e in leaves(res.state.get("ef", {})))}
     del res
     torch.cuda.empty_cache()
     return out
@@ -3303,6 +3341,259 @@ def run_spec(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the training leftovers
+# ---------------------------------------------------------------------------
+
+def expected_kept_launches(cfg, steps: int, policy: str) -> dict:
+    """Per layer and step under remat_policy 'dots': the 4 forward GEMMs
+    once (their outputs kept), the flash forward twice (recomputed with
+    the rest of the block); under 'none' both once; the backward as under
+    'full' (expected_train_launches)."""
+    n = cfg.num_layers * steps
+    return {**expected_train_launches(cfg, steps), "gemm_fused": 4 * n,
+            "flash_attention_fwd": (2 if policy == "dots" else 1) * n}
+
+
+def held_to_truth(tag: str, run: dict, truth: list, plain: list) -> dict:
+    """The curve of ``run`` within 2.5x the plain bf16 curve's distance
+    from the fp32 ``truth`` + 0.05, every loss finite and the last below
+    the first."""
+    losses = run["losses"]
+    k_err = float(np.abs(np.subtract(losses, truth)).max())
+    p_err = float(np.abs(np.subtract(plain, truth)).max())
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}: {k_err:.4g} from "
+        f"the fp32 curve, the plain bf16 curve {p_err:.4g} (bound 2.5 x "
+        f"{p_err:.4g} + 0.05)")
+    if (not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+            or not k_err <= 2.5 * p_err + 0.05):
+        raise AssertionError(f"[{tag}] losses {losses}: {k_err:.4g} from "
+                             f"the fp32 truth, plain bf16 {p_err:.4g}")
+    return {"kernel": k_err, "plain": p_err}
+
+
+def loss_peak_gb(cfg, dev) -> float:
+    """The peak device memory (GB) of one ``loss_and_grads`` of 6b's first
+    batch in kernel mode: the fp32 masters, the activations, the logits and
+    the grads, without the optimizer's moments and temporaries (which set
+    the peak of a whole train step)."""
+    model = build_model(cfg, mode="kernel", device=dev)
+    params = tree_map(lambda t: t.requires_grad_(),
+                      model.init(seed=0, dtype=cfg.param_dtype))
+    batch = next(train_data(cfg, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grads = loss_and_grads(model, params, batch)[2]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del grads, params, model
+    torch.cuda.empty_cache()
+    return peak
+
+
+def run_lever(dev, tag: str, curves: dict, want_fn, **cfg_kw) -> dict:
+    """11a, 11b: 6b's 16 layers, steps, data and seed in kernel mode with
+    ``cfg_kw`` (a training lever): launches exact, the curve held to 6b's
+    fp32 and plain bf16 curves (the function is 6b's), step time and peak
+    memory beside 6b's, and one traced step's device ms by family."""
+    cfg = dataclasses.replace(get_config("llama-1b"), **cfg_kw)
+    run = train_curve(cfg, "kernel", "bfloat16", dev)
+    want = want_fn(cfg)
+    if run["launches"] != want:
+        raise AssertionError(f"[{tag}] launches {run['launches']}; "
+                             f"{TRAIN_STEPS} steps make {want}")
+    err = held_to_truth(tag, run, curves["truth"]["losses"],
+                        curves["plain"]["losses"])
+    step_s = statistics.median(run["step_seconds"][1:])
+    base = curves["kernel"]
+    loss_peak = loss_peak_gb(cfg, dev)
+    prof = profile_step(build_model(cfg, mode="kernel", device=dev),
+                        TRAIN_BATCH, TRAIN_SEQ, warmup=1)
+    tr = prof["traced"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[{tag}] {cfg_kw}: step {step_s:.4f} s ({tokens / step_s:.1f} "
+        f"tokens/s), peak device memory "
+        f"{run['peak_memory_gb']:.2f} GB, of the loss and grads alone "
+        f"{loss_peak:.2f} GB; 6b (remat 'full', unchunked) "
+        f"{curves['step_s']:.4f} s, {base['peak_memory_gb']:.2f} GB, "
+        f"{curves['loss_peak_gb']:.2f} GB; launches "
+        f"exact {run['launches']}; one traced step: device busy "
+        f"{tr['device_busy_ms']:.1f} of {tr['traced_wall_ms']:.1f} ms "
+        f"({tr['device_busy_share']:.3f}); device ms by family "
+        f"{ {k: round(v, 2) for k, v in tr['device_ms_by_family'].items()} }")
+    return {**run, "curve_err": err, "step_s": step_s,
+            "loss_peak_gb": loss_peak, "profile": prof}
+
+
+class KeptSnapshots(ckpt_lib.AsyncCheckpointer):
+    """The AsyncCheckpointer that also keeps, on the card, a copy of the
+    state as it stood at the save of each step in ``steps``: what its
+    checkpoint must hold bit for bit."""
+
+    def __init__(self, directory: str, keep: int, steps: tuple):
+        super().__init__(directory, keep)
+        self.steps, self.kept = steps, {}
+
+    def save(self, state, step: int) -> None:
+        if step in self.steps and step not in self.kept:
+            self.kept[step] = {k: v.detach().clone() if torch.is_tensor(v)
+                               else v for k, v in named_leaves(state)}
+        super().save(state, step)
+
+
+@dataclasses.dataclass
+class StepSpans(StragglerWatchdog):
+    """The watchdog that also records each step's (start, end) on
+    ``time.perf_counter``'s clock."""
+    spans: list = dataclasses.field(default_factory=list)
+
+    def observe(self, step: int, seconds: float) -> bool:
+        end = time.perf_counter()
+        self.spans.append((end - seconds, end))
+        return super().observe(step, seconds)
+
+
+def run_checkpoint(dev) -> dict:
+    """11c: llama-1b's width at SHORT_LAYERS layers, SHORT_STEPS steps of
+    train_loop with a checkpoint every CKPT_EVERY steps (keep CKPT_KEEP)
+    and a failure injected at step CKPT_FAIL, in a temporary directory
+    removed at the end; beside it the same steps uninterrupted."""
+    cfg = dataclasses.replace(get_config("llama-1b"), num_layers=SHORT_LAYERS)
+    model = build_model(cfg, mode="kernel", device=dev)
+    opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
+    plain = train_loop(model, train_data(cfg, dev), SHORT_STEPS, opt, seed=0,
+                       log_every=0)
+    ref = {"losses": plain.losses, "step_seconds": plain.step_seconds}
+    del plain
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(directory).free
+    log(f"[11c] checkpoint directory {directory}: {free / 1e9:.1f} GB free "
+        f"before the phase")
+    try:
+        ac = KeptSnapshots(directory, CKPT_KEEP, (CKPT_RESUME,))
+        spans, logs = StepSpans(), []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = train_loop(model, train_data(cfg, dev), SHORT_STEPS, opt,
+                         seed=0, checkpointer=ac, ckpt_every=CKPT_EVERY,
+                         failure_injector=FailureInjector((CKPT_FAIL,)),
+                         watchdog=spans, log_every=0, log=logs.append)
+        counts = kernels.launch_counts()
+        steps_run = CKPT_FAIL + SHORT_STEPS - CKPT_RESUME
+        want = expected_train_launches(cfg, steps_run)
+        if counts != want:
+            raise AssertionError(f"[11c] launches {counts}; {steps_run} "
+                                 f"steps make {want}")
+        if (res.restarts != 1 or f"[trainer] restored step {CKPT_RESUME}"
+                not in logs or len(res.losses) != steps_run):
+            raise AssertionError(f"[11c] restarts {res.restarts}, log {logs}")
+        avail = ckpt_lib.available_steps(directory)
+        want_avail = [SHORT_STEPS - CKPT_EVERY, SHORT_STEPS]
+        if avail != want_avail:
+            raise AssertionError(f"[11c] available steps {avail}, keep "
+                                 f"{CKPT_KEEP} leaves {want_avail}")
+        restored, _ = ckpt_lib.restore(directory, res.state, step=CKPT_RESUME)
+        kept = ac.kept[CKPT_RESUME]
+        for path, x in named_leaves(restored):
+            same = (torch.equal(x, kept[path]) if torch.is_tensor(x)
+                    else x == kept[path])
+            if not same:
+                raise AssertionError(f"[11c] {path} of step {CKPT_RESUME} "
+                                     "differs from the state at its save")
+        del restored, kept
+        after = res.losses[CKPT_FAIL:]
+        base = ref["losses"][CKPT_RESUME:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(after, base))
+        if not rel <= 1e-3:
+            raise AssertionError(f"[11c] losses after the restore {after}, "
+                                 f"uninterrupted {base}: {rel:.3g} relative")
+        recs = ac.records
+        overlapped, alone = [], []
+        for i, ((t0, t1), dt) in enumerate(zip(spans.spans,
+                                               res.step_seconds)):
+            if any(r["write_start"] < t1 and t0 < r["write_end"]
+                   for r in recs):
+                overlapped.append(dt)
+            elif i:
+                alone.append(dt)
+        state_bytes = sum(x.numel() * x.element_size()
+                          for x in leaves(res.state) if torch.is_tensor(x))
+        log(f"[11c] {cfg.num_layers} layers, {SHORT_STEPS} steps, a "
+            f"checkpoint every {CKPT_EVERY} (keep {CKPT_KEEP}), failure at "
+            f"step {CKPT_FAIL}: restarts {res.restarts}, resumed at step "
+            f"{CKPT_RESUME}, its state bit for bit the state at its save; "
+            f"available steps {avail}; losses after the restore "
+            f"{[round(x, 5) for x in after]}, uninterrupted "
+            f"{[round(x, 5) for x in base]} ({rel:.3g} relative); launches "
+            f"exact {counts}")
+        log(f"[11c] state {state_bytes / 1e9:.3f} GB; saves (step, bytes "
+            f"written, snapshot s, background write s): "
+            f"{[(r['step'], r['bytes'], round(r['snapshot_s'], 4), round(r['write_s'], 3)) for r in recs]}")
+        log(f"[11c] step seconds overlapping a write "
+            f"{[round(x, 4) for x in overlapped]}, not overlapping (after "
+            f"the first) {[round(x, 4) for x in alone]}; uninterrupted run "
+            f"{[round(x, 4) for x in ref['step_seconds']]}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return {"launches": counts, "losses": res.losses, "uninterrupted": ref,
+            "restarts": res.restarts, "available_steps": avail,
+            "restore_rel_err": rel, "records": recs, "free_bytes": free,
+            "state_bytes": state_bytes, "overlapped_step_s": overlapped,
+            "alone_step_s": alone}
+
+
+def run_compression(dev, short: dict) -> dict:
+    """11d: grad_compress=True at 11c's width and depth, SHORT_STEPS steps
+    in kernel mode, plain bf16 and plain fp32, each with compression; the
+    kernel curve held to the compressed fp32 curve (compression changes
+    the function), launches exact; the residuals' bytes and the step time
+    beside 11c's uninterrupted (uncompressed) run."""
+    cfg = dataclasses.replace(get_config("llama-1b"), num_layers=SHORT_LAYERS)
+    kern = train_curve(cfg, "kernel", "bfloat16", dev, steps=SHORT_STEPS,
+                       grad_compress=True)
+    want = expected_train_launches(cfg, SHORT_STEPS)
+    if kern["launches"] != want:
+        raise AssertionError(f"[11d] launches {kern['launches']}; "
+                             f"{SHORT_STEPS} steps make {want}")
+    plain = train_curve(cfg, "reference", "bfloat16", dev, steps=SHORT_STEPS,
+                        grad_compress=True)
+    truth = train_curve(cfg, "reference", "float32", dev, steps=SHORT_STEPS,
+                        grad_compress=True)
+    err = held_to_truth("11d", kern, truth["losses"], plain["losses"])
+    step_s = statistics.median(kern["step_seconds"][1:])
+    base_s = statistics.median(short["uninterrupted"]["step_seconds"][1:])
+    log(f"[11d] grad_compress at {cfg.num_layers} layers: residuals "
+        f"{kern['ef_bytes'] / 1e9:.3f} GB (4 B a parameter), step "
+        f"{step_s:.4f} s against {base_s:.4f} s uncompressed (11c); peak "
+        f"device memory {kern['peak_memory_gb']:.2f} GB; launches exact "
+        f"{kern['launches']}")
+    return {**kern, "plain": plain, "truth": truth, "curve_err": err,
+            "step_s": step_s, "uncompressed_step_s": base_s}
+
+
+def run_leftovers(dev, curves: dict) -> dict:
+    """Phase 11: 11a ce_chunk, 11b remat 'dots' and 'none', 11c checkpoint
+    and restore, 11d grad_compress."""
+    def kept(policy):
+        return lambda cfg: expected_kept_launches(cfg, TRAIN_STEPS, policy)
+
+    curves = {**curves, "loss_peak_gb": loss_peak_gb(get_config("llama-1b"),
+                                                     dev)}
+    out = {"11a": run_lever(dev, "11a", curves,
+                            lambda cfg: expected_train_launches(
+                                cfg, TRAIN_STEPS), ce_chunk=CE_CHUNK)}
+    torch.cuda.empty_cache()
+    for policy in ("dots", "none"):
+        out[f"11b {policy}"] = run_lever(dev, f"11b {policy}", curves,
+                                         kept(policy), remat_policy=policy)
+        torch.cuda.empty_cache()
+    out["11c"] = run_checkpoint(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["11d"] = run_compression(dev, out["11c"])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3409,6 +3700,10 @@ def main(argv=None) -> int:
     spec = run_spec(dev)
     phases.update((p, spec[p]) for p in SPEC_RUNS)
     log(f"[done] phase 10 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(run_leftovers(dev, phases["6b"]))
+    log(f"[done] phase 11 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -3420,7 +3715,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": sum(phases[p]["launches"][name]
                             for p in MAIN_PATH_PHASES + DENSE_PHASES
-                            + ENCODER_PHASES + tuple(SPEC_RUNS)),
+                            + ENCODER_PHASES + tuple(SPEC_RUNS)
+                            + LEFTOVER_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

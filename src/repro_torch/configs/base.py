@@ -38,8 +38,8 @@ class ModelConfig:
     max_target_positions: int = 448
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    ce_chunk: int = 0            # >0: chunked CE loss (the port takes 0 only)
-    remat_policy: str = "full"   # 'full' | 'none' ('dots' raises in the port)
+    ce_chunk: int = 0            # >0: chunked CE loss over this many positions
+    remat_policy: str = "full"   # 'full' | 'dots' (save matmul outputs) | 'none'
     vocab_pad_multiple: int = 0  # pad V up to a multiple; padding is masked
     emb_scale: float = 1.0
     residual_scale: float = 1.0

@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -299,19 +300,89 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
 
 def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
              cos, gamma, out_dtype, beta=None, save_preact=False):
-    """(out, stats, preacts): the kernel on the card, the plain version on
-    the CPU. ``stats`` is the kernel's row statistics in fp32: rstd (M,)
-    for rmsnorm, (2, M) mean and rstd for layernorm (None without a
-    prologue, and on the CPU, where the plain backward recomputes them);
-    ``preacts`` the raw accumulators rounded to A's type when
-    ``save_preact`` (:func:`kernel_saves` of them), else ()."""
-    kw = dict(b2=b2, bias=bias, residual=residual, scale=scale, sin=sin,
-              cos=cos, gamma=gamma, beta=beta, out_dtype=out_dtype,
-              save_preact=save_preact)
-    if a.device.type == "cuda":
-        return _launch(a, b, epilogue, eps=prologue.eps,
-                       layernorm=prologue.norm == "layernorm", **kw)
-    return forward_ref(a, b, epilogue, prologue, **kw)
+    """(out, stats, preacts) through the custom op ``repro_torch::gemm_fused``:
+    the kernel on the card, the plain version on the CPU. ``stats`` is the
+    kernel's row statistics in fp32: rstd (M,) for rmsnorm, (2, M) mean and
+    rstd for layernorm (None without a prologue, and on the CPU, where the
+    plain backward recomputes them); ``preacts`` the raw accumulators
+    rounded to A's type when ``save_preact`` (:func:`kernel_saves` of them),
+    else (). The op is what a selective-checkpoint policy sees of the
+    launch (``models.lm._remat``'s "dots")."""
+    if epilogue.scale_kind != "scalar" or prologue.precomputed_stats:
+        raise NotImplementedError("gemm_fused kernel: row/col scales and "
+                                  "precomputed statistics are not supported")
+    out, stats, preacts = torch.ops.repro_torch.gemm_fused(
+        a, b, b2, bias, residual, gamma, beta, sin, cos,
+        chain_flags(epilogue), epilogue.head_dim, prologue.norm, prologue.eps,
+        None if scale is None else float(scale), out_dtype, save_preact)
+    return out, (stats if stats.numel() else None), tuple(preacts)
+
+
+def _chain_of(flags: int, head_dim: int, norm: str, eps, has_beta: bool):
+    """The (Epilogue, Prologue) that :func:`chain_flags` and the prologue's
+    fields describe: the custom op's arguments back as the specs."""
+    act = next(k for k, v in ACT_CODES.items()
+               if v == flags >> _EP_ACT_SHIFT)
+    epilogue = Epilogue(bias=bool(flags & _EP_BIAS), activation=act,
+                        gate=bool(flags & _EP_GATE),
+                        residual=bool(flags & _EP_RESIDUAL),
+                        scale=bool(flags & _EP_SCALE),
+                        rope=bool(flags & _EP_ROPE), head_dim=head_dim)
+    return epilogue, Prologue(norm=norm, beta=has_beta, eps=eps)
+
+
+@torch.library.custom_op("repro_torch::gemm_fused", mutates_args=())
+def _gemm_fused_op(
+        a: torch.Tensor, b: torch.Tensor, b2: Optional[torch.Tensor],
+        bias: Optional[torch.Tensor], residual: Optional[torch.Tensor],
+        gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+        sin: Optional[torch.Tensor], cos: Optional[torch.Tensor], flags: int,
+        head_dim: int, norm: str, eps: Optional[float],
+        scale: Optional[float], out_dtype: torch.dtype,
+        save_preact: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                    list[torch.Tensor]]:
+    """The plain version (any device but CUDA): (out, an empty stats
+    tensor, preacts)."""
+    epilogue, prologue = _chain_of(flags, head_dim, norm, eps,
+                                   beta is not None)
+    out, _, preacts = forward_ref(
+        a, b, epilogue, prologue, b2=b2, bias=bias, residual=residual,
+        scale=scale, sin=sin, cos=cos, gamma=gamma, beta=beta,
+        out_dtype=out_dtype, save_preact=save_preact)
+    return out, a.new_empty(0, dtype=torch.float32), list(preacts)
+
+
+@_gemm_fused_op.register_kernel("cuda")
+def _gemm_fused_cuda(a, b, b2, bias, residual, gamma, beta, sin, cos, flags,
+                     head_dim, norm, eps, scale, out_dtype, save_preact):
+    """The kernel: one launch (:func:`_launch`, which counts it)."""
+    epilogue, _ = _chain_of(flags, head_dim, norm, eps, beta is not None)
+    out, stats, preacts = _launch(
+        a, b, epilogue, b2=b2, bias=bias, residual=residual, scale=scale,
+        sin=sin, cos=cos, gamma=gamma, beta=beta, eps=eps,
+        layernorm=norm == "layernorm", out_dtype=out_dtype,
+        save_preact=save_preact)
+    if stats is None:
+        stats = a.new_empty(0, dtype=torch.float32)
+    return out, stats, list(preacts)
+
+
+@_gemm_fused_op.register_fake
+def _gemm_fused_fake(a, b, b2, bias, residual, gamma, beta, sin, cos, flags,
+                     head_dim, norm, eps, scale, out_dtype, save_preact):
+    m, n = a.shape[0], b.shape[1]
+    cuda = a.device.type == "cuda"
+    stats = (0,)
+    if cuda and gamma is not None:
+        stats = (2, m) if norm == "layernorm" else (m,)
+    epilogue, _ = _chain_of(flags, head_dim, norm, eps, beta is not None)
+    saves = 0
+    if save_preact:
+        saves = (kernel_saves(epilogue) if cuda
+                 else epilogue.n_accumulators)
+    return (a.new_empty((m, n), dtype=out_dtype),
+            a.new_empty(stats, dtype=torch.float32),
+            [a.new_empty((m, n)) for _ in range(saves)])
 
 
 def forward_ref(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,

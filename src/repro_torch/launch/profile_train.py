@@ -3,7 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama-1b \\
       --batch 4 --seq 1024 --out DIR
   (also --arch bert-110m --batch 8 --seq 512; --arch whisper-base --batch 4
-  --seq 448)
+  --seq 448; the training levers: --ce-chunk 256, --remat-policy dots|none)
 
 Builds the model in kernel mode with seeded random fp32 masters, runs two
 warm-up steps on the training launcher's data (the reference's synthetic
@@ -18,6 +18,7 @@ traced step, and the peak device memory. Needs a CUDA card; writes
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -61,16 +62,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ce-chunk", type=int, default=None,
+                    help="the chunked cross entropy over this many "
+                    "positions (default: the config's)")
+    ap.add_argument("--remat-policy", choices=["full", "dots", "none"],
+                    default=None, help="default: the config's")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    levers = {"ce_chunk": args.ce_chunk, "remat_policy": args.remat_policy}
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in levers.items()
+                                      if v is not None})
     model = build_model(cfg, mode="kernel", device="cuda")
     torch.cuda.reset_peak_memory_stats()
     row = profile_step(model, args.batch, args.seq, seed=args.seed)
     report = {"arch": args.arch, "layers": cfg.num_layers,
               "batch": args.batch, "seq": args.seq,
-              "remat_policy": cfg.remat_policy,
+              "remat_policy": cfg.remat_policy, "ce_chunk": cfg.ce_chunk,
               "device": torch.cuda.get_device_name(0),
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
               **row}

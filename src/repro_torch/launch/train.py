@@ -7,6 +7,8 @@ data, with the model in kernel mode.
       --steps 6 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
       --steps 6 --batch 4 --seq 448
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
+      --steps 200 --ckpt-dir ckpt/llama-1b --ckpt-every 50 --grad-compress
 
 The decoders and bert-110m take the LM pipeline's batches
 (``data.DataIterator``), as the reference's launcher feeds every arch;
@@ -65,6 +67,11 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--schedule", choices=["cosine", "wsd"], default="cosine")
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="int8 error-feedback compression of the grads")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from and save checkpoints to this directory")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mode", choices=["kernel", "reference"],
                     default="kernel")
     ap.add_argument("--seed", type=int, default=0)
@@ -89,6 +96,8 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats()
     res = train_loop(model, data, args.steps, AdamWConfig(schedule=sched),
                      seed=args.seed, microbatches=args.microbatches,
+                     grad_compress=args.grad_compress,
+                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      failure_injector=FailureInjector(tuple(args.fail_at)),
                      watchdog=StragglerWatchdog())
     print(f"[train] finished: {len(res.losses)} steps, "

@@ -10,9 +10,11 @@ to the compute type when they are made (``Model.init``,
 ``params_from_numpy``); training keeps fp32 masters, and the full-sequence
 forward casts them (``cast_params``, as the reference does on every call),
 so the cast's backward hands fp32 grads to the optimizer. With ``remat``
-each block runs under ``torch.utils.checkpoint`` (the reference's
-``remat_policy="full"``). The port runs 'attn' blocks only; any other block
-kind raises.
+each block runs under ``torch.utils.checkpoint`` per ``cfg.remat_policy``
+(:func:`_remat`). With ``cfg.ce_chunk`` the loss takes the cross entropy
+chunk by chunk along the sequence (:func:`_chunked_ce`), so the (B, S, V)
+fp32 logits never exist at once. The port runs 'attn' blocks only; any
+other block kind raises.
 """
 from __future__ import annotations
 
@@ -67,10 +69,17 @@ def _embed(cfg, params, tokens):
         * cfg.emb_scale
 
 
-def _logits(cfg, params, x):
+def _head(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(cfg, params, x, head=None):
+    """fp32 logits of the final norm of ``x``; ``head``: the (d, V) head
+    already in fp32, where the caller made it once for many calls."""
     x = apply_norm(cfg, x, params, "final_norm")
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x.float() @ head.float()
+    if head is None:
+        head = _head(cfg, params).float()
+    logits = x.float() @ head
     if cfg.padded_vocab() != cfg.vocab_size:
         # the padding columns carry no probability mass
         pad = torch.arange(cfg.padded_vocab(), device=x.device) >= cfg.vocab_size
@@ -101,27 +110,50 @@ def unstack_layers(blocks, n: int) -> list:
     return [tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
 
 
+# products without batch dims, whose outputs remat_policy="dots" keeps: the
+# plain path's (aten.mm, aten.addmm) and the forward GEMM kernel's op
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.repro_torch.gemm_fused.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _SAVED_PRODUCTS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(cfg, fn):
-    """``fn`` recomputed in the backward, per ``cfg.remat_policy``."""
+    """``fn`` recomputed in the backward, per ``cfg.remat_policy``: "full"
+    recomputes all of it; "dots" keeps the outputs of the matrix products
+    without batch dims (the reference's
+    ``checkpoint_dots_with_no_batch_dims``): the plain products and the
+    forward GEMM kernel, whose launch the policy sees as the custom op
+    ``repro_torch::gemm_fused``; it recomputes the rest, attention (a
+    product with batch dims, or the flash kernel) included."""
     if cfg.remat_policy == "none":
         return fn
-    if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (keep the matrix products) is not ported; "
-            "use 'full' or 'none'")
-    if cfg.remat_policy != "full":
+    if cfg.remat_policy not in ("full", "dots"):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
 
     def run(*args):
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False, **kw)
     return run
 
 
 def lm_forward(cfg, params, tokens, *, mode: str = "reference",
-               remat: bool = False, qkv_plan: str = "rope_fused"):
-    """tokens: (B, S) -> logits (B, S, V) fp32. (The reference also returns
-    the MoE auxiliary loss; dense blocks have none.)"""
+               remat: bool = False, qkv_plan: str = "rope_fused",
+               return_hidden: bool = False):
+    """tokens: (B, S) -> logits (B, S, V) fp32, or with ``return_hidden``
+    (the last block's output (B, S, d), the params cast to the compute
+    type), so the loss reuses the cast. (The reference also returns the MoE
+    auxiliary loss; dense blocks have none.)"""
     params = cast_params(params, dtype_of(cfg.compute_dtype))
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
@@ -131,21 +163,62 @@ def lm_forward(cfg, params, tokens, *, mode: str = "reference",
         block = _remat(cfg, block)
     for p in unstack_layers(params["blocks"], cfg.num_layers):
         x = block(p, x)
+    if return_hidden:
+        return x, params
     return _logits(cfg, params, x)
+
+
+def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int):
+    """The masked mean cross entropy, ``chunk`` positions of the sequence
+    at a time (halved until it divides S): each chunk's fp32 logits are made
+    under a non-reentrant checkpoint, so they live only while that chunk
+    runs, in the backward too. ``params``: the compute-type cast; the head
+    is cast to fp32 once and handed to every chunk as an input, so its grad
+    is summed over the chunks in fp32."""
+    s = hidden.shape[1]
+    while s % chunk:
+        chunk //= 2
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=hidden.device)
+    norm = {k: v for k, v in params.items() if k.startswith("final_norm")}
+    head = _head(cfg, params).float()
+
+    def body(h, t, m, head, norm):
+        logits = _logits(cfg, norm, h, head)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        mf = m.float()
+        return torch.sum((lse - gold) * mf), torch.sum(mf)
+
+    nll = msum = 0.0
+    for i in range(0, s, chunk):
+        part = slice(i, i + chunk)
+        n_, m_ = torch.utils.checkpoint.checkpoint(
+            body, hidden[:, part], targets[:, part], mask[:, part], head,
+            norm, use_reentrant=False)
+        nll, msum = nll + n_, msum + m_
+    return nll / torch.clamp(msum, min=1.0)
 
 
 def lm_loss(cfg, params, batch, *, mode: str = "reference", remat: bool = True,
             aux_weight: float = 0.01, qkv_plan: str = "rope_fused"):
     """(loss, {"ce", "aux"}): the masked mean cross entropy of the batch
-    {"inputs", "targets"[, "loss_mask"]}; dense blocks have no auxiliary
-    loss, so aux is 0."""
+    {"inputs", "targets"[, "loss_mask"]}, over ``cfg.ce_chunk``-position
+    chunks where that is set; dense blocks have no auxiliary loss, so aux
+    is 0."""
     if cfg.ce_chunk:
-        raise NotImplementedError(
-            "ce_chunk (the chunked cross entropy) is not ported; use 0")
-    logits = lm_forward(cfg, params, batch["inputs"], mode=mode, remat=remat,
-                        qkv_plan=qkv_plan)
-    ce = cross_entropy_loss(logits, batch["targets"], batch.get("loss_mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        hidden, cast = lm_forward(cfg, params, batch["inputs"], mode=mode,
+                                  remat=remat, qkv_plan=qkv_plan,
+                                  return_hidden=True)
+        ce = _chunked_ce(cfg, cast, hidden, batch["targets"],
+                         batch.get("loss_mask"), cfg.ce_chunk)
+    else:
+        logits = lm_forward(cfg, params, batch["inputs"], mode=mode,
+                            remat=remat, qkv_plan=qkv_plan)
+        ce = cross_entropy_loss(logits, batch["targets"],
+                                batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 

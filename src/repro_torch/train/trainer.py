@@ -1,11 +1,15 @@
 """The train step and the fault-tolerant training loop.
 
 ``make_train_step`` builds the step: the loss and its grads by autograd
-(microbatches' grads summed in fp32, as the reference's scan does), then
-AdamW in place. ``train_loop`` adds failure injection with restart and the
-straggler watchdog. The port has no checkpointing yet: without a
-checkpoint directory a simulated failure restarts from scratch, as the
-reference does.
+(microbatches' grads summed in fp32, as the reference's scan does), with
+``grad_compress`` the int8 error-feedback round trip of the grads
+(``optim.ef_compress``), then AdamW in place. ``train_loop`` is the
+reference's loop: it resumes from the newest valid checkpoint in
+``ckpt_dir``, saves every ``ckpt_every`` steps through an
+``AsyncCheckpointer`` (snapshot now, write in the background), and on a
+simulated failure waits for the write in flight and restores the newest
+valid checkpoint, or restarts from scratch when there is none; a last save
+ends the run. The straggler watchdog observes every step.
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_update, ef_compress
 from repro_torch.optim.optimizer import leaves
+from . import checkpoint as ckpt_lib
 from .state import init_state
 
 
@@ -90,13 +95,17 @@ def loss_and_grads(model, params, batch, *, microbatches: int = 1) -> tuple:
             torch._foreach_div(gsum, float(microbatches)))
 
 
-def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1):
+def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
+                    grad_compress: bool = False):
     """Returns step(state, batch) -> (state, metrics); the state is updated
-    in place."""
+    in place. With ``grad_compress`` the state holds ``"ef"``
+    (``init_state(..., grad_compress=True)``)."""
 
     def step_fn(state, batch):
         loss, metrics, grads = loss_and_grads(model, state["params"], batch,
                                               microbatches=microbatches)
+        if grad_compress:
+            grads, state["ef"] = ef_compress(grads, state["ef"])
         _, _, om = adamw_update(opt_cfg, grads, state["opt"], state["params"])
         state["step"] += 1
         return state, {"loss": loss, **metrics, **om}
@@ -114,25 +123,47 @@ class TrainLoopResult:
 
 
 def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
-               seed: int = 0, params=None, microbatches: int = 1,
-               ckpt_dir: Optional[str] = None,
+               seed: int = 0, params=None, grad_compress: bool = False,
+               microbatches: int = 1, ckpt_dir: Optional[str] = None,
+               ckpt_every: int = 50,
+               checkpointer: Optional[ckpt_lib.AsyncCheckpointer] = None,
                failure_injector: Optional[FailureInjector] = None,
                watchdog: Optional[StragglerWatchdog] = None,
                max_restarts: int = 3, log_every: int = 10,
                log: Callable = print) -> TrainLoopResult:
-    """Train ``num_steps`` steps from ``init_state(model, seed, params)``.
-    Each step's host time ends when its loss reaches the host (a device
-    synchronise); ``step_seconds`` keeps them."""
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            "checkpointing (train/checkpoint.py) is not ported; pass "
-            "ckpt_dir=None")
-    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
-    state = init_state(model, seed, params)
+    """Train up to step ``num_steps`` from ``init_state(model, seed, params,
+    grad_compress=...)``, or from the newest valid checkpoint in
+    ``ckpt_dir``. ``checkpointer``: the ``AsyncCheckpointer`` to save
+    through (its directory is the checkpoint directory); by default one
+    over ``ckpt_dir`` keeping 3. Each step's host time ends when its loss
+    reaches the host (a device synchronise); ``step_seconds`` keeps them."""
+    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches,
+                              grad_compress=grad_compress)
+    if checkpointer is None and ckpt_dir is not None:
+        checkpointer = ckpt_lib.AsyncCheckpointer(ckpt_dir)
+    ckpt_dir = checkpointer.directory if checkpointer is not None else None
+
+    def fresh_state():
+        return init_state(model, seed, params, grad_compress=grad_compress)
+
+    def restored_state():
+        """The newest valid checkpoint restored into a fresh state's
+        layout, or None; the data iterator moved to its step."""
+        if ckpt_dir is None or not ckpt_lib.available_steps(ckpt_dir):
+            return None
+        state, step0 = ckpt_lib.restore(ckpt_dir, fresh_state())
+        data_iter.load_state_dict({"step": step0})
+        return state
+
+    state = restored_state()
+    if state is not None:
+        log(f"[trainer] resumed from checkpoint at step {state['step']}")
+    else:
+        state = fresh_state()
     losses: list = []
     seconds: list = []
     restarts = 0
-    step = 0
+    step = state["step"]
     while step < num_steps:
         try:
             batch = next(data_iter)
@@ -150,14 +181,27 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
             if log_every and step % log_every == 0:
                 log(f"[trainer] step {step:5d} loss {loss:.4f} "
                     f"({dt * 1e3:.0f} ms)")
+            if checkpointer is not None and step % ckpt_every == 0:
+                checkpointer.save(state, step)
         except SimulatedFailure as e:
             restarts += 1
             log(f"[trainer] {e} — recovering (restart {restarts})")
             if restarts > max_restarts:
                 raise
-            state = init_state(model, seed, params)
-            data_iter.load_state_dict({"step": 0})
-            step = 0
-            log("[trainer] no checkpoint — restarted from scratch")
+            if checkpointer is not None:
+                checkpointer.wait()
+            del state
+            state = restored_state()
+            if state is not None:
+                step = state["step"]
+                log(f"[trainer] restored step {step}")
+            else:
+                state = fresh_state()
+                data_iter.load_state_dict({"step": 0})
+                step = 0
+                log("[trainer] no checkpoint — restarted from scratch")
+    if checkpointer is not None:
+        checkpointer.save(state, step)
+        checkpointer.wait()
     return TrainLoopResult(state, losses, restarts,
                            watchdog.events if watchdog else [], seconds)

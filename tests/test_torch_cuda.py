@@ -30,7 +30,10 @@ training shapes, the forward's saved preacts against the rounded
 accumulator, the flash backward at head_dim 128 with windows, soft caps,
 strided views, groups 1-16 and the training shape (dk and dv bitwise across
 two calls, a view the TMA cannot read refused), and autograd through both
-ops.
+ops; remat_policy 'dots' at llama-1b's width with exact launches, the
+chunked cross entropy against the unchunked loss, a checkpoint of card
+tensors restored bit for bit after an in-place step, and a decode step
+through the forward GEMM's custom op replayed from its graph bit for bit.
 
 Marked ``cuda``: skipped on a machine without a CUDA card. On the card:
 
@@ -1678,3 +1681,141 @@ def test_fused_norm_kernel_replays_from_a_cuda_graph(dev, dtype):
     b = _rand(rng, (d,), dev, 0.1, dtype=torch.float32)
     _replays_equal_eager(lambda: dropout_residual_layernorm(
         x, r, w, b, 7, dropout_p=0.1))
+
+
+# ---------------------------------------------------------------------------
+# The trainer's leftovers: remat 'dots', the chunked cross entropy, the
+# checkpoint from card tensors, the GEMM op in a captured decode step
+# ---------------------------------------------------------------------------
+
+def _llama_width(dev, mode="kernel", **kw):
+    """llama-1b's published width at 2 layers, seeded fp32 masters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(get_config("llama-1b"), num_layers=2, **kw)
+    model = build_model(cfg, mode=mode, device=dev)
+    params = tree_map(lambda t: t.requires_grad_(),
+                      model.init(seed=0, dtype="float32"))
+    return model, params
+
+
+def _train_batch(cfg, dev, batch=2, seq=256):
+    from repro_torch.data import DataConfig, DataIterator
+    return next(DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=seq, global_batch=batch),
+                             device=dev))
+
+
+def test_dots_launches_exactly_at_llama_width(dev):
+    """remat_policy 'dots' at llama-1b's width, kernel mode: per layer 4
+    forward GEMMs (kept, not recomputed), 2 flash forwards (forward and
+    recompute), 4 operand passes, 4 dA, 4 dB and the flash backward's 2
+    launches; the loss bit for bit 'full''s, the grads within 2% of the
+    largest entry of 'full''s (the flash backward reduce-adds dq in an
+    order that varies between runs)."""
+    from repro_torch.train import loss_and_grads
+    got = {}
+    for policy in ("full", "dots"):
+        model, params = _llama_width(dev, remat_policy=policy)
+        batch = _train_batch(model.cfg, dev)
+        kernels.reset_launch_counts()
+        loss, _, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        got[policy] = (float(loss), grads, kernels.launch_counts())
+    n = 2
+    assert {k: v for k, v in got["dots"][2].items() if v} == {
+        "gemm_fused": 4 * n, "flash_attention_fwd": 2 * n,
+        "gemm_bwd_g": 4 * n, "gemm_bwd_da": 4 * n, "gemm_bwd_db": 4 * n,
+        "flash_attention_bwd": 2 * n}
+    assert got["full"][2]["gemm_fused"] == 8 * n
+    assert got["dots"][0] == got["full"][0]
+    for a, b in zip(got["dots"][1], got["full"][1]):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 2e-2 * b.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["reference", "kernel"])
+def test_chunked_ce_matches_the_unchunked_loss(dev, mode):
+    """ce_chunk 64 at llama-1b's width (2 layers, 2 x 256 tokens, vocab
+    128,256) against the unchunked loss on the card: fp32 plain path, the
+    loss within 1e-6 and every grad within 1e-5 of its largest entry; the
+    kernel mode (bf16), the loss within 1e-4 and the grads within 2%."""
+    from repro_torch.train import loss_and_grads
+    dtype = "float32" if mode == "reference" else "bfloat16"
+    got = {}
+    for chunk in (0, 64):
+        model, params = _llama_width(dev, mode, ce_chunk=chunk,
+                                     compute_dtype=dtype)
+        batch = _train_batch(model.cfg, dev)
+        loss, _, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        got[chunk] = (float(loss), grads)
+    loss_tol, grad_tol = (1e-6, 1e-5) if mode == "reference" else (1e-4, 2e-2)
+    assert abs(got[64][0] - got[0][0]) <= loss_tol * abs(got[0][0])
+    for a, b in zip(got[64][1], got[0][1]):
+        assert (a - b).abs().max() <= grad_tol * b.abs().max()
+
+
+def test_async_checkpoint_of_card_tensors_restores_bitwise(dev, tmp_path):
+    """A state on the card saved by AsyncCheckpointer, then at once updated
+    in place by an AdamW step: the restored state (on the card) is the one
+    at save() bit for bit."""
+    from repro_torch.optim import AdamWConfig, adamw_update, constant_schedule
+    from repro_torch.optim.optimizer import leaves, named_leaves
+    from repro_torch.train import checkpoint, init_state
+    model, params = _llama_width(dev)
+    state = init_state(model, params=params)
+    opt = AdamWConfig(schedule=constant_schedule(1e-2))
+
+    def step():
+        grads = [torch.randn_like(p) for p in leaves(state["params"])]
+        adamw_update(opt, grads, state["opt"], state["params"])
+        state["step"] += 1
+
+    step()
+    want = {k: v.detach().clone() if torch.is_tensor(v) else v
+            for k, v in named_leaves(state)}
+    ac = checkpoint.AsyncCheckpointer(str(tmp_path))
+    ac.save(state, 1)
+    step()
+    ac.wait()
+    restored, n = checkpoint.restore(str(tmp_path), state)
+    assert n == 1
+    for k, v in named_leaves(restored):
+        if torch.is_tensor(v):
+            assert v.device.type == "cuda" and torch.equal(v, want[k]), k
+        else:
+            assert v == want[k], k
+
+
+def test_decode_graph_replays_the_gemm_op_bitwise(dev):
+    """llama-1b's width, 2 layers: the forward GEMM is the custom op
+    repro_torch::gemm_fused; a decode step captured by the Engine and
+    replayed from a saved cache gives the eager step's logits and cache bit
+    for bit, with the launches the eager step makes (2 GEMMs a layer)."""
+    from repro_torch.serve import Engine
+    model, _ = _llama_width(dev)
+    params = model.init(seed=1)
+    rng = np.random.default_rng(5)
+    assert torch.ops.repro_torch.gemm_fused.default is not None
+    with torch.inference_mode():
+        eng = Engine(model, params, max_len=96)
+        eng.generate(rng.integers(0, model.cfg.vocab_size, (2, 40)), 6)
+        entry = eng._buckets[("decode", 2)]
+        assert entry.graph is not None
+        token = torch.tensor([[5], [7]], device=dev)
+        saved = _clone(entry.cache)
+        kernels.reset_launch_counts()
+        replayed = entry(token=token, pos=45).clone()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        after = _clone(entry.cache)
+        kernels.reset_launch_counts()
+        want = model.decode_step(params, token, saved, 45)[1]
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == counts
+        assert counts["gemm_fused"] == 2 * model.cfg.num_layers
+        assert torch.equal(replayed, want)
+        for k in saved:
+            assert torch.equal(after[k], saved[k])

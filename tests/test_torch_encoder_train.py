@@ -230,6 +230,26 @@ def test_remat_gives_the_same_grads():
             assert torch.equal(a, b), arch
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dots_gives_the_full_grads(arch, mode):
+    """remat_policy 'dots' (the products' outputs kept, the rest of each
+    block recomputed) through ``encoder_loss`` and ``encdec_loss``: the
+    grads of 'full' bit for bit on the CPU."""
+    _, tcfg = _cfgs(arch)
+    got = {}
+    for policy in ("full", "dots"):
+        model = build_model(dataclasses.replace(tcfg, remat_policy=policy),
+                            mode=mode, device="cpu")
+        params = tree_map(lambda t: t.requires_grad_(),
+                          params_from_numpy(_np_params(arch), "cpu",
+                                            torch.float32))
+        got[policy] = loss_and_grads(model, params, _port_batch(arch))
+    assert float(got["dots"][0]) == float(got["full"][0])
+    for a, b in zip(got["full"][2], got["dots"][2]):
+        assert torch.equal(a, b), arch
+
+
 # ---------------------------------------------------------------------------
 # train_loop
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ import jax.numpy as jnp
 
 from repro.kernels.gemm.prologue import Prologue as JaxPrologue
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import Epilogue, ln_rows_ref, ops, rms_rows_ref
+from repro_torch.kernels.gemm import (Epilogue, Prologue, ln_rows_ref, ops,
+                                      rms_rows_ref)
 
 H100_SMS = 132
 
@@ -279,3 +280,40 @@ def test_workspace_layout():
     rope8, rope64 = (Epilogue(rope=True, head_dim=h) for h in (8, 64))
     assert ops.staged(rope8, 1) and not ops.staged(rope64, 1)
     assert ops.staged(Epilogue(), 2) and not ops.staged(Epilogue(), 1)
+
+
+@pytest.mark.parametrize("chain", ["rmsnorm_swiglu", "layernorm_beta_gelu",
+                                   "rope_bias", "residual_scale"])
+def test_gemm_fused_op_passes_opcheck(chain):
+    """The custom op ``repro_torch::gemm_fused`` (what ``_forward`` calls,
+    and what remat 'dots' keeps): its schema, its fake implementation's
+    shapes and types against the plain one's, and its dispatch under
+    ``torch.library.opcheck``; the chain comes back from its flags."""
+    g = torch.Generator().manual_seed(0)
+    m, k, n, hd = 16, 32, 64, 16
+    a, b, b2 = (torch.randn(s, generator=g)
+                for s in ((m, k), (k, n), (k, n)))
+    gamma, beta = torch.randn(k, generator=g), torch.randn(k, generator=g)
+    bias, residual = torch.randn(n, generator=g), torch.randn(m, n,
+                                                             generator=g)
+    sin, cos = torch.randn(m, hd, generator=g), torch.randn(m, hd,
+                                                            generator=g)
+    ep, pro, kw = {
+        "rmsnorm_swiglu": (Epilogue(activation="silu", gate=True),
+                           Prologue(norm="rmsnorm"),
+                           dict(b2=b2, gamma=gamma)),
+        "layernorm_beta_gelu": (Epilogue(activation="gelu"),
+                                Prologue(norm="layernorm", beta=True),
+                                dict(gamma=gamma, beta=beta)),
+        "rope_bias": (Epilogue(rope=True, head_dim=hd, bias=True),
+                      Prologue(), dict(bias=bias, sin=sin, cos=cos)),
+        "residual_scale": (Epilogue(residual=True, scale=True), Prologue(),
+                           dict(residual=residual, scale=0.5)),
+    }[chain]
+    names = ("b2", "bias", "residual", "gamma", "beta", "sin", "cos")
+    args = (a, b, *(kw.get(x) for x in names), ops.chain_flags(ep),
+            ep.head_dim, pro.norm, pro.eps, kw.get("scale"), torch.float32,
+            True)
+    torch.library.opcheck(torch.ops.repro_torch.gemm_fused.default, args)
+    assert ops._chain_of(ops.chain_flags(ep), ep.head_dim, pro.norm,
+                         pro.eps, "beta" in kw) == (ep, pro)

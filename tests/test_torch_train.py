@@ -18,18 +18,22 @@ from repro.configs import get_config as j_get_config
 from repro.data import pipeline as jdata
 from repro.models import build_model as j_build_model
 from repro.models.lm import lm_param_defs as j_lm_param_defs
+from repro.optim import compression as jcomp
 from repro.optim import optimizer as jopt
 from repro.train import train_loop as j_train_loop
 
 from repro_torch import data as tdata
 from repro_torch import optim as topt
 from repro_torch.configs import get_config
+from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models.common import nest, tree_map
+from repro_torch.optim import compression as tcomp
 from repro_torch.optim.optimizer import leaves, named_leaves
 from repro_torch.train import (FailureInjector, init_state, loss_and_grads,
                                train_loop)
+from repro_torch.train import checkpoint as tckpt
 
 SMALL = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
              d_ff=256, vocab_size=256)
@@ -79,8 +83,8 @@ def _flat(tree, prefix=""):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_loss_grads(dtype, mode):
-    jcfg, _ = _cfgs(dtype)
+def _jax_loss_grads(dtype, mode, **cfg_extra):
+    jcfg, _ = _cfgs(dtype, **cfg_extra)
     model = j_build_model(jcfg, mode=mode)
     params = jax.tree.map(jnp.asarray, _np_params())
     batch = {k: jnp.asarray(v) for k, v in _np_batch().items()}
@@ -263,17 +267,111 @@ def test_lm_grads_bf16_track_the_f32_truth(mode):
 
 
 def test_remat_and_config_switches():
-    """remat_policy 'full' (blocks recomputed in the backward) gives the
-    same grads as 'none', bit for bit on the CPU; 'dots' and a nonzero
-    ce_chunk raise."""
+    """remat_policy 'full' (blocks recomputed in the backward) and 'dots'
+    (the products' outputs kept) give the grads of 'none' bit for bit on
+    the CPU; a nonzero ce_chunk runs (its numbers: the ce_chunk tests)."""
     _, full = _port_loss_grads("float32", "kernel")
-    _, none = _port_loss_grads("float32", "kernel", remat_policy="none")
+    for policy in ("none", "dots"):
+        _, other = _port_loss_grads("float32", "kernel", remat_policy=policy)
+        for k in full:
+            np.testing.assert_array_equal(full[k], other[k], err_msg=policy)
+    loss, grads = _port_loss_grads("float32", "kernel", ce_chunk=32)
+    assert np.isfinite(loss) and sorted(grads) == sorted(full)
+
+
+def _assert_grads_close(got, want, rel):
+    """Every leaf within ``rel`` of its largest entry."""
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        err = np.abs(got[k] - w).max()
+        assert err <= rel * np.abs(w).max(), (k, err, np.abs(w).max())
+
+
+@pytest.mark.parametrize("chunk", [32, 24])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_ce_chunk_matches_jax(mode, chunk):
+    """The chunked cross entropy (24 is halved to 16 to divide S = 64): the
+    loss and every leaf's grad within 2e-6 of the largest entry of JAX
+    lm_loss with the same ce_chunk (the kernel mode against the
+    interpret-mode kernels), and within fp32 summation error (2e-6 of the
+    largest entry, the loss 1e-6 relative) of the port's unchunked loss."""
+    jloss, jgrads = _jax_loss_grads("float32", MODES[mode], ce_chunk=chunk)
+    tloss, tgrads = _port_loss_grads("float32", mode, ce_chunk=chunk)
+    assert abs(tloss - jloss) <= 2e-6 * abs(jloss)
+    _assert_grads_close(tgrads, jgrads, 2e-6)
+    uloss, ugrads = _port_loss_grads("float32", mode)
+    np.testing.assert_allclose(tloss, uloss, rtol=1e-6)
+    _assert_grads_close(tgrads, ugrads, 2e-6)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_dots_grads_are_the_full_grads(mode):
+    """remat_policy 'dots': the grads of 'full' bit for bit (fp32, CPU);
+    in reference mode also within 2e-6 of the largest entry of JAX's
+    'dots' (checkpoint_dots_with_no_batch_dims)."""
+    floss, full = _port_loss_grads("float32", mode)
+    dloss, dots = _port_loss_grads("float32", mode, remat_policy="dots")
+    assert dloss == floss
     for k in full:
-        np.testing.assert_array_equal(full[k], none[k])
-    with pytest.raises(NotImplementedError, match="dots"):
-        _port_loss_grads("float32", "kernel", remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="ce_chunk"):
-        _port_loss_grads("float32", "kernel", ce_chunk=32)
+        np.testing.assert_array_equal(dots[k], full[k], err_msg=k)
+    if mode == "reference":
+        jloss, jgrads = _jax_loss_grads("float32", "reference",
+                                        remat_policy="dots")
+        assert abs(dloss - jloss) <= 2e-6 * abs(jloss)
+        _assert_grads_close(dots, jgrads, 2e-6)
+
+
+@pytest.mark.parametrize("policy,runs", [("full", 2), ("dots", 1),
+                                         ("none", 1)])
+def test_forward_gemms_run_once_under_dots(monkeypatch, policy, runs):
+    """Kernel mode: the forward GEMM op (repro_torch::gemm_fused, its plain
+    version on the CPU) runs 4 times a layer in the forward; 'full'
+    recomputes them in the backward, 'dots' keeps their outputs."""
+    calls = []
+    ref = gemm_ops.forward_ref
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return ref(*args, **kwargs)
+
+    monkeypatch.setattr(gemm_ops, "forward_ref", counting)
+    _port_loss_grads("float32", "kernel", remat_policy=policy)
+    assert len(calls) == 4 * SMALL["num_layers"] * runs
+
+
+def _grad_tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"embed": rng.standard_normal((96, 40)).astype(np.float32) * 3.0,
+            "blocks": {"w": (rng.standard_normal((3, 40, 24)) * 1e-3
+                             ).astype(np.float32),
+                       "b": rng.standard_normal((3, 24)).astype(np.float32)
+                       * 0.5 + 0.5},
+            "tiny": (rng.standard_normal(7) * 1e-6).astype(np.float32)}
+
+
+def test_ef_compress_matches_reference_bitwise():
+    """int8 error feedback on a seeded fp32 tree over 5 successive steps:
+    q and the scale of every leaf, the dequantised grads and the residuals
+    all equal the reference's bit for bit."""
+    je = jcomp.ef_init(_grad_tree(0))
+    te = tcomp.ef_init(tree_map(torch.from_numpy, _grad_tree(0)))
+    for step in range(5):
+        g = _grad_tree(step + 1)
+        paths = [p for p, _ in named_leaves(g)]
+        for path, x in named_leaves(g):
+            qj, sj = jcomp._quant(jnp.asarray(x))
+            qt, st = tcomp._quant(torch.from_numpy(x))
+            np.testing.assert_array_equal(qt.numpy(), np.asarray(qj),
+                                          err_msg=path)
+            assert qt.dtype == torch.int8 and st.item() == float(sj), path
+        jd, je = jcomp.ef_compress(jax.tree.map(jnp.asarray, g), je)
+        td, te = tcomp.ef_compress(tree_map(torch.from_numpy, g), te)
+        for path, a, b in zip(paths, jax.tree.leaves(jd), td):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                          err_msg=(step, path))
+        for path, a, b in zip(paths, jax.tree.leaves(je), leaves(te)):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                          err_msg=(step, path))
 
 
 def test_microbatches_sum_grads_in_f32():
@@ -355,9 +453,11 @@ def test_train_loop_curve_matches_jax(mode):
     assert got[-1] < got[0] - 1.0
 
 
-def test_failure_restarts_from_scratch():
+def test_failure_restarts_from_scratch(tmp_path):
     """Without a checkpoint a simulated failure restarts from step 0 with
-    fresh state, and the replayed steps repeat the first run's losses."""
+    fresh state, and the replayed steps repeat the first run's losses;
+    with one, the same failure restores the newest checkpoint and replays
+    from there."""
     _, tcfg = _cfgs()
     model = build_model(tcfg, mode="kernel", device="cpu")
     dcfg = tdata.DataConfig(vocab_size=SMALL["vocab_size"], seq_len=32,
@@ -369,8 +469,74 @@ def test_failure_restarts_from_scratch():
     assert res.restarts == 1
     assert len(res.losses) == 5
     np.testing.assert_array_equal(res.losses[2:4], res.losses[:2])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train_loop(model, None, 1, opt, ckpt_dir="ckpt")
+    logs = []
+    res = train_loop(model, tdata.DataIterator(dcfg, device="cpu"), 3, opt,
+                     failure_injector=FailureInjector((2,)), log_every=0,
+                     ckpt_dir=str(tmp_path), ckpt_every=1, log=logs.append)
+    assert res.restarts == 1 and len(res.losses) == 3
+    assert "[trainer] restored step 2" in logs
+    assert tckpt.available_steps(str(tmp_path)) == [1, 2, 3]
+
+
+def _small_loop(tmp_path, steps, **kw):
+    _, tcfg = _cfgs()
+    model = build_model(tcfg, mode="reference", device="cpu")
+    dcfg = tdata.DataConfig(vocab_size=SMALL["vocab_size"], seq_len=32,
+                            global_batch=4, noise=0.05)
+    opt = topt.AdamWConfig(schedule=topt.cosine_schedule(3e-3, 2, steps))
+    return train_loop(model, tdata.DataIterator(dcfg, device="cpu"), steps,
+                      opt, ckpt_dir=str(tmp_path), log_every=0,
+                      log=lambda *a: None, **kw)
+
+
+def test_restart_trajectory_matches(tmp_path):
+    """The port of the reference's test of the same name: a run that fails
+    at step 9 and restores step 8 ends with the losses of an uninterrupted
+    run, bit for bit on the CPU (stateless data, checkpointed state)."""
+    r1 = _small_loop(tmp_path / "a", 12, ckpt_every=4)
+    r2 = _small_loop(tmp_path / "b", 12, ckpt_every=4,
+                     failure_injector=FailureInjector((9,)))
+    assert r2.restarts == 1 and len(r2.losses) == 13
+    assert r2.losses[-4:] == r1.losses[-4:]        # steps 9-12, replayed
+    for (k, a), (_, b) in zip(named_leaves(r1.state), named_leaves(r2.state)):
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), k
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_compressed_curve():
+    jcfg, _ = _cfgs()
+    model = j_build_model(jcfg, mode="reference")
+    model.init = lambda rng: jax.tree.map(jnp.asarray, _np_params())
+    dcfg = jdata.DataConfig(vocab_size=SMALL["vocab_size"], seq_len=S,
+                            global_batch=4, noise=0.05)
+    opt = jopt.AdamWConfig(schedule=jopt.cosine_schedule(1e-2, 2, STEPS))
+    res = j_train_loop(model, jdata.DataIterator(dcfg), STEPS, opt,
+                       grad_compress=True, log_every=0, log=lambda *a: None)
+    return np.asarray(res.losses, np.float64)
+
+
+def test_grad_compress_curve_matches_jax():
+    """train_loop(grad_compress=True), 8 steps in reference mode, against
+    the JAX train_loop(grad_compress=True) under the curve criterion of
+    test_train_loop_curve_matches_jax; the state holds fp32 residuals."""
+    want = _jax_compressed_curve()
+    _, tcfg = _cfgs()
+    model = build_model(tcfg, mode="reference", device="cpu")
+    dcfg = tdata.DataConfig(vocab_size=SMALL["vocab_size"], seq_len=S,
+                            global_batch=4, noise=0.05)
+    opt = topt.AdamWConfig(schedule=topt.cosine_schedule(1e-2, 2, STEPS))
+    res = train_loop(model, tdata.DataIterator(dcfg, device="cpu"), STEPS,
+                     opt, params=params_from_numpy(_np_params(), "cpu",
+                                                   torch.float32),
+                     grad_compress=True, log_every=0)
+    got = np.asarray(res.losses, np.float64)
+    assert np.isfinite(got).all() and len(got) == STEPS
+    np.testing.assert_allclose(got[:4], want[:4], rtol=2e-3, atol=2e-3)
+    assert np.abs(got - want).max() < 0.2, (got.tolist(), want.tolist())
+    assert got[-1] < got[0] - 1.0
+    ef = leaves(res.state["ef"])
+    assert len(ef) == len(leaves(res.state["params"]))
+    assert all(e.dtype == torch.float32 and e.abs().max() > 0 for e in ef)
 
 
 def test_launcher_trains_on_the_cpu(capsys):
@@ -380,3 +546,18 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert "[train] finished: 2 steps" in out
     assert "tokens/s" in out and "not measured (cpu)" in out
     assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+
+
+def test_launcher_checkpoints_and_compresses(tmp_path, capsys):
+    """--ckpt-dir, --ckpt-every and --grad-compress: a failure at step 3
+    restores step 2, and the last save is step 4."""
+    res = launch_train.main(["--tiny", "--device", "cpu", "--steps", "4",
+                             "--batch", "2", "--seq", "32", "--mode",
+                             "reference", "--grad-compress", "--ckpt-dir",
+                             str(tmp_path), "--ckpt-every", "2",
+                             "--fail-at", "3"])
+    out = capsys.readouterr().out
+    assert "[trainer] restored step 2" in out
+    assert "[train] finished: 5 steps" in out and "restarts 1" in out
+    assert "ef" in res.state
+    assert tckpt.available_steps(str(tmp_path)) == [2, 4]
