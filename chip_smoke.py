@@ -53,7 +53,14 @@ Phases, each of which raises on failure (exit code non-zero):
    the standalone
    RoPE on prefill and training q/k, strided views of the q|k GEMM output,
    and its backward; the fused dropout + residual + layernorm at the
-   memory-bound bench's shapes, rows 2048-8192 by d 2048, p 0.1, seed 7),
+   memory-bound bench's shapes, rows 2048-8192 by d 2048, p 0.1, seed 7;
+   mixtral-8x7b's launches of phase 12: q|k + rope (head_dim 128, K 4096,
+   N 5120) and v (N 1024) at M 1024, an expert's dual-output silu-gated
+   up projection with no prologue (2 x N 14336) and its down projection
+   with no epilogue (K 14336) at M 1024 and M 4, the flash forward at B 2,
+   S 4160 within the 4096-token window, ``flash_decode`` at B 4 over a
+   wrapped 4096-slot ring, and ``flash_decode_paged`` within the window
+   over 67-page tables, one decode step and a 128-token chunk),
    with the stated tolerance; kernel, plain and library times with CUDA
    events (L2 scrubbed before every launch), and the least time the card
    could take (bytes over 3.35 TB/s or operations over their peak,
@@ -234,7 +241,24 @@ Phases, each of which raises on failure (exit code non-zero):
    kernel curve within 2.5x the plain bf16 curve's distance + 0.05 of the
    compressed fp32 curve, losses finite and falling, launches exact; the
    residuals' bytes and the step time beside (c)'s uncompressed run.
-12. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+12. mixtral-8x7b at published width (d 4096, 32/8 heads, 8 experts top-2,
+   d_ff 14336, window 4096) cut to 4 layers, weights at a trained model's
+   scale, kernel mode beside the plain bf16 and fp32 paths: (a) phase 8a's
+   traffic through ``RequestQueue(Engine)`` and (b) 8b's through
+   ``PagedEngine``, with phases 4's and 5's checks (per layer 2 + 2E
+   ``gemm_fused`` a prefill or chunk, 2E a decode step; a replayed decode
+   step bit for bit the eager one); (c) two 4160-token prompts, 64 new
+   tokens each, through ``Engine(max_len=4232)`` (a 4096-slot ring the
+   prefill wraps) and through a ``PagedEngine`` of 67-page tables and
+   128-token chunks: launches exact, the streams equal or apart where the
+   Engine step's top-2 margin is under the two routes' logit distance,
+   the logits within phase 4's bound. Every teacher-forced check of an
+   MoE runs the plain paths on the kernel path's expert choices (a near
+   tie flips under bf16 rounding, and a token served by other experts is
+   no measure of rounding error); the fp32 router's disagreement with the
+   kernel path's choices is printed and held under 10%. Prints tokens/s,
+   the init time, the peak memory and the phase's seconds.
+13. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -242,6 +266,7 @@ Phases, each of which raises on failure (exit code non-zero):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -272,6 +297,7 @@ from repro_torch.kernels.attention import (  # noqa: E402
 from repro_torch.kernels.attention import backward as attn_bwd  # noqa: E402
 from repro_torch.kernels.attention import decode as attn_decode  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.attention.ref import ring_positions  # noqa: E402
 from repro_torch.kernels.gemm import (EPILOGUE_NONE, PROLOGUE_NONE,  # noqa: E402
                                       Epilogue, Prologue, ln_rows_ref,
                                       rms_rows_ref)
@@ -285,6 +311,7 @@ from repro_torch.kernels.rope import (rope_launch, rope_ref,  # noqa: E402
                                       rope_tables)
 from repro_torch.launch.profile_train import profile_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import nest, tree_map  # noqa: E402
 from repro_torch.optim import AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.optim.optimizer import leaves, named_leaves  # noqa: E402
@@ -324,6 +351,18 @@ LADDER_STEPS = 3
 CE_CHUNK = 256
 SHORT_LAYERS, SHORT_STEPS, CKPT_EVERY, CKPT_KEEP = 2, 6, 2, 2
 CKPT_FAIL, CKPT_RESUME = 5, 4
+# phase 12: mixtral-8x7b cut to MOE_LAYERS layers (its 32 are ~93 GB in
+# bf16, more than one card holds); 12c: WIN_BATCH prompts of WIN_PROMPT
+# tokens (65 pages, past the 4096-token window) with WIN_NEW new tokens
+# each, over WIN_PAGES-page tables
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 4
+WIN_BATCH, WIN_PROMPT, WIN_NEW, WIN_PAGES = 2, 4160, 64, 67
+MOE_PHASES = ("12a", "12b", "12c engine", "12c paged")
+# the largest share of token-layer expert choices on which the fp32
+# router, along the kernel path's teacher-forced run, may pick another
+# expert set than the kernel path (near ties flip under bf16 rounding; a
+# router fed the wrong tokens would reroute most of them)
+MAX_REROUTED = 0.1
 # the memory-bound bench's fused-norm cells (benchmarks/bench_memory_bound.py)
 NORM_ROWS, NORM_D, NORM_P, NORM_SEED = (2048, 4096, 8192), 2048, 0.1, 7
 
@@ -583,6 +622,46 @@ def encoder_gemm_cases(dev, gen):
     return cases
 
 
+def moe_gemm_cases(dev, gen):
+    """mixtral-8x7b's gemm_fused launches (phase 12) as (name, a, b,
+    kwargs, save_preact): the prefill's q|k (+ rope, head_dim 128) and v
+    on the rmsnorm prologue at M = BATCH x PROMPT; an expert's dual-output
+    silu-gated up projection with no prologue and its down projection with
+    no epilogue, at M = BATCH x PROMPT and at a decode step's M = BATCH
+    (split over K). The weights at std K^-1/2."""
+    cfg = get_config(MOE_ARCH)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    rms = dict(prologue=Prologue(norm="rmsnorm"),
+               gamma=(1 + 0.1 * torch.randn(d, generator=gen,
+                                            device=dev)).to(bf16))
+    m = BATCH * PROMPT
+    sin, cos = rope_tables(torch.arange(PROMPT, device=dev), hd,
+                           cfg.rope_theta)
+    sin, cos = sin.repeat(BATCH, 1), cos.repeat(BATCH, 1)
+    x = rnd(m, d)
+    w_gate, w_in, w_out = (rnd(d, f, std=d ** -0.5), rnd(d, f, std=d ** -0.5),
+                           rnd(f, d, std=f ** -0.5))
+    up = dict(epilogue=Epilogue(activation="silu", gate=True), b2=w_in)
+    cases = [
+        ("mixtral_prefill_qk_rope", x,
+         rnd(d, (cfg.num_heads + cfg.num_kv_heads) * hd, std=d ** -0.5),
+         dict(epilogue=Epilogue(rope=True, head_dim=hd), sin=sin, cos=cos,
+              **rms)),
+        ("mixtral_prefill_v", x, rnd(d, cfg.num_kv_heads * hd, std=d ** -0.5),
+         dict(**rms)),
+        ("mixtral_expert_up", x, w_gate, dict(up)),
+        ("mixtral_expert_down", rnd(m, f), w_out, {}),
+        ("mixtral_decode_expert_up", rnd(BATCH, d), w_gate, dict(up)),
+        ("mixtral_decode_expert_down", rnd(BATCH, f), w_out, {}),
+    ]
+    return [(*c, False) for c in cases]
+
+
 def verify_gemm_cases(cfg, dev, gen):
     """llama-1b's four fused GEMMs of a layer at the verify step's M =
     SLOTS x SPEC_TOKENS rows (q|k + rope and v behind the rmsnorm prologue,
@@ -832,7 +911,8 @@ def baseline_fwd_sm90(kern, a, b, kw, save):
 
 def measure_gemm(cfg, dev, gen, timer, old=None):
     """Each gemm_fused launch of the main paths (llama-1b's, then
-    whisper-base's and bert-110m's, ENCODER_GEMMS) against its plain
+    whisper-base's and bert-110m's, ENCODER_GEMMS, then mixtral-8x7b's,
+    ``moe_gemm_cases``) against its plain
     version (the output, the gated chain's saved preacts and the row
     statistics), timed as planned and at every (tile width, split count)
     the sweep reaches: each width the chain takes, unsplit and split as
@@ -848,7 +928,8 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
     rows = []
     sms = gemm_ops.sm_count(dev)
     for name, a, b, kw, save in (gemm_cases(cfg, dev, gen)
-                                 + encoder_gemm_cases(dev, gen)):
+                                 + encoder_gemm_cases(dev, gen)
+                                 + moe_gemm_cases(dev, gen)):
         ep, pro, extra = fwd_args(kw)
         m, k = a.shape
         n = b.shape[1]
@@ -1023,20 +1104,22 @@ def measure_flash(cfg, dev, gen, timer, old=None):
     return rows
 
 
-def flash_row(case, q, k, v, causal, timer):
+def flash_row(case, q, k, v, causal, timer, window=None):
     """One flash forward case against its plain version (out and lse),
     with its bound (``ops.forward_work``: the two products per visible
     pair at the bf16 peak, or q, k, v, out and lse moved once) and
-    F.scaled_dot_product_attention on contiguous copies; the row keeps the
-    kernel's callable under "kernel" for turns with a baseline."""
+    F.scaled_dot_product_attention on contiguous copies (with a
+    ``window``, under the causal window as an explicit mask); the row
+    keeps the kernel's callable under "kernel" for turns with a
+    baseline."""
     b, h, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
 
     def kernel():
-        return flash_attention_fwd(q, k, v, causal=causal)
+        return flash_attention_fwd(q, k, v, causal=causal, window=window)
 
     def plain():
-        return flash_attention_fwd_ref(q, k, v, causal=causal)
+        return flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
 
     out, lse = kernel()
     want, want_lse = plain()
@@ -1045,21 +1128,53 @@ def flash_row(case, q, k, v, causal, timer):
                            2e-2)
     lse_err, _ = check_close(f"flash_attention_fwd[{case}][lse]", lse,
                              want_lse, 1e-4, 1e-4)
-    work = attn_ops.forward_work(b, h, hkv, sq, skv, hd, causal=causal)
+    work = attn_ops.forward_work(b, h, hkv, sq, skv, hd, causal=causal,
+                                 window=window)
     b_ms, b_by = bound(work["bytes"], (work["flops"], PEAK_BF16))
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    lib = dict(is_causal=causal)
+    if window is not None:
+        # the plain version's mask: query i sees key j iff i - j < window
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = qpos - kpos < window
+        if causal:
+            mask &= qpos >= kpos
+        lib = dict(attn_mask=mask)
     row = dict(
         case=case, shape=[b, h, hkv, sq, skv, hd],
         max_abs_err=max(err, lse_err), tolerance=tol, ms=timer.ms(kernel),
         plain_ms=timer.ms(plain),
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-            qc, kc, vc, is_causal=causal, enable_gqa=True)),
+            qc, kc, vc, enable_gqa=True, **lib)),
         bound_ms=b_ms, bound_by=b_by, kernel=kernel)
+    if window is not None:
+        row["window"] = window
     log(f"[kernel] flash_attention_fwd[{case}] {row['ms'] * 1e3:.1f} us "
         f"(bound {b_ms * 1e3:.2f}, {b_by}; "
         f"{work['flops'] / row['ms'] * 1e3 / PEAK_BF16:.1%} of the bf16 "
         f"peak); SDPA {row['library_ms'] * 1e3:.1f} us")
     return row
+
+
+def measure_flash_window(dev, gen, timer):
+    """The flash forward at phase 12c's prefill: mixtral-8x7b's heads (32
+    over 8, head_dim 128), B WIN_BATCH, S WIN_PROMPT, causal within the
+    4096-token window, q, k and v strided views of the projections."""
+    cfg = get_config(MOE_ARCH)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    bsz, seq = WIN_BATCH, WIN_PROMPT
+    qk = torch.randn(bsz, seq, (h + hkv) * hd, generator=gen,
+                     device=dev).to(bf16)
+    v = torch.randn(bsz, seq, hkv * hd, generator=gen, device=dev).to(bf16)
+    q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
+    k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
+    v = v.reshape(bsz, seq, hkv, hd).transpose(1, 2)
+    row = flash_row("mixtral_prefill_window", q, k, v, True, timer,
+                    window=cfg.attn_window)
+    del row["kernel"]
+    return [row]
 
 
 def measure_flash_encoder(dev, gen, timer):
@@ -1095,40 +1210,66 @@ def measure_flash_encoder(dev, gen, timer):
     return rows
 
 
-def decode_row(case, q, kc, vc, length, timer):
-    """One flash_decode case (every row at ``length``) against its plain
-    version, with its bound (what the step needs: q, the valid cache rows
-    and lengths read, the output written; q @ k^T and p @ v on bf16
-    operands) and SDPA over the masked cache; the row keeps the kernel's
-    callable under "kernel" for turns with a baseline."""
+def decode_row(case, q, kc, vc, length, timer, window=None):
+    """One flash_decode case (every row at ``length``; past the cache's
+    slots it has wrapped the ring) against its plain version, with its
+    bound (what the step needs: q, the cache rows it sees (valid and
+    inside the ``window``) and lengths read, the output written; q @ k^T
+    and p @ v on bf16 operands) and SDPA over the masked cache; the row
+    keeps the kernel's callable under "kernel" for turns with a
+    baseline."""
     b, hkv, g, hd = q.shape
     slots = kc.shape[2]
     lengths = torch.full((b,), length, dtype=torch.int32, device=q.device)
 
     def kernel():
-        return flash_decode(q, kc, vc, lengths)
+        return flash_decode(q, kc, vc, lengths, window=window)
 
     def plain():
-        o, m, l = decode_partials_ref(q, kc, vc, lengths, scale=hd ** -0.5)
+        o, m, l = decode_partials_ref(q, kc, vc, lengths, window=window,
+                                      scale=hd ** -0.5)
         return combine_splits(o, m, l).to(q.dtype)
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err, tol = check_close(f"flash_decode[{case}]", got, want, 2e-2, 2e-2)
-    valid = min(length, slots)
+    actual, seen = ring_positions(lengths, slots)
+    if window is not None:
+        seen &= (lengths.long()[:, None] - 1 - actual) < window
+    valid = int(seen[0].sum())
     traffic = (nbytes(q, lengths, got)
                + 2 * b * hkv * valid * hd * kc.element_size())
     flops = 2 * 2 * b * hkv * g * valid * hd
     b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
-    mask = (torch.arange(slots, device=q.device) < length).expand(
-        b, 1, 1, slots)
+    mask = seen[:, None, None, :]
     q4 = q.reshape(b, hkv * g, 1, hd)
-    return dict(
+    row = dict(
         case=case, shape=[b, hkv * g, hkv, slots, hd], max_abs_err=err,
         tolerance=tol, ms=timer.ms(kernel), plain_ms=timer.ms(plain),
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
             q4, kc, vc, attn_mask=mask, enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by, kernel=kernel)
+    if window is not None:
+        row.update(window=window, length=length)
+    return row
+
+
+def measure_decode_window(dev, gen, timer):
+    """flash_decode at phase 12's ring: mixtral-8x7b's heads (32 over 8,
+    head_dim 128), B BATCH, over a 4096-slot ring (the window) that phase
+    12c's last decode step has wrapped (length WIN_PROMPT + WIN_NEW - 1)."""
+    cfg = get_config(MOE_ARCH)
+    h, hkv, hd, w = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                     cfg.attn_window)
+    bf16 = torch.bfloat16
+    q = torch.randn(BATCH, hkv, h // hkv, hd, generator=gen,
+                    device=dev).to(bf16)
+    kc, vc = (torch.randn(BATCH, hkv, w, hd, generator=gen,
+                          device=dev).to(bf16) for _ in range(2))
+    row = decode_row("mixtral_ring_window", q, kc, vc,
+                     WIN_PROMPT + WIN_NEW - 1, timer, window=w)
+    del row["kernel"]
+    return [row]
 
 
 def measure_decode_encoder(dev, gen, timer):
@@ -1286,6 +1427,95 @@ def verify_serial_bits(name, kernel_fn, q, lengths, t, g):
     return diff == 0, diff
 
 
+def paged_row(name, q, table, lengths, t, k_pages, v_pages, timer,
+              window=None):
+    """One flash_decode_paged call of T = ``t`` tokens a row against its
+    plain version, with its bound (what the call needs: each slot's K/V
+    rows inside its rows' windows once, q, the table, the lengths and the
+    output; q @ k^T and p @ v for every visible (row, key) pair, on bf16
+    operands) and SDPA over the pre-gathered contiguous cache under the
+    same mask. (row, the kernel's callable, its output, the plain one)."""
+    dev = q.device
+    b, hkv, rows, hd = q.shape
+    g = rows // t
+    scale = hd ** -0.5
+
+    def plain():
+        o, m, l = decode_partials_paged_ref(q, k_pages, v_pages, table,
+                                            lengths, window=window,
+                                            scale=scale, q_tokens=t)
+        return combine_splits(o, m, l).to(q.dtype)
+
+    def kernel():
+        return flash_decode_paged(q, k_pages, v_pages, table, lengths,
+                                  q_tokens=t, window=window)
+
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err, tol = check_close(f"flash_decode_paged[{name}]", got, want,
+                           2e-2, 2e-2)
+    # keys each query row sees: positions [lo, hz)
+    hz = (lengths.long()[:, None] - t + 1
+          + torch.arange(t, device=dev)[None, :])
+    lo = (hz - window).clamp(min=0) if window else torch.zeros_like(hz)
+    pairs = int((hz.clamp(min=0) - lo).clamp(min=0).sum()) * g * hkv
+    valid_rows = int((lengths.long() - lo[:, 0]).clamp(min=0).sum())
+    traffic = (nbytes(q, table, lengths, got)
+               + 2 * valid_rows * hkv * hd * k_pages.element_size())
+    flops = 2 * 2 * pairs * hd
+    b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
+    # yardstick: SDPA over the pre-gathered contiguous cache
+    kg = kvc.gather_pages(k_pages, table)
+    vg = kvc.gather_pages(v_pages, table)
+    span = kg.shape[2]
+    q4 = q.reshape(b, hkv, g, t, hd).reshape(b, hkv * g, t, hd)
+    idx = torch.arange(span, device=dev)[None, None, :]
+    mask = ((idx < hz[:, :, None]) & (idx >= lo[:, :, None]))[:, None]
+    row = dict(
+        case=name, shape=[b, hkv * g, hkv, t, table.shape[1] * PAGE, hd],
+        page=PAGE, max_abs_err=err, tolerance=tol,
+        ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by)
+    if window is not None:
+        row["window"] = window
+    return row, kernel, got, want
+
+
+def measure_paged_window(dev, gen, timer):
+    """flash_decode_paged at phase 12c's shapes: mixtral-8x7b's heads (32
+    over 8, head_dim 128) within its 4096-token window, over WIN_PAGES-page
+    tables of 64-token pages (a seeded permutation of a pool of WIN_BATCH x
+    WIN_PAGES + 1 pages): both sequences' decode step past the window, and
+    a CHUNK-token chunk at position 4096 (the 33rd of a prompt)."""
+    cfg = get_config(MOE_ARCH)
+    hkv, hd, w = cfg.num_kv_heads, cfg.head_dim, cfg.attn_window
+    g = cfg.num_heads // hkv
+    bf16 = torch.bfloat16
+    n_pages = WIN_BATCH * WIN_PAGES + 1
+    k_pages, v_pages = (torch.randn(n_pages, hkv, PAGE, hd, generator=gen,
+                                    device=dev).to(bf16) for _ in range(2))
+    perm = np.random.default_rng(3).permutation(
+        np.arange(1, n_pages)).reshape(WIN_BATCH, WIN_PAGES)
+    table = torch.from_numpy(perm.astype(np.int32)).to(dev)
+
+    def q(b, rows):
+        return torch.randn(b, hkv, rows, hd, generator=gen, device=dev).to(bf16)
+
+    rows = []
+    for name, q_, tab, lengths, t in (
+            ("mixtral_decode_window", q(WIN_BATCH, g), table,
+             [WIN_PROMPT + 40, WIN_PROMPT + WIN_NEW - 1], 1),
+            ("mixtral_chunk_window", q(1, g * CHUNK), table[:1],
+             [w + CHUNK], CHUNK)):
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        rows.append(paged_row(name, q_, tab, lengths, t, k_pages, v_pages,
+                              timer, window=w)[0])
+    return rows
+
+
 def measure_paged(cfg, dev, gen, timer, old=None):
     """The paged kernel at its three main-path shapes (paged_cases), and the
     verify step also over a 16-page bucket (900-1024 keys, two splits a
@@ -1318,21 +1548,8 @@ def measure_paged(cfg, dev, gen, timer, old=None):
                                  1024], dtype=torch.int32, device=dev),
         SPEC_TOKENS, big_k, big_v))
     for name, q, table, lengths, t, k_pages, v_pages in cases:
-        def plain():
-            o, m, l = decode_partials_paged_ref(q, k_pages, v_pages, table,
-                                                lengths, scale=scale,
-                                                q_tokens=t)
-            return combine_splits(o, m, l).to(q.dtype)
-
-        def kernel():
-            return flash_decode_paged(q, k_pages, v_pages, table, lengths,
-                                      q_tokens=t)
-
-        got = kernel()
-        want = plain()
-        torch.cuda.synchronize()
-        err, tol = check_close(f"flash_decode_paged[{name}]", got, want,
-                               2e-2, 2e-2)
+        row, kernel, got, want = paged_row(name, q, table, lengths, t,
+                                           k_pages, v_pages, timer)
         if name == "decode":
             # shared split body: page 64 == BLOCK_KV and T = 1 give the
             # contiguous kernel's bits over the gathered pages
@@ -1342,34 +1559,9 @@ def measure_paged(cfg, dev, gen, timer, old=None):
             if not torch.equal(got, dense):
                 raise AssertionError("flash_decode_paged differs from "
                                      "flash_decode over the gathered pages")
-        # what this call needs: the valid K/V rows once, q, the table, the
-        # lengths and the output; every (row, visible key) pair's products,
-        # q @ k^T and p @ v, both on bf16 operands
+            row["bitwise_vs_flash_decode"] = True
         b = q.shape[0]
-        hz = (lengths.long()[:, None] - t + 1
-              + torch.arange(t, device=dev)[None, :])           # keys seen
-        pairs = int(hz.clamp(min=0).sum()) * g * hkv
-        valid_rows = int(lengths.long().sum())
-        traffic = (nbytes(q, table, lengths, got)
-                   + 2 * valid_rows * hkv * hd * k_pages.element_size())
-        flops = 2 * 2 * pairs * hd
-        b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
-        # yardstick: SDPA over the pre-gathered contiguous cache
-        kg = kvc.gather_pages(k_pages, table)
-        vg = kvc.gather_pages(v_pages, table)
-        span = kg.shape[2]
-        q4 = q.reshape(b, hkv, g, t, hd).reshape(b, h, t, hd)
-        idx = torch.arange(span, device=dev)
-        mask = (idx[None, None, :] < hz[:, :, None])[:, None]  # (B, 1, T, S)
-        rows.append(dict(
-            case=name, shape=[b, h, hkv, t, MAX_PAGES * PAGE, hd],
-            page=PAGE, max_abs_err=err, tolerance=tol,
-            ms=timer.ms(kernel), plain_ms=timer.ms(plain),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                q4, kg, vg, attn_mask=mask, enable_gqa=True)),
-            bound_ms=b_ms, bound_by=b_by))
-        if name == "decode":
-            rows[-1]["bitwise_vs_flash_decode"] = True
+        rows.append(row)
         if name.startswith("verify"):
             units = attn_decode.decode_units(b, hkv, g * t)
             splits = attn_decode.plan_decode(
@@ -2094,33 +2286,45 @@ def no_launches() -> dict:
     return {k.name: 0 for k in kernels.KERNELS}
 
 
-def expected_launches(cfg, batches: int, qkv_plan: str = "rope_fused") -> dict:
-    """Per layer and served batch: the prefill's fused GEMMs (4 on rungs 1
-    and 2; 2 on rung 3, whose projections are plain products) and one flash
-    prefill, 2 fused GEMMs and one decode kernel per decode step; on rungs
-    2 and 3 the RoPE kernel for the prefill's q and k (decode rotates its
-    token with the plain version)."""
-    steps = NEW_TOKENS - 1                     # decode calls per batch
+def ffn_gemms(cfg) -> int:
+    """gemm_fused launches of one layer's FFN, by block kind: the dense
+    MLP's up and down, or each expert's up and down (an 'moe' block)."""
+    return 2 * cfg.moe.num_experts if cfg.layer_kind(0) == "moe" else 2
+
+
+def expected_launches(cfg, batches: int, qkv_plan: str = "rope_fused",
+                      new_tokens: int = NEW_TOKENS) -> dict:
+    """Per layer and served batch: the prefill's fused GEMMs (q|k and v on
+    rungs 1 and 2, none on rung 3, whose projections are plain products,
+    then the FFN's: ``ffn_gemms``) and one flash prefill, the FFN's fused
+    GEMMs and one decode kernel per decode step; on rungs 2 and 3 the RoPE
+    kernel for the prefill's q and k (decode rotates its token with the
+    plain version)."""
+    steps = new_tokens - 1                     # decode calls per batch
     n = batches * cfg.num_layers
-    prefill_gemms = 2 if qkv_plan == "unfused" else 4
-    want = {**no_launches(), "gemm_fused": n * (prefill_gemms + 2 * steps),
+    ffn = ffn_gemms(cfg)
+    prefill_gemms = (0 if qkv_plan == "unfused" else 2) + ffn
+    want = {**no_launches(), "gemm_fused": n * (prefill_gemms + ffn * steps),
             "flash_attention_fwd": n, "flash_decode": n * steps}
     if qkv_plan != "rope_fused":
         want["rope"] = 2 * n
     return want
 
 
-def teacher_forced_logits(model, params, tokens):
-    """Per-step logits (BATCH, V) fp32 of ``tokens`` (B, PROMPT + NEW):
-    prefill the prompt, then decode the given tokens one by one."""
+def teacher_forced_logits(model, params, tokens, prompt: int = PROMPT,
+                          new: int = NEW_TOKENS, max_len: int = MAX_LEN):
+    """Per-step logits (B, V) fp32 of ``tokens`` (B, prompt + new): prefill
+    the prompt into a ``max_len`` cache, then decode the given tokens one by
+    one."""
     out = []
     with torch.inference_mode():
-        cache = model.init_cache(tokens.shape[0], MAX_LEN)
-        cache, logits = model.prefill(params, tokens[:, :PROMPT], cache)
+        cache = model.init_cache(tokens.shape[0], max_len)
+        cache, logits = model.prefill(params, tokens[:, :prompt], cache)
         out.append(logits.float())
-        for i in range(NEW_TOKENS - 1):
+        for i in range(new - 1):
             cache, logits = model.decode_step(
-                params, tokens[:, PROMPT + i:PROMPT + i + 1], cache, PROMPT + i)
+                params, tokens[:, prompt + i:prompt + i + 1], cache,
+                prompt + i)
             out.append(logits.float())
     return out
 
@@ -2195,6 +2399,77 @@ def check_graph_replay(tag, entry, cache, inputs, eager) -> None:
         f"(logits and cache), launches {replay_counts}")
 
 
+@contextlib.contextmanager
+def routed(record=None, replay=None, flips=None):
+    """Expert routing shared across the teacher-forced runs of one check
+    (``moe._route`` patched while the block runs; a dense model makes no
+    call): with ``record`` each call's ids are appended to it; with
+    ``replay`` each call routes to the next recorded ids instead of its own
+    top k, weighted by its own probabilities there (renormalised), and
+    appends to ``flips`` how many of its tokens its own router sent to
+    another expert set. A routing flip at a near tie is discrete: a token
+    served by other experts is no measure of the arithmetic's error, so the
+    plain paths are held to the kernel path on its routing."""
+    orig = moe_mod._route
+    calls = iter(replay or ())
+
+    def route(cfg, x, w):
+        weights, ids, aux = orig(cfg, x, w)
+        if record is not None:
+            record.append(ids)
+        if replay is not None:
+            forced = next(calls)
+            if flips is not None:
+                flips.append(int((forced.sort(-1).values
+                                  != ids.sort(-1).values).any(-1).sum()))
+            probs = torch.softmax(x.float() @ w.float(), dim=-1).gather(
+                1, forced)
+            weights = (probs / torch.clamp(probs.sum(-1, keepdim=True),
+                                           min=1e-9)).to(x.dtype)
+            ids = forced
+        return weights, ids, aux
+
+    moe_mod._route = route
+    try:
+        yield
+    finally:
+        moe_mod._route = orig
+    if next(calls, None) is not None:
+        raise AssertionError("a replayed run routed fewer times than the "
+                             "recorded one")
+
+
+def check_routing(tag, route, flips):
+    """The share of the kernel path's token-layer expert choices that the
+    fp32 router (``flips``, from ``routed``) would have made otherwise,
+    under MAX_REROUTED; None for a dense model."""
+    if not route:
+        return None
+    choices = sum(r.shape[0] for r in route)
+    share = sum(flips) / choices
+    log(f"[{tag}] routing: along the kernel path, the fp32 router picks "
+        f"another expert set for {sum(flips)} of {choices} token-layer "
+        f"choices ({share:.4f}); the plain paths follow the kernel path's")
+    if share > MAX_REROUTED:
+        raise AssertionError(f"[{tag}] the fp32 router disagrees with the "
+                             f"kernel path on {share:.4f} of the choices")
+    return {"choices": choices, "rerouted": sum(flips), "share": share}
+
+
+def teacher_forced_routed(m, model, params, tokens, *args):
+    """(kernel-path, plain bf16, fp32 truth) teacher-forced logits of
+    ``tokens`` (``teacher_forced_logits(..., *args)``), the plain paths
+    routed as the kernel path (``routed``), and the routing summary."""
+    route, flips = [], []
+    with routed(record=route):
+        kern = teacher_forced_logits(model, params, tokens, *args)
+    with routed(replay=route):
+        plain = teacher_forced_logits(m.plain, params, tokens, *args)
+    with routed(replay=route, flips=flips):
+        truth = teacher_forced_logits(m.truth, m.params32, tokens, *args)
+    return kern, plain, truth, (route, flips)
+
+
 def check_logit_bound(name, kern, plain, truth):
     """Each step's kernel-path logits no further from fp32 than 2x the plain
     bf16 path's distance + 1e-2; returns the largest share of the bound
@@ -2267,14 +2542,14 @@ def run_slice(dev, m: Models, model=None, tag: str = "slice"):
     tokens = torch.tensor(np.stack([
         np.pad(queue.results[r.uid], (PROMPT - len(r.prompt), 0))
         for r in first]), dtype=torch.int64, device=dev)
-    kern = teacher_forced_logits(model, params, tokens)
+    kern, plain, truth, routes = teacher_forced_routed(m, model, params,
+                                                       tokens)
     greedy = torch.stack([lg.argmax(-1) for lg in kern], dim=1)
     if not torch.equal(greedy, tokens[:, PROMPT:]):
         raise AssertionError("the served greedy tokens differ from the "
                              "argmax of the kernel path's teacher-forced "
                              "logits")
-    plain = teacher_forced_logits(m.plain, params, tokens)
-    truth = teacher_forced_logits(m.truth, m.params32, tokens)
+    routing = check_routing(tag, *routes)
     worst, agreement = check_logit_bound(tag, kern, plain, truth)
     log(f"[{tag}] teacher-forced logits over {len(kern)} steps: kernel-path "
         f"error vs fp32 at most {worst:.3f} of its bound (2 x plain bf16 "
@@ -2283,7 +2558,7 @@ def run_slice(dev, m: Models, model=None, tag: str = "slice"):
     return {"served": served, "launches": counts, "throughput": throughput,
             "bucket_lru": dict(engine.lru_stats),
             "logit_bound_use": worst, "greedy_agreement": agreement,
-            "teacher_forced": (tokens, plain, truth)}
+            "routing": routing, "teacher_forced": (tokens, plain, truth)}
 
 
 def check_result(cfg, req, row):
@@ -2330,22 +2605,25 @@ def paged_requests(cfg, phase: str) -> list:
 
 def expected_paged_launches(cfg, engine) -> dict:
     """What the engine's own counters imply: per layer, a prefill or chunk
-    runs 4 fused GEMMs (q|k, v, SwiGLU up, down) and a decode step 2 (the
-    MLP); flash prefill per exact-length prefill, the paged kernel per
-    decode step and per chunk."""
-    n = cfg.num_layers
+    runs q|k and v and the FFN's fused GEMMs (``ffn_gemms``: the SwiGLU up
+    and down, or an MoE's per expert) and a decode step the FFN's; flash
+    prefill per exact-length prefill, the paged kernel per decode step and
+    per chunk."""
+    n, ffn = cfg.num_layers, ffn_gemms(cfg)
     pre, chunks, steps = (engine.prefills, engine.chunks_prefilled,
                           engine.decode_steps)
     return {**no_launches(),
-            "gemm_fused": n * (4 * (pre + chunks) + 2 * steps),
+            "gemm_fused": n * ((2 + ffn) * (pre + chunks) + ffn * steps),
             "flash_attention_fwd": n * pre,
             "flash_decode_paged": n * (steps + chunks)}
 
 
 def paged_replay(engine, model, params, row, plen: int, chunk, dev,
-                 block: int = 1):
+                 block: int = 1, slots: int = SLOTS,
+                 max_pages: int = MAX_PAGES):
     """Teacher-forced logits (fp32, one (V,) row per served token) of one
-    served stream in a lone slot of a SLOTS-row table: the engine's route
+    served stream in a lone slot of a ``slots``-row table of ``max_pages``
+    pages a row: the engine's route
     (exact-length prefill, or ``chunk``-token chunks), then the served
     tokens in steps of ``block`` over the table sliced to the page bucket
     ``engine`` gives that slot alone: decode steps (1), or verify steps
@@ -2354,8 +2632,8 @@ def paged_replay(engine, model, params, row, plen: int, chunk, dev,
     row64 = np.concatenate([np.asarray(row, np.int64),
                             np.zeros(block - 1, np.int64)])
     n_pages = kvc.num_pages_needed(len(row64), PAGE)
-    cache = model.init_paged_cache(SLOTS, n_pages + 1, PAGE)
-    state = kvc.init_page_state(SLOTS, MAX_PAGES)
+    cache = model.init_paged_cache(slots, n_pages + 1, PAGE)
+    state = kvc.init_page_state(slots, max_pages)
     kvc.assign_slot(state, 0, list(range(1, n_pages + 1)), plen)
     out = []
     with torch.inference_mode():
@@ -2378,9 +2656,9 @@ def paged_replay(engine, model, params, row, plen: int, chunk, dev,
             # in time before the step)
             bucket = engine.page_bucket(kvc.num_pages_needed(base + block,
                                                              PAGE))
-            tokens = np.zeros((SLOTS, block), np.int64)
+            tokens = np.zeros((slots, block), np.int64)
             tokens[0] = row64[base:base + block]
-            lengths = np.zeros((SLOTS,), np.int32)
+            lengths = np.zeros((slots,), np.int32)
             lengths[0] = base
             cache, logits = model.decode_step_paged(
                 params, torch.as_tensor(tokens, device=dev), cache,
@@ -2473,20 +2751,27 @@ def run_paged_phase(dev, m: Models, phase: str, tag=None) -> dict:
     if len(replayed) < 2:
         raise AssertionError(f"[{tag}] fewer than two requests kept the "
                              "plain route")
-    kern, plain, truth = [], [], []
+    kern, plain, truth, route, flips = [], [], [], [], []
     for r in replayed:
         row, plen = results[r.uid], len(r.prompt)
-        k = paged_replay(engine, m.kernel, m.params, row, plen, chunk, dev)
+        mine = []
+        with routed(record=mine):
+            k = paged_replay(engine, m.kernel, m.params, row, plen, chunk,
+                             dev)
         greedy = np.array([int(x.argmax()) for x in k])
         if not np.array_equal(greedy, row[plen:]):
             raise AssertionError(f"[{tag}] request {r.uid}: the lone-slot "
                                  "replay's greedy tokens differ from the "
                                  "served ones")
         kern += k
-        plain += paged_replay(engine, m.plain, m.params, row, plen, chunk,
-                              dev)
-        truth += paged_replay(engine, m.truth, m.params32, row, plen, chunk,
-                              dev)
+        route += mine
+        with routed(replay=mine):
+            plain += paged_replay(engine, m.plain, m.params, row, plen, chunk,
+                                  dev)
+        with routed(replay=mine, flips=flips):
+            truth += paged_replay(engine, m.truth, m.params32, row, plen,
+                                  chunk, dev)
+    routing = check_routing(tag, route, flips)
     worst, agreement = check_logit_bound(tag, kern, plain, truth)
     log(f"[{tag}] replayed requests {[r.uid for r in replayed]} in a lone "
         f"slot: greedy tokens equal the served ones over {len(kern)} steps; "
@@ -2494,7 +2779,7 @@ def run_paged_phase(dev, m: Models, phase: str, tag=None) -> dict:
         f"greedy agreement with the plain bf16 path {agreement:.3f} "
         f"(information only)")
     return {"report": rep, "launches": counts, "throughput": throughput,
-            "replayed": [r.uid for r in replayed],
+            "replayed": [r.uid for r in replayed], "routing": routing,
             "logit_bound_use": worst, "greedy_agreement": agreement}
 
 
@@ -3594,6 +3879,176 @@ def run_leftovers(dev, curves: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: mixtral-8x7b, the mixture of experts at published width
+# ---------------------------------------------------------------------------
+
+def throughput_line(tag: str, pre_tok, pre_s, dec_tok, dec_s) -> dict:
+    out = {"prefill_tokens_per_s": pre_tok / pre_s,
+           "decode_tokens_per_s": dec_tok / dec_s,
+           "prefill_s": pre_s, "decode_s": dec_s}
+    log(f"[{tag}] prefill {pre_tok} tokens in {pre_s:.4f} s "
+        f"({out['prefill_tokens_per_s']:.1f} tok/s); decode {dec_tok} tokens "
+        f"in {dec_s:.4f} s ({out['decode_tokens_per_s']:.1f} tok/s)")
+    return out
+
+
+def run_window(dev, m: Models) -> dict:
+    """12c: WIN_BATCH requests of WIN_PROMPT tokens (past the 4096-token
+    window) and WIN_NEW new tokens each, served by ``Engine(max_len=
+    WIN_PROMPT + WIN_NEW + 8)``, whose cache is a ring of the window's
+    4096 slots that the prefill already wraps, then by a ``PagedEngine``
+    (WIN_PAGES-page tables, CHUNK-token chunks, a pool of WIN_BATCH x
+    WIN_PAGES + 1 pages), which keeps every page and lets the kernels mask
+    by the window. Each after a warm-up of its route, launches exact; the
+    two engines' streams equal, or where one differs the Engine step's
+    top-2 logit margin there under the distance between the two routes'
+    logits (the ring's decode steps against the paged route's chunks and
+    steps in a lone slot), as in phase 10; the Engine route's
+    teacher-forced logits within phase 4's bound of the fp32 truth."""
+    cfg, params = m.cfg, m.params
+    rng = np.random.default_rng(12)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (WIN_BATCH, WIN_PROMPT)).astype(np.int32)
+    max_len = WIN_PROMPT + WIN_NEW + 8
+    engine = Engine(m.kernel, params, max_len=max_len)
+    engine.generate(prompts, 2)        # warm-up: the decode graph's capture
+    engine.timings.clear()
+    kernels.reset_launch_counts()
+    served = engine.generate(prompts, WIN_NEW).tokens
+    counts = kernels.launch_counts()
+    slots = engine._buckets[("decode", WIN_BATCH)].cache["k"].shape[3]
+    want = expected_launches(cfg, 1, new_tokens=WIN_NEW)
+    log(f"[12c engine] {WIN_BATCH} x {WIN_PROMPT}-token prompts through a "
+        f"{slots}-slot ring, {WIN_NEW} new tokens each; launches {counts}")
+    if counts != want or slots != cfg.attn_window:
+        raise AssertionError(f"[12c engine] launches {counts}, ring of "
+                             f"{slots} slots; the path makes {want} over a "
+                             f"{cfg.attn_window}-slot ring")
+    t = engine.timings[0]
+    out = {"12c engine": {"launches": counts, "ring_slots": slots,
+                          "throughput": throughput_line(
+                              "12c engine", WIN_BATCH * WIN_PROMPT,
+                              t["prefill_s"], WIN_BATCH * (WIN_NEW - 1),
+                              t["decode_s"])}}
+
+    kw = dict(batch_slots=WIN_BATCH, page_size=PAGE,
+              max_pages_per_seq=WIN_PAGES, n_pages=WIN_BATCH * WIN_PAGES + 1,
+              chunk_tokens=CHUNK)
+    warm = PagedEngine(m.kernel, params, **kw)
+    for u in range(2):
+        warm.submit(Request(u, np.arange(1, 100 + u, dtype=np.int32), 3))
+    warm.run()
+    paged = PagedEngine(m.kernel, params, **kw)
+    reqs = [Request(u, p, WIN_NEW) for u, p in enumerate(prompts)]
+    for r in reqs:
+        paged.submit(r)
+    kernels.reset_launch_counts()
+    results = paged.run()
+    counts = kernels.launch_counts()
+    rep = paged.report()
+    want = expected_paged_launches(cfg, paged)
+    log(f"[12c paged] served {len(results)} requests in {rep['steps']} "
+        f"steps: {paged.chunks_prefilled} chunks, {rep['decode_steps']} "
+        f"decode steps, peak {rep['peak_pages_in_use']} of "
+        f"{rep['page_pool_size']} pages; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"[12c paged] launches {counts}; the engine's "
+                             f"counters imply {want}")
+    if sorted(results) != [r.uid for r in reqs] or \
+            paged.alloc.free_pages != paged.n_pages - 1:
+        raise AssertionError(f"[12c paged] completed {sorted(results)}, "
+                             f"{paged.alloc.free_pages} pages free")
+    for r in reqs:
+        check_result(cfg, r, results[r.uid])
+        check_result(cfg, r, served[r.uid])
+    t = rep["timings"]
+    out["12c paged"] = {"launches": counts, "report": rep,
+                        "throughput": throughput_line(
+                            "12c paged", t["prefill_tokens"], t["prefill_s"],
+                            t["decode_tokens"], t["decode_s"])}
+
+    tokens = torch.tensor(served, dtype=torch.int64, device=dev)
+    kern, plain, truth, routes = teacher_forced_routed(
+        m, m.kernel, params, tokens, WIN_PROMPT, WIN_NEW, max_len)
+    greedy = torch.stack([lg.argmax(-1) for lg in kern], dim=1)
+    if not torch.equal(greedy, tokens[:, WIN_PROMPT:]):
+        raise AssertionError("[12c] the served greedy tokens differ from the "
+                             "argmax of the kernel path's teacher-forced "
+                             "logits")
+    differ = []
+    for r in reqs:
+        row, other = served[r.uid], results[r.uid]
+        if np.array_equal(row, other):
+            continue
+        pos = int(np.nonzero(row != other)[0][0])
+        ring = kern[pos - WIN_PROMPT][r.uid]
+        pages = paged_replay(paged, m.kernel, params, row[:pos + 1],
+                             WIN_PROMPT, CHUNK, dev, slots=WIN_BATCH,
+                             max_pages=WIN_PAGES)[pos - WIN_PROMPT]
+        top = torch.topk(ring, 2).values
+        margin, dist = (top[0] - top[1]).item(), \
+            (ring - pages).abs().max().item()
+        log(f"[12c] request {r.uid}: the paged stream first differs from "
+            f"the Engine's at position {pos}; the Engine step's top-2 margin "
+            f"{margin:.4g}, the routes' logit distance there {dist:.4g}")
+        if not margin < dist:
+            raise AssertionError(f"[12c] request {r.uid}'s streams differ "
+                                 "where the margin exceeds the routes' "
+                                 "distance")
+        differ.append({"uid": r.uid, "position": pos, "margin": margin,
+                       "distance": dist})
+    log(f"[12c] {len(reqs) - len(differ)} of {len(reqs)} paged streams equal "
+        "the Engine's token for token")
+    routing = check_routing("12c", *routes)
+    worst, agreement = check_logit_bound("12c", kern, plain, truth)
+    log(f"[12c] teacher-forced logits over {len(kern)} steps past the "
+        f"window: kernel-path error vs fp32 at most {worst:.3f} of its bound "
+        f"(2 x plain bf16 error + 1e-2); greedy agreement with the plain "
+        f"bf16 path {agreement:.3f} (information only)")
+    out["12c engine"].update(differ=differ, logit_bound_use=worst,
+                             greedy_agreement=agreement, routing=routing)
+    return out
+
+
+def run_moe(dev) -> dict:
+    """Phase 12: mixtral-8x7b at published width cut to MOE_LAYERS layers,
+    weights at a trained model's scale, kernel mode beside the plain bf16
+    and fp32 paths: 12a phase 8a's traffic through RequestQueue(Engine)
+    and 12b phase 8b's through PagedEngine, with phases 4's and 5's checks
+    (launches exact: per layer 2 + 2E fused GEMMs a prefill or chunk and 2E
+    a decode step, a replayed decode step bit for bit the eager one, the
+    logits under phase 4's bound), then 12c across the window
+    (``run_window``). Prints the init time, the peak memory and the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    m = build_models(dev, MOE_ARCH, MOE_LAYERS, trained=True)
+    init_s = time.perf_counter() - t0
+    out = {"12a": run_slice(dev, m, tag="12a mixtral-8x7b")}
+    del out["12a"]["teacher_forced"]
+    out["12b"] = run_paged_phase(dev, m, "8b", tag="12b mixtral-8x7b")
+    out.update(run_window(dev, m))
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"init_s": init_s, "seconds": time.perf_counter() - t0,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "decode_tokens_per_s": {
+                   p: out[p]["throughput"]["decode_tokens_per_s"]
+                   for p in MOE_PHASES},
+               "prefill_tokens_per_s": {
+                   p: out[p]["throughput"]["prefill_tokens_per_s"]
+                   for p in MOE_PHASES}}
+    log(f"[12] mixtral-8x7b, {MOE_LAYERS} layers: init {init_s:.1f} s, peak "
+        f"memory {summary['peak_memory_gb']:.2f} GB, phase 12 in "
+        f"{summary['seconds']:.1f} s; decode tok/s "
+        f"{summary['decode_tokens_per_s']}; prefill tok/s "
+        f"{summary['prefill_tokens_per_s']}")
+    out["12"] = summary
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3640,11 +4095,14 @@ def main(argv=None) -> int:
                                + measure_verify_gemms(cfg, dev, gen, timer)),
                 "flash_attention_fwd": (
                     measure_flash(cfg, dev, gen, timer, old)
-                    + measure_flash_encoder(dev, gen, timer)),
+                    + measure_flash_encoder(dev, gen, timer)
+                    + measure_flash_window(dev, gen, timer)),
                 "flash_decode": (measure_decode(cfg, dev, gen, timer, old)
-                                 + measure_decode_encoder(dev, gen, timer)),
-                "flash_decode_paged": measure_paged(cfg, dev, gen, timer,
-                                                    old)}
+                                 + measure_decode_encoder(dev, gen, timer)
+                                 + measure_decode_window(dev, gen, timer)),
+                "flash_decode_paged": (
+                    measure_paged(cfg, dev, gen, timer, old)
+                    + measure_paged_window(dev, gen, timer))}
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
     measured.update(bwd_rows)
     measured.update({
@@ -3704,6 +4162,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phases.update(run_leftovers(dev, phases["6b"]))
     log(f"[done] phase 11 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(run_moe(dev))
+    log(f"[done] phase 12 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -3716,7 +4178,7 @@ def main(argv=None) -> int:
             "launches": sum(phases[p]["launches"][name]
                             for p in MAIN_PATH_PHASES + DENSE_PHASES
                             + ENCODER_PHASES + tuple(SPEC_RUNS)
-                            + LEFTOVER_PHASES),
+                            + LEFTOVER_PHASES + MOE_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

@@ -1,14 +1,25 @@
 """Model configuration: one frozen dataclass per architecture.
 
-The port's own copy of the reference ``ModelConfig``, cut to the fields the
-port's families read: the decoder-only LM, the encoder and the
-encoder-decoder. Field names and defaults are the reference's, so
-``dataclasses.replace`` sizes a config the same way on both sides.
+The port's own copy of the reference ``ModelConfig`` and ``MoEConfig``,
+cut to the fields the port's families read: the decoder-only LM (dense or
+with mixture-of-experts blocks), the encoder and the encoder-decoder.
+Field names and defaults are the reference's, so ``dataclasses.replace``
+sizes a config the same way on both sides.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    impl: str = "auto"  # 'dense' | 'ep' | 'tp' | 'auto'; one device: dense
+    # weight sharding of the distributed paths: 'expert' or 'ffn'
+    shard: str = "expert"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +33,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None          # default d_model // num_heads
-    # block pattern, cycled over layers; the port runs 'attn' blocks only
+    # block pattern, cycled over layers; the port runs a uniform ('attn',)
+    # or ('moe',) pattern (attention + mixture-of-experts FFN)
     block_pattern: Sequence[str] = ("attn",)
     mlp_act: str = "swiglu"     # 'swiglu' | 'geglu' | 'gelu'
     norm: str = "rmsnorm"       # 'rmsnorm' | 'layernorm'
@@ -32,6 +44,7 @@ class ModelConfig:
     rope_style: str = "half"    # 'half' | 'partial' | 'none'
     attn_window: Optional[int] = None
     attn_logit_softcap: Optional[float] = None
+    moe: Optional[MoEConfig] = None
     # enc-dec (whisper): encoder stack dims (decoder uses the main fields)
     encoder_layers: int = 0
     encoder_seq: int = 1500      # precomputed frame embeddings (frontend stub)
@@ -45,6 +58,7 @@ class ModelConfig:
     residual_scale: float = 1.0
     logit_scale_div: float = 1.0
     max_seq_len: int = 8192
+    sub_quadratic: bool = False  # True => long_500k shape is runnable
 
     def __post_init__(self):
         if self.head_dim is None:

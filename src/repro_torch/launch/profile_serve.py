@@ -6,8 +6,12 @@
       --arch whisper-base --prompt-len 64 --out DIR
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --engine paged \\
       --batch 8 --spec-tokens 4 [--draft self|layers:N] --out DIR
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch mixtral-8x7b --layers 4 --out DIR
 
-Builds the model in kernel mode with seeded random weights, warms it up,
+Builds the model in kernel mode with seeded random weights (at its
+published width, cut to ``--layers`` layers where given: mixtral-8x7b's 32
+are ~93 GB in bf16, more than one card holds), warms it up,
 then runs one prefill and the decode steps of one batch twice: once untimed
 by the profiler (host clock around work ended by a device synchronise), and
 once under ``torch.profiler``. ``--engine fixed`` (the default) drives an
@@ -216,6 +220,8 @@ def draft_model(spec: str, cfg, model, params) -> tuple:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="llama-1b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the published depth to this many layers")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -231,6 +237,8 @@ def main(argv=None) -> dict:
         raise ValueError("--spec-tokens needs --engine paged")
 
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.family == "encoder" or (cfg.family == "encdec"
                                    and args.engine == "paged"):
         raise NotImplementedError(
@@ -272,7 +280,8 @@ def main(argv=None) -> dict:
     rounds = getattr(engine, "spec_rounds", 0) - rounds
     tokens = {"prefill": args.batch * args.prompt_len,
               "decode": args.batch * (args.new_tokens - 1)}
-    report = {"arch": args.arch, "engine": args.engine, "batch": args.batch,
+    report = {"arch": args.arch, "layers": cfg.num_layers,
+              "engine": args.engine, "batch": args.batch,
               "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
               "spec_tokens": args.spec_tokens,
               "draft": args.draft if args.spec_tokens else None,

@@ -5,6 +5,8 @@ with the model in kernel mode (``--mode reference``: the plain path).
       --requests 8 --prompt-len 256 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
       --no-smoke --layers 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --no-smoke --layers 4
 
 ``--arch`` takes every decoder-only id of ``repro_torch.configs``; the
 smoke variant of a config is the default (``--no-smoke``: the published

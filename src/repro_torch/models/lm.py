@@ -1,7 +1,8 @@
-"""Decoder-only LM: embedding, a stack of dense attention blocks, tied or
-untied logits; full-sequence forward, prefill and one-token decode over a
-contiguous cache, and prefill, chunked prefill and 1- or T-token decode
-over a paged pool.
+"""Decoder-only LM: embedding, a stack of attention blocks whose FFN is a
+dense MLP ('attn') or a mixture of experts ('moe'), tied or untied logits;
+full-sequence forward, prefill and one-token decode over a contiguous
+cache, and prefill, chunked prefill and 1- or T-token decode over a paged
+pool.
 
 Layer parameters are stacked with a leading layer axis (the reference's
 scan layout, same keys and shapes); a Python loop over layers takes the
@@ -13,8 +14,8 @@ so the cast's backward hands fp32 grads to the optimizer. With ``remat``
 each block runs under ``torch.utils.checkpoint`` per ``cfg.remat_policy``
 (:func:`_remat`). With ``cfg.ce_chunk`` the loss takes the cross entropy
 chunk by chunk along the sequence (:func:`_chunked_ce`), so the (B, S, V)
-fp32 logits never exist at once. The port runs 'attn' blocks only; any
-other block kind raises.
+fp32 logits never exist at once. The port runs a uniform stack of 'attn'
+or of 'moe' blocks; any other block kind, and a mixed pattern, raises.
 """
 from __future__ import annotations
 
@@ -32,13 +33,23 @@ from .attention import (attend, attn_defs, decode_attention_layer,
                         attention_layer)
 from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
                      mlp_defs, mlp_forward, norm_defs, norm_params, tree_map)
+from .moe import moe_defs, moe_forward
 
 
 def check_supported(cfg) -> None:
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if kinds != {"attn"}:
+    if len(kinds) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs 'attn' blocks only, got {sorted(kinds)}")
+            f"{cfg.name}: mixed block pattern {tuple(cfg.block_pattern)}; the "
+            "port runs a uniform ('attn',) or ('moe',) stack. The interleaved "
+            "blocks_0/blocks_1 layout (llama4-maverick's ('attn', 'moe')) is "
+            "ROADMAP Queue A item 4's next model")
+    if not kinds <= {"attn", "moe"}:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs 'attn' and 'moe' blocks only, got "
+            f"{sorted(kinds)}")
+    if "moe" in kinds and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: 'moe' blocks need cfg.moe")
     if cfg.family != "lm":
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}; the "
                                   "port runs decoder-only LMs ('lm')")
@@ -52,7 +63,10 @@ def lm_param_defs(cfg) -> dict:
     defs.update(attn_defs(cfg, "blocks/attn", stack=n))
     defs.update(norm_defs(cfg, "blocks/ln1", stack=n))
     defs.update(norm_defs(cfg, "blocks/ln2", stack=n))
-    defs.update(mlp_defs(cfg, "blocks/mlp", stack=n))
+    if cfg.layer_kind(0) == "moe":
+        defs.update(moe_defs(cfg, "blocks/moe", stack=n))
+    else:
+        defs.update(mlp_defs(cfg, "blocks/mlp", stack=n))
     defs.update(norm_defs(cfg, "final_norm"))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), dtype=dt)
@@ -87,18 +101,32 @@ def _logits(cfg, params, x, head=None):
     return logits / cfg.logit_scale_div
 
 
+def _ffn(cfg, p, x, *, mode: str):
+    """The block's FFN on the stream ``x`` after attention's residual, by
+    block kind (the FFN's params: "mlp" or "moe"), ln2 riding in as
+    ``prenorm``: the dense MLP, ``x + residual_scale * mlp(x)`` (in kernel
+    mode the residual rides in the down GEMM's store), or the MoE FFN, added
+    as ``x + residual_scale * m``. Returns (x, the MoE's aux or None)."""
+    rs = cfg.residual_scale
+    if "moe" in p:
+        m, aux = moe_forward(cfg, p["moe"], x, mode=mode,
+                             prenorm=norm_params(p, "ln2"))
+        return x + rs * m, aux
+    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
+                       residual_scale=rs,
+                       prenorm=norm_params(p, "ln2")), None
+
+
 def block_forward(cfg, p, x, *, positions, mode: str = "reference",
                   qkv_plan: str = "rope_fused"):
-    """One dense block on the pre-norm residual stream ``x``: ln1 and ln2
-    ride into the attention/MLP layers as ``prenorm``; ``qkv_plan`` is the
-    rung of the QKV ladder ('kernel' mode)."""
-    rs = cfg.residual_scale
+    """One block on the pre-norm residual stream ``x``: ln1 and ln2 ride
+    into the attention and FFN layers as ``prenorm``; ``qkv_plan`` is the
+    rung of the QKV ladder ('kernel' mode). Returns (x, the MoE's
+    load-balancing loss, or None for a dense block)."""
     a = attention_layer(cfg, p["attn"], x, window=cfg.attn_window,
                         positions=positions, mode=mode,
                         prenorm=norm_params(p, "ln1"), qkv_plan=qkv_plan)
-    x = x + rs * a
-    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       residual_scale=rs, prenorm=norm_params(p, "ln2"))
+    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode)
 
 
 def unstack_layers(blocks, n: int) -> list:
@@ -147,13 +175,11 @@ def _remat(cfg, fn):
     return run
 
 
-def lm_forward(cfg, params, tokens, *, mode: str = "reference",
-               remat: bool = False, qkv_plan: str = "rope_fused",
-               return_hidden: bool = False):
-    """tokens: (B, S) -> logits (B, S, V) fp32, or with ``return_hidden``
-    (the last block's output (B, S, d), the params cast to the compute
-    type), so the loss reuses the cast. (The reference also returns the MoE
-    auxiliary loss; dense blocks have none.)"""
+def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
+              remat: bool = False, qkv_plan: str = "rope_fused"):
+    """tokens: (B, S) -> (the last block's output (B, S, d), the params
+    cast to the compute type, the layers' summed MoE auxiliary loss in fp32,
+    0 for dense blocks), so the loss reuses the cast."""
     params = cast_params(params, dtype_of(cfg.compute_dtype))
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
@@ -161,11 +187,21 @@ def lm_forward(cfg, params, tokens, *, mode: str = "reference",
                               mode=mode, qkv_plan=qkv_plan)
     if remat:
         block = _remat(cfg, block)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in unstack_layers(params["blocks"], cfg.num_layers):
-        x = block(p, x)
-    if return_hidden:
-        return x, params
-    return _logits(cfg, params, x)
+        x, a = block(p, x)
+        if a is not None:
+            aux = aux + a
+    return x, params, aux
+
+
+def lm_forward(cfg, params, tokens, *, mode: str = "reference",
+               remat: bool = False, qkv_plan: str = "rope_fused"):
+    """tokens: (B, S) -> logits (B, S, V) fp32. (The reference also returns
+    the MoE auxiliary loss: :func:`lm_hidden` has it.)"""
+    x, cast, _ = lm_hidden(cfg, params, tokens, mode=mode, remat=remat,
+                           qkv_plan=qkv_plan)
+    return _logits(cfg, cast, x)
 
 
 def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int):
@@ -203,22 +239,18 @@ def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int):
 
 def lm_loss(cfg, params, batch, *, mode: str = "reference", remat: bool = True,
             aux_weight: float = 0.01, qkv_plan: str = "rope_fused"):
-    """(loss, {"ce", "aux"}): the masked mean cross entropy of the batch
-    {"inputs", "targets"[, "loss_mask"]}, over ``cfg.ce_chunk``-position
-    chunks where that is set; dense blocks have no auxiliary loss, so aux
-    is 0."""
+    """(loss, {"ce", "aux"}): ``ce + aux_weight * aux``, the masked mean
+    cross entropy of the batch {"inputs", "targets"[, "loss_mask"]} (over
+    ``cfg.ce_chunk``-position chunks where that is set) and the layers'
+    summed MoE load-balancing loss (0 for dense blocks)."""
+    hidden, cast, aux = lm_hidden(cfg, params, batch["inputs"], mode=mode,
+                                  remat=remat, qkv_plan=qkv_plan)
     if cfg.ce_chunk:
-        hidden, cast = lm_forward(cfg, params, batch["inputs"], mode=mode,
-                                  remat=remat, qkv_plan=qkv_plan,
-                                  return_hidden=True)
         ce = _chunked_ce(cfg, cast, hidden, batch["targets"],
                          batch.get("loss_mask"), cfg.ce_chunk)
     else:
-        logits = lm_forward(cfg, params, batch["inputs"], mode=mode,
-                            remat=remat, qkv_plan=qkv_plan)
-        ce = cross_entropy_loss(logits, batch["targets"],
+        ce = cross_entropy_loss(_logits(cfg, cast, hidden), batch["targets"],
                                 batch.get("loss_mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -237,9 +269,7 @@ def block_prefill(cfg, p, x, k_cache, v_cache, *, positions,
     o = attend(cfg, q, k, v, window=cfg.attn_window, mode=mode)
     prefill_attn_cache(k_cache, v_cache, k, v)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
-    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       residual_scale=cfg.residual_scale,
-                       prenorm=norm_params(p, "ln2"))
+    return _ffn(cfg, p, x, mode=mode)[0]
 
 
 def block_decode(cfg, p, x, k_cache, v_cache, pos, *,
@@ -248,9 +278,7 @@ def block_decode(cfg, p, x, k_cache, v_cache, pos, *,
     h = apply_norm(cfg, x, p, "ln1")
     a = decode_attention_layer(cfg, p["attn"], h, k_cache, v_cache, pos,
                                window=cfg.attn_window, mode=mode)
-    x = x + rs * a
-    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       residual_scale=rs, prenorm=norm_params(p, "ln2"))
+    return _ffn(cfg, p, x + rs * a, mode=mode)[0]
 
 
 def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
@@ -324,9 +352,7 @@ def block_prefill_paged(cfg, p, x, cache, *, page_rows, positions,
     o = attend(cfg, q, k, v, window=cfg.attn_window, mode=mode)
     paged_prefill_attn_cache(cfg, cache, k, v, page_rows)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
-    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       residual_scale=cfg.residual_scale,
-                       prenorm=norm_params(p, "ln2"))
+    return _ffn(cfg, p, x, mode=mode)[0]
 
 
 def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
@@ -369,9 +395,7 @@ def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
                                softcap=cfg.attn_logit_softcap, mode=mode)
     x = x + cfg.residual_scale * (_merge_heads(o.to(x.dtype))
                                   @ p["attn"]["wo"])
-    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       residual_scale=cfg.residual_scale,
-                       prenorm=norm_params(p, "ln2"))
+    return _ffn(cfg, p, x, mode=mode)[0]
 
 
 def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
@@ -409,9 +433,7 @@ def block_decode_paged(cfg, p, x, cache, page_table, lengths, *,
     a = paged_decode_attention_layer(cfg, p["attn"], h, cache, page_table,
                                      lengths, window=cfg.attn_window,
                                      mode=mode)
-    x = x + rs * a
-    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       residual_scale=rs, prenorm=norm_params(p, "ln2"))
+    return _ffn(cfg, p, x + rs * a, mode=mode)[0]
 
 
 def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,

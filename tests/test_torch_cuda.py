@@ -33,7 +33,11 @@ two calls, a view the TMA cannot read refused), and autograd through both
 ops; remat_policy 'dots' at llama-1b's width with exact launches, the
 chunked cross entropy against the unchunked loss, a checkpoint of card
 tensors restored bit for bit after an in-place step, and a decode step
-through the forward GEMM's custom op replayed from its graph bit for bit.
+through the forward GEMM's custom op replayed from its graph bit for bit;
+the mixture of experts' two chains (the silu-gated up projection with no
+prologue, the down projection with no epilogue) at mixtral-8x7b's smoke
+and decode shapes, its experts against their plain versions, and a
+mixtral-shaped engine's decode step past its window replayed bit for bit.
 
 Marked ``cuda``: skipped on a machine without a CUDA card. On the card:
 
@@ -850,6 +854,131 @@ def test_engine_decode_step_replays_bitwise_the_eager_step(dev, engine):
         torch.cuda.synchronize()
         assert kernels.launch_counts() == replay_counts
         assert replay_counts["gemm_fused"] == 2 * model.cfg.num_layers
+        assert torch.equal(replayed, want)
+        for k in saved:
+            assert torch.equal(after_replay[k], saved[k])
+
+
+# ---------------------------------------------------------------------------
+# The mixture of experts (mixtral-8x7b)
+# ---------------------------------------------------------------------------
+
+# an expert's two launches: (M, K, N, gated): mixtral's smoke width (d 64,
+# d_ff 128) and its published one at a decode step's M 4 (split over K)
+EXPERT_CHAINS = {"smoke_up": (24, 64, 128, True),
+                 "smoke_down": (24, 128, 64, False),
+                 "decode_up": (4, 4096, 14336, True),
+                 "decode_down": (4, 14336, 4096, False)}
+
+
+@pytest.mark.parametrize("case", sorted(EXPERT_CHAINS))
+def test_gemm_fused_expert_chains_match_plain(dev, case):
+    """The MoE's chains as ``models/moe.py`` calls them: the dual-output
+    silu-gated up projection with no prologue and the down projection with
+    no epilogue, one launch each, against the plain version; two calls
+    bitwise equal."""
+    m, k, n, gated = EXPERT_CHAINS[case]
+    rng = np.random.default_rng(m + k)
+    a, b = _rand(rng, (m, k), dev), _rand(rng, (k, n), dev, k ** -0.5)
+    kw = {}
+    if gated:
+        kw = dict(epilogue=Epilogue(activation="silu", gate=True),
+                  b2=_rand(rng, (k, n), dev, k ** -0.5))
+    before = kernels.launch_counts()["gemm_fused"]
+    got = gemm_fused(a, b, **kw)
+    again = gemm_fused(a, b, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gemm_fused"] == before + 2
+    assert torch.equal(got, again)
+    _close(got, gemm_fused_ref(a, b, **kw), 2 ** -6, 2e-2)
+
+
+def _moe_model(dev):
+    """mixtral-8x7b's smoke config (4 experts top-2, window 32) at head_dim
+    64 (the decode kernels' width), seeded."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", smoke=True),
+                              d_model=256, num_heads=4, num_kv_heads=2,
+                              head_dim=64)
+    model = build_model(cfg, mode="kernel", device=dev)
+    return model, model.init(seed=5)
+
+
+def test_moe_experts_match_their_plain_versions(dev):
+    """Kernel mode's experts (2 launches an expert) on the card against the
+    same call on CPU copies, which runs the plain versions of the
+    launches."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    model, params = _moe_model(dev)
+    p = tree_map(lambda t: t[0], params["blocks"]["moe"])
+    x = _rand(np.random.default_rng(8), (40, model.cfg.d_model), dev)
+    kernels.reset_launch_counts()
+    got = moe._expert_ffn_fused(model.cfg, p, x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gemm_fused"] == \
+        2 * model.cfg.moe.num_experts
+    want = moe._expert_ffn_fused(model.cfg, tree_map(lambda t: t.cpu(), p),
+                                 x.cpu())
+    _close(got.cpu(), want, 2 ** -6, 2e-2)
+
+
+@pytest.mark.parametrize("engine", ["fixed", "paged"])
+def test_moe_decode_step_replays_bitwise_the_eager_step(dev, engine):
+    """A mixtral-shaped model served past its 32-token window (a 32-slot
+    ring; every page kept and masked by the window): the decode bucket's
+    captured MoE step, replayed on new inputs from a saved cache state,
+    gives the eager step's logits and cache bit for bit and launches 2 per
+    expert and layer, as the eager step does."""
+    from repro_torch.serve import Engine, PagedEngine, Request
+    model, params = _moe_model(dev)
+    rng = np.random.default_rng(16)
+    with torch.inference_mode():
+        if engine == "fixed":
+            eng = Engine(model, params, max_len=64)
+            eng.generate(rng.integers(0, 512, (2, 40)), 6)
+            entry = eng._buckets[("decode", 2)]
+            assert entry.cache["k"].shape[3] == model.cfg.attn_window
+            inputs = dict(token=torch.tensor([[5], [7]], device=dev), pos=45)
+            cache = entry.cache
+
+            def eager(c):
+                return model.decode_step(params, inputs["token"], c,
+                                         inputs["pos"])[1]
+        else:
+            eng = PagedEngine(model, params, batch_slots=2, page_size=64,
+                              max_pages_per_seq=2)
+            for u in range(2):
+                eng.submit(Request(u, rng.integers(0, 512, 40 + 9 * u)
+                                   .astype(np.int32), 6))
+            eng.run()
+            (key, entry), = [(k, e) for k, e in eng._buckets.items()
+                             if k == (2, 1)]
+            table = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+            inputs = dict(token=torch.tensor([[5], [7]], device=dev),
+                          page_table=table,
+                          lengths=torch.tensor([45, 54], dtype=torch.int32,
+                                               device=dev))
+            cache = eng.cache
+
+            def eager(c):
+                return model.decode_step_paged(
+                    params, inputs["token"], c, inputs["page_table"],
+                    inputs["lengths"])[1]
+        assert entry.graph is not None
+        saved = _clone(cache)
+        kernels.reset_launch_counts()
+        replayed = entry(**inputs).clone()
+        torch.cuda.synchronize()
+        replay_counts = kernels.launch_counts()
+        after_replay = _clone(cache)
+        kernels.reset_launch_counts()
+        want = eager(saved)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == replay_counts
+        assert replay_counts["gemm_fused"] == \
+            2 * model.cfg.moe.num_experts * model.cfg.num_layers
         assert torch.equal(replayed, want)
         for k in saved:
             assert torch.equal(after_replay[k], saved[k])
