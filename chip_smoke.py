@@ -46,10 +46,18 @@ Phases, each of which raises on failure (exit code non-zero):
    its saved preact, the down projection's residual; a relu and a geglu
    chain at bert's shape), the layernorm row pass against its own bytes
    bound; the gelu up projections' forward also saving their preact as
-   the training forward does; the flash backward whole, its main kernel
+   the training forward does; the GEMM backward at mixtral-8x7b's
+   training GEMMs (phase 13: M 4096, q|k + rope at head_dim 128, v, an
+   expert's gated up with no prologue and its down with no epilogue);
+   the flash backward whole, its main kernel
    and its dq conversion timed apart, at llama's training shape, bert's
    non-causal 8 x 512, whisper's encoder over 1500 frames, its decoder's
-   causal 4 x 448 and its cross attention of 448 queries over 1500 frames;
+   causal 4 x 448, its cross attention of 448 queries over 1500 frames
+   and mixtral's training shape (B 4, H 32, Hkv 8, S 1024, d 128), each
+   gradient within its tolerance of the plain version, at most one
+   entry of it within the same tolerance of the fp32 truth instead
+   (``check_close_to_truth``: a ds that the two round to other bf16
+   neighbours);
    the standalone
    RoPE on prefill and training q/k, strided views of the q|k GEMM output,
    and its backward; the fused dropout + residual + layernorm at the
@@ -258,7 +266,30 @@ Phases, each of which raises on failure (exit code non-zero):
    no measure of rounding error); the fp32 router's disagreement with the
    kernel path's choices is printed and held under 10%. Prints tokens/s,
    the init time, the peak memory and the phase's seconds.
-13. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+13. mixtral-8x7b trained at published width cut to 1 layer (1.71 B
+   parameters; AdamW's fp32 state of 2 layers would fill the card),
+   4 x 1024 tokens a step, remat "full", weights at a trained model's
+   scale: (a) every leaf's grad of ``lm_loss`` (the load-balancing term
+   included) in kernel mode within 2x the plain bf16 path's distance from
+   the fp32 truth + 1e-3, the plain paths routed as the kernel path (the
+   fp32 router's disagreement share printed, under 10%); (b) 4 steps of
+   ``train_loop`` in kernel, plain bf16 and fp32 modes, the kernel curve
+   within 2.5x the plain bf16 curve's distance + 0.05 of the fp32 curve,
+   losses finite and falling; launches exact (per layer and step
+   2 (2 + 2E) ``gemm_fused``, 2 + 2E each of the operand pass, dA and dB,
+   2 flash forward, 2 flash backward), the median step after the first,
+   the peak memory and one traced step's busy share.
+14. Telemetry (``repro_torch.obs``): one 5a serving pass of llama-1b and
+   one 6b training step, each under ``obs.capture(timing=True)``, between
+   runs without a capture and one under an untimed capture (the capture's
+   cost); every kernel's journal events equal its launch count less the
+   launches CUDA graph replays added (a replay journals nothing); the
+   engine's ``engine.*`` counters equal its attributes, the trainer's
+   ``trainer.steps`` its steps; both exports pass ``tools/trace_check.py``
+   (a subprocess); the summary is printed; the uncaptured 6b step with
+   the backward on autograd's device thread against the calling thread,
+   where ``loss_and_grads`` runs it, in turns.
+15. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -279,6 +310,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -287,7 +319,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch import kernels  # noqa: E402
+from repro_torch import kernels, obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, DataIterator  # noqa: E402
 from repro_torch.kernels.attention import (  # noqa: E402
@@ -321,6 +353,7 @@ from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.train import (FailureInjector, StragglerWatchdog,  # noqa: E402
                                loss_and_grads, train_loop)
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.train import trainer as trainer_mod  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16 = 989e12
@@ -358,6 +391,14 @@ CKPT_FAIL, CKPT_RESUME = 5, 4
 MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 4
 WIN_BATCH, WIN_PROMPT, WIN_NEW, WIN_PAGES = 2, 4160, 64, 67
 MOE_PHASES = ("12a", "12b", "12c engine", "12c paged")
+# phase 13: mixtral-8x7b trained, cut to MOE_TRAIN_LAYERS layers (AdamW's
+# peak of fp32 masters, m, v, grads and the update's temporaries is about
+# 24 bytes a parameter: 41 GB at 1 layer, 76 GB at 2), MOE_TRAIN_STEPS steps
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 1, 4
+# the phases whose launches are phase 13's path (13a only checks grads)
+MOE_TRAIN_PHASES = ("13b",)
+# phase 14: the captured serving pass and training step
+TELEMETRY_PHASES = ("14 serve", "14 train")
 # the largest share of token-layer expert choices on which the fp32
 # router, along the kernel path's teacher-forced run, may pick another
 # expert set than the kernel path (near ties flip under bf16 rounding; a
@@ -1657,6 +1698,41 @@ ENCODER_TRAIN_GEMMS = {
 }
 
 
+def moe_train_gemm_cases(dev, gen):
+    """mixtral-8x7b's training GEMMs (phase 13) at M = TRAIN_BATCH x
+    TRAIN_SEQ as (name, a, b, kwargs): q|k (+ rope, head_dim 128) and v on
+    the rmsnorm prologue, an expert's dual-output silu-gated up projection
+    with no prologue (2 x N 14336) and its down projection with no epilogue
+    (K 14336). The weights at std K^-1/2."""
+    cfg = get_config(MOE_ARCH)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    m = TRAIN_BATCH * TRAIN_SEQ
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    rms = dict(prologue=Prologue(norm="rmsnorm"),
+               gamma=(1 + 0.1 * torch.randn(d, generator=gen,
+                                            device=dev)).to(bf16))
+    sin, cos = rope_tables(torch.arange(TRAIN_SEQ, device=dev), hd,
+                           cfg.rope_theta)
+    x = rnd(m, d)
+    wd = d ** -0.5
+    return [
+        ("mixtral_qk_rope", x,
+         rnd(d, (cfg.num_heads + cfg.num_kv_heads) * hd, std=wd),
+         dict(epilogue=Epilogue(rope=True, head_dim=hd),
+              sin=sin.repeat(TRAIN_BATCH, 1), cos=cos.repeat(TRAIN_BATCH, 1),
+              **rms)),
+        ("mixtral_v", x, rnd(d, cfg.num_kv_heads * hd, std=wd), dict(**rms)),
+        ("mixtral_expert_up", x, rnd(d, f, std=wd),
+         dict(epilogue=Epilogue(activation="silu", gate=True),
+              b2=rnd(d, f, std=wd))),
+        ("mixtral_expert_down", rnd(m, f), rnd(f, d, std=f ** -0.5), {}),
+    ]
+
+
 def encoder_train_gemm_cases(dev, gen):
     """ENCODER_TRAIN_GEMMS as (name, a, b, kwargs): the weights at std
     K^-1/2, gamma about 1, beta at std 0.5."""
@@ -1707,7 +1783,8 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     timed apart, with its own bytes bound: dAn, A, the statistics and gamma
     read, dA and the dgamma and dbeta partials written) and dB, each
     against its plain version at the forward's statistics; at llama-1b's
-    training shapes and at ENCODER_TRAIN_GEMMS. Bounds: the
+    training shapes, at ENCODER_TRAIN_GEMMS and at mixtral-8x7b's
+    (``moe_train_gemm_cases``). Bounds: the
     operand pass by its bytes (g, preacts, tables, A, gamma, beta and the
     statistics read; gbar, gbar_t, a_t written once); dA and dB by their own operands and
     outputs, or 2 M N K operations per product at the bf16 peak. Library
@@ -1722,7 +1799,8 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     rows = {"gemm_bwd_g": [], "gemm_bwd_da": [], "gemm_bwd_db": []}
     whole = []
     for name, a, b, kw in (train_gemm_cases(cfg, dev, gen)
-                           + encoder_train_gemm_cases(dev, gen)):
+                           + encoder_train_gemm_cases(dev, gen)
+                           + moe_train_gemm_cases(dev, gen)):
         ep = kw.get("epilogue", EPILOGUE_NONE)
         pro = kw.get("prologue", PROLOGUE_NONE)
         _, rstd, preacts = gemm_forward(
@@ -1926,22 +2004,28 @@ def baseline_flash_bwd(kern, args):
 
 
 def flash_bwd_cases(cfg) -> dict:
-    """The flash backward's shapes: name -> (B, H, Hkv, Sq, Skv, causal):
-    llama-1b's training (phase 6b), bert-110m's (9c), whisper-base's
-    encoder over 1500 frames (a ragged last key tile), its decoder's causal
-    self attention and its cross attention of 448 queries over 1500 frames
-    (9d); head_dim 64."""
+    """The flash backward's shapes: name -> (B, H, Hkv, Sq, Skv, causal,
+    head_dim): llama-1b's training (phase 6b), bert-110m's (9c),
+    whisper-base's encoder over 1500 frames (a ragged last key tile), its
+    decoder's causal self attention and its cross attention of 448 queries
+    over 1500 frames (9d), at head_dim 64; mixtral-8x7b's training (13),
+    B 4, H 32, Hkv 8, S 1024 at head_dim 128 (its 4096-token window holds
+    the whole sequence: the causal mask's pairs)."""
+    moe = get_config(MOE_ARCH)
     return {"train_causal_gqa": (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads,
-                                 TRAIN_SEQ, TRAIN_SEQ, True),
-            "bert": (B_BATCH, 12, 12, B_SEQ, B_SEQ, False),
-            "whisper_enc": (W_TRAIN_BATCH, 8, 8, 1500, 1500, False),
+                                 TRAIN_SEQ, TRAIN_SEQ, True, cfg.head_dim),
+            "bert": (B_BATCH, 12, 12, B_SEQ, B_SEQ, False, 64),
+            "whisper_enc": (W_TRAIN_BATCH, 8, 8, 1500, 1500, False, 64),
             "whisper_dec": (W_TRAIN_BATCH, 8, 8, W_TRAIN_SEQ, W_TRAIN_SEQ,
-                            True),
-            "whisper_cross": (W_TRAIN_BATCH, 8, 8, W_TRAIN_SEQ, 1500, False)}
+                            True, 64),
+            "whisper_cross": (W_TRAIN_BATCH, 8, 8, W_TRAIN_SEQ, 1500, False,
+                              64),
+            "mixtral_train": (TRAIN_BATCH, moe.num_heads, moe.num_kv_heads,
+                              TRAIN_SEQ, TRAIN_SEQ, True, moe.head_dim)}
 
 
 def measure_flash_bwd(cfg, dev, gen, timer, old=None):
-    """The flash backward at each of :func:`flash_bwd_cases` (d 64), q and
+    """The flash backward at each of :func:`flash_bwd_cases`, q and
     k as views of the packed q|k output where the attention is a
     self-attention (else projections of their own, as the cross
     attention's plain products give them), dO as the strided cotangent
@@ -1961,14 +2045,14 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
     (baseline_kernels), the earlier two-pass kernel at llama's training
     shape, held to the plain version, in turns with this one (baseline,
     new, new, baseline)."""
-    hd = cfg.head_dim
     bf16 = torch.bfloat16
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
     rows = []
-    for case, (bsz, h, hkv, sq, skv, causal) in flash_bwd_cases(cfg).items():
+    for case, (bsz, h, hkv, sq, skv, causal,
+               hd) in flash_bwd_cases(cfg).items():
         if sq == skv:
             qk = rnd(bsz, sq, (h + hkv) * hd)
             q = qk[..., : h * hd].reshape(bsz, sq, h, hd).transpose(1, 2)
@@ -1986,6 +2070,105 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
     return rows
 
 
+def flash_bwd_truth(args, causal):
+    """(dq, dk, dv) of the plain version in fp32 throughout: its inputs
+    upcast, so p and ds are not rounded to bf16 before their products."""
+    q, k, v, out, lse, do = args
+    f = lambda t: t.float()
+    return flash_attention_bwd_ref(f(q), f(k), f(v), f(out), lse, f(do),
+                                   causal=causal)
+
+
+# entries of one flash-backward gradient that the fp32 truth may decide
+# where the kernel and its plain version disagree: the most this script's
+# draws have shown on an H100 (llama's dq, 1 of 8.4M)
+TRUTH_TAIL = 1
+
+
+def dq_ds_ties(args, causal, ix, ulps: float = 8.0) -> list:
+    """The keys of dq entry ``ix``'s row whose ds (fp64, from the bf16
+    inputs and the saved lse) lies within ``ulps`` fp32 ulps of a midpoint
+    between two bf16 values, where two correct fp32 versions may round it
+    to other neighbours; each with the shift of the dq entry that the
+    other neighbour gives (one bf16 ulp of ds times k). [{key, ds, ulps
+    from the midpoint, shift}]."""
+    q, k, v, out, lse, do = args
+    b, hh, i, c = ix
+    h, hkv, d = q.shape[1], k.shape[1], q.shape[-1]
+    hk = hh // (h // hkv)
+    n = i + 1 if causal else k.shape[2]
+    f = torch.float64
+    kk, vv = k[b, hk, :n].to(f), v[b, hk, :n].to(f)
+    p = torch.exp(kk @ q[b, hh, i].to(f) * d ** -0.5 - lse[b, hh, i].to(f))
+    delta = (do[b, hh, i].to(f) * out[b, hh, i].to(f)).sum()
+    ds = p * (vv @ do[b, hh, i].to(f) - delta) * d ** -0.5
+    e = torch.floor(torch.log2(ds.abs().clamp_min(1e-30)))
+    ulp = torch.exp2(e - 7)                     # bf16: 8 significant bits
+    dist = (ds - (torch.floor(ds / ulp) + 0.5) * ulp).abs() / torch.exp2(
+        e - 23)                                 # in fp32 ulps
+    return [dict(key=j, ds=ds[j].item(), ulps=dist[j].item(),
+                 shift=(ulp[j] * kk[j, c]).item())
+            for j in (dist <= ulps).nonzero().flatten().tolist()]
+
+
+def check_close_to_truth(name, got, want, rtol, atol_frac, truth,
+                         ties=None):
+    """:func:`check_close` of a bf16 gradient against its plain version,
+    and, only where that fails, the fp32 truth (``truth()``) deciding by
+    a rule stated here. The two versions round ds to bf16 at the same
+    points but from other fp32 values (the kernel's exp is
+    ``ex2.approx``, its sums run in another order), so an unrounded ds
+    within a few fp32 ulps of a midpoint between two bf16 values rounds
+    apart; at an early causal row, whose dq sums a few keys, one such ds
+    times its k moves a small dq entry past the tolerance (on an H100,
+    llama's dq[0, 24, 9, 19]: row 9, ds at key 7 3 fp32 ulps above a
+    midpoint, the two 2^-10 x 2.34375 apart; the plain version itself is
+    outside the same tolerance of the truth at 11-47 entries of a
+    tensor). The rule: at most TRUTH_TAIL entries outside the tolerance
+    of the plain version, each within the same tolerance of the truth
+    (rtol |truth| + atol_frac x rms(truth)), and the whole tensor within
+    phase 6a's bound of the truth (its max distance at most 2x the plain
+    version's + 1e-3). ``ties`` (an index -> :func:`dq_ds_ties`) reports
+    each such entry's ds near a bf16 midpoint. Returns (max abs err
+    against the plain version, the tolerance's description, the entries
+    the truth decided)."""
+    try:
+        err, tol = check_close(name, got, want, rtol, atol_frac)
+        return err, tol, 0
+    except AssertionError:
+        if not torch.isfinite(got).all():
+            raise
+    g, w = got.float(), want.float()
+    atol = atol_frac * w.pow(2).mean().sqrt().item()
+    bad = (g - w).abs() > rtol * w.abs() + atol
+    t = truth().float()
+    t_atol = atol_frac * t.pow(2).mean().sqrt().item()
+    off = bad & ((g - t).abs() > rtol * t.abs() + t_atol)
+    plain_off = int(((w - t).abs() > rtol * t.abs() + t_atol).sum())
+    k_max, p_max = ((x - t).abs().max().item() for x in (g, w))
+    entries = [dict(index=ix, kernel=g[tuple(ix)].item(),
+                    plain=w[tuple(ix)].item(), truth=t[tuple(ix)].item(),
+                    **({} if ties is None else {"ties": ties(ix)}))
+               for ix in bad.nonzero()[:4].tolist()]
+    n_bad = int(bad.sum())
+    if n_bad > TRUTH_TAIL or off.any() or not k_max <= 2 * p_max + 1e-3:
+        raise AssertionError(
+            f"{name}: {n_bad} of {bad.numel()} elements outside rtol {rtol} "
+            f"+ atol {atol:.3g} of the plain version (the truth decides "
+            f"{TRUTH_TAIL} at most), {int(off.sum())} of them outside the "
+            f"same tolerance of the fp32 truth ({entries}); the kernel's max "
+            f"distance from the truth {k_max:.4g}, the plain version's "
+            f"{p_max:.4g}")
+    log(f"[kernel] {name}: {n_bad} of {bad.numel()} elements outside the "
+        f"tolerance of the plain version, within it of the fp32 truth "
+        f"({entries}); max distance from the truth {k_max:.4g}, the plain "
+        f"version's {p_max:.4g}; the plain version outside the same "
+        f"tolerance of the truth at {plain_off} entries")
+    return ((g - w).abs().max().item(),
+            f"rtol {rtol:g} + {atol_frac:g} x rms of the plain version, or "
+            f"of the fp32 truth at {TRUTH_TAIL} entry at most", n_bad)
+
+
 def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
     """One row of :func:`measure_flash_bwd`."""
     bsz, h, seq, hd = q.shape
@@ -1995,7 +2178,7 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
     opts = dict(causal=causal, window=None, logit_scale=None, softcap=None)
 
     def kernel():
-        return attn_bwd._launch(*args, **opts)
+        return attn_bwd.flash_attention_bwd(*args, **opts)
 
     qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
     doc = do.contiguous()
@@ -2020,10 +2203,13 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
     torch.cuda.synchronize()
     err = 0.0
     lib_err = {}
+    decided = {}
     for i, name in enumerate(("dq", "dk", "dv")):
         w_ = want[i]
-        e, tol = check_close(f"flash_attention_bwd[{case}][{name}]", got[i],
-                             w_, 2e-2, 2e-2)
+        e, tol, decided[name] = check_close_to_truth(
+            f"flash_attention_bwd[{case}][{name}]", got[i], w_, 2e-2, 2e-2,
+            lambda i=i: flash_bwd_truth(args, causal)[i],
+            (lambda ix: dq_ds_ties(args, causal, ix)) if i == 0 else None)
         err = max(err, e)
         if old_got is not None:   # the baseline computes the same function
             check_close(f"baseline flash_attention_bwd[{name}]", old_got[i],
@@ -2057,7 +2243,8 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
     run = attn_bwd.FlashBwdLaunch(*args, **opts)
     row = dict(
         case=case, shape=[bsz, h, hkv, seq, skv, hd], causal=causal,
-        max_abs_err=err, tolerance=tol, ms=timer.ms(kernel),
+        max_abs_err=err, tolerance=tol, decided_by_truth=decided,
+        ms=timer.ms(kernel),
         plain_ms=timer.ms(lambda: flash_attention_bwd_ref(*args,
                                                           causal=causal)),
         library_ms=timer.ms(library, stream=lib_stream),
@@ -2867,11 +3054,17 @@ def run_grad_check(dev) -> dict:
 
 
 def train_curve(cfg, mode, dtype, dev, steps: int = TRAIN_STEPS,
-                qkv_plan: str = "rope_fused", **loop_kw) -> dict:
+                qkv_plan: str = "rope_fused", trained: bool = False,
+                **loop_kw) -> dict:
     """``steps`` steps of train_loop from seed 0 on the ported data, on the
-    schedule of a TRAIN_STEPS-step run; ``loop_kw`` to train_loop."""
+    schedule of a TRAIN_STEPS-step run; with ``trained`` from the seeded
+    weights at a trained model's scale (``trained_scale``); ``loop_kw`` to
+    train_loop."""
     model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
                         mode=mode, device=dev, qkv_plan=qkv_plan)
+    if trained:
+        loop_kw["params"] = trained_scale(
+            model, model.init(seed=0, dtype=cfg.param_dtype))
     opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
     data = train_data(cfg, dev)
     torch.cuda.synchronize()
@@ -4049,6 +4242,353 @@ def run_moe(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: mixtral-8x7b trained at published width
+# ---------------------------------------------------------------------------
+
+def expected_moe_train_launches(cfg, steps: int) -> dict:
+    """Per layer and step of an MoE block under remat_policy='full': the
+    forward's fused GEMMs, q|k and v and each expert's up and down
+    (2 + 2E), again in the backward's recompute; for each of them its
+    backward's operand pass, dA and dB; the flash forward twice and the
+    flash backward's two launches (the main kernel and the dq
+    conversion)."""
+    n = cfg.num_layers * steps
+    g = 2 + 2 * cfg.moe.num_experts
+    return {**no_launches(), "gemm_fused": 2 * g * n,
+            "flash_attention_fwd": 2 * n, "gemm_bwd_g": g * n,
+            "gemm_bwd_da": g * n, "gemm_bwd_db": g * n,
+            "flash_attention_bwd": 2 * n}
+
+
+def moe_train_cfg():
+    return dataclasses.replace(get_config(MOE_ARCH),
+                               num_layers=MOE_TRAIN_LAYERS)
+
+
+def run_moe_grad_check(dev) -> dict:
+    """Phase 13a: per-leaf grads of lm_loss, its load-balancing term
+    included, at mixtral-8x7b's published width cut to MOE_TRAIN_LAYERS,
+    weights at a trained model's scale: kernel mode against the fp32 truth
+    within 2x the plain bf16 path's distance + 1e-3 (phase 6a's bound), the
+    plain paths routed as the kernel path (``routed``: its forward and the
+    recompute's choices replayed in order); the fp32 router's
+    disagreement share through ``check_routing``."""
+    cfg = moe_train_cfg()
+    batch = next(train_data(cfg, dev))
+    route, flips = [], []
+
+    def grads(mode, dtype, ctx):
+        model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
+                            mode=mode, device=dev)
+        params = tree_map(lambda t: t.requires_grad_(), trained_scale(
+            model, model.init(seed=0, dtype=cfg.param_dtype)))
+        kernels.reset_launch_counts()
+        with ctx:
+            loss, metrics, g = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        named = {path: x.float() for (path, _), x
+                 in zip(named_leaves(params), g)}
+        return (float(loss), float(metrics["aux"]), named,
+                kernels.launch_counts())
+
+    t0 = time.perf_counter()
+    k_loss, k_aux, kern, counts = grads("kernel", "bfloat16",
+                                        routed(record=route))
+    want = expected_moe_train_launches(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"[13a] launches {counts}; one step of "
+                             f"{cfg.num_layers} MoE layers makes {want}")
+    p_loss, p_aux, plain, _ = grads("reference", "bfloat16",
+                                    routed(replay=route))
+    t_loss, t_aux, truth, _ = grads("reference", "float32",
+                                    routed(replay=route, flips=flips))
+    routing = check_routing("13a", route, flips)
+    worst, per_leaf = 0.0, {}
+    for path, t_ in truth.items():
+        k_, p_ = kern[path], plain[path]
+        k_err = (k_ - t_).abs().max().item()
+        p_err = (p_ - t_).abs().max().item()
+        per_leaf[path] = {"kernel_err": k_err, "plain_err": p_err,
+                          "truth_max": t_.abs().max().item()}
+        if not k_err <= 2.0 * p_err + 1e-3:
+            raise AssertionError(f"[13a] {path}: kernel-mode grad {k_err:.4g} "
+                                 f"from fp32, plain bf16 {p_err:.4g}")
+        worst = max(worst, k_err / (2.0 * p_err + 1e-3))
+    del kern, plain, truth
+    log(f"[13a] {MOE_ARCH} at published width, {cfg.num_layers} layer(s), "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, weights at std "
+        f"fan_in^-1/2, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: loss (aux) kernel "
+        f"{k_loss:.5f} ({k_aux:.5f}), plain bf16 {p_loss:.5f} ({p_aux:.5f}), "
+        f"fp32 {t_loss:.5f} ({t_aux:.5f}); every one of {len(per_leaf)} "
+        f"leaves' kernel-mode grad error within its bound (2 x plain bf16 "
+        f"error + 1e-3), at most {worst:.3f} of it; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"losses": {"kernel": k_loss, "plain": p_loss, "truth": t_loss},
+            "aux": {"kernel": k_aux, "plain": p_aux, "truth": t_aux},
+            "launches": counts, "bound_use": worst, "routing": routing,
+            "leaves": per_leaf}
+
+
+def run_moe_training(dev) -> dict:
+    """Phase 13b: MOE_TRAIN_STEPS steps of train_loop at 13a's config in
+    kernel mode (launches exact), then the plain bf16 and fp32 curves of
+    the same steps; the step time (median after the first), tokens/s, the
+    peak memory and one traced step's busy share."""
+    cfg = moe_train_cfg()
+    t0 = time.perf_counter()
+    kern = train_curve(cfg, "kernel", "bfloat16", dev, steps=MOE_TRAIN_STEPS,
+                       trained=True)
+    want = expected_moe_train_launches(cfg, MOE_TRAIN_STEPS)
+    losses = kern["losses"]
+    step_s = statistics.median(kern["step_seconds"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[13b] {MOE_ARCH}, {cfg.num_layers} layer(s), remat "
+        f"{cfg.remat_policy!r}, {MOE_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in kernel mode: losses "
+        f"{[round(x, 4) for x in losses]}; launches {kern['launches']}")
+    if kern["launches"] != want:
+        raise AssertionError(f"[13b] launches {kern['launches']}; "
+                             f"{MOE_TRAIN_STEPS} steps of the model make "
+                             f"{want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[13b] losses {losses}: not finite and falling")
+    log(f"[13b] step time {step_s:.4f} s (median of the steps after the "
+        f"first; step seconds {[round(x, 4) for x in kern['step_seconds']]}"
+        f"), {tokens / step_s:.1f} tokens/s; peak device memory "
+        f"{kern['peak_memory_gb']:.2f} GB")
+    plain = train_curve(cfg, "reference", "bfloat16", dev,
+                        steps=MOE_TRAIN_STEPS, trained=True)
+    truth = train_curve(cfg, "reference", "float32", dev,
+                        steps=MOE_TRAIN_STEPS, trained=True)
+    k_err = float(np.abs(np.subtract(losses, truth["losses"])).max())
+    p_err = float(np.abs(np.subtract(plain["losses"], truth["losses"])).max())
+    log(f"[13b] plain bf16 losses {[round(x, 4) for x in plain['losses']]} "
+        f"(median step {statistics.median(plain['step_seconds'][1:]):.4f} s, "
+        f"peak {plain['peak_memory_gb']:.2f} GB); fp32 "
+        f"{[round(x, 4) for x in truth['losses']]}; the kernel curve is "
+        f"{k_err:.4g} from fp32, the plain bf16 curve {p_err:.4g} (bound "
+        f"2.5 x {p_err:.4g} + 0.05)")
+    if not k_err <= 2.5 * p_err + 0.05:
+        raise AssertionError(f"[13b] kernel curve {k_err:.4g} from the fp32 "
+                             f"truth, plain bf16 {p_err:.4g}")
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_step(build_model(cfg, mode="kernel", device=dev),
+                        TRAIN_BATCH, TRAIN_SEQ, warmup=1)
+    tr = prof["traced"]
+    log(f"[13b] one traced step: device busy {tr['device_busy_ms']:.1f} of "
+        f"{tr['traced_wall_ms']:.1f} ms ({tr['device_busy_share']:.3f}); "
+        f"device ms by family "
+        f"{ {k: round(v, 2) for k, v in tr['device_ms_by_family'].items()} }"
+        f"; untraced step {prof['step_s']:.4f} s; phase 13b in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": kern["launches"], "kernel": kern, "plain": plain,
+            "truth": truth, "curve_err": {"kernel": k_err, "plain": p_err},
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "peak_memory_gb": kern["peak_memory_gb"], "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: telemetry
+# ---------------------------------------------------------------------------
+
+def check_journal(tag, cap, launches, replayed) -> dict:
+    """Every kernel's journal events (``kernels.journal_counts``) equal its
+    launch count less the launches CUDA graph replays added; every event of
+    a timed capture carries its wall time. Returns the events by kernel."""
+    events = kernels.journal_counts(cap)
+    want = {k: launches[k] - replayed[k] for k in launches}
+    if events != want:
+        raise AssertionError(f"[{tag}] journal events {events}; launches "
+                             f"{launches} less replayed {replayed} are "
+                             f"{want}")
+    if cap.timing and not all(e.wall_s and e.wall_s > 0
+                              for e in cap.launches):
+        raise AssertionError(f"[{tag}] a timed capture's event has no wall "
+                             "time")
+    return events
+
+
+def trace_check(tag, caps: dict, out_dir=None) -> dict:
+    """Export each capture's Chrome trace and counters (TRACE_<key>.json,
+    COUNTERS_<key>.json) into ``out_dir`` (else a temporary directory,
+    removed after) and run ``tools/trace_check.py`` on them as a
+    subprocess; raises unless it passes. Returns the files' sizes."""
+    tmp = out_dir is None
+    where = tempfile.mkdtemp() if tmp else out_dir
+    os.makedirs(where, exist_ok=True)
+    try:
+        sizes = {}
+        for key, cap in caps.items():
+            for path in (obs.export_chrome_trace(
+                    cap, os.path.join(where, f"TRACE_{key}.json")),
+                    obs.export_counters(
+                        cap, os.path.join(where, f"COUNTERS_{key}.json"))):
+                sizes[os.path.basename(path)] = os.path.getsize(path)
+        tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tools", "trace_check.py")
+        res = subprocess.run([sys.executable, tool, where],
+                             capture_output=True, text=True, timeout=120)
+        if res.returncode != 0:
+            raise AssertionError(f"[{tag}] tools/trace_check.py failed "
+                                 f"({res.returncode}): {res.stderr[-2000:]}")
+        log(f"[{tag}] {res.stdout.strip()}; files {sizes}")
+        return sizes
+    finally:
+        if tmp:
+            shutil.rmtree(where, ignore_errors=True)
+
+
+def captured_runs(run, label: str, rounds: int = 2) -> dict:
+    """``run()`` (-> (seconds, result)) once to warm up, then ``rounds``
+    rounds of: without a capture, under ``obs.capture(timing=True)``, under
+    an untimed capture; each from zeroed launch counts. Returns {kind:
+    [seconds]} for "plain", "timed" and "untimed", "last": the last timed
+    run's (seconds, result, recorder, launches, replayed), and "cost_s"
+    each capture's mean seconds less the uncaptured mean."""
+    run()
+    out = {"plain": [], "timed": [], "untimed": []}
+    for _ in range(rounds):
+        for kind in ("plain", "timed", "untimed"):
+            ctx = (obs.capture(timing=True) if kind == "timed"
+                   else obs.capture() if kind == "untimed"
+                   else contextlib.nullcontext())
+            kernels.reset_launch_counts()
+            with ctx as cap:
+                sec, result = run()
+            torch.cuda.synchronize()
+            out[kind].append(sec)
+            if kind == "timed":
+                out["last"] = (sec, result, cap, kernels.launch_counts(),
+                               kernels.replayed_launch_counts())
+    base = statistics.mean(out["plain"])
+    out["cost_s"] = {"timed": statistics.mean(out["timed"]) - base,
+                     "untimed": statistics.mean(out["untimed"]) - base,
+                     "plain": base}
+    log(f"[14] {label}, seconds in turns: without a capture "
+        f"{[round(x, 4) for x in out['plain']]}, under a timed capture "
+        f"{[round(x, 4) for x in out['timed']]}, an untimed one "
+        f"{[round(x, 4) for x in out['untimed']]}")
+    return out
+
+
+def backward_thread_turns(run, rounds: int = 2) -> dict:
+    """``run()`` (-> (seconds, result)) without a capture, the backward on
+    autograd's device thread (``train.trainer._grad`` swapped for a bare
+    ``torch.autograd.grad``) and on the calling thread as ``_grad`` runs
+    it, in turns (device, calling, calling, device) ``rounds`` times:
+    {"device": [seconds], "calling": [seconds]}."""
+    out = {"device": [], "calling": []}
+    for kind in ("device", "calling", "calling", "device") * rounds:
+        ctx = (mock.patch.object(trainer_mod, "_grad",
+                                 lambda loss, wrt: torch.autograd.grad(
+                                     loss, wrt))
+               if kind == "device" else contextlib.nullcontext())
+        with ctx:
+            out[kind].append(run()[0])
+    log(f"[14] 6b training step, seconds in turns without a capture: the "
+        f"backward on autograd's device thread "
+        f"{[round(x, 4) for x in out['device']]} (median "
+        f"{statistics.median(out['device']):.4f}), on the calling thread "
+        f"{[round(x, 4) for x in out['calling']]} (median "
+        f"{statistics.median(out['calling']):.4f})")
+    return out
+
+
+def run_telemetry(dev, out_dir=None) -> dict:
+    """Phase 14: llama-1b in kernel mode, 5a's serving pass (a fresh
+    PagedEngine each run, so each captures its own decode graphs) and one
+    6b training step (``train_loop``), each through ``captured_runs``; the
+    last timed capture's journal held to the launch counts
+    (``check_journal``), its counters to the engine's attributes and the
+    trainer's steps, its exports through ``trace_check``; the step with
+    the backward on autograd's device thread against the calling thread
+    (``backward_thread_turns``)."""
+    t_phase = time.perf_counter()
+    cfg = get_config("llama-1b")
+    model = build_model(cfg, mode="kernel", device=dev)
+    params = model.init(seed=0)
+    kw = dict(batch_slots=SLOTS, page_size=PAGE, max_pages_per_seq=MAX_PAGES,
+              **PHASES["5a"])
+    def serve():
+        engine = PagedEngine(model, params, **kw)
+        for r in paged_requests(cfg, "5a"):
+            engine.submit(r)
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, engine
+
+    runs = captured_runs(serve, "5a serving pass")
+    _, engine, cap, launches, replayed = runs["last"]
+    events = check_journal("14 serve", cap, launches, replayed)
+    rep = engine.report()
+    attrs = {"engine.admissions": engine.admissions,
+             "engine.tokens_generated": engine.tokens_generated,
+             "engine.preemptions": engine.preemptions,
+             "engine.peak_pages_in_use": engine.peak_pages_in_use,
+             **{f"engine.bucket_lru.{k}": v
+                for k, v in rep["bucket_lru"].items()}}
+    got = {k: cap.counter(k) for k in attrs}
+    spans = {n: sum(1 for s in cap.spans if s.name == n)
+             for n in ("engine.run", "engine.prefill", "engine.decode_step")}
+    if got != attrs or spans != {"engine.run": 1,
+                                 "engine.prefill": engine.prefills,
+                                 "engine.decode_step": engine.decode_steps}:
+        raise AssertionError(f"[14 serve] counters {got}, spans {spans}; the "
+                             f"engine's {attrs}, {engine.prefills} prefills, "
+                             f"{engine.decode_steps} decode steps")
+    serve_summary = cap.summary()
+    log(f"[14 serve] journal events {events}: the launches less the "
+        f"replayed {replayed}; counters equal the engine's attributes; "
+        f"spans {spans}; summary {json.dumps(serve_summary)}")
+    serve = {"launches": launches, "replayed": replayed, "events": events,
+             "summary": serve_summary, "capture_cost_s": runs["cost_s"]}
+    serve_cap = cap
+    del runs, engine
+
+    data = train_data(cfg, dev)
+    opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
+
+    def train():
+        res = train_loop(model, data, 1, opt, seed=0, log_every=0)
+        sec = res.step_seconds[0]
+        del res
+        return sec, None
+
+    runs = captured_runs(train, "6b training step")
+    _, _, cap, launches, replayed = runs["last"]
+    events = check_journal("14 train", cap, launches, replayed)
+    want = expected_train_launches(cfg, 1)
+    steps = [s for s in cap.spans if s.name == "trainer.step"]
+    if launches != want or cap.counter("trainer.steps") != 1 \
+            or len(steps) != 1:
+        raise AssertionError(f"[14 train] launches {launches} (want {want}), "
+                             f"trainer.steps {cap.counter('trainer.steps')}, "
+                             f"{len(steps)} trainer.step spans")
+    train_summary = cap.summary()
+    log(f"[14 train] journal events {events} equal the launches; "
+        f"trainer.steps 1, one trainer.step span of {steps[0].dur:.4f} s; "
+        f"summary {json.dumps(train_summary)}")
+    sizes = trace_check("14", {"serve": serve_cap, "train": cap}, out_dir)
+    threads = backward_thread_turns(train)
+    train = {"launches": launches, "events": events,
+             "summary": train_summary, "capture_cost_s": runs["cost_s"],
+             "backward_thread_s": threads}
+    del runs, model, params, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[14] capture cost (timed, untimed) over the run without one: "
+        f"serving {serve['capture_cost_s']['timed']:.4f} s, "
+        f"{serve['capture_cost_s']['untimed']:.4f} s of "
+        f"{serve['capture_cost_s']['plain']:.4f} s; training step "
+        f"{train['capture_cost_s']['timed']:.4f} s, "
+        f"{train['capture_cost_s']['untimed']:.4f} s of "
+        f"{train['capture_cost_s']['plain']:.4f} s; phase 14 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"14 serve": serve, "14 train": train, "14 trace_files": sizes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4166,6 +4706,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phases.update(run_moe(dev))
     log(f"[done] phase 12 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["13a"] = run_moe_grad_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["13b"] = run_moe_training(dev)
+    log(f"[done] phase 13 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(run_telemetry(
+        dev, os.path.join(args.out, "traces") if args.out else None))
+    log(f"[done] phase 14 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -4178,7 +4730,8 @@ def main(argv=None) -> int:
             "launches": sum(phases[p]["launches"][name]
                             for p in MAIN_PATH_PHASES + DENSE_PHASES
                             + ENCODER_PHASES + tuple(SPEC_RUNS)
-                            + LEFTOVER_PHASES + MOE_PHASES),
+                            + LEFTOVER_PHASES + MOE_PHASES
+                            + MOE_TRAIN_PHASES + TELEMETRY_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

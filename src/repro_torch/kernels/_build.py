@@ -14,6 +14,10 @@ Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :meth:`CudaKernel.check` turns a
 non-zero code into an exception, so a refused launch (too many threads, too
 much shared memory) never passes silently.
+
+The op wrappers journal each launch into ``repro_torch.obs`` from their
+Python entry (:func:`entry_clock`, :func:`journal`), on the CPU too, where
+the entry runs the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -23,8 +27,11 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 import torch
+
+from repro_torch import obs
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
@@ -133,3 +140,28 @@ def build_all(kernels) -> dict:
     for k in kernels:
         k.fn()
     return logs
+
+
+def entry_clock():
+    """The host clock at a kernel entry under a timed capture
+    (``obs.capture(timing=True)``), else None."""
+    return time.perf_counter() if obs.timing_enabled() else None
+
+
+def journal(op: str, device, t0, **fields) -> None:
+    """Journal one launch of ``op`` on ``device`` (the caller checks
+    ``obs.enabled()`` first, so nothing is built when no capture is
+    active). With ``t0`` from :func:`entry_clock`, ``wall_s`` is the host
+    time since, ended by a synchronise of the card. A launch recorded into
+    a CUDA graph is not journaled: the capture runs nothing (its counts are
+    taken back, ``serve.engine.DecodeGraph``), and a replay runs no
+    Python."""
+    cuda = device.type == "cuda"
+    if cuda and torch.cuda.is_current_stream_capturing():
+        return
+    wall = None
+    if t0 is not None:
+        if cuda:
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    obs.launch(op, wall_s=wall, **fields)

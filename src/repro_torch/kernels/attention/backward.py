@@ -24,8 +24,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .._build import CudaKernel
-from .epilogue import cap_logits
+from repro_torch import obs
+from .._build import CudaKernel, entry_clock, journal
+from .epilogue import cap_logits, describe_chain
 from .ops import HEAD_DIMS, check_tma_view, visible_pairs
 from .ref import MASK_VALUE
 
@@ -166,15 +167,39 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
                         window: int | None = None,
                         logit_scale: float | None = None, softcap=None):
     """(dq (B, H, Sq, D), dk and dv (B, Hkv, Skv, D)) from the forward's
-    q, k, v, out and lse and the output's cotangent ``do``."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
-                                       window=window, logit_scale=logit_scale,
-                                       softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention backward: unsupported device {q.device}")
-    return _launch(q, k, v, out, lse, do, causal=causal, window=window,
-                   logit_scale=logit_scale, softcap=softcap)
+    q, k, v, out and lse and the output's cotangent ``do``. Journaled as
+    ``obs`` op "attention_bwd" (the main kernel) and, as the reference has
+    no event for it, "flash_attention_bwd" variant "dq_convert" (the dq
+    conversion); the CPU's plain version journals both."""
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention backward: unsupported device {dev}")
+    args = dict(causal=causal, window=window, logit_scale=logit_scale,
+                softcap=softcap)
+    work = None
+    if obs.enabled():
+        b, h, sq, d = q.shape
+        work = backward_work(b, h, k.shape[1], sq, k.shape[2], d,
+                             causal=causal, window=window)
+    t0 = entry_clock()
+    if dev.type == "cuda":
+        run = FlashBwdLaunch(q, k, v, out, lse, do, **args)
+        run.main()
+        grads = run.dq, run.dk, run.dv
+    else:
+        grads = flash_attention_bwd_ref(q, k, v, out, lse, do, **args)
+    if obs.enabled():
+        journal("attention_bwd", dev, t0, variant="causal" if causal else "",
+                chain=describe_chain(softcap), dma_bytes=work["main_bytes"],
+                flops=int(10 * b * h * sq * k.shape[2] * d
+                          * (0.5 if causal else 1.0)))
+    t0 = entry_clock()
+    if dev.type == "cuda":
+        run.convert()
+    if obs.enabled():
+        journal("flash_attention_bwd", dev, t0, variant="dq_convert",
+                dma_bytes=work["convert_bytes"])
+    return grads
 
 
 class FlashBwdLaunch:
@@ -253,13 +278,3 @@ class FlashBwdLaunch:
 
     def convert(self) -> None:
         self._run(1)
-
-
-def _launch(q, k, v, out, lse, do, *, causal, window, logit_scale, softcap):
-    """One backward on the card: the main kernel, then the dq conversion
-    (:class:`FlashBwdLaunch` times them apart)."""
-    run = FlashBwdLaunch(q, k, v, out, lse, do, causal=causal, window=window,
-                         logit_scale=logit_scale, softcap=softcap)
-    run.main()
-    run.convert()
-    return run.dq, run.dk, run.dv

@@ -21,9 +21,10 @@ import ctypes
 
 import torch
 
-from .._build import CudaKernel
+from repro_torch import obs
+from .._build import CudaKernel, entry_clock, journal
 from ..gemm.ops import sm_count
-from .epilogue import cap_logits
+from .epilogue import cap_logits, describe_chain
 from .ref import MASK_VALUE, decode_ref, ring_positions
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -200,7 +201,8 @@ def flash_decode(q, k, v, lengths, *, window: int | None = None,
                  logit_scale: float | None = None, softcap=None, sinks=None):
     """Split-KV decode: q (B, Hkv, G, D) group-packed queries; k/v
     (B, Hkv, S, D); lengths (B,) int32 tokens written so far (ring semantics
-    when lengths > S). Returns (B, Hkv, G, D) in q's type."""
+    when lengths > S). Returns (B, Hkv, G, D) in q's type. Journaled as
+    ``obs`` op "attention_decode"."""
     b, hkv, g, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, hkv) or k.shape[3] != d:
         raise ValueError(f"attention_decode: q {tuple(q.shape)} and k/v "
@@ -212,16 +214,22 @@ def flash_decode(q, k, v, lengths, *, window: int | None = None,
         raise ValueError(f"attention_decode: window must be positive, "
                          f"got {window}")
     scale = logit_scale if logit_scale is not None else d ** -0.5
+    t0 = entry_clock()
     if q.device.type == "cuda":
-        return _launch(q, k, v, lengths, window=window, scale=scale,
-                       softcap=softcap, sinks=sinks)
-    if q.device.type != "cpu":
+        out = _launch(q, k, v, lengths, window=window, scale=scale,
+                      softcap=softcap, sinks=sinks)
+    elif q.device.type == "cpu":
+        o, m, l = decode_partials_ref(q, k, v, lengths, window=window,
+                                      scale=scale, softcap=softcap)
+        out = combine_splits(o, m, l, sinks=None if sinks is None else
+                             sinks.float().reshape(hkv, 1, g)).to(q.dtype)
+    else:
         raise ValueError(f"attention_decode: unsupported device {q.device}")
-    o, m, l = decode_partials_ref(q, k, v, lengths, window=window,
-                                  scale=scale, softcap=softcap)
-    if sinks is not None:
-        sinks = sinks.float().reshape(hkv, 1, g)
-    return combine_splits(o, m, l, sinks=sinks).to(q.dtype)
+    if obs.enabled():
+        journal("attention_decode", q.device, t0,
+                chain=describe_chain(softcap, sinks),
+                flops=4 * b * hkv * g * k.shape[2] * d)
+    return out
 
 
 def attention_decode(q, k, v, lengths, *, window: int | None = None,
@@ -328,7 +336,8 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
     physical page ids (0 = the null page); lengths: (B,) int32 tokens
     written so far, the T query tokens included: row t attends through
     position ``lengths - T + t``. ``sinks`` (Hkv * R,) per row. Returns
-    (B, Hkv, R, D) in q's type.
+    (B, Hkv, R, D) in q's type. Journaled as ``obs`` op "attention_decode",
+    variant "paged".
     """
     b, hkv, rows, d = q.shape
     if k_pages.shape != v_pages.shape or k_pages.shape[1] != hkv \
@@ -348,19 +357,26 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
         raise ValueError(f"attention_decode_paged: window must be positive, "
                          f"got {window}")
     scale = logit_scale if logit_scale is not None else d ** -0.5
+    t0 = entry_clock()
     if q.device.type == "cuda":
-        return _launch_paged(q, k_pages, v_pages, page_table, lengths,
-                             window=window, scale=scale, softcap=softcap,
-                             q_tokens=q_tokens, sinks=sinks)
-    if q.device.type != "cpu":
+        out = _launch_paged(q, k_pages, v_pages, page_table, lengths,
+                            window=window, scale=scale, softcap=softcap,
+                            q_tokens=q_tokens, sinks=sinks)
+    elif q.device.type == "cpu":
+        o, m, l = decode_partials_paged_ref(
+            q, k_pages, v_pages, page_table, lengths, window=window,
+            scale=scale, softcap=softcap, q_tokens=q_tokens)
+        out = combine_splits(o, m, l, sinks=None if sinks is None else
+                             sinks.float().reshape(hkv, 1, rows)).to(q.dtype)
+    else:
         raise ValueError(f"attention_decode_paged: unsupported device "
                          f"{q.device}")
-    o, m, l = decode_partials_paged_ref(
-        q, k_pages, v_pages, page_table, lengths, window=window,
-        scale=scale, softcap=softcap, q_tokens=q_tokens)
-    if sinks is not None:
-        sinks = sinks.float().reshape(hkv, 1, rows)
-    return combine_splits(o, m, l, sinks=sinks).to(q.dtype)
+    if obs.enabled():
+        journal("attention_decode", q.device, t0, variant="paged",
+                chain=describe_chain(softcap, sinks),
+                flops=4 * b * hkv * rows * page_table.shape[1]
+                * k_pages.shape[2] * d)
+    return out
 
 
 def attention_decode_paged(q, k_pages, v_pages, page_table, lengths, *,

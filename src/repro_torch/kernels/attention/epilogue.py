@@ -1,5 +1,7 @@
 """Attention-side chain stages shared by the flash kernels' plain versions
-and the oracles: the tanh logit soft cap and the online-softmax store."""
+and the oracles: the tanh logit soft cap and the online-softmax store, and
+the chain's tag in the launch journal (the reference's
+``AttnEpilogue.describe``)."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +27,15 @@ def softmax_finalize(acc, m, l, sink=None):
         return acc * (alpha / l_tot), m_tot + torch.log(l_tot)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return acc / l_safe, m + torch.log(l_safe)
+
+
+def describe_chain(softcap=None, sinks=None) -> str:
+    """The attention chain's journal tag, as the reference's
+    ``AttnEpilogue.describe()``: 'none', 'softcap30', 'sink' or
+    'softcap30+sink'."""
+    parts = []
+    if softcap:
+        parts.append(f"softcap{float(softcap):g}")
+    if sinks is not None:
+        parts.append("sink")
+    return "+".join(parts) or "none"

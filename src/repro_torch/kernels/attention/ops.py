@@ -20,8 +20,9 @@ import ctypes
 
 import torch
 
-from .._build import CudaKernel
-from .epilogue import cap_logits
+from repro_torch import obs
+from .._build import CudaKernel, entry_clock, journal
+from .epilogue import cap_logits, describe_chain
 from .ref import MASK_VALUE
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -165,21 +166,32 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = False,
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         window: int | None = None,
                         logit_scale: float | None = None, softcap=None):
-    """Returns (out (B, H, Sq, D) in q's type, lse (B, H, Sq) fp32)."""
+    """Returns (out (B, H, Sq, D) in q's type, lse (B, H, Sq) fp32).
+    Journaled as ``obs`` op "attention_fwd"."""
     if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[3] != q.shape[3] or q.shape[1] % k.shape[1]:
         raise ValueError(f"attention: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)}/{tuple(v.shape)} do not match")
     if window is not None and window <= 0:
         raise ValueError(f"attention: window must be positive, got {window}")
-    if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
-                                       logit_scale=logit_scale,
-                                       softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: unsupported device {q.device}")
-    return _launch(q, k, v, causal=causal, window=window,
-                   logit_scale=logit_scale, softcap=softcap)
+    t0 = entry_clock()
+    run = flash_attention_fwd_ref if q.device.type == "cpu" else _launch
+    out = run(q, k, v, causal=causal, window=window, logit_scale=logit_scale,
+              softcap=softcap)
+    if obs.enabled():
+        b, h, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        journal("attention_fwd", q.device, t0,
+                variant="windowed" if window else ("causal" if causal
+                                                   else ""),
+                chain=describe_chain(softcap),
+                dma_bytes=forward_work(b, h, hkv, sq, skv, d, causal=causal,
+                                       window=window)["bytes"],
+                flops=int(4 * b * h * sq * skv * d
+                          * (0.5 if causal else 1.0)))
+    return out
 
 
 def attention(q, k, v, *, causal: bool = False, window: int | None = None,

@@ -8,6 +8,8 @@ backward, as the reference's has none.
 """
 from __future__ import annotations
 
+from repro_torch import obs
+from .._build import entry_clock, journal
 from .kernel import fused_norm_launch
 from .ref import fused_dropout_residual_layernorm_ref
 
@@ -16,7 +18,8 @@ def dropout_residual_layernorm(x, residual, weight, bias, seed=0, *,
                                dropout_p: float = 0.0, eps: float = 1e-5):
     """x, residual: (rows, d); weight/bias: (d,); ``seed`` an int32 (a
     negative one wraps to uint32, as in the reference's kernel). Returns
-    (normed, new_residual) in x's type."""
+    (normed, new_residual) in x's type. Journaled as ``obs`` op
+    "fused_norm"."""
     if x.dim() != 2 or residual.shape != x.shape \
             or weight.shape != x.shape[1:] or bias.shape != x.shape[1:]:
         raise ValueError(f"dropout_residual_layernorm: x {tuple(x.shape)}, "
@@ -25,11 +28,16 @@ def dropout_residual_layernorm(x, residual, weight, bias, seed=0, *,
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_residual_layernorm: dropout_p {dropout_p} "
                          "not in [0, 1)")
+    t0 = entry_clock()
     if x.device.type == "cpu":
-        return fused_dropout_residual_layernorm_ref(
+        out = fused_dropout_residual_layernorm_ref(
             x, residual, weight, bias, seed, dropout_p=dropout_p, eps=eps)
-    if x.device.type != "cuda":
+    elif x.device.type == "cuda":
+        out = fused_norm_launch(x, residual, weight, bias, seed,
+                                dropout_p=dropout_p, eps=eps)
+    else:
         raise ValueError(f"dropout_residual_layernorm: unsupported device "
                          f"{x.device}")
-    return fused_norm_launch(x, residual, weight, bias, seed,
-                             dropout_p=dropout_p, eps=eps)
+    if obs.enabled():
+        journal("fused_norm", x.device, t0, flops=10 * x.numel())
+    return out

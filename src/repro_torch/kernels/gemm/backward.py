@@ -38,7 +38,8 @@ import ctypes
 
 import torch
 
-from .._build import CudaKernel
+from repro_torch import obs
+from .._build import CudaKernel, entry_clock, journal
 from .epilogue import Epilogue
 from .ops import (COLUMN_COST, TILE_ROWS, TILE_WIDTHS, chain_flags,
                   kernel_saves, require, sm_count)
@@ -253,22 +254,44 @@ def gemm_fused_bwd(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
     """The backward of ``gemm_fused``: ``(da, db, grads)`` with ``grads``
     keyed by operand name (b2, bias, residual, gamma, beta). ``rstd`` is
     the forward's row statistics and ``preacts`` its saved raw accumulators
-    (``ops.kernel_saves``)."""
+    (``ops.kernel_saves``). Journals its three launches as ``obs`` ops
+    "gemm_bwd_g" (the operand pass, which the reference has no event for),
+    "gemm_bwd_da" and "gemm_bwd_db"."""
     g = g.contiguous()
     kw = dict(epilogue=epilogue, prologue=prologue, b2=b2, bias=bias,
               scale=scale, sin=sin, cos=cos, gamma=gamma, beta=beta,
               rstd=rstd, preacts=preacts)
-    if a.device.type == "cpu":
-        da, dgamma, dbeta = gemm_bwd_da_ref(a, b, g, **kw)
-        db, db2, dbias = gemm_bwd_db_ref(a, b, g, **kw)
-    elif a.device.type == "cuda":
+    dev = a.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"gemm_fused_bwd: unsupported device {dev}")
+    m, k = a.shape
+    n = b.shape[1]
+    chain = (f"{prologue.describe()}|{epilogue.describe()}"
+             if obs.enabled() else None)
+    # the operand pass, dA and dB, each journaled as it ends; the CPU runs
+    # the plain versions of dA and dB (the operand pass's is inside them)
+    t0 = entry_clock()
+    if dev.type == "cuda":
         run = BwdLaunch(a, b, g, **kw)
         run.operand_pass()
+    if obs.enabled():
+        journal("gemm_bwd_g", dev, t0, variant="g", chain=chain)
+    t0 = entry_clock()
+    if dev.type == "cuda":
         da, dgamma, dbeta = run.da()
-        db, db2 = run.db()
-        dbias = run.dbias()
     else:
-        raise ValueError(f"gemm_fused_bwd: unsupported device {a.device}")
+        da, dgamma, dbeta = gemm_bwd_da_ref(a, b, g, **kw)
+    if obs.enabled():
+        journal("gemm_bwd_da", dev, t0, variant="da", chain=chain,
+                flops=2 * m * n * k)
+    t0 = entry_clock()
+    if dev.type == "cuda":
+        (db, db2), dbias = run.db(), run.dbias()
+    else:
+        db, db2, dbias = gemm_bwd_db_ref(a, b, g, **kw)
+    if obs.enabled():
+        journal("gemm_bwd_db", dev, t0, variant="db", chain=chain,
+                flops=(2 if epilogue.gate else 1) * 2 * m * n * k)
     grads = {"residual": g}
     for name, grad in (("b2", db2), ("bias", dbias), ("gamma", dgamma),
                        ("beta", dbeta)):

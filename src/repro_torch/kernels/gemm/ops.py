@@ -37,11 +37,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import threading
 from typing import Optional
 
 import torch
 
-from .._build import CudaKernel
+from repro_torch import obs
+from .._build import CudaKernel, entry_clock, journal
 from .epilogue import EPILOGUE_NONE, Epilogue
 from .prologue import PROLOGUE_NONE, Prologue
 from .ref import gemm_fused_ref, norm_rows_ref
@@ -258,7 +260,8 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
     (M, N);
     scale a scalar; sin/cos (M, head_dim) fp32 duplicated-halves tables.
     ``bwd_mode`` ("kernel" | "reference"; None: :func:`default_bwd_mode`)
-    picks the backward when autograd records the call.
+    picks the backward when autograd records the call. The launch is
+    journaled as ``obs`` op "gemm_fused" (:func:`_forward`).
     """
     provided = dict(b2=b2, bias=bias, residual=residual, scale=scale,
                     sin=sin, cos=cos)
@@ -295,11 +298,23 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
             epilogue, prologue, scale, out_dtype, bwd_mode))
     return _forward(a, b, epilogue, prologue, b2=b2, bias=bias,
                     residual=residual, scale=scale, sin=sin, cos=cos,
-                    gamma=gamma, beta=beta, out_dtype=out_dtype)[0]
+                    gamma=gamma, beta=beta, out_dtype=out_dtype,
+                    bwd_mode=bwd_mode)[0]
+
+
+class _OpRan(threading.local):
+    """Whether an implementation of the custom op (the plain one or the
+    kernel's) ran on this thread since :func:`_forward` cleared it: what
+    ``_forward`` journals by."""
+    ran = False
+
+
+_OP_RAN = _OpRan()
 
 
 def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
-             cos, gamma, out_dtype, beta=None, save_preact=False):
+             cos, gamma, out_dtype, beta=None, save_preact=False,
+             bwd_mode="kernel"):
     """(out, stats, preacts) through the custom op ``repro_torch::gemm_fused``:
     the kernel on the card, the plain version on the CPU. ``stats`` is the
     kernel's row statistics in fp32: rstd (M,) for rmsnorm, (2, M) mean and
@@ -307,15 +322,29 @@ def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
     plain backward recomputes them); ``preacts`` the raw accumulators
     rounded to A's type when ``save_preact`` (:func:`kernel_saves` of them),
     else (). The op is what a selective-checkpoint policy sees of the
-    launch (``models.lm._remat``'s "dots")."""
+    launch (``models.lm._remat``'s "dots").
+
+    Journaled as ``obs`` op "gemm_fused" (variant ``bwd_mode``) when the
+    op ran: not when a selective checkpoint's recompute hands back the
+    outputs it kept, nor under fake tensors. The event is recorded here,
+    before autograd saves anything, since a checkpoint's recompute stops
+    at the last tensor it needs to save."""
     if epilogue.scale_kind != "scalar" or prologue.precomputed_stats:
         raise NotImplementedError("gemm_fused kernel: row/col scales and "
                                   "precomputed statistics are not supported")
+    t0, _OP_RAN.ran = entry_clock(), False
     out, stats, preacts = torch.ops.repro_torch.gemm_fused(
         a, b, b2, bias, residual, gamma, beta, sin, cos,
         chain_flags(epilogue), epilogue.head_dim, prologue.norm, prologue.eps,
         None if scale is None else float(scale), out_dtype, save_preact)
+    if obs.enabled() and _OP_RAN.ran:
+        m, k = a.shape
+        n = b.shape[1]
+        journal("gemm_fused", a.device, t0, variant=bwd_mode,
+                chain=f"{prologue.describe()}|{epilogue.describe()}",
+                flops=(2 if epilogue.gate else 1) * 2 * m * n * k)
     return out, (stats if stats.numel() else None), tuple(preacts)
+
 
 
 def _chain_of(flags: int, head_dim: int, norm: str, eps, has_beta: bool):
@@ -343,6 +372,7 @@ def _gemm_fused_op(
                                     list[torch.Tensor]]:
     """The plain version (any device but CUDA): (out, an empty stats
     tensor, preacts)."""
+    _OP_RAN.ran = True
     epilogue, prologue = _chain_of(flags, head_dim, norm, eps,
                                    beta is not None)
     out, _, preacts = forward_ref(
@@ -356,6 +386,7 @@ def _gemm_fused_op(
 def _gemm_fused_cuda(a, b, b2, bias, residual, gamma, beta, sin, cos, flags,
                      head_dim, norm, eps, scale, out_dtype, save_preact):
     """The kernel: one launch (:func:`_launch`, which counts it)."""
+    _OP_RAN.ran = True
     epilogue, _ = _chain_of(flags, head_dim, norm, eps, beta is not None)
     out, stats, preacts = _launch(
         a, b, epilogue, b2=b2, bias=bias, residual=residual, scale=scale,
@@ -414,7 +445,8 @@ class _GemmFusedFn(torch.autograd.Function):
         out, stats, preacts = _forward(
             a, b, ep, spec.prologue, b2=b2, bias=bias, residual=residual,
             scale=spec.scale, sin=sin, cos=cos, gamma=gamma, beta=beta,
-            out_dtype=spec.out_dtype, save_preact=save)
+            out_dtype=spec.out_dtype, save_preact=save,
+            bwd_mode=spec.bwd_mode)
         ctx.spec = spec
         ctx.save_for_backward(a, b, b2, bias, residual, gamma, beta, sin,
                               cos, stats, *preacts)

@@ -11,16 +11,26 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
+from .._build import entry_clock, journal
 from .kernel import rope_launch
 from .ref import rope_ref
 
 
 def _rotate(x, sin, cos, sin_sign: float = 1.0):
+    """One rotation, journaled as ``obs`` op "rope" (variant "bwd" for the
+    backward's rotation by -theta)."""
+    t0 = entry_clock()
     if x.device.type == "cpu":
-        return rope_ref(x, sin if sin_sign > 0 else -sin, cos)
-    if x.device.type != "cuda":
+        out = rope_ref(x, sin if sin_sign > 0 else -sin, cos)
+    elif x.device.type == "cuda":
+        out = rope_launch(x, sin, cos, sin_sign=sin_sign)
+    else:
         raise ValueError(f"rope: unsupported device {x.device}")
-    return rope_launch(x, sin, cos, sin_sign=sin_sign)
+    if obs.enabled():
+        journal("rope", x.device, t0, variant="" if sin_sign > 0 else "bwd",
+                flops=6 * x.numel())
+    return out
 
 
 def rope(x, sin, cos):

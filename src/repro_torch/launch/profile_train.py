@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama-1b \\
       --batch 4 --seq 1024 --out DIR
   (also --arch bert-110m --batch 8 --seq 512; --arch whisper-base --batch 4
-  --seq 448; the training levers: --ce-chunk 256, --remat-policy dots|none)
+  --seq 448; --arch mixtral-8x7b --layers 1; the training levers:
+  --ce-chunk 256, --remat-policy dots|none)
 
 Builds the model in kernel mode with seeded random fp32 masters, runs two
 warm-up steps on the training launcher's data (the reference's synthetic
@@ -61,6 +62,9 @@ def main(argv=None) -> dict:
                     "random frames, --seq target tokens)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (mixtral-8x7b "
+                    "trains at 1 layer of published width on one card)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ce-chunk", type=int, default=None,
                     help="the chunked cross entropy over this many "
@@ -71,7 +75,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    levers = {"ce_chunk": args.ce_chunk, "remat_policy": args.remat_policy}
+    levers = {"ce_chunk": args.ce_chunk, "remat_policy": args.remat_policy,
+              "num_layers": args.layers}
     cfg = dataclasses.replace(cfg, **{k: v for k, v in levers.items()
                                       if v is not None})
     model = build_model(cfg, mode="kernel", device="cuda")

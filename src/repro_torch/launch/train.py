@@ -9,15 +9,20 @@ data, with the model in kernel mode.
       --steps 6 --batch 4 --seq 448
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \\
       --steps 200 --ckpt-dir ckpt/llama-1b --ckpt-every 50 --grad-compress
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
+      --layers 1 --steps 4 --batch 4 --seq 1024
 
 The decoders and bert-110m take the LM pipeline's batches
 (``data.DataIterator``), as the reference's launcher feeds every arch;
 whisper-base takes ``models.make_batch`` batches (random target tokens over
 random ``encoder_embeds`` (B, 1500, 512)), since that pipeline has no
-encoder embeddings. Runs on the CUDA card by default; ``--device cpu`` runs
-the kernels' plain versions on the CPU (with ``--tiny``: 2 layers, d_model
-128, 4/2 heads, d_ff 256, vocab 256, the width of the CPU tests; whisper's
-encoder 2 layers over 64 frames). Prints the reference launcher's
+encoder embeddings. ``--smoke`` takes an arch's smoke config (e.g.
+mixtral-8x7b's: 2 layers, d_model 64, 4 experts), ``--layers`` cuts the
+depth (mixtral-8x7b's published width trains at 1 layer on one 80 GB card).
+Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
+versions on the CPU (with ``--tiny``: 2 layers, d_model 128, 4/2 heads,
+d_ff 256, vocab 256, the width of the CPU tests; whisper's encoder 2 layers
+over 64 frames). Prints the reference launcher's
 ``[train] finished:`` line, then tokens/s (median host time of the steps
 after the first; tokens of the decoder's or encoder's sequence) and the
 peak device memory.
@@ -60,6 +65,10 @@ def main(argv=None):
     ap.add_argument("--tiny", action="store_true",
                     help="the CPU tests' width (2 layers, d_model 128; "
                     "whisper-base: 2 + 2 layers over 64 frames)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's smoke config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
@@ -80,9 +89,11 @@ def main(argv=None):
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
+    cfg = get_config(args.arch, smoke=args.smoke)
     if args.tiny:
         cfg = dataclasses.replace(cfg, **TINY)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.family == "encoder" and args.seq > cfg.max_seq_len:
         ap.error(f"--seq {args.seq}: {cfg.name} has {cfg.max_seq_len} "
                  "learned positions")

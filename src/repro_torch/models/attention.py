@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.attention import (attention, attention_decode,
                                            attention_decode_paged,
                                            attention_ref, decode_ref)
@@ -80,9 +81,12 @@ def _apply_rope(cfg, q, k, positions, mode: str):
     """Standalone RoPE on (B, H, S, hd) q/k at absolute ``positions`` (S,):
     the RoPE op (kernel) in 'kernel' mode for the 'half' style at S >= 128,
     else the plain rotation; 'partial' rotates the first half of each head,
-    'none' leaves q/k as they are."""
+    'none' leaves q/k as they are. A rotation counts as the ``obs``
+    counter "model.standalone_rope", kernel or plain, as in the
+    reference."""
     if cfg.rope_style == "none":
         return q, k
+    obs.incr("model.standalone_rope")
     hd = q.shape[-1]
     rot = hd // 2 if cfg.rope_style == "partial" else hd
     sin, cos = rope_tables(positions, rot, cfg.rope_theta)

@@ -13,6 +13,7 @@ from typing import Mapping
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import dtype_of
 from repro_torch.kernels.gemm import Epilogue, gemm_fused, norm_prologue
 
@@ -123,7 +124,10 @@ def norm_params(p, prefix: str) -> tuple:
 
 
 def apply_prenorm(cfg, x, prenorm: tuple):
-    """The standalone norm of a ``prenorm`` pair (reference mode)."""
+    """The standalone norm of a ``prenorm`` pair (reference mode, or a
+    path whose GEMM takes no norm prologue); counted as the ``obs`` counter
+    "model.standalone_norm", as the reference counts it."""
+    obs.incr("model.standalone_norm")
     scale, bias = prenorm
     if cfg.norm == "rmsnorm":
         return rmsnorm(x, scale)

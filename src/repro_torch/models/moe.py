@@ -64,17 +64,28 @@ def _route(cfg, x_flat, router_w):
     return weights.to(x_flat.dtype), ids, aux
 
 
+def _experts(cfg, p) -> list:
+    """Each expert's weights, (w_gate, w_in, w_out) or (w_in, w_out), as
+    views of the layer's stacked (E, ., .) leaves made by one ``unbind`` per
+    leaf: its backward stacks the experts' grads once, where indexing each
+    expert would add a zero-filled full-size buffer per expert (as
+    ``lm.unstack_layers`` does for the layers)."""
+    names = ("w_gate", "w_in", "w_out") if _gated(cfg) else ("w_in", "w_out")
+    return list(zip(*(p[n].unbind(0) for n in names)))
+
+
 def _expert_ffn(cfg, p, x):
     """x: (T, D), the same tokens for every expert -> (E, T, D), the plain
     products one expert at a time."""
     act = act_fn(cfg.mlp_act)
     outs = []
-    for i in range(p["w_in"].shape[0]):
+    for *w_up, w_out in _experts(cfg, p):
         if _gated(cfg):
-            h = act(x @ p["w_gate"][i]) * (x @ p["w_in"][i])
+            w_gate, w_in = w_up
+            h = act(x @ w_gate) * (x @ w_in)
         else:
-            h = act(x @ p["w_in"][i])
-        outs.append(h @ p["w_out"][i])
+            h = act(x @ w_up[0])
+        outs.append(h @ w_out)
     return torch.stack(outs)
 
 
@@ -83,19 +94,20 @@ def _expert_ffn_fused(cfg, p, x):
     one dual-output ``gemm_fused`` launch whose store is act(x @ w_gate) *
     (x @ w_in) (or one launch of act(x @ w_in) for a plain activation), and
     the down-projection as a second launch with no epilogue. The weights
-    are contiguous views of the layer's stacked leaves."""
+    are contiguous views of the layer's stacked leaves (:func:`_experts`)."""
     if cfg.mlp_act not in _EPILOGUE_ACT:
         raise ValueError(cfg.mlp_act)
     gated = _gated(cfg)
     up = Epilogue(activation=_EPILOGUE_ACT[cfg.mlp_act], gate=gated)
     outs = []
-    for i in range(p["w_in"].shape[0]):
+    for *w_up, w_out in _experts(cfg, p):
         if gated:
-            h = gemm_fused(x, p["w_gate"][i], b2=p["w_in"][i], epilogue=up,
+            w_gate, w_in = w_up
+            h = gemm_fused(x, w_gate, b2=w_in, epilogue=up,
                            out_dtype=x.dtype)
         else:
-            h = gemm_fused(x, p["w_in"][i], epilogue=up, out_dtype=x.dtype)
-        outs.append(gemm_fused(h, p["w_out"][i], out_dtype=x.dtype))
+            h = gemm_fused(x, w_up[0], epilogue=up, out_dtype=x.dtype)
+        outs.append(gemm_fused(h, w_out, out_dtype=x.dtype))
     return torch.stack(outs)
 
 

@@ -12,7 +12,9 @@ temperature sampling draws through a ``torch.Generator``.
 
 Both engines keep their buckets in the reference's LRU (``_lru_get``,
 capped by ``max_cached_buckets``, its hits, misses and evictions in
-``lru_stats``). A decode bucket is a :class:`DecodeGraph`: on the card one
+``lru_stats``). Both record the reference's spans, counters and gauge into
+``repro_torch.obs`` under its names (``engine.*``), each counter equal to
+the engine attribute it mirrors. A decode bucket is a :class:`DecodeGraph`: on the card one
 decode step captured in a CUDA graph over static input buffers, replayed
 every step; on the CPU the eager step over the same buffers. Prefill and
 chunk buckets hold the eager callable.
@@ -29,7 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, obs
 from . import kv_cache as kvc
 
 
@@ -44,18 +46,22 @@ def _lru_get(lru: collections.OrderedDict, key, build, cap: int,
              stats: dict):
     """Get-or-build with LRU eviction: an evicted entry drops what it
     holds (a captured graph, its buffers, a cache) with it. ``stats`` is
-    the engine's {hits, misses, evictions}."""
+    the engine's {hits, misses, evictions}, mirrored into the ``obs``
+    counters ``engine.bucket_lru.*``."""
     entry = lru.get(key)
     if entry is None:
         stats["misses"] += 1
+        obs.incr("engine.bucket_lru.misses")
         entry = build()
         lru[key] = entry
         while len(lru) > cap:
             lru.popitem(last=False)
             stats["evictions"] += 1
+            obs.incr("engine.bucket_lru.evictions")
     else:
         lru.move_to_end(key)
         stats["hits"] += 1
+        obs.incr("engine.bucket_lru.hits")
     return entry
 
 
@@ -102,7 +108,7 @@ class DecodeGraph:
             return self.step(**self.buffers)
         if self.graph is not None:
             self.graph.replay()
-            kernels.add_launch_counts(self.launches)
+            kernels.replay_launches(self.launches)
             return self.logits
         return self._capture()
 
@@ -232,18 +238,21 @@ class Engine:
         prefill = self._bucket(b, s)
         decode = self._decode_fn(b)
         t0 = time.perf_counter()
-        _, logits = prefill(self.params, batch, decode.cache)
-        next_tok = self._sample(logits, temperature, generator)[:, None]
-        self._sync()
+        with obs.span("engine.prefill", batch=b, prompt_len=s):
+            _, logits = prefill(self.params, batch, decode.cache)
+            next_tok = self._sample(logits, temperature, generator)[:, None]
+            self._sync()
         t1 = time.perf_counter()
         toks = [prompts]
-        for i in range(max_new_tokens):
-            toks.append(next_tok)
-            if i == max_new_tokens - 1:
-                break
-            logits = decode(token=next_tok, pos=s + i)
-            next_tok = self._sample(logits, temperature, generator)[:, None]
-        out = torch.cat(toks, dim=1).to(torch.int32).cpu().numpy()
+        with obs.span("engine.decode", batch=b, tokens=max_new_tokens):
+            for i in range(max_new_tokens):
+                toks.append(next_tok)
+                if i == max_new_tokens - 1:
+                    break
+                logits = decode(token=next_tok, pos=s + i)
+                next_tok = self._sample(logits, temperature,
+                                        generator)[:, None]
+            out = torch.cat(toks, dim=1).to(torch.int32).cpu().numpy()
         t2 = time.perf_counter()
         self.timings.append({"batch": b, "prompt_len": s,
                              "new_tokens": max_new_tokens,
@@ -506,6 +515,7 @@ class PagedEngine:
     def _note_occupancy(self) -> None:
         used = self.n_pages - 1 - self.alloc.free_pages
         self.peak_pages_in_use = max(self.peak_pages_in_use, used)
+        obs.gauge("engine.peak_pages_in_use", used)
 
     def _tokens(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, np.int64), device=self.device)
@@ -597,6 +607,19 @@ class PagedEngine:
         probs = torch.softmax(logits_row.float() / t, dim=-1)
         return int(torch.multinomial(probs, 1, generator=gen))
 
+    def _match_prefix(self, req: Request) -> list:
+        """The trie's pages of the prompt's longest cached prefix (retained
+        for the caller), counted as ``engine.prefix.*``."""
+        if self.prefix is None:
+            return []
+        matched = self.prefix.match(req.prompt, self.alloc)
+        obs.incr("engine.prefix.lookups")
+        if matched:
+            obs.incr("engine.prefix.hits")
+            obs.incr("engine.prefix.tokens_saved",
+                     len(matched) * self.page_size)
+        return matched
+
     def _admit(self) -> int:
         """Move pending requests into free slots; returns how many joined."""
         admitted = 0
@@ -607,8 +630,7 @@ class PagedEngine:
             req = self.pending[0]
             plen = len(req.prompt)
             n = kvc.num_pages_needed(plen, self.page_size)
-            matched = (self.prefix.match(req.prompt, self.alloc)
-                       if self.prefix is not None else [])
+            matched = self._match_prefix(req)
             n_new = n - len(matched)
             if not self.alloc.can_alloc(n_new):
                 if self.prefix is not None:
@@ -640,9 +662,11 @@ class PagedEngine:
                 prefill = self._prefill_bucket(plen)
                 toks = self._tokens(req.prompt)[None, :]
                 t0 = time.perf_counter()
-                self.cache, logits = prefill(
-                    self.params, toks, self.cache,
-                    self.state["page_table"][slot], slot, plen)
+                with obs.span("engine.prefill", uid=req.uid,
+                              prompt_len=plen):
+                    self.cache, logits = prefill(
+                        self.params, toks, self.cache,
+                        self.state["page_table"][slot], slot, plen)
                 if self._spec:
                     # the draft's twin on the same page row
                     self.draft_cache, _ = self._prefill_bucket(
@@ -660,10 +684,12 @@ class PagedEngine:
                 # the first token comes off the prefill logits, not a decode
                 # step: count it here so tokens_generated covers every one
                 self.tokens_generated += 1
+                obs.incr("engine.tokens_generated")
                 if self.prefix is not None:
                     self.prefix.insert(req.prompt, pages, self.alloc)
             admitted += 1
             self.admissions += 1
+            obs.incr("engine.admissions")
             self._note_occupancy()
         return admitted
 
@@ -687,14 +713,17 @@ class PagedEngine:
         chunk = self._chunk_bucket(c)
         toks = self._tokens(toks)
         t0 = time.perf_counter()
-        self.cache, logits = chunk(
-            self.params, toks, self.cache,
-            self.state["page_table"][slot], start, last)
+        with obs.span("engine.prefill_chunk", uid=req.uid, start=start,
+                      chunk=c):
+            self.cache, logits = chunk(
+                self.params, toks, self.cache,
+                self.state["page_table"][slot], start, last)
         if self._spec:
             self.draft_cache, _ = self._chunk_bucket(c, draft=True)(
                 self.draft_params, toks, self.draft_cache,
                 self.state["page_table"][slot], start, last)
         self.chunks_prefilled += 1
+        obs.incr("engine.chunks_prefilled")
         self.state["lengths"][slot] = end
         if end >= plen:
             rec.prefill_cursor = -1
@@ -702,6 +731,7 @@ class PagedEngine:
             rec.generated = [first]
             rec.next_token = first
             self.tokens_generated += 1
+            obs.incr("engine.tokens_generated")
             if self.prefix is not None:
                 self.prefix.insert(req.prompt, rec.pages, self.alloc)
         else:
@@ -758,6 +788,7 @@ class PagedEngine:
             seed=rec.req.seed)
         self.pending.appendleft(cont)
         self.preemptions += 1
+        obs.incr("engine.preemptions")
         self.preempted_uids.add(rec.req.uid)
         del self.slots[slot]
 
@@ -792,24 +823,28 @@ class PagedEngine:
         for slot in active:
             tokens[slot, 0] = self.slots[slot].next_token
         t0 = time.perf_counter()
-        logits = decode(token=tokens, page_table=pt, lengths=lens)
-        self.state["lengths"] = self.state["lengths"] + act
-        sampled = {}
-        greedy = None
-        for slot in active:
-            rec = self.slots[slot]
-            if self._effective_temperature(rec.req) == 0.0:
-                if greedy is None:      # one batched argmax for all
-                    greedy = torch.argmax(logits, dim=-1).cpu().numpy()
-                sampled[slot] = int(greedy[slot])
-            else:
-                pos = len(rec.req.prompt) + len(rec.generated)
-                sampled[slot] = self._sample_slot(logits[slot], rec.req, pos)
-        self._sync()
+        with obs.span("engine.decode_step", active_slots=len(active),
+                      mp_bucket=mp_bucket):
+            logits = decode(token=tokens, page_table=pt, lengths=lens)
+            self.state["lengths"] = self.state["lengths"] + act
+            sampled = {}
+            greedy = None
+            for slot in active:
+                rec = self.slots[slot]
+                if self._effective_temperature(rec.req) == 0.0:
+                    if greedy is None:      # one batched argmax for all
+                        greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+                    sampled[slot] = int(greedy[slot])
+                else:
+                    pos = len(rec.req.prompt) + len(rec.generated)
+                    sampled[slot] = self._sample_slot(logits[slot], rec.req,
+                                                      pos)
+            self._sync()
         self.timings["decode_s"] += time.perf_counter() - t0
         self.timings["decode_tokens"] += len(active)
         self.decode_steps += 1
         self.tokens_generated += len(active)
+        obs.incr("engine.tokens_generated", len(active))
         for slot in active:
             rec = self.slots[slot]
             rec.generated.append(sampled[slot])
@@ -843,20 +878,27 @@ class PagedEngine:
         first = self._tokens(first)
         live = act.long()[:, None]              # zeroes the idle slots' tokens
         cur, proposals = first, []
-        for i in range(k):
-            logits = draft(token=cur, page_table=pt, lengths=lens + i * act)
-            if i == k - 1:
-                break                           # a KV-only append of d_{k-1}
-            cur = torch.argmax(logits, dim=-1, keepdim=True) * live
-            proposals.append(cur)
-        logits = verify(token=torch.cat([first] + proposals, dim=1),
-                        page_table=pt, lengths=lens)
-        # one read-back: the proposals (B, k-1), then the target's (B, k)
-        host = torch.cat(proposals + [torch.argmax(logits, dim=-1)],
-                         dim=1).cpu().numpy()
+        with obs.span("engine.spec_draft", active_slots=len(active), k=k,
+                      mp_bucket=mp_bucket):
+            for i in range(k):
+                logits = draft(token=cur, page_table=pt,
+                               lengths=lens + i * act)
+                if i == k - 1:
+                    break                       # a KV-only append of d_{k-1}
+                cur = torch.argmax(logits, dim=-1, keepdim=True) * live
+                proposals.append(cur)
+        # the round's launches are queued without a host wait: a span ends
+        # when its launches are issued, the verify's at its read-back
+        with obs.span("engine.spec_verify", active_slots=len(active), k=k,
+                      mp_bucket=mp_bucket):
+            logits = verify(token=torch.cat([first] + proposals, dim=1),
+                            page_table=pt, lengths=lens)
+            # one read-back: the proposals (B, k-1), then the target's (B, k)
+            host = torch.cat(proposals + [torch.argmax(logits, dim=-1)],
+                             dim=1).cpu().numpy()
         drafted, preds = host[:, :k - 1], host[:, k - 1:]
         self._sync()
-        emitted_all = 0
+        emitted_all = accepted = 0
         for slot in active:
             rec = self.slots[slot]
             j = 0
@@ -869,11 +911,16 @@ class PagedEngine:
             self.state["lengths"][slot] = int(base[slot]) + j + 1
             self.spec_proposed += k - 1
             self.spec_accepted += j
+            accepted += j
             self.spec_emitted += len(emitted)
             self.spec_participations += 1
             emitted_all += len(emitted)
         self.tokens_generated += emitted_all
         self.spec_rounds += 1
+        obs.incr("engine.tokens_generated", emitted_all)
+        obs.incr("engine.spec.rounds")
+        obs.incr("engine.spec.proposed", (k - 1) * len(active))
+        obs.incr("engine.spec.accepted", accepted)
         self.timings["decode_s"] += time.perf_counter() - t0
         self.timings["decode_tokens"] += emitted_all
 
@@ -994,6 +1041,7 @@ class PagedEngine:
     def run(self) -> dict:
         """Drive :meth:`step` until idle; returns {uid: tokens} results.
         :meth:`report` carries the run's engine metrics."""
-        while self.step():
-            pass
+        with obs.span("engine.run"):
+            while self.step():
+                pass
         return self.results

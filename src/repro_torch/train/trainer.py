@@ -9,7 +9,10 @@ reference's loop: it resumes from the newest valid checkpoint in
 ``AsyncCheckpointer`` (snapshot now, write in the background), and on a
 simulated failure waits for the write in flight and restores the newest
 valid checkpoint, or restarts from scratch when there is none; a last save
-ends the run. The straggler watchdog observes every step.
+ends the run. The straggler watchdog observes every step. Each step is an
+``obs`` span "trainer.step" and adds one to the counter "trainer.steps",
+as in the reference (its "trainer.bucket_pins" belongs to the kernel-policy
+pinning, which the port does not have yet).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.optim import AdamWConfig, adamw_update, ef_compress
 from repro_torch.optim.optimizer import leaves
 from . import checkpoint as ckpt_lib
@@ -69,6 +73,17 @@ def _split_microbatches(batch: dict, n: int) -> list:
             for parts in zip(*(v.chunk(n, dim=0) for v in batch.values()))]
 
 
+def _grad(loss, wrt) -> tuple:
+    """``torch.autograd.grad`` with the backward on the calling thread.
+    On the card autograd would run it (the recompute of a checkpointed
+    block included) on a device thread of its own, whose ``obs`` recorder
+    stack is empty, so a captured step would journal none of it. The
+    step is no slower for it on an H100 (``chip_smoke.py`` phase 14 times
+    both in turns)."""
+    with torch.autograd.set_multithreading_enabled(False):
+        return torch.autograd.grad(loss, wrt)
+
+
 def loss_and_grads(model, params, batch, *, microbatches: int = 1) -> tuple:
     """(loss, metrics, grads): the grads in the order of
     ``optim.optimizer.leaves(params)``. With microbatches the batch rows
@@ -77,14 +92,14 @@ def loss_and_grads(model, params, batch, *, microbatches: int = 1) -> tuple:
     wrt = leaves(params)
     if microbatches == 1:
         loss, metrics = model.loss(params, batch)
-        return loss.detach(), metrics, torch.autograd.grad(loss, wrt)
+        return loss.detach(), metrics, _grad(loss, wrt)
     if batch["inputs"].shape[0] % microbatches:
         raise ValueError(f"batch of {batch['inputs'].shape[0]} rows does "
                          f"not split into {microbatches}")
     gsum, lsum = None, 0.0
     for mb in _split_microbatches(batch, microbatches):
         loss, _ = model.loss(params, mb)
-        grads = [g.float() for g in torch.autograd.grad(loss, wrt)]
+        grads = [g.float() for g in _grad(loss, wrt)]
         if gsum is None:
             gsum = grads
         else:
@@ -170,9 +185,11 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
             t0 = time.perf_counter()
             if failure_injector is not None:
                 failure_injector.maybe_fail(step)
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])
+            with obs.span("trainer.step", step=step):
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            obs.incr("trainer.steps")
             if watchdog is not None:
                 watchdog.observe(step, dt)
             losses.append(loss)
