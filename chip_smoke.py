@@ -68,7 +68,15 @@ Phases, each of which raises on failure (exit code non-zero):
    with no epilogue (K 14336) at M 1024 and M 4, the flash forward at B 2,
    S 4160 within the 4096-token window, ``flash_decode`` at B 4 over a
    wrapped 4096-slot ring, and ``flash_decode_paged`` within the window
-   over 67-page tables, one decode step and a 128-token chunk),
+   over 67-page tables, one decode step and a 128-token chunk);
+   recurrentgemma-2b's (15a, head_dim 256, 10 query heads over one kv
+   head): the flash forward at B 4, S 2304 causal in the 2048-token window
+   and at S 1024 with no window, ``flash_decode`` over a 2048-slot ring
+   wrapped to length 2335, ``flash_decode_paged`` at 8 ragged lengths
+   197-2300 over 40-page tables in the window, and its four fused GEMMs
+   (a local block's q|k, N 2816, without the rope store, and v, N 256, on
+   the rmsnorm prologue; the geglu up, 2 x N 7680; the down, K 7680, with
+   the residual store) at M = 4 x 2304 and M 4;
    with the stated tolerance; kernel, plain and library times with CUDA
    events (L2 scrubbed before every launch), and the least time the card
    could take (bytes over 3.35 TB/s or operations over their peak,
@@ -289,7 +297,25 @@ Phases, each of which raises on failure (exit code non-zero):
    (a subprocess); the summary is printed; the uncaptured 6b step with
    the backward on autograd's device thread against the calling thread,
    where ``loss_and_grads`` runs it, in turns.
-15. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+15. recurrentgemma-2b at published width and all 26 layers (18 RG-LRU
+   blocks and 8 local-attention blocks, head_dim 256, a 2048-token
+   window), seeded weights (the tied embedding at a trained model's
+   scale), kernel mode beside the plain bf16 and fp32 paths: (b) 8
+   requests of 2100-2304 tokens, past the window, 32 new tokens each,
+   through ``RequestQueue(Engine)`` at batch 4: launches exact by block
+   kind (per 'rg' layer 2 ``gemm_fused`` a prefill or step; per 'local'
+   layer 4 ``gemm_fused``, a flash forward and 2 RoPE a prefill, 2
+   ``gemm_fused`` and a ``flash_decode`` a step), a replayed decode step
+   bit for bit the eager one (rings and recurrent states too), the
+   prefill and first decode logits within phase 4's bound of the fp32
+   truth; (c) ``PagedEngine`` refusing a prefix cache, chunks and a draft
+   on the recurrent stack, then 16 requests of 200-2300 tokens (none a
+   page multiple) through 8 slots of 40 64-token pages, launches exact,
+   a replayed step bit for bit, each stream against ``Engine.generate``
+   of its prompt alone (equal, or apart where the Engine step's top-2
+   margin is under the two routes' logit distance). Prints tokens/s, the
+   init time, the peak memory and the phase's seconds.
+16. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -399,6 +425,16 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 1, 4
 MOE_TRAIN_PHASES = ("13b",)
 # phase 14: the captured serving pass and training step
 TELEMETRY_PHASES = ("14 serve", "14 train")
+# phase 15: recurrentgemma-2b whole (26 layers, 5.8 GB in bf16; its fp32
+# truth beside it). 15b: RG_REQUESTS requests of RG_SHORTEST to RG_PROMPT
+# tokens (past the 2048-token local window), RG_BATCH a batch, RG_NEW new
+# tokens; 15c: RG_PAGED requests of RG_PAGED_LENS tokens through SLOTS
+# slots of RG_PAGES-page tables
+RG_ARCH = "recurrentgemma-2b"
+RG_BATCH, RG_PROMPT, RG_NEW, RG_REQUESTS = 4, 2304, 32, 8
+RG_SHORTEST = 2100
+RG_PAGED, RG_PAGES, RG_PAGED_LENS = 16, 40, (200, 2300)
+RG_PHASES = ("15b", "15c")
 # the largest share of token-layer expert choices on which the fp32
 # router, along the kernel path's teacher-forced run, may pick another
 # expert set than the kernel path (near ties flip under bf16 rounding; a
@@ -703,6 +739,43 @@ def moe_gemm_cases(dev, gen):
     return [(*c, False) for c in cases]
 
 
+def rg_gemm_cases(dev, gen):
+    """recurrentgemma-2b's gemm_fused launches (phase 15) as (name, a, b,
+    kwargs, save_preact): a local block's q|k (N 2816, head_dim 256: the
+    rope store cannot hold a head, so no rope, rung 2) and v (N 256) on
+    the rmsnorm prologue, every block's geglu up (2 x N 7680, the gated
+    gelu store) on it and its down (K 7680) with the residual store, at
+    M = RG_BATCH x RG_PROMPT and at a decode step's M = RG_BATCH (where
+    the path runs the up and down; its q|k and v are plain products). The
+    weights at std K^-1/2."""
+    cfg = get_config(RG_ARCH)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    rms = dict(prologue=Prologue(norm="rmsnorm"),
+               gamma=(1 + 0.1 * torch.randn(d, generator=gen,
+                                            device=dev)).to(bf16))
+    w_qk = rnd(d, (cfg.num_heads + cfg.num_kv_heads) * hd, std=d ** -0.5)
+    w_v = rnd(d, cfg.num_kv_heads * hd, std=d ** -0.5)
+    w_gate, w_in, w_out = (rnd(d, f, std=d ** -0.5), rnd(d, f, std=d ** -0.5),
+                           rnd(f, d, std=f ** -0.5))
+    up = dict(epilogue=Epilogue(activation="gelu", gate=True), b2=w_in, **rms)
+    res = Epilogue(residual=True, scale=True)
+    cases = []
+    for tag, m in (("prefill", RG_BATCH * RG_PROMPT), ("decode", RG_BATCH)):
+        x = rnd(m, d)
+        cases += [
+            (f"rg_{tag}_qk", x, w_qk, dict(**rms)),
+            (f"rg_{tag}_v", x, w_v, dict(**rms)),
+            (f"rg_{tag}_up_geglu", x, w_gate, dict(up)),
+            (f"rg_{tag}_down", rnd(m, f), w_out,
+             dict(epilogue=res, residual=rnd(m, d), scale=1.0))]
+    return [(*c, False) for c in cases]
+
+
 def verify_gemm_cases(cfg, dev, gen):
     """llama-1b's four fused GEMMs of a layer at the verify step's M =
     SLOTS x SPEC_TOKENS rows (q|k + rope and v behind the rmsnorm prologue,
@@ -953,7 +1026,8 @@ def baseline_fwd_sm90(kern, a, b, kw, save):
 def measure_gemm(cfg, dev, gen, timer, old=None):
     """Each gemm_fused launch of the main paths (llama-1b's, then
     whisper-base's and bert-110m's, ENCODER_GEMMS, then mixtral-8x7b's,
-    ``moe_gemm_cases``) against its plain
+    ``moe_gemm_cases``, then recurrentgemma-2b's, ``rg_gemm_cases``)
+    against its plain
     version (the output, the gated chain's saved preacts and the row
     statistics), timed as planned and at every (tile width, split count)
     the sweep reaches: each width the chain takes, unsplit and split as
@@ -970,7 +1044,8 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
     sms = gemm_ops.sm_count(dev)
     for name, a, b, kw, save in (gemm_cases(cfg, dev, gen)
                                  + encoder_gemm_cases(dev, gen)
-                                 + moe_gemm_cases(dev, gen)):
+                                 + moe_gemm_cases(dev, gen)
+                                 + rg_gemm_cases(dev, gen)):
         ep, pro, extra = fwd_args(kw)
         m, k = a.shape
         n = b.shape[1]
@@ -1555,6 +1630,59 @@ def measure_paged_window(dev, gen, timer):
         rows.append(paged_row(name, q_, tab, lengths, t, k_pages, v_pages,
                               timer, window=w)[0])
     return rows
+
+
+def measure_rg_attention(dev, gen, timer) -> dict:
+    """Phase 15a's attention rows at recurrentgemma-2b's shapes, head_dim
+    256, 10 query heads over one kv head: the flash forward at B RG_BATCH,
+    S RG_PROMPT causal in the 2048-token window and at S 1024 with no
+    window (q, k, v strided views of the projections); ``flash_decode``
+    over the 2048-slot ring that 15b's last decode step has wrapped
+    (length RG_PROMPT + RG_NEW - 1); ``flash_decode_paged`` at SLOTS
+    ragged lengths 197-2300 over RG_PAGES-page tables of 64-token pages in
+    the window. Returns {kernel name: rows}."""
+    cfg = get_config(RG_ARCH)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    w = cfg.rglru.local_window
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    out = {"flash_attention_fwd": [], "flash_decode": [],
+           "flash_decode_paged": []}
+    for case, seq, window in (("rg_prefill_window", RG_PROMPT, w),
+                              ("rg_prefill_s1024", 1024, None)):
+        qk, v = rnd(RG_BATCH, seq, (h + hkv) * hd), rnd(RG_BATCH, seq, hkv * hd)
+        q = qk[..., : h * hd].reshape(RG_BATCH, seq, h, hd).transpose(1, 2)
+        k = qk[..., h * hd:].reshape(RG_BATCH, seq, hkv, hd).transpose(1, 2)
+        v = v.reshape(RG_BATCH, seq, hkv, hd).transpose(1, 2)
+        row = flash_row(case, q, k, v, True, timer, window=window)
+        del row["kernel"]
+        out["flash_attention_fwd"].append(row)
+    q = rnd(RG_BATCH, hkv, h // hkv, hd)
+    kc, vc = rnd(RG_BATCH, hkv, w, hd), rnd(RG_BATCH, hkv, w, hd)
+    row = decode_row("rg_ring_window", q, kc, vc, RG_PROMPT + RG_NEW - 1,
+                     timer, window=w)
+    del row["kernel"]
+    out["flash_decode"].append(row)
+    n_pages = SLOTS * RG_PAGES + 1
+    k_pages, v_pages = rnd(n_pages, hkv, PAGE, hd), rnd(n_pages, hkv, PAGE, hd)
+    perm = np.random.default_rng(15).permutation(
+        np.arange(1, n_pages)).reshape(SLOTS, RG_PAGES)
+    table = torch.from_numpy(perm.astype(np.int32)).to(dev)
+    lengths = torch.tensor([197, 2300, 640, 1000, 65, 1500, 2047, 333],
+                           dtype=torch.int32, device=dev)
+    out["flash_decode_paged"].append(paged_row(
+        "rg_decode_window", rnd(SLOTS, hkv, h // hkv, hd), table, lengths, 1,
+        k_pages, v_pages, timer, window=w)[0])
+    for name, rows in out.items():
+        for r in rows:
+            log(f"[15a] {name}[{r['case']}] head_dim 256: kernel "
+                f"{r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
+                f"library {r['library_ms'] * 1e3:.1f} us, bound "
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return out
 
 
 def measure_paged(cfg, dev, gen, timer, old=None):
@@ -4589,6 +4717,248 @@ def run_telemetry(dev, out_dir=None) -> dict:
     return {"14 serve": serve, "14 train": train, "14 trace_files": sizes}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: recurrentgemma-2b, RG-LRU and local-attention blocks, served
+# ---------------------------------------------------------------------------
+
+def expected_rg_launches(cfg, prefills: int, steps: int, decode: str) -> dict:
+    """What a hybrid stack's prefills (a batch's, or one sequence's) and
+    decode steps launch, by block kind: an 'rg' block's MLP, the geglu up
+    and the down (2 ``gemm_fused``), in each; a 'local' block's q|k and v
+    GEMMs (rung 2: head_dim 256), its MLP's, one flash forward and two
+    RoPE launches (q and k) in a prefill, its MLP's and one ``decode``
+    kernel in a step. The recurrence is plain torch, as the reference's."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    n_rg, n_local = kinds.count("rg"), kinds.count("local")
+    return {**no_launches(),
+            "gemm_fused": prefills * (2 * n_rg + 4 * n_local)
+            + steps * 2 * (n_rg + n_local),
+            "flash_attention_fwd": prefills * n_local,
+            "rope": prefills * 2 * n_local, decode: steps * n_local}
+
+
+def run_rg_engine(dev, m: Models) -> dict:
+    """15b: RG_REQUESTS requests of 2100-2304 tokens (past the 2048-token
+    local window), RG_NEW new tokens each, through ``RequestQueue(Engine)``
+    at batch RG_BATCH (left-padded to RG_PROMPT, as the reference's), after
+    a warm-up batch: launches exact by block kind, a replayed decode step
+    bit for bit the eager one (logits, the rings, the recurrent states
+    advanced in place), the served streams' greedy tokens the argmax of
+    the kernel path's teacher-forced logits, whose prefill and first decode
+    step lie within phase 4's bound of the fp32 truth; prefill and decode
+    tokens/s."""
+    cfg, params = m.cfg, m.params
+    max_len = RG_PROMPT + RG_NEW + 8
+    engine = Engine(m.kernel, params, max_len=max_len)
+    rng = np.random.default_rng(15)
+    engine.generate(rng.integers(0, cfg.vocab_size, (RG_BATCH, RG_PROMPT)), 2)
+    engine.timings.clear()
+    queue = RequestQueue(engine, batch_size=RG_BATCH, buckets=(RG_PROMPT,))
+    reqs = [Request(u, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(RG_SHORTEST,
+                                                     RG_PROMPT + 1)))
+                    .astype(np.int32), RG_NEW) for u in range(RG_REQUESTS)]
+    for r in reqs:
+        queue.submit(r)
+    kernels.reset_launch_counts()
+    served = queue.flush(force=True)
+    counts = kernels.launch_counts()
+    batches = RG_REQUESTS // RG_BATCH
+    want = expected_rg_launches(cfg, batches, batches * (RG_NEW - 1),
+                                "flash_decode")
+    entry = engine._buckets[("decode", RG_BATCH)]
+    slots = {c["k"].shape[2] for c in entry.cache.values() if "k" in c}
+    log(f"[15b] served {served} requests through {cfg.num_layers} layers "
+        f"({[cfg.layer_kind(i) for i in range(3)]} cycled), local rings of "
+        f"{slots} slots; launches {counts}")
+    if served != RG_REQUESTS or counts != want or slots != {
+            cfg.rglru.local_window}:
+        raise AssertionError(f"[15b] served {served}, launches {counts}, "
+                             f"rings {slots}; the path makes {want}")
+    token = torch.arange(RG_BATCH, device=dev)[:, None] * 7 + 1
+
+    def eager(cache):
+        return m.kernel.decode_step(params, token, cache, RG_PROMPT + 3)[1]
+    check_graph_replay("15b", entry, entry.cache,
+                       dict(token=token, pos=RG_PROMPT + 3), eager)
+    for r in reqs:
+        check_result(cfg, r, queue.results[r.uid])
+    t = engine.timings
+    throughput = throughput_line(
+        "15b", sum(x["batch"] * x["prompt_len"] for x in t),
+        sum(x["prefill_s"] for x in t),
+        sum(x["batch"] * (x["new_tokens"] - 1) for x in t),
+        sum(x["decode_s"] for x in t))
+    first = reqs[:RG_BATCH]
+    tokens = torch.tensor(np.stack([
+        np.pad(queue.results[r.uid], (RG_PROMPT - len(r.prompt), 0))
+        for r in first]), dtype=torch.int64, device=dev)
+    args = (tokens[:, :RG_PROMPT + 2], RG_PROMPT, 2, max_len)
+    kern = teacher_forced_logits(m.kernel, params, *args)
+    plain = teacher_forced_logits(m.plain, params, *args)
+    truth = teacher_forced_logits(m.truth, m.params32, *args)
+    greedy = torch.stack([lg.argmax(-1) for lg in kern], dim=1)
+    if not torch.equal(greedy, tokens[:, RG_PROMPT:RG_PROMPT + 2]):
+        raise AssertionError("[15b] the served greedy tokens differ from the "
+                             "argmax of the kernel path's teacher-forced "
+                             "logits")
+    worst, agreement = check_logit_bound("15b", kern, plain, truth)
+    err = [(k - t_).abs().max().item() for k, t_ in zip(kern, truth)]
+    p_err = [(p - t_).abs().max().item() for p, t_ in zip(plain, truth)]
+    log(f"[15b] prefill and first decode logits: kernel path {err} from "
+        f"fp32, plain bf16 {p_err}; at most {worst:.3f} of the bound (2 x "
+        f"plain bf16 + 1e-2); greedy agreement with the plain bf16 path "
+        f"{agreement:.3f} (information only)")
+    return {"served": served, "launches": counts, "throughput": throughput,
+            "bucket_lru": dict(engine.lru_stats), "logit_bound_use": worst,
+            "logit_err": {"kernel": err, "plain": p_err},
+            "greedy_agreement": agreement}
+
+
+def run_rg_paged(dev, m: Models) -> dict:
+    """15c: PagedEngine's three refusals on a recurrent stack (prefix
+    cache, chunked prefill, a draft), then RG_PAGED requests of 200-2300
+    tokens, none a page multiple (exact-length prefills writing each
+    slot's recurrent state), RG_NEW new tokens each, SLOTS slots of
+    RG_PAGES 64-token pages, decode steps replayed from the page buckets'
+    graphs: launches exact by block kind, a replayed step bit for bit the
+    eager one; each stream against ``Engine.generate`` of its prompt
+    alone, equal token for token or apart where the Engine step's top-2
+    margin is under the two routes' logit distance (phase 10's rule);
+    decode tokens/s."""
+    cfg, params = m.cfg, m.params
+    kw = dict(batch_slots=SLOTS, page_size=PAGE, max_pages_per_seq=RG_PAGES)
+    refusals = {}
+    for what, extra in (("prefix_cache", dict(prefix_cache=True)),
+                        ("chunk_tokens", dict(chunk_tokens=CHUNK)),
+                        ("draft", dict(draft_model=m.kernel,
+                                       draft_params=params,
+                                       spec_tokens=SPEC_TOKENS))):
+        try:
+            PagedEngine(m.kernel, params, **kw, **extra)
+        except ValueError as e:
+            refusals[what] = str(e)
+        else:
+            raise AssertionError(f"[15c] PagedEngine took {what} on a "
+                                 "recurrent stack")
+    log(f"[15c] refused: {refusals}")
+    warm = PagedEngine(m.kernel, params, **kw)
+    for u in range(2):
+        warm.submit(Request(u, np.arange(1, RG_PAGED_LENS[0] + u,
+                                         dtype=np.int32), 3))
+    warm.run()
+    rng = np.random.default_rng(16)
+    lens = [int(n) + (int(n) % PAGE == 0) for n in
+            rng.integers(RG_PAGED_LENS[0], RG_PAGED_LENS[1] + 1, RG_PAGED)]
+    reqs = [Request(u, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    RG_NEW) for u, n in enumerate(lens)]
+    engine = PagedEngine(m.kernel, params, **kw)
+    for r in reqs:
+        engine.submit(r)
+    kernels.reset_launch_counts()
+    results = engine.run()
+    counts = kernels.launch_counts()
+    rep = engine.report()
+    want = expected_rg_launches(cfg, engine.prefills, engine.decode_steps,
+                                "flash_decode_paged")
+    log(f"[15c] served {len(results)} requests (prompts {min(lens)}-"
+        f"{max(lens)} tokens) in {rep['steps']} steps: {rep['prefills']} "
+        f"exact prefills, {rep['decode_steps']} decode steps, peak "
+        f"{rep['peak_pages_in_use']} of {rep['page_pool_size']} pages; "
+        f"launches {counts}; bucket_lru {rep['bucket_lru']}")
+    if counts != want or sorted(results) != [r.uid for r in reqs] \
+            or engine.alloc.free_pages != engine.n_pages - 1:
+        raise AssertionError(f"[15c] launches {counts} (the engine's "
+                             f"counters imply {want}), completed "
+                             f"{sorted(results)}, {engine.alloc.free_pages} "
+                             "pages free")
+    for r in reqs:
+        check_result(cfg, r, results[r.uid])
+    # every slot active on pages of its own: an idle slot's row writes its
+    # token's k/v into the shared null page, and idle slots whose
+    # recurrent states differ race there (rows nothing reads), so a lone
+    # slot's check would compare those races
+    key = next(k for k in engine._buckets if isinstance(k[0], int))
+    mp = key[1]
+    token = torch.arange(SLOTS, device=dev)[:, None] * 7 + 11
+    table = torch.arange(1, SLOTS * mp + 1, dtype=torch.int32,
+                         device=dev).reshape(SLOTS, mp)
+    lengths = mp * PAGE - 5 - torch.arange(SLOTS, dtype=torch.int32,
+                                           device=dev) * 13
+
+    def eager(pools):
+        return m.kernel.decode_step_paged(params, token, pools, table,
+                                          lengths)[1]
+    check_graph_replay(f"15c bucket {key}", engine._buckets[key],
+                       engine.cache, dict(token=token, page_table=table,
+                                          lengths=lengths), eager)
+    t = rep["timings"]
+    throughput = throughput_line("15c", t["prefill_tokens"], t["prefill_s"],
+                                 t["decode_tokens"], t["decode_s"])
+    max_len = max(lens) + RG_NEW + 8
+    fixed = Engine(m.kernel, params, max_len=max_len)
+    differ = []
+    for r in reqs:
+        plen = len(r.prompt)
+        want_row = fixed.generate(r.prompt[None, :], RG_NEW).tokens[0]
+        row = results[r.uid]
+        if np.array_equal(row, want_row):
+            continue
+        pos = int(np.nonzero(row != want_row)[0][0])
+        forced = torch.tensor(want_row[None, :pos + 1], dtype=torch.int64,
+                              device=dev)
+        ring = teacher_forced_logits(m.kernel, params, forced, plen,
+                                     pos + 1 - plen, max_len)[-1][0]
+        pages = paged_replay(engine, m.kernel, params, want_row[:pos + 1],
+                             plen, None, dev, slots=SLOTS,
+                             max_pages=RG_PAGES)[pos - plen]
+        top = torch.topk(ring, 2).values
+        margin, dist = (top[0] - top[1]).item(), \
+            (ring - pages).abs().max().item()
+        log(f"[15c] request {r.uid}: the paged stream first differs from "
+            f"the Engine's at position {pos}; the Engine step's top-2 margin "
+            f"{margin:.4g}, the routes' logit distance there {dist:.4g}")
+        if not margin < dist:
+            raise AssertionError(f"[15c] request {r.uid}'s streams differ "
+                                 "where the margin exceeds the routes' "
+                                 "distance")
+        differ.append({"uid": r.uid, "position": pos, "margin": margin,
+                       "distance": dist})
+    log(f"[15c] {len(reqs) - len(differ)} of {len(reqs)} paged streams equal "
+        "the Engine's (each prompt alone) token for token")
+    return {"report": rep, "launches": counts, "throughput": throughput,
+            "refusals": refusals, "differ": differ}
+
+
+def run_recurrentgemma(dev) -> dict:
+    """Phase 15: recurrentgemma-2b at published width and all 26 layers
+    (the pattern ('rg', 'rg', 'local') cycled: 18 RG-LRU blocks, 8 local
+    attention blocks in a 2048-token window, head_dim 256, MQA), seeded
+    random weights with the tied embedding at a trained model's scale,
+    kernel mode beside the plain bf16 and fp32 paths: 15b through
+    ``RequestQueue(Engine)``, 15c through ``PagedEngine``. (15a, the
+    kernels at its shapes, runs with phase 3.) Prints the init time, the
+    peak memory and the phase's seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    m = build_models(dev, RG_ARCH, trained=True)
+    init_s = time.perf_counter() - t0
+    out = {"15b": run_rg_engine(dev, m)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["15c"] = run_rg_paged(dev, m)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["15"] = {"init_s": init_s, "seconds": time.perf_counter() - t0,
+                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[15] {RG_ARCH}, {get_config(RG_ARCH).num_layers} layers: init "
+        f"{init_s:.1f} s, peak memory "
+        f"{out['15']['peak_memory_gb']:.2f} GB, phase 15 in "
+        f"{out['15']['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4643,6 +5013,8 @@ def main(argv=None) -> int:
                 "flash_decode_paged": (
                     measure_paged(cfg, dev, gen, timer, old)
                     + measure_paged_window(dev, gen, timer))}
+    for name, rows in measure_rg_attention(dev, gen, timer).items():
+        measured[name] += rows
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
     measured.update(bwd_rows)
     measured.update({
@@ -4718,6 +5090,10 @@ def main(argv=None) -> int:
     phases.update(run_telemetry(
         dev, os.path.join(args.out, "traces") if args.out else None))
     log(f"[done] phase 14 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(run_recurrentgemma(dev))
+    log(f"[done] phase 15 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -4731,7 +5107,8 @@ def main(argv=None) -> int:
                             for p in MAIN_PATH_PHASES + DENSE_PHASES
                             + ENCODER_PHASES + tuple(SPEC_RUNS)
                             + LEFTOVER_PHASES + MOE_PHASES
-                            + MOE_TRAIN_PHASES + TELEMETRY_PHASES),
+                            + MOE_TRAIN_PHASES + TELEMETRY_PHASES
+                            + RG_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

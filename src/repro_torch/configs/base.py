@@ -1,8 +1,10 @@
 """Model configuration: one frozen dataclass per architecture.
 
-The port's own copy of the reference ``ModelConfig`` and ``MoEConfig``,
-cut to the fields the port's families read: the decoder-only LM (dense or
-with mixture-of-experts blocks), the encoder and the encoder-decoder.
+The port's own copy of the reference ``ModelConfig``, ``MoEConfig`` and
+``RGLRUConfig``, cut to the fields the port's families read: the
+decoder-only LM (dense, with mixture-of-experts blocks, or the hybrid of
+RG-LRU recurrent and local-attention blocks), the encoder and the
+encoder-decoder.
 Field names and defaults are the reference's, so ``dataclasses.replace``
 sizes a config the same way on both sides.
 """
@@ -23,6 +25,14 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: Optional[int] = None   # defaults to d_model
+    conv_width: int = 4
+    c_exponent: float = 8.0
+    local_window: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                 # 'lm' | 'encdec' | 'encoder'
@@ -33,8 +43,9 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None          # default d_model // num_heads
-    # block pattern, cycled over layers; the port runs a uniform ('attn',)
-    # or ('moe',) pattern (attention + mixture-of-experts FFN)
+    # block pattern, cycled over layers: 'attn' (attention + MLP), 'moe'
+    # (attention + mixture-of-experts FFN), 'rg' (RG-LRU block + MLP),
+    # 'local' (attention in rglru.local_window + MLP)
     block_pattern: Sequence[str] = ("attn",)
     mlp_act: str = "swiglu"     # 'swiglu' | 'geglu' | 'gelu'
     norm: str = "rmsnorm"       # 'rmsnorm' | 'layernorm'
@@ -45,6 +56,7 @@ class ModelConfig:
     attn_window: Optional[int] = None
     attn_logit_softcap: Optional[float] = None
     moe: Optional[MoEConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     # enc-dec (whisper): encoder stack dims (decoder uses the main fields)
     encoder_layers: int = 0
     encoder_seq: int = 1500      # precomputed frame embeddings (frontend stub)
@@ -53,6 +65,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     ce_chunk: int = 0            # >0: chunked CE loss over this many positions
     remat_policy: str = "full"   # 'full' | 'dots' (save matmul outputs) | 'none'
+    rglru_f32_gates: bool = True # False: bf16 gate products (fp32 carries)
+    rglru_chunk: int = 0         # >0: two-level RG-LRU scan (models/rglru.py)
     vocab_pad_multiple: int = 0  # pad V up to a multiple; padding is masked
     emb_scale: float = 1.0
     residual_scale: float = 1.0

@@ -35,6 +35,8 @@ KERNEL = CudaKernel(
     "flash_attention_bwd", "flash_bwd.cu", "flash_bwd_launch",
     [_P] * 10 + [_I] * 7 + [_L] * 12 + [_F, _F, _I, _I, _P])
 
+# head dims of the backward kernel (the forward's HEAD_DIMS also holds 256)
+BWD_HEAD_DIMS = (64, 128)
 # key rows a block of the main kernel owns (BKT in csrc/flash_bwd.cu)
 KEY_TILE = 128
 # rows and columns of one sub-tile of the fp32 dq workspace
@@ -214,9 +216,15 @@ class FlashBwdLaunch:
                  softcap):
         b, h, sq, d = q.shape
         hkv, skv = k.shape[1], k.shape[2]
-        if d not in HEAD_DIMS:
+        if d in HEAD_DIMS and d not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"attention backward kernel: head_dim {d} is served by the "
+                "forward kernel but not yet by csrc/flash_bwd.cu; it comes "
+                "with recurrentgemma-2b's training (ROADMAP Queue A item 4, "
+                "Queue B item 2)")
+        if d not in BWD_HEAD_DIMS:
             raise ValueError(f"attention backward kernel: head_dim {d} not "
-                             f"in {HEAD_DIMS}")
+                             f"in {BWD_HEAD_DIMS}")
         if k.shape[0] != b or k.shape[3] != d or tuple(v.shape) != tuple(
                 k.shape) or h % hkv:
             raise ValueError(f"attention backward: q {tuple(q.shape)} and "

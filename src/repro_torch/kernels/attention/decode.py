@@ -35,7 +35,7 @@ PAGED_KERNEL = CudaKernel(
     "flash_decode_paged", "flash_decode_paged.cu", "flash_decode_paged_launch",
     [_P] * 11 + [_I] * 10 + [_F, _F, _I, _P])
 BLOCK_KV = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_PAGE_SIZE = 128
 
 # the kernels' constants (csrc/decode_split.cuh): keys a tile, stages of
@@ -43,7 +43,7 @@ MAX_PAGE_SIZE = 128
 # else ROW_TILE a unit), the plan's target of blocks per SM and a split's
 # least tiles
 KEY_TILE = 64
-STAGES = {64: 6, 128: 3}
+STAGES = {64: 6, 128: 3, 256: 3}
 FEW_ROWS = 16
 ROW_TILE = 32
 BLOCKS_PER_SM = 2
@@ -254,7 +254,7 @@ def _launch(q, k, v, lengths, *, window, scale, softcap, sinks,
     if d not in HEAD_DIMS:
         raise ValueError(f"attention_decode kernel: head_dim {d} not in "
                          f"{HEAD_DIMS}")
-    # contiguous, 16-byte aligned and head_dim 64 or 128: every stride a
+    # contiguous, 16-byte aligned and head_dim 64, 128 or 256: every stride a
     # multiple of 16 bytes, a view the kernel's TMA maps read
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:

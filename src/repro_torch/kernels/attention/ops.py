@@ -3,7 +3,8 @@
 A CPU tensor runs the plain version (:func:`flash_attention_fwd_ref`); a
 CUDA tensor launches the hand-written kernel (``csrc/flash_fwd.cu``) or
 raises. The kernel takes the logit soft cap but not sinks, on either device.
-On the card q, k and v are bf16 with a last dim of 64 or 128, read through
+On the card q, k and v are bf16 with a last dim of 64, 128 or 256 (the
+backward kernel takes 64 and 128), read through
 TMA maps of their strided views (:func:`check_tma_view`), so the packed q|k
 projection and the v view need no copy. A work item of the kernel is one
 q tile of ``FWD_Q_TILE`` rows of one query head and batch, which walks the
@@ -29,19 +30,30 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 KERNEL = CudaKernel(
     "flash_attention_fwd", "flash_fwd.cu", "flash_fwd_launch",
     [_P] * 5 + [_I] * 6 + [_L] * 9 + [_F, _F, _I, _I, _P])
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 # q rows of one work item of the forward kernel: two consumer warpgroups of
-# 64 (BQ in csrc/flash_fwd.cu), and K/V tiles in its shared-memory ring
+# 64 (BQ in csrc/flash_fwd.cu)
 FWD_Q_TILE = 128
-FWD_STAGES = 4
 
 
 def fwd_key_tile(head_dim: int) -> int:
     """Key rows of one K/V tile of the forward kernel (its BKV): 128 at
-    head_dim 64, 64 at 128, so that its ring of four K/V tiles and two q
-    tiles fit in shared memory."""
+    head_dim 64, 64 at 128 and 256, so that its ring and q tiles fit in
+    shared memory."""
     return 128 if head_dim == 64 else 64
+
+
+def fwd_stages(head_dim: int) -> int:
+    """K/V tiles in the forward kernel's shared-memory ring (its STAGES):
+    four below head_dim 256, two at 256."""
+    return 2 if head_dim == 256 else 4
+
+
+def fwd_q_buffers(head_dim: int) -> int:
+    """q tiles the forward kernel keeps (its QBUFS): two below head_dim
+    256, so the next item's q loads while this one runs; one at 256."""
+    return 1 if head_dim == 256 else 2
 
 
 def fwd_key_range(q0: int, sq: int, skv: int, bkv: int, *, causal: bool,

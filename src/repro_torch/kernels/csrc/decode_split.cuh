@@ -17,12 +17,13 @@
 // A block is one producer warp and four consumer warps:
 //   - the producer's lane 0 TMA-loads each tile's K and V into a ring of
 //     STAGES stages (full / empty mbarriers), the 128-byte swizzle, one box
-//     of 64 columns a row at head_dim 64, two at 128. Contiguous: one box of
-//     KEY_TILE rows of a rank-4 map over (D, S, Hkv, B); a ragged last tile
-//     zero-fills within its head. Paged: a rank-4 map over (D, page, Hkv,
-//     P) and KEY_TILE / box_rows boxes a tile, box_rows = gcd(page, 64), so
-//     a box never crosses a page; its outer coordinate is the physical page
-//     id read from page_table[b, j] (the Pallas index map's pt_ref[b_, j_]).
+//     of 64 columns a row at head_dim 64, two at 128, four at 256.
+//     Contiguous: one box of KEY_TILE rows of a rank-4 map over (D, S, Hkv,
+//     B); a ragged last tile zero-fills within its head. Paged: a rank-4
+//     map over (D, page, Hkv, P) and KEY_TILE / box_rows boxes a tile,
+//     box_rows = gcd(page, 64), so a box never crosses a page; its outer
+//     coordinate is the physical page id read from page_table[b, j] (the
+//     Pallas index map's pt_ref[b_, j_]).
 //     The split's first tile is issued before the length arrives (ring
 //     position 0; released unread when it is not the block's).
 //   - the consumers run both products on tensor cores with mma.sync
@@ -103,8 +104,9 @@ __host__ __device__ inline Plan plan_splits(int units, int n_tiles, int sms) {
 }
 
 // Shared memory: the ring's stages (a K tile, then a V tile, each D/64
-// boxes of KEY_TILE rows by 128 bytes), the barriers, the merge's flag.
-// The warps' merge at the end of a split reuses the ring.
+// boxes of KEY_TILE rows by 128 bytes), the barriers, the merge's flag and,
+// at head_dim 256 (QSMEM), the unit's q rows. The warps' merge at the end
+// of a split reuses the ring.
 template <int D>
 struct Layout {
   static constexpr int STAGES = D == 64 ? 6 : 3;   // (K, V) tiles in the ring
@@ -114,9 +116,19 @@ struct Layout {
   static constexpr int STAGE = 2 * TILE;
   static constexpr int BAR_OFF = STAGES * STAGE;
   static constexpr int SCRATCH_OFF = BAR_OFF + 2 * STAGES * 8;
-  static constexpr int SMEM = SCRATCH_OFF + 16 + 1024;
+  // Below head_dim 256 q's A fragments stay in registers for the whole
+  // split (D / 4 a thread). At 256 those 64 registers beside O's 128 would
+  // spill, so the unit's rows go to shared memory once, QROW bytes apart
+  // (16 bytes of padding put the eight rows of an ldmatrix in distinct
+  // banks), and each k-step's fragment is read by ldmatrix with K's.
+  static constexpr bool QSMEM = D > 128;
+  static constexpr int QROW = 2 * D + 16;
+  static constexpr int Q_OFF = SCRATCH_OFF + 16;
+  static constexpr int SMEM =
+      (QSMEM ? Q_OFF + ROW_TILE * QROW : SCRATCH_OFF + 16) + 1024;
   static_assert(CONSUMER_WARPS * 16 * (D + 2) * 4 <= BAR_OFF,
                 "the cross-warp merge fits in the ring");
+  static_assert(SMEM <= 232448, "fits one SM's shared memory");
 };
 
 struct Params {
@@ -484,19 +496,37 @@ __device__ __forceinline__ void body(const Params& p) {
   float* lw = p.l_ws + ws * p.rw;
   // q's A fragments, read with the length: k-step kk holds columns
   // 16 kk + 2 q4 (+1, +8, +9) of rows g and g + 8; rows past the unit's
-  // are zeros
-  uint32_t qa[D / 16][4];
+  // are zeros. QSMEM: the unit's RB rows into shared memory instead, 16
+  // bytes a thread a step.
+  uint32_t qa[L::QSMEM ? 1 : D / 16][4];
   const __nv_bfloat16* qg = p.q + ((size_t)bh * p.rows + r0) * D;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = rw0 + g + 8 * (i % 2);
-      const int col = 16 * kk + 8 * (i / 2) + 2 * q4;
-      qa[kk][i] = row < nr ? __ldg(reinterpret_cast<const unsigned int*>(
-                                 qg + (size_t)row * D + col))
-                           : 0u;
+  const uint32_t qsm = smem_addr(smem + L::Q_OFF);
+  if constexpr (L::QSMEM) {
+    for (int i = threadIdx.x; i < RB * D / 8; i += CONSUMERS) {
+      const int row = i / (D / 8), c = i % (D / 8);
+      const uint4* src = reinterpret_cast<const uint4*>(qg + (size_t)row * D);
+      const uint4 x = row < nr ? __ldg(src + c) : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(smem + L::Q_OFF + row * L::QROW + 16 * c) = x;
     }
+    consumer_sync();
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = rw0 + g + 8 * (i % 2);
+        const int col = 16 * kk + 8 * (i / 2) + 2 * q4;
+        qa[kk][i] = row < nr ? __ldg(reinterpret_cast<const unsigned int*>(
+                                   qg + (size_t)row * D + col))
+                             : 0u;
+      }
+  }
+  // QSMEM: the A fragment of k-step kk for the warp's 16 rows (ldmatrix
+  // x4: rows 0-7 and 8-15 at columns 16 kk, then both at 16 kk + 8)
+  auto qaddr = [&](int kk) {
+    return qsm + (rw0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * L::QROW +
+           2 * (16 * kk + ((lane >> 4) << 3));
+  };
   const int length = __ldg(p.lengths + b);
   int t0, n;
   block_tiles<PAGED>(p, length, split, r0, nr, t0, n);
@@ -538,16 +568,28 @@ __device__ __forceinline__ void body(const Params& p) {
       float s[WK / 2], s2[WK / 2];
 #pragma unroll
       for (int j = 0; j < WK / 2; ++j) s[j] = s2[j] = 0.f;
-      uint32_t kf[3][4];
+      uint32_t kf[3][4], qf[3][4];
       ldsm_x4(kf[0], kaddr(0));
       ldsm_x4(kf[1], kaddr(1));
+      if constexpr (L::QSMEM) {
+        ldsm_x4(qf[0], qaddr(0));
+        ldsm_x4(qf[1], qaddr(1));
+      }
 #pragma unroll
       for (int idx = 0; idx < NKF; ++idx) {
         if (idx + 2 < NKF) ldsm_x4(kf[(idx + 2) % 3], kaddr(idx + 2));
         const int kk = idx / JP, jp = idx % JP;
         float* acc = TWO && (kk & 1) ? s2 : s;
-        mma(acc + 8 * jp, qa[kk], kf[idx % 3][0], kf[idx % 3][1]);
-        mma(acc + 8 * jp + 4, qa[kk], kf[idx % 3][2], kf[idx % 3][3]);
+        if constexpr (L::QSMEM) {
+          // q's fragment two k-steps ahead, as K's
+          if (jp == 0 && kk + 2 < D / 16)
+            ldsm_x4(qf[(kk + 2) % 3], qaddr(kk + 2));
+          mma(acc + 8 * jp, qf[kk % 3], kf[idx % 3][0], kf[idx % 3][1]);
+          mma(acc + 8 * jp + 4, qf[kk % 3], kf[idx % 3][2], kf[idx % 3][3]);
+        } else {
+          mma(acc + 8 * jp, qa[kk], kf[idx % 3][0], kf[idx % 3][1]);
+          mma(acc + 8 * jp + 4, qa[kk], kf[idx % 3][2], kf[idx % 3][3]);
+        }
       }
       // V's first fragments, read while the softmax runs
       constexpr int NP = D / 16, NVF = (WK / 16) * NP;

@@ -22,7 +22,7 @@
 // that splits a head's key tiles only where each split keeps at least 8
 // tiles (at 296 slots one split: no workspace, no merge); one producer
 // warp keeps a ring of six TMA-loaded 64-key K/V tiles in flight (three at
-// head_dim 128), the first issued before the length arrives, through a
+// head_dim 128 and 256), the first issued before the length arrives, through a
 // rank-4 map over (D, S, Hkv, B) with the 128-byte swizzle; four consumer
 // warps run q K^T and P V on tensor cores (mma.sync m16n8k16 fed by
 // ldmatrix, the group's q rows padded to 16, each warp 16 keys of a tile)
@@ -81,7 +81,7 @@ const char* repro_error_string(int code) {
 // (units, n_splits, rw, D) and (units, n_splits, rw) and tickets (units,)
 // int32 zeros (left zero), with units = B Hkv ceil(G / rows a unit) and
 // rw = min(G, rows a unit); n_splits must be the plan's (else
-// cudaErrorInvalidValue), as must head_dim (64 or 128).
+// cudaErrorInvalidValue), as must head_dim (64, 128 or 256).
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* lengths, const void* sinks, void* out,
                         void* o_ws, void* m_ws, void* l_ws, void* tickets,
@@ -110,6 +110,7 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(p, batch, n_splits, k, v, st);
   if (head_dim == 128) return launch<128>(p, batch, n_splits, k, v, st);
+  if (head_dim == 256) return launch<256>(p, batch, n_splits, k, v, st);
   return cudaErrorInvalidValue;
 }
 

@@ -24,8 +24,8 @@
 // producer warp TMA-loads 64-key K/V tiles through a rank-4 map over the
 // pool (D, page, Hkv, P), the physical page read from the table as the
 // box's outer coordinate, a page smaller than the tile as gcd(page, 64)-row
-// boxes, into a ring of six (three at head_dim 128); the first two tiles'
-// page ids and the length come in one round trip, and the first tile goes
+// boxes, into a ring of six (three at head_dim 128 and 256); the first two
+// tiles' page ids and the length come in one round trip, and the first tile goes
 // out before the length is known; a block whose tiles all lie past its
 // rows' largest horizon, or before their smallest window, computes
 // nothing, so the kernel reads no null-page entry past `length` but that
@@ -85,9 +85,9 @@ const char* repro_error_string(int code) {
 // contiguous and 16-byte aligned; page_table (B, MP) and lengths (B,)
 // int32; sinks (Hkv, R) fp32 (bf16 with sinks_bf16) or null; out
 // (B, Hkv, R, D) bf16. Workspaces as flash_decode_launch's, with
-// units = B Hkv ceil(R / rows a unit). head_dim 64 or 128, a page size that
-// is a multiple of 8 up to 128, T dividing R and the plan's n_splits (else
-// cudaErrorInvalidValue).
+// units = B Hkv ceil(R / rows a unit). head_dim 64, 128 or 256, a page
+// size that is a multiple of 8 up to 128, T dividing R and the plan's
+// n_splits (else cudaErrorInvalidValue).
 int flash_decode_paged_launch(const void* q, const void* k_pages,
                               const void* v_pages, const void* page_table,
                               const void* lengths, const void* sinks,
@@ -127,6 +127,8 @@ int flash_decode_paged_launch(const void* q, const void* k_pages,
     return launch<64>(p, batch, n_pages, n_splits, k_pages, v_pages, st);
   if (head_dim == 128)
     return launch<128>(p, batch, n_pages, n_splits, k_pages, v_pages, st);
+  if (head_dim == 256)
+    return launch<256>(p, batch, n_pages, n_splits, k_pages, v_pages, st);
   return cudaErrorInvalidValue;
 }
 

@@ -27,8 +27,9 @@
 //     items, so the producer loads the next item's tiles while the
 //     consumers finish this one;
 //   - one producer thread TMA-loads the q tile (double-buffered across
-//     items) and a ring of four (K, V) tiles (128 keys at d 64; 64 at d
-//     128, so that the ring and two q tiles fit in shared memory) through
+//     items below d 256) and a ring of four (K, V) tiles (128 keys at d 64;
+//     64 at d 128, so that the ring and two q tiles fit in shared memory;
+//     at d 256 one q tile and two stages of 64 keys, 192 KB) through
 //     rank-4 maps of the strided (d, S, H, B) views, so the packed q|k
 //     projection and the v view need no copy and a ragged S zero-fills
 //     within its head; its warpgroup gives its registers away with
@@ -50,7 +51,9 @@
 //     product in flight: an accumulator that ptxas cannot prove free (two
 //     score buffers carried across the loop, or an issue and its wait
 //     under two branches of one condition) made it serialize every wgmma
-//     of the kernel (C7515); no register spill at either head dim.
+//     of the kernel (C7515); no register spill at d 64 or 128. At d 256 a
+//     consumer thread holds O (128 fp32), S (32) and P (16 registers) with
+//     q read from shared memory, under setmaxnreg's 240.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,25 +68,29 @@ using sm90::smem_addr;
 constexpr int BQ = 128;          // q rows a work item: two warpgroups of 64
 constexpr int CONSUMERS = 2;
 constexpr int THREADS = 128 * (1 + CONSUMERS);
-constexpr int STAGES = 4;        // (K, V) tiles in the ring
 constexpr float MASK_VALUE = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of one block, every tile 1024-byte aligned for the swizzle:
-// two q tiles of D/64 TMA boxes of 64 columns (128 bytes) by BQ rows, then
-// the ring's stages, each a K tile and a V tile of D/64 boxes by BKV rows.
+// QBUFS q tiles of D/64 TMA boxes of 64 columns (128 bytes) by BQ rows,
+// then the ring's STAGES stages, each a K tile and a V tile of D/64 boxes
+// by BKV rows. Below head_dim 256 two q tiles (double-buffered across work
+// items) and four stages; at 256 a q tile is 64 KB and a stage of 64 keys
+// 64 KB, so one q tile and two stages (192 KB).
 template <int D>
 struct Layout {
   static constexpr int BKV = D == 64 ? 128 : 64;   // key rows a tile
+  static constexpr int STAGES = D == 256 ? 2 : 4;  // (K, V) tiles in the ring
+  static constexpr int QBUFS = D == 256 ? 1 : 2;   // q tiles
   static constexpr int BOXES = D / 64;
   static constexpr int QBOX = BQ * 128;
   static constexpr int KBOX = BKV * 128;
   static constexpr int Q_BYTES = BOXES * QBOX;
   static constexpr int KV_BYTES = BOXES * KBOX;
   static constexpr int STAGE = 2 * KV_BYTES;
-  static constexpr int ST_OFF = 2 * Q_BYTES;
+  static constexpr int ST_OFF = QBUFS * Q_BYTES;
   static constexpr int BAR_OFF = ST_OFF + STAGES * STAGE;
-  static constexpr int SMEM = BAR_OFF + (3 * STAGES + 4) * 8 + 1024;
+  static constexpr int SMEM = BAR_OFF + (3 * STAGES + 2 * QBUFS) * 8 + 1024;
   static_assert(SMEM <= 232448, "fits one SM's shared memory");
 };
 
@@ -225,10 +232,11 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
 }
 
 // A ring position: the stage and the parity of its current fill.
+template <int D>
 struct Ring {
   int stage = 0, phase = 0;
   __device__ __forceinline__ void next() {
-    if (++stage == STAGES) {
+    if (++stage == Layout<D>::STAGES) {
       stage = 0;
       phase ^= 1;
     }
@@ -236,8 +244,8 @@ struct Ring {
 };
 
 // At head_dim 64 the q tile is an A fragment in registers (16 a thread), so
-// the scores read only K from shared memory; at 128 it would not fit beside
-// O, and is read from shared memory.
+// the scores read only K from shared memory; at 128 and 256 it would not fit
+// beside O (64 and 128 fp32 a thread), and is read from shared memory.
 template <int D>
 constexpr bool QREGS = D == 64;
 
@@ -446,16 +454,16 @@ __device__ __forceinline__ void store_item(const FwdParams& p, const Item& it,
 }
 
 // The next work item's start: its q tile (the buffer of its turn) as A
-// fragments, or in shared memory at head_dim 128, and S_0 = Q K_0^T issued
-// and committed.
+// fragments, or in shared memory from head_dim 128, and S_0 = Q K_0^T
+// issued and committed.
 template <int D>
 __device__ __forceinline__ void start_item(
     const Smem<D>& sm, const unsigned char* smem, int& qi, int& qb,
     const unsigned char*& qs, QFrag<D>& qf, float (&s)[Layout<D>::BKV / 2],
-    const Ring& cur, int rows0, int warp, int lane, bool leader) {
+    const Ring<D>& cur, int rows0, int warp, int lane, bool leader) {
   using L = Layout<D>;
-  qb = qi & 1;
-  wait_spin(&sm.qfull[qb], (qi >> 1) & 1);
+  qb = qi % L::QBUFS;
+  wait_spin(&sm.qfull[qb], (qi / L::QBUFS) & 1);
   ++qi;
   qs = smem + qb * L::Q_BYTES + rows0 * 128;
   if constexpr (QREGS<D>) {
@@ -476,8 +484,8 @@ template <int D, bool CAP>
 __device__ __forceinline__ void key_tile(
     const FwdParams& p, const Smem<D>& sm, const Item& it, int j,
     float (&s)[Layout<D>::BKV / 2], float (&o)[D / 2],
-    uint32_t (&pa)[Layout<D>::BKV / 16][4], RowState& st, Ring& cur,
-    Ring& prev, const QFrag<D>& qf, const unsigned char* qs, int qbuf,
+    uint32_t (&pa)[Layout<D>::BKV / 16][4], RowState& st, Ring<D>& cur,
+    Ring<D>& prev, const QFrag<D>& qf, const unsigned char* qs, int qbuf,
     bool leader, int row, int q4, float c, float cap_scale) {
   constexpr int BKV = Layout<D>::BKV;
   wait_spin(&sm.kfull[cur.stage], cur.phase);
@@ -518,11 +526,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   Smem<D> sm;
   sm.base = smem;
+  constexpr int STAGES = L::STAGES, QBUFS = L::QBUFS;
   sm.kfull = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   sm.vfull = sm.kfull + STAGES;
   sm.empty = sm.vfull + STAGES;
   sm.qfull = sm.empty + STAGES;
-  sm.qempty = sm.qfull + 2;
+  sm.qempty = sm.qfull + QBUFS;
   const int items = (p.sq + BQ - 1) / BQ * p.batch * p.h;
   const int wg = threadIdx.x / 128;
 
@@ -532,7 +541,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       sm90::mbar_init(&sm.vfull[s], 1);
       sm90::mbar_init(&sm.empty[s], CONSUMERS);
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < QBUFS; ++s) {
       sm90::mbar_init(&sm.qfull[s], 1);
       sm90::mbar_init(&sm.qempty[s], CONSUMERS);
     }
@@ -542,17 +551,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (wg == 0) {
     // producer: one thread loads each item's q tile into the free one of
-    // two buffers, then its K and V tiles into the ring
+    // the QBUFS buffers, then its K and V tiles into the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x != 0) return;
     const int group = p.h / p.hkv;
-    Ring ring;
+    Ring<D> ring;
     int qi = 0;
     for (int w = blockIdx.x; w < items; w += gridDim.x) {
       const Item it = item_work(p, w, BKV);
       if (it.n <= 0) continue;
-      const int hk = it.h / group, qb = qi & 1;
-      sm90::mbar_wait(&sm.qempty[qb], ((qi >> 1) & 1) ^ 1);
+      const int hk = it.h / group, qb = qi % QBUFS;
+      sm90::mbar_wait(&sm.qempty[qb], ((qi / QBUFS) & 1) ^ 1);
       ++qi;
       unsigned char* qs = smem + qb * L::Q_BYTES;
       sm90::mbar_expect_tx(&sm.qfull[qb], L::Q_BYTES);
@@ -583,8 +592,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       sm90::mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
       ring.next();
     }
-    for (int i = 0; i < 2; ++i, ++qi)
-      sm90::mbar_wait(&sm.qempty[qi & 1], ((qi >> 1) & 1) ^ 1);
+    for (int i = 0; i < QBUFS; ++i, ++qi)
+      sm90::mbar_wait(&sm.qempty[qi % QBUFS], ((qi / QBUFS) & 1) ^ 1);
     return;
   }
 
@@ -601,7 +610,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   QFrag<D> qf;
   zero(s);
   zero(o);
-  Ring cur;
+  Ring<D> cur;
   int qi = 0;
   // each item's first product S_0 = Q K_0^T is issued before the previous
   // item's last P V completes and runs during its store. Every path through
@@ -625,7 +634,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // tile 0 (S_0 done): its softmax; its P V is issued with S_1
       if (!QREGS<D> && it.n == 1 && leader)
         sm90::mbar_arrive(&sm.qempty[qb]);   // q read
-      Ring prev = cur;
+      Ring<D> prev = cur;
       float alpha[2];
       const int k0 = it.lo * BKV;
       softmax_tile<BKV / 2, CAP>(p, s, st, alpha,
@@ -707,8 +716,8 @@ const char* repro_error_string(int code) {
 // other strides multiples of 8 and the bases 16-byte aligned (the wrapper
 // checks; the map encoder refuses otherwise). out is (B, H, Sq, head_dim)
 // bf16 and lse (B, H, Sq) fp32, both contiguous. Returns
-// cudaErrorInvalidValue on a head_dim other than 64 or 128 or a group that
-// does not divide.
+// cudaErrorInvalidValue on a head_dim other than 64, 128 or 256 or a group
+// that does not divide.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int batch, int h, int hkv, int sq, int skv,
                      int head_dim, long long qs_b, long long qs_h,
@@ -731,6 +740,7 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(p, views, st);
   if (head_dim == 128) return launch<128>(p, views, st);
+  if (head_dim == 256) return launch<256>(p, views, st);
   return cudaErrorInvalidValue;
 }
 

@@ -7,10 +7,13 @@ with the model in kernel mode (``--mode reference``: the plain path).
       --no-smoke --layers 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --no-smoke --layers 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --no-smoke --prompt-len 2304 --new-tokens 32
 
 ``--arch`` takes every decoder-only id of ``repro_torch.configs``; the
 smoke variant of a config is the default (``--no-smoke``: the published
-one; the llama ids have one config), and ``--layers`` cuts its depth. As
+one; the llama ids have one config; recurrentgemma-2b's 26 layers fit one
+card whole), and ``--layers`` cuts its depth. As
 in the reference, the request queue serves decoder-only LMs only:
 whisper-base is served through ``Engine.generate(..., extra_batch=...)``
 (``launch/profile_serve.py --arch whisper-base``) and bert-110m has no

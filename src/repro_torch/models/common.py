@@ -21,7 +21,7 @@ from repro_torch.kernels.gemm import Epilogue, gemm_fused, norm_prologue
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple
-    init: str = "normal"     # 'normal' | 'zeros' | 'ones'
+    init: str = "normal"     # 'normal' | 'zeros' | 'ones' | 'lru_a'
     scale: float = 1.0       # stddev multiplier (normal init)
     dtype: str = "float32"
 
@@ -47,9 +47,10 @@ def tree_map(fn, tree):
 def init_params(defs: Mapping[str, ParamDef], generator: torch.Generator,
                 device) -> dict:
     """The reference's distributions, drawn from a torch generator: zeros,
-    ones, or a normal with std = scale / sqrt(fan_in), where fan_in is the
-    leading dim of a matrix (for a stacked (layers, d, f) weight that is the
-    layer count, as in the reference) and the length of a vector. The
+    ones, the RG-LRU's Λ ('lru_a': sigmoid(Λ) uniform in [0.9, 0.999]), or
+    a normal with std = scale / sqrt(fan_in), where fan_in is the leading
+    dim of a matrix (for a stacked (layers, d, f) weight that is the layer
+    count, as in the reference) and the length of a vector. The
     numbers differ from the reference's (another generator); the tests feed
     both sides the same numpy weights instead."""
     flat = {}
@@ -59,6 +60,10 @@ def init_params(defs: Mapping[str, ParamDef], generator: torch.Generator,
             flat[path] = torch.zeros(d.shape, dtype=dtype, device=device)
         elif d.init == "ones":
             flat[path] = torch.ones(d.shape, dtype=dtype, device=device)
+        elif d.init == "lru_a":
+            u = torch.empty(d.shape, dtype=torch.float32, device=device)
+            u.uniform_(0.9, 0.999, generator=generator)
+            flat[path] = torch.log(u / (1 - u)).to(dtype)
         elif d.init == "normal":
             fan_in = d.shape[0] if len(d.shape) > 1 else d.shape[-1]
             std = d.scale / math.sqrt(max(1, fan_in))

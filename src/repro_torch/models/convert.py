@@ -1,9 +1,10 @@
 """Convert a parameter tree of numpy arrays into the port's tensors.
 
 The reference package's params (a nested dict whose leaves convert with
-``numpy.asarray``) have the same keys and shapes as the port's, including
-the stacked ``blocks/...`` leaves, so both sides can be fed the same
-weights.
+``numpy.asarray``) have the same keys and shapes as the port's, in each of
+its layouts (a uniform stack's ``blocks/...`` leaves, a hybrid pattern's
+``blocks_{i}/...`` stacks or per-layer ``layer_{i:03d}/...`` subtrees), so
+both sides can be fed the same weights.
 """
 from __future__ import annotations
 

@@ -1,21 +1,28 @@
-"""Decoder-only LM: embedding, a stack of attention blocks whose FFN is a
-dense MLP ('attn') or a mixture of experts ('moe'), tied or untied logits;
+"""Decoder-only LM: embedding, a stack of blocks, tied or untied logits;
 full-sequence forward, prefill and one-token decode over a contiguous
 cache, and prefill, chunked prefill and 1- or T-token decode over a paged
-pool.
+pool. A block is attention with a dense MLP ('attn'), attention with a
+mixture of experts ('moe'), attention in the RG-LRU config's local window
+with an MLP ('local'), or the RG-LRU recurrent block with an MLP ('rg').
 
-Layer parameters are stacked with a leading layer axis (the reference's
-scan layout, same keys and shapes); a Python loop over layers takes the
-place of ``lax.scan``. Serving keeps one copy of the parameters, cast once
-to the compute type when they are made (``Model.init``,
-``params_from_numpy``); training keeps fp32 masters, and the full-sequence
-forward casts them (``cast_params``, as the reference does on every call),
-so the cast's backward hands fp32 grads to the optimizer. With ``remat``
-each block runs under ``torch.utils.checkpoint`` per ``cfg.remat_policy``
-(:func:`_remat`). With ``cfg.ce_chunk`` the loss takes the cross entropy
-chunk by chunk along the sequence (:func:`_chunked_ce`), so the (B, S, V)
-fp32 logits never exist at once. The port runs a uniform stack of 'attn'
-or of 'moe' blocks; any other block kind, and a mixed pattern, raises.
+Parameters follow the reference's layout (:func:`_layout`, the same keys
+and shapes): a uniform stack under ``blocks`` with a leading layer axis; a
+mixed pattern that divides the depth under ``blocks_{i}``, one stack per
+pattern position with a leading group axis; otherwise one subtree per
+layer, ``layer_{i:03d}`` (recurrentgemma-2b's 26 = 8 x 3 + 2 layers). A
+Python loop over layers takes the place of ``lax.scan``. The caches have
+the same layout, a block kind's own in each entry: a (ring) KV cache or a
+page pool for attention, the per-slot recurrent state {"conv", "h"} for
+'rg' (the paged cache keeps it per batch slot). Serving keeps one copy of
+the parameters, cast once to the compute type when they are made
+(``Model.init``, ``params_from_numpy``); training keeps fp32 masters, and
+the full-sequence forward casts them (``cast_params``, as the reference
+does on every call), so the cast's backward hands fp32 grads to the
+optimizer. With ``remat`` each block runs under ``torch.utils.checkpoint``
+per ``cfg.remat_policy`` (:func:`_remat`). With ``cfg.ce_chunk`` the loss
+takes the cross entropy chunk by chunk along the sequence
+(:func:`_chunked_ce`), so the (B, S, V) fp32 logits never exist at once.
+'ssm' blocks, and a mixed pattern holding 'moe', raise.
 """
 from __future__ import annotations
 
@@ -34,48 +41,126 @@ from .attention import (attend, attn_defs, decode_attention_layer,
 from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
                      mlp_defs, mlp_forward, norm_defs, norm_params, tree_map)
 from .moe import moe_defs, moe_forward
+from .rglru import (init_rglru_cache, rglru_decode_step, rglru_defs,
+                    rglru_forward, rglru_prefill)
+
+ATTENTION_KINDS = ("attn", "local", "moe")
+BLOCK_KINDS = ATTENTION_KINDS + ("rg",)
 
 
 def check_supported(cfg) -> None:
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if len(kinds) > 1:
+    if not kinds <= set(BLOCK_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: mixed block pattern {tuple(cfg.block_pattern)}; the "
-            "port runs a uniform ('attn',) or ('moe',) stack. The interleaved "
-            "blocks_0/blocks_1 layout (llama4-maverick's ('attn', 'moe')) is "
-            "ROADMAP Queue A item 4's next model")
-    if not kinds <= {"attn", "moe"}:
+            f"{cfg.name}: the port runs {BLOCK_KINDS} blocks, got "
+            f"{sorted(kinds)}; the 'ssm' block (mamba2-130m) is ROADMAP "
+            "Queue A item 4")
+    if "moe" in kinds and len(kinds) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs 'attn' and 'moe' blocks only, got "
-            f"{sorted(kinds)}")
+            f"{cfg.name}: mixed block pattern {tuple(cfg.block_pattern)} "
+            "with 'moe' blocks; the port runs a uniform ('moe',) stack. The "
+            "interleaved ('attn', 'moe') layout (llama4-maverick's) is "
+            "ROADMAP Queue A item 4")
     if "moe" in kinds and cfg.moe is None:
         raise ValueError(f"{cfg.name}: 'moe' blocks need cfg.moe")
+    if "rg" in kinds and cfg.rglru is None:
+        raise ValueError(f"{cfg.name}: 'rg' blocks need cfg.rglru")
     if cfg.family != "lm":
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}; the "
                                   "port runs decoder-only LMs ('lm')")
 
 
+def _layout(cfg) -> tuple:
+    """How layers are stacked, as the reference's: ('scan', pattern,
+    n_groups), layers grouped by the block pattern (pattern length 1 is the
+    uniform stack), or ('loop',) where the pattern does not divide the
+    depth."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    if len(set(kinds)) == 1:
+        return ("scan", (kinds[0],), cfg.num_layers)
+    pat = tuple(cfg.block_pattern)
+    if cfg.num_layers % len(pat) == 0:
+        return ("scan", pat, cfg.num_layers // len(pat))
+    return ("loop",)
+
+
+def layer_slots(cfg) -> list:
+    """(kind, key, index) of every layer: its block kind, the key of its
+    parameter and cache subtree ("blocks", "blocks_{i}" or
+    "layer_{i:03d}") and its index into that subtree's stack (None for a
+    per-layer subtree)."""
+    layout = _layout(cfg)
+    if layout[0] == "loop":
+        return [(cfg.layer_kind(i), f"layer_{i:03d}", None)
+                for i in range(cfg.num_layers)]
+    _, pattern, _ = layout
+    if len(pattern) == 1:
+        return [(pattern[0], "blocks", i) for i in range(cfg.num_layers)]
+    n = len(pattern)
+    return [(pattern[i % n], f"blocks_{i % n}", i // n)
+            for i in range(cfg.num_layers)]
+
+
+def _block_window(cfg, kind: str):
+    """The attention window of a block kind: a 'local' block's is the
+    RG-LRU config's ``local_window``."""
+    if kind == "local":
+        return (cfg.rglru.local_window if cfg.rglru is not None
+                else cfg.attn_window)
+    return cfg.attn_window
+
+
+def block_defs(cfg, kind: str, prefix: str, *, stack=None) -> dict:
+    defs = {}
+    if kind in ATTENTION_KINDS:
+        defs.update(attn_defs(cfg, f"{prefix}/attn", stack=stack))
+    else:
+        defs.update(rglru_defs(cfg, f"{prefix}/rec", stack=stack))
+    defs.update(norm_defs(cfg, f"{prefix}/ln1", stack=stack))
+    defs.update(norm_defs(cfg, f"{prefix}/ln2", stack=stack))
+    if kind == "moe":
+        defs.update(moe_defs(cfg, f"{prefix}/moe", stack=stack))
+    else:
+        defs.update(mlp_defs(cfg, f"{prefix}/mlp", stack=stack))
+    return defs
+
+
 def lm_param_defs(cfg) -> dict:
     check_supported(cfg)
     d, v, dt = cfg.d_model, cfg.padded_vocab(), cfg.param_dtype
-    n = cfg.num_layers
     defs = {"embed": ParamDef((v, d), dtype=dt)}
-    defs.update(attn_defs(cfg, "blocks/attn", stack=n))
-    defs.update(norm_defs(cfg, "blocks/ln1", stack=n))
-    defs.update(norm_defs(cfg, "blocks/ln2", stack=n))
-    if cfg.layer_kind(0) == "moe":
-        defs.update(moe_defs(cfg, "blocks/moe", stack=n))
+    layout = _layout(cfg)
+    if layout[0] == "scan":
+        _, pattern, n_groups = layout
+        if len(pattern) == 1:
+            defs.update(block_defs(cfg, pattern[0], "blocks", stack=n_groups))
+        else:
+            for i, kind in enumerate(pattern):
+                defs.update(block_defs(cfg, kind, f"blocks_{i}",
+                                       stack=n_groups))
     else:
-        defs.update(mlp_defs(cfg, "blocks/mlp", stack=n))
+        for i in range(cfg.num_layers):
+            defs.update(block_defs(cfg, cfg.layer_kind(i), f"layer_{i:03d}"))
     defs.update(norm_defs(cfg, "final_norm"))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), dtype=dt)
     return defs
 
 
-def layer_params(params, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked block params."""
-    return tree_map(lambda x: x[i], params["blocks"])
+def _entry(tree, key: str, index):
+    """One layer's entry of a parameter or cache tree: views into a stack
+    (in-place writes land in it), or the layer's own subtree. A uniform
+    stack's cache is the tree itself."""
+    sub = tree[key] if key in tree else tree
+    if index is None:
+        return sub
+    return tree_map(lambda x: x[index], sub)
+
+
+def _layers(cfg, params) -> list:
+    """(kind, params) of every layer."""
+    return [(kind, _entry(params, key, index))
+            for kind, key, index in layer_slots(cfg)]
 
 
 def _embed(cfg, params, tokens):
@@ -102,11 +187,12 @@ def _logits(cfg, params, x, head=None):
 
 
 def _ffn(cfg, p, x, *, mode: str):
-    """The block's FFN on the stream ``x`` after attention's residual, by
-    block kind (the FFN's params: "mlp" or "moe"), ln2 riding in as
-    ``prenorm``: the dense MLP, ``x + residual_scale * mlp(x)`` (in kernel
-    mode the residual rides in the down GEMM's store), or the MoE FFN, added
-    as ``x + residual_scale * m``. Returns (x, the MoE's aux or None)."""
+    """The block's FFN on the stream ``x`` after attention's (or the
+    recurrence's) residual, by block kind (the FFN's params: "mlp" or
+    "moe"), ln2 riding in as ``prenorm``: the dense MLP, ``x +
+    residual_scale * mlp(x)`` (in kernel mode the residual rides in the
+    down GEMM's store), or the MoE FFN, added as ``x + residual_scale *
+    m``. Returns (x, the MoE's aux or None)."""
     rs = cfg.residual_scale
     if "moe" in p:
         m, aux = moe_forward(cfg, p["moe"], x, mode=mode,
@@ -117,13 +203,25 @@ def _ffn(cfg, p, x, *, mode: str):
                        prenorm=norm_params(p, "ln2")), None
 
 
+def _recurrent(cfg, p, x, fn, *args):
+    """An 'rg' block's recurrence on the standalone ln1 norm of ``x``
+    (the reference keeps the norm outside the recurrent core): ``fn``
+    (:func:`rglru_forward` or a step) returns the output, added to the
+    stream with the residual scale."""
+    h = apply_norm(cfg, x, p, "ln1")
+    return x + cfg.residual_scale * fn(cfg, p["rec"], h, *args)
+
+
 def block_forward(cfg, p, x, *, positions, mode: str = "reference",
-                  qkv_plan: str = "rope_fused"):
-    """One block on the pre-norm residual stream ``x``: ln1 and ln2 ride
-    into the attention and FFN layers as ``prenorm``; ``qkv_plan`` is the
-    rung of the QKV ladder ('kernel' mode). Returns (x, the MoE's
-    load-balancing loss, or None for a dense block)."""
-    a = attention_layer(cfg, p["attn"], x, window=cfg.attn_window,
+                  qkv_plan: str = "rope_fused", kind: str = "attn"):
+    """One block of kind ``kind`` on the pre-norm residual stream ``x``:
+    ln1 and ln2 ride into the attention and FFN layers as ``prenorm`` (an
+    'rg' block norms ln1 standalone); ``qkv_plan`` is the rung of the QKV
+    ladder ('kernel' mode). Returns (x, the MoE's load-balancing loss, or
+    None)."""
+    if kind == "rg":
+        return _ffn(cfg, p, _recurrent(cfg, p, x, rglru_forward), mode=mode)
+    a = attention_layer(cfg, p["attn"], x, window=_block_window(cfg, kind),
                         positions=positions, mode=mode,
                         prenorm=norm_params(p, "ln1"), qkv_plan=qkv_plan)
     return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode)
@@ -175,6 +273,17 @@ def _remat(cfg, fn):
     return run
 
 
+def _unstacked_layers(cfg, params) -> list:
+    """(kind, params) of every layer, each stack unbound once per leaf
+    (:func:`unstack_layers`) for training."""
+    layout, slots = _layout(cfg), layer_slots(cfg)
+    if layout[0] == "loop":
+        return [(kind, params[key]) for kind, key, _ in slots]
+    stacks = {key: unstack_layers(params[key], layout[2])
+              for _, key, _ in slots}
+    return [(kind, stacks[key][index]) for kind, key, index in slots]
+
+
 def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
               remat: bool = False, qkv_plan: str = "rope_fused"):
     """tokens: (B, S) -> (the last block's output (B, S, d), the params
@@ -183,13 +292,14 @@ def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
     params = cast_params(params, dtype_of(cfg.compute_dtype))
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    block = functools.partial(block_forward, cfg, positions=positions,
-                              mode=mode, qkv_plan=qkv_plan)
-    if remat:
-        block = _remat(cfg, block)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in unstack_layers(params["blocks"], cfg.num_layers):
-        x, a = block(p, x)
+    blocks = {}
+    for kind, p in _unstacked_layers(cfg, params):
+        if kind not in blocks:
+            block = functools.partial(block_forward, cfg, positions=positions,
+                                      mode=mode, qkv_plan=qkv_plan, kind=kind)
+            blocks[kind] = _remat(cfg, block) if remat else block
+        x, a = blocks[kind](p, x)
         if a is not None:
             aux = aux + a
     return x, params, aux
@@ -254,31 +364,81 @@ def lm_loss(cfg, params, batch, *, mode: str = "reference", remat: bool = True,
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
+# ---------------------------------------------------------------------------
+# Caches: one entry per parameter subtree, of its block kind
+# ---------------------------------------------------------------------------
+
+def _init_caches(cfg, make) -> dict:
+    """The cache tree in the parameters' layout: ``make(kind, stack)`` is
+    one block kind's cache with a leading ``stack`` dim (None: none)."""
+    layout = _layout(cfg)
+    if layout[0] == "scan":
+        _, pattern, n_groups = layout
+        if len(pattern) == 1:
+            return make(pattern[0], n_groups)
+        return {f"blocks_{i}": make(kind, n_groups)
+                for i, kind in enumerate(pattern)}
+    return {f"layer_{i:03d}": make(cfg.layer_kind(i), None)
+            for i in range(cfg.num_layers)}
+
+
+def _layer_caches(cfg, cache) -> list:
+    """Every layer's cache entry: views into the stacks (in-place writes
+    land in them) or the layer's own."""
+    return [_entry(cache, key, index) for _, key, index in layer_slots(cfg)]
+
+
 def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    return init_attn_cache(cfg, batch, max_len, cfg.attn_window,
-                           dtype_of(cfg.compute_dtype), device,
-                           layers=cfg.num_layers)
+    """Zeroed caches: an attention block's (B, Hkv, slots, hd) "k" and "v"
+    (a ring of its window's slots), an 'rg' block's recurrent state; a
+    uniform stack's is {"k", "v"} with a leading layer axis."""
+    dtype = dtype_of(cfg.compute_dtype)
+
+    def make(kind, stack):
+        if kind == "rg":
+            return init_rglru_cache(cfg, batch, dtype, device, stack=stack)
+        c = init_attn_cache(cfg, batch, max_len, _block_window(cfg, kind),
+                            dtype, device, layers=stack or 1)
+        return c if stack else {k: v[0] for k, v in c.items()}
+    return _init_caches(cfg, make)
 
 
-def block_prefill(cfg, p, x, k_cache, v_cache, *, positions,
-                  mode: str = "reference", qkv_plan: str = "rope_fused"):
-    """Full-sequence block that also fills its layer's cache (in place)."""
+def _write_state(c, state, slot=None) -> None:
+    """Copy a prefill's recurrent state into the cache entry ``c`` (all
+    rows, or batch slot ``slot``), in place."""
+    for name in ("conv", "h"):
+        dst = c[name] if slot is None else c[name][slot]
+        src = state[name] if slot is None else state[name][0]
+        dst.copy_(src)
+
+
+def block_prefill(cfg, p, x, c, *, positions, mode: str = "reference",
+                  qkv_plan: str = "rope_fused", kind: str = "attn"):
+    """Full-sequence block that also fills its layer's cache entry ``c``
+    (in place)."""
+    if kind == "rg":
+        h = apply_norm(cfg, x, p, "ln1")
+        o, state = rglru_prefill(cfg, p["rec"], h)
+        _write_state(c, state)
+        return _ffn(cfg, p, x + cfg.residual_scale * o, mode=mode)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
-    o = attend(cfg, q, k, v, window=cfg.attn_window, mode=mode)
-    prefill_attn_cache(k_cache, v_cache, k, v)
+    o = attend(cfg, q, k, v, window=_block_window(cfg, kind), mode=mode)
+    prefill_attn_cache(c["k"], c["v"], k, v)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
     return _ffn(cfg, p, x, mode=mode)[0]
 
 
-def block_decode(cfg, p, x, k_cache, v_cache, pos, *,
-                 mode: str = "reference"):
-    rs = cfg.residual_scale
+def block_decode(cfg, p, x, c, pos, *, mode: str = "reference",
+                 kind: str = "attn"):
+    if kind == "rg":
+        return _ffn(cfg, p, _recurrent(cfg, p, x, rglru_decode_step, c),
+                    mode=mode)[0]
     h = apply_norm(cfg, x, p, "ln1")
-    a = decode_attention_layer(cfg, p["attn"], h, k_cache, v_cache, pos,
-                               window=cfg.attn_window, mode=mode)
-    return _ffn(cfg, p, x + rs * a, mode=mode)[0]
+    a = decode_attention_layer(cfg, p["attn"], h, c["k"], c["v"], pos,
+                               window=_block_window(cfg, kind), mode=mode)
+    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode)[0]
 
 
 def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
@@ -287,10 +447,9 @@ def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
     (B, V))."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    for i in range(cfg.num_layers):
-        x = block_prefill(cfg, layer_params(params, i), x, cache["k"][i],
-                          cache["v"][i], positions=positions, mode=mode,
-                          qkv_plan=qkv_plan)
+    for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
+        x = block_prefill(cfg, p, x, c, positions=positions, mode=mode,
+                          qkv_plan=qkv_plan, kind=kind)
     return cache, _logits(cfg, params, x[:, -1:, :])[:, 0]
 
 
@@ -301,9 +460,8 @@ def lm_decode_step(cfg, params, token, cache, pos, *,
     reads; the same bits). Updates ``cache`` in place. Returns (cache,
     logits (B, V))."""
     x = _embed(cfg, params, token)
-    for i in range(cfg.num_layers):
-        x = block_decode(cfg, layer_params(params, i), x, cache["k"][i],
-                         cache["v"][i], pos, mode=mode)
+    for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
+        x = block_decode(cfg, p, x, c, pos, mode=mode, kind=kind)
     return cache, _logits(cfg, params, x)[:, 0]
 
 
@@ -313,27 +471,28 @@ def lm_decode_step(cfg, params, token, cache, pos, *,
 
 def lm_init_paged_cache(cfg, batch_slots: int, n_pages: int, page_size: int,
                         device) -> dict:
-    """Stacked {"k_pages", "v_pages"}, each (L, P, Hkv, page, hd): the
-    reference's scan-stacked layout, so the pools compare directly.
-    ``batch_slots`` is taken for the reference's signature: attention
-    blocks keep no per-slot state."""
-    del batch_slots
-    pool = init_paged_attn_cache(cfg, n_pages, page_size,
-                                 dtype_of(cfg.compute_dtype), device)
-    return {k: v[None].repeat(cfg.num_layers, 1, 1, 1, 1)
-            for k, v in pool.items()}
+    """The paged caches in the parameters' layout: an attention block's
+    {"k_pages", "v_pages"}, each (P, Hkv, page, hd) (a uniform stack's with
+    a leading layer axis: the reference's scan-stacked layout, so the pools
+    compare directly), an 'rg' block's recurrent state per batch slot."""
+    dtype = dtype_of(cfg.compute_dtype)
 
-
-def _layer_cache(cache, i: int) -> dict:
-    """Layer ``i``'s pools: views, so in-place writes land in the stack."""
-    return {"k_pages": cache["k_pages"][i], "v_pages": cache["v_pages"][i]}
+    def make(kind, stack):
+        if kind == "rg":
+            return init_rglru_cache(cfg, batch_slots, dtype, device,
+                                    stack=stack)
+        pool = init_paged_attn_cache(cfg, n_pages, page_size, dtype, device)
+        if stack is None:
+            return pool
+        return {k: v[None].repeat(stack, 1, 1, 1, 1) for k, v in pool.items()}
+    return _init_caches(cfg, make)
 
 
 def _attention_only(cfg) -> bool:
     """True when every layer is attention-family. The serving fast paths
     (chunked prefill, prefix reuse, multi-token verify) rely on a KV cache of
     position-addressable pages; recurrent state cannot be re-entered."""
-    return all(cfg.layer_kind(i) in ("attn", "local", "moe")
+    return all(cfg.layer_kind(i) in ATTENTION_KINDS
                for i in range(cfg.num_layers))
 
 
@@ -342,15 +501,22 @@ def _int32(x, device):
     return torch.as_tensor(x, dtype=torch.int32, device=device).contiguous()
 
 
-def block_prefill_paged(cfg, p, x, cache, *, page_rows, positions,
-                        mode: str = "reference", qkv_plan: str = "rope_fused"):
-    """Single-sequence (B = 1) prefill block whose rotated k/v land in the
-    sequence's pages (in place)."""
+def block_prefill_paged(cfg, p, x, c, *, page_rows, slot, positions,
+                        mode: str = "reference", qkv_plan: str = "rope_fused",
+                        kind: str = "attn"):
+    """Single-sequence (B = 1) prefill block: rotated k/v land in the
+    sequence's pages, an 'rg' block's state in batch slot ``slot`` (in
+    place)."""
+    if kind == "rg":
+        h = apply_norm(cfg, x, p, "ln1")
+        o, state = rglru_prefill(cfg, p["rec"], h)
+        _write_state(c, state, slot)
+        return _ffn(cfg, p, x + cfg.residual_scale * o, mode=mode)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
-    o = attend(cfg, q, k, v, window=cfg.attn_window, mode=mode)
-    paged_prefill_attn_cache(cfg, cache, k, v, page_rows)
+    o = attend(cfg, q, k, v, window=_block_window(cfg, kind), mode=mode)
+    paged_prefill_attn_cache(cfg, c, k, v, page_rows)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
     return _ffn(cfg, p, x, mode=mode)[0]
 
@@ -360,25 +526,26 @@ def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
                      qkv_plan: str = "rope_fused"):
     """Prefill ONE sequence into the shared paged cache (in place).
 
-    tokens: (1, S); ``page_rows``: (max_pages,) page-table row; ``slot`` is
-    taken for the reference's signature (only recurrent layers keep slot
-    state). S may exceed ``true_len`` (a padded bucket): k/v past it stay
-    masked by the length until overwritten. Returns (cache, logits (1, V)
-    at position ``true_len - 1``)."""
-    del slot
+    tokens: (1, S); ``page_rows``: (max_pages,) page-table row; ``slot``:
+    the sequence's batch slot (recurrent state lands there). S may exceed
+    ``true_len`` (a padded bucket) only for attention-only stacks: k/v past
+    it stay masked by the length until overwritten, but a recurrent state
+    would absorb the pad positions, so an engine serving a recurrent stack
+    passes the exact length. Returns (cache, logits (1, V) at position
+    ``true_len - 1``)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    for i in range(cfg.num_layers):
-        x = block_prefill_paged(cfg, layer_params(params, i), x,
-                                _layer_cache(cache, i), page_rows=page_rows,
+    for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
+        x = block_prefill_paged(cfg, p, x, c, page_rows=page_rows, slot=slot,
                                 positions=positions, mode=mode,
-                                qkv_plan=qkv_plan)
+                                qkv_plan=qkv_plan, kind=kind)
     return cache, _logits(cfg, params, x[:, true_len - 1:true_len])[:, 0]
 
 
 def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
                               length, positions, mode: str = "reference",
-                              qkv_plan: str = "rope_fused"):
+                              qkv_plan: str = "rope_fused",
+                              kind: str = "attn"):
     """One layer of chunked prefill: the chunk's k/v land in the sequence's
     pages at page offset ``start // page_size``, and its queries attend to
     everything already in the pages (earlier chunks and this one) through
@@ -391,7 +558,7 @@ def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
     paged_prefill_attn_cache(cfg, cache, k, v, page_rows,
                              start_page=start // page_size)
     o = attention_decode_paged(q, cache["k_pages"], cache["v_pages"], table,
-                               length, window=cfg.attn_window,
+                               length, window=_block_window(cfg, kind),
                                softcap=cfg.attn_logit_softcap, mode=mode)
     x = x + cfg.residual_scale * (_merge_heads(o.to(x.dtype))
                                   @ p["attn"]["wo"])
@@ -407,7 +574,8 @@ def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
     absolute position (a page multiple); ``last_index``: the final true
     token within the chunk (its logits seed sampling; meaningful on the
     last chunk only). Prefix-cache admission reuses it with ``start`` = the
-    matched prefix length. Returns (cache, logits (1, V))."""
+    matched prefix length. Attention-family stacks only. Returns (cache,
+    logits (1, V))."""
     if not _attention_only(cfg):
         raise ValueError(
             "chunked paged prefill requires an attention-only stack; "
@@ -417,23 +585,25 @@ def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
     positions = start + torch.arange(c, device=x.device)
     table = _int32(page_rows, x.device)[None, :]
     length = _int32([start + c], x.device)
-    for i in range(cfg.num_layers):
+    for (kind, p), lc in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
         x = block_prefill_paged_chunk(
-            cfg, layer_params(params, i), x, _layer_cache(cache, i),
-            page_rows=page_rows, table=table, start=start, length=length,
-            positions=positions, mode=mode, qkv_plan=qkv_plan)
+            cfg, p, x, lc, page_rows=page_rows, table=table, start=start,
+            length=length, positions=positions, mode=mode, qkv_plan=qkv_plan,
+            kind=kind)
     return cache, _logits(cfg, params,
                           x[:, last_index:last_index + 1])[:, 0]
 
 
-def block_decode_paged(cfg, p, x, cache, page_table, lengths, *,
-                       mode: str = "reference"):
-    rs = cfg.residual_scale
+def block_decode_paged(cfg, p, x, c, page_table, lengths, *,
+                       mode: str = "reference", kind: str = "attn"):
+    if kind == "rg":
+        return _ffn(cfg, p, _recurrent(cfg, p, x, rglru_decode_step, c),
+                    mode=mode)[0]
     h = apply_norm(cfg, x, p, "ln1")
-    a = paged_decode_attention_layer(cfg, p["attn"], h, cache, page_table,
-                                     lengths, window=cfg.attn_window,
+    a = paged_decode_attention_layer(cfg, p["attn"], h, c, page_table,
+                                     lengths, window=_block_window(cfg, kind),
                                      mode=mode)
-    return _ffn(cfg, p, x + rs * a, mode=mode)[0]
+    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode)[0]
 
 
 def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
@@ -442,10 +612,11 @@ def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
 
     token: (B, T). T == 1 is plain decode (each slot's token lands at
     position lengths[b]; logits (B, V)); T > 1 is the speculative verify
-    step (token t lands at lengths[b] + t; logits (B, T, V)).
-    ``page_table`` (B, MP) and ``lengths`` (B,): host arrays or tensors,
-    moved to the model's device once per call. Inactive slots decode
-    against the null page and produce ignorable logits."""
+    step (token t lands at lengths[b] + t; logits (B, T, V); attention-only
+    stacks). ``page_table`` (B, MP) and ``lengths`` (B,): host arrays or
+    tensors, moved to the model's device once per call. Inactive slots
+    decode against the null page and produce ignorable logits (and advance
+    their recurrent state, which an admission's prefill overwrites)."""
     if token.shape[1] > 1 and not _attention_only(cfg):
         raise ValueError(
             "multi-token paged decode (speculative verify) requires an "
@@ -453,10 +624,9 @@ def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
     x = _embed(cfg, params, token)
     page_table = _int32(page_table, x.device)
     lengths = _int32(lengths, x.device)
-    for i in range(cfg.num_layers):
-        x = block_decode_paged(cfg, layer_params(params, i), x,
-                               _layer_cache(cache, i), page_table, lengths,
-                               mode=mode)
+    for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
+        x = block_decode_paged(cfg, p, x, c, page_table, lengths, mode=mode,
+                               kind=kind)
     logits = _logits(cfg, params, x)
     if token.shape[1] > 1:
         return cache, logits          # (B, T, V): speculative verify

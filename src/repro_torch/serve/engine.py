@@ -384,7 +384,8 @@ class PagedEngine:
 
     Admission: each :meth:`step` first moves pending requests into free
     batch slots while the allocator can cover their prompt pages; the
-    prefill runs at the exact prompt length. Decode: one
+    prefill runs at the exact prompt length (padding would contaminate a
+    recurrent block's state, which lands in the slot's row). Decode: one
     ``decode_step_paged`` serves every slot, with the page table sliced to
     the power-of-two page count of the longest active sequence. Growth: a
     slot crossing a page boundary gets its next page just in time; if the
@@ -439,16 +440,28 @@ class PagedEngine:
                  max_cached_buckets: int = 8, prefix_cache: bool = False,
                  chunk_tokens: Optional[int] = None,
                  draft_model=None, draft_params=None, spec_tokens: int = 0):
-        if chunk_tokens is not None and (chunk_tokens <= 0
-                                         or chunk_tokens % page_size):
-            raise ValueError(f"chunk_tokens={chunk_tokens} must be a positive "
-                             f"multiple of page_size={page_size}")
+        # the fast paths address KV pages by position; a recurrent stack's
+        # per-slot state can be neither shared, re-entered nor stepped by k
+        attn_only = all(model.cfg.layer_kind(i) in ("attn", "local", "moe")
+                        for i in range(model.cfg.num_layers))
+        if prefix_cache and not attn_only:
+            raise ValueError(
+                "prefix caching shares position-addressable KV pages; "
+                f"{model.cfg.name} has recurrent layers")
+        if chunk_tokens is not None:
+            if not attn_only:
+                raise ValueError(
+                    "chunked prefill re-enters the prompt mid-stream; "
+                    f"{model.cfg.name}'s recurrent state cannot")
+            if chunk_tokens <= 0 or chunk_tokens % page_size:
+                raise ValueError(
+                    f"chunk_tokens={chunk_tokens} must be a positive "
+                    f"multiple of page_size={page_size}")
         if draft_model is not None:
             if spec_tokens < 2:
                 raise ValueError("speculative decoding needs spec_tokens"
                                  " >= 2 (1 draft + 1 correction minimum)")
-            if not all(model.cfg.layer_kind(i) in ("attn", "local", "moe")
-                       for i in range(model.cfg.num_layers)):
+            if not attn_only:
                 raise ValueError("speculative verify needs an attention-"
                                  f"only stack; {model.cfg.name} is hybrid")
             if temperature != 0.0:

@@ -106,7 +106,28 @@ def test_act_grad_matches_jax_vjp(act):
     g = rng.standard_normal(4096).astype(np.float32)
     want = np.asarray(j_act_grad(act, jnp.asarray(x), jnp.asarray(g)))
     got = _act_grad(act, torch.from_numpy(x), torch.from_numpy(g)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                               err_msg=_by_vector(got, want, 1e-5, 1e-5))
+
+
+def _by_vector(got, want, rtol, atol, lanes=16) -> str:
+    """Where ``got`` misses ``want`` (assert_allclose's rule), grouped by
+    aligned ``lanes``-element vectors (a 512-bit register of fp32): the
+    wrong elements, the vectors they touch, how many of those are wrong in
+    every lane, and the first vectors' wrong lanes. Empty when all hold."""
+    bad = np.abs(got - want) > atol + rtol * np.abs(want)
+    if not bad.any():
+        return ""
+    per = bad.reshape(-1, lanes).sum(axis=1)
+    touched = np.nonzero(per)[0]
+    whole = int((per == lanes).sum())
+    first = {int(v): np.nonzero(bad[v * lanes:(v + 1) * lanes])[0].tolist()
+             for v in touched[:8]}
+    return (f"{int(bad.sum())} of {bad.size} wrong, in {len(touched)} of "
+            f"{per.size} aligned {lanes}-lane vectors, {whole} of them "
+            f"wrong in every lane (whole vectors only: "
+            f"{bool(whole * lanes == bad.sum())}); wrong lanes of the first "
+            f"vectors {first}")
 
 
 EPILOGUES = {

@@ -100,9 +100,12 @@ def test_constants_match_the_kernel():
     assert const("BLOCKS_PER_SM") == decode.BLOCKS_PER_SM
     assert const("MIN_SPLIT_TILES") == decode.MIN_SPLIT_TILES
     stages = re.search(r"int STAGES = D == 64 \? (\d+) : (\d+);", src)
-    assert {64: int(stages.group(1)), 128: int(stages.group(2))} \
-        == decode.STAGES
+    assert {d: int(stages.group(1 if d == 64 else 2))
+            for d in decode.HEAD_DIMS} == decode.STAGES
     assert min(decode.STAGES.values()) >= 3
+    # head_dim 256 keeps q in shared memory, rows padded by 16 bytes
+    assert re.search(r"bool QSMEM = D > 128;", src)
+    assert re.search(r"int QROW = 2 \* D \+ 16;", src)
 
 
 # ---------------------------------------------------------------------------
@@ -424,3 +427,87 @@ def test_emulation_splits_at_these_shapes():
         units = decode.decode_units(B, HKV, rows)
         assert decode.plan_decode(units, n_tiles, SMS)[0] > 1
     assert math.isclose(LOG2E, 1 / math.log(2))
+
+
+# recurrentgemma-2b's decode: one kv head, G 10 query rows, head_dim 256;
+# the ring wraps past its slots, a window; paged at T 1 (the few-row body)
+# and T 4 (40 rows: the many-row body)
+D256_CASES = {
+    # paged, page, T, slots or keys, lengths, window
+    "ring_wrap_window": (False, None, 1, 576, [700, 300], 200),
+    "ring_dense": (False, None, 1, 576, [576, 65], None),
+    "paged_t1_window": (True, 64, 1, 576, [530, 97], 200),
+    "paged_page16_t4": (True, 16, 4, 576, [300, 41], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_emulation_at_head_dim_256(case):
+    """The emulated kernel at head_dim 256 and G 10 (MQA) against the plain
+    versions and the reference's decode kernels in interpret mode, at the
+    tolerances of the head_dim 64 cases."""
+    paged, page, t, keys, lengths, window = D256_CASES[case]
+    b, hkv, g, d = 2, 1, 10, 256
+    rows = g * t
+    rng = np.random.default_rng(23)
+    scale = d ** -0.5
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    if paged:
+        mp = keys // page
+        n_pages = b * mp + 1
+        kp = _bf16(rng.standard_normal((n_pages, hkv, page, d))
+                   .astype(np.float32))
+        vp = _bf16(rng.standard_normal((n_pages, hkv, page, d))
+                   .astype(np.float32))
+        q4 = _bf16(rng.standard_normal((b, hkv * g, t, d)).astype(np.float32))
+        q = q4.reshape(b, hkv, rows, d)
+        table = np.zeros((b, mp), np.int32)
+        perm = rng.permutation(np.arange(1, n_pages))
+        for i, n in enumerate(lengths):
+            table[i, :-(-n // page)] = perm[i * mp:i * mp - (-n // page)]
+        pt = torch.from_numpy(table)
+        kg = kp[pt.long()].transpose(1, 2).reshape(b, hkv, keys, d)
+        vg = vp[pt.long()].transpose(1, 2).reshape(b, hkv, keys, d)
+        valid = torch.from_numpy(np.stack(
+            [_paged_valid(n, keys, rows, t, window) for n in lengths]))
+
+        def live(bi, r0, nr):
+            return decode.live_key_tiles(int(lens[bi]), keys, r0=r0, nr=nr,
+                                         q_tokens=t, window=window)
+        o, m, l = decode_partials_paged_ref(q, kp, vp, pt, lens,
+                                            window=window, scale=scale,
+                                            q_tokens=t)
+        ref = j_attention_decode_paged(
+            jnp.asarray(q4.numpy()), jnp.asarray(kp.numpy()),
+            jnp.asarray(vp.numpy()), jnp.asarray(table),
+            jnp.asarray(lengths), window=window, mode="pallas_interpret")
+    else:
+        q = _bf16(rng.standard_normal((b, hkv, g, d)).astype(np.float32))
+        kg = _bf16(rng.standard_normal((b, hkv, keys, d)).astype(np.float32))
+        vg = _bf16(rng.standard_normal((b, hkv, keys, d)).astype(np.float32))
+        valid = _ring_valid_batch(lens, keys, window)[:, None, :].expand(
+            b, g, keys)
+
+        def live(bi, r0, nr):
+            return decode.live_key_tiles(int(lens[bi]), keys, window=window,
+                                         paged=False)
+        o, m, l = decode_partials_ref(q, kg, vg, lens, window=window,
+                                      scale=scale)
+        pol = make_policy("attention_decode", block_m=g, block_n=64,
+                          block_k=d, in_dtype="float32")
+        ref = j_attention_decode(
+            jnp.asarray(q.reshape(b, hkv * g, 1, d).numpy()),
+            jnp.asarray(kg.numpy()), jnp.asarray(vg.numpy()),
+            jnp.asarray(lens.numpy()), window=window, policy=pol,
+            mode="pallas_interpret")
+    assert decode.rows_per_unit(rows) == (decode.FEW_ROWS if t == 1
+                                          else decode.ROW_TILE)
+    emu = {rp: _emulate(q, kg, vg, valid, live, sms=SMS, scale=scale,
+                        softcap=None, sinks=None, round_p=rp)
+           for rp in (False, True)}
+    plain = combine_splits(o, m, l)
+    for want in (plain.numpy(), np.asarray(ref).reshape(b, hkv, rows, d)):
+        np.testing.assert_allclose(emu[False].numpy(), want, rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(emu[True].numpy(), want, rtol=0,
+                                   atol=1e-2)

@@ -5,7 +5,7 @@ batch) in the order of ``plan_fwd_blocks``; each item runs the key tiles of
 ``fwd_key_range`` and masks only the tiles ``fwd_tile_needs_mask`` names.
 Here: the plan covers every visible (q, k) pair exactly once and each q
 tile's key range is exactly the key tiles it sees, under causal, window,
-cross and ragged lengths at head_dim 64 and 128; causal items come longest
+cross and ragged lengths at head_dim 64, 128 and 256; causal items come longest
 first and the query heads of one key head are adjacent; the tile sizes and
 the ring depth are the kernel's; the TMA view check accepts the views the
 model hands over and refuses a bad start, stride or layout; the bound
@@ -75,7 +75,7 @@ def _check_plan(sq, skv, causal, window, d):
         sq, skv, causal=causal, window=window)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", LENGTHS)
@@ -83,13 +83,13 @@ def test_fwd_plan_covers_every_visible_pair_once(s, causal, window, d):
     _check_plan(s, s, causal, window, d)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("sq,skv,causal,window", CROSS)
 def test_fwd_plan_covers_cross_lengths(sq, skv, causal, window, d):
     _check_plan(sq, skv, causal, window, d)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("s", LENGTHS)
 def test_fwd_plan_orders_causal_items_longest_first(s, window, d):
@@ -126,10 +126,19 @@ def test_fwd_tile_sizes_match_the_kernel():
     assert int(re.search(r"constexpr int BQ = (\d+);", source).group(1)) \
         == ops.FWD_Q_TILE
     bkv = re.search(r"int BKV = D == 64 \? (\d+) : (\d+);", source)
-    assert (int(bkv.group(1)), int(bkv.group(2))) \
-        == (ops.fwd_key_tile(64), ops.fwd_key_tile(128))
-    assert int(re.search(r"constexpr int STAGES = (\d+);", source).group(1)) \
-        == ops.FWD_STAGES
+    stages = re.search(r"int STAGES = D == 256 \? (\d+) : (\d+);", source)
+    qbufs = re.search(r"int QBUFS = D == 256 \? (\d+) : (\d+);", source)
+    tiles = {}
+    for d in ops.HEAD_DIMS:
+        assert int(bkv.group(1 if d == 64 else 2)) == ops.fwd_key_tile(d)
+        assert int(stages.group(1 if d == 256 else 2)) == ops.fwd_stages(d)
+        assert int(qbufs.group(1 if d == 256 else 2)) == ops.fwd_q_buffers(d)
+        # the q tiles and the ring's K and V tiles, bf16: within the 227 KB
+        # a block may take, the barriers aside
+        tiles[d] = 2 * d * (ops.fwd_q_buffers(d) * ops.FWD_Q_TILE
+                            + 2 * ops.fwd_stages(d) * ops.fwd_key_tile(d))
+        assert tiles[d] <= 232448 - 2048
+    assert tiles[256] == 192 * 1024
 
 
 def test_forward_work_by_hand():
@@ -161,7 +170,7 @@ def _model_views(b=2, s=96, h=32, hkv=8, d=64):
     return q, k, v
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_tma_check_accepts_the_model_views(d):
     for name, t in zip("qkv", _model_views(d=d)):
         ops.check_tma_view(t, name)
@@ -249,6 +258,9 @@ EMULATED = {
     "softcap": (1, 4, 1, 200, 200, 64, dict(causal=True, softcap=5.0)),
     "noncausal_cross": (1, 2, 2, 70, 130, 64, dict(causal=False)),
     "d128_window": (1, 2, 1, 140, 140, 128, dict(causal=True, window=40)),
+    "d256_window_mqa": (1, 10, 1, 300, 300, 256,
+                        dict(causal=True, window=200)),
+    "d256_noncausal": (1, 2, 1, 70, 130, 256, dict(causal=False)),
     "empty_rows": (1, 2, 1, 300, 130, 64, dict(causal=True, window=40)),
 }
 
@@ -275,7 +287,8 @@ def test_emulated_tiling_matches_the_plain_version(case):
         assert (out[:, :, skv + 40:] == 0).all()
 
 
-@pytest.mark.parametrize("case", ["causal_gqa", "window", "softcap"])
+@pytest.mark.parametrize("case", ["causal_gqa", "window", "softcap",
+                                  "d256_window_mqa"])
 def test_emulated_tiling_matches_the_jax_kernel(case):
     """The emulation against the reference's _fwd_kernel in interpret mode
     (fp32, the tolerance of tests/test_torch_attention.py), out and lse,
