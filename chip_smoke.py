@@ -48,7 +48,10 @@ Phases, each of which raises on failure (exit code non-zero):
    bound; the gelu up projections' forward also saving their preact as
    the training forward does; the GEMM backward at mixtral-8x7b's
    training GEMMs (phase 13: M 4096, q|k + rope at head_dim 128, v, an
-   expert's gated up with no prologue and its down with no epilogue);
+   expert's gated up with no prologue and its down with no epilogue) and
+   at recurrentgemma-2b's (phase 16: M 8192, q|k N 2816 and v N 256 on
+   the rmsnorm prologue, the geglu up, 2 x N 7680, from its two saved
+   preacts, the down K 7680 with the residual);
    the flash backward whole, its main kernel
    and its dq conversion timed apart, at llama's training shape, bert's
    non-causal 8 x 512, whisper's encoder over 1500 frames, its decoder's
@@ -315,7 +318,28 @@ Phases, each of which raises on failure (exit code non-zero):
    of its prompt alone (equal, or apart where the Engine step's top-2
    margin is under the two routes' logit distance). Prints tokens/s, the
    init time, the peak memory and the phase's seconds.
-16. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+16. recurrentgemma-2b trained at published width cut to 6 layers (two
+   periods of ('rg', 'rg', 'local'), the stacked layout; 1.17 B
+   parameters), 2 x 4096 tokens a step, past the 2048-token window,
+   seeded weights at a trained model's scale (``trained_scale``, the tied
+   embedding's over d_model). (a) With phase 3: the flash backward at
+   head_dim 256 at that shape (10 query heads over one kv head, causal in
+   the window) and at B 4, S 1024 with no window, held as phase 3's
+   flash-backward rows, timed whole and as its main kernel, delta,
+   zeroing and conversion, beside its bound and SDPA's backward (the
+   window as a mask); the forward GEMM and the GEMM backward at its four
+   training GEMMs (M 8192); RoPE at its q and k (rung 2) and the
+   backward at its q. (b) Per-leaf grads of ``lm_loss`` in kernel mode
+   within 2x the plain bf16 path's distance from fp32 + 1e-3 (phase 6a's
+   bound).
+   (c) 8 steps of ``train_loop`` in kernel mode beside the plain bf16 and
+   fp32 curves, held to 2.5x + 0.05; launches exact by block kind (per
+   'rg' layer and step 4 ``gemm_fused`` and 2 of each GEMM-backward
+   launch; per 'local' layer 8 ``gemm_fused``, 4 of each GEMM-backward
+   launch, 2 flash forward, 2 flash backward and 6 RoPE). Prints
+   tokens/s (the median step after the first), the peak memory and a
+   traced step's busy share and device ms by kernel family.
+17. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -435,6 +459,14 @@ RG_BATCH, RG_PROMPT, RG_NEW, RG_REQUESTS = 4, 2304, 32, 8
 RG_SHORTEST = 2100
 RG_PAGED, RG_PAGES, RG_PAGED_LENS = 16, 40, (200, 2300)
 RG_PHASES = ("15b", "15c")
+# phase 16: recurrentgemma-2b trained at published width, cut to
+# RG_TRAIN_LAYERS layers (two periods of its pattern, so the stacked
+# blocks_{i} layout: 1.17 B parameters, ~28 GB of AdamW state at ~24 bytes
+# a parameter; its 26 layers are 2.89 B, ~69.5 GB), RG_TRAIN_BATCH x
+# RG_TRAIN_SEQ tokens a step (past the 2048-token window), TRAIN_STEPS steps
+RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ = 6, 2, 4096
+# the phases whose launches are phase 16's path (16b only checks grads)
+RG_TRAIN_PHASES = ("16c",)
 # the largest share of token-layer expert choices on which the fp32
 # router, along the kernel path's teacher-forced run, may pick another
 # expert set than the kernel path (near ties flip under bf16 rounding; a
@@ -745,9 +777,11 @@ def rg_gemm_cases(dev, gen):
     rope store cannot hold a head, so no rope, rung 2) and v (N 256) on
     the rmsnorm prologue, every block's geglu up (2 x N 7680, the gated
     gelu store) on it and its down (K 7680) with the residual store, at
-    M = RG_BATCH x RG_PROMPT and at a decode step's M = RG_BATCH (where
-    the path runs the up and down; its q|k and v are plain products). The
-    weights at std K^-1/2."""
+    M = RG_BATCH x RG_PROMPT, at phase 16's training M = RG_TRAIN_BATCH x
+    RG_TRAIN_SEQ (the up saving its two preacts, as the training forward
+    does) and at a decode step's M = RG_BATCH (where the path runs the up
+    and down; its q|k and v are plain products). The weights at std
+    K^-1/2."""
     cfg = get_config(RG_ARCH)
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     bf16 = torch.bfloat16
@@ -765,15 +799,17 @@ def rg_gemm_cases(dev, gen):
     up = dict(epilogue=Epilogue(activation="gelu", gate=True), b2=w_in, **rms)
     res = Epilogue(residual=True, scale=True)
     cases = []
-    for tag, m in (("prefill", RG_BATCH * RG_PROMPT), ("decode", RG_BATCH)):
+    for tag, m in (("prefill", RG_BATCH * RG_PROMPT),
+                   ("train", RG_TRAIN_BATCH * RG_TRAIN_SEQ),
+                   ("decode", RG_BATCH)):
         x = rnd(m, d)
         cases += [
-            (f"rg_{tag}_qk", x, w_qk, dict(**rms)),
-            (f"rg_{tag}_v", x, w_v, dict(**rms)),
-            (f"rg_{tag}_up_geglu", x, w_gate, dict(up)),
+            (f"rg_{tag}_qk", x, w_qk, dict(**rms), False),
+            (f"rg_{tag}_v", x, w_v, dict(**rms), False),
+            (f"rg_{tag}_up_geglu", x, w_gate, dict(up), tag == "train"),
             (f"rg_{tag}_down", rnd(m, f), w_out,
-             dict(epilogue=res, residual=rnd(m, d), scale=1.0))]
-    return [(*c, False) for c in cases]
+             dict(epilogue=res, residual=rnd(m, d), scale=1.0), False)]
+    return cases
 
 
 def verify_gemm_cases(cfg, dev, gen):
@@ -1248,15 +1284,8 @@ def flash_row(case, q, k, v, causal, timer, window=None):
                                  window=window)
     b_ms, b_by = bound(work["bytes"], (work["flops"], PEAK_BF16))
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    lib = dict(is_causal=causal)
-    if window is not None:
-        # the plain version's mask: query i sees key j iff i - j < window
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        mask = qpos - kpos < window
-        if causal:
-            mask &= qpos >= kpos
-        lib = dict(attn_mask=mask)
+    lib = (dict(is_causal=causal) if window is None else
+           dict(attn_mask=window_mask(sq, skv, causal, window, q.device)))
     row = dict(
         case=case, shape=[b, h, hkv, sq, skv, hd],
         max_abs_err=max(err, lse_err), tolerance=tol, ms=timer.ms(kernel),
@@ -1861,6 +1890,16 @@ def moe_train_gemm_cases(dev, gen):
     ]
 
 
+def rg_train_gemm_cases(dev, gen):
+    """recurrentgemma-2b's training GEMMs (phase 16) as (name, a, b,
+    kwargs): ``rg_gemm_cases``' rows at M = RG_TRAIN_BATCH x RG_TRAIN_SEQ
+    (q|k N 2816 and v N 256 on the rmsnorm prologue, the geglu up, its
+    gated gelu from two saved preacts, and the down K 7680 with the
+    residual)."""
+    return [c[:4] for c in rg_gemm_cases(dev, gen)
+            if c[0].startswith("rg_train_")]
+
+
 def encoder_train_gemm_cases(dev, gen):
     """ENCODER_TRAIN_GEMMS as (name, a, b, kwargs): the weights at std
     K^-1/2, gamma about 1, beta at std 0.5."""
@@ -1911,8 +1950,9 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     timed apart, with its own bytes bound: dAn, A, the statistics and gamma
     read, dA and the dgamma and dbeta partials written) and dB, each
     against its plain version at the forward's statistics; at llama-1b's
-    training shapes, at ENCODER_TRAIN_GEMMS and at mixtral-8x7b's
-    (``moe_train_gemm_cases``). Bounds: the
+    training shapes, at ENCODER_TRAIN_GEMMS, at mixtral-8x7b's
+    (``moe_train_gemm_cases``) and at recurrentgemma-2b's
+    (``rg_train_gemm_cases``). Bounds: the
     operand pass by its bytes (g, preacts, tables, A, gamma, beta and the
     statistics read; gbar, gbar_t, a_t written once); dA and dB by their own operands and
     outputs, or 2 M N K operations per product at the bf16 peak. Library
@@ -1928,7 +1968,8 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     whole = []
     for name, a, b, kw in (train_gemm_cases(cfg, dev, gen)
                            + encoder_train_gemm_cases(dev, gen)
-                           + moe_train_gemm_cases(dev, gen)):
+                           + moe_train_gemm_cases(dev, gen)
+                           + rg_train_gemm_cases(dev, gen)):
         ep = kw.get("epilogue", EPILOGUE_NONE)
         pro = kw.get("prologue", PROLOGUE_NONE)
         _, rstd, preacts = gemm_forward(
@@ -2198,13 +2239,51 @@ def measure_flash_bwd(cfg, dev, gen, timer, old=None):
     return rows
 
 
-def flash_bwd_truth(args, causal):
+def measure_rg_flash_bwd(dev, gen, timer) -> list:
+    """Phase 16a: the flash backward at head_dim 256, recurrentgemma-2b's
+    10 query heads over one kv head, against its plain version as phase
+    3's rows are held (``flash_bwd_row``): at phase 16's training shape,
+    B RG_TRAIN_BATCH, S RG_TRAIN_SEQ causal in the 2048-token window, and
+    at B 4, S 1024 causal with no window; q and k views of the packed q|k
+    projection, v of its own, dO the strided cotangent."""
+    cfg = get_config(RG_ARCH)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    rows = []
+    for case, bsz, seq, window in (
+            ("rg_train_window", RG_TRAIN_BATCH, RG_TRAIN_SEQ,
+             cfg.rglru.local_window), ("rg_s1024", 4, 1024, None)):
+        qk = rnd(bsz, seq, (h + hkv) * hd)
+        q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
+        k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
+        v = rnd(bsz, seq, hkv * hd).reshape(bsz, seq, hkv, hd).transpose(1, 2)
+        do = rnd(bsz, seq, h, hd).transpose(1, 2)
+        r = flash_bwd_row(case, q, k, v, do, True, timer, window=window)
+        log(f"[16a] flash_attention_bwd[{case}] head_dim 256: whole "
+            f"{r['ms'] * 1e3:.1f} us (main {r['main']['ms'] * 1e3:.1f}, "
+            f"delta {r['delta_ms'] * 1e3:.1f}, zeroing "
+            f"{r['zero_ms'] * 1e3:.1f}, conversion "
+            f"{r['convert']['ms'] * 1e3:.1f}), plain "
+            f"{r['plain_ms'] * 1e3:.1f} us, SDPA backward "
+            f"{r['library_ms'] * 1e3:.1f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); timer floor "
+            f"{timer.floor() * 1e3:.2f} us")
+        rows.append(r)
+        del q, k, v, do, qk
+    return rows
+
+
+def flash_bwd_truth(args, causal, window=None):
     """(dq, dk, dv) of the plain version in fp32 throughout: its inputs
     upcast, so p and ds are not rounded to bf16 before their products."""
     q, k, v, out, lse, do = args
     f = lambda t: t.float()
     return flash_attention_bwd_ref(f(q), f(k), f(v), f(out), lse, f(do),
-                                   causal=causal)
+                                   causal=causal, window=window)
 
 
 # entries of one flash-backward gradient that the fp32 truth may decide
@@ -2213,7 +2292,7 @@ def flash_bwd_truth(args, causal):
 TRUTH_TAIL = 1
 
 
-def dq_ds_ties(args, causal, ix, ulps: float = 8.0) -> list:
+def dq_ds_ties(args, causal, ix, ulps: float = 8.0, window=None) -> list:
     """The keys of dq entry ``ix``'s row whose ds (fp64, from the bf16
     inputs and the saved lse) lies within ``ulps`` fp32 ulps of a midpoint
     between two bf16 values, where two correct fp32 versions may round it
@@ -2225,8 +2304,9 @@ def dq_ds_ties(args, causal, ix, ulps: float = 8.0) -> list:
     h, hkv, d = q.shape[1], k.shape[1], q.shape[-1]
     hk = hh // (h // hkv)
     n = i + 1 if causal else k.shape[2]
+    lo = max(0, i - window + 1) if window else 0   # the window's first key
     f = torch.float64
-    kk, vv = k[b, hk, :n].to(f), v[b, hk, :n].to(f)
+    kk, vv = k[b, hk, lo:n].to(f), v[b, hk, lo:n].to(f)
     p = torch.exp(kk @ q[b, hh, i].to(f) * d ** -0.5 - lse[b, hh, i].to(f))
     delta = (do[b, hh, i].to(f) * out[b, hh, i].to(f)).sum()
     ds = p * (vv @ do[b, hh, i].to(f) - delta) * d ** -0.5
@@ -2234,7 +2314,7 @@ def dq_ds_ties(args, causal, ix, ulps: float = 8.0) -> list:
     ulp = torch.exp2(e - 7)                     # bf16: 8 significant bits
     dist = (ds - (torch.floor(ds / ulp) + 0.5) * ulp).abs() / torch.exp2(
         e - 23)                                 # in fp32 ulps
-    return [dict(key=j, ds=ds[j].item(), ulps=dist[j].item(),
+    return [dict(key=lo + j, ds=ds[j].item(), ulps=dist[j].item(),
                  shift=(ulp[j] * kk[j, c]).item())
             for j in (dist <= ulps).nonzero().flatten().tolist()]
 
@@ -2297,13 +2377,28 @@ def check_close_to_truth(name, got, want, rtol, atol_frac, truth,
             f"of the fp32 truth at {TRUTH_TAIL} entry at most", n_bad)
 
 
-def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
-    """One row of :func:`measure_flash_bwd`."""
+def window_mask(sq, skv, causal, window, dev):
+    """The plain version's mask as SDPA's boolean ``attn_mask``: query i
+    sees key j iff i - j < window (and j <= i where causal)."""
+    qpos = torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(skv, device=dev)[None, :]
+    mask = qpos - kpos < window
+    if causal:
+        mask &= qpos >= kpos
+    return mask
+
+
+def flash_bwd_row(case, q, k, v, do, causal, timer, old=None,
+                  window=None) -> dict:
+    """One row of :func:`measure_flash_bwd` (and of phase 16a's, with a
+    ``window``: SDPA's yardstick then takes it as an explicit mask)."""
     bsz, h, seq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
     args = (q, k, v, out, lse, do)
-    opts = dict(causal=causal, window=None, logit_scale=None, softcap=None)
+    opts = dict(causal=causal, window=window, logit_scale=None, softcap=None)
+    masks = (dict(is_causal=causal) if window is None else
+             dict(attn_mask=window_mask(seq, skv, causal, window, q.device)))
 
     def kernel():
         return attn_bwd.flash_attention_bwd(*args, **opts)
@@ -2313,8 +2408,8 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
     lib_stream = torch.cuda.Stream()
     lib_stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(lib_stream):
-        ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal,
-                                                 enable_gqa=True)
+        ref_out = F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True,
+                                                 **masks)
 
     def library():
         return torch.autograd.grad(ref_out, (qc, kc, vc), doc,
@@ -2324,7 +2419,7 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
         lib = library()
     torch.cuda.current_stream().wait_stream(lib_stream)
     got = kernel()
-    want = flash_attention_bwd_ref(*args, causal=causal)
+    want = flash_attention_bwd_ref(*args, causal=causal, window=window)
     old_fn = (None if old is None or old["flash_bwd"] is None
               else baseline_flash_bwd(old["flash_bwd"], args))
     old_got = None if old_fn is None else old_fn()
@@ -2336,8 +2431,9 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
         w_ = want[i]
         e, tol, decided[name] = check_close_to_truth(
             f"flash_attention_bwd[{case}][{name}]", got[i], w_, 2e-2, 2e-2,
-            lambda i=i: flash_bwd_truth(args, causal)[i],
-            (lambda ix: dq_ds_ties(args, causal, ix)) if i == 0 else None)
+            lambda i=i: flash_bwd_truth(args, causal, window)[i],
+            (lambda ix: dq_ds_ties(args, causal, ix, window=window))
+            if i == 0 else None)
         err = max(err, e)
         if old_got is not None:   # the baseline computes the same function
             check_close(f"baseline flash_attention_bwd[{name}]", old_got[i],
@@ -2363,7 +2459,8 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
                 (diff.abs() > 2e-2 * wf.abs() + atol).sum()))
         del lf, wf, diff
     del got, want, lib, old_got
-    work = attn_bwd.backward_work(bsz, h, hkv, seq, skv, hd, causal=causal)
+    work = attn_bwd.backward_work(bsz, h, hkv, seq, skv, hd, causal=causal,
+                                  window=window)
     products = (work["flops"], PEAK_BF16)
     b_ms, b_by = bound(work["bytes"], products)
     main_ms, main_by = bound(work["main_bytes"], products)
@@ -2373,8 +2470,8 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
         case=case, shape=[bsz, h, hkv, seq, skv, hd], causal=causal,
         max_abs_err=err, tolerance=tol, decided_by_truth=decided,
         ms=timer.ms(kernel),
-        plain_ms=timer.ms(lambda: flash_attention_bwd_ref(*args,
-                                                          causal=causal)),
+        plain_ms=timer.ms(lambda: flash_attention_bwd_ref(
+            *args, causal=causal, window=window)),
         library_ms=timer.ms(library, stream=lib_stream),
         library_vs_plain=lib_err, bound_ms=b_ms, bound_by=b_by,
         main=dict(replaces=["src/repro/kernels/attention/kernel_bwd.py:71",
@@ -2386,6 +2483,8 @@ def flash_bwd_row(case, q, k, v, do, causal, timer, old=None) -> dict:
         # the whole's plain-torch parts: delta and the workspace's zeroing
         delta_ms=timer.ms(lambda: attn_bwd.attention_delta(out, do)),
         zero_ms=timer.ms(lambda: torch.zeros_like(run.dq_acc)))
+    if window is not None:
+        row["window"] = window
     if old_fn is not None:
         turns = [timer.ms(old_fn), timer.ms(kernel), timer.ms(kernel),
                  timer.ms(old_fn)]
@@ -2434,28 +2533,32 @@ def baseline_rope(kern, x, sin, cos, sign):
 def measure_rope(cfg, dev, gen, timer, clean, old=None):
     """The standalone RoPE at the ladder's rung-2 shapes: prefill (B 4, S
     256) and training (B 4, S 1024) q and k as the model hands them over,
-    strided views of the bf16 q|k GEMM output; and the backward (the kernel
-    with -sin) at the training q shape on a contiguous cotangent, as the
-    flash backward hands it over. Plain version: rope_ref (the backward's
+    strided views of the bf16 q|k GEMM output, and recurrentgemma-2b's
+    (phase 16: B 2, S 4096, 10 query heads and one kv head at head_dim
+    256); and the backward (the kernel with -sin) at each training q
+    shape on a contiguous cotangent, as the flash backward hands it over.
+    Plain version: rope_ref (the backward's
     with -sin). Bound: x read once, the output written once and both (S, D)
     tables read once; 6 operations a pair are far below the bytes. Also
     timed from a clean L2 (``clean``); with ``old`` (baseline_kernels), the
     earlier kernel, bit for bit the plain version too, in turns with this
     one."""
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bf16 = torch.bfloat16
     rows = []
-    for stage, bsz, seq in (("prefill", BATCH, PROMPT),
-                            ("train", TRAIN_BATCH, TRAIN_SEQ)):
+    for stage, c, bsz, seq in (
+            ("prefill", cfg, BATCH, PROMPT),
+            ("train", cfg, TRAIN_BATCH, TRAIN_SEQ),
+            ("rg_train", get_config(RG_ARCH), RG_TRAIN_BATCH, RG_TRAIN_SEQ)):
+        h, hkv, hd = c.num_heads, c.num_kv_heads, c.head_dim
         qk = torch.randn(bsz, seq, (h + hkv) * hd, generator=gen,
                          device=dev).to(bf16)
         q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
         k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
         sin, cos = rope_tables(torch.arange(seq, device=dev), hd,
-                               cfg.rope_theta)
+                               c.rope_theta)
         cases = [(f"{stage}_q", q, 1.0), (f"{stage}_k", k, 1.0)]
-        if stage == "train":
-            cases.append(("train_q_bwd", torch.randn(
+        if stage != "prefill":
+            cases.append((f"{stage}_q_bwd", torch.randn(
                 q.shape, generator=gen, device=dev).to(bf16), -1.0))
         for name, x, sign in cases:
             def kernel(x=x, sign=sign):
@@ -3114,10 +3217,9 @@ def expected_train_launches(cfg, steps: int) -> dict:
             "flash_attention_bwd": 2 * n}
 
 
-def train_data(cfg, dev):
-    return DataIterator(DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=TRAIN_SEQ,
-                                   global_batch=TRAIN_BATCH), device=dev)
+def train_data(cfg, dev, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
+    return DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch), device=dev)
 
 
 def trained_scale(model, params) -> dict:
@@ -3183,10 +3285,12 @@ def run_grad_check(dev) -> dict:
 
 def train_curve(cfg, mode, dtype, dev, steps: int = TRAIN_STEPS,
                 qkv_plan: str = "rope_fused", trained: bool = False,
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
                 **loop_kw) -> dict:
-    """``steps`` steps of train_loop from seed 0 on the ported data, on the
-    schedule of a TRAIN_STEPS-step run; with ``trained`` from the seeded
-    weights at a trained model's scale (``trained_scale``); ``loop_kw`` to
+    """``steps`` steps of train_loop from seed 0 on the ported data
+    (``batch`` x ``seq`` tokens a step), on the schedule of a
+    TRAIN_STEPS-step run; with ``trained`` from the seeded weights at a
+    trained model's scale (``trained_scale``); ``loop_kw`` to
     train_loop."""
     model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
                         mode=mode, device=dev, qkv_plan=qkv_plan)
@@ -3194,7 +3298,7 @@ def train_curve(cfg, mode, dtype, dev, steps: int = TRAIN_STEPS,
         loop_kw["params"] = trained_scale(
             model, model.init(seed=0, dtype=cfg.param_dtype))
     opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
-    data = train_data(cfg, dev)
+    data = train_data(cfg, dev, batch, seq)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -4959,6 +5063,144 @@ def run_recurrentgemma(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: recurrentgemma-2b trained
+# ---------------------------------------------------------------------------
+
+def rg_train_cfg():
+    return dataclasses.replace(get_config(RG_ARCH), num_layers=RG_TRAIN_LAYERS)
+
+
+def expected_rg_train_launches(cfg, steps: int) -> dict:
+    """Per layer and step of the hybrid stack under remat_policy='full', by
+    block kind: an 'rg' block's 2 fused GEMMs (the geglu up and the down),
+    a 'local' block's 4 (rung 2 at head_dim 256: q|k and v on the norm
+    prologue, then the MLP's), each again in the backward's recompute and
+    each with its backward's operand pass, dA and dB; a 'local' block's
+    flash forward twice, the flash backward's two launches (the main
+    kernel and the dq conversion), and 6 RoPE launches (q and k in the
+    forward, in the recompute and in the backward). The recurrence is
+    plain torch."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    n_rg, n_local = kinds.count("rg") * steps, kinds.count("local") * steps
+    g = 2 * n_rg + 4 * n_local
+    return {**no_launches(), "gemm_fused": 2 * g, "gemm_bwd_g": g,
+            "gemm_bwd_da": g, "gemm_bwd_db": g,
+            "flash_attention_fwd": 2 * n_local,
+            "flash_attention_bwd": 2 * n_local, "rope": 6 * n_local}
+
+
+def run_rg_grad_check(dev) -> dict:
+    """Phase 16b: per-leaf grads of lm_loss at recurrentgemma-2b's
+    published width cut to RG_TRAIN_LAYERS layers, one batch of
+    RG_TRAIN_BATCH x RG_TRAIN_SEQ tokens, weights at a trained model's
+    scale: kernel mode against the fp32 truth within 2x the plain bf16
+    path's distance + 1e-3 (phase 6a's bound), launches exact."""
+    cfg = rg_train_cfg()
+    batch = next(train_data(cfg, dev, RG_TRAIN_BATCH, RG_TRAIN_SEQ))
+
+    def grads(mode, dtype):
+        model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
+                            mode=mode, device=dev)
+        params = tree_map(lambda t: t.requires_grad_(), trained_scale(
+            model, model.init(seed=0, dtype=cfg.param_dtype)))
+        kernels.reset_launch_counts()
+        loss, _, g = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        named = {path: x.float() for (path, _), x
+                 in zip(named_leaves(params), g)}
+        return float(loss), named, kernels.launch_counts()
+
+    t0 = time.perf_counter()
+    k_loss, kern, counts = grads("kernel", "bfloat16")
+    want = expected_rg_train_launches(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"[16b] launches {counts}; one step of "
+                             f"{cfg.num_layers} layers makes {want}")
+    p_loss, plain, _ = grads("reference", "bfloat16")
+    t_loss, truth, _ = grads("reference", "float32")
+    worst, per_leaf = 0.0, {}
+    for path, t_ in truth.items():
+        k_, p_ = kern[path], plain[path]
+        k_err = (k_ - t_).abs().max().item()
+        p_err = (p_ - t_).abs().max().item()
+        per_leaf[path] = {"kernel_err": k_err, "plain_err": p_err,
+                          "truth_max": t_.abs().max().item()}
+        if not k_err <= 2.0 * p_err + 1e-3:
+            raise AssertionError(f"[16b] {path}: kernel-mode grad {k_err:.4g} "
+                                 f"from fp32, plain bf16 {p_err:.4g}")
+        worst = max(worst, k_err / (2.0 * p_err + 1e-3))
+    del kern, plain, truth
+    log(f"[16b] {RG_ARCH} at published width, {cfg.num_layers} layers "
+        f"({[cfg.layer_kind(i) for i in range(cfg.num_layers)]}), weights "
+        f"at std fan_in^-1/2, {RG_TRAIN_BATCH} x {RG_TRAIN_SEQ} tokens: loss "
+        f"kernel {k_loss:.5f}, plain bf16 {p_loss:.5f}, fp32 {t_loss:.5f}; "
+        f"every one of {len(per_leaf)} leaves' kernel-mode grad error within "
+        f"its bound (2 x plain bf16 error + 1e-3), at most {worst:.3f} of "
+        f"it; launches {counts}; {time.perf_counter() - t0:.1f} s")
+    return {"losses": {"kernel": k_loss, "plain": p_loss, "truth": t_loss},
+            "launches": counts, "bound_use": worst, "leaves": per_leaf}
+
+
+def run_rg_training(dev) -> dict:
+    """Phase 16c: TRAIN_STEPS steps of train_loop at 16b's config in kernel
+    mode (launches exact by block kind), then the plain bf16 and fp32
+    curves of the same steps; the step time (median after the first),
+    tokens/s, the peak memory and one traced step's busy share and device
+    ms by kernel family."""
+    cfg = rg_train_cfg()
+    t0 = time.perf_counter()
+    shape = dict(trained=True, batch=RG_TRAIN_BATCH, seq=RG_TRAIN_SEQ)
+    kern = train_curve(cfg, "kernel", "bfloat16", dev, **shape)
+    want = expected_rg_train_launches(cfg, TRAIN_STEPS)
+    losses = kern["losses"]
+    step_s = statistics.median(kern["step_seconds"][1:])
+    tokens = RG_TRAIN_BATCH * RG_TRAIN_SEQ
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    log(f"[16c] {RG_ARCH}, {cfg.num_layers} layers ({kinds.count('rg')} "
+        f"'rg', {kinds.count('local')} 'local'), remat "
+        f"{cfg.remat_policy!r}, {TRAIN_STEPS} steps of {RG_TRAIN_BATCH} x "
+        f"{RG_TRAIN_SEQ} tokens in kernel mode: losses "
+        f"{[round(x, 4) for x in losses]}; launches {kern['launches']}")
+    if kern["launches"] != want:
+        raise AssertionError(f"[16c] launches {kern['launches']}; "
+                             f"{TRAIN_STEPS} steps of the model make {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[16c] losses {losses}: not finite and falling")
+    log(f"[16c] step time {step_s:.4f} s (median of the steps after the "
+        f"first; step seconds {[round(x, 4) for x in kern['step_seconds']]}"
+        f"), {tokens / step_s:.1f} tokens/s; peak device memory "
+        f"{kern['peak_memory_gb']:.2f} GB")
+    plain = train_curve(cfg, "reference", "bfloat16", dev, **shape)
+    truth = train_curve(cfg, "reference", "float32", dev, **shape)
+    k_err = float(np.abs(np.subtract(losses, truth["losses"])).max())
+    p_err = float(np.abs(np.subtract(plain["losses"], truth["losses"])).max())
+    log(f"[16c] plain bf16 losses {[round(x, 4) for x in plain['losses']]} "
+        f"(median step {statistics.median(plain['step_seconds'][1:]):.4f} s, "
+        f"peak {plain['peak_memory_gb']:.2f} GB); fp32 "
+        f"{[round(x, 4) for x in truth['losses']]} (peak "
+        f"{truth['peak_memory_gb']:.2f} GB); the kernel curve is "
+        f"{k_err:.4g} from fp32, the plain bf16 curve {p_err:.4g} (bound "
+        f"2.5 x {p_err:.4g} + 0.05)")
+    if not k_err <= 2.5 * p_err + 0.05:
+        raise AssertionError(f"[16c] kernel curve {k_err:.4g} from the fp32 "
+                             f"truth, plain bf16 {p_err:.4g}")
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_step(build_model(cfg, mode="kernel", device=dev),
+                        RG_TRAIN_BATCH, RG_TRAIN_SEQ, warmup=1)
+    tr = prof["traced"]
+    log(f"[16c] one traced step: device busy {tr['device_busy_ms']:.1f} of "
+        f"{tr['traced_wall_ms']:.1f} ms ({tr['device_busy_share']:.3f}); "
+        f"device ms by family "
+        f"{ {k: round(v, 2) for k, v in tr['device_ms_by_family'].items()} }"
+        f"; untraced step {prof['step_s']:.4f} s; phase 16c in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": kern["launches"], "kernel": kern, "plain": plain,
+            "truth": truth, "curve_err": {"kernel": k_err, "plain": p_err},
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "peak_memory_gb": kern["peak_memory_gb"], "profile": prof}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5018,7 +5260,8 @@ def main(argv=None) -> int:
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
     measured.update(bwd_rows)
     measured.update({
-        "flash_attention_bwd": measure_flash_bwd(cfg, dev, gen, timer, old),
+        "flash_attention_bwd": (measure_flash_bwd(cfg, dev, gen, timer, old)
+                                + measure_rg_flash_bwd(dev, gen, timer)),
         "rope": measure_rope(cfg, dev, gen, timer, clean, old),
         "fused_norm": measure_fused_norm(dev, gen, timer, clean, old)})
     for name, rows in measured.items():
@@ -5094,6 +5337,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phases.update(run_recurrentgemma(dev))
     log(f"[done] phase 15 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["16b"] = run_rg_grad_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["16c"] = run_rg_training(dev)
+    log(f"[done] phase 16 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -5108,7 +5358,7 @@ def main(argv=None) -> int:
                             + ENCODER_PHASES + tuple(SPEC_RUNS)
                             + LEFTOVER_PHASES + MOE_PHASES
                             + MOE_TRAIN_PHASES + TELEMETRY_PHASES
-                            + RG_PHASES),
+                            + RG_PHASES + RG_TRAIN_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

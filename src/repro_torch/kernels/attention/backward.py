@@ -1,10 +1,11 @@
 """``flash_attention_bwd``: the flash-attention backward, one key-stationary
 kernel and a dq convert pass (``csrc/flash_bwd.cu``).
 
-A block of the main kernel owns one key tile of ``KEY_TILE`` rows of one key
-head and batch: it keeps K and V in shared memory, walks every query head of
-its GQA group and, for each, the q tiles of :func:`q_tile_range`, and
-computes the five products of each (q, k) pair (s, dp, dv, dk, dq). dk and
+A block of the main kernel owns one key tile of :func:`key_tile_rows` rows
+of one key head and batch: it keeps K and V in shared memory, walks every
+query head of its GQA group and, for each, the q tiles of
+:func:`q_tile_range`, and computes the five products of each (q, k) pair
+(s, dp, dv, dk, dq). dk and
 dv are summed over the group in fp32 inside the kernel and written once per
 key head; dq is reduce-added in fp32 into a zeroed workspace, which the
 second launch rounds to bf16. p is recomputed from the forward's saved fp32
@@ -35,41 +36,48 @@ KERNEL = CudaKernel(
     "flash_attention_bwd", "flash_bwd.cu", "flash_bwd_launch",
     [_P] * 10 + [_I] * 7 + [_L] * 12 + [_F, _F, _I, _I, _P])
 
-# head dims of the backward kernel (the forward's HEAD_DIMS also holds 256)
-BWD_HEAD_DIMS = (64, 128)
-# key rows a block of the main kernel owns (BKT in csrc/flash_bwd.cu)
-KEY_TILE = 128
+# head dims of the backward kernel: the forward's
+BWD_HEAD_DIMS = HEAD_DIMS
 # rows and columns of one sub-tile of the fp32 dq workspace
 DQ_SUB = 64
 
 
+def key_tile_rows(head_dim: int) -> int:
+    """Key rows a block of the main kernel owns (its BKT): 128 at head_dim
+    64 and 128, a warpgroup's 64 rows each; 64 at 256, where the two
+    warpgroups split the head dim of the same 64 rows."""
+    return 64 if head_dim == 256 else 128
+
+
 def q_tile_rows(head_dim: int) -> int:
     """q rows of one stage of the main kernel (its BQ): 128 at head_dim 64,
-    64 at 128, so that each consumer warpgroup owns one 64 x 64 dq
-    sub-tile."""
+    64 at 128 and 256, so that each consumer warpgroup owns one 64 x 64 dq
+    sub-tile (at 256: two, one of each of its 64-column halves)."""
     return 128 if head_dim == 64 else 64
 
 
-def q_tile_range(k0: int, sq: int, skv: int, bq: int, *, causal: bool,
-                 window: int | None) -> tuple:
+def q_tile_range(k0: int, sq: int, skv: int, bq: int, bkt: int, *,
+                 causal: bool, window: int | None) -> tuple:
     """The q tiles [lo, hi) of ``bq`` rows that hold a visible pair with the
-    key tile starting at ``k0``: from the diagonal (causal) or the first
-    row, to the window's edge or the last row; (lo, lo) when none."""
-    k1 = min(k0 + KEY_TILE, skv) - 1
+    key tile of ``bkt`` rows starting at ``k0``: from the diagonal (causal)
+    or the first row, to the window's edge or the last row; (lo, lo) when
+    none."""
+    k1 = min(k0 + bkt, skv) - 1
     first = k0 if causal else 0
     last = sq - 1
     if window:
         last = min(last, k1 + window - 1)
-    lo = first // bq
+    lo = min(first, sq) // bq
     return lo, (last // bq + 1 if first <= last else lo)
 
 
-def tile_needs_mask(k0: int, q0: int, skv: int, bq: int, *, causal: bool,
-                    window: int | None) -> bool:
-    """Whether the (q tile at q0, key tile at k0) has a masked pair: it
-    crosses the diagonal, the window's edge or the key length. The kernel
-    masks only those tiles; q rows past the length read lse = +inf."""
-    return (k0 + KEY_TILE > skv or (causal and q0 < k0 + KEY_TILE - 1)
+def tile_needs_mask(k0: int, q0: int, skv: int, bq: int, bkt: int, *,
+                    causal: bool, window: int | None) -> bool:
+    """Whether the (q tile of ``bq`` rows at q0, key tile of ``bkt`` rows at
+    k0) has a masked pair: it crosses the diagonal, the window's edge or the
+    key length. The kernel masks only those tiles; q rows past the length
+    read lse = +inf."""
+    return (k0 + bkt > skv or (causal and q0 < k0 + bkt - 1)
             or bool(window and q0 + bq - 1 - k0 >= window))
 
 
@@ -81,10 +89,10 @@ def plan_blocks(sq: int, skv: int, head_dim: int, *, causal: bool,
     Longest first: ascending key tiles (their q ranges shrink from the
     diagonal on), descending under a window without the causal mask (later
     key tiles see more rows)."""
-    bq = q_tile_rows(head_dim)
-    n_kt = -(-skv // KEY_TILE)
+    bq, bkt = q_tile_rows(head_dim), key_tile_rows(head_dim)
+    n_kt = -(-skv // bkt)
     order = range(n_kt - 1, -1, -1) if window and not causal else range(n_kt)
-    return [(kt, *q_tile_range(kt * KEY_TILE, sq, skv, bq, causal=causal,
+    return [(kt, *q_tile_range(kt * bkt, sq, skv, bq, bkt, causal=causal,
                                window=window)) for kt in order]
 
 
@@ -216,12 +224,6 @@ class FlashBwdLaunch:
                  softcap):
         b, h, sq, d = q.shape
         hkv, skv = k.shape[1], k.shape[2]
-        if d in HEAD_DIMS and d not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"attention backward kernel: head_dim {d} is served by the "
-                "forward kernel but not yet by csrc/flash_bwd.cu; it comes "
-                "with recurrentgemma-2b's training (ROADMAP Queue A item 4, "
-                "Queue B item 2)")
         if d not in BWD_HEAD_DIMS:
             raise ValueError(f"attention backward kernel: head_dim {d} not "
                              f"in {BWD_HEAD_DIMS}")

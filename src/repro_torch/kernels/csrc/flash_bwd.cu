@@ -56,6 +56,24 @@
 //   - no register spill: a trap in the consumers' barrier waits would make
 //     ptxas serialize every wgmma (C7512) and spill, so only the producer's
 //     waits trap (see wait_spin).
+// At head_dim 256 (recurrentgemma-2b's local attention: B 2, H 10, Hkv 1,
+// S 4096, window 2048 in training; 322.2 GFLOP, 326 us at 989 TFLOP/s,
+// against 143 MB, 43 us at 3.35 TB/s) that layout does not fit: 128 key
+// rows of K and V are 128 KB, three (q, dO) stages 192 KB, and dK and dV
+// of 64 key rows by 256 columns are 256 fp32 registers a thread. So the
+// d 256 body (consume_split) keeps 64 key rows a block and two stages, and
+// its warpgroups split the head dim: each holds dK and dV of all 64 keys
+// for 128 columns (128 registers, as at d 128), computes the scores of
+// half the q tile's rows, and exchanges P^T and dS^T with the other
+// through shared memory (8 KB each, double-buffered). Shared memory:
+// K + V 64 KB, two stages of q and dO 128 KB, P^T and dS^T 32 KB, lse and
+// delta 1 KB, barriers and alignment: 231,464 of 232,448 bytes. A
+// consumer thread holds dK and dV (128 fp32), S^T and dP^T of its chunk
+// (32) or the two dq sub-tiles (64) under setmaxnreg 240; ptxas reports
+// 168 registers at the 384-thread launch bound and no spill for the d 256
+// body. With Hkv 1 the grid is S / 64 x B blocks (128
+// at the training shape on 132 SMs), each walking all 10 query heads, so
+// dk and dv stay bitwise reproducible.
 // q, k, v and dO are read through rank-4 TMA maps (d, S, H, B) with their
 // strides, so the packed q|k views and the strided cotangent need no copy,
 // and a ragged S zero-fills within its head.
@@ -70,10 +88,8 @@ namespace {
 
 using sm90::smem_addr;
 
-constexpr int BKT = 128;         // key rows a block: two warpgroups of 64
 constexpr int CONSUMERS = 2;
 constexpr int THREADS = 128 * (1 + CONSUMERS);
-constexpr int STAGES = 3;        // (q, dO, lse, delta) stages in the ring
 constexpr int SUB = 64 * 64;     // floats of one dq workspace sub-tile
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -81,10 +97,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 // A q or dO tile is D/64 TMA boxes of 64 columns (128 bytes) by BQ rows; K
 // and V the same by BKT rows; dS^T is BQ/64 boxes of 64 q columns by BKT
 // key rows (the MN-major A of dq = dS K, and at d 128 the K-major A of
-// dK += dS^T q), double-buffered.
+// dK += dS^T q), double-buffered; at d 256 (SPLIT) P^T beside it, the
+// K-major A of dV += P^T dO.
 template <int D>
 struct Layout {
+  // d 256: the warpgroups split the head dim (see consume_split)
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int BKT = SPLIT ? 64 : 128;    // key rows a block
   static constexpr int BQ = D == 64 ? 128 : 64;   // q rows a stage
+  static constexpr int STAGES = SPLIT ? 2 : 3;    // (q, dO, lse, delta)
   static constexpr int NC = 32;                   // q rows a score chunk
   static constexpr int NCH = BQ / NC;
   static constexpr int BOXES = D / 64;
@@ -94,15 +115,18 @@ struct Layout {
   static constexpr int KV_BYTES = BOXES * KBOX;
   static constexpr int QT_BYTES = BOXES * QBOX;
   static constexpr int DS_BYTES = QSUB * KBOX;
+  static constexpr int TILES = SPLIT ? 2 : 1;     // dS^T (and P^T) a buffer
   static constexpr int STAGE = 2 * QT_BYTES;
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV_BYTES;
   static constexpr int DS_OFF = 2 * KV_BYTES;
-  static constexpr int ST_OFF = DS_OFF + 2 * DS_BYTES;
+  static constexpr int ST_OFF = DS_OFF + 2 * TILES * DS_BYTES;
   static constexpr int VEC_OFF = ST_OFF + STAGES * STAGE;  // lse, delta
   static constexpr int BAR_OFF = VEC_OFF + STAGES * 2 * BQ * 4;
   static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
-  static_assert(BOXES * QSUB == CONSUMERS, "a dq sub-tile per warpgroup");
+  static_assert(SPLIT ? BKT == 64 && NCH == CONSUMERS
+                      : BOXES * QSUB == CONSUMERS,
+                "a dq sub-tile per warpgroup, or a score chunk (SPLIT)");
   static_assert(SMEM <= 232448, "fits one SM's shared memory");
 };
 
@@ -119,9 +143,10 @@ struct BwdParams {
   int causal, window;          // window <= 0: none
 };
 
-// The block's key tile, key head and batch: blocks whose key tiles have
-// more q tiles first (ascending key tiles, except a window without the
-// causal mask, whose later key tiles see more q rows).
+// The block's key tile of BKT rows, key head and batch: blocks whose key
+// tiles have more q tiles first (ascending key tiles, except a window
+// without the causal mask, whose later key tiles see more q rows).
+template <int BKT>
 __device__ __forceinline__ void block_work(const BwdParams& p, int& k0,
                                            int& hk, int& b) {
   const int n_kt = (p.skv + BKT - 1) / BKT;
@@ -133,20 +158,21 @@ __device__ __forceinline__ void block_work(const BwdParams& p, int& k0,
 }
 
 // The q tiles [lo, hi) with a visible pair in the key tile at k0: from the
-// diagonal (causal) to the window's edge or the end.
-template <int BQ>
+// diagonal (causal) to the window's edge or the end; an empty range
+// starts at most at the q-tile count.
+template <int BKT, int BQ>
 __device__ __forceinline__ void q_tiles(const BwdParams& p, int k0, int& lo,
                                         int& hi) {
   const int k1 = min(k0 + BKT, p.skv) - 1;
   const int first = p.causal ? k0 : 0;
   int last = p.sq - 1;
   if (p.window > 0) last = min(last, k1 + p.window - 1);
-  lo = first / BQ;
+  lo = min(first, p.sq) / BQ;
   hi = first <= last ? last / BQ + 1 : lo;
 }
 
 // Whether some pair of the (q tile at q0, key tile at k0) is masked.
-template <int BQ>
+template <int BKT, int BQ>
 __device__ __forceinline__ bool tile_masked(const BwdParams& p, int k0,
                                             int q0) {
   return k0 + BKT > p.skv || (p.causal && q0 < k0 + BKT - 1) ||
@@ -327,17 +353,17 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&x)[4], int q) {
   x[3] = hi ? x[3] : r1;
 }
 
-// A warpgroup's m64nD accumulator (rows `row`, row + 8 of the thread, see
-// gemm_sm90.cuh StorePairs) rounded to bf16 and stored row-major with
-// D columns, rows at or past `limit` skipped.
-template <int D>
+// A warpgroup's m64nN accumulator (rows `row`, row + 8 of the thread, see
+// gemm_sm90.cuh StorePairs) rounded to bf16 and stored row-major, rows LD
+// elements apart, rows at or past `limit` skipped.
+template <int N, int LD = N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
-                                           const float (&acc)[D / 2], int row,
+                                           const float (&acc)[N / 2], int row,
                                            int limit, int q) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
+    for (int c = 0; c < N / 32; ++c) {
       uint32_t x[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -346,11 +372,47 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
       }
       quad_transpose(x, q);
       if (row + 8 * h < limit)
-        *reinterpret_cast<uint4*>(dst + (size_t)(row + 8 * h) * D +
+        *reinterpret_cast<uint4*>(dst + (size_t)(row + 8 * h) * LD +
                                   8 * (4 * c + q)) =
             make_uint4(x[0], x[1], x[2], x[3]);
     }
   }
+}
+
+// P^T and dS^T of a chunk in registers (p_and_ds), the soft cap and the
+// mask decided once a chunk.
+template <int NC, int BQ>
+__device__ __forceinline__ void chunk_p_ds(const BwdParams& p, bool masked,
+                                           float (&sc)[NC / 2],
+                                           float (&dc)[NC / 2],
+                                           const float* vec, int col0, int q4,
+                                           int q0, int key) {
+  if (p.softcap > 0.f) {
+    if (masked)
+      p_and_ds<NC, BQ, true, true>(p, sc, dc, vec, col0, q4, q0, key);
+    else
+      p_and_ds<NC, BQ, true, false>(p, sc, dc, vec, col0, q4, q0, key);
+  } else {
+    if (masked)
+      p_and_ds<NC, BQ, false, true>(p, sc, dc, vec, col0, q4, q0, key);
+    else
+      p_and_ds<NC, BQ, false, false>(p, sc, dc, vec, col0, q4, q0, key);
+  }
+}
+
+// A warpgroup's 64 x 64 dq sub-tile added into the workspace by 16-byte
+// reductions in the accumulator's order (entry 4 j + e of thread tid at
+// 512 j + 4 tid + e), a warp's 32 lanes on 512 contiguous bytes; red, as
+// the float4 atomicAdd compiles to an atom returning old values.
+__device__ __forceinline__ void add_sub_tile(float* dst, const float (&dq)[32],
+                                             int tid) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(
+                     dst + 512 * j + 4 * tid),
+                 "f"(dq[4 * j]), "f"(dq[4 * j + 1]), "f"(dq[4 * j + 2]),
+                 "f"(dq[4 * j + 3])
+                 : "memory");
 }
 
 // Issue chunk c's S^T = K q^T and dP^T = V dO^T (this warpgroup's 64 key
@@ -385,92 +447,24 @@ __device__ __forceinline__ void issue_scores(
   sm90::wgmma_commit();
 }
 
+// Consumers at head_dim 64 and 128: warpgroup cw owns key rows
+// [64 cw, 64 cw + 64) of the tile, dK and dV of all D columns for them.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_kernel(const __grid_constant__ BwdParams p) {
+__device__ __forceinline__ void consume_rows(const BwdParams& p,
+                                             unsigned char* smem, int k0,
+                                             int hk, int b, int t_lo,
+                                             int t_hi) {
   using L = Layout<D>;
-  constexpr int BQ = L::BQ;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* empty = full + STAGES;
-  uint64_t* kv_full = empty + STAGES;
-  int k0, hk, b;
-  block_work(p, k0, hk, b);
-  int t_lo, t_hi;
-  q_tiles<BQ>(p, k0, t_lo, t_hi);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* kv_full = empty + L::STAGES;
   const int group = p.h / p.hkv;
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], CONSUMERS);
-    }
-    sm90::mbar_init(kv_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    // producer: one thread issues every load, the stages' lse and delta
-    // rows by bulk copies beside the q and dO tiles
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x != 0) return;
-    sm90::mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
-#pragma unroll
-    for (int x = 0; x < L::BOXES; ++x) {
-      sm90::tma_load_4d(smem + L::K_OFF + x * L::KBOX, &p.k, kv_full, 64 * x,
-                        k0, hk, b);
-      sm90::tma_load_4d(smem + L::V_OFF + x * L::KBOX, &p.v, kv_full, 64 * x,
-                        k0, hk, b);
-    }
-    int stage = 0, phase = 0;
-    for (int g = 0; g < group; ++g) {
-      const int h = hk * group + g;
-      const size_t row0 = ((size_t)b * p.h + h) * p.sq_subs * 64;
-      for (int t = t_lo; t < t_hi; ++t) {
-        sm90::mbar_wait(&empty[stage], phase ^ 1);
-        unsigned char* st = smem + L::ST_OFF + stage * L::STAGE;
-        unsigned char* vec = smem + L::VEC_OFF + stage * 2 * BQ * 4;
-        sm90::mbar_expect_tx(&full[stage], L::STAGE + 2 * BQ * 4);
-#pragma unroll
-        for (int x = 0; x < L::BOXES; ++x) {
-          sm90::tma_load_4d(st + x * L::QBOX, &p.q, &full[stage], 64 * x,
-                            t * BQ, h, b);
-          sm90::tma_load_4d(st + L::QT_BYTES + x * L::QBOX, &p.dout,
-                            &full[stage], 64 * x, t * BQ, h, b);
-        }
-        bulk_load(vec, p.lse + row0 + t * BQ, BQ * 4, &full[stage]);
-        bulk_load(vec + BQ * 4, p.delta + row0 + t * BQ, BQ * 4,
-                  &full[stage]);
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    // drain: the last stages' releases, so that consumers that never
-    // finish trip this thread's trapping wait instead of hanging the card
-    for (int i = 0; i < STAGES; ++i) {
-      sm90::mbar_wait(&empty[stage], phase ^ 1);
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup cw owns key rows [64 cw, 64 cw + 64) of the tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  constexpr int NC = L::NC, NCH = L::NCH;
+  constexpr int BQ = L::BQ, NC = L::NC, NCH = L::NCH;
   // at head_dim 64 K and V are A fragments in registers for the scores,
   // and dK += dS^T q takes dS^T from registers too; at 128 they would not
   // fit beside the dK and dV accumulators, so both come from shared memory
   constexpr bool REGS = D == 64;
-  const int cw = wg - 1;
+  const int cw = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, q4 = lane % 4;
   const bool leader = tid == 0;
@@ -479,7 +473,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int qb = cw % L::QSUB, db = cw / L::QSUB;      // the dq sub-tile
   const unsigned char* ks = smem + L::K_OFF;
   const unsigned char* vs = smem + L::V_OFF;
-  const float cap = p.softcap;
 
   float dk[D / 2], dv[D / 2];
   zero(dk);
@@ -514,7 +507,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float* vec =
           reinterpret_cast<const float*>(smem + L::VEC_OFF +
                                          stage * 2 * BQ * 4);
-      const bool masked = tile_masked<BQ>(p, k0, q0);
+      const bool masked = tile_masked<L::BKT, BQ>(p, k0, q0);
       unsigned char* dsb = smem + L::DS_OFF + buf * L::DS_BYTES;
 
       // the q tile in NCH chunks of NC rows. S^T = K q^T and dP^T = V dO^T
@@ -538,22 +531,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         sm90::fence_regs(sc);
         sm90::fence_regs(dc);
 
-        // P^T and dS^T in registers, the soft cap and the mask decided
-        // once a chunk
-        if (cap > 0.f) {
-          if (masked)
-            p_and_ds<NC, BQ, true, true>(p, sc, dc, vec, c * NC, q4, q0, key);
-          else
-            p_and_ds<NC, BQ, true, false>(p, sc, dc, vec, c * NC, q4, q0,
-                                          key);
-        } else {
-          if (masked)
-            p_and_ds<NC, BQ, false, true>(p, sc, dc, vec, c * NC, q4, q0,
-                                          key);
-          else
-            p_and_ds<NC, BQ, false, false>(p, sc, dc, vec, c * NC, q4, q0,
-                                           key);
-        }
+        chunk_p_ds<NC, BQ>(p, masked, sc, dc, vec, c * NC, q4, q0, key);
         // the chunk's A fragments: k-step kk, columns 16 kk .. 16 kk + 15
         // (the accumulator of 16 columns packed to bf16 pairs)
         uint32_t pa[NC / 16][4], da[NC / 16][4];
@@ -611,7 +589,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               mn_desc(qs + kk * 2048, L::QBOX), 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < BKT / 16; ++kk)
+      for (int kk = 0; kk < L::BKT / 16; ++kk)
         mma_tt(dq, mn_desc(dsb + qb * L::KBOX + kk * 2048, L::KBOX),
                mn_desc(ks + db * L::KBOX + kk * 2048, L::KBOX), 1);
       sm90::wgmma_commit();
@@ -621,22 +599,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       sm90::fence_regs(dv);
       if (leader) sm90::mbar_arrive(&empty[stage]);   // q, dO read
 
-      // the dq sub-tile added into the workspace by 16-byte reductions in
-      // the accumulator's order (entry 4 j + e of thread tid at
-      // 512 j + 4 tid + e), a warp's 32 lanes on 512 contiguous bytes; red,
-      // as the float4 atomicAdd compiles to an atom returning old values
-      float* dst =
-          acc_head + ((size_t)(t * L::QSUB + qb) * L::BOXES + db) * SUB;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(
-                         dst + 512 * j + 4 * tid),
-                     "f"(dq[4 * j]), "f"(dq[4 * j + 1]), "f"(dq[4 * j + 2]),
-                     "f"(dq[4 * j + 3])
-                     : "memory");
+      add_sub_tile(acc_head + ((size_t)(t * L::QSUB + qb) * L::BOXES + db) *
+                              SUB,
+                   dq, tid);
 
       buf ^= 1;
-      if (++stage == STAGES) {
+      if (++stage == L::STAGES) {
         stage = 0;
         phase ^= 1;
       }
@@ -646,6 +614,224 @@ __global__ void __launch_bounds__(THREADS, 1)
   const size_t bhk = (size_t)b * p.hkv + hk;
   store_rows<D>(p.dk + bhk * p.skv * D, dk, key, p.skv, q4);
   store_rows<D>(p.dv + bhk * p.skv * D, dv, key, p.skv, q4);
+}
+
+// Consumers at head_dim 256. dK and dV of 64 key rows by 256 columns are
+// 256 fp32 registers a thread for one warpgroup, over the setmaxnreg budget
+// before S or dP, so the warpgroups split the head dim: warpgroup cw holds
+// dK and dV of all 64 key rows (BKT) for columns [128 cw, 128 cw + 128),
+// 128 registers, as at d 128. A q tile (BQ 64 rows) is split by q rows
+// instead for the scores: warpgroup cw computes S^T = K q^T and
+// dP^T = V dO^T for the tile's 32 q rows of chunk cw (m64n32, K and V from
+// shared memory), P^T and dS^T from them in registers, and writes both,
+// rounded to bf16, to shared memory; after a barrier each warpgroup reads
+// both halves as the K-major A of dV += P^T dO and dK += dS^T q over its
+// columns of dO and q (m64n128), and the MN-major A of dq = dS K over its
+// two 64-column sub-tiles of K (m64n64), reduce-added into the workspace.
+// The P^T and dS^T tiles are double-buffered: a warpgroup writes buffer
+// `buf` again two tiles on, after the barrier of the tile between, which
+// the other warpgroup reaches only once its products of `buf` are done.
+template <int D>
+__device__ __forceinline__ void consume_split(const BwdParams& p,
+                                              unsigned char* smem, int k0,
+                                              int hk, int b, int t_lo,
+                                              int t_hi) {
+  using L = Layout<D>;
+  constexpr int BQ = L::BQ, NC = L::NC, HALF = D / 2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* kv_full = empty + L::STAGES;
+  const int group = p.h / p.hkv;
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, q4 = lane % 4;
+  const bool leader = tid == 0;
+  const int r_tile = 16 * warp + lane / 4;   // (+ 8) in the tile
+  const int key = k0 + r_tile;
+  const unsigned char* ks = smem + L::K_OFF;
+  const unsigned char* vs = smem + L::V_OFF;
+  const uint32_t none[1][4] = {};            // no A fragments in registers
+
+  float dk[HALF / 2], dv[HALF / 2];
+  zero(dk);
+  zero(dv);
+  wait_spin(kv_full, 0);
+  int stage = 0, phase = 0, buf = 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    float* acc_head = p.dq_acc + ((size_t)b * p.h + h) * p.sq_subs *
+                                     L::BOXES * SUB;
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int q0 = t * BQ;
+      wait_spin(&full[stage], phase);
+      const unsigned char* qs = smem + L::ST_OFF + stage * L::STAGE;
+      const unsigned char* dos = qs + L::QT_BYTES;
+      const float* vec =
+          reinterpret_cast<const float*>(smem + L::VEC_OFF +
+                                         stage * 2 * BQ * 4);
+      const bool masked = tile_masked<L::BKT, BQ>(p, k0, q0);
+      unsigned char* pb = smem + L::DS_OFF + buf * 2 * L::DS_BYTES;
+      unsigned char* dsb = pb + L::DS_BYTES;
+
+      // this warpgroup's chunk of the scores: all 64 keys, q rows
+      // [32 cw, 32 cw + 32)
+      float sc[NC / 2], dc[NC / 2];
+      issue_scores<D, false, L>(sc, dc, none, none, ks, vs, qs, dos, cw, 0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dc);
+      chunk_p_ds<NC, BQ>(p, masked, sc, dc, vec, cw * NC, q4, q0, key);
+      // P^T and dS^T to shared memory, as consume_rows writes dS^T: q
+      // column group jg of the tile at 16-byte chunk jg of the key row
+      // under the swizzle (one 64-column box)
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int jg = cw * NC / 8 + j;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r_tile + 8 * hh;
+          const int off = r * 128 + ((jg ^ (r % 8)) * 16) + q4 * 4;
+          const int i = 4 * j + 2 * hh;
+          *reinterpret_cast<uint32_t*>(pb + off) = pack2(sc[i], sc[i + 1]);
+          *reinterpret_cast<uint32_t*>(dsb + off) = pack2(dc[i], dc[i + 1]);
+        }
+      }
+      fence_async_smem();
+      bar_sync(1, 128 * CONSUMERS);   // both halves of P^T and dS^T written
+
+      // dV += P^T dO and dK += dS^T q over this warpgroup's 128 columns (two
+      // boxes of dO and q), dq's two sub-tiles dS K over all 64 keys
+      float dq0[32], dq1[32];
+      zero(dq0);
+      zero(dq1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const int half = 2 * cw * L::QBOX + kk * 2048;
+        sm90::Wgmma<HALF>::template mma<1>(
+            dv, sm90::smem_desc(pb + kk * 32),
+            mn_desc(dos + half, L::QBOX), 1);
+        sm90::Wgmma<HALF>::template mma<1>(
+            dk, sm90::smem_desc(dsb + kk * 32),
+            mn_desc(qs + half, L::QBOX), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < L::BKT / 16; ++kk) {
+        const uint64_t a = mn_desc(dsb + kk * 2048, L::KBOX);
+        mma_tt(dq0, a, mn_desc(ks + 2 * cw * L::KBOX + kk * 2048, L::KBOX),
+               1);
+        mma_tt(dq1, a,
+               mn_desc(ks + (2 * cw + 1) * L::KBOX + kk * 2048, L::KBOX), 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq0);
+      sm90::fence_regs(dq1);
+      sm90::fence_regs(dk);
+      sm90::fence_regs(dv);
+      if (leader) sm90::mbar_arrive(&empty[stage]);   // q, dO read
+
+      float* dst = acc_head + ((size_t)t * L::BOXES + 2 * cw) * SUB;
+      add_sub_tile(dst, dq0, tid);
+      add_sub_tile(dst + SUB, dq1, tid);
+
+      buf ^= 1;
+      if (++stage == L::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+
+  const size_t bhk = (size_t)b * p.hkv + hk;
+  store_rows<HALF, D>(p.dk + bhk * p.skv * D + HALF * cw, dk, key, p.skv, q4);
+  store_rows<HALF, D>(p.dv + bhk * p.skv * D + HALF * cw, dv, key, p.skv, q4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_kernel(const __grid_constant__ BwdParams p) {
+  using L = Layout<D>;
+  constexpr int BQ = L::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* kv_full = empty + L::STAGES;
+  int k0, hk, b;
+  block_work<L::BKT>(p, k0, hk, b);
+  int t_lo, t_hi;
+  q_tiles<L::BKT, BQ>(p, k0, t_lo, t_hi);
+  const int group = p.h / p.hkv;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMERS);
+    }
+    sm90::mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every load, the stages' lse and delta
+    // rows by bulk copies beside the q and dO tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 0) return;
+    sm90::mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+#pragma unroll
+    for (int x = 0; x < L::BOXES; ++x) {
+      sm90::tma_load_4d(smem + L::K_OFF + x * L::KBOX, &p.k, kv_full, 64 * x,
+                        k0, hk, b);
+      sm90::tma_load_4d(smem + L::V_OFF + x * L::KBOX, &p.v, kv_full, 64 * x,
+                        k0, hk, b);
+    }
+    int stage = 0, phase = 0;
+    for (int g = 0; g < group; ++g) {
+      const int h = hk * group + g;
+      const size_t row0 = ((size_t)b * p.h + h) * p.sq_subs * 64;
+      for (int t = t_lo; t < t_hi; ++t) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + L::ST_OFF + stage * L::STAGE;
+        unsigned char* vec = smem + L::VEC_OFF + stage * 2 * BQ * 4;
+        sm90::mbar_expect_tx(&full[stage], L::STAGE + 2 * BQ * 4);
+#pragma unroll
+        for (int x = 0; x < L::BOXES; ++x) {
+          sm90::tma_load_4d(st + x * L::QBOX, &p.q, &full[stage], 64 * x,
+                            t * BQ, h, b);
+          sm90::tma_load_4d(st + L::QT_BYTES + x * L::QBOX, &p.dout,
+                            &full[stage], 64 * x, t * BQ, h, b);
+        }
+        bulk_load(vec, p.lse + row0 + t * BQ, BQ * 4, &full[stage]);
+        bulk_load(vec + BQ * 4, p.delta + row0 + t * BQ, BQ * 4,
+                  &full[stage]);
+        if (++stage == L::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // drain: the last stages' releases, so that consumers that never
+    // finish trip this thread's trapping wait instead of hanging the card
+    for (int i = 0; i < L::STAGES; ++i) {
+      sm90::mbar_wait(&empty[stage], phase ^ 1);
+      if (++stage == L::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  if constexpr (L::SPLIT)
+    consume_split<D>(p, smem, k0, hk, b, t_lo, t_hi);
+  else
+    consume_rows<D>(p, smem, k0, hk, b, t_lo, t_hi);
 }
 
 // dq (B, H, Sq, D) bf16 from the fp32 workspace: one block of 128 threads
@@ -702,7 +888,7 @@ cudaError_t launch(BwdParams& p, const sm90::View4 (&views)[4],
         <<<(unsigned)blocks, 128, 0, stream>>>(acc, dq, p.sq, p.sq_subs);
     return cudaGetLastError();
   }
-  const int rows[4] = {L::BQ, BKT, BKT, L::BQ};
+  const int rows[4] = {L::BQ, L::BKT, L::BKT, L::BQ};
   CUtensorMap* maps[4] = {&p.q, &p.k, &p.v, &p.dout};
   for (int i = 0; i < 4; ++i) {
     const cudaError_t err = sm90::make_map_4d(maps[i], views[i], rows[i]);
@@ -713,7 +899,7 @@ cudaError_t launch(BwdParams& p, const sm90::View4 (&views)[4],
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
   const long long blocks =
-      (long long)((p.skv + BKT - 1) / BKT) * p.batch * p.hkv;
+      (long long)((p.skv + L::BKT - 1) / L::BKT) * p.batch * p.hkv;
   kernel<<<(unsigned)blocks, THREADS, L::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
@@ -731,10 +917,11 @@ const char* repro_error_string(int code) {
 // are in elements; the last dim of q, k, v and dout is contiguous, the
 // other strides multiples of 8 and the bases 16-byte aligned (the wrapper
 // checks; the map encoder refuses otherwise). With Sp = ceil(Sq / BQ) * BQ
-// (BQ = 128 at head_dim 64, 64 at 128): lse and delta are (B, H, Sp) fp32,
-// +inf and 0 past Sq; dq_acc holds (B, H, Sp / 64, head_dim / 64, 64 * 64)
-// floats. Returns cudaErrorInvalidValue on a head_dim other than 64 or 128
-// or a group that does not divide.
+// (BQ = 128 at head_dim 64, 64 at 128 and 256): lse and delta are
+// (B, H, Sp) fp32, +inf and 0 past Sq; dq_acc holds
+// (B, H, Sp / 64, head_dim / 64, 64 * 64) floats. Returns
+// cudaErrorInvalidValue on a head_dim other than 64, 128 or 256 or a group
+// that does not divide.
 int flash_bwd_launch(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq_acc, void* dq, void* dk, void* dv, int which,
@@ -767,6 +954,7 @@ int flash_bwd_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(p, views, acc, dqo, which, st);
   if (head_dim == 128) return launch<128>(p, views, acc, dqo, which, st);
+  if (head_dim == 256) return launch<256>(p, views, acc, dqo, which, st);
   return cudaErrorInvalidValue;
 }
 

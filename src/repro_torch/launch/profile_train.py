@@ -3,8 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama-1b \\
       --batch 4 --seq 1024 --out DIR
   (also --arch bert-110m --batch 8 --seq 512; --arch whisper-base --batch 4
-  --seq 448; --arch mixtral-8x7b --layers 1; the training levers:
-  --ce-chunk 256, --remat-policy dots|none)
+  --seq 448; --arch mixtral-8x7b --layers 1; --arch recurrentgemma-2b
+  --layers 6 --batch 2 --seq 4096; the training levers: --ce-chunk 256,
+  --remat-policy dots|none)
 
 Builds the model in kernel mode with seeded random fp32 masters, runs two
 warm-up steps on the training launcher's data (the reference's synthetic
@@ -64,7 +65,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config to this many layers (mixtral-8x7b "
-                    "trains at 1 layer of published width on one card)")
+                    "trains at 1 layer of published width on one card, "
+                    "recurrentgemma-2b at 6)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ce-chunk", type=int, default=None,
                     help="the chunked cross entropy over this many "

@@ -11,6 +11,8 @@ data, with the model in kernel mode.
       --steps 200 --ckpt-dir ckpt/llama-1b --ckpt-every 50 --grad-compress
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
       --layers 1 --steps 4 --batch 4 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-2b --layers 6 --steps 8 --batch 2 --seq 4096
 
 The decoders and bert-110m take the LM pipeline's batches
 (``data.DataIterator``), as the reference's launcher feeds every arch;
@@ -18,14 +20,15 @@ whisper-base takes ``models.make_batch`` batches (random target tokens over
 random ``encoder_embeds`` (B, 1500, 512)), since that pipeline has no
 encoder embeddings. ``--smoke`` takes an arch's smoke config (e.g.
 mixtral-8x7b's: 2 layers, d_model 64, 4 experts), ``--layers`` cuts the
-depth (mixtral-8x7b's published width trains at 1 layer on one 80 GB card).
+depth (mixtral-8x7b's published width trains at 1 layer on one 80 GB card,
+recurrentgemma-2b's at 6, two periods of its ('rg', 'rg', 'local') pattern).
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions on the CPU (with ``--tiny``: 2 layers, d_model 128, 4/2 heads,
 d_ff 256, vocab 256, the width of the CPU tests; whisper's encoder 2 layers
-over 64 frames). Prints the reference launcher's
-``[train] finished:`` line, then tokens/s (median host time of the steps
-after the first; tokens of the decoder's or encoder's sequence) and the
-peak device memory.
+over 64 frames; recurrentgemma's RG-LRU 128 wide). Prints the reference
+launcher's ``[train] finished:`` line, then tokens/s (median host time of
+the steps after the first; tokens of the decoder's or encoder's sequence)
+and the peak device memory.
 """
 from __future__ import annotations
 
@@ -92,6 +95,9 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.tiny:
         cfg = dataclasses.replace(cfg, **TINY)
+        if cfg.rglru is not None:   # the recurrence at the tiny width too
+            cfg = dataclasses.replace(cfg, rglru=dataclasses.replace(
+                cfg.rglru, lru_width=cfg.d_model))
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.family == "encoder" and args.seq > cfg.max_seq_len:

@@ -1,11 +1,11 @@
 """The attention ops at head_dim 256 (recurrentgemma-2b's) on the CPU: the
 plain flash forward and the plain decode versions (contiguous ring and
 paged pool) against the reference's Pallas kernels in interpret mode at a
-small S, fp32 (same math, sums in another order: 1e-5); the wrappers take
-head_dim 256 and the backward kernel's guard refuses it with
-NotImplementedError before any other check (it comes with training),
-while a CPU tensor's autograd runs the plain backward. Inputs are made with
-numpy from a seed.
+small S, fp32 (same math, sums in another order: 1e-5); the plain flash
+backward against the reference's backward kernels in interpret mode; the
+wrappers take head_dim 256 (the backward's launch refuses 96), and a CPU
+tensor's autograd runs the plain backward. Inputs are made with numpy from
+a seed.
 """
 import numpy as np
 import pytest
@@ -16,6 +16,8 @@ from repro.core.policy import make_policy
 from repro.kernels.attention import attention_decode as j_attention_decode
 from repro.kernels.attention import (
     attention_decode_paged as j_attention_decode_paged)
+from repro.kernels.attention.kernel_bwd import \
+    flash_attention_bwd as j_flash_bwd
 from repro.kernels.attention.kernel_fwd import \
     flash_attention_fwd as j_flash_fwd
 
@@ -35,7 +37,7 @@ def _normal(rng, *shape):
 
 def test_head_dim_256_is_in_the_kernels_sets():
     assert D in ops.HEAD_DIMS and D in decode.HEAD_DIMS
-    assert D not in backward.BWD_HEAD_DIMS
+    assert D in backward.BWD_HEAD_DIMS
 
 
 @pytest.mark.parametrize("case", ["mqa_window", "causal", "noncausal"])
@@ -108,17 +110,43 @@ def test_decode_paged_plain_matches_the_jax_kernel(t):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_backward_kernel_refuses_head_dim_256_first():
-    """The backward kernel's launch refuses head_dim 256 with
-    NotImplementedError naming what it comes with, before any other check (so
-    a card run never reaches a launch or a plain fallback); head_dim 96
-    stays a ValueError."""
-    x = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16)
-    lse = torch.zeros((1, 2, 8))
-    with pytest.raises(NotImplementedError, match="recurrentgemma-2b"):
-        backward.FlashBwdLaunch(x, x, x, x, lse, x, causal=True, window=None,
-                                logit_scale=None, softcap=None)
+@pytest.mark.parametrize("case", ["mqa_window", "causal", "noncausal"])
+def test_flash_bwd_plain_matches_the_jax_kernel(case):
+    """The plain backward (what the CPU runs for the kernel) against the
+    reference's _dq_kernel/_dkv_kernel in interpret mode at S 256, fp32,
+    on the same q, k, v, out, lse and dO: 10 query heads over one kv head
+    windowed 128 (the reference's per-query-head dk/dv summed over the
+    group), or plainly causal or not; within 1e-5 of each gradient's
+    largest entry."""
+    b, h, hkv, s = 1, 10, 1, 256
+    kw = {"mqa_window": dict(causal=True, window=128),
+          "causal": dict(causal=True), "noncausal": dict(causal=False)}[case]
+    if case != "mqa_window":
+        h, hkv = 2, 2
+    rng = np.random.default_rng(5)
+    q, k, v, do = (_normal(rng, b, n, s, D) for n in (h, hkv, hkv, h))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, lse = j_flash_fwd(jq, jk, jv, interpret=True, **kw)
+    jdq, jdk, jdv = j_flash_bwd(jq, jk, jv, out, lse, jnp.asarray(do),
+                                interpret=True, **kw)
+    group = h // hkv
+    want = [np.asarray(jdq)] + [
+        np.asarray(x).reshape(b, hkv, group, s, D).sum(axis=2)
+        for x in (jdk, jdv)]
+    got = backward.flash_attention_bwd_ref(
+        *(torch.from_numpy(np.asarray(x)) for x in (q, k, v, out, lse, do)),
+        **kw)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), w_, rtol=0,
+                                   atol=1e-5 * np.abs(w_).max())
+
+
+def test_backward_kernel_refuses_head_dim_96():
+    """The backward kernel's launch takes every head dim of the forward
+    (64, 128, 256) and refuses head_dim 96 with ValueError before any
+    allocation or launch."""
     y = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match="head_dim 96"):
         backward.FlashBwdLaunch(y, y, y, y, lse, y, causal=True, window=None,
                                 logit_scale=None, softcap=None)

@@ -6,8 +6,10 @@ kernel over a ring that wraps past its window and the paged kernel at
 pages 16 and 64, 1 and 4 query tokens (the few-row and many-row bodies,
 q's fragments read from shared memory), several splits merged in the
 launch, paged bitwise equal to contiguous, two calls bitwise equal, a CUDA
-graph's replay equal to the eager call; and the flash backward refusing
-head_dim 256 with NotImplementedError before any launch.
+graph's replay equal to the eager call; and the flash backward (64 key
+rows a block, the head dim split between its warpgroups) against its plain
+version at the forward's cases, dk and dv bitwise across two calls, and
+through kernel-mode autograd.
 
 Marked ``cuda``: skipped on a machine without a CUDA card. On the card:
 
@@ -21,6 +23,8 @@ from repro_torch import kernels
 from repro_torch.kernels.attention import (attention, combine_splits,
                                            decode_partials_paged_ref,
                                            decode_partials_ref,
+                                           flash_attention_bwd,
+                                           flash_attention_bwd_ref,
                                            flash_attention_fwd,
                                            flash_attention_fwd_ref,
                                            flash_decode, flash_decode_paged)
@@ -96,16 +100,69 @@ def test_flash_fwd_d256_matches_plain(dev, case):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
-def test_flash_bwd_d256_is_refused_before_a_launch(dev):
-    """Kernel-mode autograd at head_dim 256 raises NotImplementedError (the
-    backward's case comes with training); nothing falls back."""
-    q, k, v, kw = _fwd_inputs("mqa_causal", dev)
-    q = q.detach().requires_grad_()
+def _bwd_inputs(case, dev, seed=6):
+    """q, k, v, out, lse and dO of a case: q and k strided views of the
+    packed q|k projection (where sq == skv), dO the strided cotangent
+    autograd hands over."""
+    q, k, v, kw = _fwd_inputs(case, dev, seed)
+    b, h, sq, _ = q.shape
+    rng = np.random.default_rng(seed + 1)
+    do = _rand(rng, (b, sq, h, D), dev).transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    return (q, k, v, out, lse, do), kw
+
+
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_flash_bwd_d256_matches_plain(dev, case):
+    """The main kernel (64 key rows a block, the head dim split between
+    the warpgroups, P^T and dS^T exchanged through shared memory) and the
+    dq conversion against the plain version: each gradient within 2e-2
+    relative + 2% of its RMS, as at head_dim 64 and 128; the MQA window
+    and causal cases are recurrentgemma-2b's head counts, "ragged" a
+    length that is no multiple of the 64-row tiles, "noncausal_cross" 70
+    queries over 200 keys; two launches a call."""
+    args, kw = _bwd_inputs(case, dev)
+    before = kernels.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == before + 2
+    want = flash_attention_bwd_ref(*args, **kw)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+
+
+def test_flash_bwd_d256_dk_dv_are_reproducible(dev):
+    """Two calls: dk and dv bit for bit (a block walks all 10 query heads
+    of its key head and sums them in a fixed order); dq, reduce-added over
+    key tiles in an order that changes from run to run, within one bf16
+    rounding + 0.1% of its RMS."""
+    args, kw = _bwd_inputs("mqa_window", dev)
+    first = flash_attention_bwd(*args, **kw)
+    second = flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    _close(first[0], second[0], 2 ** -7, 1e-3)
+
+
+def test_flash_bwd_d256_through_autograd(dev):
+    """Kernel-mode autograd of ``attention`` at head_dim 256 launches the
+    backward kernel (main + conversion) and its grads equal the plain
+    backward's on the forward's out and lse."""
+    q, k, v, kw = _fwd_inputs("mqa_window", dev)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    rng = np.random.default_rng(9)
+    do = _rand(rng, tuple(q.shape), dev)
     out = attention(q, k, v, **kw)
     before = kernels.launch_counts()["flash_attention_bwd"]
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        out.float().sum().backward()
-    assert kernels.launch_counts()["flash_attention_bwd"] == before
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == before + 2
+    o, lse = flash_attention_fwd(q.detach(), k.detach(), v.detach(), **kw)
+    want = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o,
+                                   lse, do, **kw)
+    for t, w_ in zip((q, k, v), want):
+        _close(t.grad, w_)
 
 
 RING_CASES = {
