@@ -1,12 +1,14 @@
 """Config registry: ``get_config('<arch-id>'[, smoke=True])`` for the archs
 the port runs (the dense decoders, mixtral-8x7b's mixture of experts,
-recurrentgemma-2b's hybrid of RG-LRU and local-attention blocks,
+mamba2-130m's SSD blocks, recurrentgemma-2b's hybrid of RG-LRU and
+local-attention blocks, internvl2-2b's vision-language backbone,
 whisper-base and bert-110m), under the reference's ids."""
 from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, MoEConfig, RGLRUConfig  # noqa: F401
+from .base import (DECODER_FAMILIES, ModelConfig, MoEConfig,  # noqa: F401
+                   RGLRUConfig, SSMConfig)
 
 _MODULES = {
     "whisper-base": "whisper_base",
@@ -15,7 +17,9 @@ _MODULES = {
     "granite-8b": "granite_8b",
     "qwen2-72b": "qwen2_72b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "mamba2-130m": "mamba2_130m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "internvl2-2b": "internvl2_2b",
     "llama-100m": "llama_paper",
     "llama-1b": "llama_paper",
     "bert-110m": "llama_paper",

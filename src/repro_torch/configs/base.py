@@ -1,10 +1,11 @@
 """Model configuration: one frozen dataclass per architecture.
 
-The port's own copy of the reference ``ModelConfig``, ``MoEConfig`` and
-``RGLRUConfig``, cut to the fields the port's families read: the
-decoder-only LM (dense, with mixture-of-experts blocks, or the hybrid of
-RG-LRU recurrent and local-attention blocks), the encoder and the
-encoder-decoder.
+The port's own copy of the reference ``ModelConfig``, ``MoEConfig``,
+``SSMConfig`` and ``RGLRUConfig``, cut to the fields the port's families
+read: the decoder-only LM (dense, with mixture-of-experts blocks, Mamba2's
+SSD blocks, or the hybrid of RG-LRU recurrent and local-attention blocks),
+the vision-language model (an LM backbone behind stub patch embeddings),
+the encoder and the encoder-decoder.
 Field names and defaults are the reference's, so ``dataclasses.replace``
 sizes a config the same way on both sides.
 """
@@ -25,6 +26,16 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class RGLRUConfig:
     lru_width: Optional[int] = None   # defaults to d_model
     conv_width: int = 4
@@ -32,10 +43,15 @@ class RGLRUConfig:
     local_window: int = 2048
 
 
+# the families served on the decoder-only surface: the LM, and the VLM on
+# its text backbone (as the reference's)
+DECODER_FAMILIES = ("lm", "vlm")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # 'lm' | 'encdec' | 'encoder'
+    family: str                 # 'lm' | 'encdec' | 'encoder' | 'vlm'
     num_layers: int
     d_model: int
     num_heads: int
@@ -44,8 +60,9 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None          # default d_model // num_heads
     # block pattern, cycled over layers: 'attn' (attention + MLP), 'moe'
-    # (attention + mixture-of-experts FFN), 'rg' (RG-LRU block + MLP),
-    # 'local' (attention in rglru.local_window + MLP)
+    # (attention + mixture-of-experts FFN), 'ssm' (Mamba2 block, no MLP),
+    # 'rg' (RG-LRU block + MLP), 'local' (attention in rglru.local_window +
+    # MLP)
     block_pattern: Sequence[str] = ("attn",)
     mlp_act: str = "swiglu"     # 'swiglu' | 'geglu' | 'gelu'
     norm: str = "rmsnorm"       # 'rmsnorm' | 'layernorm'
@@ -56,11 +73,14 @@ class ModelConfig:
     attn_window: Optional[int] = None
     attn_logit_softcap: Optional[float] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     # enc-dec (whisper): encoder stack dims (decoder uses the main fields)
     encoder_layers: int = 0
     encoder_seq: int = 1500      # precomputed frame embeddings (frontend stub)
     max_target_positions: int = 448
+    # vlm: number of prepended patch embeddings (frontend stub)
+    num_patches: int = 0
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     ce_chunk: int = 0            # >0: chunked CE loss over this many positions

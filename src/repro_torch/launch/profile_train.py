@@ -4,14 +4,15 @@
       --batch 4 --seq 1024 --out DIR
   (also --arch bert-110m --batch 8 --seq 512; --arch whisper-base --batch 4
   --seq 448; --arch mixtral-8x7b --layers 1; --arch recurrentgemma-2b
-  --layers 6 --batch 2 --seq 4096; the training levers: --ce-chunk 256,
-  --remat-policy dots|none)
+  --layers 6 --batch 2 --seq 4096; --arch mamba2-130m --batch 8 --seq
+  4096; --arch internvl2-2b --batch 4 --seq 2048; the training levers:
+  --ce-chunk 256, --remat-policy dots|none)
 
 Builds the model in kernel mode with seeded random fp32 masters, runs two
 warm-up steps on the training launcher's data (the reference's synthetic
-LM batches; whisper-base's from ``make_batch``), one step timed by the host
-clock (ended by a device synchronise) and one step under
-``torch.profiler``. From the trace it reports the device time by kernel
+LM batches; whisper-base's and internvl2-2b's from ``make_batch``), one
+step timed by the host clock (ended by a device synchronise) and one step
+under ``torch.profiler``. From the trace it reports the device time by kernel
 family (the port's kernels, forward and backward, the library matrix
 products, the other torch operations), the device's busy share of the
 traced step, and the peak device memory. Needs a CUDA card; writes

@@ -9,11 +9,17 @@ with the model in kernel mode (``--mode reference``: the plain path).
       --no-smoke --layers 4
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --no-smoke --prompt-len 2304 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --no-smoke --prompt-len 4096 --new-tokens 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
+      --no-smoke --prompt-len 1024 --new-tokens 32
 
-``--arch`` takes every decoder-only id of ``repro_torch.configs``; the
+``--arch`` takes every decoder-only id of ``repro_torch.configs`` and
+internvl2-2b, whose LM backbone serves text only, as the reference's; the
 smoke variant of a config is the default (``--no-smoke``: the published
-one; the llama ids have one config; recurrentgemma-2b's 26 layers fit one
-card whole), and ``--layers`` cuts its depth. As
+one; the llama ids have one config; recurrentgemma-2b's 26 layers,
+mamba2-130m's 24 and internvl2-2b's 24 fit one card whole), and
+``--layers`` cuts its depth. As
 in the reference, the request queue serves decoder-only LMs only:
 whisper-base is served through ``Engine.generate(..., extra_batch=...)``
 (``launch/profile_serve.py --arch whisper-base``) and bert-110m has no
@@ -27,7 +33,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.configs import get_config
+from repro_torch.configs import DECODER_FAMILIES, get_config
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.models import MODES, build_model
 from repro_torch.serve import Engine, Request, RequestQueue
@@ -49,7 +55,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family != "lm":
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
             f"{args.arch}: the serving launcher's request queue serves "
             f"decoder-only LMs, not the {cfg.family!r} family (as the "

@@ -13,22 +13,28 @@ data, with the model in kernel mode.
       --layers 1 --steps 4 --batch 4 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch recurrentgemma-2b --layers 6 --steps 8 --batch 2 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+      --steps 8 --batch 8 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \\
+      --steps 8 --batch 4 --seq 2048
 
 The decoders and bert-110m take the LM pipeline's batches
 (``data.DataIterator``), as the reference's launcher feeds every arch;
-whisper-base takes ``models.make_batch`` batches (random target tokens over
-random ``encoder_embeds`` (B, 1500, 512)), since that pipeline has no
-encoder embeddings. ``--smoke`` takes an arch's smoke config (e.g.
-mixtral-8x7b's: 2 layers, d_model 64, 4 experts), ``--layers`` cuts the
+whisper-base and internvl2-2b take ``models.make_batch`` batches (random
+target tokens over random ``encoder_embeds`` (B, 1500, 512), or behind
+random ``patch_embeds`` (B, 256, 2048), ``--seq`` counting the patches),
+since that pipeline has no frontend embeddings. ``--smoke`` takes an
+arch's smoke config (e.g. mixtral-8x7b's: 2 layers, d_model 64, 4
+experts), ``--layers`` cuts the
 depth (mixtral-8x7b's published width trains at 1 layer on one 80 GB card,
 recurrentgemma-2b's at 6, two periods of its ('rg', 'rg', 'local') pattern).
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions on the CPU (with ``--tiny``: 2 layers, d_model 128, 4/2 heads,
 d_ff 256, vocab 256, the width of the CPU tests; whisper's encoder 2 layers
-over 64 frames; recurrentgemma's RG-LRU 128 wide). Prints the reference
-launcher's ``[train] finished:`` line, then tokens/s (median host time of
-the steps after the first; tokens of the decoder's or encoder's sequence)
-and the peak device memory.
+over 64 frames; recurrentgemma's RG-LRU 128 wide; internvl2's 8
+patches). Prints the reference launcher's ``[train] finished:`` line,
+then tokens/s (median host time of the steps after the first; tokens of
+the decoder's or encoder's sequence) and the peak device memory.
 """
 from __future__ import annotations
 
@@ -50,9 +56,10 @@ TINY = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
 
 
 def train_batches(cfg, batch: int, seq: int, *, seed: int = 0, device):
-    """The launcher's data: ``MadeBatches`` for the enc-dec family (its
-    batches carry encoder_embeds), else the LM pipeline's iterator."""
-    if cfg.family == "encdec":
+    """The launcher's data: ``MadeBatches`` for the enc-dec and vlm
+    families (their batches carry the stub frontend's embeddings), else the
+    LM pipeline's iterator."""
+    if cfg.family in ("encdec", "vlm"):
         return MadeBatches(cfg, batch, seq, seed=seed, device=device)
     return DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                    global_batch=batch, seed=seed),
@@ -98,6 +105,8 @@ def main(argv=None):
         if cfg.rglru is not None:   # the recurrence at the tiny width too
             cfg = dataclasses.replace(cfg, rglru=dataclasses.replace(
                 cfg.rglru, lru_width=cfg.d_model))
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, num_patches=8)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.family == "encoder" and args.seq > cfg.max_seq_len:

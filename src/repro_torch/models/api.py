@@ -2,27 +2,33 @@
 returns a :class:`Model` whose methods close over the config, the mode, the
 device and the rung of the QKV ladder, and dispatch on ``cfg.family`` as
 the reference's ``_build_model`` does: the decoder-only LM ('lm'), the
-encoder-decoder ('encdec': ``forward``, ``loss``, ``prefill`` and
-``init_cache`` take a batch dict with ``encoder_embeds``) and the encoder
-('encoder': ``forward`` and ``loss``). :func:`make_batch` draws a training
-batch of any family from a torch generator, as the reference's does from a
-JAX key; :class:`MadeBatches` streams them for ``train_loop``."""
+vision-language model ('vlm': ``forward`` and ``loss`` take a batch dict
+with ``patch_embeds``; serving is text-only on its LM backbone, as in the
+reference), the encoder-decoder ('encdec': ``forward``, ``loss``,
+``prefill`` and ``init_cache`` take a batch dict with ``encoder_embeds``)
+and the encoder ('encoder': ``forward`` and ``loss``). :func:`make_batch`
+draws a training batch of any family from a torch generator, as the
+reference's does from a JAX key; :class:`MadeBatches` streams them for
+``train_loop``."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
+from repro_torch.configs import DECODER_FAMILIES
 from repro_torch.device import DEFAULT_DEVICE, dtype_of, resolve_device
 from . import encdec as _ed
 from . import encoder as _enc
 from . import lm as _lm
+from . import vlm as _vlm
 from .attention import QKV_PLANS
 from .common import cast_params, init_params
 
 MODES = ("kernel", "reference")
-FAMILIES = ("lm", "encdec", "encoder")
-_PARAM_DEFS = {"lm": _lm.lm_param_defs, "encdec": _ed.encdec_param_defs,
+FAMILIES = ("lm", "vlm", "encdec", "encoder")
+_PARAM_DEFS = {"lm": _lm.lm_param_defs, "vlm": _vlm.vlm_param_defs,
+               "encdec": _ed.encdec_param_defs,
                "encoder": _enc.encoder_param_defs}
 
 
@@ -57,13 +63,17 @@ class Model:
         return self.cfg.family
 
     def _lm_only(self, what: str) -> None:
-        if self.family != "lm":
+        if self.family not in DECODER_FAMILIES:
             _refuse(what, self.family)
 
     def forward(self, params, batch):
         """logits (B, S, V) fp32. lm: ``batch`` is the (B, S) tokens;
+        vlm: {"patch_embeds", "inputs"}, the text positions' logits;
         encdec: {"encoder_embeds", "inputs"}; encoder: {"inputs"} or the
         tokens."""
+        if self.family == "vlm":
+            return _vlm.vlm_forward(self.cfg, params, batch, mode=self.mode,
+                                    qkv_plan=self.qkv_plan)
         if self.family == "encdec":
             return _ed.encdec_forward(self.cfg, params, batch, mode=self.mode,
                                       qkv_plan=self.qkv_plan)
@@ -76,9 +86,13 @@ class Model:
 
     def loss(self, params, batch):
         """(loss, metrics) of a batch {"inputs", "targets", "loss_mask"}
-        (encdec: and "encoder_embeds"), the blocks recomputed in the
-        backward per ``cfg.remat_policy``: the LM's next-token loss, the
-        encoder's masked-LM loss, the enc-dec's decoder loss."""
+        (vlm: and "patch_embeds"; encdec: and "encoder_embeds"), the blocks
+        recomputed in the backward per ``cfg.remat_policy``: the LM's
+        next-token loss, the vlm's on its text positions, the encoder's
+        masked-LM loss, the enc-dec's decoder loss."""
+        if self.family == "vlm":
+            return _vlm.vlm_loss(self.cfg, params, batch, mode=self.mode,
+                                 qkv_plan=self.qkv_plan)
         if self.family == "encdec":
             return _ed.encdec_loss(self.cfg, params, batch, mode=self.mode,
                                    qkv_plan=self.qkv_plan)
@@ -96,12 +110,16 @@ class Model:
         return _lm.lm_init_cache(self.cfg, batch, max_len, self.device)
 
     def prefill(self, params, batch, cache):
-        """lm: ``batch`` is the (B, S) prompt tokens; encdec:
-        {"encoder_embeds", "inputs"}. Fills ``cache`` in place."""
+        """lm: ``batch`` is the (B, S) prompt tokens; vlm: the tokens or a
+        dict whose "inputs" the backbone prefills (text only, as the
+        reference's); encdec: {"encoder_embeds", "inputs"}. Fills ``cache``
+        in place."""
         if self.family == "encdec":
             return _ed.encdec_prefill(self.cfg, params, batch, cache,
                                       mode=self.mode, qkv_plan=self.qkv_plan)
         self._lm_only("prefill")
+        if self.family == "vlm" and isinstance(batch, dict):
+            batch = batch["inputs"]
         return _lm.lm_prefill(self.cfg, params, batch, cache, mode=self.mode,
                               qkv_plan=self.qkv_plan)
 
@@ -148,15 +166,21 @@ def make_batch(cfg, batch: int, seq_len: int, *,
     """Training inputs drawn from ``generator`` on its device, as the
     reference's ``make_batch`` (``api.py``) draws them from a key:
     'inputs' and 'targets' (B, S) uniform token ids, 'loss_mask' (B, S)
-    ones in fp32, and for the 'encdec' family 'encoder_embeds' (B,
-    encoder_seq, d_model) standard normal in the compute type (the stub
-    frontend's output)."""
+    ones in fp32, and the stub frontends' outputs, standard normal in the
+    compute type: for the 'encdec' family 'encoder_embeds' (B,
+    encoder_seq, d_model); for the 'vlm' family 'patch_embeds' (B,
+    num_patches, d_model), the text then ``seq_len - num_patches`` tokens
+    long."""
     dev = generator.device
     out = {}
-    if cfg.family == "encdec":
-        out["encoder_embeds"] = torch.randn(
-            (batch, cfg.encoder_seq, cfg.d_model), generator=generator,
-            device=dev).to(dtype_of(cfg.compute_dtype))
+    stub = {"encdec": ("encoder_embeds", cfg.encoder_seq),
+            "vlm": ("patch_embeds", cfg.num_patches)}.get(cfg.family)
+    if stub is not None:
+        key, n = stub
+        out[key] = torch.randn((batch, n, cfg.d_model), generator=generator,
+                               device=dev).to(dtype_of(cfg.compute_dtype))
+    if cfg.family == "vlm":
+        seq_len -= cfg.num_patches
     for key in ("inputs", "targets"):
         out[key] = torch.randint(0, cfg.vocab_size, (batch, seq_len),
                                  generator=generator, device=dev)

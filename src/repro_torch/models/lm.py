@@ -3,7 +3,8 @@ full-sequence forward, prefill and one-token decode over a contiguous
 cache, and prefill, chunked prefill and 1- or T-token decode over a paged
 pool. A block is attention with a dense MLP ('attn'), attention with a
 mixture of experts ('moe'), attention in the RG-LRU config's local window
-with an MLP ('local'), or the RG-LRU recurrent block with an MLP ('rg').
+with an MLP ('local'), the RG-LRU recurrent block with an MLP ('rg'), or
+Mamba2's SSD block with no MLP ('ssm').
 
 Parameters follow the reference's layout (:func:`_layout`, the same keys
 and shapes): a uniform stack under ``blocks`` with a leading layer axis; a
@@ -12,17 +13,18 @@ pattern position with a leading group axis; otherwise one subtree per
 layer, ``layer_{i:03d}`` (recurrentgemma-2b's 26 = 8 x 3 + 2 layers). A
 Python loop over layers takes the place of ``lax.scan``. The caches have
 the same layout, a block kind's own in each entry: a (ring) KV cache or a
-page pool for attention, the per-slot recurrent state {"conv", "h"} for
-'rg' (the paged cache keeps it per batch slot). Serving keeps one copy of
-the parameters, cast once to the compute type when they are made
-(``Model.init``, ``params_from_numpy``); training keeps fp32 masters, and
+page pool for attention, the per-slot recurrent state ({"conv", "h"} for
+'rg', {"conv", "state"} for 'ssm'; the paged cache keeps it per batch
+slot). Serving keeps one copy of the parameters, cast once to the
+compute type when they are made (``Model.init``,
+``params_from_numpy``); training keeps fp32 masters, and
 the full-sequence forward casts them (``cast_params``, as the reference
 does on every call), so the cast's backward hands fp32 grads to the
 optimizer. With ``remat`` each block runs under ``torch.utils.checkpoint``
 per ``cfg.remat_policy`` (:func:`_remat`). With ``cfg.ce_chunk`` the loss
 takes the cross entropy chunk by chunk along the sequence
 (:func:`_chunked_ce`), so the (B, S, V) fp32 logits never exist at once.
-'ssm' blocks, and a mixed pattern holding 'moe', raise.
+A mixed pattern holding 'moe' raises.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import functools
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.configs import DECODER_FAMILIES
 from repro_torch.device import dtype_of
 from repro_torch.kernels.attention import attention_decode_paged
 from .attention import (attend, attn_defs, decode_attention_layer,
@@ -43,9 +46,20 @@ from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
 from .moe import moe_defs, moe_forward
 from .rglru import (init_rglru_cache, rglru_decode_step, rglru_defs,
                     rglru_forward, rglru_prefill)
+from .ssm import (init_ssm_cache, ssm_decode_step, ssm_defs, ssm_forward,
+                  ssm_prefill)
 
 ATTENTION_KINDS = ("attn", "local", "moe")
-BLOCK_KINDS = ATTENTION_KINDS + ("rg",)
+# a recurrent block kind -> the key of its core's params, its core's
+# (full-sequence forward, prefill, decode step) and its cache's constructor
+RECURRENT = {
+    "rg": ("rec", (rglru_forward, rglru_prefill, rglru_decode_step),
+           init_rglru_cache),
+    "ssm": ("ssm", (ssm_forward, ssm_prefill, ssm_decode_step),
+            init_ssm_cache),
+}
+BLOCK_KINDS = ATTENTION_KINDS + tuple(RECURRENT)
+FORWARD, PREFILL, DECODE = range(3)
 
 
 def check_supported(cfg) -> None:
@@ -53,8 +67,7 @@ def check_supported(cfg) -> None:
     if not kinds <= set(BLOCK_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: the port runs {BLOCK_KINDS} blocks, got "
-            f"{sorted(kinds)}; the 'ssm' block (mamba2-130m) is ROADMAP "
-            "Queue A item 4")
+            f"{sorted(kinds)}")
     if "moe" in kinds and len(kinds) > 1:
         raise NotImplementedError(
             f"{cfg.name}: mixed block pattern {tuple(cfg.block_pattern)} "
@@ -65,9 +78,12 @@ def check_supported(cfg) -> None:
         raise ValueError(f"{cfg.name}: 'moe' blocks need cfg.moe")
     if "rg" in kinds and cfg.rglru is None:
         raise ValueError(f"{cfg.name}: 'rg' blocks need cfg.rglru")
-    if cfg.family != "lm":
+    if "ssm" in kinds and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: 'ssm' blocks need cfg.ssm")
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}; the "
-                                  "port runs decoder-only LMs ('lm')")
+                                  "port runs decoder-only LMs ('lm') and "
+                                  "their vision-language form ('vlm')")
 
 
 def _layout(cfg) -> tuple:
@@ -111,7 +127,13 @@ def _block_window(cfg, kind: str):
 
 
 def block_defs(cfg, kind: str, prefix: str, *, stack=None) -> dict:
+    """A block's parameters: its core (attention, the RG-LRU or the SSD
+    mixer), ln1 and, but for an 'ssm' block, ln2 and the FFN."""
     defs = {}
+    if kind == "ssm":
+        defs.update(ssm_defs(cfg, f"{prefix}/ssm", stack=stack))
+        defs.update(norm_defs(cfg, f"{prefix}/ln1", stack=stack))
+        return defs
     if kind in ATTENTION_KINDS:
         defs.update(attn_defs(cfg, f"{prefix}/attn", stack=stack))
     else:
@@ -203,13 +225,22 @@ def _ffn(cfg, p, x, *, mode: str):
                        prenorm=norm_params(p, "ln2")), None
 
 
-def _recurrent(cfg, p, x, fn, *args):
-    """An 'rg' block's recurrence on the standalone ln1 norm of ``x``
-    (the reference keeps the norm outside the recurrent core): ``fn``
-    (:func:`rglru_forward` or a step) returns the output, added to the
-    stream with the residual scale."""
-    h = apply_norm(cfg, x, p, "ln1")
-    return x + cfg.residual_scale * fn(cfg, p["rec"], h, *args)
+def _recurrent(cfg, p, x, kind: str, which: int, *args):
+    """A recurrent block's core (``which`` of its ``RECURRENT`` functions:
+    FORWARD, PREFILL or DECODE) on the standalone ln1 norm of ``x`` (the
+    reference keeps the norm outside the recurrent core)."""
+    key, fns, _ = RECURRENT[kind]
+    return fns[which](cfg, p[key], apply_norm(cfg, x, p, "ln1"), *args)
+
+
+def _recurrent_rest(cfg, p, x, out, *, mode: str):
+    """The rest of a recurrent block after its core's ``out``: ``x +
+    residual_scale * out``, then an 'rg' block's FFN (an 'ssm' block has
+    none). Returns (x, None)."""
+    x = x + cfg.residual_scale * out
+    if "mlp" in p:
+        return _ffn(cfg, p, x, mode=mode)
+    return x, None
 
 
 def block_forward(cfg, p, x, *, positions, mode: str = "reference",
@@ -219,8 +250,9 @@ def block_forward(cfg, p, x, *, positions, mode: str = "reference",
     'rg' block norms ln1 standalone); ``qkv_plan`` is the rung of the QKV
     ladder ('kernel' mode). Returns (x, the MoE's load-balancing loss, or
     None)."""
-    if kind == "rg":
-        return _ffn(cfg, p, _recurrent(cfg, p, x, rglru_forward), mode=mode)
+    if kind in RECURRENT:
+        return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind,
+                                                     FORWARD), mode=mode)
     a = attention_layer(cfg, p["attn"], x, window=_block_window(cfg, kind),
                         positions=positions, mode=mode,
                         prenorm=norm_params(p, "ln1"), qkv_plan=qkv_plan)
@@ -284,14 +316,13 @@ def _unstacked_layers(cfg, params) -> list:
     return [(kind, stacks[key][index]) for kind, key, index in slots]
 
 
-def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
+def lm_blocks(cfg, params, x, *, mode: str = "reference",
               remat: bool = False, qkv_plan: str = "rope_fused"):
-    """tokens: (B, S) -> (the last block's output (B, S, d), the params
-    cast to the compute type, the layers' summed MoE auxiliary loss in fp32,
-    0 for dense blocks), so the loss reuses the cast."""
-    params = cast_params(params, dtype_of(cfg.compute_dtype))
-    x = _embed(cfg, params, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    """Every block on the embedded stream ``x`` (B, S, d), at positions 0
+    .. S - 1, causal; ``params`` cast to the compute type. Returns (the last
+    block's output, the layers' summed MoE auxiliary loss in fp32, 0 for
+    dense and recurrent blocks)."""
+    positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = {}
     for kind, p in _unstacked_layers(cfg, params):
@@ -302,6 +333,17 @@ def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
         x, a = blocks[kind](p, x)
         if a is not None:
             aux = aux + a
+    return x, aux
+
+
+def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
+              remat: bool = False, qkv_plan: str = "rope_fused"):
+    """tokens: (B, S) -> (the last block's output (B, S, d), the params
+    cast to the compute type, the layers' summed MoE auxiliary loss in fp32,
+    0 for dense blocks), so the loss reuses the cast."""
+    params = cast_params(params, dtype_of(cfg.compute_dtype))
+    x, aux = lm_blocks(cfg, params, _embed(cfg, params, tokens), mode=mode,
+                       remat=remat, qkv_plan=qkv_plan)
     return x, params, aux
 
 
@@ -395,8 +437,8 @@ def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:
     dtype = dtype_of(cfg.compute_dtype)
 
     def make(kind, stack):
-        if kind == "rg":
-            return init_rglru_cache(cfg, batch, dtype, device, stack=stack)
+        if kind in RECURRENT:
+            return RECURRENT[kind][2](cfg, batch, dtype, device, stack=stack)
         c = init_attn_cache(cfg, batch, max_len, _block_window(cfg, kind),
                             dtype, device, layers=stack or 1)
         return c if stack else {k: v[0] for k, v in c.items()}
@@ -404,9 +446,9 @@ def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:
 
 
 def _write_state(c, state, slot=None) -> None:
-    """Copy a prefill's recurrent state into the cache entry ``c`` (all
-    rows, or batch slot ``slot``), in place."""
-    for name in ("conv", "h"):
+    """Copy a prefill's recurrent state (each of its tensors) into the
+    cache entry ``c`` (all rows, or batch slot ``slot``), in place."""
+    for name in state:
         dst = c[name] if slot is None else c[name][slot]
         src = state[name] if slot is None else state[name][0]
         dst.copy_(src)
@@ -416,11 +458,10 @@ def block_prefill(cfg, p, x, c, *, positions, mode: str = "reference",
                   qkv_plan: str = "rope_fused", kind: str = "attn"):
     """Full-sequence block that also fills its layer's cache entry ``c``
     (in place)."""
-    if kind == "rg":
-        h = apply_norm(cfg, x, p, "ln1")
-        o, state = rglru_prefill(cfg, p["rec"], h)
+    if kind in RECURRENT:
+        o, state = _recurrent(cfg, p, x, kind, PREFILL)
         _write_state(c, state)
-        return _ffn(cfg, p, x + cfg.residual_scale * o, mode=mode)[0]
+        return _recurrent_rest(cfg, p, x, o, mode=mode)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
@@ -432,9 +473,9 @@ def block_prefill(cfg, p, x, c, *, positions, mode: str = "reference",
 
 def block_decode(cfg, p, x, c, pos, *, mode: str = "reference",
                  kind: str = "attn"):
-    if kind == "rg":
-        return _ffn(cfg, p, _recurrent(cfg, p, x, rglru_decode_step, c),
-                    mode=mode)[0]
+    if kind in RECURRENT:
+        return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind, DECODE,
+                                                     c), mode=mode)[0]
     h = apply_norm(cfg, x, p, "ln1")
     a = decode_attention_layer(cfg, p["attn"], h, c["k"], c["v"], pos,
                                window=_block_window(cfg, kind), mode=mode)
@@ -474,13 +515,13 @@ def lm_init_paged_cache(cfg, batch_slots: int, n_pages: int, page_size: int,
     """The paged caches in the parameters' layout: an attention block's
     {"k_pages", "v_pages"}, each (P, Hkv, page, hd) (a uniform stack's with
     a leading layer axis: the reference's scan-stacked layout, so the pools
-    compare directly), an 'rg' block's recurrent state per batch slot."""
+    compare directly), a recurrent block's state per batch slot."""
     dtype = dtype_of(cfg.compute_dtype)
 
     def make(kind, stack):
-        if kind == "rg":
-            return init_rglru_cache(cfg, batch_slots, dtype, device,
-                                    stack=stack)
+        if kind in RECURRENT:
+            return RECURRENT[kind][2](cfg, batch_slots, dtype, device,
+                                      stack=stack)
         pool = init_paged_attn_cache(cfg, n_pages, page_size, dtype, device)
         if stack is None:
             return pool
@@ -505,13 +546,12 @@ def block_prefill_paged(cfg, p, x, c, *, page_rows, slot, positions,
                         mode: str = "reference", qkv_plan: str = "rope_fused",
                         kind: str = "attn"):
     """Single-sequence (B = 1) prefill block: rotated k/v land in the
-    sequence's pages, an 'rg' block's state in batch slot ``slot`` (in
+    sequence's pages, a recurrent block's state in batch slot ``slot`` (in
     place)."""
-    if kind == "rg":
-        h = apply_norm(cfg, x, p, "ln1")
-        o, state = rglru_prefill(cfg, p["rec"], h)
+    if kind in RECURRENT:
+        o, state = _recurrent(cfg, p, x, kind, PREFILL)
         _write_state(c, state, slot)
-        return _ffn(cfg, p, x + cfg.residual_scale * o, mode=mode)[0]
+        return _recurrent_rest(cfg, p, x, o, mode=mode)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
@@ -596,9 +636,9 @@ def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
 
 def block_decode_paged(cfg, p, x, c, page_table, lengths, *,
                        mode: str = "reference", kind: str = "attn"):
-    if kind == "rg":
-        return _ffn(cfg, p, _recurrent(cfg, p, x, rglru_decode_step, c),
-                    mode=mode)[0]
+    if kind in RECURRENT:
+        return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind, DECODE,
+                                                     c), mode=mode)[0]
     h = apply_norm(cfg, x, p, "ln1")
     a = paged_decode_attention_layer(cfg, p["attn"], h, c, page_table,
                                      lengths, window=_block_window(cfg, kind),

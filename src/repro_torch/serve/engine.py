@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels, obs
+from repro_torch.configs import DECODER_FAMILIES
 from . import kv_cache as kvc
 
 
@@ -224,7 +225,7 @@ class Engine:
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in extra_batch.items()}
             batch["inputs"] = prompts
-        elif family == "lm":
+        elif family in DECODER_FAMILIES:   # a vlm serves its text backbone
             batch = prompts
         else:
             raise NotImplementedError(

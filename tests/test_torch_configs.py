@@ -121,16 +121,16 @@ def _port_outputs(arch, mode):
 
 def _same_fields(got, want):
     """Every field of the port's config equal to the reference's; ``moe``
-    (each package's own MoEConfig class) compared by its fields."""
+    and ``ssm`` (each package's own class) compared by their fields."""
     for f in dataclasses.fields(ModelConfig):
         g, w = getattr(got, f.name), getattr(want, f.name)
-        if f.name == "moe" and g is not None and w is not None:
+        if f.name in ("moe", "ssm") and g is not None and w is not None:
             g, w = dataclasses.asdict(g), dataclasses.asdict(w)
         assert g == w, f.name
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["published", "smoke"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("mamba2-130m", "internvl2-2b"))
 def test_config_is_the_references_field_for_field(arch, smoke):
     got = get_config(arch, smoke=smoke)
     _same_fields(got, j_get_config(arch, smoke=smoke))
@@ -144,8 +144,9 @@ def test_llama_ids_return_their_one_config(arch):
 
 
 def test_unregistered_arch_raises():
-    with pytest.raises(KeyError, match="mamba2-130m"):
-        get_config("mamba2-130m")  # the port has no SSM family yet
+    with pytest.raises(KeyError, match="llama4-maverick-400b-a17b"):
+        # its interleaved ('attn', 'moe') stack is not ported yet
+        get_config("llama4-maverick-400b-a17b")
 
 
 # ---------------------------------------------------------------------------

@@ -138,7 +138,8 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 @pytest.mark.parametrize("arch", ["llama-1b", "llama-100m", "granite-8b",
                                   "qwen2-72b", "minicpm-2b", "chatglm3-6b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "mamba2-130m",
+                                  "internvl2-2b"])
 @pytest.mark.parametrize("overrides", [{}, dict(tie_embeddings=False,
                                                 qkv_bias=True,
                                                 vocab_pad_multiple=128)],
