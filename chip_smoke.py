@@ -384,7 +384,32 @@ Phases, each of which raises on failure (exit code non-zero):
    traced step. (d) With phase 3: ``gemm_fused`` and the GEMM backward at its
    four training GEMMs (M 8192), the flash forward and backward at B 4,
    H 16, Hkv 8, S 2048, d 128 causal, and the paged decode at d 128.
-20. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+20. llama4-maverick-400b-a17b at published width (d 5120, 40 heads over 8,
+   a GQA group of 5, head_dim 128, d_ff 8192, vocab 202,048, 128 experts
+   top-1) cut to 2 layers: one ('attn', 'moe') group, the published
+   ``blocks_0``/``blocks_1`` layout, 36.9 GB of bf16 weights (each leaf
+   cast as it is drawn) at a trained model's scale; the fp32 truth reads
+   the experts,
+   the embedding and the head from the bf16 copy, upcast where the plain
+   path reaches them (one expert at a time), so no fp32 copy of the
+   experts exists. (a) Phase 8a's traffic through ``RequestQueue(Engine)``
+   and (b) 8b's through ``PagedEngine`` (128-token chunks), with phases
+   4's and 5's checks: launches exact (per prefill or chunk 4
+   ``gemm_fused`` in the dense layer and 2 + 2 x 128 in the MoE layer;
+   per decode step 2 and 256), a replayed decode step bit for bit the
+   eager one, the logits under phase 4's bound on the kernel path's
+   routing, the fp32 router's disagreement share printed and under 10%;
+   (c) 8b's requests through ``ShardedPagedEngine(n_hosts=2)`` over the
+   one weight copy: launches exact, the placements and admissions by
+   host the least-loaded rule's, each host's streams token for token a
+   lone ``PagedEngine``'s fed the requests placed on it. With phase 3:
+   the forward GEMM at its q|k + rope (K 5120, N 6144) and an expert's up
+   (2 x N 8192) and down (K 8192) at M 1024 and M 4, the flash forward at
+   B 4, H 40, Hkv 8, S 256, ``flash_decode`` at G 5 and
+   ``flash_decode_paged`` at G 5 (decode, a 128-token chunk, verify
+   steps of 4 and 5 tokens, each verify row bit for bit the serial step).
+   Prints tokens/s, the peak memory and the phase's seconds.
+21. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -440,10 +465,11 @@ from repro_torch.launch.profile_train import profile_step  # noqa: E402
 from repro_torch.models import build_model, make_batch  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import nest, tree_map  # noqa: E402
+from repro_torch.models.lm import layer_slots  # noqa: E402
 from repro_torch.optim import AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.optim.optimizer import leaves, named_leaves  # noqa: E402
 from repro_torch.serve import (Engine, PagedEngine, Request,  # noqa: E402
-                               RequestQueue)
+                               RequestQueue, ShardedPagedEngine)
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.train import (FailureInjector, StragglerWatchdog,  # noqa: E402
                                loss_and_grads, train_loop)
@@ -549,6 +575,16 @@ IVL_CHECK_TEXT = 512
 IVL_LENS, IVL_NEW, IVL_PAGES = (700, 1211), 32, 32
 IVL_TRAIN_LAYERS, IVL_TRAIN_BATCH, IVL_TRAIN_SEQ = 24, 4, 2048
 IVL_PHASES = ("19b engine", "19b paged", "19c")
+# phase 20: llama4-maverick-400b-a17b at published width (d 5120, 40/8
+# heads, d_ff 8192, vocab 202,048, 128 experts top-1) cut to MAV_LAYERS
+# layers: one ('attn', 'moe') group, the published blocks_0/blocks_1
+# layout. In bf16 its experts are 32.2 GB and its untied embedding and head
+# 4.1 GB; the fp32 truth keeps those leaves in bf16 and upcasts them where
+# the plain path reaches them (``kept_in_bf16``), where a whole fp32 copy
+# (64.4 GB of experts) would not fit beside them. 20a and 20b take
+# phase 8's traffic; 20c 20b's requests over MAV_HOSTS hosts
+MAV_ARCH, MAV_LAYERS, MAV_HOSTS = "llama4-maverick-400b-a17b", 2, 2
+MAV_PHASES = ("20a", "20b", "20c")
 # the largest share of token-layer expert choices on which the fp32
 # router, along the kernel path's teacher-forced run, may pick another
 # expert set than the kernel path (near ties flip under bf16 rounding; a
@@ -1145,7 +1181,8 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
     """Each gemm_fused launch of the main paths (llama-1b's, then
     whisper-base's and bert-110m's, ENCODER_GEMMS, then mixtral-8x7b's,
     ``moe_gemm_cases``, then recurrentgemma-2b's, ``rg_gemm_cases``, then
-    internvl2-2b's, ``ivl_gemm_cases``) against its plain
+    internvl2-2b's, ``ivl_gemm_cases``, then llama4-maverick's,
+    ``mav_gemm_cases``) against its plain
     version (the output, the gated chain's saved preacts and the row
     statistics), timed as planned and at every (tile width, split count)
     the sweep reaches: each width the chain takes, unsplit and split as
@@ -1164,7 +1201,8 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
                                  + encoder_gemm_cases(dev, gen)
                                  + moe_gemm_cases(dev, gen)
                                  + rg_gemm_cases(dev, gen)
-                                 + ivl_gemm_cases(dev, gen)):
+                                 + ivl_gemm_cases(dev, gen)
+                                 + mav_gemm_cases(dev, gen)):
         ep, pro, extra = fwd_args(kw)
         m, k = a.shape
         n = b.shape[1]
@@ -1880,6 +1918,123 @@ def measure_ivl_attention(dev, gen, timer) -> dict:
     return out
 
 
+def mav_gemm_cases(dev, gen):
+    """llama4-maverick's gemm_fused launches (phase 20) as (name, a, b,
+    kwargs, save_preact): the prefill's q|k + rope (K 5120, N 6144,
+    head_dim 128) on the rmsnorm prologue at M = BATCH x PROMPT, and an
+    expert's dual-output silu-gated up projection with no prologue (2 x N
+    8192) and its down projection with no epilogue (K 8192, N 5120) at M
+    = BATCH x PROMPT and at a decode step's M = BATCH. The weights at std
+    K^-1/2."""
+    cfg = get_config(MAV_ARCH)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    rms = dict(prologue=Prologue(norm="rmsnorm"),
+               gamma=(1 + 0.1 * torch.randn(d, generator=gen,
+                                            device=dev)).to(bf16))
+    m = BATCH * PROMPT
+    sin, cos = rope_tables(torch.arange(PROMPT, device=dev), hd,
+                           cfg.rope_theta)
+    w_gate, w_in, w_out = (rnd(d, f, std=d ** -0.5), rnd(d, f, std=d ** -0.5),
+                           rnd(f, d, std=f ** -0.5))
+    up = dict(epilogue=Epilogue(activation="silu", gate=True), b2=w_in)
+    x = rnd(m, d)
+    cases = [
+        ("mav_prefill_qk_rope", x,
+         rnd(d, (cfg.num_heads + cfg.num_kv_heads) * hd, std=d ** -0.5),
+         dict(epilogue=Epilogue(rope=True, head_dim=hd),
+              sin=sin.repeat(BATCH, 1), cos=cos.repeat(BATCH, 1), **rms)),
+        ("mav_expert_up", x, w_gate, dict(up)),
+        ("mav_expert_down", rnd(m, f), w_out, {}),
+        ("mav_decode_expert_up", rnd(BATCH, d), w_gate, dict(up)),
+        ("mav_decode_expert_down", rnd(BATCH, f), w_out, {}),
+    ]
+    return [(*c, False) for c in cases]
+
+
+def measure_mav_attention(dev, gen, timer) -> dict:
+    """Phase 20's attention rows at llama4-maverick's heads, 40 over 8 kv
+    heads (a GQA group of 5), head_dim 128: the flash forward at B BATCH,
+    S PROMPT causal (q, k, v strided views of the projections);
+    ``flash_decode`` at B BATCH over a MAX_LEN-slot cache at phase 4's
+    last step (5 q rows a unit, the few-row body);
+    ``flash_decode_paged`` over 8-page tables of 64-token pages at SLOTS
+    ragged lengths (5 rows), a CHUNK-token chunk (640 rows) and verify
+    steps of SPEC_TOKENS and SPEC_TOKENS + 1 tokens (20 and 25 rows, in
+    16-row units of the few-row body as the 5-row serial step: the body
+    goes by the group), each verify row held bit for bit to the serial
+    T = 1 call at its position (required at one split). Returns {kernel
+    name: rows}."""
+    cfg = get_config(MAV_ARCH)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // hkv
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    qk, v = rnd(BATCH, PROMPT, (h + hkv) * hd), rnd(BATCH, PROMPT, hkv * hd)
+    q = qk[..., : h * hd].reshape(BATCH, PROMPT, h, hd).transpose(1, 2)
+    k = qk[..., h * hd:].reshape(BATCH, PROMPT, hkv, hd).transpose(1, 2)
+    v = v.reshape(BATCH, PROMPT, hkv, hd).transpose(1, 2)
+    row = flash_row("mav_prefill_g5", q, k, v, True, timer)
+    del row["kernel"], q, k, v, qk
+    out = {"flash_attention_fwd": [row]}
+    kc, vc = rnd(BATCH, hkv, MAX_LEN, hd), rnd(BATCH, hkv, MAX_LEN, hd)
+    row = decode_row("mav_decode_g5", rnd(BATCH, hkv, g, hd), kc, vc,
+                     PROMPT + NEW_TOKENS - 1, timer)
+    del row["kernel"]
+    out["flash_decode"] = [row]
+    n_pages = SLOTS * MAX_PAGES + 1
+    k_pages, v_pages = rnd(n_pages, hkv, PAGE, hd), rnd(n_pages, hkv, PAGE, hd)
+    perm = np.random.default_rng(20).permutation(
+        np.arange(1, n_pages)).reshape(SLOTS, MAX_PAGES)
+    table = torch.from_numpy(perm.astype(np.int32)).to(dev)
+
+    def lens(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    verify = lens(4, 64, 68, 130, 257, 300, 400, 512)
+    out["flash_decode_paged"] = []
+    for name, q, tab, lengths, t in (
+            ("mav_decode_g5", rnd(SLOTS, hkv, g, hd), table,
+             lens(0, 1, 64, 65, 130, 257, 400, 512), 1),
+            ("mav_chunk_g5", rnd(1, hkv, g * CHUNK, hd), table[:1],
+             lens(192 + CHUNK), CHUNK),
+            ("mav_verify_g5", rnd(SLOTS, hkv, g * SPEC_TOKENS, hd), table,
+             verify, SPEC_TOKENS),
+            ("mav_verify_g5_k1", rnd(SLOTS, hkv, g * (SPEC_TOKENS + 1), hd),
+             table, verify + 1, SPEC_TOKENS + 1)):
+        row = paged_row(name, q, tab, lengths, t, k_pages, v_pages, timer)[0]
+        if t in (SPEC_TOKENS, SPEC_TOKENS + 1):
+            units = attn_decode.decode_units(SLOTS, hkv, g * t, t)
+            splits = attn_decode.plan_decode(
+                units, MAX_PAGES * PAGE // attn_decode.KEY_TILE,
+                gemm_ops.sm_count(dev))[0]
+            holds, diff = verify_serial_bits(
+                f"flash_decode_paged[{name}] ({splits} split(s))",
+                lambda q_, l_, t_: flash_decode_paged(
+                    q_, k_pages, v_pages, table, l_, q_tokens=t_),
+                q, lengths, t, g)
+            row.update(verify_rows_bitwise=holds, verify_rows_max_diff=diff,
+                       splits=splits)
+            if splits == 1 and not holds:
+                raise AssertionError(
+                    f"flash_decode_paged[{name}]: at one split a verify row "
+                    f"differs from the serial call by {diff:.4g}")
+        out["flash_decode_paged"].append(row)
+    for name, rows in out.items():
+        for r in rows:
+            log(f"[20] {name}[{r['case']}] G 5, head_dim 128: kernel "
+                f"{r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
+                f"library {r['library_ms'] * 1e3:.1f} us, bound "
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return out
+
+
 def measure_paged(cfg, dev, gen, timer, old=None):
     """The paged kernel at its three main-path shapes (paged_cases), and the
     verify step also over a 16-page bucket (900-1024 keys, two splits a
@@ -1927,7 +2082,7 @@ def measure_paged(cfg, dev, gen, timer, old=None):
         b = q.shape[0]
         rows.append(row)
         if name.startswith("verify"):
-            units = attn_decode.decode_units(b, hkv, g * t)
+            units = attn_decode.decode_units(b, hkv, g * t, t)
             splits = attn_decode.plan_decode(
                 units, table.shape[1] * PAGE // attn_decode.KEY_TILE,
                 gemm_ops.sm_count(dev))[0]
@@ -2876,9 +3031,11 @@ def no_launches() -> dict:
 
 
 def ffn_gemms(cfg) -> int:
-    """gemm_fused launches of one layer's FFN, by block kind: the dense
-    MLP's up and down, or each expert's up and down (an 'moe' block)."""
-    return 2 * cfg.moe.num_experts if cfg.layer_kind(0) == "moe" else 2
+    """gemm_fused launches of every layer's FFN, summed by block kind: the
+    dense MLP's up and down, or each expert's up and down (an 'moe' block;
+    llama4-maverick interleaves the two)."""
+    return sum(2 * cfg.moe.num_experts if cfg.layer_kind(i) == "moe" else 2
+               for i in range(cfg.num_layers))
 
 
 def expected_launches(cfg, batches: int, qkv_plan: str = "rope_fused",
@@ -2891,9 +3048,9 @@ def expected_launches(cfg, batches: int, qkv_plan: str = "rope_fused",
     plain version)."""
     steps = new_tokens - 1                     # decode calls per batch
     n = batches * cfg.num_layers
-    ffn = ffn_gemms(cfg)
-    prefill_gemms = (0 if qkv_plan == "unfused" else 2) + ffn
-    want = {**no_launches(), "gemm_fused": n * (prefill_gemms + ffn * steps),
+    ffn = batches * ffn_gemms(cfg)
+    qkv = 0 if qkv_plan == "unfused" else 2 * n
+    want = {**no_launches(), "gemm_fused": qkv + ffn * (1 + steps),
             "flash_attention_fwd": n, "flash_decode": n * steps}
     if qkv_plan != "rope_fused":
         want["rope"] = 2 * n
@@ -2931,10 +3088,13 @@ class Models:
 
 
 def build_models(dev, arch: str = "llama-1b", layers=None,
-                 trained: bool = False) -> Models:
+                 trained: bool = False, keep_bf16=None) -> Models:
     """``arch`` at its published width with seeded random weights, cut to
     ``layers`` layers where given; with ``trained`` rescaled to a trained
-    model's scale (``trained_scale``)."""
+    model's scale (``trained_scale``). ``keep_bf16``: a predicate on a
+    leaf's path; the fp32 truth reads those leaves from the bf16 copy
+    (upcast where the plain path reaches them, exactly) instead of an fp32
+    copy of its own."""
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -2944,9 +3104,12 @@ def build_models(dev, arch: str = "llama-1b", layers=None,
     if trained:
         params = trained_scale(model, params)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    keep = keep_bf16 or (lambda path: False)
+    params32 = nest({p: x if keep(p) else x.float()
+                     for p, x in named_leaves(params)})
     m = Models(cfg, model, build_model(cfg, mode="reference", device=dev),
                build_model(cfg32, mode="reference", device=dev), params,
-               tree_map(lambda x: x.float(), params))
+               params32)
     torch.cuda.synchronize()
     log(f"[slice] {arch} built: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads (head_dim "
@@ -3202,7 +3365,7 @@ def expected_paged_launches(cfg, engine) -> dict:
     pre, chunks, steps = (engine.prefills, engine.chunks_prefilled,
                           engine.decode_steps)
     return {**no_launches(),
-            "gemm_fused": n * ((2 + ffn) * (pre + chunks) + ffn * steps),
+            "gemm_fused": (2 * n + ffn) * (pre + chunks) + ffn * steps,
             "flash_attention_fwd": n * pre,
             "flash_decode_paged": n * (steps + chunks)}
 
@@ -3268,6 +3431,7 @@ def run_paged_phase(dev, m: Models, phase: str, tag=None) -> dict:
     for u in range(2):
         warm.submit(Request(u, np.arange(1, 100 + u, dtype=np.int32), 3))
     warm.run()
+    del warm          # and its decode graphs' memory
 
     engine = PagedEngine(m.kernel, m.params, **kw)
     reqs = paged_requests(cfg, phase)
@@ -3415,7 +3579,7 @@ def vlm_batches(cfg, dev, batch: int, seq: int):
 def trained_scale(model, params) -> dict:
     """The seeded weights rescaled to std fan_in^-1/2 over each matrix's
     input dim (the tied embedding's over d_model, an SSD block's conv
-    filter's over its taps). The reference's init draws a stacked matrix
+    filter's over its taps), the matrices in place. The reference's init draws a stacked matrix
     at std (layers)^-1/2: 0.71 at 2 layers, where the bf16 grads of every
     path are rounding noise as large as the grads themselves. An SSD
     block's decay rates and time steps are drawn as Mamba2's published
@@ -3429,7 +3593,7 @@ def trained_scale(model, params) -> dict:
         if d.init == "normal" and len(d.shape) > 1:
             fan = (d.shape[-1] if path == "embed"
                    or path.endswith("ssm/conv_w") else d.shape[-2])
-            x = x * (d.shape[0] / fan) ** 0.5
+            x = x.mul_((d.shape[0] / fan) ** 0.5)
         elif path.endswith(("ssm/a_log", "ssm/dt_bias")):
             gen = torch.Generator(device=x.device).manual_seed(
                 int(path.endswith("dt_bias")))
@@ -5903,6 +6067,162 @@ def run_internvl(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: llama4-maverick served at published width
+# ---------------------------------------------------------------------------
+
+def kept_in_bf16(path: str) -> bool:
+    """The leaves the fp32 truth reads from the bf16 serving copy, upcast
+    where the plain path reaches them: the experts (``moe._expert_ffn``,
+    one expert at a time), the embedding (the lookup's cast) and the head
+    (``lm._logits``' cast)."""
+    return "/moe/w_" in path or path in ("embed", "lm_head")
+
+
+def placement_rule(n_hosts: int, free_pages: int, n_requests: int) -> list:
+    """The host of each of ``n_requests`` requests submitted in order to
+    ``n_hosts`` idle hosts of ``free_pages`` free pages each, by the rule
+    (most free pages, then fewest queued, then lowest id): submissions
+    allocate no page, so the queue lengths decide."""
+    queued, hosts = [0] * n_hosts, []
+    for _ in range(n_requests):
+        i = min(range(n_hosts), key=lambda j: (-free_pages, queued[j], j))
+        queued[i] += 1
+        hosts.append(i)
+    return hosts
+
+
+def run_sharded(dev, m: Models) -> dict:
+    """20c: 20b's requests through ``ShardedPagedEngine(n_hosts=
+    MAV_HOSTS)`` of 20b's engines over the one weight copy: launches exact
+    (the hosts' counters summed), the placements and ``admissions_by_host``
+    exactly ``placement_rule``'s, then each host's streams token for token
+    those of a lone PagedEngine fed the requests placed on it, in order
+    (one engine alive at a time: each keeps its decode graphs)."""
+    cfg = m.cfg
+    kw = dict(batch_slots=SLOTS, page_size=PAGE, max_pages_per_seq=MAX_PAGES,
+              **DENSE_PAGED)
+    reqs = paged_requests(cfg, "8b")
+    eng = ShardedPagedEngine(m.kernel, m.params, n_hosts=MAV_HOSTS, **kw)
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_launch_counts()
+    results = eng.run()
+    counts = kernels.launch_counts()
+    want = no_launches()
+    for h in eng.hosts:
+        for k, n in expected_paged_launches(cfg, h).items():
+            want[k] += n
+    rep = eng.report()
+    rule = placement_rule(MAV_HOSTS, eng.hosts[0].n_pages - 1, len(reqs))
+    log(f"[20c] {len(results)} requests over {MAV_HOSTS} hosts in "
+        f"{rep['steps']} steps: admissions by host "
+        f"{rep['admissions_by_host']}, placements {rep['placements']}; "
+        f"launches {counts}")
+    if counts != want:
+        raise AssertionError(f"[20c] launches {counts}; the hosts' counters "
+                             f"imply {want}")
+    by_host = [rule.count(i) for i in range(MAV_HOSTS)]
+    if rep["placements"] != {r.uid: h for r, h in zip(reqs, rule)} \
+            or rep["admissions_by_host"] != by_host:
+        raise AssertionError(f"[20c] placements {rep['placements']}; the "
+                             f"rule gives {rule}")
+    if sorted(results) != [r.uid for r in reqs]:
+        raise AssertionError(f"[20c] completed {sorted(results)}")
+    for r in reqs:
+        check_result(cfg, r, results[r.uid])
+    t = [h.report()["timings"] for h in eng.hosts]
+    dec_tok, dec_s = (sum(x["decode_tokens"] for x in t),
+                      sum(x["decode_s"] for x in t))
+    throughput = {"decode_tokens_per_s": dec_tok / dec_s,
+                  "prefill_tokens_per_s": sum(x["prefill_tokens"] for x in t)
+                  / sum(x["prefill_s"] for x in t)}
+    placed = {i: [r for r in reqs if rep["placements"][r.uid] == i]
+              for i in range(MAV_HOSTS)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, mine in placed.items():
+        lone = PagedEngine(m.kernel, m.params, **kw)
+        for r in mine:
+            lone.submit(r)
+        got = lone.run()
+        same = [r.uid for r in mine
+                if np.array_equal(got[r.uid], results[r.uid])]
+        log(f"[20c] host {i}: {len(same)} of {len(mine)} streams equal a "
+            f"lone PagedEngine's token for token")
+        if len(same) != len(mine):
+            differ = [r.uid for r in mine if r.uid not in same]
+            raise AssertionError(f"[20c] host {i}: requests {differ} differ "
+                                 "from a lone engine's streams")
+        del lone
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[20c] decode {dec_tok} tokens in {dec_s:.4f} s of the hosts' "
+        f"decode ({throughput['decode_tokens_per_s']:.1f} tok/s)")
+    return {"launches": counts, "steps": rep["steps"],
+            "admissions_by_host": rep["admissions_by_host"],
+            "placements": rep["placements"], "throughput": throughput}
+
+
+def run_maverick(dev) -> dict:
+    """Phase 20: llama4-maverick-400b-a17b at published width cut to
+    MAV_LAYERS layers, all 128 experts, weights at a trained model's scale,
+    kernel mode beside the plain bf16 and fp32 paths (the truth reading the
+    ``kept_in_bf16`` leaves from the bf16 copy): 20a phase 8a's traffic
+    through RequestQueue(Engine) and 20b phase 8b's through PagedEngine
+    (128-token chunks), with phases 4's and
+    5's checks (launches exact: per prefill or chunk 4 ``gemm_fused`` in
+    the attention + MLP layer and 2 + 2E in the MoE layer, per decode step
+    2 and 2E; a replayed decode step bit for bit the eager one; the logits
+    under phase 4's bound on the kernel path's routing, the fp32 router's
+    disagreement share under MAX_REROUTED), then 20c ``run_sharded``.
+    Prints the init time, the peak memory and the phase's seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    m = build_models(dev, MAV_ARCH, MAV_LAYERS, trained=True,
+                     keep_bf16=kept_in_bf16)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    truth_gb = nbytes(*(x for p, x in named_leaves(m.params32)
+                        if not kept_in_bf16(p))) / 1e9
+    log(f"[20] {[k for k, _, _ in layer_slots(m.cfg)]}, "
+        f"{m.cfg.moe.num_experts} experts top-{m.cfg.moe.top_k}: "
+        f"{nbytes(*leaves(m.params)) / 1e9:.2f} GB of bf16 weights, "
+        f"{truth_gb:.2f} GB more for the fp32 truth; init peak "
+        f"{init_peak:.2f} GB")
+    out = {"20a": run_slice(dev, m, tag="20a maverick")}
+    del out["20a"]["teacher_forced"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["20b"] = run_paged_phase(dev, m, "8b", tag="20b maverick")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["20c"] = run_sharded(dev, m)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"init_s": init_s, "init_peak_gb": init_peak,
+               "seconds": time.perf_counter() - t0,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "rerouted_share": {p: out[p]["routing"]["share"]
+                                  for p in ("20a", "20b")},
+               "decode_tokens_per_s": {
+                   p: out[p]["throughput"]["decode_tokens_per_s"]
+                   for p in MAV_PHASES},
+               "prefill_tokens_per_s": {
+                   p: out[p]["throughput"]["prefill_tokens_per_s"]
+                   for p in MAV_PHASES}}
+    log(f"[20] {MAV_ARCH}, {MAV_LAYERS} layers: init {init_s:.1f} s, peak "
+        f"memory {summary['peak_memory_gb']:.2f} GB, phase 20 in "
+        f"{summary['seconds']:.1f} s; rerouted share "
+        f"{summary['rerouted_share']}; decode tok/s "
+        f"{summary['decode_tokens_per_s']}; prefill tok/s "
+        f"{summary['prefill_tokens_per_s']}")
+    out["20"] = summary
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5959,7 +6279,8 @@ def main(argv=None) -> int:
                     + measure_paged_window(dev, gen, timer))}
     for name, rows in itertools.chain(
             measure_rg_attention(dev, gen, timer).items(),
-            measure_ivl_attention(dev, gen, timer).items()):
+            measure_ivl_attention(dev, gen, timer).items(),
+            measure_mav_attention(dev, gen, timer).items()):
         measured[name] += rows
     bwd_rows, bwd_whole = measure_gemm_bwd(cfg, dev, gen, timer, old)
     measured.update(bwd_rows)
@@ -6060,6 +6381,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phases.update(run_internvl(dev))
     log(f"[done] phase 19 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(run_maverick(dev))
+    log(f"[done] phase 20 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -6075,7 +6400,7 @@ def main(argv=None) -> int:
                             + LEFTOVER_PHASES + MOE_PHASES
                             + MOE_TRAIN_PHASES + TELEMETRY_PHASES
                             + RG_PHASES + RG_TRAIN_PHASES + M2_PHASES
-                            + M2_TRAIN_PHASES + IVL_PHASES),
+                            + M2_TRAIN_PHASES + IVL_PHASES + MAV_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

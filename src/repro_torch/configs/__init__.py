@@ -1,5 +1,6 @@
 """Config registry: ``get_config('<arch-id>'[, smoke=True])`` for the archs
 the port runs (the dense decoders, mixtral-8x7b's mixture of experts,
+llama4-maverick's dense and mixture-of-experts layers interleaved,
 mamba2-130m's SSD blocks, recurrentgemma-2b's hybrid of RG-LRU and
 local-attention blocks, internvl2-2b's vision-language backbone,
 whisper-base and bert-110m), under the reference's ids."""
@@ -16,6 +17,7 @@ _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "granite-8b": "granite_8b",
     "qwen2-72b": "qwen2_72b",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
     "mixtral-8x7b": "mixtral_8x7b",
     "mamba2-130m": "mamba2_130m",
     "recurrentgemma-2b": "recurrentgemma_2b",

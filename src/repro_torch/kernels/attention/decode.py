@@ -50,15 +50,18 @@ BLOCKS_PER_SM = 2
 MIN_SPLIT_TILES = 8
 
 
-def rows_per_unit(rows: int) -> int:
-    """q rows of one unit of the kernel: FEW_ROWS (padded) up to FEW_ROWS
-    rows a kv head, else ROW_TILE."""
-    return FEW_ROWS if rows <= FEW_ROWS else ROW_TILE
+def rows_per_unit(rows: int, q_tokens: int = 1) -> int:
+    """q rows of one unit of the kernel: FEW_ROWS (padded) where the rows of
+    one query token (the GQA group, rows / q_tokens) fit in FEW_ROWS, else
+    ROW_TILE. Chosen by the group, so a T-token call takes the body of its
+    T = 1 calls and a verify row keeps the serial step's bits (the kernel's
+    few_row_body)."""
+    return FEW_ROWS if rows // q_tokens <= FEW_ROWS else ROW_TILE
 
 
-def decode_units(batch: int, hkv: int, rows: int) -> int:
+def decode_units(batch: int, hkv: int, rows: int, q_tokens: int = 1) -> int:
     """Units of the kernel: (batch row, kv head, row tile)."""
-    return batch * hkv * -(-rows // rows_per_unit(rows))
+    return batch * hkv * -(-rows // rows_per_unit(rows, q_tokens))
 
 
 def plan_decode(units: int, n_tiles: int, sms: int) -> tuple:
@@ -442,11 +445,11 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
                             f"a contiguous int32 tensor on {q.device}")
     sink_ptr, sinks_bf16 = _check_sinks(sinks, hkv * rows, q.device,
                                         "attention_decode_paged")
-    units = decode_units(b, hkv, rows)
+    units = decode_units(b, hkv, rows, q_tokens)
     ns, _ = plan_decode(units, -(-mp * page_size // KEY_TILE),
                         sm_count(q.device))
     ws, _keep = _workspaces(q.device, units, ns,
-                            min(rows, rows_per_unit(rows)), d)
+                            min(rows, rows_per_unit(rows, q_tokens)), d)
     out = torch.empty_like(q)
     fn = kernel.fn()
     stream = kernel.stream(q.device)

@@ -5,9 +5,10 @@
 // gathered pages.
 //
 // The work. A unit is (batch row b, kv head h, row tile): the q rows of a
-// GQA group (times the T query tokens of a paged call, row = g T + t), up to
-// FEW_ROWS of them in the few-row body, ROW_TILE a unit in the many-row
-// body. The key positions are cut into KEY_TILE-key tiles, and a unit's
+// GQA group (times the T query tokens of a paged call, row = g T + t),
+// FEW_ROWS a unit in the few-row body, taken where a group has up to
+// FEW_ROWS rows (few_row_body), ROW_TILE a unit in the many-row body. The
+// key positions are cut into KEY_TILE-key tiles, and a unit's
 // tiles into n_splits splits of tiles_per_split consecutive tiles
 // (plan_splits: from the units, the tile count and the SM count only, never
 // from the lengths, which stay on the device). One block per (unit, split)
@@ -809,11 +810,20 @@ cudaError_t run(Kernel kernel, const Params& p, int units,
   return cudaGetLastError();
 }
 
+// The few-row body when the q rows of one query token (a GQA group, G =
+// R / T) fit in FEW_ROWS, else the many-row body. Chosen by G and not by
+// all R rows, a T-token call takes the body of its T = 1 calls, so a
+// verify row has the serial step's bits (at G 5, T 4 gives 20 rows).
+// Mirrored by kernels/attention/decode.py rows_per_unit.
+inline bool few_row_body(const Params& p) {
+  return p.rows / p.q_tokens <= FEW_ROWS;
+}
+
 // Fills the plan fields of p for `rows` q rows a (b, h) and `keys` key
 // positions; returns the number of units, or -1 when the caller's split
 // count is not the plan's.
 inline int plan(Params& p, int batch, int n_splits) {
-  const int rb = p.rows <= FEW_ROWS ? FEW_ROWS : ROW_TILE;
+  const int rb = few_row_body(p) ? FEW_ROWS : ROW_TILE;
   p.n_rt = (p.rows + rb - 1) / rb;
   p.rw = p.rows < rb ? p.rows : rb;
   p.n_tiles = (p.keys + KEY_TILE - 1) / KEY_TILE;

@@ -62,7 +62,7 @@ cudaError_t launch(Params& p, int batch, int n_splits, const void* k,
     err = decode_split::make_map(&p.v, v, D, p.keys, p.hkv, batch,
                                  decode_split::KEY_TILE);
   if (err != cudaSuccess) return err;
-  if (p.rows <= decode_split::FEW_ROWS)
+  if (decode_split::few_row_body(p))
     return dispatch<D, 16>(p, units, stream);
   return dispatch<D, 32>(p, units, stream);
 }

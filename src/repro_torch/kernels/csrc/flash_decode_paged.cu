@@ -68,7 +68,7 @@ cudaError_t launch(Params& p, int batch, int n_pages, int n_splits,
     err = decode_split::make_map(&p.v, v_pages, D, p.page_size, p.hkv,
                                  n_pages, p.box_rows);
   if (err != cudaSuccess) return err;
-  if (p.rows <= decode_split::FEW_ROWS)
+  if (decode_split::few_row_body(p))
     return dispatch<D, 16>(p, units, stream);
   return dispatch<D, 32>(p, units, stream);
 }

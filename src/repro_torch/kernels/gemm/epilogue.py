@@ -40,7 +40,11 @@ def _act_grad(name: str, x, g):
         return g * (x > 0).to(x.dtype)
     if name == "gelu":
         c = 0.7978845608028654            # sqrt(2 / pi)
-        t = torch.tanh(c * (x + 0.044715 * x ** 3))
+        # tanh(u) as 2 sigmoid(2u) - 1 (within 4e-6 of the float64 gelu'):
+        # on the CPU torch.tanh runs MKL's vector tanh in 2048-element
+        # chunks across threads, and a worker's chunk has come out of its
+        # low-accuracy mode, 1.5e-3 off (ROADMAP C6)
+        t = 2 * torch.sigmoid(2 * c * (x + 0.044715 * x ** 3)) - 1
         return g * (0.5 * (1 + t)
                     + 0.5 * x * (1 - t * t) * c * (1 + 3 * 0.044715 * x * x))
     raise ValueError(f"unknown activation {name!r}")

@@ -14,12 +14,15 @@
       --arch mamba2-130m --prompt-len 4096 --new-tokens 64 --out DIR
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch internvl2-2b --prompt-len 1024 [--engine paged] --out DIR
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch llama4-maverick-400b-a17b --layers 2 [--engine paged] --out DIR
 
 Builds the model in kernel mode with seeded random weights (at its
 published width, cut to ``--layers`` layers where given: mixtral-8x7b's 32
-are ~93 GB in bf16, more than one card holds; recurrentgemma-2b runs its
-26 whole, 5.8 GB; internvl2-2b serves its LM backbone on text, as the
-reference's), warms it up,
+are ~93 GB in bf16, more than one card holds, llama4-maverick's 48 ~790
+GB, 36.9 at 2 layers; recurrentgemma-2b runs its 26 whole, 5.8 GB;
+internvl2-2b serves its LM backbone on text, as the reference's), warms it
+up,
 then runs one prefill and the decode steps of one batch twice: once untimed
 by the profiler (host clock around work ended by a device synchronise), and
 once under ``torch.profiler``. ``--engine fixed`` (the default) drives an

@@ -23,7 +23,7 @@ from . import encoder as _enc
 from . import lm as _lm
 from . import vlm as _vlm
 from .attention import QKV_PLANS
-from .common import cast_params, init_params
+from .common import init_params
 
 MODES = ("kernel", "reference")
 FAMILIES = ("lm", "vlm", "encdec", "encoder")
@@ -39,7 +39,7 @@ def _refuse(what: str, family: str):
         raise NotImplementedError("encoder-only archs have no decode step")
     raise NotImplementedError(
         f"{what}: the {family!r} family has no paged path (the reference's "
-        "PagedEngine serves decoder-only LMs; ROADMAP Queue A item 8)")
+        "PagedEngine serves decoder-only LMs)")
 
 
 @dataclasses.dataclass
@@ -51,12 +51,13 @@ class Model:
     qkv_plan: str = "rope_fused"
 
     def init(self, seed: int = 0, dtype=None) -> dict:
-        """Seeded random parameters, drawn in the param type and cast once
-        to ``dtype``: by default the compute type, the one copy serving
-        keeps; training passes ``cfg.param_dtype`` for its fp32 masters."""
+        """Seeded random parameters, each leaf drawn in the param type and
+        cast once to ``dtype`` before the next is drawn: by default the
+        compute type, the one copy serving keeps; training passes
+        ``cfg.param_dtype`` for its fp32 masters."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = init_params(self.defs, gen, self.device)
-        return cast_params(params, dtype_of(dtype or self.cfg.compute_dtype))
+        return init_params(self.defs, gen, self.device,
+                           cast=dtype_of(dtype or self.cfg.compute_dtype))
 
     @property
     def family(self) -> str:

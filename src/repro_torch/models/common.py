@@ -45,14 +45,17 @@ def tree_map(fn, tree):
 
 
 def init_params(defs: Mapping[str, ParamDef], generator: torch.Generator,
-                device) -> dict:
+                device, cast=None) -> dict:
     """The reference's distributions, drawn from a torch generator: zeros,
     ones, the RG-LRU's Λ ('lru_a': sigmoid(Λ) uniform in [0.9, 0.999]), or
     a normal with std = scale / sqrt(fan_in), where fan_in is the leading
     dim of a matrix (for a stacked (layers, d, f) weight that is the layer
-    count, as in the reference) and the length of a vector. The
-    numbers differ from the reference's (another generator); the tests feed
-    both sides the same numpy weights instead."""
+    count, as in the reference) and the length of a vector, scaled in
+    place. With ``cast`` each leaf is cast to that type as soon as it is
+    drawn, so at most one leaf exists in its param type at a time (the same
+    numbers as casting the whole tree after). The numbers differ from the reference's
+    (another generator); the tests feed both sides the same numpy weights
+    instead."""
     flat = {}
     for path, d in sorted(defs.items()):
         dtype = dtype_of(d.dtype)
@@ -67,11 +70,13 @@ def init_params(defs: Mapping[str, ParamDef], generator: torch.Generator,
         elif d.init == "normal":
             fan_in = d.shape[0] if len(d.shape) > 1 else d.shape[-1]
             std = d.scale / math.sqrt(max(1, fan_in))
-            flat[path] = (torch.randn(d.shape, generator=generator,
-                                      dtype=torch.float32, device=device)
-                          * std).to(dtype)
+            flat[path] = torch.randn(d.shape, generator=generator,
+                                     dtype=torch.float32,
+                                     device=device).mul_(std).to(dtype)
         else:
             raise ValueError(f"unknown init {d.init!r} for {path}")
+        if cast is not None:
+            flat[path] = flat[path].to(cast)
     return nest(flat)
 
 

@@ -9,22 +9,22 @@ Mamba2's SSD block with no MLP ('ssm').
 Parameters follow the reference's layout (:func:`_layout`, the same keys
 and shapes): a uniform stack under ``blocks`` with a leading layer axis; a
 mixed pattern that divides the depth under ``blocks_{i}``, one stack per
-pattern position with a leading group axis; otherwise one subtree per
-layer, ``layer_{i:03d}`` (recurrentgemma-2b's 26 = 8 x 3 + 2 layers). A
-Python loop over layers takes the place of ``lax.scan``. The caches have
-the same layout, a block kind's own in each entry: a (ring) KV cache or a
-page pool for attention, the per-slot recurrent state ({"conv", "h"} for
-'rg', {"conv", "state"} for 'ssm'; the paged cache keeps it per batch
-slot). Serving keeps one copy of the parameters, cast once to the
-compute type when they are made (``Model.init``,
-``params_from_numpy``); training keeps fp32 masters, and
+pattern position with a leading group axis (llama4-maverick's dense and
+MoE layers, ('attn', 'moe'), under ``blocks_0`` and ``blocks_1``);
+otherwise one subtree per layer, ``layer_{i:03d}`` (recurrentgemma-2b's
+26 = 8 x 3 + 2 layers). A Python loop over layers takes the place of
+``lax.scan``. The caches have the same layout, a block kind's own in each
+entry: a (ring) KV cache or a page pool for attention, the per-slot
+recurrent state ({"conv", "h"} for 'rg', {"conv", "state"} for 'ssm'; the
+paged cache keeps it per batch slot). Serving keeps one copy of the
+parameters, cast once to the compute type when they are made
+(``Model.init``, ``params_from_numpy``); training keeps fp32 masters, and
 the full-sequence forward casts them (``cast_params``, as the reference
 does on every call), so the cast's backward hands fp32 grads to the
 optimizer. With ``remat`` each block runs under ``torch.utils.checkpoint``
 per ``cfg.remat_policy`` (:func:`_remat`). With ``cfg.ce_chunk`` the loss
 takes the cross entropy chunk by chunk along the sequence
 (:func:`_chunked_ce`), so the (B, S, V) fp32 logits never exist at once.
-A mixed pattern holding 'moe' raises.
 """
 from __future__ import annotations
 
@@ -68,12 +68,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs {BLOCK_KINDS} blocks, got "
             f"{sorted(kinds)}")
-    if "moe" in kinds and len(kinds) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: mixed block pattern {tuple(cfg.block_pattern)} "
-            "with 'moe' blocks; the port runs a uniform ('moe',) stack. The "
-            "interleaved ('attn', 'moe') layout (llama4-maverick's) is "
-            "ROADMAP Queue A item 4")
     if "moe" in kinds and cfg.moe is None:
         raise ValueError(f"{cfg.name}: 'moe' blocks need cfg.moe")
     if "rg" in kinds and cfg.rglru is None:

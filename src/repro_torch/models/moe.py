@@ -76,10 +76,13 @@ def _experts(cfg, p) -> list:
 
 def _expert_ffn(cfg, p, x):
     """x: (T, D), the same tokens for every expert -> (E, T, D), the plain
-    products one expert at a time."""
+    products one expert at a time, each expert's weights cast to x's type
+    as they are reached (a no-op where the types agree; an fp32 path over
+    bf16 experts upcasts one expert at a time, exactly)."""
     act = act_fn(cfg.mlp_act)
     outs = []
-    for *w_up, w_out in _experts(cfg, p):
+    for ws in _experts(cfg, p):
+        *w_up, w_out = (w.to(x.dtype) for w in ws)
         if _gated(cfg):
             w_gate, w_in = w_up
             h = act(x @ w_gate) * (x @ w_in)
@@ -139,8 +142,9 @@ def moe_forward(cfg, p, x, *, mode: str = "reference", prenorm=None):
     if impl in ("ep", "tp"):
         raise NotImplementedError(
             f"{cfg.name}: moe impl {impl!r} needs a device mesh; the port "
-            "runs the dense single-device MoE (the distributed paths are "
-            "ROADMAP Queue A item 5)")
+            "runs the dense single-device MoE (the expert- and tensor-"
+            "parallel paths come with the distributed item of ROADMAP "
+            "Queue A)")
     if prenorm is not None:
         x = apply_prenorm(cfg, x, prenorm)
     return moe_dense(cfg, p, x, mode=mode)

@@ -7,7 +7,7 @@ step (error feedback, Seide et al. / EF-SGD). This is what the receiving
 end of a compressed all-reduce sees, so one process exercises the
 convergence behaviour. The collective itself (the reference's
 ``compressed_psum``, a ``shard_map`` psum of int8 payloads) goes with the
-distributed slice (ROADMAP Queue A item 9) and is not defined here.
+distributed item of ROADMAP Queue A and is not defined here.
 """
 from __future__ import annotations
 

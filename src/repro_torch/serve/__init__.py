@@ -1,2 +1,3 @@
 from .engine import (Engine, GenerationResult, PagedEngine,  # noqa: F401
                      Request, RequestQueue)
+from .topology import ShardedPagedEngine  # noqa: F401

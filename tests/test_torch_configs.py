@@ -2,8 +2,10 @@
 (granite-8b, qwen2-72b, minicpm-2b, chatglm3-6b) and mixtral-8x7b's
 mixture of experts in the port, on the CPU
 against the JAX reference at each ``SMOKE_CONFIG``: the configs field for
-field; forward, prefill and decode logits and ``.loss`` in both modes;
-the greedy streams of ``Engine`` + ``RequestQueue`` and ``PagedEngine``.
+field (mamba2-130m's, internvl2-2b's and llama4-maverick's too, and
+maverick's published parameter count); forward, prefill and decode
+logits and ``.loss`` in both modes; the greedy streams of ``Engine`` +
+``RequestQueue`` and ``PagedEngine``.
 Both sides run the same weights: the reference's seeded init converted
 with ``params_from_numpy``, with random nonzero q|k/v biases where the
 config has them. Also the QKV ladder's fallback from rung 1 where the rope
@@ -12,6 +14,7 @@ model in interpret mode, and ``.loss`` of llama-100m.
 """
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from repro.serve import RequestQueue as JRequestQueue
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.kernels.gemm import rope_store_fits
 from repro_torch.models import build_model, params_from_numpy
+from repro_torch.models.lm import lm_param_defs
 from repro_torch.serve import Engine, PagedEngine, Request, RequestQueue
 
 ARCHS = ("granite-8b", "qwen2-72b", "minicpm-2b", "chatglm3-6b",
@@ -130,7 +134,8 @@ def _same_fields(got, want):
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["published", "smoke"])
-@pytest.mark.parametrize("arch", ARCHS + ("mamba2-130m", "internvl2-2b"))
+@pytest.mark.parametrize("arch", ARCHS + ("mamba2-130m", "internvl2-2b",
+                                          "llama4-maverick-400b-a17b"))
 def test_config_is_the_references_field_for_field(arch, smoke):
     got = get_config(arch, smoke=smoke)
     _same_fields(got, j_get_config(arch, smoke=smoke))
@@ -144,9 +149,19 @@ def test_llama_ids_return_their_one_config(arch):
 
 
 def test_unregistered_arch_raises():
-    with pytest.raises(KeyError, match="llama4-maverick-400b-a17b"):
-        # its interleaved ('attn', 'moe') stack is not ported yet
-        get_config("llama4-maverick-400b-a17b")
+    with pytest.raises(KeyError, match="llama4-scout-17b-16e"):
+        # an id neither package registers
+        get_config("llama4-scout-17b-16e")
+
+
+def test_maverick_parameter_count_in_the_references_range():
+    """llama4-maverick's published config counts 3e11-5e11 parameters (the
+    reference's range, ``tests/test_models.py``), summed from the port's
+    declarations without allocating any."""
+    n = sum(math.prod(d.shape)
+            for d in lm_param_defs(get_config(
+                "llama4-maverick-400b-a17b")).values())
+    assert 3e11 < n < 5e11, n
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ over the gathered pages; for both decode kernels, sinks (fp32 and bf16),
 two calls bitwise equal, CUDA-graph replays equal to eager calls (the
 in-launch merge's tickets reset), one launch a call, a view the TMA cannot
 read refused, the llama-1b main-path shapes and chatglm3-6b's (G 16 at
-head_dim 128, T 1 and a 4-token verify); the engines' decode steps
+head_dim 128, T 1 and a 4-token verify), llama4-maverick's G 5 (verify rows
+of 4 and 5 tokens bit for bit the serial steps) and G 20 (the many-row
+body); the engines' decode steps
 replayed from their CUDA graphs bit for bit the eager steps, with exact
 launch counts; for RoPE, S 131 and 200 at
 head_dim 64 and 128 on strided views, and a misaligned view (the scalar
@@ -1014,6 +1016,54 @@ def test_verify_rows_equal_serial_steps_bitwise(dev, pages, lengths):
             lens - (t - 1) + i)
         torch.cuda.synchronize()
         assert torch.equal(got[:, :, :, i], one)
+
+
+@pytest.mark.parametrize("t", [4, 5])
+def test_verify_rows_equal_serial_steps_bitwise_at_gqa_group_5(dev, t):
+    """llama4-maverick's verify shape (8 slots, Hkv 8, G 5, head_dim 128,
+    64-token pages, one split): 20 and 25 rows a kv head take the few-row
+    body of the 5-row serial step (the body goes by the group, not by G x
+    T), so row t of the T-token call is the T = 1 call at length L - T + 1
+    + t bit for bit."""
+    rng = np.random.default_rng(32)
+    b, hkv, g, d = 8, 8, 5, 128
+    lengths = [4, 64, 68, 130, 257, 300, 400, 512]
+    q, kp, vp, pt, lens = _paged_inputs(rng, dev, b, hkv, g * t, d, 64, 8,
+                                        lengths)
+    q = q * 8
+    got = flash_decode_paged(q, kp, vp, pt, lens, q_tokens=t)
+    got = got.view(b, hkv, g, t, d)
+    for i in range(t):
+        one = flash_decode_paged(
+            q.view(b, hkv, g, t, d)[:, :, :, i].contiguous(), kp, vp, pt,
+            lens - (t - 1) + i)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :, :, i], one)
+
+
+@pytest.mark.parametrize("g,t", [(5, 1), (5, 4), (5, 128), (20, 1), (20, 4)])
+def test_decode_kernels_by_group(dev, g, t):
+    """Both decode kernels at G 5 (llama4-maverick's 40 heads over 8; the
+    few-row body, 16-row units that start inside a group at T > 1) and at
+    G 20 (the many-row body, 32-row units), head_dim 128, against the
+    plain versions; the contiguous kernel at T 1."""
+    rng = np.random.default_rng(33)
+    b, hkv, d = 3, 2, 128
+    lengths = [t, 200, 500]
+    q, kp, vp, pt, lens = _paged_inputs(rng, dev, b, hkv, g * t, d, 64, 8,
+                                        lengths)
+    got = flash_decode_paged(q, kp, vp, pt, lens, q_tokens=t)
+    o, m, l = decode_partials_paged_ref(q, kp, vp, pt, lens, scale=d ** -0.5,
+                                        q_tokens=t)
+    torch.cuda.synchronize()
+    _close(got, combine_splits(o, m, l).to(q.dtype), 2e-2, 2e-2)
+    if t == 1:
+        k = gather_pages(kp, pt).contiguous()
+        v = gather_pages(vp, pt).contiguous()
+        got = flash_decode(q, k, v, lens)
+        o, m, l = decode_partials_ref(q, k, v, lens, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        _close(got, combine_splits(o, m, l).to(q.dtype), 2e-2, 2e-2)
 
 
 def test_verify_graph_replays_bitwise_its_eager_step(dev):

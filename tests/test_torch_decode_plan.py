@@ -11,9 +11,10 @@ T = 1, 4, 20 and 128 and pages 16-128; the constants are the kernel's. And
 an emulation of the kernel in plain torch fp32 (the same plan and clipping,
 64-key tiles, the online softmax in log2 units, P rounded to bf16 before
 P V, the index-order merge with sinks) equals the plain versions and the
-reference's Pallas kernels in interpret mode. The emulation leaves out the
-few-row body's four 16-key warp slices, whose merge is the same log-sum-exp
-merge within a split.
+reference's Pallas kernels in interpret mode, also at head_dim 256 with a
+GQA group of 10 and at llama4-maverick's group of 5 (head_dim 128). The
+emulation leaves out the few-row body's four 16-key warp slices, whose
+merge is the same log-sum-exp merge within a split.
 """
 import inspect
 import math
@@ -71,6 +72,20 @@ def test_units_by_rows(rows, per_unit):
     assert decode.decode_units(2, 8, rows) == 2 * 8 * -(-rows // per_unit)
 
 
+@pytest.mark.parametrize("rows,t,per_unit", [
+    (20, 4, 16), (25, 5, 16), (640, 128, 16), (512, 128, 16), (40, 4, 16),
+    (80, 4, 32), (20, 1, 32)])
+def test_units_by_group(rows, t, per_unit):
+    """The body goes by the rows of one query token (the GQA group, R / T):
+    a T-token call takes its T = 1 calls' body (at G 5, T 4 gives 20 rows
+    in 16-row units, as a 5-row serial step), so verify rows keep the
+    serial step's bits; only a group over FEW_ROWS takes ROW_TILE-row
+    units."""
+    assert decode.rows_per_unit(rows, t) == per_unit
+    assert decode.decode_units(2, 8, rows, t) == 2 * 8 * -(-rows // per_unit)
+    assert decode.rows_per_unit(rows // t) == per_unit
+
+
 def test_plan_sees_no_length():
     """The plan's inputs are the units, the tile count and the SM count:
     the lengths stay on the device, so a call never synchronises. At the
@@ -79,8 +94,8 @@ def test_plan_sees_no_length():
         == ["units", "n_tiles", "sms"]
     shapes = {"decode_step": (decode.decode_units(4, 8, 4), -(-296 // TILE)),
               "paged_decode": (decode.decode_units(8, 8, 4), 8),
-              "chunk": (decode.decode_units(1, 8, 512), 8),
-              "verify": (decode.decode_units(8, 8, 16), 8)}
+              "chunk": (decode.decode_units(1, 8, 512, 128), 8),
+              "verify": (decode.decode_units(8, 8, 16, 4), 8)}
     for units, n_tiles in shapes.values():
         assert decode.plan_decode(units, n_tiles, 132) == (1, n_tiles)
     # a long context splits: 8 kv heads of one sequence over 64 tiles
@@ -145,13 +160,26 @@ def _check_live(seen_tiles, lo, hi):
 @pytest.mark.parametrize("t", [1, 4, 20, 128])
 @pytest.mark.parametrize("page", [16, 24, 64, 128])
 def test_paged_live_tiles_skip_only_unseen_tiles(page, t, window):
-    """Each unit of rows (the few-row or the 32-row tiles of G = 4 groups
-    of T tokens) loads exactly the key tiles its rows see, over ragged
-    lengths, an empty row and a full table."""
-    mp, g = 6, 4
+    """Each unit of rows (the few-row tiles of G = 4 groups of T tokens)
+    loads exactly the key tiles its rows see, over ragged lengths, an empty
+    row and a full table."""
+    _check_paged_live(page, t, window, 4)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("t", [1, 4, 5, 24])
+@pytest.mark.parametrize("g", [5, 20])
+def test_paged_live_tiles_at_other_groups(g, t, window):
+    """The same at llama4-maverick's G 5 (16-row units that start inside a
+    group) and at G 20 (the many-row body's 32-row units)."""
+    _check_paged_live(64, t, window, g)
+
+
+def _check_paged_live(page, t, window, g):
+    mp = 6
     keys = mp * page
     rows = g * t
-    rb = decode.rows_per_unit(rows)
+    rb = decode.rows_per_unit(rows, t)
     for length in [0, t, t + 1, 63, 64, 65, 200, keys - 1, keys]:
         if length < t and length != 0:
             continue
@@ -197,10 +225,12 @@ def _bf16(x):
     return torch.from_numpy(x).to(torch.bfloat16).float()
 
 
-def _emulate(q, k, v, valid, live, *, sms, scale, softcap, sinks, round_p):
-    """The kernel's output in plain torch fp32. q (B, Hkv, R, D); k, v
-    (B, Hkv, KEYS, D) in key order; valid (B, R, KEYS); live(b, r0, nr) the
-    unit's live tiles; sinks (Hkv, R) or None."""
+def _emulate(q, k, v, valid, live, *, sms, scale, softcap, sinks, round_p,
+             q_tokens=1):
+    """The kernel's output in plain torch fp32. q (B, Hkv, R, D) of
+    ``q_tokens`` tokens a group; k, v (B, Hkv, KEYS, D) in key order;
+    valid (B, R, KEYS); live(b, r0, nr) the unit's live tiles; sinks
+    (Hkv, R) or None."""
     b, hkv, rows, d = q.shape
     keys = k.shape[2]
     n_tiles = -(-keys // TILE)
@@ -208,9 +238,9 @@ def _emulate(q, k, v, valid, live, *, sms, scale, softcap, sinks, round_p):
     k = torch.nn.functional.pad(k, (0, 0, 0, pad))
     v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     valid = torch.nn.functional.pad(valid, (0, pad), value=False)
-    rb = decode.rows_per_unit(rows)
-    ns, tps = decode.plan_decode(decode.decode_units(b, hkv, rows), n_tiles,
-                                 sms)
+    rb = decode.rows_per_unit(rows, q_tokens)
+    ns, tps = decode.plan_decode(decode.decode_units(b, hkv, rows, q_tokens),
+                                 n_tiles, sms)
     out = torch.zeros_like(q)
     for bi in range(b):
         for h in range(hkv):
@@ -398,7 +428,8 @@ def test_emulation_matches_paged_plain_and_reference(case):
         return decode.live_key_tiles(int(lens[bi]), keys, r0=r0, nr=nr,
                                      q_tokens=t, window=window)
     emu = {rp: _emulate(q, kg, vg, valid, live, sms=SMS, scale=scale,
-                        softcap=softcap, sinks=row_sinks, round_p=rp)
+                        softcap=softcap, sinks=row_sinks, round_p=rp,
+                        q_tokens=t)
            for rp in (False, True)}
     o, m, l = decode_partials_paged_ref(q, kp, vp, pt, lens, window=window,
                                         scale=scale, softcap=softcap,
@@ -423,8 +454,8 @@ def test_emulation_matches_paged_plain_and_reference(case):
 
 def test_emulation_splits_at_these_shapes():
     """The emulated shapes do reach the merge: several splits a unit."""
-    for rows, n_tiles in ((G, 17), (G * 4, 17), (G * 20, 17), (G, 18)):
-        units = decode.decode_units(B, HKV, rows)
+    for t, n_tiles in ((1, 17), (4, 17), (20, 17), (1, 18)):
+        units = decode.decode_units(B, HKV, G * t, t)
         assert decode.plan_decode(units, n_tiles, SMS)[0] > 1
     assert math.isclose(LOG2E, 1 / math.log(2))
 
@@ -446,10 +477,38 @@ def test_emulation_at_head_dim_256(case):
     """The emulated kernel at head_dim 256 and G 10 (MQA) against the plain
     versions and the reference's decode kernels in interpret mode, at the
     tolerances of the head_dim 64 cases."""
-    paged, page, t, keys, lengths, window = D256_CASES[case]
-    b, hkv, g, d = 2, 1, 10, 256
+    _emulation_case(*D256_CASES[case], hkv=1, g=10, d=256, seed=23)
+
+
+# llama4-maverick's decode: a GQA group of 5 (40 query heads over 8) at
+# head_dim 128, two kv heads here; paged at T 1 (5 rows: the few-row
+# body), T 4 and T 5 (20 and 25 rows, a verify step of k and k + 1
+# tokens) and T 24 (120 rows: row tiles that start inside a group)
+G5_CASES = {
+    # paged, page, T, slots or keys, lengths, window
+    "ring_wrap": (False, None, 1, 576, [700, 300], None),
+    "paged_t1": (True, 64, 1, 576, [530, 0], None),
+    "paged_t4_window": (True, 64, 4, 576, [300, 41], 100),
+    "paged_page32_t5": (True, 32, 5, 576, [576, 97], None),
+    "paged_t24": (True, 64, 24, 576, [500, 24], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(G5_CASES))
+def test_emulation_at_gqa_group_5(case):
+    """The emulated kernel at G 5, head_dim 128, against the plain versions
+    and the reference's decode kernels in interpret mode, at the tolerances
+    of the head_dim 64 cases."""
+    _emulation_case(*G5_CASES[case], hkv=2, g=5, d=128, seed=31)
+
+
+def _emulation_case(paged, page, t, keys, lengths, window, *, hkv, g, d,
+                    seed):
+    """One case of the emulated kernel over B 2 sequences of ``hkv`` kv
+    heads, ``g`` q rows each (times T for a paged call), head_dim ``d``."""
+    b = 2
     rows = g * t
-    rng = np.random.default_rng(23)
+    rng = np.random.default_rng(seed)
     scale = d ** -0.5
     lens = torch.tensor(lengths, dtype=torch.int32)
     if paged:
@@ -500,10 +559,9 @@ def test_emulation_at_head_dim_256(case):
             jnp.asarray(kg.numpy()), jnp.asarray(vg.numpy()),
             jnp.asarray(lens.numpy()), window=window, policy=pol,
             mode="pallas_interpret")
-    assert decode.rows_per_unit(rows) == (decode.FEW_ROWS if t == 1
-                                          else decode.ROW_TILE)
+    assert decode.rows_per_unit(rows, t) == decode.FEW_ROWS
     emu = {rp: _emulate(q, kg, vg, valid, live, sms=SMS, scale=scale,
-                        softcap=None, sinks=None, round_p=rp)
+                        softcap=None, sinks=None, round_p=rp, q_tokens=t)
            for rp in (False, True)}
     plain = combine_splits(o, m, l)
     for want in (plain.numpy(), np.asarray(ref).reshape(b, hkv, rows, d)):

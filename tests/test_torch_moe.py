@@ -226,16 +226,23 @@ def test_distributed_impls_raise(impl):
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                            impl=impl))
     p = _torch(_layer(cfg.d_model, cfg.d_ff, cfg.moe.num_experts, 0.2, 6))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(NotImplementedError, match="distributed item"):
         moe.moe_forward(cfg, p, torch.zeros((1, 2, cfg.d_model)))
 
 
 def test_mixed_block_pattern_is_refused():
-    """The interleaved ('attn', 'moe') layout (llama4-maverick's) is not a
-    uniform stack."""
+    """A mixed pattern is refused only for a block kind the port does not
+    run: the interleaved ('attn', 'moe') layout (llama4-maverick's) is
+    accepted, as is ('moe', 'attn'); ('attn', 'xattn') still raises, and
+    'moe' blocks still need cfg.moe."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="maverick"):
+    for pattern in (("attn", "moe"), ("moe", "attn")):
+        check_supported(dataclasses.replace(cfg, block_pattern=pattern))
+    with pytest.raises(NotImplementedError, match="xattn"):
         check_supported(dataclasses.replace(cfg,
+                                            block_pattern=("attn", "xattn")))
+    with pytest.raises(ValueError, match="need cfg.moe"):
+        check_supported(dataclasses.replace(cfg, moe=None,
                                             block_pattern=("attn", "moe")))
 
 
