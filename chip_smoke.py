@@ -471,8 +471,13 @@ from repro_torch.optim.optimizer import leaves, named_leaves  # noqa: E402
 from repro_torch.serve import (Engine, PagedEngine, Request,  # noqa: E402
                                RequestQueue, ShardedPagedEngine)
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
+from repro_torch.kernels.gemm.collective import (  # noqa: E402
+    gemm_collective_oracle, gemm_collective_sharded, panel_plan)
 from repro_torch.train import (FailureInjector, StragglerWatchdog,  # noqa: E402
-                               loss_and_grads, train_loop)
+                               init_state, loss_and_grads, make_train_step,
+                               train_loop)
+from repro_torch.train.state import (sharded_init,  # noqa: E402
+                                     state_shardings)
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train import trainer as trainer_mod  # noqa: E402
 
@@ -590,6 +595,16 @@ MAV_PHASES = ("20a", "20b", "20c")
 # expert set than the kernel path (near ties flip under bf16 rounding; a
 # router fed the wrong tokens would reroute most of them)
 MAX_REROUTED = 0.1
+# phase 21: the distributed layer over one NCCL rank. 21a serves 20a's
+# traffic on phase 20's weights through moe_ep; 21b mixtral-8x7b at
+# TP_LAYERS layers of published width through moe_tp (a forward over
+# BATCH x PROMPT tokens, a prefill and TP_DECODE decode steps); 21c the
+# collective GEMM at llama-1b's prefill down projection (COLL_SHAPE: M,
+# K, N); 21d llama-1b's training at phase 6b's shape, DIST_STEPS steps
+DIST_PHASES = ("21a", "21b", "21c", "21d")
+TP_ARCH, TP_LAYERS, TP_DECODE = "mixtral-8x7b", 1, 8
+COLL_SHAPE = (BATCH * PROMPT, 8192, 2048)
+DIST_STEPS = 4
 # the memory-bound bench's fused-norm cells (benchmarks/bench_memory_bound.py)
 NORM_ROWS, NORM_D, NORM_P, NORM_SEED = (2048, 4096, 8192), 2048, 0.1, 7
 
@@ -1182,7 +1197,8 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
     whisper-base's and bert-110m's, ENCODER_GEMMS, then mixtral-8x7b's,
     ``moe_gemm_cases``, then recurrentgemma-2b's, ``rg_gemm_cases``, then
     internvl2-2b's, ``ivl_gemm_cases``, then llama4-maverick's,
-    ``mav_gemm_cases``) against its plain
+    ``mav_gemm_cases``, then phase 21's expert buckets,
+    ``dist_gemm_cases``) against its plain
     version (the output, the gated chain's saved preacts and the row
     statistics), timed as planned and at every (tile width, split count)
     the sweep reaches: each width the chain takes, unsplit and split as
@@ -1202,7 +1218,8 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
                                  + moe_gemm_cases(dev, gen)
                                  + rg_gemm_cases(dev, gen)
                                  + ivl_gemm_cases(dev, gen)
-                                 + mav_gemm_cases(dev, gen)):
+                                 + mav_gemm_cases(dev, gen)
+                                 + dist_gemm_cases(dev, gen)):
         ep, pro, extra = fwd_args(kw)
         m, k = a.shape
         n = b.shape[1]
@@ -1953,6 +1970,35 @@ def mav_gemm_cases(dev, gen):
         ("mav_decode_expert_up", rnd(BATCH, d), w_gate, dict(up)),
         ("mav_decode_expert_down", rnd(BATCH, f), w_out, {}),
     ]
+    return [(*c, False) for c in cases]
+
+
+def dist_gemm_cases(dev, gen):
+    """Phase 21's expert launches at their buckets' rows (``moe._capacity``
+    of the tokens a rank routes): llama4-maverick's expert up and down
+    under ``moe_ep`` at a BATCH x PROMPT prefill's bucket (top-1 of 128,
+    capacity factor 1.25: 16 rows) and a decode step's (8 rows), and
+    mixtral-8x7b's expert chain under ``moe_tp`` at one rank's whole F
+    (top-2 of 8: 320 rows at the prefill, 8 at a decode step), as (name,
+    a, b, kwargs, save_preact). The weights at std K^-1/2."""
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    cases = []
+    for arch, tag in ((MAV_ARCH, "mav_ep"), (TP_ARCH, "mixtral_tp")):
+        cfg = get_config(arch)
+        d, f = cfg.d_model, cfg.d_ff
+        w_gate, w_in, w_out = (rnd(d, f, std=d ** -0.5),
+                               rnd(d, f, std=d ** -0.5),
+                               rnd(f, d, std=f ** -0.5))
+        up = dict(epilogue=Epilogue(activation="silu", gate=True), b2=w_in)
+        for when, tokens in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+            rows = moe_mod._capacity(tokens, cfg)
+            cases += [(f"{tag}_{when}_bucket_up", rnd(rows, d), w_gate,
+                       dict(up)),
+                      (f"{tag}_{when}_bucket_down", rnd(rows, f), w_out, {})]
     return [(*c, False) for c in cases]
 
 
@@ -3240,10 +3286,27 @@ def check_logit_bound(name, kern, plain, truth):
     return worst, agree / sum(k.numel() // k.shape[-1] for k in kern)
 
 
-def run_slice(dev, m: Models, model=None, tag: str = "slice"):
+def check_eager_decode(tag, entry, before: int, want: int) -> None:
+    """A decode bucket of a model built over a mesh runs eagerly (its MoE
+    blocks run NCCL collectives, which the engines do not capture): it
+    holds no graph and counted ``want`` eager steps since ``before``."""
+    got = entry.eager_steps - before
+    if entry.graph is not None or not entry.eager or got != want:
+        raise AssertionError(f"[{tag}] decode bucket eager {entry.eager}, "
+                             f"graph {entry.graph is not None}, {got} eager "
+                             f"steps counted, {want} run")
+    log(f"[{tag}] the decode steps ran eagerly, as a model over a mesh "
+        f"does: {got} eager steps counted (engine.decode_eager), no graph")
+
+
+def run_slice(dev, m: Models, model=None, tag: str = "slice",
+              serve_ctx=contextlib.nullcontext):
     """Phase 4 (``m.kernel``) or 7a (``model``, another rung of the QKV
     ladder): serve, check the launches and the served streams, then hold the
-    teacher-forced logits of the first batch to the fp32 truth."""
+    teacher-forced logits of the first batch to the fp32 truth. A model
+    built over a mesh decodes eagerly (``check_eager_decode``) where the
+    others replay their decode steps from a graph; ``serve_ctx`` wraps the
+    served requests (not the warm-up or the teacher forcing)."""
     cfg, params = m.cfg, m.params
     model = model or m.kernel
     engine = Engine(model, params, max_len=MAX_LEN)
@@ -3259,8 +3322,11 @@ def run_slice(dev, m: Models, model=None, tag: str = "slice"):
             for uid in range(REQUESTS)]
     for r in reqs:
         queue.submit(r)
+    entry = engine._buckets[("decode", BATCH)]
+    before = entry.eager_steps
     kernels.reset_launch_counts()
-    served = queue.flush(force=True)
+    with serve_ctx():
+        served = queue.flush(force=True)
     counts = kernels.launch_counts()
     log(f"[{tag}] served {served} requests; launches {counts}; "
         f"bucket_lru {engine.lru_stats}")
@@ -3268,13 +3334,16 @@ def run_slice(dev, m: Models, model=None, tag: str = "slice"):
     if served != REQUESTS or counts != want:
         raise AssertionError(f"served {served}, launches {counts}; the main "
                              f"path makes {want}")
-    entry = engine._buckets[("decode", BATCH)]
-    token = torch.arange(BATCH, device=dev)[:, None] * 7 + 1
+    if entry.eager:
+        check_eager_decode(tag, entry, before,
+                           REQUESTS // BATCH * (NEW_TOKENS - 1))
+    else:
+        token = torch.arange(BATCH, device=dev)[:, None] * 7 + 1
 
-    def eager(cache):
-        return model.decode_step(params, token, cache, PROMPT + 3)[1]
-    check_graph_replay(tag, entry, entry.cache,
-                       dict(token=token, pos=PROMPT + 3), eager)
+        def eager(cache):
+            return model.decode_step(params, token, cache, PROMPT + 3)[1]
+        check_graph_replay(tag, entry, entry.cache,
+                           dict(token=token, pos=PROMPT + 3), eager)
     for r in reqs:
         check_result(cfg, r, queue.results[r.uid])
     pre_tok = sum(t["batch"] * t["prompt_len"] for t in engine.timings)
@@ -6165,7 +6234,7 @@ def run_sharded(dev, m: Models) -> dict:
             "placements": rep["placements"], "throughput": throughput}
 
 
-def run_maverick(dev) -> dict:
+def run_maverick(dev, keep: dict | None = None) -> dict:
     """Phase 20: llama4-maverick-400b-a17b at published width cut to
     MAV_LAYERS layers, all 128 experts, weights at a trained model's scale,
     kernel mode beside the plain bf16 and fp32 paths (the truth reading the
@@ -6177,7 +6246,9 @@ def run_maverick(dev) -> dict:
     2 and 2E; a replayed decode step bit for bit the eager one; the logits
     under phase 4's bound on the kernel path's routing, the fp32 router's
     disagreement share under MAX_REROUTED), then 20c ``run_sharded``.
-    Prints the init time, the peak memory and the phase's seconds."""
+    Prints the init time, the peak memory and the phase's seconds. With
+    ``keep`` the models and weights are handed on in ``keep["models"]``
+    (phase 21a serves them again) instead of being freed."""
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     m = build_models(dev, MAV_ARCH, MAV_LAYERS, trained=True,
@@ -6199,6 +6270,8 @@ def run_maverick(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["20c"] = run_sharded(dev, m)
+    if keep is not None:
+        keep["models"] = m
     del m
     gc.collect()
     torch.cuda.empty_cache()
@@ -6221,6 +6294,453 @@ def run_maverick(dev) -> dict:
         f"{summary['prefill_tokens_per_s']}")
     out["20"] = summary
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the distributed layer over torch.distributed, one NCCL rank
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def nccl_world():
+    """One NCCL process group of world size 1 (a ``file://`` store in a
+    temporary directory) and the (1, 1) ('data', 'model') DeviceMesh over
+    it, destroyed at the end. NCCL must start: there is no stand-in."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tmp = tempfile.mkdtemp()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        log(f"[21] NCCL process group: world {dist.get_world_size()}, "
+            f"backend {dist.get_backend()}, mesh {mesh}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def counted_drops(record: list):
+    """``moe._dispatch`` patched to append each call's (choices kept and
+    the most choices of one expert, as device tensors; choices; capacity)
+    to ``record``."""
+    orig = moe_mod._dispatch
+
+    def dispatch(cfg, t, ids, cap):
+        buf, idx, keep = orig(cfg, t, ids, cap)
+        load = torch.bincount(ids.reshape(-1),
+                              minlength=cfg.moe.num_experts).max()
+        record.append((keep.sum(), load, keep.numel(), cap))
+        return buf, idx, keep
+
+    moe_mod._dispatch = dispatch
+    try:
+        yield
+    finally:
+        moe_mod._dispatch = orig
+
+
+def drop_summary(tag, record: list) -> dict:
+    """The dropped share of the expert choices by bucket capacity, and the
+    most choices one expert drew in a call."""
+    by_cap: dict = {}
+    for kept, load, n, cap in record:
+        k, t, most = by_cap.get(cap, (0, 0, 0))
+        by_cap[cap] = (k + int(kept), t + n, max(most, int(load)))
+    out = {int(c): {"choices": t, "dropped": t - k,
+                    "share": (t - k) / t, "most_in_one_expert": most}
+           for c, (k, t, most) in sorted(by_cap.items())}
+    allc = sum(v["choices"] for v in out.values())
+    alld = sum(v["dropped"] for v in out.values())
+    log(f"[{tag}] dropped expert choices by bucket capacity: "
+        + "; ".join(f"capacity {c}: {v['dropped']} of {v['choices']} "
+                    f"({v['share']:.4f}; at most {v['most_in_one_expert']} "
+                    f"choices of one expert in a call)"
+                    for c, v in out.items())
+        + f"; all {alld} of {allc} ({alld / max(allc, 1):.4f})")
+    return {"by_capacity": out, "share": alld / max(allc, 1)}
+
+
+def mesh_models(m: Models, impl: str, mesh) -> Models:
+    """``m``'s config with its MoE on ``impl`` over ``mesh``, three ways
+    (kernel, plain bf16, plain fp32), on the rank's slices of m's
+    weights (one rank: the weights themselves)."""
+    cfg = dataclasses.replace(m.cfg, moe=dataclasses.replace(m.cfg.moe,
+                                                             impl=impl))
+    dev = m.kernel.device
+    kern = build_model(cfg, mode="kernel", device=dev, mesh=mesh)
+    return Models(cfg, kern,
+                  build_model(cfg, mode="reference", device=dev, mesh=mesh),
+                  build_model(dataclasses.replace(cfg,
+                                                  compute_dtype="float32"),
+                              mode="reference", device=dev, mesh=mesh),
+                  kern.local_params(m.params), kern.local_params(m.params32))
+
+
+def run_ep_serving(dev, m: Models, mesh) -> dict:
+    """21a: phase 20's weights (MAV_LAYERS layers, all 128 experts) with
+    the MoE on ``moe_ep`` over the (1, 1) mesh: 20a's traffic through
+    RequestQueue(Engine) with phase 4's checks (launches exact: 2
+    ``gemm_fused`` an expert and MoE layer, as the dense path; the decode
+    steps eager and counted; the teacher-forced logits under phase 4's
+    bound, the plain ep paths on the kernel path's routing), and the
+    dropped share of the served choices (capacity factor
+    ``cfg.moe.capacity_factor`` at top-1 of 128)."""
+    mm = mesh_models(m, "ep", mesh)
+    drops: list = []
+    out = run_slice(dev, mm, tag="21a maverick ep",
+                    serve_ctx=lambda: counted_drops(drops))
+    del out["teacher_forced"]
+    out["drops"] = drop_summary("21a", drops)
+    out["capacity_factor"] = mm.cfg.moe.capacity_factor
+    return out
+
+
+def run_tp_mixtral(dev, mesh) -> dict:
+    """21b: mixtral-8x7b at TP_LAYERS layers of published width (weights
+    at a trained model's scale) with the MoE on ``moe_tp`` over the (1, 1)
+    mesh: a forward over BATCH x PROMPT tokens, then a prefill of the
+    PROMPT tokens and TP_DECODE teacher-forced decode steps; each kernel
+    path's logits under phase 4's bound against the plain bf16 and fp32
+    tp paths on its routing, launches exact (per layer 2 + 2E
+    ``gemm_fused`` a forward or prefill, 2E a decode step)."""
+    t0 = time.perf_counter()
+    dense = build_models(dev, TP_ARCH, TP_LAYERS, trained=True)
+    mm = mesh_models(dense, "tp", mesh)
+    del dense
+    cfg = mm.cfg
+    rng = np.random.default_rng(21)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                       (BATCH, PROMPT + TP_DECODE)),
+                          dtype=torch.int64, device=dev)
+    route, flips, drops = [], [], []
+    kernels.reset_launch_counts()
+    with torch.inference_mode(), counted_drops(drops):
+        with routed(record=route):
+            kern = mm.kernel.forward(mm.params, tokens[:, :PROMPT])
+        counts_fwd = kernels.launch_counts()
+        with routed(replay=route):
+            plain = mm.plain.forward(mm.params, tokens[:, :PROMPT])
+        with routed(replay=route, flips=flips):
+            truth = mm.truth.forward(mm.params32, tokens[:, :PROMPT])
+    n = cfg.num_layers
+    want_fwd = {**no_launches(), "gemm_fused": 2 * n + ffn_gemms(cfg),
+                "flash_attention_fwd": n}
+    if counts_fwd != want_fwd or kern.shape != (BATCH, PROMPT,
+                                                cfg.vocab_size):
+        raise AssertionError(f"[21b] forward launches {counts_fwd} (the path "
+                             f"makes {want_fwd}), logits {tuple(kern.shape)}")
+    fwd_routing = check_routing("21b forward", route, flips)
+    fwd_worst, _ = check_logit_bound("21b forward", [kern], [plain], [truth])
+    err = [(x - truth).abs().max().item() for x in (kern, plain)]
+    log(f"[21b] {cfg.name}, {n} layer(s), moe_tp over (1, 1): forward "
+        f"logits {tuple(kern.shape)}, kernel path {err[0]:.4g} from fp32, "
+        f"plain bf16 {err[1]:.4g}, {fwd_worst:.3f} of the bound; launches "
+        f"{counts_fwd}")
+    del kern, plain, truth
+    kernels.reset_launch_counts()
+    with counted_drops(drops):
+        k, p_, t_, routes = teacher_forced_routed(
+            mm, mm.kernel, mm.params, tokens, PROMPT, TP_DECODE + 1,
+            PROMPT + TP_DECODE + 8)
+    counts = kernels.launch_counts()
+    want = expected_launches(cfg, 1, new_tokens=TP_DECODE + 1)
+    if counts != want:
+        raise AssertionError(f"[21b] prefill + {TP_DECODE} decode launches "
+                             f"{counts}; the path makes {want}")
+    routing = check_routing("21b serve", *routes)
+    worst, agreement = check_logit_bound("21b serve", k, p_, t_)
+    log(f"[21b] prefill of {BATCH} x {PROMPT} and {TP_DECODE} decode steps: "
+        f"kernel-path logits at most {worst:.3f} of the bound; greedy "
+        f"agreement with plain bf16 {agreement:.3f}; launches {counts}")
+    total = {key: counts_fwd[key] + counts[key] for key in counts}
+    out = {"launches": total, "forward_logit_err": {"kernel": err[0],
+                                                    "plain": err[1]},
+           "forward_bound_use": fwd_worst, "serve_bound_use": worst,
+           "routing": {"forward": fwd_routing, "serve": routing},
+           "drops": drop_summary("21b", drops),
+           "seconds": time.perf_counter() - t0}
+    del mm, k, p_, t_
+    return out
+
+
+def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median device milliseconds of ``fn`` between CUDA events, run
+    eagerly (a collective's NCCL call is not captured in a graph), each
+    after the Timer's 128 MiB write scrub (a cold L2)."""
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        scrub.zero_()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def run_collective_gemm(dev, mesh, gen) -> tuple:
+    """21c: ``gemm_collective`` at COLL_SHAPE over the (1, 1) mesh's
+    'model' axis, both variants and both plans: ring and gather bit for
+    bit, each within phase 3's tolerance of the plain product (the
+    oracle), one ``gemm_fused`` launch each (one rank: one panel), timed
+    eagerly between CUDA events beside the lone ``gemm_fused`` (timed so
+    and by ``Timer``). Returns (the phase's record, phase 3's rows of the
+    ring's panel launches for the kernel line)."""
+    m_, k_, n_ = COLL_SHAPE
+    bf16 = torch.bfloat16
+    x = torch.randn((m_, k_), generator=gen, device=dev).to(bf16)
+    w = (torch.randn((k_, n_), generator=gen, device=dev)
+         * k_ ** -0.5).to(bf16)
+    got, ms = {}, {}
+    kernels.reset_launch_counts()
+    for variant in ("all_gather", "reduce_scatter"):
+        for plan in ("ring", "gather"):
+            got[variant, plan] = gemm_collective_sharded(
+                x, w, mesh=mesh, variant=variant, plan=plan, mode="kernel")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {**no_launches(), "gemm_fused": 4}
+    if counts != want:
+        raise AssertionError(f"[21c] launches {counts}; one panel each "
+                             f"makes {want}")
+    errs = {}
+    for variant in ("all_gather", "reduce_scatter"):
+        ring, gather = got[variant, "ring"], got[variant, "gather"]
+        if not torch.equal(ring, gather):
+            raise AssertionError(f"[21c] {variant}: ring and gather differ "
+                                 f"by {(ring - gather).abs().max().item():.4g}")
+        oracle = gemm_collective_oracle(x, w, variant=variant, axis_size=1)
+        if variant == "reduce_scatter":
+            oracle = oracle[0]
+        errs[variant] = check_close(f"[21c] {variant}", ring, oracle,
+                                    2 ** -6, 2e-2)[0]
+    for variant in ("all_gather", "reduce_scatter"):
+        for plan in ("ring", "gather"):
+            ms[f"{variant}.{plan}"] = event_ms(
+                lambda: gemm_collective_sharded(x, w, mesh=mesh,
+                                                variant=variant, plan=plan,
+                                                mode="kernel"))
+    plan = panel_plan(m_, n_, k_, dev)
+
+    def lone(f32=False):
+        return gemm_ops._launch(x, w, EPILOGUE_NONE, b2=None, bias=None,
+                                residual=None, scale=None, sin=None, cos=None,
+                                gamma=None, eps=None, out_dtype=bf16,
+                                plan=plan, f32_product=f32)[0]
+
+    ms["lone"] = event_ms(lone)
+    timer = Timer(dev)
+    rows = []
+    for case, f32 in (("ring_panel_all_gather", False),
+                      ("ring_panel_reduce_scatter_f32", True)):
+        out = lone(f32)
+        want_p = (x.float() @ w.float()).to(out.dtype)
+        err, tol = check_close(f"gemm_fused[{case}]", out, want_p, 2 ** -6,
+                               2e-2)
+        # the f32 panel also writes the bf16 store of the staged route
+        written = (out, torch.empty((m_, n_), dtype=bf16, device=dev)) \
+            if f32 else (out,)
+        b_ms, b_by = bound(nbytes(x, w, *written), (2 * m_ * n_ * k_,
+                                                     PEAK_BF16))
+        rows.append(dict(
+            case=case, shape=[m_, k_, n_], max_abs_err=err, tolerance=tol,
+            saves_preacts=False, ms=timer.ms(lambda: lone(f32)),
+            plain_ms=timer.ms(lambda: (x.float() @ w.float()).to(
+                out.dtype)),
+            library_ms=timer.ms(lambda: torch.matmul(x, w)),
+            bound_ms=b_ms, bound_by=b_by, plan=f"{plan[0]}x{plan[1]}",
+            ms_by_plan={}))
+    ms["lone_timer"] = rows[0]["ms"]
+    del timer
+    log(f"[21c] gemm_collective at M {m_}, K {k_}, N {n_} over one rank: "
+        f"ring == gather bit for bit (both variants); max abs err vs the "
+        f"plain product {errs}; device us (events, eager): "
+        f"{ {k_: round(v * 1e3, 1) for k_, v in ms.items()} }; launches "
+        f"{counts}")
+    return {"launches": counts, "max_abs_err": errs, "ms": ms,
+            "panel_plan": list(plan)}, rows
+
+
+def dp_run(dev, mode: str, mesh=None) -> dict:
+    """DIST_STEPS steps of llama-1b (16 layers, phase 6b's data and
+    schedule) with ``grad_compress``, from seed 0: the single-device
+    trainer, or with ``mesh`` the data-parallel ZeRO-1 one (its state from
+    ``sharded_init``). Returns the losses, step seconds, launches and the
+    final state."""
+    cfg = get_config("llama-1b")
+    model = build_model(cfg, mode=mode, device=dev, mesh=mesh)
+    opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS))
+    if mesh is None:
+        state = init_state(model, 0, grad_compress=True)
+        step = make_train_step(model, opt, grad_compress=True)
+        data = train_data(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    else:
+        state = sharded_init(model, 0, mesh, zero1=True, grad_compress=True)
+        step = make_train_step(model, opt, grad_compress=True, mesh=mesh,
+                               zero1=True)
+        data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH),
+                            device=dev, mesh=mesh)
+    losses, secs = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for _ in range(DIST_STEPS):
+        batch = next(data)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_seconds": secs,
+            "launches": kernels.launch_counts(), "state": state,
+            "model": model}
+
+
+def same_state(a, b) -> list:
+    """The paths of the leaves that differ (tensors bit for bit, ints)."""
+    return [k for (k, x), (_, y) in zip(named_leaves(a), named_leaves(b))
+            if not (torch.equal(x, y) if torch.is_tensor(x) else x == y)]
+
+
+def run_dp_training(dev, mesh, base_step_s: float) -> dict:
+    """21d: llama-1b at phase 6b's shape, DIST_STEPS steps with the mesh,
+    ZeRO-1 and grad_compress, and the single-device trainer at the same
+    seed, data and levers (every collective is an identity on one rank
+    and AdamW on slices is elementwise): on the plain bf16 path the two
+    runs' losses and final states (params, moments, residuals) bit for
+    bit; in kernel mode the two runs' curves are compared against the
+    spread of two single-device runs, 2 x spread + 0.01 (the flash
+    backward adds dq's
+    partial sums with atomics in an order that changes from run to run,
+    so two kernel-mode runs of one trainer are not bit for bit), launches
+    exact. Step times beside 6b's. Then the mesh run's step-DIST_STEPS
+    state is saved (global leaves) and restored through
+    ``restore(mesh=, specs=)`` bit for bit."""
+    t0 = time.perf_counter()
+    out = {}
+    runs = {}
+    for mode in ("reference", "kernel"):
+        single = dp_run(dev, mode)
+        # the state to hold the mesh run to, bit for bit (plain path only)
+        keep = ({k: v.detach().clone() if torch.is_tensor(v) else v
+                 for k, v in named_leaves(single["state"])}
+                if mode == "reference" else None)
+        runs[mode, "single"] = {k: v for k, v in single.items()
+                                if k not in ("state", "model")}
+        del single
+        torch.cuda.empty_cache()
+        if mode == "kernel":
+            again = dp_run(dev, mode)
+            runs[mode, "again"] = {k: v for k, v in again.items()
+                                   if k not in ("state", "model")}
+            del again
+            torch.cuda.empty_cache()
+        meshed = dp_run(dev, mode, mesh)
+        runs[mode, "mesh"] = {k: v for k, v in meshed.items()
+                              if k not in ("state", "model")}
+        diff = [k for k, v in named_leaves(meshed["state"])
+                if keep is not None and not (
+                    torch.equal(v, keep[k]) if torch.is_tensor(v)
+                    else v == keep[k])]
+        del keep
+        s1, sm = runs[mode, "single"], runs[mode, "mesh"]
+        want = expected_train_launches(get_config("llama-1b"), DIST_STEPS) \
+            if mode == "kernel" else no_launches()
+        for tag in ("single", "mesh"):
+            if runs[mode, tag]["launches"] != want:
+                raise AssertionError(f"[21d] {mode} {tag}: launches "
+                                     f"{runs[mode, tag]['launches']}; the "
+                                     f"steps make {want}")
+        log(f"[21d] {mode}: single-device losses {s1['losses']}; mesh "
+            f"(ZeRO-1, grad_compress) losses {sm['losses']}"
+            + (f"; {len(diff)} state leaves differ" if mode == "reference"
+               else ""))
+        if mode == "reference":
+            if s1["losses"] != sm["losses"] or diff:
+                raise AssertionError(f"[21d] plain bf16: the mesh run is not "
+                                     f"the single-device run bit for bit "
+                                     f"(losses {sm['losses']} vs "
+                                     f"{s1['losses']}; leaves {diff[:5]})")
+            out["plain_bitwise"] = True
+        else:
+            again = runs[mode, "again"]["losses"]
+            spread = max(abs(a - b) for a, b in zip(s1["losses"], again))
+            gap = max(abs(a - b) for a, b in zip(s1["losses"], sm["losses"]))
+            log(f"[21d] kernel: two single-device runs {spread:.4g} apart "
+                f"(losses {again}), the mesh run {gap:.4g} from the first "
+                f"(bound 2 x spread + 0.01); first step's loss equal "
+                f"{sm['losses'][0] == s1['losses'][0]}")
+            if sm["losses"][0] != s1["losses"][0] or \
+                    not gap <= 2 * spread + 0.01:
+                raise AssertionError(f"[21d] kernel: mesh losses "
+                                     f"{sm['losses']} vs {s1['losses']}")
+            out["kernel_spread"], out["kernel_gap"] = spread, gap
+            ckpt_state, ckpt_model = meshed["state"], meshed["model"]
+        del meshed
+        torch.cuda.empty_cache()
+    med = {f"{mode} {tag}": statistics.median(r["step_seconds"][1:])
+           for (mode, tag), r in runs.items()}
+    log(f"[21d] step seconds (median after the first): "
+        f"{ {k: round(v, 4) for k, v in med.items()} } beside 6b's "
+        f"{base_step_s:.4f} (kernel, no compression, 8 steps)")
+    specs = state_shardings(ckpt_model, mesh, zero1=True, grad_compress=True)
+    tmp = tempfile.mkdtemp()
+    try:
+        c0 = time.perf_counter()
+        ckpt_lib.save(ckpt_state, tmp, DIST_STEPS, mesh=mesh, specs=specs)
+        save_s = time.perf_counter() - c0
+        c0 = time.perf_counter()
+        restored, step = ckpt_lib.restore(tmp, ckpt_state, mesh=mesh,
+                                          specs=specs)
+        restore_s = time.perf_counter() - c0
+        bad = same_state(restored, ckpt_state)
+        if step != DIST_STEPS or bad:
+            raise AssertionError(f"[21d] restored step {step}, leaves "
+                                 f"{bad[:5]} differ from the saved state")
+        log(f"[21d] the step-{DIST_STEPS} checkpoint (global leaves) "
+            f"restored through restore(mesh=, specs=) bit for bit; save "
+            f"{save_s:.1f} s, restore {restore_s:.1f} s")
+        del restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del ckpt_state
+    out.update(launches=runs["kernel", "mesh"]["launches"],
+               runs={f"{m} {t}": r for (m, t), r in runs.items()},
+               step_s=med, base_step_s=base_step_s,
+               checkpoint_s={"save": save_s, "restore": restore_s},
+               seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_distributed(dev, m: Models, base_step_s: float, gen) -> tuple:
+    """Phase 21 (21a-21d) inside one NCCL process group of world size 1;
+    ``m``: phase 20's models, freed after 21a. Returns (the phases, the
+    ring panels' rows for phase 3's gemm_fused)."""
+    t0 = time.perf_counter()
+    out = {}
+    with nccl_world() as mesh:
+        out["21a"] = run_ep_serving(dev, m, mesh)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["21b"] = run_tp_mixtral(dev, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["21c"], rows = run_collective_gemm(dev, mesh, gen)
+        out["21d"] = run_dp_training(dev, mesh, base_step_s)
+    log(f"[21] phase 21 in {time.perf_counter() - t0:.1f} s")
+    return out, rows
 
 
 def main(argv=None) -> int:
@@ -6383,8 +6903,14 @@ def main(argv=None) -> int:
     log(f"[done] phase 19 at {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    phases.update(run_maverick(dev))
+    held: dict = {}
+    phases.update(run_maverick(dev, keep=held))
     log(f"[done] phase 20 at {time.perf_counter() - t0:.1f} s")
+    dist_phases, ring_rows = run_distributed(dev, held.pop("models"),
+                                             phases["6b"]["step_s"], gen)
+    phases.update(dist_phases)
+    measured["gemm_fused"] += ring_rows
+    log(f"[done] phase 21 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -6400,7 +6926,8 @@ def main(argv=None) -> int:
                             + LEFTOVER_PHASES + MOE_PHASES
                             + MOE_TRAIN_PHASES + TELEMETRY_PHASES
                             + RG_PHASES + RG_TRAIN_PHASES + M2_PHASES
-                            + M2_TRAIN_PHASES + IVL_PHASES + MAV_PHASES),
+                            + M2_TRAIN_PHASES + IVL_PHASES + MAV_PHASES
+                            + DIST_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

@@ -87,6 +87,11 @@ class ModelConfig:
     remat_policy: str = "full"   # 'full' | 'dots' (save matmul outputs) | 'none'
     rglru_f32_gates: bool = True # False: bf16 gate products (fp32 carries)
     rglru_chunk: int = 0         # >0: two-level RG-LRU scan (models/rglru.py)
+    # the distributed layer's sharding levers (distributed/sharding.py)
+    embed_shard: str = "vocab"   # 'vocab' | 'embed': which dim of the
+                                 # embedding goes over 'model' (untied only)
+    kv_shard: bool = True        # False: replicate wv (kv heads < |model|)
+    fsdp: bool = False           # shard the params over 'data' too
     vocab_pad_multiple: int = 0  # pad V up to a multiple; padding is masked
     emb_scale: float = 1.0
     residual_scale: float = 1.0

@@ -6,7 +6,8 @@ batches bit for bit. Tokens follow a noisy affine-modular chain (next =
 (mult * prev + add) mod V with probability 1 - noise, else uniform), packed
 as geometric-length documents into fixed windows with a loss mask that
 drops each document's first target. ``DataIterator`` yields the batches as
-tensors on a device; its state is the integer step.
+tensors on a device; its state is the integer step. Over a mesh each rank
+takes only its own rows of the global batch (:func:`local_rows`).
 """
 from __future__ import annotations
 
@@ -73,21 +74,42 @@ def batch_at(cfg: DataConfig, step: int) -> dict:
     return batch_rows(cfg, step, range(cfg.global_batch))
 
 
+def local_rows(cfg: DataConfig, mesh, batch_axes=("data",),
+               coords: dict | None = None) -> range:
+    """The rows of the global batch that the rank at ``coords`` (default:
+    this rank's) holds: its block along ``batch_axes`` where they divide
+    the batch (the reference's ``global_batch_at``), else every row."""
+    from repro_torch.distributed.sharding import (block_index,
+                                                  divisible_axes,
+                                                  mesh_coords)
+
+    axes = divisible_axes(cfg.global_batch, mesh, batch_axes)
+    if not axes:
+        return range(cfg.global_batch)
+    coords = mesh_coords(mesh) if coords is None else coords
+    index, count = block_index(axes, mesh, coords)
+    rows = cfg.global_batch // count
+    return range(index * rows, (index + 1) * rows)
+
+
 class DataIterator:
     """Yields ``batch_at(cfg, step)`` as tensors on ``device`` (tokens
-    int64, the mask fp32); its state is the integer step."""
+    int64, the mask fp32), or over a ``mesh`` this rank's rows of it
+    (:func:`local_rows`); its state is the integer step."""
 
     def __init__(self, cfg: DataConfig, start_step: int = 0,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, *, mesh=None, batch_axes=("data",)):
         self.cfg = cfg
         self.step = start_step
         self.device = resolve_device(device)
+        self.rows = (range(cfg.global_batch) if mesh is None
+                     else local_rows(cfg, mesh, batch_axes))
 
     def __iter__(self):
         return self
 
     def __next__(self) -> dict:
-        b = batch_at(self.cfg, self.step)
+        b = batch_rows(self.cfg, self.step, self.rows)
         self.step += 1
         return {k: torch.from_numpy(v).to(
             self.device, torch.float32 if k == "loss_mask" else torch.int64)

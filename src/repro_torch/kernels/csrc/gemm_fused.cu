@@ -564,8 +564,10 @@ const char* repro_error_string(int code) {
 // rope, itself a multiple of 4, and at most 128 then); splits: the
 // contraction's split count
 // (every split non-empty). ws: a (splits, M, n_raw) fp32 workspace when
-// splits > 1 or a rope head_dim is no multiple of 16, else null; n_raw = N,
-// or for the gated chain ceil(N / (tile_n / 2)) * tile_n.
+// splits > 1 or a rope head_dim is no multiple of 16, else null or, at one
+// split, a workspace that receives the raw fp32 accumulators (the staged
+// route: the caller reads the fp32 product from it); n_raw = N, or for the
+// gated chain ceil(N / (tile_n / 2)) * tile_n.
 int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
                       const void* gamma, const void* beta, void* mean,
                       void* rstd, void* an,
@@ -589,7 +591,8 @@ int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
                             tile_n % head_dim || tile_n > 128 ||
                             n % head_dim))
     return cudaErrorInvalidValue;
-  const bool staged = splits > 1 || ((flags & EP_ROPE) && head_dim % 16);
+  const bool staged = splits > 1 || ((flags & EP_ROPE) && head_dim % 16) ||
+                      ws != nullptr;
   if (staged && ws == nullptr) return cudaErrorInvalidValue;
   Chain ch;
   ch.out = static_cast<__nv_bfloat16*>(c);

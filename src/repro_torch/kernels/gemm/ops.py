@@ -522,13 +522,16 @@ def require(t, name, shape, dtype, device):
 
 def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
             eps, out_dtype, beta=None, layernorm=False, save_preact=False,
-            plan=None, kernel: CudaKernel = KERNEL):
+            plan=None, f32_product=False, kernel: CudaKernel = KERNEL):
     """One launch on the card: (out, stats, preacts), ``stats`` as
     :func:`_forward` returns them. With ``gamma`` the row pass normalises A
     first: layernorm (``beta`` optional) where ``layernorm``, else rmsnorm.
     ``plan`` (tile width, split count) overrides :func:`plan_gemm` (the
     smoke's sweep); ``kernel``: another build of the same entry point (the
-    smoke's A/B against an earlier tree)."""
+    smoke's A/B against an earlier tree). ``f32_product``: the chainless
+    product at one split, returned in fp32 in place of ``out`` (the kernel
+    writes its raw accumulators to a one-split workspace, the staged route;
+    the collective GEMM's reduce-scatter panels)."""
     m, k = a.shape
     n = b.shape[1]
     dev, bf16 = a.device, torch.bfloat16
@@ -548,6 +551,10 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
     if tile_n not in tile_widths(epilogue.gate, hd) or splits < 1:
         raise ValueError(f"gemm_fused kernel: plan {(tile_n, splits)} does "
                          f"not fit chain {epilogue.describe()!r}")
+    if f32_product and (splits != 1 or epilogue != EPILOGUE_NONE
+                        or gamma is not None):
+        raise ValueError("gemm_fused kernel: an fp32 product is the "
+                         "chainless product at one split")
     ptr = {"a": require(a, "a", (m, k), bf16, dev),
            "b": require(b, "b", (k, n), bf16, dev)}
     null = None
@@ -576,7 +583,7 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
                             dtype=torch.float32, device=dev)
         mean, rstd = (stats[0], stats[1]) if layernorm else (None, stats)
         an = torch.empty((m, k), dtype=bf16, device=dev)
-    if staged(epilogue, splits):
+    if staged(epilogue, splits) or f32_product:
         ws = torch.empty((splits, m, raw_width(n, tile_n, epilogue.gate)),
                          dtype=torch.float32, device=dev)
     # the raw accumulators of an activation chain: one, or the gate's two
@@ -600,4 +607,4 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
               float(eps) if eps is not None else 0.0,
               m, n, k, flags, epilogue.head_dim, tile_n, splits, stream)
     kernel.check(code)
-    return out, stats, preacts
+    return (ws[0] if f32_product else out), stats, preacts

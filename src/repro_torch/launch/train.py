@@ -17,6 +17,8 @@ data, with the model in kernel mode.
       --steps 8 --batch 8 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \\
       --steps 8 --batch 4 --seq 2048
+  PYTHONPATH=src torchrun --nproc_per_node 1 -m repro_torch.launch.train \\
+      --arch llama-1b --steps 4 --batch 4 --seq 1024 --mesh --zero1
 
 The decoders and bert-110m take the LM pipeline's batches
 (``data.DataIterator``), as the reference's launcher feeds every arch;
@@ -35,6 +37,12 @@ over 64 frames; recurrentgemma's RG-LRU 128 wide; internvl2's 8
 patches). Prints the reference launcher's ``[train] finished:`` line,
 then tokens/s (median host time of the steps after the first; tokens of
 the decoder's or encoder's sequence) and the peak device memory.
+
+``--mesh`` trains data parallel over every process of a ``torchrun``
+world (``make_host_mesh``: NCCL and one card per process, or gloo with
+``--device cpu``), each on its rows of the global ``--batch`` (the LM
+pipeline's families), ``--zero1`` with the optimizer moments sliced over
+the ranks; the first rank prints.
 """
 from __future__ import annotations
 
@@ -55,15 +63,39 @@ TINY = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
             vocab_size=256, encoder_layers=2, encoder_seq=64)
 
 
-def train_batches(cfg, batch: int, seq: int, *, seed: int = 0, device):
+def train_batches(cfg, batch: int, seq: int, *, seed: int = 0, device,
+                  mesh=None):
     """The launcher's data: ``MadeBatches`` for the enc-dec and vlm
     families (their batches carry the stub frontend's embeddings), else the
-    LM pipeline's iterator."""
+    LM pipeline's iterator (over ``mesh``: this rank's rows)."""
     if cfg.family in ("encdec", "vlm"):
+        if mesh is not None:
+            raise ValueError(f"--mesh: the {cfg.family!r} family's batches "
+                             "are made whole; data parallel runs on the LM "
+                             "pipeline's families")
         return MadeBatches(cfg, batch, seq, seed=seed, device=device)
     return DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                    global_batch=batch, seed=seed),
-                        device=device)
+                        device=device, mesh=mesh)
+
+
+def _start_world(device: str):
+    """The data-parallel world of a ``torchrun`` launch: the process group
+    from its environment (NCCL on the card, one per process, else gloo),
+    this process's device and the (world, 1) host mesh."""
+    import os
+
+    import torch.distributed as dist
+
+    from .mesh import make_host_mesh
+
+    cuda = not str(device).startswith("cpu")
+    if cuda:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+    dist.init_process_group("nccl" if cuda else "gloo")
+    return device, make_host_mesh(device_type="cuda" if cuda else "cpu")
 
 
 def main(argv=None):
@@ -97,7 +129,27 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, nargs="*", default=[],
                     help="inject simulated node failures at these steps")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--mesh", action="store_true",
+                    help="data parallel over the torchrun world")
+    ap.add_argument("--zero1", action="store_true",
+                    help="with --mesh: the moments sliced over the ranks")
     args = ap.parse_args(argv)
+    mesh, device = None, args.device
+    if args.mesh:
+        device, mesh = _start_world(args.device)
+    try:
+        return _run(ap, args, device, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(ap, args, device, mesh):
+    import torch.distributed as dist
+
+    show = mesh is None or dist.get_rank() == 0
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.tiny:
@@ -114,26 +166,32 @@ def main(argv=None):
                  "learned positions")
     sched = (wsd_schedule if args.schedule == "wsd" else cosine_schedule)(
         args.lr, args.warmup, args.steps)
-    model = build_model(cfg, mode=args.mode, device=args.device)
+    model = build_model(cfg, mode=args.mode, device=device, mesh=mesh)
     cuda = model.device.type == "cuda"
     data = train_batches(cfg, args.batch, args.seq, seed=args.seed,
-                         device=model.device)
+                         device=model.device, mesh=mesh)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     res = train_loop(model, data, args.steps, AdamWConfig(schedule=sched),
                      seed=args.seed, microbatches=args.microbatches,
+                     mesh=mesh, zero1=args.zero1,
                      grad_compress=args.grad_compress,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      failure_injector=FailureInjector(tuple(args.fail_at)),
-                     watchdog=StragglerWatchdog())
+                     watchdog=StragglerWatchdog(),
+                     log=print if show else (lambda *a, **k: None))
+    if not show:
+        return res
     print(f"[train] finished: {len(res.losses)} steps, "
           f"first loss {res.losses[0]:.4f}, last loss {res.losses[-1]:.4f}, "
           f"restarts {res.restarts}, stragglers {len(res.straggler_events)}")
     steady = res.step_seconds[1:] or res.step_seconds
     step_s = statistics.median(steady)
     where = torch.cuda.get_device_name(0) if cuda else "cpu"
+    ranks = f" over {dist.get_world_size()} ranks" if mesh is not None else ""
     print(f"[train] {cfg.name}, {cfg.num_layers} layers, {args.batch} x "
-          f"{args.seq} tokens a step on {where}: median step {step_s:.4f} s "
+          f"{args.seq} tokens a step on {where}{ranks}: median step "
+          f"{step_s:.4f} s "
           f"after the first, {args.batch * args.seq / step_s:.1f} tokens/s")
     if cuda:
         print(f"[train] peak device memory "

@@ -1,6 +1,7 @@
-"""Model API: ``build_model(cfg, mode=..., device=..., qkv_plan=...)``
-returns a :class:`Model` whose methods close over the config, the mode, the
-device and the rung of the QKV ladder, and dispatch on ``cfg.family`` as
+"""Model API: ``build_model(cfg, mode=..., device=..., qkv_plan=...,
+mesh=..., data_axes=...)`` returns a :class:`Model` whose methods close
+over the config, the mode, the device, the rung of the QKV ladder and the
+mesh, and dispatch on ``cfg.family`` as
 the reference's ``_build_model`` does: the decoder-only LM ('lm'), the
 vision-language model ('vlm': ``forward`` and ``loss`` take a batch dict
 with ``patch_embeds``; serving is text-only on its LM backbone, as in the
@@ -9,7 +10,13 @@ reference), the encoder-decoder ('encdec': ``forward``, ``loss``,
 and the encoder ('encoder': ``forward`` and ``loss``). :func:`make_batch`
 draws a training batch of any family from a torch generator, as the
 reference's does from a JAX key; :class:`MadeBatches` streams them for
-``train_loop``."""
+``train_loop``.
+
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with a 'model' axis
+and data axes) the LM's MoE blocks run ``moe_forward``'s expert- or
+tensor-parallel path over it, and a rank holds its own slice of the
+experts (:meth:`Model.local_params`); every other leaf is whole on every
+rank (dense tensor parallelism is not ported)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,7 +30,8 @@ from . import encoder as _enc
 from . import lm as _lm
 from . import vlm as _vlm
 from .attention import QKV_PLANS
-from .common import init_params
+from .common import init_params, logical_axes
+from .moe import local_experts
 
 MODES = ("kernel", "reference")
 FAMILIES = ("lm", "vlm", "encdec", "encoder")
@@ -49,6 +57,8 @@ class Model:
     device: torch.device
     defs: dict
     qkv_plan: str = "rope_fused"
+    mesh: object = None
+    data_axes: tuple = ("data",)
 
     def init(self, seed: int = 0, dtype=None) -> dict:
         """Seeded random parameters, each leaf drawn in the param type and
@@ -58,6 +68,31 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.defs, gen, self.device,
                            cast=dtype_of(dtype or self.cfg.compute_dtype))
+
+    def axes(self) -> dict:
+        """The tree of each parameter's logical axes (the sharding rules'
+        input, ``distributed.sharding``)."""
+        return logical_axes(self.defs)
+
+    def local_params(self, params) -> dict:
+        """This rank's parameters over the model's mesh: each MoE layer's
+        experts cut to the rank's 'model' slice (the expert dim under "ep",
+        the FFN hidden dim under "tp"), every other leaf as it is (views,
+        no copy). Without a mesh, ``params``."""
+        if self.mesh is None:
+            return params
+
+        def walk(tree):
+            return {k: (local_experts(self.cfg, v, self.mesh) if k == "moe"
+                        else walk(v) if isinstance(v, dict) else v)
+                    for k, v in tree.items()}
+        return walk(params)
+
+    @property
+    def _kw(self) -> dict:
+        """The LM functions' mode, QKV rung and mesh keywords."""
+        return dict(mode=self.mode, qkv_plan=self.qkv_plan, mesh=self.mesh,
+                    data_axes=self.data_axes)
 
     @property
     def family(self) -> str:
@@ -82,8 +117,7 @@ class Model:
             return _enc.encoder_forward(self.cfg, params, batch,
                                         mode=self.mode,
                                         qkv_plan=self.qkv_plan)
-        return _lm.lm_forward(self.cfg, params, batch, mode=self.mode,
-                              qkv_plan=self.qkv_plan)
+        return _lm.lm_forward(self.cfg, params, batch, **self._kw)
 
     def loss(self, params, batch):
         """(loss, metrics) of a batch {"inputs", "targets", "loss_mask"}
@@ -100,8 +134,7 @@ class Model:
         if self.family == "encoder":
             return _enc.encoder_loss(self.cfg, params, batch, mode=self.mode,
                                      qkv_plan=self.qkv_plan)
-        return _lm.lm_loss(self.cfg, params, batch, mode=self.mode,
-                           qkv_plan=self.qkv_plan)
+        return _lm.lm_loss(self.cfg, params, batch, **self._kw)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         if self.family == "encdec":
@@ -121,8 +154,7 @@ class Model:
         self._lm_only("prefill")
         if self.family == "vlm" and isinstance(batch, dict):
             batch = batch["inputs"]
-        return _lm.lm_prefill(self.cfg, params, batch, cache, mode=self.mode,
-                              qkv_plan=self.qkv_plan)
+        return _lm.lm_prefill(self.cfg, params, batch, cache, **self._kw)
 
     def decode_step(self, params, token, cache, pos):
         """pos: a Python int or a one-element int64 tensor on the device."""
@@ -131,7 +163,8 @@ class Model:
                                           mode=self.mode)
         self._lm_only("decode_step")
         return _lm.lm_decode_step(self.cfg, params, token, cache, pos,
-                                  mode=self.mode)
+                                  mode=self.mode, mesh=self.mesh,
+                                  data_axes=self.data_axes)
 
     # paged decode surface: a shared page pool, per-sequence page tables
     def init_paged_cache(self, batch_slots: int, n_pages: int,
@@ -144,22 +177,22 @@ class Model:
                       true_len: int):
         self._lm_only("prefill_paged")
         return _lm.lm_prefill_paged(self.cfg, params, tokens, cache,
-                                    page_rows, slot, true_len, mode=self.mode,
-                                    qkv_plan=self.qkv_plan)
+                                    page_rows, slot, true_len, **self._kw)
 
     def prefill_paged_chunk(self, params, tokens, cache, page_rows,
                             start: int, last_index: int):
         self._lm_only("prefill_paged_chunk")
         return _lm.lm_prefill_paged_chunk(self.cfg, params, tokens, cache,
                                           page_rows, start, last_index,
-                                          mode=self.mode,
-                                          qkv_plan=self.qkv_plan)
+                                          **self._kw)
 
     def decode_step_paged(self, params, token, cache, page_table, lengths):
         """token (B, T): T > 1 is the speculative verify step."""
         self._lm_only("decode_step_paged")
         return _lm.lm_decode_step_paged(self.cfg, params, token, cache,
-                                        page_table, lengths, mode=self.mode)
+                                        page_table, lengths, mode=self.mode,
+                                        mesh=self.mesh,
+                                        data_axes=self.data_axes)
 
 
 def make_batch(cfg, batch: int, seq_len: int, *,
@@ -219,7 +252,8 @@ class MadeBatches:
 
 
 def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE,
-                qkv_plan: str = "rope_fused") -> Model:
+                qkv_plan: str = "rope_fused", mesh=None,
+                data_axes=("data",)) -> Model:
     """'kernel' runs the hand-written kernels on CUDA tensors (their plain
     versions on CPU tensors); 'reference' runs the plain unfused path.
     ``qkv_plan`` is the rung of the QKV ladder the kernel mode takes
@@ -228,7 +262,10 @@ def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE,
     'norm_fused' (the norm-prologue GEMMs, then the RoPE kernel) or
     'unfused' (standalone norm, plain projections, the RoPE kernel); the
     port's counterpart of the decision a measured table pins in the
-    reference. Raises when ``device`` is CUDA and no card is present."""
+    reference. ``mesh``: a ``DeviceMesh`` over which the MoE blocks run
+    expert or tensor parallel (``data_axes``: its data-parallel axes), as
+    the reference's ``build_model(cfg, mesh=, data_axes=)``. Raises when
+    ``device`` is CUDA and no card is present."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
     if qkv_plan not in QKV_PLANS:
@@ -238,4 +275,5 @@ def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE,
                                   f"port runs {FAMILIES}")
     dev = resolve_device(device)
     return Model(cfg=cfg, mode=mode, device=dev,
-                 defs=_PARAM_DEFS[cfg.family](cfg), qkv_plan=qkv_plan)
+                 defs=_PARAM_DEFS[cfg.family](cfg), qkv_plan=qkv_plan,
+                 mesh=mesh, data_axes=tuple(data_axes))

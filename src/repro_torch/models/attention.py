@@ -53,17 +53,23 @@ def attn_defs(cfg, prefix: str, *, stack: int | None = None,
     cross-attention block (``cross``) has no q|k/v bias."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = (stack,) if stack else ()
+    lx = ("layers",) if stack else ()
     dt = cfg.param_dtype
+    kv_ax = "kv_heads" if cfg.kv_shard else None
     defs = {
-        f"{prefix}/wqk": ParamDef(lead + (d, (h + hkv) * hd), dtype=dt),
-        f"{prefix}/wv": ParamDef(lead + (d, hkv * hd), dtype=dt),
-        f"{prefix}/wo": ParamDef(lead + (h * hd, d), dtype=dt),
+        f"{prefix}/wqk": ParamDef(lead + (d, (h + hkv) * hd),
+                                  lx + ("embed", "heads"), dtype=dt),
+        f"{prefix}/wv": ParamDef(lead + (d, hkv * hd), lx + ("embed", kv_ax),
+                                 dtype=dt),
+        f"{prefix}/wo": ParamDef(lead + (h * hd, d), lx + ("heads", "embed"),
+                                 dtype=dt),
     }
     if cfg.qkv_bias and not cross:
         defs[f"{prefix}/bqk"] = ParamDef(lead + ((h + hkv) * hd,),
-                                         init="zeros", dtype=dt)
-        defs[f"{prefix}/bv"] = ParamDef(lead + (hkv * hd,), init="zeros",
-                                        dtype=dt)
+                                         lx + ("heads",), init="zeros",
+                                         dtype=dt)
+        defs[f"{prefix}/bv"] = ParamDef(lead + (hkv * hd,), lx + (kv_ax,),
+                                        init="zeros", dtype=dt)
     return defs
 
 

@@ -21,9 +21,16 @@ from repro_torch.kernels.gemm import Epilogue, gemm_fused, norm_prologue
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple
+    axes: tuple              # logical axis names, one per dim (the sharding
+                             # rules' input, distributed/sharding.py)
     init: str = "normal"     # 'normal' | 'zeros' | 'ones' | 'lru_a'
     scale: float = 1.0       # stddev multiplier (normal init)
     dtype: str = "float32"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in length")
 
 
 def nest(flat: Mapping[str, object]) -> dict:
@@ -36,6 +43,11 @@ def nest(flat: Mapping[str, object]) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = value
     return tree
+
+
+def logical_axes(defs: Mapping[str, ParamDef]) -> dict:
+    """The nested tree of each parameter's logical axes."""
+    return nest({p: d.axes for p, d in defs.items()})
 
 
 def tree_map(fn, tree):
@@ -229,20 +241,25 @@ def mlp_forward(cfg, p, x, *, mode: str = "reference", residual=None,
 def mlp_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     lead = (stack,) if stack else ()
+    lx = ("layers",) if stack else ()
     dt = cfg.param_dtype
-    defs = {f"{prefix}/w_in": ParamDef(lead + (d, f), dtype=dt),
-            f"{prefix}/w_out": ParamDef(lead + (f, d), dtype=dt)}
+    defs = {f"{prefix}/w_in": ParamDef(lead + (d, f), lx + ("embed", "ffn"),
+                                       dtype=dt),
+            f"{prefix}/w_out": ParamDef(lead + (f, d), lx + ("ffn", "embed"),
+                                        dtype=dt)}
     if cfg.mlp_act in ("swiglu", "geglu"):
-        defs[f"{prefix}/w_gate"] = ParamDef(lead + (d, f), dtype=dt)
+        defs[f"{prefix}/w_gate"] = ParamDef(lead + (d, f),
+                                            lx + ("embed", "ffn"), dtype=dt)
     return defs
 
 
 def norm_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
     lead = (stack,) if stack else ()
+    lx = ("layers",) if stack else ()
     dt = cfg.param_dtype
-    defs = {f"{prefix}_scale": ParamDef(lead + (cfg.d_model,), init="ones",
-                                        dtype=dt)}
+    defs = {f"{prefix}_scale": ParamDef(lead + (cfg.d_model,), lx + (None,),
+                                        init="ones", dtype=dt)}
     if cfg.norm == "layernorm":
-        defs[f"{prefix}_bias"] = ParamDef(lead + (cfg.d_model,), init="zeros",
-                                          dtype=dt)
+        defs[f"{prefix}_bias"] = ParamDef(lead + (cfg.d_model,), lx + (None,),
+                                          init="zeros", dtype=dt)
     return defs

@@ -46,8 +46,9 @@ def sinusoidal_positions(length: int, dim: int, device=None):
 
 def encdec_param_defs(cfg) -> dict:
     d, v, dt = cfg.d_model, cfg.vocab_size, cfg.param_dtype
-    defs = {"embed": ParamDef((v, d), dtype=dt),
-            "dec_pos": ParamDef((cfg.max_seq_len, d), scale=0.02, dtype=dt)}
+    defs = {"embed": ParamDef((v, d), ("vocab", "embed"), dtype=dt),
+            "dec_pos": ParamDef((cfg.max_seq_len, d), (None, "embed"),
+                                scale=0.02, dtype=dt)}
     enc = cfg.encoder_layers
     defs.update(attn_defs(cfg, "enc/attn", stack=enc))
     defs.update(mlp_defs(cfg, "enc/mlp", stack=enc))

@@ -22,8 +22,9 @@ from .lm import _remat, unstack_layers
 def encoder_param_defs(cfg) -> dict:
     d, v, dt = cfg.d_model, cfg.vocab_size, cfg.param_dtype
     n = cfg.num_layers
-    defs = {"embed": ParamDef((v, d), dtype=dt),
-            "pos": ParamDef((cfg.max_seq_len, d), scale=0.02, dtype=dt)}
+    defs = {"embed": ParamDef((v, d), ("vocab", "embed"), dtype=dt),
+            "pos": ParamDef((cfg.max_seq_len, d), (None, "embed"),
+                            scale=0.02, dtype=dt)}
     defs.update(attn_defs(cfg, "enc/attn", stack=n))
     defs.update(mlp_defs(cfg, "enc/mlp", stack=n))
     defs.update(norm_defs(cfg, "enc/ln1", stack=n))

@@ -144,7 +144,13 @@ def block_defs(cfg, kind: str, prefix: str, *, stack=None) -> dict:
 def lm_param_defs(cfg) -> dict:
     check_supported(cfg)
     d, v, dt = cfg.d_model, cfg.padded_vocab(), cfg.param_dtype
-    defs = {"embed": ParamDef((v, d), dtype=dt)}
+    # 'embed' sharding d-shards the table (the model axis on its d dim)
+    emb_axes = (("vocab", "embed") if cfg.embed_shard == "vocab"
+                else (None, "ffn"))
+    if cfg.tie_embeddings and cfg.embed_shard != "vocab":
+        raise ValueError("embed d-sharding requires an untied LM head "
+                         "(tied logits would contract over a sharded dim)")
+    defs = {"embed": ParamDef((v, d), emb_axes, dtype=dt)}
     layout = _layout(cfg)
     if layout[0] == "scan":
         _, pattern, n_groups = layout
@@ -159,7 +165,7 @@ def lm_param_defs(cfg) -> dict:
             defs.update(block_defs(cfg, cfg.layer_kind(i), f"layer_{i:03d}"))
     defs.update(norm_defs(cfg, "final_norm"))
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, v), dtype=dt)
+        defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"), dtype=dt)
     return defs
 
 
@@ -202,7 +208,7 @@ def _logits(cfg, params, x, head=None):
     return logits / cfg.logit_scale_div
 
 
-def _ffn(cfg, p, x, *, mode: str):
+def _ffn(cfg, p, x, *, mode: str, mesh=None, data_axes=("data",)):
     """The block's FFN on the stream ``x`` after attention's (or the
     recurrence's) residual, by block kind (the FFN's params: "mlp" or
     "moe"), ln2 riding in as ``prenorm``: the dense MLP, ``x +
@@ -211,7 +217,8 @@ def _ffn(cfg, p, x, *, mode: str):
     m``. Returns (x, the MoE's aux or None)."""
     rs = cfg.residual_scale
     if "moe" in p:
-        m, aux = moe_forward(cfg, p["moe"], x, mode=mode,
+        m, aux = moe_forward(cfg, p["moe"], x, mode=mode, mesh=mesh,
+                             data_axes=data_axes,
                              prenorm=norm_params(p, "ln2"))
         return x + rs * m, aux
     return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
@@ -227,17 +234,19 @@ def _recurrent(cfg, p, x, kind: str, which: int, *args):
     return fns[which](cfg, p[key], apply_norm(cfg, x, p, "ln1"), *args)
 
 
-def _recurrent_rest(cfg, p, x, out, *, mode: str):
+def _recurrent_rest(cfg, p, x, out, *, mode: str, mesh=None,
+                    data_axes=("data",)):
     """The rest of a recurrent block after its core's ``out``: ``x +
     residual_scale * out``, then an 'rg' block's FFN (an 'ssm' block has
     none). Returns (x, None)."""
     x = x + cfg.residual_scale * out
     if "mlp" in p:
-        return _ffn(cfg, p, x, mode=mode)
+        return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)
     return x, None
 
 
 def block_forward(cfg, p, x, *, positions, mode: str = "reference",
+                  mesh=None, data_axes=("data",),
                   qkv_plan: str = "rope_fused", kind: str = "attn"):
     """One block of kind ``kind`` on the pre-norm residual stream ``x``:
     ln1 and ln2 ride into the attention and FFN layers as ``prenorm`` (an
@@ -246,11 +255,13 @@ def block_forward(cfg, p, x, *, positions, mode: str = "reference",
     None)."""
     if kind in RECURRENT:
         return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind,
-                                                     FORWARD), mode=mode)
+                                                     FORWARD), mode=mode,
+                               mesh=mesh, data_axes=data_axes)
     a = attention_layer(cfg, p["attn"], x, window=_block_window(cfg, kind),
                         positions=positions, mode=mode,
                         prenorm=norm_params(p, "ln1"), qkv_plan=qkv_plan)
-    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode)
+    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
+                mesh=mesh, data_axes=data_axes)
 
 
 def unstack_layers(blocks, n: int) -> list:
@@ -311,6 +322,7 @@ def _unstacked_layers(cfg, params) -> list:
 
 
 def lm_blocks(cfg, params, x, *, mode: str = "reference",
+              mesh=None, data_axes=("data",),
               remat: bool = False, qkv_plan: str = "rope_fused"):
     """Every block on the embedded stream ``x`` (B, S, d), at positions 0
     .. S - 1, causal; ``params`` cast to the compute type. Returns (the last
@@ -322,7 +334,9 @@ def lm_blocks(cfg, params, x, *, mode: str = "reference",
     for kind, p in _unstacked_layers(cfg, params):
         if kind not in blocks:
             block = functools.partial(block_forward, cfg, positions=positions,
-                                      mode=mode, qkv_plan=qkv_plan, kind=kind)
+                                      mode=mode, mesh=mesh,
+                                      data_axes=data_axes, qkv_plan=qkv_plan,
+                                      kind=kind)
             blocks[kind] = _remat(cfg, block) if remat else block
         x, a = blocks[kind](p, x)
         if a is not None:
@@ -331,21 +345,25 @@ def lm_blocks(cfg, params, x, *, mode: str = "reference",
 
 
 def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
+              mesh=None, data_axes=("data",),
               remat: bool = False, qkv_plan: str = "rope_fused"):
     """tokens: (B, S) -> (the last block's output (B, S, d), the params
     cast to the compute type, the layers' summed MoE auxiliary loss in fp32,
     0 for dense blocks), so the loss reuses the cast."""
     params = cast_params(params, dtype_of(cfg.compute_dtype))
     x, aux = lm_blocks(cfg, params, _embed(cfg, params, tokens), mode=mode,
+                       mesh=mesh, data_axes=data_axes,
                        remat=remat, qkv_plan=qkv_plan)
     return x, params, aux
 
 
 def lm_forward(cfg, params, tokens, *, mode: str = "reference",
+               mesh=None, data_axes=("data",),
                remat: bool = False, qkv_plan: str = "rope_fused"):
     """tokens: (B, S) -> logits (B, S, V) fp32. (The reference also returns
     the MoE auxiliary loss: :func:`lm_hidden` has it.)"""
-    x, cast, _ = lm_hidden(cfg, params, tokens, mode=mode, remat=remat,
+    x, cast, _ = lm_hidden(cfg, params, tokens, mode=mode,
+                           mesh=mesh, data_axes=data_axes, remat=remat,
                            qkv_plan=qkv_plan)
     return _logits(cfg, cast, x)
 
@@ -383,13 +401,15 @@ def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int):
     return nll / torch.clamp(msum, min=1.0)
 
 
-def lm_loss(cfg, params, batch, *, mode: str = "reference", remat: bool = True,
+def lm_loss(cfg, params, batch, *, mode: str = "reference",
+            mesh=None, data_axes=("data",), remat: bool = True,
             aux_weight: float = 0.01, qkv_plan: str = "rope_fused"):
     """(loss, {"ce", "aux"}): ``ce + aux_weight * aux``, the masked mean
     cross entropy of the batch {"inputs", "targets"[, "loss_mask"]} (over
     ``cfg.ce_chunk``-position chunks where that is set) and the layers'
     summed MoE load-balancing loss (0 for dense blocks)."""
     hidden, cast, aux = lm_hidden(cfg, params, batch["inputs"], mode=mode,
+                                  mesh=mesh, data_axes=data_axes,
                                   remat=remat, qkv_plan=qkv_plan)
     if cfg.ce_chunk:
         ce = _chunked_ce(cfg, cast, hidden, batch["targets"],
@@ -449,34 +469,40 @@ def _write_state(c, state, slot=None) -> None:
 
 
 def block_prefill(cfg, p, x, c, *, positions, mode: str = "reference",
+                  mesh=None, data_axes=("data",),
                   qkv_plan: str = "rope_fused", kind: str = "attn"):
     """Full-sequence block that also fills its layer's cache entry ``c``
     (in place)."""
     if kind in RECURRENT:
         o, state = _recurrent(cfg, p, x, kind, PREFILL)
         _write_state(c, state)
-        return _recurrent_rest(cfg, p, x, o, mode=mode)[0]
+        return _recurrent_rest(cfg, p, x, o, mode=mode,
+                               mesh=mesh, data_axes=data_axes)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
     o = attend(cfg, q, k, v, window=_block_window(cfg, kind), mode=mode)
     prefill_attn_cache(c["k"], c["v"], k, v)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
-    return _ffn(cfg, p, x, mode=mode)[0]
+    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)[0]
 
 
 def block_decode(cfg, p, x, c, pos, *, mode: str = "reference",
+                 mesh=None, data_axes=("data",),
                  kind: str = "attn"):
     if kind in RECURRENT:
         return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind, DECODE,
-                                                     c), mode=mode)[0]
+                                                     c), mode=mode,
+                               mesh=mesh, data_axes=data_axes)[0]
     h = apply_norm(cfg, x, p, "ln1")
     a = decode_attention_layer(cfg, p["attn"], h, c["k"], c["v"], pos,
                                window=_block_window(cfg, kind), mode=mode)
-    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode)[0]
+    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
+                mesh=mesh, data_axes=data_axes)[0]
 
 
 def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
+               mesh=None, data_axes=("data",),
                qkv_plan: str = "rope_fused"):
     """Fills ``cache`` in place. Returns (cache, last-position logits
     (B, V))."""
@@ -484,19 +510,22 @@ def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
     positions = torch.arange(tokens.shape[1], device=x.device)
     for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
         x = block_prefill(cfg, p, x, c, positions=positions, mode=mode,
+                          mesh=mesh, data_axes=data_axes,
                           qkv_plan=qkv_plan, kind=kind)
     return cache, _logits(cfg, params, x[:, -1:, :])[:, 0]
 
 
 def lm_decode_step(cfg, params, token, cache, pos, *,
-                   mode: str = "reference"):
+                   mode: str = "reference",
+                   mesh=None, data_axes=("data",)):
     """token: (B, 1); pos: the position being written, a Python int or a
     one-element int64 tensor on the cache's device (what a captured step
     reads; the same bits). Updates ``cache`` in place. Returns (cache,
     logits (B, V))."""
     x = _embed(cfg, params, token)
     for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
-        x = block_decode(cfg, p, x, c, pos, mode=mode, kind=kind)
+        x = block_decode(cfg, p, x, c, pos, mode=mode,
+                         mesh=mesh, data_axes=data_axes, kind=kind)
     return cache, _logits(cfg, params, x)[:, 0]
 
 
@@ -537,7 +566,8 @@ def _int32(x, device):
 
 
 def block_prefill_paged(cfg, p, x, c, *, page_rows, slot, positions,
-                        mode: str = "reference", qkv_plan: str = "rope_fused",
+                        mode: str = "reference", mesh=None,
+                        data_axes=("data",), qkv_plan: str = "rope_fused",
                         kind: str = "attn"):
     """Single-sequence (B = 1) prefill block: rotated k/v land in the
     sequence's pages, a recurrent block's state in batch slot ``slot`` (in
@@ -545,18 +575,20 @@ def block_prefill_paged(cfg, p, x, c, *, page_rows, slot, positions,
     if kind in RECURRENT:
         o, state = _recurrent(cfg, p, x, kind, PREFILL)
         _write_state(c, state, slot)
-        return _recurrent_rest(cfg, p, x, o, mode=mode)[0]
+        return _recurrent_rest(cfg, p, x, o, mode=mode,
+                               mesh=mesh, data_axes=data_axes)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
     o = attend(cfg, q, k, v, window=_block_window(cfg, kind), mode=mode)
     paged_prefill_attn_cache(cfg, c, k, v, page_rows)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
-    return _ffn(cfg, p, x, mode=mode)[0]
+    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)[0]
 
 
 def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
                      true_len: int, *, mode: str = "reference",
+                     mesh=None, data_axes=("data",),
                      qkv_plan: str = "rope_fused"):
     """Prefill ONE sequence into the shared paged cache (in place).
 
@@ -572,12 +604,14 @@ def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
     for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
         x = block_prefill_paged(cfg, p, x, c, page_rows=page_rows, slot=slot,
                                 positions=positions, mode=mode,
+                                    mesh=mesh, data_axes=data_axes,
                                 qkv_plan=qkv_plan, kind=kind)
     return cache, _logits(cfg, params, x[:, true_len - 1:true_len])[:, 0]
 
 
 def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
                               length, positions, mode: str = "reference",
+                              mesh=None, data_axes=("data",),
                               qkv_plan: str = "rope_fused",
                               kind: str = "attn"):
     """One layer of chunked prefill: the chunk's k/v land in the sequence's
@@ -596,11 +630,12 @@ def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
                                softcap=cfg.attn_logit_softcap, mode=mode)
     x = x + cfg.residual_scale * (_merge_heads(o.to(x.dtype))
                                   @ p["attn"]["wo"])
-    return _ffn(cfg, p, x, mode=mode)[0]
+    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)[0]
 
 
 def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
                            last_index: int, *, mode: str = "reference",
+                           mesh=None, data_axes=("data",),
                            qkv_plan: str = "rope_fused"):
     """Prefill ONE chunk of one sequence into the shared paged cache.
 
@@ -622,26 +657,31 @@ def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
     for (kind, p), lc in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
         x = block_prefill_paged_chunk(
             cfg, p, x, lc, page_rows=page_rows, table=table, start=start,
-            length=length, positions=positions, mode=mode, qkv_plan=qkv_plan,
+            length=length, positions=positions, mode=mode,
+                mesh=mesh, data_axes=data_axes, qkv_plan=qkv_plan,
             kind=kind)
     return cache, _logits(cfg, params,
                           x[:, last_index:last_index + 1])[:, 0]
 
 
 def block_decode_paged(cfg, p, x, c, page_table, lengths, *,
-                       mode: str = "reference", kind: str = "attn"):
+                       mode: str = "reference",
+                       mesh=None, data_axes=("data",), kind: str = "attn"):
     if kind in RECURRENT:
         return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind, DECODE,
-                                                     c), mode=mode)[0]
+                                                     c), mode=mode,
+                               mesh=mesh, data_axes=data_axes)[0]
     h = apply_norm(cfg, x, p, "ln1")
     a = paged_decode_attention_layer(cfg, p["attn"], h, c, page_table,
                                      lengths, window=_block_window(cfg, kind),
                                      mode=mode)
-    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode)[0]
+    return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
+                mesh=mesh, data_axes=data_axes)[0]
 
 
 def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
-                         mode: str = "reference"):
+                         mode: str = "reference",
+                         mesh=None, data_axes=("data",)):
     """One decode step for every batch slot over the paged cache (in place).
 
     token: (B, T). T == 1 is plain decode (each slot's token lands at
@@ -660,6 +700,7 @@ def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
     lengths = _int32(lengths, x.device)
     for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
         x = block_decode_paged(cfg, p, x, c, page_table, lengths, mode=mode,
+                               mesh=mesh, data_axes=data_axes,
                                kind=kind)
     logits = _logits(cfg, params, x)
     if token.shape[1] > 1:

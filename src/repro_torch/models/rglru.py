@@ -24,18 +24,28 @@ def rglru_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
     d, w = cfg.d_model, rg_width(cfg)
     kw = cfg.rglru.conv_width
     lead = (stack,) if stack else ()
+    lx = ("layers",) if stack else ()
+    vec = lx + (None,)
     dt = cfg.param_dtype
     return {
-        f"{prefix}/proj_x": ParamDef(lead + (d, w), dtype=dt),
-        f"{prefix}/proj_gate": ParamDef(lead + (d, w), dtype=dt),
-        f"{prefix}/conv_w": ParamDef(lead + (w, kw), dtype=dt),
-        f"{prefix}/conv_b": ParamDef(lead + (w,), init="zeros", dtype=dt),
-        f"{prefix}/w_a": ParamDef(lead + (w, w), dtype=dt),
-        f"{prefix}/b_a": ParamDef(lead + (w,), init="zeros", dtype=dt),
-        f"{prefix}/w_i": ParamDef(lead + (w, w), dtype=dt),
-        f"{prefix}/b_i": ParamDef(lead + (w,), init="zeros", dtype=dt),
-        f"{prefix}/lambda": ParamDef(lead + (w,), init="lru_a", dtype=dt),
-        f"{prefix}/proj_out": ParamDef(lead + (w, d), dtype=dt),
+        f"{prefix}/proj_x": ParamDef(lead + (d, w), lx + ("embed", "ffn"),
+                                     dtype=dt),
+        f"{prefix}/proj_gate": ParamDef(lead + (d, w), lx + ("embed", "ffn"),
+                                        dtype=dt),
+        f"{prefix}/conv_w": ParamDef(lead + (w, kw), lx + (None, None),
+                                     dtype=dt),
+        f"{prefix}/conv_b": ParamDef(lead + (w,), vec, init="zeros",
+                                     dtype=dt),
+        f"{prefix}/w_a": ParamDef(lead + (w, w), lx + ("ffn", None),
+                                  dtype=dt),
+        f"{prefix}/b_a": ParamDef(lead + (w,), vec, init="zeros", dtype=dt),
+        f"{prefix}/w_i": ParamDef(lead + (w, w), lx + ("ffn", None),
+                                  dtype=dt),
+        f"{prefix}/b_i": ParamDef(lead + (w,), vec, init="zeros", dtype=dt),
+        f"{prefix}/lambda": ParamDef(lead + (w,), vec, init="lru_a",
+                                     dtype=dt),
+        f"{prefix}/proj_out": ParamDef(lead + (w, d), lx + ("ffn", "embed"),
+                                       dtype=dt),
     }
 
 

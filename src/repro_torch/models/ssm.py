@@ -37,22 +37,26 @@ def ssm_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
     s = cfg.ssm
     d_inner, n_heads, conv_dim, d_in_proj = ssm_dims(cfg)
     lead = (stack,) if stack else ()
+    lx = ("layers",) if stack else ()
+    vec = lx + (None,)
     dt = cfg.param_dtype
     return {
         f"{prefix}/in_proj": ParamDef(lead + (cfg.d_model, d_in_proj),
-                                      dtype=dt),
-        f"{prefix}/conv_w": ParamDef(lead + (conv_dim, s.d_conv), scale=1.0,
+                                      lx + ("embed", "ffn"), dtype=dt),
+        f"{prefix}/conv_w": ParamDef(lead + (conv_dim, s.d_conv),
+                                     lx + (None, None), scale=1.0, dtype=dt),
+        f"{prefix}/conv_b": ParamDef(lead + (conv_dim,), vec, init="zeros",
                                      dtype=dt),
-        f"{prefix}/conv_b": ParamDef(lead + (conv_dim,), init="zeros",
+        f"{prefix}/a_log": ParamDef(lead + (n_heads,), vec, init="ones",
+                                    dtype=dt),
+        f"{prefix}/d_skip": ParamDef(lead + (n_heads,), vec, init="ones",
                                      dtype=dt),
-        f"{prefix}/a_log": ParamDef(lead + (n_heads,), init="ones", dtype=dt),
-        f"{prefix}/d_skip": ParamDef(lead + (n_heads,), init="ones", dtype=dt),
-        f"{prefix}/dt_bias": ParamDef(lead + (n_heads,), init="zeros",
+        f"{prefix}/dt_bias": ParamDef(lead + (n_heads,), vec, init="zeros",
                                       dtype=dt),
-        f"{prefix}/norm_scale": ParamDef(lead + (d_inner,), init="ones",
+        f"{prefix}/norm_scale": ParamDef(lead + (d_inner,), vec, init="ones",
                                          dtype=dt),
         f"{prefix}/out_proj": ParamDef(lead + (d_inner, cfg.d_model),
-                                       dtype=dt),
+                                       lx + ("ffn", "embed"), dtype=dt),
     }
 
 

@@ -99,10 +99,14 @@ def global_norm(tree):
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def _clip_(grads: list, max_norm: float):
+def _clip_(grads: list, max_norm: float, norm=None):
     """Scale the fp32 ``grads`` in place to a global norm of at most
-    ``max_norm``; returns the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    ``max_norm`` (``norm``: the global norm where the caller computed it,
+    e.g. over the slices every rank holds); returns the norm before
+    clipping."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -114,14 +118,16 @@ def clip_by_global_norm(tree, max_norm: float):
     return out, _clip_(leaves(out), max_norm)
 
 
-def adamw_update(cfg: AdamWConfig, grads, state, params):
+def adamw_update(cfg: AdamWConfig, grads, state, params, *, norm=None):
     """Returns (params, state, metrics), updated in place: clip the grads
     by their global norm in fp32 (fp32 grads are scaled in place), then
     AdamW with bias correction and decoupled weight decay, as the reference
-    computes it."""
+    computes it. Elementwise but for the norm: ``params``, the moments and
+    ``grads`` may be matching slices of the leaves (ZeRO-1), with ``norm``
+    the whole leaves' global norm."""
     with torch.no_grad():
         g = [x.float() for x in leaves(grads)]
-        gnorm = _clip_(g, cfg.clip_norm)
+        gnorm = _clip_(g, cfg.clip_norm, norm)
         count = state["count"] + 1
         lr = cfg.schedule(count)
         m, v = leaves(state["m"]), leaves(state["v"])

@@ -66,6 +66,12 @@ def _lru_get(lru: collections.OrderedDict, key, build, cap: int,
     return entry
 
 
+def _over_mesh(model) -> bool:
+    """Whether the model was built over a mesh (its MoE blocks run
+    collectives, so its decode steps run eagerly)."""
+    return getattr(model, "mesh", None) is not None
+
+
 class DecodeGraph:
     """One decode bucket: ``step(**buffers) -> logits`` over static input
     buffers that the bucket owns (and the cache or pools the step updates
@@ -79,15 +85,21 @@ class DecodeGraph:
     reads before the next call. A capture that fails raises: there is no
     eager fallback on the card. The kernels count their launches on the
     host, so the capture's counts are taken back and every replay adds
-    them. On the CPU every call runs the step eagerly. The engines make
-    and call their buckets in inference mode, so the buffers are inference
-    tensors: call a bucket in that mode.
+    them. On the CPU every call runs the step eagerly. With ``eager`` (a
+    model built over a mesh, whose MoE blocks run collectives) every call
+    runs the step eagerly on the card too, counted in ``eager_steps`` and
+    the ``obs`` counter "engine.decode_eager". The engines make and call
+    their buckets in inference mode, so the buffers are inference tensors:
+    call a bucket in that mode.
     """
 
-    def __init__(self, step: Callable, buffers: dict, cache=None):
+    def __init__(self, step: Callable, buffers: dict, cache=None, *,
+                 eager: bool = False):
         self.step = step
         self.buffers = buffers
         self.cache = cache
+        self.eager = eager
+        self.eager_steps = 0
         self.graph = None
         self.logits = None
         self.launches: dict = {}
@@ -106,6 +118,10 @@ class DecodeGraph:
     def __call__(self, **inputs):
         self._load(inputs)
         if self.device.type != "cuda":
+            return self.step(**self.buffers)
+        if self.eager:
+            self.eager_steps += 1
+            obs.incr("engine.decode_eager")
             return self.step(**self.buffers)
         if self.graph is not None:
             self.graph.replay()
@@ -191,7 +207,8 @@ class Engine:
 
             def step(token, pos):
                 return model.decode_step(params, token, cache, pos)[1]
-            return DecodeGraph(step, buffers, cache)
+            return DecodeGraph(step, buffers, cache,
+                               eager=_over_mesh(model))
         return _lru_get(self._buckets, ("decode", batch), build,
                         self.max_cached_buckets, self.lru_stats)
 
@@ -560,7 +577,7 @@ class PagedEngine:
             def step(token, page_table, lengths):
                 return model.decode_step_paged(params, token, pools,
                                                page_table, lengths)[1]
-            return DecodeGraph(step, buffers)
+            return DecodeGraph(step, buffers, eager=_over_mesh(model))
         return self._touch(key, build)
 
     def _decode_bucket(self, mp_bucket: int, *, draft: bool = False

@@ -15,8 +15,14 @@ and writes it in a background thread. The snapshot is a copy: AdamW updates
 the parameters and moments in place, so a write that read the live tensors
 would save whatever the next steps made of them. The state is fp32 and int
 only; numpy has no bfloat16 (the port does not use ``ml_dtypes``), so a
-bfloat16 leaf is refused on save and on restore. One process and one
-device: no shardings (an elastic restore goes with the distributed slice).
+bfloat16 leaf is refused on save and on restore.
+
+Over a mesh (``mesh=`` and the state's ``specs``, ``state.state_shardings``)
+a save first all-gathers every leaf to its global value on every rank and
+the mesh's first rank writes it, in the same format: either package
+restores the other's. ``restore(..., mesh=, specs=)`` gives each rank its
+block of every global leaf under those specs, which may be another mesh's
+than the one that saved (an elastic restore).
 """
 from __future__ import annotations
 
@@ -93,9 +99,42 @@ def _write(flat: dict, directory: str, step: int, keep: int) -> str:
     return final
 
 
-def save(state, directory: str, step: int, *, keep: int = 3) -> str:
-    """Write ``state`` as ``step`` synchronously; returns its directory."""
-    return _write(_snapshot(state), directory, step, keep)
+def _global(state, mesh, specs):
+    """The state with every leaf all-gathered to its global value (every
+    rank of the mesh calls it); ``state`` itself without a mesh."""
+    if mesh is None:
+        return state
+    from repro_torch.distributed.sharding import gather_tree
+
+    return gather_tree(state, specs, mesh)
+
+
+def _writer(mesh) -> bool:
+    """Whether this rank writes: the first of the mesh's world, or any
+    rank without a mesh."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def save(state, directory: str, step: int, *, keep: int = 3, mesh=None,
+         specs=None) -> str:
+    """Write ``state`` as ``step`` synchronously; returns its directory.
+    Over a mesh every rank calls it; the global leaves are written once."""
+    flat = _snapshot(_global(state, mesh, specs))
+    final = (_write(flat, directory, step, keep) if _writer(mesh)
+             else os.path.join(directory, f"step_{int(step):08d}"))
+    _barrier(mesh)
+    return final
 
 
 class AsyncCheckpointer:
@@ -107,17 +146,24 @@ class AsyncCheckpointer:
     the host), ``write_s`` and the write's ``write_start``/``write_end`` on
     ``time.perf_counter``'s clock."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, mesh=None,
+                 specs=None):
         self.directory = directory
         self.keep = keep
+        self.mesh, self.specs = mesh, specs
         self._thread: threading.Thread | None = None
         self._pinned: dict = {}
         self.last_error: BaseException | None = None
         self.records: list = []
 
     def save(self, state, step: int) -> None:
+        """Over a mesh every rank calls it (the gather is a collective);
+        the first rank snapshots and writes."""
         self.wait()                        # the buffers are free again
         t0 = time.perf_counter()
+        state = _global(state, self.mesh, self.specs)
+        if not _writer(self.mesh):
+            return
         flat = _snapshot(state, self._pinned)
         rec = {"step": int(step), "snapshot_s": time.perf_counter() - t0}
         self.records.append(rec)
@@ -138,10 +184,12 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
-        """Join the write in flight; raise its error, if it had one."""
+        """Join the write in flight; raise its error, if it had one. Over
+        a mesh every rank calls it: the others wait for the write."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self.mesh)
         if self.last_error is not None:
             err, self.last_error = self.last_error, None
             raise err
@@ -173,11 +221,18 @@ def available_steps(directory: str) -> list:
 
 
 def restore(directory: str, template, *, step: int | None = None,
-            device=None):
+            device=None, mesh=None, specs=None, coords: dict | None = None):
     """(state, step): the newest valid checkpoint (or ``step``) in
     ``template``'s structure. Each tensor leaf comes back in its template's
     type, on ``device`` or the template's, requiring grad where the
-    template does; each int leaf as an int."""
+    template does; each int leaf as an int. With ``mesh`` and ``specs``
+    (the state's, ``state.state_shardings``) each tensor leaf is the
+    block of the global leaf that the rank at ``coords`` (default: this
+    rank) holds, and ``template`` holds the blocks' shapes."""
+    from repro_torch.distributed.sharding import local_slice
+
+    spec_of = dict(named_leaves(specs)) if mesh is not None \
+        else {}
     steps = available_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no valid checkpoints under {directory}")
@@ -187,6 +242,8 @@ def restore(directory: str, template, *, step: int | None = None,
     with np.load(payload) as arrays:
         for key, tpl in named_leaves(template):
             arr = arrays[key]
+            if key in spec_of and arr.ndim:
+                arr = local_slice(arr, spec_of[key], mesh, coords)
             shape = tuple(tpl.shape) if torch.is_tensor(tpl) else ()
             if tuple(arr.shape) != shape:
                 raise ValueError(f"shape mismatch for {key}: "
@@ -199,7 +256,7 @@ def restore(directory: str, template, *, step: int | None = None,
             if not torch.is_tensor(tpl):
                 flat[key] = int(arr)
                 continue
-            t = torch.from_numpy(arr).to(device=device or tpl.device,
-                                         dtype=tpl.dtype)
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=device or tpl.device, dtype=tpl.dtype)
             flat[key] = t.requires_grad_(tpl.requires_grad)
     return nest(flat), step

@@ -13,6 +13,28 @@ ends the run. The straggler watchdog observes every step. Each step is an
 ``obs`` span "trainer.step" and adds one to the counter "trainer.steps",
 as in the reference (its "trainer.bucket_pins" belongs to the kernel-policy
 pinning, which the port does not have yet).
+
+With a ``mesh`` the step is data parallel over its 'data' axis, each rank
+on its own rows of the batch (``DataIterator(mesh=)``):
+
+* the objective is the *global* masked mean: each rank's cross entropy is
+  weighted by its share of the batch's loss tokens (the token counts
+  summed over 'data'), the MoE auxiliary term averaged over the ranks;
+* the grads are summed over 'data' in rank order, each leaf into the
+  ZeRO-1 slice its moments hold (:func:`state.state_shardings`: the
+  leaf's largest dim 'data' divides), a leaf with no such dim whole;
+* ``grad_compress``'s error feedback runs after that exact reduce, as in
+  the reference, each leaf at its whole leaf's scale;
+* the global grad norm is taken over the slices, and AdamW updates each
+  rank's slice (``zero1``: the moments are slices; the updated params are
+  all-gathered) or, without ``zero1``, the whole leaves from the
+  all-gathered grads. Both give the same bits: the grads are the same sums
+  and AdamW is elementwise.
+
+At one rank every collective is an identity and the step is the
+single-device step bit for bit. A 'model' extent over 1, a 'pod' axis,
+microbatches and an MoE forced onto its expert- or tensor-parallel path
+raise: they are the next slice of the distributed layer.
 """
 from __future__ import annotations
 
@@ -23,10 +45,12 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.optim import AdamWConfig, adamw_update, ef_compress
 from repro_torch.optim.optimizer import leaves
 from . import checkpoint as ckpt_lib
-from .state import init_state
+from .state import init_state, sharded_init, state_shardings
 
 
 class SimulatedFailure(RuntimeError):
@@ -110,11 +134,121 @@ def loss_and_grads(model, params, batch, *, microbatches: int = 1) -> tuple:
             torch._foreach_div(gsum, float(microbatches)))
 
 
+def _check_mesh(model, mesh, microbatches: int) -> None:
+    from repro_torch.models.moe import resolve_impl
+
+    sizes = mesh_shape(mesh)
+    nxt = ("the next slice of the distributed layer (ROADMAP Queue A: "
+           "training with a 'model' extent over 1)")
+    if "data" not in sizes:
+        raise ValueError("make_train_step: the mesh has no 'data' axis")
+    if sizes.get("model", 1) > 1 or sizes.get("pod", 1) > 1:
+        raise NotImplementedError(
+            f"make_train_step: mesh {sizes}: only data parallelism over "
+            f"'data' is ported; a 'model' or 'pod' extent over 1 is {nxt}")
+    if getattr(model.cfg, "moe", None) is not None and resolve_impl(
+            model.cfg, getattr(model, "mesh", None)) in ("ep", "tp"):
+        raise NotImplementedError(
+            f"make_train_step: grads through moe impl {model.cfg.moe.impl!r}"
+            f" are {nxt}")
+    if microbatches != 1:
+        raise NotImplementedError("make_train_step: microbatches under a "
+                                  "mesh are not ported")
+
+
+def zero1_dims(model, mesh) -> list:
+    """Per leaf (``leaves`` order) the dim of its ZeRO-1 slice over 'data'
+    (the moments' spec), or None where the leaf stays whole."""
+    sh = state_shardings(model, mesh, zero1=True)["opt"]["m"]
+    return [spec.index("data") if "data" in spec else None
+            for spec in leaves(sh)]
+
+
+def _global_norm(local: list, dims: list, group):
+    """The grads' global norm from every rank's slices: each sliced leaf's
+    norm is the root of its slices' squared norms summed in rank order in
+    fp64 (at one rank, the slice's norm exactly), a whole leaf's its own;
+    then the norm of the leaves' norms, as ``optimizer._clip_`` takes it."""
+    norms = torch.stack(torch._foreach_norm(local))
+    sq = col.all_gather_cat(norms[None], 0, group).double() ** 2
+    acc = sq[0]
+    for row in sq[1:]:
+        acc = acc + row
+    sliced = torch.tensor([d is not None for d in dims], device=norms.device)
+    leaf = torch.where(sliced, acc.sqrt().float(), norms)
+    return torch.linalg.vector_norm(leaf)
+
+
+def _data_parallel_step(model, opt_cfg, mesh, *, zero1: bool,
+                        grad_compress: bool):
+    group = mesh.get_group("data")
+    ws = col.axis_size(mesh, "data")
+    rank = mesh.get_local_rank("data")
+    dims = zero1_dims(model, mesh)
+
+    def amax(i, m):
+        return col.max_over(m, group) if dims[i] is not None else m
+
+    def step_fn(state, batch):
+        wrt = leaves(state["params"])
+        mask = batch.get("loss_mask")
+        count = (mask.float().sum() if mask is not None else torch.tensor(
+            float(batch["targets"].numel()), device=batch["targets"].device))
+        total = col.ordered_sum(count, group)
+        loss, metrics = model.loss(state["params"], batch)
+        ce = metrics["ce"]
+        share = count / torch.clamp(total, min=1.0)
+        # sum over ranks: sum_r ce_r * share_r + (loss_r - ce_r) / ws; at
+        # one rank both corrections are exact zeros
+        obj = loss + ce * (share - 1.0) + (loss - ce) * (1.0 / ws - 1.0)
+        grads = _grad(obj, wrt)
+        red = [col.sum_scatter(g, d, group) if d is not None
+               else col.ordered_sum(g, group) for g, d in zip(grads, dims)]
+        del grads
+        if grad_compress:
+            red, state["ef"] = ef_compress(red, state["ef"], amax=amax)
+        norm = _global_norm(red, dims, group)
+        if zero1:
+            local = [p.detach().narrow(d, rank * (p.shape[d] // ws),
+                                       p.shape[d] // ws)
+                     if d is not None else p.detach()
+                     for p, d in zip(wrt, dims)]
+            opt = {"m": leaves(state["opt"]["m"]),
+                   "v": leaves(state["opt"]["v"]),
+                   "count": state["opt"]["count"]}
+            _, opt, om = adamw_update(opt_cfg, red, opt, local, norm=norm)
+            state["opt"]["count"] = opt["count"]
+            with torch.no_grad():
+                for p, part, d in zip(wrt, local, dims):
+                    if d is not None:
+                        p.copy_(col.all_gather_cat(part, d, group))
+        else:
+            whole = [col.all_gather_cat(g, d, group) if d is not None else g
+                     for g, d in zip(red, dims)]
+            del red
+            _, _, om = adamw_update(opt_cfg, whole, state["opt"],
+                                    state["params"], norm=norm)
+        state["step"] += 1
+        out = {"loss": col.ordered_sum(obj.detach(), group),
+               "ce": col.ordered_sum((ce * share).detach(), group),
+               "aux": col.ordered_sum(metrics["aux"].detach(), group) / ws}
+        return state, {**out, **om}
+
+    return step_fn
+
+
 def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
-                    grad_compress: bool = False):
+                    grad_compress: bool = False, mesh=None,
+                    zero1: bool = True):
     """Returns step(state, batch) -> (state, metrics); the state is updated
     in place. With ``grad_compress`` the state holds ``"ef"``
-    (``init_state(..., grad_compress=True)``)."""
+    (``init_state(..., grad_compress=True)``). With ``mesh`` the step is
+    data parallel over its 'data' axis (the module's docstring) on a state
+    from ``sharded_init(model, seed, mesh, zero1=zero1, ...)``."""
+    if mesh is not None:
+        _check_mesh(model, mesh, microbatches)
+        return _data_parallel_step(model, opt_cfg, mesh, zero1=zero1,
+                                   grad_compress=grad_compress)
 
     def step_fn(state, batch):
         loss, metrics, grads = loss_and_grads(model, state["params"], batch,
@@ -138,7 +272,8 @@ class TrainLoopResult:
 
 
 def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
-               seed: int = 0, params=None, grad_compress: bool = False,
+               seed: int = 0, params=None, mesh=None, zero1: bool = False,
+               grad_compress: bool = False,
                microbatches: int = 1, ckpt_dir: Optional[str] = None,
                ckpt_every: int = 50,
                checkpointer: Optional[ckpt_lib.AsyncCheckpointer] = None,
@@ -151,14 +286,26 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
     ``ckpt_dir``. ``checkpointer``: the ``AsyncCheckpointer`` to save
     through (its directory is the checkpoint directory); by default one
     over ``ckpt_dir`` keeping 3. Each step's host time ends when its loss
-    reaches the host (a device synchronise); ``step_seconds`` keeps them."""
+    reaches the host (a device synchronise); ``step_seconds`` keeps them.
+    With ``mesh`` (and ``zero1``) the step is data parallel
+    (:func:`make_train_step`), the state each rank's blocks
+    (``sharded_init``), and checkpoints hold the global leaves, written by
+    the mesh's first rank and restored into each rank's blocks."""
     step_fn = make_train_step(model, opt_cfg, microbatches=microbatches,
-                              grad_compress=grad_compress)
+                              grad_compress=grad_compress, mesh=mesh,
+                              zero1=zero1)
+    specs = (state_shardings(model, mesh, zero1=zero1,
+                             grad_compress=grad_compress)
+             if mesh is not None else None)
     if checkpointer is None and ckpt_dir is not None:
-        checkpointer = ckpt_lib.AsyncCheckpointer(ckpt_dir)
+        checkpointer = ckpt_lib.AsyncCheckpointer(ckpt_dir, mesh=mesh,
+                                                  specs=specs)
     ckpt_dir = checkpointer.directory if checkpointer is not None else None
 
     def fresh_state():
+        if mesh is not None:
+            return sharded_init(model, seed, mesh, zero1=zero1,
+                                grad_compress=grad_compress, params=params)
         return init_state(model, seed, params, grad_compress=grad_compress)
 
     def restored_state():
@@ -166,7 +313,8 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
         layout, or None; the data iterator moved to its step."""
         if ckpt_dir is None or not ckpt_lib.available_steps(ckpt_dir):
             return None
-        state, step0 = ckpt_lib.restore(ckpt_dir, fresh_state())
+        state, step0 = ckpt_lib.restore(ckpt_dir, fresh_state(), mesh=mesh,
+                                        specs=specs)
         data_iter.load_state_dict({"step": step0})
         return state
 

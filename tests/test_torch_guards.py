@@ -153,6 +153,7 @@ def test_param_defs_match_reference(arch, overrides):
     for key, d in jdefs.items():
         assert tuple(tdefs[key].shape) == tuple(d.shape), key
         assert tdefs[key].init == d.init, key
+        assert tuple(tdefs[key].axes) == tuple(d.axes), key
 
 
 def test_init_params_keys_and_shapes_match_reference():

@@ -222,11 +222,13 @@ def test_moe_forward_prenorm_is_the_norm_then_dense(mode):
 
 @pytest.mark.parametrize("impl", ["ep", "tp"])
 def test_distributed_impls_raise(impl):
+    """ep and tp without a mesh: refused, naming the mesh they need (with
+    one they run, tests/test_torch_distributed.py)."""
     _, cfg = _cfgs()
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                            impl=impl))
     p = _torch(_layer(cfg.d_model, cfg.d_ff, cfg.moe.num_experts, 0.2, 6))
-    with pytest.raises(NotImplementedError, match="distributed item"):
+    with pytest.raises(NotImplementedError, match="needs a device mesh"):
         moe.moe_forward(cfg, p, torch.zeros((1, 2, cfg.d_model)))
 
 
