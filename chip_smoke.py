@@ -442,6 +442,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import kernels, obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, DataIterator  # noqa: E402
+from repro_torch.distributed.tensor_parallel import (  # noqa: E402
+    TensorParallel)
 from repro_torch.kernels.attention import (  # noqa: E402
     BLOCK_KV, combine_splits, decode_partials_paged_ref, decode_partials_ref,
     flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref,
@@ -605,6 +607,14 @@ DIST_PHASES = ("21a", "21b", "21c", "21d")
 TP_ARCH, TP_LAYERS, TP_DECODE = "mixtral-8x7b", 1, 8
 COLL_SHAPE = (BATCH * PROMPT, 8192, 2048)
 DIST_STEPS = 4
+# phase 22: tensor-parallel training over one NCCL rank. 22a trains
+# mixtral-8x7b at MOE_TRAIN_LAYERS layer(s) of published width through
+# moe_ep and moe_tp, TP_TRAIN_STEPS steps each; 22b times phase 3's
+# training GEMMs and flash kernels of llama-1b and mixtral at a rank's
+# shapes over 'model' extents TP_EXTENTS
+TP_TRAIN_PHASES = ("22a ep", "22a tp")
+TP_TRAIN_STEPS = 3
+TP_EXTENTS = (2, 4)
 # the memory-bound bench's fused-norm cells (benchmarks/bench_memory_bound.py)
 NORM_ROWS, NORM_D, NORM_P, NORM_SEED = (2048, 4096, 8192), 2048, 0.1, 7
 
@@ -1192,7 +1202,8 @@ def baseline_fwd_sm90(kern, a, b, kw, save):
     return launch
 
 
-def measure_gemm(cfg, dev, gen, timer, old=None):
+def measure_gemm(cfg, dev, gen, timer, old=None, cases=None,
+                 sweep_plans: bool = True):
     """Each gemm_fused launch of the main paths (llama-1b's, then
     whisper-base's and bert-110m's, ENCODER_GEMMS, then mixtral-8x7b's,
     ``moe_gemm_cases``, then recurrentgemma-2b's, ``rg_gemm_cases``, then
@@ -1210,17 +1221,23 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
     Bound: the operands read and the outputs (with the row statistics and
     the preacts) written once, or 2 M N K operations per product at the
     bf16 peak. With ``old`` (baseline_kernels), the earlier forward in
-    turns, on the chains it takes."""
+    turns, on the chains it takes. ``cases``: others than these (phase
+    22b's), a case whose kwargs hold ``f32_product`` the chainless
+    product's fp32 accumulators at one split (the staged route also
+    writes its bf16 store: in the bound); ``sweep_plans`` False times the
+    planned launch only."""
     rows = []
     sms = gemm_ops.sm_count(dev)
-    for name, a, b, kw, save in (gemm_cases(cfg, dev, gen)
-                                 + encoder_gemm_cases(dev, gen)
-                                 + moe_gemm_cases(dev, gen)
-                                 + rg_gemm_cases(dev, gen)
-                                 + ivl_gemm_cases(dev, gen)
-                                 + mav_gemm_cases(dev, gen)
-                                 + dist_gemm_cases(dev, gen)):
+    if cases is None:
+        cases = (gemm_cases(cfg, dev, gen) + encoder_gemm_cases(dev, gen)
+                 + moe_gemm_cases(dev, gen) + rg_gemm_cases(dev, gen)
+                 + ivl_gemm_cases(dev, gen) + mav_gemm_cases(dev, gen)
+                 + dist_gemm_cases(dev, gen))
+    for name, a, b, kw, save in cases:
         ep, pro, extra = fwd_args(kw)
+        f32 = kw.get("f32_product", False)
+        if f32:
+            extra["out_dtype"] = torch.float32
         m, k = a.shape
         n = b.shape[1]
         gated = ep.gate
@@ -1228,6 +1245,12 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
         ln = pro.norm == "layernorm"
 
         def kernel(plan=None):
+            if f32:
+                plan = plan or (gemm_ops.plan_gemm(m, n, k, sms)[0], 1)
+                return gemm_ops._launch(a, b, ep, eps=None, plan=plan,
+                                        f32_product=True,
+                                        **dict(extra,
+                                               out_dtype=torch.bfloat16))
             return gemm_ops._launch(a, b, ep, eps=pro.eps, layernorm=ln,
                                     save_preact=save, plan=plan, **extra)
 
@@ -1258,15 +1281,17 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
         flops = 2 * m * n * k * (2 if gated else 1)
         traffic = nbytes(a, b, kw.get("b2"), kw.get("gamma"), kw.get("beta"),
                          kw.get("residual"), kw.get("sin"), kw.get("cos"),
-                         got, rstd, *preacts)
+                         got, rstd, *preacts) + (2 * m * n if f32 else 0)
         b_ms, b_by = bound(traffic, (flops, PEAK_BF16))
         plan = gemm_ops.plan_gemm(m, n, k, sms, gate=gated, head_dim=hd,
                                   act=ep.activation != "none")
+        if f32:
+            plan = (plan[0], 1)
         sweep = {}
-        for w in gemm_ops.tile_widths(gated, hd):
+        for w in (gemm_ops.tile_widths(gated, hd) if sweep_plans else ()):
             split = gemm_ops.split_count(
                 gemm_ops.tile_count(m, n, w, gated), k, sms)
-            for sp in sorted({1, split}):
+            for sp in sorted({1, 1 if f32 else split}):
                 sweep[f"{w}x{sp}"] = timer.ms(lambda: kernel((w, sp)))
         row = dict(
             case=name, shape=[m, k, n], max_abs_err=err, tolerance=tol,
@@ -1286,7 +1311,8 @@ def measure_gemm(cfg, dev, gen, timer, old=None):
                 a, b, ep, eps=1e-6, save_preact=save, **rms))
         us = {p_: round(t * 1e3, 1) for p_, t in sweep.items()}
         log(f"[kernel] gemm_fused[{name}] by tile width x splits, us: {us}; "
-            f"picked {row['plan']}, fastest {min(sweep, key=sweep.get)}"
+            f"picked {row['plan']}, fastest "
+            f"{min(sweep, key=sweep.get) if sweep else 'not swept'}"
             + (f"; without the prologue {row['no_prologue_ms'] * 1e3:.1f} "
                f"us against {row['ms'] * 1e3:.1f}"
                if "no_prologue_ms" in row else "")
@@ -2310,7 +2336,8 @@ def baseline_da(kern, run):
     return launch
 
 
-def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
+def measure_gemm_bwd(cfg, dev, gen, timer, old=None, cases=None,
+                     sweep_widths: bool = True):
     """The GEMM backward of each training GEMM, from the forward's saved
     statistics and preacts and a random cotangent, as its three launches:
     the operand pass (``gemm_bwd_g``), dA (the GEMM, and the norm row pass
@@ -2331,14 +2358,17 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
     products. With ``old`` (baseline_kernels), the earlier tree's dA + dB
     on the same operand-pass buffers, which must give this tree's bits, in
     turns with this tree's dA + dB (baseline, new, new, baseline), on the
-    chains the baseline takes."""
+    chains the baseline takes. ``cases``: others than these (phase 22b's);
+    ``sweep_widths`` False times the picked tile widths only."""
     rows = {"gemm_bwd_g": [], "gemm_bwd_da": [], "gemm_bwd_db": []}
     whole = []
-    for name, a, b, kw in (train_gemm_cases(cfg, dev, gen)
-                           + encoder_train_gemm_cases(dev, gen)
-                           + moe_train_gemm_cases(dev, gen)
-                           + rg_train_gemm_cases(dev, gen)
-                           + ivl_train_gemm_cases(dev, gen)):
+    if cases is None:
+        cases = (train_gemm_cases(cfg, dev, gen)
+                 + encoder_train_gemm_cases(dev, gen)
+                 + moe_train_gemm_cases(dev, gen)
+                 + rg_train_gemm_cases(dev, gen)
+                 + ivl_train_gemm_cases(dev, gen))
+    for name, a, b, kw in cases:
         ep = kw.get("epilogue", EPILOGUE_NONE)
         pro = kw.get("prologue", PROLOGUE_NONE)
         _, rstd, preacts = gemm_forward(
@@ -2452,7 +2482,7 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None):
             library_ms=timer.ms(lib_db), bound_ms=b_ms, bound_by=b_by))
         # each tile width of the mainloop, against the one picked
         by_width = {}
-        for width in gemm_bwd.TILE_WIDTHS:
+        for width in gemm_bwd.TILE_WIDTHS if sweep_widths else ():
             sweep = gemm_bwd.BwdLaunch(a, b, g, tile_n=width, **ops)
             sweep.operand_pass()
             by_width[width] = (timer.ms(lambda: sweep.da(passes=1)),
@@ -6595,15 +6625,26 @@ def dp_run(dev, mode: str, mesh=None) -> dict:
     losses, secs = [], []
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    for _ in range(DIST_STEPS):
+    rec = None
+    for i in range(DIST_STEPS):
         batch = next(data)
         t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
+        # the first mesh step counts its 'model' collectives (f, g and the
+        # gathers: the obs counters "tp.*"); the step times after it are
+        # the ones kept
+        with (obs.capture() if i == 0 and mesh is not None
+              else contextlib.nullcontext()) as cap:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        rec = cap if cap is not None else rec
         secs.append(time.perf_counter() - t0)
-    return {"losses": losses, "step_seconds": secs,
-            "launches": kernels.launch_counts(), "state": state,
-            "model": model}
+    counts = kernels.launch_counts()
+    per_step = None if rec is None else {
+        "tp.collectives": rec.counters.get("tp.collectives", 0),
+        "tp.gathered_leaves": rec.counters.get("tp.gathered_leaves", 0),
+        "gemm_fused": counts["gemm_fused"] // DIST_STEPS}
+    return {"losses": losses, "step_seconds": secs, "launches": counts,
+            "per_step": per_step, "state": state, "model": model}
 
 
 def same_state(a, b) -> list:
@@ -6615,17 +6656,24 @@ def same_state(a, b) -> list:
 def run_dp_training(dev, mesh, base_step_s: float) -> dict:
     """21d: llama-1b at phase 6b's shape, DIST_STEPS steps with the mesh,
     ZeRO-1 and grad_compress, and the single-device trainer at the same
-    seed, data and levers (every collective is an identity on one rank
-    and AdamW on slices is elementwise): on the plain bf16 path the two
-    runs' losses and final states (params, moments, residuals) bit for
-    bit; in kernel mode the two runs' curves are compared against the
-    spread of two single-device runs, 2 x spread + 0.01 (the flash
-    backward adds dq's
-    partial sums with atomics in an order that changes from run to run,
-    so two kernel-mode runs of one trainer are not bit for bit), launches
-    exact. Step times beside 6b's. Then the mesh run's step-DIST_STEPS
-    state is saved (global leaves) and restored through
-    ``restore(mesh=, specs=)`` bit for bit."""
+    seed, data and levers. The mesh run is the tensor-parallel step at a
+    'model' extent of 1 (``distributed.tensor_parallel``: f, g and the
+    gathers return their input at one rank, the vocab-parallel cross
+    entropy's log-sum-exp over one rank the local one bit for bit, AdamW
+    on slices elementwise):
+    on the plain bf16 path the two runs' losses and final states (params,
+    moments, residuals) bit for bit; in kernel mode the two runs' curves
+    are compared against the spread of two single-device runs, 2 x spread
+    + 0.01 (the flash backward adds dq's partial sums with atomics in an
+    order that changes from run to run, so two kernel-mode runs of one
+    trainer are not bit for bit), the first step's loss equal (before any
+    update the forward is deterministic; the split MLP's down GEMM hands
+    its fp32 accumulators to the sum over 'model' and adds the residual
+    after it in fp32, the fused store's sum with its one rounding),
+    launches exact. A further mesh step, counted, gives the 'model' collectives
+    and the gemm_fused launches a step. Step times beside 6b's. Then the
+    mesh run's step-DIST_STEPS state is saved (global leaves) and
+    restored through ``restore(mesh=, specs=)`` bit for bit."""
     t0 = time.perf_counter()
     out = {}
     runs = {}
@@ -6648,6 +6696,12 @@ def run_dp_training(dev, mesh, base_step_s: float) -> dict:
         meshed = dp_run(dev, mode, mesh)
         runs[mode, "mesh"] = {k: v for k, v in meshed.items()
                               if k not in ("state", "model")}
+        log(f"[21d] {mode}: one split step over (1, 1) makes "
+            f"{meshed['per_step']['tp.collectives']} 'model' collectives "
+            f"(f, g and gathers, none over one rank; "
+            f"{meshed['per_step']['tp.gathered_leaves']}"
+            f" leaves gathered) and {meshed['per_step']['gemm_fused']} "
+            f"gemm_fused launches")
         diff = [k for k, v in named_leaves(meshed["state"])
                 if keep is not None and not (
                     torch.equal(v, keep[k]) if torch.is_tensor(v)
@@ -6723,10 +6777,248 @@ def run_dp_training(dev, mesh, base_step_s: float) -> dict:
     return out
 
 
-def run_distributed(dev, m: Models, base_step_s: float, gen) -> tuple:
-    """Phase 21 (21a-21d) inside one NCCL process group of world size 1;
-    ``m``: phase 20's models, freed after 21a. Returns (the phases, the
-    ring panels' rows for phase 3's gemm_fused)."""
+# ---------------------------------------------------------------------------
+# Phase 22: tensor-parallel training over one NCCL rank
+# ---------------------------------------------------------------------------
+
+def tp_gemm_cases(dev, gen, extent: int):
+    """Phase 22b's forward GEMMs at a rank's shapes over a 'model' extent of
+    ``extent`` (M = TRAIN_BATCH x TRAIN_SEQ tokens), as (name, a, b,
+    kwargs, save_preact): llama-1b's q|k (+ rope) and v on the rank's
+    heads behind the rmsnorm prologue, its SwiGLU up on the rank's F
+    columns and its row-split down, whose partial product is the fp32
+    accumulators (``f32_product``); mixtral-8x7b's q|k and v on the rank's
+    heads and, under ``moe_tp``, an expert's up and down on the rank's F
+    slice at the capacity bucket's rows. The weights at std K^-1/2."""
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    m = TRAIN_BATCH * TRAIN_SEQ
+    cases = []
+    for arch in ("llama-1b", MOE_ARCH):
+        cfg = get_config(arch)
+        d, hd = cfg.d_model, cfg.head_dim
+        h, hkv, f = (cfg.num_heads // extent, cfg.num_kv_heads // extent,
+                     cfg.d_ff // extent)
+        tag = f"{'llama' if arch == 'llama-1b' else 'mixtral'}_tp{extent}"
+        rms = dict(prologue=Prologue(norm="rmsnorm"),
+                   gamma=(1 + 0.1 * torch.randn(d, generator=gen,
+                                                device=dev)).to(bf16))
+        sin, cos = rope_tables(torch.arange(TRAIN_SEQ, device=dev), hd,
+                               cfg.rope_theta)
+        x, wd = rnd(m, d), d ** -0.5
+        cases += [
+            (f"{tag}_qk_rope", x, rnd(d, (h + hkv) * hd, std=wd),
+             dict(epilogue=Epilogue(rope=True, head_dim=hd),
+                  sin=sin.repeat(TRAIN_BATCH, 1),
+                  cos=cos.repeat(TRAIN_BATCH, 1), **rms)),
+            (f"{tag}_v", x, rnd(d, hkv * hd, std=wd), dict(**rms))]
+        up = dict(epilogue=Epilogue(activation="silu", gate=True),
+                  b2=rnd(d, f, std=wd))
+        if cfg.moe is None:
+            cases += [(f"{tag}_swiglu_up", x, rnd(d, f, std=wd),
+                       dict(up, **rms)),
+                      (f"{tag}_down_f32", rnd(m, f), rnd(f, d, std=f ** -0.5),
+                       dict(f32_product=True))]
+        else:
+            rows = moe_mod._capacity(m, cfg)
+            cases += [(f"{tag}_expert_up", rnd(rows, d), rnd(d, f, std=wd),
+                       up),
+                      (f"{tag}_expert_down", rnd(rows, f),
+                       rnd(f, d, std=f ** -0.5), {})]
+    return [(*c, False) for c in cases]
+
+
+def measure_tp(dev, gen, timer) -> dict:
+    """Phase 22b: phase 3's rows at a rank's shapes over 'model' extents
+    TP_EXTENTS: the forward GEMMs (``tp_gemm_cases``, the planned launch),
+    their backward (the down's from a bf16 cotangent, as the split step
+    rounds it), the flash forward and backward on the rank's heads at the
+    training shape (llama-1b's head_dim 64, mixtral's 128; the local GQA
+    group is the model's). Returns {kernel name: rows}."""
+    bf16 = torch.bfloat16
+    rows = {"gemm_fused": [], "flash_attention_fwd": [],
+            "flash_attention_bwd": []}
+    for extent in TP_EXTENTS:
+        cases = tp_gemm_cases(dev, gen, extent)
+        rows["gemm_fused"] += measure_gemm(None, dev, gen, timer,
+                                           cases=cases, sweep_plans=False)
+        bwd, _ = measure_gemm_bwd(
+            None, dev, gen, timer, sweep_widths=False,
+            cases=[(n, a, b, {k: v for k, v in kw.items()
+                              if k != "f32_product"})
+                   for n, a, b, kw, _ in cases])
+        for name, r in bwd.items():
+            rows.setdefault(name, []).extend(r)
+        del cases
+        for arch in ("llama-1b", MOE_ARCH):
+            cfg = get_config(arch)
+            h, hkv, hd = (cfg.num_heads // extent,
+                          cfg.num_kv_heads // extent, cfg.head_dim)
+            case = (f"{'llama' if arch == 'llama-1b' else 'mixtral'}_tp"
+                    f"{extent}_train")
+            qk = torch.randn(TRAIN_BATCH, TRAIN_SEQ, (h + hkv) * hd,
+                             generator=gen, device=dev).to(bf16)
+            v = torch.randn(TRAIN_BATCH, TRAIN_SEQ, hkv * hd, generator=gen,
+                            device=dev).to(bf16)
+            q = qk[..., : h * hd].reshape(TRAIN_BATCH, TRAIN_SEQ, h,
+                                          hd).transpose(1, 2)
+            k = qk[..., h * hd:].reshape(TRAIN_BATCH, TRAIN_SEQ, hkv,
+                                         hd).transpose(1, 2)
+            v = v.reshape(TRAIN_BATCH, TRAIN_SEQ, hkv, hd).transpose(1, 2)
+            fwd = flash_row(case, q, k, v, True, timer)
+            del fwd["kernel"]
+            rows["flash_attention_fwd"].append(fwd)
+            do = torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, hd, generator=gen,
+                             device=dev).to(bf16).transpose(1, 2)
+            rows["flash_attention_bwd"].append(
+                flash_bwd_row(case, q, k, v, do, True, timer))
+            del qk, q, k, v, do
+    for name, rs in rows.items():
+        log(f"[22b] {name} at the ranks' shapes: "
+            + "; ".join(f"{r['case']} {r['ms'] * 1e3:.1f} us (bound "
+                        f"{r['bound_ms'] * 1e3:.2f}, plain "
+                        f"{r['plain_ms'] * 1e3:.1f})" for r in rs))
+    return rows
+
+
+def tp_models(dev, impl: str, mesh):
+    """Phase 13's mixtral config with its MoE on ``impl``, three ways over
+    ``mesh`` (kernel, plain bf16, plain fp32), each a tensor-parallel
+    rank's (``Model.tp``), and the seeded weights at a trained model's
+    scale in fp32."""
+    base = moe_train_cfg()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                            impl=impl))
+    out = []
+    for mode, dtype in (("kernel", "bfloat16"), ("reference", "bfloat16"),
+                        ("reference", "float32")):
+        model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
+                            mode=mode, device=dev, mesh=mesh)
+        out.append(dataclasses.replace(model, data_axes=(),
+                                       tp=TensorParallel(model, mesh)))
+    params = trained_scale(out[0], out[0].init(seed=0,
+                                               dtype=cfg.param_dtype))
+    return cfg, out, params
+
+
+def run_tp_training(dev, mesh, base: dict) -> dict:
+    """22a: mixtral-8x7b at MOE_TRAIN_LAYERS layer(s) of published width
+    (phase 13's config, weights at a trained model's scale) trained
+    through ``moe_ep`` and again through ``moe_tp`` over the (1, 1) mesh:
+    per impl, every leaf's grad of one batch on the split path against
+    the fp32 truth within 2 x the plain bf16 path's distance + 1e-3, the
+    plain paths routed as the kernel path (``routed``); then
+    TP_TRAIN_STEPS steps of ``make_train_step(mesh=)`` in kernel mode
+    (launches exact: phase 13's per layer and step), the step time and
+    peak memory against phase 13b's single-device step, the dropped share
+    of the expert choices and the launches by block kind."""
+    out = {}
+    for impl in ("ep", "tp"):
+        t0 = time.perf_counter()
+        tag = f"22a {impl}"
+        cfg, (kern_m, plain_m, truth_m), params = tp_models(dev, impl, mesh)
+        batch = next(train_data(cfg, dev))
+        route, flips = [], []
+
+        def grads(model, ctx):
+            p = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                         params)
+            kernels.reset_launch_counts()
+            with ctx:
+                loss, metrics, g = loss_and_grads(model, p, batch)
+            torch.cuda.synchronize()
+            return (float(loss), {path: x.float() for (path, _), x
+                                  in zip(named_leaves(p), g)},
+                    kernels.launch_counts())
+
+        k_loss, kern, counts = grads(kern_m, routed(record=route))
+        want = expected_moe_train_launches(cfg, 1)
+        if counts != want:
+            raise AssertionError(f"[{tag}] grad launches {counts}; one step "
+                                 f"makes {want}")
+        p_loss, plain, _ = grads(plain_m, routed(replay=route))
+        t_loss, truth, _ = grads(truth_m, routed(replay=route, flips=flips))
+        routing = check_routing(tag, route, flips)
+        worst = 0.0
+        for path, t_ in truth.items():
+            k_err = (kern[path] - t_).abs().max().item()
+            p_err = (plain[path] - t_).abs().max().item()
+            if not k_err <= 2.0 * p_err + 1e-3:
+                raise AssertionError(f"[{tag}] {path}: split-path grad "
+                                     f"{k_err:.4g} from fp32, plain bf16 "
+                                     f"{p_err:.4g}")
+            worst = max(worst, k_err / (2.0 * p_err + 1e-3))
+        del kern, plain, truth, plain_m, truth_m
+        torch.cuda.empty_cache()
+        log(f"[{tag}] {cfg.name}, {cfg.num_layers} layer(s) at published "
+            f"width through moe_{impl} over (1, 1): loss kernel "
+            f"{k_loss:.5f}, plain bf16 {p_loss:.5f}, fp32 {t_loss:.5f}; every "
+            f"leaf's split-path grad within 2 x plain bf16 + 1e-3 of fp32, "
+            f"at most {worst:.3f} of it")
+        state = sharded_init(kern_m, 0, mesh, zero1=True, params=params)
+        del params
+        step = make_train_step(kern_m, AdamWConfig(schedule=cosine_schedule(
+            TRAIN_LR, 2, TRAIN_STEPS)), mesh=mesh, zero1=True)
+        data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH),
+                            device=dev, mesh=mesh)
+        drops, losses, secs = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with counted_drops(drops):
+            for _ in range(TP_TRAIN_STEPS):
+                b = next(data)
+                s0 = time.perf_counter()
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+                secs.append(time.perf_counter() - s0)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = expected_moe_train_launches(cfg, TP_TRAIN_STEPS)
+        if counts != want:
+            raise AssertionError(f"[{tag}] launches {counts}; "
+                                 f"{TP_TRAIN_STEPS} steps make {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[{tag}] losses {losses}")
+        step_s = statistics.median(secs[1:])
+        # a layer's forward GEMMs (q|k, v and its FFN's), again in the
+        # recompute, by block kind
+        by_kind = {}
+        for i in range(cfg.num_layers):
+            kind = cfg.layer_kind(i)
+            ffn = 2 * cfg.moe.num_experts if kind == "moe" else 2
+            by_kind[kind] = by_kind.get(kind, 0) + 2 * (2 + ffn)
+        log(f"[{tag}] {TP_TRAIN_STEPS} split steps of {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} tokens: losses {[round(x, 4) for x in losses]}; "
+            f"step {step_s:.4f} s (median after the first; phase 13b's "
+            f"single-device step {base['step_s']:.4f} s), peak "
+            f"{peak:.2f} GB (13b {base['peak_memory_gb']:.2f} GB); "
+            f"gemm_fused launches a step by block kind {by_kind}; launches "
+            f"{counts}")
+        out[tag] = {"launches": counts, "losses": losses,
+                    "step_seconds": secs, "step_s": step_s,
+                    "peak_memory_gb": peak, "grad_bound_use": worst,
+                    "routing": routing, "losses_grad": {
+                        "kernel": k_loss, "plain": p_loss, "truth": t_loss},
+                    "drops": drop_summary(tag, drops),
+                    "seconds": time.perf_counter() - t0}
+        del state, step, kern_m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_distributed(dev, m: Models, base_step_s: float, gen,
+                    moe_base: dict) -> tuple:
+    """Phases 21 (21a-21d) and 22a inside one NCCL process group of world
+    size 1; ``m``: phase 20's models, freed after 21a; ``moe_base``:
+    phase 13b's record. Returns (the phases, the ring panels' rows for
+    phase 3's gemm_fused)."""
     t0 = time.perf_counter()
     out = {}
     with nccl_world() as mesh:
@@ -6739,7 +7031,10 @@ def run_distributed(dev, m: Models, base_step_s: float, gen) -> tuple:
         torch.cuda.empty_cache()
         out["21c"], rows = run_collective_gemm(dev, mesh, gen)
         out["21d"] = run_dp_training(dev, mesh, base_step_s)
-    log(f"[21] phase 21 in {time.perf_counter() - t0:.1f} s")
+        log(f"[21] phase 21 in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out.update(run_tp_training(dev, mesh, moe_base))
+    log(f"[22] phase 22a in {time.perf_counter() - t0:.1f} s")
     return out, rows
 
 
@@ -6809,6 +7104,10 @@ def main(argv=None) -> int:
                                 + measure_rg_flash_bwd(dev, gen, timer)),
         "rope": measure_rope(cfg, dev, gen, timer, clean, old),
         "fused_norm": measure_fused_norm(dev, gen, timer, clean, old)})
+    t_tp = time.perf_counter()
+    for name, rows in measure_tp(dev, gen, timer).items():
+        measured[name] += rows
+    log(f"[22b] the ranks' rows in {time.perf_counter() - t_tp:.1f} s")
     for name, rows in measured.items():
         for r in rows:
             lib = ("none" if r["library_ms"] is None
@@ -6907,10 +7206,11 @@ def main(argv=None) -> int:
     phases.update(run_maverick(dev, keep=held))
     log(f"[done] phase 20 at {time.perf_counter() - t0:.1f} s")
     dist_phases, ring_rows = run_distributed(dev, held.pop("models"),
-                                             phases["6b"]["step_s"], gen)
+                                             phases["6b"]["step_s"], gen,
+                                             phases["13b"])
     phases.update(dist_phases)
     measured["gemm_fused"] += ring_rows
-    log(f"[done] phase 21 at {time.perf_counter() - t0:.1f} s")
+    log(f"[done] phases 21 and 22 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -6927,7 +7227,7 @@ def main(argv=None) -> int:
                             + MOE_TRAIN_PHASES + TELEMETRY_PHASES
                             + RG_PHASES + RG_TRAIN_PHASES + M2_PHASES
                             + M2_TRAIN_PHASES + IVL_PHASES + MAV_PHASES
-                            + DIST_PHASES),
+                            + DIST_PHASES + TP_TRAIN_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

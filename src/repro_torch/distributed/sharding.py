@@ -23,7 +23,13 @@ Placement is the port's counterpart of ``jax.device_put`` with a
 ``NamedSharding``: each rank holds plain local tensors, as the body of a
 ``shard_map`` sees them. :func:`local_slice` cuts a rank's block out of a
 full leaf; :func:`gather_leaf` rebuilds the full leaf from the ranks'
-blocks with all-gathers over the mesh's dim groups.
+blocks with all-gathers over the mesh's dim groups. The spec of a leaf
+held in another layout than the reference's (the tensor-parallel step's
+head-aligned q|k: ``state.state_shardings`` builds it from
+``tensor_parallel.param_layouts``) is a :class:`LaidOut`, which carries
+its layout (dim, perm): the leaf is permuted before it is cut and
+un-permuted after it is gathered, so a gathered leaf is always in the
+reference's layout.
 """
 from __future__ import annotations
 
@@ -327,11 +333,43 @@ def block_index(entry, mesh, coords: dict) -> tuple:
     return index, count
 
 
+class LaidOut(tuple):
+    """A leaf's spec (a tuple, equal to the plain spec) that also carries
+    ``layout`` (dim, perm): the rank holds its block of the leaf permuted
+    by ``perm`` along ``dim``."""
+
+    def __new__(cls, spec, layout):
+        out = super().__new__(cls, spec)
+        out.layout = layout
+        return out
+
+    def __reduce__(self):
+        return LaidOut, (tuple(self), self.layout)
+
+
+def layout_of(spec):
+    """The (dim, perm) a :class:`LaidOut` spec carries, or None."""
+    return getattr(spec, "layout", None)
+
+
+def permute_dim(x, dim: int, perm, *, inverse: bool = False):
+    """``x`` (a tensor or a numpy array) with ``perm`` applied along
+    ``dim`` (``inverse``: undone)."""
+    if inverse:
+        perm = np.argsort(perm)
+    if torch.is_tensor(x):
+        return x.index_select(dim, torch.as_tensor(perm, device=x.device))
+    return np.take(x, perm, axis=dim)
+
+
 def local_slice(full, spec, mesh, coords: Optional[dict] = None):
     """The block of ``full`` (a tensor or a numpy array) that the rank at
     ``coords`` (default: this rank's, on a ``DeviceMesh``) holds under
-    ``spec``: a view."""
+    ``spec``: a view (of the permuted leaf, where ``spec`` carries a
+    layout)."""
     coords = mesh_coords(mesh) if coords is None else coords
+    if layout_of(spec) is not None:
+        full = permute_dim(full, *layout_of(spec))
     index = []
     for dim, entry in enumerate(spec):
         i, count = block_index(entry, mesh, coords)
@@ -350,8 +388,9 @@ def local_tree(tree, specs, mesh, coords: Optional[dict] = None):
 def gather_leaf(local, spec, mesh):
     """The full leaf from every rank's block under ``spec``: per sharded
     dim, all-gathers over the dim's mesh axes, the last axis first (so a
-    dim over ('pod', 'data') is gathered over 'data', then 'pod'). Every
-    rank of the mesh must call it. A replicated spec returns ``local``."""
+    dim over ('pod', 'data') is gathered over 'data', then 'pod'), then
+    the layout ``spec`` carries undone. Every rank of the mesh must call
+    it. A replicated spec returns ``local``."""
     import torch.distributed as dist
 
     out = local
@@ -362,10 +401,11 @@ def gather_leaf(local, spec, mesh):
                      range(dist.get_world_size(group))]
             dist.all_gather(parts, out.contiguous(), group=group)
             out = torch.cat(parts, dim=dim)
+    if layout_of(spec) is not None:
+        out = permute_dim(out, *layout_of(spec), inverse=True)
     return out
 
 
 def gather_tree(tree, specs, mesh):
     return tree_map2(lambda x, s: gather_leaf(x, s, mesh)
                  if torch.is_tensor(x) else x, tree, specs)
-

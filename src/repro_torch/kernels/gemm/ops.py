@@ -259,7 +259,9 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
     a (M, K), b and b2 (K, N); gamma and beta (K,); bias (N,); residual
     (M, N);
     scale a scalar; sin/cos (M, head_dim) fp32 duplicated-halves tables.
-    ``bwd_mode`` ("kernel" | "reference"; None: :func:`default_bwd_mode`)
+    ``out_dtype`` float32 is the chainless product's raw fp32 accumulators
+    (one contraction split; a row-parallel product's partial sum, summed
+    over the ranks before it is rounded). ``bwd_mode`` ("kernel" | "reference"; None: :func:`default_bwd_mode`)
     picks the backward when autograd records the call. The launch is
     journaled as ``obs`` op "gemm_fused" (:func:`_forward`).
     """
@@ -388,11 +390,17 @@ def _gemm_fused_cuda(a, b, b2, bias, residual, gamma, beta, sin, cos, flags,
     """The kernel: one launch (:func:`_launch`, which counts it)."""
     _OP_RAN.ran = True
     epilogue, _ = _chain_of(flags, head_dim, norm, eps, beta is not None)
+    plan, f32 = None, out_dtype == torch.float32
+    if f32:
+        # the raw accumulators at one split: _launch refuses any chain
+        m, k = a.shape
+        plan = (plan_gemm(m, b.shape[1], k, sm_count(a.device))[0], 1)
     out, stats, preacts = _launch(
         a, b, epilogue, b2=b2, bias=bias, residual=residual, scale=scale,
         sin=sin, cos=cos, gamma=gamma, beta=beta, eps=eps,
-        layernorm=norm == "layernorm", out_dtype=out_dtype,
-        save_preact=save_preact)
+        layernorm=norm == "layernorm",
+        out_dtype=torch.bfloat16 if f32 else out_dtype,
+        save_preact=save_preact, plan=plan, f32_product=f32)
     if stats is None:
         stats = a.new_empty(0, dtype=torch.float32)
     return out, stats, list(preacts)
@@ -462,6 +470,9 @@ class _GemmFusedFn(torch.autograd.Function):
         if spec.bwd_mode == "reference":
             return (*_reference_vjp(spec, operands, need, g), None)
         from .backward import gemm_fused_bwd
+        # an fp32 product's grad enters the bf16 transpose kernels rounded,
+        # as a bf16 output's grad would
+        g = g.to(a.dtype)
         da, db, grads = gemm_fused_bwd(
             a, b, g, epilogue=spec.epilogue, prologue=spec.prologue,
             b2=b2, bias=bias, scale=spec.scale, sin=sin, cos=cos,

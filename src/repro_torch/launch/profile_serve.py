@@ -91,6 +91,7 @@ FAMILIES = (
     ("flash_decode_kernel", "flash_decode"),
     ("rope_kernel", "rope"),
     ("fused_norm_kernel", "fused_norm"),
+    ("nccl", "nccl"),               # the collectives' kernels
     ("gemm", "library_matmul"),     # cuBLAS / cuBLASLt kernel names
     ("gemv", "library_matmul"),
     ("nvjet", "library_matmul"),
@@ -123,9 +124,13 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 
 
 def summarize(prof, wall_s: float) -> dict:
+    """The traced device time by kernel family, launches, busy share; and
+    the 12 other-torch kernels of most device time ([name (its first 160
+    characters), ms, launches])."""
     by_family: dict = {}
     launches: dict = {}
     host_calls: dict = {}
+    others: dict = {}
     intervals = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -136,6 +141,9 @@ def summarize(prof, wall_s: float) -> dict:
         dur = ev.time_range.elapsed_us()
         by_family[fam] = by_family.get(fam, 0.0) + dur / 1e3
         launches[fam] = launches.get(fam, 0) + 1
+        if fam == "other_torch":
+            ms, n = others.get(ev.name[:160], (0.0, 0))
+            others[ev.name[:160]] = (ms + dur / 1e3, n + 1)
         intervals.append((ev.time_range.start, ev.time_range.end))
     busy_ms = _union_us(intervals) / 1e3
     span_ms = ((max(e for _, e in intervals) - min(s for s, _ in intervals))
@@ -145,7 +153,9 @@ def summarize(prof, wall_s: float) -> dict:
             "host_launch_calls": host_calls,
             "device_busy_ms": busy_ms, "traced_wall_ms": wall_s * 1e3,
             "device_busy_share": busy_ms / (wall_s * 1e3),
-            "device_first_to_last_ms": span_ms}
+            "device_first_to_last_ms": span_ms,
+            "other_torch_top": [[k, ms, n] for k, (ms, n) in sorted(
+                others.items(), key=lambda kv: -kv[1][0])[:12]]}
 
 
 def _timed(fn, profile: bool):

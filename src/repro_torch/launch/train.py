@@ -19,6 +19,8 @@ data, with the model in kernel mode.
       --steps 8 --batch 4 --seq 2048
   PYTHONPATH=src torchrun --nproc_per_node 1 -m repro_torch.launch.train \\
       --arch llama-1b --steps 4 --batch 4 --seq 1024 --mesh --zero1
+  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --tiny --device cpu --steps 4 --seq 64 --mesh --zero1 --model-axis 2
 
 The decoders and bert-110m take the LM pipeline's batches
 (``data.DataIterator``), as the reference's launcher feeds every arch;
@@ -38,11 +40,13 @@ patches). Prints the reference launcher's ``[train] finished:`` line,
 then tokens/s (median host time of the steps after the first; tokens of
 the decoder's or encoder's sequence) and the peak device memory.
 
-``--mesh`` trains data parallel over every process of a ``torchrun``
-world (``make_host_mesh``: NCCL and one card per process, or gloo with
-``--device cpu``), each on its rows of the global ``--batch`` (the LM
-pipeline's families), ``--zero1`` with the optimizer moments sliced over
-the ranks; the first rank prints.
+``--mesh`` trains over every process of a ``torchrun`` world
+(``make_host_mesh``: NCCL and one card per process, or gloo with
+``--device cpu``): data parallel over (world / ``--model-axis``) 'data'
+ranks, each on its rows of the global ``--batch`` (the LM pipeline's
+families), and tensor parallel over ``--model-axis`` 'model' ranks (the
+'lm' family's attention-kind stacks), ``--zero1`` with the optimizer
+moments sliced over the 'data' ranks; the first rank prints.
 """
 from __future__ import annotations
 
@@ -79,10 +83,11 @@ def train_batches(cfg, batch: int, seq: int, *, seed: int = 0, device,
                         device=device, mesh=mesh)
 
 
-def _start_world(device: str):
-    """The data-parallel world of a ``torchrun`` launch: the process group
-    from its environment (NCCL on the card, one per process, else gloo),
-    this process's device and the (world, 1) host mesh."""
+def _start_world(device: str, model_axis: int = 1):
+    """The world of a ``torchrun`` launch: the process group from its
+    environment (NCCL on the card, one per process, else gloo), this
+    process's device and the (world / model_axis, model_axis) host
+    mesh."""
     import os
 
     import torch.distributed as dist
@@ -95,7 +100,8 @@ def _start_world(device: str):
         torch.cuda.set_device(local)
         device = f"cuda:{local}"
     dist.init_process_group("nccl" if cuda else "gloo")
-    return device, make_host_mesh(device_type="cuda" if cuda else "cpu")
+    return device, make_host_mesh(model_axis,
+                                  device_type="cuda" if cuda else "cpu")
 
 
 def main(argv=None):
@@ -133,10 +139,13 @@ def main(argv=None):
                     help="data parallel over the torchrun world")
     ap.add_argument("--zero1", action="store_true",
                     help="with --mesh: the moments sliced over the ranks")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="with --mesh: the 'model' extent (tensor "
+                    "parallel); the rest of the world is 'data'")
     args = ap.parse_args(argv)
     mesh, device = None, args.device
     if args.mesh:
-        device, mesh = _start_world(args.device)
+        device, mesh = _start_world(args.device, args.model_axis)
     try:
         return _run(ap, args, device, mesh)
     finally:

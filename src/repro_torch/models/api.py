@@ -16,7 +16,11 @@ With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with a 'model' axis
 and data axes) the LM's MoE blocks run ``moe_forward``'s expert- or
 tensor-parallel path over it, and a rank holds its own slice of the
 experts (:meth:`Model.local_params`); every other leaf is whole on every
-rank (dense tensor parallelism is not ported)."""
+rank. The training step over a mesh sets ``tp`` (a
+``distributed.tensor_parallel.TensorParallel``): then ``loss`` takes
+every leaf as the rank's block under the logical rules and splits the
+dense blocks, the embedding, the head and the cross entropy over
+'model'."""
 from __future__ import annotations
 
 import dataclasses
@@ -59,6 +63,7 @@ class Model:
     qkv_plan: str = "rope_fused"
     mesh: object = None
     data_axes: tuple = ("data",)
+    tp: object = None
 
     def init(self, seed: int = 0, dtype=None) -> dict:
         """Seeded random parameters, each leaf drawn in the param type and
@@ -134,7 +139,7 @@ class Model:
         if self.family == "encoder":
             return _enc.encoder_loss(self.cfg, params, batch, mode=self.mode,
                                      qkv_plan=self.qkv_plan)
-        return _lm.lm_loss(self.cfg, params, batch, **self._kw)
+        return _lm.lm_loss(self.cfg, params, batch, **self._kw, tp=self.tp)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         if self.family == "encdec":

@@ -109,11 +109,19 @@ def _apply_rope(cfg, q, k, positions, mode: str):
     return rot_fn(q), rot_fn(k)
 
 
-def project_qkv(cfg, p, x, kv_input=None):
+def _head_counts(cfg, heads):
+    """(q heads, kv heads): ``heads`` (a tensor-parallel rank's) or the
+    config's."""
+    return heads if heads is not None else (cfg.num_heads, cfg.num_kv_heads)
+
+
+def project_qkv(cfg, p, x, kv_input=None, heads=None):
     """Plain projections over the packed ``wqk``: q/k are column slices.
     With ``kv_input`` (cross-attention) q projects ``x`` and k/v project
-    ``kv_input``."""
-    nq = cfg.num_heads * cfg.head_dim
+    ``kv_input``. ``heads``: the (q, kv) head counts the leaves hold (a
+    tensor-parallel rank's), by default the config's."""
+    h, hkv = _head_counts(cfg, heads)
+    nq = h * cfg.head_dim
     if kv_input is None:
         qk = x @ p["wqk"]
         q, k = qk[..., :nq], qk[..., nq:]
@@ -126,14 +134,14 @@ def project_qkv(cfg, p, x, kv_input=None):
         q = q + p["bqk"][..., :nq]
         k = k + p["bqk"][..., nq:]
         v = v + p["bv"]
-    return (_split_heads(q, cfg.num_heads, cfg.head_dim),
-            _split_heads(k, cfg.num_kv_heads, cfg.head_dim),
-            _split_heads(v, cfg.num_kv_heads, cfg.head_dim))
+    return (_split_heads(q, h, cfg.head_dim),
+            _split_heads(k, hkv, cfg.head_dim),
+            _split_heads(v, hkv, cfg.head_dim))
 
 
-def _heads_of_gemms(cfg, qk, v, b, s):
+def _heads_of_gemms(cfg, qk, v, b, s, heads=None):
     """(B, H|Hkv, S, hd) views of the packed q|k and the v GEMM outputs."""
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    (h, hkv), hd = _head_counts(cfg, heads), cfg.head_dim
     q = qk[:, : h * hd].reshape(b, s, h * hd)
     k = qk[:, h * hd:].reshape(b, s, hkv * hd)
     return (_split_heads(q, h, hd), _split_heads(k, hkv, hd),
@@ -141,7 +149,7 @@ def _heads_of_gemms(cfg, qk, v, b, s):
 
 
 def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None,
-                           use_rope: bool = True):
+                           use_rope: bool = True, heads=None):
     """Rung 1: q|k through one GEMM whose prologue is the block's pre-norm
     and whose store rotates q and k (RoPE 'half'); v through a second GEMM
     with the same prologue. Returns (B, H|Hkv, S, hd) views of the GEMM
@@ -151,7 +159,7 @@ def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None,
             or not rope_store_fits(cfg.head_dim)):
         return project_qkv_heads(cfg, p, x, positions, mode="kernel",
                                  prenorm=prenorm, qkv_plan="norm_fused",
-                                 use_rope=use_rope)
+                                 use_rope=use_rope, heads=heads)
     b, s, d = x.shape
     hd = cfg.head_dim
     has_bias = "bqk" in p
@@ -165,10 +173,10 @@ def fused_project_qkv_rope(cfg, p, x, positions, prenorm=None,
                     cos=cos.repeat(b, 1), out_dtype=x.dtype, **kw)
     v = gemm_fused(x2, p["wv"], epilogue=Epilogue(bias=has_bias),
                    bias=p.get("bv"), out_dtype=x.dtype, **kw)
-    return _heads_of_gemms(cfg, qk, v, b, s)
+    return _heads_of_gemms(cfg, qk, v, b, s, heads)
 
 
-def fused_project_qkv(cfg, p, x, prenorm):
+def fused_project_qkv(cfg, p, x, prenorm, heads=None):
     """Rung 2's projections: the packed q|k GEMM and the v GEMM, each with
     the block's pre-norm in its prologue and the bias in its store, no
     rope. Returns unrotated (B, H|Hkv, S, hd) views of the GEMM outputs."""
@@ -181,11 +189,12 @@ def fused_project_qkv(cfg, p, x, prenorm):
                     out_dtype=x.dtype, **kw)
     v = gemm_fused(x2, p["wv"], epilogue=ep, bias=p.get("bv"),
                    out_dtype=x.dtype, **kw)
-    return _heads_of_gemms(cfg, qk, v, b, s)
+    return _heads_of_gemms(cfg, qk, v, b, s, heads)
 
 
 def project_qkv_heads(cfg, p, x, positions=None, *, mode: str, prenorm=None,
-                      qkv_plan: str = "rope_fused", use_rope: bool = True):
+                      qkv_plan: str = "rope_fused", use_rope: bool = True,
+                      heads=None):
     """(q, k, v) heads from the pre-norm stream ``x`` (B, S, D), rotated
     unless ``use_rope`` is False, through rung ``qkv_plan`` of the ladder in
     'kernel' mode. Rung 2 folds the norm into its GEMMs only when there is
@@ -195,13 +204,13 @@ def project_qkv_heads(cfg, p, x, positions=None, *, mode: str, prenorm=None,
         positions = torch.arange(x.shape[1], device=x.device)
     if mode == "kernel" and qkv_plan == "rope_fused":
         return fused_project_qkv_rope(cfg, p, x, positions, prenorm=prenorm,
-                                      use_rope=use_rope)
+                                      use_rope=use_rope, heads=heads)
     if mode == "kernel" and qkv_plan == "norm_fused" and prenorm is not None:
-        q, k, v = fused_project_qkv(cfg, p, x, prenorm)
+        q, k, v = fused_project_qkv(cfg, p, x, prenorm, heads)
     else:
         if prenorm is not None:
             x = apply_prenorm(cfg, x, prenorm)
-        q, k, v = project_qkv(cfg, p, x)
+        q, k, v = project_qkv(cfg, p, x, heads=heads)
     if use_rope:
         q, k = _apply_rope(cfg, q, k, positions, mode)
     return q, k, v
@@ -216,6 +225,38 @@ def attend(cfg, q, k, v, *, window, mode: str, causal: bool = True):
                          softcap=softcap)
     return attention_ref(q, k, v, causal=causal, window=window,
                          softcap=softcap)
+
+
+def _prologue_in_gemms(mode: str, qkv_plan: str, prenorm) -> bool:
+    """Whether the QKV ladder folds the block's norm into its GEMMs."""
+    return (mode == "kernel" and prenorm is not None
+            and qkv_plan in ("rope_fused", "norm_fused"))
+
+
+def split_attention_layer(cfg, p, x, *, tp, window, positions, mode: str,
+                          prenorm, qkv_plan: str):
+    """Self-attention on a tensor-parallel rank (``tp``, a
+    ``distributed.tensor_parallel.TensorParallel``): the rank's heads
+    through the same QKV ladder and flash kernel, its rows of ``wo``, the
+    ranks' partial outputs summed (g). The replicated stream enters through
+    f; where the norm rides in the GEMMs' prologue its scale and bias do
+    too (their grads are partials there), else the norm runs on the
+    replicated stream first. Where the heads do not split over the extent
+    the layer runs whole on every rank."""
+    p = tp.attn_params(p)
+    heads = tp.local_heads
+    if heads is None:
+        return attention_layer(cfg, p, x, window=window, positions=positions,
+                               mode=mode, prenorm=prenorm, qkv_plan=qkv_plan)
+    if _prologue_in_gemms(mode, qkv_plan, prenorm):
+        prenorm = tuple(None if t is None else tp.f(t) for t in prenorm)
+    elif prenorm is not None:
+        x, prenorm = apply_prenorm(cfg, x, prenorm), None
+    q, k, v = project_qkv_heads(cfg, p, tp.f(x), positions, mode=mode,
+                                prenorm=prenorm, qkv_plan=qkv_plan,
+                                heads=heads)
+    out = attend(cfg, q, k, v, window=window, mode=mode)
+    return tp.g(_merge_heads(out) @ p["wo"])
 
 
 def attention_layer(cfg, p, x, *, causal: bool = True,

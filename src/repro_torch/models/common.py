@@ -101,16 +101,34 @@ def cast_params(params, dtype):
                     params)
 
 
-def cross_entropy_loss(logits, labels, mask=None):
-    """Mean cross entropy over the valid positions, in fp32."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+def cross_entropy_loss(logits, labels, mask=None, *, tp=None):
+    """Mean cross entropy over the valid positions, in fp32. With ``tp``
+    (a ``TensorParallel`` whose rank holds ``logits``' vocab columns
+    ``rank * V_loc ..``) it is the vocab-parallel form (:func:`nll_terms`)."""
+    nll = nll_terms(logits, labels, tp=tp)
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def nll_terms(logits, labels, *, tp=None):
+    """Each position's lse - gold logit in fp32. With ``tp`` the logits
+    are the rank's vocab columns: the log-sum-exp of the ranks' local
+    log-sum-exps (gathered; at one rank the local one bit for bit) and the
+    gold logit from the rank that holds it (summed, g)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    if tp is None:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return lse - gold
+    size = logits.shape[-1]
+    local = labels.long() - tp.rank * size
+    mine = (local >= 0) & (local < size)
+    gold = torch.gather(logits, -1, local.clamp(0, size - 1)[..., None])
+    gold = tp.g(torch.where(mine, gold[..., 0], 0.0))
+    lse = torch.logsumexp(tp.gather(lse[None], 0, "own"), dim=0)
+    return lse - gold
 
 
 # ---------------------------------------------------------------------------
@@ -181,27 +199,31 @@ _EPILOGUE_ACT = {"swiglu": "silu", "silu": "silu",
                  "geglu": "gelu", "gelu": "gelu"}
 
 
+def _mlp_up_fused(cfg, p, x2, prenorm):
+    """The fused up-projection of (tokens, d) ``x2``: the block's pre-norm
+    in its prologue, one dual-output GEMM whose store is act(x @ w_gate) *
+    (x @ w_in) for a gated MLP, else one GEMM storing act(x @ w_in)."""
+    if cfg.mlp_act not in _EPILOGUE_ACT:
+        raise ValueError(cfg.mlp_act)
+    act = _EPILOGUE_ACT[cfg.mlp_act]
+    kw = norm_prologue_kw(cfg, prenorm) if prenorm is not None else {}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        return gemm_fused(x2, p["w_gate"], b2=p["w_in"],
+                          epilogue=Epilogue(activation=act, gate=True),
+                          out_dtype=x2.dtype, **kw)
+    return gemm_fused(x2, p["w_in"], epilogue=Epilogue(activation=act),
+                      out_dtype=x2.dtype, **kw)
+
+
 def _mlp_fused(cfg, p, x, *, residual, residual_scale, prenorm):
     """The kernel-mode MLP: the block's pre-norm folds into the up GEMM's
     prologue; a gated MLP (swiglu, geglu) runs its two up-projections as one
     dual-output GEMM whose store is act(x @ w_gate) * (x @ w_in), a plain
     one (gelu) one GEMM whose store is act(x @ w_in); the down GEMM's store
     adds the scaled residual."""
-    if cfg.mlp_act not in _EPILOGUE_ACT:
-        raise ValueError(cfg.mlp_act)
-    act = _EPILOGUE_ACT[cfg.mlp_act]
-    gated = cfg.mlp_act in ("swiglu", "geglu")
     *lead, d = x.shape
     tokens = math.prod(lead)
-    kw = norm_prologue_kw(cfg, prenorm) if prenorm is not None else {}
-    x2 = x.reshape(tokens, d)
-    if gated:
-        h = gemm_fused(x2, p["w_gate"], b2=p["w_in"],
-                       epilogue=Epilogue(activation=act, gate=True),
-                       out_dtype=x.dtype, **kw)
-    else:
-        h = gemm_fused(x2, p["w_in"], epilogue=Epilogue(activation=act),
-                       out_dtype=x.dtype, **kw)
+    h = _mlp_up_fused(cfg, p, x.reshape(tokens, d), prenorm)
     if residual is None:
         y = gemm_fused(h, p["w_out"], out_dtype=x.dtype)
     else:
@@ -235,6 +257,37 @@ def mlp_forward(cfg, p, x, *, mode: str = "reference", residual=None,
     m = h @ p["w_out"]
     if residual is None:
         return m
+    return residual + residual_scale * m
+
+
+def split_mlp_forward(cfg, p, x, *, tp, mode: str, residual,
+                      residual_scale: float = 1.0, prenorm=None):
+    """``mlp_forward`` with the residual on a tensor-parallel rank (``tp``):
+    the rank's FFN columns of the up-projection and rows of the down, the
+    ranks' partial products summed (g), then the scaled residual added
+    once. In 'kernel' mode the replicated stream and the norm's scale and
+    bias enter the up GEMM's prologue through f, and the partials are the
+    down GEMM's fp32 accumulators (``out_dtype=torch.float32``, one
+    contraction split), summed in fp32 before the residual; the plain path
+    norms the replicated stream, then f, and sums its partials in fp32
+    rounded to the compute type, as its one-device product rounds. Where
+    the rules do not split F the MLP runs whole on every rank."""
+    p = tp.mlp_params(p)
+    if not tp.ffn_split:
+        return mlp_forward(cfg, p, x, mode=mode, residual=residual,
+                           residual_scale=residual_scale, prenorm=prenorm)
+    *lead, d = x.shape
+    if mode == "kernel":
+        if prenorm is not None:
+            prenorm = tuple(None if t is None else tp.f(t) for t in prenorm)
+        h = _mlp_up_fused(cfg, p, tp.f(x).reshape(math.prod(lead), d),
+                          prenorm)
+        part = gemm_fused(h, p["w_out"], out_dtype=torch.float32)
+        y = tp.g(part) * residual_scale + residual.reshape(part.shape).float()
+        return y.to(x.dtype).reshape(x.shape)
+    if prenorm is not None:
+        x = apply_prenorm(cfg, x, prenorm)
+    m = tp.g(mlp_forward(cfg, p, tp.f(x), mode=mode))
     return residual + residual_scale * m
 
 

@@ -40,10 +40,11 @@ from .attention import (attend, attn_defs, decode_attention_layer,
                         init_attn_cache, init_paged_attn_cache,
                         paged_decode_attention_layer, paged_prefill_attn_cache,
                         prefill_attn_cache, project_qkv_heads, _merge_heads,
-                        attention_layer)
+                        attention_layer, split_attention_layer)
 from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
-                     mlp_defs, mlp_forward, norm_defs, norm_params, tree_map)
-from .moe import moe_defs, moe_forward
+                     mlp_defs, mlp_forward, nll_terms, norm_defs, norm_params,
+                     split_mlp_forward, tree_map)
+from .moe import moe_defs, moe_forward, resolve_impl
 from .rglru import (init_rglru_cache, rglru_decode_step, rglru_defs,
                     rglru_forward, rglru_prefill)
 from .ssm import (init_ssm_cache, ssm_decode_step, ssm_defs, ssm_forward,
@@ -185,42 +186,79 @@ def _layers(cfg, params) -> list:
             for kind, key, index in layer_slots(cfg)]
 
 
-def _embed(cfg, params, tokens):
-    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype)) \
-        * cfg.emb_scale
+def _embed(cfg, params, tokens, tp=None):
+    """The embedded tokens. On a tensor-parallel rank (``tp``) whose table
+    holds vocab rows ``rank * V_loc ..`` each rank looks up the tokens it
+    holds, zeros elsewhere, and the ranks' rows are summed (g); a table
+    d-sharded over 'model' (``embed_shard="embed"``) is looked up in the
+    rank's columns and all-gathered along d."""
+    table = params["embed"]
+    if tp is not None and tp.vocab_rows:
+        rows = tp.vocab_rows
+        local = tokens - tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = tp.g(torch.where(mine[..., None],
+                             table[local.clamp(0, rows - 1)], 0.0))
+    elif tp is not None and tp.held("embed") == 1:
+        x = tp.gather(table[tokens], tokens.dim(), "own")
+    else:
+        x = table[tokens]
+    return x.to(dtype_of(cfg.compute_dtype)) * cfg.emb_scale
 
 
 def _head(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(cfg, params, x, head=None):
+def _vocab_split(cfg, tp) -> bool:
+    """Whether the rank's head holds a block of the vocab columns."""
+    return tp is not None and bool(tp.vocab_rows if cfg.tie_embeddings
+                                   else tp.head_cols)
+
+
+def _logits(cfg, params, x, head=None, tp=None):
     """fp32 logits of the final norm of ``x``; ``head``: the (d, V) head
-    already in fp32, where the caller made it once for many calls."""
+    already in fp32, where the caller made it once for many calls. On a
+    tensor-parallel rank whose head holds vocab columns (``tp``) the
+    rank's columns of the logits, the replicated norm entering through f
+    and the padding masked by global column."""
     x = apply_norm(cfg, x, params, "final_norm")
     if head is None:
         head = _head(cfg, params).float()
-    logits = x.float() @ head
+    split = _vocab_split(cfg, tp)
+    xf = tp.f(x.float()) if split else x.float()
+    logits = xf @ head
     if cfg.padded_vocab() != cfg.vocab_size:
         # the padding columns carry no probability mass
-        pad = torch.arange(cfg.padded_vocab(), device=x.device) >= cfg.vocab_size
+        first = tp.rank * logits.shape[-1] if split else 0
+        pad = torch.arange(first, first + logits.shape[-1],
+                           device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits / cfg.logit_scale_div
 
 
-def _ffn(cfg, p, x, *, mode: str, mesh=None, data_axes=("data",)):
+def _ffn(cfg, p, x, *, mode: str, mesh=None, data_axes=("data",), tp=None):
     """The block's FFN on the stream ``x`` after attention's (or the
     recurrence's) residual, by block kind (the FFN's params: "mlp" or
     "moe"), ln2 riding in as ``prenorm``: the dense MLP, ``x +
     residual_scale * mlp(x)`` (in kernel mode the residual rides in the
     down GEMM's store), or the MoE FFN, added as ``x + residual_scale *
-    m``. Returns (x, the MoE's aux or None)."""
+    m``. On a tensor-parallel rank (``tp``) the MLP is
+    ``split_mlp_forward`` and the experts are the rank's as its impl runs
+    them. Returns (x, the MoE's aux or None)."""
     rs = cfg.residual_scale
     if "moe" in p:
-        m, aux = moe_forward(cfg, p["moe"], x, mode=mode, mesh=mesh,
+        moe_p = p["moe"]
+        if tp is not None:
+            moe_p = tp.moe_params(moe_p, resolve_impl(cfg, mesh))
+        m, aux = moe_forward(cfg, moe_p, x, mode=mode, mesh=mesh,
                              data_axes=data_axes,
                              prenorm=norm_params(p, "ln2"))
         return x + rs * m, aux
+    if tp is not None:
+        return split_mlp_forward(cfg, p["mlp"], x, tp=tp, mode=mode,
+                                 residual=x, residual_scale=rs,
+                                 prenorm=norm_params(p, "ln2")), None
     return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
                        residual_scale=rs,
                        prenorm=norm_params(p, "ln2")), None
@@ -247,12 +285,22 @@ def _recurrent_rest(cfg, p, x, out, *, mode: str, mesh=None,
 
 def block_forward(cfg, p, x, *, positions, mode: str = "reference",
                   mesh=None, data_axes=("data",),
-                  qkv_plan: str = "rope_fused", kind: str = "attn"):
+                  qkv_plan: str = "rope_fused", kind: str = "attn", tp=None):
     """One block of kind ``kind`` on the pre-norm residual stream ``x``:
     ln1 and ln2 ride into the attention and FFN layers as ``prenorm`` (an
     'rg' block norms ln1 standalone); ``qkv_plan`` is the rung of the QKV
-    ladder ('kernel' mode). Returns (x, the MoE's load-balancing loss, or
-    None)."""
+    ladder ('kernel' mode). ``tp``: a tensor-parallel rank's split of an
+    attention-kind block (``distributed.tensor_parallel``). Returns (x, the
+    MoE's load-balancing loss, or None)."""
+    if tp is not None:
+        if kind in RECURRENT:
+            raise NotImplementedError(f"tensor-parallel {kind!r} blocks")
+        a = split_attention_layer(
+            cfg, p["attn"], x, tp=tp, window=_block_window(cfg, kind),
+            positions=positions, mode=mode, prenorm=norm_params(p, "ln1"),
+            qkv_plan=qkv_plan)
+        return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
+                    mesh=mesh, data_axes=data_axes, tp=tp)
     if kind in RECURRENT:
         return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind,
                                                      FORWARD), mode=mode,
@@ -323,7 +371,7 @@ def _unstacked_layers(cfg, params) -> list:
 
 def lm_blocks(cfg, params, x, *, mode: str = "reference",
               mesh=None, data_axes=("data",),
-              remat: bool = False, qkv_plan: str = "rope_fused"):
+              remat: bool = False, qkv_plan: str = "rope_fused", tp=None):
     """Every block on the embedded stream ``x`` (B, S, d), at positions 0
     .. S - 1, causal; ``params`` cast to the compute type. Returns (the last
     block's output, the layers' summed MoE auxiliary loss in fp32, 0 for
@@ -336,7 +384,7 @@ def lm_blocks(cfg, params, x, *, mode: str = "reference",
             block = functools.partial(block_forward, cfg, positions=positions,
                                       mode=mode, mesh=mesh,
                                       data_axes=data_axes, qkv_plan=qkv_plan,
-                                      kind=kind)
+                                      kind=kind, tp=tp)
             blocks[kind] = _remat(cfg, block) if remat else block
         x, a = blocks[kind](p, x)
         if a is not None:
@@ -346,14 +394,16 @@ def lm_blocks(cfg, params, x, *, mode: str = "reference",
 
 def lm_hidden(cfg, params, tokens, *, mode: str = "reference",
               mesh=None, data_axes=("data",),
-              remat: bool = False, qkv_plan: str = "rope_fused"):
+              remat: bool = False, qkv_plan: str = "rope_fused", tp=None):
     """tokens: (B, S) -> (the last block's output (B, S, d), the params
     cast to the compute type, the layers' summed MoE auxiliary loss in fp32,
-    0 for dense blocks), so the loss reuses the cast."""
+    0 for dense blocks), so the loss reuses the cast. ``tp``: the params
+    are a tensor-parallel rank's blocks (``distributed.tensor_parallel``);
+    the output is replicated over 'model'."""
     params = cast_params(params, dtype_of(cfg.compute_dtype))
-    x, aux = lm_blocks(cfg, params, _embed(cfg, params, tokens), mode=mode,
-                       mesh=mesh, data_axes=data_axes,
-                       remat=remat, qkv_plan=qkv_plan)
+    x, aux = lm_blocks(cfg, params, _embed(cfg, params, tokens, tp),
+                       mode=mode, mesh=mesh, data_axes=data_axes,
+                       remat=remat, qkv_plan=qkv_plan, tp=tp)
     return x, params, aux
 
 
@@ -368,13 +418,14 @@ def lm_forward(cfg, params, tokens, *, mode: str = "reference",
     return _logits(cfg, cast, x)
 
 
-def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int):
+def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int, tp=None):
     """The masked mean cross entropy, ``chunk`` positions of the sequence
     at a time (halved until it divides S): each chunk's fp32 logits are made
     under a non-reentrant checkpoint, so they live only while that chunk
     runs, in the backward too. ``params``: the compute-type cast; the head
     is cast to fp32 once and handed to every chunk as an input, so its grad
-    is summed over the chunks in fp32."""
+    is summed over the chunks in fp32. ``tp``: the vocab-parallel form
+    (:func:`_logits`, ``common.nll_terms``)."""
     s = hidden.shape[1]
     while s % chunk:
         chunk //= 2
@@ -384,12 +435,12 @@ def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int):
     norm = {k: v for k, v in params.items() if k.startswith("final_norm")}
     head = _head(cfg, params).float()
 
+    ctp = tp if _vocab_split(cfg, tp) else None
+
     def body(h, t, m, head, norm):
-        logits = _logits(cfg, norm, h, head)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        logits = _logits(cfg, norm, h, head, tp)
         mf = m.float()
-        return torch.sum((lse - gold) * mf), torch.sum(mf)
+        return torch.sum(nll_terms(logits, t, tp=ctp) * mf), torch.sum(mf)
 
     nll = msum = 0.0
     for i in range(0, s, chunk):
@@ -403,20 +454,24 @@ def _chunked_ce(cfg, params, hidden, targets, mask, chunk: int):
 
 def lm_loss(cfg, params, batch, *, mode: str = "reference",
             mesh=None, data_axes=("data",), remat: bool = True,
-            aux_weight: float = 0.01, qkv_plan: str = "rope_fused"):
+            aux_weight: float = 0.01, qkv_plan: str = "rope_fused",
+            tp=None):
     """(loss, {"ce", "aux"}): ``ce + aux_weight * aux``, the masked mean
     cross entropy of the batch {"inputs", "targets"[, "loss_mask"]} (over
     ``cfg.ce_chunk``-position chunks where that is set) and the layers'
-    summed MoE load-balancing loss (0 for dense blocks)."""
+    summed MoE load-balancing loss (0 for dense blocks). ``tp``: ``params``
+    are a tensor-parallel rank's blocks; the loss is replicated over
+    'model' (the vocab-parallel cross entropy where the head is split)."""
     hidden, cast, aux = lm_hidden(cfg, params, batch["inputs"], mode=mode,
                                   mesh=mesh, data_axes=data_axes,
-                                  remat=remat, qkv_plan=qkv_plan)
+                                  remat=remat, qkv_plan=qkv_plan, tp=tp)
     if cfg.ce_chunk:
         ce = _chunked_ce(cfg, cast, hidden, batch["targets"],
-                         batch.get("loss_mask"), cfg.ce_chunk)
+                         batch.get("loss_mask"), cfg.ce_chunk, tp)
     else:
-        ce = cross_entropy_loss(_logits(cfg, cast, hidden), batch["targets"],
-                                batch.get("loss_mask"))
+        ce = cross_entropy_loss(
+            _logits(cfg, cast, hidden, tp=tp), batch["targets"],
+            batch.get("loss_mask"), tp=tp if _vocab_split(cfg, tp) else None)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 

@@ -10,12 +10,14 @@
   (:func:`moe_ep`).
 * ``tp``: tensor parallelism. Every rank holds every expert's 1/tp slice
   of the FFN hidden dim, runs the buckets of the (replicated) tokens and
-  the partial outputs are summed by one all-reduce (:func:`moe_tp`).
+  the partial outputs are summed over 'model' in rank order
+  (:func:`moe_tp`).
 
 Each rank holds plain local tensors, as the reference's ``shard_map``
 bodies see them, and ``torch.distributed`` collectives over the mesh's
 groups stand where the reference has ``all_to_all``/``all_gather``/
-``psum``/``pmean``. The bucket slots are the reference's exactly: a
+``psum``/``pmean``, differentiable (``collectives``' autograd Functions),
+so both paths train. The bucket slots are the reference's exactly: a
 token-major running count per expert (``cumsum`` of the one-hot), tokens
 beyond the capacity (:func:`_capacity`) dropped.
 
@@ -228,7 +230,14 @@ def moe_ep(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
     outputs are all-gathered along the sequence. Otherwise (a decode step
     of few tokens) every rank routes the replicated tokens, runs its own
     experts' buckets and the outputs are all-gathered over the experts.
-    ``prenorm``: the block's norm, applied to the rank's tokens."""
+    ``prenorm``: the block's norm, applied to the rank's tokens.
+
+    The collectives are differentiable (``collectives``' autograd
+    Functions): where replicated tensors (the stream, the norm's scale,
+    the router, the replicated buckets) enter per-rank work they pass
+    f, whose backward sums the ranks' grads, so their grads are whole on
+    every rank; the aux term is the mean of the ranks' terms only where
+    each rank routes its own tokens."""
     from repro_torch.distributed import collectives as col
 
     e = cfg.moe.num_experts
@@ -240,29 +249,38 @@ def moe_ep(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
     e_loc = e // ep
     bl, s, d = x.shape
     seq_split = s % ep == 0 and s >= ep
-    xs = x.narrow(1, rank * (s // ep), s // ep) if seq_split else x
+    router = p["router"]
+    if seq_split:
+        # each rank's own tokens: the replicated inputs enter through f
+        xs = col.copy_to_ranks(x, group).narrow(1, rank * (s // ep), s // ep)
+        router = col.copy_to_ranks(router, group)
+        if prenorm is not None:
+            prenorm = tuple(None if w is None else col.copy_to_ranks(w, group)
+                            for w in prenorm)
+    else:
+        xs = x
     t = _normed(cfg, xs.reshape(-1, d), prenorm)
-    weights, ids, aux = _route(cfg, t, p["router"])
+    weights, ids, aux = _route(cfg, t, router)
     cap = _capacity(t.shape[0], cfg)
     buf, idx, keep = _dispatch(cfg, t, ids, cap)
     if seq_split:
         # (E, cap, D) -> the experts' owners: (ep, E_loc, cap, D) received
-        recv = col.all_to_all(buf, group).view(ep, e_loc, cap, d)
+        recv = col.all_to_all_grad(buf, group).view(ep, e_loc, cap, d)
         mine = recv.transpose(0, 1).reshape(e_loc, ep * cap, d)
         out = _run_experts(cfg, p, mine, mode)
         sent = out.view(e_loc, ep, cap, d).transpose(0, 1)
-        back = col.all_to_all(sent.reshape(e, cap, d), group)
+        back = col.all_to_all_grad(sent.reshape(e, cap, d), group)
     else:
-        mine = buf.narrow(0, rank * e_loc, e_loc)
-        back = col.all_gather_cat(_run_experts(cfg, p, mine, mode), 0, group)
+        mine = col.copy_to_ranks(buf, group).narrow(0, rank * e_loc, e_loc)
+        back = col.gather_cat(_run_experts(cfg, p, mine, mode), 0, group,
+                              grad="own")
     y = _combine(back.view(e, cap, d), idx, keep, weights)
     if seq_split:
-        full = col.all_gather_cat(y.view(bl, s // ep, d), 1, group)
+        full = col.gather_cat(y.view(bl, s // ep, d), 1, group, grad="own")
+        aux = col.sum_from_ranks(aux, group) / ep
     else:
         full = y.view(bl, s, d)
-    aux = col.mean_over(col.mean_over(aux, mesh, (model_axis,)), mesh,
-                        data_axes)
-    return full, aux
+    return full, col.mean_over(aux, mesh, data_axes)
 
 
 def moe_tp(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
@@ -271,19 +289,22 @@ def moe_tp(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
     split over ``model_axis`` (p: the full router, each expert's F / tp
     slice of w_gate, w_in and w_out), the tokens are replicated over it.
     Every rank routes all its tokens into the (E, cap, D) buckets, runs
-    every expert on its F slice (a partial sum of the output) and one
-    all-reduce over 'model' adds the partials, the wire cost of a dense
-    Megatron MLP. Returns (out x's shape, aux averaged over
-    ``data_axes``)."""
+    every expert on its F slice (a partial sum of the output) and the
+    partials are summed over 'model' (g, in rank order), the wire cost of
+    a dense Megatron MLP. The buckets and the routing
+    weights enter the split work through f, so their grads are summed.
+    Returns (out x's shape, aux averaged over ``data_axes``)."""
     from repro_torch.distributed import collectives as col
 
+    group = mesh.get_group(model_axis)
     bl, s, d = x.shape
     t = _normed(cfg, x.reshape(-1, d), prenorm)
     weights, ids, aux = _route(cfg, t, p["router"])
     cap = _capacity(t.shape[0], cfg)
     buf, idx, keep = _dispatch(cfg, t, ids, cap)
-    y = _combine(_run_experts(cfg, p, buf, mode), idx, keep, weights)
-    y = col.sum_over(y, mesh, model_axis)
+    out = _run_experts(cfg, p, col.copy_to_ranks(buf, group), mode)
+    y = _combine(out, idx, keep, col.copy_to_ranks(weights, group))
+    y = col.sum_from_ranks(y, group)
     return y.view(bl, s, d), col.mean_over(aux, mesh, data_axes)
 
 

@@ -22,7 +22,10 @@ a save first all-gathers every leaf to its global value on every rank and
 the mesh's first rank writes it, in the same format: either package
 restores the other's. ``restore(..., mesh=, specs=)`` gives each rank its
 block of every global leaf under those specs, which may be another mesh's
-than the one that saved (an elastic restore).
+than the one that saved (an elastic restore). A leaf whose spec carries a
+layout (``sharding.LaidOut``: the tensor-parallel step's head-aligned q|k)
+is un-permuted when gathered and permuted when restored, so the file
+always holds the reference's layout.
 """
 from __future__ import annotations
 
@@ -100,8 +103,9 @@ def _write(flat: dict, directory: str, step: int, keep: int) -> str:
 
 
 def _global(state, mesh, specs):
-    """The state with every leaf all-gathered to its global value (every
-    rank of the mesh calls it); ``state`` itself without a mesh."""
+    """The state with every leaf all-gathered to its global value in the
+    reference's layout (every rank of the mesh calls it); ``state`` itself
+    without a mesh."""
     if mesh is None:
         return state
     from repro_torch.distributed.sharding import gather_tree
@@ -222,21 +226,25 @@ def available_steps(directory: str) -> list:
 
 def restore(directory: str, template, *, step: int | None = None,
             device=None, mesh=None, specs=None, coords: dict | None = None):
-    """(state, step): the newest valid checkpoint (or ``step``) in
-    ``template``'s structure. Each tensor leaf comes back in its template's
-    type, on ``device`` or the template's, requiring grad where the
-    template does; each int leaf as an int. With ``mesh`` and ``specs``
-    (the state's, ``state.state_shardings``) each tensor leaf is the
-    block of the global leaf that the rank at ``coords`` (default: this
-    rank) holds, and ``template`` holds the blocks' shapes."""
+    """(state, step): the newest valid checkpoint (or ``step``, which the
+    caller has found valid: ``available_steps``) in ``template``'s
+    structure. Each tensor leaf comes back in its template's type, on
+    ``device`` or the template's, requiring grad where the template does;
+    each int leaf as an int. With ``mesh`` and ``specs`` (the state's,
+    ``state.state_shardings``) each tensor leaf is the block of the global
+    leaf that the rank at ``coords`` (default: this rank) holds (permuted
+    first where its spec carries a layout), and ``template`` holds the
+    blocks' shapes. Each kept payload is hashed at most once."""
     from repro_torch.distributed.sharding import local_slice
 
     spec_of = dict(named_leaves(specs)) if mesh is not None \
         else {}
-    steps = available_steps(directory)
-    if not steps:
-        raise FileNotFoundError(f"no valid checkpoints under {directory}")
-    step = max(steps) if step is None else step
+    if step is None:
+        steps = available_steps(directory)
+        if not steps:
+            raise FileNotFoundError(f"no valid checkpoints under "
+                                    f"{directory}")
+        step = max(steps)
     payload = os.path.join(directory, f"step_{step:08d}", "arrays.npz")
     flat = {}
     with np.load(payload) as arrays:

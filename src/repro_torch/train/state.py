@@ -12,19 +12,26 @@ builds a rank's blocks. The error-feedback residuals are sliced as the
 trainer's reduced grads are, over 'data' on each leaf's ZeRO-1 dim, with
 or without ``zero1`` (the reference keeps them as the params are; the
 quantisation scale is each whole leaf's either way, so the numbers are the
-same).
+same). Over a 'model' extent that divides the heads the packed q|k leaves
+(and their moments and residuals) are held in the tensor-parallel step's
+head-aligned layout: their specs are ``sharding.LaidOut``, so whatever
+cuts or gathers a state by :func:`state_shardings` (``sharded_init``,
+``checkpoint.save``/``restore``) keeps the reference's layout on disk.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import dtype_of
-from repro_torch.distributed.sharding import (axis_names, block_index,
-                                              fsdp_shardings, local_tree,
-                                              mesh_coords, shardings_for_tree,
-                                              tree_map2, zero1_shardings)
+from repro_torch.distributed.sharding import (LaidOut, axis_names,
+                                              block_index, fsdp_shardings,
+                                              local_tree, mesh_coords,
+                                              shardings_for_tree, tree_map2,
+                                              zero1_shardings)
+from repro_torch.distributed.tensor_parallel import param_layouts
 from repro_torch.models.common import nest, tree_map
 from repro_torch.optim import adamw_init, ef_init
+from repro_torch.optim.optimizer import named_leaves
 
 
 def init_state(model, seed: int = 0, params=None, *,
@@ -55,12 +62,20 @@ def state_shardings(model, mesh, *, zero1: bool = True, fsdp: bool = False,
     """The spec of every state leaf: the params' by the logical rules
     (with ``fsdp`` also over 'data'), the moments' with ``zero1`` also over
     'data' on each leaf's largest free dim, the error-feedback residuals'
-    so sliced in any case, the ints' replicated (())."""
+    so sliced in any case, the ints' replicated (()). A leaf held in the
+    head-aligned layout (``tensor_parallel.param_layouts``) has a
+    ``LaidOut`` spec carrying it, in the params, the moments and the
+    residuals alike."""
     shapes = abstract_params(model)
     p_sh = shardings_for_tree(model.axes(), shapes, mesh, report=report)
     if fsdp:
         p_sh = fsdp_shardings(p_sh, shapes, mesh)
     sliced = zero1_shardings(p_sh, shapes, mesh)
+    layouts = param_layouts(model, mesh)
+    if layouts:
+        p_sh, sliced = (nest({k: LaidOut(s, layouts[k]) if k in layouts
+                              else s for k, s in named_leaves(tree)})
+                        for tree in (p_sh, sliced))
     moments = sliced if zero1 else p_sh
     sh = {"params": p_sh, "opt": {"m": moments, "v": moments, "count": ()},
           "step": ()}
@@ -82,8 +97,8 @@ def sharded_init(model, seed: int, mesh, *, zero1: bool = True,
     """This rank's blocks of :func:`init_state`'s state under
     :func:`state_shardings`: the params drawn whole (every rank draws the
     same from ``seed``) and cut to the rank's block (a copy only where
-    the block is smaller than the leaf), the moments and residuals made
-    at their block's shape."""
+    the block is smaller than the leaf, or permuted), the moments and
+    residuals made at their block's shape."""
     sh = state_shardings(model, mesh, zero1=zero1,
                          grad_compress=grad_compress)
     coords = mesh_coords(mesh) if coords is None else coords

@@ -15,26 +15,44 @@ as in the reference (its "trainer.bucket_pins" belongs to the kernel-policy
 pinning, which the port does not have yet).
 
 With a ``mesh`` the step is data parallel over its 'data' axis, each rank
-on its own rows of the batch (``DataIterator(mesh=)``):
+on its own rows of the batch (``DataIterator(mesh=)``), and tensor
+parallel over its 'model' axis, as the reference's step is under GSPMD:
+every leaf is the rank's block under the logical rules
+(``state.sharded_init``) and the LM's forward splits the attention heads,
+the FFN, the experts (``moe_ep``/``moe_tp`` by ``resolve_impl``), the
+embedding, the head and the cross entropy over 'model'
+(``distributed.tensor_parallel``: a replicated leaf's grad comes out whole
+on every rank, a split leaf's is the rank's own). Then:
 
 * the objective is the *global* masked mean: each rank's cross entropy is
   weighted by its share of the batch's loss tokens (the token counts
-  summed over 'data'), the MoE auxiliary term averaged over the ranks;
+  summed over 'data'), the MoE auxiliary term averaged over the ranks.
+  With ``microbatches`` it is the reference's mean of the microbatches'
+  masked means, the reference's microbatch p being rows [p B / n,
+  (p + 1) B / n) of the global batch: each rank's rows (its block of the
+  global batch, as ``DataIterator(mesh=)`` gives it where the 'data'
+  extent divides the batch) are split into n parts, each part lies in
+  one such microbatch and is weighted by its share of that microbatch's
+  loss tokens, and the parts' grads are summed in fp32 and divided by n
+  before any reduction, as ``loss_and_grads`` does;
 * the grads are summed over 'data' in rank order, each leaf into the
   ZeRO-1 slice its moments hold (:func:`state.state_shardings`: the
   leaf's largest dim 'data' divides), a leaf with no such dim whole;
 * ``grad_compress``'s error feedback runs after that exact reduce, as in
   the reference, each leaf at its whole leaf's scale;
-* the global grad norm is taken over the slices, and AdamW updates each
-  rank's slice (``zero1``: the moments are slices; the updated params are
-  all-gathered) or, without ``zero1``, the whole leaves from the
-  all-gathered grads. Both give the same bits: the grads are the same sums
-  and AdamW is elementwise.
+* the global grad norm is taken over the slices, a leaf split over
+  'model' counted over its blocks and a replicated one once, and AdamW
+  updates each rank's slice (``zero1``: the moments are slices; the
+  updated params are all-gathered over 'data') or, without ``zero1``, the
+  whole leaves from the all-gathered grads. Both give the same bits: the
+  grads are the same sums and AdamW is elementwise.
 
-At one rank every collective is an identity and the step is the
-single-device step bit for bit. A 'model' extent over 1, a 'pod' axis,
-microbatches and an MoE forced onto its expert- or tensor-parallel path
-raise: they are the next slice of the distributed layer.
+One code path serves every extent: at one rank every collective is an
+identity and, on the plain path, the step is the single-device step bit
+for bit (the vocab-parallel cross entropy included). A 'pod' axis, and a
+'model' extent over 1 for the families and block kinds the split does not
+cover ('rg' and 'ssm' blocks, the 'encoder', 'encdec' and 'vlm' families,
+which train data parallel at a 'model' extent of 1), raise.
 """
 from __future__ import annotations
 
@@ -47,6 +65,7 @@ import torch
 from repro_torch import obs
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.distributed.tensor_parallel import TensorParallel
 from repro_torch.optim import AdamWConfig, adamw_update, ef_compress
 from repro_torch.optim.optimizer import leaves
 from . import checkpoint as ckpt_lib
@@ -134,26 +153,39 @@ def loss_and_grads(model, params, batch, *, microbatches: int = 1) -> tuple:
             torch._foreach_div(gsum, float(microbatches)))
 
 
-def _check_mesh(model, mesh, microbatches: int) -> None:
-    from repro_torch.models.moe import resolve_impl
+# the block kinds and families the tensor-parallel split covers
+_SPLIT_KINDS = ("attn", "local", "moe")
 
+
+def _splits(model) -> bool:
+    """Whether the step splits ``model`` over 'model': the 'lm' family
+    with attention-kind blocks only."""
+    cfg = model.cfg
+    return model.family == "lm" and all(
+        cfg.layer_kind(i) in _SPLIT_KINDS for i in range(cfg.num_layers))
+
+
+def _check_mesh(model, mesh) -> None:
     sizes = mesh_shape(mesh)
-    nxt = ("the next slice of the distributed layer (ROADMAP Queue A: "
-           "training with a 'model' extent over 1)")
     if "data" not in sizes:
         raise ValueError("make_train_step: the mesh has no 'data' axis")
-    if sizes.get("model", 1) > 1 or sizes.get("pod", 1) > 1:
+    if "pod" in sizes:
         raise NotImplementedError(
-            f"make_train_step: mesh {sizes}: only data parallelism over "
-            f"'data' is ported; a 'model' or 'pod' extent over 1 is {nxt}")
-    if getattr(model.cfg, "moe", None) is not None and resolve_impl(
-            model.cfg, getattr(model, "mesh", None)) in ("ep", "tp"):
+            f"make_train_step: mesh {sizes}: the 'pod' axis belongs to the "
+            "reference's make_production_mesh, which has no counterpart "
+            "(ROADMAP Queue A: the 'pod' axis, not queued: no host mesh "
+            "makes one)")
+    if sizes.get("model", 1) > 1 and not _splits(model):
+        cfg = model.cfg
+        kinds = sorted({cfg.layer_kind(i) for i in range(cfg.num_layers)}
+                       - set(_SPLIT_KINDS))
+        what = (f"the {model.family!r} family" if model.family != "lm"
+                else f"{kinds} blocks")
         raise NotImplementedError(
-            f"make_train_step: grads through moe impl {model.cfg.moe.impl!r}"
-            f" are {nxt}")
-    if microbatches != 1:
-        raise NotImplementedError("make_train_step: microbatches under a "
-                                  "mesh are not ported")
+            f"make_train_step: mesh {sizes}: {what} do not split over "
+            "'model' yet (ROADMAP Queue A: the split of 'rg' and 'ssm' "
+            "blocks and of the encoder, encdec and vlm families); they "
+            "train data parallel at a 'model' extent of 1")
 
 
 def zero1_dims(model, mesh) -> list:
@@ -164,50 +196,111 @@ def zero1_dims(model, mesh) -> list:
             for spec in leaves(sh)]
 
 
-def _global_norm(local: list, dims: list, group):
-    """The grads' global norm from every rank's slices: each sliced leaf's
-    norm is the root of its slices' squared norms summed in rank order in
-    fp64 (at one rank, the slice's norm exactly), a whole leaf's its own;
-    then the norm of the leaves' norms, as ``optimizer._clip_`` takes it."""
-    norms = torch.stack(torch._foreach_norm(local))
-    sq = col.all_gather_cat(norms[None], 0, group).double() ** 2
+def model_split(model, mesh) -> list:
+    """Per leaf (``leaves`` order) whether its spec splits it over 'model'
+    (its blocks differ from rank to rank)."""
+    sh = state_shardings(model, mesh)["params"]
+    return [any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                for e in spec) for spec in leaves(sh)]
+
+
+def _ordered_rows(x, group):
+    """The sum over the group's ranks of ``x`` in rank order, fp64."""
+    sq = col.all_gather_cat(x[None], 0, group)
     acc = sq[0]
     for row in sq[1:]:
         acc = acc + row
-    sliced = torch.tensor([d is not None for d in dims], device=norms.device)
-    leaf = torch.where(sliced, acc.sqrt().float(), norms)
-    return torch.linalg.vector_norm(leaf)
+    return acc
 
 
-def _data_parallel_step(model, opt_cfg, mesh, *, zero1: bool,
-                        grad_compress: bool):
+def _global_norm(local: list, dims: list, msplit: list, group, mgroup):
+    """The grads' global norm from every rank's slices: each leaf's
+    squared norm summed in rank order in fp64 over the 'data' ranks where
+    ZeRO-1 slices it and over the 'model' ranks where the rules split it
+    (a replicated leaf counted once; at one rank, the slice's norm
+    exactly); then the norm of the leaves' norms, as ``optimizer._clip_``
+    takes it."""
+    norms = torch.stack(torch._foreach_norm(local))
+    own = norms.double() ** 2
+    dev = norms.device
+    sliced = torch.tensor([d is not None for d in dims], device=dev)
+    sq = torch.where(sliced, _ordered_rows(own, group), own)
+    split = torch.tensor(msplit, device=dev)
+    sq = torch.where(split, _ordered_rows(sq, mgroup), sq)
+    return torch.linalg.vector_norm(sq.sqrt().float())
+
+
+def _tokens(batch):
+    mask = batch.get("loss_mask")
+    return (mask.float().sum() if mask is not None else torch.tensor(
+        float(batch["targets"].numel()), device=batch["targets"].device))
+
+
+def _mesh_step(model, opt_cfg, mesh, *, zero1: bool, grad_compress: bool,
+               microbatches: int):
     group = mesh.get_group("data")
+    mgroup = mesh.get_group("model")
     ws = col.axis_size(mesh, "data")
     rank = mesh.get_local_rank("data")
     dims = zero1_dims(model, mesh)
+    msplit = model_split(model, mesh)
+    # the forward on this rank's blocks; the aux term averaged over 'data'
+    # by the objective below, not inside the MoE
+    run = dataclasses.replace(
+        model, mesh=mesh, data_axes=(),
+        tp=TensorParallel(model, mesh) if _splits(model) else None)
 
     def amax(i, m):
-        return col.max_over(m, group) if dims[i] is not None else m
+        if dims[i] is not None:
+            m = col.max_over(m, group)
+        return col.max_over(m, mgroup) if msplit[i] else m
 
     def step_fn(state, batch):
         wrt = leaves(state["params"])
-        mask = batch.get("loss_mask")
-        count = (mask.float().sum() if mask is not None else torch.tensor(
-            float(batch["targets"].numel()), device=batch["targets"].device))
-        total = col.ordered_sum(count, group)
-        loss, metrics = model.loss(state["params"], batch)
-        ce = metrics["ce"]
-        share = count / torch.clamp(total, min=1.0)
-        # sum over ranks: sum_r ce_r * share_r + (loss_r - ce_r) / ws; at
-        # one rank both corrections are exact zeros
-        obj = loss + ce * (share - 1.0) + (loss - ce) * (1.0 / ws - 1.0)
-        grads = _grad(obj, wrt)
+        n = microbatches
+        if batch["inputs"].shape[0] % n:
+            raise ValueError(f"a rank's {batch['inputs'].shape[0]} rows do "
+                             f"not split into {n}")
+        parts = _split_microbatches(batch, n) if n > 1 else [batch]
+        counts = torch.stack([_tokens(mb) for mb in parts])
+        # the reference's microbatch p is rows [p B / n, (p + 1) B / n) of
+        # the global batch, so this rank's part j lies in its microbatch
+        # (rank * n + j) // ws; each part's cross entropy is weighted by
+        # its share of that microbatch's loss tokens (counted over 'data':
+        # integers, exact in any order)
+        owner = torch.arange(ws * n, device=counts.device) // ws
+        every = col.all_gather_cat(counts[None], 0, group).reshape(-1)
+        tokens = torch.zeros(n, device=counts.device).index_add_(
+            0, owner, every)
+        shares = counts / torch.clamp(tokens[owner[rank * n:(rank + 1) * n]],
+                                      min=1.0)
+        grads, obj_sum, ce_sum, aux_sum = None, 0.0, 0.0, 0.0
+        for mb, share in zip(parts, shares):
+            loss, metrics = run.loss(state["params"], mb)
+            ce = metrics["ce"]
+            # summed over ranks: each microbatch's masked mean plus the
+            # ranks' mean aux term; at one rank both corrections are zeros
+            obj = loss + ce * (share - 1.0) + (loss - ce) * (1.0 / ws - 1.0)
+            g = _grad(obj, wrt)
+            if n == 1:
+                grads = list(g)
+            elif grads is None:
+                grads = [x.float() for x in g]
+            else:
+                torch._foreach_add_(grads, [x.float() for x in g])
+            del g
+            obj_sum = obj_sum + obj.detach()
+            ce_sum = ce_sum + (ce * share).detach()
+            aux_sum = aux_sum + metrics["aux"].detach()
+        if n > 1:
+            # the parts' mean, as ``loss_and_grads`` and the reference's scan
+            torch._foreach_div_(grads, float(n))
         red = [col.sum_scatter(g, d, group) if d is not None
                else col.ordered_sum(g, group) for g, d in zip(grads, dims)]
         del grads
         if grad_compress:
             red, state["ef"] = ef_compress(red, state["ef"], amax=amax)
-        norm = _global_norm(red, dims, group)
+        norm = _global_norm(red, dims, msplit, group, mgroup)
         if zero1:
             local = [p.detach().narrow(d, rank * (p.shape[d] // ws),
                                        p.shape[d] // ws)
@@ -229,9 +322,9 @@ def _data_parallel_step(model, opt_cfg, mesh, *, zero1: bool,
             _, _, om = adamw_update(opt_cfg, whole, state["opt"],
                                     state["params"], norm=norm)
         state["step"] += 1
-        out = {"loss": col.ordered_sum(obj.detach(), group),
-               "ce": col.ordered_sum((ce * share).detach(), group),
-               "aux": col.ordered_sum(metrics["aux"].detach(), group) / ws}
+        out = {"loss": col.ordered_sum(obj_sum, group) / n,
+               "ce": col.ordered_sum(ce_sum, group) / n,
+               "aux": col.ordered_sum(aux_sum, group) / (ws * n)}
         return state, {**out, **om}
 
     return step_fn
@@ -243,12 +336,14 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     """Returns step(state, batch) -> (state, metrics); the state is updated
     in place. With ``grad_compress`` the state holds ``"ef"``
     (``init_state(..., grad_compress=True)``). With ``mesh`` the step is
-    data parallel over its 'data' axis (the module's docstring) on a state
-    from ``sharded_init(model, seed, mesh, zero1=zero1, ...)``."""
+    data parallel over its 'data' axis and tensor parallel over its
+    'model' axis (the module's docstring) on a state from
+    ``sharded_init(model, seed, mesh, zero1=zero1, ...)``."""
     if mesh is not None:
-        _check_mesh(model, mesh, microbatches)
-        return _data_parallel_step(model, opt_cfg, mesh, zero1=zero1,
-                                   grad_compress=grad_compress)
+        _check_mesh(model, mesh)
+        return _mesh_step(model, opt_cfg, mesh, zero1=zero1,
+                          grad_compress=grad_compress,
+                          microbatches=microbatches)
 
     def step_fn(state, batch):
         loss, metrics, grads = loss_and_grads(model, state["params"], batch,
@@ -294,9 +389,10 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
     step_fn = make_train_step(model, opt_cfg, microbatches=microbatches,
                               grad_compress=grad_compress, mesh=mesh,
                               zero1=zero1)
-    specs = (state_shardings(model, mesh, zero1=zero1,
-                             grad_compress=grad_compress)
-             if mesh is not None else None)
+    specs = None
+    if mesh is not None:
+        specs = state_shardings(model, mesh, zero1=zero1,
+                                grad_compress=grad_compress)
     if checkpointer is None and ckpt_dir is not None:
         checkpointer = ckpt_lib.AsyncCheckpointer(ckpt_dir, mesh=mesh,
                                                   specs=specs)
@@ -310,10 +406,13 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
 
     def restored_state():
         """The newest valid checkpoint restored into a fresh state's
-        layout, or None; the data iterator moved to its step."""
-        if ckpt_dir is None or not ckpt_lib.available_steps(ckpt_dir):
+        layout, or None; the data iterator moved to its step. Each kept
+        payload is hashed once."""
+        steps = ckpt_lib.available_steps(ckpt_dir) if ckpt_dir else []
+        if not steps:
             return None
-        state, step0 = ckpt_lib.restore(ckpt_dir, fresh_state(), mesh=mesh,
+        state, step0 = ckpt_lib.restore(ckpt_dir, fresh_state(),
+                                        step=max(steps), mesh=mesh,
                                         specs=specs)
         data_iter.load_state_dict({"step": step0})
         return state

@@ -382,6 +382,33 @@ def test_gemm_fused_small_m_is_reproducible(dev, chain, m):
         _close_to_rounded_product(p, _normed(a, kw, first[1]), w)
 
 
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 2048), (1280, 3584, 4096),
+                                   (200, 1000, 520)])
+def test_gemm_fused_fp32_product_and_its_grads(dev, m, k, n):
+    """``out_dtype=torch.float32`` (a row-parallel partial product, e.g. the
+    split MLP's down at 2 and 4 ranks): the raw fp32 accumulators at one
+    split, within fp32 rounding of the plain fp32 product (two calls the
+    same bits), one launch; its backward through the bf16 transpose
+    kernels from the rounded cotangent equals the bf16-output product's."""
+    rng = np.random.default_rng(3)
+    a = _rand(rng, (m, k), dev).requires_grad_(True)
+    b = _rand(rng, (k, n), dev, std=k ** -0.5).requires_grad_(True)
+    kernels.reset_launch_counts()
+    out = gemm_fused(a, b, out_dtype=torch.float32)
+    again = gemm_fused(a.detach(), b.detach(), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert kernels.launch_counts()["gemm_fused"] == 2
+    assert torch.equal(out, again)
+    want = a.detach().float() @ b.detach().float()
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    g = _rand(rng, (m, n), dev)
+    da, db = torch.autograd.grad(out, (a, b), g.float())
+    a2, b2 = (t.detach().requires_grad_(True) for t in (a, b))
+    da2, db2 = torch.autograd.grad(gemm_fused(a2, b2), (a2, b2), g)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
 @pytest.mark.parametrize("m", [4, 64, 200])
 @pytest.mark.parametrize("chain", sorted(GEMM_CHAINS))
 def test_gemm_fused_rows_are_independent(dev, chain, m):

@@ -298,7 +298,8 @@ def test_state_shardings_match_the_reference(jspec):
 def _assemble(blocks: dict, spec, mesh):
     """The full leaf from every rank's block (``blocks``: the rank's
     coordinates, in the mesh's axis order, -> its block), put back by
-    ``local_slice``'s own indexing."""
+    ``local_slice``'s own indexing, then the layout a ``LaidOut`` spec
+    carries undone."""
     names = mesh.axis_names
     some = next(iter(blocks.values()))
     shape = list(some.shape)
@@ -306,8 +307,11 @@ def _assemble(blocks: dict, spec, mesh):
         shape[dim] *= sh.block_index(entry, mesh, {a: 0 for a in names})[1]
     out = some.new_empty(shape)
     for key, block in blocks.items():
-        sh.local_slice(out, spec, mesh, dict(zip(names, key))).copy_(block)
-    return out
+        sh.local_slice(out, tuple(spec), mesh,
+                       dict(zip(names, key))).copy_(block)
+    layout = sh.layout_of(spec)
+    return out if layout is None else sh.permute_dim(out, *layout,
+                                                     inverse=True)
 
 
 def _coords(mesh):
