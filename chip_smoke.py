@@ -409,7 +409,21 @@ Phases, each of which raises on failure (exit code non-zero):
    ``flash_decode_paged`` at G 5 (decode, a 128-token chunk, verify
    steps of 4 and 5 tokens, each verify row bit for bit the serial step).
    Prints tokens/s, the peak memory and the phase's seconds.
-21. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+21. The distributed layer over one NCCL rank: (a) phase 20's weights
+   served through ``moe_ep``, (b) mixtral through ``moe_tp``, (c) the ring
+   GEMM, (d) llama-1b's ZeRO-1 split step against the single-device one
+   and a sharded checkpoint of llama-1b at 2 layers restored bit for bit.
+22. Tensor-parallel training: (a) mixtral at 1 layer through both impls;
+   (b, with phase 3) the kernels at the ranks' shapes over extents 2, 4.
+23. The other families' split step: (a) bert-110m and whisper-base whole,
+   internvl2-2b at 2 layers, recurrentgemma-2b at 3, mamba2-130m at 4,
+   each at published width, 5 steps split at a 'model' extent of 1
+   against the single-device step (plain bf16 bit for bit, kernel mode
+   within 2 x two single runs' spread + 0.01, 0 'model' collectives,
+   launches equal, step times); (b, with phase 3) their GEMMs and flash
+   kernels at the ranks' shapes over extents 2 and 4, and the RG-LRU's
+   plain products at the rank's width.
+24. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -607,6 +621,9 @@ DIST_PHASES = ("21a", "21b", "21c", "21d")
 TP_ARCH, TP_LAYERS, TP_DECODE = "mixtral-8x7b", 1, 8
 COLL_SHAPE = (BATCH * PROMPT, 8192, 2048)
 DIST_STEPS = 4
+# 21d's checkpoint: llama-1b cut to this depth (the whole model's 19.6 GB
+# took 126 s to save and restore)
+DIST_CKPT_LAYERS = 2
 # phase 22: tensor-parallel training over one NCCL rank. 22a trains
 # mixtral-8x7b at MOE_TRAIN_LAYERS layer(s) of published width through
 # moe_ep and moe_tp, TP_TRAIN_STEPS steps each; 22b times phase 3's
@@ -615,6 +632,15 @@ DIST_STEPS = 4
 TP_TRAIN_PHASES = ("22a ep", "22a tp")
 TP_TRAIN_STEPS = 3
 TP_EXTENTS = (2, 4)
+# phase 23: the other families' split step over one NCCL rank. 23a trains
+# each arch at published width, TPF_LAYERS layers (None: whole), TPF_STEPS
+# steps of TPF_BATCH x TPF_SEQ tokens, split at a 'model' extent of 1
+# against the single-device step; 23b times phase 3's training rows at
+# their ranks' shapes over TP_EXTENTS
+TPF_LAYERS = {"bert-110m": None, "whisper-base": None, "internvl2-2b": 2,
+              "recurrentgemma-2b": 3, "mamba2-130m": 4}
+TPF_PHASES = tuple(f"23a {arch}" for arch in TPF_LAYERS)
+TPF_BATCH, TPF_SEQ, TPF_STEPS = 2, 1024, 5
 # the memory-bound bench's fused-norm cells (benchmarks/bench_memory_bound.py)
 NORM_ROWS, NORM_D, NORM_P, NORM_SEED = (2048, 4096, 8192), 2048, 0.1, 7
 
@@ -6671,9 +6697,10 @@ def run_dp_training(dev, mesh, base_step_s: float) -> dict:
     its fp32 accumulators to the sum over 'model' and adds the residual
     after it in fp32, the fused store's sum with its one rounding),
     launches exact. A further mesh step, counted, gives the 'model' collectives
-    and the gemm_fused launches a step. Step times beside 6b's. Then the
-    mesh run's step-DIST_STEPS state is saved (global leaves) and
-    restored through ``restore(mesh=, specs=)`` bit for bit."""
+    and the gemm_fused launches a step. Step times beside 6b's. Then
+    llama-1b at DIST_CKPT_LAYERS layers takes DIST_STEPS mesh steps, and
+    its state is saved (global leaves) and restored through
+    ``restore(mesh=, specs=)`` into a fresh state bit for bit."""
     t0 = time.perf_counter()
     out = {}
     runs = {}
@@ -6739,7 +6766,6 @@ def run_dp_training(dev, mesh, base_step_s: float) -> dict:
                 raise AssertionError(f"[21d] kernel: mesh losses "
                                      f"{sm['losses']} vs {s1['losses']}")
             out["kernel_spread"], out["kernel_gap"] = spread, gap
-            ckpt_state, ckpt_model = meshed["state"], meshed["model"]
         del meshed
         torch.cuda.empty_cache()
     med = {f"{mode} {tag}": statistics.median(r["step_seconds"][1:])
@@ -6747,27 +6773,49 @@ def run_dp_training(dev, mesh, base_step_s: float) -> dict:
     log(f"[21d] step seconds (median after the first): "
         f"{ {k: round(v, 4) for k, v in med.items()} } beside 6b's "
         f"{base_step_s:.4f} (kernel, no compression, 8 steps)")
-    specs = state_shardings(ckpt_model, mesh, zero1=True, grad_compress=True)
+    # the checkpoint at DIST_CKPT_LAYERS layers of the same model: a
+    # sharded save of the mesh run's state after DIST_STEPS steps, restored
+    # through restore(mesh=, specs=) into a fresh state of another seed
+    cfg = dataclasses.replace(get_config("llama-1b"),
+                              num_layers=DIST_CKPT_LAYERS)
+    model = build_model(cfg, mode="kernel", device=dev, mesh=mesh)
+    ckpt_state = sharded_init(model, 0, mesh, zero1=True, grad_compress=True)
+    step_fn = make_train_step(model, AdamWConfig(schedule=cosine_schedule(
+        TRAIN_LR, 2, TRAIN_STEPS)), grad_compress=True, mesh=mesh,
+        zero1=True)
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH), device=dev,
+                        mesh=mesh)
+    for _ in range(DIST_STEPS):
+        step_fn(ckpt_state, next(data))
+    specs = state_shardings(model, mesh, zero1=True, grad_compress=True)
     tmp = tempfile.mkdtemp()
     try:
         c0 = time.perf_counter()
         ckpt_lib.save(ckpt_state, tmp, DIST_STEPS, mesh=mesh, specs=specs)
         save_s = time.perf_counter() - c0
         c0 = time.perf_counter()
-        restored, step = ckpt_lib.restore(tmp, ckpt_state, mesh=mesh,
-                                          specs=specs)
+        restored, step = ckpt_lib.restore(
+            tmp, sharded_init(model, 5, mesh, zero1=True, grad_compress=True),
+            mesh=mesh, specs=specs)
         restore_s = time.perf_counter() - c0
         bad = same_state(restored, ckpt_state)
         if step != DIST_STEPS or bad:
             raise AssertionError(f"[21d] restored step {step}, leaves "
                                  f"{bad[:5]} differ from the saved state")
-        log(f"[21d] the step-{DIST_STEPS} checkpoint (global leaves) "
-            f"restored through restore(mesh=, specs=) bit for bit; save "
-            f"{save_s:.1f} s, restore {restore_s:.1f} s")
+        nbytes = sum(t.numel() * t.element_size()
+                     for _, t in named_leaves(ckpt_state)
+                     if torch.is_tensor(t))
+        log(f"[21d] the step-{DIST_STEPS} checkpoint of llama-1b at "
+            f"{DIST_CKPT_LAYERS} layers ({nbytes / 1e9:.2f} GB of state, "
+            f"global leaves) restored through restore(mesh=, specs=) into a "
+            f"fresh state bit for bit; save {save_s:.1f} s, restore "
+            f"{restore_s:.1f} s")
         del restored
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del ckpt_state
+    del ckpt_state, model, step_fn
     out.update(launches=runs["kernel", "mesh"]["launches"],
                runs={f"{m} {t}": r for (m, t), r in runs.items()},
                step_s=med, base_step_s=base_step_s,
@@ -7013,10 +7061,273 @@ def run_tp_training(dev, mesh, base: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the other families' tensor-parallel training over one NCCL rank
+# ---------------------------------------------------------------------------
+
+def tpf_gemm_cases(dev, gen, extent: int):
+    """Phase 23b's forward GEMMs at a rank's shapes over a 'model' extent
+    of ``extent``, as (name, a, b, kwargs, save_preact): bert-110m's and
+    whisper-base's encoder (phases 9c and 9d: M 4096 and 6000, the
+    layernorm + beta prologue, the gelu up) and internvl2-2b's (phase 19c:
+    M 8192, q|k + rope at head_dim 128, the SwiGLU up) q|k and v on the
+    rank's heads, up on its F columns and the row-split down as its fp32
+    partial (``f32_product``); recurrentgemma-2b's geglu MLP (phase 16: M
+    8192) the same. The weights at std K^-1/2."""
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    cases = []
+    for tag, m, arch in (("bert", 4096, "bert-110m"),
+                         ("whisper_enc", 6000, "whisper-base"),
+                         ("ivl", IVL_TRAIN_BATCH * IVL_TRAIN_SEQ, IVL_ARCH),
+                         ("rg", RG_TRAIN_BATCH * RG_TRAIN_SEQ, RG_ARCH)):
+        cfg = get_config(arch)
+        d, hd = cfg.d_model, cfg.head_dim
+        h, hkv, f = (cfg.num_heads // extent, cfg.num_kv_heads // extent,
+                     cfg.d_ff // extent)
+        tag = f"{tag}_tp{extent}"
+        gamma = (1 + 0.1 * torch.randn(d, generator=gen,
+                                       device=dev)).to(bf16)
+        if cfg.norm == "layernorm":
+            pro = dict(prologue=Prologue(norm="layernorm", beta=True),
+                       gamma=gamma, beta=rnd(d, std=0.5))
+        else:
+            pro = dict(prologue=Prologue(norm="rmsnorm"), gamma=gamma)
+        x, wd = rnd(m, d), d ** -0.5
+        if arch != RG_ARCH:
+            qk = dict(pro)
+            if cfg.rope_style == "half":
+                seq = m // IVL_TRAIN_BATCH
+                sin, cos = rope_tables(torch.arange(seq, device=dev), hd,
+                                       cfg.rope_theta)
+                qk.update(epilogue=Epilogue(rope=True, head_dim=hd),
+                          sin=sin.repeat(IVL_TRAIN_BATCH, 1),
+                          cos=cos.repeat(IVL_TRAIN_BATCH, 1))
+            cases += [(f"{tag}_qk", x, rnd(d, (h + hkv) * hd, std=wd), qk),
+                      (f"{tag}_v", x, rnd(d, hkv * hd, std=wd), dict(pro))]
+        act = {"swiglu": "silu", "geglu": "gelu", "gelu": "gelu"}[cfg.mlp_act]
+        up = dict(pro, epilogue=Epilogue(activation=act,
+                                         gate=cfg.mlp_act != "gelu"))
+        if cfg.mlp_act != "gelu":
+            up["b2"] = rnd(d, f, std=wd)
+        cases += [(f"{tag}_up", x, rnd(d, f, std=wd), up),
+                  (f"{tag}_down_f32", rnd(m, f), rnd(f, d, std=f ** -0.5),
+                   dict(f32_product=True))]
+    return [(*c, False) for c in cases]
+
+
+def measure_tp_families(dev, gen, timer) -> dict:
+    """Phase 23b: phase 3's rows at the other families' ranks' shapes over
+    'model' extents TP_EXTENTS (``tpf_gemm_cases``, planned launches; their
+    backward from a bf16 cotangent), the flash forward and backward on the
+    rank's heads at the training shapes (bert 8 x 512 and whisper's encoder
+    4 x 1500 non-causal at head_dim 64, internvl2 4 x 2048 causal at 128,
+    recurrentgemma's 5 query heads over its one kv head at extent 2, 2 x
+    4096 causal in the 2048-token window at head_dim 256; its 10 heads run
+    whole at extent 4); and, in plain torch (the reference's ``jnp``), the
+    RG-LRU's ``proj_x``/``proj_gate`` columns and ``proj_out`` rows at the
+    rank's width, by CUDA events. Returns ({kernel name: rows}, {the
+    RG-LRU products' ms})."""
+    bf16 = torch.bfloat16
+    rows = {"gemm_fused": [], "flash_attention_fwd": [],
+            "flash_attention_bwd": []}
+    plain = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    for extent in TP_EXTENTS:
+        cases = tpf_gemm_cases(dev, gen, extent)
+        rows["gemm_fused"] += measure_gemm(None, dev, gen, timer,
+                                           cases=cases, sweep_plans=False)
+        bwd, _ = measure_gemm_bwd(
+            None, dev, gen, timer, sweep_widths=False,
+            cases=[(n, a, b, {k: v for k, v in kw.items()
+                              if k != "f32_product"})
+                   for n, a, b, kw, _ in cases])
+        for name, r in bwd.items():
+            rows.setdefault(name, []).extend(r)
+        del cases
+        for tag, arch, bsz, seq, causal, window in (
+                ("bert", "bert-110m", B_BATCH, B_SEQ, False, None),
+                ("whisper_enc", "whisper-base", W_TRAIN_BATCH, 1500, False,
+                 None),
+                ("ivl", IVL_ARCH, IVL_TRAIN_BATCH, IVL_TRAIN_SEQ, True, None),
+                ("rg", RG_ARCH, RG_TRAIN_BATCH, RG_TRAIN_SEQ, True, 2048)):
+            cfg = get_config(arch)
+            if cfg.num_heads % extent:
+                continue
+            hd, h = cfg.head_dim, cfg.num_heads // extent
+            hkv = max(1, cfg.num_kv_heads // extent)
+            qk = rnd(bsz, seq, (h + hkv) * hd)
+            q = qk[..., : h * hd].reshape(bsz, seq, h, hd).transpose(1, 2)
+            k = qk[..., h * hd:].reshape(bsz, seq, hkv, hd).transpose(1, 2)
+            v = rnd(bsz, seq, hkv * hd).reshape(bsz, seq, hkv,
+                                                hd).transpose(1, 2)
+            case = f"{tag}_tp{extent}_train"
+            fwd = flash_row(case, q, k, v, causal, timer, window=window)
+            del fwd["kernel"]
+            rows["flash_attention_fwd"].append(fwd)
+            do = rnd(bsz, seq, h, hd).transpose(1, 2)
+            rows["flash_attention_bwd"].append(
+                flash_bwd_row(case, q, k, v, do, causal, timer,
+                              window=window))
+            del qk, q, k, v, do
+        w = get_config(RG_ARCH).rglru.lru_width // extent
+        d = get_config(RG_ARCH).d_model
+        x = rnd(RG_TRAIN_BATCH * RG_TRAIN_SEQ, d)
+        wx, wo = rnd(d, w), rnd(w, d)
+        hs = rnd(RG_TRAIN_BATCH * RG_TRAIN_SEQ, w)
+        plain[f"rglru_proj_x_tp{extent}"] = event_ms(lambda: x @ wx)
+        plain[f"rglru_proj_out_tp{extent}"] = event_ms(lambda: hs @ wo)
+        del x, wx, wo, hs
+    for name, rs in rows.items():
+        log(f"[23b] {name} at the ranks' shapes: "
+            + "; ".join(f"{r['case']} {r['ms'] * 1e3:.1f} us (bound "
+                        f"{r['bound_ms'] * 1e3:.2f}, plain "
+                        f"{r['plain_ms'] * 1e3:.1f}, library "
+                        + ("none" if r["library_ms"] is None
+                           else f"{r['library_ms'] * 1e3:.1f}") + ")"
+                        for r in rs))
+    log(f"[23b] the RG-LRU's products in plain torch (bf16 matmul, M "
+        f"{RG_TRAIN_BATCH * RG_TRAIN_SEQ}; proj_gate as proj_x): "
+        + "; ".join(f"{k} {v * 1e3:.1f} us" for k, v in plain.items()))
+    return rows, plain
+
+
+def tpf_cfg(arch: str):
+    """Phase 23a's config of ``arch``: published width, the depth cut to
+    TPF_LAYERS' (None: whole)."""
+    cfg = get_config(arch)
+    layers = TPF_LAYERS[arch]
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def tpf_run(dev, cfg, mode: str, params, batches, mesh=None) -> dict:
+    """TPF_STEPS steps of ``cfg`` in ``mode`` from ``params`` on
+    ``batches``: the single-device trainer, or with ``mesh`` the split
+    step (ZeRO-1) at the mesh's extents, its 'model' collectives counted
+    (the ``obs`` counters "tp.*"). Returns the losses, step seconds,
+    launches, the counters and the final params."""
+    model = build_model(cfg, mode=mode, device=dev, mesh=mesh)
+    opt = AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 2, TPF_STEPS))
+    if mesh is None:
+        state = init_state(model, params=params)
+        step = make_train_step(model, opt)
+    else:
+        state = sharded_init(model, 0, mesh, zero1=True, params=params)
+        step = make_train_step(model, opt, mesh=mesh, zero1=True)
+    losses, secs = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with obs.capture() as cap:
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            secs.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_seconds": secs,
+            "launches": kernels.launch_counts(),
+            "counters": {k: v for k, v in cap.counters.items()
+                         if k.startswith("tp.")},
+            "params": {k: v.detach() for k, v in
+                       named_leaves(state["params"])}}
+
+
+def run_tp_families(dev, mesh) -> dict:
+    """23a: each of TPF_LAYERS' families at published width (bert-110m and
+    whisper-base whole, internvl2-2b at 2 layers, recurrentgemma-2b at one
+    ('rg', 'rg', 'local') group, mamba2-130m at 4 layers), weights at a
+    trained model's scale, TPF_STEPS steps of ``make_batch`` batches
+    (TPF_BATCH x TPF_SEQ tokens; bert B_SEQ positions, internvl2's
+    counting its patches), the split step at a 'model' extent of 1 against
+    the single-device step: on the plain bf16 path the losses and the
+    updated params bit for bit; in kernel mode within 2 x the spread of
+    two single runs + 0.01; 0 'model' collectives; launches equal to the
+    single step's; the step times side by side."""
+    out = {}
+    for arch in TPF_LAYERS:
+        t0 = time.perf_counter()
+        tag = f"23a {arch}"
+        base = tpf_cfg(arch)
+        seq = B_SEQ if base.family == "encoder" else TPF_SEQ
+        bsz = TPF_BATCH * TPF_SEQ // seq
+        gen = torch.Generator(device=dev).manual_seed(23)
+        batches = [make_batch(base, bsz, seq, generator=gen)
+                   for _ in range(TPF_STEPS)]
+        probe = build_model(base, mode="reference", device=dev)
+        params = trained_scale(probe, probe.init(seed=0,
+                                                 dtype=base.param_dtype))
+        del probe
+        runs = {}
+        for mode in ("reference", "kernel"):
+            cfg = dataclasses.replace(base, compute_dtype="bfloat16")
+            for run in (("single", "again", "mesh") if mode == "kernel"
+                        else ("single", "mesh")):
+                r = tpf_run(dev, cfg, mode, params, batches,
+                            mesh if run == "mesh" else None)
+                if mode == "kernel":
+                    del r["params"]
+                runs[mode, run] = r
+                torch.cuda.empty_cache()
+        plain_s, plain_m = runs["reference", "single"], runs["reference",
+                                                             "mesh"]
+        diff = [k for k, v in plain_s["params"].items()
+                if not torch.equal(v, plain_m["params"][k])]
+        if plain_s["losses"] != plain_m["losses"] or diff:
+            raise AssertionError(f"[{tag}] plain bf16: the split step is not "
+                                 f"the single-device step bit for bit "
+                                 f"(losses {plain_m['losses']} vs "
+                                 f"{plain_s['losses']}; leaves {diff[:5]})")
+        for r in (plain_s, plain_m):
+            del r["params"]
+        k1, k2, km = (runs["kernel", t] for t in ("single", "again", "mesh"))
+        spread = max(abs(a - b) for a, b in zip(k1["losses"], k2["losses"]))
+        gap = max(abs(a - b) for a, b in zip(k1["losses"], km["losses"]))
+        if not gap <= 2 * spread + 0.01 or not all(
+                np.isfinite(km["losses"])):
+            raise AssertionError(f"[{tag}] kernel: split losses "
+                                 f"{km['losses']} vs {k1['losses']} (spread "
+                                 f"{spread:.4g})")
+        for mode in ("reference", "kernel"):
+            single, meshed = runs[mode, "single"], runs[mode, "mesh"]
+            if meshed["launches"] != single["launches"]:
+                raise AssertionError(f"[{tag}] {mode}: split launches "
+                                     f"{meshed['launches']}, single "
+                                     f"{single['launches']}")
+            if meshed["counters"].get("tp.collectives", 0):
+                raise AssertionError(f"[{tag}] {mode}: {meshed['counters']} "
+                                     "'model' collectives over one rank")
+        med = {f"{m_} {t_}": statistics.median(r["step_seconds"][1:])
+               for (m_, t_), r in runs.items()}
+        per = {k: v // TPF_STEPS for k, v in km["launches"].items() if v}
+        log(f"[{tag}] {base.name}, {base.num_layers} layers at published "
+            f"width, {TPF_STEPS} steps of {bsz} x {seq}: plain bf16 split "
+            f"step bit for bit the single-device one (losses "
+            f"{[round(x, 5) for x in plain_s['losses']]}); kernel split "
+            f"{gap:.4g} from single (bound 2 x {spread:.4g} + 0.01); 0 "
+            f"'model' collectives, launches equal (a step {per}); step s (median after the first) "
+            f"{ {k: round(v, 4) for k, v in med.items()} }, split / single "
+            f"kernel {med['kernel mesh'] / med['kernel single']:.3f}, plain "
+            f"{med['reference mesh'] / med['reference single']:.3f}")
+        out[tag] = {"launches": km["launches"],
+                    "runs": {f"{m_} {t_}": r for (m_, t_), r in runs.items()},
+                    "kernel_spread": spread, "kernel_gap": gap,
+                    "step_s": med, "seconds": time.perf_counter() - t0}
+        del runs, params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_distributed(dev, m: Models, base_step_s: float, gen,
                     moe_base: dict) -> tuple:
-    """Phases 21 (21a-21d) and 22a inside one NCCL process group of world
-    size 1; ``m``: phase 20's models, freed after 21a; ``moe_base``:
+    """Phases 21 (21a-21d), 22a and 23a inside one NCCL process group of
+    world size 1; ``m``: phase 20's models, freed after 21a; ``moe_base``:
     phase 13b's record. Returns (the phases, the ring panels' rows for
     phase 3's gemm_fused)."""
     t0 = time.perf_counter()
@@ -7034,7 +7345,10 @@ def run_distributed(dev, m: Models, base_step_s: float, gen,
         log(f"[21] phase 21 in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         out.update(run_tp_training(dev, mesh, moe_base))
-    log(f"[22] phase 22a in {time.perf_counter() - t0:.1f} s")
+        log(f"[22] phase 22a in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out.update(run_tp_families(dev, mesh))
+    log(f"[23] phase 23a in {time.perf_counter() - t0:.1f} s")
     return out, rows
 
 
@@ -7108,6 +7422,12 @@ def main(argv=None) -> int:
     for name, rows in measure_tp(dev, gen, timer).items():
         measured[name] += rows
     log(f"[22b] the ranks' rows in {time.perf_counter() - t_tp:.1f} s")
+    t_tp = time.perf_counter()
+    tpf_rows, rglru_ms = measure_tp_families(dev, gen, timer)
+    for name, rows in tpf_rows.items():
+        measured[name] += rows
+    log(f"[23b] the other families' ranks' rows in "
+        f"{time.perf_counter() - t_tp:.1f} s")
     for name, rows in measured.items():
         for r in rows:
             lib = ("none" if r["library_ms"] is None
@@ -7210,7 +7530,7 @@ def main(argv=None) -> int:
                                              phases["13b"])
     phases.update(dist_phases)
     measured["gemm_fused"] += ring_rows
-    log(f"[done] phases 21 and 22 at {time.perf_counter() - t0:.1f} s")
+    log(f"[done] phases 21, 22 and 23 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -7227,7 +7547,8 @@ def main(argv=None) -> int:
                             + MOE_TRAIN_PHASES + TELEMETRY_PHASES
                             + RG_PHASES + RG_TRAIN_PHASES + M2_PHASES
                             + M2_TRAIN_PHASES + IVL_PHASES + MAV_PHASES
-                            + DIST_PHASES + TP_TRAIN_PHASES),
+                            + DIST_PHASES + TP_TRAIN_PHASES
+                            + TPF_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -7241,6 +7562,7 @@ def main(argv=None) -> int:
               "verify_vs_serial_logit_diff":
                   spec["verify_vs_serial_logit_diff"],
               "gemm_bwd_whole": bwd_whole, "sass": sass,
+              "rglru_products_tp_ms": rglru_ms,
               "timer_floor": floors}
     if args.out:
         os.makedirs(args.out, exist_ok=True)

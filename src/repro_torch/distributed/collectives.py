@@ -163,6 +163,21 @@ class _GatherCat(torch.autograd.Function):
         return out, None, None, None
 
 
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        _count()
+        if x.dtype in (torch.bfloat16, torch.float16):
+            return sum_scatter(x.float(), dim, group).to(x.dtype)
+        return sum_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count()
+        return all_gather_cat(g, ctx.dim, ctx.group), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -202,6 +217,14 @@ def gather_cat(x, dim: int, group, grad: str = "sum"):
     if grad not in ("sum", "own"):
         raise ValueError(f"gather_cat: grad {grad!r} is 'sum' or 'own'")
     return x if _alone(group) else _GatherCat.apply(x, dim, group, grad)
+
+
+def scatter_sum(x, dim: int, group):
+    """:func:`sum_scatter` under autograd (a low-precision ``x`` summed in
+    fp32, rounded once): the ranks' partial sums leaving split work as the
+    rank's own block along ``dim``; the backward all-gathers the blocks'
+    grads, which every rank's partial needs whole."""
+    return x if _alone(group) else _SumScatter.apply(x, dim, group)
 
 
 def all_to_all_grad(x, group):

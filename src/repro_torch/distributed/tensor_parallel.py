@@ -31,6 +31,21 @@ counter "tp.gathered_leaves". Where the extent does not divide H, or the
 FFN or vocab dim, those leaves are replicated by the rules and the block
 runs whole on every rank, as on one device.
 
+The recurrent blocks split by the same rules. An RG-LRU block runs the
+rank's ``w / n`` channels (``proj_x``/``proj_gate`` columns, the
+replicated per-channel leaves through f); its gate products take the
+rank's rows of ``w_a`` and ``w_i``, so their pre-activations are partial
+sums, summed in rank order and cut to the rank's channels
+(``collectives.scatter_sum``), and its ``proj_out`` rows end in g. A
+Mamba2 block's packed ``in_proj`` (z | x | B | C | dt) is held
+head-aligned as q|k is (:func:`ssm_permutation`): rank r's block is its
+z and x heads, its ``2GN / n`` of the B|C columns and its dt heads. The
+B|C projection is all-gathered (every head reads its group's B and C),
+the gated RMSNorm's mean square over ``d_inner`` is summed over the
+ranks, and ``out_proj``'s rows end in g. Where the extent does not divide
+the heads or the B|C columns the block runs whole, its split leaves
+gathered and counted.
+
 At a 'model' extent of 1 the same code runs, f, g, the gathers and the
 all-to-alls returning their input, and the numbers are the single-device
 step's bit for bit on the plain path.
@@ -43,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.models import ssm as models_ssm
 from . import collectives as col
 from .sharding import mesh_shape, spec_for
 
@@ -89,30 +105,66 @@ def qk_permutation(h: int, hkv: int, hd: int, n: int):
     return np.concatenate(cols)
 
 
+def ssm_permutation(cfg, n: int):
+    """The head-aligned layout of Mamba2's packed ``in_proj`` dim (z | x |
+    B|C | dt) over ``n`` ranks: ``perm`` with ``aligned =
+    reference[..., perm]``, whose contiguous block r is rank r's columns
+    (``models.ssm.in_proj_segments``); None where there is nothing to
+    permute (n 1, no SSM, or n not dividing the heads and 2GN)."""
+    if n == 1 or not _ssm_splits(cfg, n):
+        return None
+    return np.concatenate([np.arange(c.start, c.stop) for r in range(n)
+                           for c in models_ssm.in_proj_segments(cfg, n, r)])
+
+
+def _ssm_splits(cfg, n: int) -> bool:
+    """Whether ``n`` divides the config's Mamba2 heads and B|C columns."""
+    if cfg.ssm is None:
+        return False
+    d_inner, h, conv_dim, _ = models_ssm.ssm_dims(cfg)
+    return h % n == 0 and (conv_dim - d_inner) % n == 0
+
+
 def param_layouts(model, mesh) -> dict:
     """{parameter path: (dim, perm)} of the leaves held in the head-aligned
     layout (the packed q|k leaves, where :func:`qk_permutation` is not
-    None); empty at a 'model' extent of 1. ``state.state_shardings``
-    attaches each to its leaf's spec."""
+    None, and Mamba2's ``in_proj``, where :func:`ssm_permutation` is not);
+    empty at a 'model' extent of 1. ``state.state_shardings`` attaches each
+    to its leaf's spec."""
     cfg = model.cfg
     n = mesh_shape(mesh).get("model", 1)
-    perm = qk_permutation(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, n)
-    if perm is None:
-        return {}
+    perms = {"wqk": qk_permutation(cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.head_dim, n),
+             "in_proj": ssm_permutation(cfg, n)}
+    perms["bqk"] = perms["wqk"]
     out = {}
     for path, d in model.defs.items():
-        if path.rsplit("/", 1)[-1] in ("wqk", "bqk"):
-            dim = len(d.shape) - 1
-            if spec_for(d.shape, d.axes, mesh)[dim] == "model":
-                out[path] = (dim, perm)
+        perm = perms.get(path.rsplit("/", 1)[-1])
+        if perm is None:
+            continue
+        dim = len(d.shape) - 1
+        if spec_for(d.shape, d.axes, mesh)[dim] == "model":
+            out[path] = (dim, perm)
     return out
 
 
 def _select(x, dim: int, index):
-    """``x``'s entries ``index`` (a range or a list) along ``dim``,
-    contiguous (the GEMM kernel's operands are)."""
+    """``x``'s entries ``index`` (a range, a tuple of ranges, taken in
+    turn, or a list) along ``dim``, contiguous (the GEMM kernel's operands
+    are). Ranges are narrowed views, adjacent ones joined into one, so no
+    index crosses to the device and a run of the whole dim is ``x``."""
     if isinstance(index, range) and index.step == 1:
-        return x.narrow(dim, index.start, len(index)).contiguous()
+        index = (index,)
+    if isinstance(index, tuple):
+        runs = []
+        for r in index:
+            if runs and runs[-1][1] == r.start:
+                runs[-1][1] = r.stop
+            else:
+                runs.append([r.start, r.stop])
+        parts = [x.narrow(dim, a, b - a) for a, b in runs]
+        return (parts[0].contiguous() if len(parts) == 1
+                else torch.cat(parts, dim))
     return x.index_select(dim, torch.as_tensor(list(index),
                                                device=x.device))
 
@@ -145,11 +197,16 @@ class TensorParallel:
                         if e == axis), None)
             self._held["/".join(path.split("/")[-2:])] = dim
         self.ffn_split = cfg.d_ff % self.n == 0
-        v = cfg.padded_vocab()
-        self.vocab_rows = (v // self.n if self._held.get("embed") == 0
-                           else None)
-        self.head_cols = (v // self.n if not cfg.tie_embeddings
+        # the vocab-parallel lookup, head and cross entropy; at one rank the
+        # plain ones (the same numbers, fewer ops)
+        v = model.defs["embed"].shape[0]
+        split = self.n > 1
+        self.vocab_rows = (v // self.n if split
+                           and self._held.get("embed") == 0 else None)
+        self.head_cols = (v // self.n if split and not cfg.tie_embeddings
                           and self._held.get("lm_head") == 1 else None)
+        self.ssm_groups = (_ssm_groups(cfg, self.n, self.rank)
+                           if cfg.ssm is not None else None)
 
     # the collectives over the axis
     def f(self, x):
@@ -160,6 +217,11 @@ class TensorParallel:
 
     def gather(self, x, dim: int, grad: str):
         return col.gather_cat(x, dim, self.group, grad=grad)
+
+    def scatter(self, x, dim: int):
+        """The ranks' partial sums of ``x``, the rank's block along ``dim``
+        (a reduce-scatter in rank order)."""
+        return col.scatter_sum(x, dim, self.group)
 
     def held(self, key: str):
         """The dim of leaf ``key`` ("attn/wqk", "embed", ...) split over
@@ -191,13 +253,15 @@ class TensorParallel:
     # ------------------------------------------------------------------
     # attention
     # ------------------------------------------------------------------
-    def attn_params(self, p: dict) -> dict:
-        """One attention layer's leaves as the rank uses them: its q|k
+    def attn_params(self, p: dict, key: str = "attn") -> dict:
+        """One attention layer's leaves (under ``key``: "attn", or "xattn"
+        for a cross-attention layer, whose q columns project the decoder's
+        stream and k, v the encoder's) as the rank uses them: its q|k
         columns, v columns and wo rows under :attr:`heads`, or every leaf
         whole where the heads do not split."""
         hp, cfg = self.heads, self.cfg
         if hp is None:
-            return {k: self.whole(v, f"attn/{k}") for k, v in p.items()}
+            return {k: self.whole(v, f"{key}/{k}") for k, v in p.items()}
         hd, h = cfg.head_dim, cfg.num_heads
         q = range(hp.q0 * hd, (hp.q0 + hp.hq) * hd)
         k_cols = (range(h * hd + hp.kv[0] * hd, h * hd + (hp.kv[-1] + 1) * hd)
@@ -209,13 +273,13 @@ class TensorParallel:
         for name, leaf in p.items():
             last = leaf.dim() - 1
             if name in ("wqk", "bqk"):
-                out[name] = self.take(leaf, f"attn/{name}", last, qk,
+                out[name] = self.take(leaf, f"{key}/{name}", last, qk,
                                       hp.aligned)
             elif name in ("wv", "bv"):
-                out[name] = self.take(leaf, f"attn/{name}", last, v_cols,
+                out[name] = self.take(leaf, f"{key}/{name}", last, v_cols,
                                       hp.aligned)
             elif name == "wo":
-                out[name] = self.take(leaf, "attn/wo", 0, q, True)
+                out[name] = self.take(leaf, f"{key}/wo", 0, q, True)
             else:
                 raise KeyError(f"attention leaf {name!r}")
         return out
@@ -261,3 +325,61 @@ class TensorParallel:
                                       range(self.rank * size,
                                             (self.rank + 1) * size), True)
         return out
+
+    # ------------------------------------------------------------------
+    # the recurrent blocks
+    # ------------------------------------------------------------------
+    def rglru_params(self, p: dict):
+        """One RG-LRU block's leaves as the rank uses them: its ``w / n``
+        channels (``proj_x``/``proj_gate`` columns, ``proj_out``, ``w_a``
+        and ``w_i`` rows: the held blocks; ``conv_w``, ``conv_b``, ``b_a``,
+        ``b_i`` and ``lambda`` through f), or None where the rules do not
+        split the width (every leaf replicated: the block runs whole)."""
+        w = self.cfg.rglru.lru_width or self.cfg.d_model
+        if w % self.n:
+            return None
+        size = w // self.n
+        ch = range(self.rank * size, (self.rank + 1) * size)
+        return {k: self.take(v, f"rec/{k}", 1 if k in ("proj_x", "proj_gate")
+                             else 0, ch, True) for k, v in p.items()}
+
+    def ssm_params(self, p: dict):
+        """One Mamba2 block's leaves as the rank uses them: its head-aligned
+        ``in_proj`` block (:func:`ssm_permutation`), its ``out_proj`` rows,
+        its heads' ``a_log``, ``d_skip``, ``dt_bias`` and ``norm_scale``
+        channels, and the convolution's rows of its x channels and of the
+        whole B|C (through f); or None where the extent does not divide the
+        heads and 2GN (the block runs whole)."""
+        if self.ssm_groups is None:
+            return None
+        cfg, n, r = self.cfg, self.n, self.rank
+        d_inner, h, conv_dim, _ = models_ssm.ssm_dims(cfg)
+        blk = models_ssm.in_proj_segments(cfg, n, r)
+        xs, heads = blk[0], range(r * h // n, (r + 1) * h // n)
+        conv = (xs, range(d_inner, conv_dim))
+        where = {"in_proj": (1, blk), "out_proj": (0, xs),
+                 "conv_w": (0, conv), "conv_b": (0, conv),
+                 "norm_scale": (0, xs), "a_log": (0, heads),
+                 "d_skip": (0, heads), "dt_bias": (0, heads)}
+        return {k: self.take(v, f"ssm/{k}", *where[k], True)
+                for k, v in p.items()}
+
+
+def _ssm_groups(cfg, n: int, rank: int):
+    """The B|C groups the rank's heads read and their heads a group:
+    (first group, groups, heads a group), or None where the extent does not
+    divide the heads and 2GN. Raises where the rank's heads span a part of
+    a group's heads that is not whole (a split the port does not make)."""
+    if not _ssm_splits(cfg, n):
+        return None
+    h = models_ssm.ssm_dims(cfg)[1]
+    g, hl = cfg.ssm.n_groups, h // n
+    rep = h // g
+    if g % n == 0:
+        return (rank * g // n, g // n, rep)
+    if rep % hl == 0:
+        return (rank * hl // rep, 1, hl)
+    raise NotImplementedError(
+        f"{cfg.name}: Mamba2's {h} heads in {g} B|C groups do not split "
+        f"over a 'model' extent of {n} ({hl} heads a rank across groups of "
+        f"{rep})")

@@ -10,6 +10,8 @@
   PYTHONPATH=src torchrun --nproc_per_node 4 -m \\
       repro_torch.launch.profile_train --arch llama-1b --batch 4 --seq 1024 \\
       --mesh --zero1 --model-axis 1 --out DIR
+  (any arch over the mesh, e.g. --arch recurrentgemma-2b --layers 6 --batch
+  4 --seq 2048 --mesh --zero1 --model-axis 2)
 
 Builds the model in kernel mode with seeded random fp32 masters, runs two
 warm-up steps on the training launcher's data (the reference's synthetic
@@ -22,7 +24,8 @@ traced step, and the peak device memory. Needs a CUDA card; writes
 ``DIR/profile_train.json`` and prints one summary line. With ``--mesh``,
 under ``torchrun``, the step is ``make_train_step(mesh=)``'s over the
 launch's (world / ``--model-axis``, ``--model-axis``) mesh, as
-``launch/train.py --mesh`` trains, each rank on its rows of the global
+``launch/train.py --mesh`` trains (every arch, every family split over
+'model' by the reference's rules), each rank on its rows of the global
 ``--batch``; every rank prints its line (the NCCL kernels are the family
 "nccl"), the first writes its report.
 """
@@ -91,7 +94,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--zero1", action="store_true",
                     help="with --mesh: the moments sliced over 'data'")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="with --mesh: the 'model' extent")
+                    help="with --mesh: the 'model' extent (any arch)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not args.mesh:

@@ -21,6 +21,9 @@ data, with the model in kernel mode.
       --arch llama-1b --steps 4 --batch 4 --seq 1024 --mesh --zero1
   PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
       --tiny --device cpu --steps 4 --seq 64 --mesh --zero1 --model-axis 2
+  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --arch mamba2-130m --steps 6 --batch 8 --seq 1024 --mesh --zero1 \\
+      --model-axis 4
 
 The decoders and bert-110m take the LM pipeline's batches
 (``data.DataIterator``), as the reference's launcher feeds every arch;
@@ -43,10 +46,11 @@ the decoder's or encoder's sequence) and the peak device memory.
 ``--mesh`` trains over every process of a ``torchrun`` world
 (``make_host_mesh``: NCCL and one card per process, or gloo with
 ``--device cpu``): data parallel over (world / ``--model-axis``) 'data'
-ranks, each on its rows of the global ``--batch`` (the LM pipeline's
-families), and tensor parallel over ``--model-axis`` 'model' ranks (the
-'lm' family's attention-kind stacks), ``--zero1`` with the optimizer
-moments sliced over the 'data' ranks; the first rank prints.
+ranks, each on its rows of the global ``--batch``, and tensor parallel
+over ``--model-axis`` 'model' ranks (every arch: the attention heads,
+FFN, experts, RG-LRU channels, Mamba2 heads and vocab by the reference's
+rules), ``--zero1`` with the optimizer moments sliced over the 'data'
+ranks; the first rank prints.
 """
 from __future__ import annotations
 
@@ -71,13 +75,10 @@ def train_batches(cfg, batch: int, seq: int, *, seed: int = 0, device,
                   mesh=None):
     """The launcher's data: ``MadeBatches`` for the enc-dec and vlm
     families (their batches carry the stub frontend's embeddings), else the
-    LM pipeline's iterator (over ``mesh``: this rank's rows)."""
+    LM pipeline's iterator; over ``mesh`` this rank's rows of either."""
     if cfg.family in ("encdec", "vlm"):
-        if mesh is not None:
-            raise ValueError(f"--mesh: the {cfg.family!r} family's batches "
-                             "are made whole; data parallel runs on the LM "
-                             "pipeline's families")
-        return MadeBatches(cfg, batch, seq, seed=seed, device=device)
+        return MadeBatches(cfg, batch, seq, seed=seed, device=device,
+                           mesh=mesh)
     return DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                    global_batch=batch, seed=seed),
                         device=device, mesh=mesh)

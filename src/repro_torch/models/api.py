@@ -17,10 +17,10 @@ and data axes) the LM's MoE blocks run ``moe_forward``'s expert- or
 tensor-parallel path over it, and a rank holds its own slice of the
 experts (:meth:`Model.local_params`); every other leaf is whole on every
 rank. The training step over a mesh sets ``tp`` (a
-``distributed.tensor_parallel.TensorParallel``): then ``loss`` takes
-every leaf as the rank's block under the logical rules and splits the
-dense blocks, the embedding, the head and the cross entropy over
-'model'."""
+``distributed.tensor_parallel.TensorParallel``): then ``loss``, of every
+family, takes every leaf as the rank's block under the logical rules and
+splits the blocks (attention, MLP, MoE, RG-LRU and SSD), the embedding,
+the head and the cross entropy over 'model'."""
 from __future__ import annotations
 
 import dataclasses
@@ -132,13 +132,13 @@ class Model:
         masked-LM loss, the enc-dec's decoder loss."""
         if self.family == "vlm":
             return _vlm.vlm_loss(self.cfg, params, batch, mode=self.mode,
-                                 qkv_plan=self.qkv_plan)
+                                 qkv_plan=self.qkv_plan, tp=self.tp)
         if self.family == "encdec":
             return _ed.encdec_loss(self.cfg, params, batch, mode=self.mode,
-                                   qkv_plan=self.qkv_plan)
+                                   qkv_plan=self.qkv_plan, tp=self.tp)
         if self.family == "encoder":
             return _enc.encoder_loss(self.cfg, params, batch, mode=self.mode,
-                                     qkv_plan=self.qkv_plan)
+                                     qkv_plan=self.qkv_plan, tp=self.tp)
         return _lm.lm_loss(self.cfg, params, batch, **self._kw, tp=self.tp)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -232,13 +232,23 @@ class MadeBatches:
     """An endless stream of :func:`make_batch` batches for ``train_loop``,
     batch ``i`` drawn from a generator seeded with (seed, i), so a restart
     (``load_state_dict({"step": 0})``) replays the same batches, as
-    ``data.DataIterator`` does."""
+    ``data.DataIterator`` does. Over a ``mesh`` every rank draws the global
+    batch and keeps its rows of it (its block along 'data' where that
+    divides the batch, as ``data.local_rows``)."""
 
     def __init__(self, cfg, batch: int, seq_len: int, *, seed: int = 0,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, mesh=None):
         self.cfg, self.batch, self.seq_len, self.seed = cfg, batch, seq_len, seed
         self.device = resolve_device(device)
         self.step = 0
+        self.rows = None
+        if mesh is not None:
+            from repro_torch.data import DataConfig
+            from repro_torch.data.pipeline import local_rows
+
+            self.rows = local_rows(DataConfig(vocab_size=cfg.vocab_size,
+                                              seq_len=seq_len,
+                                              global_batch=batch), mesh)
 
     def __iter__(self):
         return self
@@ -247,7 +257,10 @@ class MadeBatches:
         gen = torch.Generator(device=self.device).manual_seed(
             self.seed * 1_000_003 + self.step)
         self.step += 1
-        return make_batch(self.cfg, self.batch, self.seq_len, generator=gen)
+        out = make_batch(self.cfg, self.batch, self.seq_len, generator=gen)
+        if self.rows is None:
+            return out
+        return {k: v[self.rows.start:self.rows.stop] for k, v in out.items()}
 
     def state_dict(self) -> dict:
         return {"step": self.step}

@@ -233,29 +233,38 @@ def _prologue_in_gemms(mode: str, qkv_plan: str, prenorm) -> bool:
             and qkv_plan in ("rope_fused", "norm_fused"))
 
 
-def split_attention_layer(cfg, p, x, *, tp, window, positions, mode: str,
-                          prenorm, qkv_plan: str):
-    """Self-attention on a tensor-parallel rank (``tp``, a
+def split_attention_layer(cfg, p, x, *, tp, window=None, positions=None,
+                          mode: str, prenorm, qkv_plan: str = "rope_fused",
+                          causal: bool = True, use_rope: bool = True,
+                          kv_input=None):
+    """``attention_layer`` on a tensor-parallel rank (``tp``, a
     ``distributed.tensor_parallel.TensorParallel``): the rank's heads
     through the same QKV ladder and flash kernel, its rows of ``wo``, the
     ranks' partial outputs summed (g). The replicated stream enters through
     f; where the norm rides in the GEMMs' prologue its scale and bias do
     too (their grads are partials there), else the norm runs on the
-    replicated stream first. Where the heads do not split over the extent
-    the layer runs whole on every rank."""
-    p = tp.attn_params(p)
+    replicated stream first. Cross-attention (``kv_input``, the replicated
+    encoder output, which enters through f as well) takes the standalone
+    norm and the plain projections, as on one device. Where the heads do
+    not split over the extent the layer runs whole on every rank."""
+    p = tp.attn_params(p, "attn" if kv_input is None else "xattn")
     heads = tp.local_heads
     if heads is None:
-        return attention_layer(cfg, p, x, window=window, positions=positions,
-                               mode=mode, prenorm=prenorm, qkv_plan=qkv_plan)
-    if _prologue_in_gemms(mode, qkv_plan, prenorm):
+        return attention_layer(cfg, p, x, causal=causal, window=window,
+                               kv_input=kv_input, positions=positions,
+                               mode=mode, prenorm=prenorm, qkv_plan=qkv_plan,
+                               use_rope=use_rope)
+    if kv_input is None and _prologue_in_gemms(mode, qkv_plan, prenorm):
         prenorm = tuple(None if t is None else tp.f(t) for t in prenorm)
     elif prenorm is not None:
         x, prenorm = apply_prenorm(cfg, x, prenorm), None
-    q, k, v = project_qkv_heads(cfg, p, tp.f(x), positions, mode=mode,
-                                prenorm=prenorm, qkv_plan=qkv_plan,
-                                heads=heads)
-    out = attend(cfg, q, k, v, window=window, mode=mode)
+    if kv_input is None:
+        q, k, v = project_qkv_heads(cfg, p, tp.f(x), positions, mode=mode,
+                                    prenorm=prenorm, qkv_plan=qkv_plan,
+                                    use_rope=use_rope, heads=heads)
+    else:
+        q, k, v = project_qkv(cfg, p, tp.f(x), tp.f(kv_input), heads=heads)
+    out = attend(cfg, q, k, v, window=window, mode=mode, causal=causal)
     return tp.g(_merge_heads(out) @ p["wo"])
 
 

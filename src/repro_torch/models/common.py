@@ -135,9 +135,14 @@ def nll_terms(logits, labels, *, tp=None):
 # Shared numerics (fp32 internally)
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x, scale, eps: float = 1e-6):
+def rmsnorm(x, scale, eps: float = 1e-6, reduce=None):
+    """RMSNorm over the last dim; ``reduce``, where given, maps the mean
+    square before its use (a tensor-parallel rank's sum over the ranks
+    that hold the rest of the dim)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if reduce is not None:
+        var = reduce(var)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 

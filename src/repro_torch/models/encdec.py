@@ -17,6 +17,13 @@ ring (``self``); a decode step reads the cross part and never writes it.
 As in ``lm``, the full-sequence forward casts the parameters to the
 compute type, and the prefill and the decode step take them cast already
 (``Model.init``, ``params_from_numpy``).
+
+Training on a tensor-parallel rank (``tp``, ``distributed.tensor_parallel``)
+splits both stacks by the reference's rules: each attention's heads (the
+cross-attention's too: q from the decoder's stream, k and v from the
+replicated encoder output, which enters each layer through f), the MLP's
+FFN columns, and the tied embedding's vocab rows with the vocab-parallel
+head and cross entropy where the extent divides the vocab.
 """
 from __future__ import annotations
 
@@ -28,10 +35,11 @@ from repro_torch.device import dtype_of
 from .attention import (attend, attention_layer, attn_defs,
                         decode_attention_layer, init_attn_cache,
                         prefill_attn_cache, project_qkv, project_qkv_heads,
-                        _merge_heads)
+                        split_attention_layer, _merge_heads)
 from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
-                     mlp_defs, mlp_forward, norm_defs, norm_params)
-from .lm import _remat, unstack_layers
+                     mlp_defs, mlp_forward, norm_defs, norm_params,
+                     split_mlp_forward)
+from .lm import _remat, _vocab_split, lookup, unstack_layers
 
 
 def sinusoidal_positions(length: int, dim: int, device=None):
@@ -66,20 +74,36 @@ def encdec_param_defs(cfg) -> dict:
     return defs
 
 
-def encoder_block(cfg, p, h, *, mode: str, qkv_plan: str = "rope_fused"):
+def _attention(cfg, p, x, *, tp, **kw):
+    """``attention_layer``, or on a tensor-parallel rank its split form."""
+    if tp is None:
+        return attention_layer(cfg, p, x, **kw)
+    return split_attention_layer(cfg, p, x, tp=tp, **kw)
+
+
+def _mlp(cfg, p, x, *, tp, **kw):
+    """``mlp_forward``, or on a tensor-parallel rank its split form."""
+    if tp is None:
+        return mlp_forward(cfg, p, x, **kw)
+    return split_mlp_forward(cfg, p, x, tp=tp, **kw)
+
+
+def encoder_block(cfg, p, h, *, mode: str, qkv_plan: str = "rope_fused",
+                  tp=None):
     """One bidirectional block on the pre-norm stream: ln1 and ln2 ride into
     the attention and MLP layers as ``prenorm`` (the kernel mode folds them
-    into the q|k, v and up GEMMs' prologues)."""
-    a = attention_layer(cfg, p["attn"], h, causal=False, mode=mode,
-                        use_rope=False, prenorm=norm_params(p, "ln1"),
-                        qkv_plan=qkv_plan)
+    into the q|k, v and up GEMMs' prologues). ``tp``: a tensor-parallel
+    rank's split of the block."""
+    a = _attention(cfg, p["attn"], h, tp=tp, causal=False, mode=mode,
+                   use_rope=False, prenorm=norm_params(p, "ln1"),
+                   qkv_plan=qkv_plan)
     h = h + a
-    return mlp_forward(cfg, p["mlp"], h, mode=mode, residual=h,
-                       prenorm=norm_params(p, "ln2"))
+    return _mlp(cfg, p["mlp"], h, tp=tp, mode=mode, residual=h,
+                prenorm=norm_params(p, "ln2"))
 
 
 def encode(cfg, params, enc_embeds, *, mode: str = "reference",
-           qkv_plan: str = "rope_fused", remat: bool = False):
+           qkv_plan: str = "rope_fused", remat: bool = False, tp=None):
     """enc_embeds: (B, S_enc, D) stub-frontend output -> (B, S_enc, D). The
     sinusoidal table is added in the compute type, both addends cast first,
     as the reference does. ``remat``: each block recomputed in the
@@ -89,7 +113,7 @@ def encode(cfg, params, enc_embeds, *, mode: str = "reference",
     x = enc_embeds.to(cd) + sinusoidal_positions(
         s, cfg.d_model, enc_embeds.device).to(cd)
     block = functools.partial(encoder_block, cfg, mode=mode,
-                              qkv_plan=qkv_plan)
+                              qkv_plan=qkv_plan, tp=tp)
     if remat:
         block = _remat(cfg, block)
     for p in unstack_layers(params["enc"], cfg.encoder_layers):
@@ -98,56 +122,67 @@ def encode(cfg, params, enc_embeds, *, mode: str = "reference",
 
 
 def _dec_block(cfg, p, x, enc_out, *, mode: str = "reference",
-               qkv_plan: str = "rope_fused"):
-    a = attention_layer(cfg, p["attn"], x, causal=True, mode=mode,
-                        use_rope=False, prenorm=norm_params(p, "ln1"),
-                        qkv_plan=qkv_plan)
+               qkv_plan: str = "rope_fused", tp=None):
+    a = _attention(cfg, p["attn"], x, tp=tp, causal=True, mode=mode,
+                   use_rope=False, prenorm=norm_params(p, "ln1"),
+                   qkv_plan=qkv_plan)
     x = x + a
-    c = attention_layer(cfg, p["xattn"], x, causal=False, kv_input=enc_out,
-                        mode=mode, use_rope=False,
-                        prenorm=norm_params(p, "lnx"))
+    c = _attention(cfg, p["xattn"], x, tp=tp, causal=False,
+                   kv_input=enc_out, mode=mode, use_rope=False,
+                   prenorm=norm_params(p, "lnx"))
     x = x + c
-    return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       prenorm=norm_params(p, "ln2"))
+    return _mlp(cfg, p["mlp"], x, tp=tp, mode=mode, residual=x,
+                prenorm=norm_params(p, "ln2"))
 
 
-def _embed_tokens(cfg, params, tokens):
+def _embed_tokens(cfg, params, tokens, tp=None):
     """Token embeddings plus the learned positions [0, S)."""
     cd = dtype_of(cfg.compute_dtype)
-    return params["embed"][tokens].to(cd) + \
+    return lookup(params["embed"], tokens, tp).to(cd) + \
         params["dec_pos"][:tokens.shape[1]].to(cd)
 
 
-def _logits(cfg, params, x):
-    x = apply_norm(cfg, x, params, "final_norm")
-    return x.float() @ params["embed"].T.float()
+def _logits(cfg, params, x, tp=None):
+    """The tied head's fp32 logits of the final norm of ``x``; on a
+    tensor-parallel rank whose table holds vocab rows the rank's columns,
+    the replicated norm entering through f."""
+    x = apply_norm(cfg, x, params, "final_norm").float()
+    if _vocab_split(cfg, tp):
+        x = tp.f(x)
+    return x @ params["embed"].T.float()
 
 
 def encdec_forward(cfg, params, batch, *, mode: str = "reference",
-                   qkv_plan: str = "rope_fused", remat: bool = False):
+                   qkv_plan: str = "rope_fused", remat: bool = False,
+                   tp=None):
     """batch: {'encoder_embeds': (B, S_enc, D), 'inputs': (B, S)} -> logits
     (B, S, V) fp32; with ``remat`` every encoder and decoder block is
     recomputed in the backward. (The reference also returns an auxiliary
-    loss of 0.)"""
+    loss of 0.) ``tp``: ``params`` are a tensor-parallel rank's blocks, the
+    logits its vocab columns where the table's rows are split."""
     params = cast_params(params, dtype_of(cfg.compute_dtype))
     enc_out = encode(cfg, params, batch["encoder_embeds"], mode=mode,
-                     qkv_plan=qkv_plan, remat=remat)
-    x = _embed_tokens(cfg, params, batch["inputs"])
-    block = functools.partial(_dec_block, cfg, mode=mode, qkv_plan=qkv_plan)
+                     qkv_plan=qkv_plan, remat=remat, tp=tp)
+    x = _embed_tokens(cfg, params, batch["inputs"], tp)
+    block = functools.partial(_dec_block, cfg, mode=mode, qkv_plan=qkv_plan,
+                              tp=tp)
     if remat:
         block = _remat(cfg, block)
     for p in unstack_layers(params["dec"], cfg.num_layers):
         x = block(p, x, enc_out)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, tp)
 
 
 def encdec_loss(cfg, params, batch, *, mode: str = "reference",
-                remat: bool = True, qkv_plan: str = "rope_fused"):
+                remat: bool = True, qkv_plan: str = "rope_fused", tp=None):
     """(loss, {"ce", "aux"}): the masked mean cross entropy of the batch
-    {"encoder_embeds", "inputs", "targets"[, "loss_mask"]}; aux is 0."""
+    {"encoder_embeds", "inputs", "targets"[, "loss_mask"]}; aux is 0.
+    ``tp``: replicated over 'model' (the vocab-parallel cross entropy where
+    the head is split)."""
     logits = encdec_forward(cfg, params, batch, mode=mode, qkv_plan=qkv_plan,
-                            remat=remat)
-    ce = cross_entropy_loss(logits, batch["targets"], batch.get("loss_mask"))
+                            remat=remat, tp=tp)
+    ce = cross_entropy_loss(logits, batch["targets"], batch.get("loss_mask"),
+                            tp=tp if _vocab_split(cfg, tp) else None)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=logits.device)}
 

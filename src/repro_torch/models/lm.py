@@ -46,21 +46,22 @@ from .common import (ParamDef, apply_norm, cast_params, cross_entropy_loss,
                      split_mlp_forward, tree_map)
 from .moe import moe_defs, moe_forward, resolve_impl
 from .rglru import (init_rglru_cache, rglru_decode_step, rglru_defs,
-                    rglru_forward, rglru_prefill)
+                    rglru_forward, rglru_prefill, split_rglru_forward)
 from .ssm import (init_ssm_cache, ssm_decode_step, ssm_defs, ssm_forward,
-                  ssm_prefill)
+                  ssm_prefill, split_ssm_forward)
 
 ATTENTION_KINDS = ("attn", "local", "moe")
 # a recurrent block kind -> the key of its core's params, its core's
-# (full-sequence forward, prefill, decode step) and its cache's constructor
+# (full-sequence forward, prefill, decode step, full-sequence forward on a
+# tensor-parallel rank) and its cache's constructor
 RECURRENT = {
-    "rg": ("rec", (rglru_forward, rglru_prefill, rglru_decode_step),
-           init_rglru_cache),
-    "ssm": ("ssm", (ssm_forward, ssm_prefill, ssm_decode_step),
-            init_ssm_cache),
+    "rg": ("rec", (rglru_forward, rglru_prefill, rglru_decode_step,
+                   split_rglru_forward), init_rglru_cache),
+    "ssm": ("ssm", (ssm_forward, ssm_prefill, ssm_decode_step,
+                    split_ssm_forward), init_ssm_cache),
 }
 BLOCK_KINDS = ATTENTION_KINDS + tuple(RECURRENT)
-FORWARD, PREFILL, DECODE = range(3)
+FORWARD, PREFILL, DECODE, SPLIT = range(4)
 
 
 def check_supported(cfg) -> None:
@@ -186,23 +187,27 @@ def _layers(cfg, params) -> list:
             for kind, key, index in layer_slots(cfg)]
 
 
-def _embed(cfg, params, tokens, tp=None):
-    """The embedded tokens. On a tensor-parallel rank (``tp``) whose table
-    holds vocab rows ``rank * V_loc ..`` each rank looks up the tokens it
-    holds, zeros elsewhere, and the ranks' rows are summed (g); a table
-    d-sharded over 'model' (``embed_shard="embed"``) is looked up in the
-    rank's columns and all-gathered along d."""
-    table = params["embed"]
+def lookup(table, tokens, tp=None):
+    """The rows of ``table`` at ``tokens``. On a tensor-parallel rank
+    (``tp``) whose table holds vocab rows ``rank * V_loc ..`` each rank
+    looks up the tokens it holds, zeros elsewhere, and the ranks' rows are
+    summed (g); a table d-sharded over 'model' (``embed_shard="embed"``)
+    is looked up in the rank's columns and all-gathered along d."""
     if tp is not None and tp.vocab_rows:
         rows = tp.vocab_rows
         local = tokens - tp.rank * rows
         mine = (local >= 0) & (local < rows)
-        x = tp.g(torch.where(mine[..., None],
-                             table[local.clamp(0, rows - 1)], 0.0))
-    elif tp is not None and tp.held("embed") == 1:
-        x = tp.gather(table[tokens], tokens.dim(), "own")
-    else:
-        x = table[tokens]
+        return tp.g(torch.where(mine[..., None],
+                                table[local.clamp(0, rows - 1)], 0.0))
+    if tp is not None and tp.held("embed") == 1:
+        return tp.gather(table[tokens], tokens.dim(), "own")
+    return table[tokens]
+
+
+def _embed(cfg, params, tokens, tp=None):
+    """The embedded tokens (:func:`lookup`, ``tp`` a tensor-parallel
+    rank's)."""
+    x = lookup(params["embed"], tokens, tp)
     return x.to(dtype_of(cfg.compute_dtype)) * cfg.emb_scale
 
 
@@ -266,20 +271,21 @@ def _ffn(cfg, p, x, *, mode: str, mesh=None, data_axes=("data",), tp=None):
 
 def _recurrent(cfg, p, x, kind: str, which: int, *args):
     """A recurrent block's core (``which`` of its ``RECURRENT`` functions:
-    FORWARD, PREFILL or DECODE) on the standalone ln1 norm of ``x`` (the
-    reference keeps the norm outside the recurrent core)."""
+    FORWARD, PREFILL, DECODE or SPLIT) on the standalone ln1 norm of ``x``
+    (the reference keeps the norm outside the recurrent core)."""
     key, fns, _ = RECURRENT[kind]
     return fns[which](cfg, p[key], apply_norm(cfg, x, p, "ln1"), *args)
 
 
 def _recurrent_rest(cfg, p, x, out, *, mode: str, mesh=None,
-                    data_axes=("data",)):
+                    data_axes=("data",), tp=None):
     """The rest of a recurrent block after its core's ``out``: ``x +
     residual_scale * out``, then an 'rg' block's FFN (an 'ssm' block has
     none). Returns (x, None)."""
     x = x + cfg.residual_scale * out
     if "mlp" in p:
-        return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)
+        return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes,
+                    tp=tp)
     return x, None
 
 
@@ -289,12 +295,15 @@ def block_forward(cfg, p, x, *, positions, mode: str = "reference",
     """One block of kind ``kind`` on the pre-norm residual stream ``x``:
     ln1 and ln2 ride into the attention and FFN layers as ``prenorm`` (an
     'rg' block norms ln1 standalone); ``qkv_plan`` is the rung of the QKV
-    ladder ('kernel' mode). ``tp``: a tensor-parallel rank's split of an
-    attention-kind block (``distributed.tensor_parallel``). Returns (x, the
-    MoE's load-balancing loss, or None)."""
+    ladder ('kernel' mode). ``tp``: a tensor-parallel rank's split of the
+    block (``distributed.tensor_parallel``; a recurrent core's SPLIT
+    function). Returns (x, the MoE's load-balancing loss, or None)."""
     if tp is not None:
         if kind in RECURRENT:
-            raise NotImplementedError(f"tensor-parallel {kind!r} blocks")
+            return _recurrent_rest(cfg, p, x,
+                                   _recurrent(cfg, p, x, kind, SPLIT, tp),
+                                   mode=mode, mesh=mesh, data_axes=data_axes,
+                                   tp=tp)
         a = split_attention_layer(
             cfg, p["attn"], x, tp=tp, window=_block_window(cfg, kind),
             positions=positions, mode=mode, prenorm=norm_params(p, "ln1"),

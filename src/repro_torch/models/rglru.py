@@ -68,14 +68,20 @@ def _causal_conv(x, w, b):
     return _conv_taps(xp, w, b, x.shape[1]).to(x.dtype)
 
 
-def _gates(cfg, p, u):
+def _gates(cfg, p, u, tp=None):
     """u: (B, L, W) conv output. Returns (log_a, gated input), both fp32.
     ``cfg.rglru_f32_gates=False`` runs the two (W, W) gate products in u's
-    type (the recurrence stays fp32 either way)."""
+    type (the recurrence stays fp32 either way). On a tensor-parallel rank
+    (``tp``) ``u`` is the rank's channels and ``w_a``/``w_i`` its rows: the
+    products are partial sums over the ranks, summed in rank order (in
+    fp32) and cut to the rank's channels (``tp.scatter``)."""
     gd = torch.float32 if cfg.rglru_f32_gates else u.dtype
     ug = u.to(gd)
-    r = torch.sigmoid((ug @ p["w_a"].to(gd) + p["b_a"].to(gd)).float())
-    i = torch.sigmoid((ug @ p["w_i"].to(gd) + p["b_i"].to(gd)).float())
+    pre_a, pre_i = ug @ p["w_a"].to(gd), ug @ p["w_i"].to(gd)
+    if tp is not None:
+        pre_a, pre_i = tp.scatter(pre_a, -1), tp.scatter(pre_i, -1)
+    r = torch.sigmoid((pre_a + p["b_a"].to(gd)).float())
+    i = torch.sigmoid((pre_i + p["b_i"].to(gd)).float())
     # log a_t = c r_t log sigmoid(Λ) = -c r_t softplus(-Λ)
     log_a = -cfg.rglru.c_exponent * r * F.softplus(-p["lambda"].float())
     a2 = torch.exp(2.0 * log_a)
@@ -132,13 +138,26 @@ def _gate_branch(p, x):
     return F.gelu(x @ p["proj_gate"], approximate="tanh")
 
 
-def rglru_forward(cfg, p, x):
-    """The full recurrent block. x: (B, L, D) -> (B, L, D)."""
+def rglru_forward(cfg, p, x, tp=None):
+    """The full recurrent block. x: (B, L, D) -> (B, L, D). ``tp``: the
+    rank's channels of the block (``p`` from ``tp.rglru_params``, ``x``
+    through f); the output is the rank's partial of ``proj_out``."""
     gate = _gate_branch(p, x)
     u = _causal_conv(x @ p["proj_x"], p["conv_w"], p["conv_b"])
-    log_a, gated = _gates(cfg, p, u)
+    log_a, gated = _gates(cfg, p, u, tp)
     h = rglru_scan(log_a, gated, chunk=cfg.rglru_chunk).to(x.dtype)
     return (h * gate) @ p["proj_out"]
+
+
+def split_rglru_forward(cfg, p, x, tp):
+    """The block on a tensor-parallel rank (``tp``) on the replicated
+    normed stream ``x``: the rank's ``w / n`` channels (the scan is per
+    channel), the ranks' ``proj_out`` partials summed (g); where the rules
+    do not split the width, the block whole on every rank."""
+    local = tp.rglru_params(p)
+    if local is None:
+        return rglru_forward(cfg, p, x)
+    return tp.g(rglru_forward(cfg, local, tp.f(x), tp))
 
 
 def init_rglru_cache(cfg, batch: int, dtype, device, *,

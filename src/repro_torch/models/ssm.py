@@ -16,6 +16,8 @@ captured in a CUDA graph advances it on every replay.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -31,6 +33,20 @@ def ssm_dims(cfg):
     conv_dim = d_inner + 2 * s.n_groups * s.d_state
     d_in_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + n_heads
     return d_inner, n_heads, conv_dim, d_in_proj
+
+
+def in_proj_segments(cfg, n: int = 1, r: int = 0) -> tuple:
+    """The packed ``in_proj`` columns (z | x | B|C | dt) that rank ``r`` of
+    ``n`` holds when the block is split by heads, in the packed layout:
+    (its z heads, its x heads, its ``2GN / n`` B|C columns, its dt heads),
+    four ranges; at ``n`` 1 the four parts whole."""
+    d_inner, h, conv_dim, _ = ssm_dims(cfg)
+    bc = conv_dim - d_inner
+    di, hl, bl = d_inner // n, h // n, bc // n
+    return (range(r * di, (r + 1) * di),
+            range(d_inner + r * di, d_inner + (r + 1) * di),
+            range(2 * d_inner + r * bl, 2 * d_inner + (r + 1) * bl),
+            range(2 * d_inner + bc + r * hl, 2 * d_inner + bc + (r + 1) * hl))
 
 
 def ssm_defs(cfg, prefix: str, *, stack: int | None = None) -> dict:
@@ -143,11 +159,11 @@ def ssd_chunked(x, a, b_mat, c_mat, chunk: int, initial_state=None):
     return y.to(x.dtype), carry
 
 
-def _split_proj(cfg, zxbcdt):
-    d_inner, _, conv_dim, _ = ssm_dims(cfg)
-    return torch.split(zxbcdt, [d_inner, conv_dim,
-                                zxbcdt.shape[-1] - d_inner - conv_dim],
-                       dim=-1)
+def _split_proj(cfg, zxbcdt, n: int = 1):
+    """(z, x | B|C, dt) of a projection through ``in_proj``, or through a
+    rank's block of it over ``n`` ranks (:func:`in_proj_segments`)."""
+    z, xs, bc, dt = (len(s) for s in in_proj_segments(cfg, n))
+    return torch.split(zxbcdt, [z, xs + bc, dt], dim=-1)
 
 
 def _decay(p, dt):
@@ -156,26 +172,65 @@ def _decay(p, dt):
     return dt_f, -torch.exp(p["a_log"].float())
 
 
-def _full(cfg, p, x):
-    """The block over the whole sequence x (B, L, D): (out (B, L, D), the
-    convolution's input (B, L, conv_dim), the final SSD state)."""
+def _mixer(cfg, p, z, xbc_in, dt, *, groups=None, norm=rmsnorm):
+    """The SSD mixer from the projection's parts: z (B, L, d), the
+    convolution's input xbc_in (B, L, d + 2GN: x then the whole B|C) and dt
+    (B, L, heads), where d is the d_inner of the heads ``p``'s leaves hold
+    (a tensor-parallel rank's, or all of them). ``groups``: (first, count)
+    of the B|C groups those heads read (by default all); ``norm``: the
+    gated RMSNorm. Returns (the normed y (B, L, d), the final state)."""
     s = cfg.ssm
-    d_inner, n_heads, _, _ = ssm_dims(cfg)
-    bsz, l, _ = x.shape
-    z, xbc_in, dt = _split_proj(cfg, x @ p["in_proj"])
+    bsz, l, d = z.shape
+    n_heads = dt.shape[-1]
     xbc = F.silu(_causal_conv(xbc_in, p["conv_w"], p["conv_b"]))
     gn = s.n_groups * s.d_state
-    xs, b_mat, c_mat = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    xs, b_mat, c_mat = torch.split(xbc, [d, gn, gn], dim=-1)
     xs = xs.reshape(bsz, l, n_heads, s.head_dim)
     b_mat = b_mat.reshape(bsz, l, s.n_groups, s.d_state)
     c_mat = c_mat.reshape(bsz, l, s.n_groups, s.d_state)
+    if groups is not None:
+        b_mat, c_mat = (t.narrow(2, *groups) for t in (b_mat, c_mat))
     dt_f, a = _decay(p, dt)
     y, final = ssd_chunked(xs * dt_f[..., None].to(xs.dtype), dt_f * a,
                            b_mat, c_mat, s.chunk)
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xs
-    y = y.reshape(bsz, l, d_inner)
-    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])
+    y = y.reshape(bsz, l, d)
+    return norm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"]), final
+
+
+def _full(cfg, p, x):
+    """The block over the whole sequence x (B, L, D): (out (B, L, D), the
+    convolution's input (B, L, conv_dim), the final SSD state)."""
+    z, xbc_in, dt = _split_proj(cfg, x @ p["in_proj"])
+    y, final = _mixer(cfg, p, z, xbc_in, dt)
     return y @ p["out_proj"], xbc_in, final
+
+
+def split_ssm_forward(cfg, p, x, tp):
+    """The block on a tensor-parallel rank (``tp``) on the replicated
+    normed stream ``x``: the rank's heads through its head-aligned
+    ``in_proj`` block (``tp.ssm_params``), its B|C columns all-gathered
+    (every head reads its group's B and C whole; the grad summed back),
+    the gated RMSNorm's mean square summed over the ranks (fp32, rank
+    order) and divided by the extent, the ranks' ``out_proj`` partials
+    summed (g). Where the extent does not divide the heads and 2GN the
+    block runs whole, its split leaves gathered."""
+    local = tp.ssm_params(p)
+    if local is None:
+        return ssm_forward(cfg, {k: tp.whole(v, f"ssm/{k}")
+                                 for k, v in p.items()}, x)
+    z, xbc_in, dt = _split_proj(cfg, tp.f(x) @ local["in_proj"], tp.n)
+    norm = rmsnorm
+    if tp.n > 1:
+        xs, bc = torch.split(xbc_in, [z.shape[-1],
+                                      xbc_in.shape[-1] - z.shape[-1]], -1)
+        xbc_in = torch.cat([xs, tp.gather(bc, -1, "sum")], dim=-1)
+        norm = functools.partial(rmsnorm,
+                                 reduce=lambda v: tp.f(tp.g(v) / tp.n))
+    first, count, _ = tp.ssm_groups
+    y, _ = _mixer(cfg, local, z, xbc_in, dt, groups=(first, count),
+                  norm=norm)
+    return tp.g(y @ local["out_proj"])
 
 
 def ssm_forward(cfg, p, x):

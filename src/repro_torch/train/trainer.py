@@ -18,9 +18,10 @@ With a ``mesh`` the step is data parallel over its 'data' axis, each rank
 on its own rows of the batch (``DataIterator(mesh=)``), and tensor
 parallel over its 'model' axis, as the reference's step is under GSPMD:
 every leaf is the rank's block under the logical rules
-(``state.sharded_init``) and the LM's forward splits the attention heads,
-the FFN, the experts (``moe_ep``/``moe_tp`` by ``resolve_impl``), the
-embedding, the head and the cross entropy over 'model'
+(``state.sharded_init``) and every family's forward splits the attention
+heads (self and cross), the FFN, the experts (``moe_ep``/``moe_tp`` by
+``resolve_impl``), the RG-LRU's channels, Mamba2's heads, the embedding,
+the head and the cross entropy over 'model'
 (``distributed.tensor_parallel``: a replicated leaf's grad comes out whole
 on every rank, a split leaf's is the rank's own). Then:
 
@@ -49,10 +50,9 @@ on every rank, a split leaf's is the rank's own). Then:
 
 One code path serves every extent: at one rank every collective is an
 identity and, on the plain path, the step is the single-device step bit
-for bit (the vocab-parallel cross entropy included). A 'pod' axis, and a
-'model' extent over 1 for the families and block kinds the split does not
-cover ('rg' and 'ssm' blocks, the 'encoder', 'encdec' and 'vlm' families,
-which train data parallel at a 'model' extent of 1), raise.
+for bit (the vocab-parallel cross entropy included). A 'pod' axis raises,
+and so does a split the port does not make (Mamba2's heads spanning part
+of a B|C group), naming the shape.
 """
 from __future__ import annotations
 
@@ -153,18 +153,6 @@ def loss_and_grads(model, params, batch, *, microbatches: int = 1) -> tuple:
             torch._foreach_div(gsum, float(microbatches)))
 
 
-# the block kinds and families the tensor-parallel split covers
-_SPLIT_KINDS = ("attn", "local", "moe")
-
-
-def _splits(model) -> bool:
-    """Whether the step splits ``model`` over 'model': the 'lm' family
-    with attention-kind blocks only."""
-    cfg = model.cfg
-    return model.family == "lm" and all(
-        cfg.layer_kind(i) in _SPLIT_KINDS for i in range(cfg.num_layers))
-
-
 def _check_mesh(model, mesh) -> None:
     sizes = mesh_shape(mesh)
     if "data" not in sizes:
@@ -175,17 +163,6 @@ def _check_mesh(model, mesh) -> None:
             "reference's make_production_mesh, which has no counterpart "
             "(ROADMAP Queue A: the 'pod' axis, not queued: no host mesh "
             "makes one)")
-    if sizes.get("model", 1) > 1 and not _splits(model):
-        cfg = model.cfg
-        kinds = sorted({cfg.layer_kind(i) for i in range(cfg.num_layers)}
-                       - set(_SPLIT_KINDS))
-        what = (f"the {model.family!r} family" if model.family != "lm"
-                else f"{kinds} blocks")
-        raise NotImplementedError(
-            f"make_train_step: mesh {sizes}: {what} do not split over "
-            "'model' yet (ROADMAP Queue A: the split of 'rg' and 'ssm' "
-            "blocks and of the encoder, encdec and vlm families); they "
-            "train data parallel at a 'model' extent of 1")
 
 
 def zero1_dims(model, mesh) -> list:
@@ -246,9 +223,8 @@ def _mesh_step(model, opt_cfg, mesh, *, zero1: bool, grad_compress: bool,
     msplit = model_split(model, mesh)
     # the forward on this rank's blocks; the aux term averaged over 'data'
     # by the objective below, not inside the MoE
-    run = dataclasses.replace(
-        model, mesh=mesh, data_axes=(),
-        tp=TensorParallel(model, mesh) if _splits(model) else None)
+    run = dataclasses.replace(model, mesh=mesh, data_axes=(),
+                              tp=TensorParallel(model, mesh))
 
     def amax(i, m):
         if dims[i] is not None:
