@@ -423,7 +423,23 @@ Phases, each of which raises on failure (exit code non-zero):
    launches equal, step times); (b, with phase 3) their GEMMs and flash
    kernels at the ranks' shapes over extents 2 and 4, and the RG-LRU's
    plain products at the rank's width.
-24. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+24. The policy layer (``repro_torch.core``): (a) at three of phase 3's
+   prefill shapes (one split) every GEMM candidate the calibration times
+   (each tile width x walk window) held to the plain version, and at each
+   width the forward's, dA's and dB's outputs across windows 1, 4, 8 and
+   16 bit for bit; (b) ``launch/calibrate.py --smoke`` on the card (its
+   exit code, the drift gate's verdict, recorded with the violations), the
+   shipped ``configs/pretuned/h100.json`` and then its table installed:
+   the cells' hits, both engines' ``bucket_policies``
+   the table's pins; (c) llama-1b (POLICY_LAYERS layers of published
+   width) served by both engines with ``qkv_plan="auto"``, its greedy
+   streams equal to the pinned rung's where auto took that rung,
+   ``train_loop(pretuned=)`` for 3 steps over two batch shapes
+   (``trainer.bucket_pins`` 2), one mixtral-8x7b layer at published width
+   under "auto" against the fused default; (d) ``gemm_collective(plan=
+   None)`` and ``bwd_mode="auto"`` on one NCCL rank, each bit for bit the
+   plan or mode the autotuner names.
+25. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--out DIR`` also writes the full report to ``DIR/chip_smoke.json``.
@@ -454,7 +470,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import kernels, obs  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, load_shipped_pretuned  # noqa: E402
+from repro_torch.core import autotune  # noqa: E402
+from repro_torch.core.calibrate import Timer  # noqa: E402
+from repro_torch.core.policy import gemm_policy  # noqa: E402
 from repro_torch.data import DataConfig, DataIterator  # noqa: E402
 from repro_torch.distributed.tensor_parallel import (  # noqa: E402
     TensorParallel)
@@ -692,59 +711,6 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-class Timer:
-    """Median device milliseconds of one call. The call is captured once in
-    a CUDA graph and replayed between two CUDA events, so the time is the
-    device's and not the Python wrapper's enqueue time. A 128 MiB buffer is
-    rewritten before every replay: the 50 MB L2 starts cold, as it does for
-    weights streamed once per layer, and the device is still busy with it
-    while the host enqueues the replay. The time includes the replay's fixed
-    cost (``floor``: a one-element fill) and the write-back of the dirty
-    lines the scrub leaves in L2. With ``clean`` the scrub reads the buffer
-    instead, so the L2 starts cold and clean."""
-
-    def __init__(self, device, iters: int = 10, warmup: int = 2,
-                 clean: bool = False):
-        self.scrub = torch.empty(128 << 20, dtype=torch.uint8, device=device)
-        self.iters, self.warmup, self.clean = iters, warmup, clean
-        self._sum = torch.empty((), dtype=torch.int64, device=device)
-
-    def _scrub(self):
-        if self.clean:
-            torch.sum(self.scrub.view(torch.int64), dim=0, out=self._sum)
-        else:
-            self.scrub.zero_()
-
-    def floor(self) -> float:
-        """The time of a one-element fill: what any replayed call costs."""
-        one = torch.zeros(1, device=self.scrub.device)
-        return self.ms(one.zero_)
-
-    def ms(self, fn, stream=None) -> float:
-        """``stream``: warm up and capture on it (the stream that autograd
-        runs a recorded graph's backward on), else on a side stream."""
-        side = stream or torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.warmup):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            fn()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True))
-              for _ in range(self.iters)]
-        for start, end in ev:
-            self._scrub()
-            start.record()
-            graph.replay()
-            end.record()
-        torch.cuda.synchronize()
-        del graph
-        return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.16816", "WARPGROUP.DEPBAR")
@@ -1123,13 +1089,11 @@ def baseline_kernels(csrc: str) -> dict:
     two_pass = [P] * 9 + [I] * 7 + [L] * 12 + [Fl, Fl, I, I, P]
     partials = [P] * 7 + [I] * 6 + [Fl, Fl, I, P]
     paged_partials = [P] * 8 + [I] * 7 + [Fl, Fl, I, P]
-    kerns = {
-        "da": CudaKernel("baseline_gemm_bwd_da", da_path,
-                         "gemm_bwd_da_launch", da_args),
-        "db": CudaKernel("baseline_gemm_bwd_db",
-                         os.path.join(root, "gemm_bwd_db.cu"),
-                         "gemm_bwd_db_launch", gemm_bwd.DB_KERNEL.argtypes)}
+    kerns = {}
     for key, src, entry, args in (
+            ("da", "gemm_bwd_da.cu", "gemm_bwd_da_launch", da_args),
+            ("db", "gemm_bwd_db.cu", "gemm_bwd_db_launch",
+             gemm_bwd.DB_KERNEL.argtypes),
             ("fwd", "gemm_fused.cu", "gemm_fused_launch", wmma_fwd),
             ("fwd_sm90", "gemm_fused.cu", "gemm_fused_launch", sm90_fwd),
             ("fwd_same", "gemm_fused.cu", "gemm_fused_launch",
@@ -1154,7 +1118,7 @@ def baseline_kernels(csrc: str) -> dict:
     log(f"[build] baseline from {root}: {sorted(kerns)}")
     build_all(list(kerns.values()))
     return {"fwd": None, "fwd_sm90": None, "fwd_same": None,
-            "flash_bwd": None,
+            "da": None, "db": None, "flash_bwd": None,
             "flash_fwd": None,
             "flash_decode": None, "flash_decode_paged": None,
             "flash_decode_same": None, "flash_decode_paged_same": None,
@@ -2525,7 +2489,8 @@ def measure_gemm_bwd(cfg, dev, gen, timer, old=None, cases=None,
                            + out_db, (2 * flops, PEAK_BF16))
         w = dict(case=name, shape=shape, ms=timer.ms(new_whole),
                  library_ms=timer.ms(lib_both), bound_ms=b_ms, bound_by=b_by)
-        if old is not None and pro.norm != "layernorm":
+        if old is not None and pro.norm != "layernorm" and \
+                old["da"] is not None and old["db"] is not None:
             old_da = baseline_da(old["da"], run)
 
             def new_both():
@@ -7324,6 +7289,385 @@ def run_tp_families(dev, mesh) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the policy layer on the card
+# ---------------------------------------------------------------------------
+
+# 24a: three of phase 3's prefill GEMMs (M = BATCH x PROMPT: one split),
+# their candidates and the walk windows held bit for bit
+POLICY_CASES = ("prefill_v", "prefill_up", "prefill_down")
+POLICY_WINDOWS = (1, 4, 8, 16)
+# 24c: llama-1b's depth (published width), the traffic, the training shapes
+POLICY_LAYERS, POLICY_NEW = 4, 8
+POLICY_TRAIN = ((4, 256), (2, 512))
+POLICY_PHASES = ("24c engine", "24c paged", "24c train")
+
+
+def run_policy_kernels(cfg, dev, gen) -> dict:
+    """24a: at POLICY_CASES every candidate of the autotuner's forward
+    signature (what the calibration times) against the plain version
+    (phase 3's tolerance), and at each tile width the outputs of windows
+    POLICY_WINDOWS bit for bit; then the up and down's backward (dA, dB) at
+    each width across the windows bit for bit, the pick's against the plain
+    backward."""
+    sms = gemm_ops.sm_count(dev)
+    cases = {c[0]: c for c in gemm_cases(cfg, dev, gen)}
+    out = {"candidates": 0, "windows": 0, "bwd_windows": 0, "max_abs_err": 0.0}
+    for name in POLICY_CASES:
+        _, a, b, kw, _ = cases[name]
+        ep, pro, extra = fwd_args(kw)
+        want = gemm_ops.forward_ref(a, b, ep, pro, **extra)[0]
+        sig = autotune.OpSignature(
+            "gemm", (a.shape[0], b.shape[1], a.shape[1]),
+            epilogue=None if ep.is_identity else ep,
+            prologue=None if pro.is_identity else pro)
+        cands = autotune.candidate_policies(sig, sms=sms)
+        for pol in cands:
+            got = gemm_ops.gemm_fused(a, b, epilogue=ep, prologue=pro,
+                                      policy=pol, **extra)
+            err, _ = check_close(
+                f"24a gemm_fused[{name}] width {pol.block_n} split "
+                f"{pol.splits} window {pol.window}", got, want, 2 ** -6,
+                2e-2)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["candidates"] += 1
+        for w in sorted({p.block_n for p in cands}):
+            outs = [gemm_ops.gemm_fused(a, b, epilogue=ep, prologue=pro,
+                                        policy=gemm_policy(w, 1, win),
+                                        **extra)
+                    for win in POLICY_WINDOWS]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"24a gemm_fused[{name}] width {w}: "
+                                     "the windows' outputs differ")
+            out["windows"] += len(outs)
+        if name == "prefill_v":
+            continue
+        _, rstd, preacts = gemm_forward(
+            a, b, ep, pro, save_preact=gemm_ops.kernel_saves(ep) > 0,
+            **extra)
+        g = torch.randn(a.shape[0], b.shape[1], generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ops = dict(epilogue=ep, prologue=pro, b2=kw.get("b2"), bias=None,
+                   scale=kw.get("scale"), sin=None, cos=None,
+                   gamma=kw.get("gamma"), beta=kw.get("beta"), rstd=rstd,
+                   preacts=preacts)
+        want_da = gemm_bwd.gemm_bwd_da_ref(a, b, g, **ops)[0]
+        want_db = gemm_bwd.gemm_bwd_db_ref(a, b, g, **ops)[0]
+        for w in gemm_ops.TILE_WIDTHS:
+            got = []
+            for win in POLICY_WINDOWS:
+                pol = gemm_policy(w, 1, win, op="gemm_bwd")
+                run = gemm_bwd.BwdLaunch(a, b, g, da_policy=pol,
+                                         db_policy=pol, **ops)
+                run.operand_pass()
+                got.append((run.da()[0].clone(), run.db()[0].clone()))
+            if not all(torch.equal(got[0][0], x) and torch.equal(got[0][1], y)
+                       for x, y in got[1:]):
+                raise AssertionError(f"24a gemm_bwd[{name}] width {w}: the "
+                                     "windows' dA or dB differ")
+            out["max_abs_err"] = max(
+                out["max_abs_err"],
+                check_close(f"24a gemm_bwd_da[{name}] width {w}", got[0][0],
+                            want_da, 2 ** -6, 2e-2)[0],
+                check_close(f"24a gemm_bwd_db[{name}] width {w}", got[0][1],
+                            want_db, 2 ** -6, 2e-2)[0])
+            out["bwd_windows"] += len(got)
+    torch.cuda.synchronize()
+    log(f"[24a] {out['candidates']} forward candidates held to the plain "
+        f"version (max abs err {out['max_abs_err']:.4g}); {out['windows']} "
+        f"forward and {out['bwd_windows']} backward launches over windows "
+        f"{POLICY_WINDOWS} bit for bit at each width")
+    return out
+
+
+def run_policy_calibration(out_dir) -> tuple:
+    """24b: ``launch/calibrate.py --smoke`` on the card (in this process:
+    its kernels are built), its table (``out_dir/CALIB_h100.json``)
+    installed. The CLI's exit code is the drift gate's verdict (1: the
+    analytic ranking disagrees with the card's), recorded with the
+    violations and not a failure of the phase: the table holds the
+    measured winners either way. Returns (the report, the phase's
+    record)."""
+    from repro_torch.core import calibrate as cal
+    from repro_torch.launch import calibrate as calib_cli
+
+    path = os.path.join(out_dir, "CALIB_h100.json")
+    t0 = time.perf_counter()
+    rc = calib_cli.main(["--smoke", "--out", path])
+    with open(path) as fh:
+        report = json.load(fh)
+    drift = cal.check_drift(report)
+    if rc != (0 if drift["ok"] else 1):
+        raise AssertionError(f"24b: launch/calibrate.py --smoke exited {rc} "
+                             f"with the drift gate ok={drift['ok']}")
+    # the shipped table of this card loads here (the CPU refuses it)
+    if not load_shipped_pretuned() or not autotune.use_pretuned(report):
+        raise AssertionError("24b: the shipped or the fresh table of the "
+                             "card was not installed")
+    rec = {"seconds": time.perf_counter() - t0, "cells": len(report["cells"]),
+           "candidates": sum(len(c["candidates"])
+                             for c in report["cells"].values()),
+           "families": drift["families"], "drift_ok": drift["ok"],
+           "cli_exit": rc, "violations": drift["violations"],
+           "best_vs_pick_us": {
+               k: (min(x["measured_time_s"] for x in c["candidates"]) * 1e6,
+                   c["candidates"][0]["measured_time_s"] * 1e6)
+               for k, c in report["cells"].items()}}
+    log(f"[24b] calibrated {rec['cells']} cells ({rec['candidates']} "
+        f"candidates) in {rec['seconds']:.1f} s; drift gate "
+        f"{'passed' if drift['ok'] else 'FAILED'} (exit {rc}; "
+        f"{len(drift['violations'])} violations); the shipped "
+        f"configs/pretuned table and then this one installed")
+    return report, rec
+
+
+def check_decode_pin(tag, policies: dict, report: dict, batch: int,
+                     slots: int, cfg) -> bool:
+    """Whether the table holds the cell of a decode launch of ``batch``
+    rows over ``slots`` keys; where it does, the bucket's decode policy
+    must be its pin (the key splits)."""
+    hkv = cfg.num_kv_heads
+    key = autotune.pretuned_cell_key(autotune.OpSignature(
+        "attention_decode",
+        (batch, hkv, cfg.num_heads // hkv, slots, cfg.head_dim)))
+    cell = report["cells"].get(key)
+    if cell is None:
+        return False
+    pol = policies["attention_decode"]
+    spec = cell["policy"]["schedule"]
+    if (pol.block_n, pol.splits) != (spec["block_n"], spec["splits"]):
+        raise AssertionError(f"[{tag}] the decode bucket's policy "
+                             f"{pol.describe()} is not the table's pin")
+    return True
+
+
+class TwoShapes:
+    """Batches of the LM pipeline alternating between two (batch, seq)
+    shapes, as ``train_loop`` takes a data iterator."""
+
+    def __init__(self, cfg, dev, shapes):
+        self.its = [train_data(cfg, dev, b, s) for b, s in shapes]
+        self.step = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        it = self.its[self.step % len(self.its)]
+        self.step += 1
+        return next(it)
+
+    def state_dict(self):
+        return {"step": self.step}
+
+    def load_state_dict(self, state):
+        self.step = int(state["step"])
+
+
+def run_policy_models(dev, report: dict) -> dict:
+    """24c: llama-1b at POLICY_LAYERS layers served by both engines with
+    qkv_plan "auto" under the installed table (launches counted), its
+    greedy streams against the rung auto took, explicitly pinned; the
+    engines' bucket_policies; train_loop(pretuned=) over two batch
+    shapes; one mixtral-8x7b layer under "auto" against the default."""
+    out = {}
+    cfg = dataclasses.replace(get_config("llama-1b"),
+                              num_layers=POLICY_LAYERS)
+    auto = build_model(cfg, mode="kernel", device=dev, qkv_plan="auto")
+    params = auto.init(seed=0)
+    from repro_torch.models.attention import auto_qkv
+    # the rung "auto" takes at the prefill, where a block's pre-norm rides
+    rung, folded = auto_qkv(cfg, BATCH * PROMPT, torch.bfloat16,
+                            prenorm=(None, None), use_rope=True)
+    # a fixed rung runs the same launches where it folds the norm as auto
+    # does (rung 3 never folds it)
+    same_path = folded == (rung != "unfused")
+    pinned = build_model(cfg, mode="kernel", device=dev, qkv_plan=rung)
+    rng = np.random.default_rng(24)
+    prompts = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))
+    streams = {}
+    for tag, model in (("auto", auto), (rung, pinned)):
+        eng = Engine(model, params, max_len=MAX_LEN, pretuned=report)
+        kernels.reset_launch_counts()
+        with obs.capture() as cap:
+            res = eng.generate(prompts, POLICY_NEW)
+        torch.cuda.synchronize()
+        if tag == "auto":
+            pols = eng.bucket_policies
+            out["24c engine"] = {
+                "launches": kernels.launch_counts(),
+                "bucket_policies": sorted(map(str, pols)),
+                "hits": cap.counter("autotune.pretuned_hit"),
+                "decode_pinned": check_decode_pin(
+                    "24c", pols[("decode", BATCH)], report, BATCH, MAX_LEN,
+                    cfg)}
+            if set(pols) != {(BATCH, PROMPT), ("decode", BATCH)} or \
+                    not out["24c engine"]["hits"]:
+                raise AssertionError(f"24c: Engine.bucket_policies keys "
+                                     f"{list(pols)}, table hits "
+                                     f"{out['24c engine']['hits']}")
+        streams[tag] = res.tokens
+        del eng
+    equal = np.array_equal(streams["auto"], streams[rung])
+    if same_path and not equal:
+        raise AssertionError(f"24c: auto took rung {rung} (norm folded "
+                             f"{folded}); its greedy streams differ from "
+                             "the pinned rung's")
+    out["24c engine"].update(rung=rung, folded=folded, same_path=same_path,
+                             streams_equal=bool(equal))
+    log(f"[24c] Engine: qkv_plan 'auto' took rung {rung!r} (norm folded "
+        f"{folded}); greedy streams of {BATCH} x {POLICY_NEW} tokens "
+        f"{'equal' if equal else 'differ from'} the pinned rung's; "
+        f"launches {out['24c engine']['launches']}; "
+        f"{out['24c engine']['hits']:g} table hits, decode bucket pinned "
+        f"{out['24c engine']['decode_pinned']}")
+    eng = PagedEngine(auto, params, batch_slots=BATCH, page_size=PAGE,
+                      max_pages_per_seq=-(-MAX_LEN // PAGE), pretuned=report)
+    for u in range(BATCH):
+        eng.submit(Request(u, prompts[u].astype(np.int32), POLICY_NEW))
+    kernels.reset_launch_counts()
+    paged = eng.run()
+    torch.cuda.synchronize()
+    out["24c paged"] = {"launches": kernels.launch_counts(),
+                        "bucket_policies": sorted(map(str,
+                                                      eng.bucket_policies))}
+    for u in range(BATCH):
+        if not np.array_equal(paged[u], streams["auto"][u]):
+            raise AssertionError(f"24c: PagedEngine stream {u} differs from "
+                                 "the Engine's")
+    if not any(k[0] == BATCH for k in eng.bucket_policies
+               if isinstance(k[0], int)):
+        raise AssertionError(f"24c: PagedEngine.bucket_policies keys "
+                             f"{list(eng.bucket_policies)}")
+    log(f"[24c] PagedEngine: the {BATCH} streams equal the Engine's; "
+        f"buckets {out['24c paged']['bucket_policies']}")
+    del eng
+    torch.cuda.empty_cache()
+    logs = []
+    kernels.reset_launch_counts()
+    with obs.capture() as cap:
+        res = train_loop(auto, TwoShapes(cfg, dev, POLICY_TRAIN), 3,
+                         AdamWConfig(schedule=cosine_schedule(TRAIN_LR, 1, 3)),
+                         log_every=0, pretuned=report, log=logs.append)
+    torch.cuda.synchronize()
+    pins = cap.counter("trainer.bucket_pins")
+    if pins != 2 or sorted(res.policies) != sorted(POLICY_TRAIN) or \
+            not all(np.isfinite(res.losses)):
+        raise AssertionError(f"24c: train_loop pinned {pins} buckets "
+                             f"{sorted(res.policies)}, losses {res.losses}")
+    out["24c train"] = {"launches": kernels.launch_counts(),
+                        "losses": res.losses, "pins": pins,
+                        "log": [x for x in logs if "pinned" in x]}
+    log(f"[24c] train_loop(pretuned=): 3 steps over {POLICY_TRAIN}, "
+        f"trainer.bucket_pins {pins:g}, losses {res.losses}")
+    del auto, pinned, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=1)
+    mauto = build_model(mcfg, mode="kernel", device=dev, qkv_plan="auto")
+    mfix = build_model(mcfg, mode="kernel", device=dev)
+    mparams = mauto.init(seed=0)
+    tokens = torch.from_numpy(prompts % mcfg.vocab_size).to(dev)
+    t = BATCH * PROMPT
+    m_rung, m_folded = auto_qkv(mcfg, t, torch.bfloat16,
+                                prenorm=(None, None), use_rope=True)
+    experts = autotune.select_fusion(
+        "mlp", (t, mcfg.d_model, mcfg.d_ff, 1), "bfloat16",
+        residual=False)["plan"]
+    # the default is rung 1 with the norm folded and the experts fused
+    default = (m_rung, m_folded, experts) == ("rope_fused", True, "fused")
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        la = mauto.forward(mparams, tokens)
+        launches = kernels.launch_counts()
+        lf = mfix.forward(mparams, tokens)
+    torch.cuda.synchronize()
+    equal = torch.equal(la, lf)
+    if not torch.isfinite(la).all() or (default and not equal):
+        raise AssertionError("24c: mixtral under 'auto' is not finite or, "
+                             "where its plans are the default's, differs")
+    out["24c mixtral"] = {"rung": m_rung, "folded": m_folded,
+                          "experts": experts, "logits_equal": bool(equal),
+                          "launches": launches}
+    log(f"[24c] mixtral-8x7b (1 layer, published width) under 'auto': rung "
+        f"{m_rung!r} (norm folded {m_folded}), experts {experts}; logits "
+        f"{'bit for bit' if equal else 'not bit for bit'} the default's; "
+        f"launches {launches}")
+    del mauto, mfix, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_policy_routes(dev, gen) -> dict:
+    """24d: ``gemm_collective(plan=None)`` at COLL_SHAPE and
+    ``gemm_fused(bwd_mode="auto")`` at the training up projection's shape
+    on one NCCL rank, each bit for bit the plan or mode named by the
+    autotuner run explicitly."""
+    m, k, n = COLL_SHAPE
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(
+        torch.bfloat16)
+    out = {}
+    with nccl_world() as mesh:
+        with obs.capture() as cap:
+            got = gemm_collective_sharded(x, w, mesh=mesh, plan=None)
+        plan = next(c.split(".")[-1] for c in cap.counters
+                    if c.startswith("gemm_collective.all_gather."))
+        want = gemm_collective_sharded(x, w, mesh=mesh, plan=plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("24d: gemm_collective(plan=None) differs "
+                                 f"from plan={plan!r}")
+        out["collective_plan"] = plan
+        a = torch.randn(TRAIN_BATCH * TRAIN_SEQ // 4, 2048, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        b = (torch.randn(2048, 8192, generator=gen, device=dev)
+             * 2048 ** -0.5).to(torch.bfloat16)
+        b2 = (torch.randn(2048, 8192, generator=gen, device=dev)
+              * 2048 ** -0.5).to(torch.bfloat16)
+        ep = gemm_ops.Epilogue(activation="silu", gate=True)
+        mode = autotune.select_bwd_mode(a.shape[0], 8192, 2048,
+                                        dtype=a.dtype, epilogue=ep)
+        grads = {}
+        for tag in ("auto", mode):
+            leaves_ = [t.clone().requires_grad_() for t in (a, b, b2)]
+            y = gemm_ops.gemm_fused(leaves_[0], leaves_[1], b2=leaves_[2],
+                                    epilogue=ep, bwd_mode=tag)
+            y.float().square().mean().backward()
+            grads[tag] = [t.grad for t in leaves_]
+        torch.cuda.synchronize()
+        if not all(torch.equal(x_, y_) for x_, y_ in
+                   zip(grads["auto"], grads[mode])):
+            raise AssertionError(f"24d: bwd_mode='auto' differs from "
+                                 f"{mode!r}")
+        out["bwd_mode"] = mode
+    log(f"[24d] gemm_collective(plan=None) took {plan!r} at {COLL_SHAPE}, "
+        f"bit for bit; bwd_mode 'auto' took {mode!r}, grads bit for bit")
+    return out
+
+
+def run_policy_layer(dev, gen, out_dir=None) -> dict:
+    """Phase 24 (24a-24d); the table installed in 24b is cleared at the
+    end, and the autotuner's memo with it."""
+    t0 = time.perf_counter()
+    cfg = get_config("llama-1b")
+    phases = {"24a": run_policy_kernels(cfg, dev, gen)}
+    tmp = out_dir or tempfile.mkdtemp()
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        report, phases["24b"] = run_policy_calibration(tmp)
+        phases.update(run_policy_models(dev, report))
+        autotune.clear_pretuned()
+        phases["24d"] = run_policy_routes(dev, gen)
+    finally:
+        autotune.clear_pretuned()
+        if out_dir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[24] phase 24 in {time.perf_counter() - t0:.1f} s")
+    return phases
+
+
 def run_distributed(dev, m: Models, base_step_s: float, gen,
                     moe_base: dict) -> tuple:
     """Phases 21 (21a-21d), 22a and 23a inside one NCCL process group of
@@ -7531,6 +7875,11 @@ def main(argv=None) -> int:
     phases.update(dist_phases)
     measured["gemm_fused"] += ring_rows
     log(f"[done] phases 21, 22 and 23 at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(run_policy_layer(
+        dev, gen, os.path.join(args.out, "calibrate") if args.out else None))
+    log(f"[done] phase 24 at {time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, rows in measured.items():
@@ -7548,7 +7897,7 @@ def main(argv=None) -> int:
                             + RG_PHASES + RG_TRAIN_PHASES + M2_PHASES
                             + M2_TRAIN_PHASES + IVL_PHASES + MAV_PHASES
                             + DIST_PHASES + TP_TRAIN_PHASES
-                            + TPF_PHASES),
+                            + TPF_PHASES + POLICY_PHASES),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

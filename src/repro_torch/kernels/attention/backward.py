@@ -175,12 +175,16 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = False,
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
                         window: int | None = None,
-                        logit_scale: float | None = None, softcap=None):
+                        logit_scale: float | None = None, softcap=None,
+                        policy=None):
     """(dq (B, H, Sq, D), dk and dv (B, Hkv, Skv, D)) from the forward's
     q, k, v, out and lse and the output's cotangent ``do``. Journaled as
     ``obs`` op "attention_bwd" (the main kernel) and, as the reference has
     no event for it, "flash_attention_bwd" variant "dq_convert" (the dq
-    conversion); the CPU's plain version journals both."""
+    conversion) with its policy (``ops.flash_policy``); the CPU's plain
+    version journals both."""
+    from .ops import flash_policy
+
     dev = q.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"attention backward: unsupported device {dev}")
@@ -191,6 +195,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
         b, h, sq, d = q.shape
         work = backward_work(b, h, k.shape[1], sq, k.shape[2], d,
                              causal=causal, window=window)
+    if obs.enabled():
+        policy = flash_policy("attention_bwd", q, k, causal, policy)
     t0 = entry_clock()
     if dev.type == "cuda":
         run = FlashBwdLaunch(q, k, v, out, lse, do, **args)
@@ -202,7 +208,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
         journal("attention_bwd", dev, t0, variant="causal" if causal else "",
                 chain=describe_chain(softcap), dma_bytes=work["main_bytes"],
                 flops=int(10 * b * h * sq * k.shape[2] * d
-                          * (0.5 if causal else 1.0)))
+                          * (0.5 if causal else 1.0)), policy=policy)
     t0 = entry_clock()
     if dev.type == "cuda":
         run.convert()

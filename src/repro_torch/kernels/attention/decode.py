@@ -10,10 +10,12 @@ partials the last block of the unit merges in the same launch, so no
 plain-torch combine runs on the card. A CPU tensor runs the plain versions
 (:func:`decode_partials_ref`, :func:`decode_partials_paged_ref`: a split of
 ``BLOCK_KV`` slots, or one page) and :func:`combine_splits`, as the
-reference merges its partials in jnp. The kernel's split plan
-(:func:`plan_decode`) and its live key tiles (:func:`live_key_tiles`) are
-mirrored here so the CPU tests can hold them; the plan depends on the
-sizes and the SM count, never on the lengths.
+reference merges its partials in jnp. The launch's key splits come from
+its ``KernelPolicy`` (the caller's, or :func:`decode_policy`: with no
+pretuned table installed ``core.autotune.plan_decode``'s plan, a function
+of the sizes and the SM count, never of the lengths); the kernel's live
+key tiles (:func:`live_key_tiles`) are mirrored here so the CPU tests can
+hold them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,10 @@ import ctypes
 import torch
 
 from repro_torch import obs
+from repro_torch.core import autotune
+from repro_torch.core.autotune import (  # noqa: F401
+    BLOCKS_PER_SM, FEW_ROWS, KEY_TILE, MIN_SPLIT_TILES, ROW_TILE,
+    decode_units, plan_decode, rows_per_unit)
 from .._build import CudaKernel, entry_clock, journal
 from ..gemm.ops import sm_count
 from .epilogue import cap_logits, describe_chain
@@ -38,42 +44,19 @@ BLOCK_KV = 64
 HEAD_DIMS = (64, 128, 256)
 MAX_PAGE_SIZE = 128
 
-# the kernels' constants (csrc/decode_split.cuh): keys a tile, stages of
-# the TMA ring by head_dim, q rows a unit (few-row body up to FEW_ROWS,
-# else ROW_TILE a unit), the plan's target of blocks per SM and a split's
-# least tiles
-KEY_TILE = 64
-STAGES = {64: 6, 128: 3, 256: 3}
-FEW_ROWS = 16
-ROW_TILE = 32
-BLOCKS_PER_SM = 2
-MIN_SPLIT_TILES = 8
+# the ring's stages by head_dim (csrc/decode_split.cuh)
+STAGES = autotune.DECODE_STAGES
 
 
-def rows_per_unit(rows: int, q_tokens: int = 1) -> int:
-    """q rows of one unit of the kernel: FEW_ROWS (padded) where the rows of
-    one query token (the GQA group, rows / q_tokens) fit in FEW_ROWS, else
-    ROW_TILE. Chosen by the group, so a T-token call takes the body of its
-    T = 1 calls and a verify row keeps the serial step's bits (the kernel's
-    few_row_body)."""
-    return FEW_ROWS if rows // q_tokens <= FEW_ROWS else ROW_TILE
-
-
-def decode_units(batch: int, hkv: int, rows: int, q_tokens: int = 1) -> int:
-    """Units of the kernel: (batch row, kv head, row tile)."""
-    return batch * hkv * -(-rows // rows_per_unit(rows, q_tokens))
-
-
-def plan_decode(units: int, n_tiles: int, sms: int) -> tuple:
-    """(n_splits, tiles_per_split): each unit's ``n_tiles`` key tiles in
-    splits of tiles_per_split consecutive tiles (the last may hold fewer),
-    enough blocks for BLOCKS_PER_SM a SM where the tiles allow, no split
-    under MIN_SPLIT_TILES tiles. One split writes the output with no merge.
-    The kernel's plan_splits; it sees no length."""
-    ns = max(1, min(n_tiles // MIN_SPLIT_TILES,
-                    -(-BLOCKS_PER_SM * sms // units)))
-    tps = -(-n_tiles // ns)
-    return -(-n_tiles // tps), tps
+def decode_policy(b: int, hkv: int, rows: int, slots: int, d: int, device,
+                  dtype="bfloat16", q_tokens: int = 1):
+    """The policy of one decode launch over ``slots`` key positions: the
+    autotuner's ``attention_decode`` policy (its ``splits`` the key
+    splits) for the card's SM count."""
+    return autotune.select_policy(
+        "attention_decode", (b, hkv, rows, slots, d), dtype,
+        q_tokens=q_tokens,
+        sms=sm_count(device) if device.type == "cuda" else None)
 
 
 def live_key_tiles(length: int, keys: int, *, r0: int = 0, nr: int = 1,
@@ -201,11 +184,13 @@ def decode_partials_ref(q, k, v, lengths, *, block_kv: int = BLOCK_KV,
 
 
 def flash_decode(q, k, v, lengths, *, window: int | None = None,
-                 logit_scale: float | None = None, softcap=None, sinks=None):
+                 logit_scale: float | None = None, softcap=None, sinks=None,
+                 policy=None):
     """Split-KV decode: q (B, Hkv, G, D) group-packed queries; k/v
     (B, Hkv, S, D); lengths (B,) int32 tokens written so far (ring semantics
-    when lengths > S). Returns (B, Hkv, G, D) in q's type. Journaled as
-    ``obs`` op "attention_decode"."""
+    when lengths > S). ``policy``: the launch's (its key splits; None:
+    :func:`decode_policy`). Returns (B, Hkv, G, D) in q's type. Journaled
+    as ``obs`` op "attention_decode" with its policy."""
     b, hkv, g, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, hkv) or k.shape[3] != d:
         raise ValueError(f"attention_decode: q {tuple(q.shape)} and k/v "
@@ -218,9 +203,11 @@ def flash_decode(q, k, v, lengths, *, window: int | None = None,
                          f"got {window}")
     scale = logit_scale if logit_scale is not None else d ** -0.5
     t0 = entry_clock()
+    if policy is None and (q.is_cuda or obs.enabled()):
+        policy = decode_policy(b, hkv, g, k.shape[2], d, q.device, q.dtype)
     if q.device.type == "cuda":
         out = _launch(q, k, v, lengths, window=window, scale=scale,
-                      softcap=softcap, sinks=sinks)
+                      softcap=softcap, sinks=sinks, ns=policy.splits)
     elif q.device.type == "cpu":
         o, m, l = decode_partials_ref(q, k, v, lengths, window=window,
                                       scale=scale, softcap=softcap)
@@ -231,27 +218,29 @@ def flash_decode(q, k, v, lengths, *, window: int | None = None,
     if obs.enabled():
         journal("attention_decode", q.device, t0,
                 chain=describe_chain(softcap, sinks),
-                flops=4 * b * hkv * g * k.shape[2] * d)
+                flops=4 * b * hkv * g * k.shape[2] * d, policy=policy)
     return out
 
 
 def attention_decode(q, k, v, lengths, *, window: int | None = None,
                      logit_scale: float | None = None, softcap=None,
-                     sinks=None):
+                     sinks=None, policy=None):
     """Single-token decode attention. q: (B, H, 1, D) with H % Hkv == 0;
     k/v: (B, Hkv, S, D); lengths: (B,) int32. Returns (B, H, 1, D)."""
     b, h, _, d = q.shape
     hkv = k.shape[1]
     qg = q.reshape(b, hkv, h // hkv, d).contiguous()   # (B, H) rows: tiny
     out = flash_decode(qg, k, v, lengths, window=window,
-                       logit_scale=logit_scale, softcap=softcap, sinks=sinks)
+                       logit_scale=logit_scale, softcap=softcap, sinks=sinks,
+                       policy=policy)
     return out.reshape(b, h, 1, d)
 
 
-def _launch(q, k, v, lengths, *, window, scale, softcap, sinks,
+def _launch(q, k, v, lengths, *, window, scale, softcap, sinks, ns=None,
             kernel: CudaKernel = KERNEL):
-    """One launch on the card; ``kernel``: another build of the same entry
-    point (the smoke's A/B against an earlier tree)."""
+    """One launch on the card in ``ns`` key splits (None: the resolved
+    policy's); ``kernel``: another build of the same entry point (the
+    smoke's A/B against an earlier tree)."""
     b, hkv, g, d = q.shape
     slots = k.shape[2]
     if d not in HEAD_DIMS:
@@ -273,7 +262,8 @@ def _launch(q, k, v, lengths, *, window, scale, softcap, sinks,
     sink_ptr, sinks_bf16 = _check_sinks(sinks, hkv * g, q.device,
                                         "attention_decode")
     units = decode_units(b, hkv, g)
-    ns, _ = plan_decode(units, -(-slots // KEY_TILE), sm_count(q.device))
+    if ns is None:
+        ns = decode_policy(b, hkv, g, slots, d, q.device).splits
     ws, _keep = _workspaces(q.device, units, ns,
                             min(g, rows_per_unit(g)), d)
     out = torch.empty_like(q)
@@ -331,16 +321,17 @@ def decode_partials_paged_ref(q, k_pages, v_pages, page_table, lengths, *,
 def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
                        window: int | None = None,
                        logit_scale: float | None = None, softcap=None,
-                       sinks=None, q_tokens: int = 1):
-    """Split-KV decode over a paged KV pool (one split == one page).
+                       sinks=None, q_tokens: int = 1, policy=None):
+    """Split-KV decode over a paged KV pool (one split == one page on the
+    CPU; on the card the policy's key splits over the table's slots).
 
     q: (B, Hkv, R, D) group-packed queries, R = G * q_tokens (row = g*T +
     t); k_pages/v_pages: (P, Hkv, page_size, D); page_table: (B, MP) int32
     physical page ids (0 = the null page); lengths: (B,) int32 tokens
     written so far, the T query tokens included: row t attends through
     position ``lengths - T + t``. ``sinks`` (Hkv * R,) per row. Returns
-    (B, Hkv, R, D) in q's type. Journaled as ``obs`` op "attention_decode",
-    variant "paged".
+    (B, Hkv, R, D) in q's type. ``policy``: as :func:`flash_decode`'s.
+    Journaled as ``obs`` op "attention_decode", variant "paged".
     """
     b, hkv, rows, d = q.shape
     if k_pages.shape != v_pages.shape or k_pages.shape[1] != hkv \
@@ -361,10 +352,15 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
                          f"got {window}")
     scale = logit_scale if logit_scale is not None else d ** -0.5
     t0 = entry_clock()
+    if policy is None and (q.is_cuda or obs.enabled()):
+        policy = decode_policy(b, hkv, rows,
+                               page_table.shape[1] * k_pages.shape[2], d,
+                               q.device, q.dtype, q_tokens)
     if q.device.type == "cuda":
         out = _launch_paged(q, k_pages, v_pages, page_table, lengths,
                             window=window, scale=scale, softcap=softcap,
-                            q_tokens=q_tokens, sinks=sinks)
+                            q_tokens=q_tokens, sinks=sinks,
+                            ns=policy.splits)
     elif q.device.type == "cpu":
         o, m, l = decode_partials_paged_ref(
             q, k_pages, v_pages, page_table, lengths, window=window,
@@ -378,14 +374,14 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
         journal("attention_decode", q.device, t0, variant="paged",
                 chain=describe_chain(softcap, sinks),
                 flops=4 * b * hkv * rows * page_table.shape[1]
-                * k_pages.shape[2] * d)
+                * k_pages.shape[2] * d, policy=policy)
     return out
 
 
 def attention_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
                            window: int | None = None,
                            logit_scale: float | None = None, softcap=None,
-                           sinks=None, mode: str = "kernel"):
+                           sinks=None, mode: str = "kernel", policy=None):
     """Decode attention (1 or T query tokens) over a paged KV pool.
 
     q: (B, H, T, D); token t of sequence b sits at position
@@ -413,13 +409,14 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
         out = flash_decode_paged(qg.contiguous(), k_pages, v_pages,
                                  page_table, lengths, window=window,
                                  logit_scale=logit_scale, softcap=softcap,
-                                 sinks=sinks, q_tokens=t)
+                                 sinks=sinks, q_tokens=t, policy=policy)
     return out.reshape(b, h, t, d)
 
 
 def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
-                  softcap, q_tokens, sinks, kernel: CudaKernel = PAGED_KERNEL):
-    """One launch on the card; ``kernel`` as :func:`_launch`'s."""
+                  softcap, q_tokens, sinks, ns=None,
+                  kernel: CudaKernel = PAGED_KERNEL):
+    """One launch on the card; ``ns`` and ``kernel`` as :func:`_launch`'s."""
     b, hkv, rows, d = q.shape
     n_pages, _, page_size, _ = k_pages.shape
     mp = page_table.shape[1]
@@ -446,8 +443,9 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, *, window, scale,
     sink_ptr, sinks_bf16 = _check_sinks(sinks, hkv * rows, q.device,
                                         "attention_decode_paged")
     units = decode_units(b, hkv, rows, q_tokens)
-    ns, _ = plan_decode(units, -(-mp * page_size // KEY_TILE),
-                        sm_count(q.device))
+    if ns is None:
+        ns = decode_policy(b, hkv, rows, mp * page_size, d, q.device,
+                           q_tokens=q_tokens).splits
     ws, _keep = _workspaces(q.device, units, ns,
                             min(rows, rows_per_unit(rows, q_tokens)), d)
     out = torch.empty_like(q)

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch import obs
+from repro_torch.core import autotune
 from .._build import CudaKernel, entry_clock, journal
 from .epilogue import cap_logits, describe_chain
 from .ref import MASK_VALUE
@@ -175,11 +176,26 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = False,
     return (acc / l_safe).to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
+def flash_policy(op: str, q, k, causal: bool, policy=None):
+    """The flash kernels' policy (``op`` "attention_fwd" or
+    "attention_bwd") for the journal: the caller's, else the autotuner's,
+    whose one candidate a head_dim is the layout the kernel compiles for
+    it. The launch takes no other, so it is resolved only while ``obs``
+    records."""
+    if policy is not None:
+        return policy
+    b, h, sq, d = q.shape
+    return autotune.select_policy(op, (b, h, sq, k.shape[2], d), q.dtype,
+                                  causal=causal)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         window: int | None = None,
-                        logit_scale: float | None = None, softcap=None):
+                        logit_scale: float | None = None, softcap=None,
+                        policy=None):
     """Returns (out (B, H, Sq, D) in q's type, lse (B, H, Sq) fp32).
-    Journaled as ``obs`` op "attention_fwd"."""
+    Journaled as ``obs`` op "attention_fwd" with its policy
+    (:func:`flash_policy`)."""
     if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[3] != q.shape[3] or q.shape[1] % k.shape[1]:
         raise ValueError(f"attention: q {tuple(q.shape)} and k/v "
@@ -189,6 +205,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: unsupported device {q.device}")
     t0 = entry_clock()
+    if obs.enabled():
+        policy = flash_policy("attention_fwd", q, k, causal, policy)
     run = flash_attention_fwd_ref if q.device.type == "cpu" else _launch
     out = run(q, k, v, causal=causal, window=window, logit_scale=logit_scale,
               softcap=softcap)
@@ -202,7 +220,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
                 dma_bytes=forward_work(b, h, hkv, sq, skv, d, causal=causal,
                                        window=window)["bytes"],
                 flops=int(4 * b * h * sq * skv * d
-                          * (0.5 if causal else 1.0)))
+                          * (0.5 if causal else 1.0)), policy=policy)
     return out
 
 

@@ -8,12 +8,13 @@
 // GQA group (times the T query tokens of a paged call, row = g T + t),
 // FEW_ROWS a unit in the few-row body, taken where a group has up to
 // FEW_ROWS rows (few_row_body), ROW_TILE a unit in the many-row body. The
-// key positions are cut into KEY_TILE-key tiles, and a unit's
-// tiles into n_splits splits of tiles_per_split consecutive tiles
-// (plan_splits: from the units, the tile count and the SM count only, never
-// from the lengths, which stay on the device). One block per (unit, split)
-// clips its split's tiles to the live ones (live_tiles: the tiles that hold
-// a key some row of the unit sees); a block left with none loads nothing.
+// key positions are cut into KEY_TILE-key tiles, and a unit's tiles into
+// n_splits splits of tiles_per_split consecutive tiles (the caller's count,
+// the decode policy's: core.autotune plans it from the units, the tile
+// count and the SM count only, never from the lengths, which stay on the
+// device). One block per (unit, split) clips its split's tiles to the live
+// ones (live_tiles: the tiles that hold a key some row of the unit sees); a
+// block left with none loads nothing.
 //
 // A block is one producer warp and four consumer warps:
 //   - the producer's lane 0 TMA-loads each tile's K and V into a ring of
@@ -47,8 +48,8 @@
 //     token, has the bits of the 1-token step at its position; at the end
 //     of the split a row's slices are merged in warp order in shared
 //     memory.
-//   - with one split (the plan's choice whenever the unit has fewer than
-//     2 MIN_SPLIT_TILES tiles) the block writes the output in bf16. With
+//   - with one split (core.autotune.plan_decode's choice whenever the unit
+//     has fewer than 16 tiles) the block writes the output in bf16. With
 //     more, the split's partial (O, m, l) goes to an fp32 workspace, and the
 //     last block of a unit to finish (an atomic ticket, reset to 0 by that
 //     block for the next call, so CUDA-graph replays stay right) merges the
@@ -78,31 +79,8 @@ constexpr int ROW_TILE = 32;        // q rows a unit of the many-row body
 constexpr int CONSUMER_WARPS = 4;
 constexpr int CONSUMERS = 32 * CONSUMER_WARPS;
 constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
-constexpr int BLOCKS_PER_SM = 2;    // the plan's target
-constexpr int MIN_SPLIT_TILES = 8;  // a split's least tiles
 constexpr float MASK_VALUE = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// How a unit's key tiles are split: n_splits splits of tiles_per_split
-// tiles (the last may hold fewer), enough blocks for BLOCKS_PER_SM a SM
-// where the tiles allow, but no split under MIN_SPLIT_TILES tiles: a
-// split's merge (a fence, the ticket, the partials' round trips through
-// L2) costs about as much as walking that many tiles more. One split
-// writes the output with no merge. Mirrored by kernels/attention/
-// decode.py plan_decode.
-struct Plan {
-  int n_splits, tiles_per_split;
-};
-
-__host__ __device__ inline Plan plan_splits(int units, int n_tiles, int sms) {
-  const int target = BLOCKS_PER_SM * sms;
-  const int most = n_tiles / MIN_SPLIT_TILES;
-  int ns = (target + units - 1) / units;
-  ns = ns > most ? most : ns;
-  ns = ns < 1 ? 1 : ns;
-  const int tps = (n_tiles + ns - 1) / ns;
-  return {(n_tiles + tps - 1) / tps, tps};
-}
 
 // Shared memory: the ring's stages (a K tile, then a V tile, each D/64
 // boxes of KEY_TILE rows by 128 bytes), the barriers, the merge's flag and,
@@ -820,18 +798,21 @@ inline bool few_row_body(const Params& p) {
 }
 
 // Fills the plan fields of p for `rows` q rows a (b, h) and `keys` key
-// positions; returns the number of units, or -1 when the caller's split
-// count is not the plan's.
+// positions, the tiles cut into the caller's n_splits splits; returns the
+// number of units, or -1 when n_splits is not from 1 to the tile count or
+// leaves a split empty (it must be ceil(n_tiles / ceil(n_tiles /
+// n_splits)), as core.autotune.split_tiles gives it).
 inline int plan(Params& p, int batch, int n_splits) {
   const int rb = few_row_body(p) ? FEW_ROWS : ROW_TILE;
   p.n_rt = (p.rows + rb - 1) / rb;
   p.rw = p.rows < rb ? p.rows : rb;
   p.n_tiles = (p.keys + KEY_TILE - 1) / KEY_TILE;
   const int units = batch * p.hkv * p.n_rt;
-  const Plan pl = plan_splits(units, p.n_tiles, sm90::sm_count());
-  if (pl.n_splits != n_splits) return -1;
-  p.n_splits = pl.n_splits;
-  p.tps = pl.tiles_per_split;
+  if (n_splits < 1 || n_splits > p.n_tiles) return -1;
+  const int tps = (p.n_tiles + n_splits - 1) / n_splits;
+  if ((p.n_tiles + tps - 1) / tps != n_splits) return -1;
+  p.n_splits = n_splits;
+  p.tps = tps;
   return units;
 }
 

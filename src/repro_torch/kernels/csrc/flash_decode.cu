@@ -80,8 +80,9 @@ const char* repro_error_string(int code) {
 // sinks_bf16) or null; out (B, Hkv, G, D) bf16. The fp32 workspaces hold
 // (units, n_splits, rw, D) and (units, n_splits, rw) and tickets (units,)
 // int32 zeros (left zero), with units = B Hkv ceil(G / rows a unit) and
-// rw = min(G, rows a unit); n_splits must be the plan's (else
-// cudaErrorInvalidValue), as must head_dim (64, 128 or 256).
+// rw = min(G, rows a unit); n_splits the key splits, the decode policy's (a
+// count below 1, above the tile count or leaving a split empty gives
+// cudaErrorInvalidValue, as does a head_dim other than 64, 128 or 256).
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* lengths, const void* sinks, void* out,
                         void* o_ws, void* m_ws, void* l_ws, void* tickets,

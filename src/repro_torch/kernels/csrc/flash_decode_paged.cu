@@ -86,8 +86,8 @@ const char* repro_error_string(int code) {
 // int32; sinks (Hkv, R) fp32 (bf16 with sinks_bf16) or null; out
 // (B, Hkv, R, D) bf16. Workspaces as flash_decode_launch's, with
 // units = B Hkv ceil(R / rows a unit). head_dim 64, 128 or 256, a page
-// size that is a multiple of 8 up to 128, T dividing R and the plan's
-// n_splits (else cudaErrorInvalidValue).
+// size that is a multiple of 8 up to 128, T dividing R and n_splits as
+// flash_decode_launch's (else cudaErrorInvalidValue).
 int flash_decode_paged_launch(const void* q, const void* k_pages,
                               const void* v_pages, const void* page_table,
                               const void* lengths, const void* sinks,

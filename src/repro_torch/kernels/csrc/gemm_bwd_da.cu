@@ -201,13 +201,15 @@ const char* repro_error_string(int code) {
 // (rmsnorm when null); dan is an (M, K) fp32 scratch, and da plus
 // dgamma_part (ceil(M / 32), K) fp32 are written by the row pass, and
 // dbeta_part of the same shape when it is not null (layernorm + beta).
-// tile_n: the mainloop's tile width, 64, 128 or 256. passes: bit 0 runs the
-// GEMM, bit 1 the row pass (3 for both).
+// tile_n: the mainloop's tile width, 64, 128 or 256; window: the walk's tile
+// rows a group (>= 1). passes: bit 0 runs the GEMM, bit 1 the row pass (3
+// for both).
 int gemm_bwd_da_launch(const void* gbar, const void* b, const void* b2,
                        const void* a, const void* gamma, const void* mean,
                        const void* rstd, void* dan, void* da,
                        void* dgamma_part, void* dbeta_part, int m, int n,
-                       int k, int tile_n, int passes, void* stream) {
+                       int k, int tile_n, int window, int passes,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool norm = gamma != nullptr;
   if ((norm && (a == nullptr || rstd == nullptr || dan == nullptr ||
@@ -222,6 +224,7 @@ int gemm_bwd_da_launch(const void* gbar, const void* b, const void* b2,
       {static_cast<const __nv_bfloat16*>(gbar) + n, m, n, ld}};
   const sm90::Operand y[2] = {{b, k, n, n}, {b2, k, n, n}};
   sm90::Params p{};
+  p.group_m = window;
   p.m = m;
   p.n = k;
   p.c = norm ? dan : da;

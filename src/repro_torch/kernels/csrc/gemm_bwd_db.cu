@@ -69,14 +69,16 @@ const char* repro_error_string(int code) {
 // a_t: (K, ld_t) bf16 and gbar_t: (N', ld_t) bf16 from the operand pass, the
 // first M columns of each row valid; N' = 2N when db2 is given (the gated
 // chain), else N. Writes db (K, N) bf16 and, for the gated chain, db2 (K, N).
-// tile_n: the mainloop's tile width, 64, 128 or 256.
+// tile_n: the mainloop's tile width, 64, 128 or 256; window: the walk's tile
+// rows a group (>= 1).
 int gemm_bwd_db_launch(const void* a_t, const void* gbar_t, void* db,
                        void* db2, int m, int ld_t, int n, int k, int tile_n,
-                       void* stream) {
+                       int window, void* stream) {
   const int n2 = db2 != nullptr ? 2 * n : n;
   const sm90::Operand x[1] = {{a_t, k, m, ld_t}};
   const sm90::Operand y[1] = {{gbar_t, n2, m, ld_t}};
   sm90::Params p{};
+  p.group_m = window;
   p.m = k;
   p.n = n2;
   p.c = db;

@@ -563,7 +563,8 @@ const char* repro_error_string(int code) {
 // 128 or 256; at least 128 for the gated chain, a multiple of head_dim for
 // rope, itself a multiple of 4, and at most 128 then); splits: the
 // contraction's split count
-// (every split non-empty). ws: a (splits, M, n_raw) fp32 workspace when
+// (every split non-empty); window: the walk's tile rows a group (>= 1).
+// ws: a (splits, M, n_raw) fp32 workspace when
 // splits > 1 or a rope head_dim is no multiple of 16, else null or, at one
 // split, a workspace that receives the raw fp32 accumulators (the staged
 // route: the caller reads the fp32 product from it); n_raw = N, or for the
@@ -574,13 +575,14 @@ int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
                       const void* bias, const void* residual, const void* sin,
                       const void* cos, void* preact, void* preact2, void* ws,
                       float scale, float eps, int m, int n, int k, int flags,
-                      int head_dim, int tile_n, int splits, void* stream) {
+                      int head_dim, int tile_n, int splits, int window,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gate = flags & EP_GATE;
   if (gate != (b2 != nullptr) ||
       (preact2 != nullptr) != (gate && preact != nullptr) ||
       (preact != nullptr && act_code(flags) == ACT_NONE) || m < 1 || n < 1 || k < 1 || n % 8 ||
-      k % 8 || splits < 1 ||
+      k % 8 || splits < 1 || window < 1 ||
       (gamma != nullptr && (rstd == nullptr || an == nullptr)) ||
       ((beta != nullptr || mean != nullptr) && gamma == nullptr) ||
       (beta != nullptr && mean == nullptr) || (gate && tile_n < 128) ||
@@ -622,6 +624,7 @@ int gemm_fused_launch(const void* a, const void* b, const void* b2, void* c,
   const int halves = gate ? 2 : 1;
   const int tile_out = tile_n / halves;   // output columns a tile gives
   sm90::Params p{};
+  p.group_m = window;
   p.m = m;
   p.n = gate ? (n + tile_out - 1) / tile_out * tile_n : n;
   p.c = ws;

@@ -32,8 +32,9 @@
 //     wgmma.mma_async m64nBNk16 straight from shared memory, one group in
 //     flight while the previous stage is released;
 //   - persistent blocks, one per SM, walking the output tiles in groups of
-//     8 tile rows (so a group's Y tiles stay in L2); the producer runs ahead
-//     into the next tile while the consumers store this one;
+//     p.group_m tile rows (the policy's window, 8 by default; so a group's
+//     Y tiles stay in L2); the producer runs ahead into the next tile while
+//     the consumers store this one;
 //   - ragged M, N and contraction edges: the TMA fills out-of-range elements
 //     with zeros, and the store is masked.
 // An MN-major Y stage is BN/64 TMA boxes of 64 columns (128 bytes) by 64
@@ -42,9 +43,10 @@
 // one 64-column box to the next and whose stride steps over 8 contraction
 // rows (CUTLASS cute/atom/mma_traits_sm90_gmma.hpp, make_gmma_desc, the
 // Major::MN case of the 128-byte swizzle).
-// BN (64, 128 or 256) is the caller's choice per launch, from the number of
-// tiles against the SMs (kernels/gemm/backward.py pick_tile_n for the
-// backward, kernels/gemm/ops.py plan_gemm, with the split, for the forward).
+// BN (64, 128 or 256), the split and the walk's window are the caller's per
+// launch: the policy that repro_torch.core.autotune resolves (its analytic
+// plans pick_tile_n for the backward and plan_gemm for the forward, window
+// 8, unless a pretuned table pins another).
 #pragma once
 
 #include <cuda.h>
@@ -58,7 +60,6 @@ constexpr int BM = 128;          // rows of C per tile: two warpgroups of 64
 constexpr int BK = 64;           // contraction per stage: 128 bytes of bf16
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS = 128 * (1 + CONSUMERS);
-constexpr int GROUP_M = 8;       // tile rows walked together
 
 template <int BN>
 struct Tile {
@@ -89,6 +90,7 @@ struct Params {
   void* c2;                 // columns >= n_split: at c2 + r * ldc
                             // + col - n_split
   int ldc, n_split;         // (split s of a split launch: rows offset s * m)
+  int group_m;              // tile rows walked together (the window, >= 1)
 };
 
 // ---------------------------------------------------------------------------
@@ -459,13 +461,14 @@ struct WgmmaRS<256> {
 };
 
 
-// Tile t of the persistent walk -> (tile row, tile column): GROUP_M tile
-// rows at a time, column by column within the group.
+// Tile t of the persistent walk -> (tile row, tile column): group_m tile
+// rows at a time, column by column within the group (Algorithm 1's
+// windowed traversal, repro_torch/core/grid_swizzle.py tile_coords).
 __device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n,
-                                            int& tm, int& tn) {
-  const int per_group = GROUP_M * tiles_n;
-  const int first = (t / per_group) * GROUP_M;
-  const int rows = min(tiles_m - first, GROUP_M);
+                                            int group_m, int& tm, int& tn) {
+  const int per_group = group_m * tiles_n;
+  const int first = (t / per_group) * group_m;
+  const int rows = min(tiles_m - first, group_m);
   const int r = t % per_group;
   tm = first + r % rows;
   tn = r / rows;
@@ -552,7 +555,7 @@ __device__ __forceinline__ void gemm_body(const Params& p,
       int stage = 0, phase = 0;
       for (int w = blockIdx.x; w < items; w += gridDim.x) {
         int tm, tn;
-        tile_coords(w % tiles, tiles_m, tiles_n, tm, tn);
+        tile_coords(w % tiles, tiles_m, tiles_n, p.group_m, tm, tn);
         const int kt0 = (w / tiles) * p.k_per_split;
         const int kt1 = min(k_tiles, kt0 + p.k_per_split);
         for (int kt = kt0; kt < kt1; ++kt) {
@@ -598,7 +601,7 @@ __device__ __forceinline__ void gemm_body(const Params& p,
     int stage = 0, phase = 0;
     for (int w = blockIdx.x; w < items; w += gridDim.x) {
       int tm, tn;
-      tile_coords(w % tiles, tiles_m, tiles_n, tm, tn);
+      tile_coords(w % tiles, tiles_m, tiles_n, p.group_m, tm, tn);
       const int kt0 = (w / tiles) * p.k_per_split;
       const int kt1 = min(k_tiles, kt0 + p.k_per_split);
       int prev = -1;
@@ -743,10 +746,12 @@ inline int sm_count() {
 }
 
 // Launches `kernel` on one block per SM, at most one per work item, with
-// the Tile's dynamic shared memory; `args` follow the Params.
+// the Tile's dynamic shared memory; `args` follow the Params. The walk's
+// window (p.group_m) must be set, at least 1.
 template <int BN, typename Kernel, typename... Args>
 cudaError_t run(Kernel kernel, const Params& p, int sms, cudaStream_t stream,
                 const Args&... args) {
+  if (p.group_m < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::SMEM);
   if (err != cudaSuccess) return err;

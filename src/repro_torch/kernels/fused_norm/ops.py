@@ -9,17 +9,20 @@ backward, as the reference's has none.
 from __future__ import annotations
 
 from repro_torch import obs
+from repro_torch.core import autotune
 from .._build import entry_clock, journal
 from .kernel import fused_norm_launch
 from .ref import fused_dropout_residual_layernorm_ref
 
 
 def dropout_residual_layernorm(x, residual, weight, bias, seed=0, *,
-                               dropout_p: float = 0.0, eps: float = 1e-5):
+                               dropout_p: float = 0.0, eps: float = 1e-5,
+                               policy=None):
     """x, residual: (rows, d); weight/bias: (d,); ``seed`` an int32 (a
     negative one wraps to uint32, as in the reference's kernel). Returns
     (normed, new_residual) in x's type. Journaled as ``obs`` op
-    "fused_norm"."""
+    "fused_norm" with its policy (the caller's, else the autotuner's: the
+    kernel's one layout a width, which the launch takes)."""
     if x.dim() != 2 or residual.shape != x.shape \
             or weight.shape != x.shape[1:] or bias.shape != x.shape[1:]:
         raise ValueError(f"dropout_residual_layernorm: x {tuple(x.shape)}, "
@@ -39,5 +42,7 @@ def dropout_residual_layernorm(x, residual, weight, bias, seed=0, *,
         raise ValueError(f"dropout_residual_layernorm: unsupported device "
                          f"{x.device}")
     if obs.enabled():
-        journal("fused_norm", x.device, t0, flops=10 * x.numel())
+        journal("fused_norm", x.device, t0, flops=10 * x.numel(),
+                policy=policy or autotune.select_policy(
+                    "fused_norm", x.shape, x.dtype))
     return out

@@ -39,9 +39,12 @@ import ctypes
 import torch
 
 from repro_torch import obs
+from repro_torch.core import autotune
+from repro_torch.core.autotune import pick_tile_n  # noqa: F401
+from repro_torch.core.policy import gemm_policy
 from .._build import CudaKernel, entry_clock, journal
 from .epilogue import Epilogue
-from .ops import (COLUMN_COST, TILE_ROWS, TILE_WIDTHS, chain_flags,
+from .ops import (TILE_ROWS, TILE_WIDTHS, chain_flags,  # noqa: F401
                   kernel_saves, require, sm_count)
 from .prologue import Prologue
 
@@ -51,10 +54,10 @@ G_KERNEL = CudaKernel(
     [_P] * 15 + [_F] + [_I] * 6 + [_P])
 DA_KERNEL = CudaKernel(
     "gemm_bwd_da", "gemm_bwd_da.cu", "gemm_bwd_da_launch",
-    [_P] * 11 + [_I] * 5 + [_P])
+    [_P] * 11 + [_I] * 6 + [_P])
 DB_KERNEL = CudaKernel(
     "gemm_bwd_db", "gemm_bwd_db.cu", "gemm_bwd_db_launch",
-    [_P] * 4 + [_I] * 5 + [_P])
+    [_P] * 4 + [_I] * 6 + [_P])
 
 # rows per dgamma/dbeta partial of the dA launch (NR_ROWS in
 # csrc/gemm_bwd_da.cu)
@@ -89,18 +92,17 @@ def check_tma_operand(t, name: str, col0: int = 0) -> int:
     return addr
 
 
-def pick_tile_n(m: int, n: int, sms: int) -> int:
-    """The mainloop's tile width for an (m, n) output on ``sms`` SMs: the
-    fewest rounds of tiles over the SMs, weighed by the width (a round of
-    BN-wide tiles takes about BN) and the dearer columns of narrow tiles.
-    v's dB (2048 x 512: 64 tiles of 128 x 128 for 132 SMs) takes 64."""
-    tiles_m = -(-m // TILE_ROWS)
-
-    def cost(w):
-        rounds = -(-tiles_m * -(-n // w) // sms)
-        return rounds * w * COLUMN_COST[w]
-
-    return min(sorted(TILE_WIDTHS, reverse=True), key=cost)
+def bwd_policies(m: int, n: int, k: int, epilogue: Epilogue,
+                 prologue: Prologue, sms=None) -> tuple:
+    """The (dA, dB) launches' policies of a forward (m, k) @ (k, n): the
+    autotuner's ``gemm_bwd`` policies for dA's (M, K) output over N and
+    dB's (K, N') output over M (with no pretuned table installed,
+    ``pick_tile_n``'s width at window 8)."""
+    n2 = 2 * n if epilogue.gate else n
+    kw = dict(epilogue=epilogue, prologue=prologue, sms=sms)
+    return (autotune.select_policy("gemm_bwd", (m, k, n), variant="da", **kw),
+            autotune.select_policy("gemm_bwd", (k, n2, m), variant="db",
+                                   **kw))
 
 
 def check_shapes(epilogue: Epilogue, n: int, k: int) -> None:
@@ -270,9 +272,14 @@ def gemm_fused_bwd(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
              if obs.enabled() else None)
     # the operand pass, dA and dB, each journaled as it ends; the CPU runs
     # the plain versions of dA and dB (the operand pass's is inside them)
+    pol_da = pol_db = None
+    if dev.type == "cuda" or obs.enabled():
+        pol_da, pol_db = bwd_policies(
+            m, n, k, epilogue, prologue,
+            sm_count(dev) if dev.type == "cuda" else None)
     t0 = entry_clock()
     if dev.type == "cuda":
-        run = BwdLaunch(a, b, g, **kw)
+        run = BwdLaunch(a, b, g, da_policy=pol_da, db_policy=pol_db, **kw)
         run.operand_pass()
     if obs.enabled():
         journal("gemm_bwd_g", dev, t0, variant="g", chain=chain)
@@ -283,7 +290,7 @@ def gemm_fused_bwd(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
         da, dgamma, dbeta = gemm_bwd_da_ref(a, b, g, **kw)
     if obs.enabled():
         journal("gemm_bwd_da", dev, t0, variant="da", chain=chain,
-                flops=2 * m * n * k)
+                flops=2 * m * n * k, policy=pol_da)
     t0 = entry_clock()
     if dev.type == "cuda":
         (db, db2), dbias = run.db(), run.dbias()
@@ -291,7 +298,8 @@ def gemm_fused_bwd(a, b, g, *, epilogue: Epilogue, prologue: Prologue,
         db, db2, dbias = gemm_bwd_db_ref(a, b, g, **kw)
     if obs.enabled():
         journal("gemm_bwd_db", dev, t0, variant="db", chain=chain,
-                flops=(2 if epilogue.gate else 1) * 2 * m * n * k)
+                flops=(2 if epilogue.gate else 1) * 2 * m * n * k,
+                policy=pol_db)
     grads = {"residual": g}
     for name, grad in (("b2", db2), ("bias", dbias), ("gamma", dgamma),
                        ("beta", dbeta)):
@@ -310,12 +318,15 @@ class BwdLaunch:
     included) and allocates the operand pass's buffers and the outputs, so
     nothing is launched for a call the kernels would refuse; the methods
     launch the operand pass, dA (``passes``: 1 the GEMM, 2 the norm row
-    pass, 3 both) and dB, in that order. ``tile_n`` fixes the mainloop's
-    tile width for both products (0: :func:`pick_tile_n` for each)."""
+    pass, 3 both) and dB, in that order. ``da_policy``/``db_policy``: the
+    products' policies (tile width and window; None: :func:`bwd_policies`);
+    ``tile_n`` fixes the tile width of both at window 8 (the smoke's
+    sweeps)."""
 
     def __init__(self, a, b, g, *, epilogue, prologue, b2=None, bias=None,
                  scale=None, sin=None, cos=None, gamma=None, beta=None,
-                 rstd=None, preacts=(), tile_n=0):
+                 rstd=None, preacts=(), tile_n=0, da_policy=None,
+                 db_policy=None):
         m, k = a.shape
         n = b.shape[1]
         dev, bf16, f32 = a.device, torch.bfloat16, torch.float32
@@ -365,8 +376,18 @@ class BwdLaunch:
 
         n2 = 2 * n if epilogue.gate else n
         # dA's output is (M, K), dB's (K, N')
-        self.tile_da = tile_n or pick_tile_n(m, k, sm_count(dev))
-        self.tile_db = tile_n or pick_tile_n(k, n2, sm_count(dev))
+        if tile_n:
+            da_policy = db_policy = gemm_policy(tile_n, op="gemm_bwd")
+        if da_policy is None or db_policy is None:
+            auto = bwd_policies(m, n, k, epilogue, prologue, sm_count(dev))
+            da_policy, db_policy = da_policy or auto[0], db_policy or auto[1]
+        for pol in (da_policy, db_policy):
+            if pol.block_n not in TILE_WIDTHS or pol.splits != 1 \
+                    or pol.window < 1:
+                raise ValueError(f"gemm_fused_bwd kernel: policy "
+                                 f"{pol.describe()} is not a backward plan")
+        self.tile_da, self.window_da = da_policy.block_n, da_policy.window
+        self.tile_db, self.window_db = db_policy.block_n, db_policy.window
         self.ld_t = transposed_stride(m)
         self.gbar = torch.empty((m, n2), dtype=bf16, device=dev)
         self.gbar_t = torch.empty((n2, self.ld_t), dtype=bf16, device=dev)
@@ -419,7 +440,8 @@ class BwdLaunch:
                   self.a if self.norm else None, self.gamma, self.mean,
                   self.rstd, self._ptr(self.dan), self.da_out.data_ptr(),
                   self._ptr(self.dgamma_part), self._ptr(self.dbeta_part),
-                  self.m, self.n, self.k, self.tile_da, passes, stream)
+                  self.m, self.n, self.k, self.tile_da, self.window_da, passes,
+                  stream)
         kernel.check(code)
         return (self.da_out, self._sum(self.dgamma_part),
                 self._sum(self.dbeta_part))
@@ -432,7 +454,8 @@ class BwdLaunch:
         kernel.launches += 1
         code = fn(self.a_t.data_ptr(), self.gbar_t.data_ptr(),
                   self.db_out.data_ptr(), self._ptr(self.db2_out), self.m,
-                  self.ld_t, self.n, self.k, self.tile_db, stream)
+                  self.ld_t, self.n, self.k, self.tile_db, self.window_db,
+                  stream)
         kernel.check(code)
         return self.db_out, self.db2_out
 

@@ -160,27 +160,36 @@ _FNS = {("all_gather", "ring"): _ag_ring,
 
 def gemm_collective(x, w, *, mesh, axis: str = "model", variant: str,
                     mode: str = "kernel", out_dtype=None,
-                    plan: str | None = None):
+                    plan: str | None = None, shard=None):
     """The collective GEMM on this rank's blocks over ``axis`` of ``mesh``.
 
     all_gather: x (m_loc, K) this rank's rows, w (K, N) whole -> (M, N).
     reduce_scatter: x (M, k_loc), w (k_loc, N) this rank's contraction
     slices -> this rank's (M / S, N) rows of the summed product.
-    ``plan``: 'ring' (overlapped) or 'gather' (the unfused baseline); the
-    reference asks its autotuner for None, which the port does not have
-    yet."""
+    ``plan``: 'ring' (overlapped) or 'gather' (the unfused baseline); None
+    asks ``core.autotune.select_fusion("gemm_collective", (M, N, K),
+    shard=)`` ('fused' is the ring), ``shard`` a ``ShardSpec`` (by default
+    the one ``axis`` of ``mesh``, its rows or contraction split)."""
+    from repro_torch.core import autotune
     from repro_torch.distributed.collectives import axis_size
+    from repro_torch.distributed.sharding import ShardSpec
 
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; have {VARIANTS}")
+    size = axis_size(mesh, axis)
     if plan is None:
-        raise NotImplementedError(
-            "gemm_collective: plan=None asks the reference's autotuner; the "
-            "port has no policy layer yet (ROADMAP Queue A, the Hopper "
-            "policy layer): pass plan='ring' or 'gather'")
+        if variant == "all_gather":
+            mnk = (x.shape[0] * size, w.shape[1], x.shape[1])
+        else:
+            mnk = (x.shape[0], w.shape[1], x.shape[1] * size)
+        shard = shard or ShardSpec.for_axis(
+            mesh, axis, dim="rows" if variant == "all_gather" else "contract",
+            collective=variant)
+        verdict = autotune.select_fusion("gemm_collective", mnk, x.dtype,
+                                         shard=shard)
+        plan = "ring" if verdict["plan"] == "fused" else "gather"
     if plan not in PLANS:
         raise ValueError(f"unknown plan {plan!r}; have {PLANS}")
-    size = axis_size(mesh, axis)
     out_dtype = out_dtype or x.dtype
     if variant == "all_gather":
         pshape = (x.shape[0], w.shape[1], x.shape[1])
@@ -223,7 +232,8 @@ def gemm_collective_oracle(x_full, w_full, *, variant: str, axis_size: int,
 
 def gemm_collective_sharded(x, w, *, mesh, axis: str = "model",
                             variant: str = "all_gather", mode: str = "kernel",
-                            out_dtype=None, plan: str | None = None):
+                            out_dtype=None, plan: str | None = None,
+                            shard=None):
     """The whole operands in, this rank's result out, as the reference's
     ``shard_map`` wrapper with each variant's specs: all_gather: x's rows
     over ``axis``, w whole -> the whole (M, N); reduce_scatter: x's
@@ -241,4 +251,5 @@ def gemm_collective_sharded(x, w, *, mesh, axis: str = "model",
         xl = x[:, rank * k_loc:(rank + 1) * k_loc]
         wl = w[rank * k_loc:(rank + 1) * k_loc]
     return gemm_collective(xl, wl, mesh=mesh, axis=axis, variant=variant,
-                           mode=mode, out_dtype=out_dtype, plan=plan)
+                           mode=mode, out_dtype=out_dtype, plan=plan,
+                           shard=shard)

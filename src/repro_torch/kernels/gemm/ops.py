@@ -14,13 +14,17 @@ accepts is one the card accepts too:
   column scales, nor fp8 operands.
 
 On the card every operand is bf16 (sin/cos fp32), contiguous and 16-byte
-aligned, with N and K multiples of 8. The kernel's tile width and the split
-of its contraction come from :func:`plan_gemm`, a function of the shape,
-the chain and the SM count alone, so a call gives the same bits every time
-and a row's result does not depend on the other rows.
+aligned, with N and K multiples of 8. The kernel's tile width, the split of
+its contraction and its walk's window come from a ``KernelPolicy``: the
+caller's (``policy=``) or the one ``repro_torch.core.autotune`` resolves for
+the shape, the chain and the SM count (with no pretuned table installed
+:func:`plan_gemm`'s plan at window 8), so a call gives the same bits every
+time and a row's result does not depend on the other rows. The window
+changes only the order of the tiles, never a bit of the output.
 
 Under autograd the op is a ``torch.autograd.Function``. ``bwd_mode`` picks
-its backward: ``"kernel"`` (the default, see :func:`default_bwd_mode`) runs
+its backward (``"auto"``: ``core.autotune.select_bwd_mode`` routes the call
+by the byte models): ``"kernel"`` (the default, see :func:`default_bwd_mode`) runs
 the chain transpose as the two backward kernels (``backward.py``); the
 forward then also stores the raw accumulators the transpose needs and keeps
 the row statistics. The backward kernels take every chain the forward
@@ -43,6 +47,8 @@ from typing import Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.core import autotune
+from repro_torch.core.grid_swizzle import DEFAULT_WINDOW
 from .._build import CudaKernel, entry_clock, journal
 from .epilogue import EPILOGUE_NONE, Epilogue
 from .prologue import PROLOGUE_NONE, Prologue
@@ -51,7 +57,7 @@ from .ref import gemm_fused_ref, norm_rows_ref
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "gemm_fused", "gemm_fused.cu", "gemm_fused_launch",
-    [_P] * 16 + [_F, _F] + [_I] * 7 + [_P])
+    [_P] * 16 + [_F, _F] + [_I] * 8 + [_P])
 
 BWD_MODES = ("kernel", "reference", "auto")
 _DEFAULT_BWD_MODE = ["kernel"]
@@ -91,73 +97,12 @@ _FP8 = tuple(getattr(torch, n) for n in ("float8_e4m3fn", "float8_e5m2")
 # a rope chain is a multiple of it, so tiles hold whole heads
 BLOCK_N = 128
 
-# The Hopper mainloop (csrc/gemm_sm90.cuh), shared with the backward: its
-# tile widths, rows per tile (BM) and contraction per stage (BK), and the
-# relative cost of a column of a narrower tile (more shared-memory reads
-# per product; chip_smoke.py phase 3 times every width against the pick).
-TILE_WIDTHS = (64, 128, 256)
-TILE_ROWS = 128
-TILE_DEPTH = 64
-COLUMN_COST = {256: 1.0, 128: 1.15, 64: 1.5}
-# The forward's plan (plan_gemm), fitted to chip_smoke.py phase 3's sweep
-# of every (width, split) on an H100: a width is taken where its tiles give
-# every SM about this many (the per-tile fill and epilogue cost more than a
-# narrower tile's extra rounds otherwise); up to one tile row of M (decode,
-# a prefill chunk) the tiles cannot fill the card and the contraction is
-# split, each split at least MIN_SPLIT_STAGES stages deep.
-TILES_PER_SM = {256: 1.9, 128: 0.9}
-MIN_SPLIT_STAGES = 4
-
-
-def tile_widths(gate: bool = False, head_dim: int = 0) -> tuple:
-    """The forward kernel's tile widths for a chain: the gated chain's
-    tiles hold two 64-column boxes or more (B's and B2's); a rope chain's
-    hold whole heads and are at most 128 wide (at 256 its epilogue was
-    slower at every shape of the sweep and spilled registers)."""
-    return tuple(w for w in TILE_WIDTHS
-                 if (not gate or w >= 128)
-                 and (not head_dim or (w % head_dim == 0 and w <= 128)))
-
-
-def plan_gemm(m: int, n: int, k: int, sms: int, *, gate: bool = False,
-              head_dim: int = 0, act: bool = False) -> tuple:
-    """(tile width, split count) of the forward kernel for an (m, k) @
-    (k, n) product on ``sms`` SMs. Up to one tile row (M <= TILE_ROWS):
-    128-wide tiles (the gated chain's narrowest; the weight bytes bound
-    these shapes) and the contraction split over the SMs. Above: the widest
-    width whose tiles give each SM TILES_PER_SM of them, else the
-    narrowest; no split. A non-gated activation's store (``act``) takes
-    128-wide tiles at most: at 256 its per-thread epilogue (128
-    activations a row) was slower at every shape of the sweep. A function
-    of the shape, the chain and the SM count only, the same for every M of
-    one tile row."""
-    widths = tile_widths(gate, head_dim)
-    if act and not gate:
-        widths = tuple(w for w in widths if w <= 128)
-    if m <= TILE_ROWS:
-        width = 128 if 128 in widths else max(widths)
-        return width, split_count(tile_count(m, n, width, gate), k, sms)
-    for w in sorted(widths, reverse=True):
-        if w in TILES_PER_SM and (tile_count(m, n, w, gate)
-                                  >= TILES_PER_SM[w] * sms):
-            return w, 1
-    return min(widths), 1
-
-
-def split_count(tiles: int, k: int, sms: int) -> int:
-    """The contraction's split for ``tiles`` output tiles over a K-deep
-    contraction: 1 when the tiles fill the SMs, else as many as fill them,
-    each at least MIN_SPLIT_STAGES stages deep, none empty."""
-    if tiles >= sms:
-        return 1
-    stages = -(-k // TILE_DEPTH)
-    splits = max(1, min(sms // tiles, stages // MIN_SPLIT_STAGES))
-    return -(-stages // -(-stages // splits))
-
-
-def tile_count(m: int, n: int, tile_n: int, gate: bool = False) -> int:
-    """Output tiles of an (m, n) result at tile width ``tile_n``."""
-    return -(-m // TILE_ROWS) * -(-n // (tile_n // 2 if gate else tile_n))
+# The Hopper mainloop's geometry and the forward's hand-fitted plan live in
+# the policy layer (repro_torch.core.autotune), whose analytic ranking they
+# are; they are named here for the kernel's callers.
+from repro_torch.core.autotune import (  # noqa: E402,F401
+    COLUMN_COST, MIN_SPLIT_STAGES, TILE_DEPTH, TILE_ROWS, TILE_WIDTHS,
+    TILES_PER_SM, plan_gemm, split_count, tile_count, tile_widths)
 
 
 def staged(epilogue: Epilogue, splits: int) -> bool:
@@ -243,6 +188,7 @@ class _Spec:
     scale: object
     out_dtype: torch.dtype
     bwd_mode: str
+    policy: object = None
 
 
 # the tensor operands of the autograd Function, in its argument order
@@ -253,7 +199,8 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
                prologue: Prologue = PROLOGUE_NONE, b2=None, bias=None,
                residual=None, scale=None, sin=None, cos=None,
                gamma=None, beta=None, mean=None, rstd=None,
-               out_dtype=torch.bfloat16, bwd_mode: str | None = None):
+               out_dtype=torch.bfloat16, bwd_mode: str | None = None,
+               policy=None):
     """C = epilogue(prologue(A) @ B [, A @ B2]) in one launch on the card.
 
     a (M, K), b and b2 (K, N); gamma and beta (K,); bias (N,); residual
@@ -261,9 +208,12 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
     scale a scalar; sin/cos (M, head_dim) fp32 duplicated-halves tables.
     ``out_dtype`` float32 is the chainless product's raw fp32 accumulators
     (one contraction split; a row-parallel product's partial sum, summed
-    over the ranks before it is rounded). ``bwd_mode`` ("kernel" | "reference"; None: :func:`default_bwd_mode`)
-    picks the backward when autograd records the call. The launch is
-    journaled as ``obs`` op "gemm_fused" (:func:`_forward`).
+    over the ranks before it is rounded). ``bwd_mode`` ("kernel" |
+    "reference" | "auto"; None: :func:`default_bwd_mode`) picks the
+    backward when autograd records the call. ``policy``: the launch's
+    ``KernelPolicy`` (tile width, split, window); None resolves it
+    (:func:`launch_policy`). The launch is journaled as ``obs`` op
+    "gemm_fused" with its policy (:func:`_forward`).
     """
     provided = dict(b2=b2, bias=bias, residual=residual, scale=scale,
                     sin=sin, cos=cos)
@@ -282,11 +232,6 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
         bwd_mode = _DEFAULT_BWD_MODE[0]
     if bwd_mode not in BWD_MODES:
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}; have {BWD_MODES}")
-    if bwd_mode == "auto":
-        raise NotImplementedError(
-            "gemm_fused: bwd_mode='auto' routes by the reference's TPU cost "
-            "model, which the port does not have; pass 'kernel' or "
-            "'reference'")
     operands = (a, b, b2, bias, residual, gamma, beta, sin, cos)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
@@ -294,14 +239,42 @@ def gemm_fused(a, b, *, epilogue: Epilogue = EPILOGUE_NONE,
                for t in (scale, sin, cos)):
             raise NotImplementedError(
                 "gemm_fused: the scale and the rope tables take no gradient")
+        if bwd_mode == "auto":
+            bwd_mode = auto_bwd_mode(a, b, epilogue, prologue)
         if bwd_mode == "kernel":
             check_backward(epilogue, prologue)
         return _GemmFusedFn.apply(*operands, _Spec(
-            epilogue, prologue, scale, out_dtype, bwd_mode))
+            epilogue, prologue, scale, out_dtype, bwd_mode, policy))
     return _forward(a, b, epilogue, prologue, b2=b2, bias=bias,
                     residual=residual, scale=scale, sin=sin, cos=cos,
                     gamma=gamma, beta=beta, out_dtype=out_dtype,
-                    bwd_mode=bwd_mode)[0]
+                    bwd_mode=bwd_mode, policy=policy)[0]
+
+
+def auto_bwd_mode(a, b, epilogue: Epilogue, prologue: Prologue) -> str:
+    """``bwd_mode="auto"``: ``core.autotune.select_bwd_mode``'s route, the
+    oracle for a chain whose backward the kernels refuse."""
+    mode = autotune.select_bwd_mode(a.shape[0], b.shape[1], a.shape[1],
+                                    dtype=a.dtype, epilogue=epilogue,
+                                    prologue=prologue)
+    if mode == "kernel":
+        try:
+            check_backward(epilogue, prologue)
+        except NotImplementedError:
+            return "reference"
+    return mode
+
+
+def launch_policy(a, b, epilogue: Epilogue, prologue: Prologue,
+                  policy=None):
+    """The policy of one forward launch: ``policy``, else the autotuner's
+    for the shape, the chain and the card's SM count."""
+    if policy is not None:
+        return policy
+    return autotune.select_policy(
+        "gemm", (a.shape[0], b.shape[1], a.shape[1]), a.dtype,
+        epilogue=epilogue, prologue=prologue,
+        sms=sm_count(a.device) if a.is_cuda else None)
 
 
 class _OpRan(threading.local):
@@ -316,7 +289,7 @@ _OP_RAN = _OpRan()
 
 def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
              cos, gamma, out_dtype, beta=None, save_preact=False,
-             bwd_mode="kernel"):
+             bwd_mode="kernel", policy=None):
     """(out, stats, preacts) through the custom op ``repro_torch::gemm_fused``:
     the kernel on the card, the plain version on the CPU. ``stats`` is the
     kernel's row statistics in fp32: rstd (M,) for rmsnorm, (2, M) mean and
@@ -324,7 +297,8 @@ def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
     plain backward recomputes them); ``preacts`` the raw accumulators
     rounded to A's type when ``save_preact`` (:func:`kernel_saves` of them),
     else (). The op is what a selective-checkpoint policy sees of the
-    launch (``models.lm._remat``'s "dots").
+    launch (``models.lm._remat``'s "dots"). ``policy`` is resolved here
+    (:func:`launch_policy`) on the card, or on the CPU for the journal.
 
     Journaled as ``obs`` op "gemm_fused" (variant ``bwd_mode``) when the
     op ran: not when a selective checkpoint's recompute hands back the
@@ -335,16 +309,22 @@ def _forward(a, b, epilogue, prologue, *, b2, bias, residual, scale, sin,
         raise NotImplementedError("gemm_fused kernel: row/col scales and "
                                   "precomputed statistics are not supported")
     t0, _OP_RAN.ran = entry_clock(), False
+    if a.is_cuda or obs.enabled():
+        policy = launch_policy(a, b, epilogue, prologue, policy)
+    plan = None if policy is None else [policy.block_n, policy.splits,
+                                        policy.window]
     out, stats, preacts = torch.ops.repro_torch.gemm_fused(
         a, b, b2, bias, residual, gamma, beta, sin, cos,
         chain_flags(epilogue), epilogue.head_dim, prologue.norm, prologue.eps,
-        None if scale is None else float(scale), out_dtype, save_preact)
+        None if scale is None else float(scale), out_dtype, save_preact,
+        plan)
     if obs.enabled() and _OP_RAN.ran:
         m, k = a.shape
         n = b.shape[1]
         journal("gemm_fused", a.device, t0, variant=bwd_mode,
                 chain=f"{prologue.describe()}|{epilogue.describe()}",
-                flops=(2 if epilogue.gate else 1) * 2 * m * n * k)
+                flops=(2 if epilogue.gate else 1) * 2 * m * n * k,
+                policy=policy)
     return out, (stats if stats.numel() else None), tuple(preacts)
 
 
@@ -370,10 +350,10 @@ def _gemm_fused_op(
         sin: Optional[torch.Tensor], cos: Optional[torch.Tensor], flags: int,
         head_dim: int, norm: str, eps: Optional[float],
         scale: Optional[float], out_dtype: torch.dtype,
-        save_preact: bool) -> tuple[torch.Tensor, torch.Tensor,
-                                    list[torch.Tensor]]:
+        save_preact: bool, plan: Optional[list[int]] = None
+) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor]]:
     """The plain version (any device but CUDA): (out, an empty stats
-    tensor, preacts)."""
+    tensor, preacts); ``plan`` (tile width, split, window) is the card's."""
     _OP_RAN.ran = True
     epilogue, prologue = _chain_of(flags, head_dim, norm, eps,
                                    beta is not None)
@@ -386,15 +366,20 @@ def _gemm_fused_op(
 
 @_gemm_fused_op.register_kernel("cuda")
 def _gemm_fused_cuda(a, b, b2, bias, residual, gamma, beta, sin, cos, flags,
-                     head_dim, norm, eps, scale, out_dtype, save_preact):
-    """The kernel: one launch (:func:`_launch`, which counts it)."""
+                     head_dim, norm, eps, scale, out_dtype, save_preact,
+                     plan=None):
+    """The kernel: one launch (:func:`_launch`, which counts it) at
+    ``plan`` (tile width, split, window; None: the resolved policy's)."""
     _OP_RAN.ran = True
-    epilogue, _ = _chain_of(flags, head_dim, norm, eps, beta is not None)
-    plan, f32 = None, out_dtype == torch.float32
+    epilogue, prologue = _chain_of(flags, head_dim, norm, eps,
+                                   beta is not None)
+    if plan is None:
+        pol = launch_policy(a, b, epilogue, prologue)
+        plan = [pol.block_n, pol.splits, pol.window]
+    f32 = out_dtype == torch.float32
     if f32:
         # the raw accumulators at one split: _launch refuses any chain
-        m, k = a.shape
-        plan = (plan_gemm(m, b.shape[1], k, sm_count(a.device))[0], 1)
+        plan = [plan[0], 1, plan[2]]
     out, stats, preacts = _launch(
         a, b, epilogue, b2=b2, bias=bias, residual=residual, scale=scale,
         sin=sin, cos=cos, gamma=gamma, beta=beta, eps=eps,
@@ -408,7 +393,8 @@ def _gemm_fused_cuda(a, b, b2, bias, residual, gamma, beta, sin, cos, flags,
 
 @_gemm_fused_op.register_fake
 def _gemm_fused_fake(a, b, b2, bias, residual, gamma, beta, sin, cos, flags,
-                     head_dim, norm, eps, scale, out_dtype, save_preact):
+                     head_dim, norm, eps, scale, out_dtype, save_preact,
+                     plan=None):
     m, n = a.shape[0], b.shape[1]
     cuda = a.device.type == "cuda"
     stats = (0,)
@@ -454,7 +440,7 @@ class _GemmFusedFn(torch.autograd.Function):
             a, b, ep, spec.prologue, b2=b2, bias=bias, residual=residual,
             scale=spec.scale, sin=sin, cos=cos, gamma=gamma, beta=beta,
             out_dtype=spec.out_dtype, save_preact=save,
-            bwd_mode=spec.bwd_mode)
+            bwd_mode=spec.bwd_mode, policy=spec.policy)
         ctx.spec = spec
         ctx.save_for_backward(a, b, b2, bias, residual, gamma, beta, sin,
                               cos, stats, *preacts)
@@ -537,9 +523,10 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
     """One launch on the card: (out, stats, preacts), ``stats`` as
     :func:`_forward` returns them. With ``gamma`` the row pass normalises A
     first: layernorm (``beta`` optional) where ``layernorm``, else rmsnorm.
-    ``plan`` (tile width, split count) overrides :func:`plan_gemm` (the
-    smoke's sweep); ``kernel``: another build of the same entry point (the
-    smoke's A/B against an earlier tree). ``f32_product``: the chainless
+    ``plan`` (tile width, split count[, window]; window 8 when not given)
+    overrides the resolved policy's (the smoke's sweeps); ``kernel``:
+    another build of the same entry point (the smoke's A/B against an
+    earlier tree). ``f32_product``: the chainless
     product at one split, returned in fp32 in place of ``out`` (the kernel
     writes its raw accumulators to a one-split workspace, the staged route;
     the collective GEMM's reduce-scatter panels)."""
@@ -556,11 +543,15 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
         raise ValueError(f"gemm_fused: N ({n}) is not whole heads of "
                          f"{epilogue.head_dim}")
     hd = epilogue.head_dim if epilogue.rope else 0
-    tile_n, splits = plan or plan_gemm(
-        m, n, k, sm_count(dev), gate=epilogue.gate, head_dim=hd,
-        act=epilogue.activation != "none")
-    if tile_n not in tile_widths(epilogue.gate, hd) or splits < 1:
-        raise ValueError(f"gemm_fused kernel: plan {(tile_n, splits)} does "
+    if plan is None:
+        pol = launch_policy(a, b, epilogue, PROLOGUE_NONE if gamma is None
+                            else Prologue(norm="layernorm" if layernorm
+                                          else "rmsnorm", beta=beta is not None))
+        plan = (pol.block_n, pol.splits, pol.window)
+    tile_n, splits, window = (*plan, DEFAULT_WINDOW)[:3]
+    if tile_n not in tile_widths(epilogue.gate, hd) or splits < 1 \
+            or window < 1:
+        raise ValueError(f"gemm_fused kernel: plan {tuple(plan)} does "
                          f"not fit chain {epilogue.describe()!r}")
     if f32_product and (splits != 1 or epilogue != EPILOGUE_NONE
                         or gamma is not None):
@@ -616,6 +607,7 @@ def _launch(a, b, epilogue, *, b2, bias, residual, scale, sin, cos, gamma,
               *[addr(p) for p in (*preacts, None, None)[:2]], addr(ws),
               float(scale) if scale is not None else 1.0,
               float(eps) if eps is not None else 0.0,
-              m, n, k, flags, epilogue.head_dim, tile_n, splits, stream)
+              m, n, k, flags, epilogue.head_dim, tile_n, splits, window,
+              stream)
     kernel.check(code)
     return (ws[0] if f32_product else out), stats, preacts

@@ -79,6 +79,21 @@ class Model:
         input, ``distributed.sharding``)."""
         return logical_axes(self.defs)
 
+    def resolve_policies(self, *, batch: int = 1,
+                         seq_len: int | None = None,
+                         decode_len: int | None = None, shard=None) -> dict:
+        """The kernel policies this model's kernels use for a (batch,
+        seq_len) bucket, {op kind: KernelPolicy}, resolved (and the
+        autotuner's memo warmed) by ``core.autotune.policies_for_model``;
+        ``seq_len`` defaults to min(max_seq_len, 4096), as the reference's."""
+        from repro_torch.core import autotune
+
+        seq_len = seq_len if seq_len is not None else \
+            min(self.cfg.max_seq_len, 4096)
+        return autotune.policies_for_model(self.cfg, batch=batch,
+                                           seq_len=seq_len,
+                                           decode_len=decode_len, shard=shard)
+
     def local_params(self, params) -> dict:
         """This rank's parameters over the model's mesh: each MoE layer's
         experts cut to the rank's 'model' slice (the expert dim under "ep",
@@ -165,11 +180,11 @@ class Model:
         """pos: a Python int or a one-element int64 tensor on the device."""
         if self.family == "encdec":
             return _ed.encdec_decode_step(self.cfg, params, token, cache, pos,
-                                          mode=self.mode)
+                                          mode=self.mode,
+                                          qkv_plan=self.qkv_plan)
         self._lm_only("decode_step")
         return _lm.lm_decode_step(self.cfg, params, token, cache, pos,
-                                  mode=self.mode, mesh=self.mesh,
-                                  data_axes=self.data_axes)
+                                  **self._kw)
 
     # paged decode surface: a shared page pool, per-sequence page tables
     def init_paged_cache(self, batch_slots: int, n_pages: int,
@@ -195,9 +210,7 @@ class Model:
         """token (B, T): T > 1 is the speculative verify step."""
         self._lm_only("decode_step_paged")
         return _lm.lm_decode_step_paged(self.cfg, params, token, cache,
-                                        page_table, lengths, mode=self.mode,
-                                        mesh=self.mesh,
-                                        data_axes=self.data_axes)
+                                        page_table, lengths, **self._kw)
 
 
 def make_batch(cfg, batch: int, seq_len: int, *,
@@ -280,7 +293,10 @@ def build_model(cfg, *, mode: str = "kernel", device=DEFAULT_DEVICE,
     'norm_fused' (the norm-prologue GEMMs, then the RoPE kernel) or
     'unfused' (standalone norm, plain projections, the RoPE kernel); the
     port's counterpart of the decision a measured table pins in the
-    reference. ``mesh``: a ``DeviceMesh`` over which the MoE blocks run
+    reference; or 'auto': the rung ``core.autotune.select_fusion`` picks,
+    with the MLP's and the MoE experts' fused or unfused plans following it
+    too, as the reference's always do. ``mesh``: a ``DeviceMesh`` over
+    which the MoE blocks run
     expert or tensor parallel (``data_axes``: its data-parallel axes), as
     the reference's ``build_model(cfg, mesh=, data_axes=)``. Raises when
     ``device`` is CUDA and no card is present."""

@@ -11,7 +11,13 @@ reference):
 2. ``norm_fused``: the same two GEMMs without the rope store, then the
    standalone RoPE op (the kernel at S >= 128, as in the reference);
 3. ``unfused``: the standalone norm, plain projections and the standalone
-   RoPE op.
+   RoPE op;
+
+or ``auto``: the rung the reference's two decisions give, in its order
+(:func:`auto_qkv`, ``core.autotune.select_fusion``): rung 1 where the
+norm-folded 'qkv_rope' chain wins, else rung 1 behind the standalone norm
+where the plain 'qkv_rope' chain's fused plan wins, else rung 2 where the
+norm-folded rope-free 'qkv' chain wins, else rung 3.
 
 A RoPE style other than 'half', a head_dim whose heads the store's tiles
 cannot hold whole (``rope_store_fits``), or a rope-free block
@@ -39,9 +45,10 @@ from repro_torch.kernels.gemm import Epilogue, gemm_fused, rope_store_fits
 from repro_torch.kernels.rope import rope, rope_ref, rope_tables
 from repro_torch.serve.kv_cache import (append_paged_kv, init_page_pool,
                                        write_prefill_pages)
-from .common import ParamDef, apply_prenorm, norm_prologue_kw
+from .common import (ParamDef, apply_prenorm, norm_prologue_kw,
+                     resolve_norm_prologue)
 
-QKV_PLANS = ("rope_fused", "norm_fused", "unfused")
+QKV_PLANS = ("rope_fused", "norm_fused", "unfused", "auto")
 # the reference's rope kernel takes whole sequence blocks; shorter
 # sequences (and decode) rotate with the plain version
 ROPE_KERNEL_MIN_SEQ = 128
@@ -192,6 +199,43 @@ def fused_project_qkv(cfg, p, x, prenorm, heads=None):
     return _heads_of_gemms(cfg, qk, v, b, s, heads)
 
 
+def auto_qkv(cfg, tokens: int, dtype, *, prenorm, use_rope: bool = True,
+             heads=None) -> tuple:
+    """(rung, whether the norm rides in the GEMMs' prologue) of
+    ``qkv_plan="auto"`` for ``tokens`` rows: the reference's decisions in
+    its order (its ``fused_project_qkv_rope``, then ``fused_project_qkv``).
+    A rope the store cannot hold (``rope_store_fits``) skips rung 1, as the
+    fixed rungs do."""
+    from repro_torch.core import autotune
+
+    h, hkv = _head_counts(cfg, heads)
+    shape = (tokens, cfg.d_model, h, hkv, cfg.head_dim)
+    if use_rope and cfg.rope_style == "half" and rope_store_fits(cfg.head_dim):
+        if resolve_norm_prologue(cfg, prenorm, kind="qkv_rope",
+                                 plan_shape=shape, dtype=dtype):
+            return "rope_fused", True
+        if autotune.select_fusion("qkv_rope", shape,
+                                  dtype)["plan"] == "fused":
+            return "rope_fused", False
+    if resolve_norm_prologue(cfg, prenorm, kind="qkv", plan_shape=shape,
+                             dtype=dtype):
+        return "norm_fused", True
+    return "unfused", False
+
+
+def _resolve_auto(cfg, x, prenorm, qkv_plan, mode, use_rope, heads=None):
+    """(x, prenorm, rung): ``qkv_plan`` as it is, or "auto" resolved in
+    kernel mode, the norm applied here where the rung takes it
+    standalone."""
+    if mode != "kernel" or qkv_plan != "auto":
+        return x, prenorm, qkv_plan
+    rung, folded = auto_qkv(cfg, x.shape[0] * x.shape[1], x.dtype,
+                            prenorm=prenorm, use_rope=use_rope, heads=heads)
+    if prenorm is not None and not folded:
+        x, prenorm = apply_prenorm(cfg, x, prenorm), None
+    return x, prenorm, rung
+
+
 def project_qkv_heads(cfg, p, x, positions=None, *, mode: str, prenorm=None,
                       qkv_plan: str = "rope_fused", use_rope: bool = True,
                       heads=None):
@@ -202,6 +246,8 @@ def project_qkv_heads(cfg, p, x, positions=None, *, mode: str, prenorm=None,
     3."""
     if use_rope and positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    x, prenorm, qkv_plan = _resolve_auto(cfg, x, prenorm, qkv_plan, mode,
+                                         use_rope, heads)
     if mode == "kernel" and qkv_plan == "rope_fused":
         return fused_project_qkv_rope(cfg, p, x, positions, prenorm=prenorm,
                                       use_rope=use_rope, heads=heads)
@@ -249,6 +295,9 @@ def split_attention_layer(cfg, p, x, *, tp, window=None, positions=None,
     not split over the extent the layer runs whole on every rank."""
     p = tp.attn_params(p, "attn" if kv_input is None else "xattn")
     heads = tp.local_heads
+    if kv_input is None and heads is not None:
+        x, prenorm, qkv_plan = _resolve_auto(cfg, x, prenorm, qkv_plan, mode,
+                                             use_rope, heads)
     if heads is None:
         return attention_layer(cfg, p, x, causal=causal, window=window,
                                kv_input=kv_input, positions=positions,

@@ -198,6 +198,22 @@ def norm_prologue_kw(cfg, prenorm) -> dict:
     return kw
 
 
+def resolve_norm_prologue(cfg, prenorm, *, kind: str, plan_shape, dtype,
+                          residual: bool = True) -> bool:
+    """The first rung of the reference's prenorm ladder, shared by the MLP
+    and the QKV projections: whether the block's pre-norm folds into the
+    first GEMM's prologue, by ``select_fusion(kind, plan_shape,
+    prenorm=cfg.norm)``. (The reference also asks for a VMEM-legal
+    prologue policy; the port's row pass fits any width.)"""
+    from repro_torch.core import autotune
+
+    if prenorm is None:
+        return False
+    plan = autotune.select_fusion(kind, plan_shape, dtype, residual=residual,
+                                  prenorm=cfg.norm)
+    return plan["plan"] == "fused"
+
+
 # Config activation name -> epilogue activation name, as the reference's:
 # an activation act_fn does not know must not fuse as something else.
 _EPILOGUE_ACT = {"swiglu": "silu", "silu": "silu",
@@ -239,19 +255,49 @@ def _mlp_fused(cfg, p, x, *, residual, residual_scale, prenorm):
     return y.reshape(x.shape)
 
 
+def _mlp_auto(cfg, p, x, *, residual, residual_scale, prenorm):
+    """The reference's ``_mlp_fused`` decisions: the norm folded where the
+    prenorm chain wins, else the norm standalone and the rest fused where
+    the plain chain's fused plan wins, else None (the plain chain)."""
+    from repro_torch.core import autotune
+
+    *lead, d = x.shape
+    shape = (math.prod(lead), d, p["w_in"].shape[-1],
+             int(cfg.mlp_act in ("swiglu", "geglu")))
+    has_res = residual is not None
+    kw = dict(residual=residual, residual_scale=residual_scale)
+    if resolve_norm_prologue(cfg, prenorm, kind="mlp", plan_shape=shape,
+                             dtype=x.dtype, residual=has_res):
+        return _mlp_fused(cfg, p, x, prenorm=prenorm, **kw)
+    if autotune.select_fusion("mlp", shape, x.dtype,
+                              residual=has_res)["plan"] != "fused":
+        return None
+    if prenorm is not None:
+        x = apply_prenorm(cfg, x, prenorm)
+    return _mlp_fused(cfg, p, x, prenorm=None, **kw)
+
+
 def mlp_forward(cfg, p, x, *, mode: str = "reference", residual=None,
-                residual_scale: float = 1.0, prenorm=None):
+                residual_scale: float = 1.0, prenorm=None,
+                auto: bool = False):
     """Gated (swiglu/geglu) or plain (gelu) MLP over p = {w_in, w_gate,
     w_out} (no w_gate for the plain one).
 
     With ``residual`` the result is ``residual + residual_scale * mlp(x)``;
     with ``prenorm`` (the block's norm params) ``x`` is the pre-norm stream
-    and the MLP reads ``norm(x)``. 'kernel' mode runs the fused chain;
-    'reference' the unfused plain one.
+    and the MLP reads ``norm(x)``. 'kernel' mode runs the fused chain (with
+    ``auto``, the model's ``qkv_plan="auto"``, the plan ``select_fusion``
+    picks: the norm folded, the norm standalone and the rest fused, or the
+    plain chain); 'reference' the unfused plain one.
     """
     if mode == "kernel":
-        return _mlp_fused(cfg, p, x, residual=residual,
-                          residual_scale=residual_scale, prenorm=prenorm)
+        if not auto:
+            return _mlp_fused(cfg, p, x, residual=residual,
+                              residual_scale=residual_scale, prenorm=prenorm)
+        out = _mlp_auto(cfg, p, x, residual=residual,
+                        residual_scale=residual_scale, prenorm=prenorm)
+        if out is not None:
+            return out
     if prenorm is not None:
         x = apply_prenorm(cfg, x, prenorm)
     act = act_fn(cfg.mlp_act)
@@ -266,7 +312,8 @@ def mlp_forward(cfg, p, x, *, mode: str = "reference", residual=None,
 
 
 def split_mlp_forward(cfg, p, x, *, tp, mode: str, residual,
-                      residual_scale: float = 1.0, prenorm=None):
+                      residual_scale: float = 1.0, prenorm=None,
+                      auto: bool = False):
     """``mlp_forward`` with the residual on a tensor-parallel rank (``tp``):
     the rank's FFN columns of the up-projection and rows of the down, the
     ranks' partial products summed (g), then the scaled residual added
@@ -276,11 +323,13 @@ def split_mlp_forward(cfg, p, x, *, tp, mode: str, residual,
     contraction split), summed in fp32 before the residual; the plain path
     norms the replicated stream, then f, and sums its partials in fp32
     rounded to the compute type, as its one-device product rounds. Where
-    the rules do not split F the MLP runs whole on every rank."""
+    the rules do not split F the MLP runs whole on every rank (``auto`` as
+    :func:`mlp_forward`'s)."""
     p = tp.mlp_params(p)
     if not tp.ffn_split:
         return mlp_forward(cfg, p, x, mode=mode, residual=residual,
-                           residual_scale=residual_scale, prenorm=prenorm)
+                           residual_scale=residual_scale, prenorm=prenorm,
+                           auto=auto)
     *lead, d = x.shape
     if mode == "kernel":
         if prenorm is not None:

@@ -99,7 +99,7 @@ def encoder_block(cfg, p, h, *, mode: str, qkv_plan: str = "rope_fused",
                    qkv_plan=qkv_plan)
     h = h + a
     return _mlp(cfg, p["mlp"], h, tp=tp, mode=mode, residual=h,
-                prenorm=norm_params(p, "ln2"))
+                prenorm=norm_params(p, "ln2"), auto=qkv_plan == "auto")
 
 
 def encode(cfg, params, enc_embeds, *, mode: str = "reference",
@@ -132,7 +132,7 @@ def _dec_block(cfg, p, x, enc_out, *, mode: str = "reference",
                    prenorm=norm_params(p, "lnx"))
     x = x + c
     return _mlp(cfg, p["mlp"], x, tp=tp, mode=mode, residual=x,
-                prenorm=norm_params(p, "ln2"))
+                prenorm=norm_params(p, "ln2"), auto=qkv_plan == "auto")
 
 
 def _embed_tokens(cfg, params, tokens, tp=None):
@@ -241,12 +241,14 @@ def encdec_prefill(cfg, params, batch, cache, *, mode: str = "reference",
                     causal=False)
         x = x + _merge_heads(ox) @ p["xattn"]["wo"]
         x = mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                        prenorm=norm_params(p, "ln2"))
+                        prenorm=norm_params(p, "ln2"),
+                        auto=qkv_plan == "auto")
     return cache, _logits(cfg, params, x[:, -1:, :])[:, 0]
 
 
 def encdec_decode_step(cfg, params, token, cache, pos, *,
-                       mode: str = "reference"):
+                       mode: str = "reference",
+                       qkv_plan: str = "rope_fused"):
     """token: (B, 1); pos: the position being written, a Python int or a
     one-element int64 tensor on the cache's device (what a captured step
     reads: the learned position is then gathered with ``index_select``;
@@ -268,6 +270,7 @@ def encdec_decode_step(cfg, params, token, cache, pos, *,
                                        pos, cross=True, update_cache=False,
                                        use_rope=False, mode=mode)
         x = mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                        prenorm=norm_params(p, "ln2"))
+                        prenorm=norm_params(p, "ln2"),
+                        auto=qkv_plan == "auto")
     return cache, _logits(cfg, params, x)[:, 0]
 

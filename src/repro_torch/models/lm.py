@@ -242,7 +242,8 @@ def _logits(cfg, params, x, head=None, tp=None):
     return logits / cfg.logit_scale_div
 
 
-def _ffn(cfg, p, x, *, mode: str, mesh=None, data_axes=("data",), tp=None):
+def _ffn(cfg, p, x, *, mode: str, mesh=None, data_axes=("data",), tp=None,
+         qkv_plan: str = "rope_fused"):
     """The block's FFN on the stream ``x`` after attention's (or the
     recurrence's) residual, by block kind (the FFN's params: "mlp" or
     "moe"), ln2 riding in as ``prenorm``: the dense MLP, ``x +
@@ -250,23 +251,26 @@ def _ffn(cfg, p, x, *, mode: str, mesh=None, data_axes=("data",), tp=None):
     down GEMM's store), or the MoE FFN, added as ``x + residual_scale *
     m``. On a tensor-parallel rank (``tp``) the MLP is
     ``split_mlp_forward`` and the experts are the rank's as its impl runs
-    them. Returns (x, the MoE's aux or None)."""
+    them. Under ``qkv_plan="auto"`` the MLP's and the experts' plans follow
+    ``select_fusion``. Returns (x, the MoE's aux or None)."""
     rs = cfg.residual_scale
+    auto = qkv_plan == "auto"
     if "moe" in p:
         moe_p = p["moe"]
         if tp is not None:
             moe_p = tp.moe_params(moe_p, resolve_impl(cfg, mesh))
         m, aux = moe_forward(cfg, moe_p, x, mode=mode, mesh=mesh,
                              data_axes=data_axes,
-                             prenorm=norm_params(p, "ln2"))
+                             prenorm=norm_params(p, "ln2"), auto=auto)
         return x + rs * m, aux
     if tp is not None:
         return split_mlp_forward(cfg, p["mlp"], x, tp=tp, mode=mode,
                                  residual=x, residual_scale=rs,
-                                 prenorm=norm_params(p, "ln2")), None
+                                 prenorm=norm_params(p, "ln2"),
+                                 auto=auto), None
     return mlp_forward(cfg, p["mlp"], x, mode=mode, residual=x,
-                       residual_scale=rs,
-                       prenorm=norm_params(p, "ln2")), None
+                       residual_scale=rs, prenorm=norm_params(p, "ln2"),
+                       auto=auto), None
 
 
 def _recurrent(cfg, p, x, kind: str, which: int, *args):
@@ -278,14 +282,15 @@ def _recurrent(cfg, p, x, kind: str, which: int, *args):
 
 
 def _recurrent_rest(cfg, p, x, out, *, mode: str, mesh=None,
-                    data_axes=("data",), tp=None):
+                    data_axes=("data",), tp=None,
+                    qkv_plan: str = "rope_fused"):
     """The rest of a recurrent block after its core's ``out``: ``x +
     residual_scale * out``, then an 'rg' block's FFN (an 'ssm' block has
     none). Returns (x, None)."""
     x = x + cfg.residual_scale * out
     if "mlp" in p:
         return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes,
-                    tp=tp)
+                    tp=tp, qkv_plan=qkv_plan)
     return x, None
 
 
@@ -303,22 +308,25 @@ def block_forward(cfg, p, x, *, positions, mode: str = "reference",
             return _recurrent_rest(cfg, p, x,
                                    _recurrent(cfg, p, x, kind, SPLIT, tp),
                                    mode=mode, mesh=mesh, data_axes=data_axes,
-                                   tp=tp)
+                                   tp=tp, qkv_plan=qkv_plan)
         a = split_attention_layer(
             cfg, p["attn"], x, tp=tp, window=_block_window(cfg, kind),
             positions=positions, mode=mode, prenorm=norm_params(p, "ln1"),
             qkv_plan=qkv_plan)
         return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
-                    mesh=mesh, data_axes=data_axes, tp=tp)
+                    mesh=mesh, data_axes=data_axes,
+                    qkv_plan=qkv_plan, tp=tp)
     if kind in RECURRENT:
         return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind,
                                                      FORWARD), mode=mode,
-                               mesh=mesh, data_axes=data_axes)
+                               mesh=mesh, data_axes=data_axes,
+                               qkv_plan=qkv_plan)
     a = attention_layer(cfg, p["attn"], x, window=_block_window(cfg, kind),
                         positions=positions, mode=mode,
                         prenorm=norm_params(p, "ln1"), qkv_plan=qkv_plan)
     return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
-                mesh=mesh, data_axes=data_axes)
+                mesh=mesh, data_axes=data_axes,
+                qkv_plan=qkv_plan)
 
 
 def unstack_layers(blocks, n: int) -> list:
@@ -541,28 +549,32 @@ def block_prefill(cfg, p, x, c, *, positions, mode: str = "reference",
         o, state = _recurrent(cfg, p, x, kind, PREFILL)
         _write_state(c, state)
         return _recurrent_rest(cfg, p, x, o, mode=mode,
-                               mesh=mesh, data_axes=data_axes)[0]
+                               mesh=mesh, data_axes=data_axes,
+                               qkv_plan=qkv_plan)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
     o = attend(cfg, q, k, v, window=_block_window(cfg, kind), mode=mode)
     prefill_attn_cache(c["k"], c["v"], k, v)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
-    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)[0]
+    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes,
+                qkv_plan=qkv_plan)[0]
 
 
 def block_decode(cfg, p, x, c, pos, *, mode: str = "reference",
                  mesh=None, data_axes=("data",),
-                 kind: str = "attn"):
+                 qkv_plan: str = "rope_fused", kind: str = "attn"):
     if kind in RECURRENT:
         return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind, DECODE,
                                                      c), mode=mode,
-                               mesh=mesh, data_axes=data_axes)[0]
+                               mesh=mesh, data_axes=data_axes,
+                               qkv_plan=qkv_plan)[0]
     h = apply_norm(cfg, x, p, "ln1")
     a = decode_attention_layer(cfg, p["attn"], h, c["k"], c["v"], pos,
                                window=_block_window(cfg, kind), mode=mode)
     return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
-                mesh=mesh, data_axes=data_axes)[0]
+                mesh=mesh, data_axes=data_axes,
+                qkv_plan=qkv_plan)[0]
 
 
 def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
@@ -581,7 +593,8 @@ def lm_prefill(cfg, params, tokens, cache, *, mode: str = "reference",
 
 def lm_decode_step(cfg, params, token, cache, pos, *,
                    mode: str = "reference",
-                   mesh=None, data_axes=("data",)):
+                   mesh=None, data_axes=("data",),
+                   qkv_plan: str = "rope_fused"):
     """token: (B, 1); pos: the position being written, a Python int or a
     one-element int64 tensor on the cache's device (what a captured step
     reads; the same bits). Updates ``cache`` in place. Returns (cache,
@@ -589,7 +602,8 @@ def lm_decode_step(cfg, params, token, cache, pos, *,
     x = _embed(cfg, params, token)
     for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
         x = block_decode(cfg, p, x, c, pos, mode=mode,
-                         mesh=mesh, data_axes=data_axes, kind=kind)
+                         mesh=mesh, data_axes=data_axes,
+                         qkv_plan=qkv_plan, kind=kind)
     return cache, _logits(cfg, params, x)[:, 0]
 
 
@@ -640,14 +654,16 @@ def block_prefill_paged(cfg, p, x, c, *, page_rows, slot, positions,
         o, state = _recurrent(cfg, p, x, kind, PREFILL)
         _write_state(c, state, slot)
         return _recurrent_rest(cfg, p, x, o, mode=mode,
-                               mesh=mesh, data_axes=data_axes)[0]
+                               mesh=mesh, data_axes=data_axes,
+                               qkv_plan=qkv_plan)[0]
     q, k, v = project_qkv_heads(cfg, p["attn"], x, positions, mode=mode,
                                 prenorm=norm_params(p, "ln1"),
                                 qkv_plan=qkv_plan)
     o = attend(cfg, q, k, v, window=_block_window(cfg, kind), mode=mode)
     paged_prefill_attn_cache(cfg, c, k, v, page_rows)
     x = x + cfg.residual_scale * (_merge_heads(o) @ p["attn"]["wo"])
-    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)[0]
+    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes,
+                qkv_plan=qkv_plan)[0]
 
 
 def lm_prefill_paged(cfg, params, tokens, cache, page_rows, slot: int,
@@ -694,7 +710,8 @@ def block_prefill_paged_chunk(cfg, p, x, cache, *, page_rows, table, start,
                                softcap=cfg.attn_logit_softcap, mode=mode)
     x = x + cfg.residual_scale * (_merge_heads(o.to(x.dtype))
                                   @ p["attn"]["wo"])
-    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes)[0]
+    return _ffn(cfg, p, x, mode=mode, mesh=mesh, data_axes=data_axes,
+                qkv_plan=qkv_plan)[0]
 
 
 def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
@@ -730,22 +747,26 @@ def lm_prefill_paged_chunk(cfg, params, tokens, cache, page_rows, start: int,
 
 def block_decode_paged(cfg, p, x, c, page_table, lengths, *,
                        mode: str = "reference",
-                       mesh=None, data_axes=("data",), kind: str = "attn"):
+                       mesh=None, data_axes=("data",),
+                       qkv_plan: str = "rope_fused", kind: str = "attn"):
     if kind in RECURRENT:
         return _recurrent_rest(cfg, p, x, _recurrent(cfg, p, x, kind, DECODE,
                                                      c), mode=mode,
-                               mesh=mesh, data_axes=data_axes)[0]
+                               mesh=mesh, data_axes=data_axes,
+                               qkv_plan=qkv_plan)[0]
     h = apply_norm(cfg, x, p, "ln1")
     a = paged_decode_attention_layer(cfg, p["attn"], h, c, page_table,
                                      lengths, window=_block_window(cfg, kind),
                                      mode=mode)
     return _ffn(cfg, p, x + cfg.residual_scale * a, mode=mode,
-                mesh=mesh, data_axes=data_axes)[0]
+                mesh=mesh, data_axes=data_axes,
+                qkv_plan=qkv_plan)[0]
 
 
 def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
                          mode: str = "reference",
-                         mesh=None, data_axes=("data",)):
+                         mesh=None, data_axes=("data",),
+                         qkv_plan: str = "rope_fused"):
     """One decode step for every batch slot over the paged cache (in place).
 
     token: (B, T). T == 1 is plain decode (each slot's token lands at
@@ -765,7 +786,7 @@ def lm_decode_step_paged(cfg, params, token, cache, page_table, lengths, *,
     for (kind, p), c in zip(_layers(cfg, params), _layer_caches(cfg, cache)):
         x = block_decode_paged(cfg, p, x, c, page_table, lengths, mode=mode,
                                mesh=mesh, data_axes=data_axes,
-                               kind=kind)
+                               qkv_plan=qkv_plan, kind=kind)
     logits = _logits(cfg, params, x)
     if token.shape[1] > 1:
         return cache, logits          # (B, T, V): speculative verify

@@ -151,26 +151,48 @@ def _expert_ffn_fused(cfg, p, x):
     return torch.stack(outs)
 
 
-def moe_dense(cfg, p, x, *, mode: str = "reference"):
+def moe_dense(cfg, p, x, *, mode: str = "reference", auto: bool = False):
     """Every expert on every token. x: (..., D) (already normed). Returns
     (the gate-weighted sum of the experts' outputs, x's shape; aux)."""
     d = x.shape[-1]
     xf = x.reshape(-1, d)
     weights, ids, aux = _route(cfg, xf, p["router"])
-    if mode == "kernel":
-        outs = _expert_ffn_fused(cfg, p, xf)
-    else:
-        outs = _expert_ffn(cfg, p, xf)
+    outs = _run_experts(cfg, p, xf, mode, auto)
     gate = torch.zeros((xf.shape[0], cfg.moe.num_experts), dtype=x.dtype,
                        device=x.device).scatter_add_(1, ids, weights)
     out = torch.einsum("te,etd->td", gate, outs)
     return out.reshape(x.shape), aux
 
 
-def _run_experts(cfg, p, x, mode: str):
-    if mode == "kernel":
+def _run_experts(cfg, p, x, mode: str, auto: bool, shard=None):
+    """The experts on their tokens: kernel mode's fused launches, except
+    with ``auto`` (the model's ``qkv_plan="auto"``) where
+    ``select_fusion("mlp", (T, D, F, gated), residual=False, shard=)`` says
+    "unfused" (the reference's ``_expert_ffn_fused`` returning to the
+    einsum); then the plain FFN."""
+    if mode == "kernel" and _experts_fused(cfg, p, x, auto, shard):
         return _expert_ffn_fused(cfg, p, x)
     return _expert_ffn(cfg, p, x)
+
+
+def _experts_fused(cfg, p, x, auto: bool, shard) -> bool:
+    if not auto:
+        return True
+    from repro_torch.core import autotune
+
+    t = x.shape[-2]
+    shape = (t, x.shape[-1], p["w_in"].shape[-1], int(_gated(cfg)))
+    return autotune.select_fusion("mlp", shape, x.dtype, residual=False,
+                                  shard=shard)["plan"] == "fused"
+
+
+def _shard(mesh, model_axis: str, impl: str):
+    """The ShardSpec the reference scores an ep or tp expert chain with."""
+    from repro_torch.distributed.sharding import ShardSpec
+
+    return ShardSpec.for_axis(
+        mesh, model_axis, dim="expert" if impl == "ep" else "ffn",
+        collective="all_to_all" if impl == "ep" else "all_reduce")
 
 
 def _capacity(tokens_per_shard: int, cfg) -> int:
@@ -218,7 +240,7 @@ def _normed(cfg, t, prenorm):
 
 
 def moe_ep(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
-           mode: str = "reference", prenorm=None):
+           mode: str = "reference", prenorm=None, auto: bool = False):
     """Expert-parallel MoE on one rank. x: this rank's (B_local, S, D)
     tokens; p: the full router and this rank's E / ep experts (the
     'model' coordinate's slice of the expert dim). Returns (out x's shape,
@@ -267,13 +289,16 @@ def moe_ep(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
         # (E, cap, D) -> the experts' owners: (ep, E_loc, cap, D) received
         recv = col.all_to_all_grad(buf, group).view(ep, e_loc, cap, d)
         mine = recv.transpose(0, 1).reshape(e_loc, ep * cap, d)
-        out = _run_experts(cfg, p, mine, mode)
+        out = _run_experts(cfg, p, mine, mode, auto,
+                           _shard(mesh, model_axis, "ep"))
         sent = out.view(e_loc, ep, cap, d).transpose(0, 1)
         back = col.all_to_all_grad(sent.reshape(e, cap, d), group)
     else:
         mine = col.copy_to_ranks(buf, group).narrow(0, rank * e_loc, e_loc)
-        back = col.gather_cat(_run_experts(cfg, p, mine, mode), 0, group,
-                              grad="own")
+        back = col.gather_cat(
+            _run_experts(cfg, p, mine, mode, auto,
+                         _shard(mesh, model_axis, "ep")),
+            0, group, grad="own")
     y = _combine(back.view(e, cap, d), idx, keep, weights)
     if seq_split:
         full = col.gather_cat(y.view(bl, s // ep, d), 1, group, grad="own")
@@ -284,7 +309,7 @@ def moe_ep(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
 
 
 def moe_tp(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
-           mode: str = "reference", prenorm=None):
+           mode: str = "reference", prenorm=None, auto: bool = False):
     """Tensor-parallel MoE on one rank: every expert's FFN hidden dim is
     split over ``model_axis`` (p: the full router, each expert's F / tp
     slice of w_gate, w_in and w_out), the tokens are replicated over it.
@@ -302,7 +327,8 @@ def moe_tp(cfg, p, x, *, mesh, data_axes=("data",), model_axis="model",
     weights, ids, aux = _route(cfg, t, p["router"])
     cap = _capacity(t.shape[0], cfg)
     buf, idx, keep = _dispatch(cfg, t, ids, cap)
-    out = _run_experts(cfg, p, col.copy_to_ranks(buf, group), mode)
+    out = _run_experts(cfg, p, col.copy_to_ranks(buf, group), mode, auto,
+                       _shard(mesh, model_axis, "tp"))
     y = _combine(out, idx, keep, col.copy_to_ranks(weights, group))
     y = col.sum_from_ranks(y, group)
     return y.view(bl, s, d), col.mean_over(aux, mesh, data_axes)
@@ -331,12 +357,13 @@ def resolve_impl(cfg, mesh, model_axis: str = "model") -> str:
 
 def moe_forward(cfg, p, x, *, mesh=None, data_axes=("data",),
                 model_axis: str = "model", mode: str = "reference",
-                prenorm=None):
+                prenorm=None, auto: bool = False):
     """The block's MoE FFN on ``x`` -> (out, aux), by
     :func:`resolve_impl`. With ``prenorm`` (the block's norm params) ``x``
     is the pre-norm stream: the dense path norms it standalone, as the
     reference's does, and its output feeds both the router and the
-    experts; ep and tp norm each rank's tokens."""
+    experts; ep and tp norm each rank's tokens. ``auto`` (the model's
+    ``qkv_plan="auto"``): the experts' plan follows ``select_fusion``."""
     impl = resolve_impl(cfg, mesh, model_axis)
     if impl in ("ep", "tp"):
         if mesh is None:
@@ -346,10 +373,11 @@ def moe_forward(cfg, p, x, *, mesh=None, data_axes=("data",),
                 "'dense'")
         fn = moe_ep if impl == "ep" else moe_tp
         return fn(cfg, p, x, mesh=mesh, data_axes=data_axes,
-                  model_axis=model_axis, mode=mode, prenorm=prenorm)
+                  model_axis=model_axis, mode=mode, prenorm=prenorm,
+                  auto=auto)
     if prenorm is not None:
         x = apply_prenorm(cfg, x, prenorm)
-    return moe_dense(cfg, p, x, mode=mode)
+    return moe_dense(cfg, p, x, mode=mode, auto=auto)
 
 
 def local_experts(cfg, p, mesh, model_axis: str = "model") -> dict:

@@ -28,9 +28,9 @@ Four record types share one Recorder:
 - ``SpanEvent``    -- begin/end wall-clock intervals (``obs.span``).
 - counters         -- monotonic floats (``obs.incr``) and running maxima
   (``obs.gauge``), exported flat.
-- ``PlanDecision`` -- an autotuner verdict with its losing candidates. The
-  port has no autotuner yet, so nothing records one; ``plan_decision`` is
-  kept for the policy layer.
+- ``PlanDecision`` -- an autotuner verdict with its losing candidates
+  (``repro_torch.core.autotune``: kinds "policy", "fusion", "bwd_route",
+  ``cached`` on a memo replay).
 
 Exporters emit Chrome-trace/Perfetto JSON (``traceEvents``) and a flat
 counters JSON; ``tools/trace_check.py`` validates both.
@@ -286,7 +286,7 @@ def span(name: str, **meta):
 
 def plan_decision(kind: str, op: str, shape, dtype: str, chosen,
                   candidates=None, cached: bool = False) -> None:
-    """Audit one autotuner verdict (no caller in the port yet)."""
+    """Audit one autotuner verdict (``core.autotune``'s selections)."""
     s = _STATE.stack
     if not s:
         return

@@ -14,9 +14,12 @@ Both engines keep their buckets in the reference's LRU (``_lru_get``,
 capped by ``max_cached_buckets``, its hits, misses and evictions in
 ``lru_stats``). Both record the reference's spans, counters and gauge into
 ``repro_torch.obs`` under its names (``engine.*``), each counter equal to
-the engine attribute it mirrors. A decode bucket is a :class:`DecodeGraph`: on the card one
-decode step captured in a CUDA graph over static input buffers, replayed
-every step; on the CPU the eager step over the same buffers. Prefill and
+the engine attribute it mirrors. Each bucket pins its kernel policies when
+it is built (``bucket_policies``, as the reference's; ``pretuned=``
+installs a measured table first, for the process, and raises where the
+table is rejected). A decode bucket is a :class:`DecodeGraph`: on the card
+one decode step captured in a CUDA graph over static input buffers,
+replayed every step; on the CPU the eager step over the same buffers. Prefill and
 chunk buckets hold the eager callable.
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch import kernels, obs
 from repro_torch.configs import DECODER_FAMILIES
+from repro_torch.core import autotune
 from . import kv_cache as kvc
 
 
@@ -70,6 +74,27 @@ def _over_mesh(model) -> bool:
     """Whether the model was built over a mesh (its MoE blocks run
     collectives, so its decode steps run eagerly)."""
     return getattr(model, "mesh", None) is not None
+
+
+def _pinning(policies: dict, key, resolve, build):
+    """``build`` that first pins ``resolve()`` as the bucket's policies."""
+    def pinned():
+        policies[key] = resolve()
+        return build()
+    return pinned
+
+
+def _decode_policies(model, batch: int, slots: int,
+                     q_tokens: int = 1) -> dict:
+    """{"attention_decode": policy} of a decode launch over ``slots`` keys
+    (the reference's ``resolve_decode_policy``)."""
+    from repro_torch.kernels.attention.decode import decode_policy
+
+    cfg = model.cfg
+    hkv = cfg.num_kv_heads
+    return {"attention_decode": decode_policy(
+        batch, hkv, cfg.num_heads // hkv * q_tokens, slots, cfg.head_dim,
+        model.device, cfg.compute_dtype, q_tokens)}
 
 
 class DecodeGraph:
@@ -175,14 +200,25 @@ class Engine:
     """
 
     def __init__(self, model, params, *, max_len: int = 4096,
-                 max_cached_buckets: int = 8):
+                 max_cached_buckets: int = 8, pretuned=None):
+        if pretuned is not None:
+            # the measured table (a path or a report dict) before any
+            # bucket pins its policies
+            autotune.use_pretuned(pretuned, required=True)
         self.model = model
         self.params = params
         self.max_len = max_len
         self.max_cached_buckets = max_cached_buckets
         self._buckets: collections.OrderedDict = collections.OrderedDict()
+        self._policies: dict = {}
         self.lru_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self.timings: list = []
+
+    @property
+    def bucket_policies(self) -> dict:
+        """{key: {op: KernelPolicy}} of the live buckets: (batch,
+        prompt_len) for a prefill, ("decode", batch) for a decode step."""
+        return {k: self._policies[k] for k in self._buckets}
 
     def _sync(self):
         if self.model.device.type == "cuda":
@@ -190,9 +226,13 @@ class Engine:
 
     def _bucket(self, batch: int, prompt_len: int):
         """The prefill callable of a (batch, prompt_len) bucket."""
-        return _lru_get(self._buckets, (batch, prompt_len),
-                        lambda: self.model.prefill,
-                        self.max_cached_buckets, self.lru_stats)
+        key = (batch, prompt_len)
+        return _lru_get(self._buckets, key, _pinning(
+            self._policies, key, lambda: autotune.policies_for_model(
+                self.model.cfg, batch=batch, seq_len=prompt_len,
+                decode_len=self.max_len),
+            lambda: self.model.prefill),
+            self.max_cached_buckets, self.lru_stats)
 
     def _decode_fn(self, batch: int) -> DecodeGraph:
         model, params = self.model, self.params
@@ -209,8 +249,11 @@ class Engine:
                 return model.decode_step(params, token, cache, pos)[1]
             return DecodeGraph(step, buffers, cache,
                                eager=_over_mesh(model))
-        return _lru_get(self._buckets, ("decode", batch), build,
-                        self.max_cached_buckets, self.lru_stats)
+        key = ("decode", batch)
+        return _lru_get(self._buckets, key, _pinning(
+            self._policies, key,
+            lambda: _decode_policies(model, batch, self.max_len), build),
+            self.max_cached_buckets, self.lru_stats)
 
     @staticmethod
     def _sample(logits, temperature: float, generator):
@@ -457,7 +500,11 @@ class PagedEngine:
                  generator: Optional[torch.Generator] = None,
                  max_cached_buckets: int = 8, prefix_cache: bool = False,
                  chunk_tokens: Optional[int] = None,
-                 draft_model=None, draft_params=None, spec_tokens: int = 0):
+                 draft_model=None, draft_params=None, spec_tokens: int = 0,
+                 pretuned=None):
+        if pretuned is not None:
+            # the measured table, before the first bucket pins its policies
+            autotune.use_pretuned(pretuned, required=True)
         # the fast paths address KV pages by position; a recurrent stack's
         # per-slot state can be neither shared, re-entered nor stepped by k
         attn_only = all(model.cfg.layer_kind(i) in ("attn", "local", "moe")
@@ -502,6 +549,7 @@ class PagedEngine:
                           torch.Generator(device=self.device).manual_seed(0))
         self.max_cached_buckets = max_cached_buckets
         self._buckets: collections.OrderedDict = collections.OrderedDict()
+        self._policies: dict = {}
         self.lru_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self.prefix = kvc.PrefixCache(page_size) if prefix_cache else None
         self.chunk_tokens = chunk_tokens
@@ -552,9 +600,16 @@ class PagedEngine:
         return torch.as_tensor(np.asarray(array, np.int64), device=self.device)
 
     # -- buckets -----------------------------------------------------------
-    def _touch(self, key, build):
-        return _lru_get(self._buckets, key, build, self.max_cached_buckets,
-                        self.lru_stats)
+    @property
+    def bucket_policies(self) -> dict:
+        """{key: {op: KernelPolicy}} of the live buckets, under the
+        reference's keys."""
+        return {k: self._policies[k] for k in self._buckets}
+
+    def _touch(self, key, build, resolve):
+        return _lru_get(self._buckets, key,
+                        _pinning(self._policies, key, resolve, build),
+                        self.max_cached_buckets, self.lru_stats)
 
     def _graph(self, key, mp_bucket: int, *, draft: bool = False,
                q_tokens: int = 1) -> DecodeGraph:
@@ -578,7 +633,8 @@ class PagedEngine:
                 return model.decode_step_paged(params, token, pools,
                                                page_table, lengths)[1]
             return DecodeGraph(step, buffers, eager=_over_mesh(model))
-        return self._touch(key, build)
+        return self._touch(key, build, lambda: _decode_policies(
+            model, b, mp_bucket * self.page_size, q_tokens))
 
     def _decode_bucket(self, mp_bucket: int, *, draft: bool = False
                        ) -> DecodeGraph:
@@ -596,13 +652,21 @@ class PagedEngine:
 
     def _prefill_bucket(self, plen: int, *, draft: bool = False):
         model = self.draft_model if draft else self.model
-        return self._touch(("draft_prefill" if draft else "prefill", plen),
-                           lambda: model.prefill_paged)
+        return self._touch(
+            ("draft_prefill" if draft else "prefill", plen),
+            lambda: model.prefill_paged,
+            lambda: autotune.policies_for_model(
+                model.cfg, batch=1, seq_len=plen,
+                decode_len=self.max_pages_per_seq * self.page_size))
 
     def _chunk_bucket(self, chunk_len: int, *, draft: bool = False):
         model = self.draft_model if draft else self.model
-        return self._touch(("draft_chunk" if draft else "chunk", chunk_len),
-                           lambda: model.prefill_paged_chunk)
+        return self._touch(
+            ("draft_chunk" if draft else "chunk", chunk_len),
+            lambda: model.prefill_paged_chunk,
+            lambda: _decode_policies(
+                model, 1, self.max_pages_per_seq * self.page_size,
+                chunk_len))
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> None:

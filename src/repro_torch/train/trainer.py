@@ -11,8 +11,10 @@ simulated failure waits for the write in flight and restores the newest
 valid checkpoint, or restarts from scratch when there is none; a last save
 ends the run. The straggler watchdog observes every step. Each step is an
 ``obs`` span "trainer.step" and adds one to the counter "trainer.steps",
-as in the reference (its "trainer.bucket_pins" belongs to the kernel-policy
-pinning, which the port does not have yet).
+as in the reference; each new batch shape pins its kernel policies first
+(:func:`pin_bucket_policies`: the counters "trainer.bucket_pins" and
+"trainer.bucket_pins.{B}x{S}", one log line, ``TrainLoopResult.policies``),
+after ``pretuned=`` installs a measured table.
 
 With a ``mesh`` the step is data parallel over its 'data' axis, each rank
 on its own rows of the batch (``DataIterator(mesh=)``), and tensor
@@ -63,6 +65,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.core import autotune
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.distributed.tensor_parallel import TensorParallel
@@ -340,6 +343,38 @@ class TrainLoopResult:
     restarts: int
     straggler_events: list
     step_seconds: list = dataclasses.field(default_factory=list)
+    # {(batch, seq): {op: KernelPolicy}}, one entry per batch shape
+    policies: dict = dataclasses.field(default_factory=dict)
+
+
+def pin_bucket_policies(model, batch: dict, pinned: dict,
+                        log: Callable = print, mesh=None) -> dict:
+    """Resolve and pin the kernel policies of this batch's (batch, seq)
+    bucket, once a bucket, as the reference's: the autotuner's
+    ``policies_for_model`` (with ``mesh``, its ``train_shard_spec``: the
+    sharded fusion plans journaled too), the ``obs`` counters
+    "trainer.bucket_pins" and "trainer.bucket_pins.{B}x{S}" and one
+    "[trainer] bucket (B, S): pinned kernel policies ..." line."""
+    inputs = batch.get("inputs") if isinstance(batch, dict) else batch
+    if inputs is None or getattr(inputs, "ndim", 0) < 2:
+        return pinned
+    key = (int(inputs.shape[0]), int(inputs.shape[1]))
+    if key not in pinned:
+        from repro_torch.distributed.sharding import train_shard_spec
+
+        shard = train_shard_spec(model.cfg, mesh)
+        pols = autotune.policies_for_model(model.cfg, batch=key[0],
+                                           seq_len=key[1], shard=shard)
+        pinned[key] = pols
+        if obs.enabled():
+            obs.incr("trainer.bucket_pins")
+            obs.incr(f"trainer.bucket_pins.{key[0]}x{key[1]}")
+        desc = "; ".join(f"{op}={p.schedule.name}"
+                         f"{tuple(p.describe()['blocks'])}"
+                         for op, p in sorted(pols.items()))
+        log(f"[trainer] bucket {key}: pinned kernel policies "
+            f"{desc or '(none)'}")
+    return pinned
 
 
 def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
@@ -351,7 +386,7 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
                failure_injector: Optional[FailureInjector] = None,
                watchdog: Optional[StragglerWatchdog] = None,
                max_restarts: int = 3, log_every: int = 10,
-               log: Callable = print) -> TrainLoopResult:
+               pretuned=None, log: Callable = print) -> TrainLoopResult:
     """Train up to step ``num_steps`` from ``init_state(model, seed, params,
     grad_compress=...)``, or from the newest valid checkpoint in
     ``ckpt_dir``. ``checkpointer``: the ``AsyncCheckpointer`` to save
@@ -361,7 +396,12 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
     With ``mesh`` (and ``zero1``) the step is data parallel
     (:func:`make_train_step`), the state each rank's blocks
     (``sharded_init``), and checkpoints hold the global leaves, written by
-    the mesh's first rank and restored into each rank's blocks."""
+    the mesh's first rank and restored into each rank's blocks.
+    ``pretuned``: a measured policy table (a path or a report dict),
+    installed for the process before the first bucket pins its policies
+    (a rejected table raises)."""
+    if pretuned is not None:
+        autotune.use_pretuned(pretuned, required=True)
     step_fn = make_train_step(model, opt_cfg, microbatches=microbatches,
                               grad_compress=grad_compress, mesh=mesh,
                               zero1=zero1)
@@ -401,10 +441,12 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
     losses: list = []
     seconds: list = []
     restarts = 0
+    pinned: dict = {}
     step = state["step"]
     while step < num_steps:
         try:
             batch = next(data_iter)
+            pin_bucket_policies(model, batch, pinned, log=log, mesh=mesh)
             t0 = time.perf_counter()
             if failure_injector is not None:
                 failure_injector.maybe_fail(step)
@@ -444,4 +486,5 @@ def train_loop(model, data_iter, num_steps: int, opt_cfg: AdamWConfig, *,
         checkpointer.save(state, step)
         checkpointer.wait()
     return TrainLoopResult(state, losses, restarts,
-                           watchdog.events if watchdog else [], seconds)
+                           watchdog.events if watchdog else [], seconds,
+                           pinned)

@@ -339,17 +339,24 @@ def test_gemm_grads_bf16_track_the_f32_truth(chain):
 
 def test_bwd_modes():
     """'reference' is autograd through the oracle, taken only when asked
-    for (argument or default_bwd_mode); 'auto' raises, and so does a scale
-    or rope table that requires grad; on fp32 the two backward modes agree
-    to 1e-5 of each grad's largest entry."""
+    for (argument or default_bwd_mode); 'auto' takes the route that
+    ``core.autotune.select_bwd_mode`` names; a scale or rope table that
+    requires grad raises; on fp32 the two backward modes agree to 1e-5 of
+    each grad's largest entry."""
     _, _, ops, w = _operands("up_silu_gate")
     kern = _port_grads("up_silu_gate", ops, w, torch.float32, "kernel")
     with tg.default_bwd_mode("reference"):
         orac = _port_grads("up_silu_gate", ops, w, torch.float32, None)
     for k in kern:
         assert _tree_max_err(kern[k], orac[k]) <= 1e-5 * np.abs(orac[k]).max()
-    with pytest.raises(NotImplementedError, match="auto"):
-        _port_grads("up_silu_gate", ops, w, torch.float32, "auto")
+    from repro_torch.core import autotune
+    route = autotune.select_bwd_mode(
+        M, N, K, dtype=torch.float32,
+        epilogue=tg.Epilogue(activation="silu", gate=True))
+    auto = _port_grads("up_silu_gate", ops, w, torch.float32, "auto")
+    want = kern if route == "kernel" else orac
+    for k in kern:
+        assert _tree_max_err(auto[k], want[k]) == 0.0
     with pytest.raises(ValueError, match="unknown bwd_mode"):
         _port_grads("up_silu_gate", ops, w, torch.float32, "fast")
     a = torch.ones(8, 16, requires_grad=True)

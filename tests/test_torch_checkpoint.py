@@ -303,7 +303,10 @@ def test_port_resumes_the_jax_trainers_checkpoint(tmp_path):
                                               torch.float32),
                      ckpt_dir=str(tmp_path), ckpt_every=4, log_every=0,
                      log=logs.append)
-    assert logs == ["[trainer] resumed from checkpoint at step 4"]
+    # the resume, then the batch shape's policy pin (as the reference logs)
+    assert logs[0] == "[trainer] resumed from checkpoint at step 4"
+    assert len(logs) == 2 and logs[1].startswith(
+        f"[trainer] bucket ({B}, {S}): pinned kernel policies ")
     assert len(res.losses) == 4 and res.state["step"] == STEPS
     np.testing.assert_allclose(res.losses, jres.losses[4:], rtol=2e-3,
                                atol=2e-3)

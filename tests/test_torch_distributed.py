@@ -186,11 +186,32 @@ with obs.capture() as rec:
             res[f"gemm/{v}/{k}/oracle"] = gemm_collective_oracle(
                 T(a[k + "x"]), T(a[k + "w"]), variant=v, axis_size=4)
 res["gemm/counters"] = dict(rec.counters)
-try:
-    gemm_collective_sharded(T(a["gx"]), T(a["gw"]), mesh=m14,
-                            variant="all_gather", plan=None)
-except NotImplementedError as e:
-    res["gemm/plan_none"] = str(e)
+# plan=None: the autotuner's verdict, then the verdict a table pins
+from repro_torch.core import autotune as _at
+from repro_torch.distributed.sharding import ShardSpec as _Shard
+_gx, _gw = T(a["gx"]), T(a["gw"])
+_shard = _Shard.for_axis(m14, "model", dim="rows", collective="all_gather")
+_auto = _at.select_fusion("gemm_collective", (_gx.shape[0], _gw.shape[1],
+                                              _gx.shape[1]), _gx.dtype,
+                          shard=_shard)["plan"]
+_pin = "unfused" if _auto == "fused" else "fused"
+_key = _at.pretuned_fusion_key(
+    "gemm_collective", (1 << (_gx.shape[0] - 1).bit_length(), _gw.shape[1],
+                        _gx.shape[1]), "float32", residual=True,
+    prenorm="none", backward=False, causal=False, softcap=False,
+    sink=False, shard=_shard)
+for tag, table in (("auto", None), ("pinned", {
+        "schema_version": 1, "arch": "cpu", "cells": {},
+        "fusion": {_key: {"plan": {"plan": _pin}}}})):
+    if table is not None:
+        assert _at.install_pretuned(table, arch="cpu")
+    with obs.capture() as rec:
+        res[f"gemm/plan_none/{tag}/out"] = gemm_collective_sharded(
+            _gx, _gw, mesh=m14, variant="all_gather", plan=None)
+    res[f"gemm/plan_none/{tag}"] = (
+        {"fused": "ring", "unfused": "gather"}[_pin if table else _auto],
+        dict(rec.counters))
+_at.clear_pretuned()
 
 # compressed_psum over 'data' of the (2, 2) mesh
 res["psum/replicated"] = compressed_psum(T(a["px"]), m22, "data")
@@ -366,12 +387,23 @@ def test_gemm_collective_ring_equals_gather_and_oracle(world, variant):
 
 
 def test_gemm_collective_counts_and_refuses_plan_none(world):
+    """Each plan counted; ``plan=None`` (refused before the policy layer)
+    runs the plan ``core.autotune.select_fusion`` names, and under an
+    installed table the plan the table pins, each bit for bit the other
+    plan's product (full-K panels)."""
     ranks, _, _ = world
     for r in ranks:
         for v in ("all_gather", "reduce_scatter"):
             for plan in ("ring", "gather"):
                 assert r["gemm/counters"][f"gemm_collective.{v}.{plan}"] == 2
-        assert "policy layer" in r["gemm/plan_none"]
+        picked = []
+        for tag in ("auto", "pinned"):
+            plan, counters = r[f"gemm/plan_none/{tag}"]
+            assert counters.get(f"gemm_collective.all_gather.{plan}") == 1
+            assert torch.equal(r[f"gemm/plan_none/{tag}/out"],
+                               r[f"gemm/all_gather/g/{plan}"])
+            picked.append(plan)
+        assert picked[0] != picked[1]
 
 
 def test_compressed_psum_matches_jax(world):

@@ -191,7 +191,9 @@ def test_summary_block_and_plan_audit():
     assert s["launches"] == {"gemm_fused": 1}
     assert s["modeled_dma_bytes"] == {"gemm_fused": 0}
     assert s["counters"] == {"c": 1.0}
-    assert s["spans"] == 1 and s["plan_decisions"] == 1
+    # the launch's policy verdict (the policy layer's) and the fusion one
+    assert s["spans"] == 1 and s["plan_decisions"] == 2
+    assert [p.op for p in cap.plans_of("policy")] == ["gemm"]
     assert cap.plans_of("fusion")[0].to_json()["chosen"] == {"plan": "fused"}
 
 
@@ -232,7 +234,11 @@ def test_chrome_trace_schema(tmp_path):
     assert launches[1]["args"]["dma_bytes"] > 0
     assert any(e["name"] == "tokens" and e["ph"] == "C" for e in evs)
     assert doc["otherData"]["producer"] == "repro_torch.obs"
-    assert doc["otherData"]["plan_decisions"] == []
+    # each launch's policy verdict, from the policy layer
+    assert [(p["kind"], p["op"]) for p in doc["otherData"]["plan_decisions"]] \
+        == [("policy", "gemm"), ("policy", "attention_fwd")]
+    assert [e["args"]["policy"]["op"] for e in launches] \
+        == ["gemm", "attention_fwd"]
 
 
 def test_counters_export_stable_keys(tmp_path):
@@ -583,14 +589,15 @@ def _jax_trainer_counters(steps):
         j_train_loop(model, jdata.DataIterator(dcfg), steps, opt,
                      log_every=0, log=lambda *a: None)
     return (cap.counter("trainer.steps"),
-            [s.meta for s in cap.spans if s.name == "trainer.step"])
+            [s.meta for s in cap.spans if s.name == "trainer.step"],
+            {k: v for k, v in cap.counters.items()
+             if k.startswith("trainer.bucket_pins")})
 
 
 def test_trainer_counters_match_jax():
     """train_loop: ``trainer.steps`` and one ``trainer.step`` span per step
-    (its ``step`` field), as the JAX trainer records them;
-    ``trainer.bucket_pins`` belongs to the kernel-policy pinning, which the
-    port does not have."""
+    (its ``step`` field), and the kernel-policy pinning's
+    ``trainer.bucket_pins`` counters, as the JAX trainer records them."""
     steps = 3
     model, _ = _port_model("llama", mode="kernel")
     dcfg = tdata.DataConfig(vocab_size=SMALL["vocab_size"], seq_len=16,
@@ -599,13 +606,15 @@ def test_trainer_counters_match_jax():
         train_loop(model, tdata.DataIterator(dcfg, device="cpu"), steps,
                    topt.AdamWConfig(schedule=topt.constant_schedule(1e-3)),
                    log_every=0)
-    jsteps, jspans = _jax_trainer_counters(steps)
+    jsteps, jspans, jpins = _jax_trainer_counters(steps)
     spans = [s for s in cap.spans if s.name == "trainer.step"]
     assert cap.counter("trainer.steps") == jsteps == steps
     assert [s.meta for s in spans] == jspans == [{"step": i}
                                                  for i in range(steps)]
     assert all(s.dur > 0 for s in spans)
-    assert "trainer.bucket_pins" not in cap.counters
+    assert {k: v for k, v in cap.counters.items()
+            if k.startswith("trainer.bucket_pins")} == jpins == {
+        "trainer.bucket_pins": 1.0, "trainer.bucket_pins.2x16": 1.0}
     # every layer's forward, its recompute and its backward journaled
     assert cap.count("gemm_fused") == steps * SMALL["num_layers"] * 8
     assert cap.count("gemm_bwd_da") == steps * SMALL["num_layers"] * 4
